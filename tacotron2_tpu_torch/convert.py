@@ -1,0 +1,150 @@
+"""Weights in and out of the port.
+
+- ``from_jax_params`` / ``hifigan_from_jax_params``: the JAX package's
+  parameter trees (numpy arrays) -> the port's ``state_dict`` (the
+  reference's names and torch layouts). The tests use them to run both
+  frameworks on the same weights.
+- ``load_tacotron2_checkpoint``: the reference's Lightning ``.ckpt``
+  (``state_dict`` keys prefixed ``tacotron2.``) or a raw state dict.
+- ``load_hifigan_checkpoint``: the upstream HiFi-GAN ``g_*`` file
+  (``{"generator": state_dict}``) with its ``config.json`` beside it; weight
+  norm (``weight_g``, ``weight_v``) is folded into plain weights at load.
+
+Layouts, JAX -> torch: Linear (in, out) -> (out, in); Conv1d (W, I, O) ->
+(O, I, W); ConvTranspose1d (W, I, O) -> (I, O, W); LSTM (in, 4H) -> (4H, in),
+with ``b_ih`` and ``b_hh`` kept apart as in torch.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+LIGHTNING_PREFIX = "tacotron2."
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _linear(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["w"]).T)
+    if "b" in p:
+        sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def _conv1d(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["w"]).transpose(2, 1, 0))
+    if "b" in p:
+        sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def _bn(sd, prefix, p, s):
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+    sd[f"{prefix}.running_mean"] = _t(s["mean"])
+    sd[f"{prefix}.running_var"] = _t(s["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def _lstm(sd, prefix, p, suffix=""):
+    sd[f"{prefix}.weight_ih{suffix}"] = _t(np.asarray(p["w_ih"]).T)
+    sd[f"{prefix}.weight_hh{suffix}"] = _t(np.asarray(p["w_hh"]).T)
+    sd[f"{prefix}.bias_ih{suffix}"] = _t(p["b_ih"])
+    sd[f"{prefix}.bias_hh{suffix}"] = _t(p["b_hh"])
+
+
+def from_jax_params(params: dict, state: dict) -> Dict[str, torch.Tensor]:
+    """JAX Tacotron 2 (params, state) -> the port's state_dict (vanilla
+    configuration)."""
+    sd: Dict[str, torch.Tensor] = {}
+    enc = params["encoder"]
+    sd["encoder.embedding.weight"] = _t(enc["embedding"]["table"])
+    for i in range(3):
+        _conv1d(sd, f"encoder.convolutions.{4 * i}", enc["convs"][i])
+        _bn(sd, f"encoder.convolutions.{4 * i + 1}", enc["bns"][i],
+            state["encoder"]["bns"][i])
+    _lstm(sd, "encoder.lstm", enc["lstm_fwd"], "_l0")
+    _lstm(sd, "encoder.lstm", enc["lstm_bwd"], "_l0_reverse")
+    _linear(sd, "prenet.0", params["prenet"]["fc1"])
+    _linear(sd, "prenet.3", params["prenet"]["fc2"])
+    _linear(sd, "att_encoder", params["att_encoder"])
+    dec = params["decoder"]
+    _lstm(sd, "decoder.att_rnn", dec["att_rnn"])
+    att = dec["attention"]
+    _linear(sd, "decoder.attention.query_layer", att["query"])
+    _linear(sd, "decoder.attention.v", att["v"])
+    _conv1d(sd, "decoder.attention.location_conv", att["location_conv"])
+    _linear(sd, "decoder.attention.location_dense", att["location_dense"])
+    _lstm(sd, "decoder.lstm", dec["lstm"])
+    _linear(sd, "decoder.mel_out", dec["mel_out"])
+    _linear(sd, "decoder.gate", dec["gate"])
+    post = params["postnet"]
+    for i in range(len(post["convs"])):
+        _conv1d(sd, f"postnet.postnet.{4 * i}", post["convs"][i])
+        _bn(sd, f"postnet.postnet.{4 * i + 1}", post["bns"][i],
+            state["postnet"]["bns"][i])
+    return sd
+
+
+def hifigan_from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX HiFi-GAN params -> the port's (and the reference generator's,
+    with weight norm removed) state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv1d(sd, "conv_pre", params["conv_pre"])
+    for i, up in enumerate(params["ups"]):
+        sd[f"ups.{i}.weight"] = _t(np.asarray(up["w"]).transpose(1, 2, 0))
+        sd[f"ups.{i}.bias"] = _t(up["b"])
+    for i, rb in enumerate(params["resblocks"]):
+        for name in ("convs1", "convs2", "convs"):
+            for j, cp in enumerate(rb.get(name, [])):
+                _conv1d(sd, f"resblocks.{i}.{name}.{j}", cp)
+    _conv1d(sd, "conv_post", params["conv_post"])
+    return sd
+
+
+def to_lightning(sd: Dict[str, torch.Tensor], hparams: dict | None = None) -> dict:
+    """The reference's Lightning checkpoint layout around a state_dict."""
+    return {
+        "state_dict": {LIGHTNING_PREFIX + k: v for k, v in sd.items()},
+        "hyper_parameters": dict(hparams or {}),
+    }
+
+
+def load_tacotron2_checkpoint(path: str) -> Tuple[Dict[str, Any], dict]:
+    """Lightning ``.ckpt`` (or raw state dict file) -> (state_dict, hparams)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
+    if any(k.startswith(LIGHTNING_PREFIX) for k in sd):
+        sd = {k[len(LIGHTNING_PREFIX):]: v for k, v in sd.items()
+              if k.startswith(LIGHTNING_PREFIX)}
+    return sd, dict(ckpt.get("hyper_parameters", {}))
+
+
+def fold_weight_norm(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """w = g * v / ||v||, the norm over every dim but 0 (torch's default)."""
+    out = dict(sd)
+    for key in list(sd):
+        if key.endswith(".weight_v"):
+            base = key[: -len(".weight_v")]
+            v = sd[key].float()
+            g = sd[base + ".weight_g"].float()
+            norm = v.pow(2).sum(dim=tuple(range(1, v.dim())), keepdim=True).sqrt()
+            out[base + ".weight"] = g * v / norm.clamp_min(1e-12)
+            del out[key], out[base + ".weight_g"]
+    return out
+
+
+def load_hifigan_checkpoint(path: str) -> Tuple[dict, Dict[str, Any]]:
+    """``g_*`` generator file + sibling ``config.json`` -> (config dict,
+    state_dict with weight norm folded)."""
+    with open(os.path.join(os.path.dirname(path), "config.json")) as f:
+        h = json.load(f)
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if "generator" in sd:
+        sd = sd["generator"]
+    return h, fold_weight_norm(sd)

@@ -1,0 +1,123 @@
+"""HiFi-GAN generator (vocoder).
+
+Counterpart of ``tacotron2_tpu/models/hifigan.py``: conv_pre (num_mels ->
+initial channels, k=7) -> per stage the MRF stage of ``ops/mrf.py``
+([lrelu(0.1) -> ConvTranspose1d(ch -> ch/2, k_u, stride u)] -> mean of the
+resblocks) -> leaky ReLU with torch's default slope 0.01 -> conv_post
+(ch -> 1, k=7) -> tanh. Channels-last: mel (B, T, M) -> wav (B, T * prod(u)).
+Weight norm is folded at load (``convert.load_hifigan_checkpoint``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tacotron2_tpu_torch.models import layers
+from tacotron2_tpu_torch.models.layers import F32, Policy
+from tacotron2_tpu_torch.models.resblock import ResBlock1, ResBlock2
+from tacotron2_tpu_torch.ops.mrf import mrf_stage, pack_upsample
+
+
+@dataclasses.dataclass(frozen=True)
+class HiFiGANConfig:
+    """The checkpoint's JSON config; defaults are UNIVERSAL_V1."""
+
+    resblock: str = "1"
+    upsample_rates: Tuple[int, ...] = (8, 8, 2, 2)
+    upsample_kernel_sizes: Tuple[int, ...] = (16, 16, 4, 4)
+    upsample_initial_channel: int = 512
+    resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    num_mels: int = 80
+
+    @staticmethod
+    def from_dict(h: dict) -> "HiFiGANConfig":
+        return HiFiGANConfig(
+            resblock=str(h["resblock"]),
+            upsample_rates=tuple(h["upsample_rates"]),
+            upsample_kernel_sizes=tuple(h["upsample_kernel_sizes"]),
+            upsample_initial_channel=int(h["upsample_initial_channel"]),
+            resblock_kernel_sizes=tuple(h["resblock_kernel_sizes"]),
+            resblock_dilation_sizes=tuple(tuple(d) for d in h["resblock_dilation_sizes"]),
+            num_mels=int(h.get("num_mels", 80)),
+        )
+
+    @property
+    def total_upsample(self) -> int:
+        return math.prod(self.upsample_rates)
+
+
+def stage_reach(resblock: str, kernels, dilations) -> int:
+    """Largest one-sided reach, in samples, of any resblock chain of a
+    stage (the JAX package's ``ops/mrf_pallas.py::stage_reach``)."""
+    reach = 0
+    for kr, dil in zip(kernels, dilations):
+        r = 0
+        for d in dil:
+            r += d * (kr - 1) // 2
+            if resblock == "1":
+                r += (kr - 1) // 2
+        reach = max(reach, r)
+    return reach
+
+
+class HiFiGAN(nn.Module):
+    def __init__(self, config: HiFiGANConfig, policy: Policy = F32):
+        super().__init__()
+        c = config
+        self.cfg = c
+        self.policy = policy
+        self.conv_pre = nn.Conv1d(c.num_mels, c.upsample_initial_channel, 7, padding=3)
+        self.ups = nn.ModuleList()
+        self.resblocks = nn.ModuleList()
+        block = ResBlock1 if c.resblock == "1" else ResBlock2
+        ch = c.upsample_initial_channel
+        for u, k in zip(c.upsample_rates, c.upsample_kernel_sizes):
+            self.ups.append(nn.ConvTranspose1d(ch, ch // 2, k, u, padding=(k - u) // 2))
+            ch //= 2
+            for kr, dil in zip(c.resblock_kernel_sizes, c.resblock_dilation_sizes):
+                self.resblocks.append(block(ch, kr, dil))
+        self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
+
+    def mel_receptive_field(self) -> int:
+        """One-sided receptive field of the generator in mel frames."""
+        c = self.cfg
+        rf = 3.0  # conv_pre, k=7
+        cum = 1.0
+        reach = stage_reach(c.resblock, c.resblock_kernel_sizes, c.resblock_dilation_sizes)
+        for u, k in zip(c.upsample_rates, c.upsample_kernel_sizes):
+            rf += -(-k // u) / cum
+            cum *= u
+            rf += reach / cum
+        rf += 3.0 / cum  # conv_post
+        return int(math.ceil(rf)) + 1
+
+    def kernel_weights(self):
+        """Per stage: (resblock weights, upsample weights) in the kernels'
+        layouts and the policy's compute type."""
+        dt = self.policy.compute_dtype
+        n = len(self.cfg.resblock_kernel_sizes)
+        return [
+            ([rb.kernel_weights(dt) for rb in self.resblocks[i * n:(i + 1) * n]],
+             pack_upsample(up, dt))
+            for i, up in enumerate(self.ups)
+        ]
+
+    @torch.no_grad()
+    def apply(self, mel: torch.Tensor, stage=mrf_stage) -> torch.Tensor:
+        """mel (B, T, num_mels) -> wav (B, T * total_upsample). ``stage``
+        computes each MRF stage: the kernels' wrappers by default, or
+        ``plain_stage`` (the plain version on any device)."""
+        pol = self.policy
+        x = layers.conv1d(mel, self.conv_pre.weight, self.conv_pre.bias, pol, padding=3)
+        for rbs, ups in self.kernel_weights():
+            x = stage(x.contiguous(), rbs, ups)
+        x = F.leaky_relu(x, 0.01)
+        x = layers.conv1d(x, self.conv_post.weight, self.conv_post.bias, pol, padding=3)
+        return torch.tanh(x)[..., 0]

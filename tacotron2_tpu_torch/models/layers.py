@@ -1,0 +1,121 @@
+"""Functional layers on tensors, in torch's weight layouts.
+
+Counterpart of ``tacotron2_tpu/models/layers.py``. The JAX package stores
+weights as Linear ``(in, out)`` and Conv1d ``(W, I, O)``; here every weight
+keeps torch's layout (Linear ``(out, in)``, Conv1d ``(O, I, W)``,
+ConvTranspose1d ``(I, O, W)``, LSTM ``(4H, in)``), because the modules hold
+them under the reference's ``state_dict`` names. Activations are
+channels-last ``(B, T, C)`` as in the JAX package, so the tests compare like
+with like.
+
+``Policy`` carries the precision: under bf16 compute every matmul and conv
+operand is rounded to bf16 and the sum is taken in f32, the same class as the
+JAX package's bf16 policy (bf16 operands, f32 accumulation).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """Mixed precision: ``compute_dtype`` is the operand type of matmuls."""
+
+    compute_dtype: torch.dtype = torch.float32
+
+    @staticmethod
+    def from_string(precision: str) -> "Policy":
+        if precision in ("bf16-mixed", "16-mixed", "bf16"):
+            return Policy(torch.bfloat16)
+        if precision in ("32", "32-true", "float32", "fp32"):
+            return Policy(torch.float32)
+        raise ValueError(f"unknown precision {precision!r}")
+
+    def cast(self, x: torch.Tensor) -> torch.Tensor:
+        """Round an operand to the compute type, keep f32 storage."""
+        if self.compute_dtype == torch.float32:
+            return x.float()
+        return x.to(self.compute_dtype).float()
+
+
+F32 = Policy()
+
+
+def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
+    """The port's entry points run on the card unless the caller asks for
+    the CPU; asking for CUDA where there is none raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA was requested but torch.cuda.is_available() is false; "
+            "pass device='cpu' to run the plain versions on the CPU"
+        )
+    return dev
+
+
+def linear(x, w, b=None, policy: Policy = F32):
+    """x (..., in) @ w (out, in)^T + b."""
+    return F.linear(policy.cast(x), policy.cast(w), b)
+
+
+def _same_pad(k: int, dilation: int) -> int:
+    eff = (k - 1) * dilation + 1
+    if eff % 2 == 0:
+        raise ValueError("SAME padding needs an odd effective kernel")
+    return (eff - 1) // 2
+
+
+def conv1d(x, w, b=None, policy: Policy = F32, padding: str | int = "SAME",
+           dilation: int = 1):
+    """Conv1d over channels-last x (B, T, C); w is torch's (O, I, W)."""
+    pad = _same_pad(w.shape[2], dilation) if padding == "SAME" else int(padding)
+    y = F.conv1d(policy.cast(x).transpose(1, 2), policy.cast(w), b,
+                 padding=pad, dilation=dilation)
+    return y.transpose(1, 2)
+
+
+def conv_transpose1d(x, w, b, stride: int, padding: int, policy: Policy = F32):
+    """ConvTranspose1d over channels-last x (B, T, C); w is torch's
+    (I, O, W). out_len = (T-1)*stride - 2*padding + W."""
+    y = F.conv_transpose1d(policy.cast(x).transpose(1, 2), policy.cast(w), b,
+                           stride=stride, padding=padding)
+    return y.transpose(1, 2)
+
+
+def embedding(idx, table):
+    return F.embedding(idx, table)
+
+
+def batchnorm_eval(x, weight, bias, running_mean, running_var, eps: float = 1e-5):
+    """BatchNorm1d in eval mode over the channel (last) axis of (B, T, C)."""
+    return (x - running_mean) * torch.rsqrt(running_var + eps) * weight + bias
+
+
+def lstm_cell(x, hc: Tuple[torch.Tensor, torch.Tensor], w_ih, w_hh, b_ih, b_hh,
+              policy: Policy = F32):
+    """One LSTM step, torch gate order i, f, g, o."""
+    h, c = hc
+    gates = linear(x, w_ih, b_ih, policy) + linear(h, w_hh, b_hh, policy)
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def bilstm_packed(lstm: torch.nn.LSTM, xs, lengths):
+    """Bidirectional one-layer ``nn.LSTM`` over (B, T, C) with packed-sequence
+    semantics, as the reference encoder runs it: the reverse direction
+    starts at each row's own last valid step, and outputs past a row's
+    length are zero. Returns (B, T, 2H), forward then reverse features.
+    It runs in f32 (cuDNN on the card)."""
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        xs.float(), lengths.cpu(), batch_first=True, enforce_sorted=False)
+    out, _ = lstm(packed)
+    out, _ = torch.nn.utils.rnn.pad_packed_sequence(out, batch_first=True,
+                                                    total_length=xs.shape[1])
+    return out

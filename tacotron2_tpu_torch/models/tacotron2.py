@@ -1,0 +1,168 @@
+"""Tacotron 2 top module and its free-running decodes.
+
+Counterpart of ``tacotron2_tpu/models/tacotron2.py`` for the vanilla
+configuration (no speaker tokens, controls, description embeddings or GST):
+encoder -> attention-memory projection -> prenet with AlwaysDropout (on at
+inference) -> free-running decode that stops once every row's gate logit is
+negative -> postnet residual -> length masking (mels -> 0, gates -> -1000).
+
+``forward_infer`` is the reference decode, one step at a time through the
+model's own modules with a stop check after every step. ``forward_infer_fast``
+is the production decode: kernel K1 in 64-frame chunks
+(``ops/decoder_loop.py``), with identical outputs by its step bookkeeping.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from tacotron2_tpu_torch.models import decoder as decoder_mod
+from tacotron2_tpu_torch.models import layers
+from tacotron2_tpu_torch.models.encoder import Encoder
+from tacotron2_tpu_torch.models.layers import F32, Policy
+from tacotron2_tpu_torch.models.postnet import Postnet
+from tacotron2_tpu_torch.ops import decoder_loop
+
+GATE_MASK_VALUE = -1000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Tacotron2Config:
+    num_chars: int
+    encoded_dim: int = 512
+    encoder_kernel_size: int = 5
+    num_mels: int = 80
+    prenet_dim: int = 256
+    att_rnn_dim: int = 1024
+    att_dim: int = 128
+    rnn_hidden_dim: int = 1024
+    postnet_dim: int = 512
+    dropout: float = 0.5
+
+
+class Tacotron2Output(NamedTuple):
+    mels: torch.Tensor  # (B, T, M), 0 past each row's length
+    mels_post: torch.Tensor  # (B, T, M)
+    gates: torch.Tensor  # (B, T, 1), -1000 past each row's length
+    alignments: torch.Tensor  # (B, T, L)
+    lengths: torch.Tensor  # (B,) steps whose gate stayed >= 0
+    n_frames: int  # executed decode steps
+
+
+class Tacotron2(nn.Module):
+    def __init__(self, config: Tacotron2Config, policy: Policy = F32):
+        super().__init__()
+        c = config
+        self.cfg = c
+        self.policy = policy
+        self.encoder = Encoder(c.num_chars, c.encoded_dim, c.encoder_kernel_size)
+        # Sequential indices 0 and 3 are the linears (reference names)
+        self.prenet = nn.Sequential(
+            nn.Linear(c.num_mels, c.prenet_dim, bias=False), nn.ReLU(), nn.Dropout(c.dropout),
+            nn.Linear(c.prenet_dim, c.prenet_dim, bias=False), nn.ReLU(), nn.Dropout(c.dropout),
+        )
+        self.att_encoder = nn.Linear(c.encoded_dim, c.att_dim, bias=False)
+        self.decoder = decoder_mod.Decoder(
+            c.num_mels, c.encoded_dim, c.prenet_dim, c.att_rnn_dim, c.att_dim,
+            c.rnn_hidden_dim)
+        self.postnet = Postnet(c.num_mels, c.postnet_dim)
+
+    # ------------------------------------------------------------------
+    def _encode(self, chars_idx, chars_len):
+        encoded = self.encoder(chars_idx, chars_len, self.policy)
+        att_encoded = layers.linear(encoded, self.att_encoder.weight, None, self.policy)
+        char_pos = torch.arange(chars_idx.shape[1], device=chars_idx.device)
+        mask = char_pos[None, :] >= chars_len[:, None]
+        return encoded, att_encoded, mask
+
+    def _prenet(self, x, m1, m2):
+        x = torch.relu(layers.linear(x, self.prenet[0].weight, None, self.policy)) * m1
+        return torch.relu(layers.linear(x, self.prenet[3].weight, None, self.policy)) * m2
+
+    def _masks(self, n, B, device, generator, prenet_dropout):
+        if prenet_dropout and self.cfg.dropout > 0.0:
+            return decoder_loop.prenet_masks(n, B, self.cfg.prenet_dim, self.cfg.dropout,
+                                             generator, device)
+        ones = torch.ones(n, B, self.cfg.prenet_dim, device=device)
+        return ones, ones
+
+    def _mask_outputs(self, mels, mels_post, gates, aligns, lengths, n_frames):
+        T = mels.shape[1]
+        mask = (torch.arange(T, device=mels.device)[None, :] >= lengths[:, None])[..., None]
+        return Tacotron2Output(
+            mels=mels.masked_fill(mask, 0.0),
+            mels_post=mels_post.masked_fill(mask, 0.0),
+            gates=gates.masked_fill(mask, GATE_MASK_VALUE),
+            alignments=aligns, lengths=lengths, n_frames=n_frames,
+        )
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def forward_infer(self, chars_idx, chars_len, max_len: int,
+                      generator: Optional[torch.Generator] = None,
+                      prenet_dropout: bool = True,
+                      masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                      ) -> Tacotron2Output:
+        """Reference decode: one step at a time, stop after the step where
+        every row's gate has fired. Masks are drawn in 64-frame chunks in
+        the same order as ``forward_infer_fast``, so one generator state
+        gives both the same audio."""
+        c = self.cfg
+        B, L = chars_idx.shape
+        dev = chars_idx.device
+        encoded, att_encoded, mask = self._encode(chars_idx, chars_len)
+        state = decoder_mod.init_state(B, L, c.att_rnn_dim, c.encoded_dim,
+                                       c.rnn_hidden_dim, dev)
+        mels = torch.zeros(B, max_len, c.num_mels, device=dev)
+        gates = torch.full((B, max_len), GATE_MASK_VALUE, device=dev)
+        aligns = torch.zeros(B, max_len, L, device=dev)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        lengths = torch.zeros(B, dtype=torch.int32, device=dev)
+        prev = torch.zeros(B, c.num_mels, device=dev)
+        t = 0
+        while t < max_len:
+            if t % decoder_loop.T_CHUNK == 0:
+                n = min(decoder_loop.T_CHUNK, max_len - t)
+                if masks is not None:
+                    m1, m2 = masks[0][t:t + n], masks[1][t:t + n]
+                else:
+                    m1, m2 = self._masks(n, B, dev, generator, prenet_dropout)
+            k = t % decoder_loop.T_CHUNK
+            x = self._prenet(prev, m1[k], m2[k])
+            mel, gate, state = self.decoder.step(x, state, encoded, att_encoded, mask,
+                                                 self.policy)
+            g = gate[:, 0]
+            mels[:, t], gates[:, t], aligns[:, t] = mel, g, state.att_weights
+            done = done | (g < 0.0)
+            lengths = lengths + (g >= 0.0).int()
+            prev = mel
+            t += 1
+            if bool(done.all()):
+                break
+        post = self.postnet(mels, self.policy)
+        return self._mask_outputs(mels, mels + post, gates[..., None], aligns, lengths, t)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def forward_infer_fast(self, chars_idx, chars_len, max_len: int,
+                           generator: Optional[torch.Generator] = None,
+                           prenet_dropout: bool = True,
+                           masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                           ) -> Tacotron2Output:
+        """Production decode through kernel K1 (``ops/decoder_loop.py``):
+        the kernels on the card, their plain versions on the CPU."""
+        c = self.cfg
+        encoded, att_encoded, _ = self._encode(chars_idx, chars_len)
+        pk = decoder_loop.pack_decoder(self.prenet, self.decoder, self.policy.compute_dtype)
+        mels, gates, aligns, lengths, n_frames = decoder_loop.decode(
+            pk, encoded.to(pk.w_att.dtype).contiguous(), att_encoded.contiguous(),
+            chars_len.to(torch.int32).contiguous(), max_len,
+            dropout=c.dropout, generator=generator, prenet_dropout=prenet_dropout,
+            masks=masks)
+        post = self.postnet(mels, self.policy)
+        return self._mask_outputs(mels, mels + post, gates[..., None], aligns, lengths,
+                                  n_frames)

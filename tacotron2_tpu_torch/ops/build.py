@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the root of the
+checkout (listed in ``.gitignore``), then loaded with ``ctypes``. The hash
+covers the source and the flags, so an edited source is rebuilt and a stale
+library is never loaded. Nothing here runs at import: the first wrapper that
+launches a kernel builds its library, or ``build_all`` builds every library
+at once, one ``nvcc`` per source, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("decode_step", "mrf")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and Path(cand, "bin", "nvcc").exists():
+            return str(Path(cand, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                           "CUDA toolkit is installed")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; None when the library is already built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> str:
+    if job is None:
+        return ""
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every named source in parallel; returns nvcc's log
+    (``-Xptxas -v``: registers, shared memory, spills) per source."""
+    jobs = {n: _start(n) for n in names}
+    return {n: _finish(n, job) for n, job in jobs.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def require(t, dtype, shape, name: str) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape``: the kernels take raw pointers and trust both."""
+    if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous CUDA {dtype} tensor, got "
+                         f"{t.device} {t.dtype} contiguous={t.is_contiguous()}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: want shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero code from a C entry: ``cudaGetLastError()`` of
+    the launch, or ``cudaErrorInvalidValue`` (1) for dimensions the kernel
+    does not take (the launchers hold those rules, in one place)."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {err}")

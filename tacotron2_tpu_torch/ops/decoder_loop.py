@@ -1,0 +1,418 @@
+"""Free-running decode: kernel K1 (one decode step as four CUDA kernels)
+and the host loop over 64-frame chunks.
+
+Replaces the TPU kernel ``tacotron2_tpu/ops/decoder_loop_pallas.py::
+_decode_chunk_kernel`` in bf16 mode (built by ``FusedDecodeLoop._chunk_call``,
+driven by ``FusedDecodeLoop.decode``). That kernel decodes 64 frames per
+launch with both LSTM weight blocks resident in VMEM. One H100 SM holds
+227 KB of shared memory, not the 35.7 MB block, so each step here is a few
+kernels over the whole card (``csrc/decode_step.cu``):
+
+- ``prenet``: two Linear+ReLU layers times the dropout masks;
+- ``lstm_cell`` (twice): the gate matvec over the concatenated inputs,
+  passed as separate pointers, with the i/f/g/o nonlinearity and the c/h
+  update fused;
+- ``location_attention``: query projection, the 31-tap location conv folded
+  with its dense layer into one (A, 2, 31) weight, tanh energies, the
+  masked softmax, the context and the cumulative weights;
+- ``heads``: the mel and gate linear over [rnn_h, ctx].
+
+What bounds a step at batch 1: the bytes of the bf16 LSTM weights,
+2 x 4H x (P + D + H | 2H + D) x 2 B = 35.7 MB at the flagship dims, over
+the HBM rate (3.35 TB/s): 10.7 us. The block fits the 50 MB L2, so a warm
+step may beat that HBM bound. The design spreads each LSTM's 4H gate rows
+over 256 blocks with one warp per row and 16-byte loads, so every SM
+streams weights at once; the other three kernels move well under 1 MB.
+
+The main path is ``decode_chunk``: one host call (``t2_decode_chunk``)
+launches the five kernels of each of 64 steps, so Python does not pace the
+steps. Each wrapper runs its plain PyTorch version for CPU tensors only; a
+CUDA tensor launches the kernels or raises. The host loop checks the gates
+once per chunk (one device-to-host sync per 64 frames) and then does the
+exact step bookkeeping of the reference stop rule, so that ``n_frames``,
+``lengths``, mels, gates and alignments equal the per-step decode's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from tacotron2_tpu_torch.ops import build
+
+T_CHUNK = 64  # frames per chunk; early stop is checked once per chunk
+
+# launches of each kernel; counted only where the kernel is launched
+LAUNCHES = {"prenet": 0, "lstm_cell": 0, "location_attention": 0, "heads": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class PackedDecoder(NamedTuple):
+    """Decoder weights in the kernels' layouts (torch row-major)."""
+
+    w_att: torch.Tensor  # (4H, P + D + H) rows = gates; cols [prenet | ctx | att_h]
+    b_att: torch.Tensor  # (4H,) f32, b_ih + b_hh
+    w_dec: torch.Tensor  # (4H, H + D + H) cols [att_h | ctx | rnn_h]
+    b_dec: torch.Tensor  # (4H,) f32
+    wp1_t: torch.Tensor  # (M, P) prenet fc1, input-major
+    wp2_t: torch.Tensor  # (P, P) prenet fc2, input-major
+    wq: torch.Tensor  # (A, H) query projection
+    w_loc: torch.Tensor  # (A, 2, K) location conv folded with the location dense
+    wv: torch.Tensor  # (A,) energy vector
+    w_out: torch.Tensor  # (M + 1, H + D) rows 0..M-1 mel, row M gate
+    b_out: torch.Tensor  # (M + 1,) f32
+
+
+def pack_decoder(prenet, decoder, dtype: torch.dtype) -> PackedDecoder:
+    """Repack the prenet and decoder modules for the kernels; weights in
+    ``dtype`` (bf16 on the card), biases in f32."""
+    a, d, att = decoder.att_rnn, decoder.lstm, decoder.attention
+    with torch.no_grad():
+        w_loc = torch.einsum("af,fck->ack", att.location_dense.weight.float(),
+                             att.location_conv.weight.float())
+        cast = lambda t: t.detach().to(dtype).contiguous()
+        f32 = lambda t: t.detach().float().contiguous()
+        return PackedDecoder(
+            w_att=cast(torch.cat([a.weight_ih, a.weight_hh], dim=1)),
+            b_att=f32(a.bias_ih + a.bias_hh),
+            w_dec=cast(torch.cat([d.weight_ih, d.weight_hh], dim=1)),
+            b_dec=f32(d.bias_ih + d.bias_hh),
+            wp1_t=cast(prenet[0].weight.t()),
+            wp2_t=cast(prenet[3].weight.t()),
+            wq=cast(att.query_layer.weight),
+            w_loc=cast(w_loc),
+            wv=cast(att.v.weight[0]),
+            w_out=cast(torch.cat([decoder.mel_out.weight, decoder.gate.weight], dim=0)),
+            b_out=f32(torch.cat([decoder.mel_out.bias, decoder.gate.bias], dim=0)),
+        )
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the definition; used for CPU tensors and as the reference
+# the kernels are held against on the card)
+# ---------------------------------------------------------------------------
+
+
+def _rnd(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Round an activation to the weights' type (bf16 operands), keep f32."""
+    return x.to(like.dtype).float()
+
+
+def prenet_plain(mel, wp1_t, wp2_t, m1, m2):
+    h1 = torch.relu(_rnd(mel, wp1_t) @ wp1_t.float()) * m1
+    return torch.relu(_rnd(h1, wp2_t) @ wp2_t.float()) * m2
+
+
+def lstm_cell_plain(w, b, x1, x2, x3, c):
+    x = torch.cat([x1, x2, x3], dim=1)
+    gates = _rnd(x, w) @ w.float().t() + b
+    i, f, g, o = gates.chunk(4, dim=1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+def location_attention_plain(h, wq, w_loc, wv, att_enc, encoded, lengths,
+                             w_prev, cum_prev):
+    L = att_enc.shape[1]
+    q = _rnd(h, wq) @ wq.float().t()  # (B, A)
+    win = _rnd(torch.stack([w_prev, cum_prev], dim=1), w_loc)  # (B, 2, L)
+    loc = F.conv1d(win, w_loc.float(), padding=w_loc.shape[2] // 2)  # (B, A, L)
+    e = torch.tanh(q[:, None, :] + loc.transpose(1, 2) + att_enc)
+    energies = _rnd(e, wv) @ wv.float()  # (B, L)
+    pad = torch.arange(L, device=h.device)[None, :] >= lengths[:, None]
+    w = torch.softmax(energies.masked_fill(pad, float("-inf")), dim=1)
+    ctx = torch.einsum("bl,bld->bd", _rnd(w, encoded), encoded.float())
+    return ctx, w, cum_prev + w
+
+
+def heads_plain(w_out, b_out, rnn_h, ctx):
+    x = torch.cat([rnn_h, ctx], dim=1)
+    return _rnd(x, w_out) @ w_out.float().t() + b_out
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+_LIB = None
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.load("decode_step")
+        lib.t2_prenet.argtypes = [P] * 6 + [I] * 3 + [P]
+        lib.t2_lstm_cell.argtypes = [P, P, P, I, P, I, P, I, P, P, P, I, I, P]
+        lib.t2_location_attention.argtypes = [P] * 12 + [I] * 6 + [P]
+        lib.t2_heads.argtypes = [P, P, P, I, P, I, P, I, I, P]
+        lib.t2_decode_chunk.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I), P]
+        for fn in (lib.t2_prenet, lib.t2_lstm_cell, lib.t2_location_attention, lib.t2_heads,
+                   lib.t2_decode_chunk):
+            fn.restype = I
+        _LIB = lib
+    return _LIB
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def prenet(mel, wp1_t, wp2_t, m1, m2):
+    """(B, M) previous mel -> (B, P) prenet output with dropout masks."""
+    if mel.device.type == "cpu":
+        return prenet_plain(mel, wp1_t, wp2_t, m1, m2)
+    B, M = mel.shape
+    Pd = wp2_t.shape[0]
+    bf = torch.bfloat16
+    build.require(mel, torch.float32, (B, M), "mel")
+    build.require(wp1_t, bf, (M, Pd), "wp1_t")
+    build.require(wp2_t, bf, (Pd, Pd), "wp2_t")
+    build.require(m1, torch.float32, (B, Pd), "m1")
+    build.require(m2, torch.float32, (B, Pd), "m2")
+    out = torch.empty(B, Pd, device=mel.device)
+    LAUNCHES["prenet"] += 1
+    build.check(_lib().t2_prenet(mel.data_ptr(), wp1_t.data_ptr(), wp2_t.data_ptr(),
+                                 m1.data_ptr(), m2.data_ptr(), out.data_ptr(),
+                                 B, M, Pd, _stream()), "prenet")
+    return out
+
+
+def lstm_cell(w, b, x1, x2, x3, c):
+    """LSTM cell over the input [x1 | x2 | x3] with weight rows = gates
+    (4H, n1 + n2 + n3) and summed bias (4H,) -> (h, c)."""
+    if x1.device.type == "cpu":
+        return lstm_cell_plain(w, b, x1, x2, x3, c)
+    B, H = c.shape
+    n1, n2, n3 = x1.shape[1], x2.shape[1], x3.shape[1]
+    R = n1 + n2 + n3
+    build.require(w, torch.bfloat16, (4 * H, R), "w")
+    build.require(b, torch.float32, (4 * H,), "b")
+    for name, x in (("x1", x1), ("x2", x2), ("x3", x3)):
+        build.require(x, torch.float32, (B, x.shape[1]), name)
+    build.require(c, torch.float32, (B, H), "c")
+    h_out = torch.empty(B, H, device=c.device)
+    c_out = torch.empty(B, H, device=c.device)
+    LAUNCHES["lstm_cell"] += 1
+    build.check(_lib().t2_lstm_cell(
+        w.data_ptr(), b.data_ptr(), x1.data_ptr(), n1, x2.data_ptr(), n2,
+        x3.data_ptr(), n3, c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+        B, H, _stream()), "lstm_cell")
+    return h_out, c_out
+
+
+def location_attention(h, wq, w_loc, wv, att_enc, encoded, lengths, w_prev, cum_prev):
+    """-> (context (B, D), weights (B, L), cumulative weights (B, L))."""
+    if h.device.type == "cpu":
+        return location_attention_plain(h, wq, w_loc, wv, att_enc, encoded,
+                                        lengths, w_prev, cum_prev)
+    B, H = h.shape
+    A, _, K = w_loc.shape
+    L, D = encoded.shape[1], encoded.shape[2]
+    bf = torch.bfloat16
+    build.require(h, torch.float32, (B, H), "h")
+    build.require(wq, bf, (A, H), "wq")
+    build.require(w_loc, bf, (A, 2, K), "w_loc")
+    build.require(wv, bf, (A,), "wv")
+    build.require(att_enc, torch.float32, (B, L, A), "att_enc")
+    build.require(encoded, bf, (B, L, D), "encoded")
+    build.require(lengths, torch.int32, (B,), "lengths")
+    build.require(w_prev, torch.float32, (B, L), "w_prev")
+    build.require(cum_prev, torch.float32, (B, L), "cum_prev")
+    ctx = torch.empty(B, D, device=h.device)
+    w = torch.empty(B, L, device=h.device)
+    cum = torch.empty(B, L, device=h.device)
+    LAUNCHES["location_attention"] += 1
+    build.check(_lib().t2_location_attention(
+        h.data_ptr(), wq.data_ptr(), w_loc.data_ptr(), wv.data_ptr(),
+        att_enc.data_ptr(), encoded.data_ptr(), lengths.data_ptr(),
+        w_prev.data_ptr(), cum_prev.data_ptr(), ctx.data_ptr(), w.data_ptr(),
+        cum.data_ptr(), B, L, H, A, D, K, _stream()), "location_attention")
+    return ctx, w, cum
+
+
+def heads(w_out, b_out, rnn_h, ctx):
+    """-> (B, M + 1): mel frame and gate logit over [rnn_h | ctx]."""
+    if rnn_h.device.type == "cpu":
+        return heads_plain(w_out, b_out, rnn_h, ctx)
+    B = rnn_h.shape[0]
+    N = w_out.shape[0]
+    n1, n2 = rnn_h.shape[1], ctx.shape[1]
+    build.require(w_out, torch.bfloat16, (N, n1 + n2), "w_out")
+    build.require(b_out, torch.float32, (N,), "b_out")
+    build.require(rnn_h, torch.float32, (B, n1), "rnn_h")
+    build.require(ctx, torch.float32, (B, n2), "ctx")
+    out = torch.empty(B, N, device=rnn_h.device)
+    LAUNCHES["heads"] += 1
+    build.check(_lib().t2_heads(w_out.data_ptr(), b_out.data_ptr(), rnn_h.data_ptr(), n1,
+                                ctx.data_ptr(), n2, out.data_ptr(), B, N, _stream()),
+                "heads")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the chunk of steps and the decode loop
+# ---------------------------------------------------------------------------
+
+
+class StepState(NamedTuple):
+    mel: torch.Tensor  # (B, M) previous frame
+    att_h: torch.Tensor
+    att_c: torch.Tensor
+    ctx: torch.Tensor
+    att_w: torch.Tensor
+    att_cum: torch.Tensor
+    rnn_h: torch.Tensor
+    rnn_c: torch.Tensor
+
+
+def init_step_state(B: int, M: int, H: int, D: int, L: int, device) -> StepState:
+    z = lambda *s: torch.zeros(*s, device=device)
+    return StepState(z(B, M), z(B, H), z(B, H), z(B, D), z(B, L), z(B, L), z(B, H), z(B, H))
+
+
+def decode_chunk_plain(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1, m2):
+    """``decode_chunk`` in plain PyTorch, for any device."""
+    M = s.mel.shape[1]
+    outs, aligns = [], []
+    for t in range(m1.shape[0]):
+        x = prenet_plain(s.mel, pk.wp1_t, pk.wp2_t, m1[t], m2[t])
+        att_h, att_c = lstm_cell_plain(pk.w_att, pk.b_att, x, s.ctx, s.att_h, s.att_c)
+        ctx, w, cum = location_attention_plain(att_h, pk.wq, pk.w_loc, pk.wv, att_enc,
+                                               encoded, lengths, s.att_w, s.att_cum)
+        rnn_h, rnn_c = lstm_cell_plain(pk.w_dec, pk.b_dec, att_h, ctx, s.rnn_h, s.rnn_c)
+        mel_gate = heads_plain(pk.w_out, pk.b_out, rnn_h, ctx)
+        outs.append(mel_gate)
+        aligns.append(w)
+        s = StepState(mel_gate[:, :M], att_h, att_c, ctx, w, cum, rnn_h, rnn_c)
+    return torch.stack(outs), torch.stack(aligns), s
+
+
+def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1, m2):
+    """n = m1.shape[0] decode steps from state ``s`` with prenet masks
+    (n, B, P) x 2 -> (mel_gate (n, B, M + 1), aligns (n, B, L), new state).
+
+    On the card this is one host call (``t2_decode_chunk``) that launches
+    the four kernels five times per step; each launch is counted."""
+    if encoded.device.type == "cpu":
+        return decode_chunk_plain(pk, encoded, att_enc, lengths, s, m1, m2)
+    n, B, Pd = m1.shape
+    L, D = encoded.shape[1], encoded.shape[2]
+    M, H, A = pk.wp1_t.shape[0], pk.wq.shape[1], pk.wq.shape[0]
+    K = pk.w_loc.shape[2]
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, t, dt, shape in (
+        ("w_att", pk.w_att, bf, (4 * H, Pd + D + H)), ("b_att", pk.b_att, f32, (4 * H,)),
+        ("w_dec", pk.w_dec, bf, (4 * H, 2 * H + D)), ("b_dec", pk.b_dec, f32, (4 * H,)),
+        ("wp1_t", pk.wp1_t, bf, (M, Pd)), ("wp2_t", pk.wp2_t, bf, (Pd, Pd)),
+        ("wq", pk.wq, bf, (A, H)), ("w_loc", pk.w_loc, bf, (A, 2, K)), ("wv", pk.wv, bf, (A,)),
+        ("w_out", pk.w_out, bf, (M + 1, H + D)), ("b_out", pk.b_out, f32, (M + 1,)),
+        ("att_enc", att_enc, f32, (B, L, A)), ("encoded", encoded, bf, (B, L, D)),
+        ("lengths", lengths, torch.int32, (B,)),
+        ("m1", m1, f32, (n, B, Pd)), ("m2", m2, f32, (n, B, Pd)),
+        ("mel", s.mel, f32, (B, M)), ("att_h", s.att_h, f32, (B, H)),
+        ("att_c", s.att_c, f32, (B, H)), ("ctx", s.ctx, f32, (B, D)),
+        ("att_w", s.att_w, f32, (B, L)), ("att_cum", s.att_cum, f32, (B, L)),
+        ("rnn_h", s.rnn_h, f32, (B, H)), ("rnn_c", s.rnn_c, f32, (B, H)),
+    ):
+        build.require(t, dt, shape, name)
+    dev = encoded.device
+    mel_gate = torch.empty(n, B, M + 1, device=dev)
+    aligns = torch.empty(n, B, L, device=dev)
+    x = torch.empty(B, Pd, device=dev)
+    pp = {k: torch.empty(2, B, w, device=dev)
+          for k, w in (("att_h", H), ("att_c", H), ("ctx", D), ("att_cum", L),
+                       ("rnn_h", H), ("rnn_c", H))}
+    tensors = (*pk, att_enc, encoded, lengths, m1, m2, *s, mel_gate, aligns, x,
+               pp["att_h"], pp["att_c"], pp["ctx"], pp["att_cum"], pp["rnn_h"], pp["rnn_c"])
+    ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    dims = (ctypes.c_int * 9)(n, B, M, Pd, H, D, L, A, K)
+    LAUNCHES["prenet"] += n
+    LAUNCHES["lstm_cell"] += 2 * n
+    LAUNCHES["location_attention"] += n
+    LAUNCHES["heads"] += n
+    build.check(_lib().t2_decode_chunk(ptrs, dims, _stream()), "decode_chunk")
+    last = (n - 1) % 2
+    new = StepState(mel_gate[n - 1, :, :M].contiguous(), pp["att_h"][last], pp["att_c"][last],
+                    pp["ctx"][last], aligns[n - 1], pp["att_cum"][last], pp["rnn_h"][last],
+                    pp["rnn_c"][last])
+    return mel_gate, aligns, new
+
+
+def prenet_masks(n: int, B: int, Pd: int, dropout: float, generator, device):
+    """AlwaysDropout scale masks (n, B, P) x 2 from a torch.Generator."""
+    keep = 1.0 - dropout
+    m1 = (torch.rand(n, B, Pd, generator=generator, device=device) < keep).float() / keep
+    m2 = (torch.rand(n, B, Pd, generator=generator, device=device) < keep).float() / keep
+    return m1, m2
+
+
+def decode(pk: PackedDecoder, encoded, att_enc, lengths, max_len: int,
+           dropout: float = 0.5, generator: Optional[torch.Generator] = None,
+           prenet_dropout: bool = True,
+           masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Free-running decode with early stop checked once per 64-frame chunk.
+
+    encoded (B, L, D) in the weights' type, att_enc (B, L, A) f32, lengths
+    (B,) int32. ``masks``: optional precomputed prenet masks (T, B, P) x 2,
+    frame t's masks applying to the prenet of frame t-1's mel; otherwise
+    they are drawn per chunk from ``generator``. Returns (mels (B, T, M)
+    raw over the executed frames and zero past them, gates (B, T) with
+    -1000 past them, aligns (B, T, L), lengths (B,), executed frames)."""
+    B, L, D = encoded.shape
+    dev = encoded.device
+    M = pk.wp1_t.shape[0]
+    H = pk.wq.shape[1]
+    Pd = pk.wp2_t.shape[0]
+    s = init_step_state(B, M, H, D, L, dev)
+    use_dropout = prenet_dropout and dropout > 0.0
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    mel_gate_chunks, align_chunks = [], []
+    n_chunks = -(-max_len // T_CHUNK)
+    for k in range(n_chunks):
+        t0 = k * T_CHUNK
+        n = min(T_CHUNK, max_len - t0)
+        if masks is not None:
+            m1, m2 = masks[0][t0:t0 + n], masks[1][t0:t0 + n]
+        elif use_dropout:
+            m1, m2 = prenet_masks(n, B, Pd, dropout, generator, dev)
+        else:
+            m1 = m2 = torch.ones(n, B, Pd, device=dev)
+        chunk, aligns, s = decode_chunk(pk, encoded, att_enc, lengths, s, m1, m2)
+        mel_gate_chunks.append(chunk)  # (n, B, M + 1)
+        align_chunks.append(aligns)
+        done = done | (chunk[:, :, M] < 0.0).any(dim=0)
+        if bool(done.all()):  # the one host sync per chunk
+            break
+
+    mel_gate = torch.cat(mel_gate_chunks).transpose(0, 1)  # (B, Tc, M + 1)
+    aligns = torch.cat(align_chunks).transpose(0, 1)  # (B, Tc, L)
+    Tc = mel_gate.shape[1]
+    gates_raw = mel_gate[:, :, M]
+    # reference stop bookkeeping: per executed step done |= gate < 0 and
+    # lengths += gate >= 0; the loop ends right after the step where every
+    # row has fired. The chunk may run past that step: exclude those frames.
+    fired = gates_raw < 0.0
+    all_fired_by_t = (torch.cumsum(fired.int(), dim=1) > 0).all(dim=0)  # (Tc,)
+    not_done = (~all_fired_by_t).int()
+    executed = torch.cat([torch.ones(1, dtype=torch.int32, device=dev),
+                          torch.cumprod(not_done, dim=0)[:-1].int()]) > 0
+    out_lengths = ((gates_raw >= 0.0) & executed[None, :]).sum(dim=1).int()
+    n_exec = int(executed.sum())
+
+    ex = executed.float()
+    mels = torch.zeros(B, max_len, M, device=dev)
+    mels[:, :Tc] = mel_gate[:, :, :M] * ex[None, :, None]
+    gates = torch.full((B, max_len), -1000.0, device=dev)
+    gates[:, :Tc] = torch.where(executed[None, :], gates_raw, torch.full_like(gates_raw, -1000.0))
+    al = torch.zeros(B, max_len, L, device=dev)
+    al[:, :Tc] = aligns * ex[None, :, None]
+    return mels, gates, al, out_lengths, n_exec

@@ -1,0 +1,150 @@
+"""``say``: text -> WAV on the port.
+
+Counterpart of ``run/say.py`` of the JAX package (and its helpers in
+``run/common.py``) for the vanilla configuration: text frontend (no
+abbreviation expansion) -> encoder -> free-running decode through kernel K1
+with early stop -> postnet -> cut at the first fired gate -> HiFi-GAN over
+a 128-frame bucket with a receptive-field margin (kernel K2) -> PCM16 WAV.
+
+``--random-seed`` seeds the torch.Generator that draws the prenet's
+AlwaysDropout masks, so one seed reproduces the audio on one device.
+
+The vocoder's precision follows the device, not the Tacotron config (see
+``vocoder_policy``).
+"""
+
+from __future__ import annotations
+
+import secrets
+import time
+from typing import Optional
+
+import torch
+
+from tacotron2_tpu_torch.audio.io import write_wav
+from tacotron2_tpu_torch.config import Config
+from tacotron2_tpu_torch.convert import load_hifigan_checkpoint, load_tacotron2_checkpoint
+from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
+from tacotron2_tpu_torch.models.layers import F32, Policy, resolve_device
+from tacotron2_tpu_torch.models.tacotron2 import Tacotron2, Tacotron2Config
+from tacotron2_tpu_torch.ops.mrf import mrf_stage
+from tacotron2_tpu_torch.text.cleaners import normalize_text
+from tacotron2_tpu_torch.text.encoder import CharEncoder
+
+MAX_LEN = 5000  # frames cap
+VOCODE_BUCKET = 128  # vocoder input frames are a multiple of this
+
+
+def model_config_from(cfg: Config) -> Tacotron2Config:
+    ext = cfg.extensions
+    if (ext.speaker_tokens.active or ext.controls.active or ext.gst.active
+            or cfg.model.description_embeddings):
+        raise NotImplementedError(
+            "the port runs the vanilla configuration; speaker tokens, controls, "
+            "description embeddings and GST are not ported yet")
+    m = cfg.model
+    return Tacotron2Config(
+        num_chars=cfg.num_chars, encoded_dim=m.encoded_dim,
+        encoder_kernel_size=m.encoder_kernel_size,
+        num_mels=cfg.dataset.preprocessing.num_mels, prenet_dim=m.prenet_dim,
+        att_rnn_dim=m.att_rnn_dim, att_dim=m.att_dim, rnn_hidden_dim=m.rnn_hidden_dim,
+        postnet_dim=m.postnet_dim, dropout=m.dropout,
+    )
+
+
+def _load_strict(module: torch.nn.Module, sd: dict) -> None:
+    missing, unexpected = module.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError(f"checkpoint does not match the model: missing {missing}, "
+                         f"unexpected {unexpected}")
+
+
+def load_tacotron(cfg: Config, checkpoint: str, device) -> Tacotron2:
+    model = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision))
+    sd, _ = load_tacotron2_checkpoint(checkpoint)
+    _load_strict(model, sd)
+    return model.to(device).eval()
+
+
+def vocoder_policy(device: torch.device) -> Policy:
+    """bf16 operands with f32 sums on the card, K2's one mode; f32 on the
+    CPU, the JAX package's ``say`` precision. ``chip_smoke.py`` measures the
+    PCM16 difference of the two on the card."""
+    return Policy(torch.bfloat16) if device.type == "cuda" else F32
+
+
+def load_hifigan(checkpoint: str, policy: Policy, device) -> HiFiGAN:
+    h, sd = load_hifigan_checkpoint(checkpoint)
+    model = HiFiGAN(HiFiGANConfig.from_dict(h), policy)
+    _load_strict(model, sd)
+    return model.to(device).eval()
+
+
+def cut_vocode(hifigan: HiFiGAN, mels_post: torch.Tensor, cut: int,
+               stage=mrf_stage) -> torch.Tensor:
+    """Row 0's mel cut at ``cut`` frames -> int16 PCM of cut * hop samples.
+
+    The vocoder sees a bucket of Tb = ceil((cut + RF) / 128) * 128 frames
+    with the frames at or past ``cut`` zeroed, so no kept sample's receptive
+    field reaches the bucket's end. The clip to [-1, 1 - 1/32768] and the
+    x32768 int16 cast truncate toward zero, as the WAV writer does.
+    ``stage`` computes each MRF stage (see ``HiFiGAN.apply``)."""
+    Tb = -(-(cut + hifigan.mel_receptive_field()) // VOCODE_BUCKET) * VOCODE_BUCKET
+    m = mels_post[:1, :Tb]
+    if m.shape[1] < Tb:
+        m = torch.nn.functional.pad(m, (0, 0, 0, Tb - m.shape[1]))
+    keep = (torch.arange(Tb, device=m.device) < cut)[None, :, None]
+    wav = hifigan.apply(m * keep, stage)
+    pcm = (wav.clamp(-1.0, 1.0 - 1.0 / 32768.0) * 32768.0).to(torch.int16)
+    return pcm[0, : cut * hifigan.cfg.total_upsample]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def do_say(cfg: Config, checkpoint: str, text: str, output: str,
+           hifi_gan_checkpoint: Optional[str] = None,
+           random_seed: Optional[int] = None, max_len_override: int = MAX_LEN,
+           device: Optional[str] = None) -> dict:
+    """Synthesize ``text`` into ``output``; returns what ran and how long
+    each phase took on the host clock (each phase ends in a device sync)."""
+    if hifi_gan_checkpoint is None:
+        raise NotImplementedError(
+            "the port's say needs --hifi-gan-checkpoint: the Griffin-Lim "
+            "fallback is not ported yet")
+    dev = resolve_device(device)
+    prep = cfg.dataset.preprocessing
+    if random_seed is None:
+        random_seed = secrets.randbelow(2**31)
+
+    norm = normalize_text(text, prep.allowed_chars, prep.end_token, False)
+    chars_idx, chars_len = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch([norm])
+    model = load_tacotron(cfg, checkpoint, dev)
+    hifigan = load_hifigan(hifi_gan_checkpoint, vocoder_policy(dev), dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(random_seed))
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = model.forward_infer_fast(torch.as_tensor(chars_idx, device=dev),
+                                   torch.as_tensor(chars_len, device=dev),
+                                   max_len_override, generator=gen)
+    _sync(dev)
+    t1 = time.perf_counter()
+    n = int(out.n_frames)
+    cut = max(n - 1, 1)  # drop the frame whose gate fired
+    pcm = cut_vocode(hifigan, out.mels_post, cut)
+    wav = pcm.cpu().numpy()
+    t2 = time.perf_counter()
+    write_wav(output, wav, prep.sample_rate)
+    print(f"wrote {output}: {len(wav) / prep.sample_rate:.2f}s "
+          f"({n} frames, seed {random_seed}, {dev.type})")
+    return {
+        "output": output, "n_frames": n, "cut": cut, "samples": int(len(wav)),
+        "chars": int(chars_len[0]), "seed": int(random_seed), "device": str(dev),
+        "decode_s": t1 - t0, "vocode_s": t2 - t1, "say_s": t2 - t0,
+        "audio_s": len(wav) / prep.sample_rate,
+    }

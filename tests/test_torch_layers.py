@@ -1,0 +1,145 @@
+"""The port's layers (tacotron2_tpu_torch/models/layers.py) against their
+JAX counterparts (tacotron2_tpu/models/layers.py), in f32 on the CPU. Inputs
+and weights are made with numpy from a seed; weights cross in each
+framework's own layout. Tolerance 1e-5 abs (f32 rounding of one op)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tacotron2_tpu.models import layers as jl
+from tacotron2_tpu_torch.models import layers as tl
+
+torch.set_num_threads(1)
+ATOL = 1e-5
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+def _close(got, ref, atol=ATOL):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_linear(bias):
+    r = _rng(1)
+    x = r.standard_normal((3, 5, 24)).astype(np.float32)
+    w = (r.standard_normal((24, 16)) * 0.2).astype(np.float32)  # JAX (in, out)
+    b = r.standard_normal(16).astype(np.float32)
+    p = {"w": jnp.asarray(w)} | ({"b": jnp.asarray(b)} if bias else {})
+    ref = jl.linear_apply(p, jnp.asarray(x))
+    got = tl.linear(torch.as_tensor(x), torch.as_tensor(w.T), torch.as_tensor(b) if bias else None)
+    _close(got, ref)
+
+
+def test_linear_bf16_policy():
+    """bf16 operands with f32 sums on both sides."""
+    r = _rng(2)
+    x = r.standard_normal((4, 64)).astype(np.float32)
+    w = (r.standard_normal((64, 32)) * 0.2).astype(np.float32)
+    ref = jl.linear_apply({"w": jnp.asarray(w)}, jnp.asarray(x),
+                          jl.Policy.from_string("bf16-mixed"))
+    got = tl.linear(torch.as_tensor(x), torch.as_tensor(w.T), None,
+                    tl.Policy.from_string("16-mixed"))
+    _close(got, ref, atol=1e-5 * float(np.abs(np.asarray(ref)).max()))
+
+
+@pytest.mark.parametrize("k,dilation,padding", [(5, 1, "SAME"), (31, 1, "SAME"), (7, 3, "SAME"),
+                                                (7, 1, 3), (3, 5, 5)])
+def test_conv1d(k, dilation, padding):
+    r = _rng(3)
+    x = r.standard_normal((2, 40, 8)).astype(np.float32)
+    w = (r.standard_normal((k, 8, 12)) * 0.2).astype(np.float32)  # WIO
+    b = r.standard_normal(12).astype(np.float32)
+    ref = jl.conv1d_apply({"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x),
+                          padding=padding, dilation=dilation)
+    got = tl.conv1d(torch.as_tensor(x), torch.as_tensor(w.transpose(2, 1, 0).copy()),
+                    torch.as_tensor(b), padding=padding, dilation=dilation)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("u,k", [(8, 16), (2, 4), (4, 8)])
+def test_conv_transpose1d(u, k):
+    r = _rng(4)
+    x = r.standard_normal((2, 11, 16)).astype(np.float32)
+    w = (r.standard_normal((k, 16, 8)) * 0.2).astype(np.float32)  # WIO
+    b = r.standard_normal(8).astype(np.float32)
+    pad = (k - u) // 2
+    ref = jl.conv_transpose1d_apply({"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x),
+                                    stride=u, padding=pad)
+    got = tl.conv_transpose1d(torch.as_tensor(x), torch.as_tensor(w.transpose(1, 2, 0).copy()),
+                              torch.as_tensor(b), stride=u, padding=pad)
+    assert got.shape[1] == (11 - 1) * u - 2 * pad + k
+    _close(got, ref)
+
+
+def test_embedding():
+    r = _rng(5)
+    table = r.standard_normal((21, 8)).astype(np.float32)
+    idx = r.integers(0, 21, size=(2, 9))
+    ref = jl.embedding_apply({"table": jnp.asarray(table)}, jnp.asarray(idx))
+    _close(tl.embedding(torch.as_tensor(idx), torch.as_tensor(table)), ref, atol=0)
+
+
+def test_batchnorm_eval():
+    r = _rng(6)
+    x = r.standard_normal((2, 7, 10)).astype(np.float32)
+    scale, bias, mean = (r.standard_normal(10).astype(np.float32) for _ in range(3))
+    var = r.uniform(0.5, 2.0, 10).astype(np.float32)
+    ref, _ = jl.batchnorm_apply({"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
+                                {"mean": jnp.asarray(mean), "var": jnp.asarray(var)},
+                                jnp.asarray(x), train=False)
+    got = tl.batchnorm_eval(*(torch.as_tensor(a) for a in (x, scale, bias, mean, var)))
+    _close(got, ref)
+
+
+def _lstm_params(r, n_in, hidden):
+    return {k: (r.standard_normal(s) * 0.3).astype(np.float32) for k, s in (
+        ("w_ih", (n_in, 4 * hidden)), ("w_hh", (hidden, 4 * hidden)),
+        ("b_ih", (4 * hidden,)), ("b_hh", (4 * hidden,)))}
+
+
+def _torch_lstm(p):
+    return (torch.as_tensor(p["w_ih"].T.copy()), torch.as_tensor(p["w_hh"].T.copy()),
+            torch.as_tensor(p["b_ih"]), torch.as_tensor(p["b_hh"]))
+
+
+def test_lstm_cell():
+    r = _rng(7)
+    p = _lstm_params(r, 12, 16)
+    x = r.standard_normal((3, 12)).astype(np.float32)
+    h, c = (r.standard_normal((3, 16)).astype(np.float32) for _ in range(2))
+    jp = jax.tree.map(jnp.asarray, p)
+    rh, rc = jl.lstm_cell_apply(jp, jnp.asarray(x), (jnp.asarray(h), jnp.asarray(c)))
+    gh, gc = tl.lstm_cell(torch.as_tensor(x), (torch.as_tensor(h), torch.as_tensor(c)),
+                          *_torch_lstm(p))
+    _close(gh, rh)
+    _close(gc, rc)
+
+
+@pytest.mark.parametrize("lengths", [[9, 6, 1], [9, 9, 9], [4, 9, 7]])
+def test_bilstm_packed(lengths):
+    """Packed semantics with padded rows against the JAX package's
+    lstm_sequence run forward and reverse: each row's reverse direction
+    starts at its own last valid char; outputs past a row's end are 0."""
+    r = _rng(8)
+    pf, pb = _lstm_params(r, 10, 8), _lstm_params(r, 10, 8)
+    x = r.standard_normal((3, 9, 10)).astype(np.float32)
+    lens = np.asarray(lengths)
+    ref = np.concatenate([
+        np.asarray(jl.lstm_sequence(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+                                    jnp.asarray(lens), reverse=rev))
+        for p, rev in ((pf, False), (pb, True))], axis=-1)
+    lstm = torch.nn.LSTM(10, 8, batch_first=True, bidirectional=True)
+    with torch.no_grad():
+        for suffix, p in (("", pf), ("_reverse", pb)):
+            for name, t in zip(("weight_ih", "weight_hh", "bias_ih", "bias_hh"), _torch_lstm(p)):
+                getattr(lstm, f"{name}_l0{suffix}").copy_(t)
+    got = tl.bilstm_packed(lstm, torch.as_tensor(x), torch.as_tensor(lens))
+    _close(got, ref)
+    for b, n in enumerate(lengths):
+        assert not bool(got[b, n:].any())
