@@ -5,20 +5,32 @@
 
 Phases, each of which must pass:
 
-1. print the card (``nvidia-smi``), torch and CUDA versions; TF32 off for
-   the plain versions;
+1. print the card (``nvidia-smi``), torch and CUDA versions; TF32 off
+   (``layers.use_f32_math``, as the say and train entries set it);
 2. build every CUDA kernel from ``tacotron2_tpu_torch/csrc`` (one nvcc per
    source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card at the
-   slice's full-width shapes (K1: one decode step at the flagship dims;
-   K2: the four UNIVERSAL_V1 MRF stages and stage 2 without its upsample,
-   at 64 mel frames and at the say's vocode bucket), and time kernel, plain
-   version and library call;
+   slice's full-width shapes (K1: one decode step at the flagship dims,
+   then whole 4-step chunks on K1_DRAWS weight draws, with the readings of
+   defective kernels held above the limit; K2: the four UNIVERSAL_V1 MRF
+   stages and stage 2 without its upsample, at 64 mel frames and at the
+   say's vocode bucket), and time kernel, plain version and library call;
+3b. the same for K3 and K4, training's teacher-forced decode forward and
+   backward (B=32, L=160 with padded rows, T=128), with every gradient
+   ``TeacherDecode`` returns, and the gate product alone with the L2 warm
+   and flushed;
 4. run ``say`` through the port's CLI entry on random full-width weights
    saved as a reference Lightning ``.ckpt`` and a UNIVERSAL_V1 ``g_*`` file:
    a forced 256-frame decode with the launch counters read around it, a
    forced early stop (1 frame), and the kernel decode against the plain
    decode over 32 frames;
+4b. run ``train`` through the CLI entry at the vanilla full width on 64
+   synthetic WAVs: batch 32, 6 steps, then a resume to step 8, with K3 and
+   K4's launch counters read around it and held to launches per step x T;
+   the losses must be finite and fall; the trained checkpoint goes through
+   ``say``; K3 and K4 are held against their plain versions at the train
+   batch's shapes (B=32, L=128, T=384); one train step is split into its
+   parts;
 5. print the kernels line and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero before the last line on any failure, when no CUDA device
@@ -46,11 +58,51 @@ TEXT = ("The quick brown fox jumps over the lazy dog, while the port speaks "
         "its first words on the card.")
 SEED = 7
 K1_TOL = 1e-4  # max |kernel - plain| / max(1, max |plain|), one step, bf16 operands
+# the same for a 4-step chunk: the state feeds back through bf16 operands,
+# so a one-ulp rounding flip of one entry propagates; set between the
+# largest reading over K1_DRAWS weight draws and the readings of defective
+# kernels (a wrong step's masks, a row length off by one) (PERF.md)
+K1_CHUNK_TOL = 1e-3
+K1_DRAWS = 4  # weight draws of the 4-step chunk check
 K2_TOL = 5e-3  # the same for one MRF stage (18 convs)
 # 32 autoregressive frames, kernel decode vs plain decode, per output; the
 # alignments' limit is absolute (max |ref| <= 1), 1% of a weight at L ~ 100
 DECODE_TOL = {"mels_post": 1e-3, "gates": 1e-4, "alignments": 1e-4}
 PAD = 29  # chars of padding in the padded row of the B=2 attention check
+# K3 over 128 teacher-forced steps against its plain version, relative to
+# max(1, max |ref|): the state feeds back through bf16 operands, so one-ulp
+# rounding flips (2^-8 relative) of xh1/xh2 entries propagate; about 10x
+# the largest error measured (PERF.md), the bf16 stacks to two ulps
+K3_TOL = {"mel_gate": 2e-3, "c_att": 2e-3, "c_rnn": 2e-3, "al": 2e-4, "cum": 5e-4,
+          "xh1": 1e-2, "xh2": 1e-2}
+# K4's stacks and TeacherDecode's gradients against the plain versions on
+# the same residuals, relative to each tensor's own max: the bf16 dg and
+# head_h stacks to two ulps (2^-6), the f32 ones about 10x the error measured
+# (PERF.md)
+K4_TOL = {"dg1": 1.6e-2, "dg2": 1.6e-2, "head_h": 1.6e-2, "dxh1": 1e-2, "dctx": 2e-3,
+          "dq": 5e-3, "d_attenc": 5e-3, "d_wv": 5e-3, "d_wloc": 5e-3}
+GRAD_TOL = 1e-2
+# K3 at the main path's shapes (the train batch: B=32, L=128, T=384) on the
+# trained weights: its errors grow over the steps; 12-17x the errors
+# measured at T=384, the bf16 stacks to two ulps (PERF.md). There K4's f32
+# stacks and the gradients read 14-60x below K4_TOL and GRAD_TOL and its
+# bf16 stacks one ulp, so those limits hold at both shapes.
+K3_TOL_TRAIN = {"mel_gate": 5e-3, "c_att": 2e-3, "c_rnn": 2e-3, "al": 5e-4, "cum": 5e-4,
+                "xh1": 1.6e-2, "xh2": 1.6e-2}
+TRAIN_B, TRAIN_L, TRAIN_T = 32, 160, 128  # phase 3b shapes
+TRAIN_TEXTS = (  # 60-150 characters each
+    "Printing, in the only sense with which we are at present concerned, differs from most "
+    "if not from all the arts.",
+    "The earliest book printed with movable types, the Gutenberg Bible, was printed in Latin.",
+    "And it is worth mention in passing that, as an example of fine typography, it has never "
+    "been surpassed.",
+    "The characters of this printing were taken from the best of the manuscripts.",
+    "Now, as all books not primarily intended as picture-books consist principally of types, "
+    "it follows that the type matters.",
+    "The committee reported that the weather in the valley had changed little since spring.",
+    "She walked slowly along the quiet harbour, counting the boats as the tide came in.",
+    "On the second day the travellers reached a small town at the foot of the mountains.",
+)
 UNIVERSAL_V1 = {
     "resblock": "1", "upsample_rates": [8, 8, 2, 2], "upsample_kernel_sizes": [16, 16, 4, 4],
     "upsample_initial_channel": 512, "resblock_kernel_sizes": [3, 7, 11],
@@ -123,23 +175,27 @@ def eager_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def err(got, ref) -> tuple:
+def err(got, ref, own: bool = False) -> tuple:
+    """-> (max abs error, that over max(1, max |ref|), or over max |ref|
+    itself when ``own``)."""
     got, ref = got.float(), ref.float()
     if not bool(got.isfinite().all()):
         raise SmokeFailure("kernel output is not finite")
     a = float((got - ref).abs().max())
-    return a, a / max(1.0, float(ref.abs().max()))
+    scale = float(ref.abs().max())
+    return a, a / (max(scale, 1e-30) if own else max(1.0, scale))
 
 
-def check(name: str, pairs, tol, log: dict, kernel: str = "") -> float:
+def check(name: str, pairs, tol, log: dict, kernel: str = "", own: bool = False) -> float:
     """Compare (label, kernel output, plain output) pairs; ``tol`` is one
-    limit or a limit per label; ``kernel`` names the wrapper whose JSON row
-    the error belongs to."""
+    limit or a limit per label, on the error relative to max(1, max |ref|)
+    or, with ``own``, to max |ref|; ``kernel`` names the wrapper whose JSON
+    row the error belongs to. -> the largest relative error."""
     worst = 0.0
     for label, got, ref in pairs:
-        a, r = err(got, ref)
+        a, r = err(got, ref, own)
         lim = tol[label] if isinstance(tol, dict) else tol
-        worst = max(worst, a)
+        worst = max(worst, r)
         print(f"  {name:<20} {label:<14} max_abs_err {a:.3e}  rel {r:.3e}  (tol {lim:g})")
         log.setdefault("checks", []).append({"kernel": kernel or name, "check": name,
                                              "output": label, "max_abs_err": a,
@@ -152,17 +208,16 @@ def check(name: str, pairs, tol, log: dict, kernel: str = "") -> float:
 # ---------------------------------------------------------------------------
 
 
-def random_tacotron(cfg, gate_bias: float):
+def random_tacotron(cfg, gate_bias: float, seed: int = SEED):
     import torch
 
     from tacotron2_tpu_torch.models.layers import Policy
     from tacotron2_tpu_torch.run.say import model_config_from
     from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
 
-    torch.manual_seed(SEED)
+    torch.manual_seed(seed)
     m = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision))
     with torch.no_grad():
-        m.encoder.embedding.weight.normal_(0.0, 0.5)
         m.decoder.gate.bias.fill_(gate_bias)
     return m.eval()
 
@@ -188,8 +243,79 @@ def random_hifigan_state():
     return out
 
 
-def k1_phase(model, L: int, log: dict) -> list:
-    """One decode step at the flagship dims, kernels against plain versions."""
+def chunk_inputs(model, lengths, g) -> tuple:
+    """Random bf16 encoder outputs (B, L, D), their attention projection and
+    a decode state for the rows of ``lengths``; chars at or past a row's
+    length have weight 0."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    c = model.cfg
+    B, L, dev = lengths.shape[0], int(lengths.max()), lengths.device
+    H, D = c.att_rnn_dim, c.encoded_dim
+    rn = lambda *s, scale=0.5: torch.randn(*s, device=dev, generator=g) * scale
+    enc = rn(B, L, D).to(torch.bfloat16)
+    att_enc = (enc.float() @ model.att_encoder.weight.t()).contiguous()
+    pad = torch.arange(L, device=dev)[None, :] >= lengths[:, None]
+    soft = lambda: torch.softmax(rn(B, L, scale=3.0).masked_fill(pad, float("-inf")), dim=1)
+    w = soft()
+    s = dl.StepState(rn(B, c.num_mels, scale=1.0), rn(B, H), rn(B, H), rn(B, D), w, w + soft(),
+                     rn(B, H), rn(B, H))
+    return enc, att_enc, s
+
+
+def chunk_check(name: str, pk, model, lengths, n: int, g, log: dict,
+                defect: bool = False) -> float:
+    """``n`` decode steps through the chunk entry (the decode's main path)
+    against the plain chunk, on ``chunk_inputs`` -> the largest error. With
+    ``defect``, also the errors the check reads for defective kernels (the
+    plain chunk with the defect): those of a wrong step's masks or a row
+    length off by one must exceed the limit; that of activations left
+    unrounded (no bf16) is only reported, being of the size of a rounding
+    flip."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    c = model.cfg
+    enc, att_enc, s = chunk_inputs(model, lengths, g)
+    m1, m2 = dl.prenet_masks(n, lengths.shape[0], c.prenet_dim, c.dropout, g, lengths.device)
+    mg, al, sk = dl.decode_chunk(pk, enc, att_enc, lengths, s, m1, m2)
+
+    def pairs(ref):
+        mgp, alp, sp = ref
+        return [("mel_gate", mg, mgp), ("weights", al, alp)] + [
+            (f, getattr(sk, f), getattr(sp, f)) for f in dl.StepState._fields[1:]]
+
+    tol = K1_TOL if n == 1 else K1_CHUNK_TOL
+    worst = check(name, pairs(dl.decode_chunk_plain(pk, enc, att_enc, lengths, s, m1, m2)), tol,
+                  log, "decode_chunk")
+    pad = torch.arange(enc.shape[1], device=enc.device)[None, :] >= lengths[:, None]
+    if bool((al * pad[None]).any()):
+        raise SmokeFailure(f"{name}: the kernel gave padded chars attention weight")
+    if not defect:
+        return worst
+    pk32 = pk._replace(**{f: getattr(pk, f).float() for f in (
+        "w_att", "w_dec", "wp1_t", "wp2_t", "wq", "w_loc", "wv", "w_out")})
+    for what, args, must in (
+        ("masks one step late", (pk, enc, att_enc, lengths, s, m1.roll(1, 0), m2.roll(1, 0)), True),
+        ("one char too few", (pk, enc, att_enc, lengths - 1, s, m1, m2), True),
+        ("no bf16 activations", (pk32, enc.float(), att_enc, lengths, s, m1, m2), False),
+    ):
+        wrong = max(err(got, ref)[1] for _, got, ref in pairs(dl.decode_chunk_plain(*args)))
+        log.setdefault("k1_chunk_defects", []).append({"check": name, "defect": what,
+                                                       "rel_err": wrong, "tol": tol})
+        print(f"  {name:<20} defect '{what}' reads rel {wrong:.3e} (tol {tol:g})")
+        if must and not wrong > tol:
+            raise SmokeFailure(f"{name}: the limit {tol:g} does not tell a kernel with "
+                               f"'{what}' ({wrong:.3e}) from a right one")
+    return worst
+
+
+def k1_phase(model, cfg, L: int, log: dict) -> list:
+    """One decode step at the flagship dims, kernels against plain versions;
+    then whole chunks, the 4-step ones on K1_DRAWS weight draws."""
     import torch
 
     from tacotron2_tpu_torch.ops import decoder_loop as dl
@@ -200,13 +326,8 @@ def k1_phase(model, L: int, log: dict) -> list:
     g.manual_seed(SEED)
     pk = dl.pack_decoder(model.prenet, model.decoder, torch.bfloat16)
     B, M, P, H, D, A = 1, c.num_mels, c.prenet_dim, c.att_rnn_dim, c.encoded_dim, c.att_dim
-    rn = lambda *s, scale=0.5: torch.randn(*s, device=dev, generator=g) * scale
-    encoded = rn(B, L, D).to(torch.bfloat16)
-    att_enc = (encoded.float() @ model.att_encoder.weight.t()).contiguous()
     lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
-    w_prev = torch.softmax(rn(B, L, scale=3.0), dim=1)
-    s = dl.StepState(rn(B, M, scale=1.0), rn(B, H), rn(B, H), rn(B, D), w_prev,
-                     w_prev + torch.softmax(rn(B, L, scale=3.0), dim=1), rn(B, H), rn(B, H))
+    encoded, att_enc, s = chunk_inputs(model, lengths, g)
     m1, m2 = dl.prenet_masks(1, B, P, c.dropout, g, dev)
     m1, m2 = m1[0], m2[0]
 
@@ -228,39 +349,31 @@ def k1_phase(model, L: int, log: dict) -> list:
     mg_p = dl.heads_plain(pk.w_out, pk.b_out, rh_p, ctx_p)
     check("heads", [("mel_gate", mg_k, mg_p)], K1_TOL, log)
 
-    # whole steps through the chunk entry (the decode's main path) against
-    # the plain chunk: one step, then four (the state ping-pongs)
-    for n in (1, 4):
-        mk1, mk2 = dl.prenet_masks(n, B, P, c.dropout, g, dev)
-        mg, al, sk = dl.decode_chunk(pk, encoded, att_enc, lengths, s, mk1, mk2)
-        mgp, alp, sp = dl.decode_chunk_plain(pk, encoded, att_enc, lengths, s, mk1, mk2)
-        check(f"decode_chunk[{n}]", [("mel_gate", mg, mgp), ("weights", al, alp),
-                                     ("att_h", sk.att_h, sp.att_h), ("att_c", sk.att_c, sp.att_c),
-                                     ("context", sk.ctx, sp.ctx), ("cum", sk.att_cum, sp.att_cum),
-                                     ("rnn_h", sk.rnn_h, sp.rnn_h), ("rnn_c", sk.rnn_c, sp.rnn_c)],
-              K1_TOL, log, "decode_chunk")
-
     # B=2 with row 1 padded (lengths < L): the attention's -inf mask on the
-    # card, alone and inside a 4-step chunk; padded chars get weight 0
-    lengths2 = torch.tensor([L, L - PAD], dtype=torch.int32, device=dev)
-    pad2 = torch.arange(L, device=dev)[None, :] >= lengths2[:, None]
-    enc2 = rn(2, L, D).to(torch.bfloat16)
-    att_enc2 = (enc2.float() @ model.att_encoder.weight.t()).contiguous()
-    w2 = torch.softmax(rn(2, L, scale=3.0).masked_fill(pad2, float("-inf")), dim=1)
-    s2 = dl.StepState(rn(2, M, scale=1.0), rn(2, H), rn(2, H), rn(2, D), w2, 2.0 * w2,
-                      rn(2, H), rn(2, H))
-    att2 = (s2.att_h, pk.wq, pk.w_loc, pk.wv, att_enc2, enc2, lengths2, s2.att_w, s2.att_cum)
+    # card; padded chars get weight 0
+    padded = torch.tensor([L, L - PAD], dtype=torch.int32, device=dev)
+    enc2, att_enc2, s2 = chunk_inputs(model, padded, g)
+    att2 = (s2.att_h, pk.wq, pk.w_loc, pk.wv, att_enc2, enc2, padded, s2.att_w, s2.att_cum)
     got, ref = dl.location_attention(*att2), dl.location_attention_plain(*att2)
     check("location_attention[pad]", list(zip(("context", "weights", "cum_weights"), got, ref)),
           K1_TOL, log, "location_attention")
-    mk1, mk2 = dl.prenet_masks(4, 2, P, c.dropout, g, dev)
-    mg, al, sk = dl.decode_chunk(pk, enc2, att_enc2, lengths2, s2, mk1, mk2)
-    mgp, alp, sp = dl.decode_chunk_plain(pk, enc2, att_enc2, lengths2, s2, mk1, mk2)
-    check("decode_chunk[4,pad]", [("mel_gate", mg, mgp), ("weights", al, alp),
-                                  ("context", sk.ctx, sp.ctx), ("rnn_h", sk.rnn_h, sp.rnn_h)],
-          K1_TOL, log, "decode_chunk")
-    if bool((got[1][1, L - PAD:] != 0).any()) or bool((al[:, 1, L - PAD:] != 0).any()):
+    if bool((got[1][1, L - PAD:] != 0).any()):
         raise SmokeFailure("the kernel gave padded chars attention weight")
+
+    # whole steps through the chunk entry: one step, then four (the state
+    # ping-pongs) at B=1 and at B=2 with row 1 padded, on this model's
+    # weights and on K1_DRAWS - 1 further draws
+    chunk_check("decode_chunk[1]", pk, model, lengths, 1, g, log)
+    draws = [max(chunk_check("decode_chunk[4]", pk, model, lengths, 4, g, log, True),
+                 chunk_check("decode_chunk[4,pad]", pk, model, padded, 4, g, log, True))]
+    for d in range(1, K1_DRAWS):
+        m = random_tacotron(cfg, 10.0, SEED + 10 * d).to(dev)
+        pkd = dl.pack_decoder(m.prenet, m.decoder, torch.bfloat16)
+        draws.append(max(chunk_check(f"decode_chunk[4]#{d}", pkd, m, lengths, 4, g, log),
+                         chunk_check(f"decode_chunk[4,pad]#{d}", pkd, m, padded, 4, g, log)))
+    log["k1_chunk_draws"] = draws
+    print(f"  decode_chunk[4] largest error per weight draw: "
+          + ", ".join(f"{x:.3e}" for x in draws) + f" (tol {K1_CHUNK_TOL:g})")
 
     # a whole 64-frame chunk through the main-path entry: device time
     # (graph replay) and eager time (the host launches included), per step
@@ -457,6 +570,346 @@ def k2_timing(hifigan, Tb: int) -> list:
     return rows
 
 
+def kernel_split(fn) -> dict:
+    """Device ms of each kernel in one call of ``fn`` (torch.profiler),
+    largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            name = evt.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.split("<")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + us / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def teacher_bounds(T: int, B: int, L: int, w, res, mel_gate) -> dict:
+    """Bound of K3 (the T-step teacher forward) and of K4 (its reverse
+    pass), each input read once and each output written once, and the
+    operations these shapes need; with the weight stream of this design
+    (the LSTM weights re-read every step) reported apart."""
+    H4, R1 = w.w1.shape
+    R2 = w.w2.shape[1]
+    A, H = w.wq.shape
+    K, N = w.w_loc.shape[2], w.w_out.shape[0]
+    D = R2 - 2 * H
+    P = R1 - D - H
+    f32 = 4
+    lstm_w = nbytes(w.w1, w.w2)
+    gates = 2 * B * H4 * (R1 + R2)
+    att = B * (2 * A * H + L * A * (4 * K + 4) + 2 * L * D + 4 * L)
+    heads = 2 * B * N * (H + D)
+    # encoded (bf16), att_enc, lengths, the two LSTM masks
+    shared_in = B * L * (D * 2 + A * f32) + B * 4 + 2 * T * B * H * f32
+    k3 = bound_ms(nbytes(*w) + T * B * P * f32 + shared_in + nbytes(mel_gate, *res),
+                  T * (gates + att + heads))
+    # K4 reads the residuals and the cotangents and writes dg1, dg2 (bf16),
+    # dxh1, dctx, dq, head_h (bf16) and d_attenc; it recomputes the gates,
+    # runs the two dx products (2 x gates) and the attention backward (~3x)
+    bwd_out = T * B * (2 * H4 * 2 + R1 * f32 + D * f32 + A * f32 + H * 2) + B * L * A * f32
+    k4 = bound_ms(nbytes(*w) + shared_in + nbytes(*res) + T * B * (N + L) * f32 + bwd_out,
+                  T * (2 * gates + 3 * att + 2 * heads))
+    stream = lstm_w / HBM_BYTES_PER_S * 1e3
+    return {"teacher_forward": (*k3, T * stream), "teacher_backward": (*k4, 2 * T * stream)}
+
+
+def k34_phase(model, log: dict) -> list:
+    """K3 (teacher forward) and K4 (its reverse pass) against their plain
+    versions at the vanilla full width: B=32, L=160 with row lengths running
+    down to 100, T=128 steps, LSTM masks drawn once for both; then the gate
+    product with its LSTM epilogue alone, with the L2 warm and flushed."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    dev = torch.device("cuda")
+    c = model.cfg
+    B, L, T = TRAIN_B, TRAIN_L, TRAIN_T
+    M, P, H, D = c.num_mels, c.prenet_dim, c.att_rnn_dim, c.encoded_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 4)
+    rn = lambda *s, scale=1.0: torch.randn(*s, device=dev, generator=g) * scale
+    named = dict(model.decoder.named_parameters())
+    params = [named[k].detach() for k in td.DECODER_PARAMS]
+    w = td.pack_weights(params, torch.bfloat16)
+    din = torch.relu(rn(T, B, P)) * 2.0  # prenet-like: ReLU, dropout's x2
+    enc = rn(B, L, D, scale=0.5).to(torch.bfloat16)
+    att = (enc.float() @ model.att_encoder.weight.t()).contiguous()
+    lens = torch.linspace(L, 100, B, device=dev).round().to(torch.int32)
+    dm1, dm2 = td.lstm_masks(T, B, H, g, dev)
+    fwd_args = (w, din, enc, att, lens, dm1, dm2)
+
+    mg_k, res_k = td.teacher_forward(*fwd_args)
+    mg_p, res_p = td.teacher_forward_plain(*fwd_args)
+    check("teacher_forward", [("mel_gate", mg_k, mg_p)]
+          + [(f, getattr(res_k, f), getattr(res_p, f)) for f in td.Residuals._fields],
+          K3_TOL, log)
+    pad = torch.arange(L, device=dev)[None, :] >= lens[:, None]
+    if bool((res_k.al[1:] * pad[None]).any()):
+        raise SmokeFailure("K3 gave padded chars attention weight")
+
+    # K4 on the plain forward's residuals, random cotangents; then every
+    # gradient TeacherDecode returns, from K4's stacks and from the plain ones
+    d_mg, d_al = rn(T, B, M + 1, scale=1e-3), rn(T, B, L, scale=1e-3)
+    bwd_args = (w, res_p, enc, att, lens, dm1, dm2, d_mg, d_al)
+    bk, bp = td.teacher_backward(*bwd_args), td.teacher_backward_plain(*bwd_args)
+    check("teacher_backward", [(f, getattr(bk, f), getattr(bp, f))
+                               for f in td.BackwardOut._fields], K4_TOL, log, own=True)
+    names = ("decoder_in", "encoded", "att_encoded") + td.DECODER_PARAMS
+    gk = td.grads_from(params, w, res_p, enc, bk, d_mg)
+    gp = td.grads_from(params, w, res_p, enc, bp, d_mg)
+    check("teacher_decode_grads", list(zip(names, gk, gp)), GRAD_TOL, log,
+          "teacher_backward", own=True)
+
+    # the gate product + LSTM epilogue alone: both cells of step 3
+    t = 3
+    cells = ((w.w1, w.b1, res_p.xh1[t], res_p.c_att[t], dm1[t]),
+             (w.w2, w.b2, res_p.xh2[t], res_p.c_rnn[t], dm2[t]))
+    for i, args in enumerate(cells):
+        hk, ck = td.gate_lstm(*args)
+        hp, cp = td.gate_lstm_plain(*args)
+        check(f"gate_lstm[{i}]", [("h", hk, hp), ("c", ck, cp)], K1_TOL, log, "gate_lstm")
+    gl_k = lambda: [td.gate_lstm(*a) for a in cells]
+    gl_p = lambda: [td.gate_lstm_plain(*a) for a in cells]
+
+    def lstm_lib(cell_mod, xh, c_prev):
+        cell = torch.nn.LSTMCell(cell_mod.input_size, cell_mod.hidden_size, device=dev,
+                                 dtype=torch.bfloat16)
+        cell.load_state_dict(cell_mod.state_dict())
+        x, h = xh[:, :-H].contiguous(), xh[:, -H:].contiguous()
+        return lambda: cell(x, (h, c_prev.to(torch.bfloat16)))
+
+    libs = (lstm_lib(model.decoder.att_rnn, res_p.xh1[t], res_p.c_att[t]),
+            lstm_lib(model.decoder.lstm, res_p.xh2[t], res_p.c_rnn[t]))
+    f32 = lambda *shape: torch.empty(*shape, device=dev)
+    # the gate GEMM is 2 of K3's 6 launches a step, launched inside K3's
+    # host loop and counted there; timed alone here as a breakdown of K3
+    gl_bound, gl_by = bound_ms(sum(nbytes(*a, f32(B, H), f32(B, H)) for a in cells),
+                               2 * B * (w.w1.numel() + w.w2.numel()))
+    # the L2 question: the same call with the 50 MB L2 flushed before it
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    warm = time_ms(gl_k)
+    cold = time_ms(lambda: (flush.zero_(), gl_k())) - time_ms(lambda: flush.zero_())
+    log["gate_lstm"] = {"ms": warm, "flushed_ms": cold, "plain_ms": time_ms(gl_p),
+                        "library_ms": time_ms(lambda: [f() for f in libs]),
+                        "bound_ms": gl_bound, "bound_by": gl_by,
+                        "weights_mb": nbytes(w.w1, w.w2) / 1e6,
+                        "per": f"both LSTM cells of one step, B={B}"}
+    print(f"  gate_lstm (both cells, B={B}), us: " + ", ".join(
+        f"{k} {v * 1e3:.1f}" for k, v in log["gate_lstm"].items() if k.endswith("ms")))
+
+    log["k34_kernel_ms"] = {
+        "teacher_forward": kernel_split(lambda: td.teacher_forward(*fwd_args)),
+        "teacher_backward": kernel_split(lambda: td.teacher_backward(*bwd_args))}
+    for name, split in log["k34_kernel_ms"].items():
+        print(f"  {name}, device ms per kernel (torch.profiler, T={T}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+
+    bounds = teacher_bounds(T, B, L, w, res_k, mg_k)
+    rows = []
+    for name, kern, plain, (b_ms, b_by, stream), per, replaces in (
+        ("teacher_forward", lambda: td.teacher_forward(*fwd_args),
+         lambda: td.teacher_forward_plain(*fwd_args), bounds["teacher_forward"],
+         f"one teacher forward, B={B}, L={L}, T={T}", 51),
+        ("teacher_backward", lambda: td.teacher_backward(*bwd_args),
+         lambda: td.teacher_backward_plain(*bwd_args), bounds["teacher_backward"],
+         f"one reverse pass, B={B}, L={L}, T={T}", 478),
+    ):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "tacotron2_tpu_torch/csrc/train_decode.cu",
+            "replaces": f"tacotron2_tpu/ops/train_decode_pallas.py:{replaces}",
+            "ms": time_ms(kern, 3, 1), "plain_ms": time_ms(plain, 2, 1),
+            "bound_ms": b_ms, "bound_by": b_by, "eager_ms": eager_ms(kern, 3),
+            "library_ms": None, "weight_stream_ms": stream, "per": per,
+        })
+    return rows
+
+
+def _synth_corpus(root: Path, n: int) -> Path:
+    """``n`` WAVs at 22,050 Hz from SEED: harmonic tones with a slow
+    envelope and noise, 2-4 s each, PCM16."""
+    import numpy as np
+
+    from tacotron2_tpu_torch.audio.io import write_wav
+
+    rng = np.random.default_rng(SEED)
+    speech = root / "speech"
+    speech.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        samples = int(rng.uniform(2.0, 4.0) * 22050)
+        t = np.arange(samples) / 22050
+        f0 = rng.uniform(90.0, 250.0) * (1 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.2, 1) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / 22050
+        x = sum(np.sin(k * phase) / k for k in range(1, 7))
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.5, 2.0) * t) ** 2
+        wav = 0.15 * env * x + 0.005 * rng.standard_normal(samples)
+        write_wav(str(speech / f"s{i:03d}.wav"), wav.astype(np.float32), 22050)
+    return speech
+
+
+def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
+    """``train`` through the CLI entry at the vanilla full width: 64
+    synthetic WAVs, batch 32, 6 steps, then ``--resume-ckpt`` to step 8,
+    with K3 and K4's launch counters read around both runs; then the trained
+    checkpoint through ``say``, and the split of one train step."""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.data.loader import collate
+    from tacotron2_tpu_torch.ops import train_decode as td
+    from tacotron2_tpu_torch.run.train import _dataset, read_manifest
+    from tacotron2_tpu_torch.training import optimizer, step
+    from tacotron2_tpu_torch.training.checkpoint import load_model_state
+    from tacotron2_tpu_torch.models.layers import Policy
+    from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+    from tacotron2_tpu_torch.run.say import model_config_from
+
+    root = WORK / "train"
+    speech = _synth_corpus(root, 64)
+    rows = [f"{TRAIN_TEXTS[i % len(TRAIN_TEXTS)]}|s{i:03d}.wav" for i in range(64)]
+    (root / "train.csv").write_text("text|wav\n" + "\n".join(rows) + "\n")
+    (root / "val.csv").write_text("text|wav\n" + "\n".join(rows[:32]) + "\n")
+    raw = json.loads(Path(cfg_path).read_text())
+    raw["dataset"]["train"], raw["dataset"]["val"] = str(root / "train.csv"), str(root / "val.csv")
+    cfg_train = root / "cfg.json"
+    cfg_train.write_text(json.dumps(raw))
+
+    base = ["train", "--config", str(cfg_train), "--speech-dir", str(speech),
+            "--seed", str(SEED)]
+    td.reset_launches()
+    first = cli(base + ["--results-dir", str(root / "r1"), "--max-steps", "6"])
+    second = cli(base + ["--results-dir", str(root / "r2"), "--resume-ckpt",
+                         first["checkpoint"], "--max-steps", "8"])
+    launches = dict(td.LAUNCHES)
+    steps = first["steps"] + second["steps"]
+    losses = [s["loss"] for s in steps]
+    print(f"  losses {[round(x, 4) for x in losses]}; launches {launches}")
+    if [s["step"] for s in steps] != list(range(1, 9)):
+        raise SmokeFailure(f"steps {[s['step'] for s in steps]}, want 1..8 across the resume")
+    if not all(math.isfinite(x) for x in losses) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise SmokeFailure(f"train losses do not fall: {losses}")
+    fwd_T = [s["decode_frames"] for s in steps] + first["val_decode_frames"] \
+        + second["val_decode_frames"]
+    want = {"teacher_forward": sum(td.forward_launches(T) for T in fwd_T),
+            "gate_lstm": 0,  # the gate GEMM alone: not on the path (inside K3)
+            "teacher_backward": sum(td.backward_launches(s["decode_frames"]) for s in steps)}
+    if launches != want:
+        raise SmokeFailure(f"K3/K4 launches {launches}, want {want}")
+
+    # the trained checkpoint through the port's say
+    said = cli(["say", "--config", str(cfg_train), "--checkpoint", second["checkpoint"],
+                "--hifi-gan-checkpoint", g_path, "--text", TRAIN_TEXTS[0],
+                "--out", str(root / "trained.wav"), "--random-seed", str(SEED),
+                "--max-len-override", "64"])
+    if not 1 <= said["n_frames"] <= 64:
+        raise SmokeFailure(f"say of the trained checkpoint: {said}")
+
+    # host clock per step (each step ends in a sync), first step of each
+    # run left out (cuDNN and allocator warm-up)
+    steady = first["steps"][1:] + second["steps"][1:]
+    ms = [s["s"] * 1e3 for s in steady]
+    perf = {"ms_per_step_median": float(np.median(ms)), "ms_per_step": ms,
+            "mel_frames_per_s": sum(s["mel_frames"] for s in steady) / sum(s["s"] for s in steady),
+            "decode_frames": sorted({s["decode_frames"] for s in steps}), "card": card}
+
+    # the split of one train step at the first batch's shapes: each part
+    # timed alone, eager, ending in a sync (so the parts need not sum to the
+    # whole step)
+    cfg = load_config(str(cfg_train))
+    dev = torch.device("cuda")
+    model = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision))
+    load_model_state(second["checkpoint"], model)
+    model.to(dev)
+    opt, sched = optimizer.make_optimizer(model.parameters(), 1e-3, 1e-6)
+    ds = _dataset(cfg, read_manifest(str(root / "train.csv")), str(speech), str(root / "cache"))
+    batch = step.to_device(collate([ds[i] for i in range(TRAIN_B)], 32, 128), dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    B, T = batch["mel"].shape[:2]
+    L = batch["chars_idx"].shape[1]
+    H = model.cfg.att_rnn_dim
+    named = dict(model.decoder.named_parameters())
+    params = [named[k].detach() for k in td.DECODER_PARAMS]
+    w = td.pack_weights(params, torch.bfloat16)
+
+    def encoder():
+        with torch.enable_grad():
+            enc, att_enc, _ = model._encode(batch["chars_idx"], batch["chars_len"], True, gen)
+            (enc.sum() + att_enc.sum()).backward()
+        return enc.detach(), att_enc.detach()
+
+    enc, att_enc = encoder()
+    enc_b, lens = enc.to(torch.bfloat16).contiguous(), batch["chars_len"].to(torch.int32)
+    din = model.teacher_decoder_in(batch["mel"], gen)
+    dm1, dm2 = td.lstm_masks(T, B, H, gen, dev)
+    fwd_args = (w, din, enc_b, att_enc.contiguous(), lens, dm1, dm2)
+    mg, res = td.teacher_forward(*fwd_args)
+    d_mg = torch.randn_like(mg) * 1e-3
+    d_al = torch.randn(T, B, L, device=dev, generator=gen) * 1e-3
+    bwd_args = (w, res, enc_b, att_enc.contiguous(), lens, dm1, dm2, d_mg, d_al)
+    out = td.teacher_backward(*bwd_args)
+
+    # K3 and K4 against their plain versions at the main path's shapes, on
+    # the trained weights, the first batch's encoding and prenet output
+    mg_p, res_p = td.teacher_forward_plain(*fwd_args)
+    check(f"teacher_forward@T{T}", [("mel_gate", mg, mg_p)]
+          + [(f, getattr(res, f), getattr(res_p, f)) for f in td.Residuals._fields],
+          K3_TOL_TRAIN, log, "teacher_forward")
+    pad = torch.arange(L, device=dev)[None, :] >= lens[:, None]
+    if bool((res.al[1:] * pad[None]).any()):
+        raise SmokeFailure(f"K3 gave padded chars attention weight at T={T}")
+    out_p = td.teacher_backward_plain(*bwd_args)
+    check(f"teacher_backward@T{T}", [(f, getattr(out, f), getattr(out_p, f))
+                                     for f in td.BackwardOut._fields],
+          K4_TOL, log, "teacher_backward", own=True)
+    names = ("decoder_in", "encoded", "att_encoded") + td.DECODER_PARAMS
+    check(f"teacher_decode_grads@T{T}",
+          list(zip(names, td.grads_from(params, w, res, enc_b, out, d_mg),
+                   td.grads_from(params, w, res, enc_b, out_p, d_mg))),
+          GRAD_TOL, log, "teacher_backward", own=True)
+
+    def postnet():
+        with torch.enable_grad():
+            x = mg[..., :-1].transpose(0, 1).contiguous().requires_grad_()
+            model.postnet(x, model.policy, True, model.cfg.dropout, gen).sum().backward()
+
+    whole = lambda: step.train_step(model, opt, sched, batch, gen)
+    whole()
+    parts = {
+        "train_step": eager_ms(whole, 3),
+        "encoder_fwd_bwd": eager_ms(encoder, 3),
+        "k3_teacher_forward": eager_ms(lambda: td.teacher_forward(*fwd_args), 3),
+        "k4_teacher_backward": eager_ms(lambda: td.teacher_backward(*bwd_args), 3),
+        "dw_gemms_and_sums": eager_ms(lambda: td.grads_from(params, w, res, enc_b, out, d_mg), 3),
+        "postnet_fwd_bwd": eager_ms(postnet, 3),
+        "optimizer": eager_ms(lambda: optimizer.apply_gradients(list(model.parameters()), opt,
+                                                                sched), 3),
+    }
+    parts["sum_of_parts"] = sum(v for k, v in parts.items() if k != "train_step")
+    perf.update({"split_ms": parts, "split_shape": {"B": B, "L": L, "T": T}})
+    print(f"  train: {perf['ms_per_step_median']:.1f} ms/step (median), "
+          f"{perf['mel_frames_per_s']:.0f} mel frames/s at B={TRAIN_B}, decode frames "
+          f"{perf['decode_frames']}, on {card}")
+    print(f"  split of one step (B={B}, L={L}, T={T}), eager ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    log["train"] = {"losses": losses, "launches": launches, "want": want, "perf": perf,
+                    "say": said}
+    return launches
+
+
 def say_phase(cfg_path: str, log: dict, card: str):
     import numpy as np
     import torch
@@ -570,7 +1023,7 @@ def say_phase(cfg_path: str, log: dict, card: str):
           f"{perf['vocoder_us_per_frame']:.1f} us/frame, say {perf['say_s']:.3f} s for "
           f"{perf['audio_s']:.2f} s of audio (RTF {perf['rtf']:.4f}) on {card}")
     log["say"] = {"run": res, "stop": stop, "perf": perf, "vocoder_precision": vocoder_precision}
-    return launches
+    return launches, g_path
 
 
 def main() -> int:
@@ -591,9 +1044,11 @@ def main() -> int:
         print(f"[1] card: {card}")
         print(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"python {sys.version.split()[0]}")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        print("    TF32 off for matmul and cuDNN: plain versions and library calls run in f32")
+        from tacotron2_tpu_torch.models.layers import use_f32_math
+
+        use_f32_math()  # as the say and train entries set it
+        print("    TF32 off for matmul and cuDNN (the port's setting): plain versions and "
+              "library calls run in f32")
 
         from tacotron2_tpu_torch.config import load_config
         from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
@@ -621,14 +1076,20 @@ def main() -> int:
                           vocoder_policy(torch.device("cuda"))).cuda().eval()
         Tb = -(-(255 + hifigan.mel_receptive_field()) // 128) * 128  # the say's bucket
         print(f"[3] kernels against their plain versions (flagship dims, B=1, L={chars})")
-        rows = k1_phase(model, chars, log)
+        rows = k1_phase(model, cfg, chars, log)
         for frames in (64, Tb):  # 64 frames, then the say's own bucket
             k2_phase(hifigan, log, frames)
         rows += k2_timing(hifigan, Tb)
+        print(f"[3b] K3 and K4 against their plain versions (B={TRAIN_B}, L={TRAIN_L}, "
+              f"T={TRAIN_T})")
+        rows += k34_phase(model, log)
         del model, hifigan
 
         print("[4] say through the CLI entry (random full-width weights)")
-        launches = say_phase(cfg_path, log, card)
+        launches, g_path = say_phase(cfg_path, log, card)
+        print("[4b] train through the CLI entry (vanilla full width, batch 32, 6 steps, "
+              "resumed to 8)")
+        launches.update(train_phase(cfg_path, g_path, log, card))
 
         print("[5] kernels")
         for r in rows:
@@ -638,6 +1099,8 @@ def main() -> int:
             lib = "-" if r["library_ms"] is None else "%.1f" % (r["library_ms"] * 1e3)
             traffic = ("" if "traffic_ms" not in r
                        else f"  design traffic {r['traffic_ms'] * 1e3:7.1f} us")
+            if r.get("weight_stream_ms"):
+                traffic = f"  weight stream {r['weight_stream_ms'] * 1e3:9.1f} us"
             print(f"  {r['name']:<20} {r['ms'] * 1e3:9.1f} us  "
                   f"plain {r['plain_ms'] * 1e3:9.1f} us  "
                   f"library {lib:>9} us  bound {r['bound_ms'] * 1e3:7.2f} us ({r['bound_by']})"

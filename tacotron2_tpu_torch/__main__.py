@@ -4,15 +4,20 @@
         --checkpoint X.ckpt --hifi-gan-checkpoint DIR/g_xxx \\
         --text "..." --out o.wav --random-seed 7 [--max-len-override N] [--device cpu]
 
-The options mirror the JAX package's ``main.py say``; the checkpoint is the
-reference's Lightning ``.ckpt`` and the vocoder an upstream HiFi-GAN
-``g_*`` file with its ``config.json``. It runs on the card unless
+    python -m tacotron2_tpu_torch train --config C --speech-dir S --results-dir R \\
+        [--resume-ckpt F] [--max-steps N] [--seed K] [--device cpu]
+
+The options mirror the JAX package's ``main.py say`` and ``main.py train``;
+checkpoints are the reference's Lightning ``.ckpt`` (``train`` writes
+``R/final.ckpt``, which ``say`` loads) and the vocoder an upstream HiFi-GAN
+``g_*`` file with its ``config.json``. Both run on the card unless
 ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from typing import Optional, Sequence
 
@@ -31,15 +36,35 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--max-len-override", type=int, default=5000,
                    help="cap on decoded frames")
     s.add_argument("--device", default=None, help="cuda (default) or cpu")
+
+    t = sub.add_parser("train", help="train a Tacotron 2 model")
+    t.add_argument("--config", required=True, help="a Tacotron hyperparameter config file")
+    t.add_argument("--speech-dir", required=True, help="the directory the manifests' wav "
+                                                       "paths are relative to")
+    t.add_argument("--results-dir", default=None, help="where logs and checkpoints go")
+    t.add_argument("--resume-ckpt", default=None, help="a checkpoint to resume from")
+    t.add_argument("--max-steps", type=int, default=None,
+                   help="overrides the config's max_steps")
+    t.add_argument("--seed", type=int, default=0, help="seed of the weights and dropout")
+    t.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = _parser().parse_args(argv)
-    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.config import config_from_dict
+
+    with open(args.config) as f:
+        raw = json.load(f)
+    cfg = config_from_dict(raw)
+    if args.command == "train":
+        from tacotron2_tpu_torch.run.train import do_train
+
+        return do_train(cfg, raw, args.speech_dir, args.results_dir, args.resume_ckpt,
+                        seed=args.seed, max_steps_override=args.max_steps, device=args.device)
     from tacotron2_tpu_torch.run.say import do_say
 
-    return do_say(load_config(args.config), args.checkpoint, args.text, args.out,
+    return do_say(cfg, args.checkpoint, args.text, args.out,
                   hifi_gan_checkpoint=args.hifi_gan_checkpoint,
                   random_seed=args.random_seed, max_len_override=args.max_len_override,
                   device=args.device)

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +46,8 @@ def _conv1d(sd, prefix, p):
 def _bn(sd, prefix, p, s):
     sd[f"{prefix}.weight"] = _t(p["scale"])
     sd[f"{prefix}.bias"] = _t(p["bias"])
+    if s is None:
+        return
     sd[f"{prefix}.running_mean"] = _t(s["mean"])
     sd[f"{prefix}.running_var"] = _t(s["var"])
     sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
@@ -58,36 +60,44 @@ def _lstm(sd, prefix, p, suffix=""):
     sd[f"{prefix}.bias_hh{suffix}"] = _t(p["b_hh"])
 
 
-def from_jax_params(params: dict, state: dict) -> Dict[str, torch.Tensor]:
+def decoder_from_jax(dec: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The JAX decoder subtree -> the port's ``Decoder`` state_dict (keys
+    after ``prefix``). It also maps a gradient tree of the same structure."""
+    sd: Dict[str, torch.Tensor] = {}
+    _lstm(sd, f"{prefix}att_rnn", dec["att_rnn"])
+    att = dec["attention"]
+    _linear(sd, f"{prefix}attention.query_layer", att["query"])
+    _linear(sd, f"{prefix}attention.v", att["v"])
+    _conv1d(sd, f"{prefix}attention.location_conv", att["location_conv"])
+    _linear(sd, f"{prefix}attention.location_dense", att["location_dense"])
+    _lstm(sd, f"{prefix}lstm", dec["lstm"])
+    _linear(sd, f"{prefix}mel_out", dec["mel_out"])
+    _linear(sd, f"{prefix}gate", dec["gate"])
+    return sd
+
+
+def from_jax_params(params: dict, state: Optional[dict]) -> Dict[str, torch.Tensor]:
     """JAX Tacotron 2 (params, state) -> the port's state_dict (vanilla
-    configuration)."""
+    configuration). With ``state`` None the BatchNorm running statistics
+    are left out, so a gradient tree of the params' structure maps too."""
     sd: Dict[str, torch.Tensor] = {}
     enc = params["encoder"]
     sd["encoder.embedding.weight"] = _t(enc["embedding"]["table"])
     for i in range(3):
         _conv1d(sd, f"encoder.convolutions.{4 * i}", enc["convs"][i])
         _bn(sd, f"encoder.convolutions.{4 * i + 1}", enc["bns"][i],
-            state["encoder"]["bns"][i])
+            state and state["encoder"]["bns"][i])
     _lstm(sd, "encoder.lstm", enc["lstm_fwd"], "_l0")
     _lstm(sd, "encoder.lstm", enc["lstm_bwd"], "_l0_reverse")
     _linear(sd, "prenet.0", params["prenet"]["fc1"])
     _linear(sd, "prenet.3", params["prenet"]["fc2"])
     _linear(sd, "att_encoder", params["att_encoder"])
-    dec = params["decoder"]
-    _lstm(sd, "decoder.att_rnn", dec["att_rnn"])
-    att = dec["attention"]
-    _linear(sd, "decoder.attention.query_layer", att["query"])
-    _linear(sd, "decoder.attention.v", att["v"])
-    _conv1d(sd, "decoder.attention.location_conv", att["location_conv"])
-    _linear(sd, "decoder.attention.location_dense", att["location_dense"])
-    _lstm(sd, "decoder.lstm", dec["lstm"])
-    _linear(sd, "decoder.mel_out", dec["mel_out"])
-    _linear(sd, "decoder.gate", dec["gate"])
+    sd.update(decoder_from_jax(params["decoder"], "decoder."))
     post = params["postnet"]
     for i in range(len(post["convs"])):
         _conv1d(sd, f"postnet.postnet.{4 * i}", post["convs"][i])
         _bn(sd, f"postnet.postnet.{4 * i + 1}", post["bns"][i],
-            state["postnet"]["bns"][i])
+            state and state["postnet"]["bns"][i])
     return sd
 
 
@@ -123,6 +133,16 @@ def load_tacotron2_checkpoint(path: str) -> Tuple[Dict[str, Any], dict]:
         sd = {k[len(LIGHTNING_PREFIX):]: v for k, v in sd.items()
               if k.startswith(LIGHTNING_PREFIX)}
     return sd, dict(ckpt.get("hyper_parameters", {}))
+
+
+def load_strict(module: torch.nn.Module, sd: Dict[str, Any]) -> None:
+    """``load_state_dict`` that allows only BatchNorm's
+    ``num_batches_tracked`` to be missing."""
+    missing, unexpected = module.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError(f"checkpoint does not match the model: missing {missing}, "
+                         f"unexpected {unexpected}")
 
 
 def fold_weight_norm(sd: Dict[str, Any]) -> Dict[str, Any]:

@@ -1,0 +1,86 @@
+"""TTS dataset: WAV -> log-mel and gate targets, text -> char indices.
+
+Counterpart of ``tacotron2_tpu/data/dataset.py`` for the vanilla
+configuration (no speaker ids, controls or description embeddings; WAV only,
+FLAC input is not ported):
+
+- texts are normalized once, at construction (transliterate -> lower ->
+  strip -> [expand abbreviations] -> end token), then ordinal-encoded + 1;
+- audio: read the WAV -> [trim silence] -> append ``silence`` zero samples
+  -> log-mel (frames, n_mels), optionally cached per file under a tag of
+  the preprocessing parameters;
+- the gate target is ones with the LAST frame 0 (stop is the gate going
+  low, the reference's convention).
+
+Items are ``(data, metadata, extra)`` dicts as in the JAX package, so the
+collate is the same.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+from os import path
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from tacotron2_tpu_torch.audio.io import read_wav
+from tacotron2_tpu_torch.audio.mel import TacotronMelSpectrogram
+from tacotron2_tpu_torch.audio.trim import trim_silence
+from tacotron2_tpu_torch.config import ALLOWED_CHARS
+from tacotron2_tpu_torch.text import CharEncoder, normalize_text
+
+
+class TTSDataset:
+    def __init__(self, filenames: List[str], texts: List[str], base_dir: str,
+                 allowed_chars: str = ALLOWED_CHARS, end_token: Optional[str] = "^",
+                 silence: int = 0, trim: bool = True, trim_top_db: float = 60,
+                 trim_frame_length: int = 2048, expand_abbreviations: bool = False,
+                 num_mels: int = 80, cache: bool = False, cache_dir: Optional[str] = None,
+                 sample_rate: int = 22050):
+        if cache and cache_dir is None:
+            raise ValueError("If caching spectrograms, a cache directory is required")
+        if cache:
+            os.makedirs(cache_dir, exist_ok=True)
+        self.filenames, self.base_dir = filenames, base_dir
+        self.cache, self.cache_dir = cache, cache_dir
+        self.trim, self.trim_top_db, self.trim_frame_length = trim, trim_top_db, trim_frame_length
+        self.silence = silence
+        self.texts = [normalize_text(t, allowed_chars, end_token, expand_abbreviations)
+                      for t in texts]
+        self.encoder = CharEncoder(allowed_chars, end_token)
+        self.melspectrogram = TacotronMelSpectrogram(n_mels=num_mels, sample_rate=sample_rate)
+        key = f"{trim}|{trim_top_db}|{trim_frame_length}|{silence}|{num_mels}|{sample_rate}"
+        self._cache_tag = hashlib.sha1(key.encode()).hexdigest()[:8]
+
+    def __len__(self) -> int:
+        return len(self.filenames)
+
+    def _mel(self, i: int) -> np.ndarray:
+        filename = self.filenames[i]
+        cache_path = None
+        if self.cache:
+            cache_path = path.join(self.cache_dir,
+                                   f"{filename.replace('/', '_')}.{self._cache_tag}.npy")
+            if path.exists(cache_path):
+                return np.load(cache_path)
+        wav, _ = read_wav(path.join(self.base_dir, filename))
+        if self.trim:
+            wav, _ = trim_silence(wav, top_db=self.trim_top_db,
+                                  frame_length=self.trim_frame_length)
+        mel = self.melspectrogram(np.pad(wav, (0, self.silence)))
+        if cache_path is not None:
+            np.save(cache_path, mel)
+        return mel
+
+    def __getitem__(self, i: int) -> Tuple[Dict[str, Any], Dict[str, Any], Dict[str, Any]]:
+        mel = self._mel(i)
+        T = len(mel)
+        gate = np.ones((T, 1), np.float32)
+        gate[-1] = 0.0
+        chars_idx = self.encoder.encode(self.texts[i])
+        data = {"chars_idx": chars_idx, "mel_spectrogram": mel.astype(np.float32), "gate": gate}
+        meta = {"chars_idx_len": np.int64(len(chars_idx)), "mel_spectrogram_len": np.int64(T),
+                "gate_len": np.int64(T)}
+        return data, meta, {}

@@ -1,10 +1,16 @@
 """Tacotron 2 character encoder.
 
 Counterpart of ``tacotron2_tpu/models/encoder.py``: embedding (padding row
-0) -> 3x [Conv1d(k, SAME) -> BatchNorm1d (eval) -> ReLU] -> bidirectional
-LSTM over packed sequences (hidden = dim/2 per direction; torch's packed
-LSTM, f32). The convs are unmasked, like the reference's: padding chars
-perturb activations within the kernel's reach of a row's end.
+0, init N(0, 0.5)) -> 3x [Conv1d(k, SAME) -> BatchNorm1d -> ReLU -> Dropout (train)] ->
+bidirectional LSTM over packed sequences (hidden = dim/2 per direction). The
+convs are unmasked, like the reference's: padding chars perturb activations
+within the kernel's reach of a row's end, and count in the train-mode
+BatchNorm statistics.
+
+The BiLSTM is torch's packed LSTM (cuDNN on the card, TF32 off by
+``layers.use_f32_math``) in f32 under every policy. Under bf16 the JAX encoder rounds the LSTM's operands to bf16
+(``tacotron2_tpu/models/layers.py:270``), so here the port is the more
+precise of the two; ``tests/test_torch_training.py`` bounds the difference.
 """
 
 from __future__ import annotations
@@ -20,6 +26,9 @@ class Encoder(nn.Module):
     def __init__(self, num_chars: int, embedding_dim: int, kernel_size: int):
         super().__init__()
         self.embedding = nn.Embedding(num_chars + 1, embedding_dim, padding_idx=0)
+        with torch.no_grad():  # the reference's init: N(0, 0.5), padding row 0
+            self.embedding.weight.normal_(0.0, 0.5)
+            self.embedding.weight[0].zero_()
         mods = []
         for _ in range(3):
             # Sequential indices 0/4/8 conv, 1/5/9 BN (reference names)
@@ -34,13 +43,16 @@ class Encoder(nn.Module):
         self.lstm = nn.LSTM(embedding_dim, embedding_dim // 2, batch_first=True,
                             bidirectional=True)
 
-    def forward(self, chars_idx, chars_len, policy: Policy = F32):
-        """chars (B, L) int, lengths (B,) -> encoded (B, L, D), eval mode."""
+    def forward(self, chars_idx, chars_len, policy: Policy = F32, train: bool = False,
+                dropout: float = 0.5, generator=None):
+        """chars (B, L) int, lengths (B,) -> encoded (B, L, D). ``train``:
+        BatchNorm on the batch's statistics (running stats updated) and
+        dropout at ``dropout`` after each ReLU, bits from ``generator``."""
         x = layers.embedding(chars_idx, self.embedding.weight)
         for i in range(3):
             conv, bn = self.convolutions[4 * i], self.convolutions[4 * i + 1]
             x = layers.conv1d(x, conv.weight, conv.bias, policy, padding="SAME")
-            x = layers.batchnorm_eval(x, bn.weight, bn.bias, bn.running_mean,
-                                      bn.running_var, bn.eps)
-            x = torch.relu(x)
+            x = torch.relu(layers.batchnorm(x, bn, train))
+            if train:
+                x = layers.dropout(x, dropout, generator)
         return layers.bilstm_packed(self.lstm, x, chars_len)

@@ -58,6 +58,15 @@ def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
     return dev
 
 
+def use_f32_math() -> None:
+    """TF32 off for matmuls and cuDNN, so what the policy keeps in f32 (the
+    encoder's BiLSTM, the sums of bf16 operands, the dW GEMMs) is computed in
+    f32 on the card. The entry points set it, and ``chip_smoke.py`` measures
+    under it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def linear(x, w, b=None, policy: Policy = F32):
     """x (..., in) @ w (out, in)^T + b."""
     return F.linear(policy.cast(x), policy.cast(w), b)
@@ -94,6 +103,28 @@ def embedding(idx, table):
 def batchnorm_eval(x, weight, bias, running_mean, running_var, eps: float = 1e-5):
     """BatchNorm1d in eval mode over the channel (last) axis of (B, T, C)."""
     return (x - running_mean) * torch.rsqrt(running_var + eps) * weight + bias
+
+
+def batchnorm(x, bn: torch.nn.BatchNorm1d, train: bool):
+    """BatchNorm1d over the channel (last) axis of (B, T, C). In train mode
+    (JAX ``batchnorm_apply``) it normalizes with the batch's biased variance
+    and updates the running stats in place with the unbiased one, momentum
+    0.1; padded steps count in the statistics, as in the reference."""
+    if not train:
+        return batchnorm_eval(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+    y = F.batch_norm(x.transpose(1, 2), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                     training=True, momentum=0.1, eps=bn.eps)
+    return y.transpose(1, 2)
+
+
+def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
+    """Inverted dropout (torch semantics: keep with 1 - rate, scale by
+    1 / (1 - rate)) with the bits from ``generator``."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    return x * ((torch.rand(x.shape, generator=generator, device=x.device) < keep).to(x.dtype)
+                / keep)
 
 
 def lstm_cell(x, hc: Tuple[torch.Tensor, torch.Tensor], w_ih, w_hh, b_ih, b_hh,

@@ -1,8 +1,9 @@
 """Postnet: 5-layer conv refinement applied as a residual over the mel.
 
-Counterpart of ``tacotron2_tpu/models/postnet.py`` in eval mode: 5x
-[Conv1d(k=5, SAME, no bias) -> BatchNorm1d -> Tanh], the last layer without
-Tanh; num_mels -> postnet_dim -> ... -> num_mels, channels-last.
+Counterpart of ``tacotron2_tpu/models/postnet.py``: 5x [Conv1d(k=5, SAME, no
+bias) -> BatchNorm1d -> Tanh -> Dropout], the last layer without Tanh;
+num_mels -> postnet_dim -> ... -> num_mels, channels-last. In train mode the
+BatchNorm runs on the batch's statistics and dropout follows every layer.
 """
 
 from __future__ import annotations
@@ -30,12 +31,14 @@ class Postnet(nn.Module):
         self.postnet = nn.Sequential(*mods)
         self.num_layers = num_layers
 
-    def forward(self, x, policy: Policy = F32):
+    def forward(self, x, policy: Policy = F32, train: bool = False, dropout: float = 0.5,
+                generator=None):
         for i in range(self.num_layers):
             conv, bn = self.postnet[4 * i], self.postnet[4 * i + 1]
             x = layers.conv1d(x, conv.weight, None, policy, padding="SAME")
-            x = layers.batchnorm_eval(x, bn.weight, bn.bias, bn.running_mean,
-                                      bn.running_var, bn.eps)
+            x = layers.batchnorm(x, bn, train)
             if i < self.num_layers - 1:
                 x = torch.tanh(x)
+            if train:
+                x = layers.dropout(x, dropout, generator)
         return x

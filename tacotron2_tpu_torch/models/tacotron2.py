@@ -10,6 +10,9 @@ negative -> postnet residual -> length masking (mels -> 0, gates -> -1000).
 model's own modules with a stop check after every step. ``forward_infer_fast``
 is the production decode: kernel K1 in 64-frame chunks
 (``ops/decoder_loop.py``), with identical outputs by its step bookkeeping.
+``forward_teacher`` is training's teacher-forced pass (JAX
+``forward_teacher(dw_hoist=True)``): the decode runs as ``TeacherDecode``,
+kernels K3 and K4 (``ops/train_decode.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from tacotron2_tpu_torch.models import layers
 from tacotron2_tpu_torch.models.encoder import Encoder
 from tacotron2_tpu_torch.models.layers import F32, Policy
 from tacotron2_tpu_torch.models.postnet import Postnet
-from tacotron2_tpu_torch.ops import decoder_loop
+from tacotron2_tpu_torch.ops import decoder_loop, train_decode
 
 GATE_MASK_VALUE = -1000.0
 
@@ -72,8 +75,9 @@ class Tacotron2(nn.Module):
         self.postnet = Postnet(c.num_mels, c.postnet_dim)
 
     # ------------------------------------------------------------------
-    def _encode(self, chars_idx, chars_len):
-        encoded = self.encoder(chars_idx, chars_len, self.policy)
+    def _encode(self, chars_idx, chars_len, train: bool = False, generator=None):
+        encoded = self.encoder(chars_idx, chars_len, self.policy, train, self.cfg.dropout,
+                               generator)
         att_encoded = layers.linear(encoded, self.att_encoder.weight, None, self.policy)
         char_pos = torch.arange(chars_idx.shape[1], device=chars_idx.device)
         mask = char_pos[None, :] >= chars_len[:, None]
@@ -99,6 +103,48 @@ class Tacotron2(nn.Module):
             gates=gates.masked_fill(mask, GATE_MASK_VALUE),
             alignments=aligns, lengths=lengths, n_frames=n_frames,
         )
+
+    def teacher_decoder_in(self, mel, generator: Optional[torch.Generator] = None):
+        """The prenet over the ground-truth mel (B, T, M) shifted by one
+        frame, AlwaysDropout on -> the teacher-forced decode's input (T, B, P)."""
+        x = torch.nn.functional.pad(mel, (0, 0, 1, 0))[:, :mel.shape[1]]
+        for lin in (self.prenet[0], self.prenet[3]):
+            x = layers.dropout(torch.relu(layers.linear(x, lin.weight, None, self.policy)),
+                               self.cfg.dropout, generator)
+        return x.transpose(0, 1).contiguous()
+
+    # ------------------------------------------------------------------
+    def forward_teacher(self, chars_idx, chars_len, mel, mel_len, train: bool = True,
+                        generator: Optional[torch.Generator] = None,
+                        lstm_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                        ) -> Tacotron2Output:
+        """Teacher-forced pass over the ground-truth mel (B, T, M): encode ->
+        prenet over the mel shifted by one frame (AlwaysDropout, on in train
+        and eval as in the reference) -> ``TeacherDecode`` -> postnet -> length
+        masking by ``mel_len``. ``train``: BatchNorm on batch statistics,
+        dropout in the encoder and postnet, LSTM dropout (keep 0.9). Dropout
+        bits come from ``generator``; ``lstm_masks`` (T, B, H) x 2 replaces
+        the LSTM's (the tests inject JAX's)."""
+        c = self.cfg
+        if c.att_rnn_dim != c.rnn_hidden_dim:
+            raise ValueError("the teacher-forced decode needs att_rnn_dim == rnn_hidden_dim")
+        B, T, _ = mel.shape
+        dev = mel.device
+        encoded, att_encoded, _ = self._encode(chars_idx, chars_len, train, generator)
+        decoder_in = self.teacher_decoder_in(mel, generator)
+        if lstm_masks is None:
+            if train:
+                lstm_masks = train_decode.lstm_masks(T, B, c.att_rnn_dim, generator, dev)
+            else:
+                ones = torch.ones(T, B, c.att_rnn_dim, device=dev)
+                lstm_masks = (ones, ones)
+        mels, gates, aligns = train_decode.teacher_decode(
+            self.decoder, decoder_in, encoded, att_encoded, chars_len,
+            *lstm_masks, self.policy.compute_dtype)
+        mels = mels.transpose(0, 1)
+        post = self.postnet(mels, self.policy, train, c.dropout, generator)
+        return self._mask_outputs(mels, mels + post, gates.transpose(0, 1)[..., None],
+                                  aligns.transpose(0, 1), mel_len, T)
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the root of the
 checkout (listed in ``.gitignore``), then loaded with ``ctypes``. The hash
-covers the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing here runs at import: the first wrapper that
+covers the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source is rebuilt and a stale library is never loaded. Nothing here runs at import: the first wrapper that
 launches a kernel builds its library, or ``build_all`` builds every library
 at once, one ``nvcc`` per source, all started together.
 """
@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("decode_step", "mrf")
+SOURCES = ("decode_step", "mrf", "train_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -43,7 +43,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

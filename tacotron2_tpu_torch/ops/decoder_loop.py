@@ -100,19 +100,26 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype) -> PackedDecoder:
 # ---------------------------------------------------------------------------
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """A weight in its sum type: f32, or f64 for f64 weights (the
+    gradient checks run the plain versions in f64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _rnd(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """Round an activation to the weights' type (bf16 operands), keep f32."""
-    return x.to(like.dtype).float()
+    """Round an activation to the weights' type (bf16 operands), keep the
+    sum type."""
+    return _acc(x.to(like.dtype))
 
 
 def prenet_plain(mel, wp1_t, wp2_t, m1, m2):
-    h1 = torch.relu(_rnd(mel, wp1_t) @ wp1_t.float()) * m1
-    return torch.relu(_rnd(h1, wp2_t) @ wp2_t.float()) * m2
+    h1 = torch.relu(_rnd(mel, wp1_t) @ _acc(wp1_t)) * m1
+    return torch.relu(_rnd(h1, wp2_t) @ _acc(wp2_t)) * m2
 
 
 def lstm_cell_plain(w, b, x1, x2, x3, c):
     x = torch.cat([x1, x2, x3], dim=1)
-    gates = _rnd(x, w) @ w.float().t() + b
+    gates = _rnd(x, w) @ _acc(w).t() + b
     i, f, g, o = gates.chunk(4, dim=1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     return torch.sigmoid(o) * torch.tanh(c_new), c_new
@@ -121,20 +128,20 @@ def lstm_cell_plain(w, b, x1, x2, x3, c):
 def location_attention_plain(h, wq, w_loc, wv, att_enc, encoded, lengths,
                              w_prev, cum_prev):
     L = att_enc.shape[1]
-    q = _rnd(h, wq) @ wq.float().t()  # (B, A)
+    q = _rnd(h, wq) @ _acc(wq).t()  # (B, A)
     win = _rnd(torch.stack([w_prev, cum_prev], dim=1), w_loc)  # (B, 2, L)
-    loc = F.conv1d(win, w_loc.float(), padding=w_loc.shape[2] // 2)  # (B, A, L)
+    loc = F.conv1d(win, _acc(w_loc), padding=w_loc.shape[2] // 2)  # (B, A, L)
     e = torch.tanh(q[:, None, :] + loc.transpose(1, 2) + att_enc)
-    energies = _rnd(e, wv) @ wv.float()  # (B, L)
+    energies = _rnd(e, wv) @ _acc(wv)  # (B, L)
     pad = torch.arange(L, device=h.device)[None, :] >= lengths[:, None]
     w = torch.softmax(energies.masked_fill(pad, float("-inf")), dim=1)
-    ctx = torch.einsum("bl,bld->bd", _rnd(w, encoded), encoded.float())
+    ctx = torch.einsum("bl,bld->bd", _rnd(w, encoded), _acc(encoded))
     return ctx, w, cum_prev + w
 
 
 def heads_plain(w_out, b_out, rnn_h, ctx):
     x = torch.cat([rnn_h, ctx], dim=1)
-    return _rnd(x, w_out) @ w_out.float().t() + b_out
+    return _rnd(x, w_out) @ _acc(w_out).t() + b_out
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,479 @@
+"""Teacher-forced decode of training: kernels K3 (forward) and K4 (backward)
+and the ``TeacherDecode`` autograd function around them.
+
+Replaces ``tacotron2_tpu/ops/train_decode_pallas.py`` (``_teacher_step_kernel``
+and ``_teacher_bwd_kernel``) and keeps the residual contract of
+``tacotron2_tpu/ops/train_scan.py``: the forward stacks, per step, the
+compute-dtype LSTM inputs xh1 = [prenet | ctx | att_h] and xh2 = [att_h_d |
+ctx | rnn_h], the cell states, the previous and cumulative attention weights;
+the backward walks t = T-1 .. 0, recomputes each step from them, pulls the
+cotangents through heads -> decoder LSTM -> location attention -> attention
+LSTM, and stacks the gate cotangents dg1/dg2. The two fat weight gradients
+are then two GEMMs over all T * B rows (``_split_big_small`` / ``_merge_dw``:
+b_ih and b_hh receive the same db).
+
+The LSTM dropout masks dm1, dm2 (keep 0.9, scale 1/0.9) are inputs, drawn
+outside from a ``torch.Generator`` (``lstm_masks``), so the tests can inject
+JAX's. The carried att_h and rnn_h are the values after dropout.
+
+On the card ``teacher_forward`` is one host call into ``csrc/train_decode.cu``
+(``t2_teacher_forward``, 6 launches a step, two of them the gate GEMM that
+``gate_lstm`` launches alone) and ``teacher_backward`` another
+(``t2_teacher_backward``, 2 + 8 launches a step); each wrapper adds its own
+launches to ``LAUNCHES``. Their plain versions below are the definition: same operand
+rounding (bf16 operands, f32 sums, bf16 residual and dg stacks), used for
+CPU tensors and as what the kernels are held against on the card. The plain
+versions keep the sum type of the weights, so they also run in f64 (the
+gradient check).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from tacotron2_tpu_torch.ops import build
+from tacotron2_tpu_torch.ops.decoder_loop import (
+    _acc,
+    _rnd,
+    heads_plain,
+    location_attention_plain,
+    lstm_cell_plain,
+)
+
+KEEP = 0.9  # LSTM dropout keep probability (decoder.py: dropout 0.1)
+
+# launches of each kernel; counted only where the kernel is launched
+LAUNCHES = {"teacher_forward": 0, "gate_lstm": 0, "teacher_backward": 0}
+
+# the decoder's parameters that TeacherDecode differentiates, in its order
+DECODER_PARAMS = (
+    "att_rnn.weight_ih", "att_rnn.weight_hh", "att_rnn.bias_ih", "att_rnn.bias_hh",
+    "lstm.weight_ih", "lstm.weight_hh", "lstm.bias_ih", "lstm.bias_hh",
+    "attention.query_layer.weight", "attention.v.weight",
+    "attention.location_conv.weight", "attention.location_dense.weight",
+    "mel_out.weight", "mel_out.bias", "gate.weight", "gate.bias",
+)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def forward_launches(T: int) -> int:
+    """K3's launches for T steps."""
+    return 6 * T
+
+
+def backward_launches(T: int) -> int:
+    """K4's launches for T steps."""
+    return 2 + 8 * T
+
+
+class TrainWeights(NamedTuple):
+    """The decoder's weights in the kernels' layouts (``_split_big_small``)."""
+
+    w1: torch.Tensor  # (4H, P + D + H) cols [prenet | ctx | att_h]
+    b1: torch.Tensor  # (4H,) b_ih + b_hh, sum type
+    w2: torch.Tensor  # (4H, 2H + D) cols [att_h | ctx | rnn_h]
+    b2: torch.Tensor
+    wq: torch.Tensor  # (A, H)
+    w_loc: torch.Tensor  # (A, 2, K) location conv folded with the location dense
+    wv: torch.Tensor  # (A,)
+    w_out: torch.Tensor  # (M + 1, H + D) rows 0..M-1 mel, row M gate
+    b_out: torch.Tensor  # (M + 1,) sum type
+
+
+class Residuals(NamedTuple):
+    """What the forward keeps for the backward. The four state stacks have
+    T + 1 slots: slot 0 is the (zero) initial state, slot t + 1 the state
+    after step t, so step t's previous state is slot t."""
+
+    xh1: torch.Tensor  # (T, B, P + D + H) compute dtype
+    xh2: torch.Tensor  # (T, B, 2H + D) compute dtype
+    c_att: torch.Tensor  # (T + 1, B, H)
+    c_rnn: torch.Tensor  # (T + 1, B, H)
+    al: torch.Tensor  # (T + 1, B, L) attention weights; al[1:] are the aligns
+    cum: torch.Tensor  # (T + 1, B, L) cumulative weights
+
+
+class BackwardOut(NamedTuple):
+    dg1: torch.Tensor  # (T, B, 4H) compute dtype
+    dg2: torch.Tensor  # (T, B, 4H) compute dtype
+    dxh1: torch.Tensor  # (T + 1, B, P + D + H), slot T zero; [:T, :, :P] = d_prenet
+    dctx: torch.Tensor  # (T, B, D) the context's whole cotangent per step
+    dq: torch.Tensor  # (T, B, A) the query projection's cotangent
+    head_h: torch.Tensor  # (T, B, H) compute dtype: rnn_h after dropout (heads input)
+    d_attenc: torch.Tensor  # (B, L, A)
+    d_wv: torch.Tensor  # (B, A) per batch row; summed after
+    d_wloc: torch.Tensor  # (B, A, 2, K) per batch row; summed after
+
+
+def pack_weights(params: Sequence[torch.Tensor], dtype: torch.dtype) -> TrainWeights:
+    """``DECODER_PARAMS`` tensors -> kernel layouts, weights in ``dtype``.
+    Differentiable (the reference loop in the tests differentiates it)."""
+    (a_ih, a_hh, ab_ih, ab_hh, d_ih, d_hh, db_ih, db_hh, wq, v, conv, dense,
+     mel_w, mel_b, gate_w, gate_b) = params
+    acc = torch.promote_types(dtype, torch.float32)
+    c = lambda t: t.to(dtype).contiguous()
+    w_loc = torch.einsum("af,fck->ack", dense.to(acc), conv.to(acc))
+    return TrainWeights(
+        w1=c(torch.cat([a_ih, a_hh], dim=1)), b1=(ab_ih + ab_hh).to(acc),
+        w2=c(torch.cat([d_ih, d_hh], dim=1)), b2=(db_ih + db_hh).to(acc),
+        wq=c(wq), w_loc=c(w_loc), wv=c(v[0]),
+        w_out=c(torch.cat([mel_w, gate_w], dim=0)),
+        b_out=torch.cat([mel_b, gate_b]).to(acc),
+    )
+
+
+def lstm_masks(T: int, B: int, H: int, generator, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LSTM dropout scale masks (T, B, H) x 2 (keep 0.9, 1/0.9)."""
+    m1 = (torch.rand(T, B, H, generator=generator, device=device) < KEEP).float() / KEEP
+    m2 = (torch.rand(T, B, H, generator=generator, device=device) < KEEP).float() / KEEP
+    return m1, m2
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def teacher_forward_plain(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1, dm2):
+    """T teacher-forced steps from the zero state -> (mel_gate (T, B, M + 1),
+    Residuals). decoder_in (T, B, P), encoded (B, L, D) in the compute dtype,
+    att_enc (B, L, A), lengths (B,), dm1/dm2 (T, B, H). Written without
+    in-place updates, so autograd can also differentiate it."""
+    T, B, _ = decoder_in.shape
+    H, L, D = w.wq.shape[1], encoded.shape[1], encoded.shape[2]
+    cd = w.w1.dtype
+    z = lambda *s: decoder_in.new_zeros(*s)
+    att_h, ctx, rnn_h = z(B, H), z(B, D), z(B, H)
+    c_att, c_rnn, al, cum = [z(B, H)], [z(B, H)], [z(B, L)], [z(B, L)]
+    xh1, xh2, mel_gate = [], [], []
+    for t in range(T):
+        xh1.append(torch.cat([decoder_in[t], ctx, att_h], dim=1).to(cd))
+        h, c = lstm_cell_plain(w.w1, w.b1, decoder_in[t], ctx, att_h, c_att[-1])
+        att_h = h * dm1[t]
+        c_att.append(c)
+        ctx, wt, cm = location_attention_plain(att_h, w.wq, w.w_loc, w.wv, att_enc, encoded,
+                                               lengths, al[-1], cum[-1])
+        al.append(wt)
+        cum.append(cm)
+        xh2.append(torch.cat([att_h, ctx, rnn_h], dim=1).to(cd))
+        h, c = lstm_cell_plain(w.w2, w.b2, att_h, ctx, rnn_h, c_rnn[-1])
+        rnn_h = h * dm2[t]
+        c_rnn.append(c)
+        mel_gate.append(heads_plain(w.w_out, w.b_out, rnn_h, ctx))
+    st = torch.stack
+    return st(mel_gate), Residuals(st(xh1), st(xh2), st(c_att), st(c_rnn), st(al), st(cum))
+
+
+def _gates(g: torch.Tensor):
+    i, f, gg, o = g.chunk(4, dim=-1)
+    return torch.sigmoid(i), torch.sigmoid(f), torch.tanh(gg), torch.sigmoid(o)
+
+
+def _lstm_pull(gates, c_prev, d_hd, mask, d_c):
+    """-> (dg (B, 4H), d_c_prev) through one cell whose output times
+    ``mask`` has cotangent d_hd and whose cell state has cotangent d_c."""
+    i, f, g, o = gates
+    c = f * c_prev + i * g
+    tc = torch.tanh(c)
+    dh = d_hd * mask
+    dc = d_c + dh * o * (1 - tc * tc)
+    dg = torch.cat([dc * g * i * (1 - i), dc * c_prev * f * (1 - f), dc * i * (1 - g * g),
+                    dh * tc * o * (1 - o)], dim=1)
+    return dg, dc * f
+
+
+def teacher_backward_plain(w: TrainWeights, res: Residuals, encoded, att_enc, lengths, dm1, dm2,
+                           d_mel_gate, d_align) -> BackwardOut:
+    """The reverse pass (``train_scan._vjp_bwd``, pulled by hand as
+    ``_teacher_bwd_kernel`` does). d_mel_gate (T, B, M + 1), d_align
+    (T, B, L)."""
+    T, B, R1 = res.xh1.shape
+    H, L, D = w.wq.shape[1], encoded.shape[1], encoded.shape[2]
+    P, K = R1 - D - H, w.w_loc.shape[2]
+    cd = w.w1.dtype
+    W1, W2, wq, wl, wv, wout = (_acc(t) for t in (w.w1, w.w2, w.wq, w.w_loc, w.wv, w.w_out))
+    enc = _acc(encoded)
+    # the gate pre-activations of every step: they need no cotangent
+    G1 = _acc(res.xh1) @ W1.t() + w.b1
+    G2 = _acc(res.xh2) @ W2.t() + w.b2
+    z = lambda *s: d_align.new_zeros(*s)
+    dg1, dg2 = z(T, B, 4 * H).to(cd), z(T, B, 4 * H).to(cd)
+    dxh1, dctx, dq = z(T + 1, B, R1), z(T, B, D), z(T, B, w.wq.shape[0])
+    head_h = z(T, B, H).to(cd)
+    d_attenc, d_wv, d_wloc = z(*att_enc.shape), z(B, wq.shape[0]), z(B, *wl.shape)
+    d_att_c, d_rnn_c, d_rnn_h = z(B, H), z(B, H), z(B, H)
+    d_w, d_cum = z(B, L), z(B, L)
+    pad = torch.arange(L, device=enc.device)[None, :] >= lengths[:, None]
+    for t in range(T - 1, -1, -1):
+        # decoder LSTM and heads
+        g2 = _gates(G2[t])
+        c2 = g2[1] * res.c_rnn[t] + g2[0] * g2[2]
+        rnn_h_d = g2[3] * torch.tanh(c2) * dm2[t]
+        head_h[t] = rnn_h_d.to(cd)
+        d_headin = _rnd(d_mel_gate[t], w.w_out) @ wout  # (B, H + D)
+        dg, d_rnn_c = _lstm_pull(g2, res.c_rnn[t], d_headin[:, :H] + d_rnn_h, dm2[t], d_rnn_c)
+        dg2[t] = dg.to(cd)
+        dx2 = _acc(dg2[t]) @ W2
+        d_rnn_h = dx2[:, H + D:]
+        dc = dxh1[t + 1, :, P:P + D] + d_headin[:, H:] + dx2[:, H:H + D]
+        dctx[t] = dc
+        # attention recompute
+        g1 = _gates(G1[t])
+        c1 = g1[1] * res.c_att[t] + g1[0] * g1[2]
+        h = g1[3] * torch.tanh(c1) * dm1[t]
+        q = _rnd(h, w.wq) @ wq.t()
+        win = _rnd(torch.stack([res.al[t], res.cum[t]], dim=1), w.w_loc)  # (B, 2, L)
+        loc = F.conv1d(win, wl, padding=K // 2).transpose(1, 2)  # (B, L, A)
+        th = torch.tanh(q[:, None, :] + loc + att_enc)
+        e = (_rnd(th, w.wv) @ wv).masked_fill(pad, float("-inf"))
+        wt = torch.softmax(e, dim=1)
+        # attention pull
+        dws = d_w + d_align[t] + d_cum + torch.einsum("bd,bld->bl", _rnd(dc, encoded), enc)
+        de = wt * (dws - (dws * wt).sum(dim=1, keepdim=True))
+        d_wv += torch.einsum("bla,bl->ba", th, de)
+        de_pre = de[:, :, None] * wv * (1 - th * th)  # (B, L, A)
+        d_attenc += de_pre
+        dq[t] = de_pre.sum(dim=1)
+        patches = F.pad(win, (K // 2, K // 2)).unfold(2, K, 1)  # (B, 2, L, K)
+        d_wloc += torch.einsum("bclk,bla->back", patches, de_pre)
+        d_win = F.conv_transpose1d(de_pre.transpose(1, 2), wl, padding=K // 2)  # (B, 2, L)
+        d_w, d_cum = d_win[:, 0], d_cum + d_win[:, 1]
+        # attention LSTM
+        d_hd = dxh1[t + 1, :, P + D:] + dx2[:, :H] + dq[t] @ wq
+        dg, d_att_c = _lstm_pull(g1, res.c_att[t], d_hd, dm1[t], d_att_c)
+        dg1[t] = dg.to(cd)
+        dxh1[t] = _acc(dg1[t]) @ W1
+    return BackwardOut(dg1, dg2, dxh1, dctx, dq, head_h, d_attenc, d_wv, d_wloc)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_LIB = None
+Ptr = ctypes.c_void_p
+Int = ctypes.c_int
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.load("train_decode")
+        lib.t2_teacher_forward.argtypes = [ctypes.POINTER(Ptr), ctypes.POINTER(Int), Ptr]
+        lib.t2_teacher_backward.argtypes = [ctypes.POINTER(Ptr), ctypes.POINTER(Int), Ptr]
+        lib.t2_gate_lstm.argtypes = [Ptr] * 7 + [Int] * 3 + [Ptr]
+        for fn in (lib.t2_teacher_forward, lib.t2_teacher_backward, lib.t2_gate_lstm):
+            fn.restype = Int
+        _LIB = lib
+    return _LIB
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _ptrs(tensors):
+    return (Ptr * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _require_weights(w: TrainWeights, P: int, D: int) -> Tuple[int, int, int, int]:
+    A, H = w.wq.shape
+    K, N = w.w_loc.shape[2], w.w_out.shape[0]
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, t, dt, shape in (
+        ("w1", w.w1, bf, (4 * H, P + D + H)), ("b1", w.b1, f32, (4 * H,)),
+        ("w2", w.w2, bf, (4 * H, 2 * H + D)), ("b2", w.b2, f32, (4 * H,)),
+        ("wq", w.wq, bf, (A, H)), ("w_loc", w.w_loc, bf, (A, 2, K)), ("wv", w.wv, bf, (A,)),
+        ("w_out", w.w_out, bf, (N, H + D)), ("b_out", w.b_out, f32, (N,)),
+    ):
+        build.require(t, dt, shape, name)
+    return H, A, K, N
+
+
+def teacher_forward(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1, dm2):
+    """``teacher_forward_plain`` through kernel K3 for CUDA tensors."""
+    if decoder_in.device.type == "cpu":
+        return teacher_forward_plain(w, decoder_in, encoded, att_enc, lengths, dm1, dm2)
+    T, B, P = decoder_in.shape
+    L, D = encoded.shape[1], encoded.shape[2]
+    H, A, K, N = _require_weights(w, P, D)
+    f32 = torch.float32
+    for name, t, dt, shape in (
+        ("decoder_in", decoder_in, f32, (T, B, P)), ("encoded", encoded, torch.bfloat16, (B, L, D)),
+        ("att_enc", att_enc, f32, (B, L, A)), ("lengths", lengths, torch.int32, (B,)),
+        ("dm1", dm1, f32, (T, B, H)), ("dm2", dm2, f32, (T, B, H)),
+    ):
+        build.require(t, dt, shape, name)
+    dev = decoder_in.device
+    e = lambda *s, dtype=f32: torch.empty(*s, device=dev, dtype=dtype)
+    mel_gate = e(T, B, N)
+    res = Residuals(e(T, B, P + D + H, dtype=torch.bfloat16), e(T, B, 2 * H + D, dtype=torch.bfloat16),
+                    e(T + 1, B, H), e(T + 1, B, H), e(T + 1, B, L), e(T + 1, B, L))
+    for stack in res[2:]:
+        stack[0].zero_()
+    state = [torch.zeros(B, n, device=dev) for n in (H, D, H)]
+    tensors = (*w, decoder_in, encoded, att_enc, lengths, dm1, dm2, mel_gate, *res, *state)
+    LAUNCHES["teacher_forward"] += forward_launches(T)
+    build.check(_lib().t2_teacher_forward(_ptrs(tensors), (Int * 9)(T, B, P, H, D, L, A, K, N),
+                                          _stream()), "teacher_forward")
+    return mel_gate, res
+
+
+def _splits(H4: int) -> int:
+    """Splits of the dx GEMMs' 4H contraction (64-wide chunks each)."""
+    for s in (8, 4, 2, 1):
+        if H4 % (64 * s) == 0:
+            return s
+    raise ValueError(f"4H = {H4} is not a multiple of 64")
+
+
+def teacher_backward(w: TrainWeights, res: Residuals, encoded, att_enc, lengths, dm1, dm2,
+                     d_mel_gate, d_align) -> BackwardOut:
+    """``teacher_backward_plain`` through kernel K4 for CUDA tensors."""
+    if encoded.device.type == "cpu":
+        return teacher_backward_plain(w, res, encoded, att_enc, lengths, dm1, dm2,
+                                      d_mel_gate, d_align)
+    T, B, R1 = res.xh1.shape
+    L, D = encoded.shape[1], encoded.shape[2]
+    P = R1 - D - w.wq.shape[1]
+    H, A, K, N = _require_weights(w, P, D)
+    R2 = 2 * H + D
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, t, dt, shape in (
+        ("encoded", encoded, bf, (B, L, D)), ("att_enc", att_enc, f32, (B, L, A)),
+        ("lengths", lengths, torch.int32, (B,)), ("dm1", dm1, f32, (T, B, H)),
+        ("dm2", dm2, f32, (T, B, H)), ("d_mel_gate", d_mel_gate, f32, (T, B, N)),
+        ("d_align", d_align, f32, (T, B, L)), ("xh1", res.xh1, bf, (T, B, R1)),
+        ("xh2", res.xh2, bf, (T, B, R2)), ("c_att", res.c_att, f32, (T + 1, B, H)),
+        ("c_rnn", res.c_rnn, f32, (T + 1, B, H)), ("al", res.al, f32, (T + 1, B, L)),
+        ("cum", res.cum, f32, (T + 1, B, L)),
+    ):
+        build.require(t, dt, shape, name)
+    S = _splits(4 * H)
+    dev = encoded.device
+    e = lambda *s, dtype=f32: torch.empty(*s, device=dev, dtype=dtype)
+    zr = lambda *s: torch.zeros(*s, device=dev)
+    out = BackwardOut(e(T, B, 4 * H, dtype=bf), e(T, B, 4 * H, dtype=bf), e(T + 1, B, R1),
+                      e(T, B, D), e(T, B, A), e(T, B, H, dtype=bf), zr(B, L, A), zr(B, A),
+                      zr(B, A, 2, K))
+    out.dxh1[T].zero_()
+    scratch = (e(T, B, 4 * H), e(T, B, 4 * H), e(B, H + D), zr(B, R2), e(B, H), e(B, H),
+               zr(B, H), zr(B, H), zr(B, L), zr(B, L), e(S, B, max(R1, R2)))
+    tensors = (*w[:8], encoded, att_enc, lengths, dm1, dm2, d_mel_gate, d_align, *res, *out,
+               *scratch)
+    LAUNCHES["teacher_backward"] += backward_launches(T)
+    build.check(_lib().t2_teacher_backward(
+        _ptrs(tensors), (Int * 10)(T, B, P, H, D, L, A, K, N, S), _stream()), "teacher_backward")
+    return out
+
+
+def gate_lstm_plain(w, b, xh, c_prev, mask):
+    """One LSTM cell from its gathered input xh (M, R) -> (h * mask, c)."""
+    i, f, g, o = _gates(_acc(xh) @ _acc(w).t() + b)
+    c = f * c_prev + i * g
+    return o * torch.tanh(c) * mask, c
+
+
+def gate_lstm(w, b, xh, c_prev, mask):
+    """K3's gate GEMM with its LSTM epilogue, alone (one launch)."""
+    if xh.device.type == "cpu":
+        return gate_lstm_plain(w, b, xh, c_prev, mask)
+    M, R = xh.shape
+    H = c_prev.shape[1]
+    build.require(w, torch.bfloat16, (4 * H, R), "w")
+    build.require(b, torch.float32, (4 * H,), "b")
+    build.require(xh, torch.bfloat16, (M, R), "xh")
+    build.require(c_prev, torch.float32, (M, H), "c_prev")
+    build.require(mask, torch.float32, (M, H), "mask")
+    h, c = torch.empty_like(c_prev), torch.empty_like(c_prev)
+    LAUNCHES["gate_lstm"] += 1
+    build.check(_lib().t2_gate_lstm(xh.data_ptr(), w.data_ptr(), b.data_ptr(), c_prev.data_ptr(),
+                                    mask.data_ptr(), c.data_ptr(), h.data_ptr(), M, R, H,
+                                    _stream()), "gate_lstm")
+    return h, c
+
+
+# ---------------------------------------------------------------------------
+# the autograd function
+# ---------------------------------------------------------------------------
+
+
+def grads_from(params, w: TrainWeights, res: Residuals, encoded, out: BackwardOut, d_mel_gate):
+    """``TeacherDecode``'s gradients from the reverse pass's stacks: those
+    of decoder_in, encoded and att_encoded, then of ``DECODER_PARAMS``:
+    dW1 = dg1^T xh1 and dW2 = dg2^T xh2 over all T * B rows, the bias sums,
+    d_wq = dq^T h_att, d_wout = bf16(dmg)^T [head_h | ctx], and the folded
+    location window's gradient unfolded into the conv and the dense. These
+    products sit outside the kernels, as in the JAX package."""
+    (a_ih, _, _, _, d_ih, _, _, _, _, _, conv, dense, *_) = params
+    T, B, _ = res.xh1.shape
+    H, D = w.wq.shape[1], res.xh2.shape[2] - 2 * w.wq.shape[1]
+    M = w.w_out.shape[0] - 1
+    acc = torch.promote_types(w.w1.dtype, torch.float32)
+    flat = lambda t: _acc(t).reshape(T * B, -1)
+    d_prenet = out.dxh1[:-1, :, :res.xh1.shape[2] - D - H]
+    d_enc = torch.einsum("tbl,tbd->bld", _rnd(res.al[1:], encoded), out.dctx)
+    dW1 = flat(out.dg1).t() @ flat(res.xh1)
+    dW2 = flat(out.dg2).t() @ flat(res.xh2)
+    db1, db2 = flat(out.dg1).sum(0), flat(out.dg2).sum(0)
+    d_wq = flat(out.dq).t() @ flat(res.xh2[:, :, :H])
+    head_in = torch.cat([flat(out.head_h), flat(res.xh2[:, :, H:H + D])], dim=1)
+    d_wout = flat(_rnd(d_mel_gate, w.w_out)).t() @ head_in
+    dmg_sum = d_mel_gate.reshape(T * B, -1).sum(0)
+    d_wl = out.d_wloc.sum(0)  # (A, 2, K)
+    d_conv = torch.einsum("af,ack->fck", dense.to(acc), d_wl)
+    d_dense = torch.einsum("ack,fck->af", d_wl, conv.to(acc))
+    n1, n2 = a_ih.shape[1], d_ih.shape[1]
+    grads = (dW1[:, :n1], dW1[:, n1:], db1, db1, dW2[:, :n2], dW2[:, n2:], db2, db2,
+             d_wq, out.d_wv.sum(0)[None], d_conv, d_dense,
+             d_wout[:M], dmg_sum[:M], d_wout[M:], dmg_sum[M:])
+    return (d_prenet, d_enc, out.d_attenc, *(g.to(p.dtype) for g, p in zip(grads, params)))
+
+
+class TeacherDecode(torch.autograd.Function):
+    """(decoder_in (T, B, P), encoded (B, L, D), att_encoded (B, L, A),
+    lengths, dm1, dm2, *DECODER_PARAMS) -> (mels (T, B, M), gates (T, B),
+    aligns (T, B, L)), with ``compute_dtype`` the operands' type. The
+    backward returns the gradients of decoder_in, encoded, att_encoded and
+    every parameter."""
+
+    @staticmethod
+    def forward(ctx, compute_dtype, decoder_in, encoded, att_encoded, lengths, dm1, dm2, *params):
+        w = pack_weights(params, compute_dtype)
+        enc = encoded.to(compute_dtype).contiguous()
+        att = att_encoded.contiguous()
+        lens = lengths.to(torch.int32).contiguous()
+        mel_gate, res = teacher_forward(w, decoder_in.contiguous(), enc, att, lens,
+                                        dm1.contiguous(), dm2.contiguous())
+        ctx.w, ctx.res, ctx.enc, ctx.att, ctx.lens = w, res, enc, att, lens
+        ctx.save_for_backward(dm1, dm2, *params)
+        M = mel_gate.shape[2] - 1
+        return mel_gate[..., :M], mel_gate[..., M], res.al[1:]
+
+    @staticmethod
+    def backward(ctx, d_mels, d_gates, d_aligns):
+        dm1, dm2, *params = ctx.saved_tensors
+        w, res = ctx.w, ctx.res
+        acc = res.c_att.dtype
+        d_mel_gate = torch.cat([d_mels, d_gates[..., None]], dim=2).to(acc).contiguous()
+        out = teacher_backward(w, res, ctx.enc, ctx.att, ctx.lens, dm1.contiguous(),
+                               dm2.contiguous(), d_mel_gate, d_aligns.to(acc).contiguous())
+        d_prenet, d_enc, d_attenc, *d_params = grads_from(params, w, res, ctx.enc, out,
+                                                          d_mel_gate)
+        return (None, d_prenet, d_enc, d_attenc, None, None, None, *d_params)
+
+
+def teacher_decode(decoder, decoder_in, encoded, att_encoded, lengths, dm1, dm2,
+                   compute_dtype: torch.dtype):
+    """``TeacherDecode`` over a ``models.decoder.Decoder`` module's parameters."""
+    named = dict(decoder.named_parameters())
+    return TeacherDecode.apply(compute_dtype, decoder_in, encoded, att_encoded, lengths, dm1, dm2,
+                               *(named[k] for k in DECODER_PARAMS))

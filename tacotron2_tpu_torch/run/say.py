@@ -23,9 +23,10 @@ import torch
 
 from tacotron2_tpu_torch.audio.io import write_wav
 from tacotron2_tpu_torch.config import Config
-from tacotron2_tpu_torch.convert import load_hifigan_checkpoint, load_tacotron2_checkpoint
+from tacotron2_tpu_torch.convert import (load_hifigan_checkpoint, load_strict,
+                                         load_tacotron2_checkpoint)
 from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
-from tacotron2_tpu_torch.models.layers import F32, Policy, resolve_device
+from tacotron2_tpu_torch.models.layers import F32, Policy, resolve_device, use_f32_math
 from tacotron2_tpu_torch.models.tacotron2 import Tacotron2, Tacotron2Config
 from tacotron2_tpu_torch.ops.mrf import mrf_stage
 from tacotron2_tpu_torch.text.cleaners import normalize_text
@@ -52,18 +53,9 @@ def model_config_from(cfg: Config) -> Tacotron2Config:
     )
 
 
-def _load_strict(module: torch.nn.Module, sd: dict) -> None:
-    missing, unexpected = module.load_state_dict(sd, strict=False)
-    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
-    if missing or unexpected:
-        raise ValueError(f"checkpoint does not match the model: missing {missing}, "
-                         f"unexpected {unexpected}")
-
-
 def load_tacotron(cfg: Config, checkpoint: str, device) -> Tacotron2:
     model = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision))
-    sd, _ = load_tacotron2_checkpoint(checkpoint)
-    _load_strict(model, sd)
+    load_strict(model, load_tacotron2_checkpoint(checkpoint)[0])
     return model.to(device).eval()
 
 
@@ -77,7 +69,7 @@ def vocoder_policy(device: torch.device) -> Policy:
 def load_hifigan(checkpoint: str, policy: Policy, device) -> HiFiGAN:
     h, sd = load_hifigan_checkpoint(checkpoint)
     model = HiFiGAN(HiFiGANConfig.from_dict(h), policy)
-    _load_strict(model, sd)
+    load_strict(model, sd)
     return model.to(device).eval()
 
 
@@ -116,6 +108,8 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
             "the port's say needs --hifi-gan-checkpoint: the Griffin-Lim "
             "fallback is not ported yet")
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        use_f32_math()
     prep = cfg.dataset.preprocessing
     if random_seed is None:
         random_seed = secrets.randbelow(2**31)

@@ -26,7 +26,7 @@ from tacotron2_tpu_torch.convert import from_jax_params, hifigan_from_jax_params
 from tacotron2_tpu_torch.models import layers
 from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
 from tacotron2_tpu_torch.models.tacotron2 import Tacotron2, Tacotron2Config
-from tacotron2_tpu_torch.ops import decoder_loop, mrf
+from tacotron2_tpu_torch.ops import decoder_loop, mrf, train_decode
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
@@ -139,6 +139,26 @@ WRAPPER_CALLS = {
         _meta(1, 10, 64),
         mrf.UpsampleWeights(_meta(4, 64, 32), _meta(32), 2, 1, _meta(2, 2, 32, 64))),
 }
+# the teacher-forced decode at T=2, B=1, L=5, P=D=H=8, A=4, 81 outputs
+_TW = lambda: train_decode.TrainWeights(
+    _meta(32, 24, dtype=torch.bfloat16), _meta(32), _meta(32, 24, dtype=torch.bfloat16),
+    _meta(32), _meta(4, 8, dtype=torch.bfloat16), _meta(4, 2, 31, dtype=torch.bfloat16),
+    _meta(4, dtype=torch.bfloat16), _meta(81, 16, dtype=torch.bfloat16), _meta(81))
+_RES = lambda: train_decode.Residuals(
+    _meta(2, 1, 24, dtype=torch.bfloat16), _meta(2, 1, 24, dtype=torch.bfloat16),
+    _meta(3, 1, 8), _meta(3, 1, 8), _meta(3, 1, 5), _meta(3, 1, 5))
+WRAPPER_CALLS.update({
+    "teacher_forward": lambda: train_decode.teacher_forward(
+        _TW(), _meta(2, 1, 8), _meta(1, 5, 8, dtype=torch.bfloat16), _meta(1, 5, 4),
+        _meta(1, dtype=torch.int32), _meta(2, 1, 8), _meta(2, 1, 8)),
+    "teacher_backward": lambda: train_decode.teacher_backward(
+        _TW(), _RES(), _meta(1, 5, 8, dtype=torch.bfloat16), _meta(1, 5, 4),
+        _meta(1, dtype=torch.int32), _meta(2, 1, 8), _meta(2, 1, 8), _meta(2, 1, 81),
+        _meta(2, 1, 5)),
+    "gate_lstm": lambda: train_decode.gate_lstm(
+        _meta(32, 24, dtype=torch.bfloat16), _meta(32), _meta(1, 24, dtype=torch.bfloat16),
+        _meta(1, 8), _meta(1, 8)),
+})
 
 
 @pytest.mark.parametrize("name", list(WRAPPER_CALLS))
@@ -146,7 +166,7 @@ def test_wrapper_never_falls_back_to_plain(name, monkeypatch):
     """A tensor that is not on the CPU goes to the kernel path, which
     refuses it (it is not a CUDA tensor); the plain version is not called
     and no launch is counted."""
-    module = decoder_loop if name in decoder_loop.LAUNCHES else mrf
+    module = next(m for m in (decoder_loop, mrf, train_decode) if name in m.LAUNCHES)
 
     def plain_called(*a, **k):
         raise AssertionError("plain version reached with a non-CPU tensor")
