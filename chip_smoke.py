@@ -15,6 +15,10 @@ Phases, each of which must pass:
    defective kernels held above the limit; K2: the four UNIVERSAL_V1 MRF
    stages and stage 2 without its upsample, at 64 mel frames and at the
    say's vocode bucket), and time kernel, plain version and library call;
+   K5, the int8 LSTM cell: one int8 step through the chunk entry at B=1 and
+   at B=2 with a padded row, with defective kernels (activations rounded to
+   bf16 before quantising, scales taken from bf16 weights) held above the
+   limit, then the 4-step int8 chunk on K1_DRAWS weight draws;
 3b. the same for K3 and K4, training's teacher-forced decode forward and
    backward (B=32, L=160 with padded rows, T=128), with every gradient
    ``TeacherDecode`` returns, and the gate product alone with the L2 warm
@@ -23,7 +27,8 @@ Phases, each of which must pass:
    saved as a reference Lightning ``.ckpt`` and a UNIVERSAL_V1 ``g_*`` file:
    a forced 256-frame decode with the launch counters read around it, a
    forced early stop (1 frame), and the kernel decode against the plain
-   decode over 32 frames;
+   decode over 32 frames; then ``say --quantize-int8`` the same way (K5's
+   launches held to 2 x 256), and the int8 decode against the bf16 one;
 4b. run ``train`` through the CLI entry at the vanilla full width on 64
    synthetic WAVs: batch 32, 6 steps, then a resume to step 8, with K3 and
    K4's launch counters read around it and held to launches per step x T;
@@ -31,6 +36,15 @@ Phases, each of which must pass:
    ``say``; K3 and K4 are held against their plain versions at the train
    batch's shapes (B=32, L=128, T=384); one train step is split into its
    parts;
+4c. run the warm server in this process through ``do_server`` with a bf16
+   and an int8 entry of the random weights: waves of 16 concurrent requests
+   per model and of 64 to one, which must coalesce, with the launch
+   counters held to two LSTM launches a frame per decode launch; two
+   batched requests again alone (PCM16 difference); one request through
+   Griffin-Lim; the kernels against their plain versions at the windows'
+   shapes (K1 at 16 and 64 rows and K5 at 16, L=128; K2 through the batched
+   vocode at 16 and 64 rows); then ``python -m tacotron2_tpu_torch server``
+   as a process of its own (/config, one /generate, exit 0 on SIGTERM);
 5. print the kernels line and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero before the last line on any failure, when no CUDA device
@@ -54,6 +68,7 @@ WORK = ROOT / "build" / "smoke"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
+INT8_OPS = 1979e12  # dense int8 tensor-core peak
 TEXT = ("The quick brown fox jumps over the lazy dog, while the port speaks "
         "its first words on the card.")
 SEED = 7
@@ -82,6 +97,19 @@ K3_TOL = {"mel_gate": 2e-3, "c_att": 2e-3, "c_rnn": 2e-3, "al": 2e-4, "cum": 5e-
 K4_TOL = {"dg1": 1.6e-2, "dg2": 1.6e-2, "head_h": 1.6e-2, "dxh1": 1e-2, "dctx": 2e-3,
           "dq": 5e-3, "d_attenc": 5e-3, "d_wv": 5e-3, "d_wloc": 5e-3}
 GRAD_TOL = 1e-2
+# K5, the int8 cell: integer sums are exact, so one step of the kernel equals
+# the plain version's up to the float epilogue and the sigmoid / tanh
+# (readings <= 9e-8); the defective kernels read >= 2.6e-3 at one step. Over
+# 4 steps the state feeds back through the bf16 kernels too, where K1 has
+# read a rounding flip of 1.1-1.2e-4; the defects read 1.1e-3 there (PERF.md)
+K5_TOL = 1e-5
+K5_CHUNK_TOL = 5e-4
+# int8 against bf16 decode of one seed over 256 frames: the JAX package's
+# budget for int8 against f32 (readings 0.21% and 1.2e-4, PERF.md)
+INT8_DIVERGENCE = {"mels_post_mean_rel": 0.01, "gate_drift": 0.05}
+# a served request batched against alone, PCM16 LSB: reads 0 (the kernels'
+# rows are independent); one LSB allows a rounding of the f32 -> int16 cast
+SERVE_INVARIANCE_LSB = 1
 # K3 at the main path's shapes (the train batch: B=32, L=128, T=384) on the
 # trained weights: its errors grow over the steps; 12-17x the errors
 # measured at T=384, the bf16 stacks to two ulps (PERF.md). There K4's f32
@@ -121,9 +149,9 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -243,16 +271,16 @@ def random_hifigan_state():
     return out
 
 
-def chunk_inputs(model, lengths, g) -> tuple:
+def chunk_inputs(model, lengths, g, L: int = 0) -> tuple:
     """Random bf16 encoder outputs (B, L, D), their attention projection and
-    a decode state for the rows of ``lengths``; chars at or past a row's
-    length have weight 0."""
+    a decode state for the rows of ``lengths``, L being ``L`` or else the
+    longest row; chars at or past a row's length have weight 0."""
     import torch
 
     from tacotron2_tpu_torch.ops import decoder_loop as dl
 
     c = model.cfg
-    B, L, dev = lengths.shape[0], int(lengths.max()), lengths.device
+    B, L, dev = lengths.shape[0], L or int(lengths.max()), lengths.device
     H, D = c.att_rnn_dim, c.encoded_dim
     rn = lambda *s, scale=0.5: torch.randn(*s, device=dev, generator=g) * scale
     enc = rn(B, L, D).to(torch.bfloat16)
@@ -266,7 +294,7 @@ def chunk_inputs(model, lengths, g) -> tuple:
 
 
 def chunk_check(name: str, pk, model, lengths, n: int, g, log: dict,
-                defect: bool = False) -> float:
+                defect: bool = False, L: int = 0) -> float:
     """``n`` decode steps through the chunk entry (the decode's main path)
     against the plain chunk, on ``chunk_inputs`` -> the largest error. With
     ``defect``, also the errors the check reads for defective kernels (the
@@ -279,7 +307,7 @@ def chunk_check(name: str, pk, model, lengths, n: int, g, log: dict,
     from tacotron2_tpu_torch.ops import decoder_loop as dl
 
     c = model.cfg
-    enc, att_enc, s = chunk_inputs(model, lengths, g)
+    enc, att_enc, s = chunk_inputs(model, lengths, g, L)
     m1, m2 = dl.prenet_masks(n, lengths.shape[0], c.prenet_dim, c.dropout, g, lengths.device)
     mg, al, sk = dl.decode_chunk(pk, enc, att_enc, lengths, s, m1, m2)
 
@@ -431,6 +459,153 @@ def k1_phase(model, cfg, L: int, log: dict) -> list:
             "per": "one decode step, B=1, L=%d" % L,
         })
     return rows
+
+
+def _int8_defects(pk, model):
+    """The plain int8 chunk with a defect -> {defect: a function running
+    ``decode_chunk_plain`` with it}: activations rounded to bf16 before they
+    are quantised; weight scales taken from bf16 weights; roundf (half away
+    from zero) in place of rounding half to even."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    quantize_rows = dl.quantize_rows
+    bf = lambda t: t.to(torch.bfloat16).float()
+
+    def roundf_rows(x):
+        sx = dl._div127(x.abs().amax(dim=1, keepdim=True).clamp_min(1e-12))
+        v = x / sx
+        return (torch.sign(v) * torch.floor(v.abs() + 0.5)).clamp(-127, 127), sx
+
+    def patched(rows_fn, pack):
+        def run(*args):
+            dl.quantize_rows = rows_fn
+            try:
+                return dl.decode_chunk_plain(pack, *args)
+            finally:
+                dl.quantize_rows = quantize_rows
+        return run
+
+    a, d = model.decoder.att_rnn, model.decoder.lstm
+    (wa, sa), (wd, sd) = (dl.quantize_weights(bf(torch.cat([m.weight_ih, m.weight_hh], 1)))
+                          for m in (a, d))
+    return {
+        "bf16 activations": (patched(lambda x: quantize_rows(bf(x)), pk), True),
+        "scales of bf16 weights": (patched(quantize_rows, pk._replace(
+            w_att=wa, s_att=sa, w_dec=wd, s_dec=sd)), True),
+        "roundf": (patched(roundf_rows, pk), False),
+    }
+
+
+def k5_check(name: str, pk, model, lengths, n: int, g, log: dict, defect: bool = False,
+             L: int = 0) -> float:
+    """``n`` int8 decode steps through the chunk entry (K5 for both LSTM
+    cells) against the plain int8 chunk, on ``chunk_inputs`` -> the largest
+    error. With ``defect``, also the readings of ``_int8_defects``; the
+    first two must exceed the limit (roundf differs only on exact ties, so
+    it is reported)."""
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    c = model.cfg
+    enc, att_enc, s = chunk_inputs(model, lengths, g, L)
+    m1, m2 = dl.prenet_masks(n, lengths.shape[0], c.prenet_dim, c.dropout, g, lengths.device)
+    mg, al, sk = dl.decode_chunk(pk, enc, att_enc, lengths, s, m1, m2)
+
+    def pairs(ref):
+        mgp, alp, sp = ref
+        return [("mel_gate", mg, mgp), ("weights", al, alp)] + [
+            (f, getattr(sk, f), getattr(sp, f)) for f in dl.StepState._fields[1:]]
+
+    tol = K5_TOL if n == 1 else K5_CHUNK_TOL
+    worst = check(name, pairs(dl.decode_chunk_plain(pk, enc, att_enc, lengths, s, m1, m2)), tol,
+                  log, "lstm_cell_int8")
+    if not defect:
+        return worst
+    for what, (run, must) in _int8_defects(pk, model).items():
+        wrong = max(err(got, ref)[1] for _, got, ref in
+                    pairs(run(enc, att_enc, lengths, s, m1, m2)))
+        log.setdefault("k5_defects", []).append({"check": name, "defect": what,
+                                                 "rel_err": wrong, "tol": tol})
+        print(f"  {name:<20} defect '{what}' reads rel {wrong:.3e} (tol {tol:g})")
+        if must and not wrong > tol:
+            raise SmokeFailure(f"{name}: the limit {tol:g} does not tell a kernel with "
+                               f"'{what}' ({wrong:.3e}) from a right one")
+    return worst
+
+
+def k5_phase(model, cfg, L: int, log: dict) -> list:
+    """K5, the int8 LSTM cell, against its plain version at the flagship
+    dims: one step through the chunk entry at B=1 and at B=2 with a padded
+    row (the defective kernels held above the one-step limit), the 4-step
+    int8 chunk on K1_DRAWS weight draws, then its timing row."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    dev = torch.device("cuda")
+    c = model.cfg
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 5)
+    pk = model.make_packed_decoder(quantize=True)
+    lengths = torch.tensor([L], dtype=torch.int32, device=dev)
+    padded = torch.tensor([L, L - PAD], dtype=torch.int32, device=dev)
+    k5_check("int8_step", pk, model, lengths, 1, g, log, True)
+    k5_check("int8_step[pad]", pk, model, padded, 1, g, log, True)
+    draws = []
+    for d in range(K1_DRAWS):
+        m = model if d == 0 else random_tacotron(cfg, 10.0, SEED + 10 * d).to(dev)
+        pkd = pk if d == 0 else m.make_packed_decoder(quantize=True)
+        draws.append(max(k5_check(f"int8_chunk[4]#{d}", pkd, m, lengths, 4, g, log, d == 0),
+                         k5_check(f"int8_chunk[4,pad]#{d}", pkd, m, padded, 4, g, log)))
+    log["k5_chunk_draws"] = draws
+    print("  int8_chunk[4] largest error per weight draw: "
+          + ", ".join(f"{x:.3e}" for x in draws) + f" (tol {K5_CHUNK_TOL:g})")
+
+    # a whole 64-frame int8 chunk per step, device and eager, beside bf16's
+    enc, att_enc, s = chunk_inputs(model, lengths, g)
+    mk1, mk2 = dl.prenet_masks(64, 1, c.prenet_dim, c.dropout, g, dev)
+    chunk = lambda: dl.decode_chunk(pk, enc, att_enc, lengths, s, mk1, mk2)
+    log["decode_chunk_int8_us_per_step"] = {"device": time_ms(chunk, 5, 1) / 64 * 1e3,
+                                            "eager": eager_ms(chunk, 5) / 64 * 1e3}
+    print(f"  int8 decode_chunk (64 steps) per step: {log['decode_chunk_int8_us_per_step']}")
+
+    # both cells of one step at B=1: kernel, plain version, and torch._int_mm
+    # of the quantised activations (rows padded to 32, as it requires) against
+    # the int8 weights, which lacks the scales and the LSTM epilogue
+    x = dl.prenet_plain(s.mel, pk.wp1_t, pk.wp2_t, mk1[0], mk2[0], dl.ACT_INT8)
+    cells = ((pk.w_att, pk.s_att, pk.b_att, x, s.ctx, s.att_h, s.att_c),
+             (pk.w_dec, pk.s_dec, pk.b_dec, s.att_h, s.ctx, s.rnn_h, s.rnn_c))
+    kern = lambda: [dl.lstm_cell_int8(*a) for a in cells]
+    plain = lambda: [dl.lstm_cell_int8_plain(*a) for a in cells]
+    qs = []
+    for w, _, _, x1, x2, x3, _ in cells:
+        q, _ = dl.quantize_rows(torch.cat([x1, x2, x3], 1))
+        q32 = torch.zeros(32, q.shape[1], dtype=torch.int8, device=dev)
+        q32[:1] = q.to(torch.int8)
+        qs.append((q32, w.t()))
+    try:
+        library_ms = time_ms(lambda: [torch._int_mm(a, b) for a, b in qs])
+        log["k5_library"] = "torch._int_mm, rows padded to 32, without scales or LSTM epilogue"
+    except Exception as e:  # not every torch build takes these shapes
+        library_ms = None
+        log["k5_library"] = f"torch._int_mm failed: {e!r}"
+    f32 = lambda *shape: torch.empty(*shape, device=dev)
+    H = c.att_rnn_dim
+    nb = sum(nbytes(*a, f32(1, H), f32(1, H)) for a in cells)
+    ops = 2 * (pk.w_att.numel() + pk.w_dec.numel())
+    b_ms, b_by = bound_ms(nb, ops, INT8_OPS)
+    ms = time_ms(kern)
+    print(f"  lstm_cell_int8 (both cells, B=1): {ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us; "
+          f"{log['k5_library']}")
+    return [{
+        "name": "lstm_cell_int8", "route": "cuda",
+        "source": "tacotron2_tpu_torch/csrc/decode_step.cu",
+        "replaces": "tacotron2_tpu/ops/decoder_loop_pallas.py:347 (int8 mode, :388-402, :465-470)",
+        "ms": ms, "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+        "eager_ms": eager_ms(kern), "library_ms": library_ms,
+        "per": f"both LSTM cells of one int8 decode step, B=1, L={L}",
+    }]
 
 
 def k2_phase(hifigan, log: dict, frames: int) -> None:
@@ -921,7 +1096,7 @@ def say_phase(cfg_path: str, log: dict, card: str):
     from tacotron2_tpu_torch.models.layers import F32
     from tacotron2_tpu_torch.ops import decoder_loop, mrf
     from tacotron2_tpu_torch.run.say import (cut_vocode, load_hifigan, load_tacotron,
-                                             vocoder_policy)
+                                             vocode_bucket, vocoder_policy)
     from tacotron2_tpu_torch.text import CharEncoder, normalize_text
 
     cfg = load_config(cfg_path)
@@ -955,8 +1130,8 @@ def say_phase(cfg_path: str, log: dict, card: str):
     if res["n_frames"] != 256:
         raise SmokeFailure(f"forced full decode gave {res['n_frames']} frames, want 256")
     for k, n in launches.items():
-        if n == 0:
-            raise SmokeFailure(f"kernel {k} was not launched on the say path")
+        if (n == 0) != (k == "lstm_cell_int8"):  # K5 is the int8 path's, below
+            raise SmokeFailure(f"kernel {k} was launched {n} times on the say path")
     wav, sr = read_wav(wav_path)
     if len(wav) != res["cut"] * 256 or not np.isfinite(wav).all() or not np.abs(wav).max() > 0:
         raise SmokeFailure(f"bad wav: {len(wav)} samples for cut {res['cut']}")
@@ -989,8 +1164,9 @@ def say_phase(cfg_path: str, log: dict, card: str):
     cut = max(int(full.n_frames) - 1, 1)
     h_bf = load_hifigan(g_path, vocoder_policy(dev), dev)
     h_32 = load_hifigan(g_path, F32, dev)
-    pcm_bf = cut_vocode(h_bf, full.mels_post, cut).long()
-    pcm_32 = cut_vocode(h_32, full.mels_post, cut, mrf.plain_stage).long()
+    Tb = vocode_bucket(h_bf, cut)
+    pcm_bf = cut_vocode(h_bf, full.mels_post, [0], [cut], Tb)[0, :cut * 256].long()
+    pcm_32 = cut_vocode(h_32, full.mels_post, [0], [cut], Tb, mrf.plain_stage)[0, :cut * 256].long()
     if pcm_bf.shape != pcm_32.shape or pcm_bf.numel() != cut * 256:
         raise SmokeFailure(f"vocoder precision check: shapes {pcm_bf.shape}, {pcm_32.shape}")
     lsb = (pcm_bf - pcm_32).abs().float()
@@ -1023,7 +1199,378 @@ def say_phase(cfg_path: str, log: dict, card: str):
           f"{perf['vocoder_us_per_frame']:.1f} us/frame, say {perf['say_s']:.3f} s for "
           f"{perf['audio_s']:.2f} s of audio (RTF {perf['rtf']:.4f}) on {card}")
     log["say"] = {"run": res, "stop": stop, "perf": perf, "vocoder_precision": vocoder_precision}
-    return launches, g_path
+    return launches, g_path, ckpt["run"]
+
+
+def say_int8_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> int:
+    """``say --quantize-int8`` through the CLI entry, forced to 256 frames,
+    with the launch counters read around it (K5: two launches a frame, K1's
+    bf16 cell none); then the int8 decode against the bf16 decode of the
+    same seed, as mean relative mels_post error and gate drift. -> K5's
+    launches."""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.audio.io import read_wav
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.ops import decoder_loop, mrf
+    from tacotron2_tpu_torch.run.say import load_tacotron
+    from tacotron2_tpu_torch.text import CharEncoder, normalize_text
+
+    out = str(WORK / "say_int8.wav")
+    say = lambda: cli(["say", "--config", cfg_path, "--checkpoint", ckpt, "--hifi-gan-checkpoint",
+                       g_path, "--text", TEXT, "--out", out, "--random-seed", str(SEED),
+                       "--max-len-override", "256", "--quantize-int8"])
+    say()  # warm-up
+    decoder_loop.reset_launches()
+    mrf.reset_launches()
+    res = say()
+    launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES}
+    print(f"  say --quantize-int8 256: {res}")
+    print(f"  launches in that run: {launches}")
+    if res["n_frames"] != 256:
+        raise SmokeFailure(f"forced int8 decode gave {res['n_frames']} frames, want 256")
+    if launches["lstm_cell_int8"] != 2 * 256 or launches["lstm_cell"] != 0:
+        raise SmokeFailure(f"int8 say: K5 launched {launches['lstm_cell_int8']} times and K1's "
+                           f"cell {launches['lstm_cell']}, want {2 * 256} and 0")
+    for k, n in launches.items():
+        if n == 0 and k != "lstm_cell":
+            raise SmokeFailure(f"kernel {k} was not launched on the int8 say path")
+    wav, _ = read_wav(out)
+    if len(wav) != res["cut"] * 256 or not np.isfinite(wav).all():
+        raise SmokeFailure(f"bad int8 wav: {len(wav)} samples for cut {res['cut']}")
+
+    dev = torch.device("cuda")
+    cfg = load_config(cfg_path)
+    prep = cfg.dataset.preprocessing
+    model = load_tacotron(cfg, ckpt, dev)
+    ci, cl = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch(
+        [normalize_text(TEXT, prep.allowed_chars, prep.end_token, False)])
+    ci, cl = torch.as_tensor(ci, device=dev), torch.as_tensor(cl, device=dev)
+    outs = []
+    for quantize in (False, True):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        outs.append(model.forward_infer_fast(ci, cl, 256, generator=gen, quantize=quantize))
+    n = min(o.n_frames for o in outs)
+    a, b = (o.mels_post[:, :n] for o in outs)
+    divergence = {"mels_post_mean_rel": float((a - b).abs().mean() / a.abs().mean()),
+                  "gate_drift": float((outs[0].gates[:, :n] - outs[1].gates[:, :n]).abs().max()),
+                  "frames": n}
+    perf = {"decode_us_per_step": res["decode_s"] / res["n_frames"] * 1e6,
+            "vocoder_us_per_frame": res["vocode_s"] / res["cut"] * 1e6,
+            "rtf": res["say_s"] / res["audio_s"], "card": card}
+    print(f"  int8 decode {perf['decode_us_per_step']:.1f} us/step, RTF {perf['rtf']:.4f}; "
+          f"int8 vs bf16 (same seed, {n} frames): {divergence} on {card}")
+    for key, lim in INT8_DIVERGENCE.items():
+        if not divergence[key] <= lim:
+            log.setdefault("deferred", []).append(
+                f"int8 vs bf16 {key} {divergence[key]:.3e} > {lim}")
+    log["say_int8"] = {"run": res, "launches": launches, "perf": perf, "divergence": divergence}
+    return launches["lstm_cell_int8"]
+
+
+def _post(port: int, payload: dict) -> tuple:
+    """POST /generate -> (status, body, seconds on the host clock)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/generate",
+                                 json.dumps(payload).encode(),
+                                 {"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, body = e.code, json.loads(e.read())
+    return status, body, time.perf_counter() - t0
+
+
+def _get(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as r:
+        return json.loads(r.read())
+
+
+def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> int:
+    """The warm server in this process, through ``do_server`` (the function
+    the CLI's ``server`` calls), with a bf16 and an int8 entry of the random
+    full-width checkpoint (gate forced positive, max_len 256) and the
+    default batching (8 ms window, max 64, depth 2): one warm-up request per
+    model, a wave of 16 concurrent requests per model, then a wave of 64 to
+    the bf16 one, with the launch counters read around the waves; two
+    batched requests again alone; one request through Griffin-Lim; the
+    kernels held against their plain versions at the windows' shapes
+    (``serve_checks``); then ``python -m tacotron2_tpu_torch server`` as a
+    process of its own.
+    -> K5's launches in the waves."""
+    import concurrent.futures
+    import os
+    import threading
+
+    import numpy as np
+
+    from tacotron2_tpu_torch.audio.io import read_wav
+    from tacotron2_tpu_torch.ops import decoder_loop, mrf
+    from tacotron2_tpu_torch.run import server as srv
+
+    root = WORK / "serve"
+    root.mkdir(parents=True, exist_ok=True)
+    entry = {"config": cfg_path, "checkpoint": ckpt, "hifi_gan_checkpoint": g_path,
+             "max_len": 256, "multi_speaker": False, "controllable": False, "num_voices": 1}
+    config = {"models": [dict(entry, name="vanilla-bf16"),
+                         dict(entry, name="vanilla-int8", quantize_int8=True)],
+              "batching": {"enabled": True, "window_ms": 8, "max_batch": 64, "depth": 2},
+              "warmup": False}
+    cfg_file = root / "server.json"
+    cfg_file.write_text(json.dumps(config))
+    cwd = os.getcwd()
+    os.chdir(root)
+    started, holder = threading.Event(), {}
+    thread = threading.Thread(target=lambda: holder.setdefault("result", srv.do_server(
+        0, config, "warm", host="127.0.0.1",
+        on_start=lambda h: (holder.setdefault("httpd", h), started.set()))), daemon=True)
+    wav_len = lambda body: len(read_wav(str(root / body["path"]))[0])
+    try:
+        thread.start()
+        while not started.wait(0.5):
+            if not thread.is_alive():
+                raise SmokeFailure("the server did not start")
+        port = holder["httpd"].server_address[1]
+        for m in (0, 1):  # loads the model, first cuDNN use
+            status, body, _ = _post(port, {"text": TEXT, "model": m, "seed": 1})
+            if status != 200:
+                raise SmokeFailure(f"warm-up request to model {m}: {status} {body}")
+
+        def wave(model: int, n: int) -> tuple:
+            payloads = [{"text": TRAIN_TEXTS[i % len(TRAIN_TEXTS)], "model": model, "seed": 100 + i}
+                        for i in range(n)]
+            barrier = threading.Barrier(n)
+
+            def one(p):
+                barrier.wait()
+                return _post(port, p)
+
+            calls0, rows0 = srv.BATCH_CALLS
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(n) as ex:
+                replies = list(ex.map(one, payloads))
+            wall = time.perf_counter() - t0
+            bad = [(s, b) for s, b, _ in replies if s != 200]
+            if bad:
+                raise SmokeFailure(f"wave of {n} to model {model}: {bad[:2]}")
+            lat = np.array([sec for _, _, sec in replies])
+            frames = sum(wav_len(b) for _, b, _ in replies) / 256
+            calls, rows = srv.BATCH_CALLS[0] - calls0, srv.BATCH_CALLS[1] - rows0
+            stats = {"requests": n, "decode_launches": calls, "rows_per_launch": rows / calls,
+                     "p50_s": float(np.percentile(lat, 50)), "p95_s": float(np.percentile(lat, 95)),
+                     "wall_s": wall, "mel_frames": frames, "mel_frames_per_s": frames / wall}
+            print(f"  wave of {n} to {config['models'][model]['name']}: {stats} on {card}")
+            if not stats["rows_per_launch"] > 1:
+                raise SmokeFailure(f"the wave of {n} did not coalesce: {stats}")
+            return stats, payloads, replies
+
+        decoder_loop.reset_launches()
+        mrf.reset_launches()
+        waves, calls = {}, {}
+        for key, model, n in (("bf16_16", 0, 16), ("int8_16", 1, 16), ("bf16_64", 0, 64)):
+            waves[key], *rest = wave(model, n)
+            calls[model] = calls.get(model, 0) + waves[key]["decode_launches"]
+            if key == "bf16_16":
+                payloads, replies = rest
+        launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES}
+        print(f"  launches in the waves: {launches}")
+        want = {"lstm_cell": 2 * 256 * calls[0], "lstm_cell_int8": 2 * 256 * calls[1]}
+        if any(launches[k] != v for k, v in want.items()) or 0 in launches.values():
+            raise SmokeFailure(f"serve launches {launches}, want {want} and every kernel")
+
+        # batch invariance: two batched requests again, each alone
+        invariance = []
+        for i in (0, 5):
+            status, solo, _ = _post(port, payloads[i])
+            a = read_wav(str(root / replies[i][1]["path"]))[0]
+            b = read_wav(str(root / solo["path"]))[0]
+            if status != 200 or len(a) != len(b):  # the cut is at the first gate fire
+                raise SmokeFailure(f"request {i} alone: {status}, {len(b)} samples, "
+                                   f"batched {len(a)}")
+            lsb = np.abs(np.round(a * 32768) - np.round(b * 32768))
+            invariance.append({"request": i, "samples": len(a), "max_lsb": float(lsb.max()),
+                               "mean_lsb": float(lsb.mean())})
+        print(f"  batched vs alone, PCM16 LSB: {invariance}")
+        worst = max(x["max_lsb"] for x in invariance)
+        if not worst <= SERVE_INVARIANCE_LSB:
+            log.setdefault("deferred", []).append(
+                f"batched vs alone differ by {worst} LSB > {SERVE_INVARIANCE_LSB}")
+
+        status, body, sec = _post(port, {"text": TEXT, "model": 0, "seed": 3,
+                                         "use_vocoder": False})
+        gl_samples = wav_len(body) if status == 200 else None
+        print(f"  Griffin-Lim request: {status}, {gl_samples} samples in {sec:.3f} s")
+        if gl_samples != (255 - 1) * 256:  # cut 255; Griffin-Lim is one hop shorter
+            raise SmokeFailure(f"Griffin-Lim request: {status} {body}, {gl_samples} samples")
+        stats = _get(port, "/stats")
+        split = serve_split(holder["httpd"].app.registry)
+        vocode_pcm = serve_checks(holder["httpd"].app.registry, log)
+    finally:
+        if "httpd" in holder:
+            holder["httpd"].shutdown()
+        thread.join(60)
+        os.chdir(cwd)
+
+    sub = _serve_subprocess(cfg_file, root)
+    log["serve"] = {"waves": waves, "launches": launches, "invariance": invariance,
+                    "griffin_lim_s": sec, "stats": stats, "split_ms": split,
+                    "vocode_kernel_vs_plain_pcm": vocode_pcm, "subprocess": sub, "card": card}
+    return launches["lstm_cell_int8"]
+
+
+def serve_split(registry) -> dict:
+    """Where a window's time goes: the batched decode (encoder, 256 steps,
+    postnet) of each entry and the batched vocode, at 16 and 64 rows of the
+    waves' texts, each timed alone, eager, ending in a sync."""
+    import torch
+
+    from tacotron2_tpu_torch.run import server as srv
+    from tacotron2_tpu_torch.run.say import cut_vocode, vocode_bucket
+    from tacotron2_tpu_torch.text import CharEncoder, normalize_text
+
+    split = {}
+    for idx in (0, 1):
+        cfg, model, hifigan, packed, _ = registry.load(idx)
+        prep = cfg.dataset.preprocessing
+        dev = next(model.parameters()).device
+        for B in (16, 64):
+            ci, cl = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch(
+                [normalize_text(TRAIN_TEXTS[i % len(TRAIN_TEXTS)], prep.allowed_chars,
+                                prep.end_token, False) for i in range(B)])
+            ci = torch.nn.functional.pad(torch.as_tensor(ci), (0, srv.CHAR_BUCKET - ci.shape[1]))
+            ci, cl = ci.to(dev), torch.as_tensor(cl, device=dev)
+            gens = [torch.Generator(device=dev).manual_seed(i) for i in range(B)]
+            decode = lambda: model.forward_infer_fast(ci, cl, 256, packed=packed,
+                                                      row_generators=gens)
+            key = ("int8" if packed.quantized else "bf16") + f"_B{B}"
+            split[f"decode_{key}"] = eager_ms(decode, 3)
+            if idx == 0:
+                mels = decode().mels_post
+                Tb = vocode_bucket(hifigan, 255)
+                split[f"vocode_B{B}"] = eager_ms(
+                    lambda: cut_vocode(hifigan, mels, list(range(B)), [255] * B, Tb).cpu(), 3)
+    print("  one window's parts, eager ms: " + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+    return split
+
+
+def serve_checks(registry, log: dict) -> dict:
+    """The kernels at the windows' own shapes against their plain versions,
+    on the served models' packs: a 4-step chunk (K1 for the bf16 entry at 16
+    and 64 rows, K5 for the int8 entry at 16) over the waves' char lengths
+    padded to the 128 bucket, so the kernels' later row groups are held too;
+    then K2 through the batched ``cut_vocode`` at 16 and 64 rows of a decode
+    of the waves' texts, every stage against the plain stage on the same
+    input. -> the PCM16 difference of the whole kernel vocode from the whole
+    plain vocode (reported)."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import mrf
+    from tacotron2_tpu_torch.run import server as srv
+    from tacotron2_tpu_torch.run.say import cut_vocode, vocode_bucket
+    from tacotron2_tpu_torch.text import CharEncoder, normalize_text
+
+    pcm = {}
+    for idx, B in ((0, 16), (1, 16), (0, 64)):
+        cfg, model, hifigan, packed, _ = registry.load(idx)
+        prep = cfg.dataset.preprocessing
+        dev = next(model.parameters()).device
+        ci, cl = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch(
+            [normalize_text(TRAIN_TEXTS[i % len(TRAIN_TEXTS)], prep.allowed_chars,
+                            prep.end_token, False) for i in range(B)])
+        L = max(srv.CHAR_BUCKET, -(-ci.shape[1] // srv.CHAR_BUCKET) * srv.CHAR_BUCKET)
+        lengths = torch.as_tensor(cl, dtype=torch.int32, device=dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 20 + B)
+        key = ("int8" if packed.quantized else "bf16") + f"@B{B},L{L}"
+        run = k5_check if packed.quantized else chunk_check
+        run(f"serve_chunk[4,{key}]", packed, model, lengths, 4, g, log, L=L)
+        if packed.quantized:
+            continue
+
+        ci = torch.nn.functional.pad(torch.as_tensor(ci), (0, L - ci.shape[1])).to(dev)
+        gens = [torch.Generator(device=dev).manual_seed(100 + i) for i in range(B)]
+        mels = model.forward_infer_fast(ci, torch.as_tensor(cl, device=dev), 256, packed=packed,
+                                        row_generators=gens).mels_post
+        rows, cuts = list(range(B)), [255] * B
+        Tb = vocode_bucket(hifigan, 255)
+        done = []
+
+        def stage(x, rbs, ups=None):
+            tag = f"[{len(done)}]@B{B}x{Tb}"
+            if ups is not None:
+                check(f"conv_transpose{tag}", [("out", mrf.conv_transpose(x, ups),
+                                                mrf.conv_transpose_plain(x, ups))],
+                      K2_TOL, log, "conv_transpose")
+            ref = mrf.plain_stage(x, rbs, ups)
+            check(f"mrf_stage{tag}", [("out", mrf.mrf_stage(x, rbs, ups), ref)], K2_TOL, log,
+                  "mrf_conv")
+            done.append(tag)
+            return ref
+
+        cut_vocode(hifigan, mels, rows, cuts, Tb, stage)
+        lsb = (cut_vocode(hifigan, mels, rows, cuts, Tb).long()
+               - cut_vocode(hifigan, mels, rows, cuts, Tb, mrf.plain_stage).long()).abs().float()
+        pcm[f"B{B}"] = {"Tb": Tb, "max_lsb": float(lsb.max()), "mean_lsb": float(lsb.mean()),
+                        "share_over_2_lsb": float((lsb > 2).float().mean())}
+    print(f"  batched vocode, kernels vs plain stages, PCM16 LSB: {pcm}")
+    return pcm
+
+
+def _serve_subprocess(cfg_file: Path, root: Path) -> dict:
+    """``python -m tacotron2_tpu_torch server`` as a process: it must print
+    its port, answer /config and one /generate, and exit 0 on SIGTERM."""
+    import os
+    import queue
+    import re
+    import signal
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    (root / "sub").mkdir(exist_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tacotron2_tpu_torch", "server", "--config", str(cfg_file),
+         "--port", "0", "--host", "127.0.0.1"], cwd=root / "sub", env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
+    out, t0 = [], time.perf_counter()
+    try:
+        port = None
+        while port is None:
+            line = lines.get(timeout=max(1.0, 180 - (time.perf_counter() - t0)))
+            out.append(line)
+            m = re.search(r"serving on http://127\.0\.0\.1:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        start_s = time.perf_counter() - t0
+        registry = _get(port, "/config")
+        status, body, sec = _post(port, {"text": TEXT, "model": 1, "seed": 2})
+        if status != 200 or not (root / "sub" / body["path"]).exists():
+            raise SmokeFailure(f"subprocess server /generate: {status} {body}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    except queue.Empty:
+        raise SmokeFailure(f"the server process printed no port: {''.join(out)[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    time.sleep(0.1)
+    while not lines.empty():
+        out.append(lines.get())
+    print(f"  server process: up in {start_s:.1f} s, /config {[r['name'] for r in registry]}, "
+          f"/generate {sec:.2f} s, exit {rc}")
+    if rc != 0 or [r["name"] for r in registry] != ["vanilla-bf16", "vanilla-int8"]:
+        raise SmokeFailure(f"server process: exit {rc}, /config {registry}: {''.join(out)[-2000:]}")
+    return {"start_s": start_s, "generate_s": sec, "exit": rc}
 
 
 def main() -> int:
@@ -1077,6 +1624,7 @@ def main() -> int:
         Tb = -(-(255 + hifigan.mel_receptive_field()) // 128) * 128  # the say's bucket
         print(f"[3] kernels against their plain versions (flagship dims, B=1, L={chars})")
         rows = k1_phase(model, cfg, chars, log)
+        rows += k5_phase(model, cfg, chars, log)
         for frames in (64, Tb):  # 64 frames, then the say's own bucket
             k2_phase(hifigan, log, frames)
         rows += k2_timing(hifigan, Tb)
@@ -1086,10 +1634,16 @@ def main() -> int:
         del model, hifigan
 
         print("[4] say through the CLI entry (random full-width weights)")
-        launches, g_path = say_phase(cfg_path, log, card)
+        launches, g_path, ckpt = say_phase(cfg_path, log, card)
+        k5_launches = say_int8_phase(cfg_path, ckpt, g_path, log, card)
         print("[4b] train through the CLI entry (vanilla full width, batch 32, 6 steps, "
               "resumed to 8)")
         launches.update(train_phase(cfg_path, g_path, log, card))
+        print("[4c] the warm server in this process (a bf16 and an int8 entry), then as a "
+              "process of its own")
+        launches["lstm_cell_int8"] = k5_launches + serve_phase(cfg_path, ckpt, g_path, log, card)
+        if log.get("deferred"):
+            raise SmokeFailure("; ".join(log["deferred"]))
 
         print("[5] kernels")
         for r in rows:

@@ -1,23 +1,30 @@
 """Command line of the port.
 
     python -m tacotron2_tpu_torch say --config config/vanilla-ljspeech-stop.json \\
-        --checkpoint X.ckpt --hifi-gan-checkpoint DIR/g_xxx \\
-        --text "..." --out o.wav --random-seed 7 [--max-len-override N] [--device cpu]
+        --checkpoint X.ckpt [--hifi-gan-checkpoint DIR/g_xxx] \\
+        --text "..." --out o.wav --random-seed 7 [--max-len-override N] \\
+        [--quantize-int8] [--device cpu]
 
     python -m tacotron2_tpu_torch train --config C --speech-dir S --results-dir R \\
         [--resume-ckpt F] [--max-steps N] [--seed K] [--device cpu]
 
-The options mirror the JAX package's ``main.py say`` and ``main.py train``;
-checkpoints are the reference's Lightning ``.ckpt`` (``train`` writes
-``R/final.ckpt``, which ``say`` loads) and the vocoder an upstream HiFi-GAN
-``g_*`` file with its ``config.json``. Both run on the card unless
-``--device cpu`` is given.
+    python -m tacotron2_tpu_torch server --config config/server.json \\
+        [--port 8080] [--mode warm|subprocess] [--device cpu]
+
+The options mirror the JAX package's ``main.py say``, ``main.py train`` and
+``main.py server``; checkpoints are the reference's Lightning ``.ckpt``
+(``train`` writes ``R/final.ckpt``, which ``say`` loads) and the vocoder an
+upstream HiFi-GAN ``g_*`` file with its ``config.json`` (Griffin-Lim
+without one). ``server``'s config is the JAX server's (``models``,
+``batching``, ``warmup``). All run on the card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import Optional, Sequence
 
@@ -35,6 +42,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="seed of the prenet dropout; random if not given")
     s.add_argument("--max-len-override", type=int, default=5000,
                    help="cap on decoded frames")
+    s.add_argument("--quantize-int8", action="store_true",
+                   help="decode with int8 LSTM weights (an approximate, faster mode)")
     s.add_argument("--device", default=None, help="cuda (default) or cpu")
 
     t = sub.add_parser("train", help="train a Tacotron 2 model")
@@ -47,6 +56,15 @@ def _parser() -> argparse.ArgumentParser:
                    help="overrides the config's max_steps")
     t.add_argument("--seed", type=int, default=0, help="seed of the weights and dropout")
     t.add_argument("--device", default=None, help="cuda (default) or cpu")
+
+    v = sub.add_parser("server", help="serve the demo web UI and /generate")
+    v.add_argument("--config", required=True, help="a server config file (its model registry)")
+    v.add_argument("--port", type=int, default=8080, help="0 picks a free port")
+    v.add_argument("--host", default="0.0.0.0", help="the address to listen on")
+    v.add_argument("--mode", choices=("warm", "subprocess"), default="warm",
+                   help="warm: models stay loaded and requests are micro-batched; "
+                        "subprocess: one say process per request")
+    v.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
 
 
@@ -56,6 +74,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     with open(args.config) as f:
         raw = json.load(f)
+    if args.command == "server":
+        from tacotron2_tpu_torch.run.server import do_server
+
+        return do_server(args.port, raw, args.mode, device=args.device, host=args.host)
     cfg = config_from_dict(raw)
     if args.command == "train":
         from tacotron2_tpu_torch.run.train import do_train
@@ -67,8 +89,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     return do_say(cfg, args.checkpoint, args.text, args.out,
                   hifi_gan_checkpoint=args.hifi_gan_checkpoint,
                   random_seed=args.random_seed, max_len_override=args.max_len_override,
-                  device=args.device)
+                  device=args.device, quantize_int8=args.quantize_int8)
 
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+    if sys.argv[1:2] == ["server"]:
+        # the server has closed its windows and its socket; end without
+        # torch's static destructors, which can abort (SIGABRT) a process
+        # whose worker threads have used torch's CPU thread pools
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)

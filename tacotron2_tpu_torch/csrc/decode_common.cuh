@@ -129,7 +129,8 @@ __device__ float block_reduce(float v, float* red, bool is_max) {
 // stage row b's query input (bf16-rounded), the energy vector, the folded
 // location weight transposed to (channel, tap, a), the previous and
 // cumulative weights padded by K/2 zeros (bf16-rounded, LW = L + K + 2 per
-// channel), then the query projection q = wq . h. Ends synchronised.
+// channel), then the query projection q = wq . h, rounded to bf16. Ends
+// synchronised.
 __device__ void att_prologue(const float* __restrict__ h, const __nv_bfloat16* __restrict__ wq,
                              const __nv_bfloat16* __restrict__ wloc,
                              const __nv_bfloat16* __restrict__ wv,
@@ -170,7 +171,7 @@ __device__ void att_prologue(const float* __restrict__ h, const __nv_bfloat16* _
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float v = warp_sum(acc[i]);
-      if (lane == 0 && a0 + i < A) q[a0 + i] = v;
+      if (lane == 0 && a0 + i < A) q[a0 + i] = rnd_bf16(v);  // as the JAX kernels' qT.astype(dt)
     }
   }
   __syncthreads();

@@ -9,7 +9,10 @@ negative -> postnet residual -> length masking (mels -> 0, gates -> -1000).
 ``forward_infer`` is the reference decode, one step at a time through the
 model's own modules with a stop check after every step. ``forward_infer_fast``
 is the production decode: kernel K1 in 64-frame chunks
-(``ops/decoder_loop.py``), with identical outputs by its step bookkeeping.
+(``ops/decoder_loop.py``), with identical outputs by its step bookkeeping,
+or in its int8 mode kernel K5 for the LSTM cells (JAX
+``forward_infer_fused(quantize=True)``), an approximate mode held to < 1%
+mean relative mel error and < 0.05 gate drift against ``forward_infer``.
 ``forward_teacher`` is training's teacher-forced pass (JAX
 ``forward_teacher(dw_hoist=True)``): the decode runs as ``TeacherDecode``,
 kernels K3 and K4 (``ops/train_decode.py``).
@@ -18,7 +21,7 @@ kernels K3 and K4 (``ops/train_decode.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -197,18 +200,33 @@ class Tacotron2(nn.Module):
     def forward_infer_fast(self, chars_idx, chars_len, max_len: int,
                            generator: Optional[torch.Generator] = None,
                            prenet_dropout: bool = True,
-                           masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                           masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                           quantize: bool = False,
+                           packed: Optional[decoder_loop.PackedDecoder] = None,
+                           row_generators: Optional[Sequence[torch.Generator]] = None
                            ) -> Tacotron2Output:
-        """Production decode through kernel K1 (``ops/decoder_loop.py``):
-        the kernels on the card, their plain versions on the CPU."""
+        """Production decode through kernel K1 (``ops/decoder_loop.py``), or
+        through K5 for an int8 pack: the kernels on the card, their plain
+        versions on the CPU. ``quantize``: pack the decoder int8 for this
+        call (JAX ``forward_infer_fused(quantize=True)``); ``packed``: a
+        pack made once by ``make_packed_decoder``, which carries its own
+        mode. ``row_generators``: one generator per row, so each row's
+        prenet masks are those of a batch of one seeded alike (the JAX
+        ``row_rngs``); it takes the place of ``generator``."""
         c = self.cfg
         encoded, att_encoded, _ = self._encode(chars_idx, chars_len)
-        pk = decoder_loop.pack_decoder(self.prenet, self.decoder, self.policy.compute_dtype)
+        pk = packed if packed is not None else self.make_packed_decoder(quantize)
         mels, gates, aligns, lengths, n_frames = decoder_loop.decode(
-            pk, encoded.to(pk.w_att.dtype).contiguous(), att_encoded.contiguous(),
-            chars_len.to(torch.int32).contiguous(), max_len,
-            dropout=c.dropout, generator=generator, prenet_dropout=prenet_dropout,
-            masks=masks)
+            pk, encoded.to(pk.wq.dtype).contiguous(), att_encoded.contiguous(),
+            chars_len.to(torch.int32).contiguous(), max_len, dropout=c.dropout,
+            generator=generator if row_generators is None else list(row_generators),
+            prenet_dropout=prenet_dropout, masks=masks)
         post = self.postnet(mels, self.policy)
         return self._mask_outputs(mels, mels + post, gates[..., None], aligns, lengths,
                                   n_frames)
+
+    def make_packed_decoder(self, quantize: bool = False) -> decoder_loop.PackedDecoder:
+        """The decoder in the kernels' layout, int8 with ``quantize``: a
+        warm server packs once at load and passes it to every decode."""
+        return decoder_loop.pack_decoder(self.prenet, self.decoder, self.policy.compute_dtype,
+                                         quantize)

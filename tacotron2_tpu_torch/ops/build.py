@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -28,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -80,12 +82,23 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        _LIBS[name] = lib
-    return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            _LIBS[name] = lib
+        return lib
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(launches: Dict[str, int], name: str, n: int = 1) -> None:
+    """Add ``n`` to a launch counter; the server runs wrappers on several
+    threads, where a bare ``+=`` loses counts."""
+    with _COUNT_LOCK:
+        launches[name] += n
 
 
 def require(t, dtype, shape, name: str) -> None:

@@ -31,12 +31,21 @@ CUDA tensor launches the kernels or raises. The host loop checks the gates
 once per chunk (one device-to-host sync per 64 frames) and then does the
 exact step bookkeeping of the reference stop rule, so that ``n_frames``,
 ``lengths``, mels, gates and alignments equal the per-step decode's.
+
+The int8 mode (``pack_decoder(..., quantize=True)``) replaces the same TPU
+kernel with ``quantize=True`` (``pack_decoder_params`` :156-162 and the
+kernel's ``_quantize_xh`` / int8 gate products): the two LSTM weight blocks
+are int8 with one f32 scale per gate row, and both cells run on kernel K5,
+``lstm_cell_int8``, which quantises its f32 input per batch row and sums in
+int32. Every other product takes bf16 activations whatever the policy, as
+in the JAX kernel. Its bound at batch 1 is the int8 weights, 17.8 MB over the HBM
+rate: 5.3 us a step.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,7 +55,10 @@ from tacotron2_tpu_torch.ops import build
 T_CHUNK = 64  # frames per chunk; early stop is checked once per chunk
 
 # launches of each kernel; counted only where the kernel is launched
-LAUNCHES = {"prenet": 0, "lstm_cell": 0, "location_attention": 0, "heads": 0}
+LAUNCHES = {"prenet": 0, "lstm_cell": 0, "lstm_cell_int8": 0, "location_attention": 0,
+            "heads": 0}
+PACK_CALLS = [0]  # pack_decoder calls: a warm server packs each model once
+ACT_INT8 = torch.bfloat16  # operand type of the products other than the int8 cells
 
 
 def reset_launches() -> None:
@@ -68,29 +80,75 @@ class PackedDecoder(NamedTuple):
     wv: torch.Tensor  # (A,) energy vector
     w_out: torch.Tensor  # (M + 1, H + D) rows 0..M-1 mel, row M gate
     b_out: torch.Tensor  # (M + 1,) f32
+    s_att: Optional[torch.Tensor] = None  # int8 mode: (4H,) f32 scale of each w_att row
+    s_dec: Optional[torch.Tensor] = None  # int8 mode: (4H,) f32 scale of each w_dec row
+
+    @property
+    def quantized(self) -> bool:
+        return self.s_att is not None
 
 
-def pack_decoder(prenet, decoder, dtype: torch.dtype) -> PackedDecoder:
+def _div127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 as a true division: a Python scalar divisor becomes a
+    multiply by its reciprocal on the card, which rounds otherwise."""
+    return t / torch.full((), 127.0, device=t.device)
+
+
+def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 (rows, R) -> (int8 rows, f32 scale per row): scale max(max |row|
+    / 127, 1e-12), values clip(round(w / scale), -127, 127), rounding half
+    to even (JAX ``pack_decoder_params(quantize=True)``, one scale per
+    column of its transposed ``w_stream``)."""
+    w = w.float()
+    s = _div127(w.abs().amax(dim=1)).clamp_min(1e-12)
+    q = torch.round(w / s[:, None]).clamp(-127, 127).to(torch.int8)
+    return q.contiguous(), s.contiguous()
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 quantisation of an f32 activation (B, R) -> (values as
+    f32 integers in [-127, 127], scale (B, 1) = max(max |row|, 1e-12) / 127)
+    (the JAX kernel's ``_quantize_xh``)."""
+    sx = _div127(x.abs().amax(dim=1, keepdim=True).clamp_min(1e-12))
+    return torch.round(x / sx).clamp(-127, 127), sx
+
+
+def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) -> PackedDecoder:
     """Repack the prenet and decoder modules for the kernels; weights in
-    ``dtype`` (bf16 on the card), biases in f32."""
+    ``dtype`` (bf16 on the card), biases in f32. ``quantize``: the two LSTM
+    blocks int8 with a scale per gate row, quantised from the f32 weights;
+    the attention's weights bf16 whatever ``dtype``, and the prenet's and
+    heads' in ``dtype`` with their activations rounded to bf16
+    (``ACT_INT8``), as the JAX kernel's int8 mode takes those products."""
+    PACK_CALLS[0] += 1
     a, d, att = decoder.att_rnn, decoder.lstm, decoder.attention
     with torch.no_grad():
         w_loc = torch.einsum("af,fck->ack", att.location_dense.weight.float(),
                              att.location_conv.weight.float())
         cast = lambda t: t.detach().to(dtype).contiguous()
+        att_cast = (lambda t: t.detach().to(ACT_INT8).contiguous()) if quantize else cast
         f32 = lambda t: t.detach().float().contiguous()
+        w_att = torch.cat([a.weight_ih, a.weight_hh], dim=1)
+        w_dec = torch.cat([d.weight_ih, d.weight_hh], dim=1)
+        scales = {}
+        if quantize:
+            (w_att, scales["s_att"]), (w_dec, scales["s_dec"]) = (
+                quantize_weights(w_att), quantize_weights(w_dec))
+        else:
+            w_att, w_dec = cast(w_att), cast(w_dec)
         return PackedDecoder(
-            w_att=cast(torch.cat([a.weight_ih, a.weight_hh], dim=1)),
+            w_att=w_att,
             b_att=f32(a.bias_ih + a.bias_hh),
-            w_dec=cast(torch.cat([d.weight_ih, d.weight_hh], dim=1)),
+            w_dec=w_dec,
             b_dec=f32(d.bias_ih + d.bias_hh),
             wp1_t=cast(prenet[0].weight.t()),
             wp2_t=cast(prenet[3].weight.t()),
-            wq=cast(att.query_layer.weight),
-            w_loc=cast(w_loc),
-            wv=cast(att.v.weight[0]),
+            wq=att_cast(att.query_layer.weight),
+            w_loc=att_cast(w_loc),
+            wv=att_cast(att.v.weight[0]),
             w_out=cast(torch.cat([decoder.mel_out.weight, decoder.gate.weight], dim=0)),
             b_out=f32(torch.cat([decoder.mel_out.bias, decoder.gate.bias], dim=0)),
+            **scales,
         )
 
 
@@ -106,15 +164,16 @@ def _acc(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def _rnd(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """Round an activation to the weights' type (bf16 operands), keep the
-    sum type."""
-    return _acc(x.to(like.dtype))
+def _rnd(x: torch.Tensor, like: torch.Tensor, act: Optional[torch.dtype] = None
+         ) -> torch.Tensor:
+    """Round an activation to ``act``, or else to the weights' type (bf16
+    operands), keep the sum type."""
+    return _acc(x.to(act or like.dtype))
 
 
-def prenet_plain(mel, wp1_t, wp2_t, m1, m2):
-    h1 = torch.relu(_rnd(mel, wp1_t) @ _acc(wp1_t)) * m1
-    return torch.relu(_rnd(h1, wp2_t) @ _acc(wp2_t)) * m2
+def prenet_plain(mel, wp1_t, wp2_t, m1, m2, act: Optional[torch.dtype] = None):
+    h1 = torch.relu(_rnd(mel, wp1_t, act) @ _acc(wp1_t)) * m1
+    return torch.relu(_rnd(h1, wp2_t, act) @ _acc(wp2_t)) * m2
 
 
 def lstm_cell_plain(w, b, x1, x2, x3, c):
@@ -125,10 +184,22 @@ def lstm_cell_plain(w, b, x1, x2, x3, c):
     return torch.sigmoid(o) * torch.tanh(c_new), c_new
 
 
+def lstm_cell_int8_plain(w, ws, b, x1, x2, x3, c):
+    """The LSTM cell over int8 weight rows ``w`` (4H, R) with scales ``ws``
+    (4H,): the f32 input quantised per row, the integer product exact (in
+    f64: |sum| < 127^2 R < 2^53), gates (float(sum) * sx) * ws + b."""
+    q, sx = quantize_rows(torch.cat([x1, x2, x3], dim=1).float())
+    acc = (q.double() @ w.double().t()).float()
+    gates = (acc * sx) * ws + b
+    i, f, g, o = gates.chunk(4, dim=1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
 def location_attention_plain(h, wq, w_loc, wv, att_enc, encoded, lengths,
                              w_prev, cum_prev):
     L = att_enc.shape[1]
-    q = _rnd(h, wq) @ _acc(wq).t()  # (B, A)
+    q = _rnd(_rnd(h, wq) @ _acc(wq).t(), wq)  # (B, A), rounded as the JAX kernel's qT
     win = _rnd(torch.stack([w_prev, cum_prev], dim=1), w_loc)  # (B, 2, L)
     loc = F.conv1d(win, _acc(w_loc), padding=w_loc.shape[2] // 2)  # (B, A, L)
     e = torch.tanh(q[:, None, :] + loc.transpose(1, 2) + att_enc)
@@ -139,9 +210,9 @@ def location_attention_plain(h, wq, w_loc, wv, att_enc, encoded, lengths,
     return ctx, w, cum_prev + w
 
 
-def heads_plain(w_out, b_out, rnn_h, ctx):
+def heads_plain(w_out, b_out, rnn_h, ctx, act: Optional[torch.dtype] = None):
     x = torch.cat([rnn_h, ctx], dim=1)
-    return _rnd(x, w_out) @ _acc(w_out).t() + b_out
+    return _rnd(x, w_out, act) @ _acc(w_out).t() + b_out
 
 
 # ---------------------------------------------------------------------------
@@ -159,11 +230,12 @@ def _lib():
         lib = build.load("decode_step")
         lib.t2_prenet.argtypes = [P] * 6 + [I] * 3 + [P]
         lib.t2_lstm_cell.argtypes = [P, P, P, I, P, I, P, I, P, P, P, I, I, P]
+        lib.t2_lstm_cell_int8.argtypes = [P, P, P, P, I, P, I, P, I, P, P, P, I, I, P]
         lib.t2_location_attention.argtypes = [P] * 12 + [I] * 6 + [P]
         lib.t2_heads.argtypes = [P, P, P, I, P, I, P, I, I, P]
         lib.t2_decode_chunk.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I), P]
-        for fn in (lib.t2_prenet, lib.t2_lstm_cell, lib.t2_location_attention, lib.t2_heads,
-                   lib.t2_decode_chunk):
+        for fn in (lib.t2_prenet, lib.t2_lstm_cell, lib.t2_lstm_cell_int8,
+                   lib.t2_location_attention, lib.t2_heads, lib.t2_decode_chunk):
             fn.restype = I
         _LIB = lib
     return _LIB
@@ -186,7 +258,7 @@ def prenet(mel, wp1_t, wp2_t, m1, m2):
     build.require(m1, torch.float32, (B, Pd), "m1")
     build.require(m2, torch.float32, (B, Pd), "m2")
     out = torch.empty(B, Pd, device=mel.device)
-    LAUNCHES["prenet"] += 1
+    build.count(LAUNCHES, "prenet")
     build.check(_lib().t2_prenet(mel.data_ptr(), wp1_t.data_ptr(), wp2_t.data_ptr(),
                                  m1.data_ptr(), m2.data_ptr(), out.data_ptr(),
                                  B, M, Pd, _stream()), "prenet")
@@ -208,11 +280,34 @@ def lstm_cell(w, b, x1, x2, x3, c):
     build.require(c, torch.float32, (B, H), "c")
     h_out = torch.empty(B, H, device=c.device)
     c_out = torch.empty(B, H, device=c.device)
-    LAUNCHES["lstm_cell"] += 1
+    build.count(LAUNCHES, "lstm_cell")
     build.check(_lib().t2_lstm_cell(
         w.data_ptr(), b.data_ptr(), x1.data_ptr(), n1, x2.data_ptr(), n2,
         x3.data_ptr(), n3, c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
         B, H, _stream()), "lstm_cell")
+    return h_out, c_out
+
+
+def lstm_cell_int8(w, ws, b, x1, x2, x3, c):
+    """Kernel K5: ``lstm_cell`` over int8 weight rows (4H, n1 + n2 + n3)
+    with one f32 scale per row ``ws`` (4H,) -> (h, c)."""
+    if x1.device.type == "cpu":
+        return lstm_cell_int8_plain(w, ws, b, x1, x2, x3, c)
+    B, H = c.shape
+    n1, n2, n3 = x1.shape[1], x2.shape[1], x3.shape[1]
+    build.require(w, torch.int8, (4 * H, n1 + n2 + n3), "w")
+    build.require(ws, torch.float32, (4 * H,), "ws")
+    build.require(b, torch.float32, (4 * H,), "b")
+    for name, x in (("x1", x1), ("x2", x2), ("x3", x3)):
+        build.require(x, torch.float32, (B, x.shape[1]), name)
+    build.require(c, torch.float32, (B, H), "c")
+    h_out = torch.empty(B, H, device=c.device)
+    c_out = torch.empty(B, H, device=c.device)
+    build.count(LAUNCHES, "lstm_cell_int8")
+    build.check(_lib().t2_lstm_cell_int8(
+        w.data_ptr(), ws.data_ptr(), b.data_ptr(), x1.data_ptr(), n1, x2.data_ptr(), n2,
+        x3.data_ptr(), n3, c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), B, H, _stream()),
+        "lstm_cell_int8")
     return h_out, c_out
 
 
@@ -237,7 +332,7 @@ def location_attention(h, wq, w_loc, wv, att_enc, encoded, lengths, w_prev, cum_
     ctx = torch.empty(B, D, device=h.device)
     w = torch.empty(B, L, device=h.device)
     cum = torch.empty(B, L, device=h.device)
-    LAUNCHES["location_attention"] += 1
+    build.count(LAUNCHES, "location_attention")
     build.check(_lib().t2_location_attention(
         h.data_ptr(), wq.data_ptr(), w_loc.data_ptr(), wv.data_ptr(),
         att_enc.data_ptr(), encoded.data_ptr(), lengths.data_ptr(),
@@ -258,7 +353,7 @@ def heads(w_out, b_out, rnn_h, ctx):
     build.require(rnn_h, torch.float32, (B, n1), "rnn_h")
     build.require(ctx, torch.float32, (B, n2), "ctx")
     out = torch.empty(B, N, device=rnn_h.device)
-    LAUNCHES["heads"] += 1
+    build.count(LAUNCHES, "heads")
     build.check(_lib().t2_heads(w_out.data_ptr(), b_out.data_ptr(), rnn_h.data_ptr(), n1,
                                 ctx.data_ptr(), n2, out.data_ptr(), B, N, _stream()),
                 "heads")
@@ -286,17 +381,28 @@ def init_step_state(B: int, M: int, H: int, D: int, L: int, device) -> StepState
     return StepState(z(B, M), z(B, H), z(B, H), z(B, D), z(B, L), z(B, L), z(B, H), z(B, H))
 
 
+def _cells_plain(pk: PackedDecoder):
+    """The plain LSTM cell for each of the pack's two blocks."""
+    if pk.quantized:
+        return (lambda *a: lstm_cell_int8_plain(pk.w_att, pk.s_att, pk.b_att, *a),
+                lambda *a: lstm_cell_int8_plain(pk.w_dec, pk.s_dec, pk.b_dec, *a))
+    return (lambda *a: lstm_cell_plain(pk.w_att, pk.b_att, *a),
+            lambda *a: lstm_cell_plain(pk.w_dec, pk.b_dec, *a))
+
+
 def decode_chunk_plain(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1, m2):
     """``decode_chunk`` in plain PyTorch, for any device."""
     M = s.mel.shape[1]
+    att_cell, dec_cell = _cells_plain(pk)
+    act = ACT_INT8 if pk.quantized else None
     outs, aligns = [], []
     for t in range(m1.shape[0]):
-        x = prenet_plain(s.mel, pk.wp1_t, pk.wp2_t, m1[t], m2[t])
-        att_h, att_c = lstm_cell_plain(pk.w_att, pk.b_att, x, s.ctx, s.att_h, s.att_c)
+        x = prenet_plain(s.mel, pk.wp1_t, pk.wp2_t, m1[t], m2[t], act)
+        att_h, att_c = att_cell(x, s.ctx, s.att_h, s.att_c)
         ctx, w, cum = location_attention_plain(att_h, pk.wq, pk.w_loc, pk.wv, att_enc,
                                                encoded, lengths, s.att_w, s.att_cum)
-        rnn_h, rnn_c = lstm_cell_plain(pk.w_dec, pk.b_dec, att_h, ctx, s.rnn_h, s.rnn_c)
-        mel_gate = heads_plain(pk.w_out, pk.b_out, rnn_h, ctx)
+        rnn_h, rnn_c = dec_cell(att_h, ctx, s.rnn_h, s.rnn_c)
+        mel_gate = heads_plain(pk.w_out, pk.b_out, rnn_h, ctx, act)
         outs.append(mel_gate)
         aligns.append(w)
         s = StepState(mel_gate[:, :M], att_h, att_c, ctx, w, cum, rnn_h, rnn_c)
@@ -308,7 +414,8 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     (n, B, P) x 2 -> (mel_gate (n, B, M + 1), aligns (n, B, L), new state).
 
     On the card this is one host call (``t2_decode_chunk``) that launches
-    the four kernels five times per step; each launch is counted."""
+    the four kernels five times per step, the two LSTM cells on K5 when the
+    pack is int8; each launch is counted."""
     if encoded.device.type == "cpu":
         return decode_chunk_plain(pk, encoded, att_enc, lengths, s, m1, m2)
     n, B, Pd = m1.shape
@@ -316,9 +423,12 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     M, H, A = pk.wp1_t.shape[0], pk.wq.shape[1], pk.wq.shape[0]
     K = pk.w_loc.shape[2]
     bf, f32 = torch.bfloat16, torch.float32
+    lstm_dt = torch.int8 if pk.quantized else bf
+    scales = (("s_att", pk.s_att, f32, (4 * H,)), ("s_dec", pk.s_dec, f32, (4 * H,))
+              ) if pk.quantized else ()
     for name, t, dt, shape in (
-        ("w_att", pk.w_att, bf, (4 * H, Pd + D + H)), ("b_att", pk.b_att, f32, (4 * H,)),
-        ("w_dec", pk.w_dec, bf, (4 * H, 2 * H + D)), ("b_dec", pk.b_dec, f32, (4 * H,)),
+        ("w_att", pk.w_att, lstm_dt, (4 * H, Pd + D + H)), ("b_att", pk.b_att, f32, (4 * H,)),
+        ("w_dec", pk.w_dec, lstm_dt, (4 * H, 2 * H + D)), ("b_dec", pk.b_dec, f32, (4 * H,)),
         ("wp1_t", pk.wp1_t, bf, (M, Pd)), ("wp2_t", pk.wp2_t, bf, (Pd, Pd)),
         ("wq", pk.wq, bf, (A, H)), ("w_loc", pk.w_loc, bf, (A, 2, K)), ("wv", pk.wv, bf, (A,)),
         ("w_out", pk.w_out, bf, (M + 1, H + D)), ("b_out", pk.b_out, f32, (M + 1,)),
@@ -329,7 +439,7 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
         ("att_c", s.att_c, f32, (B, H)), ("ctx", s.ctx, f32, (B, D)),
         ("att_w", s.att_w, f32, (B, L)), ("att_cum", s.att_cum, f32, (B, L)),
         ("rnn_h", s.rnn_h, f32, (B, H)), ("rnn_c", s.rnn_c, f32, (B, H)),
-    ):
+    ) + scales:
         build.require(t, dt, shape, name)
     dev = encoded.device
     mel_gate = torch.empty(n, B, M + 1, device=dev)
@@ -338,14 +448,15 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     pp = {k: torch.empty(2, B, w, device=dev)
           for k, w in (("att_h", H), ("att_c", H), ("ctx", D), ("att_cum", L),
                        ("rnn_h", H), ("rnn_c", H))}
-    tensors = (*pk, att_enc, encoded, lengths, m1, m2, *s, mel_gate, aligns, x,
-               pp["att_h"], pp["att_c"], pp["ctx"], pp["att_cum"], pp["rnn_h"], pp["rnn_c"])
+    tensors = (*pk[:11], att_enc, encoded, lengths, m1, m2, *s, mel_gate, aligns, x,
+               pp["att_h"], pp["att_c"], pp["ctx"], pp["att_cum"], pp["rnn_h"], pp["rnn_c"],
+               *(t for _, t, _, _ in scales))
     ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
-    dims = (ctypes.c_int * 9)(n, B, M, Pd, H, D, L, A, K)
-    LAUNCHES["prenet"] += n
-    LAUNCHES["lstm_cell"] += 2 * n
-    LAUNCHES["location_attention"] += n
-    LAUNCHES["heads"] += n
+    dims = (ctypes.c_int * 10)(n, B, M, Pd, H, D, L, A, K, int(pk.quantized))
+    build.count(LAUNCHES, "prenet", n)
+    build.count(LAUNCHES, "lstm_cell_int8" if pk.quantized else "lstm_cell", 2 * n)
+    build.count(LAUNCHES, "location_attention", n)
+    build.count(LAUNCHES, "heads", n)
     build.check(_lib().t2_decode_chunk(ptrs, dims, _stream()), "decode_chunk")
     last = (n - 1) % 2
     new = StepState(mel_gate[n - 1, :, :M].contiguous(), pp["att_h"][last], pp["att_c"][last],
@@ -355,7 +466,15 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
 
 
 def prenet_masks(n: int, B: int, Pd: int, dropout: float, generator, device):
-    """AlwaysDropout scale masks (n, B, P) x 2 from a torch.Generator."""
+    """AlwaysDropout scale masks (n, B, P) x 2 from a torch.Generator, or
+    from a sequence of B generators, one per row: row b then draws its m1
+    and m2 at (n, 1, P) from its own, as a batch of one seeded alike does,
+    so a row's masks do not depend on the rest of the batch."""
+    if isinstance(generator, Sequence):
+        if len(generator) != B:
+            raise ValueError(f"{len(generator)} row generators for {B} rows")
+        rows = [prenet_masks(n, 1, Pd, dropout, g, device) for g in generator]
+        return tuple(torch.cat(m, dim=1) for m in zip(*rows))
     keep = 1.0 - dropout
     m1 = (torch.rand(n, B, Pd, generator=generator, device=device) < keep).float() / keep
     m2 = (torch.rand(n, B, Pd, generator=generator, device=device) < keep).float() / keep
@@ -363,15 +482,15 @@ def prenet_masks(n: int, B: int, Pd: int, dropout: float, generator, device):
 
 
 def decode(pk: PackedDecoder, encoded, att_enc, lengths, max_len: int,
-           dropout: float = 0.5, generator: Optional[torch.Generator] = None,
-           prenet_dropout: bool = True,
+           dropout: float = 0.5, generator=None, prenet_dropout: bool = True,
            masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Free-running decode with early stop checked once per 64-frame chunk.
 
-    encoded (B, L, D) in the weights' type, att_enc (B, L, A) f32, lengths
-    (B,) int32. ``masks``: optional precomputed prenet masks (T, B, P) x 2,
-    frame t's masks applying to the prenet of frame t-1's mel; otherwise
-    they are drawn per chunk from ``generator``. Returns (mels (B, T, M)
+    encoded (B, L, D) in the type of ``pk.wq``, att_enc (B, L, A) f32,
+    lengths (B,) int32. ``masks``: optional precomputed prenet masks (T, B,
+    P) x 2, frame t's masks applying to the prenet of frame t-1's mel;
+    otherwise they are drawn per chunk from ``generator``, one
+    torch.Generator or one per row (``prenet_masks``). Returns (mels (B, T, M)
     raw over the executed frames and zero past them, gates (B, T) with
     -1000 past them, aligns (B, T, L), lengths (B,), executed frames)."""
     B, L, D = encoded.shape

@@ -172,7 +172,7 @@ def mrf_conv(x, cw: ConvWeights, res=None, acc=None, acc_scale: float = 0.0):
     y = torch.empty(B, T, Co, device=x.device)
     acc_out = torch.empty(B, T, Co, device=x.device) if acc_scale != 0.0 else None
     mode = 0 if acc_out is None else (1 if acc is None else 2)
-    LAUNCHES["mrf_conv"] += 1
+    build.count(LAUNCHES, "mrf_conv")
     build.check(_lib().t2_mrf_conv(
         x.data_ptr(), cw.w.data_ptr(), cw.b.data_ptr(),
         0 if res is None else res.data_ptr(),
@@ -195,7 +195,7 @@ def conv_transpose(x, uw: UpsampleWeights):
     build.require(uw.b, torch.float32, (Co,), "b")
     Tout = (Tin - 1) * uw.stride - 2 * uw.padding + K
     y = torch.empty(B, Tout, Co, device=x.device)
-    LAUNCHES["conv_transpose"] += 1
+    build.count(LAUNCHES, "conv_transpose")
     build.check(_lib().t2_conv_transpose(
         x.data_ptr(), uw.w_phase.data_ptr(), uw.b.data_ptr(), y.data_ptr(),
         B, Tin, Tout, Ci, Co, K, uw.stride, uw.padding,

@@ -229,7 +229,7 @@ def teacher_backward_plain(w: TrainWeights, res: Residuals, encoded, att_enc, le
         g1 = _gates(G1[t])
         c1 = g1[1] * res.c_att[t] + g1[0] * g1[2]
         h = g1[3] * torch.tanh(c1) * dm1[t]
-        q = _rnd(h, w.wq) @ wq.t()
+        q = _rnd(_rnd(h, w.wq) @ wq.t(), w.wq)
         win = _rnd(torch.stack([res.al[t], res.cum[t]], dim=1), w.w_loc)  # (B, 2, L)
         loc = F.conv1d(win, wl, padding=K // 2).transpose(1, 2)  # (B, L, A)
         th = torch.tanh(q[:, None, :] + loc + att_enc)
@@ -321,7 +321,7 @@ def teacher_forward(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1,
         stack[0].zero_()
     state = [torch.zeros(B, n, device=dev) for n in (H, D, H)]
     tensors = (*w, decoder_in, encoded, att_enc, lengths, dm1, dm2, mel_gate, *res, *state)
-    LAUNCHES["teacher_forward"] += forward_launches(T)
+    build.count(LAUNCHES, "teacher_forward", forward_launches(T))
     build.check(_lib().t2_teacher_forward(_ptrs(tensors), (Int * 9)(T, B, P, H, D, L, A, K, N),
                                           _stream()), "teacher_forward")
     return mel_gate, res
@@ -369,7 +369,7 @@ def teacher_backward(w: TrainWeights, res: Residuals, encoded, att_enc, lengths,
                zr(B, H), zr(B, H), zr(B, L), zr(B, L), e(S, B, max(R1, R2)))
     tensors = (*w[:8], encoded, att_enc, lengths, dm1, dm2, d_mel_gate, d_align, *res, *out,
                *scratch)
-    LAUNCHES["teacher_backward"] += backward_launches(T)
+    build.count(LAUNCHES, "teacher_backward", backward_launches(T))
     build.check(_lib().t2_teacher_backward(
         _ptrs(tensors), (Int * 10)(T, B, P, H, D, L, A, K, N, S), _stream()), "teacher_backward")
     return out
@@ -394,7 +394,7 @@ def gate_lstm(w, b, xh, c_prev, mask):
     build.require(c_prev, torch.float32, (M, H), "c_prev")
     build.require(mask, torch.float32, (M, H), "mask")
     h, c = torch.empty_like(c_prev), torch.empty_like(c_prev)
-    LAUNCHES["gate_lstm"] += 1
+    build.count(LAUNCHES, "gate_lstm")
     build.check(_lib().t2_gate_lstm(xh.data_ptr(), w.data_ptr(), b.data_ptr(), c_prev.data_ptr(),
                                     mask.data_ptr(), c.data_ptr(), h.data_ptr(), M, R, H,
                                     _stream()), "gate_lstm")

@@ -3,8 +3,10 @@
 Counterpart of ``run/say.py`` of the JAX package (and its helpers in
 ``run/common.py``) for the vanilla configuration: text frontend (no
 abbreviation expansion) -> encoder -> free-running decode through kernel K1
-with early stop -> postnet -> cut at the first fired gate -> HiFi-GAN over
-a 128-frame bucket with a receptive-field margin (kernel K2) -> PCM16 WAV.
+(or, with ``--quantize-int8``, K5 for the int8 LSTM cells) with early stop
+-> postnet -> cut at the first fired gate -> HiFi-GAN over a 128-frame
+bucket with a receptive-field margin (kernel K2) -> PCM16 WAV; without a
+HiFi-GAN checkpoint, Griffin-Lim on exp(mel).
 
 ``--random-seed`` seeds the torch.Generator that draws the prenet's
 AlwaysDropout masks, so one seed reproduces the audio on one device.
@@ -17,10 +19,11 @@ from __future__ import annotations
 
 import secrets
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
+from tacotron2_tpu_torch.audio.griffin_lim import mel_to_audio
 from tacotron2_tpu_torch.audio.io import write_wav
 from tacotron2_tpu_torch.config import Config
 from tacotron2_tpu_torch.convert import (load_hifigan_checkpoint, load_strict,
@@ -73,23 +76,40 @@ def load_hifigan(checkpoint: str, policy: Policy, device) -> HiFiGAN:
     return model.to(device).eval()
 
 
-def cut_vocode(hifigan: HiFiGAN, mels_post: torch.Tensor, cut: int,
-               stage=mrf_stage) -> torch.Tensor:
-    """Row 0's mel cut at ``cut`` frames -> int16 PCM of cut * hop samples.
+def vocode_bucket(hifigan: HiFiGAN, cut: int) -> int:
+    """Frames the vocoder sees for rows cut at up to ``cut`` frames: a
+    multiple of 128 at least ``cut`` plus the receptive field, so no kept
+    sample's receptive field reaches the bucket's end."""
+    return -(-(cut + hifigan.mel_receptive_field()) // VOCODE_BUCKET) * VOCODE_BUCKET
 
-    The vocoder sees a bucket of Tb = ceil((cut + RF) / 128) * 128 frames
-    with the frames at or past ``cut`` zeroed, so no kept sample's receptive
-    field reaches the bucket's end. The clip to [-1, 1 - 1/32768] and the
-    x32768 int16 cast truncate toward zero, as the WAV writer does.
-    ``stage`` computes each MRF stage (see ``HiFiGAN.apply``)."""
-    Tb = -(-(cut + hifigan.mel_receptive_field()) // VOCODE_BUCKET) * VOCODE_BUCKET
-    m = mels_post[:1, :Tb]
+
+def cut_vocode(hifigan: HiFiGAN, mels_post: torch.Tensor, row_idx: Sequence[int],
+               cuts: Sequence[int], Tb: int, stage=mrf_stage) -> torch.Tensor:
+    """Rows ``row_idx`` of ``mels_post`` (B, T, M), each cut at its ``cuts``
+    frames, through one HiFi-GAN call -> int16 PCM (len(row_idx), Tb * hop)
+    on the device (JAX ``run/common.py::jitted_cut_vocoder``).
+
+    The rows are gathered, padded or cut to the bucket of ``Tb`` frames
+    (``vocode_bucket``), and the frames at or past each row's cut zeroed; a
+    row with cut 0 is all zero (the server's padding rows). Row i's first
+    cuts[i] * hop samples are its audio, the same whatever bucket and rows
+    it shares the call with. The clip to [-1, 1 - 1/32768] and the x32768
+    int16 cast truncate toward zero, as the WAV writer does. ``stage``
+    computes each MRF stage (see ``HiFiGAN.apply``)."""
+    dev = mels_post.device
+    m = mels_post[torch.as_tensor(list(row_idx), device=dev), :Tb]
     if m.shape[1] < Tb:
         m = torch.nn.functional.pad(m, (0, 0, 0, Tb - m.shape[1]))
-    keep = (torch.arange(Tb, device=m.device) < cut)[None, :, None]
-    wav = hifigan.apply(m * keep, stage)
-    pcm = (wav.clamp(-1.0, 1.0 - 1.0 / 32768.0) * 32768.0).to(torch.int16)
-    return pcm[0, : cut * hifigan.cfg.total_upsample]
+    keep = torch.arange(Tb, device=dev)[None, :] < torch.as_tensor(list(cuts), device=dev)[:, None]
+    wav = hifigan.apply(m * keep[..., None], stage)
+    return (wav.clamp(-1.0, 1.0 - 1.0 / 32768.0) * 32768.0).to(torch.int16)
+
+
+def griffin_lim_vocode(mel_post: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """One row's log-mel (frames, M) -> float waveform through Griffin-Lim
+    on exp(mel), on the mel's device (JAX ``run/common.py::vocode`` without
+    a vocoder)."""
+    return mel_to_audio(torch.exp(mel_post), sample_rate=sample_rate)
 
 
 def _sync(device: torch.device) -> None:
@@ -100,13 +120,12 @@ def _sync(device: torch.device) -> None:
 def do_say(cfg: Config, checkpoint: str, text: str, output: str,
            hifi_gan_checkpoint: Optional[str] = None,
            random_seed: Optional[int] = None, max_len_override: int = MAX_LEN,
-           device: Optional[str] = None) -> dict:
+           device: Optional[str] = None, quantize_int8: bool = False) -> dict:
     """Synthesize ``text`` into ``output``; returns what ran and how long
-    each phase took on the host clock (each phase ends in a device sync)."""
-    if hifi_gan_checkpoint is None:
-        raise NotImplementedError(
-            "the port's say needs --hifi-gan-checkpoint: the Griffin-Lim "
-            "fallback is not ported yet")
+    each phase took on the host clock (each phase ends in a device sync).
+    ``quantize_int8``: decode with int8 LSTM weights (kernel K5), the JAX
+    package's approximate ``--quantize-int8`` mode. Without a HiFi-GAN
+    checkpoint the mel goes through Griffin-Lim."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         use_f32_math()
@@ -117,7 +136,8 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
     norm = normalize_text(text, prep.allowed_chars, prep.end_token, False)
     chars_idx, chars_len = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch([norm])
     model = load_tacotron(cfg, checkpoint, dev)
-    hifigan = load_hifigan(hifi_gan_checkpoint, vocoder_policy(dev), dev)
+    hifigan = (None if hifi_gan_checkpoint is None
+               else load_hifigan(hifi_gan_checkpoint, vocoder_policy(dev), dev))
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(random_seed))
 
@@ -125,20 +145,25 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
     t0 = time.perf_counter()
     out = model.forward_infer_fast(torch.as_tensor(chars_idx, device=dev),
                                    torch.as_tensor(chars_len, device=dev),
-                                   max_len_override, generator=gen)
+                                   max_len_override, generator=gen, quantize=quantize_int8)
     _sync(dev)
     t1 = time.perf_counter()
     n = int(out.n_frames)
     cut = max(n - 1, 1)  # drop the frame whose gate fired
-    pcm = cut_vocode(hifigan, out.mels_post, cut)
-    wav = pcm.cpu().numpy()
+    if hifigan is None:
+        wav = griffin_lim_vocode(out.mels_post[0, :cut], prep.sample_rate).cpu().numpy()
+    else:
+        pcm = cut_vocode(hifigan, out.mels_post, [0], [cut], vocode_bucket(hifigan, cut))
+        wav = pcm[0, :cut * hifigan.cfg.total_upsample].cpu().numpy()
     t2 = time.perf_counter()
     write_wav(output, wav, prep.sample_rate)
     print(f"wrote {output}: {len(wav) / prep.sample_rate:.2f}s "
-          f"({n} frames, seed {random_seed}, {dev.type})")
+          f"({n} frames, seed {random_seed}, {dev.type}"
+          f"{', int8' if quantize_int8 else ''})")
     return {
         "output": output, "n_frames": n, "cut": cut, "samples": int(len(wav)),
         "chars": int(chars_len[0]), "seed": int(random_seed), "device": str(dev),
+        "quantize_int8": quantize_int8, "vocoder": "griffin_lim" if hifigan is None else "hifigan",
         "decode_s": t1 - t0, "vocode_s": t2 - t1, "say_s": t2 - t0,
         "audio_s": len(wav) / prep.sample_rate,
     }

@@ -1,0 +1,570 @@
+"""Demo TTS web server of the port, on the standard library alone.
+
+Counterpart of the JAX package's ``run/server.py``, for the vanilla
+configuration. Routes: ``GET /`` (the repo's ``web/index.html``),
+``GET /config`` (the model registry), ``GET /stats``, ``POST /generate``
+(text -> WAV path, with the reference client's alias fields) and static
+``/web_generated``. The server config is the JAX server's: ``models``
+(name, config, checkpoint, hifi_gan_checkpoint, quantize_int8, max_len,
+multi_speaker, controllable, num_voices), ``batching`` (enabled, window_ms,
+max_batch, depth) and ``warmup``.
+
+Two modes:
+
+- ``warm``: each model loads once, its decoder packed once (int8 when the
+  entry sets ``quantize_int8``). A ``MicroBatcher`` gathers the requests
+  for one model that arrive within ``window_ms`` (up to ``max_batch``)
+  into one batched decode (kernels K1, or K5 for int8) and one batched
+  HiFi-GAN call (K2), with up to ``depth`` windows in flight, each on its
+  own thread and CUDA stream. Every request keeps its own prenet-dropout
+  stream (a torch.Generator from its seed), and the kernels' rows are
+  independent, so a request's audio does not depend on what shares its
+  window. Rows pad to a power of two by repeating row 0 (with generators
+  of their own), chars to a multiple of 128.
+- ``subprocess``: one ``python -m tacotron2_tpu_torch say`` per request, as
+  the reference server shells out to its CLI.
+
+``http.server.ThreadingHTTPServer`` answers each connection on a thread of
+its own; ``/generate`` blocks that thread on the request's future.
+Multi-device serving (``mesh``) and the extensions are not ported: a mesh,
+or a multi-speaker or controllable entry, raises at start; a request with
+controls or a nonzero voice for a vanilla model is a 400, as in the JAX
+server.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import contextlib
+import json
+import os
+import queue
+import signal
+import subprocess
+import sys
+import threading
+import time
+import uuid
+from http import HTTPStatus
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from urllib.parse import unquote, urlparse
+
+import numpy as np
+import torch
+
+from tacotron2_tpu_torch.audio.io import write_wav
+from tacotron2_tpu_torch.config import Config, load_config
+from tacotron2_tpu_torch.models.hifigan import HiFiGAN
+from tacotron2_tpu_torch.models.layers import resolve_device, use_f32_math
+from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+from tacotron2_tpu_torch.ops.decoder_loop import PackedDecoder
+from tacotron2_tpu_torch.run.say import (MAX_LEN, cut_vocode, griffin_lim_vocode, load_hifigan,
+                                         load_tacotron, vocode_bucket, vocoder_policy)
+from tacotron2_tpu_torch.text.cleaners import normalize_text
+from tacotron2_tpu_torch.text.encoder import CharEncoder
+
+PACKAGE_ROOT = Path(__file__).resolve().parents[2]
+WEB_DIR = PACKAGE_ROOT / "web"
+GENERATED_DIR = "web_generated"
+CHAR_BUCKET = 128
+SEED_RANGE = (-(2**63), 2**64 - 1)  # what torch.Generator.manual_seed takes
+SHUTDOWN = "server shutting down"
+
+# [decode launches, decoded rows]: /stats shows rows per launch, the
+# batching factor the micro-batcher reached
+BATCH_CALLS = [0, 0]
+_BATCH_LOCK = threading.Lock()
+
+
+class Bundle(NamedTuple):
+    cfg: Config
+    model: Tacotron2
+    hifigan: Optional[HiFiGAN]
+    packed: PackedDecoder
+    entry: Dict[str, Any]
+
+
+def _pow2(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+class ModelRegistry:
+    def __init__(self, entries: List[Dict[str, Any]], device: Optional[str] = None):
+        for e in entries:
+            if e.get("multi_speaker") or e.get("controllable"):
+                raise NotImplementedError(
+                    f"model {e.get('name')!r}: multi-speaker and controllable models are not "
+                    "ported (vanilla models only)")
+        self.entries = entries
+        self.device = device
+        self._loaded: Dict[int, Bundle] = {}
+        self._lock = threading.Lock()
+
+    def describe(self) -> List[Dict[str, Any]]:
+        return [{"name": e.get("name", f"model-{i}"),
+                 "multi_speaker": e.get("multi_speaker", False),
+                 "controllable": e.get("controllable", False),
+                 "num_voices": e.get("num_voices", 1)}
+                for i, e in enumerate(self.entries)]
+
+    def loaded(self) -> List[int]:
+        return sorted(self._loaded)
+
+    def load(self, idx: int) -> Bundle:
+        """The model, its vocoder and its decoder packed once (int8 with
+        ``quantize_int8``), loaded at the first call and kept."""
+        with self._lock:
+            if idx in self._loaded:
+                return self._loaded[idx]
+            entry = self.entries[idx]
+            dev = resolve_device(self.device)
+            cfg = load_config(entry["config"])
+            model = load_tacotron(cfg, entry["checkpoint"], dev)
+            hifigan = None
+            if entry.get("hifi_gan_checkpoint"):
+                hifigan = load_hifigan(entry["hifi_gan_checkpoint"], vocoder_policy(dev), dev)
+            packed = model.make_packed_decoder(bool(entry.get("quantize_int8")))
+            if dev.type == "cuda":  # the windows' streams read these weights
+                torch.cuda.synchronize(dev)
+            self._loaded[idx] = Bundle(cfg, model, hifigan, packed, entry)
+            return self._loaded[idx]
+
+
+def validate_request(req: Dict[str, Any]) -> None:
+    """A request's own errors, found before it shares a window (JAX
+    ``_validate_request``, for the vanilla model the port runs)."""
+    if req.get("controls"):
+        raise ValueError("model has controls disabled, but 'controls' passed")
+    if req.get("speaker_id") not in (None, 0):
+        raise ValueError("model is single-speaker, but 'voice' passed")
+
+
+_TLS = threading.local()
+
+
+def _thread_stream(device: torch.device):
+    """A CUDA stream of this thread's own: two windows in flight run on two
+    threads, and their kernels must not interleave on one stream."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    if getattr(_TLS, "stream", None) is None:
+        _TLS.stream = torch.cuda.Stream(device)
+    return torch.cuda.stream(_TLS.stream)
+
+
+def synthesize_batch(bundle: Bundle, reqs: List[Dict[str, Any]]) -> List[str]:
+    """One window of validated requests -> their WAV paths, through one
+    batched decode and one batched HiFi-GAN call.
+
+    Chars pad to a multiple of 128 and rows to a power of two (row 0
+    repeated, with a generator of its own seeded as row 0's). Each row is
+    cut at its first gate fire (a row's cut does not depend on longer rows
+    in the window; at one row it is ``say``'s n - 1), then the rows with a
+    vocoder go through ``cut_vocode`` in a power-of-two row bucket and a
+    128-frame bucket past the receptive field, PCM16 on the device; the
+    others through Griffin-Lim."""
+    cfg, model, hifigan, packed, entry = bundle
+    prep = cfg.dataset.preprocessing
+    dev = next(model.parameters()).device
+    with _BATCH_LOCK:
+        BATCH_CALLS[0] += 1
+        BATCH_CALLS[1] += len(reqs)
+    encoder = CharEncoder(prep.allowed_chars, prep.end_token)
+    chars, lens = encoder.encode_batch(
+        [normalize_text(r["text"], prep.allowed_chars, prep.end_token, False) for r in reqs])
+    B, L = chars.shape
+    Lb = max(CHAR_BUCKET, -(-L // CHAR_BUCKET) * CHAR_BUCKET)
+    rows = list(range(B)) + [0] * (_pow2(B) - B)
+    chars = np.pad(chars, ((0, 0), (0, Lb - L)))[rows]
+    gens = [torch.Generator(device=dev).manual_seed(int(reqs[b].get("seed") or 0)) for b in rows]
+    out = model.forward_infer_fast(torch.as_tensor(chars, device=dev),
+                                   torch.as_tensor(lens[rows], device=dev),
+                                   int(entry.get("max_len", MAX_LEN)), packed=packed,
+                                   row_generators=gens)
+    n = int(out.n_frames)
+    fired = out.gates[:B, :, 0] < 0.0
+    first = torch.where(fired.any(dim=1), fired.int().argmax(dim=1),
+                        torch.full((B,), fired.shape[1], device=dev))
+    cuts = [max(min(int(f), n - 1), 1) for f in first.tolist()]
+
+    wavs: Dict[int, np.ndarray] = {}
+    voc = [b for b, r in enumerate(reqs) if r.get("use_vocoder", True) and hifigan is not None]
+    if voc:
+        pad = _pow2(len(voc)) - len(voc)
+        pcm = cut_vocode(hifigan, out.mels_post, voc + [0] * pad,
+                         [cuts[b] for b in voc] + [0] * pad,
+                         vocode_bucket(hifigan, max(cuts[b] for b in voc))).cpu().numpy()
+        hop = hifigan.cfg.total_upsample
+        for i, b in enumerate(voc):
+            wavs[b] = pcm[i, :cuts[b] * hop]
+    paths = []
+    for b, r in enumerate(reqs):
+        wav = wavs.get(b)
+        if wav is None:
+            wav = griffin_lim_vocode(out.mels_post[b, :cuts[b]], prep.sample_rate).cpu().numpy()
+        write_wav(r["out_path"], wav, prep.sample_rate)
+        paths.append(r["out_path"])
+    return paths
+
+
+def _settle(fut: concurrent.futures.Future, result=None, exc: Optional[BaseException] = None):
+    """Resolve a future unless it is resolved already (``close`` fails the
+    pending ones while their window may still be running)."""
+    try:
+        if exc is not None:
+            fut.set_exception(exc)
+        else:
+            fut.set_result(result)
+    except concurrent.futures.InvalidStateError:
+        pass
+
+
+class MicroBatcher:
+    """Per model, a worker thread gathers the requests that arrive within
+    ``window_ms`` of the first (then whatever is already queued, up to
+    ``max_batch``) and hands the window to a pool of ``depth`` threads, so
+    up to ``depth`` windows are in flight: one decodes while the last one's
+    audio is vocoded and written. Every failure lands on the requests'
+    futures, never on the worker."""
+
+    def __init__(self, registry: ModelRegistry, window_ms: float = 8.0, max_batch: int = 64,
+                 depth: int = 2):
+        self.registry = registry
+        self.window = max(float(window_ms), 0.0) / 1000.0
+        self.max_batch = max(int(max_batch), 1)
+        self.depth = max(int(depth), 1)
+        self._lock = threading.Lock()
+        self._queues: Dict[int, queue.Queue] = {}
+        self._pools: Dict[int, concurrent.futures.ThreadPoolExecutor] = {}
+        self._pending: set = set()
+        self._closed = False
+
+    def submit(self, model_idx: int, req: Dict[str, Any]) -> concurrent.futures.Future:
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with self._lock:
+            if self._closed:
+                fut.set_exception(RuntimeError(SHUTDOWN))
+                return fut
+            self._pending.add(fut)
+            q = self._queues.get(model_idx)
+            if q is None:
+                q = self._queues[model_idx] = queue.Queue()
+                pool = self._pools[model_idx] = concurrent.futures.ThreadPoolExecutor(
+                    self.depth, thread_name_prefix=f"window-{model_idx}")
+                threading.Thread(target=self._worker, args=(model_idx, q, pool),
+                                 name=f"batcher-{model_idx}", daemon=True).start()
+            q.put((req, fut))
+        fut.add_done_callback(self._done)
+        return fut
+
+    def _done(self, fut) -> None:
+        with self._lock:
+            self._pending.discard(fut)
+
+    def close(self, wait: bool = False) -> None:
+        """Stop the workers and fail every request not answered yet, queued
+        or in a window still running; with ``wait``, return once the running
+        windows have ended (a process must not exit while a window thread
+        is still inside torch)."""
+        with self._lock:
+            self._closed = True
+            pending = list(self._pending)
+            for q in self._queues.values():
+                q.put(None)
+        err = RuntimeError(SHUTDOWN)
+        for fut in pending:
+            _settle(fut, exc=err)
+        for pool in self._pools.values():
+            pool.shutdown(wait=wait, cancel_futures=True)
+
+    def _worker(self, model_idx: int, q: queue.Queue, pool) -> None:
+        slots = threading.BoundedSemaphore(self.depth)
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            batch = [item]
+            deadline = time.monotonic() + self.window
+            while len(batch) < self.max_batch:
+                timeout = deadline - time.monotonic()
+                try:  # once the window has closed, take only what is queued
+                    item = q.get(timeout=timeout) if timeout > 0 else q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is None:
+                    return
+                batch.append(item)
+            slots.acquire()
+            try:
+                pool.submit(self._run_batch, model_idx, batch, slots)
+            except RuntimeError:  # the pool was shut down: close() failed the batch
+                return
+
+    def _run_batch(self, model_idx: int, batch, slots) -> None:
+        try:
+            # load inside the try: a bad checkpoint fails these requests,
+            # and the worker goes on serving
+            bundle = self.registry.load(model_idx)
+            good = []
+            for req, fut in batch:
+                try:
+                    validate_request(req)
+                    good.append((req, fut))
+                except Exception as exc:  # this request only
+                    _settle(fut, exc=exc)
+            if good:
+                with _thread_stream(next(bundle.model.parameters()).device):
+                    paths = synthesize_batch(bundle, [r for r, _ in good])
+                for (_, fut), path in zip(good, paths):
+                    _settle(fut, path)
+        except Exception as exc:
+            for _, fut in batch:
+                _settle(fut, exc=exc)
+        finally:
+            slots.release()
+
+
+def warmup_models(registry: ModelRegistry) -> None:
+    """Load every model and synthesize one short request before the first
+    real one (server config ``"warmup": true``)."""
+    for idx in range(len(registry.entries)):
+        req = {"text": "warmup.", "seed": 0, "use_vocoder": True,
+               "out_path": os.path.join(GENERATED_DIR, f"warmup-{idx}.wav")}
+        synthesize_batch(registry.load(idx), [req])
+
+
+class App:
+    """The routes' state and logic, apart from the HTTP plumbing."""
+
+    def __init__(self, server_config: Dict[str, Any], mode: str = "warm",
+                 device: Optional[str] = None):
+        mesh = server_config.get("mesh") or {}
+        if int(mesh.get("data", 1)) > 1:
+            raise NotImplementedError("multi-device serving (mesh data > 1) is not ported")
+        if mode not in ("warm", "subprocess"):
+            raise ValueError(f"unknown mode {mode!r}")
+        os.makedirs(GENERATED_DIR, exist_ok=True)
+        self.server_config = server_config
+        self.mode = mode
+        self.device = device
+        self.registry = ModelRegistry(server_config.get("models", []), device)
+        if mode == "warm" and server_config.get("warmup"):
+            warmup_models(self.registry)
+        b = server_config.get("batching", {})
+        self.batcher = MicroBatcher(self.registry, b.get("window_ms", 8.0),
+                                    b.get("max_batch", 64), b.get("depth", 2)
+                                    ) if b.get("enabled", True) else None
+        self.started = time.time()
+        self.counts = {"ok": 0, "failed": 0}
+        self._lock = threading.Lock()
+
+    def close(self, wait: bool = False) -> None:
+        if self.batcher is not None:
+            self.batcher.close(wait)
+
+    def stats(self) -> Dict[str, Any]:
+        calls, rows = BATCH_CALLS
+        b = self.batcher
+        return {
+            "uptime_s": round(time.time() - self.started, 1),
+            "mode": self.mode,
+            "requests": dict(self.counts),
+            "batching": None if b is None else {
+                "window_ms": b.window * 1000.0, "max_batch": b.max_batch, "depth": b.depth,
+                "decode_launches": calls, "decoded_rows": rows,
+                "rows_per_launch": round(rows / calls, 2) if calls else None},
+            "mesh_devices": 1,
+            "mesh_configured": self.server_config.get("mesh") or None,
+            "models_loaded": self.registry.loaded(),
+        }
+
+    def generate(self, data: Any) -> tuple:
+        """-> (HTTP status, JSON body); counts the outcome."""
+        try:
+            status, body = HTTPStatus.OK, self._generate(data)
+        except ValueError as exc:  # the request's own error, as in the JAX server
+            status, body = HTTPStatus.BAD_REQUEST, {"error": str(exc)}
+        except Exception as exc:
+            status = HTTPStatus.INTERNAL_SERVER_ERROR
+            body = {"error": f"{type(exc).__name__}: {exc}"}
+        with self._lock:
+            self.counts["ok" if status == HTTPStatus.OK else "failed"] += 1
+        return status, body
+
+    def _request(self, data: Any) -> tuple:
+        """Parse a /generate body (the JAX server's fields and the reference
+        client's aliases) -> (model index, request)."""
+        if not isinstance(data, dict):
+            raise ValueError("the body must be a JSON object")
+        try:
+            idx = int(data.get("model", 0) or 0)
+        except (TypeError, ValueError):
+            raise ValueError(f"model must be an integer index, got {data.get('model')!r}")
+        if not 0 <= idx < len(self.registry.entries):
+            raise ValueError(f"model index {idx} out of range "
+                             f"(0..{len(self.registry.entries) - 1})")
+        try:
+            seed = data.get("seed", data.get("random_seed"))
+            seed = int(seed) if seed not in (None, "") else None
+            voice = data.get("voice", data.get("speaker"))
+            voice = int(voice) if voice not in (None, "") else None
+        except (TypeError, ValueError) as exc:
+            raise ValueError(f"seed/voice must be integers: {exc}")
+        if seed is not None and not SEED_RANGE[0] <= seed <= SEED_RANGE[1]:
+            raise ValueError(f"seed {seed} is out of range {SEED_RANGE}")
+        return idx, {"text": str(data.get("text", "")), "seed": seed, "speaker_id": voice,
+                     "controls": data.get("controls"),
+                     "use_vocoder": bool(data.get("use_vocoder", data.get("vocoder", True)))}
+
+    def _generate(self, data: Any) -> Dict[str, Any]:
+        req_id = str(uuid.uuid4())
+        with open(os.path.join(GENERATED_DIR, f"{req_id}.json"), "w") as f:
+            json.dump(data, f)
+        idx, req = self._request(data)
+        out_path = os.path.join(GENERATED_DIR, f"{req_id}.wav")
+        req["out_path"] = out_path
+        if self.mode == "subprocess":
+            validate_request(req)
+            self._say_subprocess(self.registry.entries[idx], req)
+        elif self.batcher is not None:
+            self.batcher.submit(idx, req).result()
+        else:
+            bundle = self.registry.load(idx)
+            validate_request(req)
+            with _thread_stream(next(bundle.model.parameters()).device):
+                synthesize_batch(bundle, [req])
+        return {"path": out_path, "filename": "/" + out_path}
+
+    def _say_subprocess(self, entry: Dict[str, Any], req: Dict[str, Any]) -> None:
+        cmd = [sys.executable, "-m", "tacotron2_tpu_torch", "say", "--config", entry["config"],
+               "--checkpoint", entry["checkpoint"], "--text", req["text"],
+               "--out", req["out_path"]]
+        if req["use_vocoder"] and entry.get("hifi_gan_checkpoint"):
+            cmd += ["--hifi-gan-checkpoint", entry["hifi_gan_checkpoint"]]
+        if req["seed"] is not None:
+            cmd += ["--random-seed", str(req["seed"])]
+        if entry.get("max_len"):
+            cmd += ["--max-len-override", str(entry["max_len"])]
+        if entry.get("quantize_int8"):
+            cmd.append("--quantize-int8")
+        if self.device is not None:
+            cmd += ["--device", str(self.device)]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(PACKAGE_ROOT), env.get("PYTHONPATH")) if p)
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"say exited with {proc.returncode}: {proc.stderr[-2000:]}")
+
+
+_CONTENT_TYPES = {".wav": "audio/wav", ".json": "application/json"}
+
+
+class Handler(BaseHTTPRequestHandler):
+    server_version = "tacotron2_tpu_torch"
+    protocol_version = "HTTP/1.1"
+
+    @property
+    def app(self) -> App:
+        return self.server.app
+
+    def log_message(self, format, *args):  # no access log on stderr
+        pass
+
+    def _send(self, status, body: bytes, content_type: str) -> None:
+        self.send_response(status)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _json(self, status, obj) -> None:
+        self._send(status, json.dumps(obj).encode(), "application/json")
+
+    def do_GET(self):
+        path = urlparse(self.path).path
+        if path == "/":
+            self._send(HTTPStatus.OK, (WEB_DIR / "index.html").read_bytes(), "text/html")
+        elif path == "/config":
+            self._json(HTTPStatus.OK, self.app.registry.describe())
+        elif path == "/stats":
+            self._json(HTTPStatus.OK, self.app.stats())
+        elif path.startswith(f"/{GENERATED_DIR}/"):
+            name = unquote(path[len(GENERATED_DIR) + 2:])
+            file = Path(GENERATED_DIR) / name
+            if "/" in name or name.startswith(".") or not file.is_file():
+                self._json(HTTPStatus.NOT_FOUND, {"error": f"no file {name!r}"})
+            else:
+                self._send(HTTPStatus.OK, file.read_bytes(),
+                           _CONTENT_TYPES.get(file.suffix, "application/octet-stream"))
+        else:
+            self._json(HTTPStatus.NOT_FOUND, {"error": f"no route {path}"})
+
+    def do_POST(self):
+        path = urlparse(self.path).path
+        body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+        if path != "/generate":
+            self._json(HTTPStatus.NOT_FOUND, {"error": f"no route {path}"})
+            return
+        try:
+            data = json.loads(body or b"null")
+        except ValueError as exc:
+            self._json(HTTPStatus.BAD_REQUEST, {"error": f"the body is not JSON: {exc}"})
+            return
+        self._json(*self.app.generate(data))
+
+
+class Server(ThreadingHTTPServer):
+    daemon_threads = True
+    request_queue_size = 256  # a wave of concurrent clients; socketserver's default is 5
+
+
+def make_server(server_config: Dict[str, Any], mode: str = "warm",
+                device: Optional[str] = None, host: str = "0.0.0.0",
+                port: int = 8080) -> Server:
+    """The HTTP server with its ``App`` (``server.app``); port 0 picks a
+    free one (``server.server_address[1]``). Close with ``app.close()``
+    and ``server_close()``."""
+    app = App(server_config, mode, device)
+    httpd = Server((host, port), Handler)
+    httpd.app = app
+    return httpd
+
+
+def do_server(port: int, server_config: Optional[Dict[str, Any]] = None, mode: str = "warm",
+              device: Optional[str] = None, host: str = "0.0.0.0",
+              on_start: Optional[Callable[[Server], None]] = None) -> dict:
+    """Serve until SIGINT or SIGTERM (in the main thread) or until
+    ``server.shutdown()``; then fail the pending requests and return. A warm
+    server asked for CUDA where there is none refuses to start.
+    ``on_start`` gets the server once it listens (a caller that runs this
+    on a thread of its own stops it with ``shutdown()``)."""
+    if mode == "warm":
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            use_f32_math()
+    httpd = make_server(server_config or {}, mode, device, host, port)
+
+    def stop(signum, frame):
+        raise KeyboardInterrupt
+
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, stop)
+    bound = httpd.server_address[1]
+    print(f"serving on http://{host}:{bound} ({mode})", flush=True)
+    if on_start is not None:
+        on_start(httpd)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.app.close(wait=True)
+        httpd.server_close()
+    print("server stopped", flush=True)
+    return {"port": bound, "stats": httpd.app.stats()}

@@ -96,6 +96,32 @@ def test_say_matches_jax(tmp_path, gate_bias, max_len):
         assert res["n_frames"] == max_len and res["cut"] == max_len - 1
 
 
+@pytest.mark.parametrize("vocoder,quantize", [("griffin_lim", False), ("hifigan", True)])
+def test_say_modes_match_jax(tmp_path, vocoder, quantize):
+    """``say`` without a HiFi-GAN checkpoint (Griffin-Lim on both sides) and
+    ``say --quantize-int8`` (the int8 decode on both sides), gate forced
+    positive so both decode 24 frames. Limits: PCM16 within 2 LSB with
+    HiFi-GAN; with Griffin-Lim within 1e-3 of the waveform's max, the limit
+    of tests/test_torch_griffin_lim.py."""
+    cfg_path, ckpt, g_path = _files(tmp_path, 3.0)
+    out_port, out_jax = str(tmp_path / "port.wav"), str(tmp_path / "jax.wav")
+    g = [] if vocoder == "griffin_lim" else ["--hifi-gan-checkpoint", g_path]
+    res = port_cli(["say", "--config", cfg_path, "--checkpoint", ckpt, "--text", TEXT,
+                    "--out", out_port, "--random-seed", "7", "--max-len-override", "24",
+                    "--device", "cpu"] + g + (["--quantize-int8"] if quantize else []))
+    jax_do_say(jax_load_config(cfg_path), 0, ckpt, TEXT, out_jax,
+               hifi_gan_checkpoint=None if vocoder == "griffin_lim" else g_path,
+               random_seed=7, max_len_override=24, quantize_int8=quantize)
+    port_wav, jax_wav = read_wav(out_port)[0], read_wav(out_jax)[0]
+    assert res["vocoder"] == vocoder and res["quantize_int8"] == quantize
+    cut = 23  # Griffin-Lim's waveform is one hop shorter
+    assert len(port_wav) == len(jax_wav) == (cut if vocoder == "hifigan" else cut - 1) * 256
+    diff = np.abs(port_wav - jax_wav).max()
+    if vocoder == "hifigan":
+        assert diff * 32768 <= 2
+    else:
+        assert diff <= 1e-3 * np.abs(jax_wav).max()
+
 
 def test_vocoder_policy_follows_the_device():
     """bf16 operands on the card (the kernel's one mode), f32 on the CPU
