@@ -8,7 +8,8 @@ Phases, each of which must pass:
 1. print the card (``nvidia-smi``), torch and CUDA versions; TF32 off
    (``layers.use_f32_math``, as the say and train entries set it);
 2. build every CUDA kernel from ``tacotron2_tpu_torch/csrc`` (one nvcc per
-   source, in parallel);
+   source, in parallel) and print each kernel's registers, static shared
+   memory and spills (``-Xptxas -v``);
 3. hold each kernel against its plain PyTorch version on the card at the
    slice's full-width shapes (K1: one decode step at the flagship dims,
    then whole 4-step chunks on K1_DRAWS weight draws, with the readings of
@@ -18,11 +19,16 @@ Phases, each of which must pass:
    K5, the int8 LSTM cell: one int8 step through the chunk entry at B=1 and
    at B=2 with a padded row, with defective kernels (activations rounded to
    bf16 before quantising, scales taken from bf16 weights) held above the
-   limit, then the 4-step int8 chunk on K1_DRAWS weight draws;
+   limit, then the 4-step int8 chunk on K1_DRAWS weight draws; K2's
+   ``mrf_conv`` also timed at the serve windows' 16 and 64 rows;
 3b. the same for K3 and K4, training's teacher-forced decode forward and
    backward (B=32, L=160 with padded rows, T=128), with every gradient
-   ``TeacherDecode`` returns, and the gate product alone with the L2 warm
-   and flushed;
+   ``TeacherDecode`` returns (K4 on the plain forward's residuals and on
+   K3's own), then at the ragged shapes of the attention's cluster split
+   (``K34_RAGGED``), with and without programmatic dependent launch, and
+   each kernel's device time (torch.profiler); then the encoder's bf16
+   BiLSTM kernels at the train batch's shapes, and the forward at the say's
+   and the serve windows' shapes on inputs from real ``_encode`` calls;
 4. run ``say`` through the port's CLI entry on random full-width weights
    saved as a reference Lightning ``.ckpt`` and a UNIVERSAL_V1 ``g_*`` file:
    a forced 256-frame decode with the launch counters read around it, a
@@ -34,8 +40,9 @@ Phases, each of which must pass:
    K4's launch counters read around it and held to launches per step x T;
    the losses must be finite and fall; the trained checkpoint goes through
    ``say``; K3 and K4 are held against their plain versions at the train
-   batch's shapes (B=32, L=128, T=384); one train step is split into its
-   parts;
+   batch's shapes (B=32, L=128, T=384), split by kernel; one train step is
+   split into its parts, the encoder also as it ran before the bf16 repair
+   (cuDNN's f32 BiLSTM), as in the say phase;
 4c. run the warm server in this process through ``do_server`` with a bf16
    and an int8 entry of the random weights: waves of 16 concurrent requests
    per model and of 64 to one, which must coalesce, with the launch
@@ -147,6 +154,40 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(text: str) -> dict:
+    """nvcc's ``-Xptxas -v`` log -> {kernel: registers, static shared
+    memory and spill bytes}."""
+    import re
+
+    def kernel_name(mangled: str):  # the length-prefixed identifier ending in _kernel
+        for m in re.finditer(r"\d+", mangled):  # a hash's digits may precede the length
+            for k in range(len(m.group())):
+                ident = mangled[m.end():m.end() + int(m.group()[k:])]
+                if ident.endswith("_kernel"):
+                    return ident
+        return None
+
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            if name:
+                out[name] = {"registers": 0, "smem": 0, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple:
@@ -636,9 +677,10 @@ def k2_phase(hifigan, log: dict, frames: int) -> None:
         x = ref
 
 
-def k2_timing(hifigan, Tb: int) -> list:
-    """Time every K2 call of one vocode of ``Tb`` frames: kernel, plain
-    version and the library conv (f32, TF32 off), summed per kernel.
+def k2_timing(hifigan, Tb: int, rows_b: int = 1, yardsticks: bool = True) -> list:
+    """Time every K2 call of one vocode of ``Tb`` frames at ``rows_b`` rows:
+    kernel, and with ``yardsticks`` the plain version and the library conv
+    (f32, TF32 off), summed per kernel.
 
     The bound is that of the function the TPU kernels compute, one whole
     stage: its input read once, its weights, its output written once, and
@@ -665,7 +707,7 @@ def k2_timing(hifigan, Tb: int) -> list:
 
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 3)
-    mel = torch.randn(1, Tb, hifigan.cfg.num_mels, device="cuda", generator=g)
+    mel = torch.randn(rows_b, Tb, hifigan.cfg.num_mels, device="cuda", generator=g)
     x = layers.conv1d(mel, hifigan.conv_pre.weight, hifigan.conv_pre.bias, hifigan.policy,
                       padding=3)
     stages = []
@@ -721,9 +763,10 @@ def k2_timing(hifigan, Tb: int) -> list:
         t.setdefault("per_call", []).append({"x": list(x.shape), "w": list(call[2].w.shape),
                                              "ms": ms, "traffic_ms": traffic_ms})
         t["ms"] += ms
-        t["plain_ms"] += time_ms(plain, 5, 4)
-        t["library_ms"] += time_ms(lib, 5, 4)
-        t["eager_ms"] += eager_ms(kern, 5)
+        if yardsticks:
+            t["plain_ms"] += time_ms(plain, 5, 4)
+            t["library_ms"] += time_ms(lib, 5, 4)
+            t["eager_ms"] += eager_ms(kern, 5)
         t["traffic_ms"] += traffic_ms
         t["calls"] += 1
     rows = []
@@ -739,7 +782,7 @@ def k2_timing(hifigan, Tb: int) -> list:
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             "traffic_ms": t["traffic_ms"],
-            "per": f"one vocode of {Tb} frames ({t['calls']} calls)",
+            "per": f"one vocode of {Tb} frames at {rows_b} rows ({t['calls']} calls)",
             "per_call": t["per_call"],
         })
     return rows
@@ -766,6 +809,22 @@ def kernel_split(fn) -> dict:
             name = name.split("<")[0].split("::")[-1]
             out[name] = out.get(name, 0.0) + us / 1e3
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+class cudnn_bilstm:
+    """Within this context the encoder runs its BiLSTM as before the bf16
+    repair: torch's packed f32 LSTM (cuDNN) under every policy. Only for
+    timing the encoder before and after the repair."""
+
+    def __enter__(self):
+        from tacotron2_tpu_torch.models import layers
+
+        self.layers, self.saved = layers, layers.bilstm
+        layers.bilstm = lambda lstm, xs, lengths, policy=None: layers.bilstm_packed(lstm, xs,
+                                                                                  lengths)
+
+    def __exit__(self, *exc):
+        self.layers.bilstm = self.saved
 
 
 def teacher_bounds(T: int, B: int, L: int, w, res, mel_gate) -> dict:
@@ -798,11 +857,70 @@ def teacher_bounds(T: int, B: int, L: int, w, res, mel_gate) -> dict:
     return {"teacher_forward": (*k3, T * stream), "teacher_backward": (*k4, 2 * T * stream)}
 
 
+def without_pdl(fn):
+    """``fn()`` with K3's and K4's step loops launched without programmatic
+    dependent launch."""
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    td._PDL = False
+    try:
+        return fn()
+    finally:
+        td._PDL = True
+
+
+def k34_check(tag: str, params, w, din, enc, att, lens, dm1, dm2, d_mg, d_al, log: dict,
+              k3_tol: dict) -> tuple:
+    """K3 against its plain version; K4 against its plain version on the
+    plain forward's residuals, then on K3's own (the train path's chain
+    K3 -> K4), and every gradient ``TeacherDecode`` returns from K4's stacks
+    against those from the plain ones on the same residuals; padded chars
+    must get no attention weight. -> (fwd_args, bwd_args on the plain
+    residuals, K3's mel_gate and residuals, the plain residuals)."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    fwd_args = (w, din, enc, att, lens, dm1, dm2)
+    mg_k, res_k = td.teacher_forward(*fwd_args)
+    mg_p, res_p = td.teacher_forward_plain(*fwd_args)
+    check(f"teacher_forward{tag}", [("mel_gate", mg_k, mg_p)]
+          + [(f, getattr(res_k, f), getattr(res_p, f)) for f in td.Residuals._fields],
+          k3_tol, log, "teacher_forward")
+    pad = torch.arange(enc.shape[1], device=enc.device)[None, :] >= lens[:, None]
+    if bool((res_k.al[1:] * pad[None]).any()):
+        raise SmokeFailure(f"K3{tag} gave padded chars attention weight")
+    names = ("decoder_in", "encoded", "att_encoded") + td.DECODER_PARAMS
+    for res, on in ((res_p, ""), (res_k, "[on K3]")):
+        bwd = (w, res, enc, att, lens, dm1, dm2, d_mg, d_al)
+        bk, bp = td.teacher_backward(*bwd), td.teacher_backward_plain(*bwd)
+        check(f"teacher_backward{tag}{on}", [(f, getattr(bk, f), getattr(bp, f))
+                                             for f in td.BackwardOut._fields],
+              K4_TOL, log, "teacher_backward", own=True)
+        check(f"teacher_decode_grads{tag}{on}",
+              list(zip(names, td.grads_from(params, w, res, enc, bk, d_mg),
+                       td.grads_from(params, w, res, enc, bp, d_mg))),
+              GRAD_TOL, log, "teacher_backward", own=True)
+    bwd_args = (w, res_p, enc, att, lens, dm1, dm2, d_mg, d_al)
+    return fwd_args, bwd_args, mg_k, res_k, res_p
+
+
+# ragged shapes of the attention's cluster split (S = 4 at B = 32: slices of
+# ceil(L / 4) chars): L not a multiple of S, rows ending one char either side
+# of each slice boundary and on it, rows shorter than one slice; and a batch
+# of 5 rows (S = 8, slices of 5 chars, the last rank owning fewer)
+K34_RAGGED = (
+    ("[L157]", 32, 157, 16, (157, 120, 121, 119, 80, 81, 79, 40, 41, 39, 30, 5, 1)),
+    ("[B5,L37]", 5, 37, 16, (37, 10, 1, 5, 6)),
+)
+
+
 def k34_phase(model, log: dict) -> list:
     """K3 (teacher forward) and K4 (its reverse pass) against their plain
     versions at the vanilla full width: B=32, L=160 with row lengths running
-    down to 100, T=128 steps, LSTM masks drawn once for both; then the gate
-    product with its LSTM epilogue alone, with the L2 warm and flushed."""
+    down to 100, T=128 steps, LSTM masks drawn once for both; then at the
+    ragged shapes of ``K34_RAGGED``; then the gate product with its LSTM
+    epilogue alone, with the L2 warm and flushed."""
     import torch
 
     from tacotron2_tpu_torch.ops import train_decode as td
@@ -817,45 +935,39 @@ def k34_phase(model, log: dict) -> list:
     named = dict(model.decoder.named_parameters())
     params = [named[k].detach() for k in td.DECODER_PARAMS]
     w = td.pack_weights(params, torch.bfloat16)
-    din = torch.relu(rn(T, B, P)) * 2.0  # prenet-like: ReLU, dropout's x2
-    enc = rn(B, L, D, scale=0.5).to(torch.bfloat16)
-    att = (enc.float() @ model.att_encoder.weight.t()).contiguous()
+
+    def inputs(B, L, T, lens):
+        din = torch.relu(rn(T, B, P)) * 2.0  # prenet-like: ReLU, dropout's x2
+        enc = rn(B, L, D, scale=0.5).to(torch.bfloat16)
+        att = (enc.float() @ model.att_encoder.weight.t()).contiguous()
+        dm1, dm2 = td.lstm_masks(T, B, H, g, dev)
+        # random cotangents for K4
+        return (din, enc, att, lens, dm1, dm2, rn(T, B, M + 1, scale=1e-3),
+                rn(T, B, L, scale=1e-3))
+
     lens = torch.linspace(L, 100, B, device=dev).round().to(torch.int32)
-    dm1, dm2 = td.lstm_masks(T, B, H, g, dev)
-    fwd_args = (w, din, enc, att, lens, dm1, dm2)
+    fwd_args, bwd_args, mg_k, res_k, res_p = k34_check("", params, w, *inputs(B, L, T, lens),
+                                                       log, K3_TOL)
+    S = td.cluster_size(B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    log["k34_cluster"] = {"S": S, "dynamic_smem_bytes": td.smem_bytes(L, S, H, w.wq.shape[0], D,
+                                                                      w.w_loc.shape[2])}
+    print(f"  cluster attention: S={S} blocks per row at B={B}; dynamic shared memory "
+          f"{log['k34_cluster']['dynamic_smem_bytes']} bytes")
+    for tag, b, l, t, short in K34_RAGGED:
+        rows = torch.tensor(list(short) + [l] * (b - len(short)), dtype=torch.int32, device=dev)
+        k34_check(tag, params, w, *inputs(b, l, t, rows), log, K3_TOL)
 
-    mg_k, res_k = td.teacher_forward(*fwd_args)
-    mg_p, res_p = td.teacher_forward_plain(*fwd_args)
-    check("teacher_forward", [("mel_gate", mg_k, mg_p)]
-          + [(f, getattr(res_k, f), getattr(res_p, f)) for f in td.Residuals._fields],
-          K3_TOL, log)
-    pad = torch.arange(L, device=dev)[None, :] >= lens[:, None]
-    if bool((res_k.al[1:] * pad[None]).any()):
-        raise SmokeFailure("K3 gave padded chars attention weight")
+    log["k34_kernel_ms"] = {
+        "teacher_forward": kernel_split(lambda: td.teacher_forward(*fwd_args)),
+        "teacher_backward": kernel_split(lambda: td.teacher_backward(*bwd_args))}
+    for name, split in log["k34_kernel_ms"].items():
+        print(f"  {name}, device ms per kernel (torch.profiler, T={T}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
 
-    # K4 on the plain forward's residuals, random cotangents; then every
-    # gradient TeacherDecode returns, from K4's stacks and from the plain ones
-    d_mg, d_al = rn(T, B, M + 1, scale=1e-3), rn(T, B, L, scale=1e-3)
-    bwd_args = (w, res_p, enc, att, lens, dm1, dm2, d_mg, d_al)
-    bk, bp = td.teacher_backward(*bwd_args), td.teacher_backward_plain(*bwd_args)
-    check("teacher_backward", [(f, getattr(bk, f), getattr(bp, f))
-                               for f in td.BackwardOut._fields], K4_TOL, log, own=True)
-    names = ("decoder_in", "encoded", "att_encoded") + td.DECODER_PARAMS
-    gk = td.grads_from(params, w, res_p, enc, bk, d_mg)
-    gp = td.grads_from(params, w, res_p, enc, bp, d_mg)
-    check("teacher_decode_grads", list(zip(names, gk, gp)), GRAD_TOL, log,
-          "teacher_backward", own=True)
-
-    # the gate product + LSTM epilogue alone: both cells of step 3
+    # a breakdown of K3: its gate GEMM with the LSTM epilogue, both cells of
+    # a step (2 of its 4 launches a step), from the profiler's split above,
+    # beside two bf16 nn.LSTMCell calls of step 3's inputs as a yardstick
     t = 3
-    cells = ((w.w1, w.b1, res_p.xh1[t], res_p.c_att[t], dm1[t]),
-             (w.w2, w.b2, res_p.xh2[t], res_p.c_rnn[t], dm2[t]))
-    for i, args in enumerate(cells):
-        hk, ck = td.gate_lstm(*args)
-        hp, cp = td.gate_lstm_plain(*args)
-        check(f"gate_lstm[{i}]", [("h", hk, hp), ("c", ck, cp)], K1_TOL, log, "gate_lstm")
-    gl_k = lambda: [td.gate_lstm(*a) for a in cells]
-    gl_p = lambda: [td.gate_lstm_plain(*a) for a in cells]
 
     def lstm_lib(cell_mod, xh, c_prev):
         cell = torch.nn.LSTMCell(cell_mod.input_size, cell_mod.hidden_size, device=dev,
@@ -866,32 +978,30 @@ def k34_phase(model, log: dict) -> list:
 
     libs = (lstm_lib(model.decoder.att_rnn, res_p.xh1[t], res_p.c_att[t]),
             lstm_lib(model.decoder.lstm, res_p.xh2[t], res_p.c_rnn[t]))
-    f32 = lambda *shape: torch.empty(*shape, device=dev)
-    # the gate GEMM is 2 of K3's 6 launches a step, launched inside K3's
-    # host loop and counted there; timed alone here as a breakdown of K3
-    gl_bound, gl_by = bound_ms(sum(nbytes(*a, f32(B, H), f32(B, H)) for a in cells),
+    # a step reads the weights, the biases and both xh, and per cell c_prev
+    # and the mask (f32), and writes c (f32) and h (bf16)
+    gl_bound, gl_by = bound_ms(nbytes(w.w1, w.b1, w.w2, w.b2, res_p.xh1[t], res_p.xh2[t])
+                               + 2 * B * H * (4 + 4 + 4 + 2),
                                2 * B * (w.w1.numel() + w.w2.numel()))
-    # the L2 question: the same call with the 50 MB L2 flushed before it
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    warm = time_ms(gl_k)
-    cold = time_ms(lambda: (flush.zero_(), gl_k())) - time_ms(lambda: flush.zero_())
-    log["gate_lstm"] = {"ms": warm, "flushed_ms": cold, "plain_ms": time_ms(gl_p),
+    log["gate_lstm"] = {"ms": log["k34_kernel_ms"]["teacher_forward"]["gate_tma_kernel"] / T,
                         "library_ms": time_ms(lambda: [f() for f in libs]),
                         "bound_ms": gl_bound, "bound_by": gl_by,
                         "weights_mb": nbytes(w.w1, w.w2) / 1e6,
-                        "per": f"both LSTM cells of one step, B={B}"}
+                        "per": f"both LSTM cells of one step in K3, B={B} (profiler)"}
     print(f"  gate_lstm (both cells, B={B}), us: " + ", ".join(
         f"{k} {v * 1e3:.1f}" for k, v in log["gate_lstm"].items() if k.endswith("ms")))
 
-    log["k34_kernel_ms"] = {
-        "teacher_forward": kernel_split(lambda: td.teacher_forward(*fwd_args)),
-        "teacher_backward": kernel_split(lambda: td.teacher_backward(*bwd_args))}
-    for name, split in log["k34_kernel_ms"].items():
-        print(f"  {name}, device ms per kernel (torch.profiler, T={T}): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    # programmatic dependent launch: the same calls without it give the same
+    # bits (each launch still follows every earlier one) and are timed beside
+    bk = td.teacher_backward(*bwd_args)
+    mg_n, res_n = without_pdl(lambda: td.teacher_forward(*fwd_args))
+    bk_n = without_pdl(lambda: td.teacher_backward(*bwd_args))
+    if not all(torch.equal(a, b) for a, b in zip((mg_k, *res_k, *bk), (mg_n, *res_n, *bk_n))):
+        raise SmokeFailure("K3/K4 with programmatic dependent launch differ from without")
 
     bounds = teacher_bounds(T, B, L, w, res_k, mg_k)
     rows = []
+    log["k34_pdl"] = {}
     for name, kern, plain, (b_ms, b_by, stream), per, replaces in (
         ("teacher_forward", lambda: td.teacher_forward(*fwd_args),
          lambda: td.teacher_forward_plain(*fwd_args), bounds["teacher_forward"],
@@ -908,6 +1018,97 @@ def k34_phase(model, log: dict) -> list:
             "bound_ms": b_ms, "bound_by": b_by, "eager_ms": eager_ms(kern, 3),
             "library_ms": None, "weight_stream_ms": stream, "per": per,
         })
+        log["k34_pdl"][name] = {"ms": rows[-1]["ms"],
+                                "no_pdl_ms": without_pdl(lambda: time_ms(kern, 3, 1)),
+                                "eager_ms": rows[-1]["eager_ms"],
+                                "no_pdl_eager_ms": without_pdl(lambda: eager_ms(kern, 3))}
+    print("  K3/K4 with and without programmatic dependent launch, device ms: "
+          + json.dumps(log["k34_pdl"]))
+    return rows
+
+
+# the encoder's bf16 BiLSTM recurrence against its plain version over 128
+# steps: h feeds back through bf16 operands, so one-ulp rounding flips
+# propagate as in K3 (relative to max(1, max |ref|); dg to its own max)
+ENC_TOL = {"hs": 2e-3, "cs": 2e-3, "act": 2e-3, "dg": 1e-2}
+
+
+def encoder_lstm_phase(model, cfg, log: dict) -> list:
+    """The encoder's bf16 BiLSTM recurrence (``ops/encoder_lstm.py``) at the
+    train batch's shapes (B=32, T=128 chars, H=256 per direction): forward
+    and backward against their plain versions; the forward again at the
+    eval paths' shapes on the inputs of real ``_encode`` calls (the say's
+    one row; the serve windows of 16 and 64 requests, which the server
+    encodes at 64 rows, two of the kernel's 32-row batch groups); then
+    timed. The library yardstick is torch's f32 cuDNN LSTM over the same
+    input, a different rounding (no bf16 operands)."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
+    from tacotron2_tpu_torch.run import server as srv
+    from tacotron2_tpu_torch.text import CharEncoder, normalize_text
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 6)
+    lstm = model.encoder.lstm
+    B, T, H, C = TRAIN_B, 128, lstm.hidden_size, lstm.input_size
+    w = torch.stack([lstm.weight_hh_l0, lstm.weight_hh_l0_reverse]).detach()
+    wb = w.to(torch.bfloat16).contiguous()
+    b = torch.stack([lstm.bias_hh_l0, lstm.bias_hh_l0_reverse]).detach().contiguous()
+    xp = torch.randn(2, B, T, 4 * H, device=dev, generator=g)
+    fk, fp = el.bilstm_forward(xp, wb, b), el.bilstm_forward_plain(xp, wb, b)
+    check("bilstm_forward", list(zip(("hs", "cs", "act"), fk, fp)), ENC_TOL, log)
+    dhs = torch.randn(2, B, T, H, device=dev, generator=g) * 1e-2
+    bk = el.bilstm_backward(dhs, fp[2], fp[1], wb)
+    bp = el.bilstm_backward_plain(dhs, fp[2], fp[1], wb)
+    check("bilstm_backward", [("dg", bk, bp)], ENC_TOL, log, own=True)
+
+    prep = cfg.dataset.preprocessing
+    encode = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch
+    texts = lambda n: [normalize_text(TRAIN_TEXTS[i % len(TRAIN_TEXTS)], prep.allowed_chars,
+                                      prep.end_token, False) for i in range(n)]
+    say_text = [normalize_text(TEXT, prep.allowed_chars, prep.end_token, False)]
+    kernel, seen = el.bilstm_forward, []
+    el.bilstm_forward = lambda *args: (seen.append(args), kernel(*args))[1]
+    try:
+        for tag, batch, bucket, encode_rows in (("say", say_text, 1, None),
+                                                ("serve16", texts(16), srv.CHAR_BUCKET, 64),
+                                                ("serve64", texts(64), srv.CHAR_BUCKET, 64)):
+            ci, cl = encode(batch)
+            L = max(bucket, -(-ci.shape[1] // bucket) * bucket)  # as the path pads chars
+            ci = torch.nn.functional.pad(torch.as_tensor(ci), (0, L - ci.shape[1])).to(dev)
+            model._encode(ci, torch.as_tensor(cl, device=dev), rows=encode_rows)
+            args = seen.pop()
+            check(f"bilstm_forward[{tag}@B{args[0].shape[1]},T{L}]",
+                  list(zip(("hs", "cs", "act"), kernel(*args), el.bilstm_forward_plain(*args))),
+                  ENC_TOL, log, "bilstm_forward")
+    finally:
+        el.bilstm_forward = kernel
+
+    x = torch.randn(B, T, C, device=dev, generator=g)
+    f32 = lambda *shape: torch.empty(*shape, device=dev)
+    flops = 2 * 2 * B * T * 4 * H * H
+    fwd_bytes = nbytes(xp, wb, b, *fp)
+    bwd_bytes = nbytes(dhs, fp[1], fp[2], wb, f32(2, B, T, 4 * H))
+    rows = []
+    for name, kern, plain, lib, nb, fl in (
+        ("bilstm_forward", lambda: el.bilstm_forward(xp, wb, b),
+         lambda: el.bilstm_forward_plain(xp, wb, b), lambda: lstm(x), fwd_bytes, flops),
+        ("bilstm_backward", lambda: el.bilstm_backward(dhs, fp[2], fp[1], wb),
+         lambda: el.bilstm_backward_plain(dhs, fp[2], fp[1], wb), None, bwd_bytes, flops),
+    ):
+        b_ms, b_by = bound_ms(nb, fl)
+        rows.append({
+            "name": name, "route": "cuda", "source": "tacotron2_tpu_torch/csrc/encoder_lstm.cu",
+            "replaces": "tacotron2_tpu/models/layers.py:284 (lstm_sequence's scan under a bf16 "
+                        "policy; XLA, not a Pallas kernel)",
+            "ms": time_ms(kern, 3, 1), "plain_ms": time_ms(plain, 2, 1), "bound_ms": b_ms,
+            "bound_by": b_by, "eager_ms": eager_ms(kern, 3),
+            "library_ms": None if lib is None else time_ms(lib, 3, 1),
+            "per": f"both directions, B={B}, T={T}, H={H}",
+        })
+    log["bilstm_library"] = "nn.LSTM f32 (cuDNN) forward: f32 operands, not bf16; a yardstick"
     return rows
 
 
@@ -944,6 +1145,7 @@ def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
     from tacotron2_tpu_torch.__main__ import main as cli
     from tacotron2_tpu_torch.config import load_config
     from tacotron2_tpu_torch.data.loader import collate
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
     from tacotron2_tpu_torch.ops import train_decode as td
     from tacotron2_tpu_torch.run.train import _dataset, read_manifest
     from tacotron2_tpu_torch.training import optimizer, step
@@ -965,10 +1167,12 @@ def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
     base = ["train", "--config", str(cfg_train), "--speech-dir", str(speech),
             "--seed", str(SEED)]
     td.reset_launches()
+    el.reset_launches()
     first = cli(base + ["--results-dir", str(root / "r1"), "--max-steps", "6"])
     second = cli(base + ["--results-dir", str(root / "r2"), "--resume-ckpt",
                          first["checkpoint"], "--max-steps", "8"])
     launches = dict(td.LAUNCHES)
+    enc_launches = dict(el.LAUNCHES)
     steps = first["steps"] + second["steps"]
     losses = [s["loss"] for s in steps]
     print(f"  losses {[round(x, 4) for x in losses]}; launches {launches}")
@@ -979,10 +1183,12 @@ def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
     fwd_T = [s["decode_frames"] for s in steps] + first["val_decode_frames"] \
         + second["val_decode_frames"]
     want = {"teacher_forward": sum(td.forward_launches(T) for T in fwd_T),
-            "gate_lstm": 0,  # the gate GEMM alone: not on the path (inside K3)
-            "teacher_backward": sum(td.backward_launches(s["decode_frames"]) for s in steps)}
+            "teacher_backward":sum(td.backward_launches(s["decode_frames"]) for s in steps)}
     if launches != want:
         raise SmokeFailure(f"K3/K4 launches {launches}, want {want}")
+    if 0 in enc_launches.values():
+        raise SmokeFailure(f"the encoder's BiLSTM kernels were not launched in train: "
+                           f"{enc_launches}")
 
     # the trained checkpoint through the port's say
     said = cli(["say", "--config", str(cfg_train), "--checkpoint", second["checkpoint"],
@@ -1030,31 +1236,22 @@ def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
     enc_b, lens = enc.to(torch.bfloat16).contiguous(), batch["chars_len"].to(torch.int32)
     din = model.teacher_decoder_in(batch["mel"], gen)
     dm1, dm2 = td.lstm_masks(T, B, H, gen, dev)
-    fwd_args = (w, din, enc_b, att_enc.contiguous(), lens, dm1, dm2)
-    mg, res = td.teacher_forward(*fwd_args)
-    d_mg = torch.randn_like(mg) * 1e-3
+    N = w.w_out.shape[0]
+    d_mg = torch.randn(T, B, N, device=dev, generator=gen) * 1e-3
     d_al = torch.randn(T, B, L, device=dev, generator=gen) * 1e-3
-    bwd_args = (w, res, enc_b, att_enc.contiguous(), lens, dm1, dm2, d_mg, d_al)
-    out = td.teacher_backward(*bwd_args)
 
     # K3 and K4 against their plain versions at the main path's shapes, on
     # the trained weights, the first batch's encoding and prenet output
-    mg_p, res_p = td.teacher_forward_plain(*fwd_args)
-    check(f"teacher_forward@T{T}", [("mel_gate", mg, mg_p)]
-          + [(f, getattr(res, f), getattr(res_p, f)) for f in td.Residuals._fields],
-          K3_TOL_TRAIN, log, "teacher_forward")
-    pad = torch.arange(L, device=dev)[None, :] >= lens[:, None]
-    if bool((res.al[1:] * pad[None]).any()):
-        raise SmokeFailure(f"K3 gave padded chars attention weight at T={T}")
-    out_p = td.teacher_backward_plain(*bwd_args)
-    check(f"teacher_backward@T{T}", [(f, getattr(out, f), getattr(out_p, f))
-                                     for f in td.BackwardOut._fields],
-          K4_TOL, log, "teacher_backward", own=True)
-    names = ("decoder_in", "encoded", "att_encoded") + td.DECODER_PARAMS
-    check(f"teacher_decode_grads@T{T}",
-          list(zip(names, td.grads_from(params, w, res, enc_b, out, d_mg),
-                   td.grads_from(params, w, res, enc_b, out_p, d_mg))),
-          GRAD_TOL, log, "teacher_backward", own=True)
+    fwd_args, bwd_args, mg, _, _ = k34_check(
+        f"@T{T}", params, w, din, enc_b, att_enc.contiguous(), lens, dm1, dm2, d_mg, d_al, log,
+        K3_TOL_TRAIN)
+    out = td.teacher_backward(*bwd_args)
+    log["k34_kernel_ms_train"] = {
+        "teacher_forward": kernel_split(lambda: td.teacher_forward(*fwd_args)),
+        "teacher_backward": kernel_split(lambda: td.teacher_backward(*bwd_args))}
+    for name, split in log["k34_kernel_ms_train"].items():
+        print(f"  {name}, device ms per kernel (torch.profiler, B={B}, L={L}, T={T}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
 
     def postnet():
         with torch.enable_grad():
@@ -1068,21 +1265,24 @@ def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
         "encoder_fwd_bwd": eager_ms(encoder, 3),
         "k3_teacher_forward": eager_ms(lambda: td.teacher_forward(*fwd_args), 3),
         "k4_teacher_backward": eager_ms(lambda: td.teacher_backward(*bwd_args), 3),
-        "dw_gemms_and_sums": eager_ms(lambda: td.grads_from(params, w, res, enc_b, out, d_mg), 3),
+        "dw_gemms_and_sums": eager_ms(
+            lambda: td.grads_from(params, w, bwd_args[1], enc_b, out, d_mg), 3),
         "postnet_fwd_bwd": eager_ms(postnet, 3),
         "optimizer": eager_ms(lambda: optimizer.apply_gradients(list(model.parameters()), opt,
                                                                 sched), 3),
     }
     parts["sum_of_parts"] = sum(v for k, v in parts.items() if k != "train_step")
+    with cudnn_bilstm():  # the encoder before the repair, apart from the sum
+        parts["encoder_fwd_bwd_cudnn_f32_bilstm"] = eager_ms(encoder, 3)
     perf.update({"split_ms": parts, "split_shape": {"B": B, "L": L, "T": T}})
     print(f"  train: {perf['ms_per_step_median']:.1f} ms/step (median), "
           f"{perf['mel_frames_per_s']:.0f} mel frames/s at B={TRAIN_B}, decode frames "
           f"{perf['decode_frames']}, on {card}")
     print(f"  split of one step (B={B}, L={L}, T={T}), eager ms: "
           + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
-    log["train"] = {"losses": losses, "launches": launches, "want": want, "perf": perf,
-                    "say": said}
-    return launches
+    log["train"] = {"losses": losses, "launches": {**launches, **enc_launches}, "want": want,
+                    "perf": perf, "say": said}
+    return {**launches, **enc_launches}
 
 
 def say_phase(cfg_path: str, log: dict, card: str):
@@ -1094,7 +1294,7 @@ def say_phase(cfg_path: str, log: dict, card: str):
     from tacotron2_tpu_torch.config import load_config
     from tacotron2_tpu_torch.convert import to_lightning
     from tacotron2_tpu_torch.models.layers import F32
-    from tacotron2_tpu_torch.ops import decoder_loop, mrf
+    from tacotron2_tpu_torch.ops import decoder_loop, encoder_lstm, mrf
     from tacotron2_tpu_torch.run.say import (cut_vocode, load_hifigan, load_tacotron,
                                              vocode_bucket, vocoder_policy)
     from tacotron2_tpu_torch.text import CharEncoder, normalize_text
@@ -1123,8 +1323,10 @@ def say_phase(cfg_path: str, log: dict, card: str):
     say("run", 256, wav_path)  # warm-up: first cuDNN / allocator use
     decoder_loop.reset_launches()
     mrf.reset_launches()
+    encoder_lstm.reset_launches()
     res = say("run", 256, wav_path)
-    launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES}
+    launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES,
+                "bilstm_forward": encoder_lstm.LAUNCHES["bilstm_forward"]}
     print(f"  say 256: {res}")
     print(f"  launches in that run: {launches}")
     if res["n_frames"] != 256:
@@ -1178,9 +1380,13 @@ def say_phase(cfg_path: str, log: dict, card: str):
     }
     print(f"  vocoder bf16 (K2) vs f32 (plain), PCM16 LSB, random weights: {vocoder_precision}")
 
-    # the parts of forward_infer_fast around the decode loop, eager
+    # the parts of forward_infer_fast around the decode loop, eager; the
+    # encoder also as it ran before the bf16 repair
+    with cudnn_bilstm():
+        encode_before = eager_ms(lambda: model._encode(ci, cl), 5)
     parts_ms = {
         "encode": eager_ms(lambda: model._encode(ci, cl), 5),
+        "encode_cudnn_f32_bilstm": encode_before,
         "pack_decoder": eager_ms(lambda: decoder_loop.pack_decoder(
             model.prenet, model.decoder, torch.bfloat16), 5),
         "postnet_256": eager_ms(
@@ -1295,7 +1501,7 @@ def _get(port: int, path: str):
         return json.loads(r.read())
 
 
-def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> int:
+def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> dict:
     """The warm server in this process, through ``do_server`` (the function
     the CLI's ``server`` calls), with a bf16 and an int8 entry of the random
     full-width checkpoint (gate forced positive, max_len 256) and the
@@ -1306,7 +1512,7 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
     kernels held against their plain versions at the windows' shapes
     (``serve_checks``); then ``python -m tacotron2_tpu_torch server`` as a
     process of its own.
-    -> K5's launches in the waves."""
+    -> K5's and the encoder recurrence's launches in the waves."""
     import concurrent.futures
     import os
     import threading
@@ -1314,7 +1520,7 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
     import numpy as np
 
     from tacotron2_tpu_torch.audio.io import read_wav
-    from tacotron2_tpu_torch.ops import decoder_loop, mrf
+    from tacotron2_tpu_torch.ops import decoder_loop, encoder_lstm, mrf
     from tacotron2_tpu_torch.run import server as srv
 
     root = WORK / "serve"
@@ -1375,13 +1581,15 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
 
         decoder_loop.reset_launches()
         mrf.reset_launches()
+        encoder_lstm.reset_launches()
         waves, calls = {}, {}
         for key, model, n in (("bf16_16", 0, 16), ("int8_16", 1, 16), ("bf16_64", 0, 64)):
             waves[key], *rest = wave(model, n)
             calls[model] = calls.get(model, 0) + waves[key]["decode_launches"]
             if key == "bf16_16":
                 payloads, replies = rest
-        launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES}
+        launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES,
+                    "bilstm_forward": encoder_lstm.LAUNCHES["bilstm_forward"]}
         print(f"  launches in the waves: {launches}")
         want = {"lstm_cell": 2 * 256 * calls[0], "lstm_cell_int8": 2 * 256 * calls[1]}
         if any(launches[k] != v for k, v in want.items()) or 0 in launches.values():
@@ -1424,7 +1632,7 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
     log["serve"] = {"waves": waves, "launches": launches, "invariance": invariance,
                     "griffin_lim_s": sec, "stats": stats, "split_ms": split,
                     "vocode_kernel_vs_plain_pcm": vocode_pcm, "subprocess": sub, "card": card}
-    return launches["lstm_cell_int8"]
+    return {k: launches[k] for k in ("lstm_cell_int8", "bilstm_forward")}
 
 
 def serve_split(registry) -> dict:
@@ -1450,7 +1658,7 @@ def serve_split(registry) -> dict:
             ci, cl = ci.to(dev), torch.as_tensor(cl, device=dev)
             gens = [torch.Generator(device=dev).manual_seed(i) for i in range(B)]
             decode = lambda: model.forward_infer_fast(ci, cl, 256, packed=packed,
-                                                      row_generators=gens)
+                                                      row_generators=gens, encode_rows=64)
             key = ("int8" if packed.quantized else "bf16") + f"_B{B}"
             split[f"decode_{key}"] = eager_ms(decode, 3)
             if idx == 0:
@@ -1608,10 +1816,11 @@ def main() -> int:
         log["build_s"] = time.perf_counter() - t0
         log["ptxas"] = logs
         print(f"[2] built {list(logs)} in {log['build_s']:.1f} s")
-        for name, text in logs.items():
-            for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"    {name}: {line.strip()}")
+        log["ptxas_kernels"] = {name: ptxas_kernels(text) for name, text in logs.items()}
+        for name, kernels in log["ptxas_kernels"].items():
+            for k, v in kernels.items():
+                print(f"    {name}: {k}: {v['registers']} registers, {v['smem']} bytes static "
+                      f"smem, spills {v['spill_stores']} / {v['spill_loads']} bytes")
 
         cfg_path = str(ROOT / "config" / "vanilla-ljspeech-stop.json")
         cfg = load_config(cfg_path)
@@ -1628,9 +1837,19 @@ def main() -> int:
         for frames in (64, Tb):  # 64 frames, then the say's own bucket
             k2_phase(hifigan, log, frames)
         rows += k2_timing(hifigan, Tb)
+        # mrf_conv at the serve windows' shapes (16 and 64 rows, the say's
+        # bucket), kernel time and bound only
+        log["mrf_conv_serving"] = {}
+        for rows_b in (16, 64):
+            r = next(x for x in k2_timing(hifigan, Tb, rows_b, False) if x["name"] == "mrf_conv")
+            log["mrf_conv_serving"][f"B{rows_b}"] = {k: r[k] for k in ("ms", "bound_ms", "bound_by",
+                                                                     "traffic_ms", "per")}
+            print(f"  mrf_conv at {rows_b} rows, Tb={Tb}: {r['ms']:.3f} ms, bound "
+                  f"{r['bound_ms']:.3f} ms ({r['bound_by']}) on {card}")
         print(f"[3b] K3 and K4 against their plain versions (B={TRAIN_B}, L={TRAIN_L}, "
               f"T={TRAIN_T})")
         rows += k34_phase(model, log)
+        rows += encoder_lstm_phase(model, cfg, log)
         del model, hifigan
 
         print("[4] say through the CLI entry (random full-width weights)")
@@ -1638,10 +1857,13 @@ def main() -> int:
         k5_launches = say_int8_phase(cfg_path, ckpt, g_path, log, card)
         print("[4b] train through the CLI entry (vanilla full width, batch 32, 6 steps, "
               "resumed to 8)")
-        launches.update(train_phase(cfg_path, g_path, log, card))
+        for k, n in train_phase(cfg_path, g_path, log, card).items():
+            launches[k] = launches.get(k, 0) + n
         print("[4c] the warm server in this process (a bf16 and an int8 entry), then as a "
               "process of its own")
-        launches["lstm_cell_int8"] = k5_launches + serve_phase(cfg_path, ckpt, g_path, log, card)
+        launches["lstm_cell_int8"] = k5_launches
+        for k, n in serve_phase(cfg_path, ckpt, g_path, log, card).items():
+            launches[k] = launches.get(k, 0) + n
         if log.get("deferred"):
             raise SmokeFailure("; ".join(log["deferred"]))
 

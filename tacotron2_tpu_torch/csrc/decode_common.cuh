@@ -1,4 +1,5 @@
-// Kernels shared by K1 (decode_step.cu) and K3 (train_decode.cu), for sm_90a.
+// Kernels of K1 (decode_step.cu), for sm_90a; K3/K4 (train_decode.cu)
+// share the warp helpers and the bf16 staging.
 //
 //   heads_kernel               mel + gate linear over [rnn_h | ctx]
 //   location_attention_kernel  query, folded location conv, tanh energies,
@@ -124,9 +125,8 @@ __device__ float block_reduce(float v, float* red, bool is_max) {
   return r;
 }
 
-// The part of a location-attention step before the energies, shared by the
-// forward (location_attention_kernel) and backward (train_decode.cu) kernels:
-// stage row b's query input (bf16-rounded), the energy vector, the folded
+// The part of K1's location-attention step before the energies: stage row
+// b's query input (bf16-rounded), the energy vector, the folded
 // location weight transposed to (channel, tap, a), the previous and
 // cumulative weights padded by K/2 zeros (bf16-rounded, LW = L + K + 2 per
 // channel), then the query projection q = wq . h, rounded to bf16. Ends

@@ -7,10 +7,12 @@ convs are unmasked, like the reference's: padding chars perturb activations
 within the kernel's reach of a row's end, and count in the train-mode
 BatchNorm statistics.
 
-The BiLSTM is torch's packed LSTM (cuDNN on the card, TF32 off by
-``layers.use_f32_math``) in f32 under every policy. Under bf16 the JAX encoder rounds the LSTM's operands to bf16
-(``tacotron2_tpu/models/layers.py:270``), so here the port is the more
-precise of the two; ``tests/test_torch_training.py`` bounds the difference.
+Both round as the JAX encoder does under the policy: each conv's sums are
+rounded to the compute type before its bias (``conv1d(round_out=True)``),
+and the BiLSTM (``layers.bilstm``) follows ``lstm_sequence``: under bf16 its
+products take bf16 operands with f32 sums while the carry stays f32; under
+f32 it is torch's packed LSTM (cuDNN on the card, TF32 off by
+``layers.use_f32_math``).
 """
 
 from __future__ import annotations
@@ -51,8 +53,8 @@ class Encoder(nn.Module):
         x = layers.embedding(chars_idx, self.embedding.weight)
         for i in range(3):
             conv, bn = self.convolutions[4 * i], self.convolutions[4 * i + 1]
-            x = layers.conv1d(x, conv.weight, conv.bias, policy, padding="SAME")
+            x = layers.conv1d(x, conv.weight, conv.bias, policy, padding="SAME", round_out=True)
             x = torch.relu(layers.batchnorm(x, bn, train))
             if train:
                 x = layers.dropout(x, dropout, generator)
-        return layers.bilstm_packed(self.lstm, x, chars_len)
+        return layers.bilstm(self.lstm, x, chars_len, policy)

@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from tacotron2_tpu_torch.ops.encoder_lstm import BiLSTMRecurrence
+
 
 @dataclasses.dataclass(frozen=True)
 class Policy:
@@ -80,12 +82,19 @@ def _same_pad(k: int, dilation: int) -> int:
 
 
 def conv1d(x, w, b=None, policy: Policy = F32, padding: str | int = "SAME",
-           dilation: int = 1):
-    """Conv1d over channels-last x (B, T, C); w is torch's (O, I, W)."""
+           dilation: int = 1, round_out: bool = False):
+    """Conv1d over channels-last x (B, T, C); w is torch's (O, I, W). With
+    ``round_out`` the f32 sums are rounded to the compute type before the
+    bias is added, as JAX's ``conv1d_apply`` emits the policy's type (the
+    encoder's and the postnet's convs)."""
     pad = _same_pad(w.shape[2], dilation) if padding == "SAME" else int(padding)
-    y = F.conv1d(policy.cast(x).transpose(1, 2), policy.cast(w), b,
-                 padding=pad, dilation=dilation)
-    return y.transpose(1, 2)
+    y = F.conv1d(policy.cast(x).transpose(1, 2), policy.cast(w), None if round_out else b,
+                 padding=pad, dilation=dilation).transpose(1, 2)
+    if round_out:
+        y = policy.cast(y)
+        if b is not None:
+            y = y + b
+    return y
 
 
 def conv_transpose1d(x, w, b, stride: int, padding: int, policy: Policy = F32):
@@ -150,3 +159,31 @@ def bilstm_packed(lstm: torch.nn.LSTM, xs, lengths):
     out, _ = torch.nn.utils.rnn.pad_packed_sequence(out, batch_first=True,
                                                     total_length=xs.shape[1])
     return out
+
+
+def bilstm(lstm: torch.nn.LSTM, xs, lengths, policy: Policy = F32):
+    """``bilstm_packed``'s function with the policy's operand rounding, as
+    the JAX encoder's two ``lstm_sequence`` calls compute it. Under f32 it
+    is ``bilstm_packed``. Under bf16 the input projection of every step is
+    one product with bf16 operands and f32 sums (+ b_ih); the recurrence
+    (``ops/encoder_lstm.py``) then adds ``bf16(h) . W_hh^T + b_hh`` each
+    step while h and c stay f32. The reverse direction runs over each row's
+    own reversed valid prefix (a per-row gather), both directions in one
+    recurrence. Outputs past a row's length are zero."""
+    if policy.compute_dtype == torch.float32:
+        return bilstm_packed(lstm, xs, lengths)
+    B, T, C = xs.shape
+    t = torch.arange(T, device=xs.device)[None, :]
+    lens = lengths.to(xs.device)[:, None]
+    valid = t < lens
+    rev = torch.where(valid, lens - 1 - t, t)  # each row's valid prefix reversed
+    xs = xs.float()
+    x2 = torch.stack([xs, torch.gather(xs, 1, rev[..., None].expand(B, T, C))])
+    stack = lambda name: torch.stack([getattr(lstm, f"{name}_l0"),
+                                      getattr(lstm, f"{name}_l0_reverse")])
+    w_ih, w_hh, b_ih, b_hh = (stack(n) for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+    xp = torch.matmul(policy.cast(x2).reshape(2, B * T, C), policy.cast(w_ih).transpose(1, 2))
+    xp = xp.reshape(2, B, T, -1) + b_ih[:, None, None, :]
+    hs = BiLSTMRecurrence.apply(xp, w_hh, b_hh)  # (2, B, T, H)
+    bwd = torch.gather(hs[1], 1, rev[..., None].expand_as(hs[1]))
+    return torch.where(valid[..., None], torch.cat([hs[0], bwd], dim=-1), 0.0)

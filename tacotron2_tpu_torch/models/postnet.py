@@ -35,7 +35,7 @@ class Postnet(nn.Module):
                 generator=None):
         for i in range(self.num_layers):
             conv, bn = self.postnet[4 * i], self.postnet[4 * i + 1]
-            x = layers.conv1d(x, conv.weight, None, policy, padding="SAME")
+            x = layers.conv1d(x, conv.weight, None, policy, padding="SAME", round_out=True)
             x = layers.batchnorm(x, bn, train)
             if i < self.num_layers - 1:
                 x = torch.tanh(x)

@@ -78,10 +78,20 @@ class Tacotron2(nn.Module):
         self.postnet = Postnet(c.num_mels, c.postnet_dim)
 
     # ------------------------------------------------------------------
-    def _encode(self, chars_idx, chars_len, train: bool = False, generator=None):
-        encoded = self.encoder(chars_idx, chars_len, self.policy, train, self.cfg.dropout,
-                               generator)
+    def _encode(self, chars_idx, chars_len, train: bool = False, generator=None,
+                rows: Optional[int] = None):
+        """-> encoded (B, L, D), att_encoded (B, L, A), the padded chars'
+        mask. ``rows``: run the encoder and its attention projection on
+        this many rows (empty rows after the batch's, dropped after), so
+        their products have one shape whatever B is."""
+        B = chars_idx.shape[0]
+        ci, cl = chars_idx, chars_len
+        if rows is not None and rows > B:
+            ci = torch.nn.functional.pad(chars_idx, (0, 0, 0, rows - B))
+            cl = torch.cat([chars_len, chars_len.new_ones(rows - B)])
+        encoded = self.encoder(ci, cl, self.policy, train, self.cfg.dropout, generator)
         att_encoded = layers.linear(encoded, self.att_encoder.weight, None, self.policy)
+        encoded, att_encoded = encoded[:B], att_encoded[:B]
         char_pos = torch.arange(chars_idx.shape[1], device=chars_idx.device)
         mask = char_pos[None, :] >= chars_len[:, None]
         return encoded, att_encoded, mask
@@ -203,8 +213,8 @@ class Tacotron2(nn.Module):
                            masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                            quantize: bool = False,
                            packed: Optional[decoder_loop.PackedDecoder] = None,
-                           row_generators: Optional[Sequence[torch.Generator]] = None
-                           ) -> Tacotron2Output:
+                           row_generators: Optional[Sequence[torch.Generator]] = None,
+                           encode_rows: Optional[int] = None) -> Tacotron2Output:
         """Production decode through kernel K1 (``ops/decoder_loop.py``), or
         through K5 for an int8 pack: the kernels on the card, their plain
         versions on the CPU. ``quantize``: pack the decoder int8 for this
@@ -212,9 +222,12 @@ class Tacotron2(nn.Module):
         pack made once by ``make_packed_decoder``, which carries its own
         mode. ``row_generators``: one generator per row, so each row's
         prenet masks are those of a batch of one seeded alike (the JAX
-        ``row_rngs``); it takes the place of ``generator``."""
+        ``row_rngs``); it takes the place of ``generator``. ``encode_rows``:
+        the rows the encoder runs (``_encode``'s ``rows``): a server that
+        passes its largest window makes a row's encoding the same in every
+        window (bf16 products of another shape may sum in another order)."""
         c = self.cfg
-        encoded, att_encoded, _ = self._encode(chars_idx, chars_len)
+        encoded, att_encoded, _ = self._encode(chars_idx, chars_len, rows=encode_rows)
         pk = packed if packed is not None else self.make_packed_decoder(quantize)
         mels, gates, aligns, lengths, n_frames = decoder_loop.decode(
             pk, encoded.to(pk.wq.dtype).contiguous(), att_encoded.contiguous(),

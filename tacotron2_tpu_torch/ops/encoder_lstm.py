@@ -1,0 +1,175 @@
+"""The encoder's BiLSTM recurrence under the bf16 policy, and its pull.
+
+Counterpart of the scan in ``tacotron2_tpu/models/layers.py::lstm_sequence``
+(XLA, not a Pallas kernel) for both directions at once: given the input
+projections ``xp`` (2, B, T, 4H) of every step (+ b_ih), step s computes
+``g = (xp[:, :, s] + bf16(h) . W_hh^T) + b_hh`` with bf16 operands and f32
+sums, then ``c = sig(f) c + sig(i) tanh(g)``, ``h = sig(o) tanh(c)``, h and c
+kept in f32. ``BiLSTMRecurrence`` is its autograd function: the backward
+walks the steps in reverse, pulls each step's gate cotangents from the saved
+activations, and passes ``bf16(dg . W_hh)`` to the step before (the
+cotangent of the bf16-rounded operand, rounded as autograd and JAX round
+it); d_W_hh is one product over all steps after the loop, rounded to bf16
+once (the cast's pull), as autograd through the plain loop computes it.
+
+On the card ``bilstm_forward`` is one host call into ``csrc/encoder_lstm.cu``
+(``t2_bilstm_forward``, T launches) and ``bilstm_backward`` another
+(``t2_bilstm_backward``, 2 T launches); each adds its launches to
+``LAUNCHES``. Their plain versions are the definition, used for CPU tensors
+and as what the kernels are held against on the card; they keep the dtype of
+``xp``, so they also run in f64 (the tests).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from tacotron2_tpu_torch.ops import build
+
+LAUNCHES = {"bilstm_forward": 0, "bilstm_backward": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def forward_launches(T: int) -> int:
+    return T
+
+
+def backward_launches(T: int) -> int:
+    return 2 * T
+
+
+def _rnd(x: torch.Tensor) -> torch.Tensor:
+    """Round to bf16, keep the dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def bilstm_forward_plain(xp, w_hh, b_hh) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """xp (2, B, T, 4H), w_hh (2, 4H, H) bf16 (or bf16 values in a wider
+    type), b_hh (2, 4H) -> hs, cs (2, B, T, H) and the activated gates act
+    (2, B, T, 4H), all in xp's dtype."""
+    _, B, T, G = xp.shape
+    H = G // 4
+    w_t = w_hh.to(xp.dtype).transpose(1, 2)
+    h = c = xp.new_zeros(2, B, H)
+    hs, cs, acts = [], [], []
+    for s in range(T):
+        g = (xp[:, :, s] + torch.bmm(_rnd(h), w_t)) + b_hh[:, None, :]
+        i, f, gg, o = g.chunk(4, dim=-1)
+        i, f, gg, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(gg), torch.sigmoid(o)
+        c = f * c + i * gg
+        h = o * torch.tanh(c)
+        hs.append(h)
+        cs.append(c)
+        acts.append(torch.cat([i, f, gg, o], dim=-1))
+    st = lambda xs: torch.stack(xs, dim=2)
+    return st(hs), st(cs), st(acts)
+
+
+def bilstm_backward_plain(dhs, act, cs, w_hh) -> torch.Tensor:
+    """dhs (2, B, T, H), the forward's act and cs, w_hh (2, 4H, H) -> the
+    gate cotangents dg (2, B, T, 4H) (also the cotangent of xp)."""
+    _, B, T, H = dhs.shape
+    W = w_hh.to(dhs.dtype)
+    dg = dhs.new_zeros(2, B, T, 4 * H)
+    dh_rec, dc = dhs.new_zeros(2, B, H), dhs.new_zeros(2, B, H)
+    for s in range(T - 1, -1, -1):
+        i, f, gg, o = act[:, :, s].chunk(4, dim=-1)
+        cv = cs[:, :, s]
+        c_prev = cs[:, :, s - 1] if s > 0 else torch.zeros_like(cv)
+        tc = torch.tanh(cv)
+        dh = dhs[:, :, s] + dh_rec
+        dcv = dc + dh * o * (1 - tc * tc)
+        g = torch.cat([dcv * gg * i * (1 - i), dcv * c_prev * f * (1 - f), dcv * i * (1 - gg * gg),
+                       dh * tc * o * (1 - o)], dim=-1)
+        dg[:, :, s] = g
+        dc = dcv * f
+        dh_rec = _rnd(torch.bmm(g, W))
+    return dg
+
+
+_LIB = None
+Ptr = ctypes.c_void_p
+Int = ctypes.c_int
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.load("encoder_lstm")
+        for fn in (lib.t2_bilstm_forward, lib.t2_bilstm_backward):
+            fn.argtypes = [ctypes.POINTER(Ptr), ctypes.POINTER(Int), Ptr]
+            fn.restype = Int
+        _LIB = lib
+    return _LIB
+
+
+def _call(fn, tensors, B: int, T: int, H: int, what: str) -> None:
+    ptrs = (Ptr * len(tensors))(*(t.data_ptr() for t in tensors))
+    build.check(fn(ptrs, (Int * 3)(B, T, H), torch.cuda.current_stream().cuda_stream), what)
+
+
+def bilstm_forward(xp, w_hh, b_hh):
+    """``bilstm_forward_plain`` through ``t2_bilstm_forward`` for CUDA
+    tensors (w_hh bf16)."""
+    if xp.device.type == "cpu":
+        return bilstm_forward_plain(xp, w_hh, b_hh)
+    _, B, T, G = xp.shape
+    H = G // 4
+    build.require(xp, torch.float32, (2, B, T, G), "xp")
+    build.require(w_hh, torch.bfloat16, (2, G, H), "w_hh")
+    build.require(b_hh, torch.float32, (2, G), "b_hh")
+    e = lambda *s: torch.empty(*s, device=xp.device)
+    hs, cs, act = e(2, B, T, H), e(2, B, T, H), e(2, B, T, G)
+    c = torch.zeros(2, B, H, device=xp.device)
+    hb = torch.zeros(2, 2, B, H, device=xp.device, dtype=torch.bfloat16)
+    build.count(LAUNCHES, "bilstm_forward", forward_launches(T))
+    _call(_lib().t2_bilstm_forward, (xp, w_hh, b_hh, hs, cs, act, c, hb), B, T, H,
+          "bilstm_forward")
+    return hs, cs, act
+
+
+def bilstm_backward(dhs, act, cs, w_hh):
+    """``bilstm_backward_plain`` through ``t2_bilstm_backward`` for CUDA
+    tensors (w_hh bf16)."""
+    if dhs.device.type == "cpu":
+        return bilstm_backward_plain(dhs, act, cs, w_hh)
+    _, B, T, H = dhs.shape
+    for name, t, dt, shape in (("dhs", dhs, torch.float32, (2, B, T, H)),
+                               ("act", act, torch.float32, (2, B, T, 4 * H)),
+                               ("cs", cs, torch.float32, (2, B, T, H)),
+                               ("w_hh", w_hh, torch.bfloat16, (2, 4 * H, H))):
+        build.require(t, dt, shape, name)
+    dg = torch.empty(2, B, T, 4 * H, device=dhs.device)
+    scratch = [torch.zeros(2, B, H, device=dhs.device) for _ in range(2)]
+    build.count(LAUNCHES, "bilstm_backward", backward_launches(T))
+    _call(_lib().t2_bilstm_backward, (dhs, act, cs, w_hh, dg, *scratch), B, T, H,
+          "bilstm_backward")
+    return dg
+
+
+class BiLSTMRecurrence(torch.autograd.Function):
+    """(xp (2, B, T, 4H), w_hh (2, 4H, H), b_hh (2, 4H)) -> hs (2, B, T, H):
+    the recurrence under the bf16 policy; gradients of all three."""
+
+    @staticmethod
+    def forward(ctx, xp, w_hh, b_hh):
+        on_card = xp.device.type != "cpu"
+        wb = w_hh.to(torch.bfloat16).contiguous() if on_card else _rnd(w_hh)
+        hs, cs, act = bilstm_forward(xp.contiguous(), wb, b_hh.contiguous())
+        ctx.save_for_backward(hs, cs, act, wb)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        hs, cs, act, wb = ctx.saved_tensors
+        dg = bilstm_backward(dhs.contiguous(), act, cs, wb)
+        h_prev = _rnd(torch.cat([torch.zeros_like(hs[:, :, :1]), hs[:, :, :-1]], dim=2))
+        d_w = _rnd(torch.einsum("dbtg,dbth->dgh", dg, h_prev))
+        return dg, d_w, dg.sum(dim=(1, 2))

@@ -17,10 +17,11 @@ outside from a ``torch.Generator`` (``lstm_masks``), so the tests can inject
 JAX's. The carried att_h and rnn_h are the values after dropout.
 
 On the card ``teacher_forward`` is one host call into ``csrc/train_decode.cu``
-(``t2_teacher_forward``, 6 launches a step, two of them the gate GEMM that
-``gate_lstm`` launches alone) and ``teacher_backward`` another
-(``t2_teacher_backward``, 2 + 8 launches a step); each wrapper adds its own
-launches to ``LAUNCHES``. Their plain versions below are the definition: same operand
+(``t2_teacher_forward``, 2 + 3 launches a step, two of them the gate GEMM
+with its LSTM epilogue) and ``teacher_backward`` another
+(``t2_teacher_backward``, 4 + 4 launches a step); each wrapper adds its own
+launches to ``LAUNCHES``. Both run the attention of a step on a cluster of
+``cluster_size`` blocks per batch row. Their plain versions below are the definition: same operand
 rounding (bf16 operands, f32 sums, bf16 residual and dg stacks), used for
 CPU tensors and as what the kernels are held against on the card. The plain
 versions keep the sum type of the weights, so they also run in f64 (the
@@ -47,7 +48,12 @@ from tacotron2_tpu_torch.ops.decoder_loop import (
 KEEP = 0.9  # LSTM dropout keep probability (decoder.py: dropout 0.1)
 
 # launches of each kernel; counted only where the kernel is launched
-LAUNCHES = {"teacher_forward": 0, "gate_lstm": 0, "teacher_backward": 0}
+LAUNCHES = {"teacher_forward": 0, "teacher_backward": 0}
+
+# K3's and K4's step loops launch with programmatic dependent launch (each
+# launch may start, and stream its weights, while the previous one ends);
+# False only to check and time the difference
+_PDL = True
 
 # the decoder's parameters that TeacherDecode differentiates, in its order
 DECODER_PARAMS = (
@@ -65,13 +71,50 @@ def reset_launches() -> None:
 
 
 def forward_launches(T: int) -> int:
-    """K3's launches for T steps."""
-    return 6 * T
+    """K3's launches for T steps: the prenet slice of the residual stack and
+    the gate GEMM's tiled weights once, then per step two gate GEMMs and the
+    attention, then the heads of every step at once."""
+    return 2 + 3 * T
 
 
 def backward_launches(T: int) -> int:
-    """K4's launches for T steps."""
-    return 2 + 8 * T
+    """K4's launches for T steps: the two gate recomputes, the query
+    projection and the heads' pull of every step once, then per step the
+    decoder-LSTM pull, two dx GEMMs and the attention pull (with the
+    query's and the attention LSTM's pulls)."""
+    return 4 + 4 * T
+
+
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+
+
+def cluster_size(B: int, sms: int) -> int:
+    """Blocks per batch row of K3's and K4's attention: the largest power of
+    two up to ``MAX_CLUSTER`` with ``B * S <= sms`` (one wave on a card of
+    ``sms`` SMs), at least 1. S = 4 at B = 32 on 132 SMs."""
+    if B < 1 or sms < 1:
+        raise ValueError(f"cluster_size: want B >= 1 and sms >= 1, got B={B}, sms={sms}")
+    s = MAX_CLUSTER
+    while s > 1 and B * s > sms:
+        s //= 2
+    return s
+
+
+def check_cluster_dims(S: int, H: int, A: int, D: int, K: int) -> None:
+    """Raise unless the attention's cluster split takes these dims: each
+    rank computes A/S of the query, sums D/S of the context and pulls H/S
+    of the query's input in 16-byte groups; a block of 512 threads takes A
+    (dividing 512) in groups of 4; the location window is centred (K odd)."""
+    if S not in (1, 2, 4, 8):
+        raise ValueError(f"cluster size {S}: want 1, 2, 4 or 8")
+    if A % S or H % (8 * S) or D % S or A % 4 or 512 % A or D % 8 or K % 2 == 0:
+        raise ValueError(f"the cluster attention takes A % S == D % S == H % (8 S) == 0, "
+                         f"A % 4 == 0, A | 512, D % 8 == 0 and K odd: got S={S}, H={H}, A={A}, "
+                         f"D={D}, K={K}")
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 class TrainWeights(NamedTuple):
@@ -269,8 +312,8 @@ def _lib():
         lib = build.load("train_decode")
         lib.t2_teacher_forward.argtypes = [ctypes.POINTER(Ptr), ctypes.POINTER(Int), Ptr]
         lib.t2_teacher_backward.argtypes = [ctypes.POINTER(Ptr), ctypes.POINTER(Int), Ptr]
-        lib.t2_gate_lstm.argtypes = [Ptr] * 7 + [Int] * 3 + [Ptr]
-        for fn in (lib.t2_teacher_forward, lib.t2_teacher_backward, lib.t2_gate_lstm):
+        lib.t2_smem_bytes.argtypes = [Int, ctypes.POINTER(Int)]
+        for fn in (lib.t2_teacher_forward, lib.t2_teacher_backward, lib.t2_smem_bytes):
             fn.restype = Int
         _LIB = lib
     return _LIB
@@ -313,22 +356,29 @@ def teacher_forward(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1,
     ):
         build.require(t, dt, shape, name)
     dev = decoder_in.device
+    S = cluster_size(B, _sms(dev))
+    check_cluster_dims(S, H, A, D, K)
     e = lambda *s, dtype=f32: torch.empty(*s, device=dev, dtype=dtype)
     mel_gate = e(T, B, N)
     res = Residuals(e(T, B, P + D + H, dtype=torch.bfloat16), e(T, B, 2 * H + D, dtype=torch.bfloat16),
                     e(T + 1, B, H), e(T + 1, B, H), e(T + 1, B, L), e(T + 1, B, L))
     for stack in res[2:]:
         stack[0].zero_()
-    state = [torch.zeros(B, n, device=dev) for n in (H, D, H)]
-    tensors = (*w, decoder_in, encoded, att_enc, lengths, dm1, dm2, mel_gate, *res, *state)
+    rnn_h = torch.empty(T, B, H, device=dev, dtype=torch.bfloat16)  # the heads' input
+    # the gate GEMM's tiled copies of w1, w2: rows padded to 64-column tiles
+    tiles = [torch.empty(4 * H, -(-t.shape[1] // 64) * 64, device=dev, dtype=torch.bfloat16)
+             for t in (w.w1, w.w2)]
+    tensors = (*w, decoder_in, encoded, att_enc, lengths, dm1, dm2, mel_gate, *res, rnn_h, *tiles)
     build.count(LAUNCHES, "teacher_forward", forward_launches(T))
-    build.check(_lib().t2_teacher_forward(_ptrs(tensors), (Int * 9)(T, B, P, H, D, L, A, K, N),
-                                          _stream()), "teacher_forward")
+    build.check(_lib().t2_teacher_forward(
+        _ptrs(tensors), (Int * 11)(T, B, P, H, D, L, A, K, N, S, int(_PDL)), _stream()),
+        "teacher_forward")
     return mel_gate, res
 
 
 def _splits(H4: int) -> int:
-    """Splits of the dx GEMMs' 4H contraction (64-wide chunks each)."""
+    """Splits of the dx GEMMs' 4H contraction (64-wide chunks each), the
+    blocks of one cluster."""
     for s in (8, 4, 2, 1):
         if H4 % (64 * s) == 0:
             return s
@@ -337,7 +387,11 @@ def _splits(H4: int) -> int:
 
 def teacher_backward(w: TrainWeights, res: Residuals, encoded, att_enc, lengths, dm1, dm2,
                      d_mel_gate, d_align) -> BackwardOut:
-    """``teacher_backward_plain`` through kernel K4 for CUDA tensors."""
+    """``teacher_backward_plain`` through kernel K4 for CUDA tensors. The
+    kernel projects the query of every step at once from the forward's own
+    att_h (``res.xh2[..., :H]``) where the plain version, as JAX's kernel,
+    recomputes it from the gates: the same values up to the order of the
+    recomputed gates' sums."""
     if encoded.device.type == "cpu":
         return teacher_backward_plain(w, res, encoded, att_enc, lengths, dm1, dm2,
                                       d_mel_gate, d_align)
@@ -357,53 +411,50 @@ def teacher_backward(w: TrainWeights, res: Residuals, encoded, att_enc, lengths,
         ("cum", res.cum, f32, (T + 1, B, L)),
     ):
         build.require(t, dt, shape, name)
-    S = _splits(4 * H)
+    SX = _splits(4 * H)
     dev = encoded.device
+    S = cluster_size(B, _sms(dev))
+    check_cluster_dims(S, H, A, D, K)
     e = lambda *s, dtype=f32: torch.empty(*s, device=dev, dtype=dtype)
     zr = lambda *s: torch.zeros(*s, device=dev)
     out = BackwardOut(e(T, B, 4 * H, dtype=bf), e(T, B, 4 * H, dtype=bf), e(T + 1, B, R1),
                       e(T, B, D), e(T, B, A), e(T, B, H, dtype=bf), zr(B, L, A), zr(B, A),
                       zr(B, A, 2, K))
     out.dxh1[T].zero_()
-    scratch = (e(T, B, 4 * H), e(T, B, 4 * H), e(B, H + D), zr(B, R2), e(B, H), e(B, H),
-               zr(B, H), zr(B, H), zr(B, L), zr(B, L), e(S, B, max(R1, R2)))
+    scratch = (e(T, B, 4 * H), e(T, B, 4 * H), e(T, B, A), e(T, B, H + D), zr(B, R2), zr(B, H),
+               zr(B, H), zr(B, L), zr(B, L))
     tensors = (*w[:8], encoded, att_enc, lengths, dm1, dm2, d_mel_gate, d_align, *res, *out,
                *scratch)
     build.count(LAUNCHES, "teacher_backward", backward_launches(T))
     build.check(_lib().t2_teacher_backward(
-        _ptrs(tensors), (Int * 10)(T, B, P, H, D, L, A, K, N, S), _stream()), "teacher_backward")
+        _ptrs(tensors), (Int * 12)(T, B, P, H, D, L, A, K, N, SX, S, int(_PDL)), _stream()),
+        "teacher_backward")
     return out
 
 
-def gate_lstm_plain(w, b, xh, c_prev, mask):
-    """One LSTM cell from its gathered input xh (M, R) -> (h * mask, c)."""
-    i, f, g, o = _gates(_acc(xh) @ _acc(w).t() + b)
-    c = f * c_prev + i * g
-    return o * torch.tanh(c) * mask, c
-
-
-def gate_lstm(w, b, xh, c_prev, mask):
-    """K3's gate GEMM with its LSTM epilogue, alone (one launch)."""
-    if xh.device.type == "cpu":
-        return gate_lstm_plain(w, b, xh, c_prev, mask)
-    M, R = xh.shape
-    H = c_prev.shape[1]
-    build.require(w, torch.bfloat16, (4 * H, R), "w")
-    build.require(b, torch.float32, (4 * H,), "b")
-    build.require(xh, torch.bfloat16, (M, R), "xh")
-    build.require(c_prev, torch.float32, (M, H), "c_prev")
-    build.require(mask, torch.float32, (M, H), "mask")
-    h, c = torch.empty_like(c_prev), torch.empty_like(c_prev)
-    build.count(LAUNCHES, "gate_lstm")
-    build.check(_lib().t2_gate_lstm(xh.data_ptr(), w.data_ptr(), b.data_ptr(), c_prev.data_ptr(),
-                                    mask.data_ptr(), c.data_ptr(), h.data_ptr(), M, R, H,
-                                    _stream()), "gate_lstm")
-    return h, c
+def smem_bytes(L: int, S: int, H: int, A: int, D: int, K: int) -> dict:
+    """The dynamic shared memory of K3's gate GEMM and of the cluster
+    attention (forward, backward) at these dims, from the kernels' own plan."""
+    d = (Int * 6)(L, S, H, A, D, K)
+    return {name: _lib().t2_smem_bytes(i, d)
+            for i, name in enumerate(("gate_tma", "att_fwd_cluster", "att_bwd_cluster"))}
 
 
 # ---------------------------------------------------------------------------
 # the autograd function
 # ---------------------------------------------------------------------------
+
+
+def _gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^T b over all rows of two (T, B, n) stacks, in the sum type. Where
+    both hold bf16 on the card, one product of the bf16 operands with f32
+    sums and output (as the JAX package's dot with an f32 result): the f32
+    product of the same values up to the order of its sums, without f32
+    copies of the stacks and an f32 GEMM (TF32 is off)."""
+    a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    if a2.is_cuda and a2.dtype == b2.dtype == torch.bfloat16:
+        return torch.mm(a2.t(), b2, out_dtype=torch.float32)
+    return _acc(a2).t() @ _acc(b2)
 
 
 def grads_from(params, w: TrainWeights, res: Residuals, encoded, out: BackwardOut, d_mel_gate):
@@ -421,8 +472,7 @@ def grads_from(params, w: TrainWeights, res: Residuals, encoded, out: BackwardOu
     flat = lambda t: _acc(t).reshape(T * B, -1)
     d_prenet = out.dxh1[:-1, :, :res.xh1.shape[2] - D - H]
     d_enc = torch.einsum("tbl,tbd->bld", _rnd(res.al[1:], encoded), out.dctx)
-    dW1 = flat(out.dg1).t() @ flat(res.xh1)
-    dW2 = flat(out.dg2).t() @ flat(res.xh2)
+    dW1, dW2 = _gram(out.dg1, res.xh1), _gram(out.dg2, res.xh2)
     db1, db2 = flat(out.dg1).sum(0), flat(out.dg2).sum(0)
     d_wq = flat(out.dq).t() @ flat(res.xh2[:, :, :H])
     head_in = torch.cat([flat(out.head_h), flat(res.xh2[:, :, H:H + D])], dim=1)

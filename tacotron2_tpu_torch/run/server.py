@@ -20,7 +20,9 @@ Two modes:
   stream (a torch.Generator from its seed), and the kernels' rows are
   independent, so a request's audio does not depend on what shares its
   window. Rows pad to a power of two by repeating row 0 (with generators
-  of their own), chars to a multiple of 128.
+  of their own), chars to a multiple of 128; the encoder runs every
+  window at the largest window's rows, since its bf16 products may sum in
+  another order at another shape.
 - ``subprocess``: one ``python -m tacotron2_tpu_torch say`` per request, as
   the reference server shells out to its CLI.
 
@@ -157,12 +159,14 @@ def _thread_stream(device: torch.device):
     return torch.cuda.stream(_TLS.stream)
 
 
-def synthesize_batch(bundle: Bundle, reqs: List[Dict[str, Any]]) -> List[str]:
+def synthesize_batch(bundle: Bundle, reqs: List[Dict[str, Any]],
+                     encode_rows: Optional[int] = None) -> List[str]:
     """One window of validated requests -> their WAV paths, through one
     batched decode and one batched HiFi-GAN call.
 
     Chars pad to a multiple of 128 and rows to a power of two (row 0
-    repeated, with a generator of its own seeded as row 0's). Each row is
+    repeated, with a generator of its own seeded as row 0's); the encoder
+    runs ``encode_rows`` rows (``forward_infer_fast``). Each row is
     cut at its first gate fire (a row's cut does not depend on longer rows
     in the window; at one row it is ``say``'s n - 1), then the rows with a
     vocoder go through ``cut_vocode`` in a power-of-two row bucket and a
@@ -185,7 +189,7 @@ def synthesize_batch(bundle: Bundle, reqs: List[Dict[str, Any]]) -> List[str]:
     out = model.forward_infer_fast(torch.as_tensor(chars, device=dev),
                                    torch.as_tensor(lens[rows], device=dev),
                                    int(entry.get("max_len", MAX_LEN)), packed=packed,
-                                   row_generators=gens)
+                                   row_generators=gens, encode_rows=encode_rows)
     n = int(out.n_frames)
     fired = out.gates[:B, :, 0] < 0.0
     first = torch.where(fired.any(dim=1), fired.int().argmax(dim=1),
@@ -229,14 +233,17 @@ class MicroBatcher:
     ``window_ms`` of the first (then whatever is already queued, up to
     ``max_batch``) and hands the window to a pool of ``depth`` threads, so
     up to ``depth`` windows are in flight: one decodes while the last one's
-    audio is vocoded and written. Every failure lands on the requests'
-    futures, never on the worker."""
+    audio is vocoded and written. Every window's encoder runs the rows of
+    the largest window (``max_batch`` to a power of two), so a request's
+    encoding does not depend on its window. Every failure lands on the
+    requests' futures, never on the worker."""
 
     def __init__(self, registry: ModelRegistry, window_ms: float = 8.0, max_batch: int = 64,
                  depth: int = 2):
         self.registry = registry
         self.window = max(float(window_ms), 0.0) / 1000.0
         self.max_batch = max(int(max_batch), 1)
+        self.encode_rows = _pow2(self.max_batch)
         self.depth = max(int(depth), 1)
         self._lock = threading.Lock()
         self._queues: Dict[int, queue.Queue] = {}
@@ -319,7 +326,7 @@ class MicroBatcher:
                     _settle(fut, exc=exc)
             if good:
                 with _thread_stream(next(bundle.model.parameters()).device):
-                    paths = synthesize_batch(bundle, [r for r, _ in good])
+                    paths = synthesize_batch(bundle, [r for r, _ in good], self.encode_rows)
                 for (_, fut), path in zip(good, paths):
                     _settle(fut, path)
         except Exception as exc:
@@ -329,13 +336,14 @@ class MicroBatcher:
             slots.release()
 
 
-def warmup_models(registry: ModelRegistry) -> None:
+def warmup_models(registry: ModelRegistry, encode_rows: Optional[int] = None) -> None:
     """Load every model and synthesize one short request before the first
-    real one (server config ``"warmup": true``)."""
+    real one (server config ``"warmup": true``), the encoder at the
+    windows' ``encode_rows``."""
     for idx in range(len(registry.entries)):
         req = {"text": "warmup.", "seed": 0, "use_vocoder": True,
                "out_path": os.path.join(GENERATED_DIR, f"warmup-{idx}.wav")}
-        synthesize_batch(registry.load(idx), [req])
+        synthesize_batch(registry.load(idx), [req], encode_rows)
 
 
 class App:
@@ -353,12 +361,12 @@ class App:
         self.mode = mode
         self.device = device
         self.registry = ModelRegistry(server_config.get("models", []), device)
-        if mode == "warm" and server_config.get("warmup"):
-            warmup_models(self.registry)
         b = server_config.get("batching", {})
         self.batcher = MicroBatcher(self.registry, b.get("window_ms", 8.0),
                                     b.get("max_batch", 64), b.get("depth", 2)
                                     ) if b.get("enabled", True) else None
+        if mode == "warm" and server_config.get("warmup"):
+            warmup_models(self.registry, self.batcher and self.batcher.encode_rows)
         self.started = time.time()
         self.counts = {"ok": 0, "failed": 0}
         self._lock = threading.Lock()

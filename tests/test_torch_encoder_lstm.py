@@ -1,0 +1,94 @@
+"""The encoder's bf16 BiLSTM recurrence (``tacotron2_tpu_torch/ops/encoder_lstm.py``)
+on the CPU, where its wrappers run their plain versions:
+
+- ``BiLSTMRecurrence``'s hand-written backward against autograd through the
+  plain forward loop, in f64 (so no bf16 rounding of an operand flips between
+  the two sum orders): the cotangents of xp, W_hh and b_hh agree to 1e-10;
+- the recurrence against the JAX package's ``lstm_sequence`` scan under the
+  bf16 policy lives in tests/test_torch_layers.py (``test_bilstm_packed``,
+  ``test_encoder_matches_jax``);
+- under bf16 a row's encoding is the same alone and batched when both run
+  at the same ``rows`` (``Tacotron2._encode``), as the server's windows do;
+- the wrappers refuse tensors that are not on the CPU instead of running
+  their plain versions (no launch counted).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tacotron2_tpu_torch.models.layers import Policy
+from tacotron2_tpu_torch.models.tacotron2 import Tacotron2, Tacotron2Config
+from tacotron2_tpu_torch.ops import encoder_lstm as el
+
+torch.set_num_threads(1)
+
+
+def _inputs(B=3, T=7, H=8, seed=0):
+    r = np.random.default_rng(seed)
+    t = lambda *s, scale=1.0: torch.tensor(r.standard_normal(s) * scale, dtype=torch.float64,
+                                           requires_grad=True)
+    return t(2, B, T, 4 * H), t(2, 4 * H, H, scale=0.4), t(2, 4 * H, scale=0.3)
+
+
+def test_recurrence_backward_equals_autograd_of_plain_loop():
+    xp, w, b = _inputs()
+    hs = el.BiLSTMRecurrence.apply(xp, w, b)
+    ref, _, _ = el.bilstm_forward_plain(xp, el._rnd(w), b)
+    torch.testing.assert_close(hs, ref, atol=1e-12, rtol=0)
+    cot = torch.tensor(np.random.default_rng(1).standard_normal(hs.shape))
+    got = torch.autograd.grad(hs, (xp, w, b), cot)
+    want = torch.autograd.grad(ref, (xp, w, b), cot)
+    for name, a, c in zip(("xp", "w_hh", "b_hh"), got, want):
+        torch.testing.assert_close(a, c, atol=1e-10, rtol=0, msg=name)
+
+
+def test_launch_counts():
+    assert el.forward_launches(128) == 128
+    assert el.backward_launches(128) == 256
+
+
+def test_eval_encoder_row_alone_equals_batched():
+    """Under bf16 (the served configs' policy) a row's encoding and its
+    attention projection are bitwise the same alone and batched when both
+    run at the same ``rows``, as the server's windows do. (Under f32 the
+    packed LSTM groups rows by length, so there the products' shapes follow
+    the batch's lengths.)"""
+    torch.manual_seed(0)
+    model = Tacotron2(Tacotron2Config(num_chars=20, encoded_dim=32, encoder_kernel_size=5,
+                                      num_mels=8, prenet_dim=16, att_rnn_dim=32, att_dim=16,
+                                      rnn_hidden_dim=32, postnet_dim=8),
+                      Policy.from_string("bf16-mixed")).eval()
+    r = np.random.default_rng(2)
+    lens = torch.tensor([9, 5, 7, 3, 9])
+    chars = torch.tensor(r.integers(1, 21, size=(5, 9)))
+    chars[torch.arange(9)[None, :] >= lens[:, None]] = 0
+    with torch.no_grad():
+        enc, att, mask = model._encode(chars, lens, rows=8)
+        assert enc.shape == (5, 9, 32) and att.shape == (5, 9, 16) and mask.shape == (5, 9)
+        for i in range(5):
+            e1, a1, _ = model._encode(chars[i:i + 1], lens[i:i + 1], rows=8)
+            assert torch.equal(e1[0], enc[i]) and torch.equal(a1[0], att[i]), i
+
+
+def _meta(*s, dtype=torch.float32):
+    return torch.empty(*s, device="meta", dtype=dtype)
+
+
+@pytest.mark.parametrize("name,call", [
+    ("bilstm_forward", lambda: el.bilstm_forward(_meta(2, 1, 3, 32),
+                                                 _meta(2, 32, 8, dtype=torch.bfloat16),
+                                                 _meta(2, 32))),
+    ("bilstm_backward", lambda: el.bilstm_backward(_meta(2, 1, 3, 8), _meta(2, 1, 3, 32),
+                                                   _meta(2, 1, 3, 8),
+                                                   _meta(2, 32, 8, dtype=torch.bfloat16))),
+])
+def test_wrapper_never_falls_back_to_plain(name, call, monkeypatch):
+    def plain_called(*a, **k):
+        raise AssertionError("plain version reached with a non-CPU tensor")
+
+    monkeypatch.setattr(el, f"{name}_plain", plain_called)
+    before = dict(el.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        call()
+    assert el.LAUNCHES == before

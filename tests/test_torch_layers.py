@@ -1,7 +1,8 @@
 """The port's layers (tacotron2_tpu_torch/models/layers.py) against their
-JAX counterparts (tacotron2_tpu/models/layers.py), in f32 on the CPU. Inputs
-and weights are made with numpy from a seed; weights cross in each
-framework's own layout. Tolerance 1e-5 abs (f32 rounding of one op)."""
+JAX counterparts (tacotron2_tpu/models/layers.py) on the CPU, in f32 and,
+for the BiLSTM and the whole encoder, under the bf16 policy. Inputs and
+weights are made with numpy from a seed; weights cross in each framework's
+own layout. Tolerance 1e-5 abs (f32 rounding of one op) unless stated."""
 
 import jax
 import jax.numpy as jnp
@@ -121,25 +122,72 @@ def test_lstm_cell():
     _close(gc, rc)
 
 
+@pytest.mark.parametrize("policy", ["32-true", "bf16-mixed"])
 @pytest.mark.parametrize("lengths", [[9, 6, 1], [9, 9, 9], [4, 9, 7]])
-def test_bilstm_packed(lengths):
+def test_bilstm_packed(lengths, policy):
     """Packed semantics with padded rows against the JAX package's
-    lstm_sequence run forward and reverse: each row's reverse direction
-    starts at its own last valid char; outputs past a row's end are 0."""
+    lstm_sequence run forward and reverse under the same policy: each row's
+    reverse direction starts at its own last valid char; outputs past a
+    row's end are 0. Under 32-true ``bilstm`` is torch's packed LSTM
+    (``bilstm_packed``); under bf16 its loop rounds h and the operands as
+    JAX does, and the products of bf16 operands are exact in f32, so only
+    the sum order differs: held to the same 1e-5 (readings <= 6e-8)."""
     r = _rng(8)
     pf, pb = _lstm_params(r, 10, 8), _lstm_params(r, 10, 8)
     x = r.standard_normal((3, 9, 10)).astype(np.float32)
     lens = np.asarray(lengths)
     ref = np.concatenate([
         np.asarray(jl.lstm_sequence(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
-                                    jnp.asarray(lens), reverse=rev))
+                                    jnp.asarray(lens), reverse=rev,
+                                    policy=jl.Policy.from_string(policy)))
         for p, rev in ((pf, False), (pb, True))], axis=-1)
     lstm = torch.nn.LSTM(10, 8, batch_first=True, bidirectional=True)
     with torch.no_grad():
         for suffix, p in (("", pf), ("_reverse", pb)):
             for name, t in zip(("weight_ih", "weight_hh", "bias_ih", "bias_hh"), _torch_lstm(p)):
                 getattr(lstm, f"{name}_l0{suffix}").copy_(t)
-    got = tl.bilstm_packed(lstm, torch.as_tensor(x), torch.as_tensor(lens))
+    got = tl.bilstm(lstm, torch.as_tensor(x), torch.as_tensor(lens), tl.Policy.from_string(policy))
     _close(got, ref)
     for b, n in enumerate(lengths):
         assert not bool(got[b, n:].any())
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("policy", ["32-true", "bf16-mixed"])
+def test_encoder_matches_jax(policy, train):
+    """The whole encoder (embedding, three conv -> BatchNorm -> ReLU blocks,
+    the BiLSTM) against ``tacotron2_tpu/models/encoder.py::apply`` on the
+    same weights, with ragged lengths; in train mode the BatchNorm runs on
+    the batch's statistics (dropout rate 0, so no bits are drawn). Under
+    bf16 both round each conv's sums and the BiLSTM's operands to bf16.
+    Readings: 32-true 7.5e-8 (eval), 4.7e-7 (train); bf16-mixed in eval
+    mode 4.5e-8 (1.6e-4 before
+    the port rounded as JAX does: the BiLSTM in f32, the convs' sums
+    unrounded); all held to 1e-5. In train mode under bf16 the batch
+    statistics differ at f32 rounding (torch's and XLA's reduction orders),
+    which flips the bf16 rounding of a few inputs of the next conv, and the
+    next BatchNorm amplifies the flip: reads 2.2e-4, held to 1e-3."""
+    from tacotron2_tpu.models import encoder as je
+    from tacotron2_tpu.models.tacotron2 import Tacotron2 as JaxTacotron2
+    from tacotron2_tpu.models.tacotron2 import Tacotron2Config as JaxConfig
+    from tacotron2_tpu_torch.convert import from_jax_params
+    from tacotron2_tpu_torch.models.encoder import Encoder
+
+    cfg = dict(num_chars=20, encoded_dim=64, encoder_kernel_size=5, num_mels=16, prenet_dim=32,
+               att_rnn_dim=64, att_dim=32, rnn_hidden_dim=64, postnet_dim=16)
+    params, state = JaxTacotron2(JaxConfig(**cfg)).init(jax.random.PRNGKey(0))
+    sd = from_jax_params(params, state)
+    enc = Encoder(cfg["num_chars"], cfg["encoded_dim"], cfg["encoder_kernel_size"])
+    enc.load_state_dict({k[len("encoder."):]: v for k, v in sd.items()
+                         if k.startswith("encoder.")})
+    r = _rng(9)
+    lens = np.array([11, 7, 1, 10])
+    chars = r.integers(1, 21, size=(4, 11))
+    chars[np.arange(11)[None, :] >= lens[:, None]] = 0
+    ref, _ = je.apply(params["encoder"], state["encoder"], jnp.asarray(chars), jnp.asarray(lens),
+                      train, 0.0, rng=jax.random.PRNGKey(1),
+                      policy=jl.Policy.from_string(policy))
+    with torch.no_grad():
+        got = enc(torch.as_tensor(chars), torch.as_tensor(lens), tl.Policy.from_string(policy),
+                  train=train, dropout=0.0)
+    _close(got, ref, 1e-3 if train and policy == "bf16-mixed" else ATOL)

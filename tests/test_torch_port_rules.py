@@ -170,9 +170,6 @@ WRAPPER_CALLS.update({
         _TW(), _RES(), _meta(1, 5, 8, dtype=torch.bfloat16), _meta(1, 5, 4),
         _meta(1, dtype=torch.int32), _meta(2, 1, 8), _meta(2, 1, 8), _meta(2, 1, 81),
         _meta(2, 1, 5)),
-    "gate_lstm": lambda: train_decode.gate_lstm(
-        _meta(32, 24, dtype=torch.bfloat16), _meta(32), _meta(1, 24, dtype=torch.bfloat16),
-        _meta(1, 8), _meta(1, 8)),
 })
 
 

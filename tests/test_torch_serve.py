@@ -37,6 +37,7 @@ from tacotron2_tpu_torch.config import load_config
 from tacotron2_tpu_torch.convert import to_lightning
 from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
 from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
 from tacotron2_tpu_torch.ops import decoder_loop
 from tacotron2_tpu_torch.run import server as srv
 from tacotron2_tpu_torch.run.say import cut_vocode, model_config_from, vocode_bucket
@@ -294,6 +295,25 @@ def test_server_coalesces_and_rows_keep_their_audio(files, serve, tmp_path):
         b = read_wav(str(tmp_path / solo["path"]))[0]
         assert a.shape == b.shape
         assert np.abs(a - b).max() * 32768 <= 1, "a row's audio changed with its window"
+
+
+@pytest.mark.parametrize("max_batch,rows", [(8, 8), (6, 8), (1, 1)])
+def test_windows_encode_at_the_largest_window(files, serve, monkeypatch, max_batch, rows):
+    """Every window's encoder runs ``max_batch`` rows rounded up to a power
+    of two, whatever the window holds, so its bf16 products keep one shape."""
+    seen = []
+    encode = Tacotron2._encode
+
+    def spy(self, chars_idx, chars_len, train=False, generator=None, rows=None):
+        seen.append((chars_idx.shape[0], rows))
+        return encode(self, chars_idx, chars_len, train, generator, rows)
+
+    monkeypatch.setattr(Tacotron2, "_encode", spy)
+    config = copy.deepcopy(files)
+    config["batching"] = {"window_ms": 1, "max_batch": max_batch}
+    c = serve(config)
+    assert c.post({"text": "one request", "model": 0, "seed": 4})[0] == 200
+    assert seen == [(1, rows)]
 
 
 def test_server_bad_checkpoint_fails_only_its_requests(files, serve):

@@ -151,3 +151,50 @@ def test_teacher_decode_grads_equal_autograd_of_step_loop():
         torch.testing.assert_close(a, b, atol=1e-12, rtol=0)
     for a, b in zip(ga, gb):
         torch.testing.assert_close(a, b, atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("T", [1, 128, 384])
+def test_launch_counts(T):
+    """K3: the prenet slice of the residual stack and the gate GEMM's tiled
+    weights once (one launch), then two gate GEMMs and the cluster attention
+    a step (no gathers), then the heads of every step in one GEMM; K4: the
+    two gate recomputes, the query projection and the heads' pull of every
+    step once, then four launches a step (the attention LSTM's pull fused
+    into the attention's; each dx GEMM one cluster launch, no second
+    reduction pass)."""
+    assert td.forward_launches(T) == 2 + 3 * T
+    assert td.backward_launches(T) == 4 + 4 * T
+
+
+@pytest.mark.parametrize("B,sms,S", [(32, 132, 4), (16, 132, 8), (64, 132, 2), (1, 132, 8),
+                                     (33, 132, 4), (34, 132, 2), (132, 132, 1), (500, 132, 1), (32, 114, 2)])
+def test_cluster_size(B, sms, S):
+    """The largest power of two up to 8 (the portable cluster size) with
+    B * S <= the SM count, at least 1: one wave of clusters."""
+    assert td.cluster_size(B, sms) == S
+    assert S == 1 or B * S <= sms
+
+
+def test_cluster_size_refuses_empty():
+    for B, sms in ((0, 132), (32, 0)):
+        with pytest.raises(ValueError):
+            td.cluster_size(B, sms)
+
+
+@pytest.mark.parametrize("S,H,A,D,K,ok", [
+    (4, 1024, 128, 512, 31, True),     # the flagship dims at B = 32
+    (8, 1024, 128, 512, 31, True),
+    (3, 1024, 128, 512, 31, False),    # not a cluster size the kernels take
+    (16, 1024, 128, 512, 31, False),   # beyond the portable cluster size
+    (8, 1024, 4 * 6, 512, 31, False),  # A / S not whole
+    (4, 1024, 128, 512, 30, False),    # an even window has no centre
+    (4, 1024, 96, 512, 31, False),     # A does not divide 512 threads
+    (4, 1000, 128, 512, 31, False),    # H % (8 S)
+    (4, 1024, 128, 508, 31, False),    # D not in 16-byte groups
+])
+def test_check_cluster_dims(S, H, A, D, K, ok):
+    if ok:
+        td.check_cluster_dims(S, H, A, D, K)
+    else:
+        with pytest.raises(ValueError):
+            td.check_cluster_dims(S, H, A, D, K)

@@ -208,13 +208,15 @@ def _jax_teacher(policy: str):
 @pytest.mark.parametrize("policy", ["32-true", "bf16-mixed"])
 def test_forward_teacher_train_mode_matches_jax(policy):
     """32-true: within 3e-5 of each output's max (the JAX training kernels'
-    own tolerance). bf16: the two frameworks round to bf16 at other places
-    (and the port's encoder BiLSTM runs in f32, where the JAX one rounds its
-    operands to bf16), so the port's bf16 output is held within twice the
-    distance of JAX's own bf16 output from JAX's f32 output. Measured on
-    these inputs: mels_post 4.3% of its max from JAX bf16, where JAX bf16
-    is 3.5% from JAX f32 (the train-mode BatchNorm of the postnet amplifies
-    the rounding)."""
+    own tolerance). bf16: the two frameworks' f32 reductions (the train-mode
+    BatchNorm statistics, the decode's sums) differ in order, which flips
+    bf16 roundings downstream, so the port's bf16 output is held within the
+    distance of JAX's own bf16 output from JAX's f32 output. Readings, as a
+    share of that distance: mels 0.38, mels_post 0.73 (2.6% of its max, the
+    postnet's train-mode BatchNorm amplifying the flips), gates 0.40,
+    alignments 0.82; the BatchNorm state <= 1.5e-4. Before the encoder and
+    the postnet rounded as JAX's (BiLSTM operands, convs' sums) mels_post
+    read 4.3% of its max, 1.2x that distance, and the limit was 2x."""
     _, params, state = _jax_model(policy)
     ref, new_state = _jax_teacher(policy)
     model = _port_model(params, state, policy)
@@ -228,9 +230,9 @@ def test_forward_teacher_train_mode_matches_jax(policy):
             atol = 3e-5 * float(np.abs(r).max()) + 1e-6
         else:
             gap = np.abs(r - np.asarray(getattr(_jax_teacher("32-true")[0], name))).max()
-            atol = 2.0 * float(gap) + 1e-6
+            atol = float(gap) + 1e-6
         _close(getattr(out, name), r, atol, name)
-    _bn_state_close(model, new_state, 1e-5 if policy == "32-true" else 1e-3)
+    _bn_state_close(model, new_state, 1e-5 if policy == "32-true" else 5e-4)
 
 
 LR = 1e-3
