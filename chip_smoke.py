@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``tacotron2_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k2-ab   # only K2's design A/B (``k2_ab``), then exit
 
 Phases, each of which must pass:
 
@@ -11,11 +12,17 @@ Phases, each of which must pass:
    source, in parallel) and print each kernel's registers, static shared
    memory and spills (``-Xptxas -v``);
 3. hold each kernel against its plain PyTorch version on the card at the
-   slice's full-width shapes (K1: one decode step at the flagship dims,
-   then whole 4-step chunks on K1_DRAWS weight draws, with the readings of
-   defective kernels held above the limit; K2: the four UNIVERSAL_V1 MRF
-   stages and stage 2 without its upsample, at 64 mel frames and at the
-   say's vocode bucket), and time kernel, plain version and library call;
+   slice's full-width shapes (K1: one decode step at the flagship dims, its
+   cluster attention also at the serve windows' 16 and 64 rows of 128
+   chars with the cluster size S printed per shape, then whole 4-step
+   chunks on K1_DRAWS weight draws, with the readings of defective kernels
+   held above the limit; K2: the four UNIVERSAL_V1 MRF stages and stage 2
+   without its upsample, at 64 mel frames and at the say's vocode bucket,
+   ``conv_transpose``'s output and its bf16 operand, each stage's first
+   ``mrf_conv`` or fused ``mrf_pair`` alone, bit for bit against the same
+   row in a batch of ``K2_INVARIANCE_ROWS`` and a fused pair against its
+   two ``mrf_conv`` launches), and time kernel, plain version and library
+   call (K2: ``F.conv1d`` in f32 and in bf16);
    K5, the int8 LSTM cell: one int8 step through the chunk entry at B=1 and
    at B=2 with a padded row, with defective kernels (activations rounded to
    bf16 before quantising, scales taken from bf16 weights) held above the
@@ -31,7 +38,9 @@ Phases, each of which must pass:
    and the serve windows' shapes on inputs from real ``_encode`` calls;
 4. run ``say`` through the port's CLI entry on random full-width weights
    saved as a reference Lightning ``.ckpt`` and a UNIVERSAL_V1 ``g_*`` file:
-   a forced 256-frame decode with the launch counters read around it, a
+   a forced 256-frame decode with the launch counters read around it (K2:
+   exactly 18 ``mrf_conv``, 27 ``mrf_pair`` and 4 ``conv_transpose``
+   launches a vocode, and the HiFi-GAN's weights packed once), a
    forced early stop (1 frame), and the kernel decode against the plain
    decode over 32 frames; then ``say --quantize-int8`` the same way (K5's
    launches held to 2 x 256), and the int8 decode against the bf16 one;
@@ -47,7 +56,8 @@ Phases, each of which must pass:
    and an int8 entry of the random weights: waves of 16 concurrent requests
    per model and of 64 to one, which must coalesce, with the launch
    counters held to two LSTM launches a frame per decode launch; two
-   batched requests again alone (PCM16 difference); one request through
+   batched requests again alone (PCM16 difference); K2's launches 18, 27
+   and 4 a window and no weight packing in the waves; one request through
    Griffin-Lim; the kernels against their plain versions at the windows'
    shapes (K1 at 16 and 64 rows and K5 at 16, L=128; K2 through the batched
    vocode at 16 and 64 rows); then ``python -m tacotron2_tpu_torch server``
@@ -87,6 +97,7 @@ K1_TOL = 1e-4  # max |kernel - plain| / max(1, max |plain|), one step, bf16 oper
 K1_CHUNK_TOL = 1e-3
 K1_DRAWS = 4  # weight draws of the 4-step chunk check
 K2_TOL = 5e-3  # the same for one MRF stage (18 convs)
+K2_INVARIANCE_ROWS = 64  # a K2 row alone against the same row in a batch of this many
 # 32 autoregressive frames, kernel decode vs plain decode, per output; the
 # alignments' limit is absolute (max |ref| <= 1), 1% of a weight at L ~ 100
 DECODE_TOL = {"mels_post": 1e-3, "gates": 1e-4, "alignments": 1e-4}
@@ -150,6 +161,36 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+def vocode_launches(h: dict) -> dict:
+    """K2's launches in one vocode of a HiFi-GAN of config ``h``: one
+    ``conv_transpose`` per stage, one ``mrf_pair`` per ResBlock1 pair that
+    it takes (channels up to 128) and one ``mrf_conv`` per other conv (18,
+    27 and 4 for UNIVERSAL_V1: 72 convs)."""
+    import torch
+
+    from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
+    from tacotron2_tpu_torch.models.layers import Policy
+    from tacotron2_tpu_torch.ops import mrf
+
+    n = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0}
+    for rbs, _ in HiFiGAN(HiFiGANConfig.from_dict(h), Policy(torch.bfloat16)).kernel_weights():
+        n["conv_transpose"] += 1
+        for rb in rbs:
+            for c1, c2 in rb:
+                if mrf.pair_fusable(c1, c2):
+                    n["mrf_pair"] += 1
+                else:
+                    n["mrf_conv"] += 1 if c2 is None else 2
+    return n
+
+
+def check_vocode_launches(launches: dict, vocodes: int, where: str) -> None:
+    want = {k: v * vocodes for k, v in vocode_launches(UNIVERSAL_V1).items()}
+    if any(launches[k] != v for k, v in want.items()):
+        raise SmokeFailure(f"{where}: K2 launched {[launches[k] for k in want]} times, "
+                           f"want {want} ({vocodes} vocodes)")
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -164,10 +205,34 @@ def ptxas_kernels(text: str) -> dict:
     def kernel_name(mangled: str):  # the length-prefixed identifier ending in _kernel
         for m in re.finditer(r"\d+", mangled):  # a hash's digits may precede the length
             for k in range(len(m.group())):
-                ident = mangled[m.end():m.end() + int(m.group()[k:])]
+                end = m.end() + int(m.group()[k:])
+                ident = mangled[m.end():end]
                 if ident.endswith("_kernel"):
-                    return ident
+                    return ident + template_args(mangled[end:])
         return None
+
+    def template_args(rest: str) -> str:  # "ILi128ELi2ELb1EE..." -> "<128,2,true>"
+        if not rest.startswith("I"):
+            return ""
+        names, i = [], 1
+        while i < len(rest) and rest[i] != "E":
+            m = (re.match(r"L([a-z])(-?\d+)E", rest[i:]) or re.match(r"(\d+)", rest[i:])
+                 or re.match(r"S\w*?_", rest[i:]) or re.match(r".", rest[i:]))
+            tok = m.group(0)
+            if tok.startswith("L") and m.lastindex == 2:
+                names.append({"1": "true", "0": "false"}[m.group(2)] if m.group(1) == "b"
+                             else m.group(2))
+            elif tok[0].isdigit():
+                n = int(tok)
+                name = rest[i + len(tok):i + len(tok) + n]
+                names.append("bf16" if name == "__nv_bfloat16" else name)
+                tok += name
+            elif tok.startswith("S"):
+                names.append(names[-1] if names else "?")
+            else:
+                names.append({"f": "float", "i": "int"}.get(tok, tok))
+            i += len(tok)
+        return "<" + ",".join(names) + ">"
 
     out, name = {}, None
     for line in text.splitlines():
@@ -476,6 +541,33 @@ def k1_phase(model, cfg, L: int, log: dict) -> list:
     K = pk.w_loc.shape[2]
     att_bytes = nbytes(*att_args, f32(B, D), f32(B, L), f32(B, L))
     att_flops = B * (2 * A * H + L * A * (4 * K + 4) + 2 * L * D + 4 * L)
+    S = dl.location_cluster_size(L, H, A, D, K)
+
+    # the attention at the serve windows' shapes (16 and 64 rows of 128
+    # chars, the server's bucket): kernel, plain version and bound, and the
+    # cluster size, which must not change with the rows
+    att_rows = {}
+    for Bw in (16, 64):
+        Lw = 128
+        lw = torch.full((Bw,), Lw, dtype=torch.int32, device=dev)
+        enc_w, att_enc_w, s_w = chunk_inputs(model, lw, g, Lw)
+        args_w = (s_w.att_h, pk.wq, pk.w_loc, pk.wv, att_enc_w, enc_w, lw, s_w.att_w,
+                  s_w.att_cum)
+        check(f"location_attention@B{Bw}", list(zip(
+            ("context", "weights", "cum_weights"), dl.location_attention(*args_w),
+            dl.location_attention_plain(*args_w))), K1_TOL, log, "location_attention")
+        nb = nbytes(*args_w, f32(Bw, D), f32(Bw, Lw), f32(Bw, Lw))
+        fl = Bw * (2 * A * H + Lw * A * (4 * K + 4) + 2 * Lw * D + 4 * Lw)
+        b_ms, b_by = bound_ms(nb, fl)
+        Sw = dl.location_cluster_size(Lw, H, A, D, K)
+        att_rows[f"B{Bw}"] = {"L": Lw, "S": Sw, "blocks": Sw * Bw,
+                              "ms": time_ms(lambda: dl.location_attention(*args_w)),
+                              "plain_ms": time_ms(lambda: dl.location_attention_plain(*args_w)),
+                              "bound_ms": b_ms, "bound_by": b_by}
+        print(f"  location_attention at B={Bw}, L={Lw}: S={Sw} ({Sw * Bw} blocks), "
+              f"{att_rows[f'B{Bw}']['ms'] * 1e3:.1f} us, plain "
+              f"{att_rows[f'B{Bw}']['plain_ms'] * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us")
+    log["location_attention_rows"] = att_rows
     rows = []
     for name, kern, plain, lib, nb, fl, replaces in (
         ("prenet", lambda: dl.prenet(s.mel, pk.wp1_t, pk.wp2_t, m1, m2),
@@ -499,6 +591,8 @@ def k1_phase(model, cfg, L: int, log: dict) -> list:
             "library_ms": None if lib is None else time_ms(lib),
             "per": "one decode step, B=1, L=%d" % L,
         })
+    rows[2]["per"] += f", a cluster of S={S} blocks per row"
+    rows[2]["rows"] = att_rows
     return rows
 
 
@@ -649,9 +743,23 @@ def k5_phase(model, cfg, L: int, log: dict) -> list:
     }]
 
 
+def stage_kernel(rbs) -> str:
+    """The K2 kernel that runs a stage's resblocks: ``mrf_pair`` where it
+    takes the stage's ResBlock1 pairs, else ``mrf_conv``."""
+    from tacotron2_tpu_torch.ops import mrf
+
+    fused = any(mrf.pair_fusable(c1, c2) for rb in rbs for c1, c2 in rb)
+    return "mrf_pair" if fused else "mrf_conv"
+
+
 def k2_phase(hifigan, log: dict, frames: int) -> None:
     """Each UNIVERSAL_V1 stage over ``frames`` mel frames, kernels against
-    plain."""
+    plain: the upsample and its operand, the stage's first conv (or fused
+    pair) alone on that operand, then the whole stage. Two bitwise checks
+    fail the run: the first conv or pair of a row alone against the same
+    row in a batch of ``K2_INVARIANCE_ROWS`` (other tiles, and at one row
+    stage 1's narrower N tile), and a fused pair against its two
+    ``mrf_conv`` launches."""
     import torch
 
     from tacotron2_tpu_torch.models import layers
@@ -665,30 +773,61 @@ def k2_phase(hifigan, log: dict, frames: int) -> None:
     plain = mrf.plain_stage
     for i, (rbs, ups) in enumerate(hifigan.kernel_weights()):
         x = x.contiguous()
-        xu = mrf.conv_transpose_plain(x, ups).contiguous()
-        check(f"conv_transpose[{i}]@{frames}", [("out", mrf.conv_transpose(x, ups), xu)],
+        xu, au = mrf.conv_transpose_plain(x, ups, want_act=True)
+        xu = xu.contiguous()
+        yk, ak = mrf.conv_transpose(x, ups, want_act=True)
+        check(f"conv_transpose[{i}]@{frames}", [("out", yk, xu), ("act", ak, au)],
               K2_TOL, log, "conv_transpose")
+        name = stage_kernel(rbs)
+        c1, c2 = rbs[0][0]
+        au = au.contiguous()
+        one = ((lambda f, a, r: f(a, c1, c2, res=r, want_act=True)) if name == "mrf_pair" else
+               (lambda f, a, r: f(a, c1, want_act=True)))
+        k_out = one(mrf.mrf_pair if name == "mrf_pair" else mrf.mrf_conv, au, xu)
+        p_out = one(mrf.mrf_pair_plain if name == "mrf_pair" else mrf.mrf_conv_plain, au, xu)
+        check(f"{name}[{i}]@{frames}", [("y", k_out[0], p_out[0]), ("act", k_out[1], p_out[1])],
+              K2_TOL, log, name)
+        n = K2_INVARIANCE_ROWS - 1
+        a_b = torch.cat([au, mrf.operand(torch.randn(n, *au.shape[1:], device="cuda",
+                                                     generator=g), torch.bfloat16)])
+        r_b = torch.cat([xu, torch.randn(n, *xu.shape[1:], device="cuda", generator=g)])
+        b_out = one(mrf.mrf_pair if name == "mrf_pair" else mrf.mrf_conv, a_b, r_b)
+        if not all(torch.equal(k[0], bo[0]) for k, bo in zip(k_out[:2], b_out[:2])):
+            raise SmokeFailure(f"{name}[{i}]@{frames}: a row alone differs from the same row "
+                               f"in a batch of {n + 1}")
+        del a_b, r_b, b_out
+        if name == "mrf_pair":
+            acc = torch.randn(xu.shape, device="cuda", generator=g)
+            fused = mrf.mrf_pair(au, c1, c2, xu, acc, 0.25, True, True)
+            _, at, _ = mrf.mrf_conv(au, c1, want_y=False, want_act=True)
+            unfused = mrf.mrf_conv(at, c2, xu, acc, 0.25, True, True)
+            if not all(torch.equal(f, u) for f, u in zip(fused, unfused)):
+                raise SmokeFailure(f"mrf_pair[{i}]@{frames}: the fused pair differs from its "
+                                   f"two mrf_conv launches")
         got, ref = mrf.mrf_stage(x, rbs, ups), plain(x, rbs, ups)
-        check(f"mrf_stage[{i}]@{frames}", [("out", got, ref)], K2_TOL, log, "mrf_conv")
+        check(f"mrf_stage[{i}]@{frames}", [("out", got, ref)], K2_TOL, log, name)
         if i == 2:  # row 3 of the TPU table: the MRF without its upsample
             check(f"mrf_stage[2,no_ups]@{frames}",
-                  [("out", mrf.mrf_stage(xu, rbs), plain(xu, rbs, None))], K2_TOL, log,
-                  "mrf_conv")
+                  [("out", mrf.mrf_stage(xu, rbs), plain(xu, rbs, None))], K2_TOL, log, name)
         x = ref
 
 
-def k2_timing(hifigan, Tb: int, rows_b: int = 1, yardsticks: bool = True) -> list:
-    """Time every K2 call of one vocode of ``Tb`` frames at ``rows_b`` rows:
-    kernel, and with ``yardsticks`` the plain version and the library conv
-    (f32, TF32 off), summed per kernel.
+def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
+    """Time every K2 call of one vocode of ``Tb`` frames at ``rows_b`` rows,
+    summed per kernel: the kernel; the library convs (``F.conv1d`` /
+    ``F.conv_transpose1d`` in f32 with TF32 off on the operands the kernel
+    reads, the same function without the epilogue, two of them for a fused
+    pair, and in bf16, whose output is bf16); and with ``plain`` the plain
+    version.
 
     The bound is that of the function the TPU kernels compute, one whole
     stage: its input read once, its weights, its output written once, and
-    its flops. ``conv_transpose`` is given the input, its weights and its
-    flops; ``mrf_conv`` the output, the 18 convs' weights and their flops.
-    The f32 activations that this one-launch-per-conv design writes and
-    reads between convs are the design's cost, reported beside the bound
-    as ``traffic_ms`` (those bytes over the HBM rate)."""
+    its flops; a stage's share goes to each kernel by its share of the
+    stage's flops. ``conv_transpose`` is given the input, its weights and
+    its flops. The activations this one-launch-per-conv design writes and
+    reads between launches (the bf16 operands, the f32 residual stream and
+    stage mean) are the design's cost, reported beside the bound as
+    ``traffic_ms`` (those bytes over the HBM rate)."""
     import torch
     import torch.nn.functional as F
 
@@ -697,95 +836,237 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, yardsticks: bool = True) -> lis
 
     calls = []
 
-    def conv_hook(x, cw, res=None, acc=None, acc_scale=0.0):
-        calls.append(("mrf_conv", x, cw, res, acc, acc_scale))
-        return mrf.mrf_conv(x, cw, res, acc, acc_scale)
+    def conv_hook(a, cw, res=None, acc=None, acc_scale=0.0, want_y=True, want_act=False):
+        calls.append(("mrf_conv", a, (cw,), res, acc, acc_scale, want_y, want_act))
+        return mrf.mrf_conv(a, cw, res, acc, acc_scale, want_y, want_act)
 
-    def convt_hook(x, uw):
-        calls.append(("conv_transpose", x, uw))
-        return mrf.conv_transpose(x, uw)
+    def pair_hook(a, c1, c2, res=None, acc=None, acc_scale=0.0, want_y=True, want_act=False):
+        calls.append(("mrf_pair", a, (c1, c2), res, acc, acc_scale, want_y, want_act))
+        return mrf.mrf_pair(a, c1, c2, res, acc, acc_scale, want_y, want_act)
+
+    def convt_hook(x, uw, want_act=False):
+        calls.append(("conv_transpose", x, uw, want_act))
+        return mrf.conv_transpose(x, uw, want_act)
 
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 3)
     mel = torch.randn(rows_b, Tb, hifigan.cfg.num_mels, device="cuda", generator=g)
     x = layers.conv1d(mel, hifigan.conv_pre.weight, hifigan.conv_pre.bias, hifigan.policy,
                       padding=3)
-    stages = []
+    names = ("mrf_conv", "mrf_pair", "conv_transpose")
+    tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_bf16_ms": 0.0,
+               "bound_ms": 0.0, "eager_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+               "traffic_ms": 0.0, "calls": 0} for n in names}
     for rbs, ups in hifigan.kernel_weights():
         xin = x.contiguous()
-        x = mrf.run_stage(xin, rbs, ups, conv_hook, convt_hook)
-        stages.append((xin, x, rbs, ups))
-    torch.cuda.synchronize()
-
-    tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "eager_ms": 0.0,
-               "bytes_ms": 0.0, "ops_ms": 0.0, "traffic_ms": 0.0, "calls": 0}
-           for n in ("mrf_conv", "conv_transpose")}
-    for xin, out, rbs, ups in stages:
-        Bn, T, Co = out.shape
+        first = len(calls)
+        x = mrf.run_stage(xin, rbs, ups, conv_hook, convt_hook, pair_hook)
+        Bn, T, Co = x.shape
         convs = [cw for rb in rbs for pair in rb for cw in pair if cw is not None]
-        parts = {
-            "conv_transpose": (nbytes(xin, ups.w_phase, ups.b),
-                               2 * Bn * T * Co * xin.shape[2] * (ups.w.shape[0] // ups.stride)),
-            "mrf_conv": (nbytes(out, *(cw.w for cw in convs), *(cw.b for cw in convs)),
-                         sum(2 * Bn * T * cw.w.numel() for cw in convs)),
-        }
+        fl_stage = sum(2 * Bn * T * cw.w.numel() for cw in convs)
+        nb_stage = nbytes(x, *(cw.w for cw in convs), *(cw.b for cw in convs))
+        fl_by = {n: sum(2 * Bn * T * cw.w.numel() for c in calls[first:] if c[0] == n
+                        for cw in c[2]) for n in ("mrf_conv", "mrf_pair")}
+        parts = {"conv_transpose": (nbytes(xin, ups.w_phase, ups.b),
+                                    2 * Bn * T * Co * xin.shape[2]
+                                    * (ups.w.shape[0] // ups.stride))}
+        for n, fl in fl_by.items():
+            if fl:
+                parts[n] = (nb_stage * fl / fl_stage, fl)
         for name, (nb, fl) in parts.items():
             t = tot[name]
             t["bound_ms"] += bound_ms(nb, fl)[0]
             t["bytes_ms"] += nb / HBM_BYTES_PER_S * 1e3
             t["ops_ms"] += fl / BF16_FLOPS * 1e3
+    torch.cuda.synchronize()
+
+    big = rows_b > 1  # fewer repeats at the serve windows' sizes
+    bf = torch.bfloat16
     for call in calls:
         name, x = call[0], call[1]
         t = tot[name]
-        if name == "mrf_conv":
-            _, _, cw, res, acc, s = call
-            Kt, Co, _ = cw.w.shape
-            kern = lambda: mrf.mrf_conv(x, cw, res, acc, s)
-            plain = lambda: mrf.mrf_conv_plain(x, cw, res, acc, s)
-            xt = x.transpose(1, 2).contiguous()
-            wf = cw.w.float().permute(1, 2, 0).contiguous()
-            pad = cw.dilation * (Kt - 1) // 2
-            lib = lambda: F.conv1d(xt, wf, cw.b, padding=pad, dilation=cw.dilation)
-            out_b = x.shape[0] * x.shape[1] * Co * 4 * (1 + (s != 0.0))
-            nb = nbytes(x, cw.w, cw.b, res, acc) + out_b
+        if name in ("mrf_conv", "mrf_pair"):
+            _, a, cws, res, acc, s, want_y, want_act = call
+            fn = mrf.mrf_conv if name == "mrf_conv" else mrf.mrf_pair
+            pfn = mrf.mrf_conv_plain if name == "mrf_conv" else mrf.mrf_pair_plain
+            kern = lambda: fn(a, *cws, res, acc, s, want_y, want_act)
+            plain_fn = lambda: pfn(a, *cws, res, acc, s, want_y, want_act)
+            # the library's inputs: the operand of each conv (for a pair, the
+            # plain first conv's output operand), channels first
+            ops_in = [a] if len(cws) == 1 else [a, mrf.mrf_conv_plain(a, cws[0], want_y=False,
+                                                                       want_act=True)[1]]
+            lib_args = []
+            for cw, op in zip(cws, ops_in):
+                Kt = cw.w.shape[0]
+                xt = op.transpose(1, 2).contiguous()
+                wt = cw.w.permute(1, 2, 0).contiguous()
+                lib_args.append((xt, wt, cw.b, cw.b.to(bf), cw.dilation * (Kt - 1) // 2,
+                                 cw.dilation))
+            lib32 = [(xt.float(), wt.float(), b, p, d) for xt, wt, b, _, p, d in lib_args]
+            lib = lambda: [F.conv1d(xt, wt, b, padding=p, dilation=d) for xt, wt, b, p, d in lib32]
+            lib_bf16 = lambda: [F.conv1d(xt, wt, b16, padding=p, dilation=d)
+                                for xt, wt, _, b16, p, d in lib_args]
+            Co = cws[-1].w.shape[1]
+            n_out = a.shape[0] * a.shape[1] * Co
+            nb = (nbytes(a, *(cw.wt for cw in cws), *(cw.b for cw in cws), res, acc)
+                  + n_out * (4 * want_y + 2 * want_act + 4 * (s != 0.0)))
+            w_shape = list(cws[0].w.shape)
         else:
-            _, _, uw = call
+            _, x, uw, want_act = call
             Kt, _, Co = uw.w.shape
-            kern = lambda: mrf.conv_transpose(x, uw)
-            plain = lambda: mrf.conv_transpose_plain(x, uw)
-            xt = x.transpose(1, 2).contiguous()
-            wf = uw.w.float().permute(1, 2, 0).contiguous()
-            lib = lambda: F.conv_transpose1d(xt, wf, uw.b, stride=uw.stride, padding=uw.padding)
+            kern = lambda: mrf.conv_transpose(x, uw, want_act)
+            plain_fn = lambda: mrf.conv_transpose_plain(x, uw, want_act)
+            xt = mrf.operand(x, bf).transpose(1, 2).contiguous()
+            xt32, wt = xt.float(), uw.w.permute(1, 2, 0).contiguous()
+            wt32 = wt.float()
+            lib = lambda: F.conv_transpose1d(xt32, wt32, uw.b, stride=uw.stride,
+                                             padding=uw.padding)
+            b16 = uw.b.to(bf)
+            lib_bf16 = lambda: F.conv_transpose1d(xt, wt, b16, stride=uw.stride,
+                                                  padding=uw.padding)
             Tout = (x.shape[1] - 1) * uw.stride - 2 * uw.padding + Kt
-            nb = nbytes(x, uw.w, uw.b) + x.shape[0] * Tout * Co * 4
-        ms = time_ms(kern, 5, 4)
+            nb = nbytes(x, uw.w_phase, uw.b) + x.shape[0] * Tout * Co * (4 + 2 * want_act)
+            w_shape = list(uw.w.shape)
+        reps = (2, 2) if big else (5, 4)
+        ms = time_ms(kern, *reps)
         traffic_ms = nb / HBM_BYTES_PER_S * 1e3
-        t.setdefault("per_call", []).append({"x": list(x.shape), "w": list(call[2].w.shape),
-                                             "ms": ms, "traffic_ms": traffic_ms})
+        t.setdefault("per_call", []).append({"x": list(x.shape), "w": w_shape, "ms": ms,
+                                             "traffic_ms": traffic_ms})
         t["ms"] += ms
-        if yardsticks:
-            t["plain_ms"] += time_ms(plain, 5, 4)
-            t["library_ms"] += time_ms(lib, 5, 4)
+        t["library_ms"] += time_ms(lib, *reps)
+        t["library_bf16_ms"] += time_ms(lib_bf16, *reps)
+        if plain:
+            t["plain_ms"] += time_ms(plain_fn, 5, 4)
             t["eager_ms"] += eager_ms(kern, 5)
         t["traffic_ms"] += traffic_ms
         t["calls"] += 1
     rows = []
-    # both wrappers replace the on-path stage kernels (u=8 :312, u=2 :378);
-    # the MRF without its upsample (:285) runs on mrf_conv alone
+    # the wrappers replace the on-path stage kernels (u=8 :312, u=2 :378);
+    # the MRF without its upsample (:285) runs on mrf_conv / mrf_pair alone
     replaces = "tacotron2_tpu/ops/mrf_pallas.py:312,378 (also :285)"
-    for name in ("mrf_conv", "conv_transpose"):
+    for name in names:
         t = tot[name]
+        if not t["calls"]:
+            continue
         rows.append({
             "name": name, "route": "cuda", "source": "tacotron2_tpu_torch/csrc/mrf.cu",
             "replaces": replaces,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
-            "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
-            "traffic_ms": t["traffic_ms"],
+            "library_ms": t["library_ms"], "library_bf16_ms": t["library_bf16_ms"],
+            "library": "F.conv1d / F.conv_transpose1d (two for a fused pair): f32 (TF32 off) "
+                       "on the kernel's bf16 operands; library_bf16_ms the same in bf16, bf16 "
+                       "output",
+            "eager_ms": t["eager_ms"], "traffic_ms": t["traffic_ms"],
             "per": f"one vocode of {Tb} frames at {rows_b} rows ({t['calls']} calls)",
             "per_call": t["per_call"],
         })
     return rows
+
+
+def k2_ab(hifigan, Tb: int) -> dict:
+    """``--k2-ab`` only (the smoke run does not repeat it): two of K2's
+    design choices, each measured in turns in one process on the card.
+
+    1. The N split: stage 1's 18 ``mrf_conv`` launches of a ``Tb``-frame
+       vocode at one row with the launcher's narrowest N tile
+       (``kMinSplitN`` in ``csrc/mrf.cu``) at 128 (no split), 64 (the
+       committed rule) and 32, each from a copy of the source built under
+       ``build/k2_ab/``: device time (graph replay) beside bf16 cuDNN on the
+       same operands, and whether the outputs equal 128's bit for bit.
+    2. The ResBlock1 pair fusion: a vocode's K2 stages at 1 and 64 rows with
+       each pair as one ``mrf_pair`` launch or as two ``mrf_conv`` launches
+       (``run_stage`` without its pair call): device times and bits."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from tacotron2_tpu_torch.models import layers
+    from tacotron2_tpu_torch.ops import build, mrf
+
+    line = "constexpr int kMinSplitN = 64;"
+    src = (build.CSRC / "mrf.cu").read_text()
+    if line not in src:
+        raise SmokeFailure(f"csrc/mrf.cu has no line {line!r} to vary")
+    jobs = {}
+    for n in (128, 64, 32):
+        d = ROOT / "build" / "k2_ab" / f"n{n}"
+        d.mkdir(parents=True, exist_ok=True)
+        for hdr in build.CSRC.glob("*.cuh"):
+            shutil.copy(hdr, d)
+        (d / "mrf.cu").write_text(src.replace(line, f"constexpr int kMinSplitN = {n};"))
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "libmrf.so"), str(d / "mrf.cu")]
+        jobs[n] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True))
+    libs = {}
+    for n, (d, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise SmokeFailure(f"nvcc failed for the kMinSplitN = {n} copy:\n{out}")
+        libs[n] = mrf.bind(ctypes.CDLL(str(d / "libmrf.so")))
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 4)
+    kw = hifigan.kernel_weights()
+    result = {}
+    try:
+        # 1. the N split, stage 1 at one row
+        rbs, ups = kw[0]
+        mel = torch.randn(1, Tb, hifigan.cfg.num_mels, device="cuda", generator=g)
+        x0 = layers.conv1d(mel, hifigan.conv_pre.weight, hifigan.conv_pre.bias, hifigan.policy,
+                           padding=3).contiguous()
+        xu, au = mrf.conv_transpose_plain(x0, ups, want_act=True)
+        xu, au = xu.contiguous(), au.contiguous()
+        convs = [cw for rb in rbs for pair in rb for cw in pair if cw is not None]
+        run = lambda: [mrf.mrf_conv(au, cw, xu, want_act=True) for cw in convs]
+        outs, ms = {}, {n: [] for n in libs}
+        for n in (128, 64, 32, 32, 64, 128):
+            mrf._LIB = libs[n]
+            outs[n] = run()
+            ms[n].append(time_ms(run, 10, 4))
+        xt = au.transpose(1, 2).contiguous()
+        lib_args = [(cw.w.permute(1, 2, 0).contiguous(), cw.b.to(torch.bfloat16),
+                     cw.dilation * (cw.w.shape[0] - 1) // 2, cw.dilation) for cw in convs]
+        lib_ms = time_ms(lambda: [F.conv1d(xt, w, b, padding=p, dilation=dl)
+                                  for w, b, p, dl in lib_args], 10, 4)
+        same = {n: all(torch.equal(a, b) for o, o128 in zip(outs[n], outs[128])
+                       for a, b in zip(o[:2], o128[:2])) for n in (64, 32)}
+        result["n_split"] = {"T": xu.shape[1], "ms": {f"N>={n}": v for n, v in ms.items()},
+                             "library_bf16_ms": lib_ms,
+                             "equal_bits_to_128": {f"N>={n}": v for n, v in same.items()}}
+        print(f"  stage 1's 18 mrf_conv at one row, T={xu.shape[1]}: "
+              + "; ".join(f"N >= {n}: " + " / ".join(f"{t:.4f}" for t in v) + " ms"
+                          for n, v in ms.items())
+              + f"; bf16 cuDNN {lib_ms:.4f} ms; bits equal to N = 128's: {same}")
+    finally:
+        mrf._LIB = None
+
+    # 2. the pair fusion, whole vocodes' K2 stages
+    for rows_b in (1, 64):
+        mel = torch.randn(rows_b, Tb, hifigan.cfg.num_mels, device="cuda", generator=g)
+        x0 = layers.conv1d(mel, hifigan.conv_pre.weight, hifigan.conv_pre.bias,
+                           hifigan.policy, padding=3).contiguous()
+
+        def vocode(pair):
+            x = x0
+            for rbs, ups in kw:
+                x = mrf.run_stage(x.contiguous(), rbs, ups, mrf.mrf_conv, mrf.conv_transpose,
+                                  pair)
+            return x
+
+        ms, outs = {"fused": [], "unfused": []}, {}
+        for key in ("fused", "unfused", "unfused", "fused"):
+            pair = mrf.mrf_pair if key == "fused" else None
+            ms[key].append(time_ms(lambda: vocode(pair), 3, 1 if rows_b > 1 else 4))
+            outs[key] = vocode(pair)
+        same = bool(torch.equal(outs["fused"], outs["unfused"]))
+        result[f"pairs_B{rows_b}"] = {**{f"{k}_ms": v for k, v in ms.items()},
+                                      "equal_bits": same}
+        print(f"  K2 stages of one vocode at {rows_b} rows, Tb={Tb}: pairs fused "
+              + " / ".join(f"{v:.3f}" for v in ms["fused"]) + " ms, as two launches "
+              + " / ".join(f"{v:.3f}" for v in ms["unfused"]) + f" ms; equal bits: {same}")
+    return result
 
 
 def kernel_split(fn) -> dict:
@@ -1293,6 +1574,7 @@ def say_phase(cfg_path: str, log: dict, card: str):
     from tacotron2_tpu_torch.audio.io import read_wav
     from tacotron2_tpu_torch.config import load_config
     from tacotron2_tpu_torch.convert import to_lightning
+    from tacotron2_tpu_torch.models import hifigan as hifigan_mod
     from tacotron2_tpu_torch.models.layers import F32
     from tacotron2_tpu_torch.ops import decoder_loop, encoder_lstm, mrf
     from tacotron2_tpu_torch.run.say import (cut_vocode, load_hifigan, load_tacotron,
@@ -1324,11 +1606,16 @@ def say_phase(cfg_path: str, log: dict, card: str):
     decoder_loop.reset_launches()
     mrf.reset_launches()
     encoder_lstm.reset_launches()
+    packs0 = hifigan_mod.PACK_CALLS[0]
     res = say("run", 256, wav_path)
     launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES,
                 "bilstm_forward": encoder_lstm.LAUNCHES["bilstm_forward"]}
+    packs = hifigan_mod.PACK_CALLS[0] - packs0
     print(f"  say 256: {res}")
-    print(f"  launches in that run: {launches}")
+    print(f"  launches in that run: {launches}; HiFi-GAN weight packings: {packs}")
+    check_vocode_launches(launches, 1, "say")
+    if packs != 1:
+        raise SmokeFailure(f"say packed the HiFi-GAN's weights {packs} times, want 1")
     if res["n_frames"] != 256:
         raise SmokeFailure(f"forced full decode gave {res['n_frames']} frames, want 256")
     for k, n in launches.items():
@@ -1437,6 +1724,7 @@ def say_int8_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) 
     print(f"  launches in that run: {launches}")
     if res["n_frames"] != 256:
         raise SmokeFailure(f"forced int8 decode gave {res['n_frames']} frames, want 256")
+    check_vocode_launches(launches, 1, "int8 say")
     if launches["lstm_cell_int8"] != 2 * 256 or launches["lstm_cell"] != 0:
         raise SmokeFailure(f"int8 say: K5 launched {launches['lstm_cell_int8']} times and K1's "
                            f"cell {launches['lstm_cell']}, want {2 * 256} and 0")
@@ -1520,6 +1808,7 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
     import numpy as np
 
     from tacotron2_tpu_torch.audio.io import read_wav
+    from tacotron2_tpu_torch.models import hifigan as hifigan_mod
     from tacotron2_tpu_torch.ops import decoder_loop, encoder_lstm, mrf
     from tacotron2_tpu_torch.run import server as srv
 
@@ -1582,6 +1871,7 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
         decoder_loop.reset_launches()
         mrf.reset_launches()
         encoder_lstm.reset_launches()
+        packs0 = hifigan_mod.PACK_CALLS[0]
         waves, calls = {}, {}
         for key, model, n in (("bf16_16", 0, 16), ("int8_16", 1, 16), ("bf16_64", 0, 64)):
             waves[key], *rest = wave(model, n)
@@ -1590,10 +1880,15 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
                 payloads, replies = rest
         launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES,
                     "bilstm_forward": encoder_lstm.LAUNCHES["bilstm_forward"]}
-        print(f"  launches in the waves: {launches}")
+        packs = hifigan_mod.PACK_CALLS[0] - packs0
+        print(f"  launches in the waves: {launches}; HiFi-GAN weight packings: {packs}")
         want = {"lstm_cell": 2 * 256 * calls[0], "lstm_cell_int8": 2 * 256 * calls[1]}
         if any(launches[k] != v for k, v in want.items()) or 0 in launches.values():
             raise SmokeFailure(f"serve launches {launches}, want {want} and every kernel")
+        check_vocode_launches(launches, sum(calls.values()), "serve waves")
+        if packs != 0:
+            raise SmokeFailure(f"the warm server packed the HiFi-GAN's weights {packs} times "
+                               "in the waves, want 0 (once per model, at its first request)")
 
         # batch invariance: two batched requests again, each alone
         invariance = []
@@ -1715,12 +2010,12 @@ def serve_checks(registry, log: dict) -> dict:
         def stage(x, rbs, ups=None):
             tag = f"[{len(done)}]@B{B}x{Tb}"
             if ups is not None:
-                check(f"conv_transpose{tag}", [("out", mrf.conv_transpose(x, ups),
-                                                mrf.conv_transpose_plain(x, ups))],
+                check(f"conv_transpose{tag}", [("out", mrf.conv_transpose(x, ups)[0],
+                                                mrf.conv_transpose_plain(x, ups)[0])],
                       K2_TOL, log, "conv_transpose")
             ref = mrf.plain_stage(x, rbs, ups)
             check(f"mrf_stage{tag}", [("out", mrf.mrf_stage(x, rbs, ups), ref)], K2_TOL, log,
-                  "mrf_conv")
+                  stage_kernel(rbs))
             done.append(tag)
             return ref
 
@@ -1821,6 +2116,16 @@ def main() -> int:
             for k, v in kernels.items():
                 print(f"    {name}: {k}: {v['registers']} registers, {v['smem']} bytes static "
                       f"smem, spills {v['spill_stores']} / {v['spill_loads']} bytes")
+        if "--k2-ab" in sys.argv[1:]:
+            torch.manual_seed(SEED + 1)
+            hifigan = HiFiGAN(HiFiGANConfig.from_dict(UNIVERSAL_V1),
+                              vocoder_policy(torch.device("cuda"))).cuda().eval()
+            Tb = -(-(255 + hifigan.mel_receptive_field()) // 128) * 128  # the say's bucket
+            print(f"[k2-ab] K2's design A/B on {card}")
+            OUT_DIR.mkdir(exist_ok=True)
+            (OUT_DIR / "k2_ab.json").write_text(json.dumps(
+                {"card": card, **k2_ab(hifigan, Tb)}, indent=1))
+            return 0
 
         cfg_path = str(ROOT / "config" / "vanilla-ljspeech-stop.json")
         cfg = load_config(cfg_path)
@@ -1837,15 +2142,23 @@ def main() -> int:
         for frames in (64, Tb):  # 64 frames, then the say's own bucket
             k2_phase(hifigan, log, frames)
         rows += k2_timing(hifigan, Tb)
-        # mrf_conv at the serve windows' shapes (16 and 64 rows, the say's
-        # bucket), kernel time and bound only
-        log["mrf_conv_serving"] = {}
+        # the dilated convs (mrf_conv and mrf_pair) at the serve windows'
+        # shapes (16 and 64 rows, the say's bucket): kernels, library calls
+        # and bound, summed over both kernels
+        log["k2_convs_serving"] = {}
         for rows_b in (16, 64):
-            r = next(x for x in k2_timing(hifigan, Tb, rows_b, False) if x["name"] == "mrf_conv")
-            log["mrf_conv_serving"][f"B{rows_b}"] = {k: r[k] for k in ("ms", "bound_ms", "bound_by",
-                                                                     "traffic_ms", "per")}
-            print(f"  mrf_conv at {rows_b} rows, Tb={Tb}: {r['ms']:.3f} ms, bound "
-                  f"{r['bound_ms']:.3f} ms ({r['bound_by']}) on {card}")
+            rs = [x for x in k2_timing(hifigan, Tb, rows_b, False)
+                  if x["name"] in ("mrf_conv", "mrf_pair")]
+            r = {k: sum(x[k] for x in rs) for k in ("ms", "bound_ms", "library_ms",
+                                                     "library_bf16_ms", "traffic_ms")}
+            r["per_kernel"] = {x["name"]: {k: x[k] for k in ("ms", "bound_ms", "library_ms",
+                                                             "library_bf16_ms", "per")}
+                               for x in rs}
+            log["k2_convs_serving"][f"B{rows_b}"] = r
+            print(f"  mrf_conv + mrf_pair at {rows_b} rows, Tb={Tb}: {r['ms']:.3f} ms ("
+                  + ", ".join(f"{n} {v['ms']:.3f}" for n, v in r["per_kernel"].items())
+                  + f"), bound {r['bound_ms']:.3f} ms, library f32 {r['library_ms']:.3f} ms, "
+                  f"bf16 {r['library_bf16_ms']:.3f} ms on {card}")
         print(f"[3b] K3 and K4 against their plain versions (B={TRAIN_B}, L={TRAIN_L}, "
               f"T={TRAIN_T})")
         rows += k34_phase(model, log)

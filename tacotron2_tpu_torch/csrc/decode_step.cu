@@ -9,7 +9,8 @@
 //   t2_prenet              prenet: 2 x (Linear, ReLU, x dropout mask)
 //   t2_lstm_cell           LSTM gate matvec + i/f/g/o nonlinearity + c/h
 //   t2_location_attention  query, folded location conv, tanh energies,
-//                          masked softmax, context, cumulative weights
+//                          masked softmax, context, cumulative weights, over
+//                          a thread-block cluster of S blocks per batch row
 //   t2_heads               mel + gate linear over [rnn_h | ctx]
 //   t2_decode_chunk        n steps of the four, five launches a step, from
 //                          one host call (the decode's main path)
@@ -21,7 +22,16 @@
 // (activations rounded as they are staged), sums f32, state f32.
 //
 // The location attention and heads kernels live in decode_common.cuh, which
-// K3 (train_decode.cu) shares. Every entry point launches on the given
+// K3 (train_decode.cu) shares. The attention is latency of dependent
+// phases: at batch 1 one block would stream the 256 KB query weight and run
+// the location conv, softmax and 512-wide context alone on one SM. Here a
+// cluster of S blocks takes each batch row (att_fwd_cluster_kernel, K3's
+// design): rank r computes A/S of the query and the energies of its slice
+// of chars, and the ranks combine the softmax's max and sum and the context
+// in rank order through distributed shared memory, with no atomics. S comes
+// from the model's dims and L alone (the wrapper's location_cluster_size),
+// never from the batch, so a row's sums run in the same order whatever
+// rows it shares a launch with. Every entry point launches on the given
 // stream, allocates nothing and returns cudaGetLastError().
 //
 // Kernel K5, the int8 mode of the same TPU kernel (pack_decoder_params(
@@ -48,6 +58,7 @@
 namespace {
 
 constexpr int kUnits = 4;         // hidden units per lstm_cell block
+
 
 // grid H / kUnits, block 4 * kUnits warps; warp w -> unit w / 4, gate w % 4
 __global__ void lstm_cell_kernel(const __nv_bfloat16* __restrict__ W, const float* __restrict__ bias,
@@ -222,6 +233,32 @@ __global__ void prenet_kernel(const float* __restrict__ mel, const __nv_bfloat16
 
 // ---- launchers (shared by the one-kernel entry points and the chunk) ----
 
+// K1's attention: blocks of 256 threads, or of 128 where the clusters are
+// more blocks than the card has SMs (the serve windows: 64 rows x S = 8).
+// The sums' order does not follow: while a rank has at most 128 chars, a
+// thread holds at most one char in the softmax's sums and the other sums
+// run per output, whatever the block size.
+int launch_k1_att(const void* h, const void* wq, const void* wloc, const void* wv,
+                  const void* att_enc, const void* enc, const void* lengths, const void* w_prev,
+                  const void* cum_prev, void* ctx_out, void* w_out, void* cum_out, int B, int L,
+                  int H, int A, int D, int K, int S, cudaStream_t stream) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  if (S < 1) return (int)cudaErrorInvalidValue;
+  if ((long long)B * S > sms && (L + S - 1) / S <= 128)
+    return launch_att_fwd<float, float, 128>(h, H, wq, wloc, wv, att_enc, enc, lengths, w_prev,
+                                             cum_prev, w_out, cum_out, ctx_out, D, nullptr, 0,
+                                             B, S, L, H, A, D, K, false, stream);
+  return launch_att_fwd<float, float, 256>(h, H, wq, wloc, wv, att_enc, enc, lengths, w_prev,
+                                           cum_prev, w_out, cum_out, ctx_out, D, nullptr, 0, B,
+                                           S, L, H, A, D, K, false, stream);
+}
+
 int launch_lstm_cell(const void* w, const void* b, const void* x1, int n1, const void* x2,
                      int n2, const void* x3, int n3, const void* c_in, void* h_out, void* c_out,
                      int B, int H, cudaStream_t stream) {
@@ -285,14 +322,15 @@ int t2_prenet(const void* mel, const void* w1t, const void* w2t, const void* m1,
   return launch_prenet(mel, M, w1t, w2t, m1, m2, out, B, M, P, (cudaStream_t)stream);
 }
 
+// the attention over a cluster of S blocks per batch row: h (B, H), ctx_out
+// (B, D) f32
 int t2_location_attention(const void* h, const void* wq, const void* wloc, const void* wv,
                           const void* att_enc, const void* enc, const void* lengths,
                           const void* w_prev, const void* cum_prev, void* ctx_out, void* w_out,
-                          void* cum_out, int B, int L, int H, int A, int D, int K,
+                          void* cum_out, int B, int L, int H, int A, int D, int K, int S,
                           void* stream) {
-  return launch_location_attention(h, wq, wloc, wv, att_enc, enc, lengths, w_prev, cum_prev,
-                                   ctx_out, w_out, cum_out, B, L, H, A, D, K,
-                                   (cudaStream_t)stream);
+  return launch_k1_att(h, wq, wloc, wv, att_enc, enc, lengths, w_prev, cum_prev, ctx_out, w_out,
+                       cum_out, B, L, H, A, D, K, S, (cudaStream_t)stream);
 }
 
 // n decode steps, five launches each, from one host call. Pointer slots:
@@ -306,12 +344,14 @@ int t2_location_attention(const void* h, const void* wq, const void* wloc, const
 //   p[33..34] int8 mode only: the gate-row scales of w_att and w_dec, (4H,) f32
 // Step t writes slot t % 2 and reads slot (t - 1) % 2 (the state in at t = 0);
 // the previous attention weights and mel are the aligns and mel_gate rows of
-// step t - 1. d = {n, B, M, P, H, D, L, A, K, int8}: with int8 != 0, w_att
-// and w_dec are int8 and both LSTM cells run on K5.
+// step t - 1. d = {n, B, M, P, H, D, L, A, K, int8, S}: with int8 != 0, w_att
+// and w_dec are int8 and both LSTM cells run on K5; S blocks per batch row in
+// the attention's cluster.
 int t2_decode_chunk(void** p, const int* d, void* stream_) {
   const int n = d[0], B = d[1], M = d[2], P = d[3], H = d[4], D = d[5], L = d[6], A = d[7],
             K = d[8], N = M + 1;
   const bool int8 = d[9] != 0;
+  const int S = d[10];
   cudaStream_t stream = (cudaStream_t)stream_;
   auto cell = [&](int w, int b, int scale, const void* x1, int n1, const void* x2, int n2,
                   const void* x3, int n3, const void* c_in, void* h_out, void* c_out) {
@@ -341,9 +381,9 @@ int t2_decode_chunk(void** p, const int* d, void* stream_) {
     if (!err)
       err = cell(0, 1, 33, p[26], P, ctx, D, att_h, H, att_c, slot(27, t, H), slot(28, t, H));
     if (!err)
-      err = launch_location_attention(slot(27, t, H), p[6], p[7], p[8], p[11], p[12], p[13],
-                                      att_w, cum, slot(29, t, D), al + (size_t)t * B * L,
-                                      slot(30, t, L), B, L, H, A, D, K, stream);
+      err = launch_k1_att(slot(27, t, H), p[6], p[7], p[8], p[11], p[12], p[13], att_w, cum,
+                          slot(29, t, D), al + (size_t)t * B * L, slot(30, t, L), B, L, H, A, D,
+                          K, S, stream);
     if (!err)
       err = cell(2, 3, 34, slot(27, t, H), H, slot(29, t, D), D, rnn_h, H, rnn_c,
                  slot(31, t, H), slot(32, t, H));

@@ -23,6 +23,8 @@ from tacotron2_tpu_torch.models.layers import F32, Policy
 from tacotron2_tpu_torch.models.resblock import ResBlock1, ResBlock2
 from tacotron2_tpu_torch.ops.mrf import mrf_stage, pack_upsample
 
+PACK_CALLS = [0]  # packings of a generator's weights for the kernels: once per model
+
 
 @dataclasses.dataclass(frozen=True)
 class HiFiGANConfig:
@@ -84,6 +86,7 @@ class HiFiGAN(nn.Module):
             for kr, dil in zip(c.resblock_kernel_sizes, c.resblock_dilation_sizes):
                 self.resblocks.append(block(ch, kr, dil))
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
+        self._packed = None
 
     def mel_receptive_field(self) -> int:
         """One-sided receptive field of the generator in mel frames."""
@@ -100,14 +103,28 @@ class HiFiGAN(nn.Module):
 
     def kernel_weights(self):
         """Per stage: (resblock weights, upsample weights) in the kernels'
-        layouts and the policy's compute type."""
-        dt = self.policy.compute_dtype
-        n = len(self.cfg.resblock_kernel_sizes)
-        return [
-            ([rb.kernel_weights(dt) for rb in self.resblocks[i * n:(i + 1) * n]],
-             pack_upsample(up, dt))
-            for i, up in enumerate(self.ups)
-        ]
+        layouts (``mrf_conv``'s tiled copies included) and the policy's
+        compute type. Packed at the first call and kept: a model moved to
+        another device or given new weights packs again."""
+        if self._packed is None:
+            PACK_CALLS[0] += 1
+            dt = self.policy.compute_dtype
+            n = len(self.cfg.resblock_kernel_sizes)
+            with torch.no_grad():
+                self._packed = [
+                    ([rb.kernel_weights(dt) for rb in self.resblocks[i * n:(i + 1) * n]],
+                     pack_upsample(up, dt))
+                    for i, up in enumerate(self.ups)
+                ]
+        return self._packed
+
+    def _apply(self, fn, *args, **kwargs):  # .to(), .cuda(), .float(), ...
+        self._packed = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def load_state_dict(self, *args, **kwargs):
+        self._packed = None
+        return super().load_state_dict(*args, **kwargs)
 
     @torch.no_grad()
     def apply(self, mel: torch.Tensor, stage=mrf_stage) -> torch.Tensor:

@@ -14,7 +14,12 @@ kernels over the whole card (``csrc/decode_step.cu``):
   update fused;
 - ``location_attention``: query projection, the 31-tap location conv folded
   with its dense layer into one (A, 2, 31) weight, tanh energies, the
-  masked softmax, the context and the cumulative weights;
+  masked softmax, the context and the cumulative weights, over a
+  thread-block cluster of ``location_cluster_size`` blocks per batch row
+  (K3's cluster attention: each rank computes A/S of the query and the
+  energies of its slice of chars; the softmax and the context are combined
+  in rank order, so the sums' order depends on L and the dims, never on
+  the batch);
 - ``heads``: the mel and gate linear over [rnn_h, ctx].
 
 What bounds a step at batch 1: the bytes of the bf16 LSTM weights,
@@ -158,6 +163,42 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) ->
 # ---------------------------------------------------------------------------
 
 
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+K1_MIN_CHARS = 8  # chars per rank below which K1's cluster is halved
+
+
+def _cluster_dims_ok(S: int, H: int, A: int, D: int, K: int) -> bool:
+    return (S in (1, 2, 4, 8) and A % S == 0 and H % (8 * S) == 0 and D % S == 0
+            and A % 4 == 0 and 512 % A == 0 and D % 8 == 0 and K % 2 == 1)
+
+
+def check_cluster_dims(S: int, H: int, A: int, D: int, K: int) -> None:
+    """Raise unless the attention's cluster split takes these dims: each
+    rank computes A/S of the query, sums D/S of the context and pulls H/S
+    of the query's input in 16-byte groups; a block of 512 threads takes A
+    (dividing 512) in groups of 4; the location window is centred (K odd)."""
+    if S not in (1, 2, 4, 8):
+        raise ValueError(f"cluster size {S}: want 1, 2, 4 or 8")
+    if not _cluster_dims_ok(S, H, A, D, K):
+        raise ValueError(f"the cluster attention takes A % S == D % S == H % (8 S) == 0, "
+                         f"A % 4 == 0, A | 512, D % 8 == 0 and K odd: got S={S}, H={H}, A={A}, "
+                         f"D={D}, K={K}")
+
+
+def location_cluster_size(L: int, H: int, A: int, D: int, K: int) -> int:
+    """Blocks per batch row of K1's attention: the largest power of two up
+    to ``MAX_CLUSTER`` that ``check_cluster_dims`` takes and that leaves
+    each rank at least ``K1_MIN_CHARS`` chars, at least 1. It reads the
+    dims and L only: a row's softmax and context sums run in one order
+    whatever rows share its launch (S = 8 at the flagship dims for L >=
+    57, so at the say's 96 chars and the server's 128-char buckets)."""
+    check_cluster_dims(1, H, A, D, K)
+    s = MAX_CLUSTER
+    while s > 1 and not (_cluster_dims_ok(s, H, A, D, K) and -(-L // s) >= K1_MIN_CHARS):
+        s //= 2
+    return s
+
+
 def _acc(t: torch.Tensor) -> torch.Tensor:
     """A weight in its sum type: f32, or f64 for f64 weights (the
     gradient checks run the plain versions in f64)."""
@@ -231,7 +272,7 @@ def _lib():
         lib.t2_prenet.argtypes = [P] * 6 + [I] * 3 + [P]
         lib.t2_lstm_cell.argtypes = [P, P, P, I, P, I, P, I, P, P, P, I, I, P]
         lib.t2_lstm_cell_int8.argtypes = [P, P, P, P, I, P, I, P, I, P, P, P, I, I, P]
-        lib.t2_location_attention.argtypes = [P] * 12 + [I] * 6 + [P]
+        lib.t2_location_attention.argtypes = [P] * 12 + [I] * 7 + [P]
         lib.t2_heads.argtypes = [P, P, P, I, P, I, P, I, I, P]
         lib.t2_decode_chunk.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I), P]
         for fn in (lib.t2_prenet, lib.t2_lstm_cell, lib.t2_lstm_cell_int8,
@@ -329,6 +370,7 @@ def location_attention(h, wq, w_loc, wv, att_enc, encoded, lengths, w_prev, cum_
     build.require(lengths, torch.int32, (B,), "lengths")
     build.require(w_prev, torch.float32, (B, L), "w_prev")
     build.require(cum_prev, torch.float32, (B, L), "cum_prev")
+    S = location_cluster_size(L, H, A, D, K)
     ctx = torch.empty(B, D, device=h.device)
     w = torch.empty(B, L, device=h.device)
     cum = torch.empty(B, L, device=h.device)
@@ -337,7 +379,7 @@ def location_attention(h, wq, w_loc, wv, att_enc, encoded, lengths, w_prev, cum_
         h.data_ptr(), wq.data_ptr(), w_loc.data_ptr(), wv.data_ptr(),
         att_enc.data_ptr(), encoded.data_ptr(), lengths.data_ptr(),
         w_prev.data_ptr(), cum_prev.data_ptr(), ctx.data_ptr(), w.data_ptr(),
-        cum.data_ptr(), B, L, H, A, D, K, _stream()), "location_attention")
+        cum.data_ptr(), B, L, H, A, D, K, S, _stream()), "location_attention")
     return ctx, w, cum
 
 
@@ -452,7 +494,8 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
                pp["att_h"], pp["att_c"], pp["ctx"], pp["att_cum"], pp["rnn_h"], pp["rnn_c"],
                *(t for _, t, _, _ in scales))
     ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
-    dims = (ctypes.c_int * 10)(n, B, M, Pd, H, D, L, A, K, int(pk.quantized))
+    dims = (ctypes.c_int * 11)(n, B, M, Pd, H, D, L, A, K, int(pk.quantized),
+                               location_cluster_size(L, H, A, D, K))
     build.count(LAUNCHES, "prenet", n)
     build.count(LAUNCHES, "lstm_cell_int8" if pk.quantized else "lstm_cell", 2 * n)
     build.count(LAUNCHES, "location_attention", n)

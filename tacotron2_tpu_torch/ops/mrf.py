@@ -16,20 +16,40 @@ input once and writing its output once -- is bound by operations: a
 UNIVERSAL_V1 vocode does 18 convs of 2*k*C*C flops per output sample in
 each of its four stages, about 0.6 GFLOP per mel frame (~0.6 us/frame at
 989 TFLOP/s bf16). This design runs one launch per conv, so every conv
-also reads and writes its f32 activations in device memory: that traffic
-is the cost of the design, not part of the bound (``chip_smoke.py``
-reports both). A stage-fused kernel that keeps the activations on chip is
-the redesign that removes it.
+also reads and writes its activations in device memory: that traffic is
+the cost of the design, not part of the bound (``chip_smoke.py`` reports
+both). A stage-fused kernel that keeps the activations on chip is the
+redesign that removes it.
 
-The design: ``mrf_conv`` is an implicit GEMM on the tensor cores
-(``mma.sync`` m16n8k16, bf16 operands, f32 accumulation) over a 64-row x
-32-channel output tile; the input tile with its dilated halo is staged in
-shared memory once per 32-channel slice and reused by every tap; the leaky
-ReLU is applied as the tile is loaded, and bias, residual and the 1/n-scaled
-sum into the stage mean are applied in the epilogue, so no separate
-elementwise pass goes through device memory. ``conv_transpose`` runs on the
-same kernel: a transposed conv of stride u is u plain convs of k/u taps, one
-per output phase, written with stride u (``make_upsample`` packs the taps).
+The design. A conv's input reaches it only through its prologue
+``bf16(lrelu(x))``, so every producer writes that bf16 operand for the
+next conv (``act``) and f32 only where f32 is read: the residual stream
+``z`` (the residual add and the stage mean) and the stage mean itself. The
+intermediate of a ResBlock1 pair is written as its operand alone, and the
+last conv of a resblock writes only the stage mean. This is exact: the
+operand is what the next conv's prologue would compute (``plain_stage``
+and ``side_output_stage`` agree bit for bit).
+
+``mrf_conv`` is an implicit GEMM on Hopper's warpgroup products (``wgmma``
+m64nNk16, bf16 operands, f32 sums; N = 128, 64 or 32 output channels by
+Co, or 64 of 128 where the grid would leave SMs idle) over blocks of 128 or
+256 samples: the operand's slice of 64 input
+channels with its dilated halo comes by TMA from a 3-D (B, T, C) tensor
+map (rows outside the batch row read zero) into the no-swizzle core-matrix
+layout, where every tap's descriptor starts at its own row; the weights of
+each (slice, tap) come by bulk copy through a 4-stage mbarrier ring from a
+copy tiled once at load (``tile_conv``). Bias, residual, the next conv's
+operand and the 1/n-scaled sum into the stage mean are the epilogue. Each
+output's sum runs in one order whatever the batch, length or tile.
+``mrf_pair`` runs a ResBlock1 pair (C up to 128) as one launch of the same
+kernel: the first conv over the block's rows and the second conv's halo,
+its operand kept in shared memory, then the second conv; its outputs equal
+the two launches' bit for bit. ``mrf_stage`` fuses every pair it takes:
+45 launches a UNIVERSAL_V1 vocode instead of 72.
+``conv_transpose`` runs on an ``mma.sync`` kernel: a transposed conv of
+stride u is u plain convs of k/u taps, one per output phase, written with
+stride u (``make_upsample`` packs the taps); it also writes its output's
+operand.
 
 Each wrapper runs its plain PyTorch version for CPU tensors only; a CUDA
 tensor launches the kernel or raises.
@@ -47,7 +67,7 @@ from tacotron2_tpu_torch.models import layers
 from tacotron2_tpu_torch.ops import build
 
 LRELU_SLOPE = 0.1
-LAUNCHES = {"mrf_conv": 0, "conv_transpose": 0}
+LAUNCHES = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0}
 
 
 def reset_launches() -> None:
@@ -59,6 +79,7 @@ class ConvWeights(NamedTuple):
     w: torch.Tensor  # (K, Co, Ci) tap-major
     b: torch.Tensor  # (Co,) f32
     dilation: int
+    wt: Optional[torch.Tensor] = None  # the kernel's tiled copy of w (tile_conv)
 
 
 class UpsampleWeights(NamedTuple):
@@ -74,10 +95,53 @@ class UpsampleWeights(NamedTuple):
 ResBlockWeights = List[Tuple[ConvWeights, Optional[ConvWeights]]]
 
 
+def conv_tiles(Co: int, Ci: int) -> Tuple[int, int]:
+    """(NI, KC) of ``mrf_conv``'s weight copy: output channels per N tile
+    (128, 64 or 32; a block's wgmma takes the tile or, where the grid is
+    small, half of it) and input channels per staged slice (64 or 32). The
+    kernel takes Co and Ci that are multiples of 32."""
+    if Co % 32 or Ci % 32:
+        raise ValueError(f"mrf_conv takes channels that are multiples of 32, got Co={Co}, Ci={Ci}")
+    return (128 if Co % 128 == 0 else 64 if Co % 64 == 0 else 32), (64 if Ci % 64 == 0 else 32)
+
+
+def tile_offset(j, co, ci, K: int, Co: int, Ci: int):
+    """Element offset of w[j, co, ci] in ``tile_conv``'s copy, as the kernel
+    addresses it (ints, or integer tensors that broadcast): N tile co // NI,
+    slice ci // KC, tap j, then the tile (NI x KC) as 8-channel groups of
+    rows of 8, [KC / 8][NI][8] (the no-swizzle core-matrix layout of a
+    K-major wgmma operand)."""
+    NI, KC = conv_tiles(Co, Ci)
+    tile = ((co // NI) * (Ci // KC) + ci // KC) * K + j
+    return tile * NI * KC + ((ci % KC) // 8) * NI * 8 + (co % NI) * 8 + ci % 8
+
+
+def tile_conv(w: torch.Tensor) -> torch.Tensor:
+    """(K, Co, Ci) tap-major weights -> the kernel's tiled copy, shape
+    (Co / NI, Ci / KC, K, KC / 8, NI, 8) (``tile_offset``): one contiguous
+    NI x KC tile per (N tile, slice, tap), each one bulk copy."""
+    K, Co, Ci = w.shape
+    NI, KC = conv_tiles(Co, Ci)
+    t = w.reshape(K, Co // NI, NI, Ci // KC, KC // 8, 8)  # (j, nt, co, s, g, e)
+    return t.permute(1, 3, 0, 4, 2, 5).contiguous()
+
+
+def read_tiled(wt: torch.Tensor, K: int, Co: int, Ci: int) -> torch.Tensor:
+    """The (K, Co, Ci) weights back from a tiled copy, every element read at
+    its ``tile_offset`` (the plain reader of the kernel's layout)."""
+    j = torch.arange(K)[:, None, None]
+    co = torch.arange(Co)[None, :, None]
+    ci = torch.arange(Ci)[None, None, :]
+    return wt.reshape(-1)[tile_offset(j, co, ci, K, Co, Ci)]
+
+
 def pack_conv(conv, dtype: torch.dtype) -> ConvWeights:
-    """nn.Conv1d (torch (Co, Ci, K)) -> the kernel's tap-major layout."""
-    return ConvWeights(conv.weight.detach().permute(2, 0, 1).to(dtype).contiguous(),
-                       conv.bias.detach().float().contiguous(), int(conv.dilation[0]))
+    """nn.Conv1d (torch (Co, Ci, K)) -> the kernels' layouts: tap-major, and
+    the tiled copy where the channels take it (multiples of 32)."""
+    w = conv.weight.detach().permute(2, 0, 1).to(dtype).contiguous()
+    K, Co, Ci = w.shape
+    wt = tile_conv(w) if Co % 32 == 0 and Ci % 32 == 0 else None
+    return ConvWeights(w, conv.bias.detach().float().contiguous(), int(conv.dilation[0]), wt)
 
 
 def make_upsample(w: torch.Tensor, b: torch.Tensor, stride: int,
@@ -110,28 +174,50 @@ def pack_upsample(convt, dtype: torch.dtype) -> UpsampleWeights:
 # ---------------------------------------------------------------------------
 
 
-def _lrelu_rounded(x, w):
-    """The kernels' prologue: leaky ReLU, then the operand rounded to the
-    weights' type (bf16 on the card)."""
-    return F.leaky_relu(x, LRELU_SLOPE).to(w.dtype).float()
+def operand(x, dtype: torch.dtype):
+    """A conv's operand, the kernels' prologue: ``lrelu(x)`` rounded to
+    ``dtype``, the weights' type (bf16 on the card), kept in that type."""
+    return F.leaky_relu(x, LRELU_SLOPE).to(dtype)
 
 
-def mrf_conv_plain(x, cw: ConvWeights, res=None, acc=None, acc_scale: float = 0.0):
-    """y = conv(lrelu(x)) + b (+ res), SAME padding with dilation; returns
-    (y, acc + acc_scale * y) -- the second is None when acc_scale == 0."""
-    y = layers.conv1d(_lrelu_rounded(x, cw.w), cw.w.float().permute(1, 2, 0), cw.b,
-                      padding="SAME", dilation=cw.dilation)
+def mrf_conv_plain(a, cw: ConvWeights, res=None, acc=None, acc_scale: float = 0.0,
+                   want_y: bool = True, want_act: bool = False):
+    """From the operand ``a = operand(x, w.dtype)``: v = conv(a) + b (+ res),
+    SAME padding with dilation -> (v or None, operand(v) or None, acc +
+    acc_scale * v or None), the last None when acc_scale == 0."""
+    v = layers.conv1d(a.float(), cw.w.float().permute(1, 2, 0), cw.b, padding="SAME",
+                      dilation=cw.dilation)
     if res is not None:
-        y = y + res
-    if acc_scale == 0.0:
-        return y, None
-    return y, (acc_scale * y if acc is None else acc + acc_scale * y)
+        v = v + res
+    acc_out = None
+    if acc_scale != 0.0:
+        acc_out = acc_scale * v if acc is None else acc + acc_scale * v
+    return (v if want_y else None, operand(v, cw.w.dtype) if want_act else None, acc_out)
 
 
-def conv_transpose_plain(x, uw: UpsampleWeights):
-    """ConvTranspose1d(lrelu(x)) over channels-last x."""
-    return layers.conv_transpose1d(_lrelu_rounded(x, uw.w), uw.w.float().permute(1, 2, 0),
-                                   uw.b, uw.stride, uw.padding)
+def mrf_pair_plain(a, c1: ConvWeights, c2: ConvWeights, res=None, acc=None,
+                   acc_scale: float = 0.0, want_y: bool = True, want_act: bool = False):
+    """A ResBlock1 pair from the operand ``a``: ``mrf_conv_plain`` of c2 on
+    the operand of c1's output, with c2's epilogue."""
+    _, at, _ = mrf_conv_plain(a, c1, want_y=False, want_act=True)
+    return mrf_conv_plain(at, c2, res, acc, acc_scale, want_y, want_act)
+
+
+def pair_fusable(c1: ConvWeights, c2: Optional[ConvWeights]) -> bool:
+    """Whether ``mrf_pair`` takes the pair: a second conv of dilation 1 and
+    the first's shape, C = Ci = Co at most 128 (one N tile)."""
+    if c2 is None or c2.dilation != 1 or c1.w.shape != c2.w.shape:
+        return False
+    K, Co, Ci = c1.w.shape
+    return Co == Ci and Co % 32 == 0 and conv_tiles(Co, Ci)[0] == Co
+
+
+def conv_transpose_plain(x, uw: UpsampleWeights, want_act: bool = False):
+    """ConvTranspose1d(lrelu(x)) over channels-last x -> (y, operand(y) or
+    None)."""
+    y = layers.conv_transpose1d(operand(x, uw.w.dtype).float(), uw.w.float().permute(1, 2, 0),
+                                uw.b, uw.stride, uw.padding)
+    return y, (operand(y, uw.w.dtype) if want_act else None)
 
 
 # ---------------------------------------------------------------------------
@@ -143,50 +229,94 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a loaded build of ``csrc/mrf.cu``."""
+    lib.t2_mrf_conv.argtypes = [P] * 8 + [I] * 7 + [ctypes.c_float, P]
+    lib.t2_mrf_pair.argtypes = [P] * 10 + [I] * 6 + [ctypes.c_float, P]
+    lib.t2_conv_transpose.argtypes = [P] * 5 + [I] * 8 + [P]
+    for fn in (lib.t2_mrf_conv, lib.t2_mrf_pair, lib.t2_conv_transpose):
+        fn.restype = I
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = build.load("mrf")
-        lib.t2_mrf_conv.argtypes = [P] * 7 + [I] * 7 + [ctypes.c_float, P]
-        lib.t2_conv_transpose.argtypes = [P] * 4 + [I] * 8 + [P]
-        lib.t2_mrf_conv.restype = I
-        lib.t2_conv_transpose.restype = I
-        _LIB = lib
+        _LIB = bind(build.load("mrf"))
     return _LIB
 
 
-def mrf_conv(x, cw: ConvWeights, res=None, acc=None, acc_scale: float = 0.0):
-    """Dilated SAME conv with the leaky-ReLU prologue and the bias, residual
-    and stage-mean epilogue; see ``mrf_conv_plain``."""
-    if x.device.type == "cpu":
-        return mrf_conv_plain(x, cw, res, acc, acc_scale)
-    B, T, Ci = x.shape
+def _require_conv(cw: ConvWeights, Ci: int, name: str):
     K, Co, _ = cw.w.shape
-    build.require(x, torch.float32, (B, T, Ci), "x")
-    build.require(cw.w, torch.bfloat16, (K, Co, Ci), "w")
-    build.require(cw.b, torch.float32, (Co,), "b")
+    if cw.wt is None:
+        raise ValueError(f"{name}: the weights have no tiled copy (pack_conv, tile_conv)")
+    NI, KC = conv_tiles(Co, Ci)
+    build.require(cw.wt, torch.bfloat16, (Co // NI, Ci // KC, K, KC // 8, NI, 8), f"{name}.wt")
+    build.require(cw.b, torch.float32, (Co,), f"{name}.b")
+
+
+def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act):
+    """``mrf_conv`` (c2 None) or ``mrf_pair``: check, allocate, launch."""
+    B, T, Ci = a.shape
+    K, Co, _ = c1.w.shape
+    bf = torch.bfloat16
+    build.require(a, bf, (B, T, Ci), "a")
+    _require_conv(c1, Ci, name)
+    if c2 is not None:
+        if not pair_fusable(c1, c2):
+            raise ValueError(f"mrf_pair takes a pair of (K, C, C) convs, C <= 128, the second "
+                             f"of dilation 1: got {tuple(c1.w.shape)}, {tuple(c2.w.shape)}, "
+                             f"dilation {c2.dilation}")
+        _require_conv(c2, Co, name)
     if res is not None:
         build.require(res, torch.float32, (B, T, Co), "res")
     if acc is not None:
         build.require(acc, torch.float32, (B, T, Co), "acc")
-    y = torch.empty(B, T, Co, device=x.device)
-    acc_out = torch.empty(B, T, Co, device=x.device) if acc_scale != 0.0 else None
+    if not (want_y or want_act or acc_scale != 0.0):
+        raise ValueError(f"{name}: no output asked for")
+    y = torch.empty(B, T, Co, device=a.device) if want_y else None
+    act = torch.empty(B, T, Co, device=a.device, dtype=bf) if want_act else None
+    acc_out = torch.empty(B, T, Co, device=a.device) if acc_scale != 0.0 else None
     mode = 0 if acc_out is None else (1 if acc is None else 2)
-    build.count(LAUNCHES, "mrf_conv")
-    build.check(_lib().t2_mrf_conv(
-        x.data_ptr(), cw.w.data_ptr(), cw.b.data_ptr(),
-        0 if res is None else res.data_ptr(),
-        0 if acc is None else acc.data_ptr(),
-        0 if acc_out is None else acc_out.data_ptr(), y.data_ptr(),
-        B, T, Ci, Co, K, cw.dilation, mode, ctypes.c_float(acc_scale),
-        torch.cuda.current_stream().cuda_stream), "mrf_conv")
-    return y, acc_out
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    build.count(LAUNCHES, name)
+    if c2 is None:
+        err = _lib().t2_mrf_conv(a.data_ptr(), c1.wt.data_ptr(), c1.b.data_ptr(), ptr(res),
+                                 ptr(acc), ptr(acc_out), ptr(y), ptr(act), B, T, Ci, Co, K,
+                                 c1.dilation, mode, ctypes.c_float(acc_scale), stream)
+    else:
+        err = _lib().t2_mrf_pair(a.data_ptr(), c1.wt.data_ptr(), c1.b.data_ptr(),
+                                 c2.wt.data_ptr(), c2.b.data_ptr(), ptr(res), ptr(acc),
+                                 ptr(acc_out), ptr(y), ptr(act), B, T, Ci, K, c1.dilation, mode,
+                                 ctypes.c_float(acc_scale), stream)
+    build.check(err, name)
+    return y, act, acc_out
 
 
-def conv_transpose(x, uw: UpsampleWeights):
-    """ConvTranspose1d(lrelu(x)); see ``conv_transpose_plain``."""
+def mrf_conv(a, cw: ConvWeights, res=None, acc=None, acc_scale: float = 0.0,
+             want_y: bool = True, want_act: bool = False):
+    """Dilated SAME conv of the bf16 operand ``a`` with the bias, residual,
+    next-operand and stage-mean epilogue; see ``mrf_conv_plain``."""
+    if a.device.type == "cpu":
+        return mrf_conv_plain(a, cw, res, acc, acc_scale, want_y, want_act)
+    return _launch_conv("mrf_conv", a, cw, None, res, acc, acc_scale, want_y, want_act)
+
+
+def mrf_pair(a, c1: ConvWeights, c2: ConvWeights, res=None, acc=None, acc_scale: float = 0.0,
+             want_y: bool = True, want_act: bool = False):
+    """A ResBlock1 pair in one launch, its intermediate kept in shared
+    memory; see ``mrf_pair_plain``."""
+    if a.device.type == "cpu":
+        return mrf_pair_plain(a, c1, c2, res, acc, acc_scale, want_y, want_act)
+    return _launch_conv("mrf_pair", a, c1, c2, res, acc, acc_scale, want_y, want_act)
+
+
+def conv_transpose(x, uw: UpsampleWeights, want_act: bool = False):
+    """ConvTranspose1d(lrelu(x)) -> (y, operand(y) or None); see
+    ``conv_transpose_plain``."""
     if x.device.type == "cpu":
-        return conv_transpose_plain(x, uw)
+        return conv_transpose_plain(x, uw, want_act)
     B, Tin, Ci = x.shape
     K, _, Co = uw.w.shape
     u = uw.stride
@@ -195,12 +325,13 @@ def conv_transpose(x, uw: UpsampleWeights):
     build.require(uw.b, torch.float32, (Co,), "b")
     Tout = (Tin - 1) * uw.stride - 2 * uw.padding + K
     y = torch.empty(B, Tout, Co, device=x.device)
+    act = torch.empty(B, Tout, Co, device=x.device, dtype=torch.bfloat16) if want_act else None
     build.count(LAUNCHES, "conv_transpose")
     build.check(_lib().t2_conv_transpose(
         x.data_ptr(), uw.w_phase.data_ptr(), uw.b.data_ptr(), y.data_ptr(),
-        B, Tin, Tout, Ci, Co, K, uw.stride, uw.padding,
+        0 if act is None else act.data_ptr(), B, Tin, Tout, Ci, Co, K, uw.stride, uw.padding,
         torch.cuda.current_stream().cuda_stream), "conv_transpose")
-    return y
+    return y, act
 
 
 # ---------------------------------------------------------------------------
@@ -209,35 +340,70 @@ def conv_transpose(x, uw: UpsampleWeights):
 
 
 def run_stage(x, resblocks: Sequence[ResBlockWeights],
-              upsample: Optional[UpsampleWeights], conv, conv_t):
-    """The stage over the given conv callables (the wrappers, or timing
-    hooks that call them)."""
+              upsample: Optional[UpsampleWeights], conv, conv_t, pair=None):
+    """The stage over the given conv callables (the wrappers, their plain
+    versions, or timing hooks that call them), passing each conv's operand
+    to the next: a ResBlock1 pair's intermediate as its operand only, the
+    residual stream as f32 and operand, and the last conv of a resblock as
+    its share of the stage mean only; ``pair``, where given, runs each
+    ResBlock1 pair that ``pair_fusable`` takes as one call. A stage without
+    its upsample makes its first operand with ``operand`` (PyTorch; the
+    vocoder always runs the upsample, whose kernel writes it)."""
     if upsample is not None:
-        x = conv_t(x, upsample)
+        x, a = conv_t(x, upsample, want_act=True)
+    else:
+        x = x.contiguous()
+        a = operand(x, resblocks[0][0][0].w.dtype)
     scale = 1.0 / len(resblocks)
     acc = None
     for rb in resblocks:
-        z = x
+        z, az = x, a
         for j, (c1, c2) in enumerate(rb):
             last = j == len(rb) - 1
-            s = scale if last else 0.0
-            if c2 is None:
-                z, a = conv(z, c1, res=z, acc=acc, acc_scale=s)
-            else:
-                t, _ = conv(z, c1)
-                z, a = conv(t, c2, res=z, acc=acc, acc_scale=s)
-            if last:
-                acc = a
+            tail = dict(res=z, acc=acc, acc_scale=scale if last else 0.0, want_y=not last,
+                        want_act=not last)
+            if pair is not None and pair_fusable(c1, c2):
+                z, az, out = pair(az, c1, c2, **tail)
+                continue
+            if c2 is not None:
+                _, az, _ = conv(az, c1, want_y=False, want_act=True)
+            z, az, out = conv(az, c1 if c2 is None else c2, **tail)
+        acc = out
     return acc
 
 
 def mrf_stage(x, resblocks: Sequence[ResBlockWeights],
               upsample: Optional[UpsampleWeights] = None):
     """``[lrelu -> ConvTranspose1d] -> mean over resblocks`` on (B, T, C)."""
-    return run_stage(x, resblocks, upsample, mrf_conv, conv_transpose)
+    return run_stage(x, resblocks, upsample, mrf_conv, conv_transpose, mrf_pair)
+
+
+def side_output_stage(x, resblocks: Sequence[ResBlockWeights],
+                      upsample: Optional[UpsampleWeights] = None):
+    """``mrf_stage``'s dataflow (operands passed between convs) through the
+    plain versions, on any device; equal to ``plain_stage`` bit for bit."""
+    return run_stage(x, resblocks, upsample, mrf_conv_plain, conv_transpose_plain,
+                     mrf_pair_plain)
+
+
+def _conv_ref(x, cw: ConvWeights, res=None):
+    y = layers.conv1d(operand(x, cw.w.dtype).float(), cw.w.float().permute(1, 2, 0), cw.b,
+                      padding="SAME", dilation=cw.dilation)
+    return y if res is None else y + res
 
 
 def plain_stage(x, resblocks: Sequence[ResBlockWeights],
                 upsample: Optional[UpsampleWeights] = None):
-    """``mrf_stage`` through the plain versions, on any device."""
-    return run_stage(x, resblocks, upsample, mrf_conv_plain, conv_transpose_plain)
+    """The stage as defined, in plain PyTorch on any device: every conv
+    takes the rounded ``lrelu`` of its f32 input (the JAX kernels'
+    prologue), every activation is f32."""
+    if upsample is not None:
+        x = conv_transpose_plain(x, upsample)[0]
+    scale = 1.0 / len(resblocks)
+    acc = None
+    for rb in resblocks:
+        z = x
+        for c1, c2 in rb:
+            z = _conv_ref(z, c1, res=z) if c2 is None else _conv_ref(_conv_ref(z, c1), c2, res=z)
+        acc = scale * z if acc is None else acc + scale * z
+    return acc

@@ -38,8 +38,10 @@ import torch.nn.functional as F
 
 from tacotron2_tpu_torch.ops import build
 from tacotron2_tpu_torch.ops.decoder_loop import (
+    MAX_CLUSTER,
     _acc,
     _rnd,
+    check_cluster_dims,
     heads_plain,
     location_attention_plain,
     lstm_cell_plain,
@@ -85,9 +87,6 @@ def backward_launches(T: int) -> int:
     return 4 + 4 * T
 
 
-MAX_CLUSTER = 8  # the portable thread-block cluster size
-
-
 def cluster_size(B: int, sms: int) -> int:
     """Blocks per batch row of K3's and K4's attention: the largest power of
     two up to ``MAX_CLUSTER`` with ``B * S <= sms`` (one wave on a card of
@@ -98,19 +97,6 @@ def cluster_size(B: int, sms: int) -> int:
     while s > 1 and B * s > sms:
         s //= 2
     return s
-
-
-def check_cluster_dims(S: int, H: int, A: int, D: int, K: int) -> None:
-    """Raise unless the attention's cluster split takes these dims: each
-    rank computes A/S of the query, sums D/S of the context and pulls H/S
-    of the query's input in 16-byte groups; a block of 512 threads takes A
-    (dividing 512) in groups of 4; the location window is centred (K odd)."""
-    if S not in (1, 2, 4, 8):
-        raise ValueError(f"cluster size {S}: want 1, 2, 4 or 8")
-    if A % S or H % (8 * S) or D % S or A % 4 or 512 % A or D % 8 or K % 2 == 0:
-        raise ValueError(f"the cluster attention takes A % S == D % S == H % (8 S) == 0, "
-                         f"A % 4 == 0, A | 512, D % 8 == 0 and K odd: got S={S}, H={H}, A={A}, "
-                         f"D={D}, K={K}")
 
 
 def _sms(device) -> int:

@@ -148,11 +148,20 @@ WRAPPER_CALLS = {
         _meta(1, 16), _meta(8, 16), _meta(8, 2, 31), _meta(8), _meta(1, 5, 8),
         _meta(1, 5, 16), _meta(1, dtype=torch.int32), _meta(1, 5), _meta(1, 5)),
     "heads": lambda: decoder_loop.heads(_meta(17, 32), _meta(17), _meta(1, 16), _meta(1, 16)),
-    "mrf_conv": lambda: mrf.mrf_conv(_meta(1, 10, 32),
-                                     mrf.ConvWeights(_meta(3, 32, 32), _meta(32), 1)),
+    "mrf_conv": lambda: mrf.mrf_conv(
+        _meta(1, 10, 32, dtype=torch.bfloat16),
+        mrf.ConvWeights(_meta(3, 32, 32, dtype=torch.bfloat16), _meta(32), 1,
+                        _meta(1, 1, 3, 4, 32, 8, dtype=torch.bfloat16)),
+        want_act=True),
+    "mrf_pair": lambda: mrf.mrf_pair(
+        _meta(1, 10, 32, dtype=torch.bfloat16),
+        *[mrf.ConvWeights(_meta(3, 32, 32, dtype=torch.bfloat16), _meta(32), d,
+                          _meta(1, 1, 3, 4, 32, 8, dtype=torch.bfloat16)) for d in (3, 1)],
+        want_act=True),
     "conv_transpose": lambda: mrf.conv_transpose(
         _meta(1, 10, 64),
-        mrf.UpsampleWeights(_meta(4, 64, 32), _meta(32), 2, 1, _meta(2, 2, 32, 64))),
+        mrf.UpsampleWeights(_meta(4, 64, 32), _meta(32), 2, 1, _meta(2, 2, 32, 64)),
+        want_act=True),
 }
 # the teacher-forced decode at T=2, B=1, L=5, P=D=H=8, A=4, 81 outputs
 _TW = lambda: train_decode.TrainWeights(
