@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k2-ab   # only K2's design A/B (``k2_ab``), then exit
+    python3 chip_smoke.py --k1-rows [--root DIR] [--out NAME]  # K1/K5 at 1/16/64 rows
+    python3 chip_smoke.py --k1-ab   # the same for build/parent and this tree, in turns,
+                                    # and the cells' constants on source copies (``cell_ab``)
 
 Phases, each of which must pass:
 
@@ -27,7 +30,14 @@ Phases, each of which must pass:
    at B=2 with a padded row, with defective kernels (activations rounded to
    bf16 before quantising, scales taken from bf16 weights) held above the
    limit, then the 4-step int8 chunk on K1_DRAWS weight draws; K2's
-   ``mrf_conv`` also timed at the serve windows' 16 and 64 rows;
+   ``mrf_conv`` also timed at the serve windows' 16 and 64 rows; both
+   LSTM cells (K1's ``lstm_cell``, K5's ``quantize_xh`` + ``lstm_cell_int8``)
+   at 1, 16 and 64 rows against their plain versions, timed beside their
+   bound and library call, and the prenet at one row (``cell_rows``),
+   rows of a 64-row cell launch held bit for bit against the rows alone
+   (``cell_invariance``), and a
+   64-frame chunk split by kernel at 16 and 64 rows, L=128, with the serve
+   window's decode (``serve_rows_split``);
 3b. the same for K3 and K4, training's teacher-forced decode forward and
    backward (B=32, L=160 with padded rows, T=128), with every gradient
    ``TeacherDecode`` returns (K4 on the plain forward's residuals and on
@@ -43,7 +53,8 @@ Phases, each of which must pass:
    launches a vocode, and the HiFi-GAN's weights packed once), a
    forced early stop (1 frame), and the kernel decode against the plain
    decode over 32 frames; then ``say --quantize-int8`` the same way (K5's
-   launches held to 2 x 256), and the int8 decode against the bf16 one;
+   launches held to 2 x 256 of each of its two kernels), and the int8 decode
+   against the bf16 one;
 4b. run ``train`` through the CLI entry at the vanilla full width on 64
    synthetic WAVs: batch 32, 6 steps, then a resume to step 8, with K3 and
    K4's launch counters read around it and held to launches per step x T;
@@ -53,9 +64,10 @@ Phases, each of which must pass:
    split into its parts, the encoder also as it ran before the bf16 repair
    (cuDNN's f32 BiLSTM), as in the say phase;
 4c. run the warm server in this process through ``do_server`` with a bf16
-   and an int8 entry of the random weights: waves of 16 concurrent requests
-   per model and of 64 to one, which must coalesce, with the launch
-   counters held to two LSTM launches a frame per decode launch; two
+   and an int8 entry of the random weights: waves of 16 and of 64 concurrent
+   requests per model, which must coalesce, with the launch
+   counters held to two LSTM launches a frame per decode launch (and two
+   ``quantize_xh`` in the int8 entry's); two
    batched requests again alone (PCM16 difference); K2's launches 18, 27
    and 4 a window and no weight packing in the waves; one request through
    Griffin-Lim; the kernels against their plain versions at the windows'
@@ -122,6 +134,9 @@ GRAD_TOL = 1e-2
 # read a rounding flip of 1.1-1.2e-4; the defects read 1.1e-3 there (PERF.md)
 K5_TOL = 1e-5
 K5_CHUNK_TOL = 5e-4
+# K5's operand (quantize_xh) against quantize_rows: the same true division
+# and rounding, so the int8 values and the row scales are equal
+QUANT_TOL = 0.0
 # int8 against bf16 decode of one seed over 256 frames: the JAX package's
 # budget for int8 against f32 (readings 0.21% and 1.2e-4, PERF.md)
 INT8_DIVERGENCE = {"mels_post_mean_rel": 0.01, "gate_drift": 0.05}
@@ -447,9 +462,10 @@ def chunk_check(name: str, pk, model, lengths, n: int, g, log: dict,
     return worst
 
 
-def k1_phase(model, cfg, L: int, log: dict) -> list:
+def k1_phase(model, cfg, L: int, log: dict, cells: dict) -> list:
     """One decode step at the flagship dims, kernels against plain versions;
-    then whole chunks, the 4-step ones on K1_DRAWS weight draws."""
+    then whole chunks, the 4-step ones on K1_DRAWS weight draws. ``cells``:
+    ``cell_rows``' readings, the source of the ``lstm_cell`` row."""
     import torch
 
     from tacotron2_tpu_torch.ops import decoder_loop as dl
@@ -468,7 +484,7 @@ def k1_phase(model, cfg, L: int, log: dict) -> list:
     x_k = dl.prenet(s.mel, pk.wp1_t, pk.wp2_t, m1, m2)
     x_p = dl.prenet_plain(s.mel, pk.wp1_t, pk.wp2_t, m1, m2)
     check("prenet", [("out", x_k, x_p)], K1_TOL, log)
-    ah_k, ac_k = dl.lstm_cell(pk.w_att, pk.b_att, x_p, s.ctx, s.att_h, s.att_c)
+    ah_k, ac_k = dl.lstm_cell(pk.w_att, pk.b_att, x_p, s.ctx, s.att_h, s.att_c, pk.wt_att)
     ah_p, ac_p = dl.lstm_cell_plain(pk.w_att, pk.b_att, x_p, s.ctx, s.att_h, s.att_c)
     check("lstm_cell[att]", [("h", ah_k, ah_p), ("c", ac_k, ac_p)], K1_TOL, log, "lstm_cell")
     att_args = (ah_p, pk.wq, pk.w_loc, pk.wv, att_enc, encoded, lengths, s.att_w, s.att_cum)
@@ -476,7 +492,7 @@ def k1_phase(model, cfg, L: int, log: dict) -> list:
     ctx_p, w_p, cum_p = dl.location_attention_plain(*att_args)
     check("location_attention", [("context", ctx_k, ctx_p), ("weights", w_k, w_p),
                                  ("cum_weights", cum_k, cum_p)], K1_TOL, log)
-    rh_k, rc_k = dl.lstm_cell(pk.w_dec, pk.b_dec, ah_p, ctx_p, s.rnn_h, s.rnn_c)
+    rh_k, rc_k = dl.lstm_cell(pk.w_dec, pk.b_dec, ah_p, ctx_p, s.rnn_h, s.rnn_c, pk.wt_dec)
     rh_p, rc_p = dl.lstm_cell_plain(pk.w_dec, pk.b_dec, ah_p, ctx_p, s.rnn_h, s.rnn_c)
     check("lstm_cell[dec]", [("h", rh_k, rh_p), ("c", rc_k, rc_p)], K1_TOL, log, "lstm_cell")
     mg_k = dl.heads(pk.w_out, pk.b_out, rh_p, ctx_p)
@@ -517,27 +533,11 @@ def k1_phase(model, cfg, L: int, log: dict) -> list:
                                        "eager": eager_ms(chunk, 5) / 64 * 1e3}
     print(f"  decode_chunk (64 steps) per step: {log['decode_chunk_us_per_step']}")
 
-    # timings at B=1 and the say's char count
-    def lstm_lib(cell_mod, x, h, cc):
-        cell = torch.nn.LSTMCell(cell_mod.input_size, cell_mod.hidden_size, device=dev,
-                                 dtype=torch.bfloat16)
-        cell.load_state_dict(cell_mod.state_dict())
-        args = (x.to(torch.bfloat16), (h.to(torch.bfloat16), cc.to(torch.bfloat16)))
-        return lambda: cell(*args)
-
-    att_cell = lstm_lib(model.decoder.att_rnn, torch.cat([x_p, s.ctx], 1), s.att_h, s.att_c)
-    dec_cell = lstm_lib(model.decoder.lstm, torch.cat([ah_p, ctx_p], 1), s.rnn_h, s.rnn_c)
+    # timings at B=1 and the say's char count (the cells' come from cell_rows)
     head_x = torch.cat([rh_p, ctx_p], 1).to(torch.bfloat16)
     head_w = pk.w_out
     head_b = pk.b_out.to(torch.bfloat16)
-    lstm_k = lambda: (dl.lstm_cell(pk.w_att, pk.b_att, x_p, s.ctx, s.att_h, s.att_c),
-                      dl.lstm_cell(pk.w_dec, pk.b_dec, ah_p, ctx_p, s.rnn_h, s.rnn_c))
-    lstm_p = lambda: (dl.lstm_cell_plain(pk.w_att, pk.b_att, x_p, s.ctx, s.att_h, s.att_c),
-                      dl.lstm_cell_plain(pk.w_dec, pk.b_dec, ah_p, ctx_p, s.rnn_h, s.rnn_c))
     f32 = lambda *shape: torch.empty(*shape, device=dev)
-    lstm_bytes = (nbytes(pk.w_att, pk.b_att, x_p, s.ctx, s.att_h, s.att_c, f32(B, H), f32(B, H))
-                  + nbytes(pk.w_dec, pk.b_dec, ah_p, ctx_p, s.rnn_h, s.rnn_c, f32(B, H), f32(B, H)))
-    lstm_flops = 2 * B * (pk.w_att.numel() + pk.w_dec.numel())
     K = pk.w_loc.shape[2]
     att_bytes = nbytes(*att_args, f32(B, D), f32(B, L), f32(B, L))
     att_flops = B * (2 * A * H + L * A * (4 * K + 4) + 2 * L * D + 4 * L)
@@ -573,8 +573,6 @@ def k1_phase(model, cfg, L: int, log: dict) -> list:
         ("prenet", lambda: dl.prenet(s.mel, pk.wp1_t, pk.wp2_t, m1, m2),
          lambda: dl.prenet_plain(s.mel, pk.wp1_t, pk.wp2_t, m1, m2), None,
          nbytes(s.mel, pk.wp1_t, pk.wp2_t, m1, m2, f32(B, P)), 2 * B * (M * P + P * P), 347),
-        ("lstm_cell", lstm_k, lstm_p, lambda: (att_cell(), dec_cell()), lstm_bytes,
-         lstm_flops, 347),
         ("location_attention", lambda: dl.location_attention(*att_args),
          lambda: dl.location_attention_plain(*att_args), None, att_bytes, att_flops, 196),
         ("heads", lambda: dl.heads(pk.w_out, pk.b_out, rh_p, ctx_p),
@@ -591,9 +589,9 @@ def k1_phase(model, cfg, L: int, log: dict) -> list:
             "library_ms": None if lib is None else time_ms(lib),
             "per": "one decode step, B=1, L=%d" % L,
         })
-    rows[2]["per"] += f", a cluster of S={S} blocks per row"
-    rows[2]["rows"] = att_rows
-    return rows
+    rows[1]["per"] += f", a cluster of S={S} blocks per row"
+    rows[1]["rows"] = att_rows
+    return rows[:1] + [cell_row("lstm_cell", cells)] + rows[1:]
 
 
 def _int8_defects(pk, model):
@@ -669,11 +667,12 @@ def k5_check(name: str, pk, model, lengths, n: int, g, log: dict, defect: bool =
     return worst
 
 
-def k5_phase(model, cfg, L: int, log: dict) -> list:
+def k5_phase(model, cfg, L: int, log: dict, cells: dict) -> list:
     """K5, the int8 LSTM cell, against its plain version at the flagship
     dims: one step through the chunk entry at B=1 and at B=2 with a padded
     row (the defective kernels held above the one-step limit), the 4-step
-    int8 chunk on K1_DRAWS weight draws, then its timing row."""
+    int8 chunk on K1_DRAWS weight draws; its timing row from ``cells``
+    (``cell_rows``)."""
     import torch
 
     from tacotron2_tpu_torch.ops import decoder_loop as dl
@@ -705,42 +704,422 @@ def k5_phase(model, cfg, L: int, log: dict) -> list:
                                             "eager": eager_ms(chunk, 5) / 64 * 1e3}
     print(f"  int8 decode_chunk (64 steps) per step: {log['decode_chunk_int8_us_per_step']}")
 
-    # both cells of one step at B=1: kernel, plain version, and torch._int_mm
-    # of the quantised activations (rows padded to 32, as it requires) against
-    # the int8 weights, which lacks the scales and the LSTM epilogue
-    x = dl.prenet_plain(s.mel, pk.wp1_t, pk.wp2_t, mk1[0], mk2[0], dl.ACT_INT8)
-    cells = ((pk.w_att, pk.s_att, pk.b_att, x, s.ctx, s.att_h, s.att_c),
-             (pk.w_dec, pk.s_dec, pk.b_dec, s.att_h, s.ctx, s.rnn_h, s.rnn_c))
-    kern = lambda: [dl.lstm_cell_int8(*a) for a in cells]
-    plain = lambda: [dl.lstm_cell_int8_plain(*a) for a in cells]
-    qs = []
-    for w, _, _, x1, x2, x3, _ in cells:
-        q, _ = dl.quantize_rows(torch.cat([x1, x2, x3], 1))
-        q32 = torch.zeros(32, q.shape[1], dtype=torch.int8, device=dev)
-        q32[:1] = q.to(torch.int8)
-        qs.append((q32, w.t()))
+    return [cell_row(k, cells) for k in ("lstm_cell_int8", "quantize_xh")]
+
+
+K5_KERNELS = ("quantize_xh", "lstm_cell_int8")  # K5: two launches a cell, int8 path only
+K1_ROWS = (1, 16, 64)  # the say's one row and the serve windows' rows
+SERVE_L = 128  # the server's char bucket (run/server.py CHAR_BUCKET)
+CELL_INVARIANCE_ROWS = (0, 1, 37, 63)  # rows of a 64-row cell launch held against alone
+CELL_TWO_PASSES = 80  # rows past one pass of 64: the cells' second pass, held too
+
+
+def serve_batch(cfg, B: int, dev) -> tuple:
+    """B of the waves' texts (77-121 chars) as the server batches them:
+    char ids padded to the 128 bucket, lengths."""
+    import torch
+
+    from tacotron2_tpu_torch.text import CharEncoder, normalize_text
+
+    prep = cfg.dataset.preprocessing
+    ci, cl = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch(
+        [normalize_text(TRAIN_TEXTS[i % len(TRAIN_TEXTS)], prep.allowed_chars,
+                        prep.end_token, False) for i in range(B)])
+    ci = torch.nn.functional.pad(torch.as_tensor(ci), (0, SERVE_L - ci.shape[1]))
+    return ci.to(dev), torch.as_tensor(cl, dtype=torch.int32, device=dev)
+
+
+def cell_args(dl, pk, B: int, g) -> tuple:
+    """Random inputs of both LSTM cells of one decode step at B rows ->
+    ((kernel, plain) wrappers of the pack's mode, per cell (the kernel's
+    args, the plain version's args, the kernel's kwargs)). The kwargs carry
+    the pack's tiled weight copies where its wrappers take them; there the
+    bf16 cell gets its inputs as the bf16 operands the chunk's producers
+    write, the plain version their f32 values (which round to the same
+    operands)."""
+    import torch
+
+    H, Pd = pk.wq.shape[1], pk.wp2_t.shape[0]
+    D = pk.w_dec.shape[1] - 2 * H
+    rn = lambda *s: torch.randn(*s, device=pk.wq.device, generator=g) * 0.5
+    x, ctx, att_h, att_c, rnn_h, rnn_c = (torch.relu(rn(B, Pd)) * 2, rn(B, D), rn(B, H),
+                                          rn(B, H), rn(B, H), rn(B, H))
+    tiled = hasattr(pk, "wt_att")
+    if pk.quantized:
+        fns = (dl.lstm_cell_int8, dl.lstm_cell_int8_plain)
+        a = (pk.w_att, pk.s_att, pk.b_att, x, ctx, att_h, att_c)
+        d = (pk.w_dec, pk.s_dec, pk.b_dec, att_h, ctx, rnn_h, rnn_c)
+        ka, kd = a, d
+    else:
+        fns = (dl.lstm_cell, dl.lstm_cell_plain)
+        bf = (lambda t: t.to(torch.bfloat16)) if tiled else (lambda t: t)
+        x, ctx, att_h, rnn_h = (bf(t) for t in (x, ctx, att_h, rnn_h))
+        ka = (pk.w_att, pk.b_att, x, ctx, att_h, att_c)
+        kd = (pk.w_dec, pk.b_dec, att_h, ctx, rnn_h, rnn_c)
+        a, d = ((t.float() for t in args) for args in (ka, kd))
+        a = (pk.w_att, pk.b_att, *list(a)[2:])
+        d = (pk.w_dec, pk.b_dec, *list(d)[2:])
+    kw = lambda f: {"wt": getattr(pk, f)} if tiled else {}
+    return fns, ((ka, a, kw("wt_att")), (kd, d, kw("wt_dec")))
+
+
+def cell_rows(model, log: dict, rows=K1_ROWS) -> dict:
+    """Both LSTM cells of one decode step at each of ``rows``, for the
+    bf16 pack (K1's ``lstm_cell``) and the int8 pack (K5), each held
+    against its plain version (K1_TOL, K5_TOL): device ms by graph replay,
+    the plain version's, the bound and the library call's: ``nn.LSTMCell``
+    x2 in bf16 for K1; for K5 ``torch._int_mm`` of the quantised rows
+    (padded to 32 rows and to a multiple of 8) against the int8 weights,
+    without the scales and the epilogue, a yardstick. Also the prenet's
+    one-kernel entry at one row (``prenet_row``), so that ``--k1-ab`` times
+    it in turns with the parent's.
+    -> {kernel: {"B<rows>": {ms, plain_ms, bound_ms, bound_by, library_ms}}}"""
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 30)
+    out, quant_rows = {}, {}
+    for quant in (False, True):
+        pk = model.make_packed_decoder(quantize=quant)
+        name = "lstm_cell_int8" if quant else "lstm_cell"
+        H = pk.wq.shape[1]
+        res = {}
+        for B in rows:
+            (kern_fn, plain_fn), cells = cell_args(dl, pk, B, g)
+            for tag, (ka, a, kw) in zip(("att", "dec"), cells):
+                got, ref = kern_fn(*ka, **kw), plain_fn(*a)
+                check(f"{name}[{tag}]@B{B}", [("h", got[0], ref[0]), ("c", got[1], ref[1])],
+                      K5_TOL if quant else K1_TOL, log, name)
+            kern = lambda: [kern_fn(*ka, **kw) for ka, _, kw in cells]
+            plain = lambda: [plain_fn(*a) for _, a, _ in cells]
+            if quant:
+                mm = []
+                for _, (w, _, _, x1, x2, x3, _), _ in cells:
+                    q, _ = dl.quantize_rows(torch.cat([x1, x2, x3], 1))
+                    qp = torch.zeros(max(32, -(-B // 8) * 8), q.shape[1], dtype=torch.int8,
+                                     device=dev)
+                    qp[:B] = q.to(torch.int8)
+                    mm.append((qp, w.t()))
+                lib = lambda: [torch._int_mm(a, b) for a, b in mm]
+            else:
+                lib_cells = []
+                for mod, (_, (_, _, x1, x2, x3, cc), _) in zip(
+                        (model.decoder.att_rnn, model.decoder.lstm), cells):
+                    cell = torch.nn.LSTMCell(mod.input_size, mod.hidden_size, device=dev,
+                                             dtype=torch.bfloat16)
+                    cell.load_state_dict(mod.state_dict())
+                    bf = lambda t: t.to(torch.bfloat16)
+                    lib_cells.append((cell, bf(torch.cat([x1, x2], 1)), (bf(x3), bf(cc))))
+                lib = lambda: [cell(x, hc) for cell, x, hc in lib_cells]
+            try:
+                library_ms = time_ms(lib)
+            except Exception as e:  # not every torch build takes these shapes
+                library_ms = None
+                log.setdefault("cell_library_errors", []).append(f"{name}@B{B}: {e!r}")
+            f32 = lambda *shape: torch.empty(*shape, device=dev)
+            nb = sum(nbytes(*ka, f32(B, H), f32(B, H)) for ka, _, _ in cells)
+            ops = 2 * B * (pk.w_att.numel() + pk.w_dec.numel())
+            b_ms, b_by = bound_ms(nb, ops, INT8_OPS if quant else BF16_FLOPS)
+            res[f"B{B}"] = {"ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": library_ms,
+                            "eager_ms": eager_ms(kern)}
+            if quant and hasattr(dl, "quantize_xh"):
+                xs = [a[3:6] for _, a, _ in cells]
+                for tag, x in zip(("att", "dec"), xs):
+                    (qk, sk), (qp, sp) = dl.quantize_xh(*x), dl.quantize_xh_plain(*x)
+                    check(f"quantize_xh[{tag}]@B{B}", [("q", qk.float(), qp.float()),
+                                                      ("sx", sk, sp)], QUANT_TOL, log,
+                          "quantize_xh")
+                qb = sum(nbytes(*x) + B * (sum(t.shape[1] for t in x) + 4) for x in xs)
+                qb_ms, qb_by = bound_ms(qb, 0)
+                quant_rows[f"B{B}"] = {
+                    "ms": time_ms(lambda: [dl.quantize_xh(*x) for x in xs]),
+                    "plain_ms": time_ms(lambda: [dl.quantize_xh_plain(*x) for x in xs]),
+                    "bound_ms": qb_ms, "bound_by": qb_by, "library_ms": None,
+                    "eager_ms": eager_ms(lambda: [dl.quantize_xh(*x) for x in xs])}
+            r = res[f"B{B}"]
+            lib_us = "-" if library_ms is None else f"{library_ms * 1e3:.1f}"
+            print(f"  {name} (both cells) at {B} rows: {r['ms'] * 1e3:.1f} us, plain "
+                  f"{r['plain_ms'] * 1e3:.1f} us, library {lib_us} us, bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by})")
+        out[name] = res
+    if quant_rows:
+        out["quantize_xh"] = quant_rows
+    out["prenet"] = prenet_row(model, g)
+    return out
+
+
+def prenet_row(model, g) -> dict:
+    """The prenet's one-kernel entry at one row: device ms by graph replay,
+    the plain version's and the bound."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    pk = dl.pack_decoder(model.prenet, model.decoder, torch.bfloat16)
+    M, P = pk.wp1_t.shape
+    mel = torch.randn(1, M, device="cuda", generator=g)
+    m1, m2 = (m[0] for m in dl.prenet_masks(1, 1, P, model.cfg.dropout, g, mel.device))
+    args = (mel, pk.wp1_t, pk.wp2_t, m1, m2)
+    b_ms, b_by = bound_ms(nbytes(*args, torch.empty(1, P, device="cuda")),
+                          2 * (M * P + P * P))
+    r = {"B1": {"ms": time_ms(lambda: dl.prenet(*args)),
+                "plain_ms": time_ms(lambda: dl.prenet_plain(*args)), "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None}}
+    print(f"  prenet at 1 row: {r['B1']['ms'] * 1e3:.1f} us, plain "
+          f"{r['B1']['plain_ms'] * 1e3:.1f} us")
+    return r
+
+
+CELL_SOURCE = {
+    "lstm_cell": "tacotron2_tpu/ops/decoder_loop_pallas.py:347 (the gate products :469)",
+    "lstm_cell_int8": "tacotron2_tpu/ops/decoder_loop_pallas.py:347 (int8 mode, :388-402, "
+                      ":465-470)",
+    "quantize_xh": "tacotron2_tpu/ops/decoder_loop_pallas.py:388 (_quantize_xh, int8 mode)",
+}
+
+
+def cell_row(name: str, cells: dict) -> dict:
+    """The kernels line's row of a cell kernel from ``cell_rows``: its
+    one-row numbers at the top, every row count under "rows"."""
+    one = cells[name]["B1"]
+    return {"name": name, "route": "cuda", "source": "tacotron2_tpu_torch/csrc/decode_step.cu",
+            "replaces": CELL_SOURCE[name], **{k: one[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms")},
+            "per": {"lstm_cell": "both LSTM cells of one decode step, B=1, library: "
+                                 "nn.LSTMCell x2, bf16",
+                    "lstm_cell_int8": "both LSTM cells of one int8 decode step (their "
+                                      "quantize_xh launches included), B=1, library: "
+                                      "torch._int_mm (a yardstick)",
+                    "quantize_xh": "both cells' inputs of one int8 decode step, B=1"}[name],
+            "rows": cells[name]}
+
+
+def cell_invariance(model, log: dict) -> None:
+    """Fails the run unless each of CELL_INVARIANCE_ROWS of a 64-row launch
+    of ``lstm_cell`` and of ``lstm_cell_int8`` (both cells) equals the same
+    row computed alone, bit for bit: a row's gate sums must not depend on
+    the rows that share its launch (the served batched-against-alone
+    contract); the same for the last row of a CELL_TWO_PASSES-row launch,
+    which also holds the kernel's second pass against the plain version."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 31)
+    result = {}
+    for quant in (False, True):
+        pk = model.make_packed_decoder(quantize=quant)
+        (kern_fn, _), cells = cell_args(dl, pk, 64, g)
+        name = "lstm_cell_int8" if quant else "lstm_cell"
+        nw = 3 if quant else 2  # the weights, then the row inputs
+        for tag, (ka, _, kw) in zip(("att", "dec"), cells):
+            full = kern_fn(*ka, **kw)
+            for r in CELL_INVARIANCE_ROWS:
+                row = (*ka[:nw], *(t[r:r + 1].contiguous() for t in ka[nw:]))
+                alone = kern_fn(*row, **kw)
+                same = all(torch.equal(x[r:r + 1], y) for x, y in zip(full, alone))
+                result[f"{name}[{tag}] row {r}"] = same
+                if not same:
+                    raise SmokeFailure(f"{name}[{tag}]: row {r} alone differs from the same "
+                                       "row in a 64-row launch")
+        # past 64 rows the block runs a second pass over the weights: against the
+        # plain version, and its last row against the same row alone
+        (_, plain_fn), cells = cell_args(dl, pk, CELL_TWO_PASSES, g)
+        r = CELL_TWO_PASSES - 1
+        for tag, (ka, a, kw) in zip(("att", "dec"), cells):
+            got = kern_fn(*ka, **kw)
+            ref = plain_fn(*a)
+            check(f"{name}[{tag}]@B{CELL_TWO_PASSES}", [("h", got[0], ref[0]),
+                                                        ("c", got[1], ref[1])],
+                  K5_TOL if quant else K1_TOL, log, name)
+            row = (*ka[:nw], *(t[r:r + 1].contiguous() for t in ka[nw:]))
+            same = all(torch.equal(x[r:r + 1], y) for x, y in zip(got, kern_fn(*row, **kw)))
+            result[f"{name}[{tag}] row {r} of {CELL_TWO_PASSES}"] = same
+            if not same:
+                raise SmokeFailure(f"{name}[{tag}]: row {r} alone differs from the same row in "
+                                   f"a {CELL_TWO_PASSES}-row launch")
+    log["cell_invariance"] = result
+    print(f"  lstm_cell / lstm_cell_int8: rows {CELL_INVARIANCE_ROWS} of a 64-row launch and row "
+          f"{CELL_TWO_PASSES - 1} of an {CELL_TWO_PASSES}-row one equal the rows alone, bit for "
+          "bit; the two-pass launch within the one-step limits")
+
+
+def serve_rows_split(model, cfg, log: dict) -> dict:
+    """Where a serve window's decode goes, per pack (bf16: K1; int8: K5):
+    the device ms of each kernel in one 64-frame ``decode_chunk`` at 16 and
+    64 rows, L=128 (torch.profiler), the chunk's device time per step (graph
+    replay, and eagerly: the host's launches included; also at one row and
+    the say's chars), and the window's decode (encoder at 64
+    rows, 256 steps, postnet) through ``forward_infer_fast`` on the waves'
+    texts, eager, ending in a sync (``serve_split``'s measure)."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+    from tacotron2_tpu_torch.text import normalize_text
+
+    dev = torch.device("cuda")
+    c = model.cfg
+    prep = cfg.dataset.preprocessing
+    say_chars = len(normalize_text(TEXT, prep.allowed_chars, prep.end_token, False))
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 32)
+    out = {}
+    for quant in (False, True):
+        pk = model.make_packed_decoder(quantize=quant)
+        mode = "int8" if quant else "bf16"
+        for B in K1_ROWS:
+            L = SERVE_L if B > 1 else say_chars
+            ci, lengths = serve_batch(cfg, B, dev)
+            if B == 1:
+                lengths = torch.full((1,), L, dtype=torch.int32, device=dev)
+            enc, att_enc, s = chunk_inputs(model, lengths, g, L)
+            m1, m2 = dl.prenet_masks(64, B, c.prenet_dim, c.dropout, g, dev)
+            chunk = lambda: dl.decode_chunk(pk, enc, att_enc, lengths, s, m1, m2)
+            r = {"L": L, "chunk_us_per_step": time_ms(chunk, 5, 1) / 64 * 1e3,
+                 "chunk_eager_us_per_step": eager_ms(chunk, 5) / 64 * 1e3}
+            if B > 1:
+                r["split_us_per_step"] = {k: v / 64 * 1e3 for k, v in kernel_split(chunk).items()}
+                gens = [torch.Generator(device=dev).manual_seed(i) for i in range(B)]
+                r["window_decode_ms"] = eager_ms(lambda: model.forward_infer_fast(
+                    ci, lengths, 256, packed=pk, row_generators=gens, encode_rows=64), 3)
+            out[f"{mode}_B{B}"] = r
+            print(f"  {mode} decode at {B} rows, L={L}: chunk {r['chunk_us_per_step']:.1f} us a "
+                  "step" + ("" if B == 1 else
+                            f", window decode {r['window_decode_ms']:.1f} ms; per step: "
+                            + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in r["split_us_per_step"].items())))
+    log["serve_rows_split"] = out
+    return out
+
+
+# cell_ab's copies of csrc/decode_step.cu: the source, then GC_PREFETCH (the
+# weight chunks streamed before the wait for the previous kernel) changed,
+# 64 being the whole ring
+CELL_AB = (("source", None, None), ("pre1", "GC_PREFETCH", 1), ("pre4", "GC_PREFETCH", 4),
+           ("pre64", "GC_PREFETCH", 64))
+
+
+def cell_ab(model, log: dict) -> dict:
+    """The cells' prefetch A/B on source copies: ``csrc/decode_step.cu``
+    built under build/cell_ab/ once per CELL_AB entry, each bound in turn as
+    ``decoder_loop._LIB``. Per copy, by graph replay: a 64-frame
+    ``decode_chunk`` per step (the main path) and both cells alone
+    (``cell_args``), bf16 and int8 packs, at 1, 16 and 64 rows (L=128);
+    the copies in turns, two rounds, the second in reverse order. The
+    chunks' outputs must equal the source's bit for bit (the constant
+    changes no result; the run fails otherwise)."""
+    import ctypes
+    import re
+
+    import torch
+
+    from tacotron2_tpu_torch.ops import build
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    csrc = Path(dl.__file__).parents[1] / "csrc"
+    src = (csrc / "decode_step.cu").read_text()
+    out_dir = ROOT / "build" / "cell_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, const, value in CELL_AB:
+        text = src
+        if const is not None:
+            pat = re.compile(rf"constexpr int {const} = \d+;")
+            if not pat.search(src):
+                raise SmokeFailure(f"cell_ab: no {const} in csrc/decode_step.cu")
+            text = pat.sub(f"constexpr int {const} = {value};", src)
+        (out_dir / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
+             str(out_dir / f"lib{name}.so"), str(out_dir / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise SmokeFailure(f"cell_ab: nvcc of the {name} copy failed: {text[-2000:]}")
+        libs[name] = dl.bind(ctypes.CDLL(str(out_dir / f"lib{name}.so")))
+    dev = torch.device("cuda")
+    c = model.cfg
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 33)
+    packs = {q: model.make_packed_decoder(quantize=q) for q in (False, True)}
+    cases = []  # (key, chunk, cells)
+    for q, pk in packs.items():
+        for B in K1_ROWS:
+            lengths = torch.full((B,), SERVE_L, dtype=torch.int32, device=dev)
+            enc, att_enc, s = chunk_inputs(model, lengths, g, SERVE_L)
+            m1, m2 = dl.prenet_masks(64, B, c.prenet_dim, c.dropout, g, dev)
+            (kern_fn, _), cells = cell_args(dl, pk, B, g)
+            cases.append((f"{'int8' if q else 'bf16'}_B{B}",
+                          lambda pk=pk, a=(enc, att_enc, lengths, s, m1, m2):
+                          dl.decode_chunk(pk, *a),
+                          lambda f=kern_fn, cs=cells: [f(*ka, **kw) for ka, _, kw in cs]))
+    saved = dl._LIB
+    out: dict = {}
+    first: dict = {}
+    names = [n for n, _, _ in CELL_AB]
     try:
-        library_ms = time_ms(lambda: [torch._int_mm(a, b) for a, b in qs])
-        log["k5_library"] = "torch._int_mm, rows padded to 32, without scales or LSTM epilogue"
-    except Exception as e:  # not every torch build takes these shapes
-        library_ms = None
-        log["k5_library"] = f"torch._int_mm failed: {e!r}"
-    f32 = lambda *shape: torch.empty(*shape, device=dev)
-    H = c.att_rnn_dim
-    nb = sum(nbytes(*a, f32(1, H), f32(1, H)) for a in cells)
-    ops = 2 * (pk.w_att.numel() + pk.w_dec.numel())
-    b_ms, b_by = bound_ms(nb, ops, INT8_OPS)
-    ms = time_ms(kern)
-    print(f"  lstm_cell_int8 (both cells, B=1): {ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us; "
-          f"{log['k5_library']}")
-    return [{
-        "name": "lstm_cell_int8", "route": "cuda",
-        "source": "tacotron2_tpu_torch/csrc/decode_step.cu",
-        "replaces": "tacotron2_tpu/ops/decoder_loop_pallas.py:347 (int8 mode, :388-402, :465-470)",
-        "ms": ms, "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
-        "eager_ms": eager_ms(kern), "library_ms": library_ms,
-        "per": f"both LSTM cells of one int8 decode step, B=1, L={L}",
-    }]
+        for order in (names, names[::-1]):
+            for name in order:
+                dl._LIB = libs[name]
+                for key, chunk, cells in cases:
+                    mg, al, _ = chunk()
+                    if key in first and not (torch.equal(mg, first[key][0])
+                                             and torch.equal(al, first[key][1])):
+                        raise SmokeFailure(f"cell_ab: the {key} chunk differs in the {name} copy")
+                    first.setdefault(key, (mg, al))
+                    r = out.setdefault(f"{name}_{key}", {"chunk_us": [], "cells_us": []})
+                    r["chunk_us"].append(time_ms(chunk, 5, 1) / 64 * 1e3)
+                    r["cells_us"].append(time_ms(cells) * 1e3)
+    finally:
+        dl._LIB = saved
+    for k, v in out.items():
+        print(f"  {k}: chunk " + " / ".join(f"{x:.1f}" for x in v["chunk_us"])
+              + " us a step, both cells alone " + " / ".join(f"{x:.1f}" for x in v["cells_us"])
+              + " us")
+    log["cell_ab"] = out
+    return out
+
+
+def k1_rows_mode(out_name: str) -> int:
+    """``--k1-rows``: build K1/K5 only, then ``cell_rows`` and
+    ``serve_rows_split`` on random full-width weights; the results go to
+    chiprun_out/<out_name>. Runs the package found first on sys.path (the
+    repo's, or a parent's with ``--root``)."""
+    import torch
+
+    from tacotron2_tpu_torch import ops
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build
+
+    use_f32_math()
+    t0 = time.perf_counter()
+    logs = build.build_all(["decode_step"])
+    log: dict = {"card": card_line(), "package": str(Path(ops.__file__).parents[1]),
+                 "build_s": time.perf_counter() - t0,
+                 "ptxas": ptxas_kernels(logs["decode_step"])}
+    print(f"[k1-rows] {log['package']} on {log['card']}")
+    cfg = load_config(str(ROOT / "config" / "vanilla-ljspeech-stop.json"))
+    model = random_tacotron(cfg, 10.0).cuda()
+    try:
+        log["cells"] = cell_rows(model, log)
+        cell_invariance(model, log)
+        serve_rows_split(model, cfg, log)
+        if "--cell-ab" in sys.argv[1:]:
+            cell_ab(model, log)
+    except SmokeFailure as e:
+        log["failure"] = str(e)
+        print(f"FAIL: {e}", file=sys.stderr)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / out_name).write_text(json.dumps(log, indent=1, default=str))
+    return 1 if "failure" in log else 0
 
 
 def stage_kernel(rbs) -> str:
@@ -1619,7 +1998,7 @@ def say_phase(cfg_path: str, log: dict, card: str):
     if res["n_frames"] != 256:
         raise SmokeFailure(f"forced full decode gave {res['n_frames']} frames, want 256")
     for k, n in launches.items():
-        if (n == 0) != (k == "lstm_cell_int8"):  # K5 is the int8 path's, below
+        if (n == 0) != (k in K5_KERNELS):  # K5 is the int8 path's, below
             raise SmokeFailure(f"kernel {k} was launched {n} times on the say path")
     wav, sr = read_wav(wav_path)
     if len(wav) != res["cut"] * 256 or not np.isfinite(wav).all() or not np.abs(wav).max() > 0:
@@ -1695,12 +2074,12 @@ def say_phase(cfg_path: str, log: dict, card: str):
     return launches, g_path, ckpt["run"]
 
 
-def say_int8_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> int:
+def say_int8_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> dict:
     """``say --quantize-int8`` through the CLI entry, forced to 256 frames,
-    with the launch counters read around it (K5: two launches a frame, K1's
-    bf16 cell none); then the int8 decode against the bf16 decode of the
-    same seed, as mean relative mels_post error and gate drift. -> K5's
-    launches."""
+    with the launch counters read around it (K5: two launches a frame of
+    each of its kernels, K1's bf16 cell none); then the int8 decode against
+    the bf16 decode of the same seed, as mean relative mels_post error and
+    gate drift. -> K5's launches by kernel."""
     import numpy as np
     import torch
 
@@ -1725,9 +2104,9 @@ def say_int8_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) 
     if res["n_frames"] != 256:
         raise SmokeFailure(f"forced int8 decode gave {res['n_frames']} frames, want 256")
     check_vocode_launches(launches, 1, "int8 say")
-    if launches["lstm_cell_int8"] != 2 * 256 or launches["lstm_cell"] != 0:
-        raise SmokeFailure(f"int8 say: K5 launched {launches['lstm_cell_int8']} times and K1's "
-                           f"cell {launches['lstm_cell']}, want {2 * 256} and 0")
+    want = {"lstm_cell_int8": 2 * 256, "quantize_xh": 2 * 256, "lstm_cell": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise SmokeFailure(f"int8 say: launches {[launches[k] for k in want]}, want {want}")
     for k, n in launches.items():
         if n == 0 and k != "lstm_cell":
             raise SmokeFailure(f"kernel {k} was not launched on the int8 say path")
@@ -1762,7 +2141,7 @@ def say_int8_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) 
             log.setdefault("deferred", []).append(
                 f"int8 vs bf16 {key} {divergence[key]:.3e} > {lim}")
     log["say_int8"] = {"run": res, "launches": launches, "perf": perf, "divergence": divergence}
-    return launches["lstm_cell_int8"]
+    return {k: launches[k] for k in K5_KERNELS}
 
 
 def _post(port: int, payload: dict) -> tuple:
@@ -1795,7 +2174,7 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
     full-width checkpoint (gate forced positive, max_len 256) and the
     default batching (8 ms window, max 64, depth 2): one warm-up request per
     model, a wave of 16 concurrent requests per model, then a wave of 64 to
-    the bf16 one, with the launch counters read around the waves; two
+    each, with the launch counters read around the waves; two
     batched requests again alone; one request through Griffin-Lim; the
     kernels held against their plain versions at the windows' shapes
     (``serve_checks``); then ``python -m tacotron2_tpu_torch server`` as a
@@ -1873,7 +2252,8 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
         encoder_lstm.reset_launches()
         packs0 = hifigan_mod.PACK_CALLS[0]
         waves, calls = {}, {}
-        for key, model, n in (("bf16_16", 0, 16), ("int8_16", 1, 16), ("bf16_64", 0, 64)):
+        for key, model, n in (("bf16_16", 0, 16), ("int8_16", 1, 16), ("bf16_64", 0, 64),
+                              ("int8_64", 1, 64)):
             waves[key], *rest = wave(model, n)
             calls[model] = calls.get(model, 0) + waves[key]["decode_launches"]
             if key == "bf16_16":
@@ -1882,7 +2262,8 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
                     "bilstm_forward": encoder_lstm.LAUNCHES["bilstm_forward"]}
         packs = hifigan_mod.PACK_CALLS[0] - packs0
         print(f"  launches in the waves: {launches}; HiFi-GAN weight packings: {packs}")
-        want = {"lstm_cell": 2 * 256 * calls[0], "lstm_cell_int8": 2 * 256 * calls[1]}
+        want = {"lstm_cell": 2 * 256 * calls[0], "lstm_cell_int8": 2 * 256 * calls[1],
+                "quantize_xh": 2 * 256 * calls[1]}
         if any(launches[k] != v for k, v in want.items()) or 0 in launches.values():
             raise SmokeFailure(f"serve launches {launches}, want {want} and every kernel")
         check_vocode_launches(launches, sum(calls.values()), "serve waves")
@@ -1927,7 +2308,7 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
     log["serve"] = {"waves": waves, "launches": launches, "invariance": invariance,
                     "griffin_lim_s": sec, "stats": stats, "split_ms": split,
                     "vocode_kernel_vs_plain_pcm": vocode_pcm, "subprocess": sub, "card": card}
-    return {k: launches[k] for k in ("lstm_cell_int8", "bilstm_forward")}
+    return {k: launches[k] for k in (*K5_KERNELS, "bilstm_forward")}
 
 
 def serve_split(registry) -> dict:
@@ -2076,8 +2457,51 @@ def _serve_subprocess(cfg_file: Path, root: Path) -> dict:
     return {"start_s": start_s, "generate_s": sec, "exit": rc}
 
 
+def arg_value(flag: str, default: str) -> str:
+    argv = sys.argv[1:]
+    return argv[argv.index(flag) + 1] if flag in argv else default
+
+
+def k1_ab() -> int:
+    """``--k1-ab``: the parent's K1/K5 (a ``git archive`` of it unpacked
+    into build/parent) against this tree's, in turns parent, change,
+    change, parent, each a ``--k1-rows`` process of its own (the two
+    packages share a name; the second change turn adds ``cell_ab``); the
+    results go to chiprun_out/k1_ab.json."""
+    parent = ROOT / "build" / "parent"
+    if not (parent / "tacotron2_tpu_torch").is_dir():
+        print(f"FAIL: no parent package under {parent}", file=sys.stderr)
+        return 2
+    turns = []
+    for i, (tag, root) in enumerate((("parent", parent), ("change", ROOT), ("change", ROOT),
+                                     ("parent", parent))):
+        out = f"k1_rows_{i}_{tag}.json"
+        ab = ["--cell-ab"] if i == 2 else []  # this tree's GC_PREFETCH on copies, once
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--k1-rows",
+                               "--root", str(root), "--out", out, *ab], timeout=900)
+        path = OUT_DIR / out
+        turns.append({"turn": i, "tag": tag, "rc": proc.returncode,
+                      **(json.loads(path.read_text()) if path.exists() else {})})
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "k1_ab.json").write_text(json.dumps(turns, indent=1))
+    print("[k1-ab] in turns (us; window decode ms):")
+    for t in turns:
+        cells = t.get("cells", {})
+        split = t.get("serve_rows_split", {})
+        print(f"  {t['turn']} {t['tag']:<6} rc {t['rc']} "
+              + " ".join(f"{k}:" + "/".join(f"{r['ms'] * 1e3:.1f}" for r in v.values() if "ms" in r)
+                         for k, v in cells.items())
+              + " chunk " + " ".join(f"{k} {v['chunk_us_per_step']:.1f}" for k, v in split.items())
+              + " eager " + " ".join(f"{k} {v['chunk_eager_us_per_step']:.1f}"
+                                     for k, v in split.items())
+              + " window " + " ".join(f"{k} {v['window_decode_ms']:.1f}" for k, v in split.items()
+                                      if "window_decode_ms" in v))
+    return max(t["rc"] for t in turns)
+
+
 def main() -> int:
-    if not (ROOT / "tacotron2_tpu_torch" / "csrc").is_dir():
+    pkg_root = Path(arg_value("--root", str(ROOT))).resolve()
+    if not (pkg_root / "tacotron2_tpu_torch" / "csrc").is_dir():
         print("FAIL: the tacotron2_tpu_torch package is not beside chip_smoke.py", file=sys.stderr)
         return 2
     import torch
@@ -2085,8 +2509,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    if "--k1-ab" in sys.argv[1:]:
+        return k1_ab()
+    sys.path.insert(0, str(pkg_root))
     torch.set_grad_enabled(False)
+    if "--k1-rows" in sys.argv[1:]:
+        return k1_rows_mode(arg_value("--out", "k1_rows.json"))
     log: dict = {}
     t_start = time.perf_counter()
     try:
@@ -2137,8 +2565,12 @@ def main() -> int:
                           vocoder_policy(torch.device("cuda"))).cuda().eval()
         Tb = -(-(255 + hifigan.mel_receptive_field()) // 128) * 128  # the say's bucket
         print(f"[3] kernels against their plain versions (flagship dims, B=1, L={chars})")
-        rows = k1_phase(model, cfg, chars, log)
-        rows += k5_phase(model, cfg, chars, log)
+        cells = cell_rows(model, log)
+        cell_invariance(model, log)
+        rows = k1_phase(model, cfg, chars, log, cells)
+        rows += k5_phase(model, cfg, chars, log, cells)
+        print(f"[3] where a serve window's decode goes (16 and 64 rows, L={SERVE_L})")
+        serve_rows_split(model, cfg, log)
         for frames in (64, Tb):  # 64 frames, then the say's own bucket
             k2_phase(hifigan, log, frames)
         rows += k2_timing(hifigan, Tb)
@@ -2174,7 +2606,7 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + n
         print("[4c] the warm server in this process (a bf16 and an int8 entry), then as a "
               "process of its own")
-        launches["lstm_cell_int8"] = k5_launches
+        launches.update(k5_launches)
         for k, n in serve_phase(cfg_path, ckpt, g_path, log, card).items():
             launches[k] = launches.get(k, 0) + n
         if log.get("deferred"):
@@ -2203,7 +2635,10 @@ def main() -> int:
             raise SmokeFailure("a timing is not finite")
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
-        print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+        # the cells' and the attention's readings at other row counts ride along
+        print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
+                                       **({"rows": r["rows"]} if "rows" in r else {})}
+                                      for r in rows]}))
         print(card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

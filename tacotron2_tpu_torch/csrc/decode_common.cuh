@@ -136,12 +136,25 @@ __device__ float block_reduce(float v, float* red, bool is_max) {
 
 // Programmatic dependent launch: a kernel launched with it (launch_ex,
 // pdl) may start while the previous kernel on the stream ends; this waits
-// until that kernel has completed and its writes are visible. K1 launches
-// without it. Every kernel of K3's and K4's step loops calls it in every thread before it reads what
-// an earlier launch wrote or writes anything, so each launch still follows
-// all earlier ones; only reads of the weights (written before the loop) go
-// ahead of it. A no-op when the launch did not ask for the overlap.
+// until that kernel has completed and its writes are visible. K3's and K4's
+// step loops launch their kernels with it; K1 its LSTM cells and K5's
+// quantize_xh, its other kernels without. Every kernel launched with it
+// calls it in every thread before it reads what an earlier launch wrote or
+// writes anything, so each launch still follows all earlier ones; only
+// reads of the weights (written before the loop) go ahead of it. A no-op
+// when the launch did not ask for the overlap.
 __device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+// Let the next launch on the stream, where it asks for programmatic
+// dependent launch, start now rather than when this kernel's blocks exit:
+// K1's attention, the chunk's bf16 prenet and K5's quantize_xh call it
+// first, so that the launch after each (an LSTM cell, which streams its
+// first weight chunks meanwhile, or quantize_xh after the attention) starts
+// early; its pdl_wait still waits for this kernel to complete. A no-op for
+// a next launch without the overlap.
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
 
 // a launch through cudaLaunchKernelEx: with a cluster of cluster.x x
 // cluster.y blocks where cluster.x > 0, and with programmatic dependent
@@ -418,14 +431,15 @@ __device__ __forceinline__ void loc_conv(const float* win, int ww, const float* 
 // apart). The context goes into xa and, where given, xb (CT: K1's f32, K3's
 // bf16; rows lda / ldb apart); w_out, cum_out (B, L). A rank whose chars
 // are all masked or that has none gives the partial (max -inf, sum 0), which
-// the combine skips.
-template <typename HT, typename CT, int THREADS>
+// the combine skips. TRIGGER: pdl_trigger first; CB: the type of xb (K1's
+// instances: the context as f32 into xa and as its bf16 operand into xb).
+template <typename HT, typename CT, int THREADS, bool TRIGGER, typename CB>
 __global__ void __launch_bounds__(THREADS) att_fwd_cluster_kernel(
     const HT* __restrict__ h, int ldh, const bf16* __restrict__ wq,
     const bf16* __restrict__ wloc, const bf16* __restrict__ wv, const float* __restrict__ att_enc,
     const bf16* __restrict__ enc, const int* __restrict__ lengths,
     const float* __restrict__ w_prev, const float* __restrict__ cum_prev, float* __restrict__ w_out,
-    float* __restrict__ cum_out, CT* __restrict__ xa, int lda, CT* __restrict__ xb, int ldb,
+    float* __restrict__ cum_out, CT* __restrict__ xa, int lda, CB* __restrict__ xb, int ldb,
     int L, int H, int A, int D, int K) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 sm4[];
@@ -433,6 +447,7 @@ __global__ void __launch_bounds__(THREADS) att_fwd_cluster_kernel(
   __shared__ float red[32], bc[2];
   const int S = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
   const AttSmem o = att_smem(false, L, S, H, A, D, K);
+  if (TRIGGER) pdl_trigger();
   pdl_wait();
   const Slice sl = slice_of(L, S, r);
   float *wlt = sm + o.wlt, *hs = sm + o.hs, *q = sm + o.q, *wvs = sm + o.wvs, *win = sm + o.win;
@@ -535,8 +550,9 @@ int att_cluster_check(bool bwd, int S, int L, int H, int A, int D, int K, size_t
 // THREADS a block (K3: kClThreads; K1 fewer, so that the serve windows'
 // clusters run in one wave); HT / CT the types of the query input and of
 // the context (see the kernel). THREADS is fixed per caller, never taken
-// from the batch.
-template <typename HT, typename CT, int THREADS = kClThreads>
+// from the batch; TRIGGER, CB: see the kernel.
+template <typename HT, typename CT, int THREADS = kClThreads, bool TRIGGER = false,
+          typename CB = CT>
 int launch_att_fwd(const void* h, int ldh, const void* wq, const void* wloc, const void* wv,
                    const void* att_enc, const void* enc, const void* lengths, const void* w_prev,
                    const void* cum_prev, void* w_out, void* cum_out, void* xa, int lda, void* xb,
@@ -545,14 +561,14 @@ int launch_att_fwd(const void* h, int ldh, const void* wq, const void* wloc, con
   size_t smem = 0;
   static size_t allowed = 48 * 1024;
   int err = att_cluster_check(false, S, L, H, A, D, K, &smem);
-  if (!err) err = allow_smem(att_fwd_cluster_kernel<HT, CT, THREADS>, smem, &allowed);
+  if (!err) err = allow_smem(att_fwd_cluster_kernel<HT, CT, THREADS, TRIGGER, CB>, smem, &allowed);
   if (err) return err;
-  return launch_ex(att_fwd_cluster_kernel<HT, CT, THREADS>, dim3(S, B), dim3(S, 1, 1), THREADS,
+  return launch_ex(att_fwd_cluster_kernel<HT, CT, THREADS, TRIGGER, CB>, dim3(S, B), dim3(S, 1, 1), THREADS,
                    smem,
                    pdl, stream, (const HT*)h, ldh, (const bf16*)wq, (const bf16*)wloc,
                    (const bf16*)wv, (const float*)att_enc, (const bf16*)enc, (const int*)lengths,
                    (const float*)w_prev, (const float*)cum_prev, (float*)w_out, (float*)cum_out,
-                   (CT*)xa, lda, (CT*)xb, ldb, L, H, A, D, K);
+                   (CT*)xa, lda, (CB*)xb, ldb, L, H, A, D, K);
 }
 
 int launch_heads(const void* w, const void* b, const void* x1, int n1, const void* x2, int n2,

@@ -3,11 +3,14 @@
 // Replaces tacotron2_tpu/ops/decoder_loop_pallas.py::_decode_chunk_kernel
 // (bf16 mode) with its batched_location_attention epilogue. The TPU kernel
 // keeps both LSTM weight blocks (35.7 MB bf16 at the flagship dims) in VMEM
-// for 64 frames; an H100 SM has 227 KB of shared memory, so here each step
-// streams the weights through the whole card:
+// for 64 frames and computes each cell's gates as one batched matmul on the
+// MXU (jnp.dot(xh, w_s), :469); an H100 SM has 227 KB of shared memory, so
+// here each step streams the weights through the whole card:
 //
 //   t2_prenet              prenet: 2 x (Linear, ReLU, x dropout mask)
-//   t2_lstm_cell           LSTM gate matvec + i/f/g/o nonlinearity + c/h
+//   t2_lstm_cell           the LSTM cell: gate GEMM on the tensor cores over
+//                          a thread-block cluster, the i/f/g/o nonlinearity
+//                          and the c/h update fused (gate_cell_kernel)
 //   t2_location_attention  query, folded location conv, tanh energies,
 //                          masked softmax, context, cumulative weights, over
 //                          a thread-block cluster of S blocks per batch row
@@ -16,10 +19,11 @@
 //                          one host call (the decode's main path)
 //
 // Bound: the LSTM weight bytes over HBM bandwidth (35.7 MB / 3.35 TB/s =
-// 10.7 us per step at batch 1). t2_lstm_cell spreads the 4H gate rows over
-// H/4 blocks, one warp per row with 16-byte loads, so all SMs stream at
-// once; each row is read once per group of 4 batch rows. Operands are bf16
-// (activations rounded as they are staged), sums f32, state f32.
+// 10.7 us per step), at every B the decode runs (1 to 64 rows: the 2.3
+// GFLOP of a 64-row step take 2.4 us at the bf16 peak). The cell kernel
+// reads each weight byte once per step whatever the rows (see its notes
+// below). Operands are bf16 (activations rounded as they are staged), sums
+// f32, state f32.
 //
 // The location attention and heads kernels live in decode_common.cuh, which
 // K3 (train_decode.cu) shares. The attention is latency of dependent
@@ -35,189 +39,466 @@
 // stream, allocates nothing and returns cudaGetLastError().
 //
 // Kernel K5, the int8 mode of the same TPU kernel (pack_decoder_params(
-// quantize=True), its _quantize_xh and int8 gate products):
+// quantize=True), its _quantize_xh :388 and int8 gate products :466):
 //
+//   t2_quantize_xh         the cell's f32 input quantised per row (scale
+//                          max|x| / 127, round half to even, clip to +-127)
 //   t2_lstm_cell_int8      the LSTM cell over int8 weights with one f32 scale
-//                          per gate row: the block quantises its batch rows'
-//                          f32 input per row (scale max|x| / 127, round half
-//                          to even, clip to +-127) as it stages them, sums
-//                          int8 x int8 products in int32 (__dp4a), and scales
-//                          the sum back before the fused c/h update
+//                          per gate row: the same kernel on the int8 tensor
+//                          cores (gate_cell_kernel<true>) over that operand,
+//                          sums in int32, scaled back before the fused c/h
+//                          update
 //   t2_decode_chunk        with int8 weights, the same n steps with the two
-//                          LSTM launches on this cell instead
+//                          LSTM cells on these two kernels instead
 //
 // Bound: the int8 LSTM weight bytes, 17.8 MB at the flagship dims, over HBM
-// bandwidth: 5.3 us per step at batch 1, half of K1's. Same layout as
-// lstm_cell_kernel (one warp per gate row, 16 weights per 16-byte load);
-// integer sums are exact in any order, so the gates equal the plain
-// version's up to the float epilogue, whose multiplies and add are rounded
-// one by one (no contraction into an FMA) in the plain version's order.
+// bandwidth: 5.3 us per step, half of K1's.
+
+#include <algorithm>
+#include <type_traits>
 
 #include "decode_common.cuh"
+#include "tma.cuh"
 
 namespace {
 
-constexpr int kUnits = 4;         // hidden units per lstm_cell block
+// ---------------------------------------------------------------------------
+// The LSTM cells (K1's lstm_cell, bf16; K5's lstm_cell_int8): one gate GEMM
+// gates = xh . W^T + b with the LSTM update fused, on the tensor cores.
+//
+// Weight rows on M, the batch on N (mma.sync m16n8k16 bf16 / m16n8k32 s8,
+// f32 / s32 sums). Chosen over wgmma: the product is bound by the weight
+// stream at every B of the path (2.3 GFLOP at 64 rows take 2.4 us at the
+// bf16 peak, the 35.7 MB of weights 10.7 us), so the multiply only has to
+// keep up; mma.sync takes N in tiles of 8 rows with its fragments loaded
+// from shared memory by each warp, so one B = 1 row costs one n8 tile, and
+// bf16 and int8 read the same bytes: both fragments are 32-bit words at
+// byte 4t and 16 + 4t of a row's 32-byte k-step.
+//
+// A cluster of GC_S = 2 blocks owns GC_U = 16 hidden units x 4 gates (64
+// weight rows; grid (2, H / 16): 128 blocks at H = 1024) and splits the
+// contraction: rank r takes the 128-byte column chunks [r nk / 2, (r + 1)
+// nk / 2) of the rows (nk = ceil(row bytes / 128): 28 / 40 chunks of the
+// bf16 rows R1 = 1792 and R2 = 2560, 14 / 20 of the int8 ones). Pairs,
+// because the card runs 66 clusters of 2 at once but only 30 of 4 (read
+// with cudaOccupancyMaxActiveClusters at this kernel's shared memory): a
+// grid of 32 clusters of 4 ran in two waves. So:
+// - each weight byte is read from device memory once per step for any B up
+//   to 64 (the server's largest window); past 64 rows the block loops over
+//   N tiles of 64 and streams its weights again for each;
+// - a block needs its B rows of xh over its half of the columns, as the
+//   operand the tensor cores take: K1's bf16 operands are written by their
+//   producers (the prenet's output, the attention's context, each cell's
+//   h); K5's int8 operand by quantize_xh_kernel, one launch before each K5
+//   cell (JAX's _quantize_xh: a row's scale is over all of R, which no
+//   block of the split sees; quantised once per step, not by each of the
+//   64 clusters; quantising in the prenet's or the attention's epilogue
+//   instead made the one-row int8 chunk no faster, PERF.md). The producer
+//   warp copies the rows' pieces into shared memory with 1-D bulk copies:
+//   at 64 rows the decoder cell's block takes 64 x
+//   1280 x 2 B = 164 KB (bf16; 82 KB int8), 35.7 MB of L2 reads a bf16 step
+//   over the 64 clusters, as many bytes as the weights;
+// - each rank pushes its partial gate sums to the rank that owns the unit
+//   (distributed shared memory), one cluster barrier, and the owner adds
+//   them in rank order (p0 + p1) + bias and applies the LSTM update of its
+//   8 units. No atomics, and nothing in a row's sums depends on B: the
+//   chunk split, the k order inside a chunk and the rank order follow the
+//   dims alone, and an mma's output element depends only on its own row and
+//   column (chip_smoke.py holds rows of a 64-row launch against the rows
+//   alone, bit for bit). Gates never reach device memory.
+// - int8: quantize_xh takes a row's scale max|x| / 127 over all R from the
+//   f32 input and quantises it (round half to even, clip to +-127, true
+//   division), one block per row. The int32 sums are exact, so the gates
+//   equal the plain version's up to the float epilogue, whose multiplies
+//   and add are rounded one by one ((float(acc) sx) ws + b, __fmul_rn /
+//   __fadd_rn), in the plain version's order.
+//
+// The weights come from a copy tiled once per model (pack_decoder, its
+// gate_tile_offset is this addressing): for cluster gi, chunk c, its 64
+// rows (row gate 16 + u is W's row gate H + 16 gi + u) x 128 bytes, the
+// 16-byte piece k of row rr at piece k ^ (rr % 8) (bank-conflict-free
+// fragment loads), laid end to end: a block streams one contiguous run.
+// One producer warp streams it with 1-D bulk copies (8 KB a chunk) into a
+// ring of up to GC_RING = 96 KB under mbarriers (at 64 rows the xh slice
+// leaves room for 6 chunks), marked evict-first in L2 (int8 streamed
+// without a policy read the one-row int8 chunk within its spread and the
+// 64-row one 10 us a step slower, PERF.md). Every cell launches with
+// programmatic dependent launch: the kernel before it (in the chunk the
+// prenet, the attention or K5's quantize_xh) lets it launch as it starts,
+// and it streams its first GC_PREFETCH weight chunks while that kernel runs
+// (the weights depend on nothing the step computes), then its xh copies
+// after the wait, then the rest. More chunks before the wait queue ahead of
+// the xh copies in the copy engine: the whole ring (12 chunks at one row)
+// made the one-row bf16 chunk ~4 us a step slower, 1 or 4 chunks no faster
+// (chip_smoke.py --k1-ab's cell_ab builds copies of this file with other
+// GC_PREFETCH; it changes no result). A cell lets the next launch start
+// once its weights are read. Eight consumer warps take an m16 tile of rows
+// each over half the n8 tiles.
+// Tried on the card and dropped (PERF.md): clusters of 4 (30 fit at once:
+// a second wave), xh staged by the consumers from f32, xh boxes by TMA
+// beside each weight chunk, xh barriers per 4 chunks, K5 quantising in the
+// cell at a few rows.
+constexpr int GC_U = 16;                   // hidden units per cluster
+constexpr int GC_ROWS = 4 * GC_U;          // weight rows per block
+constexpr int GC_S = 2;                    // blocks per cluster: the contraction split
+constexpr int GC_CHUNK = GC_ROWS * 128;    // a chunk's weights: 128 bytes of each row
+constexpr int GC_RING = 96 * 1024;         // the weight ring's most bytes
+constexpr int GC_MAX_STAGES = GC_RING / GC_CHUNK;
+constexpr int GC_CONSUMERS = 8;            // warps 0..7 multiply; warp 8 streams
+constexpr int GC_THREADS = 32 * (GC_CONSUMERS + 1);
+constexpr int GC_NTILE = 64;               // batch rows per pass: 8 n8 tiles
+constexpr int GC_MT = GC_ROWS / 16;        // m16 tiles of a block's rows
+constexpr int GC_NSPLIT = GC_CONSUMERS / GC_MT;   // warps sharing an m tile
+constexpr int GC_NPW = GC_NTILE / 8 / GC_NSPLIT;  // n8 tiles a warp takes at most
+constexpr int GC_UPR = GC_U / GC_S;        // units whose LSTM update a rank applies
+constexpr int GC_PREFETCH = 2;             // weight chunks streamed before the wait
+constexpr int GC_SMEM_MAX = 227 * 1024;
+static_assert(GC_ROWS % 16 == 0 && GC_CONSUMERS % GC_MT == 0 && GC_U % GC_S == 0 &&
+                  GC_MAX_STAGES >= 2,
+              "the cell kernel's tiling");
 
+// byte offsets of the cell kernel's shared arrays: the ring's barriers and
+// xs's; xs (the pass's rows of the xh operand over this rank's chunks, kb
+// bytes + 16 of padding a row: conflict-free fragment loads); the partial
+// sums pushed to this rank by every rank (4-byte f32 or s32, [rank][gate]
+// [unit of this rank][row], pld words a unit); the update's operands,
+// loaded before the product (c_in [row][unit], bias and ws [gate][unit]);
+// then the weight ring of `stages` chunks: as many as fit, up to GC_RING
+// bytes (the depth follows the rows and changes no sum)
+struct CellSmem {
+  int xs_stride, pld, bars, xs, part, epi, ring, stages, total;
+};
 
-// grid H / kUnits, block 4 * kUnits warps; warp w -> unit w / 4, gate w % 4
-__global__ void lstm_cell_kernel(const __nv_bfloat16* __restrict__ W, const float* __restrict__ bias,
-                                 const float* x1, int n1, const float* x2, int n2,
-                                 const float* x3, int n3, const float* __restrict__ c_in,
-                                 float* __restrict__ h_out, float* __restrict__ c_out, int B,
-                                 int H) {
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __shared__ float gsum[4 * kUnits][kGroup];
-  const int R = n1 + n2 + n3;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int unit = warp >> 2, gate = warp & 3;
-  const int j = blockIdx.x * kUnits + unit;
-  const int row = gate * H + j;
-  for (int b0 = 0; b0 < B; b0 += kGroup) {
-    const int nb = min(kGroup, B - b0);
-    __syncthreads();
-    stage_inputs(xs, x1, n1, x2, n2, x3, n3, b0, nb);
-    __syncthreads();
-    float acc[kGroup];
-    row_dot(W + (size_t)row * R, xs, R, nb, acc);
-    if (lane == 0) {
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) gsum[warp][g] = acc[g] + bias[row];
+__host__ __device__ inline CellSmem cell_smem(int kb, int nrows) {
+  CellSmem o;
+  o.xs_stride = kb + 16;
+  o.pld = nrows + 4;
+  o.bars = 0;
+  o.xs = (2 * GC_MAX_STAGES + 2) * 8;
+  o.part = o.xs + nrows * o.xs_stride;
+  o.epi = o.part + GC_S * 4 * GC_UPR * o.pld * 4;
+  o.ring = (o.epi + (nrows + 8) * GC_UPR * 4 + 127) & ~127;
+  o.stages = (GC_SMEM_MAX - o.ring) / GC_CHUNK;
+  if (o.stages > GC_MAX_STAGES) o.stages = GC_MAX_STAGES;
+  o.total = o.ring + o.stages * GC_CHUNK;
+  return o;
+}
+
+// elements of xh in a 128-byte chunk, the chunks of a weight row, and the
+// bytes of a rank's xs row (the most chunks a rank takes)
+__host__ __device__ inline int cell_cw(bool int8) { return int8 ? 128 : 64; }
+__host__ __device__ inline int cell_chunks(int R, bool int8) {
+  return (R + cell_cw(int8) - 1) / cell_cw(int8);
+}
+__host__ __device__ inline int cell_kb(int R, bool int8) {
+  return (cell_chunks(R, int8) + GC_S - 1) / GC_S * 128;
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_s8(int c[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 32 bits at byte `byte` of row `row` of a weight chunk (128-byte rows, the
+// 16-byte piece k of row r at piece k ^ (r % 8))
+__device__ __forceinline__ uint32_t ld_chunk(const uint8_t* chunk, int row, int byte) {
+  return *reinterpret_cast<const uint32_t*>(chunk + row * 128 + ((((byte >> 4) ^ row) & 7) << 4) +
+                                            (byte & 15));
+}
+
+// the weight stream's L2 policy: evict first what it marks
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ void bar_consumers() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(GC_CONSUMERS * 32) : "memory");
+}
+
+// float4 at column col (a multiple of 4, not crossing a segment) of row b
+// of the f32 input [x1 | x2 | x3] (segments x[i], n[i] floats a row)
+__device__ __forceinline__ float4 input4(const float* const x[3], const int n[3], int b,
+                                         int col) {
+  const float* p = col < n[0]          ? x[0] + (size_t)b * n[0] + col
+                   : col < n[0] + n[1] ? x[1] + (size_t)b * n[1] + (col - n[0])
+                                       : x[2] + (size_t)b * n[2] + (col - n[0] - n[1]);
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// K5's quantisation of four inputs with the row's scale sx: clip(round half
+// to even(x / sx), -127, 127), true division, as four int8 in a word
+__device__ __forceinline__ uint32_t quantize4(float4 v, float sx) {
+  auto q = [sx](float x) {
+    const float r = rintf(x / sx);
+    return (uint32_t)(uint8_t)(int8_t)__float2int_rn(fminf(fmaxf(r, -127.0f), 127.0f));
+  };
+  return q(v.x) | (q(v.y) << 8) | (q(v.z) << 16) | (q(v.w) << 24);
+}
+
+// a cell's xh operand: segment i (n[i] elements of esize bytes a row) at
+// x[i], rows pitch[i] bytes apart (bf16: the three producers' arrays; K5:
+// the three parts of quantize_xh's one int8 array)
+struct CellOperand {
+  const uint8_t* x[3];
+  int n[3];
+  int pitch[3];
+};
+
+// grid (GC_S, H / GC_U), cluster (GC_S, 1, 1), GC_THREADS threads,
+// cell_smem(cell_kb(R), rows of a pass padded to 8).total bytes. wt: the
+// tiled copy (see above); xo: the xh operand (bf16, or K5's int8); ws, sx:
+// K5's weight-row scales (4H,) and row scales (B,); bias (4H,) f32; c_in,
+// h_out, c_out (B, H) f32; h_bf, where given, gets h's bf16 operand (B, H).
+template <bool INT8>
+__global__ void __launch_bounds__(GC_THREADS, 1)
+gate_cell_kernel(const uint8_t* __restrict__ wt, const CellOperand xo,
+                 const float* __restrict__ ws, const float* __restrict__ sx,
+                 const float* __restrict__ bias, const float* __restrict__ c_in,
+                 float* __restrict__ h_out, float* __restrict__ c_out, bf16* __restrict__ h_bf,
+                 int B, int H) {
+  typedef typename std::conditional<INT8, int, float>::type Acc;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(128) uint8_t gc_raw[];
+  const int ES = INT8 ? 1 : 2, CW = cell_cw(INT8);
+  const int R = xo.n[0] + xo.n[1] + xo.n[2], nk = cell_chunks(R, INT8);
+  const int rank = (int)cluster.block_rank(), gi = blockIdx.y;
+  const int c0 = rank * nk / GC_S, nc = (rank + 1) * nk / GC_S - c0;
+  const int nrows = (min(B, GC_NTILE) + 7) & ~7;
+  const CellSmem o = cell_smem(cell_kb(R, INT8), nrows);
+  const int NS = o.stages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(gc_raw + o.bars);
+  uint64_t* empty = full + GC_MAX_STAGES;
+  uint64_t* xs_full = empty + GC_MAX_STAGES;
+  uint8_t* xs = gc_raw + o.xs;
+  Acc* part = reinterpret_cast<Acc*>(gc_raw + o.part);
+  float* cpre = reinterpret_cast<float*>(gc_raw + o.epi);  // [row][unit]
+  float* bpre = cpre + nrows * GC_UPR;                     // [gate][unit]
+  float* wpre = bpre + 4 * GC_UPR;                         // [gate][unit]
+  uint8_t* ring = gc_raw + o.ring;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ntiles = (B + GC_NTILE - 1) / GC_NTILE;
+  const int lo = c0 * CW, hi = min(R, (c0 + nc) * CW);  // this rank's columns of xh
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, GC_CONSUMERS);
     }
-    __syncthreads();
-    const int t = threadIdx.x;
-    if (t < kUnits * kGroup) {
-      const int u = t / kGroup, g = t % kGroup;
-      if (g < nb) {
-        const int jj = blockIdx.x * kUnits + u;
-        const size_t o = (size_t)(b0 + g) * H + jj;
-        const float ig = sigmoid_f(gsum[u * 4 + 0][g]);
-        const float fg = sigmoid_f(gsum[u * 4 + 1][g]);
-        const float gg = tanhf(gsum[u * 4 + 2][g]);
-        const float og = sigmoid_f(gsum[u * 4 + 3][g]);
-        const float c = fg * c_in[o] + ig * gg;
-        c_out[o] = c;
-        h_out[o] = og * tanhf(c);
-      }
-    }
+    mbar_init(xs_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
+  __syncthreads();
 
-// Element k of batch row b of the concatenated input [x1 | x2 | x3].
-__device__ __forceinline__ float input_at(const float* x1, int n1, const float* x2, int n2,
-                                          const float* x3, int n3, int b, int k) {
-  if (k < n1) return x1[(size_t)b * n1 + k];
-  if (k < n1 + n2) return x2[(size_t)b * n2 + (k - n1)];
-  return x3[(size_t)b * n3 + (k - n1 - n2)];
-}
+  if (warp == GC_CONSUMERS) {
+    // producer: chunk it of the run (it % nc of pass it / nc) into stage
+    // it % NS once its last use is done (lane 0; the first GC_PREFETCH, at
+    // most NS, before the wait for the previous kernel); the pass's rows of
+    // xh over [lo, hi), a row's piece of each segment by 1-D bulk copies
+    // into xs (all lanes). The warp joins the passes' cluster syncs, so it
+    // issues a pass's copies only within that pass.
+    const uint8_t* wb = wt + ((size_t)gi * nk + c0) * GC_CHUNK;
+    const uint64_t policy = evict_first_policy();
+    auto issue = [&](int it) {
+      const int s = it % NS;
+      mbar_expect_tx(full + s, GC_CHUNK);
+      bulk_load(ring + s * GC_CHUNK, wb + (size_t)(it % nc) * GC_CHUNK, GC_CHUNK, full + s,
+                policy);
+    };
+    const int early = min(min(GC_PREFETCH, NS), nc);
+    if (lane == 0)
+      for (int it = 0; it < early; ++it) issue(it);
+    pdl_wait();
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int b0 = tile * GC_NTILE, bt = min(GC_NTILE, B - b0);
+      if (lane == 0) mbar_expect_tx(xs_full, (uint32_t)(bt * (hi - lo) * ES));
+      __syncwarp();
+      for (int b = lane; b < bt; b += 32)
+        for (int i = 0, seg = 0; i < 3; seg += xo.n[i], ++i) {
+          const int a = max(lo, seg), e = min(hi, seg + xo.n[i]);
+          if (a < e)
+            bulk_load(xs + (size_t)b * o.xs_stride + (a - lo) * ES,
+                      xo.x[i] + (size_t)(b0 + b) * xo.pitch[i] + (size_t)(a - seg) * ES,
+                      (uint32_t)((e - a) * ES), xs_full);
+        }
+      if (lane == 0)
+        for (int it = max(tile * nc, early); it < (tile + 1) * nc; ++it) {
+          if (it >= NS) mbar_wait(empty + it % NS, ((it / NS) & 1) ^ 1);
+          issue(it);
+        }
+      __syncwarp();
+      cluster.sync();  // the pass's partial sums are pushed
+      if (tile + 1 < ntiles) cluster.sync();  // and summed
+    }
+    return;
+  }
 
-__device__ __forceinline__ int warp_sum_int(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+  // consumers
+  pdl_wait();
+  const int g = lane >> 2, t4 = (lane & 3) * 4;
+  const int row = (warp % GC_MT) * 16 + g, nq = warp / GC_MT;  // n8 tiles nq + GC_NSPLIT j
+  // columns of the last chunk past R read as zero (the weights' pad is
+  // zero; xs must not hold a NaN there)
+  const int tail = nc * 128 - (hi - lo) * ES;
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int b0 = tile * GC_NTILE, bt = min(GC_NTILE, B - b0), ntl = (bt + 7) >> 3;
+    // the update's operands, in flight while the product runs
+    for (int i = tid; i < bt * GC_UPR; i += GC_CONSUMERS * 32) {
+      const int b = i / GC_UPR, ul = i - b * GC_UPR;
+      cpre[i] = c_in[(size_t)(b0 + b) * H + gi * GC_U + rank * GC_UPR + ul];
+    }
+    for (int i = tid; i < 4 * GC_UPR; i += GC_CONSUMERS * 32) {
+      const int wrow = (i / GC_UPR) * H + gi * GC_U + rank * GC_UPR + i % GC_UPR;
+      bpre[i] = bias[wrow];
+      if (INT8) wpre[i] = ws[wrow];
+    }
+    if (tail > 0) {
+      for (int i = tid; i < ntl * 8 * (tail / 4); i += GC_CONSUMERS * 32) {
+        const int b = i / (tail / 4), q = i - b * (tail / 4);
+        *reinterpret_cast<uint32_t*>(xs + (size_t)b * o.xs_stride + (hi - lo) * ES + q * 4) = 0u;
+      }
+      bar_consumers();
+    }
+    mbar_wait(xs_full, tile & 1);
 
-// K5. grid H / kUnits, block 4 * kUnits warps (as lstm_cell_kernel); warp w
-// -> unit w / 4, gate w % 4. Dynamic shared memory: the kGroup staged rows
-// as int8, kGroup * R bytes (R % 16 == 0).
-__global__ void lstm_cell_int8_kernel(const int8_t* __restrict__ W, const float* __restrict__ ws,
-                                      const float* __restrict__ bias, const float* x1, int n1,
-                                      const float* x2, int n2, const float* x3, int n3,
-                                      const float* __restrict__ c_in, float* __restrict__ h_out,
-                                      float* __restrict__ c_out, int B, int H) {
-  extern __shared__ uint4 smem_u4[];
-  int8_t* xq = reinterpret_cast<int8_t*>(smem_u4);
-  __shared__ float sx[kGroup];
-  __shared__ float red[4 * kUnits][kGroup];
-  __shared__ float gsum[4 * kUnits][kGroup];
-  const int R = n1 + n2 + n3;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int unit = warp >> 2, gate = warp & 3;
-  const int j = blockIdx.x * kUnits + unit;
-  const int row = gate * H + j;
-  for (int b0 = 0; b0 < B; b0 += kGroup) {
-    const int nb = min(kGroup, B - b0);
-    __syncthreads();
-    // per-row activation scale from the f32 input (not a bf16-rounded
-    // copy): every thread takes a strided share of each row, then the block
-    // reduces the warps' maxima
+    // the product over this rank's chunks: warp w -> rows 16 (w % GC_MT) +
+    // 0..15, n8 tiles w / GC_MT + GC_NSPLIT j of the pass; k in chunk
+    // order, 4 k-steps of 32 bytes a chunk
+    Acc acc[GC_NPW][4];
 #pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      float m = 0.0f;
-      if (g < nb)
-        for (int k = threadIdx.x; k < R; k += blockDim.x)
-          m = fmaxf(m, fabsf(input_at(x1, n1, x2, n2, x3, n3, b0 + g, k)));
-      m = warp_max(m);
-      if (lane == 0) red[warp][g] = m;
-    }
-    __syncthreads();
-    if (threadIdx.x < nb) {
-      float m = 0.0f;
-      for (int w = 0; w < 4 * kUnits; ++w) m = fmaxf(m, red[w][threadIdx.x]);
-      sx[threadIdx.x] = fmaxf(m, 1e-12f) / 127.0f;
-    }
-    __syncthreads();
-    // q = clip(round_half_even(x / sx), -127, 127), true division
-    for (int i = threadIdx.x; i < nb * R; i += blockDim.x) {
-      const int g = i / R, k = i - g * R;
-      const float v = rintf(input_at(x1, n1, x2, n2, x3, n3, b0 + g, k) / sx[g]);
-      xq[i] = (int8_t)__float2int_rn(fminf(fmaxf(v, -127.0f), 127.0f));
-    }
-    __syncthreads();
-    int acc[kGroup];
+    for (int j = 0; j < GC_NPW; ++j)
 #pragma unroll
-    for (int g = 0; g < kGroup; ++g) acc[g] = 0;
-    const uint4* wrow = reinterpret_cast<const uint4*>(W + (size_t)row * R);
-    for (int k16 = lane; k16 < R / 16; k16 += 32) {
-      const uint4 w = __ldg(wrow + k16);
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0;
+    for (int kc = 0; kc < nc; ++kc) {
+      const int it = tile * nc + kc, s = it % NS;
+      mbar_wait(full + s, (it / NS) & 1);
+      const uint8_t* wc = ring + s * GC_CHUNK;
+      const uint8_t* xc = xs + kc * 128 + t4;
 #pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        if (g < nb) {
-          const uint4 x = *(reinterpret_cast<const uint4*>(xq + (size_t)g * R) + k16);
-          acc[g] = __dp4a((int)w.x, (int)x.x, acc[g]);
-          acc[g] = __dp4a((int)w.y, (int)x.y, acc[g]);
-          acc[g] = __dp4a((int)w.z, (int)x.z, acc[g]);
-          acc[g] = __dp4a((int)w.w, (int)x.w, acc[g]);
+      for (int ks = 0; ks < 4; ++ks) {
+        const int byte = ks * 32 + t4;
+        const uint32_t a0 = ld_chunk(wc, row, byte), a1 = ld_chunk(wc, row + 8, byte);
+        const uint32_t a2 = ld_chunk(wc, row, byte + 16), a3 = ld_chunk(wc, row + 8, byte + 16);
+#pragma unroll
+        for (int j = 0; j < GC_NPW; ++j) {
+          const int n = nq + GC_NSPLIT * j;
+          if (n < ntl) {
+            const uint8_t* xr = xc + (size_t)(n * 8 + g) * o.xs_stride + ks * 32;
+            const uint32_t bb0 = *reinterpret_cast<const uint32_t*>(xr);
+            const uint32_t bb1 = *reinterpret_cast<const uint32_t*>(xr + 16);
+            if constexpr (INT8) mma_s8(acc[j], a0, a1, a2, a3, bb0, bb1);
+            else mma_bf16(acc[j], a0, a1, a2, a3, bb0, bb1);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);  // the stage is read: free it
+    }
+    pdl_trigger();  // the weights are read: the next launch may start streaming
+    // push each partial sum to the rank that applies its unit's update:
+    // row gate GC_U + u -> rank u / GC_UPR, slot [this rank][gate][u % GC_UPR]
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {
+      const int gate = (row + 8 * h8) / GC_U, u = (row + 8 * h8) % GC_U;
+      Acc* dst = cluster.map_shared_rank(part, u / GC_UPR) +
+                 ((rank * 4 + gate) * GC_UPR + u % GC_UPR) * o.pld;
+#pragma unroll
+      for (int j = 0; j < GC_NPW; ++j) {
+        const int n = nq + GC_NSPLIT * j;
+        if (n < ntl) {
+          const int col = n * 8 + (lane & 3) * 2;
+          dst[col] = acc[j][2 * h8];
+          dst[col + 1] = acc[j][2 * h8 + 1];
         }
       }
     }
+    cluster.sync();
+
+    // the LSTM update of this rank's GC_UPR units: the ranks' partial sums
+    // in rank order, + bias (int8: scaled back first)
+    for (int i = tid; i < GC_UPR * bt; i += GC_CONSUMERS * 32) {
+      const int b = i / GC_UPR, ul = i - b * GC_UPR, j = gi * GC_U + rank * GC_UPR + ul;
+      float gv[4];
 #pragma unroll
-    for (int g = 0; g < kGroup; ++g) acc[g] = warp_sum_int(acc[g]);
-    if (lane == 0) {
-      for (int g = 0; g < nb; ++g)
-        gsum[warp][g] = __fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[g]), sx[g]), ws[row]), bias[row]);
-    }
-    __syncthreads();
-    const int t = threadIdx.x;
-    if (t < kUnits * kGroup) {
-      const int u = t / kGroup, g = t % kGroup;
-      if (g < nb) {
-        const int jj = blockIdx.x * kUnits + u;
-        const size_t o = (size_t)(b0 + g) * H + jj;
-        const float ig = sigmoid_f(gsum[u * 4 + 0][g]);
-        const float fg = sigmoid_f(gsum[u * 4 + 1][g]);
-        const float gg = tanhf(gsum[u * 4 + 2][g]);
-        const float og = sigmoid_f(gsum[u * 4 + 3][g]);
-        const float c = fg * c_in[o] + ig * gg;
-        c_out[o] = c;
-        h_out[o] = og * tanhf(c);
+      for (int gate = 0; gate < 4; ++gate) {
+        Acc v = part[(gate * GC_UPR + ul) * o.pld + b];
+#pragma unroll
+        for (int p = 1; p < GC_S; ++p) v += part[((p * 4 + gate) * GC_UPR + ul) * o.pld + b];
+        if constexpr (INT8)
+          gv[gate] = __fadd_rn(
+              __fmul_rn(__fmul_rn(__int2float_rn(v), sx[b0 + b]), wpre[gate * GC_UPR + ul]),
+              bpre[gate * GC_UPR + ul]);
+        else
+          gv[gate] = v + bpre[gate * GC_UPR + ul];
       }
+      const size_t oo = (size_t)(b0 + b) * H + j;
+      const float c = sigmoid_f(gv[1]) * cpre[i] + sigmoid_f(gv[0]) * tanhf(gv[2]);
+      const float hv = sigmoid_f(gv[3]) * tanhf(c);
+      c_out[oo] = c;
+      h_out[oo] = hv;
+      if (h_bf) h_bf[oo] = __float2bfloat16_rn(hv);
     }
+    if (tile + 1 < ntiles) cluster.sync();  // no rank pushes the next pass's sums early
   }
 }
 
+// K5's operand: row b of the f32 input [x1 | x2 | x3] (n_i % 4 == 0)
+// quantised over all of R (scale max|x| / 127 from the f32 values, q =
+// clip(round_half_even(x / scale), -127, 127), true division) into xq (B,
+// R) int8 and sx (B,). grid B, 256 threads. Launched with programmatic
+// dependent launch (it waits for the previous kernel before it reads or
+// writes; after the attention, which lets it start at once, its launch
+// overlaps the attention: the int8 chunk read ~1 us a step faster with the
+// host's launches at one row, 1.3-3 at 16 rows, chip_smoke.py --k1-ab);
+// the next launch (the cell) may start at once and stream its weights.
+__global__ void __launch_bounds__(256) quantize_xh_kernel(
+    const float* __restrict__ x1, int n1, const float* __restrict__ x2, int n2,
+    const float* __restrict__ x3, int n3, int8_t* __restrict__ xq, float* __restrict__ sx) {
+  pdl_trigger();
+  pdl_wait();
+  __shared__ float red[32];
+  const float* const x[3] = {x1, x2, x3};
+  const int n[3] = {n1, n2, n3};
+  const int b = blockIdx.x, R = n1 + n2 + n3;
+  float m = 0.0f;
+  for (int k = threadIdx.x * 4; k < R; k += blockDim.x * 4) {
+    const float4 v = input4(x, n, b, k);
+    m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
+  }
+  const float s = fmaxf(block_reduce(m, red, true), 1e-12f) / 127.0f;
+  for (int k = threadIdx.x * 4; k < R; k += blockDim.x * 4)
+    *reinterpret_cast<uint32_t*>(xq + (size_t)b * R + k) = quantize4(input4(x, n, b, k), s);
+  if (threadIdx.x == 0) sx[b] = s;
+}
+
 // grid B, block P threads; thread p -> prenet unit p (weights input-major);
-// mel rows are ldm floats apart
+// mel rows are ldm floats apart. OPERAND (the chunk's launches, bf16 mode):
+// let the LSTM cell after it start at once (pdl_trigger) and write its
+// operand, the output's bf16 copy, into out_bf; without, the output alone
+// (the one-kernel entry and int8 mode)
+template <bool OPERAND>
 __global__ void prenet_kernel(const float* __restrict__ mel, const __nv_bfloat16* __restrict__ w1t,
                               const __nv_bfloat16* __restrict__ w2t, const float* __restrict__ m1,
-                              const float* __restrict__ m2, float* __restrict__ out, int M,
-                              int P, int ldm) {
+                              const float* __restrict__ m2, float* __restrict__ out,
+                              bf16* __restrict__ out_bf, int M, int P, int ldm) {
   extern __shared__ float sm[];
   float* xs = sm;      // M
   float* hs = sm + M;  // P
   const int b = blockIdx.x, p = threadIdx.x;
+  if (OPERAND) pdl_trigger();
   for (int k = threadIdx.x; k < M; k += blockDim.x) xs[k] = rnd_bf16(mel[(size_t)b * ldm + k]);
   __syncthreads();
   float acc = 0.0f;
@@ -228,7 +509,9 @@ __global__ void prenet_kernel(const float* __restrict__ mel, const __nv_bfloat16
   acc = 0.0f;
 #pragma unroll 8
   for (int k = 0; k < P; ++k) acc = fmaf(hs[k], __bfloat162float(w2t[(size_t)k * P + p]), acc);
-  out[(size_t)b * P + p] = fmaxf(acc, 0.0f) * m2[(size_t)b * P + p];
+  const float v = fmaxf(acc, 0.0f) * m2[(size_t)b * P + p];
+  out[(size_t)b * P + p] = v;
+  if (OPERAND) out_bf[(size_t)b * P + p] = __float2bfloat16_rn(v);
 }
 
 // ---- launchers (shared by the one-kernel entry points and the chunk) ----
@@ -237,11 +520,12 @@ __global__ void prenet_kernel(const float* __restrict__ mel, const __nv_bfloat16
 // more blocks than the card has SMs (the serve windows: 64 rows x S = 8).
 // The sums' order does not follow: while a rank has at most 128 chars, a
 // thread holds at most one char in the softmax's sums and the other sums
-// run per output, whatever the block size.
+// run per output, whatever the block size. ctx_bf, where given, gets the
+// context's bf16 operand (both LSTM cells' input).
 int launch_k1_att(const void* h, const void* wq, const void* wloc, const void* wv,
                   const void* att_enc, const void* enc, const void* lengths, const void* w_prev,
-                  const void* cum_prev, void* ctx_out, void* w_out, void* cum_out, int B, int L,
-                  int H, int A, int D, int K, int S, cudaStream_t stream) {
+                  const void* cum_prev, void* ctx_out, void* ctx_bf, void* w_out, void* cum_out,
+                  int B, int L, int H, int A, int D, int K, int S, cudaStream_t stream) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -251,46 +535,72 @@ int launch_k1_att(const void* h, const void* wq, const void* wloc, const void* w
   }
   if (S < 1) return (int)cudaErrorInvalidValue;
   if ((long long)B * S > sms && (L + S - 1) / S <= 128)
-    return launch_att_fwd<float, float, 128>(h, H, wq, wloc, wv, att_enc, enc, lengths, w_prev,
-                                             cum_prev, w_out, cum_out, ctx_out, D, nullptr, 0,
-                                             B, S, L, H, A, D, K, false, stream);
-  return launch_att_fwd<float, float, 256>(h, H, wq, wloc, wv, att_enc, enc, lengths, w_prev,
-                                           cum_prev, w_out, cum_out, ctx_out, D, nullptr, 0, B,
-                                           S, L, H, A, D, K, false, stream);
+    return launch_att_fwd<float, float, 128, true, bf16>(
+        h, H, wq, wloc, wv, att_enc, enc, lengths, w_prev, cum_prev, w_out, cum_out, ctx_out, D,
+        ctx_bf, D, B, S, L, H, A, D, K, false, stream);
+  return launch_att_fwd<float, float, 256, true, bf16>(
+      h, H, wq, wloc, wv, att_enc, enc, lengths, w_prev, cum_prev, w_out, cum_out, ctx_out, D,
+      ctx_bf, D, B, S, L, H, A, D, K, false, stream);
 }
 
-int launch_lstm_cell(const void* w, const void* b, const void* x1, int n1, const void* x2,
-                     int n2, const void* x3, int n3, const void* c_in, void* h_out, void* c_out,
-                     int B, int H, cudaStream_t stream) {
+// bf16 operand: three (B, n_i) arrays
+CellOperand bf16_operand(const void* x1, int n1, const void* x2, int n2, const void* x3, int n3) {
+  return CellOperand{{(const uint8_t*)x1, (const uint8_t*)x2, (const uint8_t*)x3},
+                     {n1, n2, n3},
+                     {2 * n1, 2 * n2, 2 * n3}};
+}
+
+// K5's operand: the three parts of quantize_xh's (B, n1 + n2 + n3) int8 array
+CellOperand int8_operand(const void* xq, int n1, int n2, int n3) {
+  const uint8_t* q = (const uint8_t*)xq;
   const int R = n1 + n2 + n3;
-  const size_t smem = (size_t)kGroup * R * sizeof(__nv_bfloat16);
-  if (R % 8 || H % kUnits || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  lstm_cell_kernel<<<H / kUnits, 4 * kUnits * 32, smem, stream>>>(
-      (const __nv_bfloat16*)w, (const float*)b, (const float*)x1, n1, (const float*)x2, n2,
-      (const float*)x3, n3, (const float*)c_in, (float*)h_out, (float*)c_out, B, H);
-  return (int)cudaGetLastError();
+  return CellOperand{{q, q + n1, q + n1 + n2}, {n1, n2, n3}, {R, R, R}};
 }
 
-int launch_lstm_cell_int8(const void* w, const void* ws, const void* b, const void* x1, int n1,
-                          const void* x2, int n2, const void* x3, int n3, const void* c_in,
-                          void* h_out, void* c_out, int B, int H, cudaStream_t stream) {
-  const int R = n1 + n2 + n3;
-  const size_t smem = (size_t)kGroup * R;
-  if (R % 16 || H % kUnits || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  lstm_cell_int8_kernel<<<H / kUnits, 4 * kUnits * 32, smem, stream>>>(
-      (const int8_t*)w, (const float*)ws, (const float*)b, (const float*)x1, n1,
-      (const float*)x2, n2, (const float*)x3, n3, (const float*)c_in, (float*)h_out,
-      (float*)c_out, B, H);
-  return (int)cudaGetLastError();
+// the cell's launch: grid (GC_S, H / GC_U), a cluster of GC_S blocks, with
+// programmatic dependent launch (the weights stream while the previous
+// kernel ends); h_bf may be null
+template <bool INT8>
+int launch_gate_cell(const void* wt, const CellOperand& xo, const void* ws, const void* sx,
+                     const void* b, const void* c_in, void* h_out, void* c_out, void* h_bf, int B,
+                     int H, cudaStream_t stream) {
+  const int R = xo.n[0] + xo.n[1] + xo.n[2], nk = cell_chunks(R, INT8);
+  bool aligned = ((uintptr_t)wt & 15) == 0;
+  for (int i = 0; i < 3; ++i)
+    aligned = aligned && ((uintptr_t)xo.x[i] & 15) == 0 && xo.pitch[i] % 16 == 0 &&
+              xo.n[i] % 16 == 0;
+  if (B < 1 || H < GC_U || H % GC_U || nk < GC_S || !aligned)
+    return (int)cudaErrorInvalidValue;
+  const CellSmem o = cell_smem(cell_kb(R, INT8), (std::min(B, GC_NTILE) + 7) & ~7);
+  if (o.stages < 2) return (int)cudaErrorInvalidValue;
+  static size_t allowed = 48 * 1024;
+  const int err = allow_smem(gate_cell_kernel<INT8>, (size_t)o.total, &allowed);
+  if (err) return err;
+  return launch_ex(gate_cell_kernel<INT8>, dim3(GC_S, H / GC_U), dim3(GC_S, 1, 1), GC_THREADS,
+                   (size_t)o.total, true, stream, (const uint8_t*)wt, xo, (const float*)ws,
+                   (const float*)sx, (const float*)b, (const float*)c_in, (float*)h_out,
+                   (float*)c_out, (bf16*)h_bf, B, H);
 }
 
+int launch_quantize_xh(const void* x1, int n1, const void* x2, int n2, const void* x3, int n3,
+                         void* xq, void* sx, int B, cudaStream_t stream) {
+  if (B < 1 || n1 % 4 || n2 % 4 || n3 % 4) return (int)cudaErrorInvalidValue;
+  return launch_ex(quantize_xh_kernel, dim3(B), kNoCluster, 256, 0, true, stream,
+                   (const float*)x1, n1, (const float*)x2, n2, (const float*)x3, n3,
+                   (int8_t*)xq, (float*)sx);
+}
+
+// the prenet; out_bf, where given, gets its output's bf16 operand (the
+// chunk's launch in bf16 mode: prenet_kernel<true>)
 int launch_prenet(const void* mel, int ldm, const void* w1t, const void* w2t, const void* m1,
-                  const void* m2, void* out, int B, int M, int P, cudaStream_t stream) {
+                  const void* m2, void* out, void* out_bf, int B, int M, int P,
+                  cudaStream_t stream) {
   if (P > 1024) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(M + P) * sizeof(float);
-  prenet_kernel<<<B, P, smem, stream>>>(
-      (const float*)mel, (const __nv_bfloat16*)w1t, (const __nv_bfloat16*)w2t, (const float*)m1,
-      (const float*)m2, (float*)out, M, P, ldm);
+  auto kernel = out_bf ? prenet_kernel<true> : prenet_kernel<false>;
+  kernel<<<B, P, smem, stream>>>((const float*)mel, (const __nv_bfloat16*)w1t,
+                                 (const __nv_bfloat16*)w2t, (const float*)m1, (const float*)m2,
+                                 (float*)out, (bf16*)out_bf, M, P, ldm);
   return (int)cudaGetLastError();
 }
 
@@ -298,18 +608,28 @@ int launch_prenet(const void* mel, int ldm, const void* w1t, const void* w2t, co
 
 extern "C" {
 
-int t2_lstm_cell(const void* w, const void* b, const void* x1, int n1, const void* x2, int n2,
+// the LSTM cell over the tiled copy wt of its weights (pack_decoder): x_i
+// (B, n_i) bf16 operands; c_in, h_out, c_out (B, H) f32
+int t2_lstm_cell(const void* wt, const void* b, const void* x1, int n1, const void* x2, int n2,
                  const void* x3, int n3, const void* c_in, void* h_out, void* c_out, int B, int H,
                  void* stream) {
-  return launch_lstm_cell(w, b, x1, n1, x2, n2, x3, n3, c_in, h_out, c_out, B, H,
-                          (cudaStream_t)stream);
+  return launch_gate_cell<false>(wt, bf16_operand(x1, n1, x2, n2, x3, n3), nullptr, nullptr, b,
+                                 c_in, h_out, c_out, nullptr, B, H, (cudaStream_t)stream);
 }
 
-int t2_lstm_cell_int8(const void* w, const void* ws, const void* b, const void* x1, int n1,
-                      const void* x2, int n2, const void* x3, int n3, const void* c_in,
-                      void* h_out, void* c_out, int B, int H, void* stream) {
-  return launch_lstm_cell_int8(w, ws, b, x1, n1, x2, n2, x3, n3, c_in, h_out, c_out, B, H,
-                               (cudaStream_t)stream);
+// K5's operand: x_i (B, n_i) f32 -> xq (B, n1 + n2 + n3) int8, sx (B,) f32
+int t2_quantize_xh(const void* x1, int n1, const void* x2, int n2, const void* x3, int n3,
+                   void* xq, void* sx, int B, void* stream) {
+  return launch_quantize_xh(x1, n1, x2, n2, x3, n3, xq, sx, B, (cudaStream_t)stream);
+}
+
+// K5: the LSTM cell over int8 weights with row scales ws on the operand
+// that t2_quantize_xh made (xq, sx); n_i the segments' widths
+int t2_lstm_cell_int8(const void* wt, const void* ws, const void* b, const void* xq,
+                      const void* sx, int n1, int n2, int n3, const void* c_in, void* h_out,
+                      void* c_out, int B, int H, void* stream) {
+  return launch_gate_cell<true>(wt, int8_operand(xq, n1, n2, n3), ws, sx, b, c_in, h_out, c_out,
+                                nullptr, B, H, (cudaStream_t)stream);
 }
 
 int t2_heads(const void* w, const void* b, const void* x1, int n1, const void* x2, int n2,
@@ -319,7 +639,7 @@ int t2_heads(const void* w, const void* b, const void* x1, int n1, const void* x
 
 int t2_prenet(const void* mel, const void* w1t, const void* w2t, const void* m1, const void* m2,
               void* out, int B, int M, int P, void* stream) {
-  return launch_prenet(mel, M, w1t, w2t, m1, m2, out, B, M, P, (cudaStream_t)stream);
+  return launch_prenet(mel, M, w1t, w2t, m1, m2, out, nullptr, B, M, P, (cudaStream_t)stream);
 }
 
 // the attention over a cluster of S blocks per batch row: h (B, H), ctx_out
@@ -329,8 +649,8 @@ int t2_location_attention(const void* h, const void* wq, const void* wloc, const
                           const void* w_prev, const void* cum_prev, void* ctx_out, void* w_out,
                           void* cum_out, int B, int L, int H, int A, int D, int K, int S,
                           void* stream) {
-  return launch_k1_att(h, wq, wloc, wv, att_enc, enc, lengths, w_prev, cum_prev, ctx_out, w_out,
-                       cum_out, B, L, H, A, D, K, S, (cudaStream_t)stream);
+  return launch_k1_att(h, wq, wloc, wv, att_enc, enc, lengths, w_prev, cum_prev, ctx_out, nullptr,
+                       w_out, cum_out, B, L, H, A, D, K, S, (cudaStream_t)stream);
 }
 
 // n decode steps, five launches each, from one host call. Pointer slots:
@@ -341,24 +661,44 @@ int t2_location_attention(const void* h, const void* wq, const void* wloc, const
 //   p[24..25] out: mel_gate (n, B, M+1), aligns (n, B, L)
 //   p[26]     scratch: prenet output (B, P)
 //   p[27..32] state ping-pong, (2, B, width) each: att_h att_c ctx att_cum rnn_h rnn_c
-//   p[33..34] int8 mode only: the gate-row scales of w_att and w_dec, (4H,) f32
+//   p[33..34] int8 mode: the gate-row scales of w_att and w_dec, (4H,) f32
+//   p[35..36] the cells' tiled weight copies of w_att and w_dec (pack_decoder)
+//   p[37..40] bf16 mode: the cells' bf16 operands, written by their
+//             producers: prenet output (B, P), context (B, D), and att_h and
+//             rnn_h (2, B, H) each in ping-pong, slot 1 holding the state in
+//   p[41..42] int8 mode: the cells' quantised operand, (B, max(R1, R2))
+//             int8, and its row scales (B,) f32 (quantize_xh)
 // Step t writes slot t % 2 and reads slot (t - 1) % 2 (the state in at t = 0);
 // the previous attention weights and mel are the aligns and mel_gate rows of
 // step t - 1. d = {n, B, M, P, H, D, L, A, K, int8, S}: with int8 != 0, w_att
-// and w_dec are int8 and both LSTM cells run on K5; S blocks per batch row in
-// the attention's cluster.
+// and w_dec are int8 and both LSTM cells run on K5 (a quantize_xh launch
+// before each); S blocks per batch row in the attention's cluster. Each
+// cell streams its first weight chunks while the launch before it runs
+// (launch_gate_cell).
 int t2_decode_chunk(void** p, const int* d, void* stream_) {
   const int n = d[0], B = d[1], M = d[2], P = d[3], H = d[4], D = d[5], L = d[6], A = d[7],
             K = d[8], N = M + 1;
   const bool int8 = d[9] != 0;
   const int S = d[10];
   cudaStream_t stream = (cudaStream_t)stream_;
-  auto cell = [&](int w, int b, int scale, const void* x1, int n1, const void* x2, int n2,
-                  const void* x3, int n3, const void* c_in, void* h_out, void* c_out) {
-    return int8 ? launch_lstm_cell_int8(p[w], p[scale], p[b], x1, n1, x2, n2, x3, n3, c_in,
-                                        h_out, c_out, B, H, stream)
-                : launch_lstm_cell(p[w], p[b], x1, n1, x2, n2, x3, n3, c_in, h_out, c_out, B, H,
-                                   stream);
+  auto bslot = [&](int i, int t) -> bf16* { return (bf16*)p[i] + (size_t)(t & 1) * B * H; };
+  // the cells' operands: bf16, the attention cell's for the att_h slot it
+  // reads, (t - 1) % 2, and the decoder cell's for the slot pair it reads;
+  // int8, the two layouts of the quantised operand
+  CellOperand att_x[2], dec_x[2];
+  for (int par = 0; par < 2; ++par) {
+    att_x[par] = int8 ? int8_operand(p[41], P, D, H)
+                      : bf16_operand(p[37], P, p[38], D, bslot(39, par), H);
+    dec_x[par] = int8 ? int8_operand(p[41], H, D, H)
+                      : bf16_operand(bslot(39, par), H, p[38], D, bslot(40, par + 1), H);
+  }
+  int err = 0;
+  auto cell = [&](const CellOperand& xo, int wt, int b, int scale, const void* c_in, void* h_out,
+                  void* c_out, void* h_bf) {
+    return int8 ? launch_gate_cell<true>(p[wt], xo, p[scale], p[42], p[b], c_in, h_out, c_out,
+                                         nullptr, B, H, stream)
+                : launch_gate_cell<false>(p[wt], xo, nullptr, nullptr, p[b], c_in, h_out, c_out,
+                                          h_bf, B, H, stream);
   };
   float* mg = (float*)p[24];
   float* al = (float*)p[25];
@@ -376,17 +716,22 @@ int t2_decode_chunk(void** p, const int* d, void* stream_) {
     const void* rnn_h = first ? p[22] : slot(31, t - 1, H);
     const void* rnn_c = first ? p[23] : slot(32, t - 1, H);
     const size_t mo = (size_t)t * B * P;
-    int err = launch_prenet(mel, first ? M : N, p[4], p[5], (const float*)p[14] + mo,
-                            (const float*)p[15] + mo, p[26], B, M, P, stream);
+    err = launch_prenet(mel, first ? M : N, p[4], p[5], (const float*)p[14] + mo,
+                        (const float*)p[15] + mo, p[26], int8 ? nullptr : p[37], B, M, P, stream);
+    if (!err && int8)
+      err = launch_quantize_xh(p[26], P, ctx, D, att_h, H, p[41], p[42], B, stream);
     if (!err)
-      err = cell(0, 1, 33, p[26], P, ctx, D, att_h, H, att_c, slot(27, t, H), slot(28, t, H));
+      err = cell(att_x[(t - 1) & 1], 35, 1, 33, att_c, slot(27, t, H), slot(28, t, H),
+                 bslot(39, t));
     if (!err)
       err = launch_k1_att(slot(27, t, H), p[6], p[7], p[8], p[11], p[12], p[13], att_w, cum,
-                          slot(29, t, D), al + (size_t)t * B * L, slot(30, t, L), B, L, H, A, D,
-                          K, S, stream);
+                          slot(29, t, D), int8 ? nullptr : p[38], al + (size_t)t * B * L,
+                          slot(30, t, L), B, L, H, A, D, K, S, stream);
+    if (!err && int8)
+      err = launch_quantize_xh(slot(27, t, H), H, slot(29, t, D), D, rnn_h, H, p[41], p[42], B,
+                               stream);
     if (!err)
-      err = cell(2, 3, 34, slot(27, t, H), H, slot(29, t, D), D, rnn_h, H, rnn_c,
-                 slot(31, t, H), slot(32, t, H));
+      err = cell(dec_x[t & 1], 36, 3, 34, rnn_c, slot(31, t, H), slot(32, t, H), bslot(40, t));
     if (!err)
       err = launch_heads(p[9], p[10], slot(31, t, H), H, slot(29, t, D), D,
                          mg + (size_t)t * B * N, B, N, stream);

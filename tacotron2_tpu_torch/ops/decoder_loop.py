@@ -9,9 +9,13 @@ launch with both LSTM weight blocks resident in VMEM. One H100 SM holds
 kernels over the whole card (``csrc/decode_step.cu``):
 
 - ``prenet``: two Linear+ReLU layers times the dropout masks;
-- ``lstm_cell`` (twice): the gate matvec over the concatenated inputs,
-  passed as separate pointers, with the i/f/g/o nonlinearity and the c/h
-  update fused;
+- ``lstm_cell`` (twice): the gate GEMM over the concatenated inputs,
+  passed as separate pointers, on the tensor cores, with the i/f/g/o
+  nonlinearity and the c/h update fused. It streams a copy of the weights
+  tiled once per model (``tile_gates``, made by ``pack_decoder``) over a
+  thread-block cluster per ``GATE_UNITS`` hidden units that splits the
+  contraction, so each weight byte is read once per step whatever the rows
+  (up to 64);
 - ``location_attention``: query projection, the 31-tap location conv folded
   with its dense layer into one (A, 2, 31) weight, tanh energies, the
   masked softmax, the context and the cumulative weights, over a
@@ -22,12 +26,12 @@ kernels over the whole card (``csrc/decode_step.cu``):
   the batch);
 - ``heads``: the mel and gate linear over [rnn_h, ctx].
 
-What bounds a step at batch 1: the bytes of the bf16 LSTM weights,
-2 x 4H x (P + D + H | 2H + D) x 2 B = 35.7 MB at the flagship dims, over
-the HBM rate (3.35 TB/s): 10.7 us. The block fits the 50 MB L2, so a warm
-step may beat that HBM bound. The design spreads each LSTM's 4H gate rows
-over 256 blocks with one warp per row and 16-byte loads, so every SM
-streams weights at once; the other three kernels move well under 1 MB.
+What bounds a step at every batch the decode runs (1 to 64 rows): the bytes
+of the bf16 LSTM weights, 2 x 4H x (P + D + H | 2H + D) x 2 B = 35.7 MB at
+the flagship dims, over the HBM rate (3.35 TB/s): 10.7 us; a 64-row step's
+2.3 GFLOP take 2.4 us at the bf16 peak. The block fits the 50 MB L2, so a
+warm step may beat that HBM bound. The other three kernels move well under
+1 MB.
 
 The main path is ``decode_chunk``: one host call (``t2_decode_chunk``)
 launches the five kernels of each of 64 steps, so Python does not pace the
@@ -41,10 +45,11 @@ The int8 mode (``pack_decoder(..., quantize=True)``) replaces the same TPU
 kernel with ``quantize=True`` (``pack_decoder_params`` :156-162 and the
 kernel's ``_quantize_xh`` / int8 gate products): the two LSTM weight blocks
 are int8 with one f32 scale per gate row, and both cells run on kernel K5,
-``lstm_cell_int8``, which quantises its f32 input per batch row and sums in
-int32. Every other product takes bf16 activations whatever the policy, as
-in the JAX kernel. Its bound at batch 1 is the int8 weights, 17.8 MB over the HBM
-rate: 5.3 us a step.
+``lstm_cell_int8`` (the same cell kernel on the int8 tensor cores), over
+its f32 input quantised per batch row by a ``quantize_xh`` launch, with
+sums in int32. Every other product takes bf16 activations whatever the
+policy, as in the JAX kernel. Its bound at batch 1 is the int8 weights,
+17.8 MB over the HBM rate: 5.3 us a step.
 """
 
 from __future__ import annotations
@@ -60,10 +65,12 @@ from tacotron2_tpu_torch.ops import build
 T_CHUNK = 64  # frames per chunk; early stop is checked once per chunk
 
 # launches of each kernel; counted only where the kernel is launched
-LAUNCHES = {"prenet": 0, "lstm_cell": 0, "lstm_cell_int8": 0, "location_attention": 0,
-            "heads": 0}
+LAUNCHES = {"prenet": 0, "lstm_cell": 0, "quantize_xh": 0, "lstm_cell_int8": 0,
+            "location_attention": 0, "heads": 0}
 PACK_CALLS = [0]  # pack_decoder calls: a warm server packs each model once
 ACT_INT8 = torch.bfloat16  # operand type of the products other than the int8 cells
+GATE_UNITS = 16  # hidden units per cluster of the cell kernel (csrc/decode_step.cu GC_U)
+GATE_CHUNK = 128  # bytes of each weight row per streamed chunk
 
 
 def reset_launches() -> None:
@@ -87,6 +94,8 @@ class PackedDecoder(NamedTuple):
     b_out: torch.Tensor  # (M + 1,) f32
     s_att: Optional[torch.Tensor] = None  # int8 mode: (4H,) f32 scale of each w_att row
     s_dec: Optional[torch.Tensor] = None  # int8 mode: (4H,) f32 scale of each w_dec row
+    wt_att: Optional[torch.Tensor] = None  # w_att tiled for the cell kernel (tile_gates)
+    wt_dec: Optional[torch.Tensor] = None  # w_dec tiled for the cell kernel
 
     @property
     def quantized(self) -> bool:
@@ -118,13 +127,53 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.round(x / sx).clamp(-127, 127), sx
 
 
+def gate_tile_offset(row, byte, H: int, row_bytes: int, units: int = GATE_UNITS):
+    """Byte offset in ``tile_gates``' copy of byte ``byte`` of weight row
+    ``row`` (gate = row // H, unit j = row % H) of an LSTM block (4H rows of
+    ``row_bytes``): the cell kernel's addressing. Cluster gi = j // units
+    reads chunks c = byte // 128 of its 4 units rows (row gate units + u for
+    unit units gi + u), each chunk 4 units rows x 128 bytes with the 16-byte
+    piece k of row rr at piece k ^ (rr % 8), chunks of a cluster end to end.
+    Works on ints and on integer tensors."""
+    nk = -(-row_bytes // GATE_CHUNK)
+    gate, j = row // H, row % H
+    gi, u = j // units, j % units
+    rr = gate * units + u
+    c, cb = byte // GATE_CHUNK, byte % GATE_CHUNK
+    return (((gi * nk + c) * 4 * units + rr) * GATE_CHUNK + (((cb // 16) ^ (rr % 8)) * 16)
+            + cb % 16)
+
+
+def tile_gates(w: torch.Tensor, units: int = GATE_UNITS) -> Optional[torch.Tensor]:
+    """An LSTM block's weights (4H, R), bf16 or int8, as the cell kernel
+    streams them: a flat uint8 copy laid out by ``gate_tile_offset``, rows
+    zero-padded to whole 128-byte chunks. None where H is not a multiple of
+    GATE_UNITS (no kernel takes those dims; the plain version needs no
+    copy)."""
+    rows = w.shape[0]
+    H = rows // 4
+    if H % units or rows != 4 * H:
+        return None
+    wb = w.detach().contiguous().view(torch.uint8)  # (4H, row bytes)
+    nk = -(-wb.shape[1] // GATE_CHUNK)
+    padded = wb.new_zeros(rows, nk * GATE_CHUNK)
+    padded[:, :wb.shape[1]] = wb
+    t = padded.view(4, H // units, units, nk, GATE_CHUNK).permute(1, 3, 0, 2, 4)
+    t = t.reshape(H // units, nk, 4 * units, 8, 16)
+    rr = torch.arange(4 * units, device=w.device)[:, None]
+    piece = torch.arange(8, device=w.device)[None, :] ^ (rr % 8)  # out piece p holds p ^ rr % 8
+    return t[:, :, rr, piece].reshape(-1).contiguous()
+
+
 def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) -> PackedDecoder:
     """Repack the prenet and decoder modules for the kernels; weights in
     ``dtype`` (bf16 on the card), biases in f32. ``quantize``: the two LSTM
     blocks int8 with a scale per gate row, quantised from the f32 weights;
     the attention's weights bf16 whatever ``dtype``, and the prenet's and
     heads' in ``dtype`` with their activations rounded to bf16
-    (``ACT_INT8``), as the JAX kernel's int8 mode takes those products."""
+    (``ACT_INT8``), as the JAX kernel's int8 mode takes those products.
+    The two LSTM blocks also get the cell kernel's tiled copies
+    (``tile_gates``), made here once per pack."""
     PACK_CALLS[0] += 1
     a, d, att = decoder.att_rnn, decoder.lstm, decoder.attention
     with torch.no_grad():
@@ -153,6 +202,8 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) ->
             wv=att_cast(att.v.weight[0]),
             w_out=cast(torch.cat([decoder.mel_out.weight, decoder.gate.weight], dim=0)),
             b_out=f32(torch.cat([decoder.mel_out.bias, decoder.gate.bias], dim=0)),
+            wt_att=tile_gates(w_att),
+            wt_dec=tile_gates(w_dec),
             **scales,
         )
 
@@ -265,20 +316,26 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 
 
+def bind(lib):
+    """Declare the C entry points of a loaded ``csrc/decode_step.cu`` (the
+    build's, or a copy's for an A/B on the card) -> lib."""
+    lib.t2_prenet.argtypes = [P] * 6 + [I] * 3 + [P]
+    lib.t2_lstm_cell.argtypes = [P, P, P, I, P, I, P, I, P, P, P, I, I, P]
+    lib.t2_quantize_xh.argtypes = [P, I, P, I, P, I, P, P, I, P]
+    lib.t2_lstm_cell_int8.argtypes = [P, P, P, P, P, I, I, I, P, P, P, I, I, P]
+    lib.t2_location_attention.argtypes = [P] * 12 + [I] * 7 + [P]
+    lib.t2_heads.argtypes = [P, P, P, I, P, I, P, I, I, P]
+    lib.t2_decode_chunk.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I), P]
+    for fn in (lib.t2_prenet, lib.t2_lstm_cell, lib.t2_quantize_xh, lib.t2_lstm_cell_int8,
+               lib.t2_location_attention, lib.t2_heads, lib.t2_decode_chunk):
+        fn.restype = I
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = build.load("decode_step")
-        lib.t2_prenet.argtypes = [P] * 6 + [I] * 3 + [P]
-        lib.t2_lstm_cell.argtypes = [P, P, P, I, P, I, P, I, P, P, P, I, I, P]
-        lib.t2_lstm_cell_int8.argtypes = [P, P, P, P, I, P, I, P, I, P, P, P, I, I, P]
-        lib.t2_location_attention.argtypes = [P] * 12 + [I] * 7 + [P]
-        lib.t2_heads.argtypes = [P, P, P, I, P, I, P, I, I, P]
-        lib.t2_decode_chunk.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I), P]
-        for fn in (lib.t2_prenet, lib.t2_lstm_cell, lib.t2_lstm_cell_int8,
-                   lib.t2_location_attention, lib.t2_heads, lib.t2_decode_chunk):
-            fn.restype = I
-        _LIB = lib
+        _LIB = bind(build.load("decode_step"))
     return _LIB
 
 
@@ -306,49 +363,95 @@ def prenet(mel, wp1_t, wp2_t, m1, m2):
     return out
 
 
-def lstm_cell(w, b, x1, x2, x3, c):
-    """LSTM cell over the input [x1 | x2 | x3] with weight rows = gates
-    (4H, n1 + n2 + n3) and summed bias (4H,) -> (h, c)."""
-    if x1.device.type == "cpu":
-        return lstm_cell_plain(w, b, x1, x2, x3, c)
+def tiled_bytes(H: int, row_bytes: int) -> int:
+    """Bytes of ``tile_gates``' copy of 4H rows of ``row_bytes``."""
+    return 4 * H * -(-row_bytes // GATE_CHUNK) * GATE_CHUNK
+
+
+def _cell_operands(w, dt, b, x1, x2, x3, c, wt) -> Tuple[int, int, int, int, int]:
+    """Check a cell's operands (the inputs x_i in the kernel's type) -> (B,
+    H, n1, n2, n3)."""
     B, H = c.shape
     n1, n2, n3 = x1.shape[1], x2.shape[1], x3.shape[1]
     R = n1 + n2 + n3
-    build.require(w, torch.bfloat16, (4 * H, R), "w")
+    build.require(w, dt, (4 * H, R), "w")
+    if wt is None:
+        raise ValueError("wt: the cell kernel streams the tiled copy of w (pack_decoder's "
+                         "wt_att / wt_dec, tile_gates); none was given")
+    build.require(wt, torch.uint8, (tiled_bytes(H, R * w.element_size()),), "wt")
     build.require(b, torch.float32, (4 * H,), "b")
     for name, x in (("x1", x1), ("x2", x2), ("x3", x3)):
-        build.require(x, torch.float32, (B, x.shape[1]), name)
+        build.require(x, torch.float32 if dt == torch.int8 else torch.bfloat16,
+                      (B, x.shape[1]), name)
     build.require(c, torch.float32, (B, H), "c")
+    if any(t.data_ptr() % 16 for t in (x1, x2, x3)):
+        raise ValueError("x1, x2, x3: the cell kernel reads its input in 16-byte pieces; "
+                         "want 16-byte aligned tensors")
+    return B, H, n1, n2, n3
+
+
+def lstm_cell(w, b, x1, x2, x3, c, wt=None):
+    """LSTM cell over the input [x1 | x2 | x3] with weight rows = gates
+    (4H, n1 + n2 + n3) and summed bias (4H,) -> (h, c). On the card the
+    kernel streams ``wt``, the tiled copy of ``w`` (``tile_gates``), and
+    reads the inputs' bf16 operands: x_i may be given in bf16 (in the chunk
+    their producers write them) or f32 (cast here)."""
+    if x1.device.type == "cpu":
+        return lstm_cell_plain(w, b, x1, x2, x3, c)
+    xb = [x.to(torch.bfloat16) for x in (x1, x2, x3)]
+    B, H, n1, n2, n3 = _cell_operands(w, torch.bfloat16, b, *xb, c, wt)
     h_out = torch.empty(B, H, device=c.device)
     c_out = torch.empty(B, H, device=c.device)
     build.count(LAUNCHES, "lstm_cell")
     build.check(_lib().t2_lstm_cell(
-        w.data_ptr(), b.data_ptr(), x1.data_ptr(), n1, x2.data_ptr(), n2,
-        x3.data_ptr(), n3, c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+        wt.data_ptr(), b.data_ptr(), xb[0].data_ptr(), n1, xb[1].data_ptr(), n2,
+        xb[2].data_ptr(), n3, c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
         B, H, _stream()), "lstm_cell")
     return h_out, c_out
 
 
-def lstm_cell_int8(w, ws, b, x1, x2, x3, c):
-    """Kernel K5: ``lstm_cell`` over int8 weight rows (4H, n1 + n2 + n3)
-    with one f32 scale per row ``ws`` (4H,) -> (h, c)."""
+def quantize_xh_plain(x1, x2, x3):
+    """K5's operand: the f32 input [x1 | x2 | x3] quantised per row ->
+    (int8 values (B, R), f32 scales (B,)) (``quantize_rows``)."""
+    q, sx = quantize_rows(torch.cat([x1, x2, x3], dim=1).float())
+    return q.to(torch.int8), sx[:, 0].contiguous()
+
+
+def quantize_xh(x1, x2, x3):
+    """``quantize_xh_plain`` as the kernel before each K5 cell computes it
+    (one block per row, JAX's ``_quantize_xh``)."""
     if x1.device.type == "cpu":
-        return lstm_cell_int8_plain(w, ws, b, x1, x2, x3, c)
-    B, H = c.shape
+        return quantize_xh_plain(x1, x2, x3)
+    B = x1.shape[0]
     n1, n2, n3 = x1.shape[1], x2.shape[1], x3.shape[1]
-    build.require(w, torch.int8, (4 * H, n1 + n2 + n3), "w")
-    build.require(ws, torch.float32, (4 * H,), "ws")
-    build.require(b, torch.float32, (4 * H,), "b")
     for name, x in (("x1", x1), ("x2", x2), ("x3", x3)):
         build.require(x, torch.float32, (B, x.shape[1]), name)
-    build.require(c, torch.float32, (B, H), "c")
+    if any(n % 4 for n in (n1, n2, n3)):
+        raise ValueError(f"quantize_xh reads float4s: want widths % 4 == 0, got {n1, n2, n3}")
+    xq = torch.empty(B, n1 + n2 + n3, device=x1.device, dtype=torch.int8)
+    sx = torch.empty(B, device=x1.device)
+    build.count(LAUNCHES, "quantize_xh")
+    build.check(_lib().t2_quantize_xh(x1.data_ptr(), n1, x2.data_ptr(), n2, x3.data_ptr(), n3,
+                                      xq.data_ptr(), sx.data_ptr(), B, _stream()), "quantize_xh")
+    return xq, sx
+
+
+def lstm_cell_int8(w, ws, b, x1, x2, x3, c, wt=None):
+    """Kernel K5: ``lstm_cell`` over int8 weight rows (4H, n1 + n2 + n3)
+    with one f32 scale per row ``ws`` (4H,) -> (h, c); on the card
+    ``quantize_xh`` then the cell kernel over ``wt``, the tiled copy of
+    ``w``."""
+    if x1.device.type == "cpu":
+        return lstm_cell_int8_plain(w, ws, b, x1, x2, x3, c)
+    B, H, n1, n2, n3 = _cell_operands(w, torch.int8, b, x1, x2, x3, c, wt)
+    build.require(ws, torch.float32, (4 * H,), "ws")
+    xq, sx = quantize_xh(x1, x2, x3)
     h_out = torch.empty(B, H, device=c.device)
     c_out = torch.empty(B, H, device=c.device)
     build.count(LAUNCHES, "lstm_cell_int8")
     build.check(_lib().t2_lstm_cell_int8(
-        w.data_ptr(), ws.data_ptr(), b.data_ptr(), x1.data_ptr(), n1, x2.data_ptr(), n2,
-        x3.data_ptr(), n3, c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), B, H, _stream()),
-        "lstm_cell_int8")
+        wt.data_ptr(), ws.data_ptr(), b.data_ptr(), xq.data_ptr(), sx.data_ptr(), n1, n2, n3,
+        c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), B, H, _stream()), "lstm_cell_int8")
     return h_out, c_out
 
 
@@ -456,8 +559,9 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     (n, B, P) x 2 -> (mel_gate (n, B, M + 1), aligns (n, B, L), new state).
 
     On the card this is one host call (``t2_decode_chunk``) that launches
-    the four kernels five times per step, the two LSTM cells on K5 when the
-    pack is int8; each launch is counted."""
+    the four kernels five times per step, the two LSTM cells on K5 (each
+    after a ``quantize_xh`` launch: seven a step) when the pack is int8,
+    over the pack's tiled weight copies; each launch is counted."""
     if encoded.device.type == "cpu":
         return decode_chunk_plain(pk, encoded, att_enc, lengths, s, m1, m2)
     n, B, Pd = m1.shape
@@ -468,6 +572,10 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     lstm_dt = torch.int8 if pk.quantized else bf
     scales = (("s_att", pk.s_att, f32, (4 * H,)), ("s_dec", pk.s_dec, f32, (4 * H,))
               ) if pk.quantized else ()
+    if pk.wt_att is None or pk.wt_dec is None:
+        raise ValueError("the pack has no tiled copies of its LSTM weights (tile_gates takes "
+                         f"H a multiple of {GATE_UNITS}; got H={H})")
+    esize = 1 if pk.quantized else 2
     for name, t, dt, shape in (
         ("w_att", pk.w_att, lstm_dt, (4 * H, Pd + D + H)), ("b_att", pk.b_att, f32, (4 * H,)),
         ("w_dec", pk.w_dec, lstm_dt, (4 * H, 2 * H + D)), ("b_dec", pk.b_dec, f32, (4 * H,)),
@@ -481,6 +589,8 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
         ("att_c", s.att_c, f32, (B, H)), ("ctx", s.ctx, f32, (B, D)),
         ("att_w", s.att_w, f32, (B, L)), ("att_cum", s.att_cum, f32, (B, L)),
         ("rnn_h", s.rnn_h, f32, (B, H)), ("rnn_c", s.rnn_c, f32, (B, H)),
+        ("wt_att", pk.wt_att, torch.uint8, (tiled_bytes(H, (Pd + D + H) * esize),)),
+        ("wt_dec", pk.wt_dec, torch.uint8, (tiled_bytes(H, (2 * H + D) * esize),)),
     ) + scales:
         build.require(t, dt, shape, name)
     dev = encoded.device
@@ -490,14 +600,32 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     pp = {k: torch.empty(2, B, w, device=dev)
           for k, w in (("att_h", H), ("att_c", H), ("ctx", D), ("att_cum", L),
                        ("rnn_h", H), ("rnn_c", H))}
+    # bf16 mode: the cells' bf16 operands, written by their producers; slot 1
+    # of the ping-pong pairs and the context start from the state in
+    operands = (None,) * 4
+    quantized = (None, None)
+    if pk.quantized:  # K5's operand, rewritten before each cell
+        quantized = (torch.empty(B, max(Pd + D + H, 2 * H + D), device=dev, dtype=torch.int8),
+                     torch.empty(B, device=dev))
+    else:
+        x_bf = torch.empty(B, Pd, device=dev, dtype=bf)
+        atth_bf = torch.empty(2, B, H, device=dev, dtype=bf)
+        rnnh_bf = torch.empty(2, B, H, device=dev, dtype=bf)
+        atth_bf[1] = s.att_h
+        rnnh_bf[1] = s.rnn_h
+        operands = (x_bf, s.ctx.to(bf), atth_bf, rnnh_bf)
     tensors = (*pk[:11], att_enc, encoded, lengths, m1, m2, *s, mel_gate, aligns, x,
-               pp["att_h"], pp["att_c"], pp["ctx"], pp["att_cum"], pp["rnn_h"], pp["rnn_c"],
-               *(t for _, t, _, _ in scales))
-    ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+               pp["att_h"], pp["att_c"], pp["ctx"], pp["att_cum"], pp["rnn_h"], pp["rnn_c"])
+    ptr = lambda t: None if t is None else t.data_ptr()
+    ptrs = (ctypes.c_void_p * 43)(*(t.data_ptr() for t in tensors), ptr(pk.s_att),
+                                  ptr(pk.s_dec), pk.wt_att.data_ptr(), pk.wt_dec.data_ptr(),
+                                  *(ptr(t) for t in operands), *(ptr(t) for t in quantized))
     dims = (ctypes.c_int * 11)(n, B, M, Pd, H, D, L, A, K, int(pk.quantized),
                                location_cluster_size(L, H, A, D, K))
     build.count(LAUNCHES, "prenet", n)
     build.count(LAUNCHES, "lstm_cell_int8" if pk.quantized else "lstm_cell", 2 * n)
+    if pk.quantized:
+        build.count(LAUNCHES, "quantize_xh", 2 * n)
     build.count(LAUNCHES, "location_attention", n)
     build.count(LAUNCHES, "heads", n)
     build.check(_lib().t2_decode_chunk(ptrs, dims, _stream()), "decode_chunk")

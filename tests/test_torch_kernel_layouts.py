@@ -188,7 +188,9 @@ def test_k1_cluster_size_does_not_follow_the_batch(L, monkeypatch):
                           _meta(4 * H, 2 * H + D, dtype=bf), _meta(4 * H), _meta(M, P, dtype=bf),
                           _meta(P, P, dtype=bf), _meta(A, H, dtype=bf),
                           _meta(A, 2, K, dtype=bf), _meta(A, dtype=bf),
-                          _meta(M + 1, H + D, dtype=bf), _meta(M + 1))
+                          _meta(M + 1, H + D, dtype=bf), _meta(M + 1),
+                          wt_att=_meta(dl.tiled_bytes(H, 2 * (P + D + H)), dtype=torch.uint8),
+                          wt_dec=_meta(dl.tiled_bytes(H, 2 * (2 * H + D)), dtype=torch.uint8))
     for B in (1, 16, 64):
         s = dl.StepState(_meta(B, M), _meta(B, H), _meta(B, H), _meta(B, D), _meta(B, L),
                          _meta(B, L), _meta(B, H), _meta(B, H))

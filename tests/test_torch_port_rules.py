@@ -141,6 +141,7 @@ WRAPPER_CALLS = {
                                           _meta(1, 8), _meta(1, 8)),
     "lstm_cell": lambda: decoder_loop.lstm_cell(_meta(64, 24), _meta(64), _meta(1, 8),
                                                 _meta(1, 8), _meta(1, 8), _meta(1, 16)),
+    "quantize_xh": lambda: decoder_loop.quantize_xh(_meta(1, 8), _meta(1, 8), _meta(1, 16)),
     "lstm_cell_int8": lambda: decoder_loop.lstm_cell_int8(
         _meta(64, 32, dtype=torch.int8), _meta(64), _meta(64), _meta(1, 8), _meta(1, 8),
         _meta(1, 16), _meta(1, 16)),
