@@ -5,7 +5,8 @@
     python3 chip_smoke.py --k2-ab   # only K2's design A/B (``k2_ab``), then exit
     python3 chip_smoke.py --k1-rows [--root DIR] [--out NAME]  # K1/K5 at 1/16/64 rows
     python3 chip_smoke.py --k1-ab   # the same for build/parent and this tree, in turns,
-                                    # and the cells' constants on source copies (``cell_ab``)
+                                    # and the decode step's variants on source copies
+                                    # (``cell_ab``)
 
 Phases, each of which must pass:
 
@@ -21,11 +22,15 @@ Phases, each of which must pass:
    chunks on K1_DRAWS weight draws, with the readings of defective kernels
    held above the limit; K2: the four UNIVERSAL_V1 MRF stages and stage 2
    without its upsample, at 64 mel frames and at the say's vocode bucket,
-   ``conv_transpose``'s output and its bf16 operand, each stage's first
-   ``mrf_conv`` or fused ``mrf_pair`` alone, bit for bit against the same
-   row in a batch of ``K2_INVARIANCE_ROWS`` and a fused pair against its
-   two ``mrf_conv`` launches), and time kernel, plain version and library
-   call (K2: ``F.conv1d`` in f32 and in bf16);
+   ``conv_operand`` exactly, ``conv_transpose`` (the folded 3-tap conv)
+   and its bf16 operand, each stage's first ``mrf_conv`` or fused
+   ``mrf_pair`` alone, the upsample and the first conv bit for bit against
+   the same row in a batch of ``K2_INVARIANCE_ROWS``, a fused pair against
+   its two ``mrf_conv`` launches, and the stage mean's operand exactly
+   ``operand`` of the f32 mean), and time kernel, plain version and
+   library call (K2: ``F.conv1d`` / ``F.conv_transpose1d`` in f32 and in
+   bf16); ``conv_transpose`` per stage, the vocode, the prenet (against its
+   plain version) and the heads at 1, 16 and 64 rows (``up_rows``);
    K5, the int8 LSTM cell: one int8 step through the chunk entry at B=1 and
    at B=2 with a padded row, with defective kernels (activations rounded to
    bf16 before quantising, scales taken from bf16 weights) held above the
@@ -33,9 +38,9 @@ Phases, each of which must pass:
    ``mrf_conv`` also timed at the serve windows' 16 and 64 rows; both
    LSTM cells (K1's ``lstm_cell``, K5's ``quantize_xh`` + ``lstm_cell_int8``)
    at 1, 16 and 64 rows against their plain versions, timed beside their
-   bound and library call, and the prenet at one row (``cell_rows``),
+   bound and library call (``cell_rows``),
    rows of a 64-row cell launch held bit for bit against the rows alone
-   (``cell_invariance``), and a
+   and of a 64-row prenet launch (``cell_invariance``), and a
    64-frame chunk split by kernel at 16 and 64 rows, L=128, with the serve
    window's decode (``serve_rows_split``);
 3b. the same for K3 and K4, training's teacher-forced decode forward and
@@ -49,8 +54,9 @@ Phases, each of which must pass:
 4. run ``say`` through the port's CLI entry on random full-width weights
    saved as a reference Lightning ``.ckpt`` and a UNIVERSAL_V1 ``g_*`` file:
    a forced 256-frame decode with the launch counters read around it (K2:
-   exactly 18 ``mrf_conv``, 27 ``mrf_pair`` and 4 ``conv_transpose``
-   launches a vocode, and the HiFi-GAN's weights packed once), a
+   exactly 18 ``mrf_conv``, 27 ``mrf_pair``, 4 ``conv_transpose`` and 1
+   ``conv_operand`` launches a vocode, and the HiFi-GAN's weights packed
+   once), a
    forced early stop (1 frame), and the kernel decode against the plain
    decode over 32 frames; then ``say --quantize-int8`` the same way (K5's
    launches held to 2 x 256 of each of its two kernels), and the int8 decode
@@ -68,8 +74,8 @@ Phases, each of which must pass:
    requests per model, which must coalesce, with the launch
    counters held to two LSTM launches a frame per decode launch (and two
    ``quantize_xh`` in the int8 entry's); two
-   batched requests again alone (PCM16 difference); K2's launches 18, 27
-   and 4 a window and no weight packing in the waves; one request through
+   batched requests again alone (PCM16 difference); K2's launches 18, 27,
+   4 and 1 a window and no weight packing in the waves; one request through
    Griffin-Lim; the kernels against their plain versions at the windows'
    shapes (K1 at 16 and 64 rows and K5 at 16, L=128; K2 through the batched
    vocode at 16 and 64 rows); then ``python -m tacotron2_tpu_torch server``
@@ -178,16 +184,17 @@ class SmokeFailure(RuntimeError):
 
 def vocode_launches(h: dict) -> dict:
     """K2's launches in one vocode of a HiFi-GAN of config ``h``: one
-    ``conv_transpose`` per stage, one ``mrf_pair`` per ResBlock1 pair that
-    it takes (channels up to 128) and one ``mrf_conv`` per other conv (18,
-    27 and 4 for UNIVERSAL_V1: 72 convs)."""
+    ``conv_operand`` (stage 1's input), one ``conv_transpose`` per stage,
+    one ``mrf_pair`` per ResBlock1 pair that it takes (channels up to 128)
+    and one ``mrf_conv`` per other conv (1, 4, 27 and 18 for UNIVERSAL_V1:
+    72 convs)."""
     import torch
 
     from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
     from tacotron2_tpu_torch.models.layers import Policy
     from tacotron2_tpu_torch.ops import mrf
 
-    n = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0}
+    n = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0, "conv_operand": 1}
     for rbs, _ in HiFiGAN(HiFiGANConfig.from_dict(h), Policy(torch.bfloat16)).kernel_weights():
         n["conv_transpose"] += 1
         for rb in rbs:
@@ -481,7 +488,7 @@ def k1_phase(model, cfg, L: int, log: dict, cells: dict) -> list:
     m1, m2 = dl.prenet_masks(1, B, P, c.dropout, g, dev)
     m1, m2 = m1[0], m2[0]
 
-    x_k = dl.prenet(s.mel, pk.wp1_t, pk.wp2_t, m1, m2)
+    x_k = dl.prenet(s.mel, pk.wp1_t, pk.wp2_t, m1, m2, pk.wt_prenet)
     x_p = dl.prenet_plain(s.mel, pk.wp1_t, pk.wp2_t, m1, m2)
     check("prenet", [("out", x_k, x_p)], K1_TOL, log)
     ah_k, ac_k = dl.lstm_cell(pk.w_att, pk.b_att, x_p, s.ctx, s.att_h, s.att_c, pk.wt_att)
@@ -570,7 +577,7 @@ def k1_phase(model, cfg, L: int, log: dict, cells: dict) -> list:
     log["location_attention_rows"] = att_rows
     rows = []
     for name, kern, plain, lib, nb, fl, replaces in (
-        ("prenet", lambda: dl.prenet(s.mel, pk.wp1_t, pk.wp2_t, m1, m2),
+        ("prenet", lambda: dl.prenet(s.mel, pk.wp1_t, pk.wp2_t, m1, m2, pk.wt_prenet),
          lambda: dl.prenet_plain(s.mel, pk.wp1_t, pk.wp2_t, m1, m2), None,
          nbytes(s.mel, pk.wp1_t, pk.wp2_t, m1, m2, f32(B, P)), 2 * B * (M * P + P * P), 347),
         ("location_attention", lambda: dl.location_attention(*att_args),
@@ -770,9 +777,7 @@ def cell_rows(model, log: dict, rows=K1_ROWS) -> dict:
     the plain version's, the bound and the library call's: ``nn.LSTMCell``
     x2 in bf16 for K1; for K5 ``torch._int_mm`` of the quantised rows
     (padded to 32 rows and to a multiple of 8) against the int8 weights,
-    without the scales and the epilogue, a yardstick. Also the prenet's
-    one-kernel entry at one row (``prenet_row``), so that ``--k1-ab`` times
-    it in turns with the parent's.
+    without the scales and the epilogue, a yardstick.
     -> {kernel: {"B<rows>": {ms, plain_ms, bound_ms, bound_by, library_ms}}}"""
     import torch
 
@@ -848,30 +853,128 @@ def cell_rows(model, log: dict, rows=K1_ROWS) -> dict:
         out[name] = res
     if quant_rows:
         out["quantize_xh"] = quant_rows
-    out["prenet"] = prenet_row(model, g)
     return out
 
 
-def prenet_row(model, g) -> dict:
-    """The prenet's one-kernel entry at one row: device ms by graph replay,
-    the plain version's and the bound."""
+UP_ROWS = (1, 16, 64)  # rows of up_rows: the say, the serve windows
+
+
+def up_rows(model, hifigan, Tb: int, log: dict) -> dict:
+    """At each of UP_ROWS rows: K2's ``conv_transpose`` of every stage of a
+    ``Tb``-frame vocode on random inputs (device ms by graph replay; bound;
+    ``F.conv_transpose1d`` in f32 with TF32 off and in bf16 on the operand
+    the upsample reads), the vocode's device time (``HiFiGAN.apply``, graph
+    replay) and each upsample's share of it; stage 1's ``conv_operand``
+    where the package has it; K1's ``prenet`` alone (held against
+    ``prenet_plain``, K1_TOL) and ``heads`` alone, each with its bound.
+    Runs this tree's package or a parent's (``--root``): an upsample
+    without a folded copy takes the f32 input, a pack without
+    ``wt_prenet`` a prenet without its tiled copy. The upsample is held
+    against ``conv_transpose_plain`` (K2_TOL) where it is folded; the
+    prenet's output digest goes to the log, so that ``--k1-ab`` can tell
+    whether the parent's kernel gave the same bits on the same inputs.
+    -> {name: {"B<rows>": ...}}"""
+    import hashlib
+
     import torch
+    import torch.nn.functional as F
 
     from tacotron2_tpu_torch.ops import decoder_loop as dl
+    from tacotron2_tpu_torch.ops import mrf
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 40)
+    kw = hifigan.kernel_weights()
+    folded = hasattr(kw[0][1], "folded")
+    out: dict = {"conv_transpose": {}, "vocode": {}, "prenet": {}, "heads": {}}
+    if folded:
+        out["conv_operand"] = {}
+    for B in UP_ROWS:
+        reps = (2, 2) if B > 1 else (10, 4)
+        mel = torch.randn(B, Tb, hifigan.cfg.num_mels, device=dev, generator=g)
+        voc_ms = time_ms(lambda: hifigan.apply(mel), 2 if B > 1 else 10, 1)
+        out["vocode"][f"B{B}"] = {"ms": voc_ms}
+        stages, T = [], Tb
+        for i, (_, uw) in enumerate(kw):
+            K, Ci, Co = uw.w.shape
+            x = torch.randn(B, T, Ci, device=dev, generator=g) * 0.5
+            a = mrf.operand(x, bf)
+            if folded:
+                kern = lambda a=a, uw=uw: mrf.conv_transpose(a, uw, want_act=True)
+                (yk, ak), (yp, ap) = kern(), mrf.conv_transpose_plain(a, uw, want_act=True)
+                check(f"conv_transpose[{i}]@B{B}x{T}", [("out", yk, yp), ("act", ak, ap)],
+                      K2_TOL, log, "conv_transpose")
+                del yk, ak, yp, ap
+                if i == 0:
+                    nb = nbytes(x, a)
+                    b_ms, b_by = bound_ms(nb, 0)
+                    out["conv_operand"][f"B{B}"] = {
+                        "ms": time_ms(lambda x=x: mrf.conv_operand(x, bf), *reps),
+                        "bound_ms": b_ms, "bound_by": b_by}
+            else:
+                kern = lambda x=x, uw=uw: mrf.conv_transpose(x, uw, want_act=True)
+            xt = a.transpose(1, 2).contiguous()
+            wt = uw.w.permute(1, 2, 0).to(bf).contiguous()
+            xt32, wt32, b16 = xt.float(), wt.float(), uw.b.to(bf)
+            lib = lambda xt32=xt32, wt32=wt32, uw=uw: F.conv_transpose1d(
+                xt32, wt32, uw.b, stride=uw.stride, padding=uw.padding)
+            lib16 = lambda xt=xt, wt=wt, b16=b16, uw=uw: F.conv_transpose1d(
+                xt, wt, b16, stride=uw.stride, padding=uw.padding)
+            Tout = T * uw.stride
+            nb = nbytes(a if folded else x, uw.w, uw.b) + B * Tout * Co * 6
+            fl = 2 * B * Tout * Co * Ci * (K // uw.stride)
+            b_ms, b_by = bound_ms(nb, fl)
+            ms = time_ms(kern, *reps)
+            stages.append({"stage": i + 1, "Ci": Ci, "Co": Co, "u": uw.stride, "Tin": T,
+                           "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                           "library_ms": time_ms(lib, *reps),
+                           "library_bf16_ms": time_ms(lib16, *reps),
+                           "share_of_vocode": ms / voc_ms})
+            del x, a, xt, wt, xt32, wt32
+            T = Tout
+        out["conv_transpose"][f"B{B}"] = {
+            "ms": sum(s["ms"] for s in stages), "bound_ms": sum(s["bound_ms"] for s in stages),
+            "library_ms": sum(s["library_ms"] for s in stages),
+            "library_bf16_ms": sum(s["library_bf16_ms"] for s in stages), "stages": stages}
+        print(f"  conv_transpose at {B} rows, Tb={Tb}: " + "; ".join(
+            f"stage {s['stage']} {s['ms']:.4f} ms (bound {s['bound_ms']:.4f}, f32 "
+            f"{s['library_ms']:.4f}, bf16 {s['library_bf16_ms']:.4f}, "
+            f"{100 * s['share_of_vocode']:.1f}% of the vocode)" for s in stages)
+            + f"; vocode {voc_ms:.3f} ms")
+        torch.cuda.empty_cache()
 
     pk = dl.pack_decoder(model.prenet, model.decoder, torch.bfloat16)
+    tiled = {"wt": pk.wt_prenet} if hasattr(pk, "wt_prenet") else {}
     M, P = pk.wp1_t.shape
-    mel = torch.randn(1, M, device="cuda", generator=g)
-    m1, m2 = (m[0] for m in dl.prenet_masks(1, 1, P, model.cfg.dropout, g, mel.device))
-    args = (mel, pk.wp1_t, pk.wp2_t, m1, m2)
-    b_ms, b_by = bound_ms(nbytes(*args, torch.empty(1, P, device="cuda")),
-                          2 * (M * P + P * P))
-    r = {"B1": {"ms": time_ms(lambda: dl.prenet(*args)),
-                "plain_ms": time_ms(lambda: dl.prenet_plain(*args)), "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None}}
-    print(f"  prenet at 1 row: {r['B1']['ms'] * 1e3:.1f} us, plain "
-          f"{r['B1']['plain_ms'] * 1e3:.1f} us")
-    return r
+    H = pk.wq.shape[1]
+    D = pk.w_out.shape[1] - H
+    for B in UP_ROWS:
+        mel = torch.randn(B, M, device=dev, generator=g)
+        m1, m2 = (m[0] for m in dl.prenet_masks(1, B, P, model.cfg.dropout, g, dev))
+        args = (mel, pk.wp1_t, pk.wp2_t, m1, m2)
+        got = dl.prenet(*args, **tiled)
+        check(f"prenet@B{B}", [("out", got, dl.prenet_plain(*args))], K1_TOL, log, "prenet")
+        b_ms, b_by = bound_ms(nbytes(*args, torch.empty(B, P, device=dev)),
+                              2 * B * (M * P + P * P))
+        out["prenet"][f"B{B}"] = {"ms": time_ms(lambda: dl.prenet(*args, **tiled)),
+                                  "plain_ms": time_ms(lambda: dl.prenet_plain(*args)),
+                                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                                  # the same inputs in every turn of --k1-ab: equal bits?
+                                  "out_sha1": hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest()}
+        rnn_h = torch.randn(B, H, device=dev, generator=g)
+        ctx = torch.randn(B, D, device=dev, generator=g)
+        hb_ms, hb_by = bound_ms(nbytes(pk.w_out, pk.b_out, rnn_h, ctx,
+                                       torch.empty(B, M + 1, device=dev)),
+                                2 * B * pk.w_out.numel())
+        out["heads"][f"B{B}"] = {"ms": time_ms(lambda: dl.heads(pk.w_out, pk.b_out, rnn_h, ctx)),
+                                 "bound_ms": hb_ms, "bound_by": hb_by}
+        print(f"  prenet at {B} rows: {out['prenet'][f'B{B}']['ms'] * 1e3:.2f} us (bound "
+              f"{b_ms * 1e3:.3f} us); heads {out['heads'][f'B{B}']['ms'] * 1e3:.2f} us (bound "
+              f"{hb_ms * 1e3:.3f} us)")
+    log["up_rows"] = out
+    return out
 
 
 CELL_SOURCE = {
@@ -904,7 +1007,9 @@ def cell_invariance(model, log: dict) -> None:
     row computed alone, bit for bit: a row's gate sums must not depend on
     the rows that share its launch (the served batched-against-alone
     contract); the same for the last row of a CELL_TWO_PASSES-row launch,
-    which also holds the kernel's second pass against the plain version."""
+    which also holds the kernel's second pass against the plain version.
+    The same rows of a 64-row ``prenet`` launch against the rows alone, too
+    (its cluster takes 8 rows a group)."""
     import torch
 
     from tacotron2_tpu_torch.ops import decoder_loop as dl
@@ -912,6 +1017,20 @@ def cell_invariance(model, log: dict) -> None:
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 31)
     result = {}
+    pk = dl.pack_decoder(model.prenet, model.decoder, torch.bfloat16)
+    tiled = {"wt": pk.wt_prenet} if hasattr(pk, "wt_prenet") else {}
+    M, P = pk.wp1_t.shape
+    mel = torch.randn(64, M, device="cuda", generator=g)
+    m1, m2 = (m[0] for m in dl.prenet_masks(1, 64, P, model.cfg.dropout, g, mel.device))
+    full = dl.prenet(mel, pk.wp1_t, pk.wp2_t, m1, m2, **tiled)
+    for r in CELL_INVARIANCE_ROWS:
+        one = lambda t: t[r:r + 1].contiguous()
+        same = torch.equal(full[r:r + 1],
+                           dl.prenet(one(mel), pk.wp1_t, pk.wp2_t, one(m1), one(m2), **tiled))
+        result[f"prenet row {r}"] = same
+        if not same:
+            raise SmokeFailure(f"prenet: row {r} alone differs from the same row in a 64-row "
+                               "launch")
     for quant in (False, True):
         pk = model.make_packed_decoder(quantize=quant)
         (kern_fn, _), cells = cell_args(dl, pk, 64, g)
@@ -944,9 +1063,9 @@ def cell_invariance(model, log: dict) -> None:
                 raise SmokeFailure(f"{name}[{tag}]: row {r} alone differs from the same row in "
                                    f"a {CELL_TWO_PASSES}-row launch")
     log["cell_invariance"] = result
-    print(f"  lstm_cell / lstm_cell_int8: rows {CELL_INVARIANCE_ROWS} of a 64-row launch and row "
-          f"{CELL_TWO_PASSES - 1} of an {CELL_TWO_PASSES}-row one equal the rows alone, bit for "
-          "bit; the two-pass launch within the one-step limits")
+    print(f"  prenet, lstm_cell / lstm_cell_int8: rows {CELL_INVARIANCE_ROWS} of a 64-row "
+          f"launch (the cells' row {CELL_TWO_PASSES - 1} of an {CELL_TWO_PASSES}-row one) equal "
+          "the rows alone, bit for bit; the two-pass launch within the one-step limits")
 
 
 def serve_rows_split(model, cfg, log: dict) -> dict:
@@ -997,22 +1116,27 @@ def serve_rows_split(model, cfg, log: dict) -> dict:
     return out
 
 
-# cell_ab's copies of csrc/decode_step.cu: the source, then GC_PREFETCH (the
-# weight chunks streamed before the wait for the previous kernel) changed,
-# 64 being the whole ring
-CELL_AB = (("source", None, None), ("pre1", "GC_PREFETCH", 1), ("pre4", "GC_PREFETCH", 4),
-           ("pre64", "GC_PREFETCH", 64))
+# cell_ab's copies of csrc/decode_step.cu, each (name, pattern, replacement):
+# the source; then the prenet's cluster taking 16 rows a group (half the
+# clusters at 64 rows). The chunk's prenet launched with programmatic
+# dependent launch, the heads' early start of it, 32 rows a group and
+# GC_PREFETCH (the cells' weight chunks streamed before their wait) were
+# measured the same way (PERF.md).
+CELL_AB = (
+    ("source", None, None),
+    ("prenet_rows16", r"constexpr int PN_THREADS = 256;", "constexpr int PN_THREADS = 512;"),
+)
 
 
 def cell_ab(model, log: dict) -> dict:
-    """The cells' prefetch A/B on source copies: ``csrc/decode_step.cu``
+    """The decode step's design A/B on source copies: ``csrc/decode_step.cu``
     built under build/cell_ab/ once per CELL_AB entry, each bound in turn as
     ``decoder_loop._LIB``. Per copy, by graph replay: a 64-frame
-    ``decode_chunk`` per step (the main path) and both cells alone
-    (``cell_args``), bf16 and int8 packs, at 1, 16 and 64 rows (L=128);
-    the copies in turns, two rounds, the second in reverse order. The
-    chunks' outputs must equal the source's bit for bit (the constant
-    changes no result; the run fails otherwise)."""
+    ``decode_chunk`` per step (the main path), both cells alone
+    (``cell_args``) and the prenet's one-kernel entry, bf16 and int8 packs,
+    at 1, 16 and 64 rows (L=128); the copies in turns, two rounds, the
+    second in reverse order. The chunks' outputs must equal the source's
+    bit for bit (no variant changes a result; the run fails otherwise)."""
     import ctypes
     import re
 
@@ -1026,13 +1150,13 @@ def cell_ab(model, log: dict) -> dict:
     out_dir = ROOT / "build" / "cell_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, const, value in CELL_AB:
+    for name, pattern, repl in CELL_AB:
         text = src
-        if const is not None:
-            pat = re.compile(rf"constexpr int {const} = \d+;")
-            if not pat.search(src):
-                raise SmokeFailure(f"cell_ab: no {const} in csrc/decode_step.cu")
-            text = pat.sub(f"constexpr int {const} = {value};", src)
+        if pattern is not None:
+            text, n = re.subn(pattern, repl, src)
+            if n != 1:
+                raise SmokeFailure(f"cell_ab: {pattern!r} matches {n} times in "
+                                   "csrc/decode_step.cu, want once")
         (out_dir / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
@@ -1049,17 +1173,19 @@ def cell_ab(model, log: dict) -> dict:
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 33)
     packs = {q: model.make_packed_decoder(quantize=q) for q in (False, True)}
-    cases = []  # (key, chunk, cells)
+    cases = []  # (key, chunk, cells, prenet)
     for q, pk in packs.items():
         for B in K1_ROWS:
             lengths = torch.full((B,), SERVE_L, dtype=torch.int32, device=dev)
             enc, att_enc, s = chunk_inputs(model, lengths, g, SERVE_L)
             m1, m2 = dl.prenet_masks(64, B, c.prenet_dim, c.dropout, g, dev)
             (kern_fn, _), cells = cell_args(dl, pk, B, g)
+            pre = (s.mel, pk.wp1_t, pk.wp2_t, m1[0], m2[0], pk.wt_prenet)
             cases.append((f"{'int8' if q else 'bf16'}_B{B}",
                           lambda pk=pk, a=(enc, att_enc, lengths, s, m1, m2):
                           dl.decode_chunk(pk, *a),
-                          lambda f=kern_fn, cs=cells: [f(*ka, **kw) for ka, _, kw in cs]))
+                          lambda f=kern_fn, cs=cells: [f(*ka, **kw) for ka, _, kw in cs],
+                          lambda a=pre: dl.prenet(*a)))
     saved = dl._LIB
     out: dict = {}
     first: dict = {}
@@ -1068,47 +1194,57 @@ def cell_ab(model, log: dict) -> dict:
         for order in (names, names[::-1]):
             for name in order:
                 dl._LIB = libs[name]
-                for key, chunk, cells in cases:
+                for key, chunk, cells, pre in cases:
                     mg, al, _ = chunk()
                     if key in first and not (torch.equal(mg, first[key][0])
                                              and torch.equal(al, first[key][1])):
                         raise SmokeFailure(f"cell_ab: the {key} chunk differs in the {name} copy")
                     first.setdefault(key, (mg, al))
-                    r = out.setdefault(f"{name}_{key}", {"chunk_us": [], "cells_us": []})
+                    r = out.setdefault(f"{name}_{key}",
+                                       {"chunk_us": [], "cells_us": [], "prenet_us": []})
                     r["chunk_us"].append(time_ms(chunk, 5, 1) / 64 * 1e3)
                     r["cells_us"].append(time_ms(cells) * 1e3)
+                    r["prenet_us"].append(time_ms(pre) * 1e3)
     finally:
         dl._LIB = saved
     for k, v in out.items():
         print(f"  {k}: chunk " + " / ".join(f"{x:.1f}" for x in v["chunk_us"])
               + " us a step, both cells alone " + " / ".join(f"{x:.1f}" for x in v["cells_us"])
-              + " us")
+              + " us, prenet alone " + " / ".join(f"{x:.2f}" for x in v["prenet_us"]) + " us")
     log["cell_ab"] = out
     return out
 
 
 def k1_rows_mode(out_name: str) -> int:
-    """``--k1-rows``: build K1/K5 only, then ``cell_rows`` and
-    ``serve_rows_split`` on random full-width weights; the results go to
+    """``--k1-rows``: build K1/K5 and K2 only, then ``up_rows``, ``cell_rows``,
+    ``cell_invariance`` and ``serve_rows_split`` on random full-width
+    weights; the results go to
     chiprun_out/<out_name>. Runs the package found first on sys.path (the
     repo's, or a parent's with ``--root``)."""
     import torch
 
     from tacotron2_tpu_torch import ops
     from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
     from tacotron2_tpu_torch.models.layers import use_f32_math
     from tacotron2_tpu_torch.ops import build
+    from tacotron2_tpu_torch.run.say import vocoder_policy
 
     use_f32_math()
     t0 = time.perf_counter()
-    logs = build.build_all(["decode_step"])
+    logs = build.build_all(["decode_step", "mrf"])
     log: dict = {"card": card_line(), "package": str(Path(ops.__file__).parents[1]),
                  "build_s": time.perf_counter() - t0,
-                 "ptxas": ptxas_kernels(logs["decode_step"])}
+                 "ptxas": {k: ptxas_kernels(v) for k, v in logs.items()}}
     print(f"[k1-rows] {log['package']} on {log['card']}")
     cfg = load_config(str(ROOT / "config" / "vanilla-ljspeech-stop.json"))
     model = random_tacotron(cfg, 10.0).cuda()
+    torch.manual_seed(SEED + 1)
+    hifigan = HiFiGAN(HiFiGANConfig.from_dict(UNIVERSAL_V1),
+                      vocoder_policy(torch.device("cuda"))).cuda().eval()
+    Tb = -(-(255 + hifigan.mel_receptive_field()) // 128) * 128  # the say's bucket
     try:
+        up_rows(model, hifigan, Tb, log)
         log["cells"] = cell_rows(model, log)
         cell_invariance(model, log)
         serve_rows_split(model, cfg, log)
@@ -1133,12 +1269,15 @@ def stage_kernel(rbs) -> str:
 
 def k2_phase(hifigan, log: dict, frames: int) -> None:
     """Each UNIVERSAL_V1 stage over ``frames`` mel frames, kernels against
-    plain: the upsample and its operand, the stage's first conv (or fused
-    pair) alone on that operand, then the whole stage. Two bitwise checks
-    fail the run: the first conv or pair of a row alone against the same
-    row in a batch of ``K2_INVARIANCE_ROWS`` (other tiles, and at one row
-    stage 1's narrower N tile), and a fused pair against its two
-    ``mrf_conv`` launches."""
+    plain: stage 1's ``conv_operand`` (exact), the upsample and its operand
+    on the operand of the stage input, the stage's first conv (or fused
+    pair) alone on that operand, then the whole stage, and the stage mean's
+    operand as the next upsample reads it (exactly ``operand`` of the
+    kernels' f32 mean). Bitwise checks fail the run: the upsample and the
+    first conv or pair of a row alone against the same row in a batch of
+    ``K2_INVARIANCE_ROWS`` (other tiles, and at one row narrower N tiles),
+    a fused pair against its two ``mrf_conv`` launches, and the mean's
+    operand."""
     import torch
 
     from tacotron2_tpu_torch.models import layers
@@ -1146,29 +1285,39 @@ def k2_phase(hifigan, log: dict, frames: int) -> None:
 
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 2)
+    bf = torch.bfloat16
     mel = torch.randn(1, frames, hifigan.cfg.num_mels, device="cuda", generator=g)
     x = layers.conv1d(mel, hifigan.conv_pre.weight, hifigan.conv_pre.bias, hifigan.policy,
                       padding=3)
     plain = mrf.plain_stage
+    n = K2_INVARIANCE_ROWS - 1
     for i, (rbs, ups) in enumerate(hifigan.kernel_weights()):
         x = x.contiguous()
-        xu, au = mrf.conv_transpose_plain(x, ups, want_act=True)
-        xu = xu.contiguous()
-        yk, ak = mrf.conv_transpose(x, ups, want_act=True)
+        a = mrf.conv_operand(x, bf)
+        check(f"conv_operand[{i}]@{frames}", [("a", a, mrf.conv_operand_plain(x, bf))], 0.0,
+              log, "conv_operand")
+        xu, au = mrf.conv_transpose_plain(a, ups, want_act=True)
+        yk, ak = mrf.conv_transpose(a, ups, want_act=True)
         check(f"conv_transpose[{i}]@{frames}", [("out", yk, xu), ("act", ak, au)],
               K2_TOL, log, "conv_transpose")
+        a_b = torch.cat([a, mrf.operand(torch.randn(n, *a.shape[1:], device="cuda",
+                                                    generator=g), bf)])
+        if not all(torch.equal(k, bo[:1]) for k, bo in zip(
+                (yk, ak), mrf.conv_transpose(a_b, ups, want_act=True))):
+            raise SmokeFailure(f"conv_transpose[{i}]@{frames}: a row alone differs from the "
+                               f"same row in a batch of {n + 1}")
+        del a_b
         name = stage_kernel(rbs)
         c1, c2 = rbs[0][0]
-        au = au.contiguous()
+        xu, au = xu.contiguous(), au.contiguous()
         one = ((lambda f, a, r: f(a, c1, c2, res=r, want_act=True)) if name == "mrf_pair" else
                (lambda f, a, r: f(a, c1, want_act=True)))
         k_out = one(mrf.mrf_pair if name == "mrf_pair" else mrf.mrf_conv, au, xu)
         p_out = one(mrf.mrf_pair_plain if name == "mrf_pair" else mrf.mrf_conv_plain, au, xu)
         check(f"{name}[{i}]@{frames}", [("y", k_out[0], p_out[0]), ("act", k_out[1], p_out[1])],
               K2_TOL, log, name)
-        n = K2_INVARIANCE_ROWS - 1
         a_b = torch.cat([au, mrf.operand(torch.randn(n, *au.shape[1:], device="cuda",
-                                                     generator=g), torch.bfloat16)])
+                                                     generator=g), bf)])
         r_b = torch.cat([xu, torch.randn(n, *xu.shape[1:], device="cuda", generator=g)])
         b_out = one(mrf.mrf_pair if name == "mrf_pair" else mrf.mrf_conv, a_b, r_b)
         if not all(torch.equal(k[0], bo[0]) for k, bo in zip(k_out[:2], b_out[:2])):
@@ -1185,6 +1334,10 @@ def k2_phase(hifigan, log: dict, frames: int) -> None:
                                    f"two mrf_conv launches")
         got, ref = mrf.mrf_stage(x, rbs, ups), plain(x, rbs, ups)
         check(f"mrf_stage[{i}]@{frames}", [("out", got, ref)], K2_TOL, log, name)
+        a_next = mrf.mrf_stage(x, rbs, ups, want_operand=True)
+        if not torch.equal(a_next, mrf.operand(got, bf)):
+            raise SmokeFailure(f"mrf_stage[{i}]@{frames}: the mean's operand differs from the "
+                               "operand of the f32 mean")
         if i == 2:  # row 3 of the TPU table: the MRF without its upsample
             check(f"mrf_stage[2,no_ups]@{frames}",
                   [("out", mrf.mrf_stage(xu, rbs), plain(xu, rbs, None))], K2_TOL, log, name)
@@ -1202,8 +1355,12 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
     The bound is that of the function the TPU kernels compute, one whole
     stage: its input read once, its weights, its output written once, and
     its flops; a stage's share goes to each kernel by its share of the
-    stage's flops. ``conv_transpose`` is given the input, its weights and
-    its flops. The activations this one-launch-per-conv design writes and
+    stage's flops. ``conv_transpose`` is given its input operand, its
+    weights, its outputs (f32 and operand) and the transposed conv's flops
+    (not the folded conv's zero taps); ``conv_operand`` its bytes. The
+    vocode runs as ``HiFiGAN.apply`` does: stage 1's operand by
+    ``conv_operand``, each later stage's from the mean of the one before.
+    The activations this one-launch-per-conv design writes and
     reads between launches (the bf16 operands, the f32 residual stream and
     stage mean) are the design's cost, reported beside the bound as
     ``traffic_ms`` (those bytes over the HBM rate)."""
@@ -1215,40 +1372,52 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
 
     calls = []
 
-    def conv_hook(a, cw, res=None, acc=None, acc_scale=0.0, want_y=True, want_act=False):
-        calls.append(("mrf_conv", a, (cw,), res, acc, acc_scale, want_y, want_act))
-        return mrf.mrf_conv(a, cw, res, acc, acc_scale, want_y, want_act)
+    def conv_hook(a, cw, res=None, acc=None, acc_scale=0.0, want_y=True, want_act=False,
+                  acc_act=False):
+        calls.append(("mrf_conv", a, (cw,), res, acc, acc_scale, want_y, want_act, acc_act))
+        return mrf.mrf_conv(a, cw, res, acc, acc_scale, want_y, want_act, acc_act)
 
-    def pair_hook(a, c1, c2, res=None, acc=None, acc_scale=0.0, want_y=True, want_act=False):
-        calls.append(("mrf_pair", a, (c1, c2), res, acc, acc_scale, want_y, want_act))
-        return mrf.mrf_pair(a, c1, c2, res, acc, acc_scale, want_y, want_act)
+    def pair_hook(a, c1, c2, res=None, acc=None, acc_scale=0.0, want_y=True, want_act=False,
+                  acc_act=False):
+        calls.append(("mrf_pair", a, (c1, c2), res, acc, acc_scale, want_y, want_act, acc_act))
+        return mrf.mrf_pair(a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act)
 
-    def convt_hook(x, uw, want_act=False):
-        calls.append(("conv_transpose", x, uw, want_act))
-        return mrf.conv_transpose(x, uw, want_act)
+    def convt_hook(a, uw, want_act=False):
+        calls.append(("conv_transpose", a, uw, want_act))
+        return mrf.conv_transpose(a, uw, want_act)
 
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 3)
     mel = torch.randn(rows_b, Tb, hifigan.cfg.num_mels, device="cuda", generator=g)
     x = layers.conv1d(mel, hifigan.conv_pre.weight, hifigan.conv_pre.bias, hifigan.policy,
                       padding=3)
-    names = ("mrf_conv", "mrf_pair", "conv_transpose")
+    names = ("mrf_conv", "mrf_pair", "conv_transpose", "conv_operand")
     tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_bf16_ms": 0.0,
                "bound_ms": 0.0, "eager_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                "traffic_ms": 0.0, "calls": 0} for n in names}
-    for rbs, ups in hifigan.kernel_weights():
-        xin = x.contiguous()
+    kw = hifigan.kernel_weights()
+    x = x.contiguous()
+    calls.append(("conv_operand", x))
+    a = mrf.conv_operand(x, torch.bfloat16)
+    parts0 = {"conv_operand": (nbytes(x, a), 0)}
+    for i, (rbs, ups) in enumerate(kw):
+        ain = a
         first = len(calls)
-        x = mrf.run_stage(xin, rbs, ups, conv_hook, convt_hook, pair_hook)
-        Bn, T, Co = x.shape
+        last = i == len(kw) - 1
+        out = mrf.run_stage(None, rbs, ups, conv_hook, convt_hook, pair_hook, a, not last)
+        y = out
+        a = None if last else out
+        Bn, T, Co = y.shape
         convs = [cw for rb in rbs for pair in rb for cw in pair if cw is not None]
         fl_stage = sum(2 * Bn * T * cw.w.numel() for cw in convs)
-        nb_stage = nbytes(x, *(cw.w for cw in convs), *(cw.b for cw in convs))
+        nb_stage = nbytes(y, *(cw.w for cw in convs), *(cw.b for cw in convs))
         fl_by = {n: sum(2 * Bn * T * cw.w.numel() for c in calls[first:] if c[0] == n
                         for cw in c[2]) for n in ("mrf_conv", "mrf_pair")}
-        parts = {"conv_transpose": (nbytes(xin, ups.w_phase, ups.b),
-                                    2 * Bn * T * Co * xin.shape[2]
+        parts = {"conv_transpose": (nbytes(ain, ups.w, ups.b) + Bn * T * Co * 6,
+                                    2 * Bn * T * Co * ain.shape[2]
                                     * (ups.w.shape[0] // ups.stride))}
+        if i == 0:
+            parts.update(parts0)
         for n, fl in fl_by.items():
             if fl:
                 parts[n] = (nb_stage * fl / fl_stage, fl)
@@ -1265,11 +1434,11 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
         name, x = call[0], call[1]
         t = tot[name]
         if name in ("mrf_conv", "mrf_pair"):
-            _, a, cws, res, acc, s, want_y, want_act = call
+            _, a, cws, res, acc, s, want_y, want_act, acc_act = call
             fn = mrf.mrf_conv if name == "mrf_conv" else mrf.mrf_pair
             pfn = mrf.mrf_conv_plain if name == "mrf_conv" else mrf.mrf_pair_plain
-            kern = lambda: fn(a, *cws, res, acc, s, want_y, want_act)
-            plain_fn = lambda: pfn(a, *cws, res, acc, s, want_y, want_act)
+            kern = lambda: fn(a, *cws, res, acc, s, want_y, want_act, acc_act)
+            plain_fn = lambda: pfn(a, *cws, res, acc, s, want_y, want_act, acc_act)
             # the library's inputs: the operand of each conv (for a pair, the
             # plain first conv's output operand), channels first
             ops_in = [a] if len(cws) == 1 else [a, mrf.mrf_conv_plain(a, cws[0], want_y=False,
@@ -1288,14 +1457,14 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
             Co = cws[-1].w.shape[1]
             n_out = a.shape[0] * a.shape[1] * Co
             nb = (nbytes(a, *(cw.wt for cw in cws), *(cw.b for cw in cws), res, acc)
-                  + n_out * (4 * want_y + 2 * want_act + 4 * (s != 0.0)))
+                  + n_out * (4 * want_y + 2 * want_act + (s != 0.0) * (2 if acc_act else 4)))
             w_shape = list(cws[0].w.shape)
-        else:
-            _, x, uw, want_act = call
+        elif name == "conv_transpose":
+            _, x, uw, want_act = call  # x: the input operand
             Kt, _, Co = uw.w.shape
             kern = lambda: mrf.conv_transpose(x, uw, want_act)
             plain_fn = lambda: mrf.conv_transpose_plain(x, uw, want_act)
-            xt = mrf.operand(x, bf).transpose(1, 2).contiguous()
+            xt = x.transpose(1, 2).contiguous()
             xt32, wt = xt.float(), uw.w.permute(1, 2, 0).contiguous()
             wt32 = wt.float()
             lib = lambda: F.conv_transpose1d(xt32, wt32, uw.b, stride=uw.stride,
@@ -1303,17 +1472,25 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
             b16 = uw.b.to(bf)
             lib_bf16 = lambda: F.conv_transpose1d(xt, wt, b16, stride=uw.stride,
                                                   padding=uw.padding)
-            Tout = (x.shape[1] - 1) * uw.stride - 2 * uw.padding + Kt
-            nb = nbytes(x, uw.w_phase, uw.b) + x.shape[0] * Tout * Co * (4 + 2 * want_act)
+            Tout = x.shape[1] * uw.stride
+            nb = (nbytes(x, uw.folded.wt, uw.folded.b)
+                  + x.shape[0] * Tout * Co * (4 + 2 * want_act))
             w_shape = list(uw.w.shape)
+        else:  # conv_operand: no one library call computes it
+            kern = lambda: mrf.conv_operand(x, bf)
+            plain_fn = lambda: mrf.conv_operand_plain(x, bf)
+            lib = lib_bf16 = None
+            nb = nbytes(x) + x.numel() * 2
+            w_shape = []
         reps = (2, 2) if big else (5, 4)
         ms = time_ms(kern, *reps)
         traffic_ms = nb / HBM_BYTES_PER_S * 1e3
         t.setdefault("per_call", []).append({"x": list(x.shape), "w": w_shape, "ms": ms,
                                              "traffic_ms": traffic_ms})
         t["ms"] += ms
-        t["library_ms"] += time_ms(lib, *reps)
-        t["library_bf16_ms"] += time_ms(lib_bf16, *reps)
+        if lib is not None:
+            t["library_ms"] += time_ms(lib, *reps)
+            t["library_bf16_ms"] += time_ms(lib_bf16, *reps)
         if plain:
             t["plain_ms"] += time_ms(plain_fn, 5, 4)
             t["eager_ms"] += eager_ms(kern, 5)
@@ -1322,18 +1499,24 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
     rows = []
     # the wrappers replace the on-path stage kernels (u=8 :312, u=2 :378);
     # the MRF without its upsample (:285) runs on mrf_conv / mrf_pair alone
-    replaces = "tacotron2_tpu/ops/mrf_pallas.py:312,378 (also :285)"
+    replaces = {"conv_transpose": "tacotron2_tpu/ops/mrf_pallas.py:312,378 (the upsample of "
+                                  "the u=8 and u=2 stage kernels)",
+                "conv_operand": "tacotron2_tpu/ops/mrf_pallas.py:312 (the u=8 stage kernel's "
+                                "lrelu of its input)"}
     for name in names:
         t = tot[name]
         if not t["calls"]:
             continue
+        lib_none = name == "conv_operand"
         rows.append({
             "name": name, "route": "cuda", "source": "tacotron2_tpu_torch/csrc/mrf.cu",
-            "replaces": replaces,
+            "replaces": replaces.get(name, "tacotron2_tpu/ops/mrf_pallas.py:312,378 (also :285)"),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
-            "library_ms": t["library_ms"], "library_bf16_ms": t["library_bf16_ms"],
-            "library": "F.conv1d / F.conv_transpose1d (two for a fused pair): f32 (TF32 off) "
+            "library_ms": None if lib_none else t["library_ms"],
+            "library_bf16_ms": None if lib_none else t["library_bf16_ms"],
+            "library": None if lib_none else
+                       "F.conv1d / F.conv_transpose1d (two for a fused pair): f32 (TF32 off) "
                        "on the kernel's bf16 operands; library_bf16_ms the same in bf16, bf16 "
                        "output",
             "eager_ms": t["eager_ms"], "traffic_ms": t["traffic_ms"],
@@ -1395,7 +1578,7 @@ def k2_ab(hifigan, Tb: int) -> dict:
         mel = torch.randn(1, Tb, hifigan.cfg.num_mels, device="cuda", generator=g)
         x0 = layers.conv1d(mel, hifigan.conv_pre.weight, hifigan.conv_pre.bias, hifigan.policy,
                            padding=3).contiguous()
-        xu, au = mrf.conv_transpose_plain(x0, ups, want_act=True)
+        xu, au = mrf.conv_transpose_plain(mrf.operand(x0, torch.bfloat16), ups, want_act=True)
         xu, au = xu.contiguous(), au.contiguous()
         convs = [cw for rb in rbs for pair in rb for cw in pair if cw is not None]
         run = lambda: [mrf.mrf_conv(au, cw, xu, want_act=True) for cw in convs]
@@ -1428,11 +1611,12 @@ def k2_ab(hifigan, Tb: int) -> dict:
                            hifigan.policy, padding=3).contiguous()
 
         def vocode(pair):
-            x = x0
-            for rbs, ups in kw:
-                x = mrf.run_stage(x.contiguous(), rbs, ups, mrf.mrf_conv, mrf.conv_transpose,
-                                  pair)
-            return x
+            a = mrf.conv_operand(x0)
+            for i, (rbs, ups) in enumerate(kw):
+                out = mrf.run_stage(None, rbs, ups, mrf.mrf_conv, mrf.conv_transpose, pair, a,
+                                    i < len(kw) - 1)
+                a = out if i < len(kw) - 1 else None
+            return out
 
         ms, outs = {"fused": [], "unfused": []}, {}
         for key in ("fused", "unfused", "unfused", "fused"):
@@ -2034,7 +2218,7 @@ def say_phase(cfg_path: str, log: dict, card: str):
     h_32 = load_hifigan(g_path, F32, dev)
     Tb = vocode_bucket(h_bf, cut)
     pcm_bf = cut_vocode(h_bf, full.mels_post, [0], [cut], Tb)[0, :cut * 256].long()
-    pcm_32 = cut_vocode(h_32, full.mels_post, [0], [cut], Tb, mrf.plain_stage)[0, :cut * 256].long()
+    pcm_32 = cut_vocode(h_32, full.mels_post, [0], [cut], Tb, plain=True)[0, :cut * 256].long()
     if pcm_bf.shape != pcm_32.shape or pcm_bf.numel() != cut * 256:
         raise SmokeFailure(f"vocoder precision check: shapes {pcm_bf.shape}, {pcm_32.shape}")
     lsb = (pcm_bf - pcm_32).abs().float()
@@ -2351,12 +2535,17 @@ def serve_checks(registry, log: dict) -> dict:
     on the served models' packs: a 4-step chunk (K1 for the bf16 entry at 16
     and 64 rows, K5 for the int8 entry at 16) over the waves' char lengths
     padded to the 128 bucket, so the kernels' later row groups are held too;
-    then K2 through the batched ``cut_vocode`` at 16 and 64 rows of a decode
-    of the waves' texts, every stage against the plain stage on the same
-    input. -> the PCM16 difference of the whole kernel vocode from the whole
-    plain vocode (reported)."""
+    then K2 at 16 and 64 rows of a decode of the waves' texts, on the served
+    vocoder's route (``HiFiGAN.apply``: stage 1's operand by
+    ``conv_operand``, each later stage's from the mean's operand that the
+    stage before wrote): every stage, its upsample and ``conv_operand``
+    against their plain versions on the same operand, and each mean's
+    operand against ``operand`` of the f32 mean bit for bit. -> the PCM16
+    difference of the batched ``cut_vocode`` from its plain reference route
+    (reported)."""
     import torch
 
+    from tacotron2_tpu_torch.models import layers
     from tacotron2_tpu_torch.ops import mrf
     from tacotron2_tpu_torch.run import server as srv
     from tacotron2_tpu_torch.run.say import cut_vocode, vocode_bucket
@@ -2386,23 +2575,33 @@ def serve_checks(registry, log: dict) -> dict:
                                         row_generators=gens).mels_post
         rows, cuts = list(range(B)), [255] * B
         Tb = vocode_bucket(hifigan, 255)
-        done = []
-
-        def stage(x, rbs, ups=None):
-            tag = f"[{len(done)}]@B{B}x{Tb}"
-            if ups is not None:
-                check(f"conv_transpose{tag}", [("out", mrf.conv_transpose(x, ups)[0],
-                                                mrf.conv_transpose_plain(x, ups)[0])],
-                      K2_TOL, log, "conv_transpose")
-            ref = mrf.plain_stage(x, rbs, ups)
-            check(f"mrf_stage{tag}", [("out", mrf.mrf_stage(x, rbs, ups), ref)], K2_TOL, log,
-                  stage_kernel(rbs))
-            done.append(tag)
-            return ref
-
-        cut_vocode(hifigan, mels, rows, cuts, Tb, stage)
+        # cut_vocode's input: the rows cut at 255 frames in a bucket of Tb
+        m = torch.nn.functional.pad(mels[:, :Tb], (0, 0, 0, max(0, Tb - mels.shape[1])))
+        m = m * (torch.arange(Tb, device=dev) < 255)[None, :, None]
+        x = layers.conv1d(m, hifigan.conv_pre.weight, hifigan.conv_pre.bias, hifigan.policy,
+                          padding=3).detach().contiguous()
+        kw = hifigan.kernel_weights()
+        dt = kw[0][1].w.dtype
+        a = mrf.conv_operand(x, dt)
+        check(f"conv_operand@B{B}x{Tb}", [("a", a, mrf.conv_operand_plain(x, dt))], 0.0, log,
+              "conv_operand")
+        for i, (rbs, ups) in enumerate(kw):
+            tag = f"[{i}]@B{B}x{Tb}"
+            check(f"conv_transpose{tag}", [("out", mrf.conv_transpose(a, ups)[0],
+                                            mrf.conv_transpose_plain(a, ups)[0])],
+                  K2_TOL, log, "conv_transpose")
+            got = mrf.mrf_stage(None, rbs, ups, a)
+            check(f"mrf_stage{tag}", [("out", got, mrf.side_output_stage(None, rbs, ups, a))],
+                  K2_TOL, log, stage_kernel(rbs))
+            if i < len(kw) - 1:  # the next stage's input, as the served vocode passes it
+                a = mrf.mrf_stage(None, rbs, ups, a, want_operand=True)
+                if not torch.equal(a, mrf.operand(got, dt)):
+                    raise SmokeFailure(f"mrf_stage{tag}: the mean's operand differs from the "
+                                       "operand of the f32 mean")
+            del got
+        del x, m
         lsb = (cut_vocode(hifigan, mels, rows, cuts, Tb).long()
-               - cut_vocode(hifigan, mels, rows, cuts, Tb, mrf.plain_stage).long()).abs().float()
+               - cut_vocode(hifigan, mels, rows, cuts, Tb, plain=True).long()).abs().float()
         pcm[f"B{B}"] = {"Tb": Tb, "max_lsb": float(lsb.max()), "mean_lsb": float(lsb.mean()),
                         "share_over_2_lsb": float((lsb > 2).float().mean())}
     print(f"  batched vocode, kernels vs plain stages, PCM16 LSB: {pcm}")
@@ -2476,14 +2675,13 @@ def k1_ab() -> int:
     for i, (tag, root) in enumerate((("parent", parent), ("change", ROOT), ("change", ROOT),
                                      ("parent", parent))):
         out = f"k1_rows_{i}_{tag}.json"
-        ab = ["--cell-ab"] if i == 2 else []  # this tree's GC_PREFETCH on copies, once
+        ab = ["--cell-ab"] if i == 2 else []  # this tree's CELL_AB copies, once
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--k1-rows",
                                "--root", str(root), "--out", out, *ab], timeout=900)
         path = OUT_DIR / out
         turns.append({"turn": i, "tag": tag, "rc": proc.returncode,
                       **(json.loads(path.read_text()) if path.exists() else {})})
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "k1_ab.json").write_text(json.dumps(turns, indent=1))
     print("[k1-ab] in turns (us; window decode ms):")
     for t in turns:
         cells = t.get("cells", {})
@@ -2496,6 +2694,19 @@ def k1_ab() -> int:
                                      for k, v in split.items())
               + " window " + " ".join(f"{k} {v['window_decode_ms']:.1f}" for k, v in split.items()
                                       if "window_decode_ms" in v))
+        up = t.get("up_rows", {})
+        print("      " + " ".join(f"{k}:" + "/".join(
+            f"{r['ms'] * (1 if k in ('conv_transpose', 'vocode') else 1e3):.4g}"
+            for r in v.values()) for k, v in up.items())
+            + "  (conv_transpose, vocode: ms; the rest us; at rows " + "/".join(
+                str(b) for b in UP_ROWS) + ")")
+    shas = [{B: r.get("out_sha1") for B, r in t.get("up_rows", {}).get("prenet", {}).items()}
+             for t in turns]
+    same = all(s == shas[0] for s in shas[1:]) and bool(shas[0])
+    print(f"  the prenet's outputs at {'/'.join(str(b) for b in UP_ROWS)} rows equal in every "
+          f"turn, parent and change, bit for bit: {same}")
+    (OUT_DIR / "k1_ab.json").write_text(json.dumps({"turns": turns, "prenet_bits_equal": same},
+                                                   indent=1))
     return max(t["rc"] for t in turns)
 
 
@@ -2574,6 +2785,12 @@ def main() -> int:
         for frames in (64, Tb):  # 64 frames, then the say's own bucket
             k2_phase(hifigan, log, frames)
         rows += k2_timing(hifigan, Tb)
+        # the upsample, stage 1's operand, the prenet and the heads at 1, 16
+        # and 64 rows ride along in their kernels' rows
+        ups = up_rows(model, hifigan, Tb, log)
+        for r in rows:
+            if r["name"] in ("conv_transpose", "conv_operand", "prenet", "heads"):
+                r["rows"] = ups[r["name"]]
         # the dilated convs (mrf_conv and mrf_pair) at the serve windows'
         # shapes (16 and 64 rows, the say's bucket): kernels, library calls
         # and bound, summed over both kernels

@@ -7,7 +7,8 @@
 // MXU (jnp.dot(xh, w_s), :469); an H100 SM has 227 KB of shared memory, so
 // here each step streams the weights through the whole card:
 //
-//   t2_prenet              prenet: 2 x (Linear, ReLU, x dropout mask)
+//   t2_prenet              prenet: 2 x (Linear, ReLU, x dropout mask), over
+//                          a thread-block cluster that shares the weights
 //   t2_lstm_cell           the LSTM cell: gate GEMM on the tensor cores over
 //                          a thread-block cluster, the i/f/g/o nonlinearity
 //                          and the c/h update fused (gate_cell_kernel)
@@ -484,34 +485,141 @@ __global__ void __launch_bounds__(256) quantize_xh_kernel(
   if (threadIdx.x == 0) sx[b] = s;
 }
 
-// grid B, block P threads; thread p -> prenet unit p (weights input-major);
-// mel rows are ldm floats apart. OPERAND (the chunk's launches, bf16 mode):
-// let the LSTM cell after it start at once (pdl_trigger) and write its
-// operand, the output's bf16 copy, into out_bf; without, the output alone
-// (the one-kernel entry and int8 mode)
-template <bool OPERAND>
-__global__ void prenet_kernel(const float* __restrict__ mel, const __nv_bfloat16* __restrict__ w1t,
-                              const __nv_bfloat16* __restrict__ w2t, const float* __restrict__ m1,
-                              const float* __restrict__ m2, float* __restrict__ out,
-                              bf16* __restrict__ out_bf, int M, int P, int ldm) {
-  extern __shared__ float sm[];
-  float* xs = sm;      // M
-  float* hs = sm + M;  // P
-  const int b = blockIdx.x, p = threadIdx.x;
-  if (OPERAND) pdl_trigger();
-  for (int k = threadIdx.x; k < M; k += blockDim.x) xs[k] = rnd_bf16(mel[(size_t)b * ldm + k]);
-  __syncthreads();
+// The prenet (K1's first launch of a step; _decode_chunk_kernel's phase 0,
+// decoder_loop_pallas.py:436-445): out = relu(bf16(relu(bf16(mel) W1) m1)
+// W2) m2, M = 80 -> P = 256 -> 256, bf16 weights (172 KB), f32 sums.
+// Bound: its bytes, 0.05 us at one row; what it costs is latency, and it is
+// on every step's critical path.
+//
+// A cluster of PN_S = 8 blocks takes a group of up to PN_THREADS / U rows
+// (8 at P = 256), one cluster per group above that; block (rank) r owns the
+// U = P / PN_S units [r U, (r + 1) U) of both layers. It bulk-copies its
+// slice of both weights, (M + P) x U bf16 (21 KB at the flagship dims) as
+// [k / 4][u][4] (a unit's 4 consecutive weights one 8-byte load), laid end
+// to end by a copy tiled once per model (pack_decoder, tile_prenet),
+// into shared memory under one mbarrier. It launches without programmatic
+// dependent launch: in the chunk, launched with it after the heads, its
+// copy overlapping their end, it gained nothing measurable (PERF.md).
+// Thread (row, u) computes its unit's layer-1 sum for its row, pushes
+// bf16(relu(sum) m1) (as JAX rounds it) into every rank's h1 over
+// distributed shared memory, and after one cluster barrier its layer-2 sum
+// from its own shared memory. Each output's sum is one fmaf chain, k = 0 ..
+// M - 1, then 0 .. P - 1, whatever B or the split: a row's output does not
+// depend on the rows or the cluster it shares a launch with (chip_smoke.py
+// holds rows of a 64-row launch against the rows alone). Its time is
+// latency: the launch, the copy, two cluster barriers and the chains (336
+// dependent fmaf), whatever the rows up to 8 a group.
+// OPERAND (the chunk's launches, bf16 mode): let the LSTM cell after it
+// start at once (pdl_trigger) and write its operand, the output's bf16
+// copy, into out_bf; without, the output alone (the one-kernel entry and
+// int8 mode). grid (PN_S, ceil(B / rows a group)), cluster (PN_S, 1, 1),
+// block PN_THREADS; mel rows are ldm floats apart.
+constexpr int PN_S = 8;          // blocks per cluster: the units' split
+constexpr int PN_THREADS = 256;  // a block: (rows of the group) x U
+
+// shared memory of one block: its mbarrier, the weight slice, the group's
+// mel (f32 values of bf16) and h1 (the same)
+inline size_t prenet_smem(int M, int P) {
+  const int U = P / PN_S, rows = PN_THREADS / U;
+  return 16 + (size_t)(M + P) * U * 2 + (size_t)rows * (M + P) * 4;
+}
+
+// acc + x[4 i + j] w[4 i + j] over i < n4, j < 4, as one fmaf chain in that
+// order: x 4 floats a load, w a unit's bf16 weights 4 a load (uint2, ld
+// apart), the next PN_G loads issued while the chain takes the current ones,
+// so that it runs near the fmaf's latency, not the loads' or the issue's
+constexpr int PN_G = 4;
+__device__ __forceinline__ float fma4(float acc, const float4& x, const uint2& w) {
+  acc = fmaf(x.x, __uint_as_float(w.x << 16), acc);
+  acc = fmaf(x.y, __uint_as_float(w.x & 0xffff0000u), acc);
+  acc = fmaf(x.z, __uint_as_float(w.y << 16), acc);
+  return fmaf(x.w, __uint_as_float(w.y & 0xffff0000u), acc);
+}
+
+__device__ __forceinline__ float fmaf_chain(const float4* __restrict__ x,
+                                            const uint2* __restrict__ w, int ld, int n4) {
   float acc = 0.0f;
-#pragma unroll 8
-  for (int k = 0; k < M; ++k) acc = fmaf(xs[k], __bfloat162float(w1t[(size_t)k * P + p]), acc);
-  hs[p] = rnd_bf16(fmaxf(acc, 0.0f) * m1[(size_t)b * P + p]);
+  float4 xa[PN_G];
+  uint2 wa[PN_G];
+  const int nb = n4 - n4 % PN_G;
+  if (nb > 0) {
+#pragma unroll
+    for (int i = 0; i < PN_G; ++i) {
+      xa[i] = x[i];
+      wa[i] = w[i * ld];
+    }
+#pragma unroll 2
+    for (int k = PN_G; k < nb; k += PN_G) {
+      float4 xb[PN_G];
+      uint2 wb[PN_G];
+#pragma unroll
+      for (int i = 0; i < PN_G; ++i) {
+        xb[i] = x[k + i];
+        wb[i] = w[(k + i) * ld];
+      }
+#pragma unroll
+      for (int i = 0; i < PN_G; ++i) {
+        acc = fma4(acc, xa[i], wa[i]);
+        xa[i] = xb[i];
+        wa[i] = wb[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PN_G; ++i) acc = fma4(acc, xa[i], wa[i]);
+  }
+  for (int k = nb; k < n4; ++k) acc = fma4(acc, x[k], w[k * ld]);
+  return acc;
+}
+
+template <bool OPERAND>
+__global__ void __launch_bounds__(PN_THREADS) prenet_kernel(
+    const float* __restrict__ mel, const bf16* __restrict__ wt, const float* __restrict__ m1,
+    const float* __restrict__ m2, float* __restrict__ out, bf16* __restrict__ out_bf, int B, int M,
+    int P, int ldm) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) uint8_t pn_raw[];
+  const int U = P / PN_S, rows = PN_THREADS / U, rank = (int)cluster.block_rank();
+  const uint32_t w_bytes = (uint32_t)(M + P) * U * 2;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(pn_raw);
+  // [k / 4][u][4], k < M layer 1, then layer 2
+  const uint2* w4 = reinterpret_cast<const uint2*>(pn_raw + 16);
+  float* xs = reinterpret_cast<float*>(pn_raw + 16 + w_bytes);  // rows x M
+  float* hs = xs + rows * M;                                     // rows x P
+  const int tid = threadIdx.x, row = tid / U, u = tid - row * U;
+  const int r0 = blockIdx.y * rows, b = r0 + row, unit = rank * U + u;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar, w_bytes);
+    bulk_load(pn_raw + 16, wt + (size_t)rank * (M + P) * U, w_bytes, bar);
+  }
+  if (OPERAND) pdl_trigger();
+  // this block has started: the ranks may write its h1 once all have
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const float k1 = b < B ? m1[(size_t)b * P + unit] : 0.0f;
+  const float k2 = b < B ? m2[(size_t)b * P + unit] : 0.0f;
+  const int live = min(rows, B - r0);  // the group's rows in [0, B)
+  for (int i = tid; i < live * M; i += PN_THREADS) {
+    const int rr = i / M;
+    xs[i] = rnd_bf16(mel[(size_t)(r0 + rr) * ldm + i - rr * M]);
+  }
   __syncthreads();
-  acc = 0.0f;
-#pragma unroll 8
-  for (int k = 0; k < P; ++k) acc = fmaf(hs[k], __bfloat162float(w2t[(size_t)k * P + p]), acc);
-  const float v = fmaxf(acc, 0.0f) * m2[(size_t)b * P + p];
-  out[(size_t)b * P + p] = v;
-  if (OPERAND) out_bf[(size_t)b * P + p] = __float2bfloat16_rn(v);
+  mbar_wait(bar, 0);
+  float h = 0.0f;
+  if (b < B) {
+    const float4* x = reinterpret_cast<const float4*>(xs + row * M);
+    h = rnd_bf16(fmaxf(fmaf_chain(x, w4 + u, U, M / 4), 0.0f) * k1);
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (b < B)  // rows past B are neither computed nor read
+    for (int p = 0; p < PN_S; ++p) cluster.map_shared_rank(hs, p)[row * P + unit] = h;
+  cluster.sync();  // every rank's h1 is whole
+  if (b < B) {
+    const float4* x = reinterpret_cast<const float4*>(hs + row * P);
+    const float v = fmaxf(fmaf_chain(x, w4 + M / 4 * U + u, U, P / 4), 0.0f) * k2;
+    out[(size_t)b * P + unit] = v;
+    if (OPERAND) out_bf[(size_t)b * P + unit] = __float2bfloat16_rn(v);
+  }
 }
 
 // ---- launchers (shared by the one-kernel entry points and the chunk) ----
@@ -590,18 +698,23 @@ int launch_quantize_xh(const void* x1, int n1, const void* x2, int n2, const voi
                    (int8_t*)xq, (float*)sx);
 }
 
-// the prenet; out_bf, where given, gets its output's bf16 operand (the
-// chunk's launch in bf16 mode: prenet_kernel<true>)
-int launch_prenet(const void* mel, int ldm, const void* w1t, const void* w2t, const void* m1,
-                  const void* m2, void* out, void* out_bf, int B, int M, int P,
-                  cudaStream_t stream) {
-  if (P > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(M + P) * sizeof(float);
+// the prenet over the tiled copy wt of its weights (pack_decoder); out_bf,
+// where given, gets its output's bf16 operand (the chunk's launch in bf16
+// mode: prenet_kernel<true>)
+int launch_prenet(const void* mel, int ldm, const void* wt, const void* m1, const void* m2,
+                  void* out, void* out_bf, int B, int M, int P, cudaStream_t stream) {
+  const int U = P / PN_S;
+  if (B < 1 || M < 1 || M % 4 || P % PN_S || U % 8 || PN_THREADS % U || ((uintptr_t)wt & 15))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = prenet_smem(M, P);
+  static size_t allowed[2] = {48 * 1024, 48 * 1024};
   auto kernel = out_bf ? prenet_kernel<true> : prenet_kernel<false>;
-  kernel<<<B, P, smem, stream>>>((const float*)mel, (const __nv_bfloat16*)w1t,
-                                 (const __nv_bfloat16*)w2t, (const float*)m1, (const float*)m2,
-                                 (float*)out, (bf16*)out_bf, M, P, ldm);
-  return (int)cudaGetLastError();
+  const int err = allow_smem(kernel, smem, &allowed[out_bf ? 1 : 0]);
+  if (err) return err;
+  const int rows = PN_THREADS / U;
+  return launch_ex(kernel, dim3(PN_S, (B + rows - 1) / rows), dim3(PN_S, 1, 1), PN_THREADS, smem,
+                   false, stream, (const float*)mel, (const bf16*)wt, (const float*)m1,
+                   (const float*)m2, (float*)out, (bf16*)out_bf, B, M, P, ldm);
 }
 
 }  // namespace
@@ -637,9 +750,11 @@ int t2_heads(const void* w, const void* b, const void* x1, int n1, const void* x
   return launch_heads(w, b, x1, n1, x2, n2, out, B, N, (cudaStream_t)stream);
 }
 
-int t2_prenet(const void* mel, const void* w1t, const void* w2t, const void* m1, const void* m2,
-              void* out, int B, int M, int P, void* stream) {
-  return launch_prenet(mel, M, w1t, w2t, m1, m2, out, nullptr, B, M, P, (cudaStream_t)stream);
+// the prenet over the tiled copy wt of its weights (pack_decoder,
+// tile_prenet): mel (B, M), m1, m2, out (B, P) f32
+int t2_prenet(const void* mel, const void* wt, const void* m1, const void* m2, void* out, int B,
+              int M, int P, void* stream) {
+  return launch_prenet(mel, M, wt, m1, m2, out, nullptr, B, M, P, (cudaStream_t)stream);
 }
 
 // the attention over a cluster of S blocks per batch row: h (B, H), ctx_out
@@ -668,6 +783,7 @@ int t2_location_attention(const void* h, const void* wq, const void* wloc, const
 //             rnn_h (2, B, H) each in ping-pong, slot 1 holding the state in
 //   p[41..42] int8 mode: the cells' quantised operand, (B, max(R1, R2))
 //             int8, and its row scales (B,) f32 (quantize_xh)
+//   p[43]     the prenet's tiled weight copy (pack_decoder, tile_prenet)
 // Step t writes slot t % 2 and reads slot (t - 1) % 2 (the state in at t = 0);
 // the previous attention weights and mel are the aligns and mel_gate rows of
 // step t - 1. d = {n, B, M, P, H, D, L, A, K, int8, S}: with int8 != 0, w_att
@@ -716,7 +832,7 @@ int t2_decode_chunk(void** p, const int* d, void* stream_) {
     const void* rnn_h = first ? p[22] : slot(31, t - 1, H);
     const void* rnn_c = first ? p[23] : slot(32, t - 1, H);
     const size_t mo = (size_t)t * B * P;
-    err = launch_prenet(mel, first ? M : N, p[4], p[5], (const float*)p[14] + mo,
+    err = launch_prenet(mel, first ? M : N, p[43], (const float*)p[14] + mo,
                         (const float*)p[15] + mo, p[26], int8 ? nullptr : p[37], B, M, P, stream);
     if (!err && int8)
       err = launch_quantize_xh(p[26], P, ctx, D, att_h, H, p[41], p[42], B, stream);

@@ -8,12 +8,17 @@
 //   t2_mrf_conv        from the bf16 operand a = bf16(lrelu(x)) (B, T, Ci):
 //                      v = conv_d(a) + bias (+ res), and any of y = v (f32),
 //                      act = bf16(lrelu(v)) (the next conv's operand) and
-//                      acc_out = (acc_in) + scale * v (the stage mean)
+//                      acc_out = (acc_in) + scale * v (the stage mean), or
+//                      that sum's operand (the next stage's upsample's
+//                      input). The upsample runs on it too: a transposed
+//                      conv of stride u and kernel 2u is, in channels-last
+//                      memory, a SAME 3-tap conv to u Co channels
+//                      (ops/mrf.py::fold_upsample)
 //   t2_mrf_pair        a ResBlock1 pair in one launch: t2_mrf_conv of the
 //                      second conv (dilation 1) on the operand of the
 //                      first's output, which stays in shared memory
-//   t2_conv_transpose  y = ConvTranspose1d(lrelu(x)) + bias, and act =
-//                      bf16(lrelu(y)) where asked
+//   t2_conv_operand    a = bf16(lrelu(x)) of the first stage's input
+//                      (conv_pre's output, which no kernel writes)
 //
 // Bound: the stage is bound by operations (~0.6 GFLOP per mel frame for
 // UNIVERSAL_V1, ~0.6 us at 989 TFLOP/s bf16); with one launch per conv, as
@@ -53,9 +58,11 @@
 //   ResBlock1 pair is never written as f32; fused (t2_mrf_pair, channels
 //   up to 128: one N tile, so one block has every channel of the
 //   intermediate) it is never written at all.
-// t2_conv_transpose runs on the mma.sync kernel conv_mma_kernel: a
-// transposed conv of stride u is u plain convs of k/u taps (one per output
-// phase, written with stride u).
+// The folded upsample (UNIVERSAL_V1: Ci 512 -> 8 x 256, 256 -> 8 x 128,
+// 128 -> 2 x 64, 64 -> 2 x 32) is such a conv of K = 3; the tap a phase
+// does not reach is a zero tile, kept (1.5x the transposed conv's flops,
+// the stage's MRF convs do ~20x more). Its output, written as y (the
+// residual stream) and act, is the transposed conv's, (B, u Tin, Co).
 //
 // Every entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError() (cudaErrorInvalidValue for dimensions it does
@@ -76,113 +83,6 @@ typedef __nv_bfloat16 bf16;
 constexpr float kSlope = 0.1f;
 
 __device__ __forceinline__ float lrelu(float x) { return x > 0.0f ? x : kSlope * x; }
-
-// ---------------------------------------------------------------------------
-// conv_transpose: mma.sync implicit GEMM
-// ---------------------------------------------------------------------------
-constexpr int TM = 64;        // output samples per block
-constexpr int TN = 32;        // output channels per block
-constexpr int TK = 32;        // input channels per staged slice
-constexpr int LDS = TK + 8;   // padded shared row (bf16), 80 bytes
-constexpr int kThreads = 128; // 4 warps x 16 output rows
-
-__device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Output row q of phase r is written to sample t = q * nphase + r and reads
-// input rows q + x_off + j for taps j < KT (zero outside [0, Tin)): phase r
-// is a plain conv over the KT = K / u taps m = m0 + (KT - 1 - j) * u, m0 =
-// (r + pad) % u, with x_off = (r + pad - m0) / u - (KT - 1); its weights
-// come packed per phase and tap. grid (ceil(Tq / TM), Co / TN, B * nphase),
-// block kThreads. x (B, Tin, Ci) f32, w (nphase, KT, Co, Ci) bf16, bias (Co)
-// f32, y (B, Tout, Co) f32, act (B, Tout, Co) bf16 where given.
-__global__ void __launch_bounds__(kThreads)
-conv_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
-                const float* __restrict__ bias, float* __restrict__ y, bf16* __restrict__ act,
-                int Tin, int Tout, int Ci, int Co, int KT, int nphase, int tpad) {
-  extern __shared__ uint4 smem_u4[];
-  const int rows_ext = TM + KT - 1;
-  bf16* As = reinterpret_cast<bf16*>(smem_u4);  // rows_ext x LDS
-  bf16* Bs = As + (size_t)rows_ext * LDS;        // TN x LDS
-
-  const int r = blockIdx.z % nphase, b = blockIdx.z / nphase;
-  const int m0 = (r + tpad) % nphase;
-  const int x_off = (r + tpad - m0) / nphase - (KT - 1);
-  const int Tq = (Tout - r + nphase - 1) / nphase;  // output rows of this phase
-  const int t0 = blockIdx.x * TM, co0 = blockIdx.y * TN;
-  if (t0 >= Tq) return;  // uniform over the block
-  const bf16* wr = w + (size_t)r * KT * Co * Ci;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const float* xb = x + (size_t)b * Tin * Ci;
-
-  float acc[4][4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
-
-  for (int ci0 = 0; ci0 < Ci; ci0 += TK) {
-    __syncthreads();
-    for (int i = tid; i < rows_ext * TK; i += kThreads) {
-      const int rr = i / TK, c = i - rr * TK;
-      const int t = t0 + x_off + rr;
-      const float v = (t >= 0 && t < Tin) ? lrelu(xb[(size_t)t * Ci + ci0 + c]) : 0.0f;
-      As[rr * LDS + c] = __float2bfloat16_rn(v);
-    }
-    for (int kk = 0; kk < KT; ++kk) {
-      __syncthreads();
-      const bf16* wk = wr + ((size_t)kk * Co + co0) * Ci + ci0;
-      for (int i = tid; i < TN * TK; i += kThreads) {
-        const int n = i / TK, c = i - n * TK;
-        Bs[n * LDS + c] = wk[(size_t)n * Ci + c];
-      }
-      __syncthreads();
-      const int ra = warp * 16 + g + kk;  // staged row of output row warp*16+g
-#pragma unroll
-      for (int ks = 0; ks < TK; ks += 16) {
-        const int ca = ks + q * 2;
-        const uint32_t a0 = ld32(As + ra * LDS + ca);
-        const uint32_t a1 = ld32(As + (ra + 8) * LDS + ca);
-        const uint32_t a2 = ld32(As + ra * LDS + ca + 8);
-        const uint32_t a3 = ld32(As + (ra + 8) * LDS + ca + 8);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const bf16* bp = Bs + (n * 8 + g) * LDS + ca;
-          mma_bf16(acc[n], a0, a1, a2, a3, ld32(bp), ld32(bp + 8));
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int qq = t0 + warp * 16 + g + hh * 8;
-      if (qq >= Tq) continue;
-      const int t = qq * nphase + r;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int co = co0 + n * 8 + q * 2 + e;
-        const size_t o = ((size_t)b * Tout + t) * Co + co;
-        const float v = acc[n][hh * 2 + e] + bias[co];
-        y[o] = v;
-        if (act != nullptr) act[o] = __float2bfloat16_rn(lrelu(v));
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // mrf_conv: wgmma implicit GEMM fed by TMA (see the top of the file)
@@ -344,8 +244,10 @@ __device__ __forceinline__ void conv_mainloop(float (&acc)[MT][NI / 2], const Ri
 // x 1 batch row; wt: the tiled weights (tile_conv: per N tile of wni
 // channels, slice and tap, wni x KC as [KC/8][wni][8]; wni a multiple of
 // NI); bias (Co) f32; res, acc_in, acc_out, y
-// (B, T, Co) f32 and act (B, T, Co) bf16 where given (mode 0: no acc_out;
-// 1: acc_out = scale v; 2: acc_out = acc_in + scale v). A ring stage holds
+// (B, T, Co) f32 and act (B, T, Co) bf16 where given (mode & 3 = 0: no
+// acc_out; 1: acc_out = scale v; 2: acc_out = acc_in + scale v; mode & 4:
+// acc_out (B, T, Co) bf16 gets that sum's operand, bf16(lrelu(sum)), what
+// the next stage's upsample would compute from it). A ring stage holds
 // the tiles of G consecutive taps of one slice (one bulk copy: small tiles
 // would leave the tensor cores waiting on the ring's barriers), nslot
 // stages.
@@ -507,12 +409,18 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap a_map, const bf16* __restr
         if (y != nullptr) *reinterpret_cast<float2*>(y + o) = make_float2(v0, v1);
         if (act != nullptr)
           *reinterpret_cast<__nv_bfloat162*>(act + o) = __floats2bfloat162_rn(lrelu(v0), lrelu(v1));
-        if (mode == 1) {
-          *reinterpret_cast<float2*>(acc_out + o) = make_float2(scale * v0, scale * v1);
-        } else if (mode == 2) {
-          const float2 av = *reinterpret_cast<const float2*>(acc_in + o);
-          *reinterpret_cast<float2*>(acc_out + o) =
-              make_float2(av.x + scale * v0, av.y + scale * v1);
+        if (mode & 3) {
+          float s0 = scale * v0, s1 = scale * v1;
+          if ((mode & 3) == 2) {
+            const float2 av = *reinterpret_cast<const float2*>(acc_in + o);
+            s0 = av.x + scale * v0;
+            s1 = av.y + scale * v1;
+          }
+          if (mode & 4)
+            *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(acc_out) + o) =
+                __floats2bfloat162_rn(lrelu(s0), lrelu(s1));
+          else
+            *reinterpret_cast<float2*>(acc_out + o) = make_float2(s0, s1);
         }
       }
     }
@@ -624,8 +532,9 @@ int launch_mrf(const void* a, const void* wt, const void* bias, const void* wt2,
                void* act, int B, int T, int Ci, int Co, int K, int dil, int mode, float scale,
                cudaStream_t stream) {
   const bool pair = wt2 != nullptr;
-  if ((mode == 2 && acc_in == nullptr) || (mode != 0 && acc_out == nullptr) || mode < 0 ||
-      mode > 2 || ((uintptr_t)wt & 15) || ((uintptr_t)wt2 & 15) || (pair && bias2 == nullptr))
+  if (((mode & 3) == 2 && acc_in == nullptr) || ((mode & 3) != 0) != (acc_out != nullptr) ||
+      mode < 0 || mode > 6 || (mode & 3) == 3 || ((uintptr_t)wt & 15) || ((uintptr_t)wt2 & 15) ||
+      (pair && bias2 == nullptr))
     return (int)cudaErrorInvalidValue;
   ConvPlan p;
   int err = conv_plan(B, T, Ci, Co, K, dil, pair, &p);
@@ -650,25 +559,24 @@ int launch_mrf(const void* a, const void* wt, const void* bias, const void* wt2,
   return (int)cudaErrorInvalidValue;
 }
 
-int launch_conv_transpose(const void* x, const void* w, const void* bias, void* y, void* act,
-                          int B, int Tin, int Tout, int Ci, int Co, int KT, int nphase, int tpad,
-                          cudaStream_t stream) {
-  if (Ci % TK || Co % TN) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(TM + KT - 1 + TN) * LDS * sizeof(bf16);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  static size_t smem_allowed = 48 * 1024;
-  if (smem > smem_allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        conv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_allowed = smem;
+// a = bf16(lrelu(x)), n values, four a thread (16-byte loads, 8-byte
+// stores); the tail of n % 4 by thread 0 of block 0. Bound by bytes: 6 a
+// value.
+__global__ void __launch_bounds__(256) conv_operand_kernel(const float* __restrict__ x,
+                                                           bf16* __restrict__ a, long long n) {
+  const long long n4 = n / 4;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  uint2* a4 = reinterpret_cast<uint2*>(a);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float4 v = x4[i];
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(lrelu(v.x), lrelu(v.y));
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(lrelu(v.z), lrelu(v.w));
+    a4[i] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                       *reinterpret_cast<const uint32_t*>(&hi));
   }
-  const int tq_max = (Tout + nphase - 1) / nphase;
-  dim3 grid((tq_max + TM - 1) / TM, Co / TN, B * nphase);
-  conv_mma_kernel<<<grid, kThreads, smem, stream>>>((const float*)x, (const bf16*)w,
-                                                    (const float*)bias, (float*)y, (bf16*)act,
-                                                    Tin, Tout, Ci, Co, KT, nphase, tpad);
-  return (int)cudaGetLastError();
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    for (long long i = n4 * 4; i < n; ++i) a[i] = __float2bfloat16_rn(lrelu(x[i]));
 }
 
 }  // namespace
@@ -697,15 +605,13 @@ int t2_mrf_pair(const void* a, const void* wt1, const void* bias1, const void* w
                     mode, scale, (cudaStream_t)stream);
 }
 
-// x (B, Tin, Ci), w (stride, K / stride, Co, Ci) packed per phase:
-// y = ConvTranspose1d(lrelu(x), stride, padding) + bias, and act =
-// bf16(lrelu(y)) where given
-int t2_conv_transpose(const void* x, const void* w, const void* bias, void* y, void* act, int B,
-                      int Tin, int Tout, int Ci, int Co, int K, int stride, int padding,
-                      void* stream) {
-  if (K % stride || padding < 0) return (int)cudaErrorInvalidValue;
-  return launch_conv_transpose(x, w, bias, y, act, B, Tin, Tout, Ci, Co, K / stride, stride,
-                               padding, (cudaStream_t)stream);
+// a = bf16(lrelu(x)), x and a n values, both 16-byte aligned
+int t2_conv_operand(const void* x, void* a, long long n, void* stream) {
+  if (n < 1 || ((uintptr_t)x & 15) || ((uintptr_t)a & 15)) return (int)cudaErrorInvalidValue;
+  const long long blocks = std::min<long long>((n / 4 + 255) / 256 + 1, 8LL * sm_count());
+  conv_operand_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>((const float*)x,
+                                                                         (bf16*)a, n);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

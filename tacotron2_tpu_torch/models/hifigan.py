@@ -21,7 +21,7 @@ from torch import nn
 from tacotron2_tpu_torch.models import layers
 from tacotron2_tpu_torch.models.layers import F32, Policy
 from tacotron2_tpu_torch.models.resblock import ResBlock1, ResBlock2
-from tacotron2_tpu_torch.ops.mrf import mrf_stage, pack_upsample
+from tacotron2_tpu_torch.ops.mrf import mrf_stage, pack_upsample, plain_stage
 
 PACK_CALLS = [0]  # packings of a generator's weights for the kernels: once per model
 
@@ -127,14 +127,23 @@ class HiFiGAN(nn.Module):
         return super().load_state_dict(*args, **kwargs)
 
     @torch.no_grad()
-    def apply(self, mel: torch.Tensor, stage=mrf_stage) -> torch.Tensor:
-        """mel (B, T, num_mels) -> wav (B, T * total_upsample). ``stage``
-        computes each MRF stage: the kernels' wrappers by default, or
-        ``plain_stage`` (the plain version on any device)."""
+    def apply(self, mel: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """mel (B, T, num_mels) -> wav (B, T * total_upsample). Each MRF
+        stage runs through the kernels' wrappers (``mrf_stage``), which pass
+        each stage's output to the next upsample as its bf16 operand alone;
+        ``plain``: the plain reference route instead, each stage computed
+        from its f32 input by ``plain_stage`` (on any device)."""
         pol = self.policy
         x = layers.conv1d(mel, self.conv_pre.weight, self.conv_pre.bias, pol, padding=3)
-        for rbs, ups in self.kernel_weights():
-            x = stage(x.contiguous(), rbs, ups)
+        packed = self.kernel_weights()
+        a = None
+        for i, (rbs, ups) in enumerate(packed):
+            if plain:
+                x = plain_stage(x.contiguous(), rbs, ups)
+            elif i < len(packed) - 1:
+                x, a = None, mrf_stage(x, rbs, ups, a, want_operand=True)
+            else:
+                x = mrf_stage(x, rbs, ups, a)
         x = F.leaky_relu(x, 0.01)
         x = layers.conv1d(x, self.conv_post.weight, self.conv_post.bias, pol, padding=3)
         return torch.tanh(x)[..., 0]

@@ -8,7 +8,11 @@ launch with both LSTM weight blocks resident in VMEM. One H100 SM holds
 227 KB of shared memory, not the 35.7 MB block, so each step here is a few
 kernels over the whole card (``csrc/decode_step.cu``):
 
-- ``prenet``: two Linear+ReLU layers times the dropout masks;
+- ``prenet``: two Linear+ReLU layers times the dropout masks, over a
+  thread-block cluster of ``PRENET_CLUSTER`` blocks per group of rows,
+  each block owning P / 8 units of both layers (their weights from a copy
+  tiled once per model, ``tile_prenet``) and sharing its first layer's
+  output with the others through distributed shared memory;
 - ``lstm_cell`` (twice): the gate GEMM over the concatenated inputs,
   passed as separate pointers, on the tensor cores, with the i/f/g/o
   nonlinearity and the c/h update fused. It streams a copy of the weights
@@ -71,6 +75,9 @@ PACK_CALLS = [0]  # pack_decoder calls: a warm server packs each model once
 ACT_INT8 = torch.bfloat16  # operand type of the products other than the int8 cells
 GATE_UNITS = 16  # hidden units per cluster of the cell kernel (csrc/decode_step.cu GC_U)
 GATE_CHUNK = 128  # bytes of each weight row per streamed chunk
+PRENET_CLUSTER = 8  # blocks of the prenet's cluster (csrc/decode_step.cu PN_S)
+PRENET_THREADS = 256  # threads of a prenet block: rows of its group x units (PN_THREADS)
+PRENET_SMEM = 227 * 1024  # shared memory a block may use
 
 
 def reset_launches() -> None:
@@ -96,6 +103,7 @@ class PackedDecoder(NamedTuple):
     s_dec: Optional[torch.Tensor] = None  # int8 mode: (4H,) f32 scale of each w_dec row
     wt_att: Optional[torch.Tensor] = None  # w_att tiled for the cell kernel (tile_gates)
     wt_dec: Optional[torch.Tensor] = None  # w_dec tiled for the cell kernel
+    wt_prenet: Optional[torch.Tensor] = None  # the prenet's weights tiled (tile_prenet)
 
     @property
     def quantized(self) -> bool:
@@ -165,6 +173,56 @@ def tile_gates(w: torch.Tensor, units: int = GATE_UNITS) -> Optional[torch.Tenso
     return t[:, :, rr, piece].reshape(-1).contiguous()
 
 
+def prenet_units(M: int, P: int) -> int:
+    """Units of both layers a block of the prenet's cluster owns, U = P /
+    PRENET_CLUSTER; its group is PRENET_THREADS / U rows. Raises ValueError
+    for dims the split does not take: U a multiple of 8 (whole 16-byte
+    rows of its weight slice) that divides PRENET_THREADS, M a multiple of
+    4 (the kernel reads 4 inputs a load), and a block's shared memory (its
+    slice, the group's mel and first-layer outputs) within PRENET_SMEM."""
+    U = P // PRENET_CLUSTER
+    if M < 1 or M % 4 or P % PRENET_CLUSTER or U % 8 or PRENET_THREADS % U:
+        raise ValueError(f"the prenet's cluster of {PRENET_CLUSTER} blocks takes P = 8 U with U "
+                         f"a multiple of 8 dividing {PRENET_THREADS} and M a multiple of 4, got "
+                         f"P={P}, M={M}")
+    smem = 16 + (M + P) * U * 2 + (PRENET_THREADS // U) * (M + P) * 4
+    if smem > PRENET_SMEM:
+        raise ValueError(f"the prenet's block would need {smem} bytes of shared memory at "
+                         f"M={M}, P={P}; at most {PRENET_SMEM}")
+    return U
+
+
+def prenet_tile_offset(k, p, M: int, P: int):
+    """Element offset in ``tile_prenet``'s copy of row k of [wp1_t; wp2_t]
+    ((M + P, P), input-major: k < M is layer 1's input k, then layer 2's),
+    column (unit) p: block p // U's slice, (M + P) x U, then [k // 4][p %
+    U][k % 4], so that a unit's 4 consecutive weights are one 8-byte load
+    (the kernel's addressing). Works on ints and on integer tensors."""
+    U = prenet_units(M, P)
+    return (((p // U) * ((M + P) // 4) + k // 4) * U + p % U) * 4 + k % 4
+
+
+def prenet_tiled_shape(M: int, P: int) -> Tuple[int, int, int, int]:
+    """Shape of ``tile_prenet``'s copy."""
+    U = prenet_units(M, P)
+    return P // U, (M + P) // 4, U, 4
+
+
+def tile_prenet(wp1_t: torch.Tensor, wp2_t: torch.Tensor) -> Optional[torch.Tensor]:
+    """The prenet's weights (M, P) and (P, P), input-major, as its kernel's
+    blocks copy them: block r's units [r U, (r + 1) U) of both layers, (M +
+    P) x U, one contiguous run each, shape (P / U, (M + P) / 4, U, 4)
+    (``prenet_tile_offset``). None where the cluster split does not take
+    the dims (``prenet_units``; the plain version needs no copy)."""
+    M, P = wp1_t.shape
+    try:
+        U = prenet_units(M, P)
+    except ValueError:
+        return None
+    w = torch.cat([wp1_t, wp2_t], dim=0).detach()  # (M + P, P)
+    return w.reshape((M + P) // 4, 4, P // U, U).permute(2, 0, 3, 1).contiguous()
+
+
 def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) -> PackedDecoder:
     """Repack the prenet and decoder modules for the kernels; weights in
     ``dtype`` (bf16 on the card), biases in f32. ``quantize``: the two LSTM
@@ -173,7 +231,8 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) ->
     heads' in ``dtype`` with their activations rounded to bf16
     (``ACT_INT8``), as the JAX kernel's int8 mode takes those products.
     The two LSTM blocks also get the cell kernel's tiled copies
-    (``tile_gates``), made here once per pack."""
+    (``tile_gates``) and the prenet its kernel's (``tile_prenet``), made
+    here once per pack."""
     PACK_CALLS[0] += 1
     a, d, att = decoder.att_rnn, decoder.lstm, decoder.attention
     with torch.no_grad():
@@ -190,13 +249,14 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) ->
                 quantize_weights(w_att), quantize_weights(w_dec))
         else:
             w_att, w_dec = cast(w_att), cast(w_dec)
+        wp1_t, wp2_t = cast(prenet[0].weight.t()), cast(prenet[3].weight.t())
         return PackedDecoder(
             w_att=w_att,
             b_att=f32(a.bias_ih + a.bias_hh),
             w_dec=w_dec,
             b_dec=f32(d.bias_ih + d.bias_hh),
-            wp1_t=cast(prenet[0].weight.t()),
-            wp2_t=cast(prenet[3].weight.t()),
+            wp1_t=wp1_t,
+            wp2_t=wp2_t,
             wq=att_cast(att.query_layer.weight),
             w_loc=att_cast(w_loc),
             wv=att_cast(att.v.weight[0]),
@@ -204,6 +264,7 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) ->
             b_out=f32(torch.cat([decoder.mel_out.bias, decoder.gate.bias], dim=0)),
             wt_att=tile_gates(w_att),
             wt_dec=tile_gates(w_dec),
+            wt_prenet=tile_prenet(wp1_t, wp2_t),
             **scales,
         )
 
@@ -319,7 +380,7 @@ I = ctypes.c_int
 def bind(lib):
     """Declare the C entry points of a loaded ``csrc/decode_step.cu`` (the
     build's, or a copy's for an A/B on the card) -> lib."""
-    lib.t2_prenet.argtypes = [P] * 6 + [I] * 3 + [P]
+    lib.t2_prenet.argtypes = [P] * 5 + [I] * 3 + [P]
     lib.t2_lstm_cell.argtypes = [P, P, P, I, P, I, P, I, P, P, P, I, I, P]
     lib.t2_quantize_xh.argtypes = [P, I, P, I, P, I, P, P, I, P]
     lib.t2_lstm_cell_int8.argtypes = [P, P, P, P, P, I, I, I, P, P, P, I, I, P]
@@ -343,23 +404,27 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def prenet(mel, wp1_t, wp2_t, m1, m2):
-    """(B, M) previous mel -> (B, P) prenet output with dropout masks."""
+def prenet(mel, wp1_t, wp2_t, m1, m2, wt=None):
+    """(B, M) previous mel -> (B, P) prenet output with dropout masks. On
+    the card the kernel reads ``wt``, the tiled copy of both weights
+    (``tile_prenet``, the pack's ``wt_prenet``)."""
     if mel.device.type == "cpu":
         return prenet_plain(mel, wp1_t, wp2_t, m1, m2)
     B, M = mel.shape
     Pd = wp2_t.shape[0]
+    prenet_units(M, Pd)  # raises for dims the cluster split does not take
+    if wt is None:
+        raise ValueError("prenet: the kernel reads the tiled copy of its weights (tile_prenet, "
+                         "the pack's wt_prenet); none was given")
     bf = torch.bfloat16
     build.require(mel, torch.float32, (B, M), "mel")
-    build.require(wp1_t, bf, (M, Pd), "wp1_t")
-    build.require(wp2_t, bf, (Pd, Pd), "wp2_t")
+    build.require(wt, bf, prenet_tiled_shape(M, Pd), "wt")
     build.require(m1, torch.float32, (B, Pd), "m1")
     build.require(m2, torch.float32, (B, Pd), "m2")
     out = torch.empty(B, Pd, device=mel.device)
     build.count(LAUNCHES, "prenet")
-    build.check(_lib().t2_prenet(mel.data_ptr(), wp1_t.data_ptr(), wp2_t.data_ptr(),
-                                 m1.data_ptr(), m2.data_ptr(), out.data_ptr(),
-                                 B, M, Pd, _stream()), "prenet")
+    build.check(_lib().t2_prenet(mel.data_ptr(), wt.data_ptr(), m1.data_ptr(), m2.data_ptr(),
+                                 out.data_ptr(), B, M, Pd, _stream()), "prenet")
     return out
 
 
@@ -561,7 +626,8 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     On the card this is one host call (``t2_decode_chunk``) that launches
     the four kernels five times per step, the two LSTM cells on K5 (each
     after a ``quantize_xh`` launch: seven a step) when the pack is int8,
-    over the pack's tiled weight copies; each launch is counted."""
+    over the pack's tiled weight copies (the cells' and the prenet's);
+    each launch is counted."""
     if encoded.device.type == "cpu":
         return decode_chunk_plain(pk, encoded, att_enc, lengths, s, m1, m2)
     n, B, Pd = m1.shape
@@ -575,6 +641,8 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     if pk.wt_att is None or pk.wt_dec is None:
         raise ValueError("the pack has no tiled copies of its LSTM weights (tile_gates takes "
                          f"H a multiple of {GATE_UNITS}; got H={H})")
+    if pk.wt_prenet is None:
+        raise ValueError("the pack has no tiled copy of its prenet weights (tile_prenet)")
     esize = 1 if pk.quantized else 2
     for name, t, dt, shape in (
         ("w_att", pk.w_att, lstm_dt, (4 * H, Pd + D + H)), ("b_att", pk.b_att, f32, (4 * H,)),
@@ -591,6 +659,7 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
         ("rnn_h", s.rnn_h, f32, (B, H)), ("rnn_c", s.rnn_c, f32, (B, H)),
         ("wt_att", pk.wt_att, torch.uint8, (tiled_bytes(H, (Pd + D + H) * esize),)),
         ("wt_dec", pk.wt_dec, torch.uint8, (tiled_bytes(H, (2 * H + D) * esize),)),
+        ("wt_prenet", pk.wt_prenet, bf, prenet_tiled_shape(M, Pd)),
     ) + scales:
         build.require(t, dt, shape, name)
     dev = encoded.device
@@ -617,9 +686,10 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     tensors = (*pk[:11], att_enc, encoded, lengths, m1, m2, *s, mel_gate, aligns, x,
                pp["att_h"], pp["att_c"], pp["ctx"], pp["att_cum"], pp["rnn_h"], pp["rnn_c"])
     ptr = lambda t: None if t is None else t.data_ptr()
-    ptrs = (ctypes.c_void_p * 43)(*(t.data_ptr() for t in tensors), ptr(pk.s_att),
+    ptrs = (ctypes.c_void_p * 44)(*(t.data_ptr() for t in tensors), ptr(pk.s_att),
                                   ptr(pk.s_dec), pk.wt_att.data_ptr(), pk.wt_dec.data_ptr(),
-                                  *(ptr(t) for t in operands), *(ptr(t) for t in quantized))
+                                  *(ptr(t) for t in operands), *(ptr(t) for t in quantized),
+                                  pk.wt_prenet.data_ptr())
     dims = (ctypes.c_int * 11)(n, B, M, Pd, H, D, L, A, K, int(pk.quantized),
                                location_cluster_size(L, H, A, D, K))
     build.count(LAUNCHES, "prenet", n)

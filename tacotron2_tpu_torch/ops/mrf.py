@@ -1,5 +1,6 @@
-"""HiFi-GAN MRF stage: kernel K2 (a dilated-conv kernel and a
-transposed-conv kernel, ``csrc/mrf.cu``) and its plain version.
+"""HiFi-GAN MRF stage: kernel K2 (a dilated-conv kernel, which also runs
+the upsample, and the stage input's operand, ``csrc/mrf.cu``) and its
+plain version.
 
 Replaces the TPU kernels of ``tacotron2_tpu/ops/mrf_pallas.py``:
 ``_make_stage_kernel`` (the MRF alone, via ``_mrf_stage_call``),
@@ -46,10 +47,18 @@ kernel: the first conv over the block's rows and the second conv's halo,
 its operand kept in shared memory, then the second conv; its outputs equal
 the two launches' bit for bit. ``mrf_stage`` fuses every pair it takes:
 45 launches a UNIVERSAL_V1 vocode instead of 72.
-``conv_transpose`` runs on an ``mma.sync`` kernel: a transposed conv of
-stride u is u plain convs of k/u taps, one per output phase, written with
-stride u (``make_upsample`` packs the taps); it also writes its output's
-operand.
+
+``conv_transpose`` runs on the same kernel. A transposed conv of stride u,
+kernel k and padding (k - u) / 2 has Tout = u Tin, and its output sample
+q u + r reads input rows q - 1, q, q + 1 at most (every HiFi-GAN config
+has k = 2u), so in channels-last it is the same memory as a SAME 3-tap
+conv from Ci to u Co channels, (B, Tin, u Co) (``fold_upsample``; the tap
+a phase does not reach is zero: 1.5x the transposed conv's flops, as the
+TPU kernel's u-folded layout, ``mrf_pallas.py:319``). It reads the bf16
+operand of its input like every conv: stage 1's from ``conv_operand`` (one
+elementwise launch a vocode; ``conv_pre`` stays stock PyTorch), stages
+2-4's from the previous stage's last conv, whose epilogue writes the stage
+mean as that operand (``acc_act``) instead of f32, which nothing else reads.
 
 Each wrapper runs its plain PyTorch version for CPU tensors only; a CUDA
 tensor launches the kernel or raises.
@@ -67,7 +76,7 @@ from tacotron2_tpu_torch.models import layers
 from tacotron2_tpu_torch.ops import build
 
 LRELU_SLOPE = 0.1
-LAUNCHES = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0}
+LAUNCHES = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0, "conv_operand": 0}
 
 
 def reset_launches() -> None:
@@ -87,7 +96,9 @@ class UpsampleWeights(NamedTuple):
     b: torch.Tensor  # (Co,) f32
     stride: int
     padding: int
-    w_phase: torch.Tensor  # (stride, K / stride, Co, Ci): the kernel's per-phase taps
+    # the same map as a SAME conv to stride * Co channels, the kernel's
+    # (fold_upsample); None where the shape does not fold
+    folded: Optional[ConvWeights] = None
 
 
 # one resblock = a list of (conv, second conv or None) per dilation:
@@ -144,23 +155,51 @@ def pack_conv(conv, dtype: torch.dtype) -> ConvWeights:
     return ConvWeights(w, conv.bias.detach().float().contiguous(), int(conv.dilation[0]), wt)
 
 
+def fold_reach(K: int, stride: int, padding: int) -> Optional[int]:
+    """Input rows on each side that a transposed conv's output row reads,
+    where it folds into a SAME conv (``fold_upsample``), else None. Output
+    sample t = q u + r (phase r, u = stride) takes the taps m = j u + beta
+    from input rows q + alpha - j, j < K / u, with alpha, beta = divmod(r +
+    padding, u); it folds where Tout = u Tin (K - 2 padding = u) and the
+    phases' rows together are a window centred on q."""
+    if stride < 1 or padding < 0 or K % stride or K - 2 * padding != stride:
+        return None
+    alphas = [(r + padding) // stride for r in range(stride)]
+    lo, hi = min(alphas) - K // stride + 1, max(alphas)
+    return hi if lo == -hi else None
+
+
+def fold_upsample(w: torch.Tensor, b: torch.Tensor, stride: int, padding: int) -> ConvWeights:
+    """Transposed-conv weights, tap-major (K, Ci, Co) -> the SAME conv of
+    2 R + 1 taps (R = ``fold_reach``, 1 for k = 2u) from Ci to u Co
+    channels whose (B, Tin, u Co) output is the transposed conv's (B, u
+    Tin, Co) output in memory: tap R + alpha - j of output channel r Co +
+    co is w[j u + beta, :, co] (phase r, as ``fold_reach``), every other tap
+    zero; the bias tiled u times; the kernel's tiled copy where the
+    channels take it. Raises ValueError where the shape does not fold."""
+    K, Ci, Co = w.shape
+    reach = fold_reach(K, stride, padding)
+    if reach is None:
+        raise ValueError(f"a transposed conv of kernel {K}, stride {stride}, padding {padding} "
+                         "does not fold into a SAME conv (it needs kernel % stride == 0, "
+                         "kernel - 2 padding == stride and a centred window)")
+    wf = w.new_zeros(2 * reach + 1, stride, Co, Ci)
+    for r in range(stride):
+        alpha, beta = divmod(r + padding, stride)
+        for j in range(K // stride):
+            wf[reach + alpha - j, r] = w[j * stride + beta].t()
+    wf = wf.reshape(2 * reach + 1, stride * Co, Ci).contiguous()
+    wt = tile_conv(wf) if (stride * Co) % 32 == 0 and Ci % 32 == 0 else None
+    return ConvWeights(wf, b.float().repeat(stride).contiguous(), 1, wt)
+
+
 def make_upsample(w: torch.Tensor, b: torch.Tensor, stride: int,
                   padding: int) -> UpsampleWeights:
-    """Transposed-conv weights from the tap-major (K, Ci, Co) layout.
-
-    Output sample t = q * stride + r is reached by the taps m = m0 + i *
-    stride, m0 = (r + padding) % stride, from input q + (r + padding - m) /
-    stride; so phase r is a plain conv of K / stride taps, stored for the
-    kernel in order of increasing input row: w_phase[r, j] = w[m0 + (K /
-    stride - 1 - j) * stride]^T."""
-    K = w.shape[0]
-    if K % stride:
-        raise ValueError(f"transposed conv needs kernel % stride == 0, got {K}, {stride}")
-    kt = K // stride
-    taps = [[(r + padding) % stride + (kt - 1 - j) * stride for j in range(kt)]
-            for r in range(stride)]
-    w_phase = w[torch.tensor(taps)].permute(0, 1, 3, 2).contiguous()  # (u, kt, Co, Ci)
-    return UpsampleWeights(w.contiguous(), b.float().contiguous(), stride, padding, w_phase)
+    """Transposed-conv weights from the tap-major (K, Ci, Co) layout, with
+    the folded conv where the shape folds."""
+    folded = (fold_upsample(w, b, stride, padding)
+              if fold_reach(w.shape[0], stride, padding) is not None else None)
+    return UpsampleWeights(w.contiguous(), b.float().contiguous(), stride, padding, folded)
 
 
 def pack_upsample(convt, dtype: torch.dtype) -> UpsampleWeights:
@@ -181,10 +220,12 @@ def operand(x, dtype: torch.dtype):
 
 
 def mrf_conv_plain(a, cw: ConvWeights, res=None, acc=None, acc_scale: float = 0.0,
-                   want_y: bool = True, want_act: bool = False):
+                   want_y: bool = True, want_act: bool = False, acc_act: bool = False):
     """From the operand ``a = operand(x, w.dtype)``: v = conv(a) + b (+ res),
     SAME padding with dilation -> (v or None, operand(v) or None, acc +
-    acc_scale * v or None), the last None when acc_scale == 0."""
+    acc_scale * v or None), the last None when acc_scale == 0; with
+    ``acc_act`` the last is that sum's operand (the next stage's upsample
+    reads only it), not the sum."""
     v = layers.conv1d(a.float(), cw.w.float().permute(1, 2, 0), cw.b, padding="SAME",
                       dilation=cw.dilation)
     if res is not None:
@@ -192,15 +233,18 @@ def mrf_conv_plain(a, cw: ConvWeights, res=None, acc=None, acc_scale: float = 0.
     acc_out = None
     if acc_scale != 0.0:
         acc_out = acc_scale * v if acc is None else acc + acc_scale * v
+        if acc_act:
+            acc_out = operand(acc_out, cw.w.dtype)
     return (v if want_y else None, operand(v, cw.w.dtype) if want_act else None, acc_out)
 
 
 def mrf_pair_plain(a, c1: ConvWeights, c2: ConvWeights, res=None, acc=None,
-                   acc_scale: float = 0.0, want_y: bool = True, want_act: bool = False):
+                   acc_scale: float = 0.0, want_y: bool = True, want_act: bool = False,
+                   acc_act: bool = False):
     """A ResBlock1 pair from the operand ``a``: ``mrf_conv_plain`` of c2 on
     the operand of c1's output, with c2's epilogue."""
     _, at, _ = mrf_conv_plain(a, c1, want_y=False, want_act=True)
-    return mrf_conv_plain(at, c2, res, acc, acc_scale, want_y, want_act)
+    return mrf_conv_plain(at, c2, res, acc, acc_scale, want_y, want_act, acc_act)
 
 
 def pair_fusable(c1: ConvWeights, c2: Optional[ConvWeights]) -> bool:
@@ -212,12 +256,17 @@ def pair_fusable(c1: ConvWeights, c2: Optional[ConvWeights]) -> bool:
     return Co == Ci and Co % 32 == 0 and conv_tiles(Co, Ci)[0] == Co
 
 
-def conv_transpose_plain(x, uw: UpsampleWeights, want_act: bool = False):
-    """ConvTranspose1d(lrelu(x)) over channels-last x -> (y, operand(y) or
-    None)."""
-    y = layers.conv_transpose1d(operand(x, uw.w.dtype).float(), uw.w.float().permute(1, 2, 0),
-                                uw.b, uw.stride, uw.padding)
+def conv_transpose_plain(a, uw: UpsampleWeights, want_act: bool = False):
+    """From the operand ``a = operand(x, w.dtype)``, channels-last:
+    y = ConvTranspose1d(a) + b -> (y, operand(y) or None)."""
+    y = layers.conv_transpose1d(a.float(), uw.w.float().permute(1, 2, 0), uw.b, uw.stride,
+                                uw.padding)
     return y, (operand(y, uw.w.dtype) if want_act else None)
+
+
+def conv_operand_plain(x, dtype: torch.dtype):
+    """The operand of the vocoder's first upsample: ``operand(x, dtype)``."""
+    return operand(x, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -233,8 +282,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a loaded build of ``csrc/mrf.cu``."""
     lib.t2_mrf_conv.argtypes = [P] * 8 + [I] * 7 + [ctypes.c_float, P]
     lib.t2_mrf_pair.argtypes = [P] * 10 + [I] * 6 + [ctypes.c_float, P]
-    lib.t2_conv_transpose.argtypes = [P] * 5 + [I] * 8 + [P]
-    for fn in (lib.t2_mrf_conv, lib.t2_mrf_pair, lib.t2_conv_transpose):
+    lib.t2_conv_operand.argtypes = [P, P, ctypes.c_longlong, P]
+    for fn in (lib.t2_mrf_conv, lib.t2_mrf_pair, lib.t2_conv_operand):
         fn.restype = I
     return lib
 
@@ -246,6 +295,10 @@ def _lib():
     return _LIB
 
 
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
 def _require_conv(cw: ConvWeights, Ci: int, name: str):
     K, Co, _ = cw.w.shape
     if cw.wt is None:
@@ -255,8 +308,9 @@ def _require_conv(cw: ConvWeights, Ci: int, name: str):
     build.require(cw.b, torch.float32, (Co,), f"{name}.b")
 
 
-def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act):
-    """``mrf_conv`` (c2 None) or ``mrf_pair``: check, allocate, launch."""
+def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act=False):
+    """``mrf_conv`` (c2 None; also ``conv_transpose``'s folded conv) or
+    ``mrf_pair``: check, allocate, launch."""
     B, T, Ci = a.shape
     K, Co, _ = c1.w.shape
     bf = torch.bfloat16
@@ -276,10 +330,11 @@ def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act):
         raise ValueError(f"{name}: no output asked for")
     y = torch.empty(B, T, Co, device=a.device) if want_y else None
     act = torch.empty(B, T, Co, device=a.device, dtype=bf) if want_act else None
-    acc_out = torch.empty(B, T, Co, device=a.device) if acc_scale != 0.0 else None
-    mode = 0 if acc_out is None else (1 if acc is None else 2)
+    acc_out = (torch.empty(B, T, Co, device=a.device, dtype=bf if acc_act else torch.float32)
+               if acc_scale != 0.0 else None)
+    mode = 0 if acc_out is None else (1 if acc is None else 2) + (4 if acc_act else 0)
     ptr = lambda t: 0 if t is None else t.data_ptr()
-    stream = torch.cuda.current_stream().cuda_stream
+    stream = _stream()
     build.count(LAUNCHES, name)
     if c2 is None:
         err = _lib().t2_mrf_conv(a.data_ptr(), c1.wt.data_ptr(), c1.b.data_ptr(), ptr(res),
@@ -295,43 +350,57 @@ def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act):
 
 
 def mrf_conv(a, cw: ConvWeights, res=None, acc=None, acc_scale: float = 0.0,
-             want_y: bool = True, want_act: bool = False):
+             want_y: bool = True, want_act: bool = False, acc_act: bool = False):
     """Dilated SAME conv of the bf16 operand ``a`` with the bias, residual,
     next-operand and stage-mean epilogue; see ``mrf_conv_plain``."""
     if a.device.type == "cpu":
-        return mrf_conv_plain(a, cw, res, acc, acc_scale, want_y, want_act)
-    return _launch_conv("mrf_conv", a, cw, None, res, acc, acc_scale, want_y, want_act)
+        return mrf_conv_plain(a, cw, res, acc, acc_scale, want_y, want_act, acc_act)
+    return _launch_conv("mrf_conv", a, cw, None, res, acc, acc_scale, want_y, want_act,
+                        acc_act)
 
 
 def mrf_pair(a, c1: ConvWeights, c2: ConvWeights, res=None, acc=None, acc_scale: float = 0.0,
-             want_y: bool = True, want_act: bool = False):
+             want_y: bool = True, want_act: bool = False, acc_act: bool = False):
     """A ResBlock1 pair in one launch, its intermediate kept in shared
     memory; see ``mrf_pair_plain``."""
     if a.device.type == "cpu":
-        return mrf_pair_plain(a, c1, c2, res, acc, acc_scale, want_y, want_act)
-    return _launch_conv("mrf_pair", a, c1, c2, res, acc, acc_scale, want_y, want_act)
+        return mrf_pair_plain(a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act)
+    return _launch_conv("mrf_pair", a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act)
 
 
-def conv_transpose(x, uw: UpsampleWeights, want_act: bool = False):
-    """ConvTranspose1d(lrelu(x)) -> (y, operand(y) or None); see
-    ``conv_transpose_plain``."""
+def conv_transpose(a, uw: UpsampleWeights, want_act: bool = False):
+    """ConvTranspose1d of the bf16 operand ``a`` (B, Tin, Ci) -> (y (B, u
+    Tin, Co) f32, operand(y) or None): one ``mrf_conv`` launch of the folded
+    conv (``fold_upsample``), its outputs viewed as the transposed conv's;
+    see ``conv_transpose_plain``."""
+    if a.device.type == "cpu":
+        return conv_transpose_plain(a, uw, want_act)
+    K, Ci, Co = uw.w.shape
+    if uw.folded is None or uw.folded.wt is None:
+        raise ValueError(f"conv_transpose runs the folded conv: kernel {K}, stride {uw.stride}, "
+                         f"padding {uw.padding}, {Ci} -> {Co} channels has none (fold_upsample, "
+                         "tile_conv)")
+    B, Tin, _ = a.shape
+    y, act, _ = _launch_conv("conv_transpose", a, uw.folded, None, None, None, 0.0, True,
+                             want_act)
+    Tout = Tin * uw.stride
+    return y.view(B, Tout, Co), (None if act is None else act.view(B, Tout, Co))
+
+
+def conv_operand(x, dtype: torch.dtype = torch.bfloat16):
+    """The operand ``operand(x, dtype)`` of a stage input that no kernel
+    wrote (the vocoder's ``conv_pre`` output), by one elementwise launch;
+    see ``conv_operand_plain``."""
     if x.device.type == "cpu":
-        return conv_transpose_plain(x, uw, want_act)
-    B, Tin, Ci = x.shape
-    K, _, Co = uw.w.shape
-    u = uw.stride
-    build.require(x, torch.float32, (B, Tin, Ci), "x")
-    build.require(uw.w_phase, torch.bfloat16, (u, K // u, Co, Ci), "w_phase")
-    build.require(uw.b, torch.float32, (Co,), "b")
-    Tout = (Tin - 1) * uw.stride - 2 * uw.padding + K
-    y = torch.empty(B, Tout, Co, device=x.device)
-    act = torch.empty(B, Tout, Co, device=x.device, dtype=torch.bfloat16) if want_act else None
-    build.count(LAUNCHES, "conv_transpose")
-    build.check(_lib().t2_conv_transpose(
-        x.data_ptr(), uw.w_phase.data_ptr(), uw.b.data_ptr(), y.data_ptr(),
-        0 if act is None else act.data_ptr(), B, Tin, Tout, Ci, Co, K, uw.stride, uw.padding,
-        torch.cuda.current_stream().cuda_stream), "conv_transpose")
-    return y, act
+        return conv_operand_plain(x, dtype)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"conv_operand writes bf16 operands, got {dtype}")
+    build.require(x, torch.float32, tuple(x.shape), "x")
+    a = torch.empty(x.shape, device=x.device, dtype=dtype)
+    build.count(LAUNCHES, "conv_operand")
+    build.check(_lib().t2_conv_operand(x.data_ptr(), a.data_ptr(), x.numel(), _stream()),
+                "conv_operand")
+    return a
 
 
 # ---------------------------------------------------------------------------
@@ -340,28 +409,36 @@ def conv_transpose(x, uw: UpsampleWeights, want_act: bool = False):
 
 
 def run_stage(x, resblocks: Sequence[ResBlockWeights],
-              upsample: Optional[UpsampleWeights], conv, conv_t, pair=None):
+              upsample: Optional[UpsampleWeights], conv, conv_t, pair=None, a=None,
+              want_operand: bool = False):
     """The stage over the given conv callables (the wrappers, their plain
     versions, or timing hooks that call them), passing each conv's operand
     to the next: a ResBlock1 pair's intermediate as its operand only, the
     residual stream as f32 and operand, and the last conv of a resblock as
     its share of the stage mean only; ``pair``, where given, runs each
-    ResBlock1 pair that ``pair_fusable`` takes as one call. A stage without
-    its upsample makes its first operand with ``operand`` (PyTorch; the
-    vocoder always runs the upsample, whose kernel writes it)."""
-    if upsample is not None:
-        x, a = conv_t(x, upsample, want_act=True)
-    else:
+    ResBlock1 pair that ``pair_fusable`` takes as one call.
+
+    ``a``: the operand of the stage input ``x``, where its producer wrote
+    it; the upsample reads only it (x may then be None). Else it is made
+    here with ``operand`` (PyTorch: the plain dataflow; ``mrf_stage`` makes
+    it by kernel). -> the stage mean (f32), or with ``want_operand`` the
+    mean's operand alone, the next stage's upsample's input: the last conv
+    writes that instead of the f32 mean."""
+    if a is None:
         x = x.contiguous()
         a = operand(x, resblocks[0][0][0].w.dtype)
+    if upsample is not None:
+        x, a = conv_t(a, upsample, want_act=True)
     scale = 1.0 / len(resblocks)
     acc = None
-    for rb in resblocks:
+    for i, rb in enumerate(resblocks):
         z, az = x, a
         for j, (c1, c2) in enumerate(rb):
             last = j == len(rb) - 1
             tail = dict(res=z, acc=acc, acc_scale=scale if last else 0.0, want_y=not last,
                         want_act=not last)
+            if last and want_operand and i == len(resblocks) - 1:
+                tail["acc_act"] = True
             if pair is not None and pair_fusable(c1, c2):
                 z, az, out = pair(az, c1, c2, **tail)
                 continue
@@ -373,17 +450,24 @@ def run_stage(x, resblocks: Sequence[ResBlockWeights],
 
 
 def mrf_stage(x, resblocks: Sequence[ResBlockWeights],
-              upsample: Optional[UpsampleWeights] = None):
-    """``[lrelu -> ConvTranspose1d] -> mean over resblocks`` on (B, T, C)."""
-    return run_stage(x, resblocks, upsample, mrf_conv, conv_transpose, mrf_pair)
+              upsample: Optional[UpsampleWeights] = None, a=None, want_operand: bool = False):
+    """``[lrelu -> ConvTranspose1d] -> mean over resblocks`` on (B, T, C)
+    through the kernels; ``a`` and ``want_operand`` as ``run_stage``. A
+    stage with its upsample and no ``a`` makes the operand of ``x`` by
+    ``conv_operand``."""
+    if a is None and upsample is not None:
+        a = conv_operand(x.contiguous(), upsample.w.dtype)
+    return run_stage(x, resblocks, upsample, mrf_conv, conv_transpose, mrf_pair, a,
+                     want_operand)
 
 
 def side_output_stage(x, resblocks: Sequence[ResBlockWeights],
-                      upsample: Optional[UpsampleWeights] = None):
+                      upsample: Optional[UpsampleWeights] = None, a=None):
     """``mrf_stage``'s dataflow (operands passed between convs) through the
-    plain versions, on any device; equal to ``plain_stage`` bit for bit."""
+    plain versions, on any device; ``a`` as ``run_stage``. Equal to
+    ``plain_stage`` bit for bit (on an input whose operand is ``a``)."""
     return run_stage(x, resblocks, upsample, mrf_conv_plain, conv_transpose_plain,
-                     mrf_pair_plain)
+                     mrf_pair_plain, a)
 
 
 def _conv_ref(x, cw: ConvWeights, res=None):
@@ -398,7 +482,7 @@ def plain_stage(x, resblocks: Sequence[ResBlockWeights],
     takes the rounded ``lrelu`` of its f32 input (the JAX kernels'
     prologue), every activation is f32."""
     if upsample is not None:
-        x = conv_transpose_plain(x, upsample)[0]
+        x = conv_transpose_plain(operand(x, upsample.w.dtype), upsample)[0]
     scale = 1.0 / len(resblocks)
     acc = None
     for rb in resblocks:

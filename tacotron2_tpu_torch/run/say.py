@@ -31,7 +31,6 @@ from tacotron2_tpu_torch.convert import (load_hifigan_checkpoint, load_strict,
 from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
 from tacotron2_tpu_torch.models.layers import F32, Policy, resolve_device, use_f32_math
 from tacotron2_tpu_torch.models.tacotron2 import Tacotron2, Tacotron2Config
-from tacotron2_tpu_torch.ops.mrf import mrf_stage
 from tacotron2_tpu_torch.text.cleaners import normalize_text
 from tacotron2_tpu_torch.text.encoder import CharEncoder
 
@@ -84,7 +83,7 @@ def vocode_bucket(hifigan: HiFiGAN, cut: int) -> int:
 
 
 def cut_vocode(hifigan: HiFiGAN, mels_post: torch.Tensor, row_idx: Sequence[int],
-               cuts: Sequence[int], Tb: int, stage=mrf_stage) -> torch.Tensor:
+               cuts: Sequence[int], Tb: int, plain: bool = False) -> torch.Tensor:
     """Rows ``row_idx`` of ``mels_post`` (B, T, M), each cut at its ``cuts``
     frames, through one HiFi-GAN call -> int16 PCM (len(row_idx), Tb * hop)
     on the device (JAX ``run/common.py::jitted_cut_vocoder``).
@@ -94,14 +93,14 @@ def cut_vocode(hifigan: HiFiGAN, mels_post: torch.Tensor, row_idx: Sequence[int]
     row with cut 0 is all zero (the server's padding rows). Row i's first
     cuts[i] * hop samples are its audio, the same whatever bucket and rows
     it shares the call with. The clip to [-1, 1 - 1/32768] and the x32768
-    int16 cast truncate toward zero, as the WAV writer does. ``stage``
-    computes each MRF stage (see ``HiFiGAN.apply``)."""
+    int16 cast truncate toward zero, as the WAV writer does. ``plain``:
+    the vocoder's plain reference route (see ``HiFiGAN.apply``)."""
     dev = mels_post.device
     m = mels_post[torch.as_tensor(list(row_idx), device=dev), :Tb]
     if m.shape[1] < Tb:
         m = torch.nn.functional.pad(m, (0, 0, 0, Tb - m.shape[1]))
     keep = torch.arange(Tb, device=dev)[None, :] < torch.as_tensor(list(cuts), device=dev)[:, None]
-    wav = hifigan.apply(m * keep[..., None], stage)
+    wav = hifigan.apply(m * keep[..., None], plain)
     return (wav.clamp(-1.0, 1.0 - 1.0 / 32768.0) * 32768.0).to(torch.int16)
 
 

@@ -1,10 +1,12 @@
-"""The LSTM cells' host side on the CPU (no card, no JAX): the tiled weight
-copy that K1's ``lstm_cell`` and K5's ``lstm_cell_int8`` stream
-(``tile_gates``, read back through ``gate_tile_offset``, the kernel's
-addressing), the pack that makes it once per model, the wrappers' checks,
-the C entry points' arities and the A/B constants against the source, and
-the launches ``decode_chunk`` counts against what its host call
-launches."""
+"""The LSTM cells' and the prenet's host side on the CPU (no card, no
+JAX): the tiled weight copies that K1's ``lstm_cell`` and K5's
+``lstm_cell_int8`` stream (``tile_gates``, read back through
+``gate_tile_offset``, the kernel's addressing) and that the prenet's
+cluster copies (``tile_prenet``, ``prenet_tile_offset``), the pack that
+makes them once per model, the wrappers' checks (the dims the prenet's
+cluster split takes), the C entry points' arities and the constants
+against the source, and the launches ``decode_chunk`` counts against what
+its host call launches."""
 
 import numpy as np
 import pytest
@@ -66,14 +68,16 @@ def test_constants_mirror_the_kernel():
 
 
 def test_ab_constants_are_in_the_source():
-    """The cell kernel's launch constant that ``chip_smoke.py --k1-ab``
-    rewrites in its copies of the source (``cell_ab``) is defined once, as
-    it matches it."""
+    """The source lines that ``chip_smoke.py --k1-ab`` rewrites in its
+    copies of the source (``cell_ab``: the prenet's rows a cluster; the
+    cells' prefetch, measured so before) occur once, as its patterns match
+    them."""
     import re
     from pathlib import Path
 
     src = (Path(dl.__file__).parents[1] / "csrc" / "decode_step.cu").read_text()
-    assert len(re.findall(r"constexpr int GC_PREFETCH = \d+;", src)) == 1
+    for pattern in (r"constexpr int GC_PREFETCH = \d+;", r"constexpr int PN_THREADS = \d+;"):
+        assert len(re.findall(pattern, src)) == 1, pattern
 
 
 def test_gate_tiles_need_whole_clusters():
@@ -81,10 +85,10 @@ def test_gate_tiles_need_whole_clusters():
     assert dl.tile_gates(torch.zeros(4 * 40, 64, dtype=torch.bfloat16)) is None
 
 
-def _model(att_rnn_dim=32, seed=0):
+def _model(att_rnn_dim=32, seed=0, prenet_dim=16):
     torch.manual_seed(seed)
     cfg = Tacotron2Config(num_chars=20, encoded_dim=16, encoder_kernel_size=5, num_mels=8,
-                          prenet_dim=16, att_rnn_dim=att_rnn_dim, att_dim=8,
+                          prenet_dim=prenet_dim, att_rnn_dim=att_rnn_dim, att_dim=8,
                           rnn_hidden_dim=att_rnn_dim, postnet_dim=16, dropout=0.5)
     return Tacotron2(cfg, Policy(torch.bfloat16)).eval()
 
@@ -123,6 +127,73 @@ def test_cpu_cells_ignore_the_copy():
         assert all(torch.equal(x, y) for x, y in zip(got, ref))
 
 
+@pytest.mark.parametrize("M,P", [(80, 256), (8, 64), (16, 128), (80, 512), (80, 2048 // 8)])
+def test_prenet_tiles_read_back(M, P):
+    """Every weight of both prenet layers read from ``tile_prenet``'s copy
+    at ``prenet_tile_offset`` is the weight; block r's slice (units r U ..
+    r U + U - 1 of both layers, layer 1's rows first) is one contiguous
+    run with a unit's 4 consecutive weights side by side, and the copy
+    holds nothing else."""
+    g = torch.Generator().manual_seed(M + P)
+    w1, w2 = (torch.randn(M, P, generator=g).to(torch.bfloat16),
+              torch.randn(P, P, generator=g).to(torch.bfloat16))
+    wt = dl.tile_prenet(w1, w2)
+    U = dl.prenet_units(M, P)
+    assert U == P // dl.PRENET_CLUSTER
+    assert wt.shape == dl.prenet_tiled_shape(M, P) == (dl.PRENET_CLUSTER, (M + P) // 4, U, 4)
+    w = torch.cat([w1, w2])
+    k = torch.arange(M + P)[:, None].expand(M + P, P)
+    p = torch.arange(P)[None, :].expand(M + P, P)
+    off = dl.prenet_tile_offset(k, p, M, P)
+    assert torch.equal(wt.reshape(-1)[off], w) and off.unique().numel() == wt.numel()
+    for r in (0, dl.PRENET_CLUSTER - 1):
+        assert torch.equal(wt[r].permute(0, 2, 1).reshape(M + P, U), w[:, r * U:(r + 1) * U])
+        assert dl.prenet_tile_offset(0, r * U, M, P) == r * (M + P) * U
+        assert dl.prenet_tile_offset(5, r * U + 1, M, P) == r * (M + P) * U + (U + 1) * 4 + 1
+
+
+@pytest.mark.parametrize("M,P", [(80, 16), (80, 96), (80, 100), (80, 2048), (100000, 64),
+                                 (78, 256)])
+def test_prenet_refuses_dims_the_split_does_not_take(M, P):
+    """The cluster of 8 blocks takes P = 8 U, U a multiple of 8 dividing
+    256, M a multiple of 4, within a block's shared memory: otherwise no
+    tiled copy, and the wrapper refuses before anything is launched."""
+    with pytest.raises(ValueError, match="prenet"):
+        dl.prenet_units(M, P)
+    bf = torch.bfloat16
+    assert dl.tile_prenet(torch.zeros(M, P, dtype=bf), torch.zeros(P, P, dtype=bf)) is None
+    before = dict(dl.LAUNCHES)
+    with pytest.raises(ValueError, match="prenet"):
+        dl.prenet(_meta(1, M), _meta(M, P, dtype=bf), _meta(P, P, dtype=bf), _meta(1, P),
+                  _meta(1, P), _meta(8, M + P, max(1, P // 8), dtype=bf))
+    assert dl.LAUNCHES == before
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_pack_makes_the_prenet_copy_once(quantize):
+    """``pack_decoder`` (one call) carries the prenet's tiled copy of its
+    own weights, in either mode; a prenet the split does not take gets
+    none."""
+    m = _model(prenet_dim=64)
+    n0 = dl.PACK_CALLS[0]
+    pk = m.make_packed_decoder(quantize)
+    assert dl.PACK_CALLS[0] == n0 + 1
+    assert torch.equal(pk.wt_prenet, dl.tile_prenet(pk.wp1_t, pk.wp2_t))
+    assert pk.wt_prenet.shape == (8, (8 + 64) // 4, 8, 4)
+    assert _model().make_packed_decoder(quantize).wt_prenet is None  # P = 16: U = 2
+
+
+def test_prenet_constants_mirror_the_kernel():
+    """The host's copy of the prenet kernel's cluster and block sizes (the
+    tiled copy's slices, the rows of a group) equal the source's."""
+    import re
+    from pathlib import Path
+
+    src = (Path(dl.__file__).parents[1] / "csrc" / "decode_step.cu").read_text()
+    assert int(re.search(r"constexpr int PN_S = (\d+);", src).group(1)) == dl.PRENET_CLUSTER
+    assert int(re.search(r"constexpr int PN_THREADS = (\d+);", src).group(1)) == dl.PRENET_THREADS
+
+
 def _meta(*shape, dtype=torch.float32):
     return torch.empty(*shape, device="meta", dtype=dtype)
 
@@ -134,7 +205,7 @@ class _FakeLib:
         self.calls = []
 
     def t2_decode_chunk(self, ptrs, dims, stream):
-        self.calls.append(("chunk", [ptrs[i] for i in range(43)], list(dims)))
+        self.calls.append(("chunk", [ptrs[i] for i in range(44)], list(dims)))
         return 0
 
     def t2_lstm_cell(self, *args):
@@ -149,8 +220,12 @@ class _FakeLib:
         self.calls.append(("quantize_xh", args))
         return 0
 
+    def t2_prenet(self, *args):
+        self.calls.append(("prenet", args))
+        return 0
 
-H, D, P, M, A, K, L = 64, 32, 16, 8, 8, 31, 20
+
+H, D, P, M, A, K, L = 64, 32, 64, 8, 8, 31, 20
 
 
 def _meta_pack(quantize):
@@ -164,7 +239,8 @@ def _meta_pack(quantize):
         _meta(A, 2, K, dtype=bf), _meta(A, dtype=bf), _meta(M + 1, H + D, dtype=bf),
         _meta(M + 1), **scales,
         wt_att=_meta(dl.tiled_bytes(H, es * (P + D + H)), dtype=torch.uint8),
-        wt_dec=_meta(dl.tiled_bytes(H, es * (2 * H + D)), dtype=torch.uint8))
+        wt_dec=_meta(dl.tiled_bytes(H, es * (2 * H + D)), dtype=torch.uint8),
+        wt_prenet=_meta(*dl.prenet_tiled_shape(M, P), dtype=bf))
 
 
 def _meta_chunk(pk, B, n):
@@ -190,7 +266,7 @@ def test_chunk_counts_what_it_launches(fake, quantize, B, n):
     mode (a ``quantize_xh`` before each cell): the counters grow by n
     prenet, 2n of the pack's cell (and 2n quantize_xh), n attention and n
     heads, and nothing else; the call gets the pack's mode, the attention's
-    cluster size and the pointer slots up to K5's operand."""
+    cluster size and the pointer slots up to the prenet's tiled copy."""
     pk = _meta_pack(quantize)
     before = dict(dl.LAUNCHES)
     _meta_chunk(pk, B, n)
@@ -202,16 +278,33 @@ def test_chunk_counts_what_it_launches(fake, quantize, B, n):
     [(kind, ptrs, dims)] = fake.calls
     assert kind == "chunk" and dims[:2] == [n, B] and dims[9] == int(quantize)
     assert len(dims) == 11 and dims[10] == dl.location_cluster_size(L, H, A, D, K)
-    assert len(ptrs) == 43
+    assert len(ptrs) == 44
     assert sum(grown.values()) == (7 if quantize else 5) * n
 
 
-def test_chunk_refuses_a_pack_without_copies(fake):
-    pk = _meta_pack(False)._replace(wt_att=None)
+@pytest.mark.parametrize("copy", ["wt_att", "wt_prenet"])
+def test_chunk_refuses_a_pack_without_copies(fake, copy):
+    pk = _meta_pack(False)._replace(**{copy: None})
     before = dict(dl.LAUNCHES)
     with pytest.raises(ValueError, match="tiled"):
         _meta_chunk(pk, 2, 1)
     assert dl.LAUNCHES == before and fake.calls == []
+
+
+@pytest.mark.parametrize("B", [1, 64])
+def test_prenet_wrapper_passes_the_copy(fake, B):
+    """The prenet's one-kernel entry launches over the tiled copy (one
+    counted launch, its dims passed); without the copy it refuses."""
+    pk = _meta_pack(False)
+    args = (_meta(B, M), pk.wp1_t, pk.wp2_t, _meta(B, P), _meta(B, P))
+    before = dl.LAUNCHES["prenet"]
+    dl.prenet(*args, pk.wt_prenet)
+    [(kind, cargs)] = fake.calls
+    assert kind == "prenet" and len(cargs) == 9 and cargs[5:8] == (B, M, P)
+    assert dl.LAUNCHES["prenet"] == before + 1
+    with pytest.raises(ValueError, match="tiled"):
+        dl.prenet(*args)
+    assert dl.LAUNCHES["prenet"] == before + 1
 
 
 @pytest.mark.parametrize("quantize", [False, True])

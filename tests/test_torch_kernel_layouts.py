@@ -78,7 +78,9 @@ def test_side_outputs_equal_plain_stage(rb_type, ups, dtype):
     """The stage's dataflow with the bf16 operands passed between convs
     (``side_output_stage``: a ResBlock1 pair's intermediate as its operand
     only, the residual stream as f32 and operand) equals ``plain_stage``,
-    where every conv rounds lrelu of its f32 input, bit for bit."""
+    where every conv rounds lrelu of its f32 input, bit for bit; asked
+    for, the stage mean's operand (what the next stage's upsample reads) is
+    ``operand`` of that mean, bit for bit."""
     C = 32
     rbs, up = _stage(rb_type, C, ups, dtype, 5)
     g = torch.Generator().manual_seed(6)
@@ -87,6 +89,11 @@ def test_side_outputs_equal_plain_stage(rb_type, ups, dtype):
     got = mrf.side_output_stage(x, rbs, up)
     assert torch.equal(got, want)
     assert torch.equal(mrf.mrf_stage(x, rbs, up), want)  # the wrappers on CPU tensors
+    a_want = mrf.operand(want, dtype)
+    for a_out in (mrf.run_stage(x, rbs, up, mrf.mrf_conv_plain, mrf.conv_transpose_plain,
+                                mrf.mrf_pair_plain, want_operand=True),
+                  mrf.mrf_stage(x, rbs, up, want_operand=True)):
+        assert a_out.dtype == dtype and torch.equal(a_out, a_want)
 
 
 def test_mrf_conv_plain_outputs():
@@ -190,7 +197,8 @@ def test_k1_cluster_size_does_not_follow_the_batch(L, monkeypatch):
                           _meta(A, 2, K, dtype=bf), _meta(A, dtype=bf),
                           _meta(M + 1, H + D, dtype=bf), _meta(M + 1),
                           wt_att=_meta(dl.tiled_bytes(H, 2 * (P + D + H)), dtype=torch.uint8),
-                          wt_dec=_meta(dl.tiled_bytes(H, 2 * (2 * H + D)), dtype=torch.uint8))
+                          wt_dec=_meta(dl.tiled_bytes(H, 2 * (2 * H + D)), dtype=torch.uint8),
+                          wt_prenet=_meta(*dl.prenet_tiled_shape(M, P), dtype=bf))
     for B in (1, 16, 64):
         s = dl.StepState(_meta(B, M), _meta(B, H), _meta(B, H), _meta(B, D), _meta(B, L),
                          _meta(B, L), _meta(B, H), _meta(B, H))

@@ -137,8 +137,9 @@ def _meta(*shape, dtype=torch.float32):
 
 
 WRAPPER_CALLS = {
-    "prenet": lambda: decoder_loop.prenet(_meta(1, 16), _meta(16, 8), _meta(8, 8),
-                                          _meta(1, 8), _meta(1, 8)),
+    "prenet": lambda: decoder_loop.prenet(_meta(1, 16), _meta(16, 64), _meta(64, 64),
+                                          _meta(1, 64), _meta(1, 64),
+                                          _meta(8, 20, 8, 4, dtype=torch.bfloat16)),
     "lstm_cell": lambda: decoder_loop.lstm_cell(_meta(64, 24), _meta(64), _meta(1, 8),
                                                 _meta(1, 8), _meta(1, 8), _meta(1, 16)),
     "quantize_xh": lambda: decoder_loop.quantize_xh(_meta(1, 8), _meta(1, 8), _meta(1, 16)),
@@ -160,9 +161,12 @@ WRAPPER_CALLS = {
                           _meta(1, 1, 3, 4, 32, 8, dtype=torch.bfloat16)) for d in (3, 1)],
         want_act=True),
     "conv_transpose": lambda: mrf.conv_transpose(
-        _meta(1, 10, 64),
-        mrf.UpsampleWeights(_meta(4, 64, 32), _meta(32), 2, 1, _meta(2, 2, 32, 64)),
+        _meta(1, 10, 64, dtype=torch.bfloat16),
+        mrf.UpsampleWeights(_meta(4, 64, 32, dtype=torch.bfloat16), _meta(32), 2, 1,
+                            mrf.ConvWeights(_meta(3, 64, 64, dtype=torch.bfloat16), _meta(64), 1,
+                                            _meta(1, 1, 3, 8, 64, 8, dtype=torch.bfloat16))),
         want_act=True),
+    "conv_operand": lambda: mrf.conv_operand(_meta(1, 10, 64)),
 }
 # the teacher-forced decode at T=2, B=1, L=5, P=D=H=8, A=4, 81 outputs
 _TW = lambda: train_decode.TrainWeights(
