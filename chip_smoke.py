@@ -43,6 +43,17 @@ Phases, each of which must pass:
    and of a 64-row prenet launch (``cell_invariance``), and a
    64-frame chunk split by kernel at 16 and 64 rows, L=128, with the serve
    window's decode (``serve_rows_split``);
+3c. K1's and K5's controls mode on random full-width weights of
+   ``config/controllable-lj-hifi-stop-speaker.json`` (``controls_phase``):
+   1- and 4-step chunks at 1, 16 and 64 rows with distinct controls per row
+   against the plain chunk, the defects' readings (the controls left out,
+   K5's row scale without them) held above the limits; the controls reach
+   the mels (two vectors through a chunk and through the heads) and not
+   the gate (bit for bit); the decoder cell and the heads with controls at
+   1, 16 and 64 rows against their plain versions, timed beside bound and
+   library call, their rows 0, 1, 37, 63 of a 64-row launch with distinct
+   controls against the rows alone, bit for bit; the one-row 64-step chunk
+   of the vanilla and the controllable model in turns;
 3b. the same for K3 and K4, training's teacher-forced decode forward and
    backward (B=32, L=160 with padded rows, T=128), with every gradient
    ``TeacherDecode`` returns (K4 on the plain forward's residuals and on
@@ -80,6 +91,15 @@ Phases, each of which must pass:
    shapes (K1 at 16 and 64 rows and K5 at 16, L=128; K2 through the batched
    vocode at 16 and 64 rows); then ``python -m tacotron2_tpu_torch server``
    as a process of its own (/config, one /generate, exit 0 on SIGTERM);
+4d. the controllable, multi-speaker path: ``say --speaker-id 2 --controls
+   ...`` (bf16 and ``--quantize-int8``) through the CLI entry on random
+   full-width weights of the controllable config, 256 frames, the launch
+   counters held to 5 (7) launches a step with the decoder cell and the
+   heads reading the controls at every step; the kernel decode against the
+   plain decode over 32 frames with those controls; then the warm server
+   with a bf16 and an int8 entry of it, a wave of 16 requests each with
+   mixed voices and controls (coalescing, the controls' launches counted),
+   three of each alone equal to their batched audio (0 LSB);
 5. print the kernels line and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero before the last line on any failure, when no CUDA device
@@ -262,10 +282,14 @@ def ptxas_kernels(text: str) -> dict:
         if m:
             name = kernel_name(m.group(1))
             if name:
-                out[name] = {"registers": 0, "smem": 0, "spill_stores": 0, "spill_loads": 0}
+                out[name] = {"registers": 0, "smem": 0, "spill_stores": 0, "spill_loads": 0,
+                             "stack": 0}
             continue
         if name is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out[name]["stack"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
@@ -422,14 +446,17 @@ def chunk_inputs(model, lengths, g, L: int = 0) -> tuple:
 
 
 def chunk_check(name: str, pk, model, lengths, n: int, g, log: dict,
-                defect: bool = False, L: int = 0) -> float:
+                defect: bool = False, L: int = 0, controls=None,
+                kernel: str = "decode_chunk", tol: float = 0.0) -> float:
     """``n`` decode steps through the chunk entry (the decode's main path)
     against the plain chunk, on ``chunk_inputs`` -> the largest error. With
     ``defect``, also the errors the check reads for defective kernels (the
     plain chunk with the defect): those of a wrong step's masks or a row
-    length off by one must exceed the limit; that of activations left
-    unrounded (no bf16) is only reported, being of the size of a rounding
-    flip."""
+    length off by one must exceed the limit, and with ``controls`` (B,
+    controls_dim) those of controls left out (zero); that of activations
+    left unrounded (no bf16) is only reported, being of the size of a
+    rounding flip. ``kernel``: the kernels line's row of the reading;
+    ``tol``: a limit of its own."""
     import torch
 
     from tacotron2_tpu_torch.ops import decoder_loop as dl
@@ -437,16 +464,18 @@ def chunk_check(name: str, pk, model, lengths, n: int, g, log: dict,
     c = model.cfg
     enc, att_enc, s = chunk_inputs(model, lengths, g, L)
     m1, m2 = dl.prenet_masks(n, lengths.shape[0], c.prenet_dim, c.dropout, g, lengths.device)
-    mg, al, sk = dl.decode_chunk(pk, enc, att_enc, lengths, s, m1, m2)
+    ctl = () if controls is None else dl.stage_controls(pk, controls, lengths.shape[0],
+                                                          lengths.device)
+    mg, al, sk = dl.decode_chunk(pk, enc, att_enc, lengths, s, m1, m2, *ctl)
 
     def pairs(ref):
         mgp, alp, sp = ref
         return [("mel_gate", mg, mgp), ("weights", al, alp)] + [
             (f, getattr(sk, f), getattr(sp, f)) for f in dl.StepState._fields[1:]]
 
-    tol = K1_TOL if n == 1 else K1_CHUNK_TOL
-    worst = check(name, pairs(dl.decode_chunk_plain(pk, enc, att_enc, lengths, s, m1, m2)), tol,
-                  log, "decode_chunk")
+    tol = tol or (K1_TOL if n == 1 else K1_CHUNK_TOL)
+    worst = check(name, pairs(dl.decode_chunk_plain(pk, enc, att_enc, lengths, s, m1, m2, *ctl)),
+                  tol, log, kernel)
     pad = torch.arange(enc.shape[1], device=enc.device)[None, :] >= lengths[:, None]
     if bool((al * pad[None]).any()):
         raise SmokeFailure(f"{name}: the kernel gave padded chars attention weight")
@@ -454,11 +483,14 @@ def chunk_check(name: str, pk, model, lengths, n: int, g, log: dict,
         return worst
     pk32 = pk._replace(**{f: getattr(pk, f).float() for f in (
         "w_att", "w_dec", "wp1_t", "wp2_t", "wq", "w_loc", "wv", "w_out")})
+    zero_ctl = tuple(torch.zeros_like(t) if t is not None else None for t in ctl)
     for what, args, must in (
-        ("masks one step late", (pk, enc, att_enc, lengths, s, m1.roll(1, 0), m2.roll(1, 0)), True),
-        ("one char too few", (pk, enc, att_enc, lengths - 1, s, m1, m2), True),
-        ("no bf16 activations", (pk32, enc.float(), att_enc, lengths, s, m1, m2), False),
-    ):
+        ("masks one step late", (pk, enc, att_enc, lengths, s, m1.roll(1, 0), m2.roll(1, 0), *ctl),
+         True),
+        ("one char too few", (pk, enc, att_enc, lengths - 1, s, m1, m2, *ctl), True),
+        ("no bf16 activations", (pk32, enc.float(), att_enc, lengths, s, m1, m2, *ctl), False),
+    ) + ((("controls left out", (pk, enc, att_enc, lengths, s, m1, m2, *zero_ctl), True),)
+         if ctl else ()):
         wrong = max(err(got, ref)[1] for _, got, ref in pairs(dl.decode_chunk_plain(*args)))
         log.setdefault("k1_chunk_defects", []).append({"check": name, "defect": what,
                                                        "rel_err": wrong, "tol": tol})
@@ -605,7 +637,8 @@ def _int8_defects(pk, model):
     """The plain int8 chunk with a defect -> {defect: a function running
     ``decode_chunk_plain`` with it}: activations rounded to bf16 before they
     are quantised; weight scales taken from bf16 weights; roundf (half away
-    from zero) in place of rounding half to even."""
+    from zero) in place of rounding half to even; for a pack with controls,
+    the decoder cell's row scale taken without them."""
     import torch
 
     from tacotron2_tpu_torch.ops import decoder_loop as dl
@@ -627,10 +660,22 @@ def _int8_defects(pk, model):
                 dl.quantize_rows = quantize_rows
         return run
 
-    a, d = model.decoder.att_rnn, model.decoder.lstm
-    (wa, sa), (wd, sd) = (dl.quantize_weights(bf(torch.cat([m.weight_ih, m.weight_hh], 1)))
-                          for m in (a, d))
+    E = pk.controls_cols
+    H, D = pk.wq.shape[1], pk.w_out.shape[1] - pk.wq.shape[1] - E
+
+    def scale_without_controls(x):
+        if x.shape[1] != pk.w_dec.shape[1]:  # the attention cell's input
+            return quantize_rows(x)
+        keep = torch.ones(x.shape[1], dtype=torch.bool, device=x.device)
+        keep[H + D:H + D + E] = False
+        sx = dl._div127(x[:, keep].abs().amax(dim=1, keepdim=True).clamp_min(1e-12))
+        return torch.round(x / sx).clamp(-127, 127), sx
+
+    f32 = dl.pack_decoder(model.prenet, model.decoder, torch.float32)  # the pack's columns
+    (wa, sa), (wd, sd) = (dl.quantize_weights(bf(w)) for w in (f32.w_att, f32.w_dec))
     return {
+        **({"row scale without the controls": (patched(scale_without_controls, pk), True)}
+           if E else {}),
         "bf16 activations": (patched(lambda x: quantize_rows(bf(x)), pk), True),
         "scales of bf16 weights": (patched(quantize_rows, pk._replace(
             w_att=wa, s_att=sa, w_dec=wd, s_dec=sd)), True),
@@ -639,32 +684,36 @@ def _int8_defects(pk, model):
 
 
 def k5_check(name: str, pk, model, lengths, n: int, g, log: dict, defect: bool = False,
-             L: int = 0) -> float:
+             L: int = 0, controls=None, kernel: str = "lstm_cell_int8",
+             tol: float = 0.0) -> float:
     """``n`` int8 decode steps through the chunk entry (K5 for both LSTM
     cells) against the plain int8 chunk, on ``chunk_inputs`` -> the largest
-    error. With ``defect``, also the readings of ``_int8_defects``; the
-    first two must exceed the limit (roundf differs only on exact ties, so
-    it is reported)."""
+    error; ``controls`` (B, controls_dim) for a pack with controls. With
+    ``defect``, also the readings of ``_int8_defects``; all but roundf must
+    exceed the limit (roundf differs only on exact ties, so it is
+    reported). ``tol``: a limit of its own (inf: a reading only)."""
     from tacotron2_tpu_torch.ops import decoder_loop as dl
 
     c = model.cfg
     enc, att_enc, s = chunk_inputs(model, lengths, g, L)
     m1, m2 = dl.prenet_masks(n, lengths.shape[0], c.prenet_dim, c.dropout, g, lengths.device)
-    mg, al, sk = dl.decode_chunk(pk, enc, att_enc, lengths, s, m1, m2)
+    ctl = () if controls is None else dl.stage_controls(pk, controls, lengths.shape[0],
+                                                          lengths.device)
+    mg, al, sk = dl.decode_chunk(pk, enc, att_enc, lengths, s, m1, m2, *ctl)
 
     def pairs(ref):
         mgp, alp, sp = ref
         return [("mel_gate", mg, mgp), ("weights", al, alp)] + [
             (f, getattr(sk, f), getattr(sp, f)) for f in dl.StepState._fields[1:]]
 
-    tol = K5_TOL if n == 1 else K5_CHUNK_TOL
-    worst = check(name, pairs(dl.decode_chunk_plain(pk, enc, att_enc, lengths, s, m1, m2)), tol,
-                  log, "lstm_cell_int8")
+    tol = tol or (K5_TOL if n == 1 else K5_CHUNK_TOL)
+    worst = check(name, pairs(dl.decode_chunk_plain(pk, enc, att_enc, lengths, s, m1, m2, *ctl)),
+                  tol, log, kernel)
     if not defect:
         return worst
     for what, (run, must) in _int8_defects(pk, model).items():
         wrong = max(err(got, ref)[1] for _, got, ref in
-                    pairs(run(enc, att_enc, lengths, s, m1, m2)))
+                    pairs(run(enc, att_enc, lengths, s, m1, m2, *ctl)))
         log.setdefault("k5_defects", []).append({"check": name, "defect": what,
                                                  "rel_err": wrong, "tol": tol})
         print(f"  {name:<20} defect '{what}' reads rel {wrong:.3e} (tol {tol:g})")
@@ -1068,6 +1117,297 @@ def cell_invariance(model, log: dict) -> None:
           "the rows alone, bit for bit; the two-pass launch within the one-step limits")
 
 
+# ---------------------------------------------------------------------------
+# the controls mode of K1 and K5: the controllable, multi-speaker configs
+# ---------------------------------------------------------------------------
+
+CTL_CONFIG = "controllable-lj-hifi-stop-speaker.json"  # 4 speakers, 5 controls, vanilla widths
+CTL_SPEAKER = 2  # the say's voice
+CTL_VALUES = "0.3,-0.5,0.1,0.8,-0.2"  # the say's controls
+# controls of K5's one-step checks: larger than the state, so that they set
+# the decoder cell's row scale (a kernel that left them out of it reads far
+# above K5_TOL). Over 4 steps a rounding flip of one int8 quantum (the row's
+# scale / 127) propagates, as in K5_CHUNK_TOL's readings, and a quantum is 3x
+# larger at this scale: those readings are reported, and the 4-step limit
+# holds at controls within +-1, the state's scale (PERF.md)
+CTL_SCALE = 3.0
+# the kernels line's rows of the controls mode -> their CONTROLS_LAUNCHES key
+CTL_KERNELS = {"lstm_cell[controls]": "lstm_cell", "lstm_cell_int8[controls]": "lstm_cell_int8",
+               "heads[controls]": "heads"}
+CTL_SOURCE = {
+    "lstm_cell[controls]": "tacotron2_tpu/ops/decoder_loop_pallas.py:534 (the decoder cell's "
+                           "controls rows, bf16 mode)",
+    "lstm_cell_int8[controls]": "tacotron2_tpu/ops/decoder_loop_pallas.py:534 (int8 mode, "
+                                "_quantize_xh :388 over the controls too)",
+    "heads[controls]": "tacotron2_tpu/ops/decoder_loop_pallas.py:569 (controls @ w_out[H + D:])",
+}
+CTL_PER = {
+    "lstm_cell[controls]": "the decoder cell of one step with its controls, B=1, library: "
+                           "nn.LSTMCell x1, bf16",
+    "lstm_cell_int8[controls]": "the int8 decoder cell of one step with its controls (its "
+                                "quantize_xh included), B=1, library: torch._int_mm (a yardstick)",
+    "heads[controls]": "the heads of one step over [rnn_h | ctx | controls], B=1, library: "
+                       "F.linear, bf16",
+}
+
+
+def row_controls(B: int, g, scale: float = 1.0, dim: int = 5):
+    """Distinct controls for B rows, uniform in [-scale, scale], on the card."""
+    import torch
+
+    return (torch.rand(B, dim, device="cuda", generator=g) * 2 - 1) * scale
+
+
+def ctl_model(seed: int = SEED):
+    """The controllable config and its model on random weights from
+    ``seed`` (gate forced positive), on the card."""
+    from tacotron2_tpu_torch.config import load_config
+
+    cfg = load_config(str(ROOT / "config" / CTL_CONFIG))
+    return cfg, random_tacotron(cfg, 10.0, seed).cuda()
+
+
+def library_ms(fn, log: dict, tag: str):
+    """``time_ms`` of a library call, None where this torch build does not
+    take its shapes."""
+    try:
+        return time_ms(fn)
+    except Exception as e:
+        log.setdefault("library_errors", []).append(f"{tag}: {e!r}")
+        return None
+
+
+def controls_cells(model, log: dict) -> dict:
+    """The controls mode's launches alone at 1, 16 and 64 rows: the decoder
+    cell with distinct controls per row (bf16: ``lstm_cell``; int8:
+    ``quantize_xh`` + ``lstm_cell_int8``, the controls +-CTL_SCALE) and the
+    heads with them, each held against its plain version (K1_TOL, K5_TOL;
+    ``quantize_xh`` exactly) and timed by graph replay beside its plain
+    version, its bound and a library call (``nn.LSTMCell`` x1 in bf16;
+    ``torch._int_mm`` of the quantised rows against the int8 weights, a
+    yardstick; ``F.linear`` in bf16). Then, failing the run otherwise: rows
+    0, 1, 37 and 63 of a 64-row launch of each (distinct controls) equal the
+    rows alone, bit for bit; the heads' gate logits under two control
+    vectors equal bit for bit, their mels apart by far more than K1_TOL.
+    -> {row name: {"B<rows>": {ms, plain_ms, bound_ms, bound_by,
+    library_ms, eager_ms}}}"""
+    import torch
+    import torch.nn.functional as F
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 50)
+    c = model.cfg
+    H, D, M, E0 = c.rnn_hidden_dim, c.encoded_dim, c.num_mels, c.controls_dim
+    bf = lambda t: t.to(torch.bfloat16)
+    f32 = lambda *shape: torch.empty(*shape, device=dev)
+    rn = lambda *shape: torch.randn(*shape, device=dev, generator=g) * 0.5
+    out = {k: {} for k in CTL_KERNELS}
+
+    def launches(pk, B, scale):
+        """(kernel, plain, library, input tensors) of the pack's decoder
+        cell at B rows, and the heads' (kernel, plain, library, inputs)."""
+        att_h, ctx, rnn_h, rnn_c = rn(B, H), rn(B, D), rn(B, H), rn(B, H)
+        c32, cbf = dl.stage_controls(pk, row_controls(B, g, scale, E0), B, dev)
+        if pk.quantized:
+            ins = (att_h, ctx, rnn_h, rnn_c)
+            kern = lambda: dl.lstm_cell_int8(pk.w_dec, pk.s_dec, pk.b_dec, *ins, pk.wt_dec,
+                                             ctl=c32)
+            plain = lambda: dl.lstm_cell_int8_plain(pk.w_dec, pk.s_dec, pk.b_dec, *ins, c32)
+            q, _ = dl.quantize_rows(torch.cat([att_h, ctx, c32, rnn_h], 1))
+            qp = torch.zeros(max(32, -(-B // 8) * 8), q.shape[1], dtype=torch.int8, device=dev)
+            qp[:B] = q.to(torch.int8)
+            w_t = pk.w_dec.t()
+            lib = lambda: torch._int_mm(qp, w_t)
+            cell = (kern, plain, lib, (*ins, c32, pk.s_dec))
+        else:
+            ins = (bf(att_h), bf(ctx), bf(rnn_h), rnn_c)
+            kern = lambda: dl.lstm_cell(pk.w_dec, pk.b_dec, *ins, pk.wt_dec, ctl=cbf)
+            plain = lambda: dl.lstm_cell_plain(pk.w_dec, pk.b_dec, *(t.float() for t in ins[:3]),
+                                               rnn_c, c32)
+            mod = torch.nn.LSTMCell(H + D + E0, H, device=dev, dtype=torch.bfloat16)
+            mod.load_state_dict(model.decoder.lstm.state_dict())
+            x_lib, hc = bf(torch.cat([att_h, ctx, c32[:, :E0]], 1)), (ins[2], bf(rnn_c))
+            cell = (kern, plain, lambda: mod(x_lib, hc), (*ins, cbf))
+        hargs = (pk.w_out, pk.b_out, rnn_h, ctx)
+        x_lin, b_lin = bf(torch.cat([rnn_h, ctx, c32], 1)), bf(pk.b_out)
+        heads = (lambda: dl.heads(*hargs, c32), lambda: dl.heads_plain(*hargs, None, c32),
+                 lambda: F.linear(x_lin, pk.w_out, b_lin), (rnn_h, ctx, c32))
+        return cell, heads, (att_h, ctx, rnn_h, rnn_c, c32, cbf)
+
+    packs = {q: model.make_packed_decoder(quantize=q) for q in (False, True)}
+    for quant, pk in packs.items():
+        name = "lstm_cell_int8[controls]" if quant else "lstm_cell[controls]"
+        for B in K1_ROWS:
+            (kern, plain, lib, ins), heads, (att_h, ctx, rnn_h, _, c32, _) = launches(
+                pk, B, CTL_SCALE if quant else 1.0)
+            got, ref = kern(), plain()
+            check(f"{name}@B{B}", [("h", got[0], ref[0]), ("c", got[1], ref[1])],
+                  K5_TOL if quant else K1_TOL, log, name)
+            if quant:
+                (qk, sk), (qq, sq) = (f(att_h, ctx, rnn_h, ctl=c32) for f in (
+                    dl.quantize_xh, dl.quantize_xh_plain))
+                check(f"quantize_xh[controls]@B{B}", [("q", qk.float(), qq.float()),
+                                                      ("sx", sk, sq)], QUANT_TOL, log, name)
+            b_ms, b_by = bound_ms(nbytes(pk.w_dec, pk.b_dec, *ins, f32(B, H), f32(B, H)),
+                                  2 * B * pk.w_dec.numel(), INT8_OPS if quant else BF16_FLOPS)
+            out[name][f"B{B}"] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "library_ms": library_ms(lib, log, f"{name}@B{B}"),
+                                  "eager_ms": eager_ms(kern)}
+            if not quant:  # the heads: one kernel for both packs (bf16 weights)
+                hk, hp, hl, hins = heads
+                check(f"heads[controls]@B{B}", [("mel_gate", hk(), hp())], K1_TOL, log,
+                      "heads[controls]")
+                hb_ms, hb_by = bound_ms(nbytes(pk.w_out, pk.b_out, *hins, f32(B, M + 1)),
+                                        2 * B * pk.w_out.numel())
+                out["heads[controls]"][f"B{B}"] = {
+                    "ms": time_ms(hk), "plain_ms": time_ms(hp), "bound_ms": hb_ms,
+                    "bound_by": hb_by, "library_ms": library_ms(hl, log, f"heads@B{B}"),
+                    "eager_ms": eager_ms(hk)}
+            r = out[name][f"B{B}"]
+            lib_us = "-" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f}"
+            print(f"  {name} at {B} rows: {r['ms'] * 1e3:.1f} us, plain "
+                  f"{r['plain_ms'] * 1e3:.1f} us, library {lib_us} us, bound "
+                  f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+        # rows of a 64-row launch with distinct controls against the rows alone
+        (kern, _, _, _), heads, (att_h, ctx, rnn_h, rnn_c, c32, cbf) = launches(
+            pk, 64, CTL_SCALE if quant else 1.0)
+        full, hfull = kern(), heads[0]()
+        one = lambda t, r: t[r:r + 1].contiguous()
+        for r in CELL_INVARIANCE_ROWS:
+            if quant:
+                alone = dl.lstm_cell_int8(pk.w_dec, pk.s_dec, pk.b_dec, one(att_h, r),
+                                          one(ctx, r), one(rnn_h, r), one(rnn_c, r), pk.wt_dec,
+                                          ctl=one(c32, r))
+            else:
+                alone = dl.lstm_cell(pk.w_dec, pk.b_dec, one(bf(att_h), r), one(bf(ctx), r),
+                                     one(bf(rnn_h), r), one(rnn_c, r), pk.wt_dec,
+                                     ctl=one(cbf, r))
+            same = all(torch.equal(x[r:r + 1], y) for x, y in zip(full, alone))
+            hsame = torch.equal(hfull[r:r + 1], dl.heads(pk.w_out, pk.b_out, one(rnn_h, r),
+                                                         one(ctx, r), one(c32, r)))
+            log.setdefault("controls_invariance", {})[f"{name} row {r}"] = same
+            log["controls_invariance"][f"heads[controls] ({'int8' if quant else 'bf16'} pack) "
+                                       f"row {r}"] = hsame
+            if not (same and hsame):
+                raise SmokeFailure(f"{name} / heads[controls]: row {r} alone differs from the "
+                                   "same row of a 64-row launch with distinct controls")
+    # the controls reach the mels, not the gate: the heads under two vectors
+    pk = packs[False]
+    rnn_h, ctx = rn(16, H), rn(16, D)
+    a = row_controls(16, g, 2.0, E0)
+    ha, hb = (dl.heads(pk.w_out, pk.b_out, rnn_h, ctx, dl.stage_controls(pk, v, 16, dev)[0])
+              for v in (a, -a))
+    apart = err(ha[:, :M], hb[:, :M])[1]
+    log["controls_heads"] = {"gate_bits_equal": torch.equal(ha[:, M], hb[:, M]),
+                             "mel_rel_apart": apart}
+    print(f"  heads[controls] under two control vectors: gate bit-equal "
+          f"{log['controls_heads']['gate_bits_equal']}, mels apart by {apart:.3e} (rel)")
+    if not log["controls_heads"]["gate_bits_equal"] or not apart > 100 * K1_TOL:
+        raise SmokeFailure(f"heads[controls]: the gate must not read the controls and the mels "
+                           f"must: {log['controls_heads']}")
+    print(f"  controls mode: rows {CELL_INVARIANCE_ROWS} of 64-row launches with distinct "
+          "controls equal the rows alone, bit for bit")
+    log["controls_cells"] = out
+    return out
+
+
+def controls_phase(vanilla, L: int, log: dict) -> list:
+    """K1's and K5's controls mode on random full-width weights of the
+    controllable config: 1- and 4-step chunks through the chunk entry at 1,
+    16 and 64 rows (row 1 padded where B > 1; distinct controls per row,
+    +-CTL_SCALE for K5's one step) against the plain chunk (K1_TOL / K5_TOL
+    for one step of one row, K1_CHUNK_TOL / K5_CHUNK_TOL for the rest:
+    one step of many rows can carry a rounding flip of the query's bf16
+    operand, 1.06e-4 on the context at 64 rows), with the defects' readings at one
+    row (the controls left out; K5's row scale without them) held above the
+    limits; K5's 4 steps at +-CTL_SCALE reported;
+    two control vectors through a 4-step chunk (the mels apart by far more
+    than K1_CHUNK_TOL); ``controls_cells``; and the 64-step one-row chunk,
+    bf16 and int8, of ``vanilla`` and of the controllable model in turns
+    (vanilla, controls, controls, vanilla). -> the kernels line's rows."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    dev = torch.device("cuda")
+    _, model = ctl_model()
+    E0 = model.cfg.controls_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 51)
+    packs = {q: model.make_packed_decoder(quantize=q) for q in (False, True)}
+    for B in K1_ROWS:
+        Lb = L if B == 1 else SERVE_L
+        lengths = torch.full((B,), Lb, dtype=torch.int32, device=dev)
+        if B > 1:
+            lengths[1] = Lb - PAD
+        for n in (1, 4):
+            # one step of many rows may carry a rounding flip too (the query's
+            # bf16 operand of the cell's h, which kernel and plain version sum
+            # in other orders): there the 4-step limits hold
+            flips = n > 1 or B > 1
+            chunk_check(f"ctl_chunk[{n}]@B{B}", packs[False], model, lengths, n, g, log,
+                        defect=B == 1 and n == 4, L=Lb, controls=row_controls(B, g, 1.0, E0),
+                        kernel="lstm_cell[controls]", tol=K1_CHUNK_TOL if flips else K1_TOL)
+            k5_check(f"ctl_int8_chunk[{n}]@B{B}", packs[True], model, lengths, n, g, log,
+                     defect=B == 1 and n == 1, L=Lb,
+                     controls=row_controls(B, g, CTL_SCALE if n == 1 else 1.0, E0),
+                     kernel="lstm_cell_int8[controls]", tol=K5_CHUNK_TOL if flips else K5_TOL)
+        # 4 int8 steps with controls of +-CTL_SCALE: a reading only
+        log.setdefault("ctl_int8_chunk4_scale3", {})[f"B{B}"] = k5_check(
+            f"ctl_int8_chunk[4,+-{CTL_SCALE:g}]@B{B}", packs[True], model, lengths, 4, g, log,
+            L=Lb, controls=row_controls(B, g, CTL_SCALE, E0), kernel="reported", tol=math.inf)
+    # two control vectors through the same 4 steps: the mels apart
+    lengths = torch.full((16,), SERVE_L, dtype=torch.int32, device=dev)
+    enc, att_enc, s = chunk_inputs(model, lengths, g, SERVE_L)
+    m1, m2 = dl.prenet_masks(4, 16, model.cfg.prenet_dim, model.cfg.dropout, g, dev)
+    a = row_controls(16, g, 2.0, E0)
+    mga, mgb = (dl.decode_chunk(packs[False], enc, att_enc, lengths, s, m1, m2,
+                                *dl.stage_controls(packs[False], v, 16, dev))[0] for v in (a, -a))
+    apart = err(mga[..., :-1], mgb[..., :-1])[1]
+    log["controls_chunk_apart"] = apart
+    print(f"  ctl_chunk[4]@B16 under two control vectors: mels apart by {apart:.3e} (rel; tol "
+          f"{K1_CHUNK_TOL:g})")
+    if not apart > 10 * K1_CHUNK_TOL:
+        raise SmokeFailure(f"the controls do not reach the mels: {apart:.3e}")
+    cells = controls_cells(model, log)
+
+    # the prediction: the controllable one-row chunk within ~1 us a step of the vanilla one
+    lengths = torch.full((1,), L, dtype=torch.int32, device=dev)
+    cases = {}
+    for tag, m in (("vanilla", vanilla), ("controls", model)):
+        for q in (False, True):
+            pk = m.make_packed_decoder(quantize=q)
+            enc, att_enc, s = chunk_inputs(m, lengths, g, L)
+            m1, m2 = dl.prenet_masks(64, 1, m.cfg.prenet_dim, m.cfg.dropout, g, dev)
+            ctl = (dl.stage_controls(pk, row_controls(1, g, 1.0, E0), 1, dev)
+                   if tag == "controls" else ())
+            cases[f"{tag}_{'int8' if q else 'bf16'}"] = (
+                lambda pk=pk, a=(enc, att_enc, lengths, s, m1, m2, *ctl): dl.decode_chunk(pk, *a))
+    turns: dict = {k: [] for k in cases}
+    for order in (("vanilla", "controls"), ("controls", "vanilla")):
+        for tag in order:
+            for mode in ("bf16", "int8"):
+                turns[f"{tag}_{mode}"].append(time_ms(cases[f"{tag}_{mode}"], 5, 1) / 64 * 1e3)
+    log["controls_chunk_us_per_step"] = turns
+    print("  64-step one-row chunk, us a step, in turns (vanilla, controls, controls, vanilla): "
+          + "; ".join(f"{k} " + " / ".join(f"{x:.2f}" for x in v) for k, v in turns.items()))
+    rows = []
+    for name in CTL_KERNELS:
+        one = cells[name]["B1"]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "tacotron2_tpu_torch/csrc/decode_step.cu",
+                     "replaces": CTL_SOURCE[name], **{k: one[k] for k in (
+                         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms")},
+                     "per": CTL_PER[name], "rows": cells[name]})
+    del model, packs
+    torch.cuda.empty_cache()
+    return rows
+
+
 def serve_rows_split(model, cfg, log: dict) -> dict:
     """Where a serve window's decode goes, per pack (bf16: K1; int8: K5):
     the device ms of each kernel in one 64-frame ``decode_chunk`` at 16 and
@@ -1075,7 +1415,11 @@ def serve_rows_split(model, cfg, log: dict) -> dict:
     replay, and eagerly: the host's launches included; also at one row and
     the say's chars), and the window's decode (encoder at 64
     rows, 256 steps, postnet) through ``forward_infer_fast`` on the waves'
-    texts, eager, ending in a sync (``serve_split``'s measure)."""
+    texts, eager, ending in a sync (``serve_split``'s measure). Each chunk's
+    output digest goes to the log, so that ``--k1-ab`` can tell whether the
+    parent's kernels gave the same bits on the same inputs."""
+    import hashlib
+
     import torch
 
     from tacotron2_tpu_torch.ops import decoder_loop as dl
@@ -1099,8 +1443,12 @@ def serve_rows_split(model, cfg, log: dict) -> dict:
             enc, att_enc, s = chunk_inputs(model, lengths, g, L)
             m1, m2 = dl.prenet_masks(64, B, c.prenet_dim, c.dropout, g, dev)
             chunk = lambda: dl.decode_chunk(pk, enc, att_enc, lengths, s, m1, m2)
+            mg, al, _ = chunk()
             r = {"L": L, "chunk_us_per_step": time_ms(chunk, 5, 1) / 64 * 1e3,
-                 "chunk_eager_us_per_step": eager_ms(chunk, 5) / 64 * 1e3}
+                 "chunk_eager_us_per_step": eager_ms(chunk, 5) / 64 * 1e3,
+                 # the same inputs in every turn of --k1-ab: equal bits?
+                 "chunk_sha1": hashlib.sha1(mg.cpu().numpy().tobytes()
+                                            + al.cpu().numpy().tobytes()).hexdigest()}
             if B > 1:
                 r["split_us_per_step"] = {k: v / 64 * 1e3 for k, v in kernel_split(chunk).items()}
                 gens = [torch.Generator(device=dev).manual_seed(i) for i in range(B)]
@@ -1218,7 +1566,8 @@ def cell_ab(model, log: dict) -> dict:
 def k1_rows_mode(out_name: str) -> int:
     """``--k1-rows``: build K1/K5 and K2 only, then ``up_rows``, ``cell_rows``,
     ``cell_invariance`` and ``serve_rows_split`` on random full-width
-    weights; the results go to
+    weights, and where the package has the controls mode ``controls_phase``;
+    the results go to
     chiprun_out/<out_name>. Runs the package found first on sys.path (the
     repo's, or a parent's with ``--root``)."""
     import torch
@@ -1229,6 +1578,7 @@ def k1_rows_mode(out_name: str) -> int:
     from tacotron2_tpu_torch.models.layers import use_f32_math
     from tacotron2_tpu_torch.ops import build
     from tacotron2_tpu_torch.run.say import vocoder_policy
+    from tacotron2_tpu_torch.text import normalize_text
 
     use_f32_math()
     t0 = time.perf_counter()
@@ -1248,6 +1598,12 @@ def k1_rows_mode(out_name: str) -> int:
         log["cells"] = cell_rows(model, log)
         cell_invariance(model, log)
         serve_rows_split(model, cfg, log)
+        from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+        if hasattr(dl, "stage_controls"):  # a package with the controls mode
+            prep = cfg.dataset.preprocessing
+            controls_phase(model, len(normalize_text(TEXT, prep.allowed_chars, prep.end_token,
+                                                     False)), log)
         if "--cell-ab" in sys.argv[1:]:
             cell_ab(model, log)
     except SmokeFailure as e:
@@ -2495,6 +2851,234 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
     return {k: launches[k] for k in (*K5_KERNELS, "bilstm_forward")}
 
 
+def say_controls_phase(g_path: str, log: dict, card: str) -> tuple:
+    """``say --speaker-id 2 --controls CTL_VALUES`` through the CLI entry on
+    random full-width weights of the controllable config (seed 7, saved as
+    a reference Lightning ``.ckpt``; gate forced so that the decode runs 256
+    frames), bf16 and then ``--quantize-int8``, with the launch counters set
+    to 0 before each run and read after: 5 decode launches a step (7 in
+    int8), the decoder cell (its quantize_xh) and the heads reading the
+    controls at every step, K2 one vocode; then the kernel decode against
+    the plain decode over 32 frames with the say's voice and controls
+    (DECODE_TOL), and int8 against bf16 (INT8_DIVERGENCE, as the vanilla
+    say). -> (the checkpoint, {kernels-line row: launches})"""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.audio.io import read_wav
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.convert import to_lightning
+    from tacotron2_tpu_torch.ops import decoder_loop, mrf
+    from tacotron2_tpu_torch.run.say import load_tacotron
+    from tacotron2_tpu_torch.text import CharEncoder, normalize_text
+
+    cfg_path = str(ROOT / "config" / CTL_CONFIG)
+    cfg = load_config(cfg_path)
+    ckpt = str(WORK / "tacotron2-controls.ckpt")
+    torch.save(to_lightning(random_tacotron(cfg, 10.0).state_dict()), ckpt)
+    out = str(WORK / "say_controls.wav")
+    say = lambda quant: cli(
+        ["say", "--config", cfg_path, "--checkpoint", ckpt, "--hifi-gan-checkpoint", g_path,
+         "--text", TEXT, "--out", out, "--random-seed", str(SEED), "--max-len-override", "256",
+         "--speaker-id", str(CTL_SPEAKER), "--controls", CTL_VALUES]
+        + (["--quantize-int8"] if quant else []))
+    ctl_launches = {k: 0 for k in CTL_KERNELS}
+    runs = {}
+    for quant in (False, True):
+        mode = "int8" if quant else "bf16"
+        say(quant)  # warm-up
+        decoder_loop.reset_launches()
+        mrf.reset_launches()
+        res = say(quant)
+        launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES}
+        ctl = dict(decoder_loop.CONTROLS_LAUNCHES)
+        print(f"  say --speaker-id {CTL_SPEAKER} --controls {CTL_VALUES}"
+              f"{' --quantize-int8' if quant else ''}: {res}")
+        print(f"  launches in that run: {launches}; of them reading the controls: {ctl}")
+        if res["n_frames"] != 256:
+            raise SmokeFailure(f"controllable {mode} say gave {res['n_frames']} frames, want 256")
+        check_vocode_launches(launches, 1, f"controllable {mode} say")
+        cell, other = ("lstm_cell_int8", "lstm_cell") if quant else ("lstm_cell", "lstm_cell_int8")
+        want = {"prenet": 256, cell: 512, other: 0, "location_attention": 256, "heads": 256,
+                "quantize_xh": 512 if quant else 0}
+        want_ctl = {cell: 256, other: 0, "heads": 256, "quantize_xh": 256 if quant else 0}
+        if ({k: launches[k] for k in want} != want
+                or ctl != want_ctl or sum(want.values()) != (7 if quant else 5) * 256):
+            raise SmokeFailure(f"controllable {mode} say: launches {launches}, of them reading "
+                               f"the controls {ctl}; want {want} and {want_ctl}")
+        ctl_launches[f"{cell}[controls]"] += ctl[cell]
+        ctl_launches["heads[controls]"] += ctl["heads"]
+        wav, _ = read_wav(out)
+        if len(wav) != res["cut"] * 256 or not np.isfinite(wav).all() or not np.abs(wav).max() > 0:
+            raise SmokeFailure(f"bad controllable wav: {len(wav)} samples for cut {res['cut']}")
+        perf = {"decode_us_per_step": res["decode_s"] / res["n_frames"] * 1e6,
+                "vocoder_us_per_frame": res["vocode_s"] / res["cut"] * 1e6,
+                "say_s": res["say_s"], "audio_s": res["audio_s"],
+                "rtf": res["say_s"] / res["audio_s"], "card": card}
+        print(f"  controllable {mode} say: decode {perf['decode_us_per_step']:.1f} us/step, "
+              f"vocoder {perf['vocoder_us_per_frame']:.1f} us/frame, RTF {perf['rtf']:.4f} on "
+              f"{card}")
+        runs[mode] = {"run": res, "launches": launches, "controls_launches": ctl, "perf": perf}
+
+    dev = torch.device("cuda")
+    model = load_tacotron(cfg, ckpt, dev)
+    prep = cfg.dataset.preprocessing
+    ci, cl = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch(
+        [normalize_text(TEXT, prep.allowed_chars, prep.end_token, False)])
+    ci, cl = torch.as_tensor(ci, device=dev), torch.as_tensor(cl, device=dev)
+    kw = dict(speaker_id=torch.tensor([CTL_SPEAKER]),
+              controls=torch.tensor([[float(x) for x in CTL_VALUES.split(",")]], device=dev))
+    fast = model.forward_infer_fast(ci, cl, 32, prenet_dropout=False, **kw)
+    ref = model.forward_infer(ci, cl, 32, prenet_dropout=False, **kw)
+    if fast.n_frames != ref.n_frames or not torch.equal(fast.lengths, ref.lengths):
+        raise SmokeFailure("controllable kernel decode and plain decode disagree on frames")
+    check("decode_32_frames[controls]", [("mels_post", fast.mels_post, ref.mels_post),
+                                         ("gates", fast.gates, ref.gates),
+                                         ("alignments", fast.alignments, ref.alignments)],
+          DECODE_TOL, log)
+    outs = []
+    for quantize in (False, True):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        outs.append(model.forward_infer_fast(ci, cl, 256, generator=gen, quantize=quantize, **kw))
+    n = min(o.n_frames for o in outs)
+    a, b = (o.mels_post[:, :n] for o in outs)
+    divergence = {"mels_post_mean_rel": float((a - b).abs().mean() / a.abs().mean()),
+                  "gate_drift": float((outs[0].gates[:, :n] - outs[1].gates[:, :n]).abs().max()),
+                  "frames": n}
+    print(f"  controllable int8 vs bf16 (same seed, voice, controls): {divergence}")
+    for key, lim in INT8_DIVERGENCE.items():
+        if not divergence[key] <= lim:
+            log.setdefault("deferred", []).append(
+                f"controllable int8 vs bf16 {key} {divergence[key]:.3e} > {lim}")
+    log["say_controls"] = {**runs, "divergence": divergence}
+    del model
+    return ckpt, ctl_launches
+
+
+def serve_controls_phase(ckpt: str, g_path: str, log: dict, card: str) -> dict:
+    """The warm server in this process (``do_server`` on a thread) with a
+    bf16 and an int8 entry of the controllable checkpoint (``multi_speaker``
+    and ``controllable``, max_len 256, the default batching): a warm-up
+    request to each; the launch counters set to 0; a wave of 16 concurrent
+    requests to each with mixed voices and controls (every fourth by the
+    reference page's named sliders), which must coalesce (rows per launch >
+    1) and read the controls in the decoder cell and the heads at every
+    step of every decode launch; the counters read; then three requests of
+    each wave alone, whose audio must equal the batched audio (0 PCM16
+    LSB). -> {kernels-line row: launches}"""
+    import concurrent.futures
+    import os
+    import threading
+
+    import numpy as np
+
+    from tacotron2_tpu_torch.audio.io import read_wav
+    from tacotron2_tpu_torch.ops import decoder_loop
+    from tacotron2_tpu_torch.run import server as srv
+
+    root = WORK / "serve_controls"
+    root.mkdir(parents=True, exist_ok=True)
+    entry = {"config": str(ROOT / "config" / CTL_CONFIG), "checkpoint": ckpt,
+             "hifi_gan_checkpoint": g_path, "max_len": 256, "multi_speaker": True,
+             "controllable": True, "num_voices": 4}
+    config = {"models": [dict(entry, name="controllable-bf16"),
+                         dict(entry, name="controllable-int8", quantize_int8=True)],
+              "batching": {"enabled": True, "window_ms": 8, "max_batch": 64, "depth": 2},
+              "warmup": False}
+    cwd = os.getcwd()
+    os.chdir(root)
+    started, holder = threading.Event(), {}
+    thread = threading.Thread(target=lambda: holder.setdefault("result", srv.do_server(
+        0, config, "warm", host="127.0.0.1",
+        on_start=lambda h: (holder.setdefault("httpd", h), started.set()))), daemon=True)
+
+    def payload(model: int, i: int) -> dict:
+        values = [round(((3 * i + 5 * j) % 9 - 4) / 4, 2) for j in range(5)]
+        p = {"text": TRAIN_TEXTS[i % len(TRAIN_TEXTS)], "model": model, "seed": 300 + i,
+             "voice": i % 4}
+        if i % 4 == 3:  # the reference page's sliders
+            p.update(zip(srv.CONTROL_SLIDERS, values))
+        else:
+            p["controls"] = values
+        return p
+
+    waves, invariance = {}, []
+    try:
+        thread.start()
+        while not started.wait(0.5):
+            if not thread.is_alive():
+                raise SmokeFailure("the controllable server did not start")
+        port = holder["httpd"].server_address[1]
+        for m in (0, 1):
+            status, body, _ = _post(port, {"text": TEXT, "model": m, "seed": 1, "voice": 1,
+                                           "controls": [0.0] * 5})
+            if status != 200:
+                raise SmokeFailure(f"warm-up request to controllable model {m}: {status} {body}")
+        decoder_loop.reset_launches()
+        calls, replies = {}, {}
+        for m in (0, 1):
+            payloads = [payload(m, i) for i in range(16)]
+            barrier = threading.Barrier(16)
+
+            def one(p):
+                barrier.wait()
+                return _post(port, p)
+
+            calls0, rows0 = srv.BATCH_CALLS
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(16) as ex:
+                got = list(ex.map(one, payloads))
+            wall = time.perf_counter() - t0
+            bad = [(s, b) for s, b, _ in got if s != 200]
+            if bad:
+                raise SmokeFailure(f"controllable wave to model {m}: {bad[:2]}")
+            calls[m], rows = srv.BATCH_CALLS[0] - calls0, srv.BATCH_CALLS[1] - rows0
+            lat = np.array([sec for _, _, sec in got])
+            waves[config["models"][m]["name"]] = {
+                "requests": 16, "decode_launches": calls[m], "rows_per_launch": rows / calls[m],
+                "p50_s": float(np.percentile(lat, 50)), "p95_s": float(np.percentile(lat, 95)),
+                "wall_s": wall}
+            print(f"  wave of 16 to {config['models'][m]['name']}: "
+                  f"{waves[config['models'][m]['name']]} on {card}")
+            if not rows / calls[m] > 1:
+                raise SmokeFailure(f"the controllable wave to model {m} did not coalesce")
+            replies[m] = (payloads, got)
+        ctl = dict(decoder_loop.CONTROLS_LAUNCHES)
+        want = {"lstm_cell": 256 * calls[0], "lstm_cell_int8": 256 * calls[1],
+                "quantize_xh": 256 * calls[1], "heads": 256 * (calls[0] + calls[1])}
+        print(f"  launches reading the controls in the waves: {ctl}")
+        if ctl != want:
+            raise SmokeFailure(f"controllable serve: launches reading the controls {ctl}, "
+                               f"want {want}")
+        for m in (0, 1):
+            payloads, got = replies[m]
+            for i in (0, 5, 11):  # voices 0, 1 and 3 (the sliders)
+                status, solo, _ = _post(port, payloads[i])
+                a = read_wav(str(root / got[i][1]["path"]))[0]
+                b = read_wav(str(root / solo["path"]))[0]
+                if status != 200 or len(a) != len(b):
+                    raise SmokeFailure(f"controllable request {i} alone: {status}, {len(b)} "
+                                       f"samples, batched {len(a)}")
+                lsb = np.abs(np.round(a * 32768) - np.round(b * 32768))
+                invariance.append({"model": m, "request": i, "samples": len(a),
+                                   "max_lsb": float(lsb.max())})
+        print(f"  controllable, batched vs alone, PCM16 LSB: {invariance}")
+        if max(x["max_lsb"] for x in invariance) > 0:
+            raise SmokeFailure(f"a controllable request's audio changed with its window: "
+                               f"{invariance}")
+    finally:
+        if "httpd" in holder:
+            holder["httpd"].shutdown()
+        thread.join(60)
+        os.chdir(cwd)
+    log["serve_controls"] = {"waves": waves, "controls_launches": ctl,
+                             "invariance": invariance, "card": card}
+    return {"lstm_cell[controls]": ctl["lstm_cell"],
+            "lstm_cell_int8[controls]": ctl["lstm_cell_int8"], "heads[controls]": ctl["heads"]}
+
+
 def serve_split(registry) -> dict:
     """Where a window's time goes: the batched decode (encoder, 256 steps,
     postnet) of each entry and the batched vocode, at 16 and 64 rows of the
@@ -2666,7 +3250,9 @@ def k1_ab() -> int:
     into build/parent) against this tree's, in turns parent, change,
     change, parent, each a ``--k1-rows`` process of its own (the two
     packages share a name; the second change turn adds ``cell_ab``); the
-    results go to chiprun_out/k1_ab.json."""
+    results go to chiprun_out/k1_ab.json. Fails unless the prenet's and
+    the vanilla chunks' outputs have the same bits in every turn (for a
+    change that does not mean to alter them)."""
     parent = ROOT / "build" / "parent"
     if not (parent / "tacotron2_tpu_torch").is_dir():
         print(f"FAIL: no parent package under {parent}", file=sys.stderr)
@@ -2705,8 +3291,18 @@ def k1_ab() -> int:
     same = all(s == shas[0] for s in shas[1:]) and bool(shas[0])
     print(f"  the prenet's outputs at {'/'.join(str(b) for b in UP_ROWS)} rows equal in every "
           f"turn, parent and change, bit for bit: {same}")
-    (OUT_DIR / "k1_ab.json").write_text(json.dumps({"turns": turns, "prenet_bits_equal": same},
-                                                   indent=1))
+    chunks = [{k: v.get("chunk_sha1") for k, v in t.get("serve_rows_split", {}).items()}
+              for t in turns]
+    chunk_same = all(c == chunks[0] for c in chunks[1:]) and bool(chunks[0])
+    print(f"  the vanilla 64-step chunks (bf16 and int8, at {'/'.join(str(b) for b in K1_ROWS)} "
+          f"rows) equal in every turn, parent and change, bit for bit: {chunk_same} "
+          f"(digests in the parent's turns: {chunks[0]})")
+    (OUT_DIR / "k1_ab.json").write_text(json.dumps(
+        {"turns": turns, "prenet_bits_equal": same, "chunk_bits_equal": chunk_same}, indent=1))
+    if not (same and chunk_same):
+        print("FAIL: the change's kernels gave other bits than the parent's on the same inputs",
+              file=sys.stderr)
+        return 1
     return max(t["rc"] for t in turns)
 
 
@@ -2754,7 +3350,8 @@ def main() -> int:
         for name, kernels in log["ptxas_kernels"].items():
             for k, v in kernels.items():
                 print(f"    {name}: {k}: {v['registers']} registers, {v['smem']} bytes static "
-                      f"smem, spills {v['spill_stores']} / {v['spill_loads']} bytes")
+                      f"smem, stack frame {v['stack']} bytes, spills {v['spill_stores']} / "
+                      f"{v['spill_loads']} bytes")
         if "--k2-ab" in sys.argv[1:]:
             torch.manual_seed(SEED + 1)
             hifigan = HiFiGAN(HiFiGANConfig.from_dict(UNIVERSAL_V1),
@@ -2780,6 +3377,9 @@ def main() -> int:
         cell_invariance(model, log)
         rows = k1_phase(model, cfg, chars, log, cells)
         rows += k5_phase(model, cfg, chars, log, cells)
+        print(f"[3c] K1's and K5's controls mode ({CTL_CONFIG}, full width) against their "
+              "plain versions at 1, 16 and 64 rows")
+        rows += controls_phase(model, chars, log)
         print(f"[3] where a serve window's decode goes (16 and 64 rows, L={SERVE_L})")
         serve_rows_split(model, cfg, log)
         for frames in (64, Tb):  # 64 frames, then the say's own bucket
@@ -2826,6 +3426,12 @@ def main() -> int:
         launches.update(k5_launches)
         for k, n in serve_phase(cfg_path, ckpt, g_path, log, card).items():
             launches[k] = launches.get(k, 0) + n
+        print(f"[4d] the controllable, multi-speaker path ({CTL_CONFIG}): say --speaker-id "
+              "--controls (bf16 and int8), then the warm server with a bf16 and an int8 entry")
+        ctl_ckpt, ctl_launches = say_controls_phase(g_path, log, card)
+        for k, n in serve_controls_phase(ctl_ckpt, g_path, log, card).items():
+            ctl_launches[k] += n
+        launches.update(ctl_launches)
         if log.get("deferred"):
             raise SmokeFailure("; ".join(log["deferred"]))
 

@@ -3,7 +3,7 @@
     python -m tacotron2_tpu_torch say --config config/vanilla-ljspeech-stop.json \\
         --checkpoint X.ckpt [--hifi-gan-checkpoint DIR/g_xxx] \\
         --text "..." --out o.wav --random-seed 7 [--max-len-override N] \\
-        [--quantize-int8] [--device cpu]
+        [--quantize-int8] [--speaker-id N] [--controls a,b,c,d,e] [--device cpu]
 
     python -m tacotron2_tpu_torch train --config C --speech-dir S --results-dir R \\
         [--resume-ckpt F] [--max-steps N] [--seed K] [--device cpu]
@@ -12,7 +12,10 @@
         [--port 8080] [--mode warm|subprocess] [--device cpu]
 
 The options mirror the JAX package's ``main.py say``, ``main.py train`` and
-``main.py server``; checkpoints are the reference's Lightning ``.ckpt``
+``main.py server``: ``--speaker-id`` picks a multi-speaker model's voice and
+``--controls`` gives a controllable model its controls, one number per
+feature of the config's ``extensions.controls``; checkpoints are the
+reference's Lightning ``.ckpt``
 (``train`` writes ``R/final.ckpt``, which ``say`` loads) and the vocoder an
 upstream HiFi-GAN ``g_*`` file with its ``config.json`` (Griffin-Lim
 without one). ``server``'s config is the JAX server's (``models``,
@@ -44,6 +47,11 @@ def _parser() -> argparse.ArgumentParser:
                    help="cap on decoded frames")
     s.add_argument("--quantize-int8", action="store_true",
                    help="decode with int8 LSTM weights (an approximate, faster mode)")
+    s.add_argument("--speaker-id", type=int, default=None,
+                   help="a speaker ID to use in inference if using a multi-speaker model")
+    s.add_argument("--controls", default=None,
+                   help="if controls are enabled, a comma-separated list of values to pass "
+                        "into the model")
     s.add_argument("--device", default=None, help="cuda (default) or cpu")
 
     t = sub.add_parser("train", help="train a Tacotron 2 model")
@@ -89,7 +97,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     return do_say(cfg, args.checkpoint, args.text, args.out,
                   hifi_gan_checkpoint=args.hifi_gan_checkpoint,
                   random_seed=args.random_seed, max_len_override=args.max_len_override,
-                  device=args.device, quantize_int8=args.quantize_int8)
+                  device=args.device, quantize_int8=args.quantize_int8,
+                  speaker_id=args.speaker_id, controls=args.controls)
 
 
 if __name__ == "__main__":

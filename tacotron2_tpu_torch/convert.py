@@ -77,9 +77,12 @@ def decoder_from_jax(dec: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 def from_jax_params(params: dict, state: Optional[dict]) -> Dict[str, torch.Tensor]:
-    """JAX Tacotron 2 (params, state) -> the port's state_dict (vanilla
-    configuration). With ``state`` None the BatchNorm running statistics
-    are left out, so a gradient tree of the params' structure maps too."""
+    """JAX Tacotron 2 (params, state) -> the port's state_dict: the vanilla
+    configuration, its speaker embedding (``speaker_embedding.table``) and
+    its controls (the decoder LSTM's and the mel head's inputs widened by
+    them, whose JAX layouts map as the vanilla ones do). With ``state``
+    None the BatchNorm running statistics are left out, so a gradient tree
+    of the params' structure maps too."""
     sd: Dict[str, torch.Tensor] = {}
     enc = params["encoder"]
     sd["encoder.embedding.weight"] = _t(enc["embedding"]["table"])
@@ -92,6 +95,8 @@ def from_jax_params(params: dict, state: Optional[dict]) -> Dict[str, torch.Tens
     _linear(sd, "prenet.0", params["prenet"]["fc1"])
     _linear(sd, "prenet.3", params["prenet"]["fc2"])
     _linear(sd, "att_encoder", params["att_encoder"])
+    if "speaker_embedding" in params:
+        sd["speaker_embedding.weight"] = _t(params["speaker_embedding"]["table"])
     sd.update(decoder_from_jax(params["decoder"], "decoder."))
     post = params["postnet"]
     for i in range(len(post["convs"])):

@@ -1,7 +1,7 @@
 // Kernels shared by K1 (decode_step.cu) and K3/K4 (train_decode.cu), for
 // sm_90a:
 //
-//   heads_kernel            mel + gate linear over [rnn_h | ctx] (K1)
+//   heads_kernel            mel + gate linear over [rnn_h | ctx | controls] (K1)
 //   att_fwd_cluster_kernel  the location attention's forward over a
 //                           thread-block cluster of S blocks per batch row:
 //                           query, folded location conv, tanh energies,
@@ -101,17 +101,19 @@ __device__ __forceinline__ void row_dot(const __nv_bfloat16* __restrict__ wrow,
 }
 
 // grid (ceil(N / kHeadsWarps), ceil(B / kGroup)), block kHeadsWarps warps;
-// warp -> output row, blockIdx.y -> a group of kGroup batch rows
+// warp -> output row, blockIdx.y -> a group of kGroup batch rows. The input
+// is [x1 | x2 | x3]: K1's [rnn_h | ctx | controls] (n3 = 0 without controls;
+// the gate's row has zero weights there, as JAX's gate reads [rnn_h | ctx])
 __global__ void heads_kernel(const __nv_bfloat16* __restrict__ W, const float* __restrict__ bias,
-                             const float* x1, int n1, const float* x2, int n2,
-                             float* __restrict__ out, int B, int N) {
+                             const float* x1, int n1, const float* x2, int n2, const float* x3,
+                             int n3, float* __restrict__ out, int B, int N) {
   extern __shared__ uint4 smem_u4[];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  const int R = n1 + n2;
+  const int R = n1 + n2 + n3;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kHeadsWarps + warp;
   const int b0 = blockIdx.y * kGroup, nb = min(kGroup, B - b0);
-  stage_inputs(xs, x1, n1, x2, n2, x2, 0, b0, nb);
+  stage_inputs(xs, x1, n1, x2, n2, x3, n3, b0, nb);
   __syncthreads();
   if (row < N) {
     float acc[kGroup];
@@ -572,14 +574,14 @@ int launch_att_fwd(const void* h, int ldh, const void* wq, const void* wloc, con
 }
 
 int launch_heads(const void* w, const void* b, const void* x1, int n1, const void* x2, int n2,
-                 void* out, int B, int N, cudaStream_t stream) {
-  const int R = n1 + n2;
+                 const void* x3, int n3, void* out, int B, int N, cudaStream_t stream) {
+  const int R = n1 + n2 + n3;
   const size_t smem = (size_t)kGroup * R * sizeof(__nv_bfloat16);
   if (R % 8 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const dim3 grid((N + kHeadsWarps - 1) / kHeadsWarps, (B + kGroup - 1) / kGroup);
   heads_kernel<<<grid, kHeadsWarps * 32, smem, stream>>>(
       (const __nv_bfloat16*)w, (const float*)b, (const float*)x1, n1, (const float*)x2, n2,
-      (float*)out, B, N);
+      (const float*)x3, n3, (float*)out, B, N);
   return (int)cudaGetLastError();
 }
 

@@ -15,7 +15,7 @@
 //   t2_location_attention  query, folded location conv, tanh energies,
 //                          masked softmax, context, cumulative weights, over
 //                          a thread-block cluster of S blocks per batch row
-//   t2_heads               mel + gate linear over [rnn_h | ctx]
+//   t2_heads               mel + gate linear over [rnn_h | ctx | controls]
 //   t2_decode_chunk        n steps of the four, five launches a step, from
 //                          one host call (the decode's main path)
 //
@@ -54,6 +54,17 @@
 //
 // Bound: the int8 LSTM weight bytes, 17.8 MB at the flagship dims, over HBM
 // bandwidth: 5.3 us per step, half of K1's.
+//
+// The controls mode of both (the controllable configs, _decode_chunk_kernel's
+// controls rows: xh[H + D : H + D + E] = controls :534, the heads' controls @
+// w_out[H + D:] :569): the decoder cell's input is [att_h | ctx | controls |
+// rnn_h] and the heads' [rnn_h | ctx | controls], the controls zero-padded
+// to E = a multiple of 16 columns (whole 16-byte pieces of the bf16 and
+// int8 operands; the weights' columns there are zero, as is the gate row's
+// over all E: JAX's gate reads [rnn_h | ctx]). The controls are a fourth
+// segment of the cell's operand, staged once per decode (a bf16 copy for K1,
+// the f32 values that K5's quantize_xh takes into the row's scale). They add
+// E = 16 of 2576 columns to the decoder cell and of 1552 to the heads.
 
 #include <algorithm>
 #include <type_traits>
@@ -154,6 +165,7 @@ constexpr int GC_NPW = GC_NTILE / 8 / GC_NSPLIT;  // n8 tiles a warp takes at mo
 constexpr int GC_UPR = GC_U / GC_S;        // units whose LSTM update a rank applies
 constexpr int GC_PREFETCH = 2;             // weight chunks streamed before the wait
 constexpr int GC_SMEM_MAX = 227 * 1024;
+constexpr int kSeg = 4;                    // segments of a cell's input
 static_assert(GC_ROWS % 16 == 0 && GC_CONSUMERS % GC_MT == 0 && GC_U % GC_S == 0 &&
                   GC_MAX_STAGES >= 2,
               "the cell kernel's tiling");
@@ -232,12 +244,17 @@ __device__ __forceinline__ void bar_consumers() {
 }
 
 // float4 at column col (a multiple of 4, not crossing a segment) of row b
-// of the f32 input [x1 | x2 | x3] (segments x[i], n[i] floats a row)
-__device__ __forceinline__ float4 input4(const float* const x[3], const int n[3], int b,
+// of the f32 input [x1 | x2 | x3 | x4] (segments x[i], n[i] floats a row; a
+// segment may be empty). The segments are picked with constant indices: an
+// index that varies would put the kernel's parameter arrays on the stack
+__device__ __forceinline__ float4 input4(const float* const x[kSeg], const int n[kSeg], int b,
                                          int col) {
-  const float* p = col < n[0]          ? x[0] + (size_t)b * n[0] + col
-                   : col < n[0] + n[1] ? x[1] + (size_t)b * n[1] + (col - n[0])
-                                       : x[2] + (size_t)b * n[2] + (col - n[0] - n[1]);
+  static_assert(kSeg == 4, "input4 picks one of four segments");
+  const int e0 = n[0], e1 = e0 + n[1], e2 = e1 + n[2];
+  const float* p = col < e0   ? x[0] + (size_t)b * n[0] + col
+                   : col < e1 ? x[1] + (size_t)b * n[1] + (col - e0)
+                   : col < e2 ? x[2] + (size_t)b * n[2] + (col - e1)
+                              : x[3] + (size_t)b * n[3] + (col - e2);
   return *reinterpret_cast<const float4*>(p);
 }
 
@@ -252,13 +269,21 @@ __device__ __forceinline__ uint32_t quantize4(float4 v, float sx) {
 }
 
 // a cell's xh operand: segment i (n[i] elements of esize bytes a row) at
-// x[i], rows pitch[i] bytes apart (bf16: the three producers' arrays; K5:
-// the three parts of quantize_xh's one int8 array)
+// x[i], rows pitch[i] bytes apart (bf16: the producers' arrays; K5: the
+// parts of quantize_xh's one int8 array). The attention cell reads [prenet |
+// ctx | att_h], the decoder cell [att_h | ctx | controls | rnn_h]; an empty
+// segment (n = 0) stands for the controls of a model without them.
 struct CellOperand {
-  const uint8_t* x[3];
-  int n[3];
-  int pitch[3];
+  const uint8_t* x[kSeg];
+  int n[kSeg];
+  int pitch[kSeg];
 };
+
+__host__ __device__ inline int operand_width(const CellOperand& xo) {
+  int R = 0;
+  for (int i = 0; i < kSeg; ++i) R += xo.n[i];
+  return R;
+}
 
 // grid (GC_S, H / GC_U), cluster (GC_S, 1, 1), GC_THREADS threads,
 // cell_smem(cell_kb(R), rows of a pass padded to 8).total bytes. wt: the
@@ -276,7 +301,7 @@ gate_cell_kernel(const uint8_t* __restrict__ wt, const CellOperand xo,
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(128) uint8_t gc_raw[];
   const int ES = INT8 ? 1 : 2, CW = cell_cw(INT8);
-  const int R = xo.n[0] + xo.n[1] + xo.n[2], nk = cell_chunks(R, INT8);
+  const int R = operand_width(xo), nk = cell_chunks(R, INT8);
   const int rank = (int)cluster.block_rank(), gi = blockIdx.y;
   const int c0 = rank * nk / GC_S, nc = (rank + 1) * nk / GC_S - c0;
   const int nrows = (min(B, GC_NTILE) + 7) & ~7;
@@ -328,7 +353,7 @@ gate_cell_kernel(const uint8_t* __restrict__ wt, const CellOperand xo,
       if (lane == 0) mbar_expect_tx(xs_full, (uint32_t)(bt * (hi - lo) * ES));
       __syncwarp();
       for (int b = lane; b < bt; b += 32)
-        for (int i = 0, seg = 0; i < 3; seg += xo.n[i], ++i) {
+        for (int i = 0, seg = 0; i < kSeg; seg += xo.n[i], ++i) {
           const int a = max(lo, seg), e = min(hi, seg + xo.n[i]);
           if (a < e)
             bulk_load(xs + (size_t)b * o.xs_stride + (a - lo) * ES,
@@ -456,24 +481,31 @@ gate_cell_kernel(const uint8_t* __restrict__ wt, const CellOperand xo,
   }
 }
 
-// K5's operand: row b of the f32 input [x1 | x2 | x3] (n_i % 4 == 0)
-// quantised over all of R (scale max|x| / 127 from the f32 values, q =
-// clip(round_half_even(x / scale), -127, 127), true division) into xq (B,
-// R) int8 and sx (B,). grid B, 256 threads. Launched with programmatic
+// K5's operand: row b of the f32 input [x1 | x2 | x3 | x4] (n_i % 4 == 0;
+// the decoder cell's [att_h | ctx | controls | rnn_h], the attention cell's
+// with no controls) quantised over all of R, the controls included (scale
+// max|x| / 127 from the f32 values, q = clip(round_half_even(x / scale),
+// -127, 127), true division) into xq (B, R) int8 and sx (B,). grid B, 256
+// threads. Launched with programmatic
 // dependent launch (it waits for the previous kernel before it reads or
 // writes; after the attention, which lets it start at once, its launch
 // overlaps the attention: the int8 chunk read ~1 us a step faster with the
 // host's launches at one row, 1.3-3 at 16 rows, chip_smoke.py --k1-ab);
 // the next launch (the cell) may start at once and stream its weights.
-__global__ void __launch_bounds__(256) quantize_xh_kernel(
-    const float* __restrict__ x1, int n1, const float* __restrict__ x2, int n2,
-    const float* __restrict__ x3, int n3, int8_t* __restrict__ xq, float* __restrict__ sx) {
+struct QuantInput {
+  const float* x[kSeg];
+  int n[kSeg];
+};
+
+__global__ void __launch_bounds__(256) quantize_xh_kernel(const QuantInput in,
+                                                          int8_t* __restrict__ xq,
+                                                          float* __restrict__ sx) {
   pdl_trigger();
   pdl_wait();
   __shared__ float red[32];
-  const float* const x[3] = {x1, x2, x3};
-  const int n[3] = {n1, n2, n3};
-  const int b = blockIdx.x, R = n1 + n2 + n3;
+  const float* const x[kSeg] = {in.x[0], in.x[1], in.x[2], in.x[3]};
+  const int n[kSeg] = {in.n[0], in.n[1], in.n[2], in.n[3]};
+  const int b = blockIdx.x, R = n[0] + n[1] + n[2] + n[3];
   float m = 0.0f;
   for (int k = threadIdx.x * 4; k < R; k += blockDim.x * 4) {
     const float4 v = input4(x, n, b, k);
@@ -651,18 +683,21 @@ int launch_k1_att(const void* h, const void* wq, const void* wloc, const void* w
       ctx_bf, D, B, S, L, H, A, D, K, false, stream);
 }
 
-// bf16 operand: three (B, n_i) arrays
-CellOperand bf16_operand(const void* x1, int n1, const void* x2, int n2, const void* x3, int n3) {
-  return CellOperand{{(const uint8_t*)x1, (const uint8_t*)x2, (const uint8_t*)x3},
-                     {n1, n2, n3},
-                     {2 * n1, 2 * n2, 2 * n3}};
+// bf16 operand: the (B, n_i) arrays [x1 | x2 | xc | x3], xc the controls
+// (nc = 0: none)
+CellOperand bf16_operand(const void* x1, int n1, const void* x2, int n2, const void* xc, int nc,
+                         const void* x3, int n3) {
+  return CellOperand{{(const uint8_t*)x1, (const uint8_t*)x2, (const uint8_t*)xc,
+                      (const uint8_t*)x3},
+                     {n1, n2, nc, n3},
+                     {2 * n1, 2 * n2, 2 * nc, 2 * n3}};
 }
 
-// K5's operand: the three parts of quantize_xh's (B, n1 + n2 + n3) int8 array
-CellOperand int8_operand(const void* xq, int n1, int n2, int n3) {
+// K5's operand: the parts of quantize_xh's (B, n1 + n2 + nc + n3) int8 array
+CellOperand int8_operand(const void* xq, int n1, int n2, int nc, int n3) {
   const uint8_t* q = (const uint8_t*)xq;
-  const int R = n1 + n2 + n3;
-  return CellOperand{{q, q + n1, q + n1 + n2}, {n1, n2, n3}, {R, R, R}};
+  const int R = n1 + n2 + nc + n3;
+  return CellOperand{{q, q + n1, q + n1 + n2, q + n1 + n2 + nc}, {n1, n2, nc, n3}, {R, R, R, R}};
 }
 
 // the cell's launch: grid (GC_S, H / GC_U), a cluster of GC_S blocks, with
@@ -672,9 +707,9 @@ template <bool INT8>
 int launch_gate_cell(const void* wt, const CellOperand& xo, const void* ws, const void* sx,
                      const void* b, const void* c_in, void* h_out, void* c_out, void* h_bf, int B,
                      int H, cudaStream_t stream) {
-  const int R = xo.n[0] + xo.n[1] + xo.n[2], nk = cell_chunks(R, INT8);
+  const int R = operand_width(xo), nk = cell_chunks(R, INT8);
   bool aligned = ((uintptr_t)wt & 15) == 0;
-  for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < kSeg; ++i)
     aligned = aligned && ((uintptr_t)xo.x[i] & 15) == 0 && xo.pitch[i] % 16 == 0 &&
               xo.n[i] % 16 == 0;
   if (B < 1 || H < GC_U || H % GC_U || nk < GC_S || !aligned)
@@ -690,11 +725,13 @@ int launch_gate_cell(const void* wt, const CellOperand& xo, const void* ws, cons
                    (float*)c_out, (bf16*)h_bf, B, H);
 }
 
-int launch_quantize_xh(const void* x1, int n1, const void* x2, int n2, const void* x3, int n3,
-                         void* xq, void* sx, int B, cudaStream_t stream) {
-  if (B < 1 || n1 % 4 || n2 % 4 || n3 % 4) return (int)cudaErrorInvalidValue;
-  return launch_ex(quantize_xh_kernel, dim3(B), kNoCluster, 256, 0, true, stream,
-                   (const float*)x1, n1, (const float*)x2, n2, (const float*)x3, n3,
+// the f32 input [x1 | x2 | xc | x3], xc the controls (nc = 0: none)
+int launch_quantize_xh(const void* x1, int n1, const void* x2, int n2, const void* xc, int nc,
+                       const void* x3, int n3, void* xq, void* sx, int B, cudaStream_t stream) {
+  if (B < 1 || n1 % 4 || n2 % 4 || nc % 4 || n3 % 4) return (int)cudaErrorInvalidValue;
+  const QuantInput in{{(const float*)x1, (const float*)x2, (const float*)xc, (const float*)x3},
+                      {n1, n2, nc, n3}};
+  return launch_ex(quantize_xh_kernel, dim3(B), kNoCluster, 256, 0, true, stream, in,
                    (int8_t*)xq, (float*)sx);
 }
 
@@ -721,33 +758,38 @@ int launch_prenet(const void* mel, int ldm, const void* wt, const void* m1, cons
 
 extern "C" {
 
-// the LSTM cell over the tiled copy wt of its weights (pack_decoder): x_i
-// (B, n_i) bf16 operands; c_in, h_out, c_out (B, H) f32
+// the LSTM cell over the tiled copy wt of its weights (pack_decoder): its
+// input [x1 | x2 | xc | x3], (B, n_i) bf16 operands each, xc the controls
+// (nc = 0: none); c_in, h_out, c_out (B, H) f32
 int t2_lstm_cell(const void* wt, const void* b, const void* x1, int n1, const void* x2, int n2,
-                 const void* x3, int n3, const void* c_in, void* h_out, void* c_out, int B, int H,
-                 void* stream) {
-  return launch_gate_cell<false>(wt, bf16_operand(x1, n1, x2, n2, x3, n3), nullptr, nullptr, b,
-                                 c_in, h_out, c_out, nullptr, B, H, (cudaStream_t)stream);
+                 const void* xc, int nc, const void* x3, int n3, const void* c_in, void* h_out,
+                 void* c_out, int B, int H, void* stream) {
+  return launch_gate_cell<false>(wt, bf16_operand(x1, n1, x2, n2, xc, nc, x3, n3), nullptr,
+                                 nullptr, b, c_in, h_out, c_out, nullptr, B, H,
+                                 (cudaStream_t)stream);
 }
 
-// K5's operand: x_i (B, n_i) f32 -> xq (B, n1 + n2 + n3) int8, sx (B,) f32
-int t2_quantize_xh(const void* x1, int n1, const void* x2, int n2, const void* x3, int n3,
-                   void* xq, void* sx, int B, void* stream) {
-  return launch_quantize_xh(x1, n1, x2, n2, x3, n3, xq, sx, B, (cudaStream_t)stream);
+// K5's operand: [x1 | x2 | xc | x3], (B, n_i) f32 each -> xq (B, n1 + n2 +
+// nc + n3) int8, sx (B,) f32
+int t2_quantize_xh(const void* x1, int n1, const void* x2, int n2, const void* xc, int nc,
+                   const void* x3, int n3, void* xq, void* sx, int B, void* stream) {
+  return launch_quantize_xh(x1, n1, x2, n2, xc, nc, x3, n3, xq, sx, B, (cudaStream_t)stream);
 }
 
 // K5: the LSTM cell over int8 weights with row scales ws on the operand
-// that t2_quantize_xh made (xq, sx); n_i the segments' widths
+// that t2_quantize_xh made (xq, sx); n1, n2, nc, n3 the segments' widths
 int t2_lstm_cell_int8(const void* wt, const void* ws, const void* b, const void* xq,
-                      const void* sx, int n1, int n2, int n3, const void* c_in, void* h_out,
-                      void* c_out, int B, int H, void* stream) {
-  return launch_gate_cell<true>(wt, int8_operand(xq, n1, n2, n3), ws, sx, b, c_in, h_out, c_out,
-                                nullptr, B, H, (cudaStream_t)stream);
+                      const void* sx, int n1, int n2, int nc, int n3, const void* c_in,
+                      void* h_out, void* c_out, int B, int H, void* stream) {
+  return launch_gate_cell<true>(wt, int8_operand(xq, n1, n2, nc, n3), ws, sx, b, c_in, h_out,
+                                c_out, nullptr, B, H, (cudaStream_t)stream);
 }
 
+// the heads over [x1 | x2 | xc], (B, n_i) f32 each, xc the controls (nc = 0:
+// none)
 int t2_heads(const void* w, const void* b, const void* x1, int n1, const void* x2, int n2,
-             void* out, int B, int N, void* stream) {
-  return launch_heads(w, b, x1, n1, x2, n2, out, B, N, (cudaStream_t)stream);
+             const void* xc, int nc, void* out, int B, int N, void* stream) {
+  return launch_heads(w, b, x1, n1, x2, n2, xc, nc, out, B, N, (cudaStream_t)stream);
 }
 
 // the prenet over the tiled copy wt of its weights (pack_decoder,
@@ -784,18 +826,26 @@ int t2_location_attention(const void* h, const void* wq, const void* wloc, const
 //   p[41..42] int8 mode: the cells' quantised operand, (B, max(R1, R2))
 //             int8, and its row scales (B,) f32 (quantize_xh)
 //   p[43]     the prenet's tiled weight copy (pack_decoder, tile_prenet)
+//   p[44..45] the controls, E columns each (zero past the model's own):
+//             (B, E) f32, which the heads and K5's quantize_xh read, and its
+//             bf16 operand (B, E), which K1's decoder cell reads; staged once
+//             per decode (the request's controls do not change); null where
+//             E = 0
 // Step t writes slot t % 2 and reads slot (t - 1) % 2 (the state in at t = 0);
 // the previous attention weights and mel are the aligns and mel_gate rows of
-// step t - 1. d = {n, B, M, P, H, D, L, A, K, int8, S}: with int8 != 0, w_att
-// and w_dec are int8 and both LSTM cells run on K5 (a quantize_xh launch
-// before each); S blocks per batch row in the attention's cluster. Each
-// cell streams its first weight chunks while the launch before it runs
-// (launch_gate_cell).
+// step t - 1. d = {n, B, M, P, H, D, L, A, K, int8, S, E}: with int8 != 0,
+// w_att and w_dec are int8 and both LSTM cells run on K5 (a quantize_xh
+// launch before each); S blocks per batch row in the attention's cluster;
+// E the controls' columns (a multiple of 16, or 0), with which the decoder
+// cell reads [att_h | ctx | controls | rnn_h] (w_dec (4H, 2H + D + E)) and
+// the heads [rnn_h | ctx | controls] (w_out (M + 1, H + D + E)), as
+// _decode_chunk_kernel's xh (:534) and heads (:569). Each cell streams its
+// first weight chunks while the launch before it runs (launch_gate_cell).
 int t2_decode_chunk(void** p, const int* d, void* stream_) {
   const int n = d[0], B = d[1], M = d[2], P = d[3], H = d[4], D = d[5], L = d[6], A = d[7],
             K = d[8], N = M + 1;
   const bool int8 = d[9] != 0;
-  const int S = d[10];
+  const int S = d[10], E = d[11];
   cudaStream_t stream = (cudaStream_t)stream_;
   auto bslot = [&](int i, int t) -> bf16* { return (bf16*)p[i] + (size_t)(t & 1) * B * H; };
   // the cells' operands: bf16, the attention cell's for the att_h slot it
@@ -803,10 +853,10 @@ int t2_decode_chunk(void** p, const int* d, void* stream_) {
   // int8, the two layouts of the quantised operand
   CellOperand att_x[2], dec_x[2];
   for (int par = 0; par < 2; ++par) {
-    att_x[par] = int8 ? int8_operand(p[41], P, D, H)
-                      : bf16_operand(p[37], P, p[38], D, bslot(39, par), H);
-    dec_x[par] = int8 ? int8_operand(p[41], H, D, H)
-                      : bf16_operand(bslot(39, par), H, p[38], D, bslot(40, par + 1), H);
+    att_x[par] = int8 ? int8_operand(p[41], P, D, 0, H)
+                      : bf16_operand(p[37], P, p[38], D, nullptr, 0, bslot(39, par), H);
+    dec_x[par] = int8 ? int8_operand(p[41], H, D, E, H)
+                      : bf16_operand(bslot(39, par), H, p[38], D, p[45], E, bslot(40, par + 1), H);
   }
   int err = 0;
   auto cell = [&](const CellOperand& xo, int wt, int b, int scale, const void* c_in, void* h_out,
@@ -835,7 +885,7 @@ int t2_decode_chunk(void** p, const int* d, void* stream_) {
     err = launch_prenet(mel, first ? M : N, p[43], (const float*)p[14] + mo,
                         (const float*)p[15] + mo, p[26], int8 ? nullptr : p[37], B, M, P, stream);
     if (!err && int8)
-      err = launch_quantize_xh(p[26], P, ctx, D, att_h, H, p[41], p[42], B, stream);
+      err = launch_quantize_xh(p[26], P, ctx, D, nullptr, 0, att_h, H, p[41], p[42], B, stream);
     if (!err)
       err = cell(att_x[(t - 1) & 1], 35, 1, 33, att_c, slot(27, t, H), slot(28, t, H),
                  bslot(39, t));
@@ -844,12 +894,12 @@ int t2_decode_chunk(void** p, const int* d, void* stream_) {
                           slot(29, t, D), int8 ? nullptr : p[38], al + (size_t)t * B * L,
                           slot(30, t, L), B, L, H, A, D, K, S, stream);
     if (!err && int8)
-      err = launch_quantize_xh(slot(27, t, H), H, slot(29, t, D), D, rnn_h, H, p[41], p[42], B,
-                               stream);
+      err = launch_quantize_xh(slot(27, t, H), H, slot(29, t, D), D, p[44], E, rnn_h, H, p[41],
+                               p[42], B, stream);
     if (!err)
       err = cell(dec_x[t & 1], 36, 3, 34, rnn_c, slot(31, t, H), slot(32, t, H), bslot(40, t));
     if (!err)
-      err = launch_heads(p[9], p[10], slot(31, t, H), H, slot(29, t, D), D,
+      err = launch_heads(p[9], p[10], slot(31, t, H), H, slot(29, t, D), D, p[44], E,
                          mg + (size_t)t * B * N, B, N, stream);
     if (err) return err;
   }

@@ -2,8 +2,10 @@
 
 Counterpart of ``tacotron2_tpu/models/decoder.py`` at inference (no LSTM
 dropout): attention LSTMCell([prenet, context]) -> location attention ->
-cumulative-weight update -> decoder LSTMCell([att_h, context]) -> gate and
-mel heads over [rnn_h, context]. This is the model's own definition of a
+cumulative-weight update -> decoder LSTMCell([att_h, context, controls]) ->
+gate head over [rnn_h, context] and mel head over [rnn_h, context,
+controls] (the controls of a controllable model, JAX's
+``extra_decoder_in``; none otherwise). This is the model's own definition of a
 step; the production decode runs the same math through the kernels of
 ``ops/decoder_loop.py``.
 """
@@ -43,17 +45,20 @@ def init_state(batch: int, encoded_len: int, att_rnn_dim: int,
 
 class Decoder(nn.Module):
     def __init__(self, num_mels: int, embedding_dim: int, prenet_dim: int,
-                 att_rnn_dim: int, att_dim: int, rnn_hidden_dim: int):
+                 att_rnn_dim: int, att_dim: int, rnn_hidden_dim: int, controls_dim: int = 0):
         super().__init__()
+        self.controls_dim = controls_dim
         self.att_rnn = nn.LSTMCell(prenet_dim + embedding_dim, att_rnn_dim)
         self.attention = LocationAttention(att_rnn_dim, embedding_dim, att_dim)
-        self.lstm = nn.LSTMCell(att_rnn_dim + embedding_dim, rnn_hidden_dim)
-        self.mel_out = nn.Linear(rnn_hidden_dim + embedding_dim, num_mels)
+        self.lstm = nn.LSTMCell(att_rnn_dim + embedding_dim + controls_dim, rnn_hidden_dim)
+        self.mel_out = nn.Linear(rnn_hidden_dim + embedding_dim + controls_dim, num_mels)
         self.gate = nn.Linear(rnn_hidden_dim + embedding_dim, 1)
 
     def step(self, prev_mel_prenet, state: DecoderState, encoded, att_encoded,
-             encoded_mask, policy: Policy = F32):
-        """One step -> (mel (B, M), gate (B, 1), new_state)."""
+             encoded_mask, policy: Policy = F32, controls=None):
+        """One step -> (mel (B, M), gate (B, 1), new_state); ``controls``
+        (B, controls_dim) for a controllable decoder."""
+        extra = [] if controls is None else [controls]
         a = self.att_rnn
         att_h, att_c = layers.lstm_cell(
             torch.cat([prev_mel_prenet, state.att_context], dim=-1),
@@ -64,11 +69,12 @@ class Decoder(nn.Module):
             state.att_weights_cum, encoded_mask, policy)
         d = self.lstm
         rnn_h, rnn_c = layers.lstm_cell(
-            torch.cat([att_h, context], dim=-1), (state.rnn_h, state.rnn_c),
+            torch.cat([att_h, context] + extra, dim=-1), (state.rnn_h, state.rnn_c),
             d.weight_ih, d.weight_hh, d.bias_ih, d.bias_hh, policy)
         head_in = torch.cat([rnn_h, context], dim=-1)
         gate = layers.linear(head_in, self.gate.weight, self.gate.bias, policy)
-        mel = layers.linear(head_in, self.mel_out.weight, self.mel_out.bias, policy)
+        mel = layers.linear(torch.cat([head_in] + extra, dim=-1), self.mel_out.weight,
+                            self.mel_out.bias, policy)
         new_state = DecoderState(att_h, att_c, context, weights,
                                  state.att_weights_cum + weights, rnn_h, rnn_c)
         return mel, gate, new_state

@@ -1,10 +1,14 @@
 """Tacotron 2 top module and its free-running decodes.
 
 Counterpart of ``tacotron2_tpu/models/tacotron2.py`` for the vanilla
-configuration (no speaker tokens, controls, description embeddings or GST):
-encoder -> attention-memory projection -> prenet with AlwaysDropout (on at
+configuration and its speaker tokens and controls (not description
+embeddings or GST): encoder -> speaker fusion tanh(encoded + speaker
+embedding) where the model has speaker tokens -> attention-memory
+projection -> prenet with AlwaysDropout (on at
 inference) -> free-running decode that stops once every row's gate logit is
-negative -> postnet residual -> length masking (mels -> 0, gates -> -1000).
+negative, the controls of a controllable model in its decoder LSTM's and
+mel head's inputs -> postnet residual -> length masking (mels -> 0, gates
+-> -1000).
 
 ``forward_infer`` is the reference decode, one step at a time through the
 model's own modules with a stop check after every step. ``forward_infer_fast``
@@ -48,6 +52,10 @@ class Tacotron2Config:
     rnn_hidden_dim: int = 1024
     postnet_dim: int = 512
     dropout: float = 0.5
+    speaker_tokens: bool = False
+    num_speakers: int = 1
+    controls: bool = False
+    controls_dim: int = 0
 
 
 class Tacotron2Output(NamedTuple):
@@ -71,30 +79,56 @@ class Tacotron2(nn.Module):
             nn.Linear(c.num_mels, c.prenet_dim, bias=False), nn.ReLU(), nn.Dropout(c.dropout),
             nn.Linear(c.prenet_dim, c.prenet_dim, bias=False), nn.ReLU(), nn.Dropout(c.dropout),
         )
+        if c.speaker_tokens:  # the reference's name (model/tacotron2.py)
+            self.speaker_embedding = nn.Embedding(c.num_speakers, c.encoded_dim)
         self.att_encoder = nn.Linear(c.encoded_dim, c.att_dim, bias=False)
         self.decoder = decoder_mod.Decoder(
             c.num_mels, c.encoded_dim, c.prenet_dim, c.att_rnn_dim, c.att_dim,
-            c.rnn_hidden_dim)
+            c.rnn_hidden_dim, c.controls_dim)
         self.postnet = Postnet(c.num_mels, c.postnet_dim)
 
     # ------------------------------------------------------------------
     def _encode(self, chars_idx, chars_len, train: bool = False, generator=None,
-                rows: Optional[int] = None):
+                rows: Optional[int] = None, speaker_id: Optional[torch.Tensor] = None):
         """-> encoded (B, L, D), att_encoded (B, L, A), the padded chars'
         mask. ``rows``: run the encoder and its attention projection on
         this many rows (empty rows after the batch's, dropped after), so
-        their products have one shape whatever B is."""
+        their products have one shape whatever B is. ``speaker_id`` (B,):
+        a multi-speaker model's voices, fused as tanh(encoded + embedding)
+        (JAX ``_encode``)."""
+        if self.cfg.speaker_tokens and speaker_id is None:
+            raise ValueError("speaker_id tensor required when speaker tokens are active!")
         B = chars_idx.shape[0]
         ci, cl = chars_idx, chars_len
         if rows is not None and rows > B:
             ci = torch.nn.functional.pad(chars_idx, (0, 0, 0, rows - B))
             cl = torch.cat([chars_len, chars_len.new_ones(rows - B)])
         encoded = self.encoder(ci, cl, self.policy, train, self.cfg.dropout, generator)
+        if self.cfg.speaker_tokens:
+            spk = torch.as_tensor(speaker_id).reshape(B).long().cpu()
+            if not bool(((spk >= 0) & (spk < self.cfg.num_speakers)).all()):
+                raise ValueError(f"speaker_id {spk.tolist()} out of range "
+                                 f"[0, {self.cfg.num_speakers})")
+            # empty rows: voice 0
+            spk = torch.nn.functional.pad(spk, (0, ci.shape[0] - B)).to(ci.device)
+            encoded = torch.tanh(encoded + self.speaker_embedding.weight[spk][:, None, :])
         att_encoded = layers.linear(encoded, self.att_encoder.weight, None, self.policy)
         encoded, att_encoded = encoded[:B], att_encoded[:B]
         char_pos = torch.arange(chars_idx.shape[1], device=chars_idx.device)
         mask = char_pos[None, :] >= chars_len[:, None]
         return encoded, att_encoded, mask
+
+    def _check_controls(self, controls, B: int) -> None:
+        """A controllable model takes controls (B, controls_dim); another
+        none (JAX ``_check_controls``, with the shape checked too)."""
+        c = self.cfg
+        if c.controls and controls is None:
+            raise ValueError("Controls are enabled, but no control vector was passed!")
+        if not c.controls and controls is not None:
+            raise ValueError("Controls are disabled, but a control vector was passed!")
+        if controls is not None and tuple(controls.shape) != (B, c.controls_dim):
+            raise ValueError(f"want controls of shape ({B}, {c.controls_dim}), got "
+                             f"{tuple(controls.shape)}")
 
     def _prenet(self, x, m1, m2):
         x = torch.relu(layers.linear(x, self.prenet[0].weight, None, self.policy)) * m1
@@ -141,6 +175,10 @@ class Tacotron2(nn.Module):
         c = self.cfg
         if c.att_rnn_dim != c.rnn_hidden_dim:
             raise ValueError("the teacher-forced decode needs att_rnn_dim == rnn_hidden_dim")
+        if c.speaker_tokens or c.controls_dim:
+            raise NotImplementedError(
+                "training with speaker tokens or controls is not ported yet (the controls "
+                "rows of K3 and K4, ROADMAP B1.2-3)")
         B, T, _ = mel.shape
         dev = mel.device
         encoded, att_encoded, _ = self._encode(chars_idx, chars_len, train, generator)
@@ -164,16 +202,22 @@ class Tacotron2(nn.Module):
     def forward_infer(self, chars_idx, chars_len, max_len: int,
                       generator: Optional[torch.Generator] = None,
                       prenet_dropout: bool = True,
-                      masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                      ) -> Tacotron2Output:
+                      masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      speaker_id: Optional[torch.Tensor] = None,
+                      controls: Optional[torch.Tensor] = None) -> Tacotron2Output:
         """Reference decode: one step at a time, stop after the step where
         every row's gate has fired. Masks are drawn in 64-frame chunks in
         the same order as ``forward_infer_fast``, so one generator state
-        gives both the same audio."""
+        gives both the same audio. ``speaker_id`` (B,) and ``controls`` (B,
+        controls_dim): a multi-speaker and a controllable model's, each row
+        its own."""
         c = self.cfg
         B, L = chars_idx.shape
         dev = chars_idx.device
-        encoded, att_encoded, mask = self._encode(chars_idx, chars_len)
+        self._check_controls(controls, B)
+        if controls is not None:
+            controls = controls.to(device=dev, dtype=torch.float32)
+        encoded, att_encoded, mask = self._encode(chars_idx, chars_len, speaker_id=speaker_id)
         state = decoder_mod.init_state(B, L, c.att_rnn_dim, c.encoded_dim,
                                        c.rnn_hidden_dim, dev)
         mels = torch.zeros(B, max_len, c.num_mels, device=dev)
@@ -193,7 +237,7 @@ class Tacotron2(nn.Module):
             k = t % decoder_loop.T_CHUNK
             x = self._prenet(prev, m1[k], m2[k])
             mel, gate, state = self.decoder.step(x, state, encoded, att_encoded, mask,
-                                                 self.policy)
+                                                 self.policy, controls)
             g = gate[:, 0]
             mels[:, t], gates[:, t], aligns[:, t] = mel, g, state.att_weights
             done = done | (g < 0.0)
@@ -214,7 +258,9 @@ class Tacotron2(nn.Module):
                            quantize: bool = False,
                            packed: Optional[decoder_loop.PackedDecoder] = None,
                            row_generators: Optional[Sequence[torch.Generator]] = None,
-                           encode_rows: Optional[int] = None) -> Tacotron2Output:
+                           encode_rows: Optional[int] = None,
+                           speaker_id: Optional[torch.Tensor] = None,
+                           controls: Optional[torch.Tensor] = None) -> Tacotron2Output:
         """Production decode through kernel K1 (``ops/decoder_loop.py``), or
         through K5 for an int8 pack: the kernels on the card, their plain
         versions on the CPU. ``quantize``: pack the decoder int8 for this
@@ -225,21 +271,28 @@ class Tacotron2(nn.Module):
         ``row_rngs``); it takes the place of ``generator``. ``encode_rows``:
         the rows the encoder runs (``_encode``'s ``rows``): a server that
         passes its largest window makes a row's encoding the same in every
-        window (bf16 products of another shape may sum in another order)."""
+        window (bf16 products of another shape may sum in another order).
+        ``speaker_id`` (B,) and ``controls`` (B, controls_dim): each row's
+        voice and controls, for a multi-speaker and a controllable model
+        (the controls go through the controls rows of K1 or K5)."""
         c = self.cfg
-        encoded, att_encoded, _ = self._encode(chars_idx, chars_len, rows=encode_rows)
+        self._check_controls(controls, chars_idx.shape[0])
+        encoded, att_encoded, _ = self._encode(chars_idx, chars_len, rows=encode_rows,
+                                               speaker_id=speaker_id)
         pk = packed if packed is not None else self.make_packed_decoder(quantize)
         mels, gates, aligns, lengths, n_frames = decoder_loop.decode(
             pk, encoded.to(pk.wq.dtype).contiguous(), att_encoded.contiguous(),
             chars_len.to(torch.int32).contiguous(), max_len, dropout=c.dropout,
             generator=generator if row_generators is None else list(row_generators),
-            prenet_dropout=prenet_dropout, masks=masks)
+            prenet_dropout=prenet_dropout, masks=masks, controls=controls)
         post = self.postnet(mels, self.policy)
         return self._mask_outputs(mels, mels + post, gates[..., None], aligns, lengths,
                                   n_frames)
 
     def make_packed_decoder(self, quantize: bool = False) -> decoder_loop.PackedDecoder:
-        """The decoder in the kernels' layout, int8 with ``quantize``: a
-        warm server packs once at load and passes it to every decode."""
+        """The decoder in the kernels' layout, int8 with ``quantize``, with
+        the controls' columns of a controllable model: a warm server packs
+        once at load and passes it to every decode (each decode brings its
+        rows' controls)."""
         return decoder_loop.pack_decoder(self.prenet, self.decoder, self.policy.compute_dtype,
                                          quantize)

@@ -30,6 +30,16 @@ kernels over the whole card (``csrc/decode_step.cu``):
   the batch);
 - ``heads``: the mel and gate linear over [rnn_h, ctx].
 
+The controls mode (the controllable configs; the same TPU kernel's controls
+rows, ``_decode_chunk_kernel`` :534 and :569, packed by
+``pack_decoder_params`` :115-122 and :145-149): the decoder cell reads [att_h
+| ctx | controls | rnn_h] and the heads [rnn_h | ctx | controls], the
+request's controls zero-padded to ``controls_cols`` = a multiple of 16
+(whole 16-byte pieces of the cells' operands), with zero weight columns
+there and in the gate's row (the gate reads [rnn_h | ctx] alone). The
+controls are staged once per decode (``stage_controls``). A pack of a model
+without controls has no controls columns.
+
 What bounds a step at every batch the decode runs (1 to 64 rows): the bytes
 of the bf16 LSTM weights, 2 x 4H x (P + D + H | 2H + D) x 2 B = 35.7 MB at
 the flagship dims, over the HBM rate (3.35 TB/s): 10.7 us; a 64-row step's
@@ -71,6 +81,10 @@ T_CHUNK = 64  # frames per chunk; early stop is checked once per chunk
 # launches of each kernel; counted only where the kernel is launched
 LAUNCHES = {"prenet": 0, "lstm_cell": 0, "quantize_xh": 0, "lstm_cell_int8": 0,
             "location_attention": 0, "heads": 0}
+# of those, the launches that read a request's controls (the controls mode's
+# decoder cell, its quantize_xh and the heads): a run shows by them that its
+# controls went through the kernels' controls rows
+CONTROLS_LAUNCHES = {"lstm_cell": 0, "quantize_xh": 0, "lstm_cell_int8": 0, "heads": 0}
 PACK_CALLS = [0]  # pack_decoder calls: a warm server packs each model once
 ACT_INT8 = torch.bfloat16  # operand type of the products other than the int8 cells
 GATE_UNITS = 16  # hidden units per cluster of the cell kernel (csrc/decode_step.cu GC_U)
@@ -81,8 +95,15 @@ PRENET_SMEM = 227 * 1024  # shared memory a block may use
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for table in (LAUNCHES, CONTROLS_LAUNCHES):
+        for k in table:
+            table[k] = 0
+
+
+def _count(name: str, n: int = 1, controls: bool = False) -> None:
+    build.count(LAUNCHES, name, n)
+    if controls:
+        build.count(CONTROLS_LAUNCHES, name, n)
 
 
 class PackedDecoder(NamedTuple):
@@ -90,14 +111,14 @@ class PackedDecoder(NamedTuple):
 
     w_att: torch.Tensor  # (4H, P + D + H) rows = gates; cols [prenet | ctx | att_h]
     b_att: torch.Tensor  # (4H,) f32, b_ih + b_hh
-    w_dec: torch.Tensor  # (4H, H + D + H) cols [att_h | ctx | rnn_h]
+    w_dec: torch.Tensor  # (4H, H + D + E + H) cols [att_h | ctx | controls | rnn_h]
     b_dec: torch.Tensor  # (4H,) f32
     wp1_t: torch.Tensor  # (M, P) prenet fc1, input-major
     wp2_t: torch.Tensor  # (P, P) prenet fc2, input-major
     wq: torch.Tensor  # (A, H) query projection
     w_loc: torch.Tensor  # (A, 2, K) location conv folded with the location dense
     wv: torch.Tensor  # (A,) energy vector
-    w_out: torch.Tensor  # (M + 1, H + D) rows 0..M-1 mel, row M gate
+    w_out: torch.Tensor  # (M + 1, H + D + E) rows 0..M-1 mel, row M gate (0 over controls)
     b_out: torch.Tensor  # (M + 1,) f32
     s_att: Optional[torch.Tensor] = None  # int8 mode: (4H,) f32 scale of each w_att row
     s_dec: Optional[torch.Tensor] = None  # int8 mode: (4H,) f32 scale of each w_dec row
@@ -108,6 +129,13 @@ class PackedDecoder(NamedTuple):
     @property
     def quantized(self) -> bool:
         return self.s_att is not None
+
+    @property
+    def controls_cols(self) -> int:
+        """E, the controls' columns of w_dec and w_out (0 without controls)."""
+        H = self.wq.shape[1]
+        D = self.w_att.shape[1] - self.wp2_t.shape[0] - H
+        return self.w_out.shape[1] - H - D
 
 
 def _div127(t: torch.Tensor) -> torch.Tensor:
@@ -223,6 +251,36 @@ def tile_prenet(wp1_t: torch.Tensor, wp2_t: torch.Tensor) -> Optional[torch.Tens
     return w.reshape((M + P) // 4, 4, P // U, U).permute(2, 0, 3, 1).contiguous()
 
 
+CONTROLS_ALIGN = 16  # the controls' columns are padded to a multiple of this
+
+
+def controls_cols(controls_dim: int) -> int:
+    """Columns the kernels give ``controls_dim`` controls: whole 16-byte
+    pieces of the int8 operand (JAX pads to 16 as well); 0 without."""
+    return -(-controls_dim // CONTROLS_ALIGN) * CONTROLS_ALIGN
+
+
+def stage_controls(pk: PackedDecoder, controls: Optional[torch.Tensor], B: int, device
+                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """A decode's controls (B, E0) as the kernels read them, once per decode:
+    f32 (B, E) zero-padded to the pack's ``controls_cols`` (the heads', and
+    K5's quantize_xh's) and its bf16 operand (K1's decoder cell; None for an
+    int8 pack). (None, None) for a pack without controls."""
+    E = pk.controls_cols
+    if E == 0:
+        if controls is not None:
+            raise ValueError("the model has no controls, but controls were passed")
+        return None, None
+    if controls is None or controls.dim() != 2 or controls.shape[0] != B:
+        raise ValueError(f"want controls of shape ({B}, <= {E}), got "
+                         f"{None if controls is None else tuple(controls.shape)}")
+    if controls.shape[1] > E:
+        raise ValueError(f"{controls.shape[1]} controls for {E} columns")
+    c32 = F.pad(controls.to(device=device, dtype=torch.float32),
+                (0, E - controls.shape[1])).contiguous()
+    return c32, None if pk.quantized else c32.to(torch.bfloat16)
+
+
 def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) -> PackedDecoder:
     """Repack the prenet and decoder modules for the kernels; weights in
     ``dtype`` (bf16 on the card), biases in f32. ``quantize``: the two LSTM
@@ -230,6 +288,8 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) ->
     the attention's weights bf16 whatever ``dtype``, and the prenet's and
     heads' in ``dtype`` with their activations rounded to bf16
     (``ACT_INT8``), as the JAX kernel's int8 mode takes those products.
+    A decoder with controls gets their columns in w_dec and w_out, padded
+    to ``controls_cols`` with zeros (the gate's row zero over all of them).
     The two LSTM blocks also get the cell kernel's tiled copies
     (``tile_gates``) and the prenet its kernel's (``tile_prenet``), made
     here once per pack."""
@@ -241,8 +301,14 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) ->
         cast = lambda t: t.detach().to(dtype).contiguous()
         att_cast = (lambda t: t.detach().to(ACT_INT8).contiguous()) if quantize else cast
         f32 = lambda t: t.detach().float().contiguous()
+        E0 = decoder.controls_dim
+        pad_e = lambda w: F.pad(w, (0, controls_cols(E0) - E0))  # zero controls columns
+        # the controls are the last E0 inputs of the LSTM and of the mel head
+        split = lambda w: torch.cat([w[:, :w.shape[1] - E0], pad_e(w[:, w.shape[1] - E0:])], 1)
         w_att = torch.cat([a.weight_ih, a.weight_hh], dim=1)
-        w_dec = torch.cat([d.weight_ih, d.weight_hh], dim=1)
+        w_dec = torch.cat([split(d.weight_ih), d.weight_hh], dim=1)
+        mel_w = split(decoder.mel_out.weight)
+        gate_w = F.pad(decoder.gate.weight, (0, controls_cols(E0)))
         scales = {}
         if quantize:
             (w_att, scales["s_att"]), (w_dec, scales["s_dec"]) = (
@@ -260,7 +326,7 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) ->
             wq=att_cast(att.query_layer.weight),
             w_loc=att_cast(w_loc),
             wv=att_cast(att.v.weight[0]),
-            w_out=cast(torch.cat([decoder.mel_out.weight, decoder.gate.weight], dim=0)),
+            w_out=cast(torch.cat([mel_w, gate_w], dim=0)),
             b_out=f32(torch.cat([decoder.mel_out.bias, decoder.gate.bias], dim=0)),
             wt_att=tile_gates(w_att),
             wt_dec=tile_gates(w_dec),
@@ -329,19 +395,25 @@ def prenet_plain(mel, wp1_t, wp2_t, m1, m2, act: Optional[torch.dtype] = None):
     return torch.relu(_rnd(h1, wp2_t, act) @ _acc(wp2_t)) * m2
 
 
-def lstm_cell_plain(w, b, x1, x2, x3, c):
-    x = torch.cat([x1, x2, x3], dim=1)
-    gates = _rnd(x, w) @ _acc(w).t() + b
+def _xh(x1, x2, x3, ctl=None):
+    """A cell's input [x1 | x2 | ctl | x3]: ``ctl``, the controls (the
+    decoder cell's [att_h | ctx | controls | rnn_h]), where given."""
+    return torch.cat([x1, x2, x3] if ctl is None else [x1, x2, ctl, x3], dim=1)
+
+
+def lstm_cell_plain(w, b, x1, x2, x3, c, ctl=None):
+    gates = _rnd(_xh(x1, x2, x3, ctl), w) @ _acc(w).t() + b
     i, f, g, o = gates.chunk(4, dim=1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     return torch.sigmoid(o) * torch.tanh(c_new), c_new
 
 
-def lstm_cell_int8_plain(w, ws, b, x1, x2, x3, c):
+def lstm_cell_int8_plain(w, ws, b, x1, x2, x3, c, ctl=None):
     """The LSTM cell over int8 weight rows ``w`` (4H, R) with scales ``ws``
-    (4H,): the f32 input quantised per row, the integer product exact (in
-    f64: |sum| < 127^2 R < 2^53), gates (float(sum) * sx) * ws + b."""
-    q, sx = quantize_rows(torch.cat([x1, x2, x3], dim=1).float())
+    (4H,): the f32 input quantised per row (its scale over all of R, the
+    controls included), the integer product exact (in f64: |sum| < 127^2 R
+    < 2^53), gates (float(sum) * sx) * ws + b."""
+    q, sx = quantize_rows(_xh(x1, x2, x3, ctl).float())
     acc = (q.double() @ w.double().t()).float()
     gates = (acc * sx) * ws + b
     i, f, g, o = gates.chunk(4, dim=1)
@@ -363,8 +435,8 @@ def location_attention_plain(h, wq, w_loc, wv, att_enc, encoded, lengths,
     return ctx, w, cum_prev + w
 
 
-def heads_plain(w_out, b_out, rnn_h, ctx, act: Optional[torch.dtype] = None):
-    x = torch.cat([rnn_h, ctx], dim=1)
+def heads_plain(w_out, b_out, rnn_h, ctx, act: Optional[torch.dtype] = None, ctl=None):
+    x = torch.cat([rnn_h, ctx] if ctl is None else [rnn_h, ctx, ctl], dim=1)
     return _rnd(x, w_out, act) @ _acc(w_out).t() + b_out
 
 
@@ -381,11 +453,11 @@ def bind(lib):
     """Declare the C entry points of a loaded ``csrc/decode_step.cu`` (the
     build's, or a copy's for an A/B on the card) -> lib."""
     lib.t2_prenet.argtypes = [P] * 5 + [I] * 3 + [P]
-    lib.t2_lstm_cell.argtypes = [P, P, P, I, P, I, P, I, P, P, P, I, I, P]
-    lib.t2_quantize_xh.argtypes = [P, I, P, I, P, I, P, P, I, P]
-    lib.t2_lstm_cell_int8.argtypes = [P, P, P, P, P, I, I, I, P, P, P, I, I, P]
+    lib.t2_lstm_cell.argtypes = [P, P, P, I, P, I, P, I, P, I, P, P, P, I, I, P]
+    lib.t2_quantize_xh.argtypes = [P, I, P, I, P, I, P, I, P, P, I, P]
+    lib.t2_lstm_cell_int8.argtypes = [P, P, P, P, P, I, I, I, I, P, P, P, I, I, P]
     lib.t2_location_attention.argtypes = [P] * 12 + [I] * 7 + [P]
-    lib.t2_heads.argtypes = [P, P, P, I, P, I, P, I, I, P]
+    lib.t2_heads.argtypes = [P, P, P, I, P, I, P, I, P, I, I, P]
     lib.t2_decode_chunk.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I), P]
     for fn in (lib.t2_prenet, lib.t2_lstm_cell, lib.t2_quantize_xh, lib.t2_lstm_cell_int8,
                lib.t2_location_attention, lib.t2_heads, lib.t2_decode_chunk):
@@ -433,90 +505,103 @@ def tiled_bytes(H: int, row_bytes: int) -> int:
     return 4 * H * -(-row_bytes // GATE_CHUNK) * GATE_CHUNK
 
 
-def _cell_operands(w, dt, b, x1, x2, x3, c, wt) -> Tuple[int, int, int, int, int]:
-    """Check a cell's operands (the inputs x_i in the kernel's type) -> (B,
-    H, n1, n2, n3)."""
+def _cell_operands(w, dt, b, x1, x2, x3, c, wt, ctl=None) -> Tuple[int, int, int, int, int]:
+    """Check a cell's operands (the inputs x_i and the controls ``ctl`` in
+    the kernel's type) -> (B, H, n1, n2, nc, n3)."""
     B, H = c.shape
+    xs = (("x1", x1), ("x2", x2), ("x3", x3)) + ((("ctl", ctl),) if ctl is not None else ())
     n1, n2, n3 = x1.shape[1], x2.shape[1], x3.shape[1]
-    R = n1 + n2 + n3
+    nc = 0 if ctl is None else ctl.shape[1]
+    R = n1 + n2 + nc + n3
     build.require(w, dt, (4 * H, R), "w")
     if wt is None:
         raise ValueError("wt: the cell kernel streams the tiled copy of w (pack_decoder's "
                          "wt_att / wt_dec, tile_gates); none was given")
     build.require(wt, torch.uint8, (tiled_bytes(H, R * w.element_size()),), "wt")
     build.require(b, torch.float32, (4 * H,), "b")
-    for name, x in (("x1", x1), ("x2", x2), ("x3", x3)):
+    for name, x in xs:
         build.require(x, torch.float32 if dt == torch.int8 else torch.bfloat16,
                       (B, x.shape[1]), name)
     build.require(c, torch.float32, (B, H), "c")
-    if any(t.data_ptr() % 16 for t in (x1, x2, x3)):
-        raise ValueError("x1, x2, x3: the cell kernel reads its input in 16-byte pieces; "
+    if any(t.data_ptr() % 16 for _, t in xs):
+        raise ValueError("x1, x2, x3, ctl: the cell kernel reads its input in 16-byte pieces; "
                          "want 16-byte aligned tensors")
-    return B, H, n1, n2, n3
+    return B, H, n1, n2, nc, n3
 
 
-def lstm_cell(w, b, x1, x2, x3, c, wt=None):
-    """LSTM cell over the input [x1 | x2 | x3] with weight rows = gates
-    (4H, n1 + n2 + n3) and summed bias (4H,) -> (h, c). On the card the
-    kernel streams ``wt``, the tiled copy of ``w`` (``tile_gates``), and
-    reads the inputs' bf16 operands: x_i may be given in bf16 (in the chunk
-    their producers write them) or f32 (cast here)."""
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def lstm_cell(w, b, x1, x2, x3, c, wt=None, ctl=None):
+    """LSTM cell over the input [x1 | x2 | ctl | x3] with weight rows =
+    gates (4H, R) and summed bias (4H,) -> (h, c); ``ctl`` the controls
+    (the decoder cell of a controllable model), else [x1 | x2 | x3]. On the
+    card the kernel streams ``wt``, the tiled copy of ``w``
+    (``tile_gates``), and reads the inputs' bf16 operands: they may be given
+    in bf16 (in the chunk their producers write them) or f32 (cast here)."""
     if x1.device.type == "cpu":
-        return lstm_cell_plain(w, b, x1, x2, x3, c)
-    xb = [x.to(torch.bfloat16) for x in (x1, x2, x3)]
-    B, H, n1, n2, n3 = _cell_operands(w, torch.bfloat16, b, *xb, c, wt)
+        return lstm_cell_plain(w, b, x1, x2, x3, c, ctl)
+    x1, x2, x3 = (x.to(torch.bfloat16) for x in (x1, x2, x3))
+    ctl = None if ctl is None else ctl.to(torch.bfloat16)
+    B, H, n1, n2, nc, n3 = _cell_operands(w, torch.bfloat16, b, x1, x2, x3, c, wt, ctl)
     h_out = torch.empty(B, H, device=c.device)
     c_out = torch.empty(B, H, device=c.device)
-    build.count(LAUNCHES, "lstm_cell")
+    _count("lstm_cell", controls=nc > 0)
     build.check(_lib().t2_lstm_cell(
-        wt.data_ptr(), b.data_ptr(), xb[0].data_ptr(), n1, xb[1].data_ptr(), n2,
-        xb[2].data_ptr(), n3, c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-        B, H, _stream()), "lstm_cell")
+        wt.data_ptr(), b.data_ptr(), x1.data_ptr(), n1, x2.data_ptr(), n2, _ptr(ctl), nc,
+        x3.data_ptr(), n3, c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), B, H, _stream()),
+        "lstm_cell")
     return h_out, c_out
 
 
-def quantize_xh_plain(x1, x2, x3):
-    """K5's operand: the f32 input [x1 | x2 | x3] quantised per row ->
-    (int8 values (B, R), f32 scales (B,)) (``quantize_rows``)."""
-    q, sx = quantize_rows(torch.cat([x1, x2, x3], dim=1).float())
+def quantize_xh_plain(x1, x2, x3, ctl=None):
+    """K5's operand: the f32 input [x1 | x2 | ctl | x3] quantised per row
+    -> (int8 values (B, R), f32 scales (B,)) (``quantize_rows``): a row's
+    scale is over all of it, the controls included."""
+    q, sx = quantize_rows(_xh(x1, x2, x3, ctl).float())
     return q.to(torch.int8), sx[:, 0].contiguous()
 
 
-def quantize_xh(x1, x2, x3):
+def quantize_xh(x1, x2, x3, ctl=None):
     """``quantize_xh_plain`` as the kernel before each K5 cell computes it
     (one block per row, JAX's ``_quantize_xh``)."""
     if x1.device.type == "cpu":
-        return quantize_xh_plain(x1, x2, x3)
+        return quantize_xh_plain(x1, x2, x3, ctl)
     B = x1.shape[0]
-    n1, n2, n3 = x1.shape[1], x2.shape[1], x3.shape[1]
-    for name, x in (("x1", x1), ("x2", x2), ("x3", x3)):
+    xs = (("x1", x1), ("x2", x2), ("x3", x3)) + ((("ctl", ctl),) if ctl is not None else ())
+    for name, x in xs:
         build.require(x, torch.float32, (B, x.shape[1]), name)
-    if any(n % 4 for n in (n1, n2, n3)):
-        raise ValueError(f"quantize_xh reads float4s: want widths % 4 == 0, got {n1, n2, n3}")
-    xq = torch.empty(B, n1 + n2 + n3, device=x1.device, dtype=torch.int8)
+    n1, n2, n3 = x1.shape[1], x2.shape[1], x3.shape[1]
+    nc = 0 if ctl is None else ctl.shape[1]
+    if any(n % 4 for n in (n1, n2, nc, n3)):
+        raise ValueError(f"quantize_xh reads float4s: want widths % 4 == 0, got "
+                         f"{n1, n2, nc, n3}")
+    xq = torch.empty(B, n1 + n2 + nc + n3, device=x1.device, dtype=torch.int8)
     sx = torch.empty(B, device=x1.device)
-    build.count(LAUNCHES, "quantize_xh")
-    build.check(_lib().t2_quantize_xh(x1.data_ptr(), n1, x2.data_ptr(), n2, x3.data_ptr(), n3,
-                                      xq.data_ptr(), sx.data_ptr(), B, _stream()), "quantize_xh")
+    _count("quantize_xh", controls=nc > 0)
+    build.check(_lib().t2_quantize_xh(x1.data_ptr(), n1, x2.data_ptr(), n2, _ptr(ctl), nc,
+                                      x3.data_ptr(), n3, xq.data_ptr(), sx.data_ptr(), B,
+                                      _stream()), "quantize_xh")
     return xq, sx
 
 
-def lstm_cell_int8(w, ws, b, x1, x2, x3, c, wt=None):
-    """Kernel K5: ``lstm_cell`` over int8 weight rows (4H, n1 + n2 + n3)
-    with one f32 scale per row ``ws`` (4H,) -> (h, c); on the card
-    ``quantize_xh`` then the cell kernel over ``wt``, the tiled copy of
-    ``w``."""
+def lstm_cell_int8(w, ws, b, x1, x2, x3, c, wt=None, ctl=None):
+    """Kernel K5: ``lstm_cell`` over int8 weight rows (4H, R) with one f32
+    scale per row ``ws`` (4H,) -> (h, c); on the card ``quantize_xh`` then
+    the cell kernel over ``wt``, the tiled copy of ``w``."""
     if x1.device.type == "cpu":
-        return lstm_cell_int8_plain(w, ws, b, x1, x2, x3, c)
-    B, H, n1, n2, n3 = _cell_operands(w, torch.int8, b, x1, x2, x3, c, wt)
+        return lstm_cell_int8_plain(w, ws, b, x1, x2, x3, c, ctl)
+    B, H, n1, n2, nc, n3 = _cell_operands(w, torch.int8, b, x1, x2, x3, c, wt, ctl)
     build.require(ws, torch.float32, (4 * H,), "ws")
-    xq, sx = quantize_xh(x1, x2, x3)
+    xq, sx = quantize_xh(x1, x2, x3, ctl)
     h_out = torch.empty(B, H, device=c.device)
     c_out = torch.empty(B, H, device=c.device)
-    build.count(LAUNCHES, "lstm_cell_int8")
+    _count("lstm_cell_int8", controls=nc > 0)
     build.check(_lib().t2_lstm_cell_int8(
-        wt.data_ptr(), ws.data_ptr(), b.data_ptr(), xq.data_ptr(), sx.data_ptr(), n1, n2, n3,
-        c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), B, H, _stream()), "lstm_cell_int8")
+        wt.data_ptr(), ws.data_ptr(), b.data_ptr(), xq.data_ptr(), sx.data_ptr(), n1, n2, nc,
+        n3, c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), B, H, _stream()),
+        "lstm_cell_int8")
     return h_out, c_out
 
 
@@ -551,22 +636,26 @@ def location_attention(h, wq, w_loc, wv, att_enc, encoded, lengths, w_prev, cum_
     return ctx, w, cum
 
 
-def heads(w_out, b_out, rnn_h, ctx):
-    """-> (B, M + 1): mel frame and gate logit over [rnn_h | ctx]."""
+def heads(w_out, b_out, rnn_h, ctx, ctl=None):
+    """-> (B, M + 1): mel frame and gate logit over [rnn_h | ctx], or
+    [rnn_h | ctx | ctl] with the controls ``ctl`` (f32)."""
     if rnn_h.device.type == "cpu":
-        return heads_plain(w_out, b_out, rnn_h, ctx)
+        return heads_plain(w_out, b_out, rnn_h, ctx, ctl=ctl)
     B = rnn_h.shape[0]
     N = w_out.shape[0]
     n1, n2 = rnn_h.shape[1], ctx.shape[1]
-    build.require(w_out, torch.bfloat16, (N, n1 + n2), "w_out")
+    nc = 0 if ctl is None else ctl.shape[1]
+    build.require(w_out, torch.bfloat16, (N, n1 + n2 + nc), "w_out")
     build.require(b_out, torch.float32, (N,), "b_out")
     build.require(rnn_h, torch.float32, (B, n1), "rnn_h")
     build.require(ctx, torch.float32, (B, n2), "ctx")
+    if ctl is not None:
+        build.require(ctl, torch.float32, (B, nc), "ctl")
     out = torch.empty(B, N, device=rnn_h.device)
-    build.count(LAUNCHES, "heads")
+    _count("heads", controls=nc > 0)
     build.check(_lib().t2_heads(w_out.data_ptr(), b_out.data_ptr(), rnn_h.data_ptr(), n1,
-                                ctx.data_ptr(), n2, out.data_ptr(), B, N, _stream()),
-                "heads")
+                                ctx.data_ptr(), n2, _ptr(ctl), nc, out.data_ptr(), B, N,
+                                _stream()), "heads")
     return out
 
 
@@ -600,8 +689,11 @@ def _cells_plain(pk: PackedDecoder):
             lambda *a: lstm_cell_plain(pk.w_dec, pk.b_dec, *a))
 
 
-def decode_chunk_plain(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1, m2):
-    """``decode_chunk`` in plain PyTorch, for any device."""
+def decode_chunk_plain(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1, m2,
+                       controls=None, controls_bf=None):
+    """``decode_chunk`` in plain PyTorch, for any device (``controls_bf``,
+    the kernel's bf16 operand of the controls, is not read: the decoder cell
+    rounds its whole input to the weights' type)."""
     M = s.mel.shape[1]
     att_cell, dec_cell = _cells_plain(pk)
     act = ACT_INT8 if pk.quantized else None
@@ -611,17 +703,21 @@ def decode_chunk_plain(pk: PackedDecoder, encoded, att_enc, lengths, s: StepStat
         att_h, att_c = att_cell(x, s.ctx, s.att_h, s.att_c)
         ctx, w, cum = location_attention_plain(att_h, pk.wq, pk.w_loc, pk.wv, att_enc,
                                                encoded, lengths, s.att_w, s.att_cum)
-        rnn_h, rnn_c = dec_cell(att_h, ctx, s.rnn_h, s.rnn_c)
-        mel_gate = heads_plain(pk.w_out, pk.b_out, rnn_h, ctx, act)
+        rnn_h, rnn_c = dec_cell(att_h, ctx, s.rnn_h, s.rnn_c, controls)
+        mel_gate = heads_plain(pk.w_out, pk.b_out, rnn_h, ctx, act, controls)
         outs.append(mel_gate)
         aligns.append(w)
         s = StepState(mel_gate[:, :M], att_h, att_c, ctx, w, cum, rnn_h, rnn_c)
     return torch.stack(outs), torch.stack(aligns), s
 
 
-def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1, m2):
+def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1, m2,
+                 controls=None, controls_bf=None):
     """n = m1.shape[0] decode steps from state ``s`` with prenet masks
     (n, B, P) x 2 -> (mel_gate (n, B, M + 1), aligns (n, B, L), new state).
+    A pack with controls takes them as ``stage_controls`` makes them:
+    ``controls`` (B, E) f32 and, for a bf16 pack, ``controls_bf`` (B, E)
+    bf16.
 
     On the card this is one host call (``t2_decode_chunk``) that launches
     the four kernels five times per step, the two LSTM cells on K5 (each
@@ -629,7 +725,7 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     over the pack's tiled weight copies (the cells' and the prenet's);
     each launch is counted."""
     if encoded.device.type == "cpu":
-        return decode_chunk_plain(pk, encoded, att_enc, lengths, s, m1, m2)
+        return decode_chunk_plain(pk, encoded, att_enc, lengths, s, m1, m2, controls)
     n, B, Pd = m1.shape
     L, D = encoded.shape[1], encoded.shape[2]
     M, H, A = pk.wp1_t.shape[0], pk.wq.shape[1], pk.wq.shape[0]
@@ -643,13 +739,21 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
                          f"H a multiple of {GATE_UNITS}; got H={H})")
     if pk.wt_prenet is None:
         raise ValueError("the pack has no tiled copy of its prenet weights (tile_prenet)")
+    E = pk.controls_cols
+    if E:
+        ctl = (("controls", controls, f32, (B, E)),) + (
+            () if pk.quantized else (("controls_bf", controls_bf, bf, (B, E)),))
+    elif controls is not None or controls_bf is not None:
+        raise ValueError("the pack has no controls columns, but controls were passed")
+    else:
+        ctl = ()
     esize = 1 if pk.quantized else 2
     for name, t, dt, shape in (
         ("w_att", pk.w_att, lstm_dt, (4 * H, Pd + D + H)), ("b_att", pk.b_att, f32, (4 * H,)),
-        ("w_dec", pk.w_dec, lstm_dt, (4 * H, 2 * H + D)), ("b_dec", pk.b_dec, f32, (4 * H,)),
+        ("w_dec", pk.w_dec, lstm_dt, (4 * H, 2 * H + D + E)), ("b_dec", pk.b_dec, f32, (4 * H,)),
         ("wp1_t", pk.wp1_t, bf, (M, Pd)), ("wp2_t", pk.wp2_t, bf, (Pd, Pd)),
         ("wq", pk.wq, bf, (A, H)), ("w_loc", pk.w_loc, bf, (A, 2, K)), ("wv", pk.wv, bf, (A,)),
-        ("w_out", pk.w_out, bf, (M + 1, H + D)), ("b_out", pk.b_out, f32, (M + 1,)),
+        ("w_out", pk.w_out, bf, (M + 1, H + D + E)), ("b_out", pk.b_out, f32, (M + 1,)),
         ("att_enc", att_enc, f32, (B, L, A)), ("encoded", encoded, bf, (B, L, D)),
         ("lengths", lengths, torch.int32, (B,)),
         ("m1", m1, f32, (n, B, Pd)), ("m2", m2, f32, (n, B, Pd)),
@@ -658,9 +762,11 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
         ("att_w", s.att_w, f32, (B, L)), ("att_cum", s.att_cum, f32, (B, L)),
         ("rnn_h", s.rnn_h, f32, (B, H)), ("rnn_c", s.rnn_c, f32, (B, H)),
         ("wt_att", pk.wt_att, torch.uint8, (tiled_bytes(H, (Pd + D + H) * esize),)),
-        ("wt_dec", pk.wt_dec, torch.uint8, (tiled_bytes(H, (2 * H + D) * esize),)),
+        ("wt_dec", pk.wt_dec, torch.uint8, (tiled_bytes(H, (2 * H + D + E) * esize),)),
         ("wt_prenet", pk.wt_prenet, bf, prenet_tiled_shape(M, Pd)),
-    ) + scales:
+    ) + scales + ctl:
+        if t is None:
+            raise ValueError(f"{name}: the pack takes it, none was given")
         build.require(t, dt, shape, name)
     dev = encoded.device
     mel_gate = torch.empty(n, B, M + 1, device=dev)
@@ -674,7 +780,8 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     operands = (None,) * 4
     quantized = (None, None)
     if pk.quantized:  # K5's operand, rewritten before each cell
-        quantized = (torch.empty(B, max(Pd + D + H, 2 * H + D), device=dev, dtype=torch.int8),
+        quantized = (torch.empty(B, max(Pd + D + H, 2 * H + D + E), device=dev,
+                                 dtype=torch.int8),
                      torch.empty(B, device=dev))
     else:
         x_bf = torch.empty(B, Pd, device=dev, dtype=bf)
@@ -685,19 +792,22 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
         operands = (x_bf, s.ctx.to(bf), atth_bf, rnnh_bf)
     tensors = (*pk[:11], att_enc, encoded, lengths, m1, m2, *s, mel_gate, aligns, x,
                pp["att_h"], pp["att_c"], pp["ctx"], pp["att_cum"], pp["rnn_h"], pp["rnn_c"])
-    ptr = lambda t: None if t is None else t.data_ptr()
-    ptrs = (ctypes.c_void_p * 44)(*(t.data_ptr() for t in tensors), ptr(pk.s_att),
-                                  ptr(pk.s_dec), pk.wt_att.data_ptr(), pk.wt_dec.data_ptr(),
-                                  *(ptr(t) for t in operands), *(ptr(t) for t in quantized),
-                                  pk.wt_prenet.data_ptr())
-    dims = (ctypes.c_int * 11)(n, B, M, Pd, H, D, L, A, K, int(pk.quantized),
-                               location_cluster_size(L, H, A, D, K))
-    build.count(LAUNCHES, "prenet", n)
-    build.count(LAUNCHES, "lstm_cell_int8" if pk.quantized else "lstm_cell", 2 * n)
+    ptrs = (ctypes.c_void_p * 46)(*(t.data_ptr() for t in tensors), _ptr(pk.s_att),
+                                  _ptr(pk.s_dec), pk.wt_att.data_ptr(), pk.wt_dec.data_ptr(),
+                                  *(_ptr(t) for t in operands), *(_ptr(t) for t in quantized),
+                                  pk.wt_prenet.data_ptr(), _ptr(controls if E else None),
+                                  _ptr(controls_bf if E and not pk.quantized else None))
+    dims = (ctypes.c_int * 12)(n, B, M, Pd, H, D, L, A, K, int(pk.quantized),
+                               location_cluster_size(L, H, A, D, K), E)
+    cell = "lstm_cell_int8" if pk.quantized else "lstm_cell"
+    _count("prenet", n)
+    _count(cell, n)  # the attention cell's
+    _count(cell, n, controls=E > 0)  # the decoder cell's, with the controls
     if pk.quantized:
-        build.count(LAUNCHES, "quantize_xh", 2 * n)
-    build.count(LAUNCHES, "location_attention", n)
-    build.count(LAUNCHES, "heads", n)
+        _count("quantize_xh", n)
+        _count("quantize_xh", n, controls=E > 0)
+    _count("location_attention", n)
+    _count("heads", n, controls=E > 0)
     build.check(_lib().t2_decode_chunk(ptrs, dims, _stream()), "decode_chunk")
     last = (n - 1) % 2
     new = StepState(mel_gate[n - 1, :, :M].contiguous(), pp["att_h"][last], pp["att_c"][last],
@@ -724,11 +834,13 @@ def prenet_masks(n: int, B: int, Pd: int, dropout: float, generator, device):
 
 def decode(pk: PackedDecoder, encoded, att_enc, lengths, max_len: int,
            dropout: float = 0.5, generator=None, prenet_dropout: bool = True,
-           masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+           masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, controls=None):
     """Free-running decode with early stop checked once per 64-frame chunk.
 
     encoded (B, L, D) in the type of ``pk.wq``, att_enc (B, L, A) f32,
-    lengths (B,) int32. ``masks``: optional precomputed prenet masks (T, B,
+    lengths (B,) int32; ``controls`` (B, controls_dim) for a pack with
+    controls columns (each row its own), staged once for the whole decode
+    (``stage_controls``). ``masks``: optional precomputed prenet masks (T, B,
     P) x 2, frame t's masks applying to the prenet of frame t-1's mel;
     otherwise they are drawn per chunk from ``generator``, one
     torch.Generator or one per row (``prenet_masks``). Returns (mels (B, T, M)
@@ -741,6 +853,7 @@ def decode(pk: PackedDecoder, encoded, att_enc, lengths, max_len: int,
     Pd = pk.wp2_t.shape[0]
     s = init_step_state(B, M, H, D, L, dev)
     use_dropout = prenet_dropout and dropout > 0.0
+    ctl = stage_controls(pk, controls, B, dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     mel_gate_chunks, align_chunks = [], []
     n_chunks = -(-max_len // T_CHUNK)
@@ -753,7 +866,7 @@ def decode(pk: PackedDecoder, encoded, att_enc, lengths, max_len: int,
             m1, m2 = prenet_masks(n, B, Pd, dropout, generator, dev)
         else:
             m1 = m2 = torch.ones(n, B, Pd, device=dev)
-        chunk, aligns, s = decode_chunk(pk, encoded, att_enc, lengths, s, m1, m2)
+        chunk, aligns, s = decode_chunk(pk, encoded, att_enc, lengths, s, m1, m2, *ctl)
         mel_gate_chunks.append(chunk)  # (n, B, M + 1)
         align_chunks.append(aligns)
         done = done | (chunk[:, :, M] < 0.0).any(dim=0)

@@ -1,9 +1,12 @@
 """``say``: text -> WAV on the port.
 
 Counterpart of ``run/say.py`` of the JAX package (and its helpers in
-``run/common.py``) for the vanilla configuration: text frontend (no
-abbreviation expansion) -> encoder -> free-running decode through kernel K1
-(or, with ``--quantize-int8``, K5 for the int8 LSTM cells) with early stop
+``run/common.py``) for the vanilla configuration and its speaker tokens and
+controls (``--speaker-id``, ``--controls``; not GST or description
+embeddings): text frontend (no abbreviation expansion) -> encoder (fused
+with the speaker's embedding) -> free-running decode through kernel K1 (or,
+with ``--quantize-int8``, K5 for the int8 LSTM cells), the controls through
+their rows of the decoder cell and the heads, with early stop
 -> postnet -> cut at the first fired gate -> HiFi-GAN over a 128-frame
 bucket with a receptive-field margin (kernel K2) -> PCM16 WAV; without a
 HiFi-GAN checkpoint, Griffin-Lim on exp(mel).
@@ -39,12 +42,15 @@ VOCODE_BUCKET = 128  # vocoder input frames are a multiple of this
 
 
 def model_config_from(cfg: Config) -> Tacotron2Config:
+    """The model of a config: vanilla, with speaker tokens and with controls
+    (JAX ``run/common.py::model_config_from``). GST and description
+    embeddings raise: they wait for their auxiliary models (ROADMAP A6,
+    A7)."""
     ext = cfg.extensions
-    if (ext.speaker_tokens.active or ext.controls.active or ext.gst.active
-            or cfg.model.description_embeddings):
+    if ext.gst.active or cfg.model.description_embeddings:
         raise NotImplementedError(
-            "the port runs the vanilla configuration; speaker tokens, controls, "
-            "description embeddings and GST are not ported yet")
+            "the port runs the vanilla configuration and its speaker tokens and controls; GST "
+            "and description embeddings are not ported yet (ROADMAP A6, A7)")
     m = cfg.model
     return Tacotron2Config(
         num_chars=cfg.num_chars, encoded_dim=m.encoded_dim,
@@ -52,7 +58,41 @@ def model_config_from(cfg: Config) -> Tacotron2Config:
         num_mels=cfg.dataset.preprocessing.num_mels, prenet_dim=m.prenet_dim,
         att_rnn_dim=m.att_rnn_dim, att_dim=m.att_dim, rnn_hidden_dim=m.rnn_hidden_dim,
         postnet_dim=m.postnet_dim, dropout=m.dropout,
+        speaker_tokens=ext.speaker_tokens.active, num_speakers=ext.speaker_tokens.num_speakers,
+        controls=ext.controls.active, controls_dim=cfg.controls_dim,
     )
+
+
+def conditioning(cfg: Config, speaker_id: Optional[int] = None,
+                 controls: Optional[str] = None) -> dict:
+    """``say``'s ``speaker_id`` and ``controls`` (comma-separated numbers)
+    -> the decode's keyword arguments for a batch of one, checked against
+    the model as the JAX ``say`` and ``_check_controls`` check them: a
+    multi-speaker model needs a speaker id in range, a controllable model
+    exactly ``controls_dim`` numbers; a model without either takes none
+    (voice 0 stands for none)."""
+    spk, dim = cfg.extensions.speaker_tokens, cfg.controls_dim
+    kw: dict = {}
+    if spk.active:
+        if speaker_id is None:
+            raise ValueError("--speaker-id is required: this is a multi-speaker model "
+                             "(extensions.speaker_tokens.active).")
+        if not 0 <= int(speaker_id) < spk.num_speakers:
+            raise ValueError(f"speaker_id {speaker_id} out of range [0, {spk.num_speakers})")
+        kw["speaker_id"] = torch.tensor([int(speaker_id)])
+    elif speaker_id not in (None, 0):
+        raise ValueError("model is single-speaker, but a speaker id was passed")
+    controls = [float(x) for x in controls.split(",")] if controls else None
+    if dim:
+        if controls is None:
+            raise ValueError(f"Controls are enabled: --controls needs {dim} comma-separated "
+                             "numbers")
+        if len(controls) != dim:
+            raise ValueError(f"--controls needs {dim} numbers, got {len(controls)}")
+        kw["controls"] = torch.tensor([controls], dtype=torch.float32)
+    elif controls:
+        raise ValueError("Controls are disabled, but a control vector was passed!")
+    return kw
 
 
 def load_tacotron(cfg: Config, checkpoint: str, device) -> Tacotron2:
@@ -119,12 +159,16 @@ def _sync(device: torch.device) -> None:
 def do_say(cfg: Config, checkpoint: str, text: str, output: str,
            hifi_gan_checkpoint: Optional[str] = None,
            random_seed: Optional[int] = None, max_len_override: int = MAX_LEN,
-           device: Optional[str] = None, quantize_int8: bool = False) -> dict:
+           device: Optional[str] = None, quantize_int8: bool = False,
+           speaker_id: Optional[int] = None, controls: Optional[str] = None) -> dict:
     """Synthesize ``text`` into ``output``; returns what ran and how long
     each phase took on the host clock (each phase ends in a device sync).
     ``quantize_int8``: decode with int8 LSTM weights (kernel K5), the JAX
-    package's approximate ``--quantize-int8`` mode. Without a HiFi-GAN
-    checkpoint the mel goes through Griffin-Lim."""
+    package's approximate ``--quantize-int8`` mode. ``speaker_id`` and
+    ``controls``: the voice of a multi-speaker model and the controls of a
+    controllable one (``conditioning``). Without a HiFi-GAN checkpoint the
+    mel goes through Griffin-Lim."""
+    cond = conditioning(cfg, speaker_id, controls)
     dev = resolve_device(device)
     if dev.type == "cuda":
         use_f32_math()
@@ -144,7 +188,8 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
     t0 = time.perf_counter()
     out = model.forward_infer_fast(torch.as_tensor(chars_idx, device=dev),
                                    torch.as_tensor(chars_len, device=dev),
-                                   max_len_override, generator=gen, quantize=quantize_int8)
+                                   max_len_override, generator=gen, quantize=quantize_int8,
+                                   **{k: v.to(dev) for k, v in cond.items()})
     _sync(dev)
     t1 = time.perf_counter()
     n = int(out.n_frames)
@@ -163,6 +208,8 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
         "output": output, "n_frames": n, "cut": cut, "samples": int(len(wav)),
         "chars": int(chars_len[0]), "seed": int(random_seed), "device": str(dev),
         "quantize_int8": quantize_int8, "vocoder": "griffin_lim" if hifigan is None else "hifigan",
+        "speaker_id": speaker_id if "speaker_id" in cond else None,
+        "controls": cond["controls"][0].tolist() if "controls" in cond else None,
         "decode_s": t1 - t0, "vocode_s": t2 - t1, "say_s": t2 - t0,
         "audio_s": len(wav) / prep.sample_rate,
     }

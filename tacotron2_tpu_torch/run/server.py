@@ -1,7 +1,9 @@
 """Demo TTS web server of the port, on the standard library alone.
 
 Counterpart of the JAX package's ``run/server.py``, for the vanilla
-configuration. Routes: ``GET /`` (the repo's ``web/index.html``),
+configuration and its speaker tokens and controls (``multi_speaker`` and
+``controllable`` entries; a request's ``voice`` and ``controls``, or the
+reference page's named sliders). Routes: ``GET /`` (the repo's ``web/index.html``),
 ``GET /config`` (the model registry), ``GET /stats``, ``POST /generate``
 (text -> WAV path, with the reference client's alias fields) and static
 ``/web_generated``. The server config is the JAX server's: ``models``
@@ -17,10 +19,11 @@ Two modes:
   into one batched decode (kernels K1, or K5 for int8) and one batched
   HiFi-GAN call (K2), with up to ``depth`` windows in flight, each on its
   own thread and CUDA stream. Every request keeps its own prenet-dropout
-  stream (a torch.Generator from its seed), and the kernels' rows are
-  independent, so a request's audio does not depend on what shares its
-  window. Rows pad to a power of two by repeating row 0 (with generators
-  of their own), chars to a multiple of 128; the encoder runs every
+  stream (a torch.Generator from its seed), voice and controls, and the
+  kernels' rows are independent, so a request's audio does not depend on
+  what shares its window. Rows pad to a power of two by repeating row 0
+  (with generators of their own, row 0's voice and controls), chars to a
+  multiple of 128; the encoder runs every
   window at the largest window's rows, since its bf16 products may sum in
   another order at another shape.
 - ``subprocess``: one ``python -m tacotron2_tpu_torch say`` per request, as
@@ -28,10 +31,12 @@ Two modes:
 
 ``http.server.ThreadingHTTPServer`` answers each connection on a thread of
 its own; ``/generate`` blocks that thread on the request's future.
-Multi-device serving (``mesh``) and the extensions are not ported: a mesh,
-or a multi-speaker or controllable entry, raises at start; a request with
-controls or a nonzero voice for a vanilla model is a 400, as in the JAX
-server.
+Multi-device serving (``mesh``), GST and description embeddings are not
+ported: a mesh, or an entry whose config has GST or description
+embeddings, raises at start. A request is checked against its model
+(``validate_request``, the JAX ``_validate_request``): a 400 for controls
+of another count, or for a model without controls, and for a voice out of
+range, or nonzero for a single-speaker model.
 """
 
 from __future__ import annotations
@@ -63,7 +68,8 @@ from tacotron2_tpu_torch.models.layers import resolve_device, use_f32_math
 from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
 from tacotron2_tpu_torch.ops.decoder_loop import PackedDecoder
 from tacotron2_tpu_torch.run.say import (MAX_LEN, cut_vocode, griffin_lim_vocode, load_hifigan,
-                                         load_tacotron, vocode_bucket, vocoder_policy)
+                                         load_tacotron, model_config_from, vocode_bucket,
+                                         vocoder_policy)
 from tacotron2_tpu_torch.text.cleaners import normalize_text
 from tacotron2_tpu_torch.text.encoder import CharEncoder
 
@@ -73,6 +79,9 @@ GENERATED_DIR = "web_generated"
 CHAR_BUCKET = 128
 SEED_RANGE = (-(2**63), 2**64 - 1)  # what torch.Generator.manual_seed takes
 SHUTDOWN = "server shutting down"
+# the reference page's slider fields, in the order of the controls
+# (web/index.html; the JAX server's default when its config names none)
+CONTROL_SLIDERS = ("pitch", "pitch_range", "intensity", "nhr", "rate")
 
 # [decode launches, decoded rows]: /stats shows rows per launch, the
 # batching factor the micro-batcher reached
@@ -98,10 +107,12 @@ def _pow2(n: int) -> int:
 class ModelRegistry:
     def __init__(self, entries: List[Dict[str, Any]], device: Optional[str] = None):
         for e in entries:
-            if e.get("multi_speaker") or e.get("controllable"):
-                raise NotImplementedError(
-                    f"model {e.get('name')!r}: multi-speaker and controllable models are not "
-                    "ported (vanilla models only)")
+            try:  # GST and description embeddings are not ported: refuse at start
+                model_config_from(load_config(e["config"]))
+            except NotImplementedError as exc:
+                raise NotImplementedError(f"model {e.get('name')!r}: {exc}") from None
+            except Exception:
+                pass  # a bad entry fails its own requests, at load
         self.entries = entries
         self.device = device
         self._loaded: Dict[int, Bundle] = {}
@@ -137,12 +148,33 @@ class ModelRegistry:
             return self._loaded[idx]
 
 
-def validate_request(req: Dict[str, Any]) -> None:
-    """A request's own errors, found before it shares a window (JAX
-    ``_validate_request``, for the vanilla model the port runs)."""
-    if req.get("controls"):
+def validate_request(cfg: Config, req: Dict[str, Any]) -> None:
+    """A request's own errors against its model, found before it shares a
+    window (JAX ``_validate_request``): a controllable model needs a list of
+    exactly ``controls_dim`` numbers (coerced here, so that a bad entry
+    fails this request alone), another model none; a multi-speaker model's
+    voice must be in range, a single-speaker model's None or 0."""
+    dim = cfg.controls_dim
+    controls = req.get("controls")
+    if dim:
+        if controls is None:
+            raise ValueError(f"model has controls enabled: a {dim}-dim 'controls' vector is "
+                             "required (the UI's neutral position is all zeros)")
+        if not isinstance(controls, (list, tuple)):
+            raise ValueError(f"'controls' must be a list, got {type(controls).__name__}")
+        if len(controls) != dim:
+            raise ValueError(f"'controls' must have {dim} entries, got {len(controls)}")
+        try:
+            req["controls"] = [float(c) for c in controls]
+        except (TypeError, ValueError):
+            raise ValueError(f"'controls' entries must be numbers, got {controls!r}")
+    elif controls:
         raise ValueError("model has controls disabled, but 'controls' passed")
-    if req.get("speaker_id") not in (None, 0):
+    spk = cfg.extensions.speaker_tokens
+    sid = req.get("speaker_id")
+    if spk.active and sid is not None and not 0 <= int(sid) < spk.num_speakers:
+        raise ValueError(f"speaker_id {sid} out of range [0, {spk.num_speakers})")
+    if not spk.active and sid not in (None, 0):
         raise ValueError("model is single-speaker, but 'voice' passed")
 
 
@@ -171,7 +203,8 @@ def synthesize_batch(bundle: Bundle, reqs: List[Dict[str, Any]],
     in the window; at one row it is ``say``'s n - 1), then the rows with a
     vocoder go through ``cut_vocode`` in a power-of-two row bucket and a
     128-frame bucket past the receptive field, PCM16 on the device; the
-    others through Griffin-Lim."""
+    others through Griffin-Lim. Each row brings its own voice (0 where a
+    multi-speaker model's request names none) and controls."""
     cfg, model, hifigan, packed, entry = bundle
     prep = cfg.dataset.preprocessing
     dev = next(model.parameters()).device
@@ -186,10 +219,16 @@ def synthesize_batch(bundle: Bundle, reqs: List[Dict[str, Any]],
     rows = list(range(B)) + [0] * (_pow2(B) - B)
     chars = np.pad(chars, ((0, 0), (0, Lb - L)))[rows]
     gens = [torch.Generator(device=dev).manual_seed(int(reqs[b].get("seed") or 0)) for b in rows]
+    cond = {}
+    if cfg.extensions.speaker_tokens.active:
+        cond["speaker_id"] = torch.tensor([int(reqs[b].get("speaker_id") or 0) for b in rows])
+    if cfg.controls_dim:
+        cond["controls"] = torch.tensor([reqs[b]["controls"] for b in rows],
+                                        dtype=torch.float32, device=dev)
     out = model.forward_infer_fast(torch.as_tensor(chars, device=dev),
                                    torch.as_tensor(lens[rows], device=dev),
                                    int(entry.get("max_len", MAX_LEN)), packed=packed,
-                                   row_generators=gens, encode_rows=encode_rows)
+                                   row_generators=gens, encode_rows=encode_rows, **cond)
     n = int(out.n_frames)
     fired = out.gates[:B, :, 0] < 0.0
     first = torch.where(fired.any(dim=1), fired.int().argmax(dim=1),
@@ -320,7 +359,7 @@ class MicroBatcher:
             good = []
             for req, fut in batch:
                 try:
-                    validate_request(req)
+                    validate_request(bundle.cfg, req)
                     good.append((req, fut))
                 except Exception as exc:  # this request only
                     _settle(fut, exc=exc)
@@ -339,11 +378,15 @@ class MicroBatcher:
 def warmup_models(registry: ModelRegistry, encode_rows: Optional[int] = None) -> None:
     """Load every model and synthesize one short request before the first
     real one (server config ``"warmup": true``), the encoder at the
-    windows' ``encode_rows``."""
+    windows' ``encode_rows``; voice 0 and neutral (zero) controls where the
+    model takes them."""
     for idx in range(len(registry.entries)):
+        bundle = registry.load(idx)
         req = {"text": "warmup.", "seed": 0, "use_vocoder": True,
                "out_path": os.path.join(GENERATED_DIR, f"warmup-{idx}.wav")}
-        synthesize_batch(registry.load(idx), [req], encode_rows)
+        if bundle.cfg.controls_dim:
+            req["controls"] = [0.0] * bundle.cfg.controls_dim
+        synthesize_batch(bundle, [req], encode_rows)
 
 
 class App:
@@ -406,7 +449,10 @@ class App:
 
     def _request(self, data: Any) -> tuple:
         """Parse a /generate body (the JAX server's fields and the reference
-        client's aliases) -> (model index, request)."""
+        client's aliases: ``voice`` or ``speaker``, and for a controllable
+        entry without ``controls`` the named sliders, in the order of the
+        server config's ``controls`` or else ``CONTROL_SLIDERS``, a missing
+        one 0) -> (model index, request)."""
         if not isinstance(data, dict):
             raise ValueError("the body must be a JSON object")
         try:
@@ -425,8 +471,17 @@ class App:
             raise ValueError(f"seed/voice must be integers: {exc}")
         if seed is not None and not SEED_RANGE[0] <= seed <= SEED_RANGE[1]:
             raise ValueError(f"seed {seed} is out of range {SEED_RANGE}")
+        controls = data.get("controls")
+        if controls is None and self.registry.entries[idx].get("controllable"):
+            names = [c["val"] if isinstance(c, dict) else str(c)
+                     for c in self.server_config.get("controls", [])] or list(CONTROL_SLIDERS)
+            if any(n in data for n in names):
+                try:
+                    controls = [float(data.get(n) or 0.0) for n in names]
+                except (TypeError, ValueError) as exc:
+                    raise ValueError(f"control sliders must be numbers: {exc}")
         return idx, {"text": str(data.get("text", "")), "seed": seed, "speaker_id": voice,
-                     "controls": data.get("controls"),
+                     "controls": controls,
                      "use_vocoder": bool(data.get("use_vocoder", data.get("vocoder", True)))}
 
     def _generate(self, data: Any) -> Dict[str, Any]:
@@ -437,18 +492,21 @@ class App:
         out_path = os.path.join(GENERATED_DIR, f"{req_id}.wav")
         req["out_path"] = out_path
         if self.mode == "subprocess":
-            validate_request(req)
-            self._say_subprocess(self.registry.entries[idx], req)
+            entry = self.registry.entries[idx]
+            cfg = load_config(entry["config"])
+            validate_request(cfg, req)
+            self._say_subprocess(entry, req, cfg.extensions.speaker_tokens.active)
         elif self.batcher is not None:
             self.batcher.submit(idx, req).result()
         else:
             bundle = self.registry.load(idx)
-            validate_request(req)
+            validate_request(bundle.cfg, req)
             with _thread_stream(next(bundle.model.parameters()).device):
                 synthesize_batch(bundle, [req])
         return {"path": out_path, "filename": "/" + out_path}
 
-    def _say_subprocess(self, entry: Dict[str, Any], req: Dict[str, Any]) -> None:
+    def _say_subprocess(self, entry: Dict[str, Any], req: Dict[str, Any],
+                        multi_speaker: bool) -> None:
         cmd = [sys.executable, "-m", "tacotron2_tpu_torch", "say", "--config", entry["config"],
                "--checkpoint", entry["checkpoint"], "--text", req["text"],
                "--out", req["out_path"]]
@@ -456,6 +514,10 @@ class App:
             cmd += ["--hifi-gan-checkpoint", entry["hifi_gan_checkpoint"]]
         if req["seed"] is not None:
             cmd += ["--random-seed", str(req["seed"])]
+        if multi_speaker:
+            cmd += ["--speaker-id", str(req.get("speaker_id") or 0)]
+        if req.get("controls"):
+            cmd.append("--controls=" + ",".join(repr(float(c)) for c in req["controls"]))
         if entry.get("max_len"):
             cmd += ["--max-len-override", str(entry["max_len"])]
         if entry.get("quantize_int8"):

@@ -10,9 +10,10 @@ the loop, logging every ``LOG_EVERY`` steps with the real-frame throughput
 epoch by default) and at the end -> ``final.ckpt`` (and ``last.ckpt`` every
 5,000 steps), in the reference's Lightning layout.
 
-Not ported: finetuning and its freeze masks, ``force_speaker``,
-description embeddings, the prosody style loss, multi-device training and
-the device prefetcher, TensorBoard images and histograms, FLAC input.
+Not ported: finetuning and its freeze masks, ``force_speaker``, speaker
+tokens, controls, description embeddings, GST (``train`` refuses their
+configs, ``check_trainable``), the prosody style loss, multi-device training
+and the device prefetcher, TensorBoard images and histograms, FLAC input.
 """
 
 from __future__ import annotations
@@ -69,12 +70,27 @@ def _endless(loader) -> Iterator[Dict[str, np.ndarray]]:
             raise ValueError("the training manifest gives no full batch")
 
 
+def check_trainable(cfg: Config) -> None:
+    """Raise for a config the port cannot train yet: speaker tokens and
+    controls need the controls rows of K3 and K4 and a loader of speaker and
+    control columns (ROADMAP B1.2-3); GST and description embeddings their
+    auxiliary models too (ROADMAP A6, A7)."""
+    ext = cfg.extensions
+    if (ext.speaker_tokens.active or ext.controls.active or ext.gst.active
+            or cfg.model.description_embeddings):
+        raise NotImplementedError(
+            "the port trains the vanilla configuration only: training with speaker tokens or "
+            "controls is the next slice (the controls rows of K3 and K4, ROADMAP B1.2-3), GST "
+            "and description embeddings come after their auxiliary models (ROADMAP A6, A7)")
+
+
 def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Optional[str] = None,
              resume_ckpt: Optional[str] = None, seed: int = 0,
              max_steps_override: Optional[int] = None, device: Optional[str] = None) -> dict:
     """Train; returns the final checkpoint's path, the step reached, and a
     record per train step (loss, decode frames T, real mel frames, host
     seconds ending in a device sync) and per validation batch (T)."""
+    check_trainable(cfg)
     dev = resolve_device(device)
     if dev.type == "cuda":
         use_f32_math()

@@ -205,7 +205,7 @@ class _FakeLib:
         self.calls = []
 
     def t2_decode_chunk(self, ptrs, dims, stream):
-        self.calls.append(("chunk", [ptrs[i] for i in range(44)], list(dims)))
+        self.calls.append(("chunk", [ptrs[i] for i in range(46)], list(dims)))
         return 0
 
     def t2_lstm_cell(self, *args):
@@ -228,18 +228,19 @@ class _FakeLib:
 H, D, P, M, A, K, L = 64, 32, 64, 8, 8, 31, 20
 
 
-def _meta_pack(quantize):
+def _meta_pack(quantize, E=0):
+    """A pack on meta tensors; ``E`` controls columns."""
     q = torch.int8 if quantize else torch.bfloat16
     es = 1 if quantize else 2
     bf = torch.bfloat16
     scales = dict(s_att=_meta(4 * H), s_dec=_meta(4 * H)) if quantize else {}
     return dl.PackedDecoder(
-        _meta(4 * H, P + D + H, dtype=q), _meta(4 * H), _meta(4 * H, 2 * H + D, dtype=q),
+        _meta(4 * H, P + D + H, dtype=q), _meta(4 * H), _meta(4 * H, 2 * H + D + E, dtype=q),
         _meta(4 * H), _meta(M, P, dtype=bf), _meta(P, P, dtype=bf), _meta(A, H, dtype=bf),
-        _meta(A, 2, K, dtype=bf), _meta(A, dtype=bf), _meta(M + 1, H + D, dtype=bf),
+        _meta(A, 2, K, dtype=bf), _meta(A, dtype=bf), _meta(M + 1, H + D + E, dtype=bf),
         _meta(M + 1), **scales,
         wt_att=_meta(dl.tiled_bytes(H, es * (P + D + H)), dtype=torch.uint8),
-        wt_dec=_meta(dl.tiled_bytes(H, es * (2 * H + D)), dtype=torch.uint8),
+        wt_dec=_meta(dl.tiled_bytes(H, es * (2 * H + D + E)), dtype=torch.uint8),
         wt_prenet=_meta(*dl.prenet_tiled_shape(M, P), dtype=bf))
 
 
@@ -266,10 +267,12 @@ def test_chunk_counts_what_it_launches(fake, quantize, B, n):
     mode (a ``quantize_xh`` before each cell): the counters grow by n
     prenet, 2n of the pack's cell (and 2n quantize_xh), n attention and n
     heads, and nothing else; the call gets the pack's mode, the attention's
-    cluster size and the pointer slots up to the prenet's tiled copy."""
+    cluster size, no controls columns (a pack without controls) and the
+    pointer slots up to the controls', null here."""
     pk = _meta_pack(quantize)
-    before = dict(dl.LAUNCHES)
+    before, before_ctl = dict(dl.LAUNCHES), dict(dl.CONTROLS_LAUNCHES)
     _meta_chunk(pk, B, n)
+    assert dl.CONTROLS_LAUNCHES == before_ctl  # no launch read controls
     grown = {k: dl.LAUNCHES[k] - before[k] for k in dl.LAUNCHES}
     assert grown == {"prenet": n, "lstm_cell": 0 if quantize else 2 * n,
                      "quantize_xh": 2 * n if quantize else 0,
@@ -277,8 +280,8 @@ def test_chunk_counts_what_it_launches(fake, quantize, B, n):
                      "heads": n}
     [(kind, ptrs, dims)] = fake.calls
     assert kind == "chunk" and dims[:2] == [n, B] and dims[9] == int(quantize)
-    assert len(dims) == 11 and dims[10] == dl.location_cluster_size(L, H, A, D, K)
-    assert len(ptrs) == 44
+    assert len(dims) == 12 and dims[10] == dl.location_cluster_size(L, H, A, D, K)
+    assert dims[11] == 0 and len(ptrs) == 46 and ptrs[44:] == [None, None]
     assert sum(grown.values()) == (7 if quantize else 5) * n
 
 
@@ -324,7 +327,7 @@ def test_cell_wrappers_pass_the_copy(fake, quantize, B):
     kinds = [k for k, _ in fake.calls]
     assert kinds == (["quantize_xh", name] if quantize else [name])
     args = fake.calls[-1][1]
-    assert args[0] == pk.wt_att.data_ptr() and args[11:] == (B, H, 0)
+    assert args[0] == pk.wt_att.data_ptr() and args[-3:] == (B, H, 0)
     assert dl.LAUNCHES[name] == before[name] + 1
     assert dl.LAUNCHES["quantize_xh"] == before["quantize_xh"] + int(quantize)
 

@@ -15,7 +15,9 @@ at tiny sizes:
   a free port): routes and JSON shapes, concurrent requests coalescing into
   one decode, 400s, a bad checkpoint failing only its requests, an int8
   entry packed once, Griffin-Lim for ``use_vocoder: false``, subprocess
-  mode, and shutdown failing pending requests.
+  mode, and shutdown failing pending requests; a multi-speaker and a
+  controllable entry served, a GST and a description-embedding entry
+  refused at start.
 """
 
 import concurrent.futures
@@ -304,9 +306,9 @@ def test_windows_encode_at_the_largest_window(files, serve, monkeypatch, max_bat
     seen = []
     encode = Tacotron2._encode
 
-    def spy(self, chars_idx, chars_len, train=False, generator=None, rows=None):
+    def spy(self, chars_idx, chars_len, train=False, generator=None, rows=None, **kw):
         seen.append((chars_idx.shape[0], rows))
-        return encode(self, chars_idx, chars_len, train, generator, rows)
+        return encode(self, chars_idx, chars_len, train, generator, rows, **kw)
 
     monkeypatch.setattr(Tacotron2, "_encode", spy)
     config = copy.deepcopy(files)
@@ -403,10 +405,68 @@ def test_mesh_is_not_ported(tmp_path, monkeypatch):
         srv.App({"models": [], "mesh": {"data": 4}}, device="cpu")
 
 
+def _extension_entry(files, tmp_path, extension):
+    """The tiny entry's config and weights with 3 speakers or 5 controls."""
+    entry = copy.deepcopy(files["models"][0])
+    raw = json.loads(open(entry["config"]).read())
+    raw["extensions"] = ({"speaker_tokens": {"active": True, "num_speakers": 3}}
+                         if extension == "multi_speaker" else
+                         {"controls": {"active": True, "features": list("abcde")}})
+    cfg_path = tmp_path / f"{extension}.json"
+    cfg_path.write_text(json.dumps(raw))
+    torch.manual_seed(0)
+    model = Tacotron2(model_config_from(load_config(str(cfg_path))))
+    with torch.no_grad():
+        model.decoder.gate.bias.fill_(3.0)
+    ckpt = tmp_path / f"{extension}.ckpt"
+    torch.save(to_lightning(model.state_dict()), ckpt)
+    entry.update(name=extension, config=str(cfg_path), checkpoint=str(ckpt),
+                 **{extension: True}, num_voices=3 if extension == "multi_speaker" else 1)
+    return entry
+
+
 @pytest.mark.parametrize("extension", ["multi_speaker", "controllable"])
-def test_extension_entries_are_not_ported(files, extension, tmp_path, monkeypatch):
+def test_extension_entries_load_and_serve(files, extension, serve, tmp_path):
+    """A multi-speaker and a controllable entry load, warm up (voice 0,
+    neutral controls), show in /config and serve their requests: voices and
+    controls change the audio, and a request of the other kind is a 400."""
+    entry = _extension_entry(files, tmp_path, extension)
+    c = serve({"models": [entry], "warmup": True})
+    [desc] = json.loads(c.get("/config")[1])
+    assert desc["name"] == extension and desc[extension] is True
+    if extension == "multi_speaker":
+        reqs = [{"text": "a voice", "model": 0, "seed": 3, "voice": v} for v in (0, 2)]
+        bad = ({"text": "x", "model": 0, "voice": 3}, "out of range")
+    else:
+        reqs = [{"text": "a voice", "model": 0, "seed": 3, "controls": [v, 0, 0, -v, 1]}
+                for v in (0.0, 2.0)]
+        bad = ({"text": "x", "model": 0, "voice": 1, "controls": [0.0] * 5}, "single-speaker")
+    wavs = []
+    for req in reqs:
+        status, body = c.post(req)
+        assert status == 200, body
+        wavs.append(read_wav(str(tmp_path / body["path"]))[0])
+    assert wavs[0].shape == wavs[1].shape and np.abs(wavs[0] - wavs[1]).max() > 0
+    status, body = c.post(bad[0])
+    assert status == 400 and bad[1] in body["error"]
+    st = json.loads(c.get("/stats")[1])
+    assert st["models_loaded"] == [0] and st["requests"] == {"ok": 2, "failed": 1}
+
+
+@pytest.mark.parametrize("extension", ["gst", "descriptions"])
+def test_unported_extension_entries_are_refused(files, extension, tmp_path, monkeypatch):
+    """An entry whose config has GST or description embeddings (not
+    ported: their auxiliary models, ROADMAP A6, A7) stops the server at
+    start."""
     monkeypatch.chdir(tmp_path)
     config = copy.deepcopy(files)
-    config["models"][0][extension] = True
+    raw = json.loads(open(config["models"][0]["config"]).read())
+    if extension == "gst":
+        raw["extensions"] = {"gst": {"active": True}}
+    else:
+        raw["model"]["args"].update(description_embeddings=True, description_embeddings_dim=8)
+    cfg_path = tmp_path / f"{extension}.json"
+    cfg_path.write_text(json.dumps(raw))
+    config["models"][0]["config"] = str(cfg_path)
     with pytest.raises(NotImplementedError, match="not ported"):
         srv.App(config, device="cpu")
