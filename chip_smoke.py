@@ -7,6 +7,8 @@
     python3 chip_smoke.py --k1-ab   # the same for build/parent and this tree, in turns,
                                     # and the decode step's variants on source copies
                                     # (``cell_ab``)
+    python3 chip_smoke.py --k34-ab  # the vanilla K3/K4 of build/parent and this tree in
+                                    # turns, bit for bit, and the controls mode's times
 
 Phases, each of which must pass:
 
@@ -62,6 +64,14 @@ Phases, each of which must pass:
    each kernel's device time (torch.profiler); then the encoder's bf16
    BiLSTM kernels at the train batch's shapes, and the forward at the say's
    and the serve windows' shapes on inputs from real ``_encode`` calls;
+3d. K3's and K4's controls mode on random full-width weights of the
+   controllable config (``k34_controls_phase``): at B=64 (its train batch,
+   cluster size 2), B=32 and B=5 with L=37 against their plain versions,
+   the controls' gradient included (K3_TOL_TRAIN, K4_TOL, GRAD_TOL); the
+   defects (the controls left out of K3's xh2; K4 reading d_rnn_h at H + D,
+   a copy of the source built under build/k34_defect) at least
+   DEFECT_MARGIN times their limits; the controls mode and the vanilla
+   timed in turns;
 4. run ``say`` through the port's CLI entry on random full-width weights
    saved as a reference Lightning ``.ckpt`` and a UNIVERSAL_V1 ``g_*`` file:
    a forced 256-frame decode with the launch counters read around it (K2:
@@ -100,6 +110,12 @@ Phases, each of which must pass:
    with a bf16 and an int8 entry of it, a wave of 16 requests each with
    mixed voices and controls (coalescing, the controls' launches counted),
    three of each alone equal to their batched audio (0 LSB);
+4e. ``train`` of the controllable config through the CLI entry at full
+   width and batch 64 (``train_controls_phase``): 128 synthetic WAVs of
+   speakers 0-3 with five feature columns, 6 steps and a resume to 8, every
+   K3 / K4 launch one of the controls mode, the losses falling, the speaker
+   embedding's rows moved; ``say --speaker-id 2 --controls ...`` of its
+   checkpoint; K3 / K4 at its first batch's shapes and the step's split;
 5. print the kernels line and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero before the last line on any failure, when no CUDA device
@@ -149,9 +165,10 @@ K3_TOL = {"mel_gate": 2e-3, "c_att": 2e-3, "c_rnn": 2e-3, "al": 2e-4, "cum": 5e-
 # K4's stacks and TeacherDecode's gradients against the plain versions on
 # the same residuals, relative to each tensor's own max: the bf16 dg and
 # head_h stacks to two ulps (2^-6), the f32 ones about 10x the error measured
-# (PERF.md)
+# (PERF.md); d_ctrl, the controls' cotangent summed over the steps (the
+# controls mode), reads <= 1.4e-4 at B=64 / 32 / 5 (PERF.md)
 K4_TOL = {"dg1": 1.6e-2, "dg2": 1.6e-2, "head_h": 1.6e-2, "dxh1": 1e-2, "dctx": 2e-3,
-          "dq": 5e-3, "d_attenc": 5e-3, "d_wv": 5e-3, "d_wloc": 5e-3}
+          "dq": 5e-3, "d_attenc": 5e-3, "d_wv": 5e-3, "d_wloc": 5e-3, "d_ctrl": 2e-3}
 GRAD_TOL = 1e-2
 # K5, the int8 cell: integer sums are exact, so one step of the kernel equals
 # the plain version's up to the float epilogue and the sigmoid / tanh
@@ -2027,34 +2044,48 @@ class cudnn_bilstm:
         self.layers.bilstm = self.saved
 
 
-def teacher_bounds(T: int, B: int, L: int, w, res, mel_gate) -> dict:
+def teacher_bounds(T: int, B: int, L: int, D: int, C: int, w, res, mel_gate) -> dict:
     """Bound of K3 (the T-step teacher forward) and of K4 (its reverse
     pass), each input read once and each output written once, and the
-    operations these shapes need; with the weight stream of this design
-    (the LSTM weights re-read every step) reported apart."""
+    operations these shapes need -> {name: (bound_ms, bound_by, the weight
+    stream of this design (the LSTM weights re-read every step), the bound
+    of the E - C pad columns' work)}. D: the encoder's width; C: the
+    controls (0 without), which the bound counts; the weights and xh2 hold
+    them padded to E, and that pad's bytes and operations go to the last
+    entry alone."""
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    H, E = td.packed_dims(w, D)
     H4, R1 = w.w1.shape
-    R2 = w.w2.shape[1]
-    A, H = w.wq.shape
-    K, N = w.w_loc.shape[2], w.w_out.shape[0]
-    D = R2 - 2 * H
+    A, K, N = w.wq.shape[0], w.w_loc.shape[2], w.w_out.shape[0]
     P = R1 - D - H
-    f32 = 4
+    R2 = 2 * H + D + C
+    f32, bf = 4, 2
+    pad = E - C
     lstm_w = nbytes(w.w1, w.w2)
+    w_bytes = nbytes(*w) - pad * bf * (H4 + N)
+    xh2_pad = T * B * pad * bf
     gates = 2 * B * H4 * (R1 + R2)
     att = B * (2 * A * H + L * A * (4 * K + 4) + 2 * L * D + 4 * L)
-    heads = 2 * B * N * (H + D)
-    # encoded (bf16), att_enc, lengths, the two LSTM masks
-    shared_in = B * L * (D * 2 + A * f32) + B * 4 + 2 * T * B * H * f32
-    k3 = bound_ms(nbytes(*w) + T * B * P * f32 + shared_in + nbytes(mel_gate, *res),
+    heads = 2 * B * N * (H + D + C)
+    # encoded (bf16), att_enc, lengths, the two LSTM masks, the controls
+    shared_in = B * L * (D * bf + A * f32) + B * 4 + 2 * T * B * H * f32 + B * C * f32
+    k3 = bound_ms(w_bytes + T * B * P * f32 + shared_in + nbytes(mel_gate, *res) - xh2_pad,
                   T * (gates + att + heads))
     # K4 reads the residuals and the cotangents and writes dg1, dg2 (bf16),
-    # dxh1, dctx, dq, head_h (bf16) and d_attenc; it recomputes the gates,
-    # runs the two dx products (2 x gates) and the attention backward (~3x)
-    bwd_out = T * B * (2 * H4 * 2 + R1 * f32 + D * f32 + A * f32 + H * 2) + B * L * A * f32
-    k4 = bound_ms(nbytes(*w) + shared_in + nbytes(*res) + T * B * (N + L) * f32 + bwd_out,
+    # dxh1, dctx, dq, head_h (bf16), d_attenc and d_ctrl; it recomputes the
+    # gates, runs the two dx products (2 x gates) and the attention backward
+    # (~3x)
+    bwd_out = (T * B * (2 * H4 * bf + R1 * f32 + D * f32 + A * f32 + H * bf)
+               + B * L * A * f32 + B * C * f32)
+    k4 = bound_ms(w_bytes + shared_in + nbytes(*res) - xh2_pad + T * B * (N + L) * f32 + bwd_out,
                   T * (2 * gates + 3 * att + 2 * heads))
+    pad_ops = 2 * B * pad * (H4 + N)  # one step's gate and heads products over the pad
+    pad3 = bound_ms(pad * bf * (H4 + N) + xh2_pad, T * pad_ops)[0]
+    pad4 = bound_ms(pad * bf * (H4 + N) + xh2_pad + B * pad * f32, 2 * T * pad_ops)[0]
     stream = lstm_w / HBM_BYTES_PER_S * 1e3
-    return {"teacher_forward": (*k3, T * stream), "teacher_backward": (*k4, 2 * T * stream)}
+    return {"teacher_forward": (*k3, T * stream, pad3),
+            "teacher_backward": (*k4, 2 * T * stream, pad4)}
 
 
 def without_pdl(fn):
@@ -2070,39 +2101,45 @@ def without_pdl(fn):
 
 
 def k34_check(tag: str, params, w, din, enc, att, lens, dm1, dm2, d_mg, d_al, log: dict,
-              k3_tol: dict) -> tuple:
+              k3_tol: dict, ctl=None, mode: str = "") -> tuple:
     """K3 against its plain version; K4 against its plain version on the
     plain forward's residuals, then on K3's own (the train path's chain
     K3 -> K4), and every gradient ``TeacherDecode`` returns from K4's stacks
+    (the controls' too, where ``ctl``, the padded controls, is given)
     against those from the plain ones on the same residuals; padded chars
-    must get no attention weight. -> (fwd_args, bwd_args on the plain
-    residuals, K3's mel_gate and residuals, the plain residuals)."""
+    must get no attention weight. ``mode`` ("[controls]") names the kernels
+    line's rows the errors belong to. -> (fwd_args, bwd_args on the plain
+    residuals, K3's mel_gate and residuals, the plain residuals, the plain
+    mel_gate)."""
     import torch
 
     from tacotron2_tpu_torch.ops import train_decode as td
 
-    fwd_args = (w, din, enc, att, lens, dm1, dm2)
+    fwd_args = (w, din, enc, att, lens, dm1, dm2, ctl)
     mg_k, res_k = td.teacher_forward(*fwd_args)
     mg_p, res_p = td.teacher_forward_plain(*fwd_args)
     check(f"teacher_forward{tag}", [("mel_gate", mg_k, mg_p)]
           + [(f, getattr(res_k, f), getattr(res_p, f)) for f in td.Residuals._fields],
-          k3_tol, log, "teacher_forward")
+          k3_tol, log, f"teacher_forward{mode}")
     pad = torch.arange(enc.shape[1], device=enc.device)[None, :] >= lens[:, None]
     if bool((res_k.al[1:] * pad[None]).any()):
         raise SmokeFailure(f"K3{tag} gave padded chars attention weight")
-    names = ("decoder_in", "encoded", "att_encoded") + td.DECODER_PARAMS
+    names = ("decoder_in", "encoded", "att_encoded", "controls") + td.DECODER_PARAMS
     for res, on in ((res_p, ""), (res_k, "[on K3]")):
         bwd = (w, res, enc, att, lens, dm1, dm2, d_mg, d_al)
         bk, bp = td.teacher_backward(*bwd), td.teacher_backward_plain(*bwd)
+        # a model without controls has a zero-width d_ctrl and controls' gradient
         check(f"teacher_backward{tag}{on}", [(f, getattr(bk, f), getattr(bp, f))
-                                             for f in td.BackwardOut._fields],
-              K4_TOL, log, "teacher_backward", own=True)
+                                             for f in td.BackwardOut._fields
+                                             if getattr(bp, f).numel()],
+              K4_TOL, log, f"teacher_backward{mode}", own=True)
         check(f"teacher_decode_grads{tag}{on}",
-              list(zip(names, td.grads_from(params, w, res, enc, bk, d_mg),
-                       td.grads_from(params, w, res, enc, bp, d_mg))),
-              GRAD_TOL, log, "teacher_backward", own=True)
+              [(n, a, b) for n, a, b in zip(names, td.grads_from(params, w, res, enc, bk, d_mg),
+                                            td.grads_from(params, w, res, enc, bp, d_mg))
+               if b.numel()],
+              GRAD_TOL, log, f"teacher_backward{mode}", own=True)
     bwd_args = (w, res_p, enc, att, lens, dm1, dm2, d_mg, d_al)
-    return fwd_args, bwd_args, mg_k, res_k, res_p
+    return fwd_args, bwd_args, mg_k, res_k, res_p, mg_p
 
 
 # ragged shapes of the attention's cluster split (S = 4 at B = 32: slices of
@@ -2146,8 +2183,8 @@ def k34_phase(model, log: dict) -> list:
                 rn(T, B, L, scale=1e-3))
 
     lens = torch.linspace(L, 100, B, device=dev).round().to(torch.int32)
-    fwd_args, bwd_args, mg_k, res_k, res_p = k34_check("", params, w, *inputs(B, L, T, lens),
-                                                       log, K3_TOL)
+    fwd_args, bwd_args, mg_k, res_k, res_p, _ = k34_check("", params, w,
+                                                          *inputs(B, L, T, lens), log, K3_TOL)
     S = td.cluster_size(B, torch.cuda.get_device_properties(dev).multi_processor_count)
     log["k34_cluster"] = {"S": S, "dynamic_smem_bytes": td.smem_bytes(L, S, H, w.wq.shape[0], D,
                                                                       w.w_loc.shape[2])}
@@ -2199,10 +2236,10 @@ def k34_phase(model, log: dict) -> list:
     if not all(torch.equal(a, b) for a, b in zip((mg_k, *res_k, *bk), (mg_n, *res_n, *bk_n))):
         raise SmokeFailure("K3/K4 with programmatic dependent launch differ from without")
 
-    bounds = teacher_bounds(T, B, L, w, res_k, mg_k)
+    bounds = teacher_bounds(T, B, L, D, 0, w, res_k, mg_k)
     rows = []
     log["k34_pdl"] = {}
-    for name, kern, plain, (b_ms, b_by, stream), per, replaces in (
+    for name, kern, plain, (b_ms, b_by, stream, _), per, replaces in (
         ("teacher_forward", lambda: td.teacher_forward(*fwd_args),
          lambda: td.teacher_forward_plain(*fwd_args), bounds["teacher_forward"],
          f"one teacher forward, B={B}, L={L}, T={T}", 51),
@@ -2224,6 +2261,168 @@ def k34_phase(model, log: dict) -> list:
                                 "no_pdl_eager_ms": without_pdl(lambda: eager_ms(kern, 3))}
     print("  K3/K4 with and without programmatic dependent launch, device ms: "
           + json.dumps(log["k34_pdl"]))
+    return rows
+
+
+# K3/K4 in the controls mode (the controllable configs, C=5 -> E=16): the
+# controllable train batch's shape (B=64: cluster size 2 on 132 SMs), the
+# -32 configs' (B=32) and a ragged one (B=5, L=37: cluster size 8, slices
+# of 5 chars), with distinct controls per row
+K34_CTL_SHAPES = (
+    ("[controls,B64]", 64, 128, 384, None),
+    ("[controls,B32]", 32, 128, 384, None),
+    ("[controls,B5,L37]", 5, 37, 16, (37, 10, 1, 5, 6)),
+)
+# a defect must read at least this many times its limit
+DEFECT_MARGIN = 3.0
+# the vanilla and the controls mode timed in turns at these (B, L, T): the
+# vanilla check shape of phase 3b, the controllable train batch's
+K34_TURN_SHAPES = ((32, 160, 128), (64, 128, 384))
+
+
+def start_k4_defect():
+    """Start building a copy of ``csrc/train_decode.cu`` whose K4 reads
+    d_rnn_h at H + D (the controls' cotangent) where it sits at H + D + E,
+    under build/k34_defect. -> (nvcc process, library path)"""
+    from tacotron2_tpu_torch.ops import build
+
+    src = (build.CSRC / "train_decode.cu").read_text()
+    good = "(const float*)(dxh2 + H + D + E), R2"
+    if src.count(good) != 1:
+        raise SmokeFailure("K4's d_rnn_h read is not where the defect expects it")
+    out = ROOT / "build" / "k34_defect"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "train_decode.cu").write_text(src.replace(good, "(const float*)(dxh2 + H + D), R2"))
+    lib = out / "libtrain_decode_defect.so"
+    proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+                             str(lib), str(out / "train_decode.cu")], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def k34_controls_phase(vanilla, log: dict) -> list:
+    """K3 and K4 in the controls mode on random full-width weights of the
+    controllable config: at ``K34_CTL_SHAPES`` against their plain versions
+    (K3_TOL_TRAIN, K4_TOL, GRAD_TOL, the controls' gradient included); the
+    defects' readings, K3 with the controls left out of xh2 and K4 reading
+    d_rnn_h at H + D, each at least DEFECT_MARGIN times its limit; the
+    controls mode and the vanilla (``vanilla``'s weights) timed in turns at
+    ``K34_TURN_SHAPES``; the kernels line's rows at B=64 (B=32 riding
+    along)."""
+    import ctypes
+
+    import torch
+
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    proc, lib_path = start_k4_defect()
+    dev = torch.device("cuda")
+    _, model = ctl_model(SEED + 5)
+    c = model.cfg
+    M, P, H, D, C = c.num_mels, c.prenet_dim, c.att_rnn_dim, c.encoded_dim, c.controls_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 6)
+    rn = lambda *s, scale=1.0: torch.randn(*s, device=dev, generator=g) * scale
+    pack = lambda m, C: td.pack_weights([dict(m.decoder.named_parameters())[k].detach()
+                                         for k in td.DECODER_PARAMS], torch.bfloat16, C)
+    params = [dict(model.decoder.named_parameters())[k].detach() for k in td.DECODER_PARAMS]
+    w, w_van = pack(model, C), pack(vanilla, 0)
+
+    def inputs(B, L, T, short=None):
+        lens = (torch.tensor(list(short) + [L] * (B - len(short)), dtype=torch.int32, device=dev)
+                if short else torch.linspace(L, 60, B, device=dev).round().to(torch.int32))
+        din = torch.relu(rn(T, B, P)) * 2.0
+        enc = rn(B, L, D, scale=0.5).to(torch.bfloat16)
+        att = (enc.float() @ model.att_encoder.weight.t()).contiguous()
+        dm1, dm2 = td.lstm_masks(T, B, H, g, dev)
+        ctl = td.pad_controls(row_controls(B, g, dim=C), C, din[0])
+        return (din, enc, att, lens, dm1, dm2, rn(T, B, M + 1, scale=1e-3),
+                rn(T, B, L, scale=1e-3)), ctl
+
+    checked = {}
+    for tag, B, L, T, short in K34_CTL_SHAPES:
+        args, ctl = inputs(B, L, T, short)
+        S = td.cluster_size(B, td._sms(dev))
+        print(f"  {tag}: B={B}, L={L}, T={T}, cluster size S={S}")
+        checked[tag] = (B, L, T, ctl, k34_check(tag, params, w, *args, log, K3_TOL_TRAIN, ctl,
+                                                "[controls]"))
+
+    # the defects at B=64
+    B, L, T, ctl, (fwd_args, bwd_args, mg_k, res_k, res_p, mg_p) = checked["[controls,B64]"]
+    mg0, res0 = td.teacher_forward(*fwd_args[:7], torch.zeros_like(ctl))
+    k3_defect = {f: err(a, b)[1] / K3_TOL_TRAIN[f]
+                 for f, a, b in (("mel_gate", mg0, mg_p), ("c_rnn", res0.c_rnn, res_p.c_rnn))}
+    log_nvcc, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise SmokeFailure(f"nvcc failed for the K4 defect copy:\n{log_nvcc}")
+    saved = td._LIB
+    td._LIB = td.bind(ctypes.CDLL(str(lib_path)))
+    try:
+        bk_bad = td.teacher_backward(*bwd_args)
+    finally:
+        td._LIB = saved
+    bp = td.teacher_backward_plain(*bwd_args)
+    k4_defect = {f: err(getattr(bk_bad, f), getattr(bp, f), own=True)[1] / K4_TOL[f]
+                 for f in ("dg2", "dxh1", "d_ctrl")}
+    log["k34_controls_defects"] = {"controls_left_out_of_K3": k3_defect,
+                                   "K4_d_rnn_h_at_H_plus_D": k4_defect,
+                                   "as": "reading / limit"}
+    print(f"  defects at B={B}, reading / limit: the controls left out of K3 {k3_defect}; K4 "
+          f"reading d_rnn_h at H + D {k4_defect}")
+    if max(k3_defect.values()) < DEFECT_MARGIN or max(k4_defect.values()) < DEFECT_MARGIN:
+        raise SmokeFailure("a K3/K4 defect of the controls mode reads within "
+                           f"{DEFECT_MARGIN}x its limit: {k3_defect}, {k4_defect}")
+
+    # the controls mode against the vanilla in turns, same inputs but the
+    # controls (device ms, CUDA-graph replay)
+    turns = {}
+    for B, L, T in K34_TURN_SHAPES:
+        args, ctl = inputs(B, L, T)
+        bwd_in = args[6:]
+        calls = {}
+        for mode, ww, cc in (("vanilla", w_van, None), ("controls", w, ctl)):
+            f_args = (ww, *args[:6], cc)
+            _, res = td.teacher_forward(*f_args)
+            b_args = (ww, res, *args[1:6], *bwd_in)
+            calls[mode] = (lambda f_args=f_args: td.teacher_forward(*f_args),
+                           lambda b_args=b_args: td.teacher_backward(*b_args))
+        got = {f"{m}_{k}": [] for m in ("vanilla", "controls") for k in ("k3", "k4")}
+        for mode in ("vanilla", "controls", "controls", "vanilla"):
+            got[f"{mode}_k3"].append(time_ms(calls[mode][0], 3, 1))
+            got[f"{mode}_k4"].append(time_ms(calls[mode][1], 3, 1))
+        turns[f"B{B},L{L},T{T}"] = got
+        print(f"  K3 / K4 at B={B}, L={L}, T={T}, device ms in turns (vanilla, controls, "
+              "controls, vanilla): " + "; ".join(
+                  f"{k} " + " / ".join(f"{v:.3f}" for v in vs) for k, vs in got.items()))
+    log["k34_controls_vs_vanilla"] = turns
+
+    rows = []
+    for name, replaces, src_note in (
+            ("teacher_forward", 124, "the controls rows of xh2 :124-127 and of the heads :148"),
+            ("teacher_backward", 596, "d_ctrl from the heads :579 and the decoder LSTM's dx "
+                                      ":596, o_d_ctrl :818")):
+        per_b = {}
+        for tag in ("[controls,B64]", "[controls,B32]"):
+            B, L, T, ctl, (f_args, b_args, mg, res, _, _) = checked[tag]
+            b_ms, b_by, stream, pad_ms = teacher_bounds(T, B, L, D, C, w, res, mg)[name]
+            kern = (lambda a=f_args: td.teacher_forward(*a)) if name == "teacher_forward" \
+                else (lambda a=b_args: td.teacher_backward(*a))
+            plain = (lambda a=f_args: td.teacher_forward_plain(*a)) if name == "teacher_forward" \
+                else (lambda a=b_args: td.teacher_backward_plain(*a))
+            per_b[B] = {"ms": time_ms(kern, 3, 1), "plain_ms": time_ms(plain, 2, 1),
+                        "bound_ms": b_ms, "bound_by": b_by, "weight_stream_ms": stream,
+                        "controls_pad_bound_ms": pad_ms, "eager_ms": eager_ms(kern, 3),
+                        "per": f"B={B}, L={L}, T={T}, C={C}"}
+        top = per_b[checked["[controls,B64]"][0]]
+        rows.append({
+            "name": f"{name}[controls]", "route": "cuda",
+            "source": "tacotron2_tpu_torch/csrc/train_decode.cu",
+            "replaces": f"tacotron2_tpu/ops/train_decode_pallas.py:{replaces} ({src_note})",
+            "library_ms": None, **top,
+            "per": f"{'one teacher forward' if name == 'teacher_forward' else 'one reverse pass'}"
+                   f" with controls, {top['per']}",
+            "rows": {str(b): {k: v[k] for k in ("ms", "plain_ms", "bound_ms")}
+                     for b, v in per_b.items()}})
     return rows
 
 
@@ -2334,36 +2533,25 @@ def _synth_corpus(root: Path, n: int) -> Path:
     return speech
 
 
-def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
-    """``train`` through the CLI entry at the vanilla full width: 64
-    synthetic WAVs, batch 32, 6 steps, then ``--resume-ckpt`` to step 8,
-    with K3 and K4's launch counters read around both runs; then the trained
-    checkpoint through ``say``, and the split of one train step."""
+def train_run(root: Path, raw: dict, rows: list, n_val: int, speech: Path) -> tuple:
+    """``train`` through the CLI entry: 6 steps, then ``--resume-ckpt`` to
+    step 8, on the manifest ``rows`` (``header`` first) with the first
+    ``n_val`` rows as validation, with K3 and K4's launch counters set to 0
+    before and read after; the losses must be finite and fall and the
+    launches equal launches per step x T over every decode. -> (config
+    path, first run, second run, launches, controls launches, encoder
+    launches, losses, the launches wanted)"""
     import numpy as np
-    import torch
 
     from tacotron2_tpu_torch.__main__ import main as cli
-    from tacotron2_tpu_torch.config import load_config
-    from tacotron2_tpu_torch.data.loader import collate
     from tacotron2_tpu_torch.ops import encoder_lstm as el
     from tacotron2_tpu_torch.ops import train_decode as td
-    from tacotron2_tpu_torch.run.train import _dataset, read_manifest
-    from tacotron2_tpu_torch.training import optimizer, step
-    from tacotron2_tpu_torch.training.checkpoint import load_model_state
-    from tacotron2_tpu_torch.models.layers import Policy
-    from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
-    from tacotron2_tpu_torch.run.say import model_config_from
 
-    root = WORK / "train"
-    speech = _synth_corpus(root, 64)
-    rows = [f"{TRAIN_TEXTS[i % len(TRAIN_TEXTS)]}|s{i:03d}.wav" for i in range(64)]
-    (root / "train.csv").write_text("text|wav\n" + "\n".join(rows) + "\n")
-    (root / "val.csv").write_text("text|wav\n" + "\n".join(rows[:32]) + "\n")
-    raw = json.loads(Path(cfg_path).read_text())
+    (root / "train.csv").write_text("\n".join(rows) + "\n")
+    (root / "val.csv").write_text("\n".join(rows[:n_val + 1]) + "\n")
     raw["dataset"]["train"], raw["dataset"]["val"] = str(root / "train.csv"), str(root / "val.csv")
     cfg_train = root / "cfg.json"
     cfg_train.write_text(json.dumps(raw))
-
     base = ["train", "--config", str(cfg_train), "--speech-dir", str(speech),
             "--seed", str(SEED)]
     td.reset_launches()
@@ -2371,11 +2559,12 @@ def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
     first = cli(base + ["--results-dir", str(root / "r1"), "--max-steps", "6"])
     second = cli(base + ["--results-dir", str(root / "r2"), "--resume-ckpt",
                          first["checkpoint"], "--max-steps", "8"])
-    launches = dict(td.LAUNCHES)
+    launches, ctl_launches = dict(td.LAUNCHES), dict(td.CONTROLS_LAUNCHES)
     enc_launches = dict(el.LAUNCHES)
     steps = first["steps"] + second["steps"]
     losses = [s["loss"] for s in steps]
-    print(f"  losses {[round(x, 4) for x in losses]}; launches {launches}")
+    print(f"  losses {[round(x, 4) for x in losses]}; launches {launches}, of them with "
+          f"controls {ctl_launches}")
     if [s["step"] for s in steps] != list(range(1, 9)):
         raise SmokeFailure(f"steps {[s['step'] for s in steps]}, want 1..8 across the resume")
     if not all(math.isfinite(x) for x in losses) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
@@ -2383,52 +2572,70 @@ def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
     fwd_T = [s["decode_frames"] for s in steps] + first["val_decode_frames"] \
         + second["val_decode_frames"]
     want = {"teacher_forward": sum(td.forward_launches(T) for T in fwd_T),
-            "teacher_backward":sum(td.backward_launches(s["decode_frames"]) for s in steps)}
+            "teacher_backward": sum(td.backward_launches(s["decode_frames"]) for s in steps)}
     if launches != want:
         raise SmokeFailure(f"K3/K4 launches {launches}, want {want}")
     if 0 in enc_launches.values():
         raise SmokeFailure(f"the encoder's BiLSTM kernels were not launched in train: "
                            f"{enc_launches}")
+    return str(cfg_train), first, second, launches, ctl_launches, enc_launches, losses, want
 
-    # the trained checkpoint through the port's say
-    said = cli(["say", "--config", str(cfg_train), "--checkpoint", second["checkpoint"],
-                "--hifi-gan-checkpoint", g_path, "--text", TRAIN_TEXTS[0],
-                "--out", str(root / "trained.wav"), "--random-seed", str(SEED),
-                "--max-len-override", "64"])
-    if not 1 <= said["n_frames"] <= 64:
-        raise SmokeFailure(f"say of the trained checkpoint: {said}")
 
-    # host clock per step (each step ends in a sync), first step of each
-    # run left out (cuDNN and allocator warm-up)
+def train_perf(first: dict, second: dict, card: str) -> dict:
+    """Host clock per step (each step ends in a sync), first step of each
+    run left out (cuDNN and allocator warm-up)."""
+    import numpy as np
+
     steady = first["steps"][1:] + second["steps"][1:]
     ms = [s["s"] * 1e3 for s in steady]
-    perf = {"ms_per_step_median": float(np.median(ms)), "ms_per_step": ms,
+    return {"ms_per_step_median": float(np.median(ms)), "ms_per_step": ms,
             "mel_frames_per_s": sum(s["mel_frames"] for s in steady) / sum(s["s"] for s in steady),
-            "decode_frames": sorted({s["decode_frames"] for s in steps}), "card": card}
+            "decode_frames": sorted({s["decode_frames"] for s in first["steps"] + second["steps"]}),
+            "card": card}
 
-    # the split of one train step at the first batch's shapes: each part
-    # timed alone, eager, ending in a sync (so the parts need not sum to the
-    # whole step)
-    cfg = load_config(str(cfg_train))
+
+def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log: dict,
+                mode: str = "") -> dict:
+    """At the first batch's shapes, on the trained weights of ``ckpt``: K3
+    and K4 against their plain versions (K3_TOL_TRAIN; a controllable
+    model's with its batch's speakers and controls), their split by kernel,
+    and one train step split into its parts, each timed alone, eager,
+    ending in a sync (so the parts need not sum to the whole step). ``mode``
+    "[controls]" names the kernels line's rows. -> the parts (ms)."""
+    import torch
+
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.data.loader import collate
+    from tacotron2_tpu_torch.models.layers import Policy
+    from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+    from tacotron2_tpu_torch.ops import train_decode as td
+    from tacotron2_tpu_torch.run.say import model_config_from
+    from tacotron2_tpu_torch.run.train import _dataset, read_manifest
+    from tacotron2_tpu_torch.training import optimizer, step
+    from tacotron2_tpu_torch.training.checkpoint import load_model_state
+
+    cfg = load_config(cfg_train)
     dev = torch.device("cuda")
     model = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision))
-    load_model_state(second["checkpoint"], model)
+    load_model_state(ckpt, model)
     model.to(dev)
     opt, sched = optimizer.make_optimizer(model.parameters(), 1e-3, 1e-6)
     ds = _dataset(cfg, read_manifest(str(root / "train.csv")), str(speech), str(root / "cache"))
-    batch = step.to_device(collate([ds[i] for i in range(TRAIN_B)], 32, 128), dev)
+    batch = step.to_device(collate([ds[i] for i in range(B)], 32, 128), dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     B, T = batch["mel"].shape[:2]
     L = batch["chars_idx"].shape[1]
-    H = model.cfg.att_rnn_dim
+    H, C = model.cfg.att_rnn_dim, model.cfg.controls_dim
     named = dict(model.decoder.named_parameters())
     params = [named[k].detach() for k in td.DECODER_PARAMS]
-    w = td.pack_weights(params, torch.bfloat16)
+    w = td.pack_weights(params, torch.bfloat16, C)
+    spk = batch.get("speaker_id")
 
     def encoder():
         with torch.enable_grad():
-            enc, att_enc, _ = model._encode(batch["chars_idx"], batch["chars_len"], True, gen)
+            enc, att_enc, _ = model._encode(batch["chars_idx"], batch["chars_len"], True, gen,
+                                            speaker_id=spk)
             (enc.sum() + att_enc.sum()).backward()
         return enc.detach(), att_enc.detach()
 
@@ -2436,21 +2643,20 @@ def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
     enc_b, lens = enc.to(torch.bfloat16).contiguous(), batch["chars_len"].to(torch.int32)
     din = model.teacher_decoder_in(batch["mel"], gen)
     dm1, dm2 = td.lstm_masks(T, B, H, gen, dev)
+    ctl = td.pad_controls(batch["controls"], C, din[0]) if "controls" in batch else None
     N = w.w_out.shape[0]
     d_mg = torch.randn(T, B, N, device=dev, generator=gen) * 1e-3
     d_al = torch.randn(T, B, L, device=dev, generator=gen) * 1e-3
 
-    # K3 and K4 against their plain versions at the main path's shapes, on
-    # the trained weights, the first batch's encoding and prenet output
-    fwd_args, bwd_args, mg, _, _ = k34_check(
-        f"@T{T}", params, w, din, enc_b, att_enc.contiguous(), lens, dm1, dm2, d_mg, d_al, log,
-        K3_TOL_TRAIN)
+    fwd_args, bwd_args, mg, _, _, _ = k34_check(
+        f"{mode}@B{B},T{T}", params, w, din, enc_b, att_enc.contiguous(), lens, dm1, dm2, d_mg,
+        d_al, log, K3_TOL_TRAIN, ctl, mode)
     out = td.teacher_backward(*bwd_args)
-    log["k34_kernel_ms_train"] = {
-        "teacher_forward": kernel_split(lambda: td.teacher_forward(*fwd_args)),
-        "teacher_backward": kernel_split(lambda: td.teacher_backward(*bwd_args))}
-    for name, split in log["k34_kernel_ms_train"].items():
-        print(f"  {name}, device ms per kernel (torch.profiler, B={B}, L={L}, T={T}): "
+    key = f"k34_kernel_ms_train{mode}"
+    log[key] = {"teacher_forward": kernel_split(lambda: td.teacher_forward(*fwd_args)),
+                "teacher_backward": kernel_split(lambda: td.teacher_backward(*bwd_args))}
+    for name, split in log[key].items():
+        print(f"  {name}{mode}, device ms per kernel (torch.profiler, B={B}, L={L}, T={T}): "
               + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
 
     def postnet():
@@ -2472,17 +2678,119 @@ def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
                                                                 sched), 3),
     }
     parts["sum_of_parts"] = sum(v for k, v in parts.items() if k != "train_step")
-    with cudnn_bilstm():  # the encoder before the repair, apart from the sum
-        parts["encoder_fwd_bwd_cudnn_f32_bilstm"] = eager_ms(encoder, 3)
-    perf.update({"split_ms": parts, "split_shape": {"B": B, "L": L, "T": T}})
+    if not mode:
+        with cudnn_bilstm():  # the encoder before the repair, apart from the sum
+            parts["encoder_fwd_bwd_cudnn_f32_bilstm"] = eager_ms(encoder, 3)
+    print(f"  split of one step{mode} (B={B}, L={L}, T={T}), eager ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    return {"split_ms": parts, "split_shape": {"B": B, "L": L, "T": T}}
+
+
+def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
+    """``train`` through the CLI entry at the vanilla full width: 64
+    synthetic WAVs, batch 32, 6 steps, then ``--resume-ckpt`` to step 8,
+    with K3 and K4's launch counters read around both runs; then the trained
+    checkpoint through ``say``, and the split of one train step."""
+    from tacotron2_tpu_torch.__main__ import main as cli
+
+    root = WORK / "train"
+    speech = _synth_corpus(root, 64)
+    rows = ["text|wav"] + [f"{TRAIN_TEXTS[i % len(TRAIN_TEXTS)]}|s{i:03d}.wav" for i in range(64)]
+    cfg_train, first, second, launches, _, enc_launches, losses, want = train_run(
+        root, json.loads(Path(cfg_path).read_text()), rows, 32, speech)
+
+    # the trained checkpoint through the port's say
+    said = cli(["say", "--config", cfg_train, "--checkpoint", second["checkpoint"],
+                "--hifi-gan-checkpoint", g_path, "--text", TRAIN_TEXTS[0],
+                "--out", str(root / "trained.wav"), "--random-seed", str(SEED),
+                "--max-len-override", "64"])
+    if not 1 <= said["n_frames"] <= 64:
+        raise SmokeFailure(f"say of the trained checkpoint: {said}")
+    perf = train_perf(first, second, card)
+    perf.update(train_split(cfg_train, second["checkpoint"], speech, root, TRAIN_B, log))
     print(f"  train: {perf['ms_per_step_median']:.1f} ms/step (median), "
           f"{perf['mel_frames_per_s']:.0f} mel frames/s at B={TRAIN_B}, decode frames "
           f"{perf['decode_frames']}, on {card}")
-    print(f"  split of one step (B={B}, L={L}, T={T}), eager ms: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
     log["train"] = {"losses": losses, "launches": {**launches, **enc_launches}, "want": want,
                     "perf": perf, "say": said}
     return {**launches, **enc_launches}
+
+
+CTL_TRAIN_B = 64  # the controllable config's batch
+CTL_TRAIN_WAVS = 128
+
+
+def train_controls_phase(g_path: str, log: dict, card: str) -> dict:
+    """``train`` through the CLI entry on ``config/controllable-lj-hifi-stop-speaker.json``
+    at its full width and batch 64: 128 synthetic WAVs of speakers 0-3 with
+    the five feature columns uniform in [-1, 1], a 32-row val manifest; 6
+    steps, then a resume to 8, the launches held as in ``train_phase`` and
+    every K3 / K4 launch one of the controls mode; the speaker embedding's
+    rows of the speakers seen must have moved from the seed's init. Then
+    ``say --speaker-id 2 --controls CTL_VALUES`` of the trained checkpoint
+    (K1's controls rows), the split of one step at B=64, and K3 / K4 at the
+    first batch's shapes. -> {kernels-line row: launches}"""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.models.layers import Policy
+    from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+    from tacotron2_tpu_torch.ops import decoder_loop
+    from tacotron2_tpu_torch.run.say import model_config_from
+    from tacotron2_tpu_torch.training.checkpoint import load_model_state
+
+    root = WORK / "train_controls"
+    speech = _synth_corpus(root, CTL_TRAIN_WAVS)
+    cfg_path = ROOT / "config" / CTL_CONFIG
+    raw = json.loads(cfg_path.read_text())
+    feats = raw["extensions"]["controls"]["features"]
+    rng = np.random.default_rng(SEED + 9)
+    rows = ["|".join(["text", "wav", "speaker_id", *feats])] + [
+        "|".join([TRAIN_TEXTS[i % len(TRAIN_TEXTS)], f"s{i:03d}.wav", str(i % 4),
+                  *(repr(float(x)) for x in rng.uniform(-1, 1, len(feats)))])
+        for i in range(CTL_TRAIN_WAVS)]
+    cfg_train, first, second, launches, ctl_launches, enc_launches, losses, want = train_run(
+        root, raw, rows, 32, speech)
+    if ctl_launches != want:
+        raise SmokeFailure(f"K3/K4 launches of the controls mode {ctl_launches}, want {want}")
+
+    cfg = load_config(cfg_train)
+    torch.manual_seed(SEED)  # do_train's init from --seed
+    table0 = Tacotron2(model_config_from(cfg),
+                       Policy.from_string(cfg.training.precision)).speaker_embedding.weight
+    trained = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision))
+    load_model_state(second["checkpoint"], trained)
+    moved = (trained.speaker_embedding.weight - table0).abs().amax(1).tolist()
+    print(f"  speaker embedding rows moved by (max abs): {moved}")
+    if not all(m > 0 for m in moved):
+        raise SmokeFailure(f"the speaker embedding's rows of the speakers seen did not move: "
+                           f"{moved}")
+
+    decoder_loop.reset_launches()
+    said = cli(["say", "--config", cfg_train, "--checkpoint", second["checkpoint"],
+                "--hifi-gan-checkpoint", g_path, "--text", TRAIN_TEXTS[0],
+                "--out", str(root / "trained.wav"), "--random-seed", str(SEED),
+                "--max-len-override", "64", "--speaker-id", str(CTL_SPEAKER),
+                "--controls", CTL_VALUES])
+    said_ctl = dict(decoder_loop.CONTROLS_LAUNCHES)
+    print(f"  say --speaker-id {CTL_SPEAKER} --controls {CTL_VALUES} of the trained "
+          f"checkpoint: {said}; launches reading the controls {said_ctl}")
+    if not 1 <= said["n_frames"] <= 64 or min(said_ctl["heads"],
+                                              said_ctl["lstm_cell"]) < said["n_frames"]:
+        raise SmokeFailure(f"say of the trained controllable checkpoint: {said}, {said_ctl}")
+    perf = train_perf(first, second, card)
+    perf.update(train_split(cfg_train, second["checkpoint"], speech, root, CTL_TRAIN_B, log,
+                            "[controls]"))
+    print(f"  train [controls]: {perf['ms_per_step_median']:.1f} ms/step (median), "
+          f"{perf['mel_frames_per_s']:.0f} mel frames/s at B={CTL_TRAIN_B}, decode frames "
+          f"{perf['decode_frames']}, on {card}")
+    log["train_controls"] = {"losses": losses, "launches": {**launches, **enc_launches},
+                             "controls_launches": ctl_launches, "want": want,
+                             "speaker_rows_moved": moved, "perf": perf, "say": said,
+                             "say_controls_launches": said_ctl}
+    return {f"{k}[controls]": n for k, n in ctl_launches.items()}
 
 
 def say_phase(cfg_path: str, log: dict, card: str):
@@ -3245,29 +3553,40 @@ def arg_value(flag: str, default: str) -> str:
     return argv[argv.index(flag) + 1] if flag in argv else default
 
 
-def k1_ab() -> int:
-    """``--k1-ab``: the parent's K1/K5 (a ``git archive`` of it unpacked
-    into build/parent) against this tree's, in turns parent, change,
-    change, parent, each a ``--k1-rows`` process of its own (the two
-    packages share a name; the second change turn adds ``cell_ab``); the
-    results go to chiprun_out/k1_ab.json. Fails unless the prenet's and
-    the vanilla chunks' outputs have the same bits in every turn (for a
-    change that does not mean to alter them)."""
+def ab_turns(rows_flag: str, prefix: str, extra=lambda i: []):
+    """The parent's package (a ``git archive`` of it unpacked into
+    build/parent) against this tree's, in turns parent, change, change,
+    parent, each a ``rows_flag`` process of its own (the two packages share
+    a name) with ``extra(i)`` added to turn i's arguments -> each turn's
+    JSON (chiprun_out/<prefix>_<i>_<tag>.json) with its turn, tag and exit
+    code; None where build/parent holds no package."""
     parent = ROOT / "build" / "parent"
     if not (parent / "tacotron2_tpu_torch").is_dir():
         print(f"FAIL: no parent package under {parent}", file=sys.stderr)
-        return 2
+        return None
     turns = []
     for i, (tag, root) in enumerate((("parent", parent), ("change", ROOT), ("change", ROOT),
                                      ("parent", parent))):
-        out = f"k1_rows_{i}_{tag}.json"
-        ab = ["--cell-ab"] if i == 2 else []  # this tree's CELL_AB copies, once
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--k1-rows",
-                               "--root", str(root), "--out", out, *ab], timeout=900)
+        out = f"{prefix}_{i}_{tag}.json"
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), rows_flag,
+                               "--root", str(root), "--out", out, *extra(i)], timeout=900)
         path = OUT_DIR / out
         turns.append({"turn": i, "tag": tag, "rc": proc.returncode,
                       **(json.loads(path.read_text()) if path.exists() else {})})
     OUT_DIR.mkdir(exist_ok=True)
+    return turns
+
+
+def k1_ab() -> int:
+    """``--k1-ab``: the parent's K1/K5 against this tree's in turns
+    (``ab_turns`` of ``--k1-rows``; the second change turn adds
+    ``cell_ab``); the results go to chiprun_out/k1_ab.json. Fails unless
+    the prenet's and the vanilla chunks' outputs have the same bits in
+    every turn (for a change that does not mean to alter them)."""
+    # this tree's CELL_AB copies, once
+    turns = ab_turns("--k1-rows", "k1_rows", lambda i: ["--cell-ab"] if i == 2 else [])
+    if turns is None:
+        return 2
     print("[k1-ab] in turns (us; window decode ms):")
     for t in turns:
         cells = t.get("cells", {})
@@ -3306,6 +3625,113 @@ def k1_ab() -> int:
     return max(t["rc"] for t in turns)
 
 
+def _sha1(tensors) -> str:
+    """A digest of the tensors' bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+K34_AB_DIMS = (80, 512, 256, 1024, 128)  # M, D, P, H, A of the configs in config/
+
+
+def k34_rows_mode(out_name: str) -> int:
+    """``--k34-rows``: build K3/K4 only, then the vanilla K3 and K4 (no
+    controls) at ``K34_TURN_SHAPES`` on random full-width weights of a
+    seeded ``Decoder`` and seeded inputs: a digest of every output (K4's
+    stacks as the parent has them) and their device times; where the
+    package has the controls mode, the same with 5 controls (times only).
+    Results to chiprun_out/<out_name>. Runs the package found first on
+    sys.path (the repo's, or a parent's with ``--root``)."""
+    import torch
+
+    from tacotron2_tpu_torch import ops
+    from tacotron2_tpu_torch.models.decoder import Decoder
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    use_f32_math()
+    t0 = time.perf_counter()
+    build.build_all(["train_decode"])
+    log: dict = {"card": card_line(), "package": str(Path(ops.__file__).parents[1]),
+                 "build_s": time.perf_counter() - t0, "shapes": {}}
+    print(f"[k34-rows] {log['package']} on {log['card']}")
+    dev = torch.device("cuda")
+    M, D, P, H, A = K34_AB_DIMS
+    fields = ("dg1", "dg2", "dxh1", "dctx", "dq", "head_h", "d_attenc", "d_wv", "d_wloc")
+    modes = [("vanilla", 0)] + ([("controls", 5)] if hasattr(td, "controls_cols") else [])
+    try:
+        for C_mode, C in modes:
+            torch.manual_seed(SEED)
+            dec = Decoder(M, D, P, H, A, H, C).to(dev)
+            named = dict(dec.named_parameters())
+            params = [named[k].detach() for k in td.DECODER_PARAMS]
+            w = td.pack_weights(params, torch.bfloat16, C) if C else \
+                td.pack_weights(params, torch.bfloat16)
+            for B, L, T in K34_TURN_SHAPES:
+                g = torch.Generator(device=dev)
+                g.manual_seed(SEED + B)
+                rn = lambda *s, scale=1.0: torch.randn(*s, device=dev, generator=g) * scale
+                lens = torch.linspace(L, 60, B, device=dev).round().to(torch.int32)
+                din = torch.relu(rn(T, B, P)) * 2.0
+                enc = rn(B, L, D, scale=0.5).to(torch.bfloat16)
+                att = rn(B, L, A, scale=0.5)
+                dm1, dm2 = td.lstm_masks(T, B, H, g, dev)
+                d_mg, d_al = rn(T, B, M + 1, scale=1e-3), rn(T, B, L, scale=1e-3)
+                f_args = (w, din, enc, att, lens, dm1, dm2)
+                if C:
+                    f_args += (td.pad_controls(rn(B, C).clamp(-1, 1), C, din[0]),)
+                mg, res = td.teacher_forward(*f_args)
+                b_args = (w, res, enc, att, lens, dm1, dm2, d_mg, d_al)
+                out = td.teacher_backward(*b_args)
+                torch.cuda.synchronize()
+                key = f"{C_mode}:B{B},L{L},T{T}"
+                log["shapes"][key] = {
+                    "k3_sha1": _sha1([mg, *res]),
+                    "k4_sha1": _sha1([getattr(out, f) for f in fields]),
+                    "k3_ms": time_ms(lambda: td.teacher_forward(*f_args), 3, 1),
+                    "k4_ms": time_ms(lambda: td.teacher_backward(*b_args), 3, 1)}
+                print(f"  {key}: {log['shapes'][key]}")
+    except SmokeFailure as e:
+        log["failure"] = str(e)
+        print(f"FAIL: {e}", file=sys.stderr)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / out_name).write_text(json.dumps(log, indent=1, default=str))
+    return 1 if "failure" in log else 0
+
+
+def k34_ab() -> int:
+    """``--k34-ab``: the parent's vanilla K3/K4 against this tree's in
+    turns (``ab_turns`` of ``--k34-rows``); the results go to
+    chiprun_out/k34_ab.json. Fails unless the vanilla outputs have the same
+    bits in every turn."""
+    turns = ab_turns("--k34-rows", "k34_rows")
+    if turns is None:
+        return 2
+    print("[k34-ab] K3 / K4 device ms in turns:")
+    for t in turns:
+        print(f"  {t['turn']} {t['tag']:<6} rc {t['rc']} " + "; ".join(
+            f"{k} {v['k3_ms']:.3f} / {v['k4_ms']:.3f}" for k, v in t.get("shapes", {}).items()))
+    digests = [{k: (v["k3_sha1"], v["k4_sha1"]) for k, v in t.get("shapes", {}).items()
+                if k.startswith("vanilla")} for t in turns]
+    same = bool(digests[0]) and all(d == digests[0] for d in digests[1:])
+    print(f"  the vanilla K3 and K4 outputs equal in every turn, parent and change, bit for "
+          f"bit: {same}")
+    (OUT_DIR / "k34_ab.json").write_text(json.dumps({"turns": turns, "vanilla_bits_equal": same},
+                                                    indent=1))
+    if not same:
+        print("FAIL: the change's vanilla K3/K4 gave other bits than the parent's",
+              file=sys.stderr)
+        return 1
+    return max(t["rc"] for t in turns)
+
+
 def main() -> int:
     pkg_root = Path(arg_value("--root", str(ROOT))).resolve()
     if not (pkg_root / "tacotron2_tpu_torch" / "csrc").is_dir():
@@ -3318,10 +3744,14 @@ def main() -> int:
         return 2
     if "--k1-ab" in sys.argv[1:]:
         return k1_ab()
+    if "--k34-ab" in sys.argv[1:]:
+        return k34_ab()
     sys.path.insert(0, str(pkg_root))
     torch.set_grad_enabled(False)
     if "--k1-rows" in sys.argv[1:]:
         return k1_rows_mode(arg_value("--out", "k1_rows.json"))
+    if "--k34-rows" in sys.argv[1:]:
+        return k34_rows_mode(arg_value("--out", "k34_rows.json"))
     log: dict = {}
     t_start = time.perf_counter()
     try:
@@ -3411,6 +3841,9 @@ def main() -> int:
         print(f"[3b] K3 and K4 against their plain versions (B={TRAIN_B}, L={TRAIN_L}, "
               f"T={TRAIN_T})")
         rows += k34_phase(model, log)
+        print(f"[3d] K3 and K4 in the controls mode ({CTL_CONFIG}, full width) against their "
+              "plain versions at B=64 / 32 / 5, the defects, and against the vanilla in turns")
+        rows += k34_controls_phase(model, log)
         rows += encoder_lstm_phase(model, cfg, log)
         del model, hifigan
 
@@ -3432,6 +3865,9 @@ def main() -> int:
         for k, n in serve_controls_phase(ctl_ckpt, g_path, log, card).items():
             ctl_launches[k] += n
         launches.update(ctl_launches)
+        print(f"[4e] train the controllable, multi-speaker config ({CTL_CONFIG}) through the "
+              f"CLI entry: batch {CTL_TRAIN_B}, 6 steps, resumed to 8, then its say")
+        launches.update(train_controls_phase(g_path, log, card))
         if log.get("deferred"):
             raise SmokeFailure("; ".join(log["deferred"]))
 

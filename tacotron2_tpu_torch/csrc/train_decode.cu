@@ -84,6 +84,17 @@
 //   order of the gates' sums, so a one-ulp flip of the rebuilt att_h is the
 //   only difference.
 //
+// The controls rows (a controllable model; the TPU kernels' xh[:, H + D:H +
+// D + E] and w_out[H + D:]): K3 writes the controls' bf16 operand, zero
+// past the model's C columns up to E = round16(C), into every step's xh2 =
+// [att_h | ctx | controls | rnn_h] once, in its first launch; the decoder
+// cell's gate GEMM then reads R2 = 2H + D + E columns (a partial last
+// 64-column tile, zero past R2 in both operands) and the heads K = H + D + E
+// (xh2 from ctx on). K4 reads the same stacks, pulls the heads over H + D +
+// E, reads d_rnn_h past the controls, and its attention launch (rank 0 of
+// each row) adds the step's controls cotangent, the heads' plus the decoder
+// LSTM's dx, to d_ctrl. No launch is added; E = 0 is the vanilla model.
+//
 // Every entry point launches on the given stream, allocates nothing and
 // returns the launch's CUDA error (cudaErrorInvalidValue for dimensions it
 // does not take; the cluster launch's own error when the card refuses a
@@ -169,7 +180,7 @@ __device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2
 // ldx / ld2 apart; X2 unused where K1 == K), W (N, K) bf16, K % 8 == K1 % 8
 // == ldx % 8 == ld2 % 8 == 0, out (M, N) f32. K4's gate recompute (W an
 // LSTM's, N = 4H) and query projection of every step (W = wq), K3's heads
-// after its loop (x = [rnn_h | ctx], W = w_out). Compute-bound at these
+// after its loop (x = [rnn_h | ctx | controls], W = w_out). Compute-bound at these
 // sizes (M = T B rows): 128 x 128 tiles, 8 warps of 64 x 32 fed by ldmatrix
 // from a 4-stage cp.async ring of 32-deep slices (rows padded to 80 bytes:
 // conflict-free); grid (ceil(N / 128), ceil(M / 128)).
@@ -490,15 +501,20 @@ __host__ __device__ inline size_t tile_pieces(int H, int R) {
 
 // K3's first launch: xh1[t, m, :P] = bf16(decoder_in[t, m, :]) for every
 // step, the zero initial state in the stacks (xh1[0, :, P:] = ctx, att_h;
-// xh2[0, :, H + D:] = rnn_h), and the gate GEMM's tiled copies wt1, wt2 of
-// W1 (4H, R1) and W2 (4H, R2). Grid-stride over all five parts.
+// xh2[0, :, H + D + E:] = rnn_h), the controls' operand ctl (M, E) bf16
+// (zero past the model's C) in the controls columns xh2[t, :, H + D:H + D +
+// E] of every step (nothing else writes them; E = 0 without controls), and
+// the gate GEMM's tiled copies wt1, wt2 of W1 (4H, R1) and W2 (4H, R2).
+// Grid-stride over all six parts.
 __global__ void stage_kernel(const float* __restrict__ din, int T, int M, int P, int H, int D,
-                             bf16* __restrict__ xh1, bf16* __restrict__ xh2,
-                             const bf16* __restrict__ W1, uint8_t* __restrict__ wt1,
-                             const bf16* __restrict__ W2, uint8_t* __restrict__ wt2) {
-  const int R1 = P + D + H, R2 = 2 * H + D;
+                             int E, const bf16* __restrict__ ctl, bf16* __restrict__ xh1,
+                             bf16* __restrict__ xh2, const bf16* __restrict__ W1,
+                             uint8_t* __restrict__ wt1, const bf16* __restrict__ W2,
+                             uint8_t* __restrict__ wt2) {
+  const int R1 = P + D + H, R2 = 2 * H + D + E;
   const size_t n1 = (size_t)T * M * P, n2 = n1 + (size_t)M * (D + H), n3 = n2 + (size_t)M * H;
-  const size_t n4 = n3 + tile_pieces(H, R1), n5 = n4 + tile_pieces(H, R2);
+  const size_t nc = n3 + (size_t)T * M * E;
+  const size_t n4 = nc + tile_pieces(H, R1), n5 = n4 + tile_pieces(H, R2);
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n5;
        i += (size_t)gridDim.x * blockDim.x) {
     if (i < n1) {
@@ -509,9 +525,12 @@ __global__ void stage_kernel(const float* __restrict__ din, int T, int M, int P,
       xh1[m * R1 + P + (j - m * (D + H))] = __float2bfloat16_rn(0.0f);
     } else if (i < n3) {
       const size_t j = i - n2, m = j / H;
-      xh2[m * R2 + H + D + (j - m * H)] = __float2bfloat16_rn(0.0f);
+      xh2[m * R2 + H + D + E + (j - m * H)] = __float2bfloat16_rn(0.0f);
+    } else if (i < nc) {
+      const size_t j = i - n3, row = j / E, e = j - row * E;  // row = t M + m
+      xh2[row * R2 + H + D + e] = ctl[(row % M) * E + e];
     } else if (i < n4) {
-      tile_piece(W1, wt1, H, R1, i - n3);
+      tile_piece(W1, wt1, H, R1, i - nc);
     } else {
       tile_piece(W2, wt2, H, R2, i - n4);
     }
@@ -682,7 +701,10 @@ gate_tma_kernel(const uint8_t* __restrict__ wt, const __grid_constant__ CUtensor
 //   d_wloc[b] += sum_l window de_pre, dq = sum_l de_pre (-> dq_out),
 //   the window's pull -> new d_w, d_cum of the own chars, and d_hq = dq . wq
 //   over this rank's H/S columns, which go on through the attention LSTM's
-//   pull (ap) of those columns.
+//   pull (ap) of those columns. Rank 0 also adds the step's cotangent of the
+//   E controls to d_ctrl[b] (E = 0 without controls): the heads' pull and
+//   the decoder LSTM's dx hold it right after the context's (columns D .. D
+//   + E of dctx_b and dctx_c).
 __global__ void __launch_bounds__(kClThreads) att_bwd_cluster_kernel(
     const float* __restrict__ qall, const bf16* __restrict__ wq, const bf16* __restrict__ wloc,
     const bf16* __restrict__ wv, const float* __restrict__ att_enc, const bf16* __restrict__ enc,
@@ -691,8 +713,8 @@ __global__ void __launch_bounds__(kClThreads) att_bwd_cluster_kernel(
     const float* __restrict__ dctx_b, int ldb, const float* __restrict__ dctx_c, int ldc,
     const float* __restrict__ d_align, float* __restrict__ d_w, float* __restrict__ d_cum,
     float* __restrict__ dctx_out, float* __restrict__ d_attenc, float* __restrict__ d_wv,
-    float* __restrict__ d_wloc, float* __restrict__ dq_out, const AttLstmPull ap, int L, int H,
-    int A, int D, int K) {
+    float* __restrict__ d_wloc, float* __restrict__ dq_out, const AttLstmPull ap,
+    float* __restrict__ d_ctrl, int L, int H, int A, int D, int K, int E) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
@@ -721,6 +743,10 @@ __global__ void __launch_bounds__(kClThreads) att_bwd_cluster_kernel(
     if (d / DS == r) dctx_out[(size_t)b * D + d] = v;
     dcs[d] = rnd_bf16(v);
   }
+  if (r == 0)
+    for (int e = tid; e < E; e += blockDim.x)
+      d_ctrl[(size_t)b * E + e] +=
+          dctx_b[(size_t)b * ldb + D + e] + dctx_c[(size_t)b * ldc + D + e];
   // th of the own chars into dp rows pad + li, summed in the forward's order
   const int AG = A / 4;
   for (int item = tid; item < AG * (sl.ch4 / 4); item += blockDim.x) {
@@ -876,13 +902,13 @@ __global__ void __launch_bounds__(kClThreads) att_bwd_cluster_kernel(
       d_wv[(size_t)b * A + a] += w;
     }
   }
-  const int E = 2 * K * A, ES = (E + S - 1) / S, e_hi = (r + 1) * ES < E ? (r + 1) * ES : E;
+  const int EW = 2 * K * A, ES = (EW + S - 1) / S, e_hi = (r + 1) * ES < EW ? (r + 1) * ES : EW;
 #pragma unroll 4
   for (int i = r * ES + tid; i < e_hi; i += blockDim.x) {
     float v = 0.0f;
 #pragma unroll 8
     for (int p = 0; p < S; ++p) v += *cluster.map_shared_rank(pwl + i, p);
-    d_wloc[(size_t)b * E + i] += v;
+    d_wloc[(size_t)b * EW + i] += v;
   }
   cluster.sync();  // the last reads of other ranks' memory are done
   // the window's pull: d_win[c, j] = sum over a, k of wloc[a, c, k]
@@ -999,8 +1025,8 @@ int launch_att_bwd(const void* qall, const void* wq, const void* wloc, const voi
                    const void* cum_prev, const void* dctx_a, int lda, const void* dctx_b, int ldb,
                    const void* dctx_c, int ldc, const void* d_align, void* d_w, void* d_cum,
                    void* dctx_out, void* d_attenc, void* d_wv, void* d_wloc, void* dq_out,
-                   const AttLstmPull& ap, int B, int S, int L, int H, int A, int D, int K,
-                   bool pdl, cudaStream_t stream) {
+                   const AttLstmPull& ap, void* d_ctrl, int B, int S, int L, int H, int A, int D,
+                   int K, int E, bool pdl, cudaStream_t stream) {
   size_t smem = 0;
   static size_t allowed = 48 * 1024;
   int err = att_cluster_check(true, S, L, H, A, D, K, &smem);
@@ -1014,7 +1040,7 @@ int launch_att_bwd(const void* qall, const void* wq, const void* wloc, const voi
                         (const float*)dctx_b, ldb, (const float*)dctx_c, ldc,
                         (const float*)d_align, (float*)d_w, (float*)d_cum, (float*)dctx_out,
                         (float*)d_attenc, (float*)d_wv, (float*)d_wloc, (float*)dq_out,
-                        ap, L, H, A, D, K);
+                        ap, (float*)d_ctrl, L, H, A, D, K, E);
 }
 
 // one launch: the S split partial products summed in a cluster
@@ -1060,16 +1086,24 @@ int t2_smem_bytes(int which, const int* d) {
 //             bf16, c_att c_rnn (T + 1, B, H), al cum (T + 1, B, L); slot 0
 //             of the four stacks zero
 //   p[22..24] scratch: rnn_h (T, B, H) bf16, every step's (the heads'
-//             input beside xh2's ctx); wt1, wt2: the gate GEMM's tiled
-//             copies of w1, w2 (4H x 64 ceil(R / 64) bf16 each, tile_piece)
-// d = {T, B, P, H, D, L, A, K, N, S, pdl}: S blocks per batch row in the
-// attention's cluster; R1 = P + D + H, R2 = 2H + D; pdl: the step loop's
-// launches (all but the first) with programmatic dependent launch.
+//             input beside xh2's ctx and controls); wt1, wt2: the gate
+//             GEMM's tiled copies of w1, w2 (4H x 64 ceil(R / 64) bf16 each,
+//             tile_piece)
+//   p[25]     ctl (B, E) bf16: the controls, zero past the model's C (unread
+//             when E = 0)
+// d = {T, B, P, H, D, L, A, K, N, S, pdl, E}: S blocks per batch row in the
+// attention's cluster; pdl: the step loop's launches (all but the first)
+// with programmatic dependent launch; E the controls' columns (a multiple of
+// 16, 0 without controls). R1 = P + D + H; R2 = 2H + D + E, xh2's columns
+// [att_h | ctx | controls | rnn_h] and w2's; w_out (N, H + D + E). R2 need
+// not be a multiple of the gate GEMM's 64-column tile: the tiled weight
+// copy is zero past R2 (tile_piece) and the TMA boxes of xh2 read zeros
+// past it.
 int t2_teacher_forward(void** p, const int* d, void* stream_) {
   const int T = d[0], B = d[1], P = d[2], H = d[3], D = d[4], L = d[5], A = d[6], K = d[7],
-            N = d[8], S = d[9];
+            N = d[8], S = d[9], E = d[11];
   const bool pdl = d[10] != 0;
-  const int R1 = P + D + H, R2 = 2 * H + D;
+  const int R1 = P + D + H, R2 = 2 * H + D + E;
   const size_t BH = (size_t)B * H, BL = (size_t)B * L;
   cudaStream_t stream = (cudaStream_t)stream_;
   const float* dm1 = (const float*)p[13];
@@ -1088,11 +1122,12 @@ int t2_teacher_forward(void** p, const int* d, void* stream_) {
   int err = make_map(&mx1, xh1, T * B, R1, TG_M);
   if (!err) err = make_map(&mx2, xh2, T * B, R2, TG_M);
   if (err) return err;
-  const unsigned sb =
-      blocks_for((size_t)T * B * P + tile_pieces(H, R1) + tile_pieces(H, R2), 256);
-  stage_kernel<<<sb < 1024 ? sb : 1024, 256, 0, stream>>>((const float*)p[9], T, B, P, H, D, xh1,
-                                                         xh2, (const bf16*)p[0], wt1,
-                                                         (const bf16*)p[2], wt2);
+  if (E < 0 || E % 16) return (int)cudaErrorInvalidValue;
+  const unsigned sb = blocks_for(
+      (size_t)T * B * (P + E) + tile_pieces(H, R1) + tile_pieces(H, R2), 256);
+  stage_kernel<<<sb < 1024 ? sb : 1024, 256, 0, stream>>>(
+      (const float*)p[9], T, B, P, H, D, E, (const bf16*)p[25], xh1, xh2, (const bf16*)p[0], wt1,
+      (const bf16*)p[2], wt2);
   err = (int)cudaGetLastError();
   for (int t = 0; t < T && !err; ++t) {
     const bool more = t + 1 < T;
@@ -1111,11 +1146,12 @@ int t2_teacher_forward(void** p, const int* d, void* stream_) {
     if (!err)
       err = launch_gate_tma(wt2, mx2, t * B, p[3], B, R2, H, c_rnn + t * BH, dm2 + t * BH,
                             c_rnn + (t + 1) * BH, nullptr, rnn_h + t * BH, H,
-                            more ? x2n + H + D : nullptr, R2, pdl, stream);
+                            more ? x2n + H + D + E : nullptr, R2, pdl, stream);
   }
-  // the mel + gate heads of every step: nothing in the loop reads them
+  // the mel + gate heads of every step: nothing in the loop reads them;
+  // [rnn_h | ctx | controls], the last two from xh2
   if (!err)
-    err = launch_gemm_tn(rnn_h, H, H, xh2 + H, R2, p[7], p[8], T * B, N, H + D, mg, stream);
+    err = launch_gemm_tn(rnn_h, H, H, xh2 + H, R2, p[7], p[8], T * B, N, H + D + E, mg, stream);
   return err;
 }
 
@@ -1129,16 +1165,20 @@ int t2_teacher_forward(void** p, const int* d, void* stream_) {
 //             d_attenc (B, L, A), d_wv (B, A), d_wloc (B, A, 2, K), the last
 //             three zero at entry
 //   p[30..38] scratch: G1 G2 (T, B, 4H) f32, Q (T, B, A) f32, d_headin
-//             (T, B, H + D), dxh2 (B, R2) zero, d_att_c d_rnn_c (B, H) zero,
-//             d_w d_cum (B, L) zero
-// d = {T, B, P, H, D, L, A, K, N, SX, S, pdl}: SX splits of the dx GEMMs'
+//             (T, B, H + D + E), dxh2 (B, R2) zero, d_att_c d_rnn_c (B, H)
+//             zero, d_w d_cum (B, L) zero
+//   p[39]     out: d_ctrl (B, E) f32, zero at entry: the controls'
+//             cotangent summed over the steps (unread when E = 0)
+// d = {T, B, P, H, D, L, A, K, N, SX, S, pdl, E}: SX splits of the dx GEMMs'
 // 4H contraction (one cluster), S blocks per batch row in the attention's;
-// pdl: the step loop's launches with programmatic dependent launch.
+// pdl: the step loop's launches with programmatic dependent launch; E the
+// controls' columns (R2 = 2H + D + E, as in K3).
 int t2_teacher_backward(void** p, const int* d, void* stream_) {
   const int T = d[0], B = d[1], P = d[2], H = d[3], D = d[4], L = d[5], A = d[6], K = d[7],
-            N = d[8], SX = d[9], S = d[10];
+            N = d[8], SX = d[9], S = d[10], E = d[12];
   const bool pdl = d[11] != 0;
-  const int R1 = P + D + H, R2 = 2 * H + D, H4 = 4 * H, RH = H + D;
+  if (E < 0 || E % 16) return (int)cudaErrorInvalidValue;
+  const int R1 = P + D + H, R2 = 2 * H + D + E, H4 = 4 * H, RH = H + D + E;
   const size_t BH = (size_t)B * H, BL = (size_t)B * L, BG = (size_t)B * H4;
   cudaStream_t stream = (cudaStream_t)stream_;
   const float* dm1 = (const float*)p[11];
@@ -1174,7 +1214,7 @@ int t2_teacher_backward(void** p, const int* d, void* stream_) {
     const float* dh = d_headin + (size_t)t * B * RH;  // step t's heads pull
     err = launch_ex(lstm_mid_kernel, dim3(blocks_for(BH, 256)), kNoCluster, 256, 0, pdl, stream,
                     (const float*)(G2 + t * BG), c_rnn + t * BH, dm2 + t * BH, dh, RH,
-                    (const float*)(dxh2 + H + D), R2, (float*)p[36], dg2 + t * BG,
+                    (const float*)(dxh2 + H + D + E), R2, (float*)p[36], dg2 + t * BG,
                     head_h + t * BH, B, H);
     if (!err) err = launch_dx(dg2 + t * BG, p[2], B, H4, R2, SX, dxh2, R2, pdl, stream);
     const AttLstmPull ap = {G1 + t * BG, c_att + t * BH, dm1 + t * BH, dx1_next + P + D, R1,
@@ -1183,8 +1223,8 @@ int t2_teacher_backward(void** p, const int* d, void* stream_) {
       err = launch_att_bwd(Q + (size_t)t * B * A, p[4], p[5], p[6], p[9], p[8], p[10],
                            al + t * BL, cum + t * BL, dx1_next + P, R1, dh + H, RH,
                            dxh2 + H, R2, dal + t * BL, p[37], p[38], dctx + (size_t)t * B * D,
-                           p[27], p[28], p[29], dq + (size_t)t * B * A, ap, B, S, L, H, A, D, K,
-                           pdl, stream);
+                           p[27], p[28], p[29], dq + (size_t)t * B * A, ap, p[39], B, S, L, H, A,
+                           D, K, E, pdl, stream);
     if (!err)
       err = launch_dx(dg1 + t * BG, p[0], B, H4, R1, SX, dxh1 + (size_t)t * B * R1, R1, pdl,
                       stream);

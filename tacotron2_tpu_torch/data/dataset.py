@@ -1,7 +1,7 @@
 """TTS dataset: WAV -> log-mel and gate targets, text -> char indices.
 
-Counterpart of ``tacotron2_tpu/data/dataset.py`` for the vanilla
-configuration (no speaker ids, controls or description embeddings; WAV only,
+Counterpart of ``tacotron2_tpu/data/dataset.py`` with speaker ids and
+control features (no description embeddings, no feature override; WAV only,
 FLAC input is not ported):
 
 - texts are normalized once, at construction (transliterate -> lower ->
@@ -10,7 +10,9 @@ FLAC input is not ported):
   -> log-mel (frames, n_mels), optionally cached per file under a tag of
   the preprocessing parameters;
 - the gate target is ones with the LAST frame 0 (stop is the gate going
-  low, the reference's convention).
+  low, the reference's convention);
+- the metadata carry ``speaker_id`` (int64) and ``features`` (f32, the
+  controls) where the dataset was given them.
 
 Items are ``(data, metadata, extra)`` dicts as in the JAX package, so the
 collate is the same.
@@ -34,6 +36,7 @@ from tacotron2_tpu_torch.text import CharEncoder, normalize_text
 
 class TTSDataset:
     def __init__(self, filenames: List[str], texts: List[str], base_dir: str,
+                 speaker_ids: Optional[List[int]] = None, features=None,
                  allowed_chars: str = ALLOWED_CHARS, end_token: Optional[str] = "^",
                  silence: int = 0, trim: bool = True, trim_top_db: float = 60,
                  trim_frame_length: int = 2048, expand_abbreviations: bool = False,
@@ -44,6 +47,7 @@ class TTSDataset:
         if cache:
             os.makedirs(cache_dir, exist_ok=True)
         self.filenames, self.base_dir = filenames, base_dir
+        self.speaker_ids, self.features = speaker_ids, features
         self.cache, self.cache_dir = cache, cache_dir
         self.trim, self.trim_top_db, self.trim_frame_length = trim, trim_top_db, trim_frame_length
         self.silence = silence
@@ -83,4 +87,8 @@ class TTSDataset:
         data = {"chars_idx": chars_idx, "mel_spectrogram": mel.astype(np.float32), "gate": gate}
         meta = {"chars_idx_len": np.int64(len(chars_idx)), "mel_spectrogram_len": np.int64(T),
                 "gate_len": np.int64(T)}
+        if self.speaker_ids is not None:
+            meta["speaker_id"] = np.int64(self.speaker_ids[i])
+        if self.features is not None:
+            meta["features"] = np.asarray(self.features[i], np.float32)
         return data, meta, {}

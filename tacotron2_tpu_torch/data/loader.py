@@ -30,8 +30,10 @@ def _round_up(x: int, m: Optional[int]) -> int:
 def collate(items, bucket_chars: Optional[int] = None,
             bucket_frames: Optional[int] = None) -> Dict[str, np.ndarray]:
     """Dataset items -> chars_idx (B, L), chars_len (B,), mel (B, T, M),
-    mel_len (B,), gate (B, T, 1)."""
+    mel_len (B,), gate (B, T, 1), and where the items' metadata have them
+    speaker_id (B,) int64 and controls (B, C) f32 (their ``features``)."""
     data = [d for d, _, _ in items]
+    meta = [m for _, m, _ in items]
     B = len(data)
     L = _round_up(max(len(d["chars_idx"]) for d in data), bucket_chars)
     T = _round_up(max(len(d["mel_spectrogram"]) for d in data), bucket_frames)
@@ -45,6 +47,10 @@ def collate(items, bucket_chars: Optional[int] = None,
         batch["mel"][b, :t] = d["mel_spectrogram"]
         batch["gate"][b, :t] = d["gate"]
         batch["chars_len"][b], batch["mel_len"][b] = n, t
+    if "speaker_id" in meta[0]:
+        batch["speaker_id"] = np.asarray([m["speaker_id"] for m in meta], np.int64)
+    if "features" in meta[0]:
+        batch["controls"] = np.stack([m["features"] for m in meta]).astype(np.float32)
     return batch
 
 

@@ -18,8 +18,9 @@ or in its int8 mode kernel K5 for the LSTM cells (JAX
 ``forward_infer_fused(quantize=True)``), an approximate mode held to < 1%
 mean relative mel error and < 0.05 gate drift against ``forward_infer``.
 ``forward_teacher`` is training's teacher-forced pass (JAX
-``forward_teacher(dw_hoist=True)``): the decode runs as ``TeacherDecode``,
-kernels K3 and K4 (``ops/train_decode.py``).
+``forward_teacher(dw_hoist=True)``), with speaker tokens and controls too:
+the decode runs as ``TeacherDecode``, kernels K3 and K4
+(``ops/train_decode.py``).
 """
 
 from __future__ import annotations
@@ -81,6 +82,8 @@ class Tacotron2(nn.Module):
         )
         if c.speaker_tokens:  # the reference's name (model/tacotron2.py)
             self.speaker_embedding = nn.Embedding(c.num_speakers, c.encoded_dim)
+            with torch.no_grad():  # the reference's init: N(0, 0.5)
+                self.speaker_embedding.weight.normal_(0.0, 0.5)
         self.att_encoder = nn.Linear(c.encoded_dim, c.att_dim, bias=False)
         self.decoder = decoder_mod.Decoder(
             c.num_mels, c.encoded_dim, c.prenet_dim, c.att_rnn_dim, c.att_dim,
@@ -105,12 +108,16 @@ class Tacotron2(nn.Module):
             cl = torch.cat([chars_len, chars_len.new_ones(rows - B)])
         encoded = self.encoder(ci, cl, self.policy, train, self.cfg.dropout, generator)
         if self.cfg.speaker_tokens:
-            spk = torch.as_tensor(speaker_id).reshape(B).long().cpu()
+            spk = torch.as_tensor(speaker_id)
+            if spk.numel() != B:
+                raise ValueError(f"want {B} speaker ids, got shape {tuple(spk.shape)}")
+            spk = spk.reshape(B).long().cpu()
             if not bool(((spk >= 0) & (spk < self.cfg.num_speakers)).all()):
                 raise ValueError(f"speaker_id {spk.tolist()} out of range "
                                  f"[0, {self.cfg.num_speakers})")
-            # empty rows: voice 0
-            spk = torch.nn.functional.pad(spk, (0, ci.shape[0] - B)).to(ci.device)
+            # empty rows: voice 0; ids on the host reach the card without a sync
+            spk = torch.nn.functional.pad(spk, (0, ci.shape[0] - B)).to(ci.device,
+                                                                       non_blocking=True)
             encoded = torch.tanh(encoded + self.speaker_embedding.weight[spk][:, None, :])
         att_encoded = layers.linear(encoded, self.att_encoder.weight, None, self.policy)
         encoded, att_encoded = encoded[:B], att_encoded[:B]
@@ -163,25 +170,30 @@ class Tacotron2(nn.Module):
     # ------------------------------------------------------------------
     def forward_teacher(self, chars_idx, chars_len, mel, mel_len, train: bool = True,
                         generator: Optional[torch.Generator] = None,
-                        lstm_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                        ) -> Tacotron2Output:
-        """Teacher-forced pass over the ground-truth mel (B, T, M): encode ->
-        prenet over the mel shifted by one frame (AlwaysDropout, on in train
-        and eval as in the reference) -> ``TeacherDecode`` -> postnet -> length
-        masking by ``mel_len``. ``train``: BatchNorm on batch statistics,
-        dropout in the encoder and postnet, LSTM dropout (keep 0.9). Dropout
-        bits come from ``generator``; ``lstm_masks`` (T, B, H) x 2 replaces
-        the LSTM's (the tests inject JAX's)."""
+                        lstm_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        speaker_id: Optional[torch.Tensor] = None,
+                        controls: Optional[torch.Tensor] = None) -> Tacotron2Output:
+        """Teacher-forced pass over the ground-truth mel (B, T, M): encode
+        (with the speaker fusion of a multi-speaker model) -> prenet over the
+        mel shifted by one frame (AlwaysDropout, on in train and eval as in
+        the reference) -> ``TeacherDecode`` (a controllable model's controls
+        through the controls rows of K3 and K4) -> postnet -> length masking
+        by ``mel_len``. ``train``: BatchNorm on batch statistics, dropout in
+        the encoder and postnet, LSTM dropout (keep 0.9). Dropout bits come
+        from ``generator``; ``lstm_masks`` (T, B, H) x 2 replaces the LSTM's
+        (the tests inject JAX's). ``speaker_id`` (B,) and ``controls`` (B,
+        controls_dim): each row's voice and controls (JAX
+        ``forward_teacher``'s)."""
         c = self.cfg
         if c.att_rnn_dim != c.rnn_hidden_dim:
             raise ValueError("the teacher-forced decode needs att_rnn_dim == rnn_hidden_dim")
-        if c.speaker_tokens or c.controls_dim:
-            raise NotImplementedError(
-                "training with speaker tokens or controls is not ported yet (the controls "
-                "rows of K3 and K4, ROADMAP B1.2-3)")
         B, T, _ = mel.shape
         dev = mel.device
-        encoded, att_encoded, _ = self._encode(chars_idx, chars_len, train, generator)
+        self._check_controls(controls, B)
+        if controls is not None:
+            controls = controls.to(device=dev, dtype=torch.float32)
+        encoded, att_encoded, _ = self._encode(chars_idx, chars_len, train, generator,
+                                               speaker_id=speaker_id)
         decoder_in = self.teacher_decoder_in(mel, generator)
         if lstm_masks is None:
             if train:
@@ -191,7 +203,7 @@ class Tacotron2(nn.Module):
                 lstm_masks = (ones, ones)
         mels, gates, aligns = train_decode.teacher_decode(
             self.decoder, decoder_in, encoded, att_encoded, chars_len,
-            *lstm_masks, self.policy.compute_dtype)
+            *lstm_masks, self.policy.compute_dtype, controls)
         mels = mels.transpose(0, 1)
         post = self.postnet(mels, self.policy, train, c.dropout, generator)
         return self._mask_outputs(mels, mels + post, gates.transpose(0, 1)[..., None],

@@ -5,12 +5,21 @@ Replaces ``tacotron2_tpu/ops/train_decode_pallas.py`` (``_teacher_step_kernel``
 and ``_teacher_bwd_kernel``) and keeps the residual contract of
 ``tacotron2_tpu/ops/train_scan.py``: the forward stacks, per step, the
 compute-dtype LSTM inputs xh1 = [prenet | ctx | att_h] and xh2 = [att_h_d |
-ctx | rnn_h], the cell states, the previous and cumulative attention weights;
-the backward walks t = T-1 .. 0, recomputes each step from them, pulls the
-cotangents through heads -> decoder LSTM -> location attention -> attention
-LSTM, and stacks the gate cotangents dg1/dg2. The two fat weight gradients
-are then two GEMMs over all T * B rows (``_split_big_small`` / ``_merge_dw``:
-b_ih and b_hh receive the same db).
+ctx | controls | rnn_h], the cell states, the previous and cumulative
+attention weights; the backward walks t = T-1 .. 0, recomputes each step from
+them, pulls the cotangents through heads -> decoder LSTM -> location
+attention -> attention LSTM, and stacks the gate cotangents dg1/dg2. The two
+fat weight gradients are then two GEMMs over all T * B rows
+(``_split_big_small`` / ``_merge_dw``: b_ih and b_hh receive the same db).
+
+A controllable model's C controls (B, C) are inputs of the decoder LSTM and
+of the mel head at every step (JAX ``_pack_training_weights``): their
+columns of W2 and of the mel rows of ``w_out`` are padded to E = C rounded up
+to 16 with zero columns, the gate row is zero there (the gate reads [rnn_h |
+ctx] only), and every step's xh2 holds the controls, zero-padded to E. The
+reverse pass sums the controls' cotangent over the steps (``d_ctrl``), from
+the heads and from the decoder LSTM's input. A model without controls has E
+= 0: a zero-width segment, the layouts and kernels of the vanilla model.
 
 The LSTM dropout masks dm1, dm2 (keep 0.9, scale 1/0.9) are inputs, drawn
 outside from a ``torch.Generator`` (``lstm_masks``), so the tests can inject
@@ -20,8 +29,10 @@ On the card ``teacher_forward`` is one host call into ``csrc/train_decode.cu``
 (``t2_teacher_forward``, 2 + 3 launches a step, two of them the gate GEMM
 with its LSTM epilogue) and ``teacher_backward`` another
 (``t2_teacher_backward``, 4 + 4 launches a step); each wrapper adds its own
-launches to ``LAUNCHES``. Both run the attention of a step on a cluster of
-``cluster_size`` blocks per batch row. Their plain versions below are the definition: same operand
+launches to ``LAUNCHES``, and those of a call with controls also to
+``CONTROLS_LAUNCHES`` (the controls add no launch). Both run the attention
+of a step on a cluster of ``cluster_size`` blocks per batch row. Their plain
+versions below are the definition: same operand
 rounding (bf16 operands, f32 sums, bf16 residual and dg stacks), used for
 CPU tensors and as what the kernels are held against on the card. The plain
 versions keep the sum type of the weights, so they also run in f64 (the
@@ -31,17 +42,19 @@ gradient check).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from tacotron2_tpu_torch.ops import build
 from tacotron2_tpu_torch.ops.decoder_loop import (
+    CONTROLS_ALIGN,
     MAX_CLUSTER,
     _acc,
     _rnd,
     check_cluster_dims,
+    controls_cols,
     heads_plain,
     location_attention_plain,
     lstm_cell_plain,
@@ -51,6 +64,9 @@ KEEP = 0.9  # LSTM dropout keep probability (decoder.py: dropout 0.1)
 
 # launches of each kernel; counted only where the kernel is launched
 LAUNCHES = {"teacher_forward": 0, "teacher_backward": 0}
+# of those, the launches of calls with controls (their controls rows), so a
+# run can show that a controllable model's training went through them
+CONTROLS_LAUNCHES = {"teacher_forward": 0, "teacher_backward": 0}
 
 # K3's and K4's step loops launch with programmatic dependent launch (each
 # launch may start, and stream its weights, while the previous one ends);
@@ -68,8 +84,9 @@ DECODER_PARAMS = (
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for table in (LAUNCHES, CONTROLS_LAUNCHES):
+        for k in table:
+            table[k] = 0
 
 
 def forward_launches(T: int) -> int:
@@ -108,12 +125,12 @@ class TrainWeights(NamedTuple):
 
     w1: torch.Tensor  # (4H, P + D + H) cols [prenet | ctx | att_h]
     b1: torch.Tensor  # (4H,) b_ih + b_hh, sum type
-    w2: torch.Tensor  # (4H, 2H + D) cols [att_h | ctx | rnn_h]
+    w2: torch.Tensor  # (4H, 2H + D + E) cols [att_h | ctx | controls (zero past C) | rnn_h]
     b2: torch.Tensor
     wq: torch.Tensor  # (A, H)
     w_loc: torch.Tensor  # (A, 2, K) location conv folded with the location dense
     wv: torch.Tensor  # (A,)
-    w_out: torch.Tensor  # (M + 1, H + D) rows 0..M-1 mel, row M gate
+    w_out: torch.Tensor  # (M + 1, H + D + E) rows 0..M-1 mel, row M gate (zero over controls)
     b_out: torch.Tensor  # (M + 1,) sum type
 
 
@@ -123,7 +140,7 @@ class Residuals(NamedTuple):
     after step t, so step t's previous state is slot t."""
 
     xh1: torch.Tensor  # (T, B, P + D + H) compute dtype
-    xh2: torch.Tensor  # (T, B, 2H + D) compute dtype
+    xh2: torch.Tensor  # (T, B, 2H + D + E) compute dtype [att_h | ctx | controls | rnn_h]
     c_att: torch.Tensor  # (T + 1, B, H)
     c_rnn: torch.Tensor  # (T + 1, B, H)
     al: torch.Tensor  # (T + 1, B, L) attention weights; al[1:] are the aligns
@@ -140,23 +157,60 @@ class BackwardOut(NamedTuple):
     d_attenc: torch.Tensor  # (B, L, A)
     d_wv: torch.Tensor  # (B, A) per batch row; summed after
     d_wloc: torch.Tensor  # (B, A, 2, K) per batch row; summed after
+    d_ctrl: torch.Tensor  # (B, E) the controls' cotangent summed over the steps (zero past C)
 
 
-def pack_weights(params: Sequence[torch.Tensor], dtype: torch.dtype) -> TrainWeights:
-    """``DECODER_PARAMS`` tensors -> kernel layouts, weights in ``dtype``.
-    Differentiable (the reference loop in the tests differentiates it)."""
+def pack_weights(params: Sequence[torch.Tensor], dtype: torch.dtype,
+                 controls_dim: int = 0) -> TrainWeights:
+    """``DECODER_PARAMS`` tensors -> kernel layouts, weights in ``dtype``;
+    the last ``controls_dim`` input columns of the decoder LSTM and of the
+    mel head are the controls', padded to ``controls_cols`` with zeros, and
+    the gate row gets zeros there. Differentiable (the reference loop in the
+    tests differentiates it)."""
     (a_ih, a_hh, ab_ih, ab_hh, d_ih, d_hh, db_ih, db_hh, wq, v, conv, dense,
      mel_w, mel_b, gate_w, gate_b) = params
     acc = torch.promote_types(dtype, torch.float32)
     c = lambda t: t.to(dtype).contiguous()
     w_loc = torch.einsum("af,fck->ack", dense.to(acc), conv.to(acc))
+    C = controls_dim
+    E = controls_cols(C)
+    pad_ctl = lambda w: torch.cat([w[:, :w.shape[1] - C], F.pad(w[:, w.shape[1] - C:],
+                                                                (0, E - C))], dim=1)
     return TrainWeights(
         w1=c(torch.cat([a_ih, a_hh], dim=1)), b1=(ab_ih + ab_hh).to(acc),
-        w2=c(torch.cat([d_ih, d_hh], dim=1)), b2=(db_ih + db_hh).to(acc),
+        w2=c(torch.cat([pad_ctl(d_ih), d_hh], dim=1)), b2=(db_ih + db_hh).to(acc),
         wq=c(wq), w_loc=c(w_loc), wv=c(v[0]),
-        w_out=c(torch.cat([mel_w, gate_w], dim=0)),
+        w_out=c(torch.cat([pad_ctl(mel_w), F.pad(gate_w, (0, E))], dim=0)),
         b_out=torch.cat([mel_b, gate_b]).to(acc),
     )
+
+
+def _controls_dim(params: Sequence[torch.Tensor]) -> int:
+    """C of ``DECODER_PARAMS`` tensors: the mel head's inputs beyond the
+    gate's."""
+    named = dict(zip(DECODER_PARAMS, params))
+    return named["mel_out.weight"].shape[1] - named["gate.weight"].shape[1]
+
+
+def packed_dims(w: TrainWeights, D: int) -> Tuple[int, int]:
+    """(H, E) of packed weights, with D the encoder's width: E is what W2's
+    columns hold beyond [att_h | ctx | rnn_h]."""
+    H = w.wq.shape[1]
+    return H, w.w2.shape[1] - 2 * H - D
+
+
+def pad_controls(controls: Optional[torch.Tensor], C: int, like: torch.Tensor) -> torch.Tensor:
+    """The controls (B, C) as the teacher pass reads them: (B, E) in the type
+    and on the device of ``like`` (B, ...), E = ``controls_cols(C)``, zero
+    past C; None -> (B, 0) for a model without controls (C = 0)."""
+    B = like.shape[0]
+    if controls is None:
+        if C:
+            raise ValueError("the weights take controls, but none were passed")
+        return like.new_zeros(B, 0)
+    if tuple(controls.shape) != (B, C):
+        raise ValueError(f"want controls of shape ({B}, {C}), got {tuple(controls.shape)}")
+    return F.pad(controls.to(like), (0, controls_cols(C) - C)).contiguous()
 
 
 def lstm_masks(T: int, B: int, H: int, generator, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -171,13 +225,19 @@ def lstm_masks(T: int, B: int, H: int, generator, device) -> Tuple[torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def teacher_forward_plain(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1, dm2):
+def teacher_forward_plain(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1, dm2,
+                          ctl=None):
     """T teacher-forced steps from the zero state -> (mel_gate (T, B, M + 1),
     Residuals). decoder_in (T, B, P), encoded (B, L, D) in the compute dtype,
-    att_enc (B, L, A), lengths (B,), dm1/dm2 (T, B, H). Written without
-    in-place updates, so autograd can also differentiate it."""
+    att_enc (B, L, A), lengths (B,), dm1/dm2 (T, B, H), ctl (B, E) the
+    controls zero-padded to the weights' E (``pad_controls``; None where E =
+    0). Written without in-place updates, so autograd can also
+    differentiate it."""
     T, B, _ = decoder_in.shape
-    H, L, D = w.wq.shape[1], encoded.shape[1], encoded.shape[2]
+    L, D = encoded.shape[1], encoded.shape[2]
+    H, E = packed_dims(w, D)
+    if ctl is None:
+        ctl = pad_controls(None, E, decoder_in[0])
     cd = w.w1.dtype
     z = lambda *s: decoder_in.new_zeros(*s)
     att_h, ctx, rnn_h = z(B, H), z(B, D), z(B, H)
@@ -192,11 +252,11 @@ def teacher_forward_plain(w: TrainWeights, decoder_in, encoded, att_enc, lengths
                                                lengths, al[-1], cum[-1])
         al.append(wt)
         cum.append(cm)
-        xh2.append(torch.cat([att_h, ctx, rnn_h], dim=1).to(cd))
-        h, c = lstm_cell_plain(w.w2, w.b2, att_h, ctx, rnn_h, c_rnn[-1])
+        xh2.append(torch.cat([att_h, ctx, ctl, rnn_h], dim=1).to(cd))
+        h, c = lstm_cell_plain(w.w2, w.b2, att_h, ctx, rnn_h, c_rnn[-1], ctl)
         rnn_h = h * dm2[t]
         c_rnn.append(c)
-        mel_gate.append(heads_plain(w.w_out, w.b_out, rnn_h, ctx))
+        mel_gate.append(heads_plain(w.w_out, w.b_out, rnn_h, ctx, ctl=ctl))
     st = torch.stack
     return st(mel_gate), Residuals(st(xh1), st(xh2), st(c_att), st(c_rnn), st(al), st(cum))
 
@@ -225,7 +285,8 @@ def teacher_backward_plain(w: TrainWeights, res: Residuals, encoded, att_enc, le
     ``_teacher_bwd_kernel`` does). d_mel_gate (T, B, M + 1), d_align
     (T, B, L)."""
     T, B, R1 = res.xh1.shape
-    H, L, D = w.wq.shape[1], encoded.shape[1], encoded.shape[2]
+    L, D = encoded.shape[1], encoded.shape[2]
+    H, E = packed_dims(w, D)
     P, K = R1 - D - H, w.w_loc.shape[2]
     cd = w.w1.dtype
     W1, W2, wq, wl, wv, wout = (_acc(t) for t in (w.w1, w.w2, w.wq, w.w_loc, w.wv, w.w_out))
@@ -238,7 +299,7 @@ def teacher_backward_plain(w: TrainWeights, res: Residuals, encoded, att_enc, le
     dxh1, dctx, dq = z(T + 1, B, R1), z(T, B, D), z(T, B, w.wq.shape[0])
     head_h = z(T, B, H).to(cd)
     d_attenc, d_wv, d_wloc = z(*att_enc.shape), z(B, wq.shape[0]), z(B, *wl.shape)
-    d_att_c, d_rnn_c, d_rnn_h = z(B, H), z(B, H), z(B, H)
+    d_att_c, d_rnn_c, d_rnn_h, d_ctrl = z(B, H), z(B, H), z(B, H), z(B, E)
     d_w, d_cum = z(B, L), z(B, L)
     pad = torch.arange(L, device=enc.device)[None, :] >= lengths[:, None]
     for t in range(T - 1, -1, -1):
@@ -247,12 +308,13 @@ def teacher_backward_plain(w: TrainWeights, res: Residuals, encoded, att_enc, le
         c2 = g2[1] * res.c_rnn[t] + g2[0] * g2[2]
         rnn_h_d = g2[3] * torch.tanh(c2) * dm2[t]
         head_h[t] = rnn_h_d.to(cd)
-        d_headin = _rnd(d_mel_gate[t], w.w_out) @ wout  # (B, H + D)
+        d_headin = _rnd(d_mel_gate[t], w.w_out) @ wout  # (B, H + D + E)
         dg, d_rnn_c = _lstm_pull(g2, res.c_rnn[t], d_headin[:, :H] + d_rnn_h, dm2[t], d_rnn_c)
         dg2[t] = dg.to(cd)
         dx2 = _acc(dg2[t]) @ W2
-        d_rnn_h = dx2[:, H + D:]
-        dc = dxh1[t + 1, :, P:P + D] + d_headin[:, H:] + dx2[:, H:H + D]
+        d_ctrl = d_ctrl + (d_headin[:, H + D:] + dx2[:, H + D:H + D + E])
+        d_rnn_h = dx2[:, H + D + E:]
+        dc = dxh1[t + 1, :, P:P + D] + d_headin[:, H:H + D] + dx2[:, H:H + D]
         dctx[t] = dc
         # attention recompute
         g1 = _gates(G1[t])
@@ -280,7 +342,7 @@ def teacher_backward_plain(w: TrainWeights, res: Residuals, encoded, att_enc, le
         dg, d_att_c = _lstm_pull(g1, res.c_att[t], d_hd, dm1[t], d_att_c)
         dg1[t] = dg.to(cd)
         dxh1[t] = _acc(dg1[t]) @ W1
-    return BackwardOut(dg1, dg2, dxh1, dctx, dq, head_h, d_attenc, d_wv, d_wloc)
+    return BackwardOut(dg1, dg2, dxh1, dctx, dq, head_h, d_attenc, d_wv, d_wloc, d_ctrl)
 
 
 # ---------------------------------------------------------------------------
@@ -292,16 +354,21 @@ Ptr = ctypes.c_void_p
 Int = ctypes.c_int
 
 
+def bind(lib):
+    """Declare the C entry points of a loaded ``csrc/train_decode.cu`` (the
+    build's, or a copy's on the card) -> lib."""
+    lib.t2_teacher_forward.argtypes = [ctypes.POINTER(Ptr), ctypes.POINTER(Int), Ptr]
+    lib.t2_teacher_backward.argtypes = [ctypes.POINTER(Ptr), ctypes.POINTER(Int), Ptr]
+    lib.t2_smem_bytes.argtypes = [Int, ctypes.POINTER(Int)]
+    for fn in (lib.t2_teacher_forward, lib.t2_teacher_backward, lib.t2_smem_bytes):
+        fn.restype = Int
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = build.load("train_decode")
-        lib.t2_teacher_forward.argtypes = [ctypes.POINTER(Ptr), ctypes.POINTER(Int), Ptr]
-        lib.t2_teacher_backward.argtypes = [ctypes.POINTER(Ptr), ctypes.POINTER(Int), Ptr]
-        lib.t2_smem_bytes.argtypes = [Int, ctypes.POINTER(Int)]
-        for fn in (lib.t2_teacher_forward, lib.t2_teacher_backward, lib.t2_smem_bytes):
-            fn.restype = Int
-        _LIB = lib
+        _LIB = bind(build.load("train_decode"))
     return _LIB
 
 
@@ -313,32 +380,45 @@ def _ptrs(tensors):
     return (Ptr * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _require_weights(w: TrainWeights, P: int, D: int) -> Tuple[int, int, int, int]:
-    A, H = w.wq.shape
-    K, N = w.w_loc.shape[2], w.w_out.shape[0]
+def _require_weights(w: TrainWeights, P: int, D: int) -> Tuple[int, int, int, int, int]:
+    H, E = packed_dims(w, D)
+    A, K, N = w.wq.shape[0], w.w_loc.shape[2], w.w_out.shape[0]
+    if E < 0 or E % CONTROLS_ALIGN:
+        raise ValueError(f"w2 has {w.w2.shape[1]} columns: want 2H + D + E, E a multiple of "
+                         f"{CONTROLS_ALIGN}")
     bf, f32 = torch.bfloat16, torch.float32
     for name, t, dt, shape in (
         ("w1", w.w1, bf, (4 * H, P + D + H)), ("b1", w.b1, f32, (4 * H,)),
-        ("w2", w.w2, bf, (4 * H, 2 * H + D)), ("b2", w.b2, f32, (4 * H,)),
+        ("w2", w.w2, bf, (4 * H, 2 * H + D + E)), ("b2", w.b2, f32, (4 * H,)),
         ("wq", w.wq, bf, (A, H)), ("w_loc", w.w_loc, bf, (A, 2, K)), ("wv", w.wv, bf, (A,)),
-        ("w_out", w.w_out, bf, (N, H + D)), ("b_out", w.b_out, f32, (N,)),
+        ("w_out", w.w_out, bf, (N, H + D + E)), ("b_out", w.b_out, f32, (N,)),
     ):
         build.require(t, dt, shape, name)
-    return H, A, K, N
+    return H, A, K, N, E
 
 
-def teacher_forward(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1, dm2):
-    """``teacher_forward_plain`` through kernel K3 for CUDA tensors."""
+def _count(name: str, n: int, E: int) -> None:
+    build.count(LAUNCHES, name, n)
+    if E:
+        build.count(CONTROLS_LAUNCHES, name, n)
+
+
+def teacher_forward(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1, dm2, ctl=None):
+    """``teacher_forward_plain`` through kernel K3 for CUDA tensors; ``ctl``
+    (B, E) f32, the padded controls, where the weights have E > 0 controls
+    columns (K3 writes them into every step's xh2)."""
     if decoder_in.device.type == "cpu":
-        return teacher_forward_plain(w, decoder_in, encoded, att_enc, lengths, dm1, dm2)
+        return teacher_forward_plain(w, decoder_in, encoded, att_enc, lengths, dm1, dm2, ctl)
     T, B, P = decoder_in.shape
     L, D = encoded.shape[1], encoded.shape[2]
-    H, A, K, N = _require_weights(w, P, D)
+    H, A, K, N, E = _require_weights(w, P, D)
     f32 = torch.float32
+    if ctl is None:
+        ctl = pad_controls(None, E, decoder_in[0])
     for name, t, dt, shape in (
         ("decoder_in", decoder_in, f32, (T, B, P)), ("encoded", encoded, torch.bfloat16, (B, L, D)),
         ("att_enc", att_enc, f32, (B, L, A)), ("lengths", lengths, torch.int32, (B,)),
-        ("dm1", dm1, f32, (T, B, H)), ("dm2", dm2, f32, (T, B, H)),
+        ("dm1", dm1, f32, (T, B, H)), ("dm2", dm2, f32, (T, B, H)), ("ctl", ctl, f32, (B, E)),
     ):
         build.require(t, dt, shape, name)
     dev = decoder_in.device
@@ -346,7 +426,8 @@ def teacher_forward(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1,
     check_cluster_dims(S, H, A, D, K)
     e = lambda *s, dtype=f32: torch.empty(*s, device=dev, dtype=dtype)
     mel_gate = e(T, B, N)
-    res = Residuals(e(T, B, P + D + H, dtype=torch.bfloat16), e(T, B, 2 * H + D, dtype=torch.bfloat16),
+    res = Residuals(e(T, B, P + D + H, dtype=torch.bfloat16),
+                    e(T, B, 2 * H + D + E, dtype=torch.bfloat16),
                     e(T + 1, B, H), e(T + 1, B, H), e(T + 1, B, L), e(T + 1, B, L))
     for stack in res[2:]:
         stack[0].zero_()
@@ -354,10 +435,12 @@ def teacher_forward(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1,
     # the gate GEMM's tiled copies of w1, w2: rows padded to 64-column tiles
     tiles = [torch.empty(4 * H, -(-t.shape[1] // 64) * 64, device=dev, dtype=torch.bfloat16)
              for t in (w.w1, w.w2)]
-    tensors = (*w, decoder_in, encoded, att_enc, lengths, dm1, dm2, mel_gate, *res, rnn_h, *tiles)
-    build.count(LAUNCHES, "teacher_forward", forward_launches(T))
+    ctl_bf = ctl.to(torch.bfloat16).contiguous()  # the operand K3 writes into xh2
+    tensors = (*w, decoder_in, encoded, att_enc, lengths, dm1, dm2, mel_gate, *res, rnn_h, *tiles,
+               ctl_bf)
+    _count("teacher_forward", forward_launches(T), E)
     build.check(_lib().t2_teacher_forward(
-        _ptrs(tensors), (Int * 11)(T, B, P, H, D, L, A, K, N, S, int(_PDL)), _stream()),
+        _ptrs(tensors), (Int * 12)(T, B, P, H, D, L, A, K, N, S, int(_PDL), E), _stream()),
         "teacher_forward")
     return mel_gate, res
 
@@ -384,8 +467,8 @@ def teacher_backward(w: TrainWeights, res: Residuals, encoded, att_enc, lengths,
     T, B, R1 = res.xh1.shape
     L, D = encoded.shape[1], encoded.shape[2]
     P = R1 - D - w.wq.shape[1]
-    H, A, K, N = _require_weights(w, P, D)
-    R2 = 2 * H + D
+    H, A, K, N, E = _require_weights(w, P, D)
+    R2 = 2 * H + D + E
     bf, f32 = torch.bfloat16, torch.float32
     for name, t, dt, shape in (
         ("encoded", encoded, bf, (B, L, D)), ("att_enc", att_enc, f32, (B, L, A)),
@@ -405,15 +488,15 @@ def teacher_backward(w: TrainWeights, res: Residuals, encoded, att_enc, lengths,
     zr = lambda *s: torch.zeros(*s, device=dev)
     out = BackwardOut(e(T, B, 4 * H, dtype=bf), e(T, B, 4 * H, dtype=bf), e(T + 1, B, R1),
                       e(T, B, D), e(T, B, A), e(T, B, H, dtype=bf), zr(B, L, A), zr(B, A),
-                      zr(B, A, 2, K))
+                      zr(B, A, 2, K), zr(B, E))
     out.dxh1[T].zero_()
-    scratch = (e(T, B, 4 * H), e(T, B, 4 * H), e(T, B, A), e(T, B, H + D), zr(B, R2), zr(B, H),
-               zr(B, H), zr(B, L), zr(B, L))
-    tensors = (*w[:8], encoded, att_enc, lengths, dm1, dm2, d_mel_gate, d_align, *res, *out,
-               *scratch)
-    build.count(LAUNCHES, "teacher_backward", backward_launches(T))
+    scratch = (e(T, B, 4 * H), e(T, B, 4 * H), e(T, B, A), e(T, B, H + D + E), zr(B, R2),
+               zr(B, H), zr(B, H), zr(B, L), zr(B, L))
+    tensors = (*w[:8], encoded, att_enc, lengths, dm1, dm2, d_mel_gate, d_align, *res, *out[:9],
+               *scratch, out.d_ctrl)
+    _count("teacher_backward", backward_launches(T), E)
     build.check(_lib().t2_teacher_backward(
-        _ptrs(tensors), (Int * 12)(T, B, P, H, D, L, A, K, N, SX, S, int(_PDL)), _stream()),
+        _ptrs(tensors), (Int * 13)(T, B, P, H, D, L, A, K, N, SX, S, int(_PDL), E), _stream()),
         "teacher_backward")
     return out
 
@@ -445,15 +528,19 @@ def _gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def grads_from(params, w: TrainWeights, res: Residuals, encoded, out: BackwardOut, d_mel_gate):
     """``TeacherDecode``'s gradients from the reverse pass's stacks: those
-    of decoder_in, encoded and att_encoded, then of ``DECODER_PARAMS``:
-    dW1 = dg1^T xh1 and dW2 = dg2^T xh2 over all T * B rows, the bias sums,
-    d_wq = dq^T h_att, d_wout = bf16(dmg)^T [head_h | ctx], and the folded
-    location window's gradient unfolded into the conv and the dense. These
-    products sit outside the kernels, as in the JAX package."""
+    of decoder_in, encoded, att_encoded and the controls (B, C), then of
+    ``DECODER_PARAMS``: dW1 = dg1^T xh1 and dW2 = dg2^T xh2 over all T * B
+    rows (dW2's E - C pad columns dropped), the bias sums, d_wq = dq^T h_att,
+    d_wout = bf16(dmg)^T [head_h | ctx | controls] (the mel rows over all of
+    it, the gate row over [head_h | ctx]), and the folded location window's
+    gradient unfolded into the conv and the dense. These products sit
+    outside the kernels, as in the JAX package."""
     (a_ih, _, _, _, d_ih, _, _, _, _, _, conv, dense, *_) = params
     T, B, _ = res.xh1.shape
-    H, D = w.wq.shape[1], res.xh2.shape[2] - 2 * w.wq.shape[1]
+    D = encoded.shape[2]
+    H, E = packed_dims(w, D)
     M = w.w_out.shape[0] - 1
+    C = _controls_dim(params)
     acc = torch.promote_types(w.w1.dtype, torch.float32)
     flat = lambda t: _acc(t).reshape(T * B, -1)
     d_prenet = out.dxh1[:-1, :, :res.xh1.shape[2] - D - H]
@@ -461,34 +548,39 @@ def grads_from(params, w: TrainWeights, res: Residuals, encoded, out: BackwardOu
     dW1, dW2 = _gram(out.dg1, res.xh1), _gram(out.dg2, res.xh2)
     db1, db2 = flat(out.dg1).sum(0), flat(out.dg2).sum(0)
     d_wq = flat(out.dq).t() @ flat(res.xh2[:, :, :H])
-    head_in = torch.cat([flat(out.head_h), flat(res.xh2[:, :, H:H + D])], dim=1)
+    head_in = torch.cat([flat(out.head_h), flat(res.xh2[:, :, H:H + D + E])], dim=1)
     d_wout = flat(_rnd(d_mel_gate, w.w_out)).t() @ head_in
     dmg_sum = d_mel_gate.reshape(T * B, -1).sum(0)
     d_wl = out.d_wloc.sum(0)  # (A, 2, K)
     d_conv = torch.einsum("af,ack->fck", dense.to(acc), d_wl)
     d_dense = torch.einsum("ack,fck->af", d_wl, conv.to(acc))
-    n1, n2 = a_ih.shape[1], d_ih.shape[1]
-    grads = (dW1[:, :n1], dW1[:, n1:], db1, db1, dW2[:, :n2], dW2[:, n2:], db2, db2,
+    n1, n2 = a_ih.shape[1], d_ih.shape[1]  # n2 = H + D + C
+    grads = (dW1[:, :n1], dW1[:, n1:], db1, db1, dW2[:, :n2], dW2[:, n2 + E - C:], db2, db2,
              d_wq, out.d_wv.sum(0)[None], d_conv, d_dense,
-             d_wout[:M], dmg_sum[:M], d_wout[M:], dmg_sum[M:])
-    return (d_prenet, d_enc, out.d_attenc, *(g.to(p.dtype) for g, p in zip(grads, params)))
+             d_wout[:M, :H + D + C], dmg_sum[:M], d_wout[M:, :H + D], dmg_sum[M:])
+    return (d_prenet, d_enc, out.d_attenc, out.d_ctrl[:, :C],
+            *(g.to(p.dtype) for g, p in zip(grads, params)))
 
 
 class TeacherDecode(torch.autograd.Function):
     """(decoder_in (T, B, P), encoded (B, L, D), att_encoded (B, L, A),
-    lengths, dm1, dm2, *DECODER_PARAMS) -> (mels (T, B, M), gates (T, B),
-    aligns (T, B, L)), with ``compute_dtype`` the operands' type. The
-    backward returns the gradients of decoder_in, encoded, att_encoded and
-    every parameter."""
+    lengths, dm1, dm2, controls (B, C) or None, *DECODER_PARAMS) -> (mels
+    (T, B, M), gates (T, B), aligns (T, B, L)), with ``compute_dtype`` the
+    operands' type; C is the decoder's controls_dim (0: no controls). The
+    backward returns the gradients of decoder_in, encoded, att_encoded, the
+    controls (where they need one) and every parameter."""
 
     @staticmethod
-    def forward(ctx, compute_dtype, decoder_in, encoded, att_encoded, lengths, dm1, dm2, *params):
-        w = pack_weights(params, compute_dtype)
+    def forward(ctx, compute_dtype, decoder_in, encoded, att_encoded, lengths, dm1, dm2,
+                controls, *params):
+        C = _controls_dim(params)
+        w = pack_weights(params, compute_dtype, C)
+        ctl = pad_controls(controls, C, decoder_in[0])
         enc = encoded.to(compute_dtype).contiguous()
         att = att_encoded.contiguous()
         lens = lengths.to(torch.int32).contiguous()
         mel_gate, res = teacher_forward(w, decoder_in.contiguous(), enc, att, lens,
-                                        dm1.contiguous(), dm2.contiguous())
+                                        dm1.contiguous(), dm2.contiguous(), ctl)
         ctx.w, ctx.res, ctx.enc, ctx.att, ctx.lens = w, res, enc, att, lens
         ctx.save_for_backward(dm1, dm2, *params)
         M = mel_gate.shape[2] - 1
@@ -502,14 +594,16 @@ class TeacherDecode(torch.autograd.Function):
         d_mel_gate = torch.cat([d_mels, d_gates[..., None]], dim=2).to(acc).contiguous()
         out = teacher_backward(w, res, ctx.enc, ctx.att, ctx.lens, dm1.contiguous(),
                                dm2.contiguous(), d_mel_gate, d_aligns.to(acc).contiguous())
-        d_prenet, d_enc, d_attenc, *d_params = grads_from(params, w, res, ctx.enc, out,
-                                                          d_mel_gate)
-        return (None, d_prenet, d_enc, d_attenc, None, None, None, *d_params)
+        d_prenet, d_enc, d_attenc, d_ctrl, *d_params = grads_from(params, w, res, ctx.enc, out,
+                                                                  d_mel_gate)
+        d_ctrl = d_ctrl if ctx.needs_input_grad[7] else None
+        return (None, d_prenet, d_enc, d_attenc, None, None, None, d_ctrl, *d_params)
 
 
 def teacher_decode(decoder, decoder_in, encoded, att_encoded, lengths, dm1, dm2,
-                   compute_dtype: torch.dtype):
-    """``TeacherDecode`` over a ``models.decoder.Decoder`` module's parameters."""
+                   compute_dtype: torch.dtype, controls: Optional[torch.Tensor] = None):
+    """``TeacherDecode`` over a ``models.decoder.Decoder`` module's
+    parameters; ``controls`` (B, controls_dim) for a decoder with controls."""
     named = dict(decoder.named_parameters())
     return TeacherDecode.apply(compute_dtype, decoder_in, encoded, att_encoded, lengths, dm1, dm2,
-                               *(named[k] for k in DECODER_PARAMS))
+                               controls, *(named[k] for k in DECODER_PARAMS))

@@ -1,19 +1,23 @@
 """``train``: the port's training driver.
 
 Counterpart of ``run/train.py::do_train`` of the JAX package for the
-vanilla configuration: pipe-separated manifests -> datasets and loaders
-(chars bucketed to 32, frames to 128) -> a new model from ``--seed`` or the
-weights of ``--resume-ckpt`` -> Adam + MultiStepLR (milestones at the
-config's fractions of ``max_steps``), restored with the step on resume ->
-the loop, logging every ``LOG_EVERY`` steps with the real-frame throughput
--> validation every ``val_check_interval`` (Lightning's meaning; once an
-epoch by default) and at the end -> ``final.ckpt`` (and ``last.ckpt`` every
-5,000 steps), in the reference's Lightning layout.
+vanilla configuration and its speaker tokens and controls: pipe-separated
+manifests (with ``force_speaker`` their rows of that speaker only) ->
+datasets with the manifests' ``speaker_id`` column and the config's
+``extensions.controls.features`` columns, and loaders (chars bucketed to 32,
+frames to 128) -> a new model from ``--seed`` or the weights of
+``--resume-ckpt`` -> Adam + MultiStepLR (milestones at the config's
+fractions of ``max_steps``), restored with the step on resume -> the loop,
+logging every ``LOG_EVERY`` steps with the real-frame throughput ->
+validation every ``val_check_interval`` (Lightning's meaning; once an epoch
+by default) and at the end -> ``final.ckpt`` (and ``last.ckpt`` every 5,000
+steps), in the reference's Lightning layout.
 
-Not ported: finetuning and its freeze masks, ``force_speaker``, speaker
-tokens, controls, description embeddings, GST (``train`` refuses their
-configs, ``check_trainable``), the prosody style loss, multi-device training
-and the device prefetcher, TensorBoard images and histograms, FLAC input.
+Not ported: finetuning and its freeze masks (the speaker embedding's
+among them), description embeddings, GST and the prosody style loss
+(``train`` refuses their configs, ``check_trainable``), multi-device
+training and the device prefetcher, TensorBoard images and histograms,
+FLAC input.
 """
 
 from __future__ import annotations
@@ -50,11 +54,25 @@ def read_manifest(csv_path: str) -> List[Dict[str, str]]:
         return list(csv.DictReader(f, delimiter="|", quoting=csv.QUOTE_NONE))
 
 
+def select_rows(cfg: Config, rows: List[Dict[str, str]]) -> List[Dict[str, str]]:
+    """With ``force_speaker``, the manifest rows of that speaker only (JAX
+    ``run/train.py``: ``df[df.speaker_id == force_speaker]``)."""
+    fs = cfg.extensions.speaker_tokens.force_speaker
+    return rows if fs is None else [r for r in rows if int(r["speaker_id"]) == fs]
+
+
 def _dataset(cfg: Config, rows, speech_dir: str, cache_dir: str) -> TTSDataset:
-    p = cfg.dataset.preprocessing
+    """The rows' dataset: with speaker tokens their ``speaker_id`` column
+    (int), with controls the configured feature columns (float), as the
+    JAX package's ``run/train.py`` reads them through pandas."""
+    p, ext = cfg.dataset.preprocessing, cfg.extensions
+    speakers = [int(r["speaker_id"]) for r in rows] if ext.speaker_tokens.active else None
+    features = ([[float(r[f]) for f in ext.controls.features] for r in rows]
+                if ext.controls.active else None)
     return TTSDataset(
         [r["wav"] for r in rows], [r["text"] for r in rows], speech_dir,
-        allowed_chars=p.allowed_chars, end_token=p.end_token, silence=p.silence, trim=p.trim,
+        speaker_ids=speakers, features=features, allowed_chars=p.allowed_chars,
+        end_token=p.end_token, silence=p.silence, trim=p.trim,
         trim_top_db=p.trim_top_db, trim_frame_length=p.trim_frame_length,
         expand_abbreviations=p.expand_abbreviations, num_mels=p.num_mels, cache=p.cache,
         cache_dir=cache_dir, sample_rate=p.sample_rate)
@@ -71,17 +89,15 @@ def _endless(loader) -> Iterator[Dict[str, np.ndarray]]:
 
 
 def check_trainable(cfg: Config) -> None:
-    """Raise for a config the port cannot train yet: speaker tokens and
-    controls need the controls rows of K3 and K4 and a loader of speaker and
-    control columns (ROADMAP B1.2-3); GST and description embeddings their
-    auxiliary models too (ROADMAP A6, A7)."""
+    """Raise for a config the port cannot train yet: GST and description
+    embeddings need their auxiliary models, and the prosody model's style
+    loss its predictor (ROADMAP A6, A7). Speaker tokens and controls train."""
     ext = cfg.extensions
-    if (ext.speaker_tokens.active or ext.controls.active or ext.gst.active
-            or cfg.model.description_embeddings):
+    if ext.gst.active or cfg.model.description_embeddings or ext.prosody_model.active:
         raise NotImplementedError(
-            "the port trains the vanilla configuration only: training with speaker tokens or "
-            "controls is the next slice (the controls rows of K3 and K4, ROADMAP B1.2-3), GST "
-            "and description embeddings come after their auxiliary models (ROADMAP A6, A7)")
+            "the port trains the vanilla configuration and its speaker tokens and controls; "
+            "GST, description embeddings and the prosody model's style loss come after their "
+            "auxiliary models (ROADMAP A6, A7)")
 
 
 def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Optional[str] = None,
@@ -98,8 +114,10 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
         results_dir = f"results_{cfg.training.name} {datetime.datetime.now()}"
     os.makedirs(results_dir, exist_ok=True)
     cache_dir = path.join(results_dir, "mel_cache")
-    train_set = _dataset(cfg, read_manifest(cfg.dataset.train), speech_dir, cache_dir)
-    val_set = _dataset(cfg, read_manifest(cfg.dataset.val), speech_dir, cache_dir)
+    train_set = _dataset(cfg, select_rows(cfg, read_manifest(cfg.dataset.train)), speech_dir,
+                         cache_dir)
+    val_set = _dataset(cfg, select_rows(cfg, read_manifest(cfg.dataset.val)), speech_dir,
+                       cache_dir)
     batch_size = cfg.training.batch_size
     train_loader = TTSDataLoader(train_set, batch_size=batch_size, shuffle=True, drop_last=True,
                                  seed=seed, bucket_chars=32, bucket_frames=128)

@@ -35,7 +35,9 @@ speaker`` makes them, through ``convert.from_jax_params``.
 - the server's per-model request checks, and two controllable requests with
   other voices and controls sharing a window, each with its audio alone;
 - ``model_config_from`` takes every model config in ``config/`` but the
-  description-embedding one; ``train`` refuses the extensions.
+  description-embedding one; ``train`` takes them too, but the prosody-model
+  ones (their style loss needs the prosody predictor); the teacher pass
+  refuses missing or mis-shaped speaker ids and controls.
 """
 
 import copy
@@ -494,8 +496,8 @@ def test_model_config_from_accepts(name):
     assert mc.speaker_tokens == ext.speaker_tokens.active
     assert mc.num_speakers == ext.speaker_tokens.num_speakers
     assert mc.controls == ext.controls.active and mc.controls_dim == cfg.controls_dim
-    if ext.speaker_tokens.active or ext.controls.active:
-        with pytest.raises(NotImplementedError, match="B1.2-3"):
+    if ext.prosody_model.active:
+        with pytest.raises(NotImplementedError, match="A6, A7"):
             check_trainable(cfg)
     else:
         check_trainable(cfg)
@@ -520,11 +522,18 @@ def test_descriptions_config_is_refused():
 
 
 def test_teacher_pass_refuses_the_extensions():
+    """The teacher pass of a multi-speaker, controllable model wants both
+    conditionings, each of the batch's shape."""
     *_, tm = _models()
     chars, lens = (torch.as_tensor(a) for a in _inputs(2))
-    with pytest.raises(NotImplementedError, match="B1.2-3"):
-        tm.forward_teacher(chars, lens, torch.zeros(2, 4, CFG["num_mels"]),
-                           torch.tensor([4, 4]))
+    args = (chars, lens, torch.zeros(2, 4, CFG["num_mels"]), torch.tensor([4, 4]))
+    spk, ctl = torch.tensor([0, 2]), torch.as_tensor(_controls(1.0))
+    for kw, match in ((dict(controls=ctl), "speaker_id tensor required"),
+                      (dict(speaker_id=spk), "no control vector"),
+                      (dict(speaker_id=spk, controls=ctl[:1]), "shape"),
+                      (dict(speaker_id=spk[:1], controls=ctl), "speaker ids")):
+        with pytest.raises(ValueError, match=match):
+            tm.forward_teacher(*args, **kw)
 
 
 def test_subprocess_mode_passes_voice_and_controls(tmp_path, monkeypatch):

@@ -176,12 +176,23 @@ _TW = lambda: train_decode.TrainWeights(
 _RES = lambda: train_decode.Residuals(
     _meta(2, 1, 24, dtype=torch.bfloat16), _meta(2, 1, 24, dtype=torch.bfloat16),
     _meta(3, 1, 8), _meta(3, 1, 8), _meta(3, 1, 5), _meta(3, 1, 5))
+# with 16 controls columns (E): w2 (32, 40), w_out (81, 32), xh2 (2, 1, 40)
+_TWC = lambda: _TW()._replace(w2=_meta(32, 40, dtype=torch.bfloat16),
+                              w_out=_meta(81, 32, dtype=torch.bfloat16))
+_RESC = lambda: _RES()._replace(xh2=_meta(2, 1, 40, dtype=torch.bfloat16))
 WRAPPER_CALLS.update({
     "teacher_forward": lambda: train_decode.teacher_forward(
         _TW(), _meta(2, 1, 8), _meta(1, 5, 8, dtype=torch.bfloat16), _meta(1, 5, 4),
         _meta(1, dtype=torch.int32), _meta(2, 1, 8), _meta(2, 1, 8)),
     "teacher_backward": lambda: train_decode.teacher_backward(
         _TW(), _RES(), _meta(1, 5, 8, dtype=torch.bfloat16), _meta(1, 5, 4),
+        _meta(1, dtype=torch.int32), _meta(2, 1, 8), _meta(2, 1, 8), _meta(2, 1, 81),
+        _meta(2, 1, 5)),
+    "teacher_forward[controls]": lambda: train_decode.teacher_forward(
+        _TWC(), _meta(2, 1, 8), _meta(1, 5, 8, dtype=torch.bfloat16), _meta(1, 5, 4),
+        _meta(1, dtype=torch.int32), _meta(2, 1, 8), _meta(2, 1, 8), _meta(1, 16)),
+    "teacher_backward[controls]": lambda: train_decode.teacher_backward(
+        _TWC(), _RESC(), _meta(1, 5, 8, dtype=torch.bfloat16), _meta(1, 5, 4),
         _meta(1, dtype=torch.int32), _meta(2, 1, 8), _meta(2, 1, 8), _meta(2, 1, 81),
         _meta(2, 1, 5)),
 })
@@ -191,14 +202,18 @@ WRAPPER_CALLS.update({
 def test_wrapper_never_falls_back_to_plain(name, monkeypatch):
     """A tensor that is not on the CPU goes to the kernel path, which
     refuses it (it is not a CUDA tensor); the plain version is not called
-    and no launch is counted."""
-    module = next(m for m in (decoder_loop, mrf, train_decode) if name in m.LAUNCHES)
+    and no launch is counted. A ``[controls]`` case is the wrapper's
+    controls mode."""
+    base = name.split("[")[0]
+    module = next(m for m in (decoder_loop, mrf, train_decode) if base in m.LAUNCHES)
 
     def plain_called(*a, **k):
         raise AssertionError("plain version reached with a non-CPU tensor")
 
-    monkeypatch.setattr(module, f"{name}_plain", plain_called)
+    monkeypatch.setattr(module, f"{base}_plain", plain_called)
     before = dict(module.LAUNCHES)
+    before_ctl = dict(getattr(module, "CONTROLS_LAUNCHES", {}))
     with pytest.raises(ValueError, match="CUDA"):
         WRAPPER_CALLS[name]()
     assert module.LAUNCHES == before
+    assert dict(getattr(module, "CONTROLS_LAUNCHES", {})) == before_ctl

@@ -95,7 +95,7 @@ def test_teacher_decode_matches_jax_pallas(policy):
     lengths = torch.tensor(LENS)
     mels, gates, aligns = td.TeacherDecode.apply(
         PORT_DTYPE[policy], din_t, enc_t, att_t, lengths, torch.as_tensor(dm1),
-        torch.as_tensor(dm2), *params)
+        torch.as_tensor(dm2), None, *params)
     for name, got, ref in zip(("mels", "gates", "aligns"), (mels, gates, aligns), outs):
         _assert_close(got, ref, rel, floor, name)
     _loss(mels, gates, aligns, torch).backward()
@@ -125,7 +125,8 @@ def _tiny_case():
 
 def test_teacher_decode_gradcheck_f64():
     ps, din, enc, att, lengths, dm1, dm2 = _tiny_case()
-    f = lambda d, e, a, *p: td.TeacherDecode.apply(torch.float64, d, e, a, lengths, dm1, dm2, *p)
+    f = lambda d, e, a, *p: td.TeacherDecode.apply(torch.float64, d, e, a, lengths, dm1, dm2, None,
+                                                          *p)
     assert torch.autograd.gradcheck(f, (din, enc, att, *ps), eps=1e-6, atol=1e-6,
                                     fast_mode=True)
 
@@ -142,7 +143,7 @@ def test_teacher_decode_grads_equal_autograd_of_step_loop():
         return mg[..., :-1], mg[..., -1], res.al[1:]
 
     inputs = (din, enc, att, *ps)
-    outs_a = td.TeacherDecode.apply(torch.float64, din, enc, att, lengths, dm1, dm2, *ps)
+    outs_a = td.TeacherDecode.apply(torch.float64, din, enc, att, lengths, dm1, dm2, None, *ps)
     outs_b = loop(*inputs)
     cots = [torch.tensor(r.standard_normal(o.shape)) for o in outs_a]
     ga = torch.autograd.grad(outs_a, inputs, cots)

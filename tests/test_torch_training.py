@@ -5,7 +5,8 @@ mode of the models) against their JAX counterparts on the CPU:
   ``batchnorm_apply``;
 - ``tacotron2_loss``;
 - the encoder's embedding init (N(0, 0.5), padding row 0) against
-  ``embedding_init``;
+  ``embedding_init``, and the speaker embedding's (N(0, 0.5)) against the
+  JAX model's;
 - three optimizer steps that cross a milestone (clip 1.0, Adam with coupled
   weight decay, MultiStepLR) against ``make_optimizer``'s optax chain on the
   same gradients;
@@ -104,6 +105,20 @@ def test_encoder_embedding_init_matches_jax():
     for table in (got, ref):
         assert not table[0].any()
         assert abs(table[1:].std() - 0.5) < 0.02 and abs(table[1:].mean()) < 0.02
+
+
+def test_speaker_embedding_init_matches_jax():
+    """The speaker embedding inits as the JAX package's (N(0, 0.5), no
+    padding row), from the module RNG ``do_train`` seeds; 100k entries, as
+    the encoder's test."""
+    torch.manual_seed(0)
+    cfg = dict(num_chars=8, encoded_dim=256, speaker_tokens=True, num_speakers=400)
+    got = Tacotron2(Tacotron2Config(**cfg)).speaker_embedding.weight.detach().numpy()
+    params, _ = JaxTacotron2(JaxConfig(**cfg)).init(jax.random.PRNGKey(0))
+    ref = np.asarray(params["speaker_embedding"]["table"])
+    assert got.shape == ref.shape
+    for table in (got, ref):
+        assert abs(table.std() - 0.5) < 0.02 and abs(table.mean()) < 0.02
 
 
 def test_tacotron2_loss_matches_jax():
