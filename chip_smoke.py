@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --k2-ab   # only K2's design A/B (``k2_ab``), then exit
     python3 chip_smoke.py --k1-rows [--root DIR] [--out NAME]  # K1/K5 at 1/16/64 rows
+    python3 chip_smoke.py --k1-rows --enc-ab  # only the encoder forward's copies (``enc_ab``)
     python3 chip_smoke.py --k1-ab   # the same for build/parent and this tree, in turns,
                                     # and the decode step's variants on source copies
                                     # (``cell_ab``)
@@ -42,7 +43,8 @@ Phases, each of which must pass:
    at 1, 16 and 64 rows against their plain versions, timed beside their
    bound and library call (``cell_rows``),
    rows of a 64-row cell launch held bit for bit against the rows alone
-   and of a 64-row prenet launch (``cell_invariance``), and a
+   and of a 64-row prenet launch, the heads' rows of a 64-row launch and
+   the last of an 80-row one (``cell_invariance``), and a
    64-frame chunk split by kernel at 16 and 64 rows, L=128, with the serve
    window's decode (``serve_rows_split``);
 3c. K1's and K5's controls mode on random full-width weights of
@@ -63,7 +65,12 @@ Phases, each of which must pass:
    (``K34_RAGGED``), with and without programmatic dependent launch, and
    each kernel's device time (torch.profiler); then the encoder's bf16
    BiLSTM kernels at the train batch's shapes, and the forward at the say's
-   and the serve windows' shapes on inputs from real ``_encode`` calls;
+   and the serve windows' shapes on inputs from real ``_encode`` calls and
+   at ``enc_shapes`` (timed beside ``nn.LSTM``, rows of a 64-row launch
+   against the rows alone, bit for bit, ``enc_rows``);
+3e. deliberate defects on source copies (``defect_phase``): the heads with
+   one rank's partial sum left out, the encoder's forward with a stale
+   exchange, each at least DEFECT_MARGIN times its limit;
 3d. K3's and K4's controls mode on random full-width weights of the
    controllable config (``k34_controls_phase``): at B=64 (its train batch,
    cluster size 2), B=32 and B=5 with L=37 against their plain versions,
@@ -74,7 +81,8 @@ Phases, each of which must pass:
    timed in turns;
 4. run ``say`` through the port's CLI entry on random full-width weights
    saved as a reference Lightning ``.ckpt`` and a UNIVERSAL_V1 ``g_*`` file:
-   a forced 256-frame decode with the launch counters read around it (K2:
+   a forced 256-frame decode with the launch counters read around it (one
+   ``bilstm_forward`` launch; K2:
    exactly 18 ``mrf_conv``, 27 ``mrf_pair``, 4 ``conv_transpose`` and 1
    ``conv_operand`` launches a vocode, and the HiFi-GAN's weights packed
    once), a
@@ -551,7 +559,7 @@ def k1_phase(model, cfg, L: int, log: dict, cells: dict) -> list:
     rh_k, rc_k = dl.lstm_cell(pk.w_dec, pk.b_dec, ah_p, ctx_p, s.rnn_h, s.rnn_c, pk.wt_dec)
     rh_p, rc_p = dl.lstm_cell_plain(pk.w_dec, pk.b_dec, ah_p, ctx_p, s.rnn_h, s.rnn_c)
     check("lstm_cell[dec]", [("h", rh_k, rh_p), ("c", rc_k, rc_p)], K1_TOL, log, "lstm_cell")
-    mg_k = dl.heads(pk.w_out, pk.b_out, rh_p, ctx_p)
+    mg_k = dl.heads(pk.w_out, pk.b_out, rh_p, ctx_p, wt=pk.wt_out)
     mg_p = dl.heads_plain(pk.w_out, pk.b_out, rh_p, ctx_p)
     check("heads", [("mel_gate", mg_k, mg_p)], K1_TOL, log)
 
@@ -631,7 +639,7 @@ def k1_phase(model, cfg, L: int, log: dict, cells: dict) -> list:
          nbytes(s.mel, pk.wp1_t, pk.wp2_t, m1, m2, f32(B, P)), 2 * B * (M * P + P * P), 347),
         ("location_attention", lambda: dl.location_attention(*att_args),
          lambda: dl.location_attention_plain(*att_args), None, att_bytes, att_flops, 196),
-        ("heads", lambda: dl.heads(pk.w_out, pk.b_out, rh_p, ctx_p),
+        ("heads", lambda: dl.heads(pk.w_out, pk.b_out, rh_p, ctx_p, wt=pk.wt_out),
          lambda: dl.heads_plain(pk.w_out, pk.b_out, rh_p, ctx_p),
          lambda: torch.nn.functional.linear(head_x, head_w, head_b),
          nbytes(pk.w_out, pk.b_out, rh_p, ctx_p, f32(B, M + 1)), 2 * B * pk.w_out.numel(), 347),
@@ -925,6 +933,12 @@ def cell_rows(model, log: dict, rows=K1_ROWS) -> dict:
 UP_ROWS = (1, 16, 64)  # rows of up_rows: the say, the serve windows
 
 
+def heads_copy(pk) -> dict:
+    """The heads wrapper's tiled weight copy of a pack (``wt_out``), as a
+    keyword; none for a parent's package, whose heads read ``w_out``."""
+    return {"wt": pk.wt_out} if hasattr(pk, "wt_out") else {}
+
+
 def up_rows(model, hifigan, Tb: int, log: dict) -> dict:
     """At each of UP_ROWS rows: K2's ``conv_transpose`` of every stage of a
     ``Tb``-frame vocode on random inputs (device ms by graph replay; bound;
@@ -1031,14 +1045,24 @@ def up_rows(model, hifigan, Tb: int, log: dict) -> dict:
                                   "out_sha1": hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest()}
         rnn_h = torch.randn(B, H, device=dev, generator=g)
         ctx = torch.randn(B, D, device=dev, generator=g)
+        hargs = (pk.w_out, pk.b_out, rnn_h, ctx)
+        heads = lambda: dl.heads(*hargs, **heads_copy(pk))
+        check(f"heads@B{B}", [("mel_gate", heads(), dl.heads_plain(*hargs))], K1_TOL, log,
+              "heads")
         hb_ms, hb_by = bound_ms(nbytes(pk.w_out, pk.b_out, rnn_h, ctx,
                                        torch.empty(B, M + 1, device=dev)),
                                 2 * B * pk.w_out.numel())
-        out["heads"][f"B{B}"] = {"ms": time_ms(lambda: dl.heads(pk.w_out, pk.b_out, rnn_h, ctx)),
-                                 "bound_ms": hb_ms, "bound_by": hb_by}
+        x_lin, b_lin = torch.cat([rnn_h, ctx], 1).to(bf), pk.b_out.to(bf)
+        out["heads"][f"B{B}"] = {
+            "ms": time_ms(heads), "plain_ms": time_ms(lambda: dl.heads_plain(*hargs)),
+            "bound_ms": hb_ms, "bound_by": hb_by,
+            "library_ms": time_ms(lambda: F.linear(x_lin, pk.w_out, b_lin)),
+            "out_sha1": hashlib.sha1(heads().cpu().numpy().tobytes()).hexdigest()}
+        hr = out["heads"][f"B{B}"]
         print(f"  prenet at {B} rows: {out['prenet'][f'B{B}']['ms'] * 1e3:.2f} us (bound "
-              f"{b_ms * 1e3:.3f} us); heads {out['heads'][f'B{B}']['ms'] * 1e3:.2f} us (bound "
-              f"{hb_ms * 1e3:.3f} us)")
+              f"{b_ms * 1e3:.3f} us); heads {hr['ms'] * 1e3:.2f} us (bound "
+              f"{hb_ms * 1e3:.3f} us, plain {hr['plain_ms'] * 1e3:.2f} us, F.linear bf16 "
+              f"{hr['library_ms'] * 1e3:.2f} us)")
     log["up_rows"] = out
     return out
 
@@ -1128,7 +1152,30 @@ def cell_invariance(model, log: dict) -> None:
             if not same:
                 raise SmokeFailure(f"{name}[{tag}]: row {r} alone differs from the same row in "
                                    f"a {CELL_TWO_PASSES}-row launch")
+    # the heads (vanilla): rows of a 64-row launch and the last row of an
+    # 80-row one (two clusters) against the rows alone; the 80-row launch
+    # against the plain version
+    pk = dl.pack_decoder(model.prenet, model.decoder, torch.bfloat16)
+    H, D = pk.wq.shape[1], pk.w_out.shape[1] - pk.wq.shape[1]
+    hw = heads_copy(pk)
+    for B, rows in ((64, CELL_INVARIANCE_ROWS), (CELL_TWO_PASSES, (CELL_TWO_PASSES - 1,))):
+        rnn_h = torch.randn(B, H, device="cuda", generator=g)
+        ctx = torch.randn(B, D, device="cuda", generator=g)
+        full = dl.heads(pk.w_out, pk.b_out, rnn_h, ctx, **hw)
+        if B == CELL_TWO_PASSES:
+            check(f"heads@B{B}", [("mel_gate", full, dl.heads_plain(pk.w_out, pk.b_out, rnn_h,
+                                                                     ctx))], K1_TOL, log, "heads")
+        for r in rows:
+            same = torch.equal(full[r:r + 1], dl.heads(pk.w_out, pk.b_out, rnn_h[r:r + 1],
+                                                       ctx[r:r + 1], **hw))
+            result[f"heads row {r} of {B}"] = same
+            if not same:
+                raise SmokeFailure(f"heads: row {r} alone differs from the same row in a {B}-row "
+                                   "launch")
     log["cell_invariance"] = result
+    print(f"  heads: rows {CELL_INVARIANCE_ROWS} of a 64-row launch and row "
+          f"{CELL_TWO_PASSES - 1} of an {CELL_TWO_PASSES}-row one equal the rows alone, bit for "
+          "bit")
     print(f"  prenet, lstm_cell / lstm_cell_int8: rows {CELL_INVARIANCE_ROWS} of a 64-row "
           f"launch (the cells' row {CELL_TWO_PASSES - 1} of an {CELL_TWO_PASSES}-row one) equal "
           "the rows alone, bit for bit; the two-pass launch within the one-step limits")
@@ -1250,7 +1297,8 @@ def controls_cells(model, log: dict) -> dict:
             cell = (kern, plain, lambda: mod(x_lib, hc), (*ins, cbf))
         hargs = (pk.w_out, pk.b_out, rnn_h, ctx)
         x_lin, b_lin = bf(torch.cat([rnn_h, ctx, c32], 1)), bf(pk.b_out)
-        heads = (lambda: dl.heads(*hargs, c32), lambda: dl.heads_plain(*hargs, None, c32),
+        heads = (lambda: dl.heads(*hargs, c32, **heads_copy(pk)),
+                 lambda: dl.heads_plain(*hargs, None, c32),
                  lambda: F.linear(x_lin, pk.w_out, b_lin), (rnn_h, ctx, c32))
         return cell, heads, (att_h, ctx, rnn_h, rnn_c, c32, cbf)
 
@@ -1305,18 +1353,34 @@ def controls_cells(model, log: dict) -> dict:
                                      ctl=one(cbf, r))
             same = all(torch.equal(x[r:r + 1], y) for x, y in zip(full, alone))
             hsame = torch.equal(hfull[r:r + 1], dl.heads(pk.w_out, pk.b_out, one(rnn_h, r),
-                                                         one(ctx, r), one(c32, r)))
+                                                         one(ctx, r), one(c32, r),
+                                                         **heads_copy(pk)))
             log.setdefault("controls_invariance", {})[f"{name} row {r}"] = same
             log["controls_invariance"][f"heads[controls] ({'int8' if quant else 'bf16'} pack) "
                                        f"row {r}"] = hsame
             if not (same and hsame):
                 raise SmokeFailure(f"{name} / heads[controls]: row {r} alone differs from the "
                                    "same row of a 64-row launch with distinct controls")
-    # the controls reach the mels, not the gate: the heads under two vectors
+    # the heads with controls at CELL_TWO_PASSES rows (two clusters): against
+    # the plain version, and the last row against the row alone
     pk = packs[False]
+    B, r = CELL_TWO_PASSES, CELL_TWO_PASSES - 1
+    rnn_h, ctx = rn(B, H), rn(B, D)
+    c32 = dl.stage_controls(pk, row_controls(B, g, 1.0, E0), B, dev)[0]
+    full = dl.heads(pk.w_out, pk.b_out, rnn_h, ctx, c32, **heads_copy(pk))
+    check(f"heads[controls]@B{B}", [("mel_gate", full, dl.heads_plain(
+        pk.w_out, pk.b_out, rnn_h, ctx, None, c32))], K1_TOL, log, "heads[controls]")
+    same = torch.equal(full[r:r + 1], dl.heads(pk.w_out, pk.b_out, rnn_h[r:r + 1], ctx[r:r + 1],
+                                               c32[r:r + 1], **heads_copy(pk)))
+    log["controls_invariance"][f"heads[controls] row {r} of {B}"] = same
+    if not same:
+        raise SmokeFailure(f"heads[controls]: row {r} alone differs from the same row of a "
+                           f"{B}-row launch")
+    # the controls reach the mels, not the gate: the heads under two vectors
     rnn_h, ctx = rn(16, H), rn(16, D)
     a = row_controls(16, g, 2.0, E0)
-    ha, hb = (dl.heads(pk.w_out, pk.b_out, rnn_h, ctx, dl.stage_controls(pk, v, 16, dev)[0])
+    ha, hb = (dl.heads(pk.w_out, pk.b_out, rnn_h, ctx, dl.stage_controls(pk, v, 16, dev)[0],
+                       **heads_copy(pk))
               for v in (a, -a))
     apart = err(ha[:, :M], hb[:, :M])[1]
     log["controls_heads"] = {"gate_bits_equal": torch.equal(ha[:, M], hb[:, M]),
@@ -1466,31 +1530,37 @@ def serve_rows_split(model, cfg, log: dict) -> dict:
                  # the same inputs in every turn of --k1-ab: equal bits?
                  "chunk_sha1": hashlib.sha1(mg.cpu().numpy().tobytes()
                                             + al.cpu().numpy().tobytes()).hexdigest()}
+            r["split_us_per_step"] = {k: v / 64 * 1e3 for k, v in kernel_split(chunk).items()}
             if B > 1:
-                r["split_us_per_step"] = {k: v / 64 * 1e3 for k, v in kernel_split(chunk).items()}
                 gens = [torch.Generator(device=dev).manual_seed(i) for i in range(B)]
                 r["window_decode_ms"] = eager_ms(lambda: model.forward_infer_fast(
                     ci, lengths, 256, packed=pk, row_generators=gens, encode_rows=64), 3)
             out[f"{mode}_B{B}"] = r
             print(f"  {mode} decode at {B} rows, L={L}: chunk {r['chunk_us_per_step']:.1f} us a "
                   "step" + ("" if B == 1 else
-                            f", window decode {r['window_decode_ms']:.1f} ms; per step: "
-                            + ", ".join(f"{k} {v:.1f}"
-                                        for k, v in r["split_us_per_step"].items())))
+                            f", window decode {r['window_decode_ms']:.1f} ms")
+                  + "; per step: " + ", ".join(f"{k} {v:.1f}"
+                                               for k, v in r["split_us_per_step"].items()))
     log["serve_rows_split"] = out
     return out
 
 
 # cell_ab's copies of csrc/decode_step.cu, each (name, pattern, replacement):
 # the source; then the prenet's cluster taking 16 rows a group (half the
-# clusters at 64 rows). The chunk's prenet launched with programmatic
+# clusters at 64 rows); the heads launched without programmatic dependent
+# launch (the source issues their weight copy while the decoder cell ends);
+# the heads' contraction split over a cluster of 4 or 16, not 8. The chunk's prenet launched with programmatic
 # dependent launch, the heads' early start of it, 32 rows a group and
 # GC_PREFETCH (the cells' weight chunks streamed before their wait) were
 # measured the same way (PERF.md).
 CELL_AB = (
     ("source", None, None),
     ("prenet_rows16", r"constexpr int PN_THREADS = 256;", "constexpr int PN_THREADS = 512;"),
+    ("heads_no_pdl", r"constexpr bool HD_PDL = true;", "constexpr bool HD_PDL = false;"),
+    ("heads_s4", r"constexpr int HD_S = 8;", "constexpr int HD_S = 4;"),
+    ("heads_s16", r"constexpr int HD_S = 8;", "constexpr int HD_S = 16;"),
 )
+CELL_AB_OTHER_SUMS = {"heads_s4", "heads_s16"}  # sums in another order: bits not held
 
 
 def cell_ab(model, log: dict) -> dict:
@@ -1500,8 +1570,9 @@ def cell_ab(model, log: dict) -> dict:
     ``decode_chunk`` per step (the main path), both cells alone
     (``cell_args``) and the prenet's one-kernel entry, bf16 and int8 packs,
     at 1, 16 and 64 rows (L=128); the copies in turns, two rounds, the
-    second in reverse order. The chunks' outputs must equal the source's
-    bit for bit (no variant changes a result; the run fails otherwise)."""
+    second in reverse order; the heads alone too. The chunks' outputs must
+    equal the source's bit for bit (no variant changes a result; the run
+    fails otherwise)."""
     import ctypes
     import re
 
@@ -1546,11 +1617,13 @@ def cell_ab(model, log: dict) -> dict:
             m1, m2 = dl.prenet_masks(64, B, c.prenet_dim, c.dropout, g, dev)
             (kern_fn, _), cells = cell_args(dl, pk, B, g)
             pre = (s.mel, pk.wp1_t, pk.wp2_t, m1[0], m2[0], pk.wt_prenet)
+            hd = (pk.w_out, pk.b_out, s.rnn_h, s.ctx)
             cases.append((f"{'int8' if q else 'bf16'}_B{B}",
                           lambda pk=pk, a=(enc, att_enc, lengths, s, m1, m2):
                           dl.decode_chunk(pk, *a),
                           lambda f=kern_fn, cs=cells: [f(*ka, **kw) for ka, _, kw in cs],
-                          lambda a=pre: dl.prenet(*a)))
+                          lambda a=pre: dl.prenet(*a),
+                          lambda a=hd, pk=pk: dl.heads(*a, **heads_copy(pk))))
     saved = dl._LIB
     out: dict = {}
     first: dict = {}
@@ -1559,23 +1632,28 @@ def cell_ab(model, log: dict) -> dict:
         for order in (names, names[::-1]):
             for name in order:
                 dl._LIB = libs[name]
-                for key, chunk, cells, pre in cases:
+                for key, chunk, cells, pre, hd in cases:
                     mg, al, _ = chunk()
-                    if key in first and not (torch.equal(mg, first[key][0])
-                                             and torch.equal(al, first[key][1])):
+                    if name in CELL_AB_OTHER_SUMS:
+                        pass
+                    elif key in first and not (torch.equal(mg, first[key][0])
+                                               and torch.equal(al, first[key][1])):
                         raise SmokeFailure(f"cell_ab: the {key} chunk differs in the {name} copy")
-                    first.setdefault(key, (mg, al))
-                    r = out.setdefault(f"{name}_{key}",
-                                       {"chunk_us": [], "cells_us": [], "prenet_us": []})
+                    else:
+                        first.setdefault(key, (mg, al))
+                    r = out.setdefault(f"{name}_{key}", {"chunk_us": [], "cells_us": [],
+                                                         "prenet_us": [], "heads_us": []})
                     r["chunk_us"].append(time_ms(chunk, 5, 1) / 64 * 1e3)
                     r["cells_us"].append(time_ms(cells) * 1e3)
                     r["prenet_us"].append(time_ms(pre) * 1e3)
+                    r["heads_us"].append(time_ms(hd) * 1e3)
     finally:
         dl._LIB = saved
     for k, v in out.items():
         print(f"  {k}: chunk " + " / ".join(f"{x:.1f}" for x in v["chunk_us"])
               + " us a step, both cells alone " + " / ".join(f"{x:.1f}" for x in v["cells_us"])
-              + " us, prenet alone " + " / ".join(f"{x:.2f}" for x in v["prenet_us"]) + " us")
+              + " us, prenet alone " + " / ".join(f"{x:.2f}" for x in v["prenet_us"])
+              + " us, heads alone " + " / ".join(f"{x:.2f}" for x in v["heads_us"]) + " us")
     log["cell_ab"] = out
     return out
 
@@ -1599,7 +1677,8 @@ def k1_rows_mode(out_name: str) -> int:
 
     use_f32_math()
     t0 = time.perf_counter()
-    logs = build.build_all(["decode_step", "mrf"])
+    logs = build.build_all(["encoder_lstm"] if "--enc-ab" in sys.argv[1:]
+                           else ["decode_step", "mrf", "encoder_lstm"])
     log: dict = {"card": card_line(), "package": str(Path(ops.__file__).parents[1]),
                  "build_s": time.perf_counter() - t0,
                  "ptxas": {k: ptxas_kernels(v) for k, v in logs.items()}}
@@ -1611,18 +1690,23 @@ def k1_rows_mode(out_name: str) -> int:
                       vocoder_policy(torch.device("cuda"))).cuda().eval()
     Tb = -(-(255 + hifigan.mel_receptive_field()) // 128) * 128  # the say's bucket
     try:
-        up_rows(model, hifigan, Tb, log)
-        log["cells"] = cell_rows(model, log)
-        cell_invariance(model, log)
-        serve_rows_split(model, cfg, log)
-        from tacotron2_tpu_torch.ops import decoder_loop as dl
+        if "--enc-ab" in sys.argv[1:]:  # the encoder's forward alone
+            enc_rows(model, cfg, log)
+            enc_ab(model, cfg, log)
+        else:
+            up_rows(model, hifigan, Tb, log)
+            log["cells"] = cell_rows(model, log)
+            cell_invariance(model, log)
+            serve_rows_split(model, cfg, log)
+            enc_rows(model, cfg, log)
+            from tacotron2_tpu_torch.ops import decoder_loop as dl
 
-        if hasattr(dl, "stage_controls"):  # a package with the controls mode
-            prep = cfg.dataset.preprocessing
-            controls_phase(model, len(normalize_text(TEXT, prep.allowed_chars, prep.end_token,
-                                                     False)), log)
-        if "--cell-ab" in sys.argv[1:]:
-            cell_ab(model, log)
+            if hasattr(dl, "stage_controls"):  # a package with the controls mode
+                prep = cfg.dataset.preprocessing
+                controls_phase(model, len(normalize_text(TEXT, prep.allowed_chars,
+                                                         prep.end_token, False)), log)
+            if "--cell-ab" in sys.argv[1:]:
+                cell_ab(model, log)
     except SmokeFailure as e:
         log["failure"] = str(e)
         print(f"FAIL: {e}", file=sys.stderr)
@@ -2508,7 +2592,333 @@ def encoder_lstm_phase(model, cfg, log: dict) -> list:
             "per": f"both directions, B={B}, T={T}, H={H}",
         })
     log["bilstm_library"] = "nn.LSTM f32 (cuDNN) forward: f32 operands, not bf16; a yardstick"
+    rows[0]["rows"] = enc_rows(model, cfg, log)
     return rows
+
+
+ENC_INVARIANCE_ROWS = (0, 1, 37, 63)  # rows of a 64-row forward held against the rows alone
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host-clock time of one call of ``fn``, each call between two
+    syncs (what a caller waits for)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def enc_shapes(cfg) -> tuple:
+    """The forward recurrence's shapes on the main paths: (tag, B, T) of the
+    say's one row at its own chars, the serve window's 64 rows at
+    CHAR_BUCKET (also the controllable config's train batch at T=128) and
+    the vanilla train batch."""
+    from tacotron2_tpu_torch.run import server as srv
+    from tacotron2_tpu_torch.text import normalize_text
+
+    prep = cfg.dataset.preprocessing
+    say_T = len(normalize_text(TEXT, prep.allowed_chars, prep.end_token, False))
+    return (("say", 1, say_T), ("serve64_train64", 64, srv.CHAR_BUCKET),
+            ("train32", TRAIN_B, 128))
+
+
+def enc_rows(model, cfg, log: dict) -> dict:
+    """The encoder's forward recurrence (``bilstm_forward``) at
+    ``enc_shapes``: against its plain version (ENC_TOL), device ms by graph
+    replay beside its plain version, its bound and ``nn.LSTM`` in f32 and
+    in bf16 over the same input (yardsticks: f32 operands, or bf16
+    throughout, and the input projection inside; the port never calls
+    them); rows ENC_INVARIANCE_ROWS of a 64-row launch against the rows
+    alone, bit for bit (fails the run otherwise); the say's whole encoder
+    on the host clock, synced, and the recurrence's share of it. Runs this
+    tree's package or a parent's (``--root``). -> {tag: readings}"""
+    import copy
+    import hashlib
+
+    import torch
+
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
+    from tacotron2_tpu_torch.text import CharEncoder, normalize_text
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 60)
+    lstm = model.encoder.lstm
+    H, C = lstm.hidden_size, lstm.input_size
+    wb = torch.stack([lstm.weight_hh_l0, lstm.weight_hh_l0_reverse]).detach().to(
+        torch.bfloat16).contiguous()
+    b = torch.stack([lstm.bias_hh_l0, lstm.bias_hh_l0_reverse]).detach().contiguous()
+    lstm16 = copy.deepcopy(lstm).to(torch.bfloat16)
+    out: dict = {}
+    for tag, B, T in enc_shapes(cfg):
+        xp = torch.randn(2, B, T, 4 * H, device=dev, generator=g)
+        kern = lambda xp=xp: el.bilstm_forward(xp, wb, b)
+        plain = lambda xp=xp: el.bilstm_forward_plain(xp, wb, b)
+        got, ref = kern(), plain()
+        check(f"bilstm_forward@B{B},T{T}", list(zip(("hs", "cs", "act"), got, ref)), ENC_TOL,
+              log, "bilstm_forward")
+        b_ms, b_by = bound_ms(nbytes(xp, wb, b, *ref), 2 * 2 * B * T * 4 * H * H)
+        x = torch.randn(B, T, C, device=dev, generator=g)
+        x16 = x.to(torch.bfloat16)
+        reps = (3, 1) if T * B > 64 else (10, 1)
+        out[tag] = {"B": B, "T": T, "ms": time_ms(kern, *reps), "plain_ms": time_ms(plain, 2, 1),
+                    "bound_ms": b_ms, "bound_by": b_by, "eager_ms": eager_ms(kern, 5),
+                    "library_ms": time_ms(lambda: lstm(x), *reps),
+                    "library_bf16_ms": time_ms(lambda: lstm16(x16), *reps),
+                    "launches_per_call": el.forward_launches(T),
+                    "out_sha1": hashlib.sha1(b"".join(t.cpu().numpy().tobytes()
+                                                      for t in got)).hexdigest()}
+        r = out[tag]
+        print(f"  bilstm_forward at B={B}, T={T}: {r['ms']:.4f} ms (bound {b_ms:.4f} ms, "
+              f"plain {r['plain_ms']:.3f}, nn.LSTM f32 {r['library_ms']:.4f}, bf16 "
+              f"{r['library_bf16_ms']:.4f}, eager {r['eager_ms']:.4f})")
+        if B == 64:  # rows of this launch against the same rows alone
+            for row in ENC_INVARIANCE_ROWS:
+                alone = el.bilstm_forward(xp[:, row:row + 1].contiguous(), wb, b)
+                same = all(torch.equal(f[:, row:row + 1], a) for f, a in zip(got, alone))
+                log.setdefault("enc_invariance", {})[f"row {row} of {B}, T={T}"] = same
+                if not same:
+                    raise SmokeFailure(f"bilstm_forward: row {row} alone differs from the same "
+                                       f"row of a {B}-row launch")
+            print(f"  bilstm_forward: rows {ENC_INVARIANCE_ROWS} of the {B}-row launch equal "
+                  "the rows alone, bit for bit")
+        del xp, got, ref, x, x16
+    prep = cfg.dataset.preprocessing
+    ci, cl = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch(
+        [normalize_text(TEXT, prep.allowed_chars, prep.end_token, False)])
+    ci, cl = torch.as_tensor(ci, device=dev), torch.as_tensor(cl, device=dev)
+    enc_ms = host_ms(lambda: model._encode(ci, cl))
+    say = out["say"]
+    out["say_encoder"] = {"host_ms": enc_ms, "chars": int(cl[0]),
+                          "recurrence_share": say["eager_ms"] / enc_ms}
+    print(f"  the say's whole encoder ({int(cl[0])} chars, host clock, synced): {enc_ms:.4f} ms; "
+          f"the forward recurrence (eager {say['eager_ms']:.4f} ms) "
+          f"{100 * say['eager_ms'] / enc_ms:.1f}% of it")
+    log["enc_rows"] = out
+    return out
+
+
+# copies of csrc/encoder_lstm.cu for the forward's design readings, each
+# (name, [(pattern, replacement), ...]): the source; a copy that records
+# %globaltimer at the phases of each step (block 0 of direction 0, thread
+# 0, the first 64 steps; ``t2_enc_stamps`` reads them back), also at
+# 64-row tiles; copies that leave out a phase's memory traffic (readings of
+# what it costs, wrong results); tiles of 16 and 64 rows; the defect whose
+# reading the smoke holds above ENC_TOL.
+ENC_STAMP = "if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && rank == 0 && s < 64) " \
+            "enc_stamps[s * 8 + {i}] = gtime();"
+ENC_AB = (
+    ("source", []),
+    ("stamps", ENC_STAMPS := [
+        (r"(namespace \{\n)", r"\1__device__ unsigned long long enc_stamps[64 * 8];\n"
+         "__device__ __forceinline__ unsigned long long gtime() {\n  unsigned long long t;\n"
+         "  asm volatile(\"mov.u64 %0, %globaltimer;\" : \"=l\"(t));\n  return t;\n}\n"),
+        (r"(    const uint8_t\* hc = hbuf)", ENC_STAMP.format(i=0) + r"\n\1"),
+        (r"(    if \(s \+ 1 < T\) fetch_x\(s \+ 1\);)", ENC_STAMP.format(i=1) + r"\n\1"),
+        (r"(    asm volatile\(\"cp\.async\.wait_group 1;)", ENC_STAMP.format(i=2) + r"\n\1"),
+        (r"(    // the four gates of unit u)", ENC_STAMP.format(i=3) + r"\n\1"),
+        (r"(    if \(s \+ 1 == T\) break;)", ENC_STAMP.format(i=4) + r"\n\1"),
+        (r"(\n  \}\n  cluster\.sync\(\);  // no rank leaves)", "\n" + ENC_STAMP.format(i=5) + r"\1"),
+        (r"(extern \"C\" \{\n)", r"\1int t2_enc_stamps(void* out) {\n  return (int)"
+         "cudaMemcpyFromSymbol(out, enc_stamps, sizeof(enc_stamps));\n}\n"),
+    ]),
+    ("no_global_stores", [(r"      hs\[st \* H \+ u\] = hv;\n      cs\[st \* H \+ u\] = c\[n\];\n",
+                           "      if (hv == 12345.0f) hs[st * H + u] = c[n];\n"),
+                          (r"      a\[0\] = ig;\n      a\[H\] = fg;\n      a\[2 \* H\] = gg;\n"
+                           r"      a\[3 \* H\] = og;\n", "      if (og == 2.0f) a[0] = ig + fg + gg;\n")]),
+    ("no_xp_copies", [(r"cp_async16\(slot \+ b \* o\.xrow \+ q \* EU \+ 4 \* k,\n[^;]*;",
+                       "(void)slot;")]),
+    ("stamps_tile64", ENC_STAMPS + [(r"constexpr int ETILE = 8;", "constexpr int ETILE = 64;")]),
+    ("tile16", [(r"constexpr int ETILE = 8;", "constexpr int ETILE = 16;")]),
+    ("tile64", [(r"constexpr int ETILE = 8;", "constexpr int ETILE = 64;")]),
+    ("defect_stale_exchange", [(r"const uint8_t\* dst = hn \+ ",
+                                "const uint8_t* dst = (p == 0 && rank != 0 ? hc : hn) + ")]),
+)
+
+
+def build_copies(src_name: str, copies, out_dir: Path) -> dict:
+    """nvcc of each copy of ``csrc/<src_name>.cu`` (each a list of regex
+    substitutions that must each match once), all started together ->
+    {name: library path}."""
+    import re
+
+    from tacotron2_tpu_torch.ops import build
+
+    csrc = Path(build.__file__).parents[1] / "csrc"
+    src = (csrc / f"{src_name}.cu").read_text()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, subs in copies:
+        text = src
+        for pattern, repl in subs:
+            text, n = re.subn(pattern, repl, text)
+            if n != 1:
+                raise SmokeFailure(f"{src_name} copy {name}: {pattern!r} matches {n} times")
+        (out_dir / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
+             str(out_dir / f"lib{name}.so"), str(out_dir / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise SmokeFailure(f"nvcc of the {src_name} copy {name} failed: {text[-2000:]}")
+        libs[name] = out_dir / f"lib{name}.so"
+    return libs
+
+
+def enc_ab(model, cfg, log: dict) -> dict:
+    """``--enc-ab``: the forward's copies (ENC_AB) at ``enc_shapes`` in
+    turns, two rounds, the second in reverse order (device ms by graph
+    replay), and the stamps copy's phases a step (ns, median over steps 1-62
+    of block 0): the wait for the step's h, the product, the wait for the
+    step's xp, the epilogue, the push."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
+
+    paths = build_copies("encoder_lstm", ENC_AB, ROOT / "build" / "enc_ab")
+    libs = {}
+    for name, path in paths.items():
+        lib = ctypes.CDLL(str(path))
+        for fn in (lib.t2_bilstm_forward, lib.t2_bilstm_backward):
+            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        libs[name] = lib
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 61)
+    lstm = model.encoder.lstm
+    H = lstm.hidden_size
+    wb = torch.stack([lstm.weight_hh_l0, lstm.weight_hh_l0_reverse]).detach().to(
+        torch.bfloat16).contiguous()
+    b = torch.stack([lstm.bias_hh_l0, lstm.bias_hh_l0_reverse]).detach().contiguous()
+    shapes = [(tag, B, T, torch.randn(2, B, T, 4 * H, device=dev, generator=g))
+              for tag, B, T in enc_shapes(cfg)]
+    saved, out = el._LIB, {}
+    try:
+        names = [n for n, _ in ENC_AB if not n.startswith("defect")]
+        for order in (names, names[::-1]):
+            for name in order:
+                el._LIB = libs[name]
+                for tag, B, T, xp in shapes:
+                    out.setdefault(f"{name}_{tag}", []).append(
+                        time_ms(lambda xp=xp: el.bilstm_forward(xp, wb, b), 3, 1))
+        phases = ("wait_h", "product", "wait_xp", "epilogue", "push")
+        for (tag, B, T, xp), sname in ((sh, n) for n in libs if n.startswith("stamps")
+                                       for sh in shapes):
+            el._LIB = libs[sname]
+            tag = f"{sname}_{tag}"
+            el.bilstm_forward(xp, wb, b)
+            torch.cuda.synchronize()
+            buf = (ctypes.c_uint64 * (64 * 8))()
+            build_err = libs[sname].t2_enc_stamps(ctypes.cast(buf, ctypes.c_void_p))
+            if build_err:
+                raise SmokeFailure(f"t2_enc_stamps: CUDA error {build_err}")
+            st = np.frombuffer(buf, dtype=np.uint64).reshape(64, 8).astype(np.int64)
+            n = min(T, 64) - 1
+            d = np.stack([st[1:n, 1] - st[1:n, 0], st[1:n, 2] - st[1:n, 1],
+                          st[1:n, 3] - st[1:n, 2], st[1:n, 4] - st[1:n, 3],
+                          st[1:n, 5] - st[1:n, 4], st[2:n + 1, 0] - st[1:n, 0]])
+            med = {k: float(np.median(v)) for k, v in zip(phases + ("step",), d)}
+            out[f"phases_ns_{tag}"] = med
+            print(f"  {sname} forward phases at B={B}, T={T} (ns a step, median): "
+                  + ", ".join(f"{k} {v:.0f}" for k, v in med.items()))
+    finally:
+        el._LIB = saved
+    for k, v in out.items():
+        if isinstance(v, list):
+            print(f"  {k}: " + " / ".join(f"{x:.4f}" for x in v) + " ms")
+    log["enc_ab"] = out
+    return out
+
+
+# the heads' defect: a copy of csrc/decode_step.cu whose owner adds the
+# partial sums of all ranks but the last
+HEADS_DEFECT = ("heads_rank_left_out", [(r"for \(int p = 1; p < HD_S; \+\+p\) v \+=",
+                                         "for (int p = 1; p < HD_S - 1; ++p) v +=")])
+
+
+def defect_phase(model, cfg, log: dict) -> None:
+    """Fails the run unless each deliberate defect, a copy of the source
+    built under build/defects, reads at least DEFECT_MARGIN times its limit
+    against the plain version: the heads with one rank's partial sum left
+    out (K1_TOL, vanilla at 1 and 64 rows, controls at 16), the encoder's
+    forward with rank 0 reading the other ranks' h stale, only its own
+    slice fresh (ENC_TOL, at the say's one row and at 64 rows)."""
+    import ctypes
+
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
+
+    out_dir = ROOT / "build" / "defects"
+    heads_lib = dl.bind(ctypes.CDLL(str(build_copies("decode_step", [HEADS_DEFECT],
+                                                     out_dir)[HEADS_DEFECT[0]])))
+    enc = dict(ENC_AB)["defect_stale_exchange"]
+    enc_lib = ctypes.CDLL(str(build_copies("encoder_lstm", [("defect_stale_exchange", enc)],
+                                           out_dir)["defect_stale_exchange"]))
+    for fn in (enc_lib.t2_bilstm_forward, enc_lib.t2_bilstm_backward):
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 70)
+    readings = {}
+    pk = dl.pack_decoder(model.prenet, model.decoder, torch.bfloat16)
+    H, D = pk.wq.shape[1], pk.w_out.shape[1] - pk.wq.shape[1]
+    ctl_pk = ctl_model()[1].make_packed_decoder(quantize=False)
+    saved = dl._LIB
+    try:
+        dl._LIB = heads_lib
+        for tag, pack, B in (("heads@B1", pk, 1), ("heads@B64", pk, 64),
+                             ("heads[controls]@B16", ctl_pk, 16)):
+            rnn_h = torch.randn(B, H, device=dev, generator=g)
+            ctx = torch.randn(B, D, device=dev, generator=g)
+            E = pack.controls_cols
+            ctl = torch.randn(B, E, device=dev, generator=g) if E else None
+            got = dl.heads(pack.w_out, pack.b_out, rnn_h, ctx, ctl, wt=pack.wt_out)
+            readings[tag] = err(got, dl.heads_plain(pack.w_out, pack.b_out, rnn_h, ctx, None,
+                                                    ctl))[1] / K1_TOL
+    finally:
+        dl._LIB = saved
+    lstm = model.encoder.lstm
+    Hh = lstm.hidden_size
+    wb = torch.stack([lstm.weight_hh_l0, lstm.weight_hh_l0_reverse]).detach().to(
+        torch.bfloat16).contiguous()
+    b = torch.stack([lstm.bias_hh_l0, lstm.bias_hh_l0_reverse]).detach().contiguous()
+    saved = el._LIB
+    try:
+        el._LIB = enc_lib
+        for tag, B, T in (enc_shapes(cfg)[0], ("serve64_train64", 64, 128)):
+            xp = torch.randn(2, B, T, 4 * Hh, device=dev, generator=g)
+            got = el.bilstm_forward(xp, wb, b)
+            ref = el.bilstm_forward_plain(xp, wb, b)
+            readings[f"bilstm_forward@B{B},T{T}"] = max(
+                err(x, y)[1] / ENC_TOL[k] for k, x, y in zip(("hs", "cs", "act"), got, ref))
+    finally:
+        el._LIB = saved
+    log["defects"] = readings
+    print("  defects, as multiples of their limits: "
+          + ", ".join(f"{k} {v:.1f}x" for k, v in readings.items()))
+    low = {k: v for k, v in readings.items() if not v >= DEFECT_MARGIN}
+    if low:
+        raise SmokeFailure(f"a defective copy reads under {DEFECT_MARGIN}x its limit: {low}")
 
 
 def _synth_corpus(root: Path, n: int) -> Path:
@@ -2841,6 +3251,9 @@ def say_phase(cfg_path: str, log: dict, card: str):
     print(f"  say 256: {res}")
     print(f"  launches in that run: {launches}; HiFi-GAN weight packings: {packs}")
     check_vocode_launches(launches, 1, "say")
+    if launches["bilstm_forward"] != 1:  # one encoder call, one persistent launch
+        raise SmokeFailure(f"say launched bilstm_forward {launches['bilstm_forward']} times, "
+                           "want 1")
     if packs != 1:
         raise SmokeFailure(f"say packed the HiFi-GAN's weights {packs} times, want 1")
     if res["n_frames"] != 256:
@@ -3578,11 +3991,12 @@ def ab_turns(rows_flag: str, prefix: str, extra=lambda i: []):
 
 
 def k1_ab() -> int:
-    """``--k1-ab``: the parent's K1/K5 against this tree's in turns
-    (``ab_turns`` of ``--k1-rows``; the second change turn adds
-    ``cell_ab``); the results go to chiprun_out/k1_ab.json. Fails unless
-    the prenet's and the vanilla chunks' outputs have the same bits in
-    every turn (for a change that does not mean to alter them)."""
+    """``--k1-ab``: the parent's K1/K5 and encoder forward against this
+    tree's in turns (``ab_turns`` of ``--k1-rows``; the second change turn
+    adds ``cell_ab``); the results go to chiprun_out/k1_ab.json. Fails
+    unless the prenet's outputs have the same bits in every turn and each
+    tree's vanilla chunks repeat theirs (the heads' split-K sums change the
+    chunks' bits from the parent's; whether they equal is reported)."""
     # this tree's CELL_AB copies, once
     turns = ab_turns("--k1-rows", "k1_rows", lambda i: ["--cell-ab"] if i == 2 else [])
     if turns is None:
@@ -3612,15 +4026,26 @@ def k1_ab() -> int:
           f"turn, parent and change, bit for bit: {same}")
     chunks = [{k: v.get("chunk_sha1") for k, v in t.get("serve_rows_split", {}).items()}
               for t in turns]
-    chunk_same = all(c == chunks[0] for c in chunks[1:]) and bool(chunks[0])
+    # each tree's chunks repeat their bits; the heads' new sum order (split-K
+    # over a cluster) gives the change other bits than the parent's
+    chunk_same = chunks[0] == chunks[3] and chunks[1] == chunks[2] and bool(chunks[0])
     print(f"  the vanilla 64-step chunks (bf16 and int8, at {'/'.join(str(b) for b in K1_ROWS)} "
-          f"rows) equal in every turn, parent and change, bit for bit: {chunk_same} "
-          f"(digests in the parent's turns: {chunks[0]})")
+          f"rows) equal in both turns of each tree, bit for bit: {chunk_same}; the change's equal "
+          f"the parent's: {chunks[0] == chunks[1]}")
+    for name in ("heads", "bilstm_forward"):
+        src = (lambda t: t.get("up_rows", {}).get("heads", {})) if name == "heads" else (
+            lambda t: {k: v for k, v in t.get("enc_rows", {}).items() if "ms" in v})
+        print(f"  {name} in turns (parent, change, change, parent; "
+              + ("us" if name == "heads" else "ms") + "): " + "; ".join(
+                  f"{k} " + " / ".join(
+                      f"{src(t).get(k, {}).get('ms', float('nan')) * (1e3 if name == 'heads' else 1):.4g}"
+                      for t in turns) for k in src(turns[1])))
     (OUT_DIR / "k1_ab.json").write_text(json.dumps(
-        {"turns": turns, "prenet_bits_equal": same, "chunk_bits_equal": chunk_same}, indent=1))
+        {"turns": turns, "prenet_bits_equal": same, "chunk_bits_equal_within_tree": chunk_same,
+         "chunk_bits_equal_to_parent": chunks[0] == chunks[1]}, indent=1))
     if not (same and chunk_same):
-        print("FAIL: the change's kernels gave other bits than the parent's on the same inputs",
-              file=sys.stderr)
+        print("FAIL: the prenet's bits differ from the parent's, or a tree's chunks did not "
+              "repeat their bits", file=sys.stderr)
         return 1
     return max(t["rc"] for t in turns)
 
@@ -3845,6 +4270,8 @@ def main() -> int:
               "plain versions at B=64 / 32 / 5, the defects, and against the vanilla in turns")
         rows += k34_controls_phase(model, log)
         rows += encoder_lstm_phase(model, cfg, log)
+        print("[3e] deliberate defects of the heads and the encoder's forward (source copies)")
+        defect_phase(model, cfg, log)
         del model, hifigan
 
         print("[4] say through the CLI entry (random full-width weights)")

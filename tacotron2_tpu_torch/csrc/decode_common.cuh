@@ -1,7 +1,6 @@
 // Kernels shared by K1 (decode_step.cu) and K3/K4 (train_decode.cu), for
 // sm_90a:
 //
-//   heads_kernel            mel + gate linear over [rnn_h | ctx | controls] (K1)
 //   att_fwd_cluster_kernel  the location attention's forward over a
 //                           thread-block cluster of S blocks per batch row:
 //                           query, folded location conv, tanh energies,
@@ -9,7 +8,7 @@
 //                           step with f32 query input and context, K3's with
 //                           bf16 ones)
 //
-// plus the warp helpers, the bf16 staging, the cluster helpers that K4's
+// plus the warp helpers, the cluster helpers that K4's
 // backward attention shares (slice_of, att_smem, cl_prologue, loc_conv, the
 // rank-order combines) and the launch helpers. Each launcher checks the
 // dimensions it takes, launches on the given stream, allocates nothing and
@@ -28,9 +27,6 @@ namespace {
 
 namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
-
-constexpr int kGroup = 4;         // batch rows per pass over a weight row
-constexpr int kHeadsWarps = 8;    // output rows per heads block
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -58,69 +54,6 @@ __device__ __forceinline__ void unpack8(const uint4& v, float* f) {
     float2 t = __bfloat1622float2(p[i]);
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
-  }
-}
-
-// Stage rows [b0, b0 + nb) of the concatenated input [x1 | x2 | x3] as bf16.
-__device__ void stage_inputs(__nv_bfloat16* xs, const float* x1, int n1, const float* x2,
-                             int n2, const float* x3, int n3, int b0, int nb) {
-  const int R = n1 + n2 + n3;
-  for (int i = threadIdx.x; i < nb * R; i += blockDim.x) {
-    const int g = i / R, k = i - g * R, b = b0 + g;
-    float v;
-    if (k < n1) v = x1[(size_t)b * n1 + k];
-    else if (k < n1 + n2) v = x2[(size_t)b * n2 + (k - n1)];
-    else v = x3[(size_t)b * n3 + (k - n1 - n2)];
-    xs[i] = __float2bfloat16_rn(v);
-  }
-}
-
-// Dot of one bf16 weight row (length R, R % 8 == 0) with nb staged rows;
-// every lane returns the full sums in acc[0..nb).
-__device__ __forceinline__ void row_dot(const __nv_bfloat16* __restrict__ wrow,
-                                        const __nv_bfloat16* xs, int R, int nb,
-                                        float acc[kGroup]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int g = 0; g < kGroup; ++g) acc[g] = 0.0f;
-  for (int k8 = lane; k8 < R / 8; k8 += 32) {
-    float w[8];
-    unpack8(__ldg(reinterpret_cast<const uint4*>(wrow) + k8), w);
-#pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      if (g < nb) {
-        float x[8];
-        unpack8(*reinterpret_cast<const uint4*>(xs + (size_t)g * R + k8 * 8), x);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[g] = fmaf(w[i], x[i], acc[g]);
-      }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < kGroup; ++g) acc[g] = warp_sum(acc[g]);
-}
-
-// grid (ceil(N / kHeadsWarps), ceil(B / kGroup)), block kHeadsWarps warps;
-// warp -> output row, blockIdx.y -> a group of kGroup batch rows. The input
-// is [x1 | x2 | x3]: K1's [rnn_h | ctx | controls] (n3 = 0 without controls;
-// the gate's row has zero weights there, as JAX's gate reads [rnn_h | ctx])
-__global__ void heads_kernel(const __nv_bfloat16* __restrict__ W, const float* __restrict__ bias,
-                             const float* x1, int n1, const float* x2, int n2, const float* x3,
-                             int n3, float* __restrict__ out, int B, int N) {
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  const int R = n1 + n2 + n3;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kHeadsWarps + warp;
-  const int b0 = blockIdx.y * kGroup, nb = min(kGroup, B - b0);
-  stage_inputs(xs, x1, n1, x2, n2, x3, n3, b0, nb);
-  __syncthreads();
-  if (row < N) {
-    float acc[kGroup];
-    row_dot(W + (size_t)row * R, xs, R, nb, acc);
-    if (lane == 0) {
-      for (int g = 0; g < nb; ++g) out[(size_t)(b0 + g) * N + row] = acc[g] + bias[row];
-    }
   }
 }
 
@@ -571,18 +504,6 @@ int launch_att_fwd(const void* h, int ldh, const void* wq, const void* wloc, con
                    (const bf16*)wv, (const float*)att_enc, (const bf16*)enc, (const int*)lengths,
                    (const float*)w_prev, (const float*)cum_prev, (float*)w_out, (float*)cum_out,
                    (CT*)xa, lda, (CB*)xb, ldb, L, H, A, D, K);
-}
-
-int launch_heads(const void* w, const void* b, const void* x1, int n1, const void* x2, int n2,
-                 const void* x3, int n3, void* out, int B, int N, cudaStream_t stream) {
-  const int R = n1 + n2 + n3;
-  const size_t smem = (size_t)kGroup * R * sizeof(__nv_bfloat16);
-  if (R % 8 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kHeadsWarps - 1) / kHeadsWarps, (B + kGroup - 1) / kGroup);
-  heads_kernel<<<grid, kHeadsWarps * 32, smem, stream>>>(
-      (const __nv_bfloat16*)w, (const float*)b, (const float*)x1, n1, (const float*)x2, n2,
-      (const float*)x3, n3, (float*)out, B, N);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -15,7 +15,9 @@
 //   t2_location_attention  query, folded location conv, tanh energies,
 //                          masked softmax, context, cumulative weights, over
 //                          a thread-block cluster of S blocks per batch row
-//   t2_heads               mel + gate linear over [rnn_h | ctx | controls]
+//   t2_heads               mel + gate linear over [rnn_h | ctx | controls]: a
+//                          split-K tensor-core product over a thread-block
+//                          cluster
 //   t2_decode_chunk        n steps of the four, five launches a step, from
 //                          one host call (the decode's main path)
 //
@@ -26,8 +28,8 @@
 // below). Operands are bf16 (activations rounded as they are staged), sums
 // f32, state f32.
 //
-// The location attention and heads kernels live in decode_common.cuh, which
-// K3 (train_decode.cu) shares. The attention is latency of dependent
+// The location attention lives in decode_common.cuh, which K3
+// (train_decode.cu) shares. The attention is latency of dependent
 // phases: at batch 1 one block would stream the 256 KB query weight and run
 // the location conv, softmax and 512-wide context alone on one SM. Here a
 // cluster of S blocks takes each batch row (att_fwd_cluster_kernel, K3's
@@ -654,6 +656,176 @@ __global__ void __launch_bounds__(PN_THREADS) prenet_kernel(
   }
 }
 
+// The heads (K1's last launch of a step; _decode_chunk_kernel's mel and
+// gate linear, decoder_loop_pallas.py:565-571): out = [x1 | x2 | x3] (bf16)
+// . W_out^T + b_out over [rnn_h | ctx | controls], N = M + 1 = 81 outputs,
+// K = H + D (+ E) = 1,536 (1,552) columns, bf16 weights (249 KB), f32 sums.
+// Bound: its bytes, 0.08 us at one row, 0.20 at 64; what it costs is
+// latency, on every step's critical path.
+//
+// The weight rows go on M (N padded to NP = 96: six m16 tiles), the batch
+// on N (n8 tiles), on the tensor cores with mma.sync m16n8k16, as the cells
+// (see their notes: the product is bound by the weight stream, and one
+// batch row costs one n8 tile). A cluster of HD_S = 8 blocks splits the
+// contraction in 16-column pieces: rank r takes the pieces [r nk / HD_S,
+// (r + 1) nk / HD_S) (nk = K / 16: 12 each at 1,536, 12 or 13 at 1,552), by
+// the dims alone. Each rank bulk-copies its slice of W_out, NP rows x its
+// pieces, one contiguous run of the copy tiled once per model
+// (pack_decoder, tile_heads: [piece][row][32 bytes], the 16-byte half h of
+// row r at half h ^ ((r >> 2) & 1), so that the fragment loads are
+// conflict-free), and stages and converts only its own columns of the f32
+// inputs. So each weight byte is read once per launch for up to HD_NTILE =
+// 64 rows (a further 64-row tile is a cluster of its own). Each rank pushes
+// its partial sums of n8 tile n to rank n % HD_S over distributed shared
+// memory; after one cluster barrier that owner adds them in rank order,
+// then the bias. A row's output is ((p_0 + p_1) + ... + p_7) + b whatever B
+// or the rows it shares a launch with: the pieces, their order and the
+// rank order follow the dims, and an mma's output element depends only on
+// its own row and column (chip_smoke.py holds rows of 64- and 80-row
+// launches against the rows alone, bit for bit). The gate's row is zero
+// over the controls' columns, a whole piece of zero products, so the gate
+// logits do not move with the controls.
+// HD_PDL: launched with programmatic dependent launch, the weight copy
+// issued before pdl_wait, while the decoder cell ends: the chunk read
+// 0.4-1.0 us a step faster than without at 1, 16 and 64 rows, bf16 and
+// int8 (chip_smoke.py --k1-rows --cell-ab, PERF.md).
+constexpr int HD_S = 8;                       // blocks per cluster: the contraction split
+constexpr int HD_WARPS = 12;                  // (m16 tile, half of the n8 tiles) a warp
+constexpr int HD_THREADS = 32 * HD_WARPS;
+constexpr int HD_NTILE = 64;                  // batch rows per cluster: 8 n8 tiles
+constexpr int HD_NT = HD_NTILE / 8;
+constexpr int HD_OWN = (HD_NT + HD_S - 1) / HD_S;  // n8 tiles whose sums a rank adds
+constexpr bool HD_PDL = true;
+
+// byte offsets of a heads block's shared arrays: its mbarrier; the weight
+// slice (npmax pieces x NP rows x 32 bytes); the staged input (HD_NTILE
+// rows of npmax x 32 bytes + 16 of padding: conflict-free fragment loads);
+// the partial sums pushed to this rank, [rank][owned tile][column][row],
+// rows NP + 4 apart
+struct HeadsSmem {
+  int ws, xs, xs_stride, part, pld, total;
+};
+
+__host__ __device__ inline HeadsSmem heads_smem(int NP, int npmax) {
+  HeadsSmem o;
+  o.ws = 16;
+  o.xs = o.ws + npmax * NP * 32;
+  o.xs_stride = npmax * 32 + 16;
+  o.part = o.xs + HD_NTILE * o.xs_stride;
+  o.pld = NP + 4;
+  o.total = o.part + HD_S * HD_OWN * 8 * o.pld * 4;
+  return o;
+}
+
+// 32 bits at byte `byte` (< 32) of row `row` of local piece j of a heads
+// weight slice
+__device__ __forceinline__ uint32_t ld_piece(const uint8_t* ws, int NP, int j, int row,
+                                             int byte) {
+  return *reinterpret_cast<const uint32_t*>(ws + (j * NP + row) * 32 +
+                                            ((((byte >> 4) ^ (row >> 2)) & 1) << 4) + (byte & 15));
+}
+
+// grid (HD_S, ceil(B / HD_NTILE)), cluster (HD_S, 1, 1), HD_THREADS threads,
+// heads_smem(NP, ceil(nk / HD_S)).total bytes. wt: the tiled copy (see
+// above); bias (N,) f32; x1, x2, x3 (B, n_i) f32 (n_i % 16 == 0; x3 the
+// controls, n3 = 0 without); out (B, N) f32.
+__global__ void __launch_bounds__(HD_THREADS)
+heads_kernel(const uint8_t* __restrict__ wt, const float* __restrict__ bias,
+             const float* __restrict__ x1, int n1, const float* __restrict__ x2, int n2,
+             const float* __restrict__ x3, int n3, float* __restrict__ out, int B, int N) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(128) uint8_t hd_raw[];
+  const int nk = (n1 + n2 + n3) / 16, NP = (N + 15) & ~15, MT = NP / 16;
+  const int rank = (int)cluster.block_rank();
+  const int p0 = rank * nk / HD_S, np = (rank + 1) * nk / HD_S - p0;
+  const HeadsSmem o = heads_smem(NP, (nk + HD_S - 1) / HD_S);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(hd_raw);
+  const uint8_t* ws = hd_raw + o.ws;
+  uint8_t* xs = hd_raw + o.xs;
+  float* part = reinterpret_cast<float*>(hd_raw + o.part);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b0 = blockIdx.y * HD_NTILE, bt = min(HD_NTILE, B - b0), ntl = (bt + 7) >> 3;
+  if (tid == 0) {
+    const uint32_t bytes = (uint32_t)np * NP * 32;
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar, bytes);  // a rank with no piece (nk < HD_S) adds zeros
+    if (bytes) bulk_load(hd_raw + o.ws, wt + (size_t)p0 * NP * 32, bytes, bar);
+  }
+  // this block has started: the ranks may push into its partial sums once
+  // all have
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  pdl_wait();  // with HD_PDL: the inputs are the launch before's outputs
+  // this rank's columns [16 p0, 16 (p0 + np)) of the tile's rows, as bf16
+  const int q4 = np * 4, c0 = p0 * 16;  // float4s of a row
+  for (int i = tid; i < bt * q4; i += HD_THREADS) {
+    const int b = i / q4, q = i - b * q4, col = c0 + 4 * q, row = b0 + b;
+    const float* src = col < n1        ? x1 + (size_t)row * n1 + col
+                       : col < n1 + n2 ? x2 + (size_t)row * n2 + (col - n1)
+                                       : x3 + (size_t)row * n3 + (col - n1 - n2);
+    const float4 v = *reinterpret_cast<const float4*>(src);
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+    *reinterpret_cast<uint2*>(xs + (size_t)b * o.xs_stride + q * 8) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+  }
+  __syncthreads();
+  mbar_wait(bar, 0);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+
+  // warp task: m16 tile mt of the rows, n8 tiles nh + 2 i of the batch; k
+  // in piece order. Then each n8 tile's sums to its owner, rank n % HD_S,
+  // slot [this rank][n / HD_S][column][row]
+  const int g = lane >> 2, t4 = (lane & 3) * 4;
+  for (int task = warp; task < 2 * MT; task += HD_WARPS) {
+    const int mt = task % MT, nh = task / MT, row = mt * 16 + g;
+    float acc[HD_NT / 2][4];
+#pragma unroll
+    for (int i = 0; i < HD_NT / 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+    for (int j = 0; j < np; ++j) {
+      const uint32_t a0 = ld_piece(ws, NP, j, row, t4), a1 = ld_piece(ws, NP, j, row + 8, t4);
+      const uint32_t a2 = ld_piece(ws, NP, j, row, 16 + t4);
+      const uint32_t a3 = ld_piece(ws, NP, j, row + 8, 16 + t4);
+#pragma unroll
+      for (int i = 0; i < HD_NT / 2; ++i) {
+        const int n = nh + 2 * i;
+        if (n < ntl) {
+          const uint8_t* xr = xs + (size_t)(n * 8 + g) * o.xs_stride + j * 32 + t4;
+          mma_bf16(acc[i], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(xr),
+                   *reinterpret_cast<const uint32_t*>(xr + 16));
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < HD_NT / 2; ++i) {
+      const int n = nh + 2 * i;
+      if (n < ntl) {
+        float* dst = cluster.map_shared_rank(part, n % HD_S) +
+                     (rank * HD_OWN + n / HD_S) * 8 * o.pld;
+        const int col = (lane & 3) * 2;
+        dst[col * o.pld + row] = acc[i][0];
+        dst[(col + 1) * o.pld + row] = acc[i][1];
+        dst[col * o.pld + row + 8] = acc[i][2];
+        dst[(col + 1) * o.pld + row + 8] = acc[i][3];
+      }
+    }
+  }
+  cluster.sync();  // every partial sum is pushed
+
+  // the owner: the ranks' partial sums in rank order, then the bias
+  for (int i = tid; i < HD_OWN * 8 * N; i += HD_THREADS) {
+    const int own = i / (8 * N), rem = i - own * 8 * N, c = rem / N, m = rem - c * N;
+    const int n = own * HD_S + rank, b = n * 8 + c;
+    if (n >= ntl || b >= bt) continue;
+    const float* s = part + (own * 8 + c) * o.pld + m;
+    float v = s[0];
+#pragma unroll
+    for (int p = 1; p < HD_S; ++p) v += s[(size_t)p * HD_OWN * 8 * o.pld];
+    out[(size_t)(b0 + b) * N + m] = v + bias[m];
+  }
+}
+
 // ---- launchers (shared by the one-kernel entry points and the chunk) ----
 
 // K1's attention: blocks of 256 threads, or of 128 where the clusters are
@@ -754,6 +926,35 @@ int launch_prenet(const void* mel, int ldm, const void* wt, const void* m1, cons
                    (const float*)m2, (float*)out, (bf16*)out_bf, B, M, P, ldm);
 }
 
+// the heads over the tiled copy wt of W_out (pack_decoder, tile_heads): a
+// cluster of HD_S blocks per 64 rows; [x1 | x2 | x3] (B, n_i) f32, each n_i
+// a multiple of 16 (x3 the controls, n3 = 0: none)
+int launch_heads(const void* wt, const void* b, const void* x1, int n1, const void* x2, int n2,
+                 const void* x3, int n3, void* out, int B, int N, cudaStream_t stream) {
+  const int nk = (n1 + n2 + n3) / 16, NP = (N + 15) & ~15;
+  const bool aligned = ((uintptr_t)wt & 15) == 0 && ((uintptr_t)x1 & 15) == 0 &&
+                       ((uintptr_t)x2 & 15) == 0 && (n3 == 0 || ((uintptr_t)x3 & 15) == 0);
+  if (B < 1 || N < 1 || n1 % 16 || n2 % 16 || n3 % 16 || nk < 1 || !aligned)
+    return (int)cudaErrorInvalidValue;
+  const HeadsSmem o = heads_smem(NP, (nk + HD_S - 1) / HD_S);
+  static size_t allowed = 48 * 1024;
+  int err = allow_smem(heads_kernel, (size_t)o.total, &allowed);
+  if (err) return err;
+  if (HD_S > 8) {  // a cluster past the portable size
+    static bool asked = false;
+    if (!asked) {
+      err = (int)cudaFuncSetAttribute(heads_kernel,
+                                      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err) return err;
+      asked = true;
+    }
+  }
+  return launch_ex(heads_kernel, dim3(HD_S, (B + HD_NTILE - 1) / HD_NTILE), dim3(HD_S, 1, 1),
+                   HD_THREADS, (size_t)o.total, HD_PDL, stream, (const uint8_t*)wt,
+                   (const float*)b, (const float*)x1, n1, (const float*)x2, n2, (const float*)x3,
+                   n3, (float*)out, B, N);
+}
+
 }  // namespace
 
 extern "C" {
@@ -785,11 +986,11 @@ int t2_lstm_cell_int8(const void* wt, const void* ws, const void* b, const void*
                                 c_out, nullptr, B, H, (cudaStream_t)stream);
 }
 
-// the heads over [x1 | x2 | xc], (B, n_i) f32 each, xc the controls (nc = 0:
-// none)
-int t2_heads(const void* w, const void* b, const void* x1, int n1, const void* x2, int n2,
+// the heads over the tiled copy wt of W_out (pack_decoder, tile_heads):
+// [x1 | x2 | xc], (B, n_i) f32 each, xc the controls (nc = 0: none)
+int t2_heads(const void* wt, const void* b, const void* x1, int n1, const void* x2, int n2,
              const void* xc, int nc, void* out, int B, int N, void* stream) {
-  return launch_heads(w, b, x1, n1, x2, n2, xc, nc, out, B, N, (cudaStream_t)stream);
+  return launch_heads(wt, b, x1, n1, x2, n2, xc, nc, out, B, N, (cudaStream_t)stream);
 }
 
 // the prenet over the tiled copy wt of its weights (pack_decoder,
@@ -811,7 +1012,8 @@ int t2_location_attention(const void* h, const void* wq, const void* wloc, const
 }
 
 // n decode steps, five launches each, from one host call. Pointer slots:
-//   p[0..10]  w_att b_att w_dec b_dec wp1_t wp2_t wq w_loc wv w_out b_out
+//   p[0..10]  w_att b_att w_dec b_dec wp1_t wp2_t wq w_loc wv wt_out b_out
+//             (wt_out: the heads' tiled copy of w_out, pack_decoder's)
 //   p[11..13] att_enc encoded lengths
 //   p[14..15] prenet masks m1 m2, (n, B, P) each
 //   p[16..23] state in: mel att_h att_c ctx att_w att_cum rnn_h rnn_c

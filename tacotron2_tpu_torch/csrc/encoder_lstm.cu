@@ -10,121 +10,296 @@
 // each way cost more in launches than cuDNN's f32 LSTM, so the whole loop is
 // one host call here.
 //
-//   t2_bilstm_forward   T launches: step s of both directions, gates + LSTM
-//                       epilogue; saves the activated gates and cell states
-//                       for the backward.
+//   t2_bilstm_forward   one launch: a persistent kernel that walks all T
+//                       steps of both directions, gates + LSTM epilogue;
+//                       saves the activated gates and cell states for the
+//                       backward.
 //   t2_bilstm_backward  2 T launches: step s's gate cotangents from the
 //                       saved activations, then the recurrent pull
 //                       dh_prev = bf16(dg . W_hh) (the cotangent of the
 //                       bf16-rounded operand, as autograd and JAX round it).
 //
-// Bound: per step the bf16 W_hh of both directions (2 x 1024 x 256, 1 MB,
-// L2-resident across steps) and 2 B x 4H x H multiply-adds (33.6 MFLOP at
-// B = 32): latency-bound, ~1 us a step at the HBM rate. A block owns 4
-// hidden units x 4 gates of one direction for 32 batch rows and computes
-// them with plain FMAs from shared memory; every output has one fixed sum
-// order, so a batch row's result does not depend on the other rows.
+// Bound: per step the bf16 W_hh of both directions (2 x 1024 x 256, 1 MB)
+// and 2 B x 4H x H multiply-adds (33.6 MFLOP at B = 32): a chain of T
+// dependent steps, each of a few us of work spread over the card.
+//
+// The forward's design: one cluster of ES = 8 blocks per direction and
+// tile of up to ETILE = 8 batch rows, grid (ES, 2, ceil(B / ETILE)). Rank
+// r owns the EU = H / ES units [r EU, (r + 1) EU) of its direction, 4 EU
+// gate rows of W_hh (at H = 256: 128 rows x 256 columns, 64 KB of bf16),
+// bulk-copied once per call into shared memory (rows 16 bytes apart more
+// than their length: conflict-free fragment loads), where they stay for
+// the whole sequence, as do h (bf16, double-buffered, every rank holding
+// the whole tile's h) and c (f32, in registers). A step:
+//   1. each warp computes one m16 tile of the rank's gate rows for the
+//      tile's rows with mma.sync m16n8k16 (weight rows on M, batch rows on
+//      N, k in order), h from shared memory; the tile's rows are ordered
+//      (gate, unit) so that a lane and the lane 16 away hold the four gates
+//      of one unit, which one shuffle brings together;
+//   2. adds the step's xp, copied into shared memory (cp.async) during the
+//      previous step, and b_hh: g = (xp + h . W_hh^T) + b_hh, as the plain
+//      version;
+//   3. applies the LSTM update (c in registers), writes hs, cs and act;
+//   4. pushes bf16(h) of its units into every rank's next h buffer over
+//      distributed shared memory (st.async, counted by that buffer's
+//      mbarrier in each rank);
+// the next step waits for its h buffer's mbarrier, which those pushes
+// complete. A cluster barrier a step instead (the first design) made each
+// step wait for the step's global loads and stores too: 6.5 us a step at one
+// row, against 2.0 now (chip_smoke.py --enc-ab). No step touches device memory
+// for h, c or W_hh. A row's sums run in one order whatever B (an mma's
+// output element depends only on its own row and column; chip_smoke.py
+// holds rows of a 64-row launch against the rows alone, bit for bit).
+// Tiles of 8 rows, not 64: a step's product, epilogue and push grow with a
+// cluster's rows while 64-row tiles kept 16 of the 132 SMs busy; 8-row
+// tiles spread B = 64 over 128 SMs (a step 2.3 us against 8.7 us at B =
+// 64; 1.95 against 2.72 at one row; chip_smoke.py --enc-ab, PERF.md).
 //
 // Every entry launches on the given stream, allocates nothing and returns
 // the launch's CUDA error (cudaErrorInvalidValue for dimensions it does not
 // take).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "tma.cuh"
+
 namespace {
 
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
-constexpr int EU = 4;          // hidden units per block
-constexpr int ER = 4 * EU;     // their gate rows
-constexpr int EM = 32;         // batch rows per block
-constexpr int EThreads = 256;
-constexpr int EMB = EThreads / ER;  // batch rows a pass of the threads covers
-constexpr int ERPT = EM / EMB;      // batch rows per thread
-constexpr int RThreads = 256;       // recurrent pull: 8 k-slices x 32 units
+constexpr int ES = 8;            // blocks per cluster: the units' split
+constexpr int ETILE = 8;         // batch rows per cluster: one n8 tile
+constexpr int EMAXWARPS = 16;    // a block: one warp per m16 tile of its 4 EU gate rows
+constexpr int RThreads = 256;    // recurrent pull: 8 k-slices x 32 units
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// grid (H / EU, 2, ceil(B / EM)): gates of rows [m0, m0 + EM), units
-// [j0, j0 + EU) of direction blockIdx.y at step s:
-//   g = (xp[d, m, s, :] + hb[d, m, :] . W[d, :, :]^T) + b[d]
-// then c = sig(f) c + sig(i) tanh(g), h = sig(o) tanh(c). Writes c (in
-// place), hs[d, m, s], cs[d, m, s], act[d, m, s] (sig i, sig f, tanh g,
-// sig o) and bf16(h) into hb_next. Dynamic shared memory: W rows (ER x
-// (H + 2) bf16, padded so a warp's ER rows fall on distinct banks), h rows
-// (EM x H bf16), the products (ER x EM f32).
-__global__ void __launch_bounds__(EThreads)
-lstm_seq_step_kernel(const float* __restrict__ xp, const bf16* __restrict__ W,
-                     const float* __restrict__ bias, const bf16* __restrict__ hb, int B, int T,
-                     int H, int s, float* __restrict__ c, float* __restrict__ hs,
-                     float* __restrict__ cs, float* __restrict__ act, bf16* __restrict__ hb_next) {
-  extern __shared__ uint4 es_u4[];
-  const int LW = H + 2, G = 4 * H;
-  bf16* Ws = reinterpret_cast<bf16*>(es_u4);
-  bf16* Hs = Ws + ER * LW;
-  float* P = reinterpret_cast<float*>(Hs + EM * H);
-  const int d = blockIdx.y, j0 = blockIdx.x * EU, m0 = blockIdx.z * EM, tid = threadIdx.x;
+__device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// byte offsets of a forward block's shared arrays: the mbarriers (W's
+// copy; each h buffer's pushes); W's 4 EU rows (row rr = 16 mt + i holds
+// gate i / 4 of unit r EU + 4 mt + i % 4), 2 H + 16 bytes apart; h of the
+// tile's rows, two buffers of nrows rows 2 H + 16 bytes apart; the rank's
+// own bf16(h), nrows x EU; xp of two steps, [step % 2][row][gate][EU] f32,
+// rows 16 bytes longer than their 4 EU (conflict-free reads)
+struct EncSmem {
+  int w, h, hloc, xs, stride, xrow, total;
+};
+
+__host__ __device__ inline EncSmem enc_smem(int H, int nrows) {
+  const int EU = H / ES;
+  EncSmem o;
+  o.stride = 2 * H + 16;
+  o.xrow = 4 * EU + 4;
+  o.w = 32;
+  o.h = o.w + 4 * EU * o.stride;
+  o.hloc = o.h + 2 * nrows * o.stride;
+  o.xs = o.hloc + nrows * EU * 2;
+  o.total = o.xs + 2 * nrows * o.xrow * 4;
+  return o;
+}
+
+// the shared::cluster address of p (this block's shared memory) in rank r
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int r) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(r));
+  return a;
+}
+
+// 16 bytes into another rank's shared memory, counted by its mbarrier
+__device__ __forceinline__ void st_async16(uint32_t addr, uint4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// wait for a phase of an mbarrier that other ranks' st.async complete
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// grid (ES, 2, ceil(B / ETILE)), cluster (ES, 1, 1), 32 EU / 4 threads,
+// enc_smem(H, rows of the tile padded to 8).total bytes: all T steps of
+// direction blockIdx.y for rows [b0, b0 + bt):
+//   g = (xp[d, m, s, :] + bf16(h) . W[d, :, :]^T) + b[d]
+// then c = sig(f) c + sig(i) tanh(g), h = sig(o) tanh(c), h and c zero at
+// s = 0. Writes hs[d, m, s], cs[d, m, s], act[d, m, s] (sig i, sig f,
+// tanh g, sig o). A step waits only for its h buffer's mbarrier, which the
+// ranks' pushes (st.async) complete: no cluster-wide barrier, so no step
+// waits for another's global stores. A rank's pushes for step s + 1 follow
+// its step s, which needed every rank's step s - 1 pushes, sent after their
+// step s - 1 products: so no push overwrites an h buffer still being read.
+// xp of step s + 1 is copied into shared memory (cp.async) during step s.
+__global__ void __launch_bounds__(32 * EMAXWARPS, 1)
+bilstm_fwd_kernel(const float* __restrict__ xp, const bf16* __restrict__ W,
+                  const float* __restrict__ bias, int B, int T, int H, float* __restrict__ hs,
+                  float* __restrict__ cs, float* __restrict__ act) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(128) uint8_t es_raw[];
+  const int EU = H / ES, R = 4 * EU, G = 4 * H, KS = H / 16;  // warps: R / 16
+  const int rank = (int)cluster.block_rank(), d = blockIdx.y;
+  const int b0 = blockIdx.z * ETILE, bt = min(ETILE, B - b0), ntl = (bt + 7) >> 3;
+  const EncSmem o = enc_smem(H, ntl * 8);
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(es_raw);
+  uint64_t* hfull = wbar + 1;  // [2]
+  const uint8_t* ws = es_raw + o.w;
+  uint8_t* hbuf = es_raw + o.h;
+  bf16* hloc = reinterpret_cast<bf16*>(es_raw + o.hloc);
+  float* xs = reinterpret_cast<float*>(es_raw + o.xs);
+  const int tid = threadIdx.x, nthreads = blockDim.x, warp = tid >> 5, lane = tid & 31;
   const bf16* Wd = W + (size_t)d * G * H;
-  for (int i = tid; i < ER * (H / 2); i += EThreads) {
-    const int r = i / (H / 2), k2 = i - r * (H / 2);
-    const int row = (r / EU) * H + j0 + r % EU;  // gate r / EU of unit j0 + r % EU
-    reinterpret_cast<uint32_t*>(Ws + r * LW)[k2] =
-        reinterpret_cast<const uint32_t*>(Wd + (size_t)row * H)[k2];
-  }
-  for (int i = tid; i < EM * (H / 2); i += EThreads) {
-    const int m = i / (H / 2), k2 = i - m * (H / 2);
-    uint32_t v = 0;
-    if (m0 + m < B) v = reinterpret_cast<const uint32_t*>(hb + ((size_t)d * B + m0 + m) * H)[k2];
-    reinterpret_cast<uint32_t*>(Hs + m * H)[k2] = v;
+  const int hbytes = ntl * 8 * o.stride, xslot = ntl * 8 * o.xrow;
+  if (tid == 0) {
+    mbar_init(wbar, 1);
+    mbar_init(hfull, 1);
+    mbar_init(hfull + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(wbar, (uint32_t)(R * H * 2));
   }
   __syncthreads();
-  // thread: gate row r = tid % ER, batch rows m = tid / ER + EMB i
-  {
-    const int r = tid % ER, mb = tid / ER;
-    float acc[ERPT];
+  if (warp == 0)  // the rank's rows of W, a bulk copy each
+    for (int rr = lane; rr < R; rr += 32) {
+      const int mt = rr / 16, i = rr % 16;
+      const int row = (i / 4) * H + rank * EU + mt * 4 + i % 4;
+      bulk_load(es_raw + o.w + rr * o.stride, Wd + (size_t)row * H, 2 * H, wbar);
+    }
+  // h = 0 at s = 0; rows past bt stay zero (their columns are not kept)
+  for (int i = tid; i < 2 * hbytes / 4; i += nthreads) reinterpret_cast<uint32_t*>(hbuf)[i] = 0u;
+  // xp of step s, this rank's units of each gate, into slot s % 2
+  auto fetch_x = [&](int s) {
+    float* slot = xs + (s & 1) * xslot;
+    const int q4 = EU / 4;  // 16-byte pieces of a gate's units
+    for (int i = tid; i < bt * 4 * q4; i += nthreads) {
+      const int b = i / (4 * q4), rem = i - b * 4 * q4, q = rem / q4, k = rem - q * q4;
+      cp_async16(slot + b * o.xrow + q * EU + 4 * k,
+                 xp + (((size_t)d * B + b0 + b) * T + s) * G + q * H + rank * EU + 4 * k);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  fetch_x(0);
+
+  // lane roles: rows g, g + 8 of m tile `warp` (gates g / 4 and 2 + g / 4 of
+  // unit 4 warp + g % 4), batch columns 2 t, 2 t + 1 of each n8 tile; after
+  // the shuffle the lane keeps column 2 t + hi of unit u
+  const int g = lane >> 2, t = lane & 3, hi = g >> 2, t4 = t * 4;
+  const int ul = warp * 4 + (g & 3), u = rank * EU + ul;  // the lane's unit
+  float bgate[4];
 #pragma unroll
-    for (int i = 0; i < ERPT; ++i) acc[i] = 0.0f;
-    const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(Ws + r * LW);
+  for (int q = 0; q < 4; ++q) bgate[q] = bias[(size_t)d * G + q * H + u];
+  float c[ETILE / 8];
+#pragma unroll
+  for (int n = 0; n < ETILE / 8; ++n) c[n] = 0.0f;
+  uint32_t phases = 0u;  // bit j: the parity of h buffer j's next phase
+  cluster.sync();  // every rank has started, zeroed its h and set its mbarriers
+  mbar_wait(wbar, 0);
+
+  for (int s = 0; s < T; ++s) {
+    const uint8_t* hc = hbuf + (s & 1) * hbytes;
+    if (s > 0) {  // every rank's h of step s - 1 has landed
+      mbar_wait_cluster(hfull + (s & 1), (phases >> (s & 1)) & 1u);
+      phases ^= 1u << (s & 1);
+    }
+    if (s + 1 < T) fetch_x(s + 1);
+    else asm volatile("cp.async.commit_group;\n" ::: "memory");
+    float acc[ETILE / 8][4];
+#pragma unroll
+    for (int n = 0; n < ETILE / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    {
+      const int row = warp * 16 + g;
 #pragma unroll 4
-    for (int k2 = 0; k2 < H / 2; ++k2) {
-      const float2 w = __bfloat1622float2(w2[k2]);
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint8_t* wr = ws + row * o.stride + ks * 32 + t4;
+        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(wr);
+        const uint32_t a1 = *reinterpret_cast<const uint32_t*>(wr + 8 * o.stride);
+        const uint32_t a2 = *reinterpret_cast<const uint32_t*>(wr + 16);
+        const uint32_t a3 = *reinterpret_cast<const uint32_t*>(wr + 8 * o.stride + 16);
 #pragma unroll
-      for (int i = 0; i < ERPT; ++i) {
-        const float2 h = __bfloat1622float2(
-            reinterpret_cast<const __nv_bfloat162*>(Hs + (mb + EMB * i) * H)[k2]);
-        acc[i] = fmaf(w.y, h.y, fmaf(w.x, h.x, acc[i]));
+        for (int n = 0; n < ETILE / 8; ++n)
+          if (n < ntl) {
+            const uint8_t* hr = hc + (n * 8 + g) * o.stride + ks * 32 + t4;
+            mma_bf16(acc[n], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(hr),
+                     *reinterpret_cast<const uint32_t*>(hr + 16));
+          }
       }
     }
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this step's xp has landed
+    __syncthreads();
+    // the four gates of unit u, column 2 t + hi: from this lane (rows g,
+    // g + 8) and the lane 16 away (the unit's other two gates)
+    const float* xsl = xs + (s & 1) * xslot;
 #pragma unroll
-    for (int i = 0; i < ERPT; ++i) P[r * EM + mb + EMB * i] = acc[i];
+    for (int n = 0; n < ETILE / 8; ++n) {
+      if (n >= ntl) break;
+      const float r0 = __shfl_xor_sync(0xffffffffu, hi ? acc[n][0] : acc[n][1], 16);
+      const float r1 = __shfl_xor_sync(0xffffffffu, hi ? acc[n][2] : acc[n][3], 16);
+      const int b = n * 8 + 2 * t + hi;
+      if (b >= bt) continue;
+      // gate sums i, f, g, o
+      const float p[4] = {hi ? r0 : acc[n][0], hi ? acc[n][1] : r0, hi ? r1 : acc[n][2],
+                          hi ? acc[n][3] : r1};
+      float gv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) gv[q] = (xsl[b * o.xrow + q * EU + ul] + p[q]) + bgate[q];
+      const float ig = sigmoid_f(gv[0]), fg = sigmoid_f(gv[1]), gg = tanhf(gv[2]),
+                  og = sigmoid_f(gv[3]);
+      c[n] = fg * c[n] + ig * gg;
+      const float hv = og * tanhf(c[n]);
+      const size_t st = ((size_t)d * B + b0 + b) * T + s;
+      hs[st * H + u] = hv;
+      cs[st * H + u] = c[n];
+      float* a = act + st * G + u;
+      a[0] = ig;
+      a[H] = fg;
+      a[2 * H] = gg;
+      a[3 * H] = og;
+      hloc[b * EU + ul] = __float2bfloat16_rn(hv);
+    }
+    if (s + 1 == T) break;
+    const int nb = (s + 1) & 1;
+    if (tid == 0) mbar_expect_tx(hfull + nb, (uint32_t)(bt * H * 2));  // every rank's pushes
+    __syncthreads();  // the rank's bf16(h) is whole
+    // push it into every rank's next h buffer, 16 bytes a store
+    uint8_t* hn = hbuf + nb * hbytes;
+    const int pieces = EU / 8;  // 16-byte pieces of a row's EU units
+    for (int i = tid; i < ES * bt * pieces; i += nthreads) {
+      const int p = i / (bt * pieces), rem = i - p * bt * pieces, b = rem / pieces,
+                k = rem - b * pieces;
+      const uint4 v = reinterpret_cast<const uint4*>(hloc + b * EU)[k];
+      const uint8_t* dst = hn + b * o.stride + rank * EU * 2 + k * 16;
+      st_async16(cluster_addr(dst, p), v, cluster_addr(hfull + nb, p));
+    }
   }
-  __syncthreads();
-  const int m = tid / EU, u = tid % EU, row = m0 + m, j = j0 + u;
-  if (m >= EM || row >= B) return;
-  const size_t st = (((size_t)d * B + row) * T + s);
-  const float* x = xp + st * G;
-  const float* bd = bias + (size_t)d * G;
-  float gv[4];
-#pragma unroll
-  for (int gate = 0; gate < 4; ++gate)
-    gv[gate] = (x[gate * H + j] + P[(gate * EU + u) * EM + m]) + bd[gate * H + j];
-  const float ig = sigmoid_f(gv[0]), fg = sigmoid_f(gv[1]), gg = tanhf(gv[2]),
-              og = sigmoid_f(gv[3]);
-  const size_t o = ((size_t)d * B + row) * H + j;
-  const float cv = fg * c[o] + ig * gg;
-  const float hv = og * tanhf(cv);
-  c[o] = cv;
-  hs[st * H + j] = hv;
-  cs[st * H + j] = cv;
-  float* a = act + st * G;
-  a[j] = ig;
-  a[H + j] = fg;
-  a[2 * H + j] = gg;
-  a[3 * H + j] = og;
-  hb_next[o] = __float2bfloat16_rn(hv);
+  cluster.sync();  // no rank leaves while a push to it may be in flight
 }
 
 // thread per (d, m, j): the gate cotangents of step s (dh = dhs[s] + the
@@ -179,43 +354,52 @@ lstm_seq_rec_kernel(const float* __restrict__ dg, const bf16* __restrict__ W,
 
 inline unsigned blocks_for(size_t n, int threads) { return (unsigned)((n + threads - 1) / threads); }
 
-size_t step_smem(int H) {
-  return (size_t)ER * (H + 2) * sizeof(bf16) + (size_t)EM * H * sizeof(bf16) +
-         (size_t)ER * EM * sizeof(float);
+// the forward's dimensions: ES ranks of EU = H / ES units, EU a multiple
+// of 8 (whole 16-byte pieces of a row's h; 4 EU / 16 m16 tiles, one warp
+// each, at most EMAXWARPS), its shared memory within a block's
+inline int enc_check(int B, int T, int H, size_t* smem) {
+  if (B <= 0 || T <= 0 || H % (8 * ES) || 4 * (H / ES) / 16 > EMAXWARPS)
+    return (int)cudaErrorInvalidValue;
+  *smem = (size_t)enc_smem(H, (std::min(B, ETILE) + 7) & ~7).total;
+  return *smem > 227 * 1024 ? (int)cudaErrorInvalidValue : 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Forward, T launches. p: xp (2, B, T, 4H) f32 (the input projection + b_ih),
-// W_hh (2, 4H, H) bf16, b_hh (2, 4H) f32; out hs (2, B, T, H), cs (2, B, T,
-// H), act (2, B, T, 4H) f32; scratch c (2, B, H) f32 and hb (2, 2, B, H)
-// bf16 (a ping-pong pair of bf16(h)), both zero at entry. d = {B, T, H}.
+// Forward, one launch. p: xp (2, B, T, 4H) f32 (the input projection +
+// b_ih), W_hh (2, 4H, H) bf16, b_hh (2, 4H) f32; out hs (2, B, T, H), cs
+// (2, B, T, H), act (2, B, T, 4H) f32. d = {B, T, H}.
 int t2_bilstm_forward(void** p, const int* d, void* stream_) {
   const int B = d[0], T = d[1], H = d[2];
-  if (B <= 0 || T <= 0 || H % EU || H % 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_;
-  const size_t smem = step_smem(H);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  int err = enc_check(B, T, H, &smem);
+  if (err) return err;
+  if (((uintptr_t)p[1] & 15) || (H * 2) % 16) return (int)cudaErrorInvalidValue;
   static size_t allowed = 48 * 1024;
   if (smem > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lstm_seq_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    const cudaError_t e = cudaFuncSetAttribute(
+        bilstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
     allowed = smem;
   }
-  bf16* hb = (bf16*)p[7];
-  const size_t half = (size_t)2 * B * H;
-  const dim3 grid(H / EU, 2, (B + EM - 1) / EM);
-  for (int s = 0; s < T; ++s) {
-    lstm_seq_step_kernel<<<grid, EThreads, smem, stream>>>(
-        (const float*)p[0], (const bf16*)p[1], (const float*)p[2], hb + (s % 2) * half, B, T, H,
-        s, (float*)p[6], (float*)p[3], (float*)p[4], (float*)p[5], hb + ((s + 1) % 2) * half);
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
-  }
-  return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ES, 2, (B + ETILE - 1) / ETILE);
+  cfg.blockDim = dim3(32 * (4 * (H / ES) / 16));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream_;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ES;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = (int)cudaLaunchKernelEx(&cfg, bilstm_fwd_kernel, (const float*)p[0], (const bf16*)p[1],
+                                (const float*)p[2], B, T, H, (float*)p[3], (float*)p[4],
+                                (float*)p[5]);
+  return err ? err : (int)cudaGetLastError();
 }
 
 // Backward, 2 T launches. p: dhs (2, B, T, H) f32, act, cs (the forward's),

@@ -28,7 +28,11 @@ kernels over the whole card (``csrc/decode_step.cu``):
   energies of its slice of chars; the softmax and the context are combined
   in rank order, so the sums' order depends on L and the dims, never on
   the batch);
-- ``heads``: the mel and gate linear over [rnn_h, ctx].
+- ``heads``: the mel and gate linear over [rnn_h, ctx], a split-K product
+  on the tensor cores over a thread-block cluster of ``HEADS_CLUSTER``
+  blocks, each reading its 16-column pieces of a copy of the weights tiled
+  once per model (``tile_heads``) and summing in rank order, so that a
+  row's sums follow the dims alone.
 
 The controls mode (the controllable configs; the same TPU kernel's controls
 rows, ``_decode_chunk_kernel`` :534 and :569, packed by
@@ -92,6 +96,8 @@ GATE_CHUNK = 128  # bytes of each weight row per streamed chunk
 PRENET_CLUSTER = 8  # blocks of the prenet's cluster (csrc/decode_step.cu PN_S)
 PRENET_THREADS = 256  # threads of a prenet block: rows of its group x units (PN_THREADS)
 PRENET_SMEM = 227 * 1024  # shared memory a block may use
+HEADS_CLUSTER = 8  # blocks of the heads' cluster: the contraction split (csrc HD_S)
+HEADS_PIECE = 16  # columns of a piece: one k-step of the heads' mma
 
 
 def reset_launches() -> None:
@@ -125,6 +131,7 @@ class PackedDecoder(NamedTuple):
     wt_att: Optional[torch.Tensor] = None  # w_att tiled for the cell kernel (tile_gates)
     wt_dec: Optional[torch.Tensor] = None  # w_dec tiled for the cell kernel
     wt_prenet: Optional[torch.Tensor] = None  # the prenet's weights tiled (tile_prenet)
+    wt_out: Optional[torch.Tensor] = None  # w_out tiled for the heads kernel (tile_heads)
 
     @property
     def quantized(self) -> bool:
@@ -251,6 +258,58 @@ def tile_prenet(wp1_t: torch.Tensor, wp2_t: torch.Tensor) -> Optional[torch.Tens
     return w.reshape((M + P) // 4, 4, P // U, U).permute(2, 0, 3, 1).contiguous()
 
 
+def heads_rows(N: int) -> int:
+    """The heads' output rows padded to whole m16 tiles (81 -> 96)."""
+    return -(-N // 16) * 16
+
+
+def heads_pieces(K: int, rank: int, ranks: int = HEADS_CLUSTER) -> range:
+    """The 16-column pieces of the heads' K columns that block ``rank`` of
+    their cluster sums: [rank nk / ranks, (rank + 1) nk / ranks), nk = ceil(K
+    / 16). It follows K and the cluster alone, never the batch."""
+    nk = -(-K // HEADS_PIECE)
+    return range(rank * nk // ranks, (rank + 1) * nk // ranks)
+
+
+def check_heads_dims(n1: int, n2: int, n3: int) -> None:
+    """Raise unless the heads kernel takes inputs of these widths: each
+    segment [rnn_h | ctx | controls] whole pieces of 16 columns (a piece
+    lies in one segment; a rank with no piece adds zeros)."""
+    if any(n % HEADS_PIECE for n in (n1, n2, n3)) or n1 + n2 + n3 == 0:
+        raise ValueError(f"the heads kernel takes inputs of whole {HEADS_PIECE}-column "
+                         f"pieces; got widths {n1, n2, n3}")
+
+
+def heads_tile_offset(row, col, N: int):
+    """Element offset in ``tile_heads``' copy of w_out[row, col]: piece p =
+    col // 16 of every padded row end to end ([p][row][16]), so that a rank's
+    pieces are one contiguous run, with the 8-element half h of row r at
+    half h ^ ((r >> 2) & 1) (the kernel's conflict-free fragment loads).
+    Works on ints and on integer tensors."""
+    NP = heads_rows(N)
+    p, c = col // HEADS_PIECE, col % HEADS_PIECE
+    return (p * NP + row) * HEADS_PIECE + (((c // 8) ^ ((row // 4) % 2)) * 8) + c % 8
+
+
+def heads_tiled_shape(N: int, K: int) -> Tuple[int, int, int]:
+    """Shape of ``tile_heads``' copy: (pieces, padded rows, 16)."""
+    return -(-K // HEADS_PIECE), heads_rows(N), HEADS_PIECE
+
+
+def tile_heads(w_out: torch.Tensor) -> torch.Tensor:
+    """The heads' weights (N, K) as their kernel's ranks copy them
+    (``heads_tile_offset``): zero past N rows and K columns."""
+    N, K = w_out.shape
+    nk, NP, _ = heads_tiled_shape(N, K)
+    w = w_out.detach().new_zeros(NP, nk * HEADS_PIECE)
+    w[:N, :K] = w_out.detach()
+    t = w.view(NP, nk, 2, 8).permute(1, 0, 2, 3)  # (piece, row, half, 8)
+    swap = ((torch.arange(NP, device=w.device) // 4) % 2)[None, :, None]
+    half = torch.arange(2, device=w.device)[None, None, :] ^ swap  # out half h holds h ^ swap
+    return torch.take_along_dim(t, half[..., None].expand(nk, NP, 2, 8), dim=2).reshape(
+        nk, NP, HEADS_PIECE).contiguous()
+
+
 CONTROLS_ALIGN = 16  # the controls' columns are padded to a multiple of this
 
 
@@ -291,8 +350,8 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) ->
     A decoder with controls gets their columns in w_dec and w_out, padded
     to ``controls_cols`` with zeros (the gate's row zero over all of them).
     The two LSTM blocks also get the cell kernel's tiled copies
-    (``tile_gates``) and the prenet its kernel's (``tile_prenet``), made
-    here once per pack."""
+    (``tile_gates``), the prenet its kernel's (``tile_prenet``) and the
+    heads theirs (``tile_heads``), made here once per pack."""
     PACK_CALLS[0] += 1
     a, d, att = decoder.att_rnn, decoder.lstm, decoder.attention
     with torch.no_grad():
@@ -316,6 +375,7 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) ->
         else:
             w_att, w_dec = cast(w_att), cast(w_dec)
         wp1_t, wp2_t = cast(prenet[0].weight.t()), cast(prenet[3].weight.t())
+        w_out = cast(torch.cat([mel_w, gate_w], dim=0))
         return PackedDecoder(
             w_att=w_att,
             b_att=f32(a.bias_ih + a.bias_hh),
@@ -326,11 +386,12 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) ->
             wq=att_cast(att.query_layer.weight),
             w_loc=att_cast(w_loc),
             wv=att_cast(att.v.weight[0]),
-            w_out=cast(torch.cat([mel_w, gate_w], dim=0)),
+            w_out=w_out,
             b_out=f32(torch.cat([decoder.mel_out.bias, decoder.gate.bias], dim=0)),
             wt_att=tile_gates(w_att),
             wt_dec=tile_gates(w_dec),
             wt_prenet=tile_prenet(wp1_t, wp2_t),
+            wt_out=tile_heads(w_out),
             **scales,
         )
 
@@ -636,9 +697,11 @@ def location_attention(h, wq, w_loc, wv, att_enc, encoded, lengths, w_prev, cum_
     return ctx, w, cum
 
 
-def heads(w_out, b_out, rnn_h, ctx, ctl=None):
+def heads(w_out, b_out, rnn_h, ctx, ctl=None, wt=None):
     """-> (B, M + 1): mel frame and gate logit over [rnn_h | ctx], or
-    [rnn_h | ctx | ctl] with the controls ``ctl`` (f32)."""
+    [rnn_h | ctx | ctl] with the controls ``ctl`` (f32). On the card the
+    kernel reads ``wt``, the tiled copy of ``w_out`` (``tile_heads``, the
+    pack's ``wt_out``)."""
     if rnn_h.device.type == "cpu":
         return heads_plain(w_out, b_out, rnn_h, ctx, ctl=ctl)
     B = rnn_h.shape[0]
@@ -651,9 +714,14 @@ def heads(w_out, b_out, rnn_h, ctx, ctl=None):
     build.require(ctx, torch.float32, (B, n2), "ctx")
     if ctl is not None:
         build.require(ctl, torch.float32, (B, nc), "ctl")
+    check_heads_dims(n1, n2, nc)
+    if wt is None:
+        raise ValueError("heads: the kernel reads the tiled copy of w_out (tile_heads, the "
+                         "pack's wt_out); none was given")
+    build.require(wt, torch.bfloat16, heads_tiled_shape(N, n1 + n2 + nc), "wt")
     out = torch.empty(B, N, device=rnn_h.device)
     _count("heads", controls=nc > 0)
-    build.check(_lib().t2_heads(w_out.data_ptr(), b_out.data_ptr(), rnn_h.data_ptr(), n1,
+    build.check(_lib().t2_heads(wt.data_ptr(), b_out.data_ptr(), rnn_h.data_ptr(), n1,
                                 ctx.data_ptr(), n2, _ptr(ctl), nc, out.data_ptr(), B, N,
                                 _stream()), "heads")
     return out
@@ -739,7 +807,10 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
                          f"H a multiple of {GATE_UNITS}; got H={H})")
     if pk.wt_prenet is None:
         raise ValueError("the pack has no tiled copy of its prenet weights (tile_prenet)")
+    if pk.wt_out is None:
+        raise ValueError("the pack has no tiled copy of its heads' weights (tile_heads)")
     E = pk.controls_cols
+    check_heads_dims(H, D, E)
     if E:
         ctl = (("controls", controls, f32, (B, E)),) + (
             () if pk.quantized else (("controls_bf", controls_bf, bf, (B, E)),))
@@ -764,6 +835,7 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
         ("wt_att", pk.wt_att, torch.uint8, (tiled_bytes(H, (Pd + D + H) * esize),)),
         ("wt_dec", pk.wt_dec, torch.uint8, (tiled_bytes(H, (2 * H + D + E) * esize),)),
         ("wt_prenet", pk.wt_prenet, bf, prenet_tiled_shape(M, Pd)),
+        ("wt_out", pk.wt_out, bf, heads_tiled_shape(M + 1, H + D + E)),
     ) + scales + ctl:
         if t is None:
             raise ValueError(f"{name}: the pack takes it, none was given")
@@ -790,8 +862,10 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
         atth_bf[1] = s.att_h
         rnnh_bf[1] = s.rnn_h
         operands = (x_bf, s.ctx.to(bf), atth_bf, rnnh_bf)
-    tensors = (*pk[:11], att_enc, encoded, lengths, m1, m2, *s, mel_gate, aligns, x,
-               pp["att_h"], pp["att_c"], pp["ctx"], pp["att_cum"], pp["rnn_h"], pp["rnn_c"])
+    # slot 9: the heads read their tiled copy, not w_out
+    tensors = (*pk[:9], pk.wt_out, pk.b_out, att_enc, encoded, lengths, m1, m2, *s, mel_gate,
+               aligns, x, pp["att_h"], pp["att_c"], pp["ctx"], pp["att_cum"], pp["rnn_h"],
+               pp["rnn_c"])
     ptrs = (ctypes.c_void_p * 46)(*(t.data_ptr() for t in tensors), _ptr(pk.s_att),
                                   _ptr(pk.s_dec), pk.wt_att.data_ptr(), pk.wt_dec.data_ptr(),
                                   *(_ptr(t) for t in operands), *(_ptr(t) for t in quantized),

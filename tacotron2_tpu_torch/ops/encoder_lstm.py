@@ -12,12 +12,15 @@ cotangent of the bf16-rounded operand, rounded as autograd and JAX round
 it); d_W_hh is one product over all steps after the loop, rounded to bf16
 once (the cast's pull), as autograd through the plain loop computes it.
 
-On the card ``bilstm_forward`` is one host call into ``csrc/encoder_lstm.cu``
-(``t2_bilstm_forward``, T launches) and ``bilstm_backward`` another
-(``t2_bilstm_backward``, 2 T launches); each adds its launches to
-``LAUNCHES``. Their plain versions are the definition, used for CPU tensors
-and as what the kernels are held against on the card; they keep the dtype of
-``xp``, so they also run in f64 (the tests).
+On the card ``bilstm_forward`` is one launch of ``csrc/encoder_lstm.cu``'s
+persistent forward (``t2_bilstm_forward``: a thread-block cluster of
+``ENC_CLUSTER`` blocks per direction and tile of up to ``ENC_TILE`` rows
+walks all T steps, W_hh, h and c on chip; ``forward_plan`` says which dims
+it takes) and ``bilstm_backward`` one host call (``t2_bilstm_backward``, 2 T
+launches); each adds its launches to ``LAUNCHES``. Their plain versions are
+the definition, used for CPU tensors and as what the kernels are held
+against on the card; they keep the dtype of ``xp``, so they also run in f64
+(the tests).
 """
 
 from __future__ import annotations
@@ -37,12 +40,57 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+ENC_CLUSTER = 8  # blocks per cluster of the forward: the units' split (csrc ES)
+ENC_TILE = 8  # batch rows per cluster (csrc ETILE)
+ENC_MAX_WARPS = 16  # a block's warps: one per m16 tile of its gate rows (csrc EMAXWARPS)
+ENC_SMEM = 227 * 1024  # shared memory a block may use
+
+
 def forward_launches(T: int) -> int:
-    return T
+    return 1
 
 
 def backward_launches(T: int) -> int:
     return 2 * T
+
+
+def unit_rows(H: int, rank: int) -> list:
+    """W_hh rows (of one direction, 4H) that block ``rank`` of the forward's
+    cluster holds, in its shared-memory order: row 16 mt + i is gate i // 4
+    of unit rank EU + 4 mt + i % 4 (EU = H / ENC_CLUSTER), so that a lane
+    and the lane 16 away hold the four gates of one unit."""
+    EU = H // ENC_CLUSTER
+    rows = []
+    for mt in range(4 * EU // 16):
+        rows += [(i // 4) * H + rank * EU + 4 * mt + i % 4 for i in range(16)]
+    return rows
+
+
+def forward_plan(B: int, H: int) -> dict:
+    """The forward kernel's plan for B rows of width H: EU units a rank,
+    ``warps`` (one m16 tile of its 4 EU gate rows each), ``rows`` of a
+    cluster's tile (padded to 8), the grid's ``clusters`` and a block's
+    shared memory ``smem`` (W's rows, two h buffers, the rank's own h, xp
+    of two steps; rows 16 bytes longer than their data). Raises ValueError
+    for what the kernel does not take: EU not a multiple of 8 (whole
+    16-byte pieces of h), more than ENC_MAX_WARPS warps, or more than
+    ENC_SMEM bytes."""
+    EU = H // ENC_CLUSTER
+    if B < 1 or H < 1 or H % (8 * ENC_CLUSTER):
+        raise ValueError(f"the forward's cluster of {ENC_CLUSTER} blocks takes H a multiple of "
+                         f"{8 * ENC_CLUSTER} (units a rank a multiple of 8); got H={H}")
+    warps = 4 * EU // 16
+    if warps > ENC_MAX_WARPS:
+        raise ValueError(f"H={H}: {warps} warps a block, at most {ENC_MAX_WARPS}")
+    rows = (min(B, ENC_TILE) + 7) // 8 * 8
+    stride = 2 * H + 16
+    smem = (32 + 4 * EU * stride + 2 * rows * stride + rows * EU * 2
+            + 2 * rows * (4 * EU + 4) * 4)
+    if smem > ENC_SMEM:
+        raise ValueError(f"H={H}: the forward's block would need {smem} bytes of shared memory "
+                         f"at {rows} rows; at most {ENC_SMEM}")
+    return {"units": EU, "warps": warps, "rows": rows, "smem": smem,
+            "clusters": 2 * -(-B // ENC_TILE)}
 
 
 def _rnd(x: torch.Tensor) -> torch.Tensor:
@@ -116,8 +164,8 @@ def _call(fn, tensors, B: int, T: int, H: int, what: str) -> None:
 
 
 def bilstm_forward(xp, w_hh, b_hh):
-    """``bilstm_forward_plain`` through ``t2_bilstm_forward`` for CUDA
-    tensors (w_hh bf16)."""
+    """``bilstm_forward_plain`` through ``t2_bilstm_forward`` (one launch)
+    for CUDA tensors (w_hh bf16)."""
     if xp.device.type == "cpu":
         return bilstm_forward_plain(xp, w_hh, b_hh)
     _, B, T, G = xp.shape
@@ -125,13 +173,11 @@ def bilstm_forward(xp, w_hh, b_hh):
     build.require(xp, torch.float32, (2, B, T, G), "xp")
     build.require(w_hh, torch.bfloat16, (2, G, H), "w_hh")
     build.require(b_hh, torch.float32, (2, G), "b_hh")
+    forward_plan(B, H)  # raises for dims the kernel does not take
     e = lambda *s: torch.empty(*s, device=xp.device)
     hs, cs, act = e(2, B, T, H), e(2, B, T, H), e(2, B, T, G)
-    c = torch.zeros(2, B, H, device=xp.device)
-    hb = torch.zeros(2, 2, B, H, device=xp.device, dtype=torch.bfloat16)
     build.count(LAUNCHES, "bilstm_forward", forward_launches(T))
-    _call(_lib().t2_bilstm_forward, (xp, w_hh, b_hh, hs, cs, act, c, hb), B, T, H,
-          "bilstm_forward")
+    _call(_lib().t2_bilstm_forward, (xp, w_hh, b_hh, hs, cs, act), B, T, H, "bilstm_forward")
     return hs, cs, act
 
 

@@ -339,8 +339,9 @@ def test_heads_wrapper_passes_the_controls(fake):
     ctl = torch.zeros(B, E)
     seen = []
     fake.t2_heads = lambda *a: seen.append(a) or 0
-    dl.heads(pk.w_out, pk.b_out, _meta(B, H), _meta(B, D), ctl)
-    dl.heads(pk.w_out[:, :H + D], pk.b_out, _meta(B, H), _meta(B, D))
+    dl.heads(pk.w_out, pk.b_out, _meta(B, H), _meta(B, D), ctl, wt=pk.wt_out)
+    dl.heads(pk.w_out[:, :H + D], pk.b_out, _meta(B, H), _meta(B, D),
+             wt=_meta(*dl.heads_tiled_shape(M + 1, H + D), dtype=torch.bfloat16))
     assert seen[0][6:8] == (ctl.data_ptr(), E) and seen[1][6:8] == (None, 0)
 
 

@@ -224,6 +224,10 @@ class _FakeLib:
         self.calls.append(("prenet", args))
         return 0
 
+    def t2_heads(self, *args):
+        self.calls.append(("heads", args))
+        return 0
+
 
 H, D, P, M, A, K, L = 64, 32, 64, 8, 8, 31, 20
 
@@ -241,7 +245,8 @@ def _meta_pack(quantize, E=0):
         _meta(M + 1), **scales,
         wt_att=_meta(dl.tiled_bytes(H, es * (P + D + H)), dtype=torch.uint8),
         wt_dec=_meta(dl.tiled_bytes(H, es * (2 * H + D + E)), dtype=torch.uint8),
-        wt_prenet=_meta(*dl.prenet_tiled_shape(M, P), dtype=bf))
+        wt_prenet=_meta(*dl.prenet_tiled_shape(M, P), dtype=bf),
+        wt_out=_meta(*dl.heads_tiled_shape(M + 1, H + D + E), dtype=bf))
 
 
 def _meta_chunk(pk, B, n):
@@ -282,10 +287,11 @@ def test_chunk_counts_what_it_launches(fake, quantize, B, n):
     assert kind == "chunk" and dims[:2] == [n, B] and dims[9] == int(quantize)
     assert len(dims) == 12 and dims[10] == dl.location_cluster_size(L, H, A, D, K)
     assert dims[11] == 0 and len(ptrs) == 46 and ptrs[44:] == [None, None]
+    assert ptrs[9] == (pk.wt_out.data_ptr() or None)  # the heads' tiled copy, not w_out
     assert sum(grown.values()) == (7 if quantize else 5) * n
 
 
-@pytest.mark.parametrize("copy", ["wt_att", "wt_prenet"])
+@pytest.mark.parametrize("copy", ["wt_att", "wt_prenet", "wt_out"])
 def test_chunk_refuses_a_pack_without_copies(fake, copy):
     pk = _meta_pack(False)._replace(**{copy: None})
     before = dict(dl.LAUNCHES)
@@ -308,6 +314,35 @@ def test_prenet_wrapper_passes_the_copy(fake, B):
     with pytest.raises(ValueError, match="tiled"):
         dl.prenet(*args)
     assert dl.LAUNCHES["prenet"] == before + 1
+
+
+@pytest.mark.parametrize("B", [1, 64, 80])
+def test_heads_wrapper_passes_the_copy(fake, B):
+    """The heads' one-kernel entry launches over the tiled copy of w_out
+    (one counted launch, its dims passed); without the copy, or with one
+    of another shape, it refuses before anything launches."""
+    pk = _meta_pack(False)
+    args = (pk.w_out, pk.b_out, _meta(B, H), _meta(B, D))
+    before = dl.LAUNCHES["heads"]
+    dl.heads(*args, wt=pk.wt_out)
+    [(kind, cargs)] = fake.calls
+    assert kind == "heads" and len(cargs) == 12 and cargs[0] == pk.wt_out.data_ptr()
+    assert cargs[3] == H and cargs[5] == D and cargs[9:11] == (B, M + 1)
+    assert dl.LAUNCHES["heads"] == before + 1
+    with pytest.raises(ValueError, match="tiled"):
+        dl.heads(*args)
+    assert dl.LAUNCHES["heads"] == before + 1 and len(fake.calls) == 1
+
+
+def test_heads_wrapper_refuses_other_widths(fake):
+    """A segment of the heads' input that is not whole 16-column pieces
+    is refused before anything launches."""
+    before = dict(dl.LAUNCHES)
+    with pytest.raises(ValueError, match="16-column"):
+        dl.heads(_meta(M + 1, H + 24, dtype=torch.bfloat16), _meta(M + 1), _meta(2, H),
+                 _meta(2, 24), wt=_meta(*dl.heads_tiled_shape(M + 1, H + 24),
+                                        dtype=torch.bfloat16))
+    assert dl.LAUNCHES == before and fake.calls == []
 
 
 @pytest.mark.parametrize("quantize", [False, True])

@@ -44,8 +44,56 @@ def test_recurrence_backward_equals_autograd_of_plain_loop():
 
 
 def test_launch_counts():
-    assert el.forward_launches(128) == 128
+    assert el.forward_launches(128) == 1  # one persistent launch walks every step
     assert el.backward_launches(128) == 256
+
+
+@pytest.mark.parametrize("H", [64, 128, 256, 320])
+def test_forward_units_cover_w_hh_once(H):
+    """The forward's cluster ranks hold every row of a direction's W_hh
+    once: rank r the four gates of its units [r EU, (r + 1) EU), ordered so
+    that m16 tile rows i and i + 8 are two gates of one unit and the lane 16
+    away holds the other two."""
+    EU = H // el.ENC_CLUSTER
+    rows = [el.unit_rows(H, r) for r in range(el.ENC_CLUSTER)]
+    assert sorted(x for rr in rows for x in rr) == list(range(4 * H))
+    for r, rr in enumerate(rows):
+        assert {x % H for x in rr} == set(range(r * EU, (r + 1) * EU))
+        for base in range(0, 4 * EU, 16):
+            tile = rr[base:base + 16]
+            for i in range(8):  # rows g, g + 8: gates g // 4 and 2 + g // 4 of one unit
+                assert tile[i] % H == tile[i + 8] % H == tile[i ^ 4] % H
+                assert {tile[i] // H, tile[i + 8] // H, tile[i ^ 4] // H,
+                        tile[(i ^ 4) + 8] // H} == {0, 1, 2, 3}
+
+
+@pytest.mark.parametrize("B,H,ok", [(1, 256, True), (64, 256, True), (200, 256, True),
+                                    (64, 384, True), (64, 448, False), (64, 512, False),
+                                    (64, 100, False), (64, 96, False), (0, 256, False)])
+def test_forward_plan_refuses_what_the_kernel_cannot_take(B, H, ok):
+    """``forward_plan`` takes H in whole 16-byte pieces of h a rank (H a
+    multiple of 64), at most ENC_MAX_WARPS warps a block and a block within
+    227 KB of shared memory (H = 448 needs 234 KB: W's 224 rows alone take
+    204 KB); past a tile's rows a further tile is a cluster of its own, so
+    the block's memory stops growing."""
+    if ok:
+        plan = el.forward_plan(B, H)
+        assert plan["smem"] <= el.ENC_SMEM and plan["rows"] <= el.ENC_TILE
+        assert plan["clusters"] == 2 * -(-B // el.ENC_TILE)
+        assert plan["warps"] * 16 == 4 * H // el.ENC_CLUSTER
+    else:
+        with pytest.raises(ValueError):
+            el.forward_plan(B, H)
+
+
+def test_forward_constants_mirror_the_kernel():
+    import re
+    from pathlib import Path
+
+    src = (Path(el.__file__).parents[1] / "csrc" / "encoder_lstm.cu").read_text()
+    for name, value in (("ES", el.ENC_CLUSTER), ("ETILE", el.ENC_TILE),
+                        ("EMAXWARPS", el.ENC_MAX_WARPS)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
 
 
 def test_eval_encoder_row_alone_equals_batched():

@@ -198,7 +198,8 @@ def test_k1_cluster_size_does_not_follow_the_batch(L, monkeypatch):
                           _meta(M + 1, H + D, dtype=bf), _meta(M + 1),
                           wt_att=_meta(dl.tiled_bytes(H, 2 * (P + D + H)), dtype=torch.uint8),
                           wt_dec=_meta(dl.tiled_bytes(H, 2 * (2 * H + D)), dtype=torch.uint8),
-                          wt_prenet=_meta(*dl.prenet_tiled_shape(M, P), dtype=bf))
+                          wt_prenet=_meta(*dl.prenet_tiled_shape(M, P), dtype=bf),
+                          wt_out=_meta(*dl.heads_tiled_shape(M + 1, H + D), dtype=bf))
     for B in (1, 16, 64):
         s = dl.StepState(_meta(B, M), _meta(B, H), _meta(B, H), _meta(B, D), _meta(B, L),
                          _meta(B, L), _meta(B, H), _meta(B, H))
@@ -261,3 +262,72 @@ def test_stage_runs_every_fusable_pair_as_one_call():
     assert calls == {"conv": 0, "pair": 9}
     assert torch.equal(got, mrf.plain_stage(x, rbs, up))
     assert torch.equal(mrf.mrf_stage(x, rbs, up), got)
+
+
+# ---------------------------------------------------------------------------
+# K1's heads: the split-K copy tiled once per model
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("N,K", [(81, 1536), (81, 1552), (81, 1544), (9, 112)])
+def test_heads_tiled_copy_reads_back(N, K):
+    """Every weight of ``tile_heads``' copy read at the offset the kernel
+    computes (``heads_tile_offset``) is w_out's; everything else (rows past
+    N, columns past K in a partial last piece) is zero; the controls' 1,552
+    columns are 97 whole pieces."""
+    rng = np.random.default_rng(N * 10000 + K)
+    w = torch.as_tensor(rng.standard_normal((N, K)).astype(np.float32)).to(torch.bfloat16)
+    wt = dl.tile_heads(w)
+    assert wt.shape == dl.heads_tiled_shape(N, K) and wt.dtype == torch.bfloat16
+    rows = torch.arange(N)[:, None].expand(N, K)
+    cols = torch.arange(K)[None, :].expand(N, K)
+    off = dl.heads_tile_offset(rows, cols, N)
+    flat = wt.reshape(-1)
+    assert torch.equal(flat[off], w)
+    assert off.unique().numel() == N * K  # one slot a weight
+    rest = torch.ones(flat.numel(), dtype=torch.bool)
+    rest[off.reshape(-1)] = False
+    assert not bool(flat[rest].float().abs().sum())
+    # a 16-byte half of row r lies at half h ^ ((r >> 2) & 1): rows 4-7 swapped
+    assert dl.heads_tile_offset(4, 0, N) == 4 * 16 + 8
+    assert dl.heads_tile_offset(0, 8, N) == 8
+
+
+@pytest.mark.parametrize("K", [1536, 1552])
+@pytest.mark.parametrize("ranks", range(1, 9))
+def test_heads_split_covers_every_column_once(K, ranks):
+    """The cluster's ranks take consecutive runs of 16-column pieces that
+    cover the K columns once, by the dims alone, and each run is one
+    contiguous slice of the tiled copy."""
+    nk, NP, _ = dl.heads_tiled_shape(81, K)
+    pieces = [dl.heads_pieces(K, r, ranks) for r in range(ranks)]
+    assert [p for run in pieces for p in run] == list(range(nk))
+    assert max(len(r) for r in pieces) - min(len(r) for r in pieces) <= 1
+    cols = sorted(c for run in pieces for p in run for c in range(16 * p, min(K, 16 * p + 16)))
+    assert cols == list(range(K))
+    for run in pieces:  # a rank's pieces x all padded rows: one run of the copy
+        if len(run):
+            rows = torch.arange(NP)[:, None]
+            cols = torch.arange(16 * run[0], 16 * run[-1] + 16)[None, :]
+            off = dl.heads_tile_offset(rows, cols, 81).unique()
+            assert torch.equal(off, torch.arange(run[0] * NP * 16, (run[-1] + 1) * NP * 16))
+
+
+def test_heads_constants_mirror_the_kernel():
+    """The host's copy of the heads kernel's cluster size equals the
+    source's."""
+    import re
+    from pathlib import Path
+
+    src = (Path(dl.__file__).parents[1] / "csrc" / "decode_step.cu").read_text()
+    assert int(re.search(r"constexpr int HD_S = (\d+);", src).group(1)) == dl.HEADS_CLUSTER
+
+
+def test_pack_makes_the_heads_copy():
+    """``pack_decoder`` tiles w_out once for the heads, controls columns
+    included (the gate's row zero there)."""
+    from tests.test_torch_decode_cells import _model
+
+    for quantize in (False, True):
+        pk = _model().make_packed_decoder(quantize)
+        assert pk.wt_out is not None and torch.equal(pk.wt_out, dl.tile_heads(pk.w_out))
