@@ -4,7 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --k2-ab   # only K2's design A/B (``k2_ab``), then exit
     python3 chip_smoke.py --k1-rows [--root DIR] [--out NAME]  # K1/K5 at 1/16/64 rows
-    python3 chip_smoke.py --k1-rows --enc-ab  # only the encoder forward's copies (``enc_ab``)
+    python3 chip_smoke.py --k1-rows --enc-ab  # only the encoder: the forward's copies and
+                                              # the backward against build/parent's (``enc_ab``)
     python3 chip_smoke.py --k1-ab   # the same for build/parent and this tree, in turns,
                                     # and the decode step's variants on source copies
                                     # (``cell_ab``)
@@ -25,7 +26,9 @@ Phases, each of which must pass:
    chunks on K1_DRAWS weight draws, with the readings of defective kernels
    held above the limit; K2: the four UNIVERSAL_V1 MRF stages and stage 2
    without its upsample, at 64 mel frames and at the say's vocode bucket,
-   ``conv_operand`` exactly, ``conv_transpose`` (the folded 3-tap conv)
+   ``conv_pre`` on ``mrf_conv``'s kernel (each element within one bf16 ulp
+   of its plain version, a row alone bit for bit against the same row in a
+   batch of ``K2_INVARIANCE_ROWS``), ``conv_transpose`` (the folded 3-tap conv)
    and its bf16 operand, each stage's first ``mrf_conv`` or fused
    ``mrf_pair`` alone, the upsample and the first conv bit for bit against
    the same row in a batch of ``K2_INVARIANCE_ROWS``, a fused pair against
@@ -67,10 +70,12 @@ Phases, each of which must pass:
    BiLSTM kernels at the train batch's shapes, and the forward at the say's
    and the serve windows' shapes on inputs from real ``_encode`` calls and
    at ``enc_shapes`` (timed beside ``nn.LSTM``, rows of a 64-row launch
-   against the rows alone, bit for bit, ``enc_rows``);
+   against the rows alone, bit for bit, ``enc_rows``), the backward at
+   ``enc_shapes`` too (timed beside ``nn.LSTM``'s backward, rows of a
+   64-row launch bit for bit, ``enc_bwd_rows``);
 3e. deliberate defects on source copies (``defect_phase``): the heads with
-   one rank's partial sum left out, the encoder's forward with a stale
-   exchange, each at least DEFECT_MARGIN times its limit;
+   one rank's partial sum left out, the encoder's forward and backward with
+   a stale exchange, each at least DEFECT_MARGIN times its limit;
 3d. K3's and K4's controls mode on random full-width weights of the
    controllable config (``k34_controls_phase``): at B=64 (its train batch,
    cluster size 2), B=32 and B=5 with L=37 against their plain versions,
@@ -84,7 +89,7 @@ Phases, each of which must pass:
    a forced 256-frame decode with the launch counters read around it (one
    ``bilstm_forward`` launch; K2:
    exactly 18 ``mrf_conv``, 27 ``mrf_pair``, 4 ``conv_transpose`` and 1
-   ``conv_operand`` launches a vocode, and the HiFi-GAN's weights packed
+   ``conv_pre`` launches a vocode, and the HiFi-GAN's weights packed
    once), a
    forced early stop (1 frame), and the kernel decode against the plain
    decode over 32 frames; then ``say --quantize-int8`` the same way (K5's
@@ -92,7 +97,8 @@ Phases, each of which must pass:
    against the bf16 one;
 4b. run ``train`` through the CLI entry at the vanilla full width on 64
    synthetic WAVs: batch 32, 6 steps, then a resume to step 8, with K3 and
-   K4's launch counters read around it and held to launches per step x T;
+   K4's launch counters read around it and held to launches per step x T
+   (``bilstm_backward``: one a step; so in 4e);
    the losses must be finite and fall; the trained checkpoint goes through
    ``say``; K3 and K4 are held against their plain versions at the train
    batch's shapes (B=32, L=128, T=384), split by kernel; one train step is
@@ -229,7 +235,7 @@ class SmokeFailure(RuntimeError):
 
 def vocode_launches(h: dict) -> dict:
     """K2's launches in one vocode of a HiFi-GAN of config ``h``: one
-    ``conv_operand`` (stage 1's input), one ``conv_transpose`` per stage,
+    ``conv_pre`` (stage 1's operand), one ``conv_transpose`` per stage,
     one ``mrf_pair`` per ResBlock1 pair that it takes (channels up to 128)
     and one ``mrf_conv`` per other conv (1, 4, 27 and 18 for UNIVERSAL_V1:
     72 convs)."""
@@ -239,7 +245,7 @@ def vocode_launches(h: dict) -> dict:
     from tacotron2_tpu_torch.models.layers import Policy
     from tacotron2_tpu_torch.ops import mrf
 
-    n = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0, "conv_operand": 1}
+    n = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0, "conv_pre": 1}
     for rbs, _ in HiFiGAN(HiFiGANConfig.from_dict(h), Policy(torch.bfloat16)).kernel_weights():
         n["conv_transpose"] += 1
         for rb in rbs:
@@ -408,6 +414,54 @@ def check(name: str, pairs, tol, log: dict, kernel: str = "", own: bool = False)
         if not r <= lim:
             raise SmokeFailure(f"{name} {label}: rel err {r:.3e} > {lim:g}")
     return worst
+
+
+# conv_pre on mrf_conv's kernel against its plain version: the two sum in
+# other orders, so a sum near a bf16 rounding boundary rounds the other way
+# before the bias. Each element within one bf16 ulp of the rounded sum
+# (carried through the bias) plus one of the output, on at most this share
+# of the elements
+CONV_PRE_SHARE = 1e-2
+
+
+def bf16_ulp(v):
+    """The bf16 ulp of each element of ``v`` (0 where v is 0)."""
+    import torch
+
+    a = v.float().abs()
+    return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-38))) - 7), 0.0)
+
+
+def conv_pre_check(hifigan, mel, log: dict, tag: str):
+    """``conv_pre`` (``mrf_conv``'s kernel at Ci = num_mels, the sum rounded
+    to bf16 before the bias) from the bf16 mel against ``operand(conv1d(...,
+    round_out=True))`` (cuDNN, f32 sums of the bf16 operands): fails unless
+    every element is within one bf16 ulp of the rounded sum plus one of the
+    output, and at most CONV_PRE_SHARE of them differ; the share goes to
+    the log. -> the kernel's operand"""
+    import torch
+
+    from tacotron2_tpu_torch.models import layers
+    from tacotron2_tpu_torch.ops import mrf
+
+    bf = torch.bfloat16
+    pol, w, b = hifigan.policy, hifigan.conv_pre.weight, hifigan.conv_pre.bias
+    got = mrf.conv_pre(mel.to(bf).contiguous(), hifigan.conv_pre_weights())
+    ref = mrf.operand(layers.conv1d(mel, w, b, pol, padding=3, round_out=True), bf)
+    sums = pol.cast(layers.conv1d(mel, w, None, pol, padding=3))
+    diff = (got.float() - ref.float()).abs()
+    over = float((diff - bf16_ulp(sums) - bf16_ulp(ref)).max())
+    share = float((diff > 0).float().mean())
+    a = float(diff.max())
+    print(f"  conv_pre@{tag:<14} max_abs_err {a:.3e}  {100 * share:.4f}% of the elements "
+          f"differ, each within one bf16 ulp: {over <= 0}")
+    log.setdefault("checks", []).append({"kernel": "conv_pre", "check": f"conv_pre@{tag}",
+                                         "output": "a", "max_abs_err": a, "rel_err": share,
+                                         "tol": CONV_PRE_SHARE, "within_one_ulp": over <= 0})
+    if not (over <= 0 and share <= CONV_PRE_SHARE):
+        raise SmokeFailure(f"conv_pre@{tag}: {100 * share:.4f}% of the elements differ from "
+                           f"the plain version, the worst {over:.3e} past one bf16 ulp")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -933,6 +987,35 @@ def cell_rows(model, log: dict, rows=K1_ROWS) -> dict:
 UP_ROWS = (1, 16, 64)  # rows of up_rows: the say, the serve windows
 
 
+def conv_pre_rows(hifigan, mel, reps, log: dict, tag: str) -> dict:
+    """``conv_pre`` on ``mel`` (B, T, num_mels): held to its plain version
+    (``conv_pre_check``), its device ms (graph replay), the plain version's,
+    its bound (the bf16 mel, the weights and the bf16 operand out; its
+    flops), and cuDNN's ``F.conv1d`` over the same operands in f32 (TF32
+    off: what the vocoder ran before, without the operand's launch) and in
+    bf16 (a yardstick, bf16 output)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tacotron2_tpu_torch.ops import mrf
+
+    bf = torch.bfloat16
+    cw = hifigan.conv_pre_weights()
+    a = mel.to(bf).contiguous()
+    got = conv_pre_check(hifigan, mel, log, tag)
+    K, Co, Ci = cw.w.shape
+    B, T, _ = mel.shape
+    b_ms, b_by = bound_ms(nbytes(a, cw.w, cw.b, got), 2 * B * T * Co * Ci * K)
+    xt = a.transpose(1, 2).contiguous()
+    w16 = cw.w.permute(1, 2, 0).contiguous()
+    xt32, w32, b16 = xt.float(), w16.float(), cw.b.to(bf)
+    return {"ms": time_ms(lambda: mrf.conv_pre(a, cw), *reps),
+            "plain_ms": time_ms(lambda: mrf.conv_pre_plain(a, cw), *reps),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: F.conv1d(xt32, w32, cw.b, padding=K // 2), *reps),
+            "library_bf16_ms": time_ms(lambda: F.conv1d(xt, w16, b16, padding=K // 2), *reps)}
+
+
 def heads_copy(pk) -> dict:
     """The heads wrapper's tiled weight copy of a pack (``wt_out``), as a
     keyword; none for a parent's package, whose heads read ``w_out``."""
@@ -944,8 +1027,9 @@ def up_rows(model, hifigan, Tb: int, log: dict) -> dict:
     ``Tb``-frame vocode on random inputs (device ms by graph replay; bound;
     ``F.conv_transpose1d`` in f32 with TF32 off and in bf16 on the operand
     the upsample reads), the vocode's device time (``HiFiGAN.apply``, graph
-    replay) and each upsample's share of it; stage 1's ``conv_operand``
-    where the package has it; K1's ``prenet`` alone (held against
+    replay) and each upsample's share of it; ``conv_pre`` (``F.conv1d`` f32
+    and bf16 beside it), or stage 1's ``conv_operand`` where a parent's
+    package has that; K1's ``prenet`` alone (held against
     ``prenet_plain``, K1_TOL) and ``heads`` alone, each with its bound.
     Runs this tree's package or a parent's (``--root``): an upsample
     without a folded copy takes the f32 input, a pack without
@@ -969,13 +1053,19 @@ def up_rows(model, hifigan, Tb: int, log: dict) -> dict:
     kw = hifigan.kernel_weights()
     folded = hasattr(kw[0][1], "folded")
     out: dict = {"conv_transpose": {}, "vocode": {}, "prenet": {}, "heads": {}}
-    if folded:
-        out["conv_operand"] = {}
+    pre = "conv_pre" if hasattr(mrf, "conv_pre") else "conv_operand" if folded else None
+    if pre:
+        out[pre] = {}
     for B in UP_ROWS:
         reps = (2, 2) if B > 1 else (10, 4)
         mel = torch.randn(B, Tb, hifigan.cfg.num_mels, device=dev, generator=g)
         voc_ms = time_ms(lambda: hifigan.apply(mel), 2 if B > 1 else 10, 1)
         out["vocode"][f"B{B}"] = {"ms": voc_ms}
+        if pre == "conv_pre":
+            r = out[pre][f"B{B}"] = conv_pre_rows(hifigan, mel, reps, log, f"B{B}x{Tb}")
+            print(f"  conv_pre at {B} rows, Tb={Tb}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+                  f"plain {r['plain_ms']:.4f}, F.conv1d f32 {r['library_ms']:.4f}, bf16 "
+                  f"{r['library_bf16_ms']:.4f})")
         stages, T = [], Tb
         for i, (_, uw) in enumerate(kw):
             K, Ci, Co = uw.w.shape
@@ -987,7 +1077,7 @@ def up_rows(model, hifigan, Tb: int, log: dict) -> dict:
                 check(f"conv_transpose[{i}]@B{B}x{T}", [("out", yk, yp), ("act", ak, ap)],
                       K2_TOL, log, "conv_transpose")
                 del yk, ak, yp, ap
-                if i == 0:
+                if i == 0 and pre == "conv_operand":
                     nb = nbytes(x, a)
                     b_ms, b_by = bound_ms(nb, 0)
                     out["conv_operand"][f"B{B}"] = {
@@ -1690,8 +1780,9 @@ def k1_rows_mode(out_name: str) -> int:
                       vocoder_policy(torch.device("cuda"))).cuda().eval()
     Tb = -(-(255 + hifigan.mel_receptive_field()) // 128) * 128  # the say's bucket
     try:
-        if "--enc-ab" in sys.argv[1:]:  # the encoder's forward alone
+        if "--enc-ab" in sys.argv[1:]:  # the encoder's recurrence alone
             enc_rows(model, cfg, log)
+            enc_bwd_rows(model, cfg, log)
             enc_ab(model, cfg, log)
         else:
             up_rows(model, hifigan, Tb, log)
@@ -1699,6 +1790,7 @@ def k1_rows_mode(out_name: str) -> int:
             cell_invariance(model, log)
             serve_rows_split(model, cfg, log)
             enc_rows(model, cfg, log)
+            enc_bwd_rows(model, cfg, log)
             from tacotron2_tpu_torch.ops import decoder_loop as dl
 
             if hasattr(dl, "stage_controls"):  # a package with the controls mode
@@ -1726,8 +1818,9 @@ def stage_kernel(rbs) -> str:
 
 def k2_phase(hifigan, log: dict, frames: int) -> None:
     """Each UNIVERSAL_V1 stage over ``frames`` mel frames, kernels against
-    plain: stage 1's ``conv_operand`` (exact), the upsample and its operand
-    on the operand of the stage input, the stage's first conv (or fused
+    plain: ``conv_pre`` (``conv_pre_check``; a row alone against the same
+    row in a batch of ``K2_INVARIANCE_ROWS``, bit for bit), the upsample and
+    its operand on the operand of the stage input, the stage's first conv (or fused
     pair) alone on that operand, then the whole stage, and the stage mean's
     operand as the next upsample reads it (exactly ``operand`` of the
     kernels' f32 mean). Bitwise checks fail the run: the upsample and the
@@ -1744,15 +1837,19 @@ def k2_phase(hifigan, log: dict, frames: int) -> None:
     g.manual_seed(SEED + 2)
     bf = torch.bfloat16
     mel = torch.randn(1, frames, hifigan.cfg.num_mels, device="cuda", generator=g)
-    x = layers.conv1d(mel, hifigan.conv_pre.weight, hifigan.conv_pre.bias, hifigan.policy,
-                      padding=3)
-    plain = mrf.plain_stage
     n = K2_INVARIANCE_ROWS - 1
+    a0 = conv_pre_check(hifigan, mel, log, str(frames))
+    mel_b = torch.cat([mel, torch.randn(n, *mel.shape[1:], device="cuda", generator=g)])
+    if not torch.equal(mrf.conv_pre(mel_b.to(bf), hifigan.conv_pre_weights())[:1], a0):
+        raise SmokeFailure(f"conv_pre@{frames}: a row alone differs from the same row in a "
+                           f"batch of {n + 1}")
+    del mel_b
+    x = layers.conv1d(mel, hifigan.conv_pre.weight, hifigan.conv_pre.bias, hifigan.policy,
+                      padding=3, round_out=True)
+    plain = mrf.plain_stage
     for i, (rbs, ups) in enumerate(hifigan.kernel_weights()):
         x = x.contiguous()
-        a = mrf.conv_operand(x, bf)
-        check(f"conv_operand[{i}]@{frames}", [("a", a, mrf.conv_operand_plain(x, bf))], 0.0,
-              log, "conv_operand")
+        a = mrf.operand(x, bf)
         xu, au = mrf.conv_transpose_plain(a, ups, want_act=True)
         yk, ak = mrf.conv_transpose(a, ups, want_act=True)
         check(f"conv_transpose[{i}]@{frames}", [("out", yk, xu), ("act", ak, au)],
@@ -1814,9 +1911,11 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
     its flops; a stage's share goes to each kernel by its share of the
     stage's flops. ``conv_transpose`` is given its input operand, its
     weights, its outputs (f32 and operand) and the transposed conv's flops
-    (not the folded conv's zero taps); ``conv_operand`` its bytes. The
-    vocode runs as ``HiFiGAN.apply`` does: stage 1's operand by
-    ``conv_operand``, each later stage's from the mean of the one before.
+    (not the folded conv's zero taps); ``conv_pre`` its own: the bf16 mel,
+    its weights, its bf16 operand out and its flops (library: cuDNN's
+    ``F.conv1d`` over the same operands). The vocode runs as ``HiFiGAN.apply``
+    does: stage 1's operand by ``conv_pre``, each later stage's from the
+    mean of the one before.
     The activations this one-launch-per-conv design writes and
     reads between launches (the bf16 operands, the f32 residual stream and
     stage mean) are the design's cost, reported beside the bound as
@@ -1846,17 +1945,17 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 3)
     mel = torch.randn(rows_b, Tb, hifigan.cfg.num_mels, device="cuda", generator=g)
-    x = layers.conv1d(mel, hifigan.conv_pre.weight, hifigan.conv_pre.bias, hifigan.policy,
-                      padding=3)
-    names = ("mrf_conv", "mrf_pair", "conv_transpose", "conv_operand")
+    names = ("mrf_conv", "mrf_pair", "conv_transpose", "conv_pre")
     tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_bf16_ms": 0.0,
                "bound_ms": 0.0, "eager_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                "traffic_ms": 0.0, "calls": 0} for n in names}
     kw = hifigan.kernel_weights()
-    x = x.contiguous()
-    calls.append(("conv_operand", x))
-    a = mrf.conv_operand(x, torch.bfloat16)
-    parts0 = {"conv_operand": (nbytes(x, a), 0)}
+    cwp = hifigan.conv_pre_weights()
+    a_mel = mel.to(torch.bfloat16)
+    calls.append(("conv_pre", a_mel))
+    a = mrf.conv_pre(a_mel, cwp)
+    K, Co, Ci = cwp.w.shape
+    parts0 = {"conv_pre": (nbytes(a_mel, cwp.w, cwp.b, a), 2 * rows_b * Tb * Co * Ci * K)}
     for i, (rbs, ups) in enumerate(kw):
         ain = a
         first = len(calls)
@@ -1933,12 +2032,17 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
             nb = (nbytes(x, uw.folded.wt, uw.folded.b)
                   + x.shape[0] * Tout * Co * (4 + 2 * want_act))
             w_shape = list(uw.w.shape)
-        else:  # conv_operand: no one library call computes it
-            kern = lambda: mrf.conv_operand(x, bf)
-            plain_fn = lambda: mrf.conv_operand_plain(x, bf)
-            lib = lib_bf16 = None
-            nb = nbytes(x) + x.numel() * 2
-            w_shape = []
+        else:  # conv_pre, from the bf16 mel x
+            kern = lambda: mrf.conv_pre(x, cwp)
+            plain_fn = lambda: mrf.conv_pre_plain(x, cwp)
+            xt = x.transpose(1, 2).contiguous()
+            wt = cwp.w.permute(1, 2, 0).contiguous()
+            xt32, wt32, b16 = xt.float(), wt.float(), cwp.b.to(bf)
+            Kp = cwp.w.shape[0]
+            lib = lambda: F.conv1d(xt32, wt32, cwp.b, padding=Kp // 2)
+            lib_bf16 = lambda: F.conv1d(xt, wt, b16, padding=Kp // 2)
+            nb = nbytes(x, cwp.wt, cwp.b) + x.shape[0] * x.shape[1] * cwp.w.shape[1] * 2
+            w_shape = list(cwp.w.shape)
         reps = (2, 2) if big else (5, 4)
         ms = time_ms(kern, *reps)
         traffic_ms = nb / HBM_BYTES_PER_S * 1e3
@@ -1958,13 +2062,14 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
     # the MRF without its upsample (:285) runs on mrf_conv / mrf_pair alone
     replaces = {"conv_transpose": "tacotron2_tpu/ops/mrf_pallas.py:312,378 (the upsample of "
                                   "the u=8 and u=2 stage kernels)",
-                "conv_operand": "tacotron2_tpu/ops/mrf_pallas.py:312 (the u=8 stage kernel's "
-                                "lrelu of its input)"}
+                "conv_pre": "tacotron2_tpu/models/hifigan.py:366 (conv_pre, XLA's conv under "
+                            "the bf16 policy) and tacotron2_tpu/ops/mrf_pallas.py:312 (the u=8 "
+                            "stage kernel's lrelu of its input)"}
     for name in names:
         t = tot[name]
         if not t["calls"]:
             continue
-        lib_none = name == "conv_operand"
+        lib_none = False
         rows.append({
             "name": name, "route": "cuda", "source": "tacotron2_tpu_torch/csrc/mrf.cu",
             "replaces": replaces.get(name, "tacotron2_tpu/ops/mrf_pallas.py:312,378 (also :285)"),
@@ -2068,7 +2173,7 @@ def k2_ab(hifigan, Tb: int) -> dict:
                            hifigan.policy, padding=3).contiguous()
 
         def vocode(pair):
-            a = mrf.conv_operand(x0)
+            a = mrf.operand(x0, torch.bfloat16)
             for i, (rbs, ups) in enumerate(kw):
                 out = mrf.run_stage(None, rbs, ups, mrf.mrf_conv, mrf.conv_transpose, pair, a,
                                     i < len(kw) - 1)
@@ -2579,7 +2684,8 @@ def encoder_lstm_phase(model, cfg, log: dict) -> list:
         ("bilstm_forward", lambda: el.bilstm_forward(xp, wb, b),
          lambda: el.bilstm_forward_plain(xp, wb, b), lambda: lstm(x), fwd_bytes, flops),
         ("bilstm_backward", lambda: el.bilstm_backward(dhs, fp[2], fp[1], wb),
-         lambda: el.bilstm_backward_plain(dhs, fp[2], fp[1], wb), None, bwd_bytes, flops),
+         lambda: el.bilstm_backward_plain(dhs, fp[2], fp[1], wb),
+         lstm_backward(lstm, x, torch.float32), bwd_bytes, flops),
     ):
         b_ms, b_by = bound_ms(nb, fl)
         rows.append({
@@ -2588,12 +2694,35 @@ def encoder_lstm_phase(model, cfg, log: dict) -> list:
                         "policy; XLA, not a Pallas kernel)",
             "ms": time_ms(kern, 3, 1), "plain_ms": time_ms(plain, 2, 1), "bound_ms": b_ms,
             "bound_by": b_by, "eager_ms": eager_ms(kern, 3),
-            "library_ms": None if lib is None else time_ms(lib, 3, 1),
+            # the backward's yardstick eagerly (autograd of nn.LSTM)
+            "library_ms": eager_ms(lib, 5) if name == "bilstm_backward" else time_ms(lib, 3, 1),
             "per": f"both directions, B={B}, T={T}, H={H}",
         })
-    log["bilstm_library"] = "nn.LSTM f32 (cuDNN) forward: f32 operands, not bf16; a yardstick"
+    log["bilstm_library"] = ("nn.LSTM f32 (cuDNN): the forward, and the backward of its output "
+                             "with the forward outside the timed region (dx and dW too); f32 "
+                             "operands, not bf16; yardsticks")
     rows[0]["rows"] = enc_rows(model, cfg, log)
+    rows[1]["rows"] = enc_bwd_rows(model, cfg, log)
     return rows
+
+
+def lstm_backward(lstm, x, dtype):
+    """A call that runs the backward of bidirectional ``nn.LSTM`` (cuDNN)
+    over x in ``dtype`` from a forward made once, outside it: the gradients
+    of the input and every weight for a fixed output cotangent (the library
+    yardstick of ``bilstm_backward``, which leaves dx and dW to products
+    after its loop)."""
+    import copy
+
+    import torch
+
+    m = copy.deepcopy(lstm).to(dtype).train()  # cuDNN's RNN backward wants train mode
+    xi = x.to(dtype).detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = m(xi)[0]
+    cot = torch.randn_like(out)
+    inputs = [xi, *m.parameters()]
+    return lambda: torch.autograd.grad(out, inputs, cot, retain_graph=True)
 
 
 ENC_INVARIANCE_ROWS = (0, 1, 37, 63)  # rows of a 64-row forward held against the rows alone
@@ -2617,17 +2746,18 @@ def host_ms(fn, reps: int = 20) -> float:
 
 
 def enc_shapes(cfg) -> tuple:
-    """The forward recurrence's shapes on the main paths: (tag, B, T) of the
-    say's one row at its own chars, the serve window's 64 rows at
-    CHAR_BUCKET (also the controllable config's train batch at T=128) and
-    the vanilla train batch."""
+    """The recurrence's shapes on the main paths: (tag, B, T) of the say's
+    one row at its own chars, the serve window's 64 rows at CHAR_BUCKET
+    (also the controllable config's train batch at T=128), the vanilla train
+    batch, and a ragged batch of 37 rows (a partial 8-row tile past the
+    first: a last train or validation batch)."""
     from tacotron2_tpu_torch.run import server as srv
     from tacotron2_tpu_torch.text import normalize_text
 
     prep = cfg.dataset.preprocessing
     say_T = len(normalize_text(TEXT, prep.allowed_chars, prep.end_token, False))
     return (("say", 1, say_T), ("serve64_train64", 64, srv.CHAR_BUCKET),
-            ("train32", TRAIN_B, 128))
+            ("train32", TRAIN_B, 128), ("ragged37", 37, 128))
 
 
 def enc_rows(model, cfg, log: dict) -> dict:
@@ -2706,6 +2836,75 @@ def enc_rows(model, cfg, log: dict) -> dict:
     return out
 
 
+def enc_bwd_rows(model, cfg, log: dict) -> dict:
+    """The encoder's backward recurrence (``bilstm_backward``) at
+    ``enc_shapes`` on the forward kernel's activations and a random dh
+    (x 1e-2, as the train step's): against its plain version (ENC_TOL's
+    dg, to its own max), device ms by graph replay beside its plain
+    version and bound, and the backward of bidirectional ``nn.LSTM``
+    (cuDNN) in f32 and bf16 over the same rows, its forward outside the
+    timed region (``lstm_backward``; yardsticks: the input projection's
+    gradients inside); rows ENC_INVARIANCE_ROWS of a 64-row launch against
+    the rows alone, bit for bit (fails the run otherwise). Runs this tree's
+    package or a parent's (``--root``). -> {tag: readings}"""
+    import hashlib
+
+    import torch
+
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 62)
+    lstm = model.encoder.lstm
+    H, C = lstm.hidden_size, lstm.input_size
+    wb = torch.stack([lstm.weight_hh_l0, lstm.weight_hh_l0_reverse]).detach().to(
+        torch.bfloat16).contiguous()
+    b = torch.stack([lstm.bias_hh_l0, lstm.bias_hh_l0_reverse]).detach().contiguous()
+    out: dict = {}
+    if hasattr(el, "backward_plan"):  # this tree's build (not a parent's)
+        out["max_clusters"] = bwd_max_clusters(el._lib(), H)
+        print(f"  bilstm_backward: the card runs {out['max_clusters']} of its clusters at once, "
+              f"{2 * -(-64 // el.ENC_TILE)} at 64 rows")
+    for tag, B, T in enc_shapes(cfg):
+        xp = torch.randn(2, B, T, 4 * H, device=dev, generator=g)
+        _, cs, act = el.bilstm_forward(xp, wb, b)
+        dhs = torch.randn(2, B, T, H, device=dev, generator=g) * 1e-2
+        kern = lambda dhs=dhs, act=act, cs=cs: el.bilstm_backward(dhs, act, cs, wb)
+        plain = lambda dhs=dhs, act=act, cs=cs: el.bilstm_backward_plain(dhs, act, cs, wb)
+        got = kern()
+        check(f"bilstm_backward@B{B},T{T}", [("dg", got, plain())], ENC_TOL, log,
+              "bilstm_backward", own=True)
+        b_ms, b_by = bound_ms(nbytes(dhs, cs, act, wb, got), 2 * 2 * B * T * 4 * H * H)
+        x = torch.randn(B, T, C, device=dev, generator=g)
+        reps = (3, 1) if T * B > 64 else (10, 1)
+        lib32, lib16 = lstm_backward(lstm, x, torch.float32), lstm_backward(lstm, x, torch.bfloat16)
+        out[tag] = {"B": B, "T": T, "ms": time_ms(kern, *reps), "plain_ms": time_ms(plain, 2, 1),
+                    "bound_ms": b_ms, "bound_by": b_by, "eager_ms": eager_ms(kern, 5),
+                    "library_ms": eager_ms(lib32, 5), "library_bf16_ms": eager_ms(lib16, 5),
+                    "library_timing": "eager (autograd of nn.LSTM, CUDA events)",
+                    "launches_per_call": el.backward_launches(T),
+                    "out_sha1": hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest()}
+        r = out[tag]
+        print(f"  bilstm_backward at B={B}, T={T}: {r['ms']:.4f} ms (bound {b_ms:.4f} ms, "
+              f"plain {r['plain_ms']:.3f}, eager {r['eager_ms']:.4f}; nn.LSTM backward "
+              f"(cuDNN, eager) f32 {r['library_ms']:.4f}, bf16 {r['library_bf16_ms']:.4f})")
+        if B == 64:  # rows of this launch against the same rows alone
+            for row in ENC_INVARIANCE_ROWS:
+                sl = lambda t: t[:, row:row + 1].contiguous()
+                same = torch.equal(got[:, row:row + 1],
+                                   el.bilstm_backward(sl(dhs), sl(act), sl(cs), wb))
+                log.setdefault("enc_invariance", {})[f"backward row {row} of {B}, T={T}"] = same
+                if not same:
+                    raise SmokeFailure(f"bilstm_backward: row {row} alone differs from the "
+                                       f"same row of a {B}-row launch")
+            print(f"  bilstm_backward: rows {ENC_INVARIANCE_ROWS} of the {B}-row launch equal "
+                  "the rows alone, bit for bit")
+        del xp, cs, act, dhs, got, x, lib32, lib16
+    log["enc_bwd_rows"] = out
+    return out
+
+
 # copies of csrc/encoder_lstm.cu for the forward's design readings, each
 # (name, [(pattern, replacement), ...]): the source; a copy that records
 # %globaltimer at the phases of each step (block 0 of direction 0, thread
@@ -2741,18 +2940,23 @@ ENC_AB = (
     ("tile64", [(r"constexpr int ETILE = 8;", "constexpr int ETILE = 64;")]),
     ("defect_stale_exchange", [(r"const uint8_t\* dst = hn \+ ",
                                 "const uint8_t* dst = (p == 0 && rank != 0 ? hc : hn) + ")]),
+    # the backward: rank 0 gets the other ranks' dg in the buffer it read
+    # this step, so its next product reads theirs from two steps before
+    ("defect_bwd_stale_exchange", [(r"const uint8_t\* dst = bn \+ ",
+                                    "const uint8_t* dst = (p == 0 && rank != 0 ? bufs + "
+                                    "((n + 1) & 1) * bufbytes : bn) + ")]),
 )
 
 
-def build_copies(src_name: str, copies, out_dir: Path) -> dict:
+def build_copies(src_name: str, copies, out_dir: Path, csrc: Path = None) -> dict:
     """nvcc of each copy of ``csrc/<src_name>.cu`` (each a list of regex
-    substitutions that must each match once), all started together ->
-    {name: library path}."""
+    substitutions that must each match once; ``csrc``: another tree's
+    sources), all started together -> {name: library path}."""
     import re
 
     from tacotron2_tpu_torch.ops import build
 
-    csrc = Path(build.__file__).parents[1] / "csrc"
+    csrc = csrc or Path(build.__file__).parents[1] / "csrc"
     src = (csrc / f"{src_name}.cu").read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -2781,7 +2985,12 @@ def enc_ab(model, cfg, log: dict) -> dict:
     turns, two rounds, the second in reverse order (device ms by graph
     replay), and the stamps copy's phases a step (ns, median over steps 1-62
     of block 0): the wait for the step's h, the product, the wait for the
-    step's xp, the epilogue, the push."""
+    step's xp, the epilogue, the push. Then the backward at ``enc_shapes``
+    in turns, parent, change, change, parent: the parent's route built from
+    build/parent's ``csrc/encoder_lstm.cu`` (a ``git archive`` of the parent
+    unpacked there), called through its own entry (2 T launches, its
+    scratch zeroed in each call), against this tree's; both against the
+    plain version."""
     import ctypes
 
     import numpy as np
@@ -2839,10 +3048,151 @@ def enc_ab(model, cfg, log: dict) -> dict:
                   + ", ".join(f"{k} {v:.0f}" for k, v in med.items()))
     finally:
         el._LIB = saved
+    out.update(enc_bwd_ab(model, cfg, libs["source"], wb, H, log))
     for k, v in out.items():
         if isinstance(v, list):
             print(f"  {k}: " + " / ".join(f"{x:.4f}" for x in v) + " ms")
     log["enc_ab"] = out
+    return out
+
+
+# copies of csrc/encoder_lstm.cu for the backward's design readings: one
+# block an SM (the first build: a 16th cluster of 8 waits for another to
+# end); a copy that records %globaltimer at the phases of each step (block
+# 0 of direction 0, thread 0, the first 64 steps; ``t2_bwd_stamps`` reads
+# them back)
+BWD_STAMP = "if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && rank == 0 && n < 64) " \
+            "bwd_stamps[n * 8 + {i}] = gtime();"
+ENC_BWD_AB = (
+    ("bwd_one_block_per_sm", [(r"__launch_bounds__\(32 \* \(H / ES / 4\), 2\)",
+                               "__launch_bounds__(32 * (H / ES / 4), 1)")]),
+    ("bwd_stamps", [
+        (r"(namespace \{\n)", r"\1__device__ unsigned long long bwd_stamps[64 * 8];\n"
+         "__device__ __forceinline__ unsigned long long gtime() {\n  unsigned long long t;\n"
+         "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n  return t;\n}\n"),
+        (r"(    if \(n > 0\) \{  // every rank's dg of step s \+ 1 has landed)",
+         BWD_STAMP.format(i=0) + r"\n\1"),
+        (r"(    if \(s > 0\) fetch\(s - 1, \(n \+ 1\) & 1\);)", BWD_STAMP.format(i=1) + r"\n\1"),
+        (r"(    if \(n > 0\) \{\n      const uint8_t\* hr)", BWD_STAMP.format(i=2) + r"\n\1"),
+        (r"(    cp_async_wait1\(\);  // this step's act)", BWD_STAMP.format(i=3) + r"\n\1"),
+        (r"(    if \(live\) \{\n      float dh_rec)", BWD_STAMP.format(i=4) + r"\n\1"),
+        (r"(    if \(n \+ 1 == T\) break;)", BWD_STAMP.format(i=5) + r"\n\1"),
+        (r"(\n  \}\n  cluster\.sync\(\);  // every push to this rank)",
+         "\n" + BWD_STAMP.format(i=6) + r"\1"),
+        (r"(extern \"C\" \{\n)", r"\1int t2_bwd_stamps(void* out) {\n  return (int)"
+         "cudaMemcpyFromSymbol(out, bwd_stamps, sizeof(bwd_stamps));\n}\n"),
+    ]),
+)
+
+
+def bwd_max_clusters(lib, H: int) -> int:
+    """The most clusters of the backward at width H a build runs on the
+    card at once (``t2_bilstm_backward_clusters``)."""
+    import ctypes
+
+    n = ctypes.c_int(0)
+    lib.t2_bilstm_backward_clusters.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    err = lib.t2_bilstm_backward_clusters(H, ctypes.byref(n))
+    if err:
+        raise SmokeFailure(f"t2_bilstm_backward_clusters: CUDA error {err}")
+    return n.value
+
+
+def enc_bwd_ab(model, cfg, lib, wb, H: int, log: dict) -> dict:
+    """The backward in turns (``enc_ab``): the parent's build against this
+    tree's (``lib``) and the ENC_BWD_AB copies, at ``enc_shapes`` and at 56
+    and 57 rows (the most whose clusters of 8 fit the card with one block an
+    SM, and one more tile) -> {"bwd_<build>_<tag>": [ms, ...], ...}."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
+
+    out: dict = {}
+    csrc = ROOT / "build" / "parent" / "tacotron2_tpu_torch" / "csrc"
+    if not (csrc / "encoder_lstm.cu").exists():
+        raise SmokeFailure(f"--enc-ab times the backward against the parent's: unpack git "
+                           f"archive <parent> tacotron2_tpu_torch into {csrc.parents[1]}")
+    parent = ctypes.CDLL(str(build_copies("encoder_lstm", [("parent", [])],
+                                          ROOT / "build" / "enc_ab_parent", csrc)["parent"]))
+    parent.t2_bilstm_backward.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                          ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    parent.t2_bilstm_backward.restype = ctypes.c_int
+    copies = {}
+    for name, path in build_copies("encoder_lstm", ENC_BWD_AB,
+                                   ROOT / "build" / "enc_bwd_ab").items():
+        copies[name] = ctypes.CDLL(str(path))
+        for fn in (copies[name].t2_bilstm_forward, copies[name].t2_bilstm_backward):
+            fn.argtypes = parent.t2_bilstm_backward.argtypes
+            fn.restype = ctypes.c_int
+    for name, l in (("change", lib), *copies.items()):
+        out[f"bwd_max_clusters_{name}"] = bwd_max_clusters(l, H)
+    print("  clusters of the backward the card runs at once (cudaOccupancyMaxActiveClusters): "
+          + ", ".join(f"{k[17:]} {v}" for k, v in out.items() if k.startswith("bwd_max")))
+
+    def parent_bwd(dhs, act, cs):
+        _, B, T, _ = dhs.shape
+        dg = torch.empty(2, B, T, 4 * H, device=dhs.device)
+        scratch = [torch.zeros(2, B, H, device=dhs.device) for _ in range(2)]
+        ts = (dhs, act, cs, wb, dg, *scratch)
+        err = parent.t2_bilstm_backward((ctypes.c_void_p * 7)(*(t.data_ptr() for t in ts)),
+                                        (ctypes.c_int * 3)(B, T, H),
+                                        torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SmokeFailure(f"the parent's t2_bilstm_backward: CUDA error {err}")
+        return dg
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 63)
+    b = torch.stack([model.encoder.lstm.bias_hh_l0,
+                     model.encoder.lstm.bias_hh_l0_reverse]).detach().contiguous()
+    saved = el._LIB
+    try:
+        shapes = (*enc_shapes(cfg), ("rows56", 56, 128), ("rows57", 57, 128))
+        for tag, B, T in shapes:
+            el._LIB = lib
+            xp = torch.randn(2, B, T, 4 * H, device="cuda", generator=g)
+            _, cs, act = el.bilstm_forward(xp, wb, b)
+            dhs = torch.randn(2, B, T, H, device="cuda", generator=g) * 1e-2
+            ref = el.bilstm_backward_plain(dhs, act, cs, wb)
+            bwd = lambda: el.bilstm_backward(dhs, act, cs, wb)
+            fns = {"parent": (None, lambda: parent_bwd(dhs, act, cs)), "change": (lib, bwd),
+                   **{name: (copy, bwd) for name, copy in copies.items()}}
+            order = ["parent", "change", *copies, *copies, "change", "parent"]
+            for name in order:
+                el._LIB, fn = fns[name][0] or lib, fns[name][1]
+                out.setdefault(f"bwd_err_{name}_{tag}", err(fn(), ref, own=True)[1])
+                out.setdefault(f"bwd_{name}_{tag}", []).append(time_ms(fn, 3, 1))
+            del xp, cs, act, dhs, ref
+        # the stamps copy's phases a step (ns, median over steps 1-62 of
+        # block 0): the wait for the step's dg, issuing the next step's
+        # cp.async, the product, the wait for this step's act / cs / dhs
+        # and the block, the pull, the push (with its barrier)
+        phases = ("wait_dg", "fetch", "product", "wait_stage", "pull", "push")
+        for tag, B, T in enc_shapes(cfg):
+            el._LIB = copies["bwd_stamps"]
+            xp = torch.randn(2, B, T, 4 * H, device="cuda", generator=g)
+            _, cs, act = el.bilstm_forward(xp, wb, b)
+            el.bilstm_backward(torch.randn(2, B, T, H, device="cuda", generator=g) * 1e-2,
+                               act, cs, wb)
+            torch.cuda.synchronize()
+            buf = (ctypes.c_uint64 * (64 * 8))()
+            if copies["bwd_stamps"].t2_bwd_stamps(ctypes.cast(buf, ctypes.c_void_p)):
+                raise SmokeFailure("t2_bwd_stamps failed")
+            st = np.frombuffer(buf, dtype=np.uint64).reshape(64, 8).astype(np.int64)
+            n = min(T, 64) - 1
+            d = [st[1:n, i + 1] - st[1:n, i] for i in range(6)] + [st[2:n + 1, 0] - st[1:n, 0]]
+            med = {k: float(np.median(v)) for k, v in zip(phases + ("step",), d)}
+            out[f"bwd_phases_ns_{tag}"] = med
+            print(f"  backward phases at B={B}, T={T} (ns a step, median): "
+                  + ", ".join(f"{k} {v:.0f}" for k, v in med.items()))
+    finally:
+        el._LIB = saved
+    print("  bilstm_backward's error to its own max, parent / change: " + "; ".join(
+        f"{tag} {out[f'bwd_err_parent_{tag}']:.2e} / {out[f'bwd_err_change_{tag}']:.2e}"
+        for tag, _, _ in shapes))
     return out
 
 
@@ -2858,7 +3208,9 @@ def defect_phase(model, cfg, log: dict) -> None:
     against the plain version: the heads with one rank's partial sum left
     out (K1_TOL, vanilla at 1 and 64 rows, controls at 16), the encoder's
     forward with rank 0 reading the other ranks' h stale, only its own
-    slice fresh (ENC_TOL, at the say's one row and at 64 rows)."""
+    slice fresh (ENC_TOL, at the say's one row and at 64 rows), and the
+    backward with rank 0 reading the other ranks' dg stale (ENC_TOL's dg,
+    at 1 and 37 rows)."""
     import ctypes
 
     import torch
@@ -2869,13 +3221,14 @@ def defect_phase(model, cfg, log: dict) -> None:
     out_dir = ROOT / "build" / "defects"
     heads_lib = dl.bind(ctypes.CDLL(str(build_copies("decode_step", [HEADS_DEFECT],
                                                      out_dir)[HEADS_DEFECT[0]])))
-    enc = dict(ENC_AB)["defect_stale_exchange"]
-    enc_lib = ctypes.CDLL(str(build_copies("encoder_lstm", [("defect_stale_exchange", enc)],
-                                           out_dir)["defect_stale_exchange"]))
-    for fn in (enc_lib.t2_bilstm_forward, enc_lib.t2_bilstm_backward):
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    enc_names = ("defect_stale_exchange", "defect_bwd_stale_exchange")
+    enc_paths = build_copies("encoder_lstm", [(n, dict(ENC_AB)[n]) for n in enc_names], out_dir)
+    enc_libs = {n: ctypes.CDLL(str(enc_paths[n])) for n in enc_names}
+    for lib in enc_libs.values():
+        for fn in (lib.t2_bilstm_forward, lib.t2_bilstm_backward):
+            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 70)
@@ -2902,15 +3255,25 @@ def defect_phase(model, cfg, log: dict) -> None:
     wb = torch.stack([lstm.weight_hh_l0, lstm.weight_hh_l0_reverse]).detach().to(
         torch.bfloat16).contiguous()
     b = torch.stack([lstm.bias_hh_l0, lstm.bias_hh_l0_reverse]).detach().contiguous()
+    real = el._lib()  # this tree's build, for the backward's inputs
     saved = el._LIB
     try:
-        el._LIB = enc_lib
+        el._LIB = enc_libs["defect_stale_exchange"]
         for tag, B, T in (enc_shapes(cfg)[0], ("serve64_train64", 64, 128)):
             xp = torch.randn(2, B, T, 4 * Hh, device=dev, generator=g)
             got = el.bilstm_forward(xp, wb, b)
             ref = el.bilstm_forward_plain(xp, wb, b)
             readings[f"bilstm_forward@B{B},T{T}"] = max(
                 err(x, y)[1] / ENC_TOL[k] for k, x, y in zip(("hs", "cs", "act"), got, ref))
+        for B, T in ((1, 96), (37, 128)):
+            el._LIB = real
+            xp = torch.randn(2, B, T, 4 * Hh, device=dev, generator=g)
+            _, cs, act = el.bilstm_forward(xp, wb, b)
+            dhs = torch.randn(2, B, T, Hh, device=dev, generator=g) * 1e-2
+            el._LIB = enc_libs["defect_bwd_stale_exchange"]
+            got = el.bilstm_backward(dhs, act, cs, wb)
+            readings[f"bilstm_backward@B{B},T{T}"] = err(
+                got, el.bilstm_backward_plain(dhs, act, cs, wb), own=True)[1] / ENC_TOL["dg"]
     finally:
         el._LIB = saved
     log["defects"] = readings
@@ -2988,6 +3351,9 @@ def train_run(root: Path, raw: dict, rows: list, n_val: int, speech: Path) -> tu
     if 0 in enc_launches.values():
         raise SmokeFailure(f"the encoder's BiLSTM kernels were not launched in train: "
                            f"{enc_launches}")
+    if enc_launches["bilstm_backward"] != len(steps):  # one launch a step
+        raise SmokeFailure(f"bilstm_backward launched {enc_launches['bilstm_backward']} times "
+                           f"in {len(steps)} train steps, want one a step")
     return str(cfg_train), first, second, launches, ctl_launches, enc_launches, losses, want
 
 
@@ -3841,9 +4207,9 @@ def serve_checks(registry, log: dict) -> dict:
     and 64 rows, K5 for the int8 entry at 16) over the waves' char lengths
     padded to the 128 bucket, so the kernels' later row groups are held too;
     then K2 at 16 and 64 rows of a decode of the waves' texts, on the served
-    vocoder's route (``HiFiGAN.apply``: stage 1's operand by
-    ``conv_operand``, each later stage's from the mean's operand that the
-    stage before wrote): every stage, its upsample and ``conv_operand``
+    vocoder's route (``HiFiGAN.apply``: stage 1's operand by ``conv_pre``,
+    each later stage's from the mean's operand that the stage before
+    wrote): ``conv_pre`` (``conv_pre_check``), every stage and its upsample
     against their plain versions on the same operand, and each mean's
     operand against ``operand`` of the f32 mean bit for bit. -> the PCM16
     difference of the batched ``cut_vocode`` from its plain reference route
@@ -3883,13 +4249,9 @@ def serve_checks(registry, log: dict) -> dict:
         # cut_vocode's input: the rows cut at 255 frames in a bucket of Tb
         m = torch.nn.functional.pad(mels[:, :Tb], (0, 0, 0, max(0, Tb - mels.shape[1])))
         m = m * (torch.arange(Tb, device=dev) < 255)[None, :, None]
-        x = layers.conv1d(m, hifigan.conv_pre.weight, hifigan.conv_pre.bias, hifigan.policy,
-                          padding=3).detach().contiguous()
         kw = hifigan.kernel_weights()
         dt = kw[0][1].w.dtype
-        a = mrf.conv_operand(x, dt)
-        check(f"conv_operand@B{B}x{Tb}", [("a", a, mrf.conv_operand_plain(x, dt))], 0.0, log,
-              "conv_operand")
+        a = conv_pre_check(hifigan, m.detach(), log, f"B{B}x{Tb}")
         for i, (rbs, ups) in enumerate(kw):
             tag = f"[{i}]@B{B}x{Tb}"
             check(f"conv_transpose{tag}", [("out", mrf.conv_transpose(a, ups)[0],
@@ -3904,7 +4266,7 @@ def serve_checks(registry, log: dict) -> dict:
                     raise SmokeFailure(f"mrf_stage{tag}: the mean's operand differs from the "
                                        "operand of the f32 mean")
             del got
-        del x, m
+        del m
         lsb = (cut_vocode(hifigan, mels, rows, cuts, Tb).long()
                - cut_vocode(hifigan, mels, rows, cuts, Tb, plain=True).long()).abs().float()
         pcm[f"B{B}"] = {"Tb": Tb, "max_lsb": float(lsb.max()), "mean_lsb": float(lsb.mean()),
@@ -4032,9 +4394,11 @@ def k1_ab() -> int:
     print(f"  the vanilla 64-step chunks (bf16 and int8, at {'/'.join(str(b) for b in K1_ROWS)} "
           f"rows) equal in both turns of each tree, bit for bit: {chunk_same}; the change's equal "
           f"the parent's: {chunks[0] == chunks[1]}")
-    for name in ("heads", "bilstm_forward"):
+    for name in ("heads", "bilstm_forward", "bilstm_backward"):
+        key = {"bilstm_forward": "enc_rows", "bilstm_backward": "enc_bwd_rows"}.get(name)
         src = (lambda t: t.get("up_rows", {}).get("heads", {})) if name == "heads" else (
-            lambda t: {k: v for k, v in t.get("enc_rows", {}).items() if "ms" in v})
+            lambda t, key=key: {k: v for k, v in t.get(key, {}).items()
+                                if isinstance(v, dict) and "ms" in v})
         print(f"  {name} in turns (parent, change, change, parent; "
               + ("us" if name == "heads" else "ms") + "): " + "; ".join(
                   f"{k} " + " / ".join(
@@ -4244,7 +4608,7 @@ def main() -> int:
         # and 64 rows ride along in their kernels' rows
         ups = up_rows(model, hifigan, Tb, log)
         for r in rows:
-            if r["name"] in ("conv_transpose", "conv_operand", "prenet", "heads"):
+            if r["name"] in ("conv_transpose", "conv_pre", "prenet", "heads"):
                 r["rows"] = ups[r["name"]]
         # the dilated convs (mrf_conv and mrf_pair) at the serve windows'
         # shapes (16 and 64 rows, the say's bucket): kernels, library calls
@@ -4270,7 +4634,8 @@ def main() -> int:
               "plain versions at B=64 / 32 / 5, the defects, and against the vanilla in turns")
         rows += k34_controls_phase(model, log)
         rows += encoder_lstm_phase(model, cfg, log)
-        print("[3e] deliberate defects of the heads and the encoder's forward (source copies)")
+        print("[3e] deliberate defects of the heads and the encoder's forward and backward "
+              "(source copies)")
         defect_phase(model, cfg, log)
         del model, hifigan
 

@@ -17,8 +17,11 @@
 //   t2_mrf_pair        a ResBlock1 pair in one launch: t2_mrf_conv of the
 //                      second conv (dilation 1) on the operand of the
 //                      first's output, which stays in shared memory
-//   t2_conv_operand    a = bf16(lrelu(x)) of the first stage's input
-//                      (conv_pre's output, which no kernel writes)
+//   (conv_pre)         t2_mrf_conv of the vocoder's conv_pre (num_mels ->
+//                      initial channels, k = 7) on the bf16 mel, in the
+//                      epilogue mode that rounds the sum to bf16 before the
+//                      bias (JAX's conv1d_apply under a bf16 policy) and
+//                      writes only act, stage 1's upsample operand
 //
 // Bound: the stage is bound by operations (~0.6 GFLOP per mel frame for
 // UNIVERSAL_V1, ~0.6 us at 989 TFLOP/s bf16); with one launch per conv, as
@@ -33,7 +36,10 @@
 //   registers. A block takes NI channels (blockIdx.y): the weight copy's N
 //   tile (128, 64 or 32 by Co), or a part of it where the grid would leave
 //   SMs idle (conv_plan).
-// - A: the operand's slice of KC input channels (64, or 32) over the
+// - A: the operand's slice of KC input channels (64, or 32; the last slice
+//   may reach past Ci, a multiple of 8, as conv_pre's 80 mel channels: the
+//   tensor map's channel extent is Ci, so TMA reads zeros there, and the
+//   weight copy is zero past Ci) over the
 //   block's samples and the dilated halo, staged once per slice by TMA from
 //   a 3-D (B, T, C) tensor map, so rows outside [0, T) read zero and never
 //   the neighbouring batch row. It lies in shared memory as [8-channel
@@ -247,7 +253,9 @@ __device__ __forceinline__ void conv_mainloop(float (&acc)[MT][NI / 2], const Ri
 // (B, T, Co) f32 and act (B, T, Co) bf16 where given (mode & 3 = 0: no
 // acc_out; 1: acc_out = scale v; 2: acc_out = acc_in + scale v; mode & 4:
 // acc_out (B, T, Co) bf16 gets that sum's operand, bf16(lrelu(sum)), what
-// the next stage's upsample would compute from it). A ring stage holds
+// the next stage's upsample would compute from it; mode & 8: the f32 sum
+// is rounded to bf16 before the bias, v = bf16(sum) + bias, as JAX's
+// conv1d_apply emits a bf16 policy's type: conv_pre). A ring stage holds
 // the tiles of G consecutive taps of one slice (one bulk copy: small tiles
 // would leave the tensor cores waiting on the ring's barriers), nslot
 // stages.
@@ -270,7 +278,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap a_map, const bf16* __restr
                   float scale) {
   constexpr int BM = kWG * MT * 64;
   constexpr int NACC = NI / 2;  // f32 sums a thread holds per m64 tile
-  const int ns = Ci / KC, ncg = KC / 8, kg = (K + G - 1) / G, n1 = ns * kg;
+  const int ns = (Ci + KC - 1) / KC, ncg = KC / 8, kg = (K + G - 1) / G, n1 = ns * kg;
   const int n_it = PAIR ? 2 * n1 : n1;
   const int rows_p = box_rows * nbox, na = ns > 1 ? 2 : 1;
   const int rows_t = (BM + K - 1 + 7) & ~7;  // PAIR: c1's operand rows in shared memory
@@ -400,7 +408,12 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap a_map, const bf16* __restr
         const int co = nt * NI + i * 8 + q * 2;
         const size_t o = ro + co;
         const float2 bb = *reinterpret_cast<const float2*>(bo + co);
-        float v0 = acc[mt][i * 4 + h * 2] + bb.x, v1 = acc[mt][i * 4 + h * 2 + 1] + bb.y;
+        float s0 = acc[mt][i * 4 + h * 2], s1 = acc[mt][i * 4 + h * 2 + 1];
+        if (mode & 8) {
+          s0 = __bfloat162float(__float2bfloat16_rn(s0));
+          s1 = __bfloat162float(__float2bfloat16_rn(s1));
+        }
+        float v0 = s0 + bb.x, v1 = s1 + bb.y;
         if (res != nullptr) {
           const float2 rv = *reinterpret_cast<const float2*>(res + o);
           v0 += rv.x;
@@ -430,7 +443,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap a_map, const bf16* __restr
 // The tile plan of one conv: the weight copy's N tile (WN, by Co: 128, 64
 // or 32), N per instruction and per block (NI: WN, or down to kMinSplitN
 // where even 128-sample blocks leave SMs idle), input channels per staged
-// slice (KC), m64 tiles per warpgroup (MT: 2 where the grid still fills
+// slice (KC; the last may reach past Ci), m64 tiles per warpgroup (MT: 2 where the grid still fills
 // the card at 256 samples a block, else 1), and the operand's TMA boxes
 // (nbox boxes of box_rows rows, at most 256 each).
 constexpr int kMinSplitN = 64;
@@ -455,7 +468,7 @@ int sm_count() {
 // pair: a fused ResBlock1 pair (Ci = Co <= 128, one N tile; MT = 2 always,
 // so its tiles, BM - (K - 1) outputs, do not follow the batch)
 int conv_plan(int B, int T, int Ci, int Co, int K, int dil, bool pair, ConvPlan* p) {
-  if (B < 1 || T < 1 || Ci % 32 || Co % 32 || K % 2 == 0 || dil < 1)
+  if (B < 1 || T < 1 || Ci % 8 || Co % 32 || K % 2 == 0 || dil < 1)
     return (int)cudaErrorInvalidValue;
   p->WN = p->NI = Co % 128 == 0 ? 128 : (Co % 64 == 0 ? 64 : 32);
   p->KC = Ci % 64 == 0 ? 64 : 32;
@@ -469,17 +482,18 @@ int conv_plan(int B, int T, int Ci, int Co, int K, int dil, bool pair, ConvPlan*
   p->nbox = (rows + 255) / 256;
   p->box_rows = ((rows + p->nbox - 1) / p->nbox + 7) & ~7;
   p->rows_p = p->nbox * p->box_rows;
-  p->na = Ci / p->KC > 1 ? 2 : 1;
+  const int ns = (Ci + p->KC - 1) / p->KC;
+  p->na = ns > 1 ? 2 : 1;
   if (p->box_rows > 256) return (int)cudaErrorInvalidValue;
   const int tile = p->NI * p->KC * 2, convs = pair ? 2 : 1;
   if (pair && ((bm + K - 1 + 7) & ~7) * Co * 2 > p->na * p->rows_p * p->KC * 2)
     return (int)cudaErrorInvalidValue;  // the pair's operand does not fit the A buffers
   p->G = std::max(1, std::min(K, kStageBytes / tile));
-  p->nslot = std::min(kStages, convs * (Ci / p->KC) * ((K + p->G - 1) / p->G));
+  p->nslot = std::min(kStages, convs * ns * ((K + p->G - 1) / p->G));
   p->smem = conv_smem(p->NI, p->KC, p->rows_p, p->na, p->G, p->nslot);
   while (p->smem > 227 * 1024 && p->G > 1) {  // fewer taps a stage where it does not fit
     p->G = (p->G + 1) / 2;
-    p->nslot = std::min(kStages, convs * (Ci / p->KC) * ((K + p->G - 1) / p->G));
+    p->nslot = std::min(kStages, convs * ns * ((K + p->G - 1) / p->G));
     p->smem = conv_smem(p->NI, p->KC, p->rows_p, p->na, p->G, p->nslot);
   }
   if (p->smem > 227 * 1024) return (int)cudaErrorInvalidValue;
@@ -533,7 +547,8 @@ int launch_mrf(const void* a, const void* wt, const void* bias, const void* wt2,
                cudaStream_t stream) {
   const bool pair = wt2 != nullptr;
   if (((mode & 3) == 2 && acc_in == nullptr) || ((mode & 3) != 0) != (acc_out != nullptr) ||
-      mode < 0 || mode > 6 || (mode & 3) == 3 || ((uintptr_t)wt & 15) || ((uintptr_t)wt2 & 15) ||
+      mode < 0 || mode > 14 || (mode & 3) == 3 || (pair && (mode & 8)) || ((uintptr_t)wt & 15) ||
+      ((uintptr_t)wt2 & 15) ||
       (pair && bias2 == nullptr))
     return (int)cudaErrorInvalidValue;
   ConvPlan p;
@@ -559,33 +574,13 @@ int launch_mrf(const void* a, const void* wt, const void* bias, const void* wt2,
   return (int)cudaErrorInvalidValue;
 }
 
-// a = bf16(lrelu(x)), n values, four a thread (16-byte loads, 8-byte
-// stores); the tail of n % 4 by thread 0 of block 0. Bound by bytes: 6 a
-// value.
-__global__ void __launch_bounds__(256) conv_operand_kernel(const float* __restrict__ x,
-                                                           bf16* __restrict__ a, long long n) {
-  const long long n4 = n / 4;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  uint2* a4 = reinterpret_cast<uint2*>(a);
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * blockDim.x) {
-    const float4 v = x4[i];
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(lrelu(v.x), lrelu(v.y));
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(lrelu(v.z), lrelu(v.w));
-    a4[i] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                       *reinterpret_cast<const uint32_t*>(&hi));
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0)
-    for (long long i = n4 * 4; i < n; ++i) a[i] = __float2bfloat16_rn(lrelu(x[i]));
-}
-
 }  // namespace
 
 extern "C" {
 
 // a (B, T, Ci) bf16 = bf16(lrelu(x)), wt the tiled weights of a (K, Co, Ci)
 // conv of dilation dil: v = conv_dil(a) + bias (+ res), SAME; y, act and
-// acc_out where given (mode as conv_wgmma_kernel)
+// acc_out where given (mode as conv_wgmma_kernel); Ci a multiple of 8
 int t2_mrf_conv(const void* a, const void* wt, const void* bias, const void* res,
                 const void* acc_in, void* acc_out, void* y, void* act, int B, int T, int Ci,
                 int Co, int K, int dil, int mode, float scale, void* stream) {
@@ -603,15 +598,6 @@ int t2_mrf_pair(const void* a, const void* wt1, const void* bias1, const void* w
   if (wt2 == nullptr) return (int)cudaErrorInvalidValue;
   return launch_mrf(a, wt1, bias1, wt2, bias2, res, acc_in, acc_out, y, act, B, T, C, C, K, dil,
                     mode, scale, (cudaStream_t)stream);
-}
-
-// a = bf16(lrelu(x)), x and a n values, both 16-byte aligned
-int t2_conv_operand(const void* x, void* a, long long n, void* stream) {
-  if (n < 1 || ((uintptr_t)x & 15) || ((uintptr_t)a & 15)) return (int)cudaErrorInvalidValue;
-  const long long blocks = std::min<long long>((n / 4 + 255) / 256 + 1, 8LL * sm_count());
-  conv_operand_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>((const float*)x,
-                                                                         (bf16*)a, n);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

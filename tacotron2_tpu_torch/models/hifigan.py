@@ -21,7 +21,8 @@ from torch import nn
 from tacotron2_tpu_torch.models import layers
 from tacotron2_tpu_torch.models.layers import F32, Policy
 from tacotron2_tpu_torch.models.resblock import ResBlock1, ResBlock2
-from tacotron2_tpu_torch.ops.mrf import mrf_stage, pack_upsample, plain_stage
+from tacotron2_tpu_torch.ops.mrf import (conv_pre, mrf_stage, pack_conv, pack_upsample,
+                                         plain_stage)
 
 PACK_CALLS = [0]  # packings of a generator's weights for the kernels: once per model
 
@@ -86,7 +87,7 @@ class HiFiGAN(nn.Module):
             for kr, dil in zip(c.resblock_kernel_sizes, c.resblock_dilation_sizes):
                 self.resblocks.append(block(ch, kr, dil))
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
-        self._packed = None
+        self._packed = self._pre = None
 
     def mel_receptive_field(self) -> int:
         """One-sided receptive field of the generator in mel frames."""
@@ -104,7 +105,8 @@ class HiFiGAN(nn.Module):
     def kernel_weights(self):
         """Per stage: (resblock weights, upsample weights) in the kernels'
         layouts (``mrf_conv``'s tiled copies included) and the policy's
-        compute type. Packed at the first call and kept: a model moved to
+        compute type; ``conv_pre``'s (``conv_pre_weights``) in the same
+        packing. Packed at the first call and kept: a model moved to
         another device or given new weights packs again."""
         if self._packed is None:
             PACK_CALLS[0] += 1
@@ -116,34 +118,47 @@ class HiFiGAN(nn.Module):
                      pack_upsample(up, dt))
                     for i, up in enumerate(self.ups)
                 ]
+                self._pre = pack_conv(self.conv_pre, dt)
         return self._packed
 
+    def conv_pre_weights(self):
+        """``conv_pre`` in ``mrf_conv``'s layouts (``kernel_weights``)."""
+        self.kernel_weights()
+        return self._pre
+
     def _apply(self, fn, *args, **kwargs):  # .to(), .cuda(), .float(), ...
-        self._packed = None
+        self._packed = self._pre = None
         return super()._apply(fn, *args, **kwargs)
 
     def load_state_dict(self, *args, **kwargs):
-        self._packed = None
+        self._packed = self._pre = None
         return super().load_state_dict(*args, **kwargs)
 
     @torch.no_grad()
     def apply(self, mel: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        """mel (B, T, num_mels) -> wav (B, T * total_upsample). Each MRF
-        stage runs through the kernels' wrappers (``mrf_stage``), which pass
-        each stage's output to the next upsample as its bf16 operand alone;
-        ``plain``: the plain reference route instead, each stage computed
-        from its f32 input by ``plain_stage`` (on any device)."""
+        """mel (B, T, num_mels) -> wav (B, T * total_upsample). ``conv_pre``
+        and ``conv_post`` round their f32 sums to the compute type before the
+        bias, as JAX's ``conv1d_apply`` emits the policy's type. The kernels'
+        route: ``conv_pre`` (``mrf_conv``'s kernel) writes only stage 1's
+        upsample operand, and each MRF stage (``mrf_stage``) passes its
+        output to the next upsample as its bf16 operand alone; ``plain``: the
+        plain reference route instead, ``conv_pre`` in PyTorch and each stage
+        computed from its f32 input by ``plain_stage`` (on any device)."""
         pol = self.policy
-        x = layers.conv1d(mel, self.conv_pre.weight, self.conv_pre.bias, pol, padding=3)
         packed = self.kernel_weights()
-        a = None
-        for i, (rbs, ups) in enumerate(packed):
-            if plain:
+        if plain:
+            x = layers.conv1d(mel, self.conv_pre.weight, self.conv_pre.bias, pol, padding=3,
+                              round_out=True)
+            for rbs, ups in packed:
                 x = plain_stage(x.contiguous(), rbs, ups)
-            elif i < len(packed) - 1:
-                x, a = None, mrf_stage(x, rbs, ups, a, want_operand=True)
-            else:
-                x = mrf_stage(x, rbs, ups, a)
+        else:
+            a = conv_pre(mel.to(pol.compute_dtype).contiguous(), self.conv_pre_weights())
+            for i, (rbs, ups) in enumerate(packed):
+                if i < len(packed) - 1:
+                    a = mrf_stage(None, rbs, ups, a, want_operand=True)
+                else:
+                    x = mrf_stage(None, rbs, ups, a)
         x = F.leaky_relu(x, 0.01)
-        x = layers.conv1d(x, self.conv_post.weight, self.conv_post.bias, pol, padding=3)
+        x = layers.conv1d(x, self.conv_post.weight, self.conv_post.bias, pol, padding=3,
+                          round_out=True)
         return torch.tanh(x)[..., 0]

@@ -16,8 +16,11 @@ On the card ``bilstm_forward`` is one launch of ``csrc/encoder_lstm.cu``'s
 persistent forward (``t2_bilstm_forward``: a thread-block cluster of
 ``ENC_CLUSTER`` blocks per direction and tile of up to ``ENC_TILE`` rows
 walks all T steps, W_hh, h and c on chip; ``forward_plan`` says which dims
-it takes) and ``bilstm_backward`` one host call (``t2_bilstm_backward``, 2 T
-launches); each adds its launches to ``LAUNCHES``. Their plain versions are
+it takes) and ``bilstm_backward`` one launch of its persistent backward
+(``t2_bilstm_backward``: the same clusters walk the steps in reverse, each
+rank's W_hh columns held as tensor-core fragments, dc in registers, the
+gate cotangents pushed to every rank a step; ``backward_plan``); each adds
+its launches to ``LAUNCHES``. Their plain versions are
 the definition, used for CPU tensors and as what the kernels are held
 against on the card; they keep the dtype of ``xp``, so they also run in f64
 (the tests).
@@ -51,7 +54,11 @@ def forward_launches(T: int) -> int:
 
 
 def backward_launches(T: int) -> int:
-    return 2 * T
+    return 1
+
+
+ENC_BWD_H = (128, 256)  # the backward's widths: its template instances (csrc bwd_check)
+ENC_BWD_KSPLIT = 4  # K quarters of its product, a warp per (m16 tile, quarter) (csrc BKS)
 
 
 def unit_rows(H: int, rank: int) -> list:
@@ -90,6 +97,28 @@ def forward_plan(B: int, H: int) -> dict:
         raise ValueError(f"H={H}: the forward's block would need {smem} bytes of shared memory "
                          f"at {rows} rows; at most {ENC_SMEM}")
     return {"units": EU, "warps": warps, "rows": rows, "smem": smem,
+            "clusters": 2 * -(-B // ENC_TILE)}
+
+
+def backward_plan(B: int, H: int) -> dict:
+    """The backward kernel's plan for B rows of width H: EU units a rank
+    (whole m16 tiles), ``warps`` (EU / 4: one per (m16 tile, K quarter) in
+    the product, one thread per (row, unit) in the pull), ``a_regs`` (a
+    thread's registers of W's fragments, H / 4), the grid's ``clusters``
+    and a block's shared memory ``smem`` (two dg buffers of hi and lo, the
+    rank's own hi and lo, act / cs / dhs of two steps, the product's
+    partial sums). Raises ValueError for what the kernel does not take: H
+    other than its template instances ENC_BWD_H (EU a multiple of 16, W's
+    fragments in registers)."""
+    if B < 1 or H not in ENC_BWD_H:
+        raise ValueError(f"the backward takes H in {ENC_BWD_H} (its template instances: whole "
+                         f"m16 tiles of units a rank, W's fragments in registers); got B={B}, "
+                         f"H={H}")
+    EU = H // ENC_CLUSTER
+    stride = 8 * H + 16
+    smem = (32 + 2 * 2 * ENC_TILE * stride + 2 * ENC_TILE * 4 * EU * 2
+            + 2 * ENC_TILE * (6 * EU + 4) * 4 + ENC_BWD_KSPLIT * ENC_TILE * EU * 4)
+    return {"units": EU, "warps": EU // 4, "a_regs": H // 4, "smem": smem,
             "clusters": 2 * -(-B // ENC_TILE)}
 
 
@@ -182,8 +211,8 @@ def bilstm_forward(xp, w_hh, b_hh):
 
 
 def bilstm_backward(dhs, act, cs, w_hh):
-    """``bilstm_backward_plain`` through ``t2_bilstm_backward`` for CUDA
-    tensors (w_hh bf16)."""
+    """``bilstm_backward_plain`` through ``t2_bilstm_backward`` (one launch)
+    for CUDA tensors (w_hh bf16)."""
     if dhs.device.type == "cpu":
         return bilstm_backward_plain(dhs, act, cs, w_hh)
     _, B, T, H = dhs.shape
@@ -192,11 +221,10 @@ def bilstm_backward(dhs, act, cs, w_hh):
                                ("cs", cs, torch.float32, (2, B, T, H)),
                                ("w_hh", w_hh, torch.bfloat16, (2, 4 * H, H))):
         build.require(t, dt, shape, name)
+    backward_plan(B, H)  # raises for dims the kernel does not take
     dg = torch.empty(2, B, T, 4 * H, device=dhs.device)
-    scratch = [torch.zeros(2, B, H, device=dhs.device) for _ in range(2)]
     build.count(LAUNCHES, "bilstm_backward", backward_launches(T))
-    _call(_lib().t2_bilstm_backward, (dhs, act, cs, w_hh, dg, *scratch), B, T, H,
-          "bilstm_backward")
+    _call(_lib().t2_bilstm_backward, (dhs, act, cs, w_hh, dg), B, T, H, "bilstm_backward")
     return dg
 
 

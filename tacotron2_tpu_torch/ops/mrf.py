@@ -1,6 +1,6 @@
 """HiFi-GAN MRF stage: kernel K2 (a dilated-conv kernel, which also runs
-the upsample, and the stage input's operand, ``csrc/mrf.cu``) and its
-plain version.
+the upsample and the vocoder's ``conv_pre``, ``csrc/mrf.cu``) and its plain
+version.
 
 Replaces the TPU kernels of ``tacotron2_tpu/ops/mrf_pallas.py``:
 ``_make_stage_kernel`` (the MRF alone, via ``_mrf_stage_call``),
@@ -55,10 +55,17 @@ has k = 2u), so in channels-last it is the same memory as a SAME 3-tap
 conv from Ci to u Co channels, (B, Tin, u Co) (``fold_upsample``; the tap
 a phase does not reach is zero: 1.5x the transposed conv's flops, as the
 TPU kernel's u-folded layout, ``mrf_pallas.py:319``). It reads the bf16
-operand of its input like every conv: stage 1's from ``conv_operand`` (one
-elementwise launch a vocode; ``conv_pre`` stays stock PyTorch), stages
+operand of its input like every conv: stage 1's from ``conv_pre``, stages
 2-4's from the previous stage's last conv, whose epilogue writes the stage
 mean as that operand (``acc_act``) instead of f32, which nothing else reads.
+
+``conv_pre`` (num_mels -> initial channels, k = 7) runs on the same kernel
+too, from the bf16 mel (a cast, no lrelu): its epilogue rounds the f32 sum
+to bf16 before the bias, as JAX's ``conv1d_apply`` emits a bf16 policy's
+type, and writes only ``bf16(lrelu(v))``, stage 1's upsample operand, so
+the vocoder writes and reads no f32 activation before stage 1. Its 80 mel
+channels are not a multiple of the staged slice: the last slice reaches
+past them, where the tensor map reads zeros and the tiled copy is zero.
 
 Each wrapper runs its plain PyTorch version for CPU tensors only; a CUDA
 tensor launches the kernel or raises.
@@ -76,7 +83,7 @@ from tacotron2_tpu_torch.models import layers
 from tacotron2_tpu_torch.ops import build
 
 LRELU_SLOPE = 0.1
-LAUNCHES = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0, "conv_operand": 0}
+LAUNCHES = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0, "conv_pre": 0}
 
 
 def reset_launches() -> None:
@@ -109,11 +116,25 @@ ResBlockWeights = List[Tuple[ConvWeights, Optional[ConvWeights]]]
 def conv_tiles(Co: int, Ci: int) -> Tuple[int, int]:
     """(NI, KC) of ``mrf_conv``'s weight copy: output channels per N tile
     (128, 64 or 32; a block's wgmma takes the tile or, where the grid is
-    small, half of it) and input channels per staged slice (64 or 32). The
-    kernel takes Co and Ci that are multiples of 32."""
-    if Co % 32 or Ci % 32:
-        raise ValueError(f"mrf_conv takes channels that are multiples of 32, got Co={Co}, Ci={Ci}")
+    small, half of it) and input channels per staged slice (64 or 32; the
+    last slice reaches past Ci where KC does not divide it, the copy zero
+    there). The kernel takes Co a multiple of 32 and Ci a multiple of 8
+    (the operand's rows whole 16-byte pieces, as TMA reads them)."""
+    if not conv_takes(Co, Ci):
+        raise ValueError(f"mrf_conv takes Co a multiple of 32 and Ci a multiple of 8, got "
+                         f"Co={Co}, Ci={Ci}")
     return (128 if Co % 128 == 0 else 64 if Co % 64 == 0 else 32), (64 if Ci % 64 == 0 else 32)
+
+
+def conv_takes(Co: int, Ci: int) -> bool:
+    """Whether ``mrf_conv``'s kernel takes these channels: Co a multiple of
+    32, Ci of 8 (the rule in ``csrc/mrf.cu::conv_plan``)."""
+    return Co % 32 == 0 and Ci % 8 == 0 and Ci >= 8
+
+
+def slices(Ci: int, KC: int) -> int:
+    """Staged slices of KC input channels over Ci, the last maybe partial."""
+    return -(-Ci // KC)
 
 
 def tile_offset(j, co, ci, K: int, Co: int, Ci: int):
@@ -123,17 +144,20 @@ def tile_offset(j, co, ci, K: int, Co: int, Ci: int):
     rows of 8, [KC / 8][NI][8] (the no-swizzle core-matrix layout of a
     K-major wgmma operand)."""
     NI, KC = conv_tiles(Co, Ci)
-    tile = ((co // NI) * (Ci // KC) + ci // KC) * K + j
+    tile = ((co // NI) * slices(Ci, KC) + ci // KC) * K + j
     return tile * NI * KC + ((ci % KC) // 8) * NI * 8 + (co % NI) * 8 + ci % 8
 
 
 def tile_conv(w: torch.Tensor) -> torch.Tensor:
     """(K, Co, Ci) tap-major weights -> the kernel's tiled copy, shape
-    (Co / NI, Ci / KC, K, KC / 8, NI, 8) (``tile_offset``): one contiguous
-    NI x KC tile per (N tile, slice, tap), each one bulk copy."""
+    (Co / NI, ceil(Ci / KC), K, KC / 8, NI, 8) (``tile_offset``): one
+    contiguous NI x KC tile per (N tile, slice, tap), each one bulk copy;
+    zero past Ci in the last slice."""
     K, Co, Ci = w.shape
     NI, KC = conv_tiles(Co, Ci)
-    t = w.reshape(K, Co // NI, NI, Ci // KC, KC // 8, 8)  # (j, nt, co, s, g, e)
+    ns = slices(Ci, KC)
+    w = F.pad(w, (0, ns * KC - Ci))
+    t = w.reshape(K, Co // NI, NI, ns, KC // 8, 8)  # (j, nt, co, s, g, e)
     return t.permute(1, 3, 0, 4, 2, 5).contiguous()
 
 
@@ -148,10 +172,10 @@ def read_tiled(wt: torch.Tensor, K: int, Co: int, Ci: int) -> torch.Tensor:
 
 def pack_conv(conv, dtype: torch.dtype) -> ConvWeights:
     """nn.Conv1d (torch (Co, Ci, K)) -> the kernels' layouts: tap-major, and
-    the tiled copy where the channels take it (multiples of 32)."""
+    the tiled copy where the channels take it (``conv_takes``)."""
     w = conv.weight.detach().permute(2, 0, 1).to(dtype).contiguous()
     K, Co, Ci = w.shape
-    wt = tile_conv(w) if Co % 32 == 0 and Ci % 32 == 0 else None
+    wt = tile_conv(w) if conv_takes(Co, Ci) else None
     return ConvWeights(w, conv.bias.detach().float().contiguous(), int(conv.dilation[0]), wt)
 
 
@@ -189,7 +213,7 @@ def fold_upsample(w: torch.Tensor, b: torch.Tensor, stride: int, padding: int) -
         for j in range(K // stride):
             wf[reach + alpha - j, r] = w[j * stride + beta].t()
     wf = wf.reshape(2 * reach + 1, stride * Co, Ci).contiguous()
-    wt = tile_conv(wf) if (stride * Co) % 32 == 0 and Ci % 32 == 0 else None
+    wt = tile_conv(wf) if conv_takes(stride * Co, Ci) else None
     return ConvWeights(wf, b.float().repeat(stride).contiguous(), 1, wt)
 
 
@@ -220,14 +244,17 @@ def operand(x, dtype: torch.dtype):
 
 
 def mrf_conv_plain(a, cw: ConvWeights, res=None, acc=None, acc_scale: float = 0.0,
-                   want_y: bool = True, want_act: bool = False, acc_act: bool = False):
+                   want_y: bool = True, want_act: bool = False, acc_act: bool = False,
+                   round_sum: bool = False):
     """From the operand ``a = operand(x, w.dtype)``: v = conv(a) + b (+ res),
     SAME padding with dilation -> (v or None, operand(v) or None, acc +
     acc_scale * v or None), the last None when acc_scale == 0; with
     ``acc_act`` the last is that sum's operand (the next stage's upsample
-    reads only it), not the sum."""
-    v = layers.conv1d(a.float(), cw.w.float().permute(1, 2, 0), cw.b, padding="SAME",
-                      dilation=cw.dilation)
+    reads only it), not the sum. ``round_sum``: the sum is rounded to the
+    weights' type before the bias (``conv_pre``)."""
+    v = layers.conv1d(a.float(), cw.w.float().permute(1, 2, 0), cw.b,
+                      layers.Policy(cw.w.dtype) if round_sum else layers.F32, padding="SAME",
+                      dilation=cw.dilation, round_out=round_sum)
     if res is not None:
         v = v + res
     acc_out = None
@@ -264,9 +291,12 @@ def conv_transpose_plain(a, uw: UpsampleWeights, want_act: bool = False):
     return y, (operand(y, uw.w.dtype) if want_act else None)
 
 
-def conv_operand_plain(x, dtype: torch.dtype):
-    """The operand of the vocoder's first upsample: ``operand(x, dtype)``."""
-    return operand(x, dtype)
+def conv_pre_plain(a, cw: ConvWeights):
+    """The vocoder's ``conv_pre`` from its operand ``a``, the mel in the
+    weights' type: ``operand(bf16(conv(a)) + b)``, the sum rounded to the
+    weights' type before the bias as ``layers.conv1d(..., round_out=True)``
+    -- stage 1's upsample operand."""
+    return mrf_conv_plain(a, cw, want_y=False, want_act=True, round_sum=True)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -282,8 +312,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a loaded build of ``csrc/mrf.cu``."""
     lib.t2_mrf_conv.argtypes = [P] * 8 + [I] * 7 + [ctypes.c_float, P]
     lib.t2_mrf_pair.argtypes = [P] * 10 + [I] * 6 + [ctypes.c_float, P]
-    lib.t2_conv_operand.argtypes = [P, P, ctypes.c_longlong, P]
-    for fn in (lib.t2_mrf_conv, lib.t2_mrf_pair, lib.t2_conv_operand):
+    for fn in (lib.t2_mrf_conv, lib.t2_mrf_pair):
         fn.restype = I
     return lib
 
@@ -304,13 +333,15 @@ def _require_conv(cw: ConvWeights, Ci: int, name: str):
     if cw.wt is None:
         raise ValueError(f"{name}: the weights have no tiled copy (pack_conv, tile_conv)")
     NI, KC = conv_tiles(Co, Ci)
-    build.require(cw.wt, torch.bfloat16, (Co // NI, Ci // KC, K, KC // 8, NI, 8), f"{name}.wt")
+    build.require(cw.wt, torch.bfloat16, (Co // NI, slices(Ci, KC), K, KC // 8, NI, 8),
+                  f"{name}.wt")
     build.require(cw.b, torch.float32, (Co,), f"{name}.b")
 
 
-def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act=False):
-    """``mrf_conv`` (c2 None; also ``conv_transpose``'s folded conv) or
-    ``mrf_pair``: check, allocate, launch."""
+def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act=False,
+                 round_sum=False):
+    """``mrf_conv`` (c2 None; also ``conv_transpose``'s folded conv and
+    ``conv_pre``) or ``mrf_pair``: check, allocate, launch."""
     B, T, Ci = a.shape
     K, Co, _ = c1.w.shape
     bf = torch.bfloat16
@@ -333,6 +364,7 @@ def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act
     acc_out = (torch.empty(B, T, Co, device=a.device, dtype=bf if acc_act else torch.float32)
                if acc_scale != 0.0 else None)
     mode = 0 if acc_out is None else (1 if acc is None else 2) + (4 if acc_act else 0)
+    mode += 8 if round_sum else 0
     ptr = lambda t: 0 if t is None else t.data_ptr()
     stream = _stream()
     build.count(LAUNCHES, name)
@@ -387,20 +419,15 @@ def conv_transpose(a, uw: UpsampleWeights, want_act: bool = False):
     return y.view(B, Tout, Co), (None if act is None else act.view(B, Tout, Co))
 
 
-def conv_operand(x, dtype: torch.dtype = torch.bfloat16):
-    """The operand ``operand(x, dtype)`` of a stage input that no kernel
-    wrote (the vocoder's ``conv_pre`` output), by one elementwise launch;
-    see ``conv_operand_plain``."""
-    if x.device.type == "cpu":
-        return conv_operand_plain(x, dtype)
-    if dtype != torch.bfloat16:
-        raise ValueError(f"conv_operand writes bf16 operands, got {dtype}")
-    build.require(x, torch.float32, tuple(x.shape), "x")
-    a = torch.empty(x.shape, device=x.device, dtype=dtype)
-    build.count(LAUNCHES, "conv_operand")
-    build.check(_lib().t2_conv_operand(x.data_ptr(), a.data_ptr(), x.numel(), _stream()),
-                "conv_operand")
-    return a
+def conv_pre(a, cw: ConvWeights):
+    """The vocoder's ``conv_pre`` from the bf16 mel ``a`` (B, T, num_mels):
+    one ``mrf_conv`` launch whose epilogue rounds the sum to bf16 before the
+    bias and writes only stage 1's upsample operand (B, T, Co) bf16; see
+    ``conv_pre_plain``."""
+    if a.device.type == "cpu":
+        return conv_pre_plain(a, cw)
+    return _launch_conv("conv_pre", a, cw, None, None, None, 0.0, False, True,
+                        round_sum=True)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -419,9 +446,11 @@ def run_stage(x, resblocks: Sequence[ResBlockWeights],
     ResBlock1 pair that ``pair_fusable`` takes as one call.
 
     ``a``: the operand of the stage input ``x``, where its producer wrote
-    it; the upsample reads only it (x may then be None). Else it is made
-    here with ``operand`` (PyTorch: the plain dataflow; ``mrf_stage`` makes
-    it by kernel). -> the stage mean (f32), or with ``want_operand`` the
+    it (the vocoder's: ``conv_pre`` for stage 1, the stage before for the
+    rest); the upsample reads only it (x may then be None). Else it is made
+    here with ``operand`` (PyTorch, on any device: the plain dataflow, and
+    the checks that start a stage from an f32 input). -> the stage mean
+    (f32), or with ``want_operand`` the
     mean's operand alone, the next stage's upsample's input: the last conv
     writes that instead of the f32 mean."""
     if a is None:
@@ -452,11 +481,7 @@ def run_stage(x, resblocks: Sequence[ResBlockWeights],
 def mrf_stage(x, resblocks: Sequence[ResBlockWeights],
               upsample: Optional[UpsampleWeights] = None, a=None, want_operand: bool = False):
     """``[lrelu -> ConvTranspose1d] -> mean over resblocks`` on (B, T, C)
-    through the kernels; ``a`` and ``want_operand`` as ``run_stage``. A
-    stage with its upsample and no ``a`` makes the operand of ``x`` by
-    ``conv_operand``."""
-    if a is None and upsample is not None:
-        a = conv_operand(x.contiguous(), upsample.w.dtype)
+    through the kernels; ``a`` and ``want_operand`` as ``run_stage``."""
     return run_stage(x, resblocks, upsample, mrf_conv, conv_transpose, mrf_pair, a,
                      want_operand)
 

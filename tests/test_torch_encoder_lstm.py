@@ -4,6 +4,12 @@ on the CPU, where its wrappers run their plain versions:
 - ``BiLSTMRecurrence``'s hand-written backward against autograd through the
   plain forward loop, in f64 (so no bf16 rounding of an operand flips between
   the two sum orders): the cotangents of xp, W_hh and b_hh agree to 1e-10;
+- ``layers.bilstm``'s gradients under ``bf16-mixed`` against ``jax.grad`` of
+  the JAX encoder's two ``lstm_sequence`` calls (ragged lengths): the
+  reference the card's backward kernel is held to;
+- the kernels' plans (``forward_plan``, ``backward_plan``), their constants
+  mirrored from the source, and the backward product's hi / lo split of the
+  f32 cotangents;
 - the recurrence against the JAX package's ``lstm_sequence`` scan under the
   bf16 policy lives in tests/test_torch_layers.py (``test_bilstm_packed``,
   ``test_encoder_matches_jax``);
@@ -13,10 +19,14 @@ on the CPU, where its wrappers run their plain versions:
   their plain versions (no launch counted).
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tacotron2_tpu.models import layers as jl
+from tacotron2_tpu_torch.models import layers as tl
 from tacotron2_tpu_torch.models.layers import Policy
 from tacotron2_tpu_torch.models.tacotron2 import Tacotron2, Tacotron2Config
 from tacotron2_tpu_torch.ops import encoder_lstm as el
@@ -45,7 +55,110 @@ def test_recurrence_backward_equals_autograd_of_plain_loop():
 
 def test_launch_counts():
     assert el.forward_launches(128) == 1  # one persistent launch walks every step
-    assert el.backward_launches(128) == 256
+    assert el.backward_launches(128) == 1  # and one walks them back
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+def test_bilstm_gradients_match_jax_bf16():
+    """``layers.bilstm`` under ``bf16-mixed`` (its backward: the pull of
+    ``bilstm_backward_plain``, the kernel's reference) against ``jax.grad``
+    of the JAX encoder's two ``lstm_sequence`` calls under the bf16 policy,
+    H=16, C=10, lengths 9, 6, 4, the same cotangent. Readings, relative to
+    each gradient's max: x and W_ih 0, b_ih and b_hh <= 1.7e-7, W_hh 2.2e-3 and
+    4.1e-3, within one bf16 ulp of the max (4.3e-3 and 7.7e-3): the cast's
+    pull rounds the f32 sum over steps once, and the two sum orders put a few
+    sums on either side of a rounding boundary.
+    Limits: W_hh one bf16 ulp of its max, the rest 1e-6 of their max."""
+    r = np.random.default_rng(5)
+    B, T, C, H = 3, 9, 10, 16
+    lens = np.asarray([9, 6, 4])
+    p = {"f": _jax_lstm_params(r, C, H), "b": _jax_lstm_params(r, C, H)}
+    x = r.standard_normal((B, T, C)).astype(np.float32)
+    cot = r.standard_normal((B, T, 2 * H)).astype(np.float32)
+    pol = jl.Policy.from_string("bf16-mixed")
+
+    def loss(p, x):
+        out = jnp.concatenate([jl.lstm_sequence(p[k], x, jnp.asarray(lens), reverse=k == "b",
+                                                policy=pol) for k in ("f", "b")], axis=-1)
+        return jnp.sum(out * cot)
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(jax.tree.map(jnp.asarray, p), jnp.asarray(x))
+    lstm = torch.nn.LSTM(C, H, batch_first=True, bidirectional=True)
+    with torch.no_grad():
+        for suffix, k in (("", "f"), ("_reverse", "b")):
+            for name, jname in (("weight_ih", "w_ih"), ("weight_hh", "w_hh")):
+                getattr(lstm, f"{name}_l0{suffix}").copy_(torch.as_tensor(p[k][jname].T.copy()))
+            for name, jname in (("bias_ih", "b_ih"), ("bias_hh", "b_hh")):
+                getattr(lstm, f"{name}_l0{suffix}").copy_(torch.as_tensor(p[k][jname]))
+    xt = torch.tensor(x, requires_grad=True)
+    out = tl.bilstm(lstm, xt, torch.as_tensor(lens), Policy.from_string("bf16-mixed"))
+    (out * torch.as_tensor(cot)).sum().backward()
+    pairs = [("x", xt.grad.numpy(), np.asarray(gx))]
+    for suffix, k in (("", "f"), ("_reverse", "b")):
+        for name, jname, transpose in (("weight_ih", "w_ih", True), ("weight_hh", "w_hh", True),
+                                       ("bias_ih", "b_ih", False), ("bias_hh", "b_hh", False)):
+            got = getattr(lstm, f"{name}_l0{suffix}").grad.numpy()
+            ref = np.asarray(gp[k][jname])
+            pairs.append((f"{name}{suffix}", got, ref.T if transpose else ref))
+    for name, got, ref in pairs:
+        scale = float(np.abs(ref).max())
+        tol = _bf16_ulp(scale) if name.startswith("weight_hh") else 1e-6 * scale
+        np.testing.assert_allclose(got, ref, atol=tol, rtol=0, err_msg=name)
+
+
+def _jax_lstm_params(r, n_in, hidden):
+    return {k: (r.standard_normal(s) * 0.3).astype(np.float32) for k, s in (
+        ("w_ih", (n_in, 4 * hidden)), ("w_hh", (hidden, 4 * hidden)),
+        ("b_ih", (4 * hidden,)), ("b_hh", (4 * hidden,)))}
+
+
+@pytest.mark.parametrize("H", [128, 256])
+def test_backward_product_hi_lo_split(H):
+    """The backward kernel's recurrent pull takes the f32 cotangents dg into
+    a bf16 tensor-core product as hi = bf16(dg) plus lo = bf16(dg - hi), two
+    products into f32 sums, where the plain version multiplies f32 dg by bf16
+    W_hh and rounds only the sum to bf16. Computed here in f64 at H = 128 /
+    256: hi + lo stays within 2.3e-6 / 2.5e-6 of the f64 product's max (an
+    f32 sum: 4.6e-7 / 3.2e-7), and its bf16 rounding differs from the f64
+    sum's in 0.37% / 0.16% of the elements (an f32 sum: 0 / 0.02%);
+    bf16(dg) alone, a single bf16 product, reads 1.6e-3 / 1.4e-3 and 43%:
+    another function. Limits: 1e-5 and 1%; bf16(dg) alone above 10%."""
+    g = torch.Generator().manual_seed(H)
+    W = (torch.randn(4 * H, H, generator=g) * 0.06).to(torch.bfloat16).double()
+    dg = torch.randn(32, 4 * H, generator=g)
+    hi = dg.to(torch.bfloat16)
+    lo = (dg - hi.float()).to(torch.bfloat16)
+    ref = dg.double() @ W
+    split = hi.double() @ W + lo.double() @ W
+    alone = hi.double() @ W
+    rnd = lambda t: t.to(torch.bfloat16)
+    scale = ref.abs().max()
+    assert (split - ref).abs().max() / scale < 1e-5
+    assert (rnd(split) != rnd(ref)).double().mean() < 0.01
+    assert (rnd(alone) != rnd(ref)).double().mean() > 0.10
+
+
+@pytest.mark.parametrize("B,H,ok", [(1, 256, True), (37, 256, True), (64, 256, True),
+                                    (64, 128, True), (64, 64, False), (64, 384, False),
+                                    (64, 512, False), (64, 320, False), (0, 256, False)])
+def test_backward_plan_refuses_what_the_kernel_cannot_take(B, H, ok):
+    """``backward_plan`` takes its template instances' widths, H = 128 and
+    256 (whole m16 tiles of units a rank; a warp's W fragments, H / 4
+    registers a thread); a further 8-row tile is a cluster of its own, and a
+    block's memory follows H alone (86,816 bytes at H = 256: two blocks fit
+    an SM)."""
+    if ok:
+        plan = el.backward_plan(B, H)
+        assert 2 * plan["smem"] <= el.ENC_SMEM and plan["a_regs"] == H // 4
+        assert plan["clusters"] == 2 * -(-B // el.ENC_TILE)
+        assert plan["warps"] == (H // el.ENC_CLUSTER // 16) * el.ENC_BWD_KSPLIT
+        assert plan["smem"] == el.backward_plan(1, H)["smem"] == {128: 43808, 256: 86816}[H]
+    else:
+        with pytest.raises(ValueError):
+            el.backward_plan(B, H)
 
 
 @pytest.mark.parametrize("H", [64, 128, 256, 320])
@@ -92,8 +205,10 @@ def test_forward_constants_mirror_the_kernel():
 
     src = (Path(el.__file__).parents[1] / "csrc" / "encoder_lstm.cu").read_text()
     for name, value in (("ES", el.ENC_CLUSTER), ("ETILE", el.ENC_TILE),
-                        ("EMAXWARPS", el.ENC_MAX_WARPS)):
+                        ("EMAXWARPS", el.ENC_MAX_WARPS), ("BKS", el.ENC_BWD_KSPLIT)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
+    widths = re.search(r"\(H != (\d+) && H != (\d+)\)", src).groups()
+    assert tuple(sorted(int(w) for w in widths)) == el.ENC_BWD_H
 
 
 def test_eval_encoder_row_alone_equals_batched():

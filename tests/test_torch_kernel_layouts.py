@@ -39,16 +39,34 @@ def test_tiled_weights_read_back(K, C):
 
 @pytest.mark.parametrize("Co,Ci,NI,KC", [(256, 256, 128, 64), (128, 128, 128, 64),
                                          (64, 64, 64, 64), (32, 32, 32, 32),
-                                         (96, 160, 32, 32), (192, 64, 64, 64)])
+                                         (96, 160, 32, 32), (192, 64, 64, 64),
+                                         (512, 80, 128, 32)])
 def test_conv_tiles(Co, Ci, NI, KC):
     """The wgmma's N (128, 64 or 32) and the staged slice (64 or 32
-    channels) follow the channels alone."""
+    channels) follow the channels alone; conv_pre's 80 mel channels take
+    three slices of 32, the last half past Ci."""
     assert mrf.conv_tiles(Co, Ci) == (NI, KC)
 
 
-def test_conv_tiles_refuse_other_channels():
+@pytest.mark.parametrize("Co,Ci", [(48, 64), (512, 20)])
+def test_conv_tiles_refuse_other_channels(Co, Ci):
+    """Co must be a multiple of 32 (an N tile), Ci of 8 (the operand's rows
+    whole 16-byte pieces, as TMA reads them)."""
     with pytest.raises(ValueError):
-        mrf.conv_tiles(48, 64)
+        mrf.conv_tiles(Co, Ci)
+
+
+def test_conv_pre_copy_partial_slice():
+    """UNIVERSAL_V1's conv_pre (80 -> 512, k=7) packs a tiled copy of three
+    32-channel slices: read back through ``tile_offset`` it is the
+    tap-major weight, and the last slice is zero past channel 80."""
+    h = HiFiGAN(HiFiGANConfig(), Policy(torch.bfloat16))
+    cw = h.conv_pre_weights()
+    K, Co, Ci = cw.w.shape
+    assert (K, Co, Ci) == (7, 512, 80) and cw.wt.shape == (4, 3, 7, 4, 128, 8)
+    assert torch.equal(mrf.read_tiled(cw.wt, K, Co, Ci), cw.w)
+    assert not cw.wt[:, 2, :, 2:].any()  # 8-channel groups 2-3 of slice 2: channels 80-95
+    assert h.kernel_weights() is h.kernel_weights() and h.conv_pre_weights() is cw
 
 
 RB = {"1": ((3, 7, 11), ((1, 3, 5),) * 3), "2": ((3, 5), ((1, 3), (1, 3)))}

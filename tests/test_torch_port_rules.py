@@ -166,7 +166,10 @@ WRAPPER_CALLS = {
                             mrf.ConvWeights(_meta(3, 64, 64, dtype=torch.bfloat16), _meta(64), 1,
                                             _meta(1, 1, 3, 8, 64, 8, dtype=torch.bfloat16))),
         want_act=True),
-    "conv_operand": lambda: mrf.conv_operand(_meta(1, 10, 64)),
+    "conv_pre": lambda: mrf.conv_pre(
+        _meta(1, 10, 80, dtype=torch.bfloat16),
+        mrf.ConvWeights(_meta(7, 512, 80, dtype=torch.bfloat16), _meta(512), 1,
+                        _meta(4, 3, 7, 4, 128, 8, dtype=torch.bfloat16))),
 }
 # the teacher-forced decode at T=2, B=1, L=5, P=D=H=8, A=4, 81 outputs
 _TW = lambda: train_decode.TrainWeights(

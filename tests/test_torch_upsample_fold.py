@@ -4,15 +4,17 @@ channels-last memory, a 3-tap conv from Ci to u Co channels
 (``fold_upsample``), which ``conv_transpose`` runs on ``mrf_conv``'s
 kernel. Here: the fold's math against ``conv_transpose_plain``, its zero
 taps, its tiled copy, the shapes it refuses, the HiFi-GAN's packing, the
-vocoder's operand route (each stage's mean passed on as the next
-upsample's bf16 operand) against the plain stages, and the launches a
-vocode makes through the wrappers, counted against a stand-in library."""
+vocoder's operand route (``conv_pre`` writing stage 1's operand, each
+stage's mean passed on as the next upsample's bf16 operand) against the
+plain stages, and the launches a vocode makes through the wrappers, counted
+against a stand-in library."""
 
 import numpy as np
 import pytest
 import torch
 
 from tacotron2_tpu_torch.models import hifigan as hifigan_mod
+from tacotron2_tpu_torch.models import layers
 from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
 from tacotron2_tpu_torch.models.layers import Policy
 from tacotron2_tpu_torch.ops import build, mrf
@@ -136,19 +138,25 @@ def test_hifigan_packs_the_fold_once():
 @pytest.mark.parametrize("policy", [torch.float32, torch.bfloat16])
 def test_vocoder_operand_route_equals_plain_stages(policy):
     """``HiFiGAN.apply``'s route (each stage's mean passed to the next
-    upsample as its operand alone, stage 1's made by ``conv_operand``)
+    upsample as its operand alone, stage 1's written by ``conv_pre``)
     equals the plain reference route (``plain_stage`` from f32 inputs) bit
-    for bit; a stage asked for its operand returns that of its mean, and
-    ``side_output_stage`` from an operand the stage from its input."""
+    for bit; ``conv_pre`` from the mel in the compute type is ``operand`` of
+    the policy's conv with its sum rounded before the bias; a stage asked
+    for its operand returns that of its mean, and ``side_output_stage``
+    from an operand the stage from its input."""
     h = _hifigan(policy)
     mel = torch.randn(2, 7, 16, generator=torch.Generator().manual_seed(1))
     assert torch.equal(h.apply(mel), h.apply(mel, plain=True))
+    pre = layers.conv1d(mel, h.conv_pre.weight, h.conv_pre.bias, h.policy, padding=3,
+                        round_out=True)
+    assert torch.equal(mrf.conv_pre(mel.to(policy), h.conv_pre_weights()),
+                       mrf.operand(pre, policy))
     rbs, ups = h.kernel_weights()[0]
     x = torch.randn(2, 7, 128, generator=torch.Generator().manual_seed(2))
     mean = mrf.mrf_stage(x, rbs, ups)
     a = mrf.mrf_stage(x, rbs, ups, want_operand=True)
     assert torch.equal(a, mrf.operand(mean, ups.w.dtype))
-    a_in = mrf.conv_operand(x, ups.w.dtype)
+    a_in = mrf.operand(x, ups.w.dtype)
     assert torch.equal(mrf.mrf_stage(None, rbs, ups, a_in), mean)
     assert torch.equal(mrf.side_output_stage(None, rbs, ups, a_in), mrf.plain_stage(x, rbs, ups))
 
@@ -167,34 +175,34 @@ class _FakeLib:
         self.calls.append(("mrf_pair", args))
         return 0
 
-    def t2_conv_operand(self, *args):
-        self.calls.append(("conv_operand", args))
-        return 0
-
 
 def test_vocode_launches_what_it_counts(monkeypatch):
     """A UNIVERSAL_V1 vocode through the wrappers (meta tensors, a stand-in
     library) counts 18 ``mrf_conv``, 27 ``mrf_pair``, 4 ``conv_transpose``
-    and 1 ``conv_operand`` launch, and makes as many C calls: each upsample
-    one 3-tap conv of dilation 1 to u Co channels (mode 0), and the last
-    conv of stages 1-3 the mean's operand only (mode bit 4)."""
+    and 1 ``conv_pre`` launch, and makes as many C calls: ``conv_pre`` first,
+    a 7-tap conv from the 80 mel channels writing only its operand with the
+    sum rounded before the bias (mode bit 8), each upsample one 3-tap conv
+    of dilation 1 to u Co channels (mode 0), and the last conv of stages
+    1-3 the mean's operand only (mode bit 4)."""
     fake = _FakeLib()
     monkeypatch.setattr(mrf, "_lib", lambda: fake)
     monkeypatch.setattr(mrf, "_stream", lambda: 0)
     monkeypatch.setattr(build, "require", lambda *a, **k: None)
     names = []
     launch = mrf._launch_conv
-    monkeypatch.setattr(mrf, "_launch_conv", lambda name, *a: (names.append(name),
-                                                               launch(name, *a))[1])
+    monkeypatch.setattr(mrf, "_launch_conv", lambda name, *a, **k: (names.append(name),
+                                                                    launch(name, *a, **k))[1])
     h = HiFiGAN(HiFiGANConfig(), Policy(torch.bfloat16)).to("meta").eval()
     before = dict(mrf.LAUNCHES)
     wav = h.apply(torch.empty(1, 16, 80, device="meta"))
     assert wav.shape == (1, 16 * 256)
     grown = {k: mrf.LAUNCHES[k] - before[k] for k in mrf.LAUNCHES}
-    assert grown == {"mrf_conv": 18, "mrf_pair": 27, "conv_transpose": 4, "conv_operand": 1}
-    assert len(fake.calls) == sum(grown.values()) and fake.calls[0][0] == "conv_operand"
-    convs = fake.calls[1:]
-    assert len(names) == len(convs)
+    assert grown == {"mrf_conv": 18, "mrf_pair": 27, "conv_transpose": 4, "conv_pre": 1}
+    assert len(fake.calls) == sum(grown.values()) and names[0] == "conv_pre"
+    convs = fake.calls
+    assert len(names) == len(convs) and convs[0][0] == "mrf_conv"
+    # conv_pre: the mel's 80 channels to 512, k=7, mode 8
+    assert convs[0][1][8:15] == (1, 16, 80, 512, 7, 1, 8)
     # t2_mrf_conv's ints: B, T, Ci, Co, K, dil, mode at 8..14
     ups = [args[8:15] for name, (_, args) in zip(names, convs) if name == "conv_transpose"]
     assert ups == [(1, 16, 512, 2048, 3, 1, 0), (1, 128, 256, 1024, 3, 1, 0),
