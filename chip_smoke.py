@@ -11,6 +11,7 @@
                                     # (``cell_ab``)
     python3 chip_smoke.py --k34-ab  # the vanilla K3/K4 of build/parent and this tree in
                                     # turns, bit for bit, and the controls mode's times
+    python3 chip_smoke.py --eval    # the kernels' build and phase 4f alone
 
 Phases, each of which must pass:
 
@@ -130,6 +131,20 @@ Phases, each of which must pass:
    K3 / K4 launch one of the controls mode, the losses falling, the speaker
    embedding's rows moved; ``say --speaker-id 2 --controls ...`` of its
    checkpoint; K3 / K4 at its first batch's shapes and the step's split;
+4f. from raw corpora to test-set audio (``eval_phase``): synthetic LJSpeech
+   (96 WAVs of 1.0-10.1 s) and Hi-Fi TTS (3 speakers, FLAC at 44.1 kHz)
+   layouts through ``preprocess`` (8 workers) and the ljspeech / hifi /
+   lj-hifi splits, the row counts and columns held; ``test`` of the vanilla
+   config on the LJ test split (8 rows) and of the controllable config on
+   the lj-hifi one (32 rows), the gate's bias chosen from a probe run so
+   rows stop at predicted frames and some fail, K1 held to 5 launches a
+   step (the controls read at each in the controllable run), K2 to one
+   vocode a batch, each WAV bit for bit its row vocoded alone,
+   ``failures.csv`` exactly the rows stopping at frame 0 or never;
+   ``train_mel_export`` of both (the vanilla first batch at B=64, L=192,
+   T=896): K3 alone, ``2 + 3T`` launches a batch, no K4, the first batch's
+   K3 against its plain version and timed, the .npy files equal to the
+   in-process forward's and to a second export's; ``say --export-mel``;
 5. print the kernels line and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero before the last line on any failure, when no CUDA device
@@ -500,6 +515,19 @@ def random_hifigan_state():
         else:
             out[k] = v
     return out
+
+
+def write_hifigan() -> str:
+    """``random_hifigan_state`` as an upstream ``g_*`` file with its
+    ``config.json`` under WORK -> the file's path."""
+    import torch
+
+    hdir = WORK / "hifigan"
+    hdir.mkdir(parents=True, exist_ok=True)
+    (hdir / "config.json").write_text(json.dumps(UNIVERSAL_V1))
+    g_path = str(hdir / "g_00000000")
+    torch.save({"generator": random_hifigan_state()}, g_path)
+    return g_path
 
 
 def chunk_inputs(model, lengths, g, L: int = 0) -> tuple:
@@ -3386,7 +3414,7 @@ def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log
     from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
     from tacotron2_tpu_torch.ops import train_decode as td
     from tacotron2_tpu_torch.run.say import model_config_from
-    from tacotron2_tpu_torch.run.train import _dataset, read_manifest
+    from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest
     from tacotron2_tpu_torch.training import optimizer, step
     from tacotron2_tpu_torch.training.checkpoint import load_model_state
 
@@ -3396,7 +3424,8 @@ def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log
     load_model_state(ckpt, model)
     model.to(dev)
     opt, sched = optimizer.make_optimizer(model.parameters(), 1e-3, 1e-6)
-    ds = _dataset(cfg, read_manifest(str(root / "train.csv")), str(speech), str(root / "cache"))
+    ds = manifest_dataset(cfg, read_manifest(str(root / "train.csv")), str(speech),
+                          cache_dir=str(root / "cache"))
     batch = step.to_device(collate([ds[i] for i in range(B)], 32, 128), dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -3592,11 +3621,7 @@ def say_phase(cfg_path: str, log: dict, card: str):
         ckpt[tag] = str(WORK / f"tacotron2-{tag}.ckpt")
         torch.save(to_lightning(m.state_dict()), ckpt[tag])
         n_params = sum(p.numel() for p in m.parameters())
-    hdir = WORK / "hifigan"
-    hdir.mkdir(exist_ok=True)
-    (hdir / "config.json").write_text(json.dumps(UNIVERSAL_V1))
-    g_path = str(hdir / "g_00000000")
-    torch.save({"generator": random_hifigan_state()}, g_path)
+    g_path = write_hifigan()
     print(f"  tacotron2 params {n_params}, checkpoints in {WORK}")
 
     def say(tag, max_len, out):
@@ -4323,6 +4348,545 @@ def _serve_subprocess(cfg_file: Path, root: Path) -> dict:
     return {"start_s": start_s, "generate_s": sec, "exit": rc}
 
 
+# ---------------------------------------------------------------------------
+# phase 4f: from a raw corpus to test-set audio (``eval_phase``)
+
+EVAL_LJ_CLIPS = 96
+EVAL_LONG_EVERY = 8  # LJ clips i % 8 == 3 last 10.1 s, texts i % 8 == 5 are 170-187 chars
+EVAL_HIFI_SPEAKERS = {"92": 210.0, "6097": 115.0, "9017": 130.0}  # speaker: f0 (Hz)
+EVAL_HIFI_SETS = (("train", 16), ("dev", 2), ("test", 4))
+EVAL_MAX_LEN = 512
+# the gate bias of the test runs lies at least this far from every probed
+# logit, so no rounding difference can move a row's stop: the probe's logits
+# carry a bias of 10, whose f32 ulp is 9.5e-7
+EVAL_GATE_MARGIN = 1e-5
+
+
+def _speechlike(sr: int, f0: float, dur: float, seed: int):
+    """Harmonics + noise + a ~3 Hz amplitude envelope (as
+    tests/test_full_pipeline.py's speech-like clips)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(sr * dur)) / sr
+    sig = sum((1.0 / k) * np.sin(2 * np.pi * f0 * k * t) for k in range(1, 6))
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t) ** 2
+    return (0.2 * env * sig + 0.002 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+def _eval_text(rng, n: int) -> str:
+    """About ``n`` characters of English from TRAIN_TEXTS, ending in a period."""
+    src = " ".join(TRAIN_TEXTS)
+    start = int(rng.integers(0, len(src) - 200))
+    while start > 0 and src[start - 1] != " ":
+        start -= 1
+    return src[start:start + n - 1].rstrip(" ,;") + "."
+
+
+def _hifi_clip(job) -> None:
+    """One Hi-Fi TTS clip as FLAC at 44.1 kHz (a worker of ``eval_corpora``)."""
+    import numpy as np
+
+    from tests.flac_encoder import encode_flac
+
+    path, f0, dur, seed = job
+    pcm = (_speechlike(44100, f0, dur, seed) * 32000).astype(np.int64)
+    Path(path).write_bytes(encode_flac(pcm, sample_rate=44100, subframe_mode="fixed2"))
+
+
+def eval_corpora(speech: Path) -> dict:
+    """An LJSpeech layout (``metadata.csv``, ``wavs/``: EVAL_LJ_CLIPS clips of
+    1.0-10.1 s, texts of 20-187 characters) and a Hi-Fi TTS one (speakers
+    92, 6097 and 9017, 16 / 2 / 4 clips of 1.0-2.5 s each as FLAC at 44.1
+    kHz, JSON-lines manifests) under ``speech``, from SEED. -> clips and
+    seconds of audio."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from tacotron2_tpu_torch.audio.io import write_wav
+
+    rng = np.random.default_rng(SEED + 12)
+    lj = speech / "LJSpeech-1.1"
+    (lj / "wavs").mkdir(parents=True)
+    meta, audio_s = [], 0.0
+    for i in range(EVAL_LJ_CLIPS):
+        dur = 10.1 if i % EVAL_LONG_EVERY == 3 else float(rng.uniform(1.0, 6.0))
+        n = int(rng.integers(170, 188)) if i % EVAL_LONG_EVERY == 5 else int(rng.integers(20, 150))
+        text = _eval_text(rng, n)
+        write_wav(str(lj / "wavs" / f"LJ{i:03d}.wav"),
+                  _speechlike(22050, float(rng.uniform(90.0, 250.0)), dur, i), 22050)
+        meta.append(f"LJ{i:03d}|{text}|{text}")
+        audio_s += dur
+    (lj / "metadata.csv").write_text("\n".join(meta) + "\n")
+
+    hifi = speech / "hi_fi_tts_v0"
+    jobs = []
+    for spk, f0 in EVAL_HIFI_SPEAKERS.items():
+        (hifi / "audio" / spk).mkdir(parents=True)
+        for set_name, n in EVAL_HIFI_SETS:
+            lines = []
+            for j in range(n):
+                rel = f"audio/{spk}/{spk}_{set_name}_{j}.flac"
+                dur = float(rng.uniform(1.0, 2.5))
+                jobs.append((str(hifi / rel), f0 * float(rng.uniform(0.9, 1.1)), dur,
+                             int(spk) + 100 * j))
+                lines.append(json.dumps({"audio_filepath": rel, "duration": dur,
+                                         "text_normalized": _eval_text(rng,
+                                                                       int(rng.integers(20, 120)))}))
+                audio_s += dur
+            (hifi / f"{spk}_manifest_clean_{set_name}.json").write_text("\n".join(lines) + "\n")
+    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn")) as pool:
+        list(pool.map(_hifi_clip, jobs))
+    return {"clips": EVAL_LJ_CLIPS + len(jobs), "audio_s": audio_s}
+
+
+def choose_gate_bias(g0, margin: float = EVAL_GATE_MARGIN) -> tuple:
+    """Gate logits without their bias (rows, T) -> (a bias, the frame counts
+    it gives: the first frame whose logit is negative, T where none is): of
+    the midpoints between two logits at least ``margin`` apart (so a
+    rounding difference cannot move a row's stop), one that leaves a row
+    failing (firing at frame 0 or never) with the most rows stopping at
+    distinct frames in between, and of those the one whose frames fire with
+    a chance nearest 1 in 100. The eval tests choose their biases with it
+    too."""
+    import numpy as np
+
+    from tacotron2_tpu_torch.run.test import gate_to_lengths
+
+    v = np.unique(g0)
+    best = None
+    for bias in [-(a + b) / 2 for a, b in zip(v[:-1], v[1:]) if b - a >= margin]:
+        n = gate_to_lengths((g0 + bias)[..., None])
+        fails = int(np.isin(n, (0, g0.shape[1])).sum())
+        score = (fails > 0, len(set(n.tolist()) - {0, g0.shape[1]}),
+                 -abs(float((g0 + bias < 0).mean()) - 0.01))
+        if best is None or score > best[0]:
+            best = (score, float(bias), n)
+    return best[1], best[2]
+
+
+def eval_test(tag: str, cfg_file: Path, speech: Path, probe_ckpt: str, g_path: str,
+              root: Path, log: dict) -> dict:
+    """``test`` through the CLI on ``cfg_file``'s test split. A probe run on
+    ``probe_ckpt`` (random full-width weights, gate bias 10: no row stops,
+    every row a failure) gives every frame's gate logit; the gate does not
+    feed back, so a checkpoint of the same weights with the bias of
+    ``choose_gate_bias`` stops the rows at predicted frames. That run's
+    counters are read: K1 5 launches a step (``tag`` "[controls]": the
+    decoder cell and the heads reading the controls at each), K2 one vocode
+    a batch with kept rows, one ``bilstm_forward`` a batch. Each WAV must
+    have n x 256 samples equal, bit for bit, to its row alone through
+    ``cut_vocode``; ``failures.csv`` must list exactly the rows stopping at
+    frame 0 or never; the first batch's kernel decode is held against the
+    plain decode over 32 frames (DECODE_TOL). -> {kernels-line row: launches}"""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.audio.io import read_wav
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.convert import to_lightning
+    from tacotron2_tpu_torch.data.loader import collate
+    from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest
+    from tacotron2_tpu_torch.ops import decoder_loop, encoder_lstm, mrf
+    from tacotron2_tpu_torch.run import test as rt
+    from tacotron2_tpu_torch.run.say import (cut_vocode, load_hifigan, load_tacotron,
+                                             vocode_bucket, vocoder_policy)
+    from tacotron2_tpu_torch.training.step import to_device
+
+    cfg = load_config(str(cfg_file))
+    dev = torch.device("cuda")
+    base = ["test", "--config", str(cfg_file), "--speech-dir", str(speech),
+            "--hifi-gan-checkpoint", g_path, "--max-len-override", str(EVAL_MAX_LEN)]
+    gates, gate_to_lengths = [], rt.gate_to_lengths
+    rt.gate_to_lengths = lambda g: (gates.append(g[..., 0]), gate_to_lengths(g))[1]
+    try:
+        probe = cli(base + ["--checkpoint", probe_ckpt, "--results-dir", str(root / "probe")])
+    finally:
+        rt.gate_to_lengths = gate_to_lengths
+    rows = probe["rows"]
+    if (probe["lengths"] != [EVAL_MAX_LEN] * rows or len(probe["failures"]) != rows
+            or list((root / "probe").glob("*.wav"))):
+        raise SmokeFailure(f"test{tag} probe (gate bias 10): {probe['lengths']}, "
+                           f"{len(probe['failures'])} failures of {rows} rows")
+    g0 = np.concatenate(gates) - 10.0
+    bias, want = choose_gate_bias(g0)
+    fire_share = float((g0 + bias < 0).mean())
+    ckpt = str(WORK / f"tacotron2-test{tag}.ckpt")
+    torch.save(to_lightning(random_tacotron(cfg, bias).state_dict()), ckpt)
+    print(f"  test{tag}: {rows} rows; gate bias {bias:.6f}, {100 * fire_share:.2f}% of the "
+          f"probed frames fire; each row's n: {want.tolist()}")
+
+    calls, vocode = [], rt.cut_vocode
+    rt.cut_vocode = lambda h, m, idx, cuts, Tb: (calls.append((m, list(idx), list(cuts))),
+                                                 vocode(h, m, idx, cuts, Tb))[1]
+    decoder_loop.reset_launches()
+    mrf.reset_launches()
+    encoder_lstm.reset_launches()
+    out_dir = root / "test"
+    try:
+        res = cli(base + ["--checkpoint", ckpt, "--results-dir", str(out_dir)])
+    finally:
+        rt.cut_vocode = vocode
+    k1, ctl, k2 = dict(decoder_loop.LAUNCHES), dict(decoder_loop.CONTROLS_LAUNCHES), \
+        dict(mrf.LAUNCHES)
+    enc = encoder_lstm.LAUNCHES["bilstm_forward"]
+    lengths, batches = res["lengths"], res["batches"]
+    fails = [i for i, n in enumerate(lengths) if n in (0, EVAL_MAX_LEN)]
+    stops = sorted({n for n in lengths if 0 < n < EVAL_MAX_LEN})
+    print(f"  test{tag}: n {lengths}; stops {stops}; failures {fails}; batches "
+          + ", ".join(f"{b['rows']}x{b['chars']} {b['decode_frames']} frames decode "
+                      f"{b['decode_s'] * 1e3:.1f} ms vocode {b['vocode_s'] * 1e3:.1f} ms"
+                      for b in batches))
+    if lengths != want.tolist():
+        raise SmokeFailure(f"test{tag}: rows stopped at {lengths}, the probe predicts "
+                           f"{want.tolist()}")
+    if len(stops) < 2 or not fails:
+        raise SmokeFailure(f"test{tag}: stops {stops}, failures {fails}: want two or more "
+                           "distinct stops in (0, max_len) and a failure")
+    listed = [int(x.split("|")[0]) for x in (out_dir / "failures.csv").read_text().splitlines()]
+    if listed != fails or [i for i, _ in res["failures"]] != fails:
+        raise SmokeFailure(f"test{tag}: failures.csv lists {listed}, want {fails}")
+    steps = sum(min(-(-b["decode_frames"] // 64) * 64, EVAL_MAX_LEN) for b in batches)
+    want_k1 = {"prenet": steps, "lstm_cell": 2 * steps, "location_attention": steps,
+               "heads": steps, "quantize_xh": 0, "lstm_cell_int8": 0}
+    want_ctl = ({"lstm_cell": steps, "heads": steps, "quantize_xh": 0, "lstm_cell_int8": 0}
+                if tag else {k: 0 for k in ctl})
+    print(f"  test{tag} launches: K1 {k1} (of them reading the controls {ctl}), K2 {k2}, "
+          f"bilstm_forward {enc}; {steps} decode steps, {len(calls)} vocodes")
+    if k1 != want_k1 or ctl != want_ctl:
+        raise SmokeFailure(f"test{tag}: K1 launches {k1}, controls {ctl}; want {want_k1}, "
+                           f"{want_ctl}")
+    check_vocode_launches(k2, len(calls), f"test{tag}")
+    if len(calls) != sum(1 for b in batches if b["vocoded"]) or enc != len(batches):
+        raise SmokeFailure(f"test{tag}: {len(calls)} vocodes, {enc} bilstm_forward launches "
+                           f"for {len(batches)} batches")
+
+    hifigan = load_hifigan(g_path, vocoder_policy(dev), dev)
+    starts = np.cumsum([0] + [b["rows"] for b in batches])
+    vocoded = [s for s, b in zip(starts, batches) if b["vocoded"]]
+    for start, (mels, idx, cuts) in zip(vocoded, calls):
+        for b, n in zip(idx, cuts):
+            wav, _ = read_wav(str(out_dir / f"{start + b}.wav"))
+            pcm = np.round(wav * 32768.0).astype(np.int16)
+            alone = cut_vocode(hifigan, mels, [b], [n], vocode_bucket(hifigan, n))
+            if len(pcm) != n * 256 or not np.array_equal(pcm, alone[0, :n * 256].cpu().numpy()):
+                raise SmokeFailure(f"test{tag}: row {start + b}'s WAV ({len(pcm)} samples, n "
+                                   f"{n}) is not its row vocoded alone")
+
+    model = load_tacotron(cfg, probe_ckpt, dev)
+    ds = manifest_dataset(cfg, read_manifest(cfg.dataset.test)[:batches[0]["rows"]], str(speech),
+                          cache=False)
+    b = to_device(collate([ds[i] for i in range(len(ds))], bucket_chars=32), dev)
+    kw = {k: b[k] for k in ("speaker_id", "controls") if k in b}
+    fast = model.forward_infer_fast(b["chars_idx"], b["chars_len"], 32, prenet_dropout=False, **kw)
+    ref = model.forward_infer(b["chars_idx"], b["chars_len"], 32, prenet_dropout=False, **kw)
+    if fast.n_frames != ref.n_frames or not torch.equal(fast.lengths, ref.lengths):
+        raise SmokeFailure(f"test{tag}: kernel and plain decode disagree on frames")
+    check(f"decode_32_frames[test{tag}]", [("mels_post", fast.mels_post, ref.mels_post),
+                                          ("gates", fast.gates, ref.gates),
+                                          ("alignments", fast.alignments, ref.alignments)],
+          DECODE_TOL, log)
+    log[f"eval_test{tag}"] = {"bias": bias, "fire_share": fire_share, "lengths": lengths,
+                              "failures": fails, "batches": batches, "k1": k1, "controls": ctl,
+                              "k2": k2, "bilstm_forward": enc}
+    out = {**k1, **k2, "bilstm_forward": enc}
+    if tag:
+        out = {"lstm_cell[controls]": ctl["lstm_cell"], "heads[controls]": ctl["heads"], **out}
+    return out
+
+
+def eval_export(tag: str, cfg_file: Path, speech: Path, ckpt: str, root: Path, log: dict,
+                card: str) -> dict:
+    """``train_mel_export`` through the CLI on ``cfg_file``'s train and val
+    splits, with K3 / K4's and the encoder's counters read around it: K3
+    ``forward_launches(T)`` a batch (with ``tag`` "[controls]" every one of
+    the controls mode), no K4, one ``bilstm_forward`` and no
+    ``bilstm_backward`` a batch. Each row must have one .npy of (its mel
+    frames, 80); the first batch, rebuilt here, gives the same mels bit for
+    bit through ``forward_teacher``, whose K3 call is held against the plain
+    version on the same inputs (K3_TOL_TRAIN) and timed beside its bound; a
+    second export writes the same bytes. -> (launches, the K3 reading)"""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.audio.io import load_audio
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.data.loader import collate
+    from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest
+    from tacotron2_tpu_torch.ops import encoder_lstm
+    from tacotron2_tpu_torch.ops import train_decode as td
+    from tacotron2_tpu_torch.run.say import load_tacotron
+    from tacotron2_tpu_torch.training.step import to_device
+
+    cfg = load_config(str(cfg_file))
+    dev = torch.device("cuda")
+    base = ["train_mel_export", "--config", str(cfg_file), "--speech-dir", str(speech),
+            "--checkpoint", ckpt]
+    td.reset_launches()
+    encoder_lstm.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by earlier phases: not the export's
+    t0 = time.perf_counter()
+    res = cli(base + ["--results-dir", str(root / "mels")])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    k34, ctl, enc = dict(td.LAUNCHES), dict(td.CONTROLS_LAUNCHES), dict(encoder_lstm.LAUNCHES)
+    batches = res["train"]["batches"] + res["val"]["batches"]
+    want = {"teacher_forward": sum(td.forward_launches(b["frames"]) for b in batches),
+            "teacher_backward": 0}
+    frames = sum(b["mel_frames"] for b in batches)
+    secs = sum(b["s"] for b in batches)
+    print(f"  train_mel_export{tag}: batches (rows x chars x frames, ms) "
+          + ", ".join(f"{b['rows']}x{b['chars']}x{b['frames']} {b['s'] * 1e3:.1f}"
+                      for b in batches)
+          + f"; {frames / secs:.0f} exported mel frames/s, {wall:.2f} s in all, peak "
+          f"{peak / 2**30:.2f} GiB over the {held / 2**30:.2f} GiB held before, on {card}; "
+          f"launches {k34} (controls {ctl}), encoder {enc}")
+    if k34 != want or enc != {"bilstm_forward": len(batches), "bilstm_backward": 0}:
+        raise SmokeFailure(f"train_mel_export{tag}: launches {k34}, encoder {enc}; want {want}, "
+                           f"one bilstm_forward a batch ({len(batches)})")
+    if tag and ctl != want:
+        raise SmokeFailure(f"train_mel_export{tag}: K3 launches of the controls mode {ctl}, "
+                           f"want {want}")
+    first = batches[0]
+    if not tag and (first["rows"], first["chars"], first["frames"]) != (64, 192, 896):
+        raise SmokeFailure(f"train_mel_export: the first batch is {first}, want 64 rows of "
+                           "192 chars and 896 frames (the longest clip and text)")
+
+    rows = {s: read_manifest(getattr(cfg.dataset, s)) for s in ("train", "val")}
+    silence = cfg.dataset.preprocessing.silence
+    for r in rows["train"] + rows["val"]:
+        name = root / "mels" / Path(r["wav"]).name.replace(".wav", ".npy")
+        n = 1 + (len(load_audio(str(speech / r["wav"]))[0]) + silence) // 256
+        if np.load(name).shape != (n, 80):
+            raise SmokeFailure(f"train_mel_export{tag}: {name.name} is "
+                               f"{np.load(name).shape}, want ({n}, 80)")
+
+    ds = manifest_dataset(cfg, rows["train"][:first["rows"]], str(speech), cache=False)
+    b = to_device(collate([ds[i] for i in range(len(ds))], 32, 128), dev)
+    model = load_tacotron(cfg, ckpt, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    calls, forward = [], td.teacher_forward
+    td.teacher_forward = lambda *a: (calls.append(a), forward(*a))[1]
+    try:
+        with torch.no_grad():
+            out = model.forward_teacher(b["chars_idx"], b["chars_len"], b["mel"], b["mel_len"],
+                                        train=False, generator=gen,
+                                        speaker_id=b.get("speaker_id"),
+                                        controls=b.get("controls"))
+    finally:
+        td.teacher_forward = forward
+    for i, r in enumerate(rows["train"][:first["rows"]]):
+        got = out.mels_post[i, :int(b["mel_len"][i])].cpu().numpy()
+        if not np.array_equal(got, np.load(root / "mels" / Path(r["wav"]).name.replace(".wav",
+                                                                                     ".npy"))):
+            raise SmokeFailure(f"train_mel_export{tag}: row {i}'s .npy is not the first "
+                               "batch's forward_teacher mels")
+    fwd_args = calls[0]
+    w, din, enc_b = fwd_args[0], fwd_args[1], fwd_args[2]
+    T, B, L = din.shape[0], din.shape[1], enc_b.shape[1]
+    mg_k, res_k = td.teacher_forward(*fwd_args)
+    mg_p, res_p = td.teacher_forward_plain(*fwd_args)
+    mode = "[controls]" if tag else ""
+    check(f"teacher_forward@export{tag},B{B},L{L},T{T}",
+          [("mel_gate", mg_k, mg_p)]
+          + [(f, getattr(res_k, f), getattr(res_p, f)) for f in td.Residuals._fields],
+          K3_TOL_TRAIN, log, f"teacher_forward{mode}")
+    b_ms, b_by, stream, _ = teacher_bounds(T, B, L, enc_b.shape[2], model.cfg.controls_dim, w,
+                                           res_k, mg_k)["teacher_forward"]
+    k3 = {"B": B, "L": L, "T": T, "ms": time_ms(lambda: td.teacher_forward(*fwd_args), 3, 1),
+          "plain_ms": time_ms(lambda: td.teacher_forward_plain(*fwd_args), 2, 1),
+          "bound_ms": b_ms, "bound_by": b_by, "weight_stream_ms": stream,
+          "launches": want["teacher_forward"], "card": card}
+    print(f"  K3{mode} at the export's first batch (B={B}, L={L}, T={T}): {k3['ms']:.3f} ms, "
+          f"plain {k3['plain_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}), weight stream "
+          f"{stream:.3f} ms on {card}")
+    del out, mg_k, res_k, mg_p, res_p, calls, fwd_args
+
+    again = cli(base + ["--results-dir", str(root / "mels_again")])
+    files = res["train"]["files"] + res["val"]["files"]
+    if again["train"]["files"] + again["val"]["files"] != [
+            f.replace(str(root / "mels"), str(root / "mels_again")) for f in files] or any(
+            Path(f).read_bytes() != Path(g).read_bytes()
+            for f, g in zip(files, again["train"]["files"] + again["val"]["files"])):
+        raise SmokeFailure(f"train_mel_export{tag}: a second export with the same seeds wrote "
+                           "other files")
+    log[f"eval_export{tag}"] = {"batches": batches, "mel_frames_per_s": frames / secs,
+                                "wall_s": wall, "peak_bytes": peak, "held_bytes": held,
+                                "k3": k3,
+                                "launches": k34, "controls_launches": ctl, "encoder": enc,
+                                "files": len(files)}
+    out = {f"teacher_forward{mode}": k34["teacher_forward"], "bilstm_forward": enc["bilstm_forward"]}
+    return out, k3
+
+
+def eval_phase(cfg_path: str, ctl_cfg_path: str, ckpt: str, ctl_ckpt: str, g_path: str,
+               log: dict, card: str) -> tuple:
+    """Phase 4f: synthetic LJSpeech and Hi-Fi TTS corpora (``eval_corpora``)
+    -> ``preprocess`` of each (8 worker processes) -> the three splits
+    commands, down to the manifests the controllable config reads -> ``test``
+    (``eval_test``) of the vanilla config on the LJ test split and of the
+    controllable config on the lj-hifi one -> ``train_mel_export``
+    (``eval_export``) of both -> ``say --export-mel``: the .npy is the mel
+    that was vocoded. -> ({kernels-line row: launches}, K3's reading at the
+    vanilla export's first batch)"""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.audio.prosody import FEATURE_NAMES
+    from tacotron2_tpu_torch.preprocessing import splits
+    from tacotron2_tpu_torch.preprocessing.table import column, read_table
+    from tacotron2_tpu_torch.run import say as rs
+
+    t_phase = time.perf_counter()
+    root = WORK / "eval"
+    speech, data = root / "speech", root / "data"
+    data.mkdir(parents=True)
+    t0 = time.perf_counter()
+    corpus = eval_corpora(speech)
+    t_corpus = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for dataset, sub in (("ljspeech", "LJSpeech-1.1"), ("hifi-tts", "hi_fi_tts_v0")):
+        cli(["preprocess", "--dataset", dataset, "--speech-dir", str(speech / sub),
+             "--out-dir", str(data), "--out-postfix", "smoke", "--n-jobs", "8"])
+    t_pre = time.perf_counter() - t0
+    d = {name: str(data / f"{name}.csv") for name in (
+        "lj-train", "lj-val", "lj-test", "hifi-train", "hifi-val", "hifi-test",
+        "lj-hifi-train", "lj-hifi-val", "lj-hifi-test")}
+    t0 = time.perf_counter()
+    splits.main(["ljspeech", "--csv-in", str(data / "ljspeech-smoke.csv"), "--train-out",
+                 d["lj-train"], "--val-out", d["lj-val"], "--test-out", d["lj-test"],
+                 "--val-size", "4", "--test-size", "8"])
+    splits.main(["hifi", *(x for s in ("train", "val", "test")
+                           for x in (f"--{s}-in", str(data / f"hifi-tts-{s}-smoke.csv"))),
+                 "--train-out", d["hifi-train"], "--val-out", d["hifi-val"], "--test-out",
+                 d["hifi-test"], "--speaker-val-size", "4", "--speaker-test-size", "8"])
+    splits.main(["lj-hifi", *(x for s in ("train", "val", "test") for x in (
+                     f"--hifi-{s}-in", d[f"hifi-{s}"], f"--lj-{s}-in", d[f"lj-{s}"],
+                     f"--{s}-out", d[f"lj-hifi-{s}"]))])
+    t_splits = time.perf_counter() - t0
+    ctl_raw = json.loads(Path(ctl_cfg_path).read_text())
+    feats = ctl_raw["extensions"]["controls"]["features"]
+    counts = {}
+    for name, want in (("ljspeech-smoke", 96), ("hifi-tts-train-smoke", 48),
+                       ("hifi-tts-val-smoke", 6), ("hifi-tts-test-smoke", 12), ("lj-train", 84),
+                       ("lj-val", 4), ("lj-test", 8), ("hifi-train", 30), ("hifi-val", 12),
+                       ("hifi-test", 24), ("lj-hifi-train", 114), ("lj-hifi-val", 16),
+                       ("lj-hifi-test", 32)):
+        header, rows = read_table(str(data / f"{name}.csv"))
+        counts[name] = len(rows)
+        need = [*FEATURE_NAMES, "text", "wav"] + (feats + ["speaker_id"] if "hifi" in name
+                                                  and "tts" not in name else [])
+        if len(rows) != want or not set(need) <= set(header):
+            raise SmokeFailure(f"{name}.csv: {len(rows)} rows, want {want}; columns "
+                               f"{sorted(set(need) - set(header))} missing")
+        if name.startswith("lj-hifi"):
+            if {int(r["speaker_id"]) for r in rows} != set(range(4)) or not all(
+                    np.isfinite(column(rows, f)).all() for f in feats):
+                raise SmokeFailure(f"{name}.csv: speakers or control columns not as the "
+                                   f"controllable config reads them")
+    print(f"  corpora: {corpus['clips']} clips, {corpus['audio_s']:.1f} s of audio, made in "
+          f"{t_corpus:.2f} s; preprocess {t_pre:.2f} s ({1e3 * t_pre / corpus['clips']:.2f} ms "
+          f"a clip on the host, 8 workers); splits {t_splits:.2f} s; rows {counts}")
+
+    configs = {}
+    for tag, src, split in (("", cfg_path, "lj"), ("[controls]", ctl_cfg_path, "lj-hifi")):
+        raw = json.loads(Path(src).read_text())
+        raw["dataset"].update({s: d[f"{split}-{s}"] for s in ("train", "val", "test")})
+        configs[tag] = data / f"config{'-controls' if tag else ''}.json"
+        configs[tag].write_text(json.dumps(raw))
+    sp = {"": speech / "LJSpeech-1.1", "[controls]": speech}
+    launches: dict = {}
+
+    def add(got: dict) -> None:
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    t0 = time.perf_counter()
+    for tag, probe_ckpt in (("", ckpt), ("[controls]", ctl_ckpt)):
+        add(eval_test(tag, configs[tag], sp[tag], probe_ckpt, g_path,
+                      root / f"test{'-controls' if tag else ''}", log))
+    t_test = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k3 = {}
+    for tag, c in (("", ckpt), ("[controls]", ctl_ckpt)):
+        got, k3[tag] = eval_export(tag, configs[tag], sp[tag], c,
+                                   root / f"export{'-controls' if tag else ''}", log, card)
+        add(got)
+    t_export = time.perf_counter() - t0
+
+    calls, vocode = [], rs.cut_vocode
+    rs.cut_vocode = lambda h, m, idx, cuts, Tb: (calls.append((m, list(cuts))),
+                                                 vocode(h, m, idx, cuts, Tb))[1]
+    out = str(root / "say.wav")
+    try:
+        said = cli(["say", "--config", cfg_path, "--checkpoint", ckpt, "--hifi-gan-checkpoint",
+                    g_path, "--text", TEXT, "--out", out, "--random-seed", str(SEED),
+                    "--max-len-override", "64", "--export-mel"])
+    finally:
+        rs.cut_vocode = vocode
+    mel, cut = np.load(out + ".npy"), said["cut"]
+    if mel.shape != (80, cut) or len(calls) != 1 or calls[0][1] != [cut] or not np.array_equal(
+            mel, calls[0][0][0, :cut].T.cpu().numpy()):
+        raise SmokeFailure(f"say --export-mel: {mel.shape} for cut {cut}, not the vocoded mel")
+    print(f"  say --export-mel: {Path(out).name}.npy {mel.shape}, the mel that was vocoded")
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 4f: {seconds:.1f} s (corpora {t_corpus:.1f}, preprocess {t_pre:.1f}, "
+          f"splits {t_splits:.1f}, test {t_test:.1f}, train_mel_export {t_export:.1f}) on {card}")
+    log["eval"] = {"corpus": corpus, "rows": counts, "seconds": seconds, "corpus_s": t_corpus,
+                   "preprocess_s": t_pre, "preprocess_ms_per_clip": 1e3 * t_pre / corpus["clips"],
+                   "splits_s": t_splits, "test_s": t_test, "export_s": t_export,
+                   "say_export_mel": {"shape": list(mel.shape), "cut": cut}, "card": card}
+    torch.cuda.empty_cache()
+    return launches, k3[""]
+
+
+def eval_mode() -> int:
+    """``--eval``: the kernels' build and phase 4f alone, on the checkpoints
+    phases 4 and 4d write (random full-width weights, gate bias 10);
+    details to ``chiprun_out/eval.json``."""
+    import torch
+
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.convert import to_lightning
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build
+
+    card = card_line()
+    print(f"[4f] alone on {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    use_f32_math()
+    build.build_all()
+    log: dict = {"card": card}
+    try:
+        WORK.mkdir(parents=True, exist_ok=True)
+        paths = [str(ROOT / "config" / "vanilla-ljspeech-stop.json"),
+                 str(ROOT / "config" / CTL_CONFIG)]
+        ckpts = []
+        for p in paths:
+            ckpts.append(str(WORK / f"tacotron2-{Path(p).stem}.ckpt"))
+            torch.save(to_lightning(random_tacotron(load_config(p), 10.0).state_dict()),
+                       ckpts[-1])
+        launches, k3 = eval_phase(*paths, *ckpts, write_hifigan(), log, card)
+        log.update({"launches": launches, "k3_export": k3})
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    finally:
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "eval.json").write_text(json.dumps(log, indent=1, default=str))
+        shutil.rmtree(WORK, ignore_errors=True)
+    print(json.dumps({"launches": launches, "k3_export": k3}))
+    return 0
+
+
 def arg_value(flag: str, default: str) -> str:
     argv = sys.argv[1:]
     return argv[argv.index(flag) + 1] if flag in argv else default
@@ -4541,6 +5105,8 @@ def main() -> int:
         return k1_rows_mode(arg_value("--out", "k1_rows.json"))
     if "--k34-rows" in sys.argv[1:]:
         return k34_rows_mode(arg_value("--out", "k34_rows.json"))
+    if "--eval" in sys.argv[1:]:
+        return eval_mode()
     log: dict = {}
     t_start = time.perf_counter()
     try:
@@ -4660,6 +5226,15 @@ def main() -> int:
         print(f"[4e] train the controllable, multi-speaker config ({CTL_CONFIG}) through the "
               f"CLI entry: batch {CTL_TRAIN_B}, 6 steps, resumed to 8, then its say")
         launches.update(train_controls_phase(g_path, log, card))
+        print("[4f] from raw corpora to test-set audio through the CLI: preprocess (WAV and "
+              "FLAC), the splits, test, train_mel_export and say --export-mel")
+        eval_launches, k3_export = eval_phase(cfg_path, str(ROOT / "config" / CTL_CONFIG),
+                                              ckpt, ctl_ckpt, g_path, log, card)
+        for k, n in eval_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        for r in rows:
+            if r["name"] == "teacher_forward":
+                r["export"] = k3_export
         if log.get("deferred"):
             raise SmokeFailure("; ".join(log["deferred"]))
 
@@ -4688,7 +5263,7 @@ def main() -> int:
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
         # the cells' and the attention's readings at other row counts ride along
         print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
-                                       **({"rows": r["rows"]} if "rows" in r else {})}
+                                       **{k: r[k] for k in ("rows", "export") if k in r}}
                                       for r in rows]}))
         print(card)
     except SmokeFailure as e:

@@ -11,16 +11,28 @@
     python -m tacotron2_tpu_torch server --config config/server.json \\
         [--port 8080] [--mode warm|subprocess] [--device cpu]
 
-The options mirror the JAX package's ``main.py say``, ``main.py train`` and
-``main.py server``: ``--speaker-id`` picks a multi-speaker model's voice and
-``--controls`` gives a controllable model its controls, one number per
-feature of the config's ``extensions.controls``; checkpoints are the
+    python -m tacotron2_tpu_torch test --config C --speech-dir S --checkpoint X.ckpt \\
+        [--hifi-gan-checkpoint G] [--results-dir R] [--batch-size 8] [--limit N] [--device cpu]
+
+    python -m tacotron2_tpu_torch train_mel_export --config C --speech-dir S \\
+        --checkpoint X.ckpt [--results-dir R] [--device cpu]
+
+    python -m tacotron2_tpu_torch preprocess --dataset ljspeech|hifi-tts --speech-dir S \\
+        [--out-dir D] [--out-postfix P] [--n-jobs 8] [--trim] [--trim-top-db 60]
+
+The options mirror the JAX package's ``main.py`` commands of the same names
+(``say --export-mel`` also saves the vocoded mel, (M, frames), as
+``o.wav.npy`` for ``--out o.wav``; ``preprocess``'s manifests are split
+by ``python -m tacotron2_tpu_torch.preprocessing.splits``): ``--speaker-id``
+picks a multi-speaker model's voice and ``--controls`` gives a controllable
+model its controls, one number per feature of the config's
+``extensions.controls``; checkpoints are the
 reference's Lightning ``.ckpt``
 (``train`` writes ``R/final.ckpt``, which ``say`` loads) and the vocoder an
 upstream HiFi-GAN ``g_*`` file with its ``config.json`` (Griffin-Lim
 without one). ``server``'s config is the JAX server's (``models``,
 ``batching``, ``warmup``). All run on the card unless ``--device cpu`` is
-given.
+given; ``preprocess`` runs on the host alone and takes no config.
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ import argparse
 import json
 import os
 import sys
+import time
 from typing import Optional, Sequence
 
 
@@ -52,6 +65,7 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--controls", default=None,
                    help="if controls are enabled, a comma-separated list of values to pass "
                         "into the model")
+    s.add_argument("--export-mel", action="store_true", help=argparse.SUPPRESS)
     s.add_argument("--device", default=None, help="cuda (default) or cpu")
 
     t = sub.add_parser("train", help="train a Tacotron 2 model")
@@ -73,11 +87,52 @@ def _parser() -> argparse.ArgumentParser:
                    help="warm: models stay loaded and requests are micro-batched; "
                         "subprocess: one say process per request")
     v.add_argument("--device", default=None, help="cuda (default) or cpu")
+
+    e = sub.add_parser("test", help="synthesize the config's test split")
+    e.add_argument("--config", required=True, help="a Tacotron hyperparameter config file")
+    e.add_argument("--speech-dir", required=True, help="the directory the manifests' wav "
+                                                       "paths are relative to")
+    e.add_argument("--checkpoint", required=True, help="a trained Tacotron model checkpoint")
+    e.add_argument("--hifi-gan-checkpoint", default=None, help="a HiFi-GAN generator checkpoint")
+    e.add_argument("--results-dir", default="results_test", help="where the wavs go")
+    e.add_argument("--batch-size", type=int, default=8)
+    e.add_argument("--limit", type=int, default=None, help="the first N rows only")
+    e.add_argument("--max-len-override", type=int, default=5000, help=argparse.SUPPRESS)
+    e.add_argument("--device", default=None, help="cuda (default) or cpu")
+
+    m = sub.add_parser("train_mel_export",
+                       help="teacher-forced mels of the train and val splits as .npy")
+    m.add_argument("--config", required=True, help="a Tacotron hyperparameter config file")
+    m.add_argument("--speech-dir", required=True, help="the directory the manifests' wav "
+                                                       "paths are relative to")
+    m.add_argument("--checkpoint", required=True, help="a trained Tacotron model checkpoint")
+    m.add_argument("--results-dir", default="results_mel_export", help="where the mels go")
+    m.add_argument("--device", default=None, help="cuda (default) or cpu")
+
+    r = sub.add_parser("preprocess", help="a corpus -> manifests with prosody features")
+    r.add_argument("--dataset", required=True, choices=("ljspeech", "hifi-tts"),
+                   help="the name of a dataset to preprocess")
+    r.add_argument("--speech-dir", required=True, help="the corpus' directory")
+    r.add_argument("--out-dir", default="", help="where the manifests go")
+    r.add_argument("--out-postfix", default=None, help="the manifests' postfix; the time if "
+                                                      "not given")
+    r.add_argument("--n-jobs", type=int, default=8, help="worker processes")
+    r.add_argument("--trim", action="store_true", help="trim silence into a copy of the audio")
+    r.add_argument("--trim-top-db", type=float, default=60.0)
     return p
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = _parser().parse_args(argv)
+    if args.command == "preprocess":
+        if args.dataset == "ljspeech":
+            from tacotron2_tpu_torch.preprocessing.ljspeech import do_preprocess
+        else:
+            from tacotron2_tpu_torch.preprocessing.hifi_tts import do_preprocess
+
+        postfix = args.out_postfix if args.out_postfix is not None else str(int(time.time()))
+        return {"outputs": do_preprocess(args.speech_dir, args.out_dir, postfix, args.n_jobs,
+                                         args.trim, args.trim_top_db)}
     from tacotron2_tpu_torch.config import config_from_dict
 
     with open(args.config) as f:
@@ -92,13 +147,25 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
         return do_train(cfg, raw, args.speech_dir, args.results_dir, args.resume_ckpt,
                         seed=args.seed, max_steps_override=args.max_steps, device=args.device)
+    if args.command == "test":
+        from tacotron2_tpu_torch.run.test import do_test
+
+        return do_test(cfg, args.speech_dir, args.checkpoint, args.hifi_gan_checkpoint,
+                       args.results_dir, args.batch_size, args.max_len_override, args.limit,
+                       device=args.device)
+    if args.command == "train_mel_export":
+        from tacotron2_tpu_torch.run.train_mel_export import do_train_mel_export
+
+        return do_train_mel_export(cfg, args.speech_dir, args.checkpoint, args.results_dir,
+                                   device=args.device)
     from tacotron2_tpu_torch.run.say import do_say
 
     return do_say(cfg, args.checkpoint, args.text, args.out,
                   hifi_gan_checkpoint=args.hifi_gan_checkpoint,
                   random_seed=args.random_seed, max_len_override=args.max_len_override,
                   device=args.device, quantize_int8=args.quantize_int8,
-                  speaker_id=args.speaker_id, controls=args.controls)
+                  speaker_id=args.speaker_id, controls=args.controls,
+                  export_mel=args.export_mel)
 
 
 if __name__ == "__main__":

@@ -1,1 +1,1 @@
-"""Audio IO (PCM16 WAV)."""
+"""Audio: WAV IO, FLAC decode, log-mel, Griffin-Lim, trimming, prosody features."""

@@ -1,4 +1,5 @@
-"""WAV file I/O in pure numpy (RIFF parser/writer).
+"""Audio file I/O: WAV in pure numpy (RIFF parser/writer), FLAC through the
+native decoder (``load_audio``).
 
 The reference reads audio with torchaudio (datasets/tts_dataset.py:189) and
 writes with soundfile (run/say.py:173). Neither is available here, and audio
@@ -84,6 +85,16 @@ def read_wav(path: str, mono: bool = True) -> Tuple[np.ndarray, int]:
         if mono:
             samples = samples.mean(axis=1)
     return np.ascontiguousarray(samples, dtype=np.float32), int(sample_rate)
+
+
+def load_audio(path: str, mono: bool = True) -> Tuple[np.ndarray, int]:
+    """WAV through the numpy codec, FLAC through the native decoder
+    (``audio/flac.py``), by the file's extension (JAX ``load_audio``)."""
+    if path.lower().endswith(".flac"):
+        from tacotron2_tpu_torch.audio.flac import read_flac
+
+        return read_flac(path, mono=mono)
+    return read_wav(path, mono=mono)
 
 
 def write_wav(path: str, wav: np.ndarray, sample_rate: int, subtype: str = "PCM_16") -> None:

@@ -1,1 +1,1 @@
-"""Input pipeline of the port's training: dataset, collate, loader (host numpy)."""
+"""Input pipeline of the port: manifests, dataset, collate, loader (host numpy)."""

@@ -1,18 +1,19 @@
 """TTS dataset: WAV -> log-mel and gate targets, text -> char indices.
 
 Counterpart of ``tacotron2_tpu/data/dataset.py`` with speaker ids and
-control features (no description embeddings, no feature override; WAV only,
-FLAC input is not ported):
+control features (no description embeddings, no feature override):
 
 - texts are normalized once, at construction (transliterate -> lower ->
   strip -> [expand abbreviations] -> end token), then ordinal-encoded + 1;
-- audio: read the WAV -> [trim silence] -> append ``silence`` zero samples
+- audio: read the WAV or FLAC (``load_audio``) -> [trim silence] -> append ``silence`` zero samples
   -> log-mel (frames, n_mels), optionally cached per file under a tag of
   the preprocessing parameters;
 - the gate target is ones with the LAST frame 0 (stop is the gate going
   low, the reference's convention);
 - the metadata carry ``speaker_id`` (int64) and ``features`` (f32, the
-  controls) where the dataset was given them.
+  controls) where the dataset was given them; ``include_text`` and
+  ``include_filename`` put the normalized text and the file name in the
+  item's third dict, which the collate passes through as lists.
 
 Items are ``(data, metadata, extra)`` dicts as in the JAX package, so the
 collate is the same.
@@ -27,7 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from tacotron2_tpu_torch.audio.io import read_wav
+from tacotron2_tpu_torch.audio.io import load_audio
 from tacotron2_tpu_torch.audio.mel import TacotronMelSpectrogram
 from tacotron2_tpu_torch.audio.trim import trim_silence
 from tacotron2_tpu_torch.config import ALLOWED_CHARS
@@ -41,7 +42,8 @@ class TTSDataset:
                  silence: int = 0, trim: bool = True, trim_top_db: float = 60,
                  trim_frame_length: int = 2048, expand_abbreviations: bool = False,
                  num_mels: int = 80, cache: bool = False, cache_dir: Optional[str] = None,
-                 sample_rate: int = 22050):
+                 sample_rate: int = 22050, include_text: bool = False,
+                 include_filename: bool = False):
         if cache and cache_dir is None:
             raise ValueError("If caching spectrograms, a cache directory is required")
         if cache:
@@ -51,6 +53,7 @@ class TTSDataset:
         self.cache, self.cache_dir = cache, cache_dir
         self.trim, self.trim_top_db, self.trim_frame_length = trim, trim_top_db, trim_frame_length
         self.silence = silence
+        self.include_text, self.include_filename = include_text, include_filename
         self.texts = [normalize_text(t, allowed_chars, end_token, expand_abbreviations)
                       for t in texts]
         self.encoder = CharEncoder(allowed_chars, end_token)
@@ -69,7 +72,7 @@ class TTSDataset:
                                    f"{filename.replace('/', '_')}.{self._cache_tag}.npy")
             if path.exists(cache_path):
                 return np.load(cache_path)
-        wav, _ = read_wav(path.join(self.base_dir, filename))
+        wav, _ = load_audio(path.join(self.base_dir, filename))
         if self.trim:
             wav, _ = trim_silence(wav, top_db=self.trim_top_db,
                                   frame_length=self.trim_frame_length)
@@ -91,4 +94,9 @@ class TTSDataset:
             meta["speaker_id"] = np.int64(self.speaker_ids[i])
         if self.features is not None:
             meta["features"] = np.asarray(self.features[i], np.float32)
-        return data, meta, {}
+        extra = {}
+        if self.include_text:
+            extra["text"] = self.texts[i]
+        if self.include_filename:
+            extra["filename"] = self.filenames[i]
+        return data, meta, extra

@@ -1,1 +1,1 @@
-"""Drivers of the port (say)."""
+"""Drivers of the port: say, train, server, test, train_mel_export."""

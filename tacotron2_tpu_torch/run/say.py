@@ -24,6 +24,7 @@ import secrets
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from tacotron2_tpu_torch.audio.griffin_lim import mel_to_audio
@@ -160,14 +161,16 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
            hifi_gan_checkpoint: Optional[str] = None,
            random_seed: Optional[int] = None, max_len_override: int = MAX_LEN,
            device: Optional[str] = None, quantize_int8: bool = False,
-           speaker_id: Optional[int] = None, controls: Optional[str] = None) -> dict:
+           speaker_id: Optional[int] = None, controls: Optional[str] = None,
+           export_mel: bool = False) -> dict:
     """Synthesize ``text`` into ``output``; returns what ran and how long
     each phase took on the host clock (each phase ends in a device sync).
     ``quantize_int8``: decode with int8 LSTM weights (kernel K5), the JAX
     package's approximate ``--quantize-int8`` mode. ``speaker_id`` and
     ``controls``: the voice of a multi-speaker model and the controls of a
     controllable one (``conditioning``). Without a HiFi-GAN checkpoint the
-    mel goes through Griffin-Lim."""
+    mel goes through Griffin-Lim. ``export_mel``: also save the vocoded mel,
+    (M, cut), with ``np.save(output, ...)``, so ``o.wav`` gives ``o.wav.npy``."""
     cond = conditioning(cfg, speaker_id, controls)
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -201,6 +204,8 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
         wav = pcm[0, :cut * hifigan.cfg.total_upsample].cpu().numpy()
     t2 = time.perf_counter()
     write_wav(output, wav, prep.sample_rate)
+    if export_mel:
+        np.save(output, out.mels_post[0, :cut].T.cpu().numpy())
     print(f"wrote {output}: {len(wav) / prep.sample_rate:.2f}s "
           f"({n} frames, seed {random_seed}, {dev.type}"
           f"{', int8' if quantize_int8 else ''})")

@@ -16,25 +16,23 @@ steps), in the reference's Lightning layout.
 Not ported: finetuning and its freeze masks (the speaker embedding's
 among them), description embeddings, GST and the prosody style loss
 (``train`` refuses their configs, ``check_trainable``), multi-device
-training and the device prefetcher, TensorBoard images and histograms,
-FLAC input.
+training and the device prefetcher, TensorBoard images and histograms.
 """
 
 from __future__ import annotations
 
-import csv
 import datetime
 import os
 import time
 from os import path
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
 from tacotron2_tpu_torch.config import Config
-from tacotron2_tpu_torch.data.dataset import TTSDataset
 from tacotron2_tpu_torch.data.loader import TTSDataLoader
+from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest, select_rows
 from tacotron2_tpu_torch.models.layers import Policy, resolve_device, use_f32_math
 from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
 from tacotron2_tpu_torch.run.say import _sync, model_config_from
@@ -46,36 +44,6 @@ from tacotron2_tpu_torch.training.step import eval_step, to_device, train_step
 VAL_BATCH = 64
 LOG_EVERY = 50
 SAVE_EVERY = 5000
-
-
-def read_manifest(csv_path: str) -> List[Dict[str, str]]:
-    """Pipe-separated rows with a header row, no quoting."""
-    with open(csv_path, newline="") as f:
-        return list(csv.DictReader(f, delimiter="|", quoting=csv.QUOTE_NONE))
-
-
-def select_rows(cfg: Config, rows: List[Dict[str, str]]) -> List[Dict[str, str]]:
-    """With ``force_speaker``, the manifest rows of that speaker only (JAX
-    ``run/train.py``: ``df[df.speaker_id == force_speaker]``)."""
-    fs = cfg.extensions.speaker_tokens.force_speaker
-    return rows if fs is None else [r for r in rows if int(r["speaker_id"]) == fs]
-
-
-def _dataset(cfg: Config, rows, speech_dir: str, cache_dir: str) -> TTSDataset:
-    """The rows' dataset: with speaker tokens their ``speaker_id`` column
-    (int), with controls the configured feature columns (float), as the
-    JAX package's ``run/train.py`` reads them through pandas."""
-    p, ext = cfg.dataset.preprocessing, cfg.extensions
-    speakers = [int(r["speaker_id"]) for r in rows] if ext.speaker_tokens.active else None
-    features = ([[float(r[f]) for f in ext.controls.features] for r in rows]
-                if ext.controls.active else None)
-    return TTSDataset(
-        [r["wav"] for r in rows], [r["text"] for r in rows], speech_dir,
-        speaker_ids=speakers, features=features, allowed_chars=p.allowed_chars,
-        end_token=p.end_token, silence=p.silence, trim=p.trim,
-        trim_top_db=p.trim_top_db, trim_frame_length=p.trim_frame_length,
-        expand_abbreviations=p.expand_abbreviations, num_mels=p.num_mels, cache=p.cache,
-        cache_dir=cache_dir, sample_rate=p.sample_rate)
 
 
 def _endless(loader) -> Iterator[Dict[str, np.ndarray]]:
@@ -114,10 +82,10 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
         results_dir = f"results_{cfg.training.name} {datetime.datetime.now()}"
     os.makedirs(results_dir, exist_ok=True)
     cache_dir = path.join(results_dir, "mel_cache")
-    train_set = _dataset(cfg, select_rows(cfg, read_manifest(cfg.dataset.train)), speech_dir,
-                         cache_dir)
-    val_set = _dataset(cfg, select_rows(cfg, read_manifest(cfg.dataset.val)), speech_dir,
-                       cache_dir)
+    train_set = manifest_dataset(cfg, select_rows(cfg, read_manifest(cfg.dataset.train)),
+                                 speech_dir, cache_dir=cache_dir)
+    val_set = manifest_dataset(cfg, select_rows(cfg, read_manifest(cfg.dataset.val)),
+                               speech_dir, cache_dir=cache_dir)
     batch_size = cfg.training.batch_size
     train_loader = TTSDataLoader(train_set, batch_size=batch_size, shuffle=True, drop_last=True,
                                  seed=seed, bucket_chars=32, bucket_frames=128)

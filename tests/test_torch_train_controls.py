@@ -57,11 +57,11 @@ from tacotron2_tpu_torch.config import config_from_dict
 from tacotron2_tpu_torch.convert import decoder_from_jax, from_jax_params
 from tacotron2_tpu_torch.data.dataset import TTSDataset
 from tacotron2_tpu_torch.data.loader import collate
+from tacotron2_tpu_torch.data.manifest import read_manifest, select_rows
 from tacotron2_tpu_torch.models.layers import Policy
 from tacotron2_tpu_torch.models.tacotron2 import Tacotron2, Tacotron2Config
 from tacotron2_tpu_torch.ops import build
 from tacotron2_tpu_torch.ops import train_decode as td
-from tacotron2_tpu_torch.run.train import read_manifest, select_rows
 from tacotron2_tpu_torch.training import optimizer, step
 from tests.test_torch_train_cli import CHARS, TEXTS, _corpus, _hifigan
 from tests.test_torch_train_decode import PORT_DTYPE, TOL, _assert_close, _loss
