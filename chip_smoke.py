@@ -12,6 +12,7 @@
     python3 chip_smoke.py --k34-ab  # the vanilla K3/K4 of build/parent and this tree in
                                     # turns, bit for bit, and the controls mode's times
     python3 chip_smoke.py --eval    # the kernels' build and phase 4f alone
+    python3 chip_smoke.py --train-extras  # the kernels' build and phase 4g alone
 
 Phases, each of which must pass:
 
@@ -145,6 +146,24 @@ Phases, each of which must pass:
    T=896): K3 alone, ``2 + 3T`` launches a batch, no K4, the first batch's
    K3 against its plain version and timed, the .npy files equal to the
    in-process forward's and to a second export's; ``say --export-mel``;
+4g. the rest of ``train`` and the prosody-model configs (``train_extras_phase``),
+   each through the CLI entry: ``train --finetune`` from 4b's checkpoint at
+   B=64 (4 steps) with ``TACOTRON2_TRACE_DIR`` set and the driver's save and
+   histogram intervals at 2: the encoder bit for bit, every other parameter
+   moved, lr / 10 logged, K3 / K4 launches per step x T, ``bilstm_backward``
+   once a step, ``last.ckpt`` (``AsyncSaver``) equal to ``finetuned.ckpt``,
+   the event file read back with its CRCs (the scalars, 4 images a
+   validation, the histograms at their steps) and the trace naming every
+   counted wrapper's kernels; K3 / K4 at that batch's shapes; the same
+   finetune untraced for 12 steps (the steps after a validation and after a
+   background save against the steady ones); 4e's checkpoint finetuned at
+   B=128 (the speaker embedding frozen too, every launch of the controls
+   mode), K3 / K4 at its shapes, the encoder's recurrence at 128 rows
+   against its plain version with rows 0, 1, 37, 127 bit for bit alone;
+   ``train_prosody`` on 4f's lj-hifi manifests (finite losses, the CCC
+   scalars); ``train`` of ``STYLE_CONFIG`` at batch 32 with that predictor
+   (``style_loss`` from step 3 on, the predictor unchanged, controls-mode
+   launches) and a ``say`` of its checkpoint; the step times of each;
 5. print the kernels line and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero before the last line on any failure, when no CUDA device
@@ -3334,6 +3353,18 @@ def _synth_corpus(root: Path, n: int) -> Path:
     return speech
 
 
+def train_setup(root: Path, raw: dict, rows: list, n_val: int) -> Path:
+    """The manifest ``rows`` (``header`` first) as ``train.csv``, its first
+    ``n_val`` rows as ``val.csv``, and ``raw`` pointed at them as
+    ``cfg.json`` under ``root``. -> the config's path"""
+    (root / "train.csv").write_text("\n".join(rows) + "\n")
+    (root / "val.csv").write_text("\n".join(rows[:n_val + 1]) + "\n")
+    raw["dataset"]["train"], raw["dataset"]["val"] = str(root / "train.csv"), str(root / "val.csv")
+    cfg_train = root / "cfg.json"
+    cfg_train.write_text(json.dumps(raw))
+    return cfg_train
+
+
 def train_run(root: Path, raw: dict, rows: list, n_val: int, speech: Path) -> tuple:
     """``train`` through the CLI entry: 6 steps, then ``--resume-ckpt`` to
     step 8, on the manifest ``rows`` (``header`` first) with the first
@@ -3348,11 +3379,7 @@ def train_run(root: Path, raw: dict, rows: list, n_val: int, speech: Path) -> tu
     from tacotron2_tpu_torch.ops import encoder_lstm as el
     from tacotron2_tpu_torch.ops import train_decode as td
 
-    (root / "train.csv").write_text("\n".join(rows) + "\n")
-    (root / "val.csv").write_text("\n".join(rows[:n_val + 1]) + "\n")
-    raw["dataset"]["train"], raw["dataset"]["val"] = str(root / "train.csv"), str(root / "val.csv")
-    cfg_train = root / "cfg.json"
-    cfg_train.write_text(json.dumps(raw))
+    cfg_train = train_setup(root, raw, rows, n_val)
     base = ["train", "--config", str(cfg_train), "--speech-dir", str(speech),
             "--seed", str(SEED)]
     td.reset_launches()
@@ -3370,10 +3397,7 @@ def train_run(root: Path, raw: dict, rows: list, n_val: int, speech: Path) -> tu
         raise SmokeFailure(f"steps {[s['step'] for s in steps]}, want 1..8 across the resume")
     if not all(math.isfinite(x) for x in losses) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
         raise SmokeFailure(f"train losses do not fall: {losses}")
-    fwd_T = [s["decode_frames"] for s in steps] + first["val_decode_frames"] \
-        + second["val_decode_frames"]
-    want = {"teacher_forward": sum(td.forward_launches(T) for T in fwd_T),
-            "teacher_backward": sum(td.backward_launches(s["decode_frames"]) for s in steps)}
+    want = {k: n + _want_k34(second)[k] for k, n in _want_k34(first).items()}
     if launches != want:
         raise SmokeFailure(f"K3/K4 launches {launches}, want {want}")
     if 0 in enc_launches.values():
@@ -3399,13 +3423,15 @@ def train_perf(first: dict, second: dict, card: str) -> dict:
 
 
 def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log: dict,
-                mode: str = "") -> dict:
+                mode: str = "", tag: str = "", readings: bool = False) -> dict:
     """At the first batch's shapes, on the trained weights of ``ckpt``: K3
     and K4 against their plain versions (K3_TOL_TRAIN; a controllable
     model's with its batch's speakers and controls), their split by kernel,
     and one train step split into its parts, each timed alone, eager,
     ending in a sync (so the parts need not sum to the whole step). ``mode``
-    "[controls]" names the kernels line's rows. -> the parts (ms)."""
+    "[controls]" names the kernels line's rows; ``tag`` the log's keys.
+    With ``readings`` also K3's and K4's device ms (graph replay) beside
+    their plain versions' and their bounds. -> the parts (ms)."""
     import torch
 
     from tacotron2_tpu_torch.config import load_config
@@ -3453,11 +3479,26 @@ def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log
     d_mg = torch.randn(T, B, N, device=dev, generator=gen) * 1e-3
     d_al = torch.randn(T, B, L, device=dev, generator=gen) * 1e-3
 
-    fwd_args, bwd_args, mg, _, _, _ = k34_check(
-        f"{mode}@B{B},T{T}", params, w, din, enc_b, att_enc.contiguous(), lens, dm1, dm2, d_mg,
-        d_al, log, K3_TOL_TRAIN, ctl, mode)
+    fwd_args, bwd_args, mg, res_k, _, _ = k34_check(
+        f"{mode}{tag}@B{B},T{T}", params, w, din, enc_b, att_enc.contiguous(), lens, dm1, dm2,
+        d_mg, d_al, log, K3_TOL_TRAIN, ctl, mode)
     out = td.teacher_backward(*bwd_args)
-    key = f"k34_kernel_ms_train{mode}"
+    kernels = {}
+    if readings:
+        bounds = teacher_bounds(T, B, L, enc_b.shape[2], C, w, res_k, mg)
+        for name, kern, plain, args in (
+                ("teacher_forward", td.teacher_forward, td.teacher_forward_plain, fwd_args),
+                ("teacher_backward", td.teacher_backward, td.teacher_backward_plain, bwd_args)):
+            b_ms, b_by, stream, _ = bounds[name]
+            kernels[f"{name}{mode}"] = {
+                "B": B, "L": L, "T": T, "ms": time_ms(lambda: kern(*args), 3, 1),
+                "plain_ms": time_ms(lambda: plain(*args), 2, 1), "bound_ms": b_ms,
+                "bound_by": b_by, "weight_stream_ms": stream, "library_ms": None}
+            r = kernels[f"{name}{mode}"]
+            print(f"  {name}{mode} at B={B}, L={L}, T={T}: {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}), weight stream "
+                  f"{stream:.3f} ms")
+    key = f"k34_kernel_ms_train{mode}{tag}"
     log[key] = {"teacher_forward": kernel_split(lambda: td.teacher_forward(*fwd_args)),
                 "teacher_backward": kernel_split(lambda: td.teacher_backward(*bwd_args))}
     for name, split in log[key].items():
@@ -3486,21 +3527,26 @@ def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log
     if not mode:
         with cudnn_bilstm():  # the encoder before the repair, apart from the sum
             parts["encoder_fwd_bwd_cudnn_f32_bilstm"] = eager_ms(encoder, 3)
-    print(f"  split of one step{mode} (B={B}, L={L}, T={T}), eager ms: "
+    print(f"  split of one step{mode}{tag} (B={B}, L={L}, T={T}), eager ms: "
           + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
-    return {"split_ms": parts, "split_shape": {"B": B, "L": L, "T": T}}
+    return {"split_ms": parts, "split_shape": {"B": B, "L": L, "T": T}, "kernels": kernels}
 
 
-def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
+TRAIN_WAVS = 64
+
+
+def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> tuple:
     """``train`` through the CLI entry at the vanilla full width: 64
     synthetic WAVs, batch 32, 6 steps, then ``--resume-ckpt`` to step 8,
     with K3 and K4's launch counters read around both runs; then the trained
-    checkpoint through ``say``, and the split of one train step."""
+    checkpoint through ``say``, and the split of one train step. -> (launches,
+    the run: its config, checkpoint, corpus and manifest rows, for 4g)"""
     from tacotron2_tpu_torch.__main__ import main as cli
 
     root = WORK / "train"
-    speech = _synth_corpus(root, 64)
-    rows = ["text|wav"] + [f"{TRAIN_TEXTS[i % len(TRAIN_TEXTS)]}|s{i:03d}.wav" for i in range(64)]
+    speech = _synth_corpus(root, TRAIN_WAVS)
+    rows = ["text|wav"] + [f"{TRAIN_TEXTS[i % len(TRAIN_TEXTS)]}|s{i:03d}.wav"
+                           for i in range(TRAIN_WAVS)]
     cfg_train, first, second, launches, _, enc_launches, losses, want = train_run(
         root, json.loads(Path(cfg_path).read_text()), rows, 32, speech)
 
@@ -3518,14 +3564,16 @@ def train_phase(cfg_path: str, g_path: str, log: dict, card: str) -> dict:
           f"{perf['decode_frames']}, on {card}")
     log["train"] = {"losses": losses, "launches": {**launches, **enc_launches}, "want": want,
                     "perf": perf, "say": said}
-    return {**launches, **enc_launches}
+    run = {"cfg": cfg_train, "ckpt": second["checkpoint"], "speech": speech, "root": root,
+           "rows": rows}
+    return {**launches, **enc_launches}, run
 
 
 CTL_TRAIN_B = 64  # the controllable config's batch
 CTL_TRAIN_WAVS = 128
 
 
-def train_controls_phase(g_path: str, log: dict, card: str) -> dict:
+def train_controls_phase(g_path: str, log: dict, card: str) -> tuple:
     """``train`` through the CLI entry on ``config/controllable-lj-hifi-stop-speaker.json``
     at its full width and batch 64: 128 synthetic WAVs of speakers 0-3 with
     the five feature columns uniform in [-1, 1], a 32-row val manifest; 6
@@ -3534,7 +3582,8 @@ def train_controls_phase(g_path: str, log: dict, card: str) -> dict:
     rows of the speakers seen must have moved from the seed's init. Then
     ``say --speaker-id 2 --controls CTL_VALUES`` of the trained checkpoint
     (K1's controls rows), the split of one step at B=64, and K3 / K4 at the
-    first batch's shapes. -> {kernels-line row: launches}"""
+    first batch's shapes. -> ({kernels-line row: launches}, the run, as
+    ``train_phase``'s)"""
     import numpy as np
     import torch
 
@@ -3595,7 +3644,9 @@ def train_controls_phase(g_path: str, log: dict, card: str) -> dict:
                              "controls_launches": ctl_launches, "want": want,
                              "speaker_rows_moved": moved, "perf": perf, "say": said,
                              "say_controls_launches": said_ctl}
-    return {f"{k}[controls]": n for k, n in ctl_launches.items()}
+    run = {"cfg": cfg_train, "ckpt": second["checkpoint"], "speech": speech, "root": root,
+           "rows": rows}
+    return {f"{k}[controls]": n for k, n in ctl_launches.items()}, run
 
 
 def say_phase(cfg_path: str, log: dict, card: str):
@@ -4846,7 +4897,7 @@ def eval_phase(cfg_path: str, ctl_cfg_path: str, ckpt: str, ctl_ckpt: str, g_pat
                    "splits_s": t_splits, "test_s": t_test, "export_s": t_export,
                    "say_export_mel": {"shape": list(mel.shape), "cut": cut}, "card": card}
     torch.cuda.empty_cache()
-    return launches, k3[""]
+    return launches, k3[""], {"cfg": str(configs["[controls]"]), "speech": speech}
 
 
 def eval_mode() -> int:
@@ -4874,7 +4925,7 @@ def eval_mode() -> int:
             ckpts.append(str(WORK / f"tacotron2-{Path(p).stem}.ckpt"))
             torch.save(to_lightning(random_tacotron(load_config(p), 10.0).state_dict()),
                        ckpts[-1])
-        launches, k3 = eval_phase(*paths, *ckpts, write_hifigan(), log, card)
+        launches, k3, _ = eval_phase(*paths, *ckpts, write_hifigan(), log, card)
         log.update({"launches": launches, "k3_export": k3})
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -4884,6 +4935,649 @@ def eval_mode() -> int:
         (OUT_DIR / "eval.json").write_text(json.dumps(log, indent=1, default=str))
         shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"launches": launches, "k3_export": k3}))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: finetuning, the background save, TensorBoard, the trace, and the
+# prosody-model configs (train_prosody and the style-loss phase)
+
+EVENT_SCALARS = ("training_gate_loss", "training_mel_loss", "training_mel_post_loss",
+                 "training_tacotron_loss", "training_loss", "training_grad_norm", "lr",
+                 "mel_frames_per_sec", "val_loss", "val_mel_loss")
+EVENT_IMAGES = ("val_mel_spectrogram", "val_mel_spectrogram_predicted", "val_alignment",
+                "val_gate")
+# the kernel functions each counted wrapper launches (csrc/train_decode.cu,
+# csrc/encoder_lstm.cu); the finetune's trace must name every one
+TRACE_KERNELS = {
+    "teacher_forward": ("stage_kernel", "gate_tma_kernel", "att_fwd_cluster_kernel",
+                        "gemm_tn_kernel"),
+    "teacher_backward": ("gemm_tn_kernel", "heads_pull_kernel", "lstm_mid_kernel",
+                         "dx_cluster_kernel", "att_bwd_cluster_kernel"),
+    "bilstm_forward": ("bilstm_fwd_kernel",),
+    "bilstm_backward": ("bilstm_bwd_kernel",),
+}
+FT_STEPS = 2  # --finetune-steps and --max-steps of the checked finetunes: 4 steps
+FT_SAVE_EVERY = 2  # the driver's SAVE_EVERY and HISTOGRAM_EVERY in the checked runs
+FT_HIST_EVERY = 2
+FT_TIMING_REPEAT = 4  # the timing run's manifest: 4b's rows 4 times, 4 steps an epoch
+FT_TIMING_MAX_STEPS = 10  # + FT_STEPS: 12 steps, validations after 4, 8 and 12
+FT_TIMING_SAVE_EVERY = 6
+ENC128_ROWS = (0, 1, 37, 127)  # rows of the 128-row encoder launches held alone
+PROSODY_STEPS = 4
+PROSODY_B = 32
+STYLE_CONFIG = "controllable-lj-hifi-stop-speaker-prosody-model.json"
+STYLE_STEPS = 4
+
+
+def _crc32c(data: bytes) -> int:
+    """CRC-32C, bit by bit per byte: the smoke's own, apart from the port's."""
+    c = 0xFFFFFFFF
+    for b in data:
+        c ^= b
+        for _ in range(8):
+            c = (c >> 1) ^ (0x82F63B78 & -(c & 1))
+    return c ^ 0xFFFFFFFF
+
+
+def _pb_fields(buf: bytes) -> dict:
+    """A protobuf message -> {field: [values]} (varints as ints, the rest as bytes)."""
+    import struct
+
+    out: dict = {}
+    pos = 0
+
+    def varint():
+        nonlocal pos
+        n = shift = 0
+        while True:
+            b = buf[pos]
+            pos += 1
+            n |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return n
+
+    while pos < len(buf):
+        key = varint()
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            v = varint()
+        elif wire == 1:
+            v, pos = buf[pos:pos + 8], pos + 8
+        elif wire == 2:
+            n = varint()
+            v, pos = buf[pos:pos + n], pos + n
+        elif wire == 5:
+            v, pos = buf[pos:pos + 4], pos + 4
+        else:
+            raise SmokeFailure(f"event file: wire type {wire}")
+        out.setdefault(field, []).append(v)
+    return out
+
+
+def read_events(path: Path) -> list:
+    """An event file, every TFRecord's masked CRC-32C checked -> [(step,
+    kind, tag, value)]: scalars' values, images' (height, width, PNG
+    signature present), histograms' bucket count."""
+    import struct
+
+    mask = lambda c: (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+    data, pos, out = path.read_bytes(), 0, []
+    while pos < len(data):
+        head = data[pos:pos + 8]
+        n = struct.unpack("<Q", head)[0]
+        rec = data[pos + 12:pos + 12 + n]
+        if (struct.unpack("<I", data[pos + 8:pos + 12])[0] != mask(_crc32c(head))
+                or struct.unpack("<I", data[pos + 12 + n:pos + 16 + n])[0] != mask(_crc32c(rec))):
+            raise SmokeFailure(f"{path.name}: a record's CRC does not match at byte {pos}")
+        pos += 16 + n
+        ev = _pb_fields(rec)
+        step = ev.get(2, [0])[0]
+        for summary in ev.get(5, []):
+            for value in _pb_fields(summary).get(1, []):
+                v = _pb_fields(value)
+                tag = v[1][0].decode()
+                if 2 in v:
+                    out.append((step, "scalar", tag, struct.unpack("<f", v[2][0])[0]))
+                elif 4 in v:
+                    img = _pb_fields(v[4][0])
+                    out.append((step, "image", tag, (img[1][0], img[2][0],
+                                                     img[4][0][:8] == b"\x89PNG\r\n\x1a\n")))
+                elif 5 in v:
+                    out.append((step, "histogram", tag, len(_pb_fields(v[5][0]).get(7, [b""])[0])
+                                // 8))
+    return out
+
+
+def trace_kernel_names(path: Path) -> list:
+    """The names of the CUDA kernels in a Chrome trace, one per launch."""
+    trace = json.loads(path.read_text())["traceEvents"]
+    return [e.get("name", "") for e in trace if e.get("cat") == "kernel"]
+
+
+def _params(path: str) -> dict:
+    """A checkpoint's parameters (not BatchNorm's statistics), on the host."""
+    from tacotron2_tpu_torch.convert import load_tacotron2_checkpoint
+
+    return {k: v for k, v in load_tacotron2_checkpoint(path)[0].items()
+            if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+
+
+def _want_k34(out: dict) -> dict:
+    """The K3 / K4 launches a ``train`` run's record needs: ``2 + 3T`` for
+    each train and validation batch, ``4 + 4T`` for each train step."""
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    fwd_T = [s["decode_frames"] for s in out["steps"]] + out["val_decode_frames"]
+    return {"teacher_forward": sum(td.forward_launches(T) for T in fwd_T),
+            "teacher_backward": sum(td.backward_launches(s["decode_frames"])
+                                    for s in out["steps"])}
+
+
+def _metrics_rows(results: Path) -> list:
+    (path,) = (results / "lightning_logs").glob("*/metrics.jsonl")
+    return [json.loads(x) for x in path.read_text().splitlines()]
+
+
+def _ckpt_equal(a: str, b: str) -> bool:
+    """Two Lightning checkpoints with equal tensors (weights, BatchNorm
+    statistics, Adam's state), step, schedule and hyperparameters."""
+    import torch
+
+    x, y = (torch.load(p, map_location="cpu", weights_only=False) for p in (a, b))
+
+    def same(u, v):
+        if isinstance(u, torch.Tensor):
+            return isinstance(v, torch.Tensor) and u.dtype == v.dtype and torch.equal(u, v)
+        if isinstance(u, dict):
+            return isinstance(v, dict) and set(u) == set(v) and all(same(u[k], v[k]) for k in u)
+        if isinstance(u, (list, tuple)):
+            return len(u) == len(v) and all(same(p, q) for p, q in zip(u, v))
+        return u == v
+
+    return same(x, y)
+
+
+def finetune_run(tag: str, src: dict, results: Path, frozen: tuple, controls: bool,
+                 extra: tuple = (), cfg: str = None) -> tuple:
+    """``train --finetune --finetune-steps FT_STEPS --max-steps FT_STEPS``
+    (or ``extra``) through the CLI entry from ``src``'s checkpoint, the
+    launch counters set to 0 before and read after. Holds: every step at
+    twice the config's batch, finite losses, ``finetuned.ckpt``, lr / 10 logged at step
+    1, the ``frozen`` parameters equal to the resumed ones bit for bit and
+    every other one moved, K3 / K4 at launches per step x T over every
+    decode (all of the controls mode with ``controls``), ``bilstm_backward``
+    once a step. -> (the run's record, K3/K4 launches, encoder launches)"""
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    td.reset_launches()
+    el.reset_launches()
+    out = cli(["train", "--config", str(cfg or src["cfg"]), "--speech-dir", str(src["speech"]),
+               "--seed", str(SEED), "--results-dir", str(results), "--resume-ckpt", src["ckpt"],
+               "--finetune", "--finetune-steps", str(FT_STEPS)]
+              + list(extra or ("--max-steps", str(FT_STEPS))))
+    k34 = dict(td.CONTROLS_LAUNCHES if controls else td.LAUNCHES)
+    enc = dict(el.LAUNCHES)
+    steps = out["steps"]
+    raw = json.loads(Path(cfg or src["cfg"]).read_text())
+    rows = 2 * raw["training"]["batch_size"]
+    if Path(out["checkpoint"]).name != "finetuned.ckpt":
+        raise SmokeFailure(f"finetune{tag} saved {out['checkpoint']}, not finetuned.ckpt")
+    if {s["rows"] for s in steps} != {rows} or not all(math.isfinite(s["loss"]) for s in steps):
+        raise SmokeFailure(f"finetune{tag}: rows {[s['rows'] for s in steps]} (want {rows}), "
+                           f"losses {[s['loss'] for s in steps]}")
+    want = _want_k34(out)
+    if k34 != want or (controls and dict(td.LAUNCHES) != want):
+        raise SmokeFailure(f"finetune{tag}: K3/K4 launches {k34}, want {want}")
+    if enc["bilstm_backward"] != len(steps) or enc["bilstm_forward"] == 0:
+        raise SmokeFailure(f"finetune{tag}: encoder launches {enc} in {len(steps)} steps")
+    lr1 = [r["lr"] for r in _metrics_rows(results) if r["step"] == 1 and "lr" in r]
+    if lr1 != [raw["training"]["lr"] / 10]:
+        raise SmokeFailure(f"finetune{tag}: lr {lr1} logged at step 1, want "
+                           f"{raw['training']['lr'] / 10}")
+    before, after = _params(src["ckpt"]), _params(out["checkpoint"])
+    held = sorted(k for k in before if k.startswith(frozen))
+    moved = [k for k in before if not k.startswith(frozen)]
+    stayed = sorted(k for k in before if torch.equal(before[k], after[k]))
+    if not held or stayed != held:
+        raise SmokeFailure(f"finetune{tag}: frozen {held}, unchanged {stayed}")
+    print(f"  finetune{tag}: {len(steps)} steps at B={rows}, lr {lr1[0]:g}, {len(held)} frozen "
+          f"tensors ({', '.join(frozen)}) bit for bit, {len(moved)} others moved; K3/K4 "
+          f"{k34}, encoder {enc}")
+    return out, k34, enc
+
+
+def step_sets(out: dict, val_every: int, save_every: int) -> dict:
+    """The run's steps by what came before them: ``after_validation`` (the
+    two after each validation pass), ``after_save`` (the one after a
+    background save), ``steady`` (the rest but the first) -> {set: {ms
+    median, ms, wait_ms, steps}}"""
+    import numpy as np
+
+    steps = out["steps"]
+    n = len(steps)
+    after_val = {v + k for v in range(val_every, n, val_every) for k in (1, 2)}
+    after_save = {s + 1 for s in range(save_every, n, save_every)} - after_val
+    sets = {"after_validation": after_val, "after_save": after_save,
+            "steady": set(range(2, n + 1)) - after_val - after_save}
+    res = {}
+    for name, chosen in sets.items():
+        sel = [s for s in steps if s["step"] in chosen]
+        ms = [1e3 * s["s"] for s in sel]
+        res[name] = {"steps": sorted(chosen), "ms": ms, "wait_ms": [1e3 * s["wait_s"] for s in sel],
+                     "ms_median": float(np.median(ms)) if ms else None,
+                     "mel_frames_per_s": (sum(s["mel_frames"] for s in sel)
+                                          / sum(s["s"] for s in sel)) if sel else None}
+    return res
+
+
+def enc_rows_alone(model, B: int, log: dict) -> dict:
+    """The encoder's forward and backward recurrence at B rows (the
+    controllable finetune's 128: 16 eight-row tiles, 32 clusters in all),
+    T=128: against their plain versions (ENC_TOL), rows ENC128_ROWS (those
+    under B) of each launch bit for bit against the rows alone, timed
+    beside bound, plain version and ``nn.LSTM``; how many of the backward's
+    clusters the card runs at once. -> {kernel: readings}"""
+    import torch
+
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 64)
+    lstm = model.encoder.lstm
+    H, C = lstm.hidden_size, lstm.input_size
+    T = 128
+    wb = torch.stack([lstm.weight_hh_l0, lstm.weight_hh_l0_reverse]).detach().to(
+        torch.bfloat16).contiguous()
+    b = torch.stack([lstm.bias_hh_l0, lstm.bias_hh_l0_reverse]).detach().contiguous()
+    xp = torch.randn(2, B, T, 4 * H, device=dev, generator=g)
+    hs, cs, act = el.bilstm_forward(xp, wb, b)
+    check(f"bilstm_forward@B{B},T{T}", list(zip(("hs", "cs", "act"), (hs, cs, act),
+                                                el.bilstm_forward_plain(xp, wb, b))),
+          ENC_TOL, log, "bilstm_forward")
+    dhs = torch.randn(2, B, T, H, device=dev, generator=g) * 1e-2
+    dg = el.bilstm_backward(dhs, act, cs, wb)
+    check(f"bilstm_backward@B{B},T{T}", [("dg", dg, el.bilstm_backward_plain(dhs, act, cs, wb))],
+          ENC_TOL, log, "bilstm_backward", own=True)
+    sl = lambda t, row: t[:, row:row + 1].contiguous()
+    rows = [r for r in ENC128_ROWS if r < B]
+    for row in rows:
+        alone = el.bilstm_forward(sl(xp, row), wb, b)
+        same = all(torch.equal(sl(f, row), a) for f, a in zip((hs, cs, act), alone)) and \
+            torch.equal(sl(dg, row), el.bilstm_backward(sl(dhs, row), sl(act, row),
+                                                        sl(cs, row), wb))
+        log.setdefault("enc_invariance", {})[f"row {row} of {B}, T={T}"] = same
+        if not same:
+            raise SmokeFailure(f"the encoder's recurrence: row {row} alone differs from the "
+                               f"same row of a {B}-row launch")
+    clusters = bwd_max_clusters(el._lib(), H)
+    needed = 2 * -(-B // el.ENC_TILE)
+    x = torch.randn(B, T, C, device=dev, generator=g)
+    out = {"max_clusters": clusters, "clusters": needed}
+    for name, kern, plain, lib, flops, args in (
+            ("bilstm_forward", el.bilstm_forward, el.bilstm_forward_plain, lambda: lstm(x),
+             2 * 2 * B * T * 4 * H * H, (xp, wb, b)),
+            ("bilstm_backward", el.bilstm_backward, el.bilstm_backward_plain,
+             lstm_backward(lstm, x, torch.float32), 2 * 2 * B * T * 4 * H * H,
+             (dhs, act, cs, wb))):
+        res = kern(*args)
+        b_ms, b_by = bound_ms(nbytes(*args, *(res if isinstance(res, tuple) else (res,))), flops)
+        out[name] = {"B": B, "T": T, "ms": time_ms(lambda: kern(*args), 3, 1),
+                     "plain_ms": time_ms(lambda: plain(*args), 2, 1), "bound_ms": b_ms,
+                     "bound_by": b_by,
+                     "library_ms": (time_ms(lib, 3, 1) if name == "bilstm_forward"
+                                    else eager_ms(lib, 5))}
+        r = out[name]
+        print(f"  {name} at B={B}, T={T}: {r['ms']:.4f} ms (bound {b_ms:.4f} ms, plain "
+              f"{r['plain_ms']:.3f}, nn.LSTM f32 {r['library_ms']:.4f})")
+    print(f"  the encoder at {B} rows: {needed} clusters of the backward, {clusters} resident at "
+          f"once; rows {rows} of both launches equal the rows alone, bit for bit")
+    log["enc_finetune_rows"] = out
+    return out
+
+
+def train_extras_phase(van: dict, ctl: dict, lj_hifi: dict, g_path: str, log: dict,
+                       card: str) -> tuple:
+    """Phase 4g on the runs of 4b (``van``), 4e (``ctl``) and 4f's lj-hifi
+    manifests (``lj_hifi``): the vanilla finetune under the trace with the
+    driver's save and histogram intervals small (``finetune_run``, then
+    ``last.ckpt`` against ``finetuned.ckpt``, the event file, the trace);
+    an untraced vanilla finetune of 12 steps for the step times after a
+    validation and after a save; the controllable finetune at B=128 (K3 / K4
+    and the encoder at its shapes); ``train_prosody``; the style-loss phase
+    of ``STYLE_CONFIG`` and a ``say`` of its checkpoint. -> ({kernels-line
+    row: launches}, {kernels-line row: its reading at 4g's shapes})"""
+    import os
+
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.models.layers import Policy
+    from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+    from tacotron2_tpu_torch.ops import train_decode as td
+    from tacotron2_tpu_torch.run import train as rt
+    from tacotron2_tpu_torch.run.say import model_config_from
+    from tacotron2_tpu_torch.training import checkpoint as ckpt_lib
+    from tacotron2_tpu_torch.training.checkpoint import load_model_state
+    from tacotron2_tpu_torch.training.losses import prosody_style_loss
+    from tacotron2_tpu_torch.utils.profiling import trace_path
+
+    t_phase = time.perf_counter()
+    root = WORK / "train_extras"
+    root.mkdir(parents=True, exist_ok=True)
+    launches: dict = {}
+    readings: dict = {}
+    res: dict = {"card": card}
+
+    def add(got: dict, suffix: str = "") -> None:
+        for k, n in got.items():
+            launches[k + suffix] = launches.get(k + suffix, 0) + n
+
+    # the vanilla finetune, traced, saving and writing histograms every 2 steps
+    trace_dir = root / "trace"
+    saved = rt.SAVE_EVERY, rt.HISTOGRAM_EVERY
+    rt.SAVE_EVERY, rt.HISTOGRAM_EVERY = FT_SAVE_EVERY, FT_HIST_EVERY
+    os.environ["TACOTRON2_TRACE_DIR"] = str(trace_dir)
+    try:
+        ft, k34, enc = finetune_run("", van, root / "ft", ("encoder.",), False)
+    finally:
+        rt.SAVE_EVERY, rt.HISTOGRAM_EVERY = saved
+        del os.environ["TACOTRON2_TRACE_DIR"]
+    add(k34)
+    add(enc)
+    n = len(ft["steps"])
+    if not _ckpt_equal(str(root / "ft" / "last.ckpt"), ft["checkpoint"]):
+        raise SmokeFailure("finetune: last.ckpt (AsyncSaver, after the last step) differs from "
+                           "finetuned.ckpt")
+    (events_path,) = (root / "ft" / "lightning_logs").glob("*/events.out.tfevents.*")
+    events = read_events(events_path)
+    scalars = {t for _, kind, t, _ in events if kind == "scalar"}
+    images = {t: [s for s, kind, u, _ in events if kind == "image" and u == t]
+              for t in EVENT_IMAGES}
+    hists = [(s, t) for s, kind, t, _ in events if kind == "histogram"]
+    n_val = ft["phases"]["validation"]["n"] + 1  # in the loop, and at the end
+    n_params = len(_params(ft["checkpoint"]))
+    if not set(EVENT_SCALARS) <= scalars:
+        raise SmokeFailure(f"event file: scalars {sorted(set(EVENT_SCALARS) - scalars)} missing")
+    mel_images = [v for _, kind, t, v in events if kind == "image" and t.startswith("val_mel")]
+    if any(len(v) != n_val for v in images.values()) or not all(
+            h == 80 and png for h, _, png in mel_images):
+        raise SmokeFailure(f"event file: images {images}, want 4 at each of {n_val} validations")
+    want_hist = sorted(s for s in range(1, n + 1) if s % FT_HIST_EVERY == 0)
+    if sorted({s for s, _ in hists}) != want_hist or len(hists) != len(want_hist) * n_params:
+        raise SmokeFailure(f"event file: histograms at {sorted({s for s, _ in hists})} "
+                           f"({len(hists)}), want {n_params} at each of {want_hist}")
+    kernel_names = trace_kernel_names(Path(trace_path(str(trace_dir))))
+    missing = {w: [k for k in TRACE_KERNELS[w] if not any(k in x for x in kernel_names)]
+               for w, c in {**k34, **enc}.items() if c}
+    bwd_traced = sum("bilstm_bwd_kernel" in x for x in kernel_names)
+    if any(missing.values()) or bwd_traced != enc["bilstm_backward"]:
+        raise SmokeFailure(f"the trace lacks kernels the counters counted: {missing}; "
+                           f"bilstm_bwd_kernel {bwd_traced} times, counted "
+                           f"{enc['bilstm_backward']}")
+    res["finetune"] = {"steps": ft["steps"], "phases": ft["phases"], "launches": {**k34, **enc},
+                       "events": {"scalars": sorted(scalars), "images": images,
+                                  "histogram_steps": want_hist, "tensors": n_params,
+                                  "bytes": events_path.stat().st_size},
+                       "trace": {"kernel_events": len(kernel_names),
+                                 "bytes": Path(trace_path(str(trace_dir))).stat().st_size}}
+    print(f"  event file: {len(events)} summaries, CRCs held; scalars {sorted(scalars)}; 4 images "
+          f"at each of {n_val} validations; {n_params} histograms at steps {want_hist}. Trace: "
+          f"{len(kernel_names)} kernel events, every counted wrapper's kernels named, "
+          f"bilstm_bwd_kernel {bwd_traced} times")
+    B = ft["steps"][0]["rows"]
+    readings.update(train_split(van["cfg"], ft["checkpoint"], van["speech"], van["root"], B,
+                                log, tag="[finetune]", readings=True)["kernels"])
+
+    # the same finetune untraced, 12 steps of 4 an epoch: the step times;
+    # then with the mel cache on, so that from the second epoch on the
+    # loader reads each mel back instead of computing it
+    raw = json.loads(Path(van["cfg"]).read_text())
+    manifest = root / "train_x4.csv"
+    manifest.write_text("\n".join(van["rows"][:1] + van["rows"][1:] * FT_TIMING_REPEAT) + "\n")
+    raw["dataset"]["train"] = str(manifest)
+    per_epoch = (len(van["rows"]) - 1) * FT_TIMING_REPEAT // B
+    runs = {}
+    rt.SAVE_EVERY = FT_TIMING_SAVE_EVERY
+    try:
+        for cache in (False, True):
+            raw["dataset"]["preprocessing"]["cache"] = cache
+            cfg_t = root / f"timing_cache{int(cache)}.json"
+            cfg_t.write_text(json.dumps(raw))
+            out, k34, enc = finetune_run(
+                "[timing, mel cache]" if cache else "[timing]", van, root / f"ft_cache{int(cache)}",
+                ("encoder.",), False, ("--max-steps", str(FT_TIMING_MAX_STEPS)), cfg_t)
+            add(k34)
+            add(enc)
+            runs[cache] = (out, step_sets(out, per_epoch, FT_TIMING_SAVE_EVERY))
+    finally:
+        rt.SAVE_EVERY = saved[0]
+    (timed, sets), (cached, sets_cached) = runs[False], runs[True]
+    traced_ms = float(np.median([1e3 * s["s"] for s in ft["steps"][1:]]))
+    res["finetune_timing"] = {"steps": timed["steps"], "phases": timed["phases"], "sets": sets,
+                              "traced_ms_median": traced_ms, "cached_steps": cached["steps"],
+                              "cached_sets": sets_cached}
+    st = sets["steady"]["ms_median"]
+    print(f"  finetune B={B}, host clock: steady {st:.1f} ms/step (steps "
+          f"{sets['steady']['steps']}), {sets['steady']['mel_frames_per_s']:.0f} mel frames/s; "
+          f"the two steps after a validation "
+          f"{[round(x, 1) for x in sets['after_validation']['ms']]}"
+          f" ms (waits for the batch {[round(x, 1) for x in sets['after_validation']['wait_ms']]}"
+          f" ms, steady waits {[round(x, 1) for x in sets['steady']['wait_ms']]}); after a "
+          f"background save {[round(x, 1) for x in sets['after_save']['ms']]} ms; under the "
+          f"trace {traced_ms:.1f} ms; phases {timed['phases']} on {card}")
+    print(f"  the same with the mel cache on: steady {sets_cached['steady']['ms_median']:.1f} "
+          f"ms/step, after a validation "
+          f"{[round(x, 1) for x in sets_cached['after_validation']['ms']]} ms (waits "
+          f"{[round(x, 1) for x in sets_cached['after_validation']['wait_ms']]} ms), after a "
+          f"save {[round(x, 1) for x in sets_cached['after_save']['ms']]} ms on {card}")
+
+    # the controllable finetune at B=128
+    ft_c, k34, enc = finetune_run("[controls]", ctl, root / "ft_controls",
+                                  ("encoder.", "speaker_embedding."), True)
+    B = ft_c["steps"][0]["rows"]
+    add(k34, "[controls]")
+    add(enc)
+    c_ms = [1e3 * s["s"] for s in ft_c["steps"][1:]]
+    res["finetune_controls"] = {
+        "steps": ft_c["steps"], "phases": ft_c["phases"], "ms_median": float(np.median(c_ms)),
+        "mel_frames_per_s": sum(s["mel_frames"] for s in ft_c["steps"][1:])
+        / sum(s["s"] for s in ft_c["steps"][1:])}
+    print(f"  finetune [controls] B={B}: {res['finetune_controls']['ms_median']:.1f} "
+          f"ms/step (median of steps 2-{len(ft_c['steps'])}, each after a validation), "
+          f"{res['finetune_controls']['mel_frames_per_s']:.0f} mel frames/s on {card}")
+    readings.update(train_split(ctl["cfg"], ft_c["checkpoint"], ctl["speech"], ctl["root"], B,
+                                log, "[controls]", "[finetune]", True)["kernels"])
+    cfg = load_config(ctl["cfg"])
+    model = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision))
+    load_model_state(ft_c["checkpoint"], model)
+    readings.update({k: v for k, v in enc_rows_alone(model.cuda(), B, log).items()
+                     if k.startswith("bilstm")})
+    del model
+
+    # train_prosody on the lj-hifi manifests, its targets the controls' columns
+    raw = json.loads(Path(lj_hifi["cfg"]).read_text())
+    feats = raw["extensions"]["controls"]["features"]
+    raw["extensions"]["prosody_model"] = {"active": False, "features": feats}
+    p_cfg = root / "prosody.json"
+    p_cfg.write_text(json.dumps(raw))
+    pro = cli(["train_prosody", "--config", str(p_cfg), "--speech-dir", str(lj_hifi["speech"]),
+               "--results-dir", str(root / "prosody"), "--steps", str(PROSODY_STEPS),
+               "--batch-size", str(PROSODY_B), "--seed", str(SEED)])
+    (p_events,) = (root / "prosody" / "lightning_logs" / "prosody").glob("events.out.tfevents.*")
+    p_scalars = {t for _, kind, t, _ in read_events(p_events) if kind == "scalar"}
+    want = {"train_loss", "val_loss"} | {f"{s}_{f}" for s in ("train", "val") for f in feats}
+    if (len(pro["steps"]) != PROSODY_STEPS or not all(math.isfinite(s["loss"])
+                                                      for s in pro["steps"])
+            or not want <= p_scalars or Path(pro["checkpoint"]).name != "prosody_final.ckpt"):
+        raise SmokeFailure(f"train_prosody: {pro['steps']}, scalars missing "
+                           f"{sorted(want - p_scalars)}, {pro['checkpoint']}")
+    p_ms = [1e3 * s["s"] for s in pro["steps"][1:]]
+    res["train_prosody"] = {"steps": pro["steps"], "val": pro["val"],
+                            "ms_median": float(np.median(p_ms))}
+    print(f"  train_prosody: {PROSODY_STEPS} steps at batch {PROSODY_B}, losses "
+          f"{[round(s['loss'], 4) for s in pro['steps']]}, frames "
+          f"{[s['frames'] for s in pro['steps']]}, {res['train_prosody']['ms_median']:.1f} "
+          f"ms/step (median of steps 2-{PROSODY_STEPS}); CCC scalars in the event file on {card}")
+
+    # the style-loss phase at full width
+    raw = json.loads((ROOT / "config" / STYLE_CONFIG).read_text())
+    tr = raw["training"]
+    if (tr["batch_size"], tr["precision"], raw["extensions"]["prosody_model"]["active_after"]) \
+            != (32, "16-mixed", 0.5):
+        raise SmokeFailure(f"{STYLE_CONFIG}: not batch 32, 16-mixed, active_after 0.5")
+    src = json.loads(Path(lj_hifi["cfg"]).read_text())["dataset"]
+    raw["dataset"].update({k: src[k] for k in ("train", "val", "test")})
+    s_cfg = root / "style.json"
+    s_cfg.write_text(json.dumps(raw))
+    loaded, load = [], ckpt_lib.load_prosody_checkpoint
+    ckpt_lib.load_prosody_checkpoint = lambda path: loaded.append(load(path)) or loaded[-1]
+    td.reset_launches()
+    try:
+        sty = cli(["train", "--config", str(s_cfg), "--speech-dir", str(lj_hifi["speech"]),
+                   "--seed", str(SEED), "--results-dir", str(root / "style"), "--max-steps",
+                   str(STYLE_STEPS), "--prosody-model-checkpoint", pro["checkpoint"]])
+    finally:
+        ckpt_lib.load_prosody_checkpoint = load
+    k34, want = dict(td.CONTROLS_LAUNCHES), _want_k34(sty)
+    add(k34, "[controls]")
+    after = int(STYLE_STEPS * 0.5)
+    has = ["style_loss" in s for s in sty["steps"]]
+    if has != [s["step"] > after for s in sty["steps"]] or not all(
+            math.isfinite(s["style_loss"]) for s in sty["steps"] if "style_loss" in s):
+        raise SmokeFailure(f"style phase: style_loss in steps {has}, want from step {after + 1}")
+    file_sd = torch.load(pro["checkpoint"], map_location="cpu", weights_only=False)["state_dict"]
+    if len(loaded) != 1 or not all(torch.equal(v.cpu(), file_sd[k])
+                                   for k, v in loaded[0].state_dict().items()):
+        raise SmokeFailure("style phase: the prosody predictor's weights changed")
+    if k34 != want or dict(td.LAUNCHES) != want:
+        raise SmokeFailure(f"style phase: K3/K4 launches {k34} (controls mode), want {want}")
+    said = cli(["say", "--config", str(s_cfg), "--checkpoint", sty["checkpoint"],
+                "--hifi-gan-checkpoint", g_path, "--text", TRAIN_TEXTS[0], "--out",
+                str(root / "style.wav"), "--random-seed", str(SEED), "--max-len-override", "64",
+                "--speaker-id", str(CTL_SPEAKER), "--controls", CTL_VALUES])
+    if not 1 <= said["n_frames"] <= 64:
+        raise SmokeFailure(f"say of the style phase's checkpoint: {said}")
+    plain = [1e3 * s["s"] for s in sty["steps"][1:] if "style_loss" not in s]
+    style = [1e3 * s["s"] for s in sty["steps"] if "style_loss" in s]
+    # where the style loss's time goes: its forward and backward alone at
+    # the style steps' shape, eager, and split by kernel (torch.profiler)
+    predictor = loaded[0]
+    Bs, Ts = sty["steps"][-1]["rows"], sty["steps"][-1]["decode_frames"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 13)
+    target = torch.randn(Bs, Ts, 80, device=dev, generator=g)
+    post = (target + 0.1 * torch.randn(Bs, Ts, 80, device=dev, generator=g)).requires_grad_()
+    lens = torch.full((Bs,), Ts, device=dev)
+
+    def style_fb():
+        with torch.enable_grad():
+            prosody_style_loss(predictor, post, target, lens).backward()
+
+    style_split = kernel_split(style_fb)
+    style_eager = eager_ms(style_fb, 3)
+    res["style"] = {"steps": sty["steps"], "phases": sty["phases"], "plain_ms": plain,
+                    "style_ms": style, "launches": k34, "say": said,
+                    "style_loss_eager_ms": style_eager, "style_loss_split_ms": style_split}
+    print(f"  the style loss alone (B={Bs}, T={Ts}, forward and backward, eager): "
+          f"{style_eager:.1f} ms; device ms by kernel: "
+          + ", ".join(f"{k[:60]} {v:.2f}" for k, v in list(style_split.items())[:8]))
+    print(f"  style phase ({STYLE_CONFIG}, B=32): style_loss "
+          f"{[round(s.get('style_loss', float('nan')), 5) for s in sty['steps']]}, plain steps "
+          f"{[round(x, 1) for x in plain]} ms, style steps {[round(x, 1) for x in style]} ms "
+          f"(decode frames {[s['decode_frames'] for s in sty['steps']]}); predictor unchanged; "
+          f"K3/K4 {k34}; say {said['n_frames']} frames on {card}")
+
+    # the CLI's margin over the eager step (4b at B=32, 4e at B=64)
+    margins = {}
+    for key, B in (("train", TRAIN_B), ("train_controls", CTL_TRAIN_B)):
+        perf = log.get(key, {}).get("perf")
+        if perf:
+            margins[f"B{B}"] = {"cli_ms": perf["ms_per_step_median"],
+                                "eager_ms": perf["split_ms"]["train_step"]}
+    res["cli_margin"] = margins
+    print("  the CLI's step against the eager step: " + ", ".join(
+        f"{k} {v['cli_ms']:.1f} / {v['eager_ms']:.1f} ms" for k, v in margins.items())
+        + f" on {card}")
+    res["seconds"] = time.perf_counter() - t_phase
+    res["readings"] = readings
+    print(f"  phase 4g: {res['seconds']:.1f} s on {card}")
+    log["train_extras"] = res
+    torch.cuda.empty_cache()
+    return launches, readings
+
+
+def _extras_source(name: str, cfg_path: Path, n: int, conditioned: bool) -> dict:
+    """For ``--train-extras``: a synthetic corpus of ``n`` WAVs, its manifest
+    (with speakers 0-3 and the controls' columns when ``conditioned``), and
+    random full-width weights of ``cfg_path`` as the run's checkpoint."""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.convert import to_lightning
+
+    root = WORK / name
+    speech = _synth_corpus(root, n)
+    raw = json.loads(cfg_path.read_text())
+    if conditioned:
+        feats = raw["extensions"]["controls"]["features"]
+        rng = np.random.default_rng(SEED + 9)
+        rows = ["|".join(["text", "wav", "speaker_id", *feats])] + [
+            "|".join([TRAIN_TEXTS[i % len(TRAIN_TEXTS)], f"s{i:03d}.wav", str(i % 4),
+                      *(repr(float(x)) for x in rng.uniform(-1, 1, len(feats)))])
+            for i in range(n)]
+    else:
+        rows = ["text|wav"] + [f"{TRAIN_TEXTS[i % len(TRAIN_TEXTS)]}|s{i:03d}.wav"
+                               for i in range(n)]
+    cfg = train_setup(root, raw, rows, 32)
+    ckpt = str(root / "random.ckpt")
+    torch.save(to_lightning(random_tacotron(load_config(str(cfg)), 10.0).state_dict()), ckpt)
+    return {"cfg": cfg, "ckpt": ckpt, "speech": speech, "root": root, "rows": rows}
+
+
+def train_extras_mode() -> int:
+    """``--train-extras``: the kernels' build and phase 4g alone, on random
+    full-width checkpoints and synthetic corpora in 4b's and 4e's shapes
+    (4e's conditioned manifest in place of 4f's lj-hifi ones); details to
+    ``chiprun_out/train_extras.json``."""
+    import torch
+
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build
+
+    card = card_line()
+    print(f"[4g] alone on {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    use_f32_math()
+    build.build_all()
+    log: dict = {"card": card}
+    try:
+        WORK.mkdir(parents=True, exist_ok=True)
+        van = _extras_source("train", ROOT / "config" / "vanilla-ljspeech-stop.json",
+                             TRAIN_WAVS, False)
+        ctl = _extras_source("train_controls", ROOT / "config" / CTL_CONFIG, CTL_TRAIN_WAVS,
+                             True)
+        launches, readings = train_extras_phase(
+            van, ctl, {"cfg": str(ctl["cfg"]), "speech": ctl["speech"]}, write_hifigan(), log,
+            card)
+        log.update({"launches": launches})
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    finally:
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "train_extras.json").write_text(json.dumps(log, indent=1, default=str))
+        shutil.rmtree(WORK, ignore_errors=True)
+    print(json.dumps({"launches": launches, "readings": readings}))
     return 0
 
 
@@ -5107,6 +5801,8 @@ def main() -> int:
         return k34_rows_mode(arg_value("--out", "k34_rows.json"))
     if "--eval" in sys.argv[1:]:
         return eval_mode()
+    if "--train-extras" in sys.argv[1:]:
+        return train_extras_mode()
     log: dict = {}
     t_start = time.perf_counter()
     try:
@@ -5210,7 +5906,8 @@ def main() -> int:
         k5_launches = say_int8_phase(cfg_path, ckpt, g_path, log, card)
         print("[4b] train through the CLI entry (vanilla full width, batch 32, 6 steps, "
               "resumed to 8)")
-        for k, n in train_phase(cfg_path, g_path, log, card).items():
+        train_launches, van_run = train_phase(cfg_path, g_path, log, card)
+        for k, n in train_launches.items():
             launches[k] = launches.get(k, 0) + n
         print("[4c] the warm server in this process (a bf16 and an int8 entry), then as a "
               "process of its own")
@@ -5225,16 +5922,26 @@ def main() -> int:
         launches.update(ctl_launches)
         print(f"[4e] train the controllable, multi-speaker config ({CTL_CONFIG}) through the "
               f"CLI entry: batch {CTL_TRAIN_B}, 6 steps, resumed to 8, then its say")
-        launches.update(train_controls_phase(g_path, log, card))
+        ctl_train_launches, ctl_run = train_controls_phase(g_path, log, card)
+        launches.update(ctl_train_launches)
         print("[4f] from raw corpora to test-set audio through the CLI: preprocess (WAV and "
               "FLAC), the splits, test, train_mel_export and say --export-mel")
-        eval_launches, k3_export = eval_phase(cfg_path, str(ROOT / "config" / CTL_CONFIG),
-                                              ckpt, ctl_ckpt, g_path, log, card)
+        eval_launches, k3_export, lj_hifi = eval_phase(
+            cfg_path, str(ROOT / "config" / CTL_CONFIG), ckpt, ctl_ckpt, g_path, log, card)
         for k, n in eval_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        print(f"[4g] finetuning (vanilla B={2 * TRAIN_B} under the trace, controllable "
+              f"B={2 * CTL_TRAIN_B}), the background save, TensorBoard, train_prosody and the "
+              f"style-loss phase ({STYLE_CONFIG}) through the CLI")
+        extra_launches, extra_readings = train_extras_phase(van_run, ctl_run, lj_hifi, g_path,
+                                                            log, card)
+        for k, n in extra_launches.items():
             launches[k] = launches.get(k, 0) + n
         for r in rows:
             if r["name"] == "teacher_forward":
                 r["export"] = k3_export
+            if r["name"] in extra_readings:
+                r["finetune"] = extra_readings[r["name"]]
         if log.get("deferred"):
             raise SmokeFailure("; ".join(log["deferred"]))
 
@@ -5263,7 +5970,8 @@ def main() -> int:
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
         # the cells' and the attention's readings at other row counts ride along
         print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
-                                       **{k: r[k] for k in ("rows", "export") if k in r}}
+                                       **{k: r[k] for k in ("rows", "export", "finetune")
+                                          if k in r}}
                                       for r in rows]}))
         print(card)
     except SmokeFailure as e:

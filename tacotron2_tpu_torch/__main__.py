@@ -6,7 +6,11 @@
         [--quantize-int8] [--speaker-id N] [--controls a,b,c,d,e] [--device cpu]
 
     python -m tacotron2_tpu_torch train --config C --speech-dir S --results-dir R \\
-        [--resume-ckpt F] [--max-steps N] [--seed K] [--device cpu]
+        [--resume-ckpt F] [--max-steps N] [--seed K] [--device cpu] \\
+        [--finetune --finetune-steps N] [--prosody-model-checkpoint P]
+
+    python -m tacotron2_tpu_torch train_prosody --config C --speech-dir S \\
+        [--results-dir R] [--steps 10000] [--lr 1e-5] [--batch-size 32] [--device cpu]
 
     python -m tacotron2_tpu_torch server --config config/server.json \\
         [--port 8080] [--mode warm|subprocess] [--device cpu]
@@ -28,7 +32,9 @@ picks a multi-speaker model's voice and ``--controls`` gives a controllable
 model its controls, one number per feature of the config's
 ``extensions.controls``; checkpoints are the
 reference's Lightning ``.ckpt``
-(``train`` writes ``R/final.ckpt``, which ``say`` loads) and the vocoder an
+(``train`` writes ``R/final.ckpt``, which ``say`` loads; ``train --finetune``
+``R/finetuned.ckpt``; ``train_prosody`` ``R/prosody_final.ckpt``, which
+``train --prosody-model-checkpoint`` loads) and the vocoder an
 upstream HiFi-GAN ``g_*`` file with its ``config.json`` (Griffin-Lim
 without one). ``server``'s config is the JAX server's (``models``,
 ``batching``, ``warmup``). All run on the card unless ``--device cpu`` is
@@ -78,6 +84,24 @@ def _parser() -> argparse.ArgumentParser:
                    help="overrides the config's max_steps")
     t.add_argument("--seed", type=int, default=0, help="seed of the weights and dropout")
     t.add_argument("--device", default=None, help="cuda (default) or cpu")
+    t.add_argument("--finetune", action="store_true",
+                   help="fine-tune the model of --resume-ckpt; needs --finetune-steps")
+    t.add_argument("--finetune-steps", type=int, default=None,
+                   help="the number of training steps to fine-tune the model")
+    t.add_argument("--prosody-model-checkpoint", default=None,
+                   help="a prosody model checkpoint (from train_prosody), the frozen style "
+                        "loss of a config with extensions.prosody_model.active")
+
+    q = sub.add_parser("train_prosody", help="train the prosody predictor of the style loss")
+    q.add_argument("--config", required=True, help="a Tacotron hyperparameter config file")
+    q.add_argument("--speech-dir", required=True, help="the directory the manifests' wav "
+                                                       "paths are relative to")
+    q.add_argument("--results-dir", default=None, help="where logs and checkpoints go")
+    q.add_argument("--steps", type=int, default=10000, help="number of training steps")
+    q.add_argument("--lr", type=float, default=1e-5, help="learning rate")
+    q.add_argument("--batch-size", type=int, default=32)
+    q.add_argument("--seed", type=int, default=0, help="seed of the weights and dropout")
+    q.add_argument("--device", default=None, help="cuda (default) or cpu")
 
     v = sub.add_parser("server", help="serve the demo web UI and /generate")
     v.add_argument("--config", required=True, help="a server config file (its model registry)")
@@ -146,7 +170,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         from tacotron2_tpu_torch.run.train import do_train
 
         return do_train(cfg, raw, args.speech_dir, args.results_dir, args.resume_ckpt,
-                        seed=args.seed, max_steps_override=args.max_steps, device=args.device)
+                        seed=args.seed, max_steps_override=args.max_steps, device=args.device,
+                        finetune=args.finetune, finetune_steps=args.finetune_steps,
+                        prosody_model_checkpoint=args.prosody_model_checkpoint)
+    if args.command == "train_prosody":
+        from tacotron2_tpu_torch.run.train_prosody import do_train_prosody
+
+        return do_train_prosody(cfg, raw, args.speech_dir, args.results_dir, steps=args.steps,
+                                lr=args.lr, batch_size=args.batch_size, seed=args.seed,
+                                device=args.device)
     if args.command == "test":
         from tacotron2_tpu_torch.run.test import do_test
 

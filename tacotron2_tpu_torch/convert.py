@@ -1,8 +1,9 @@
 """Weights in and out of the port.
 
-- ``from_jax_params`` / ``hifigan_from_jax_params``: the JAX package's
-  parameter trees (numpy arrays) -> the port's ``state_dict`` (the
-  reference's names and torch layouts). The tests use them to run both
+- ``from_jax_params`` / ``hifigan_from_jax_params`` /
+  ``prosody_from_jax_params``: the JAX package's parameter trees (numpy
+  arrays) -> the port's ``state_dict`` (the reference's names and torch
+  layouts). The tests use them to run both
   frameworks on the same weights.
 - ``load_tacotron2_checkpoint``: the reference's Lightning ``.ckpt``
   (``state_dict`` keys prefixed ``tacotron2.``) or a raw state dict.
@@ -103,6 +104,26 @@ def from_jax_params(params: dict, state: Optional[dict]) -> Dict[str, torch.Tens
         _conv1d(sd, f"postnet.postnet.{4 * i}", post["convs"][i])
         _bn(sd, f"postnet.postnet.{4 * i + 1}", post["bns"][i],
             state and state["postnet"]["bns"][i])
+    return sd
+
+
+def prosody_from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``ProsodyPredictor`` params -> the port's ``ProsodyPredictor``
+    state_dict. Conv2d (KH, KW, I, O) -> (O, I, KH, KW); each bidirectional
+    RNN layer's ``fwd`` / ``bwd`` cells -> ``rnns.<layer>``'s ``_l0`` /
+    ``_l0_reverse`` weights (GRU gates r, z, n and LSTM gates i, f, g, o in
+    torch's order on both sides)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, conv in enumerate(params["convs"]):
+        sd[f"convs.{i}.weight"] = _t(np.asarray(conv["w"]).transpose(3, 2, 0, 1))
+        sd[f"convs.{i}.bias"] = _t(conv["b"])
+    _linear(sd, "pre_rnn", params["pre_rnn"])
+    for i, layer in enumerate(params["rnn"]):
+        _lstm(sd, f"rnns.{i}", layer["fwd"], "_l0")
+        _lstm(sd, f"rnns.{i}", layer["bwd"], "_l0_reverse")
+    for head in ("frame_weights", "features_out"):
+        for fc in ("fc1", "fc2"):
+            _linear(sd, f"{head}.{fc}", params[head][fc])
     return sd
 
 

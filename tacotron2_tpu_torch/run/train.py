@@ -1,22 +1,39 @@
 """``train``: the port's training driver.
 
 Counterpart of ``run/train.py::do_train`` of the JAX package for the
-vanilla configuration and its speaker tokens and controls: pipe-separated
-manifests (with ``force_speaker`` their rows of that speaker only) ->
-datasets with the manifests' ``speaker_id`` column and the config's
-``extensions.controls.features`` columns, and loaders (chars bucketed to 32,
-frames to 128) -> a new model from ``--seed`` or the weights of
-``--resume-ckpt`` -> Adam + MultiStepLR (milestones at the config's
-fractions of ``max_steps``), restored with the step on resume -> the loop,
-logging every ``LOG_EVERY`` steps with the real-frame throughput ->
-validation every ``val_check_interval`` (Lightning's meaning; once an epoch
-by default) and at the end -> ``final.ckpt`` (and ``last.ckpt`` every 5,000
-steps), in the reference's Lightning layout.
+vanilla configuration, its speaker tokens and controls, and the
+prosody-model configs: pipe-separated manifests (with ``force_speaker``
+their rows of that speaker only) -> datasets with the manifests'
+``speaker_id`` column and the config's ``extensions.controls.features``
+columns, and loaders (chars bucketed to 32, frames to 128) -> a new model
+from ``--seed`` or the weights of ``--resume-ckpt`` -> Adam + MultiStepLR
+(milestones at the config's fractions of ``max_steps``), restored with the
+step on resume -> the loop, logging every ``LOG_EVERY`` steps with the
+real-frame throughput and parameter histograms every ``HISTOGRAM_EVERY``
+-> validation every ``val_check_interval`` (Lightning's meaning; once an
+epoch by default) and at the end, with the first batch's images ->
+``final.ckpt`` (and ``last.ckpt`` every ``SAVE_EVERY`` steps, written in
+the background by ``AsyncSaver``), in the reference's Lightning layout.
+Logs go to ``<results>/lightning_logs/<name>/`` (``training/logging.py``).
 
-Not ported: finetuning and its freeze masks (the speaker embedding's
-among them), description embeddings, GST and the prosody style loss
-(``train`` refuses their configs, ``check_trainable``), multi-device
-training and the device prefetcher, TensorBoard images and histograms.
+Finetuning (``finetune``, JAX :136-143, :194-214, :395): the weights of
+``resume_ckpt`` with a fresh optimizer and schedule from step 0;
+``max_steps += finetune_steps``, lr / 10, batch x 2, validation once an
+epoch; the encoder (the character embedding inside it) and the speaker
+embedding frozen (``FINETUNE_FROZEN``; their BatchNorm statistics still
+update, as JAX's model state does); ``finetuned.ckpt`` at the end.
+
+The prosody-model configs (``extensions.prosody_model.active``, JAX
+:234-251): the frozen predictor of ``prosody_model_checkpoint`` (a
+``train_prosody`` checkpoint) adds ``style_loss`` to the loss from step
+``int(max_steps * active_after)`` on.
+
+With ``TACOTRON2_TRACE_DIR`` set the loop runs under ``device_trace``
+(``utils/profiling.py``), as JAX's does.
+
+Not ported: description embeddings and GST (``train`` refuses their
+configs, ``check_trainable``), multi-device training and the device
+prefetcher.
 """
 
 from __future__ import annotations
@@ -38,12 +55,15 @@ from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
 from tacotron2_tpu_torch.run.say import _sync, model_config_from
 from tacotron2_tpu_torch.training import checkpoint as ckpt_lib
 from tacotron2_tpu_torch.training.logging import TrainLogger
-from tacotron2_tpu_torch.training.optimizer import make_optimizer
+from tacotron2_tpu_torch.training.optimizer import make_optimizer, trainable
 from tacotron2_tpu_torch.training.step import eval_step, to_device, train_step
+from tacotron2_tpu_torch.utils.profiling import PhaseTimer, device_trace
 
 VAL_BATCH = 64
 LOG_EVERY = 50
 SAVE_EVERY = 5000
+HISTOGRAM_EVERY = 1000
+FINETUNE_FROZEN = ("encoder.", "speaker_embedding.")
 
 
 def _endless(loader) -> Iterator[Dict[str, np.ndarray]]:
@@ -56,25 +76,37 @@ def _endless(loader) -> Iterator[Dict[str, np.ndarray]]:
             raise ValueError("the training manifest gives no full batch")
 
 
-def check_trainable(cfg: Config) -> None:
-    """Raise for a config the port cannot train yet: GST and description
-    embeddings need their auxiliary models, and the prosody model's style
-    loss its predictor (ROADMAP A6, A7). Speaker tokens and controls train."""
+def check_trainable(cfg: Config, prosody_model_checkpoint: Optional[str] = None) -> None:
+    """Raise for a config the port cannot train: GST and description
+    embeddings need their auxiliary models (ROADMAP A6, A7); the prosody
+    model's style loss needs its predictor's checkpoint."""
     ext = cfg.extensions
-    if ext.gst.active or cfg.model.description_embeddings or ext.prosody_model.active:
+    if ext.gst.active or cfg.model.description_embeddings:
         raise NotImplementedError(
-            "the port trains the vanilla configuration and its speaker tokens and controls; "
-            "GST, description embeddings and the prosody model's style loss come after their "
+            "the port trains the vanilla configuration, its speaker tokens and controls and "
+            "the prosody model's style loss; GST and description embeddings come after their "
             "auxiliary models (ROADMAP A6, A7)")
+    if ext.prosody_model.active and prosody_model_checkpoint is None:
+        raise ValueError("Prosody model extension is active, but no prosody model checkpoint "
+                         "was given!")
 
 
 def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Optional[str] = None,
              resume_ckpt: Optional[str] = None, seed: int = 0,
-             max_steps_override: Optional[int] = None, device: Optional[str] = None) -> dict:
-    """Train; returns the final checkpoint's path, the step reached, and a
-    record per train step (loss, decode frames T, real mel frames, host
-    seconds ending in a device sync) and per validation batch (T)."""
-    check_trainable(cfg)
+             max_steps_override: Optional[int] = None, device: Optional[str] = None,
+             finetune: bool = False, finetune_steps: Optional[int] = None,
+             prosody_model_checkpoint: Optional[str] = None) -> dict:
+    """Train; returns the final checkpoint's path, the step reached, a
+    record per train step (loss, ``style_loss`` in the style phase, rows,
+    decode frames T, real mel frames, host seconds of the step ending in a
+    device sync, host seconds waiting for the batch) and per validation
+    batch (T), and the host seconds of the loop's validations, histograms
+    and saves (``phases``)."""
+    check_trainable(cfg, prosody_model_checkpoint)
+    if finetune and finetune_steps is None:
+        raise ValueError("If finetuning, --finetune-steps is required!")
+    if finetune and resume_ckpt is None:
+        raise ValueError("If finetuning, --resume-ckpt is required!")
     dev = resolve_device(device)
     if dev.type == "cuda":
         use_f32_math()
@@ -82,32 +114,46 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
         results_dir = f"results_{cfg.training.name} {datetime.datetime.now()}"
     os.makedirs(results_dir, exist_ok=True)
     cache_dir = path.join(results_dir, "mel_cache")
+    lr, batch_size = cfg.training.lr, cfg.training.batch_size
+    max_steps = max_steps_override or cfg.training.max_steps
+    interval = cfg.training.val_check_interval
+    if finetune:
+        max_steps += finetune_steps
+        lr /= 10
+        interval = 1.0
+        batch_size *= 2
     train_set = manifest_dataset(cfg, select_rows(cfg, read_manifest(cfg.dataset.train)),
                                  speech_dir, cache_dir=cache_dir)
     val_set = manifest_dataset(cfg, select_rows(cfg, read_manifest(cfg.dataset.val)),
                                speech_dir, cache_dir=cache_dir)
-    batch_size = cfg.training.batch_size
     train_loader = TTSDataLoader(train_set, batch_size=batch_size, shuffle=True, drop_last=True,
                                  seed=seed, bucket_chars=32, bucket_frames=128)
     val_loader = TTSDataLoader(val_set, batch_size=VAL_BATCH, shuffle=False, drop_last=False,
                                bucket_chars=32, bucket_frames=128)
 
-    max_steps = max_steps_override or cfg.training.max_steps
     milestones = [int(x * max_steps) for x in cfg.model.scheduler_milestones]
     torch.manual_seed(seed)
     model = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision))
     if resume_ckpt is not None:
         ckpt_lib.load_model_state(resume_ckpt, model)
     model.to(dev)
-    opt, sched = make_optimizer(model.parameters(), cfg.training.lr, cfg.training.weight_decay,
-                                milestones)
-    step = 0 if resume_ckpt is None else ckpt_lib.load_train_state(resume_ckpt, opt, sched)
+    opt, sched = make_optimizer(trainable(model, FINETUNE_FROZEN if finetune else ()), lr,
+                                cfg.training.weight_decay, milestones)
+    # finetuning starts a fresh optimizer and schedule at step 0 (JAX's
+    # TrainState.create; it does not call load_train then)
+    step = 0 if resume_ckpt is None or finetune else ckpt_lib.load_train_state(
+        resume_ckpt, opt, sched)
+    style, style_after = None, None
+    if cfg.extensions.prosody_model.active:
+        style = (ckpt_lib.load_prosody_checkpoint(prosody_model_checkpoint).to(dev),
+                 cfg.extensions.prosody_model.loss or "mse")
+        style_after = int(max_steps * cfg.extensions.prosody_model.active_after)
+        print(f"prosody model: style loss activates at step {style_after}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1 + step)  # dropout bits; a resumed run draws new ones
     logger = TrainLogger(path.join(results_dir, "lightning_logs"), cfg.training.name)
 
     steps_per_epoch = max(1, len(train_loader))
-    interval = cfg.training.val_check_interval
     if interval is None:
         val_every = steps_per_epoch
     elif isinstance(interval, float):
@@ -115,54 +161,84 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
     else:
         val_every = int(interval)
     record: dict = {"steps": [], "val_decode_frames": []}
+    timer = PhaseTimer()
 
     def run_validation(at: int) -> Optional[float]:
-        losses = []
+        losses, firsts, lens = [], None, None
         for batch in val_loader:
-            losses.append(eval_step(model, to_device(batch, dev), gen)["loss"])
+            metrics, f = eval_step(model, to_device(batch, dev), gen)
+            losses.append(metrics["loss"])
+            if firsts is None:
+                firsts = f
+                lens = (int(batch["mel_len"][0]), int(batch["chars_len"][0]))
             record["val_decode_frames"].append(int(batch["mel"].shape[1]))
         if not losses:
             return None
         mean = float(torch.stack(losses).mean())
         logger.scalars({"val_loss": mean, "val_mel_loss": mean}, at)
+        logger.validation_images({k: v.float().cpu().numpy() for k, v in firsts.items()}, *lens,
+                                 at)
         return mean
 
     print(f"train: {len(train_set)} utts, {steps_per_epoch} steps/epoch, max_steps {max_steps}, "
-          f"batch {batch_size}, start step {step}, {dev}")
+          f"batch {batch_size}, lr {lr}, start step {step}, {dev}"
+          + (f", finetuning with {FINETUNE_FROZEN} frozen" if finetune else ""))
     t_log, frames_log = time.perf_counter(), 0
     stop_threshold = cfg.training.stopping_val_loss_threshold
-    for batch in _endless(train_loader):
-        if step >= max_steps:
-            break
-        t0 = time.perf_counter()
-        metrics = train_step(model, opt, sched, to_device(batch, dev), gen)
-        _sync(dev)
-        frames = int(batch["mel_len"].sum())
-        step += 1
-        record["steps"].append({"step": step, "loss": float(metrics["loss"]),
-                                "decode_frames": int(batch["mel"].shape[1]),
-                                "mel_frames": frames, "s": time.perf_counter() - t0})
-        frames_log += frames
-        if step % LOG_EVERY == 0 or step == 1:
-            names = sorted(metrics)
-            vals = torch.stack([metrics[k].float() for k in names]).tolist()
-            m = {f"training_{k}": v for k, v in zip(names, vals)}
-            m["lr"] = sched.get_last_lr()[0]
-            m["mel_frames_per_sec"] = frames_log / max(time.perf_counter() - t_log, 1e-9)
-            t_log, frames_log = time.perf_counter(), 0
-            logger.scalars(m, step)
-            print(f"step {step}: loss {m['training_loss']:.4f} "
-                  f"({m['mel_frames_per_sec']:.0f} frames/s)")
-        if step % val_every == 0:
-            val_loss = run_validation(step)
-            if stop_threshold is not None and val_loss is not None and val_loss <= stop_threshold:
-                print(f"early stop: val_loss {val_loss:.4f} <= {stop_threshold}")
-                break
-        if step % SAVE_EVERY == 0:
-            ckpt_lib.save_checkpoint(path.join(results_dir, "last.ckpt"), model, opt, sched,
-                                     step, raw_config)
-    run_validation(step)
-    out = ckpt_lib.save_checkpoint(path.join(results_dir, "final.ckpt"), model, opt, sched, step,
+    saver = ckpt_lib.AsyncSaver()
+    batches = _endless(train_loader)
+    with device_trace(os.environ.get("TACOTRON2_TRACE_DIR"), dev.type == "cuda"):
+        try:
+            while step < max_steps:
+                t_wait = time.perf_counter()
+                batch = next(batches)
+                t0 = time.perf_counter()
+                metrics = train_step(
+                    model, opt, sched, to_device(batch, dev), gen,
+                    style=style if style_after is not None and step >= style_after else None)
+                _sync(dev)
+                frames = int(batch["mel_len"].sum())
+                step += 1
+                rec = {"step": step, "loss": float(metrics["loss"]),
+                       "rows": int(batch["mel"].shape[0]),
+                       "decode_frames": int(batch["mel"].shape[1]), "mel_frames": frames,
+                       "s": time.perf_counter() - t0, "wait_s": t0 - t_wait}
+                if "style_loss" in metrics:
+                    rec["style_loss"] = float(metrics["style_loss"])
+                record["steps"].append(rec)
+                frames_log += frames
+                if step % LOG_EVERY == 0 or step == 1:
+                    names = sorted(metrics)
+                    vals = torch.stack([metrics[k].float() for k in names]).tolist()
+                    m = {f"training_{k}": v for k, v in zip(names, vals)}
+                    m["lr"] = sched.get_last_lr()[0]
+                    m["mel_frames_per_sec"] = frames_log / max(time.perf_counter() - t_log, 1e-9)
+                    t_log, frames_log = time.perf_counter(), 0
+                    logger.scalars(m, step)
+                    print(f"step {step}: loss {m['training_loss']:.4f} "
+                          f"({m['mel_frames_per_sec']:.0f} frames/s)")
+                if step % HISTOGRAM_EVERY == 0:
+                    with timer.phase("histograms"):
+                        logger.histograms(model.named_parameters(), step)
+                if step % val_every == 0:
+                    with timer.phase("validation"):
+                        val_loss = run_validation(step)
+                    if (stop_threshold is not None and val_loss is not None
+                            and val_loss <= stop_threshold):
+                        print(f"early stop: val_loss {val_loss:.4f} <= {stop_threshold}")
+                        break
+                if step % SAVE_EVERY == 0:
+                    with timer.phase("save"):
+                        saver.save(path.join(results_dir, "last.ckpt"), model, opt, sched, step,
                                    raw_config)
+        finally:
+            batches.close()
+            saver.wait()
+    run_validation(step)
+    out = ckpt_lib.save_checkpoint(
+        path.join(results_dir, "finetuned.ckpt" if finetune else "final.ckpt"), model, opt,
+        sched, step, raw_config)
+    logger.close()
     print(f"saved {out}")
+    record["phases"] = {k: {"s": timer.totals[k], "n": timer.counts[k]} for k in timer.totals}
     return {"checkpoint": out, "step": step, **record}

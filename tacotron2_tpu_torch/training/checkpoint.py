@@ -9,10 +9,20 @@ holds what a Lightning trainer saves and resumes from:
 - ``optimizer_states``: ``[Adam.state_dict()]``;
 - ``lr_schedulers``: ``[MultiStepLR.state_dict()]``;
 - ``global_step``, and ``hyper_parameters`` (the raw config).
+
+Every file is written to a temporary name beside it and moved into place
+(``os.replace``), so a write cut off midway leaves the previous file whole.
+``AsyncSaver`` is the train loop's periodic save (JAX ``AsyncSaver``): it
+snapshots on the caller's thread and writes in the background. The prosody
+predictor's checkpoint (``save_prosody_checkpoint``) holds its
+``state_dict`` and the hyperparameters that rebuild it.
 """
 
 from __future__ import annotations
 
+import copy
+import os
+import threading
 from typing import Optional
 
 import torch
@@ -30,16 +40,98 @@ def _cpu(x):
     return x
 
 
+def _clone(x):
+    """A copy of every tensor of a state tree, on its own device."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    return copy.deepcopy(x)
+
+
+def _write(path: str, obj) -> str:
+    """``torch.save`` to ``path + ".tmp"``, then move it onto ``path``."""
+    tmp = path + ".tmp"
+    try:
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
+
+
+def _lightning(model_sd, opt_sd, sched_sd, step: int, hparams: Optional[dict]) -> dict:
+    ckpt = to_lightning(_cpu(model_sd), hparams)
+    ckpt["global_step"] = int(step)
+    if opt_sd is not None:
+        ckpt["optimizer_states"] = [_cpu(opt_sd)]
+    if sched_sd is not None:
+        ckpt["lr_schedulers"] = [sched_sd]
+    return ckpt
+
+
 def save_checkpoint(path: str, model: torch.nn.Module, opt=None, sched=None, step: int = 0,
                     hparams: Optional[dict] = None) -> str:
-    ckpt = to_lightning(_cpu(model.state_dict()), hparams)
-    ckpt["global_step"] = int(step)
-    if opt is not None:
-        ckpt["optimizer_states"] = [_cpu(opt.state_dict())]
-    if sched is not None:
-        ckpt["lr_schedulers"] = [sched.state_dict()]
-    torch.save(ckpt, path)
-    return path
+    return _write(path, _lightning(model.state_dict(), opt and opt.state_dict(),
+                                   sched and sched.state_dict(), step, hparams))
+
+
+class AsyncSaver:
+    """The train loop's periodic save, written in the background.
+
+    ``save`` snapshots the model's, the optimizer's and the schedule's state
+    on the caller's thread, by copies on their device, before it returns:
+    ``opt.step()`` updates the parameters and Adam's moments in place, so a
+    snapshot by reference would be written half old, half new. On the card
+    a CUDA event recorded after the copies lets the writer wait for them
+    and nothing else. A non-daemon thread then moves the copies to the host
+    on a CUDA stream of its own (behind no later train step) and writes
+    them through ``_write``: an interpreter exit lets it finish, and a
+    write cut off midway leaves the previous file whole. Saves
+    serialize: a ``save`` first joins the one before. A writer's error is
+    raised on the next ``save`` or ``wait``; the loop calls ``wait`` in a
+    ``finally``.
+    """
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, path: str, model: torch.nn.Module, opt=None, sched=None, step: int = 0,
+             hparams: Optional[dict] = None) -> None:
+        self.wait()
+        snap = (_clone(model.state_dict()), opt and _clone(opt.state_dict()),
+                sched and copy.deepcopy(sched.state_dict()))
+        done = None
+        if any(t.is_cuda for t in snap[0].values()):
+            done = torch.cuda.Event()
+            done.record()
+
+        def run():
+            try:
+                if done is None:
+                    ckpt = _lightning(*snap, step, hparams)
+                else:  # the copies to the host on a stream of their own, which
+                    done.synchronize()  # waits for no later train step
+                    with torch.cuda.stream(torch.cuda.Stream()):
+                        ckpt = _lightning(*snap, step, hparams)
+                _write(path, ckpt)
+            except BaseException as exc:  # raised again on the loop's thread
+                self._error = exc
+
+        self._thread = threading.Thread(target=run, name="checkpoint-writer", daemon=False)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 def load_model_state(path: str, model: torch.nn.Module) -> None:
@@ -61,3 +153,28 @@ def load_train_state(path: str, opt, sched) -> int:
         sched.load_state_dict(ckpt["lr_schedulers"][0])
         sched.milestones = milestones
     return int(ckpt["global_step"])
+
+
+def save_prosody_checkpoint(path: str, predictor: torch.nn.Module, hparams: dict,
+                            source_config: Optional[dict] = None) -> str:
+    """``train_prosody``'s checkpoint: the predictor's ``state_dict`` and
+    ``hyper_parameters`` = {"prosody_predictor": the constructor's arguments
+    and the feature names, "source_config": the raw config} (JAX
+    ``run/train_prosody.py``'s ``config.json``)."""
+    return _write(path, {"state_dict": _cpu(predictor.state_dict()),
+                         "hyper_parameters": {"prosody_predictor": dict(hparams),
+                                              "source_config": source_config}})
+
+
+def load_prosody_checkpoint(path: str):
+    """-> a frozen ``ProsodyPredictor`` from ``save_prosody_checkpoint``'s
+    file (JAX ``run/common.py::load_prosody_checkpoint``): f32, no
+    parameter requiring a gradient."""
+    from tacotron2_tpu_torch.models.prosody import ProsodyPredictor
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    h = dict(ckpt["hyper_parameters"]["prosody_predictor"])
+    h.pop("features", None)
+    predictor = ProsodyPredictor(**h)
+    load_strict(predictor, ckpt["state_dict"])
+    return predictor.requires_grad_(False)

@@ -5,9 +5,14 @@ Counterpart of ``tacotron2_tpu/training/step.py`` (``build_train_step``,
 MSE(mel_post), backward (the decode's through kernel K4), clip 1.0, Adam,
 MultiStepLR; a batch's ``speaker_id`` and ``controls`` go to the model,
 as in the JAX steps. The metrics keep the JAX names; ``grad_norm`` is the global
-norm before clipping. Evaluation is teacher-forced with ``train=False`` (no
-BatchNorm update, no encoder/postnet/LSTM dropout) but keeps the prenet's
-AlwaysDropout on, as the reference does.
+norm before clipping over every gradient, those of parameters the optimizer
+does not hold (finetuning's frozen ones) included. With ``style`` (the
+prosody-model configs' second phase, JAX ``build_train_step(prosody=...)``)
+the loss adds the frozen predictor's ``style_loss``. Evaluation is
+teacher-forced with ``train=False`` (no BatchNorm update, no
+encoder/postnet/LSTM dropout) but keeps the prenet's AlwaysDropout on, as
+the reference does, and also returns the batch's first row for the
+validation images (JAX ``make_eval_step``).
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from tacotron2_tpu_torch.training.losses import tacotron2_loss
+from tacotron2_tpu_torch.training.losses import prosody_style_loss, tacotron2_loss
 from tacotron2_tpu_torch.training.optimizer import apply_gradients
 
 BATCH_KEYS = ("chars_idx", "chars_len", "mel", "mel_len", "gate")
@@ -35,30 +40,51 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
                                             non_blocking=True) for k in keys}
 
 
-def _forward_loss(model, batch, train: bool, generator, lstm_masks):
+def _forward_loss(model, batch, train: bool, generator, lstm_masks, style=None):
     out = model.forward_teacher(batch["chars_idx"], batch["chars_len"], batch["mel"],
                                 batch["mel_len"], train=train, generator=generator,
                                 lstm_masks=lstm_masks, speaker_id=batch.get("speaker_id"),
                                 controls=batch.get("controls"))
-    return tacotron2_loss(out.mels, out.mels_post, out.gates, batch["mel"], batch["gate"])
+    loss, metrics = tacotron2_loss(out.mels, out.mels_post, out.gates, batch["mel"],
+                                   batch["gate"])
+    if style is not None:
+        predictor, kind = style
+        metrics["style_loss"] = prosody_style_loss(predictor, out.mels_post, batch["mel"],
+                                                   batch["mel_len"], kind)
+        loss = metrics["loss"] = loss + metrics["style_loss"]
+    return loss, metrics, out
 
 
 def train_step(model, opt, sched, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
-               lstm_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-               ) -> Dict[str, torch.Tensor]:
-    """One optimizer step on ``batch``; -> metrics (device scalars)."""
-    opt.zero_grad(set_to_none=True)
+               lstm_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               style: Optional[Tuple[torch.nn.Module, str]] = None) -> Dict[str, torch.Tensor]:
+    """One optimizer step on ``batch``; -> metrics (device scalars). The
+    gradients are cleared through the model, so a parameter the optimizer
+    does not hold starts each step at none too. ``style``: (the frozen
+    prosody predictor, "mse" or "ccc")."""
+    model.zero_grad(set_to_none=True)
     with torch.enable_grad():
-        loss, metrics = _forward_loss(model, batch, True, generator, lstm_masks)
+        loss, metrics, _ = _forward_loss(model, batch, True, generator, lstm_masks, style)
         loss.backward()
     metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["grad_norm"] = apply_gradients(list(model.parameters()), opt, sched)
+    held = {id(p) for group in opt.param_groups for p in group["params"]}
+    params = list(model.parameters())
+    metrics["grad_norm"] = apply_gradients([p for p in params if id(p) in held], opt, sched,
+                                           [p for p in params if id(p) not in held])
     return metrics
 
 
 @torch.no_grad()
 def eval_step(model, batch: Dict[str, torch.Tensor],
-              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-    _, metrics = _forward_loss(model, batch, False, generator, None)
-    return metrics
+              generator: Optional[torch.Generator] = None
+              ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """-> (metrics, the first row's tensors): ``mel_spectrogram_pred``
+    (mels_post), ``mel_spectrogram`` (the target), ``alignment`` (K3's
+    attention weights, (T, L)), ``gate`` (the target) and ``gate_pred``
+    (the logits), under JAX ``make_eval_step``'s names."""
+    _, metrics, out = _forward_loss(model, batch, False, generator, None)
+    firsts = {"mel_spectrogram_pred": out.mels_post[0], "mel_spectrogram": batch["mel"][0],
+              "alignment": out.alignments[0], "gate": batch["gate"][0],
+              "gate_pred": out.gates[0]}
+    return metrics, firsts

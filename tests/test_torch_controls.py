@@ -35,8 +35,8 @@ speaker`` makes them, through ``convert.from_jax_params``.
 - the server's per-model request checks, and two controllable requests with
   other voices and controls sharing a window, each with its audio alone;
 - ``model_config_from`` takes every model config in ``config/`` but the
-  description-embedding one; ``train`` takes them too, but the prosody-model
-  ones (their style loss needs the prosody predictor); the teacher pass
+  description-embedding one; ``train`` takes them too, the prosody-model
+  ones only with a predictor's checkpoint (their style loss); the teacher pass
   refuses missing or mis-shaped speaker ids and controls.
 """
 
@@ -497,9 +497,10 @@ def test_model_config_from_accepts(name):
     assert mc.speaker_tokens == ext.speaker_tokens.active
     assert mc.num_speakers == ext.speaker_tokens.num_speakers
     assert mc.controls == ext.controls.active and mc.controls_dim == cfg.controls_dim
-    if ext.prosody_model.active:
-        with pytest.raises(NotImplementedError, match="A6, A7"):
+    if ext.prosody_model.active:  # trained with its predictor's checkpoint only
+        with pytest.raises(ValueError, match="no prosody model checkpoint"):
             check_trainable(cfg)
+        check_trainable(cfg, "prosody_final.ckpt")
     else:
         check_trainable(cfg)
 
