@@ -13,6 +13,7 @@
                                     # turns, bit for bit, and the controls mode's times
     python3 chip_smoke.py --eval    # the kernels' build and phase 4f alone
     python3 chip_smoke.py --train-extras  # the kernels' build and phase 4g alone
+    python3 chip_smoke.py --descriptions  # the kernels' build and phase 4h alone
 
 Phases, each of which must pass:
 
@@ -164,6 +165,32 @@ Phases, each of which must pass:
    scalars); ``train`` of ``STYLE_CONFIG`` at batch 32 with that predictor
    (``style_loss`` from step 3 on, the predictor unchanged, controls-mode
    launches) and a ``say`` of its checkpoint; the step times of each;
+4h. description-conditioned speech (``descriptions_phase``, ``DESC_CONFIG``:
+   562 voices, a 768-wide description, the memory D = 640), each through the
+   CLI: a random BERT of bert-base's shapes from the seed, saved as a
+   ``bert.``-prefixed state dict and as an HF directory with the smoke's own
+   ``model.safetensors``, over a synthetic 30,522-line vocabulary;
+   ``embed_descriptions`` (2 augmentations) of a synthetic 24 kHz
+   LibriTTS-like corpus (8 voices, 144 rows of 150-250 chars, some blank)
+   on the card, every file within DESC_TOL of the same on the CPU, the two
+   layouts the same bits; ``train`` (pretraining: the batches' descriptions
+   blank) at B=64 and ``train --finetune`` at B=128 (the augmented ids'
+   rows, every description row a file on disk, some augmentations; the
+   encoder and the speaker embedding bit for bit, the rest moved), K3 / K4
+   at D = 640 against their plain versions at both batches' shapes (K4's
+   attention cluster doubled where L > 216 at B = 128 needs it,
+   ``train_decode.attention_cluster``, its shared memory mirror held against
+   the library's), launches per step x T; ``say --speaker-id --description
+   --bert-checkpoint`` bf16 and int8 (256 frames, 5 / 7 launches a step, one
+   vocode), K1 / K5 at D = 640 against their plain versions, the kernel
+   decode against the plain one, a description's mels apart from a blank
+   one's, the chunk per step beside the vanilla D = 512's; ``test_correlation``
+   of 4e's checkpoint (2 rows of each of its 4 voices, the gate's row as
+   trained or negated and its bias from ``kept_gate_bias`` on probes of
+   every override, each row stopping where they predict): a directory per
+   override, K1 5 launches a step
+   reading the controls, K2 one vocode a batch, ``correlations.csv`` by
+   JAX's rules;
 5. print the kernels line and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero before the last line on any failure, when no CUDA device
@@ -559,7 +586,7 @@ def chunk_inputs(model, lengths, g, L: int = 0) -> tuple:
 
     c = model.cfg
     B, L, dev = lengths.shape[0], L or int(lengths.max()), lengths.device
-    H, D = c.att_rnn_dim, c.encoded_dim
+    H, D = c.att_rnn_dim, getattr(c, "encoded_full_dim", c.encoded_dim)  # the memory's width
     rn = lambda *s, scale=0.5: torch.randn(*s, device=dev, generator=g) * scale
     enc = rn(B, L, D).to(torch.bfloat16)
     att_enc = (enc.float() @ model.att_encoder.weight.t()).contiguous()
@@ -3331,9 +3358,9 @@ def defect_phase(model, cfg, log: dict) -> None:
         raise SmokeFailure(f"a defective copy reads under {DEFECT_MARGIN}x its limit: {low}")
 
 
-def _synth_corpus(root: Path, n: int) -> Path:
-    """``n`` WAVs at 22,050 Hz from SEED: harmonic tones with a slow
-    envelope and noise, 2-4 s each, PCM16."""
+def _synth_corpus(root: Path, n: int, sr: int = 22050, secs: tuple = (2.0, 4.0)) -> Path:
+    """``n`` WAVs at ``sr`` Hz from SEED: harmonic tones with a slow
+    envelope and noise, ``secs`` (2-4 s) each, PCM16."""
     import numpy as np
 
     from tacotron2_tpu_torch.audio.io import write_wav
@@ -3342,14 +3369,14 @@ def _synth_corpus(root: Path, n: int) -> Path:
     speech = root / "speech"
     speech.mkdir(parents=True, exist_ok=True)
     for i in range(n):
-        samples = int(rng.uniform(2.0, 4.0) * 22050)
-        t = np.arange(samples) / 22050
+        samples = int(rng.uniform(*secs) * sr)
+        t = np.arange(samples) / sr
         f0 = rng.uniform(90.0, 250.0) * (1 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.2, 1) * t))
-        phase = 2 * np.pi * np.cumsum(f0) / 22050
+        phase = 2 * np.pi * np.cumsum(f0) / sr
         x = sum(np.sin(k * phase) / k for k in range(1, 7))
         env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.5, 2.0) * t) ** 2
         wav = 0.15 * env * x + 0.005 * rng.standard_normal(samples)
-        write_wav(str(speech / f"s{i:03d}.wav"), wav.astype(np.float32), 22050)
+        write_wav(str(speech / f"s{i:03d}.wav"), wav.astype(np.float32), sr)
     return speech
 
 
@@ -3423,7 +3450,8 @@ def train_perf(first: dict, second: dict, card: str) -> dict:
 
 
 def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log: dict,
-                mode: str = "", tag: str = "", readings: bool = False) -> dict:
+                mode: str = "", tag: str = "", readings: bool = False,
+                split: bool = True) -> dict:
     """At the first batch's shapes, on the trained weights of ``ckpt``: K3
     and K4 against their plain versions (K3_TOL_TRAIN; a controllable
     model's with its batch's speakers and controls), their split by kernel,
@@ -3431,7 +3459,9 @@ def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log
     ending in a sync (so the parts need not sum to the whole step). ``mode``
     "[controls]" names the kernels line's rows; ``tag`` the log's keys.
     With ``readings`` also K3's and K4's device ms (graph replay) beside
-    their plain versions' and their bounds. -> the parts (ms)."""
+    their plain versions' and their bounds; without ``split`` neither the
+    split by kernel nor the step's parts. A description model's batch reads
+    the manifest's ``description_embedding`` files. -> the parts (ms)."""
     import torch
 
     from tacotron2_tpu_torch.config import load_config
@@ -3450,8 +3480,11 @@ def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log
     load_model_state(ckpt, model)
     model.to(dev)
     opt, sched = optimizer.make_optimizer(model.parameters(), 1e-3, 1e-6)
-    ds = manifest_dataset(cfg, read_manifest(str(root / "train.csv")), str(speech),
-                          cache_dir=str(root / "cache"))
+    rows = read_manifest(str(root / "train.csv"))
+    descs = ([r["description_embedding"] or None for r in rows]
+             if cfg.model.description_embeddings else None)
+    ds = manifest_dataset(cfg, rows, str(speech), cache_dir=str(root / "cache"),
+                          **({"descriptions": descs} if descs else {}))
     batch = step.to_device(collate([ds[i] for i in range(B)], 32, 128), dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -3462,11 +3495,13 @@ def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log
     params = [named[k].detach() for k in td.DECODER_PARAMS]
     w = td.pack_weights(params, torch.bfloat16, C)
     spk = batch.get("speaker_id")
+    desc = ({"description_embeddings": batch["description_embeddings"]}
+            if "description_embeddings" in batch else {})
 
     def encoder():
         with torch.enable_grad():
             enc, att_enc, _ = model._encode(batch["chars_idx"], batch["chars_len"], True, gen,
-                                            speaker_id=spk)
+                                            speaker_id=spk, **desc)
             (enc.sum() + att_enc.sum()).backward()
         return enc.detach(), att_enc.detach()
 
@@ -3491,13 +3526,16 @@ def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log
                 ("teacher_backward", td.teacher_backward, td.teacher_backward_plain, bwd_args)):
             b_ms, b_by, stream, _ = bounds[name]
             kernels[f"{name}{mode}"] = {
-                "B": B, "L": L, "T": T, "ms": time_ms(lambda: kern(*args), 3, 1),
+                "B": B, "L": L, "T": T, "D": enc_b.shape[2],
+                "ms": time_ms(lambda: kern(*args), 3, 1),
                 "plain_ms": time_ms(lambda: plain(*args), 2, 1), "bound_ms": b_ms,
                 "bound_by": b_by, "weight_stream_ms": stream, "library_ms": None}
             r = kernels[f"{name}{mode}"]
-            print(f"  {name}{mode} at B={B}, L={L}, T={T}: {r['ms']:.3f} ms, plain "
-                  f"{r['plain_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}), weight stream "
+            print(f"  {name}{mode} at B={B}, L={L}, T={T}, D={enc_b.shape[2]}: {r['ms']:.3f} ms, "
+                  f"plain {r['plain_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}), weight stream "
                   f"{stream:.3f} ms")
+    if not split:
+        return {"kernels": kernels}
     key = f"k34_kernel_ms_train{mode}{tag}"
     log[key] = {"teacher_forward": kernel_split(lambda: td.teacher_forward(*fwd_args)),
                 "teacher_backward": kernel_split(lambda: td.teacher_backward(*bwd_args))}
@@ -5581,6 +5619,700 @@ def train_extras_mode() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 4h: description-conditioned speech (descriptions-libritts.json)
+
+DESC_CONFIG = "descriptions-libritts.json"  # 562 voices, description dim 768, D = 640
+DESC_VOICES = (0, 80, 160, 240, 320, 400, 480, 561)  # 8 of the 562
+DESC_ROWS = 144  # the corpus' rows; the first DESC_AUGMENTED are augmented_ids.csv's
+DESC_AUGMENTED = 128  # the finetune's rows: one batch of 2 x 64
+DESC_BLANK_FROM = 136  # rows from here on have a blank description
+DESC_SECS = (1.5, 3.0)  # the synthetic 24 kHz WAVs' lengths
+DESC_TRAIN_STEPS = 3
+DESC_TOL = 2e-4  # a BERT pooler row on the card against the CPU's (tests/test_bert.py's bert-base)
+DESC_SPEAKER = 240  # the say's voice
+DESC_PHRASES = (
+    "A calm, deep male voice with a slow and steady pace.",
+    "A bright young female voice, fast and cheerful, slightly breathy.",
+    "An old man speaking softly in a low, gravelly tone.",
+    "A clear, neutral narrator reading at a moderate speed.",
+    "An excited woman with a high pitch and lively intonation.",
+    "A tired, monotone voice, quiet and slow, with long pauses.",
+    "A warm storyteller with expressive pitch and a gentle rhythm.",
+    "A loud, energetic announcer speaking quickly and crisply.",
+)
+BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                 intermediate_size=3072, max_position_embeddings=512, type_vocab_size=2)
+TC_PER_SPEAKER = 2  # test_correlation's rows of each of 4e's four voices
+TC_MAX_LEN = 256
+
+
+def desc_text(i: int) -> str:
+    """A LibriTTS-like text of 150-250 characters: two of TRAIN_TEXTS (a
+    third where they fall short), cut at a word."""
+    t = f"{TRAIN_TEXTS[i % 8]} {TRAIN_TEXTS[(3 * i + 1) % 8]}"
+    if len(t) < 150:
+        t = f"{t} {TRAIN_TEXTS[(i + 5) % 8]}"
+    return t if len(t) <= 250 else t[:t.rindex(" ", 0, 249)] + "."
+
+
+def bert_vocab() -> list:
+    """A synthetic 30,522-line WordPiece vocabulary in bert-base-uncased's
+    layout: [PAD], [unused0-98], [UNK], [CLS], [SEP], [MASK], single
+    characters and their ## pieces, the descriptions' words, then filler
+    words and pieces."""
+    chars = [chr(c) for c in range(33, 127) if not chr(c).isupper()]
+    words = " ".join(DESC_PHRASES).lower().replace(",", " ").replace(".", " ").split()
+    toks = (["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+            + chars + ["##" + c for c in chars if c.isalnum()] + words + ["##ly", "##ing", "##s"])
+    toks = list(dict.fromkeys(toks))
+    i = 0
+    while len(toks) < BERT_BASE["vocab_size"]:
+        toks.append(f"word{i}" if i % 2 == 0 else f"##piece{i}")
+        i += 1
+    return toks
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """``tensors`` (CPU, f32) as a ``.safetensors`` file: an 8-byte
+    little-endian header length, the JSON header padded to 8 bytes, the
+    buffers end to end."""
+    header, offset, blobs = {}, 0, []
+    for name, t in tensors.items():
+        b = t.detach().contiguous().cpu().numpy().tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape), "data_offsets": [offset,
+                                                                                 offset + len(b)]}
+        offset += len(b)
+        blobs.append(b)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for b in blobs:
+            f.write(b)
+
+
+def bert_inputs(root: Path) -> tuple:
+    """A random BERT of bert-base's shapes from SEED, saved twice: a state
+    dict with the ``bert.`` prefix and gamma / beta LayerNorm names (a
+    ``BertForPreTraining`` file's) with ``vocab.txt`` beside it, and an
+    HF-layout directory (``config.json``, ``tokenizer_config.json``,
+    ``vocab.txt``, ``model.safetensors`` written here). -> (the file, the
+    directory, the model on the CPU)"""
+    import torch
+
+    from tacotron2_tpu_torch.models.bert import Bert, BertConfig
+
+    g = torch.Generator()
+    g.manual_seed(SEED)
+    bert = Bert(BertConfig(**BERT_BASE)).init_weights(g).eval()
+    sd = bert.state_dict()
+    vocab = "\n".join(bert_vocab()) + "\n"
+    pt_dir, hf_dir = root / "bert_pt", root / "bert_hf"
+    for d in (pt_dir, hf_dir):
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "vocab.txt").write_text(vocab)
+    legacy = {}
+    for k, v in sd.items():
+        if ".LayerNorm." in k:
+            k = k.replace(".weight", ".gamma").replace(".bias", ".beta")
+        legacy["bert." + k] = v
+    legacy["bert.embeddings.position_ids"] = torch.arange(BERT_BASE["max_position_embeddings"])[None]
+    legacy["cls.predictions.bias"] = torch.zeros(BERT_BASE["vocab_size"])
+    torch.save(legacy, pt_dir / "bert.pt")
+    (hf_dir / "config.json").write_text(json.dumps({"model_type": "bert", **BERT_BASE,
+                                                    "layer_norm_eps": 1e-12}))
+    (hf_dir / "tokenizer_config.json").write_text(json.dumps({"do_lower_case": True}))
+    write_safetensors(hf_dir / "model.safetensors", sd)
+    return str(pt_dir / "bert.pt"), str(hf_dir), bert
+
+
+def desc_corpus(root: Path) -> tuple:
+    """A LibriTTS-like corpus: DESC_ROWS WAVs at 24 kHz of the 8 voices of
+    DESC_VOICES, texts of 150-250 chars, an ``id`` column, a ``description``
+    column (one of DESC_PHRASES and the row's number; blank from row
+    DESC_BLANK_FROM on), ``augmented_ids.csv`` of the first DESC_AUGMENTED
+    ids. -> (the speech dir, the manifest)"""
+    speech = _synth_corpus(root, DESC_ROWS, 24000, DESC_SECS)
+    rows = ["id|text|wav|speaker_id|description"]
+    for i in range(DESC_ROWS):
+        spk = DESC_VOICES[i % len(DESC_VOICES)]
+        # one description a row, so that a row's original embedding is its own
+        desc = ("" if i >= DESC_BLANK_FROM
+                else f"{DESC_PHRASES[(i * 5) % len(DESC_PHRASES)][:-1]}, take {i}.")
+        rows.append(f"{spk}_{1000 + i // 8}_{i:06d}|{desc_text(i)}|s{i:03d}.wav|{spk}|{desc}")
+    manifest = root / "libritts-descriptions.csv"
+    manifest.write_text("\n".join(rows) + "\n")
+    (speech / "augmented_ids.csv").write_text(
+        "".join(r.split("|")[0] + "\n" for r in rows[1:DESC_AUGMENTED + 1]))
+    return speech, manifest
+
+
+def decode_step_bound(pk, B: int, L: int) -> tuple:
+    """The least time of one decode step (K1, or K5 in an int8 pack): each
+    weight read once, the memory (bf16) and its projection (f32) read once;
+    the products of the cells, prenet, query, heads and the attention."""
+    H4 = pk.w_att.shape[0]
+    H, A, K = H4 // 4, pk.wq.shape[0], pk.w_loc.shape[2]
+    D = pk.w_att.shape[1] - pk.wp2_t.shape[0] - H
+    w = nbytes(pk.w_att, pk.b_att, pk.w_dec, pk.b_dec, pk.wp1_t, pk.wp2_t, pk.wq, pk.w_loc, pk.wv,
+               pk.w_out, pk.b_out, pk.s_att, pk.s_dec)
+    mats = (pk.w_att, pk.w_dec, pk.wp1_t, pk.wp2_t, pk.wq, pk.w_out)
+    flops = 2 * B * sum(m.numel() for m in mats) + B * (L * A * (4 * K + 4) + 2 * L * D + 4 * L)
+    return bound_ms(w + B * L * (2 * D + 4 * A), flops, INT8_OPS if pk.quantized else BF16_FLOPS)
+
+
+def _embedding_files(speech: Path) -> dict:
+    """Every description-embedding file under ``speech`` -> {its bytes:
+    [its stem, whether an augmentation]} (rows of one description share a
+    base embedding)."""
+    import numpy as np
+
+    files: dict = {}
+    for p in sorted((speech / "description_embeddings").rglob("*.npy")):
+        aug = p.parent.name.endswith("_augmentations")
+        stem = p.parent.name[:-len("_augmentations")] if aug else p.stem
+        files.setdefault(np.load(p).astype(np.float32).tobytes(), []).append((stem, aug))
+    return files
+
+
+def bert_part(root: Path, log: dict, card: str) -> tuple:
+    """The BERT files, the corpus, ``embed_descriptions`` through the CLI on
+    the card (2 augmentations), the same on the CPU (every file within
+    DESC_TOL), the two weight layouts (the same bits), BERT's device time at
+    one description. -> (the state-dict file, the HF dir, the speech dir,
+    the embedded manifest, the readings)"""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.run.embed_descriptions import (BertEmbedder, do_embed_descriptions,
+                                                            pad_ids)
+
+    t0 = time.perf_counter()
+    bert_pt, bert_hf, bert = bert_inputs(root)
+    speech, manifest = desc_corpus(root)
+    res = {"inputs_s": time.perf_counter() - t0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_csv = cli(["embed_descriptions", "--csv", str(manifest), "--speech-dir", str(speech),
+                   "--bert", bert_pt, "--augmentations", "2"])["out_csv"]
+    torch.cuda.synchronize()
+    res["embed_card_s"] = time.perf_counter() - t0
+    cpu_speech = root / "cpu"
+    cpu_speech.mkdir()
+    t0 = time.perf_counter()
+    do_embed_descriptions(str(manifest), str(cpu_speech), out_csv=str(root / "cpu.csv"),
+                          bert=bert_pt, augmentations=2, device="cpu")
+    res["embed_cpu_s"] = time.perf_counter() - t0
+    card_files = sorted((speech / "description_embeddings").rglob("*.npy"))
+    rel = [p.relative_to(speech) for p in card_files]
+    if rel != sorted(p.relative_to(cpu_speech)
+                     for p in (cpu_speech / "description_embeddings").rglob("*.npy")):
+        raise SmokeFailure("embed_descriptions wrote other files on the card than on the CPU")
+    want_files = 3 * DESC_BLANK_FROM  # a base row and 2 augmentations a description
+    worst = max(float(np.abs(np.load(speech / r) - np.load(cpu_speech / r)).max()) for r in rel)
+    if len(rel) != want_files or not worst <= DESC_TOL:
+        raise SmokeFailure(f"embed_descriptions: {len(rel)} files (want {want_files}), card "
+                           f"against CPU {worst:.3e} (limit {DESC_TOL:g})")
+    manifest_col = [r.split("|")[-1] for r in Path(out_csv).read_text().splitlines()[1:]]
+    if sum(bool(x) for x in manifest_col) != DESC_BLANK_FROM:
+        raise SmokeFailure(f"embed_descriptions' manifest: {sum(map(bool, manifest_col))} paths")
+    texts = list(DESC_PHRASES)
+    emb = BertEmbedder.from_local(bert_pt)
+    a = emb.embed(texts)
+    b = BertEmbedder.from_local(bert_hf).embed(texts)
+    if not np.array_equal(a, b):
+        raise SmokeFailure("the bert.-prefixed state dict and the safetensors directory give "
+                           f"other embeddings ({float(np.abs(a - b).max()):.3e})")
+    # BERT's device time at one description, beside its bound (weights read once)
+    ids, mask = pad_ids([emb.tokenizer.encode(DESC_PHRASES[0], 512)])
+    ids_d, mask_d = torch.as_tensor(ids, device="cuda"), torch.as_tensor(mask, device="cuda")
+    with torch.no_grad():
+        dev_ms = time_ms(lambda: emb.model(ids_d, mask_d), 10, 5)
+    layer_bytes = sum(p.numel() * 4 for n, p in bert.named_parameters()
+                      if not n.startswith("embeddings."))
+    T, Hd, I = ids.shape[1], BERT_BASE["hidden_size"], BERT_BASE["intermediate_size"]
+    flops = BERT_BASE["num_hidden_layers"] * (2 * T * (4 * Hd * Hd + 2 * Hd * I) + 4 * T * T * Hd)
+    b_ms, b_by = bound_ms(layer_bytes + 3 * T * Hd * 4, flops, 67e12)  # f32 (no TF32): 67 TFLOPS
+    res.update({"files": len(rel), "card_vs_cpu_max_abs_err": worst, "layouts_equal": True,
+                "bert_device_ms": dev_ms, "bert_tokens": T, "bert_bound_ms": b_ms,
+                "bert_bound_by": b_by, "layer_weight_bytes": layer_bytes, "card": card})
+    print(f"  BERT (bert-base shapes, random from the seed): files {res['inputs_s']:.1f} s; "
+          f"embed_descriptions of {DESC_BLANK_FROM} of {DESC_ROWS} rows with 2 augmentations "
+          f"{res['embed_card_s']:.2f} s on the card, {res['embed_cpu_s']:.2f} s on the CPU; "
+          f"{len(rel)} files within {worst:.3e} of the CPU's (limit {DESC_TOL:g}); the two weight "
+          f"layouts the same bits; one description ({T} ids) {dev_ms:.3f} ms on the card (bound "
+          f"{b_ms:.3f} ms, {b_by}) on {card}")
+    del emb, bert
+    return bert_pt, bert_hf, speech, out_csv, res
+
+
+def desc_train_part(root: Path, speech: Path, out_csv: str, log: dict, card: str) -> tuple:
+    """``train`` of the description config (pretraining: blank embeddings)
+    at B=64, then ``train --finetune`` at B=128 (the augmented rows, the
+    original or an augmentation each read), both through the CLI, their
+    batches' description rows caught; K3 / K4 at D = 640 against their
+    plain versions at the first batch's shapes of each. -> (launches,
+    readings, the record)"""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
+    from tacotron2_tpu_torch.ops import train_decode as td
+    from tacotron2_tpu_torch.run import train as rt
+
+    raw = json.loads((ROOT / "config" / DESC_CONFIG).read_text())
+    B, dim = raw["training"]["batch_size"], raw["model"]["args"]["description_embeddings_dim"]
+    lines = Path(out_csv).read_text().splitlines()
+    cfg = train_setup(root, raw, lines, 32)
+    seen: list = []
+    step = rt.train_step
+
+    def catching(model, opt, sched, batch, *a, **k):
+        seen.append(batch["description_embeddings"].float().cpu().numpy())
+        return step(model, opt, sched, batch, *a, **k)
+
+    launches: dict = {}
+    readings: dict = {}
+    rt.train_step = catching
+    try:
+        td.reset_launches()
+        el.reset_launches()
+        pre = cli(["train", "--config", str(cfg), "--speech-dir", str(speech), "--seed",
+                   str(SEED), "--results-dir", str(root / "pre"), "--max-steps",
+                   str(DESC_TRAIN_STEPS)])
+        k34, enc = dict(td.LAUNCHES), dict(el.LAUNCHES)
+        pre_seen, seen[:] = list(seen), []
+        want = _want_k34(pre)
+        losses = [s["loss"] for s in pre["steps"]]
+        print(f"  train (pretraining, blank embeddings): {len(pre['steps'])} steps at B="
+              f"{pre['steps'][0]['rows']}, losses {[round(x, 4) for x in losses]}, decode frames "
+              f"{[s['decode_frames'] for s in pre['steps']]}; K3/K4 {k34}, encoder {enc}")
+        if (k34 != want or enc["bilstm_backward"] != len(pre["steps"])
+                or not all(math.isfinite(x) for x in losses)):
+            raise SmokeFailure(f"description train: K3/K4 {k34} (want {want}), encoder {enc}, "
+                               f"losses {losses}")
+        if any(b.any() for b in pre_seen) or {b.shape for b in pre_seen} != {(B, dim)}:
+            raise SmokeFailure("pretraining read description rows that are not blank (zeros)")
+        for k, n in {**k34, **enc}.items():
+            launches[k] = launches.get(k, 0) + n
+        src = {"cfg": str(cfg), "ckpt": pre["checkpoint"], "speech": speech}
+        ft, k34f, encf = finetune_run("[descriptions]", src, root / "ft",
+                                      ("encoder.", "speaker_embedding."), False)
+    finally:
+        rt.train_step = step
+    for k, n in {**k34f, **encf}.items():
+        launches[k] = launches.get(k, 0) + n
+    files = _embedding_files(speech)
+    ids = {r.split("|")[2][:-4] for r in lines[1:DESC_AUGMENTED + 1]}  # the augmented rows' stems
+    picked = [[f for f in files.get(row.tobytes(), []) if f[0] in ids]
+              for b in seen for row in b]
+    # a pick equal to an augmentation only, to an original only (an
+    # augmentation that masked no token has its original's bits: neither)
+    n_aug = sum(bool(p) and all(aug for _, aug in p) for p in picked)
+    n_base = sum(bool(p) and not any(aug for _, aug in p) for p in picked)
+    if (len(picked) != DESC_AUGMENTED * len(ft["steps"]) or not all(picked) or not n_aug
+            or not n_base):
+        raise SmokeFailure(f"finetune: {sum(not p for p in picked)} of {len(picked)} description "
+                           f"rows are no file of an augmented row on disk; {n_aug} augmentations "
+                           f"and {n_base} originals told apart")
+    print(f"  finetune: every batch row a file on disk of an augmented id's row ({n_aug} of "
+          f"{len(picked)} picks an augmentation, {n_base} an original, the rest either)")
+    ms = lambda run: float(np.median([1e3 * s["s"] for s in run["steps"][1:]]))
+    rec = {"train": {"steps": pre["steps"], "ms_median": ms(pre), "launches": {**k34, **enc}},
+           "finetune": {"steps": ft["steps"], "ms_median": ms(ft),
+                        "launches": {**k34f, **encf}, "augmented_picks": n_aug,
+                        "original_picks": n_base, "picks": len(picked)}}
+    for tag, run, rows in (("[descriptions]", pre, B), ("[descriptions,finetune]", ft, 2 * B)):
+        got = train_split(str(cfg), run["checkpoint"], speech, root, rows, log, tag=tag,
+                          readings=True, split=False)["kernels"]
+        for name, r in got.items():
+            readings.setdefault(name, {})[f"B{rows}"] = r
+    rec["kernels"] = readings
+    print(f"  train {rec['train']['ms_median']:.1f} ms/step at B={B}, finetune "
+          f"{rec['finetune']['ms_median']:.1f} ms/step at B={2 * B} (host clock, medians of "
+          f"steps 2-) on {card}")
+    torch.cuda.empty_cache()
+    return launches, readings, rec
+
+
+def desc_say_part(root: Path, bert_pt: str, g_path: str, log: dict, card: str) -> tuple:
+    """``say --speaker-id --description --bert-checkpoint`` of random
+    full-width weights of the description config (gate forced: 256 frames),
+    bf16 then int8, the launch counters read around each; K1 and K5 at D =
+    640 against their plain versions (a step, 4-step chunks), the kernel
+    decode against the plain one over 32 frames, a description against a
+    blank one; the chunk's time per step at D = 640 beside the vanilla
+    D = 512's. -> (launches, readings, the record)"""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.audio.io import read_wav
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.convert import to_lightning
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+    from tacotron2_tpu_torch.ops import mrf
+    from tacotron2_tpu_torch.run.embed_descriptions import BertEmbedder
+    from tacotron2_tpu_torch.run.say import load_tacotron
+    from tacotron2_tpu_torch.text import CharEncoder, normalize_text
+
+    cfg_path = str(ROOT / "config" / DESC_CONFIG)
+    cfg = load_config(cfg_path)
+    ckpt = str(root / "descriptions-random.ckpt")
+    torch.save(to_lightning(random_tacotron(cfg, 10.0).state_dict()), ckpt)
+    text, desc = desc_text(3), DESC_PHRASES[0]
+    out = str(root / "say.wav")
+    say = lambda quant, d=desc: cli(
+        ["say", "--config", cfg_path, "--checkpoint", ckpt, "--hifi-gan-checkpoint", g_path,
+         "--text", text, "--out", out, "--random-seed", str(SEED), "--max-len-override", "256",
+         "--speaker-id", str(DESC_SPEAKER), "--bert-checkpoint", bert_pt]
+        + (["--description", d] if d else []) + (["--quantize-int8"] if quant else []))
+    launches: dict = {}
+    runs = {}
+    for quant in (False, True):
+        mode = "int8" if quant else "bf16"
+        if not quant:
+            say(quant)  # warm-up
+        dl.reset_launches()
+        mrf.reset_launches()
+        res = say(quant)
+        got = {**dl.LAUNCHES, **mrf.LAUNCHES}
+        cell, other = ("lstm_cell_int8", "lstm_cell") if quant else ("lstm_cell", "lstm_cell_int8")
+        want = {"prenet": 256, cell: 512, other: 0, "location_attention": 256, "heads": 256,
+                "quantize_xh": 512 if quant else 0}
+        print(f"  say --speaker-id {DESC_SPEAKER} --description '{desc}'"
+              f"{' --quantize-int8' if quant else ''}: {res['n_frames']} frames, BERT encode "
+              f"{res['bert_s'] * 1e3:.1f} ms; launches {got}")
+        if res["n_frames"] != 256 or {k: got[k] for k in want} != want or not res["bert_s"] > 0:
+            raise SmokeFailure(f"description {mode} say: {res}, launches {got}, want {want}")
+        check_vocode_launches(got, 1, f"description {mode} say")
+        wav, _ = read_wav(out)
+        if len(wav) != res["cut"] * 256 or not np.isfinite(wav).all() or not np.abs(wav).max() > 0:
+            raise SmokeFailure(f"bad description wav: {len(wav)} samples for cut {res['cut']}")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        runs[mode] = {"run": res, "launches": got, "rtf": res["say_s"] / res["audio_s"],
+                      "decode_us_per_step": res["decode_s"] / res["n_frames"] * 1e6,
+                      "bert_ms": res["bert_s"] * 1e3, "card": card}
+        print(f"  description {mode} say: decode {runs[mode]['decode_us_per_step']:.1f} us/step, "
+              f"RTF {runs[mode]['rtf']:.4f}, BERT {runs[mode]['bert_ms']:.1f} ms on {card}")
+
+    dev = torch.device("cuda")
+    model = load_tacotron(cfg, ckpt, dev)
+    prep = cfg.dataset.preprocessing
+    ci, cl = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch(
+        [normalize_text(text, prep.allowed_chars, prep.end_token, False)])
+    ci, cl = torch.as_tensor(ci, device=dev), torch.as_tensor(cl, device=dev)
+    L = int(cl[0])
+    d_emb = torch.as_tensor(BertEmbedder.from_local(bert_pt).embed([desc]), device=dev)
+    kw = dict(speaker_id=torch.tensor([DESC_SPEAKER]))
+    fast = model.forward_infer_fast(ci, cl, 32, prenet_dropout=False, description_embeddings=d_emb,
+                                    **kw)
+    ref = model.forward_infer(ci, cl, 32, prenet_dropout=False, description_embeddings=d_emb, **kw)
+    if fast.n_frames != ref.n_frames or not torch.equal(fast.lengths, ref.lengths):
+        raise SmokeFailure("description kernel decode and plain decode disagree on frames")
+    check("decode_32_frames[descriptions]", [("mels_post", fast.mels_post, ref.mels_post),
+                                             ("gates", fast.gates, ref.gates),
+                                             ("alignments", fast.alignments, ref.alignments)],
+          DECODE_TOL, log)
+    blank = model.forward_infer_fast(ci, cl, 32, prenet_dropout=False,
+                                     description_embeddings=torch.zeros_like(d_emb), **kw)
+    apart = float((blank.mels - fast.mels).abs().max())
+    print(f"  the mels with the description against a blank one: {apart:.3e} apart (more than "
+          f"{10 * K1_CHUNK_TOL:g} wanted)")
+    if not apart > 10 * K1_CHUNK_TOL:
+        raise SmokeFailure(f"a description moves the mels by {apart:.3e} only")
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 21)
+    lengths = torch.tensor([L], dtype=torch.int32, device=dev)
+    padded = torch.tensor([L, L - PAD], dtype=torch.int32, device=dev)
+    pk, pk8 = model.make_packed_decoder(), model.make_packed_decoder(True)
+    D = model.cfg.encoded_full_dim
+    chunk_check(f"decode_chunk[1]@D{D}", pk, model, lengths, 1, g, log)
+    chunk_check(f"decode_chunk[4]@D{D}", pk, model, lengths, 4, g, log, True)
+    chunk_check(f"decode_chunk[4,pad]@D{D}", pk, model, padded, 4, g, log)
+    k5_check(f"int8_step@D{D}", pk8, model, lengths, 1, g, log, True)
+    k5_check(f"int8_chunk[4]@D{D}", pk8, model, lengths, 4, g, log)
+    k5_check(f"int8_chunk[4,pad]@D{D}", pk8, model, padded, 4, g, log)
+
+    # a 64-step chunk per step: D = 640 (bf16 and int8) beside the vanilla D = 512
+    vanilla = random_tacotron(load_config(str(ROOT / "config" / "vanilla-ljspeech-stop.json")),
+                              10.0).to(dev)
+    readings: dict = {}
+    for name, m, p in (("lstm_cell", model, pk), ("lstm_cell_int8", model, pk8),
+                       ("lstm_cell", vanilla, vanilla.make_packed_decoder()),
+                       ("lstm_cell_int8", vanilla, vanilla.make_packed_decoder(True))):
+        enc, att_enc, s = chunk_inputs(m, lengths, g)
+        m1, m2 = dl.prenet_masks(64, 1, m.cfg.prenet_dim, m.cfg.dropout, g, dev)
+        b_ms, b_by = decode_step_bound(p, 1, L)
+        r = readings.setdefault(name, {})[f"D{enc.shape[2]}"] = {
+            "D": enc.shape[2], "L": L, "B": 1,
+            "chunk_us_per_step": time_ms(lambda: dl.decode_chunk(p, enc, att_enc, lengths, s, m1,
+                                                                 m2), 5, 1) / 64 * 1e3,
+            "plain_us_per_step": time_ms(lambda: dl.decode_chunk_plain(p, enc, att_enc, lengths, s,
+                                                                       m1, m2), 2, 1) / 64 * 1e3,
+            "bound_us_per_step": b_ms * 1e3, "bound_by": b_by, "card": card}
+        print(f"  decode chunk ({'int8' if p.quantized else 'bf16'}, D={r['D']}, L={L}, B=1) per "
+              f"step: {r['chunk_us_per_step']:.1f} us, plain {r['plain_us_per_step']:.1f} us, "
+              f"bound {r['bound_us_per_step']:.2f} us ({b_by}) on {card}")
+    del model, vanilla
+    torch.cuda.empty_cache()
+    return launches, readings, {"say": runs, "description_vs_blank_mels": apart}
+
+
+def kept_gate_bias(g0, margin: float = EVAL_GATE_MARGIN, long: int = 32) -> tuple:
+    """``choose_gate_bias`` for a sweep: of the midpoints between two logits
+    at least ``margin`` apart, the bias that stops the most rows at a frame
+    in [``long``, T) (WAVs long enough for the prosody extractor), then in
+    (0, T), then at the most distinct frames. -> (the bias, the frame
+    counts it gives)"""
+    import numpy as np
+
+    from tacotron2_tpu_torch.run.test import gate_to_lengths
+
+    v = np.unique(g0)
+    best = None
+    for bias in [-(a + b) / 2 for a, b in zip(v[:-1], v[1:]) if b - a >= margin]:
+        n = gate_to_lengths((g0 + bias)[..., None])
+        inside = (n > 0) & (n < g0.shape[1])
+        score = (int((inside & (n >= long)).sum()), int(inside.sum()),
+                 len(set(n[inside].tolist())))
+        if best is None or score > best[0]:
+            best = (score, float(bias), n)
+    return best[1], best[2]
+
+
+def correlation_part(ctl: dict, g_path: str, root: Path, log: dict, card: str) -> tuple:
+    """``test_correlation`` through the CLI on ``ctl``'s controllable
+    checkpoint (4e's): a test manifest of TC_PER_SPEAKER rows of each of
+    its four voices, max_len TC_MAX_LEN, the gate's row as trained or
+    negated (the gate does not feed back) and its bias from
+    ``kept_gate_bias`` on a probe decode of every override (the gate's bias
+    at 10), whichever stops more rows, so that rows stop at the frames the
+    probes predict; K1 5 launches a step with the decoder cell and
+    the heads reading the controls at each, K2 one vocode a batch with kept
+    rows, one directory per override holding its kept rows' WAVs, and
+    ``correlations.csv`` by JAX's rules. -> (launches, the record)"""
+    import contextlib
+    import csv as csv_mod
+
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.audio.prosody import FEATURE_NAMES
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.convert import load_tacotron2_checkpoint, to_lightning
+    from tacotron2_tpu_torch.data.loader import collate
+    from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+    from tacotron2_tpu_torch.ops import encoder_lstm, mrf
+    from tacotron2_tpu_torch.run.say import load_tacotron
+    from tacotron2_tpu_torch.run.test_correlation import analyze_correlations, control_overrides
+    from tacotron2_tpu_torch.training.step import to_device
+
+    root.mkdir(parents=True, exist_ok=True)
+    rows = ctl["rows"]
+    head = rows[0].split("|")
+    spk_col = head.index("speaker_id")
+    chosen = [r for s in range(4) for r in [x for x in rows[1:]
+                                            if x.split("|")[spk_col] == str(s)][:TC_PER_SPEAKER]]
+    (root / "tc_test.csv").write_text("\n".join([rows[0]] + chosen) + "\n")
+    raw = json.loads(Path(ctl["cfg"]).read_text())
+    raw["dataset"]["test"] = str(root / "tc_test.csv")
+    tc_cfg = root / "tc.json"
+    tc_cfg.write_text(json.dumps(raw))
+    cfg = load_config(str(tc_cfg))
+    feats = list(cfg.extensions.controls.features)
+
+    # the probe: every override's decode with the gate's bias at 10 (no row
+    # stops) and the sweep's generator; the gate does not feed back, so these
+    # logits less 10 plus a bias are the sweep's own
+    dev = torch.device("cuda")
+    model = load_tacotron(cfg, ctl["ckpt"], dev)
+    with torch.no_grad():
+        model.decoder.gate.bias.fill_(10.0)
+    ds = manifest_dataset(cfg, read_manifest(str(root / "tc_test.csv")), str(ctl["speech"]),
+                          cache=False)
+    b = to_device(collate([ds[i] for i in range(len(ds))], bucket_chars=32), dev)
+    overrides = [str(o) for o in control_overrides(len(feats))]
+    best = None
+    # the gate's row as trained and negated (a trained row's logits may only
+    # rise from frame 0, so no bias stops it in range): the better of the two
+    for sign in (1.0, -1.0):
+        gates = []
+        for o in control_overrides(len(feats)):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            with torch.no_grad():
+                model.decoder.gate.weight.mul_(sign)
+            probe = model.forward_infer_fast(
+                b["chars_idx"], b["chars_len"], TC_MAX_LEN, generator=gen,
+                speaker_id=b["speaker_id"], controls=torch.tensor([list(o)] * len(ds), device=dev))
+            with torch.no_grad():
+                model.decoder.gate.weight.mul_(sign)
+            gates.append(probe.gates[..., 0].float().cpu().numpy() - 10.0)
+        bias, n = kept_gate_bias(np.concatenate(gates))
+        kept = (int(((n >= 32) & (n < TC_MAX_LEN)).sum()), int(((n > 0) & (n < TC_MAX_LEN)).sum()))
+        if best is None or kept > best[0]:
+            best = (kept, sign, bias, n.reshape(len(overrides), len(ds)))
+    _, sign, bias, want = best
+    sd, hp = load_tacotron2_checkpoint(ctl["ckpt"])
+    sd["decoder.gate.weight"] = sd["decoder.gate.weight"] * sign
+    sd["decoder.gate.bias"] = torch.full_like(sd["decoder.gate.bias"], bias)
+    ckpt = str(root / "tc.ckpt")
+    torch.save(to_lightning(sd, hp), ckpt)
+    del model
+    print(f"  test_correlation: {len(chosen)} rows of voices 0-3; the gate's row x {sign:g}, bias "
+          f"{bias:.6f} from probes of the {len(overrides)} overrides: "
+          f"{int(((want > 0) & (want < TC_MAX_LEN)).sum())} of {want.size} rows stop in range")
+
+    dl.reset_launches()
+    mrf.reset_launches()
+    encoder_lstm.reset_launches()
+    t0 = time.perf_counter()
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "test_correlation.log", "w") as f, contextlib.redirect_stdout(f):
+        res = cli(["test_correlation", "--config", str(tc_cfg), "--speech-dir",
+                   str(ctl["speech"]), "--checkpoint", ckpt, "--hifi-gan-checkpoint", g_path,
+                   "--results-dir", str(root / "tc"), "--max-len-override", str(TC_MAX_LEN)])
+    seconds = time.perf_counter() - t0
+    k1, ctl_l, k2 = dict(dl.LAUNCHES), dict(dl.CONTROLS_LAUNCHES), dict(mrf.LAUNCHES)
+    enc = encoder_lstm.LAUNCHES["bilstm_forward"]
+    got_n = np.array([res["overrides"][o]["lengths"] for o in overrides])
+    if not np.array_equal(got_n, want):
+        raise SmokeFailure(f"test_correlation: rows stopped at {got_n.tolist()}, the probes "
+                           f"predict {want.tolist()}")
+    batches = [bt for o in overrides for bt in res["overrides"][o]["batches"]]
+    steps = sum(min(-(-bt["decode_frames"] // 64) * 64, TC_MAX_LEN) for bt in batches)
+    vocodes = sum(1 for bt in batches if bt["vocoded"])
+    want_k1 = {"prenet": steps, "lstm_cell": 2 * steps, "location_attention": steps,
+               "heads": steps, "quantize_xh": 0, "lstm_cell_int8": 0}
+    want_ctl = {"lstm_cell": steps, "heads": steps, "quantize_xh": 0, "lstm_cell_int8": 0}
+    kept = sum(len(res["overrides"][o]["wavs"]) for o in overrides)
+    print(f"  test_correlation (its output in chiprun_out/test_correlation.log): "
+          f"{len(overrides)} overrides x {res['rows']} rows in {seconds:.1f} s "
+          f"(decode {res['decode_s']:.1f} s, vocode {res['vocode_s']:.1f} s), {kept} WAVs kept; "
+          f"K1 {k1} (reading the controls {ctl_l}), K2 {k2}, bilstm_forward {enc} on {card}")
+    if k1 != want_k1 or ctl_l != want_ctl or enc != len(batches):
+        raise SmokeFailure(f"test_correlation: K1 {k1}, controls {ctl_l}, encoder {enc}; want "
+                           f"{want_k1}, {want_ctl}, {len(batches)}")
+    check_vocode_launches(k2, vocodes, "test_correlation")
+    dirs = sorted(p.name for p in (root / "tc").iterdir() if p.is_dir())
+    if dirs != sorted(overrides) or not 0 < kept < len(overrides) * res["rows"]:
+        raise SmokeFailure(f"test_correlation: directories {dirs}, {kept} WAVs kept")
+    for o in overrides:
+        names = sorted(p.name for p in (root / "tc" / o).glob("*.wav"))
+        if names != sorted(f"{i}.wav" for i in res["overrides"][o]["wavs"]):
+            raise SmokeFailure(f"test_correlation {o}: WAVs {names}")
+    with open(res["correlations"], newline="") as f:
+        table = list(csv_mod.reader(f, delimiter="|"))
+    samples = {d: sum(len(res["overrides"][o]["wavs"]) for o, t in zip(
+        overrides, control_overrides(len(feats))) if sum(abs(v) > 1e-9 for v in t) == 0
+        or abs(t[d]) > 1e-9) for d in range(len(feats))}
+    body = table[1:]
+    named = [r[0] for r in body[::len(FEATURE_NAMES)]]
+    rules = (table[0] == ["control", "acoustic_feature", "pearson_r", "n"]
+             and len(body) % len(FEATURE_NAMES) == 0 and named == [f for f in feats if f in named]
+             and all([r[1] for r in body[i:i + len(FEATURE_NAMES)]] == FEATURE_NAMES
+                     for i in range(0, len(body), len(FEATURE_NAMES)))
+             and all((r[2] == "nan" or (-1.0 <= float(r[2]) <= 1.0 and int(r[3]) >= 3))
+                     and int(r[3]) <= samples[feats.index(r[0])] for r in body)
+             and all(samples[feats.index(f)] >= 3 for f in named))
+    again = (root / "tc" / "correlations.csv").read_bytes()
+    analyze_correlations(str(root / "tc"), feats)
+    if not rules or again != (root / "tc" / "correlations.csv").read_bytes():
+        raise SmokeFailure(f"correlations.csv breaks JAX's rules: {table[:3]}, samples {samples}")
+    print(f"  correlations.csv: {len(body)} rows for {named}, e.g. "
+          + "; ".join(f"{r[0]}/{r[1]} r={r[2]} n={r[3]}" for r in body[:3]))
+    out = {**k1, **k2, "bilstm_forward": enc, "lstm_cell[controls]": ctl_l["lstm_cell"],
+           "heads[controls]": ctl_l["heads"]}
+    return out, {"seconds": seconds, "rows": res["rows"], "kept": kept, "bias": bias,
+                 "decode_s": res["decode_s"], "vocode_s": res["vocode_s"], "steps": steps,
+                 "vocodes": vocodes, "correlation_rows": len(body), "card": card}
+
+
+def descriptions_phase(ctl: dict, g_path: str, log: dict, card: str) -> tuple:
+    """Phase 4h on ``ctl`` (4e's controllable run, for ``test_correlation``):
+    ``bert_part``, ``desc_train_part``, ``desc_say_part``,
+    ``correlation_part``; K3 / K4's shared-memory plan mirrored in
+    ``train_decode.att_smem_bytes`` against the library's. -> ({kernels-line
+    row: launches}, {kernels-line row: its readings at D = 640})"""
+    import torch
+
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    t_phase = time.perf_counter()
+    root = WORK / "descriptions"
+    root.mkdir(parents=True, exist_ok=True)
+    launches: dict = {}
+    res = log["descriptions"] = {"card": card}  # filled as the parts pass
+
+    def add(got: dict) -> None:
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    for L, S, D in ((160, 1, 640), (224, 1, 640), (256, 2, 640), (256, 1, 512), (96, 8, 640)):
+        lib = td.smem_bytes(L, S, 1024, 128, D, 31)
+        mine = {"att_fwd_cluster": td.att_smem_bytes(False, L, S, 1024, 128, D, 31),
+                "att_bwd_cluster": td.att_smem_bytes(True, L, S, 1024, 128, D, 31)}
+        if any(lib[k] != v for k, v in mine.items()):
+            raise SmokeFailure(f"att_smem_bytes {mine} != the library's {lib} at L={L}, S={S}")
+    print(f"  K3 / K4's attention shared memory: the mirror equals the library's; S at B=128: "
+          f"L=192 -> {td.attention_cluster(128, td._sms('cuda'), 192, 1024, 128, 640, 31)}, "
+          f"L=256 -> {td.attention_cluster(128, td._sms('cuda'), 256, 1024, 128, 640, 31)}")
+    bert_pt, _, speech, out_csv, res["bert"] = bert_part(root, log, card)
+    got, readings, res["train"] = desc_train_part(root, speech, out_csv, log, card)
+    add(got)
+    got, say_readings, res["say"] = desc_say_part(root, bert_pt, g_path, log, card)
+    add(got)
+    readings.update(say_readings)
+    got, res["test_correlation"] = correlation_part(ctl, g_path, root / "correlation", log, card)
+    add(got)
+    res["seconds"] = time.perf_counter() - t_phase
+    res["readings"] = readings
+    print(f"  phase 4h: {res['seconds']:.1f} s on {card}")
+    torch.cuda.empty_cache()
+    return launches, readings
+
+
+def descriptions_mode() -> int:
+    """``--descriptions``: the kernels' build and phase 4h alone, on a random
+    controllable checkpoint and a synthetic corpus in 4e's shapes in place
+    of 4e's run; details to ``chiprun_out/descriptions.json``."""
+    import torch
+
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build
+
+    card = card_line()
+    print(f"[4h] alone on {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    use_f32_math()
+    t0 = time.perf_counter()
+    build.build_all()
+    log: dict = {"card": card, "build_s": time.perf_counter() - t0}
+    launches, readings = {}, {}
+    try:
+        WORK.mkdir(parents=True, exist_ok=True)
+        ctl = _extras_source("train_controls", ROOT / "config" / CTL_CONFIG, 32, True)
+        launches, readings = descriptions_phase(ctl, write_hifigan(), log, card)
+        log["launches"] = launches
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    finally:
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "descriptions.json").write_text(json.dumps(log, indent=1, default=str))
+        shutil.rmtree(WORK, ignore_errors=True)
+    print(json.dumps({"launches": launches, "readings": readings}, default=str))
+    return 0
+
+
 def arg_value(flag: str, default: str) -> str:
     argv = sys.argv[1:]
     return argv[argv.index(flag) + 1] if flag in argv else default
@@ -5803,6 +6535,8 @@ def main() -> int:
         return eval_mode()
     if "--train-extras" in sys.argv[1:]:
         return train_extras_mode()
+    if "--descriptions" in sys.argv[1:]:
+        return descriptions_mode()
     log: dict = {}
     t_start = time.perf_counter()
     try:
@@ -5937,11 +6671,19 @@ def main() -> int:
                                                             log, card)
         for k, n in extra_launches.items():
             launches[k] = launches.get(k, 0) + n
+        print(f"[4h] description-conditioned speech ({DESC_CONFIG}, D = 640): BERT and "
+              "embed_descriptions, train and train --finetune, say --description "
+              "--bert-checkpoint, then test_correlation of 4e's checkpoint, through the CLI")
+        desc_launches, desc_readings = descriptions_phase(ctl_run, g_path, log, card)
+        for k, n in desc_launches.items():
+            launches[k] = launches.get(k, 0) + n
         for r in rows:
             if r["name"] == "teacher_forward":
                 r["export"] = k3_export
             if r["name"] in extra_readings:
                 r["finetune"] = extra_readings[r["name"]]
+            if r["name"] in desc_readings:
+                r["descriptions"] = desc_readings[r["name"]]
         if log.get("deferred"):
             raise SmokeFailure("; ".join(log["deferred"]))
 
@@ -5970,12 +6712,14 @@ def main() -> int:
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
         # the cells' and the attention's readings at other row counts ride along
         print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
-                                       **{k: r[k] for k in ("rows", "export", "finetune")
-                                          if k in r}}
+                                       **{k: r[k] for k in ("rows", "export", "finetune",
+                                                            "descriptions") if k in r}}
                                       for r in rows]}))
         print(card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke.json").write_text(json.dumps(log, indent=1, default=str))
         return 1
     finally:
         shutil.rmtree(WORK, ignore_errors=True)

@@ -3,7 +3,8 @@
     python -m tacotron2_tpu_torch say --config config/vanilla-ljspeech-stop.json \\
         --checkpoint X.ckpt [--hifi-gan-checkpoint DIR/g_xxx] \\
         --text "..." --out o.wav --random-seed 7 [--max-len-override N] \\
-        [--quantize-int8] [--speaker-id N] [--controls a,b,c,d,e] [--device cpu]
+        [--quantize-int8] [--speaker-id N] [--controls a,b,c,d,e] \\
+        [--description "a calm voice" --bert-checkpoint BERT] [--device cpu]
 
     python -m tacotron2_tpu_torch train --config C --speech-dir S --results-dir R \\
         [--resume-ckpt F] [--max-steps N] [--seed K] [--device cpu] \\
@@ -21,6 +22,12 @@
     python -m tacotron2_tpu_torch train_mel_export --config C --speech-dir S \\
         --checkpoint X.ckpt [--results-dir R] [--device cpu]
 
+    python -m tacotron2_tpu_torch test_correlation --config C --speech-dir S \\
+        --checkpoint X.ckpt [--hifi-gan-checkpoint G] [--analyze/--no-analyze] [--device cpu]
+
+    python -m tacotron2_tpu_torch embed_descriptions --csv M.csv --speech-dir S \\
+        --bert BERT [--out-csv O.csv] [--augmentations 2] [--batch-size 32] [--device cpu]
+
     python -m tacotron2_tpu_torch preprocess --dataset ljspeech|hifi-tts --speech-dir S \\
         [--out-dir D] [--out-postfix P] [--n-jobs 8] [--trim] [--trim-top-db 60]
 
@@ -30,7 +37,11 @@ The options mirror the JAX package's ``main.py`` commands of the same names
 by ``python -m tacotron2_tpu_torch.preprocessing.splits``): ``--speaker-id``
 picks a multi-speaker model's voice and ``--controls`` gives a controllable
 model its controls, one number per feature of the config's
-``extensions.controls``; checkpoints are the
+``extensions.controls``; ``--description`` a description model its style
+description, embedded by the local BERT of ``--bert-checkpoint`` (an
+HF-layout directory, or a state-dict file with ``vocab.txt`` beside it; the
+port never downloads), which ``embed_descriptions --bert`` takes too;
+checkpoints are the
 reference's Lightning ``.ckpt``
 (``train`` writes ``R/final.ckpt``, which ``say`` loads; ``train --finetune``
 ``R/finetuned.ckpt``; ``train_prosody`` ``R/prosody_final.ckpt``, which
@@ -38,7 +49,8 @@ reference's Lightning ``.ckpt``
 upstream HiFi-GAN ``g_*`` file with its ``config.json`` (Griffin-Lim
 without one). ``server``'s config is the JAX server's (``models``,
 ``batching``, ``warmup``). All run on the card unless ``--device cpu`` is
-given; ``preprocess`` runs on the host alone and takes no config.
+given; ``preprocess`` runs on the host alone and takes no config, and
+``embed_descriptions`` takes none either.
 """
 
 from __future__ import annotations
@@ -72,6 +84,11 @@ def _parser() -> argparse.ArgumentParser:
                    help="if controls are enabled, a comma-separated list of values to pass "
                         "into the model")
     s.add_argument("--export-mel", action="store_true", help=argparse.SUPPRESS)
+    s.add_argument("--description", default=None,
+                   help="a style description, for a model with description embeddings")
+    s.add_argument("--bert-checkpoint", default=None,
+                   help="local BERT weights that embed --description: an HF-layout directory "
+                        "or a state-dict file with vocab.txt beside it")
     s.add_argument("--device", default=None, help="cuda (default) or cpu")
 
     t = sub.add_parser("train", help="train a Tacotron 2 model")
@@ -133,6 +150,37 @@ def _parser() -> argparse.ArgumentParser:
     m.add_argument("--results-dir", default="results_mel_export", help="where the mels go")
     m.add_argument("--device", default=None, help="cuda (default) or cpu")
 
+    c = sub.add_parser("test_correlation",
+                       help="sweep each control over the test split and correlate it with the "
+                            "audio's prosody")
+    c.add_argument("--config", required=True, help="a Tacotron hyperparameter config file")
+    c.add_argument("--speech-dir", required=True, help="the directory the manifests' wav "
+                                                       "paths are relative to")
+    c.add_argument("--checkpoint", required=True, help="a trained Tacotron model checkpoint")
+    c.add_argument("--hifi-gan-checkpoint", default=None, help="a HiFi-GAN generator checkpoint")
+    c.add_argument("--analyze", action=argparse.BooleanOptionalAction, default=True,
+                   help="after the sweep, correlate control values with extracted acoustic "
+                        "features (correlations.csv)")
+    c.add_argument("--results-dir", default="results_correlation", help="where the sweep goes")
+    c.add_argument("--max-len-override", type=int, default=5000, help=argparse.SUPPRESS)
+    c.add_argument("--device", default=None, help="cuda (default) or cpu")
+
+    d = sub.add_parser("embed_descriptions",
+                       help="BERT embeddings of a manifest's descriptions, for training")
+    d.add_argument("--csv", required=True,
+                   help="a pipe-separated manifest with a 'description' text column")
+    d.add_argument("--speech-dir", required=True,
+                   help="the dataset root; embeddings go under description_embeddings/")
+    d.add_argument("--out-csv", default=None,
+                   help="the output manifest (default: <csv>-embedded.csv)")
+    d.add_argument("--bert", required=True,
+                   help="local BERT weights: an HF-layout directory or a state-dict file with "
+                        "vocab.txt beside it")
+    d.add_argument("--augmentations", type=int, default=0,
+                   help="token-dropout augmented variants per description")
+    d.add_argument("--batch-size", type=int, default=32)
+    d.add_argument("--device", default=None, help="cuda (default) or cpu")
+
     r = sub.add_parser("preprocess", help="a corpus -> manifests with prosody features")
     r.add_argument("--dataset", required=True, choices=("ljspeech", "hifi-tts"),
                    help="the name of a dataset to preprocess")
@@ -157,6 +205,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         postfix = args.out_postfix if args.out_postfix is not None else str(int(time.time()))
         return {"outputs": do_preprocess(args.speech_dir, args.out_dir, postfix, args.n_jobs,
                                          args.trim, args.trim_top_db)}
+    if args.command == "embed_descriptions":
+        from tacotron2_tpu_torch.run.embed_descriptions import do_embed_descriptions
+
+        return {"out_csv": do_embed_descriptions(
+            args.csv, args.speech_dir, out_csv=args.out_csv, bert=args.bert,
+            augmentations=args.augmentations, batch_size=args.batch_size, device=args.device)}
     from tacotron2_tpu_torch.config import config_from_dict
 
     with open(args.config) as f:
@@ -185,6 +239,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         return do_test(cfg, args.speech_dir, args.checkpoint, args.hifi_gan_checkpoint,
                        args.results_dir, args.batch_size, args.max_len_override, args.limit,
                        device=args.device)
+    if args.command == "test_correlation":
+        from tacotron2_tpu_torch.run.test_correlation import do_test_correlation
+
+        return do_test_correlation(cfg, args.speech_dir, args.checkpoint,
+                                   args.hifi_gan_checkpoint, args.results_dir,
+                                   max_len_override=args.max_len_override,
+                                   analyze=args.analyze, device=args.device)
     if args.command == "train_mel_export":
         from tacotron2_tpu_torch.run.train_mel_export import do_train_mel_export
 
@@ -197,7 +258,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                   random_seed=args.random_seed, max_len_override=args.max_len_override,
                   device=args.device, quantize_int8=args.quantize_int8,
                   speaker_id=args.speaker_id, controls=args.controls,
-                  export_mel=args.export_mel)
+                  export_mel=args.export_mel, description=args.description,
+                  bert_checkpoint=args.bert_checkpoint)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,9 @@
 - ``load_hifigan_checkpoint``: the upstream HiFi-GAN ``g_*`` file
   (``{"generator": state_dict}``) with its ``config.json`` beside it; weight
   norm (``weight_g``, ``weight_v``) is folded into plain weights at load.
+- ``load_bert``: BERT's weights and WordPiece vocabulary from local files
+  (JAX ``BertEmbedder.from_local``), safetensors read by ``read_safetensors``;
+  nothing is ever downloaded.
 
 Layouts, JAX -> torch: Linear (in, out) -> (out, in); Conv1d (W, I, O) ->
 (O, I, W); ConvTranspose1d (W, I, O) -> (I, O, W); LSTM (in, 4H) -> (4H, in),
@@ -79,11 +82,12 @@ def decoder_from_jax(dec: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 def from_jax_params(params: dict, state: Optional[dict]) -> Dict[str, torch.Tensor]:
     """JAX Tacotron 2 (params, state) -> the port's state_dict: the vanilla
-    configuration, its speaker embedding (``speaker_embedding.table``) and
-    its controls (the decoder LSTM's and the mel head's inputs widened by
-    them, whose JAX layouts map as the vanilla ones do). With ``state``
-    None the BatchNorm running statistics are left out, so a gradient tree
-    of the params' structure maps too."""
+    configuration, its speaker embedding (``speaker_embedding.table``), its
+    controls (the decoder LSTM's and the mel head's inputs widened by
+    them, whose JAX layouts map as the vanilla ones do) and its description
+    linear (``description_linear`` -> ``description_embeddings_linear.0``).
+    With ``state`` None the BatchNorm running statistics are left out, so a
+    gradient tree of the params' structure maps too."""
     sd: Dict[str, torch.Tensor] = {}
     enc = params["encoder"]
     sd["encoder.embedding.weight"] = _t(enc["embedding"]["table"])
@@ -98,6 +102,8 @@ def from_jax_params(params: dict, state: Optional[dict]) -> Dict[str, torch.Tens
     _linear(sd, "att_encoder", params["att_encoder"])
     if "speaker_embedding" in params:
         sd["speaker_embedding.weight"] = _t(params["speaker_embedding"]["table"])
+    if "description_linear" in params:
+        _linear(sd, "description_embeddings_linear.0", params["description_linear"])
     sd.update(decoder_from_jax(params["decoder"], "decoder."))
     post = params["postnet"]
     for i in range(len(post["convs"])):
@@ -194,3 +200,79 @@ def load_hifigan_checkpoint(path: str) -> Tuple[dict, Dict[str, Any]]:
     if "generator" in sd:
         sd = sd["generator"]
     return h, fold_weight_norm(sd)
+
+
+# the weights' types, and I64 for a checkpoint's position_ids buffer
+SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+                      "I64": torch.int64}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file -> its tensors on the CPU: an 8-byte
+    little-endian header length, a JSON header ({name: {dtype, shape,
+    data_offsets}}, "__metadata__"), then the raw little-endian buffers."""
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    n = int.from_bytes(data[:8], "little")
+    header = json.loads(data[8:8 + n].decode("utf-8"))
+    body = memoryview(data)[8 + n:]
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}, which the "
+                             f"reader does not take ({sorted(SAFETENSORS_DTYPES)})")
+        begin, end = info["data_offsets"]
+        dtype = SAFETENSORS_DTYPES[info["dtype"]]
+        t = (torch.frombuffer(bytearray(body[begin:end]), dtype=dtype) if end > begin
+             else torch.empty(0, dtype=dtype))
+        out[name] = t.reshape(info["shape"]).clone()
+    return out
+
+
+def load_bert(path: str):
+    """Local BERT weights -> (``models.bert.Bert`` in eval mode on the CPU,
+    ``text.wordpiece.WordPiece``). ``path`` is
+
+    - a directory in Hugging Face's layout: ``config.json`` (its
+      ``num_attention_heads`` and ``layer_norm_eps``), ``vocab.txt`` (with
+      ``tokenizer_config.json``'s lowercasing where there is one) and
+      ``model.safetensors`` or ``pytorch_model.bin``; or
+    - a torch state-dict file (``.pt`` / ``.bin``, a Lightning-style
+      ``{"state_dict": ...}`` wrapper too) with ``vocab.txt`` beside it.
+
+    Any other name raises: the port never downloads (JAX's ``resolve``
+    would fall back to ``from_pretrained``)."""
+    from tacotron2_tpu_torch.models.bert import bert_from_state_dict
+    from tacotron2_tpu_torch.text.wordpiece import WordPiece, load_vocab
+
+    if os.path.isdir(path):
+        conf = {}
+        if os.path.exists(os.path.join(path, "config.json")):
+            with open(os.path.join(path, "config.json")) as f:
+                conf = json.load(f)
+        st, bin_ = (os.path.join(path, n) for n in ("model.safetensors", "pytorch_model.bin"))
+        if os.path.exists(st):
+            sd = read_safetensors(st)
+        elif os.path.exists(bin_):
+            sd = torch.load(bin_, map_location="cpu", weights_only=True)
+        else:
+            raise FileNotFoundError(f"{path} holds neither model.safetensors nor "
+                                    "pytorch_model.bin")
+        model = bert_from_state_dict(sd, conf.get("num_attention_heads"),
+                                     conf.get("layer_norm_eps", 1e-12))
+        return model, WordPiece.from_dir(path)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"BERT weights {path!r} are not a local file or directory: the port reads local "
+            "files only and never downloads (give an HF-layout directory or a state-dict "
+            "file with vocab.txt beside it)")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd and "pooler.dense.weight" not in sd:
+        sd = sd["state_dict"]  # a Lightning-style wrapper
+    vocab = os.path.join(os.path.dirname(path) or ".", "vocab.txt")
+    if not os.path.exists(vocab):
+        raise FileNotFoundError(f"WordPiece vocab not found at {vocab}: place the BERT "
+                                "vocab.txt next to the state-dict file")
+    return bert_from_state_dict(sd), WordPiece(load_vocab(vocab))

@@ -31,7 +31,8 @@ def collate(items, bucket_chars: Optional[int] = None,
             bucket_frames: Optional[int] = None) -> Dict[str, np.ndarray]:
     """Dataset items -> chars_idx (B, L), chars_len (B,), mel (B, T, M),
     mel_len (B,), gate (B, T, 1), and where the items' metadata have them
-    speaker_id (B,) int64 and controls (B, C) f32 (their ``features``);
+    speaker_id (B,) int64, controls (B, C) f32 (their ``features``) and
+    description_embeddings (B, dim) f32;
     ``text`` and ``filename`` as lists where their third dicts have them."""
     data = [d for d, _, _ in items]
     meta = [m for _, m, _ in items]
@@ -53,6 +54,9 @@ def collate(items, bucket_chars: Optional[int] = None,
         batch["speaker_id"] = np.asarray([m["speaker_id"] for m in meta], np.int64)
     if "features" in meta[0]:
         batch["controls"] = np.stack([m["features"] for m in meta]).astype(np.float32)
+    if "description_embeddings" in meta[0]:
+        batch["description_embeddings"] = np.concatenate(
+            [m["description_embeddings"] for m in meta], axis=0).astype(np.float32)
     for key in ("text", "filename"):
         if key in extra[0]:
             batch[key] = [e[key] for e in extra]

@@ -6,7 +6,8 @@ there, the ``csv`` module here) and of the dataset arguments its commands
 build from a manifest: the ``wav`` and ``text`` columns, with speaker tokens
 the ``speaker_id`` column (int), with controls the config's
 ``extensions.controls.features`` columns (float; an empty field is NaN, as
-pandas reads it).
+pandas reads it), with description embeddings the paths that ``train``
+selects (``description_embedding`` column, an empty field None).
 """
 
 from __future__ import annotations
@@ -37,10 +38,16 @@ def _float(field: str) -> float:
 
 def manifest_dataset(cfg: Config, rows: List[Dict[str, str]], speech_dir: str,
                      cache: Optional[bool] = None, cache_dir: Optional[str] = None,
-                     include_text: bool = False, include_filename: bool = False) -> TTSDataset:
+                     include_text: bool = False, include_filename: bool = False,
+                     feature_override=None,
+                     descriptions: Optional[List[Optional[str]]] = None,
+                     description_augment: bool = False, seed: int = 0) -> TTSDataset:
     """The rows' dataset under the config's preprocessing; ``cache``
     overrides the config's (``test`` and ``train_mel_export`` make one pass
-    and cache nothing)."""
+    and cache nothing). ``descriptions``: each row's description-embedding
+    path or None (``train``'s selection), of the config's
+    ``description_embeddings_dim`` (768 where it is 0, as JAX's ``train``),
+    picked among their augmentations with ``description_augment``."""
     p, ext = cfg.dataset.preprocessing, cfg.extensions
     speakers = [int(r["speaker_id"]) for r in rows] if ext.speaker_tokens.active else None
     features = ([[_float(r[f]) for f in ext.controls.features] for r in rows]
@@ -53,4 +60,7 @@ def manifest_dataset(cfg: Config, rows: List[Dict[str, str]], speech_dir: str,
         expand_abbreviations=p.expand_abbreviations, num_mels=p.num_mels,
         cache=p.cache if cache is None else cache, cache_dir=cache_dir,
         sample_rate=p.sample_rate, include_text=include_text,
-        include_filename=include_filename)
+        include_filename=include_filename, feature_override=feature_override,
+        description_embeddings=descriptions,
+        description_embeddings_dim=cfg.model.description_embeddings_dim or 768,
+        description_embeddings_augment=description_augment, seed=seed)

@@ -1,10 +1,12 @@
 """Tacotron 2 top module and its free-running decodes.
 
 Counterpart of ``tacotron2_tpu/models/tacotron2.py`` for the vanilla
-configuration and its speaker tokens and controls (not description
-embeddings or GST): encoder -> speaker fusion tanh(encoded + speaker
-embedding) where the model has speaker tokens -> attention-memory
-projection -> prenet with AlwaysDropout (on at
+configuration, its speaker tokens, controls and description embeddings (not
+GST): encoder -> speaker fusion tanh(encoded + speaker embedding) where the
+model has speaker tokens -> a description model's memory widened by
+tanh(Linear(description, 128)) broadcast over the chars (D =
+``encoded_full_dim``) -> attention-memory projection -> prenet with
+AlwaysDropout (on at
 inference) -> free-running decode that stops once every row's gate logit is
 negative, the controls of a controllable model in its decoder LSTM's and
 mel head's inputs -> postnet residual -> length masking (mels -> 0, gates
@@ -18,7 +20,7 @@ or in its int8 mode kernel K5 for the LSTM cells (JAX
 ``forward_infer_fused(quantize=True)``), an approximate mode held to < 1%
 mean relative mel error and < 0.05 gate drift against ``forward_infer``.
 ``forward_teacher`` is training's teacher-forced pass (JAX
-``forward_teacher(dw_hoist=True)``), with speaker tokens and controls too:
+``forward_teacher(dw_hoist=True)``), with every conditioning above too:
 the decode runs as ``TeacherDecode``, kernels K3 and K4
 (``ops/train_decode.py``).
 """
@@ -39,6 +41,7 @@ from tacotron2_tpu_torch.models.postnet import Postnet
 from tacotron2_tpu_torch.ops import decoder_loop, train_decode
 
 GATE_MASK_VALUE = -1000.0
+DESCRIPTION_DIM = 128  # the description's columns of the memory (JAX tacotron2.py:71-75)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +60,14 @@ class Tacotron2Config:
     num_speakers: int = 1
     controls: bool = False
     controls_dim: int = 0
+    description_embeddings: bool = False
+    description_embeddings_dim: int = 0
+
+    @property
+    def encoded_full_dim(self) -> int:
+        """The attention memory's width D: the encoder's, widened by 128 with
+        description embeddings."""
+        return self.encoded_dim + (DESCRIPTION_DIM if self.description_embeddings else 0)
 
 
 class Tacotron2Output(NamedTuple):
@@ -84,23 +95,33 @@ class Tacotron2(nn.Module):
             self.speaker_embedding = nn.Embedding(c.num_speakers, c.encoded_dim)
             with torch.no_grad():  # the reference's init: N(0, 0.5)
                 self.speaker_embedding.weight.normal_(0.0, 0.5)
-        self.att_encoder = nn.Linear(c.encoded_dim, c.att_dim, bias=False)
+        if c.description_embeddings:  # the reference's name
+            self.description_embeddings_linear = nn.Sequential(
+                nn.Linear(c.description_embeddings_dim, DESCRIPTION_DIM), nn.Tanh())
+        self.att_encoder = nn.Linear(c.encoded_full_dim, c.att_dim, bias=False)
         self.decoder = decoder_mod.Decoder(
-            c.num_mels, c.encoded_dim, c.prenet_dim, c.att_rnn_dim, c.att_dim,
+            c.num_mels, c.encoded_full_dim, c.prenet_dim, c.att_rnn_dim, c.att_dim,
             c.rnn_hidden_dim, c.controls_dim)
         self.postnet = Postnet(c.num_mels, c.postnet_dim)
 
     # ------------------------------------------------------------------
     def _encode(self, chars_idx, chars_len, train: bool = False, generator=None,
-                rows: Optional[int] = None, speaker_id: Optional[torch.Tensor] = None):
+                rows: Optional[int] = None, speaker_id: Optional[torch.Tensor] = None,
+                description_embeddings: Optional[torch.Tensor] = None):
         """-> encoded (B, L, D), att_encoded (B, L, A), the padded chars'
         mask. ``rows``: run the encoder and its attention projection on
         this many rows (empty rows after the batch's, dropped after), so
         their products have one shape whatever B is. ``speaker_id`` (B,):
-        a multi-speaker model's voices, fused as tanh(encoded + embedding)
-        (JAX ``_encode``)."""
-        if self.cfg.speaker_tokens and speaker_id is None:
+        a multi-speaker model's voices, fused as tanh(encoded + embedding);
+        then ``description_embeddings`` (B, description_embeddings_dim): a
+        description model's tanh(Linear(.)) concatenated to every char
+        (JAX ``_encode``, in its order; a model without descriptions ignores
+        them, as JAX's does)."""
+        c = self.cfg
+        if c.speaker_tokens and speaker_id is None:
             raise ValueError("speaker_id tensor required when speaker tokens are active!")
+        if c.description_embeddings and description_embeddings is None:
+            raise ValueError("description tensor required when description tokens are active!")
         B = chars_idx.shape[0]
         ci, cl = chars_idx, chars_len
         if rows is not None and rows > B:
@@ -119,6 +140,16 @@ class Tacotron2(nn.Module):
             spk = torch.nn.functional.pad(spk, (0, ci.shape[0] - B)).to(ci.device,
                                                                        non_blocking=True)
             encoded = torch.tanh(encoded + self.speaker_embedding.weight[spk][:, None, :])
+        if c.description_embeddings:
+            desc = torch.as_tensor(description_embeddings).to(ci.device, torch.float32)
+            if tuple(desc.shape) != (B, c.description_embeddings_dim):
+                raise ValueError(f"want description embeddings of shape ({B}, "
+                                 f"{c.description_embeddings_dim}), got {tuple(desc.shape)}")
+            desc = torch.nn.functional.pad(desc, (0, 0, 0, ci.shape[0] - B))  # empty rows: 0
+            lin = self.description_embeddings_linear[0]
+            desc = torch.tanh(layers.linear(desc, lin.weight, lin.bias, self.policy))
+            encoded = torch.cat([encoded, desc[:, None, :].expand(-1, encoded.shape[1], -1)
+                                 .to(encoded.dtype)], dim=-1)
         att_encoded = layers.linear(encoded, self.att_encoder.weight, None, self.policy)
         encoded, att_encoded = encoded[:B], att_encoded[:B]
         char_pos = torch.arange(chars_idx.shape[1], device=chars_idx.device)
@@ -172,7 +203,9 @@ class Tacotron2(nn.Module):
                         generator: Optional[torch.Generator] = None,
                         lstm_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                         speaker_id: Optional[torch.Tensor] = None,
-                        controls: Optional[torch.Tensor] = None) -> Tacotron2Output:
+                        controls: Optional[torch.Tensor] = None,
+                        description_embeddings: Optional[torch.Tensor] = None
+                        ) -> Tacotron2Output:
         """Teacher-forced pass over the ground-truth mel (B, T, M): encode
         (with the speaker fusion of a multi-speaker model) -> prenet over the
         mel shifted by one frame (AlwaysDropout, on in train and eval as in
@@ -181,9 +214,10 @@ class Tacotron2(nn.Module):
         by ``mel_len``. ``train``: BatchNorm on batch statistics, dropout in
         the encoder and postnet, LSTM dropout (keep 0.9). Dropout bits come
         from ``generator``; ``lstm_masks`` (T, B, H) x 2 replaces the LSTM's
-        (the tests inject JAX's). ``speaker_id`` (B,) and ``controls`` (B,
-        controls_dim): each row's voice and controls (JAX
-        ``forward_teacher``'s)."""
+        (the tests inject JAX's). ``speaker_id`` (B,), ``controls`` (B,
+        controls_dim) and ``description_embeddings`` (B,
+        description_embeddings_dim): each row's voice, controls and
+        description (JAX ``forward_teacher``'s)."""
         c = self.cfg
         if c.att_rnn_dim != c.rnn_hidden_dim:
             raise ValueError("the teacher-forced decode needs att_rnn_dim == rnn_hidden_dim")
@@ -193,7 +227,8 @@ class Tacotron2(nn.Module):
         if controls is not None:
             controls = controls.to(device=dev, dtype=torch.float32)
         encoded, att_encoded, _ = self._encode(chars_idx, chars_len, train, generator,
-                                               speaker_id=speaker_id)
+                                               speaker_id=speaker_id,
+                                               description_embeddings=description_embeddings)
         decoder_in = self.teacher_decoder_in(mel, generator)
         if lstm_masks is None:
             if train:
@@ -216,12 +251,14 @@ class Tacotron2(nn.Module):
                       prenet_dropout: bool = True,
                       masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                       speaker_id: Optional[torch.Tensor] = None,
-                      controls: Optional[torch.Tensor] = None) -> Tacotron2Output:
+                      controls: Optional[torch.Tensor] = None,
+                      description_embeddings: Optional[torch.Tensor] = None) -> Tacotron2Output:
         """Reference decode: one step at a time, stop after the step where
         every row's gate has fired. Masks are drawn in 64-frame chunks in
         the same order as ``forward_infer_fast``, so one generator state
-        gives both the same audio. ``speaker_id`` (B,) and ``controls`` (B,
-        controls_dim): a multi-speaker and a controllable model's, each row
+        gives both the same audio. ``speaker_id`` (B,), ``controls`` (B,
+        controls_dim) and ``description_embeddings`` (B, dim): a
+        multi-speaker, a controllable and a description model's, each row
         its own."""
         c = self.cfg
         B, L = chars_idx.shape
@@ -229,8 +266,9 @@ class Tacotron2(nn.Module):
         self._check_controls(controls, B)
         if controls is not None:
             controls = controls.to(device=dev, dtype=torch.float32)
-        encoded, att_encoded, mask = self._encode(chars_idx, chars_len, speaker_id=speaker_id)
-        state = decoder_mod.init_state(B, L, c.att_rnn_dim, c.encoded_dim,
+        encoded, att_encoded, mask = self._encode(chars_idx, chars_len, speaker_id=speaker_id,
+                                                  description_embeddings=description_embeddings)
+        state = decoder_mod.init_state(B, L, c.att_rnn_dim, c.encoded_full_dim,
                                        c.rnn_hidden_dim, dev)
         mels = torch.zeros(B, max_len, c.num_mels, device=dev)
         gates = torch.full((B, max_len), GATE_MASK_VALUE, device=dev)
@@ -272,7 +310,9 @@ class Tacotron2(nn.Module):
                            row_generators: Optional[Sequence[torch.Generator]] = None,
                            encode_rows: Optional[int] = None,
                            speaker_id: Optional[torch.Tensor] = None,
-                           controls: Optional[torch.Tensor] = None) -> Tacotron2Output:
+                           controls: Optional[torch.Tensor] = None,
+                           description_embeddings: Optional[torch.Tensor] = None
+                           ) -> Tacotron2Output:
         """Production decode through kernel K1 (``ops/decoder_loop.py``), or
         through K5 for an int8 pack: the kernels on the card, their plain
         versions on the CPU. ``quantize``: pack the decoder int8 for this
@@ -284,13 +324,16 @@ class Tacotron2(nn.Module):
         the rows the encoder runs (``_encode``'s ``rows``): a server that
         passes its largest window makes a row's encoding the same in every
         window (bf16 products of another shape may sum in another order).
-        ``speaker_id`` (B,) and ``controls`` (B, controls_dim): each row's
-        voice and controls, for a multi-speaker and a controllable model
-        (the controls go through the controls rows of K1 or K5)."""
+        ``speaker_id`` (B,), ``controls`` (B, controls_dim) and
+        ``description_embeddings`` (B, dim): each row's voice, controls and
+        description, for a multi-speaker, a controllable and a description
+        model (the controls go through the controls rows of K1 or K5; a
+        description widens the memory the kernels read by 128 columns)."""
         c = self.cfg
         self._check_controls(controls, chars_idx.shape[0])
         encoded, att_encoded, _ = self._encode(chars_idx, chars_len, rows=encode_rows,
-                                               speaker_id=speaker_id)
+                                               speaker_id=speaker_id,
+                                               description_embeddings=description_embeddings)
         pk = packed if packed is not None else self.make_packed_decoder(quantize)
         mels, gates, aligns, lengths, n_frames = decoder_loop.decode(
             pk, encoded.to(pk.wq.dtype).contiguous(), att_encoded.contiguous(),

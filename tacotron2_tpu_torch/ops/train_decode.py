@@ -31,7 +31,7 @@ with its LSTM epilogue) and ``teacher_backward`` another
 (``t2_teacher_backward``, 4 + 4 launches a step); each wrapper adds its own
 launches to ``LAUNCHES``, and those of a call with controls also to
 ``CONTROLS_LAUNCHES`` (the controls add no launch). Both run the attention
-of a step on a cluster of ``cluster_size`` blocks per batch row. Their plain
+of a step on a cluster of ``attention_cluster`` blocks per batch row. Their plain
 versions below are the definition: same operand
 rounding (bf16 operands, f32 sums, bf16 residual and dg stacks), used for
 CPU tensors and as what the kernels are held against on the card. The plain
@@ -114,6 +114,40 @@ def cluster_size(B: int, sms: int) -> int:
     while s > 1 and B * s > sms:
         s //= 2
     return s
+
+
+CL_THREADS = 512  # csrc/decode_common.cuh kClThreads: a cluster attention block's threads
+SMEM_LIMIT = 227 * 1024  # the dynamic shared memory one Hopper block may opt in to
+
+
+def att_smem_bytes(bwd: bool, L: int, S: int, H: int, A: int, D: int, K: int) -> int:
+    """The dynamic shared memory of K3's (``bwd`` False) or K4's cluster
+    attention block: ``csrc/decode_common.cuh::att_smem``, mirrored (each
+    array rounded up to 4 floats). A rank holds its ceil(L / S) chars' slice,
+    so at S = 1 K4's grows by ~784 bytes a char and passes ``SMEM_LIMIT``
+    past L = 216 (H = 1024, A = 128, K = 31)."""
+    up4 = lambda n: (n + 3) & ~3
+    ch4 = up4(-(-L // S))
+    arrays = [2 * K * A, H, A, A, 2 * (ch4 + K - 1) + 4, ch4, 4]
+    if bwd:
+        NG = CL_THREADS // A
+        arrays += [(ch4 + K - 1) * A, ch4, D, NG * A, NG * A, A, A, A,
+                   max(2 * K * A, ch4 * A // 2)]
+    else:
+        arrays += [(A // 4) * ch4, D]
+    return 4 * sum(up4(n) for n in arrays)
+
+
+def attention_cluster(B: int, sms: int, L: int, H: int, A: int, D: int, K: int) -> int:
+    """K3's and K4's cluster size S: ``cluster_size``'s (one wave), doubled
+    while K4's attention block at S would need more than ``SMEM_LIMIT`` of
+    shared memory (long texts at many rows: S = 1, B = 128's, takes L <= 216
+    at the configs' widths; a larger S runs the rows in more than one
+    wave)."""
+    S = cluster_size(B, sms)
+    while S < MAX_CLUSTER and att_smem_bytes(True, L, S, H, A, D, K) > SMEM_LIMIT:
+        S *= 2
+    return S
 
 
 def _sms(device) -> int:
@@ -422,7 +456,7 @@ def teacher_forward(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1,
     ):
         build.require(t, dt, shape, name)
     dev = decoder_in.device
-    S = cluster_size(B, _sms(dev))
+    S = attention_cluster(B, _sms(dev), L, H, A, D, K)
     check_cluster_dims(S, H, A, D, K)
     e = lambda *s, dtype=f32: torch.empty(*s, device=dev, dtype=dtype)
     mel_gate = e(T, B, N)
@@ -482,7 +516,7 @@ def teacher_backward(w: TrainWeights, res: Residuals, encoded, att_enc, lengths,
         build.require(t, dt, shape, name)
     SX = _splits(4 * H)
     dev = encoded.device
-    S = cluster_size(B, _sms(dev))
+    S = attention_cluster(B, _sms(dev), L, H, A, D, K)
     check_cluster_dims(S, H, A, D, K)
     e = lambda *s, dtype=f32: torch.empty(*s, device=dev, dtype=dtype)
     zr = lambda *s: torch.zeros(*s, device=dev)

@@ -1,10 +1,12 @@
 """``say``: text -> WAV on the port.
 
 Counterpart of ``run/say.py`` of the JAX package (and its helpers in
-``run/common.py``) for the vanilla configuration and its speaker tokens and
-controls (``--speaker-id``, ``--controls``; not GST or description
-embeddings): text frontend (no abbreviation expansion) -> encoder (fused
-with the speaker's embedding) -> free-running decode through kernel K1 (or,
+``run/common.py``) for the vanilla configuration, its speaker tokens,
+controls and description embeddings (``--speaker-id``, ``--controls``,
+``--description`` with ``--bert-checkpoint``; not GST): text frontend (no
+abbreviation expansion) -> encoder (fused with the speaker's embedding, the
+memory widened by the description's BERT pooler embedding, zeros without a
+description) -> free-running decode through kernel K1 (or,
 with ``--quantize-int8``, K5 for the int8 LSTM cells), the controls through
 their rows of the decoder cell and the heads, with early stop
 -> postnet -> cut at the first fired gate -> HiFi-GAN over a 128-frame
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import secrets
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,18 +42,21 @@ from tacotron2_tpu_torch.text.encoder import CharEncoder
 
 MAX_LEN = 5000  # frames cap
 VOCODE_BUCKET = 128  # vocoder input frames are a multiple of this
+NO_BERT = ("--description needs --bert-checkpoint (a local BERT directory or state-dict file): "
+           "the port never downloads BERT")
 
 
 def model_config_from(cfg: Config) -> Tacotron2Config:
-    """The model of a config: vanilla, with speaker tokens and with controls
-    (JAX ``run/common.py::model_config_from``). GST and description
-    embeddings raise: they wait for their auxiliary models (ROADMAP A6,
-    A7)."""
+    """The model of a config: vanilla, with speaker tokens, controls and
+    description embeddings (JAX ``run/common.py::model_config_from``). GST
+    raises: its reference encoder is not ported yet (ROADMAP A6, then A7's
+    ``--gst-reference``)."""
     ext = cfg.extensions
-    if ext.gst.active or cfg.model.description_embeddings:
+    if ext.gst.active:
         raise NotImplementedError(
-            "the port runs the vanilla configuration and its speaker tokens and controls; GST "
-            "and description embeddings are not ported yet (ROADMAP A6, A7)")
+            "GST is not ported yet: its reference encoder waits in ROADMAP A6 and "
+            "--gst-reference in A7; the port runs the vanilla configuration, speaker tokens, "
+            "controls and description embeddings")
     m = cfg.model
     return Tacotron2Config(
         num_chars=cfg.num_chars, encoded_dim=m.encoded_dim,
@@ -61,7 +66,41 @@ def model_config_from(cfg: Config) -> Tacotron2Config:
         postnet_dim=m.postnet_dim, dropout=m.dropout,
         speaker_tokens=ext.speaker_tokens.active, num_speakers=ext.speaker_tokens.num_speakers,
         controls=ext.controls.active, controls_dim=cfg.controls_dim,
+        description_embeddings=m.description_embeddings,
+        description_embeddings_dim=m.description_embeddings_dim,
     )
+
+
+def refuse_descriptions(cfg: Config, command: str) -> None:
+    """Raise for a description model in a command whose JAX counterpart
+    passes no description embeddings to the model (``server``, ``test``,
+    ``train_mel_export``): JAX's fails deep in ``_encode``; the port stops
+    at start and says why."""
+    if cfg.model.description_embeddings:
+        raise NotImplementedError(
+            f"{command} takes no description model: its JAX counterpart passes no description "
+            "embeddings to the model there (only say --description and train do)")
+
+
+def description_embedding(cfg: Config, description: Optional[str],
+                          bert_checkpoint: Optional[str], device) -> Tuple[torch.Tensor, float]:
+    """A description model's (1, dim) embedding of ``description`` (JAX
+    ``bert_description_embedding``): BERT's pooler output on ``device`` from
+    the local weights of ``bert_checkpoint``, zeros without a description;
+    -> (the embedding, the host seconds of BERT's encode, ending in a
+    device sync)."""
+    dim = cfg.model.description_embeddings_dim
+    if description is None:
+        return torch.zeros(1, dim), 0.0
+    if bert_checkpoint is None:
+        raise ValueError(NO_BERT)
+    from tacotron2_tpu_torch.run.embed_descriptions import BertEmbedder
+
+    embedder = BertEmbedder.from_local(bert_checkpoint, device)
+    _sync(embedder.device)
+    t0 = time.perf_counter()
+    emb = torch.as_tensor(embedder.embed([description]))
+    return emb, time.perf_counter() - t0
 
 
 def conditioning(cfg: Config, speaker_id: Optional[int] = None,
@@ -162,7 +201,8 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
            random_seed: Optional[int] = None, max_len_override: int = MAX_LEN,
            device: Optional[str] = None, quantize_int8: bool = False,
            speaker_id: Optional[int] = None, controls: Optional[str] = None,
-           export_mel: bool = False) -> dict:
+           export_mel: bool = False, description: Optional[str] = None,
+           bert_checkpoint: Optional[str] = None) -> dict:
     """Synthesize ``text`` into ``output``; returns what ran and how long
     each phase took on the host clock (each phase ends in a device sync).
     ``quantize_int8``: decode with int8 LSTM weights (kernel K5), the JAX
@@ -170,11 +210,22 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
     ``controls``: the voice of a multi-speaker model and the controls of a
     controllable one (``conditioning``). Without a HiFi-GAN checkpoint the
     mel goes through Griffin-Lim. ``export_mel``: also save the vocoded mel,
-    (M, cut), with ``np.save(output, ...)``, so ``o.wav`` gives ``o.wav.npy``."""
+    (M, cut), with ``np.save(output, ...)``, so ``o.wav`` gives ``o.wav.npy``.
+    ``description`` and ``bert_checkpoint``: a description model's style
+    text and the local BERT that embeds it (``description_embedding``); a
+    model without description embeddings ignores them, as JAX's ``say``
+    does."""
     cond = conditioning(cfg, speaker_id, controls)
+    with_desc = cfg.model.description_embeddings
+    if with_desc and description is not None and bert_checkpoint is None:
+        raise ValueError(NO_BERT)  # before anything loads
     dev = resolve_device(device)
     if dev.type == "cuda":
         use_f32_math()
+    bert_s = 0.0
+    if with_desc:
+        cond["description_embeddings"], bert_s = description_embedding(
+            cfg, description, bert_checkpoint, dev)
     prep = cfg.dataset.preprocessing
     if random_seed is None:
         random_seed = secrets.randbelow(2**31)
@@ -215,6 +266,7 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
         "quantize_int8": quantize_int8, "vocoder": "griffin_lim" if hifigan is None else "hifigan",
         "speaker_id": speaker_id if "speaker_id" in cond else None,
         "controls": cond["controls"][0].tolist() if "controls" in cond else None,
+        "description": description if with_desc else None, "bert_s": bert_s,
         "decode_s": t1 - t0, "vocode_s": t2 - t1, "say_s": t2 - t0,
         "audio_s": len(wav) / prep.sample_rate,
     }

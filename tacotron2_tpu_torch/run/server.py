@@ -31,9 +31,11 @@ Two modes:
 
 ``http.server.ThreadingHTTPServer`` answers each connection on a thread of
 its own; ``/generate`` blocks that thread on the request's future.
-Multi-device serving (``mesh``), GST and description embeddings are not
-ported: a mesh, or an entry whose config has GST or description
-embeddings, raises at start. A request is checked against its model
+Multi-device serving (``mesh``) and GST are not ported: a mesh, or an
+entry whose config has GST, raises at start. So does an entry of a
+description model: JAX's server passes no description embeddings (a
+request carries no description), so such an entry fails every request
+there. A request is checked against its model
 (``validate_request``, the JAX ``_validate_request``): a 400 for controls
 of another count, or for a model without controls, and for a voice out of
 range, or nonzero for a single-speaker model.
@@ -68,8 +70,8 @@ from tacotron2_tpu_torch.models.layers import resolve_device, use_f32_math
 from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
 from tacotron2_tpu_torch.ops.decoder_loop import PackedDecoder
 from tacotron2_tpu_torch.run.say import (MAX_LEN, cut_vocode, griffin_lim_vocode, load_hifigan,
-                                         load_tacotron, model_config_from, vocode_bucket,
-                                         vocoder_policy)
+                                         load_tacotron, model_config_from, refuse_descriptions,
+                                         vocode_bucket, vocoder_policy)
 from tacotron2_tpu_torch.text.cleaners import normalize_text
 from tacotron2_tpu_torch.text.encoder import CharEncoder
 
@@ -107,8 +109,11 @@ def _pow2(n: int) -> int:
 class ModelRegistry:
     def __init__(self, entries: List[Dict[str, Any]], device: Optional[str] = None):
         for e in entries:
-            try:  # GST and description embeddings are not ported: refuse at start
-                model_config_from(load_config(e["config"]))
+            try:  # GST (not ported) and description models (JAX's server passes no
+                # description) are refused at start
+                cfg = load_config(e["config"])
+                model_config_from(cfg)
+                refuse_descriptions(cfg, "the server")
             except NotImplementedError as exc:
                 raise NotImplementedError(f"model {e.get('name')!r}: {exc}") from None
             except Exception:

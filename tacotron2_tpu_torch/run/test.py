@@ -9,7 +9,8 @@ row count -> each row's frame count ``n``, the first frame whose gate logit
 is negative -> the rows with 0 < n < max_len vocoded together in one
 HiFi-GAN call (kernel K2), each cut at its ``n`` frames, and written as
 ``{row}.wav`` of n x 256 samples; without a HiFi-GAN checkpoint,
-Griffin-Lim a row. A row whose gate fires at frame 0 or never, or whose
+Griffin-Lim a row. A description model is refused at start: JAX's ``test``
+passes no description embeddings. A row whose gate fires at frame 0 or never, or whose
 Griffin-Lim raises, is a failure: ``failures.csv`` gets ``row|text``. An
 error of the HiFi-GAN call raises.
 
@@ -35,8 +36,8 @@ from tacotron2_tpu_torch.data.loader import TTSDataLoader
 from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest, select_rows
 from tacotron2_tpu_torch.models.layers import resolve_device, use_f32_math
 from tacotron2_tpu_torch.run.say import (MAX_LEN, _sync, cut_vocode, griffin_lim_vocode,
-                                         load_hifigan, load_tacotron, vocode_bucket,
-                                         vocoder_policy)
+                                         load_hifigan, load_tacotron, refuse_descriptions,
+                                         vocode_bucket, vocoder_policy)
 from tacotron2_tpu_torch.training.step import to_device
 
 
@@ -47,6 +48,36 @@ def gate_to_lengths(gates: np.ndarray) -> np.ndarray:
     return np.where(fired.any(axis=1), fired.argmax(axis=1), gates.shape[1])
 
 
+def write_rows(hifigan, mels_post, ns, kept, sr: int, out_dir: str, first: int,
+               gl_failures: bool = True) -> list:
+    """Rows ``kept`` of ``mels_post`` (B, T, M), row b cut at ``ns[b]``
+    frames, as ``out_dir/{first + b}.wav`` of ns[b] x 256 samples: the rows
+    through one HiFi-GAN call (``cut_vocode`` over one bucket; its errors, a
+    kernel that fails to build or launch or a CUDA fault, raise), or without
+    a vocoder Griffin-Lim a row. -> the rows whose Griffin-Lim raised: a
+    failure of ``test`` (JAX's ``test`` catches them); without
+    ``gl_failures`` the error raises."""
+    bad = []
+    if hifigan is None:
+        for b in kept:
+            try:
+                wav = griffin_lim_vocode(mels_post[b, :ns[b]], sr).cpu().numpy()
+            except Exception as e:
+                if not gl_failures:
+                    raise
+                print(f"Griffin-Lim of row {first + b} raised {e!r}")
+                bad.append(b)
+                continue
+            write_wav(path.join(out_dir, f"{first + b}.wav"), wav[:ns[b] * 256], sr)
+    elif kept:
+        cuts = [ns[b] for b in kept]
+        wavs = cut_vocode(hifigan, mels_post, kept, cuts,
+                          vocode_bucket(hifigan, max(cuts))).cpu().numpy()
+        for b, wav in zip(kept, wavs):
+            write_wav(path.join(out_dir, f"{first + b}.wav"), wav[:ns[b] * 256], sr)
+    return bad
+
+
 def do_test(cfg: Config, speech_dir: str, checkpoint: str,
             hifi_gan_checkpoint: Optional[str] = None, results_dir: str = "results_test",
             batch_size: int = 8, max_len_override: int = MAX_LEN, limit: Optional[int] = None,
@@ -55,6 +86,7 @@ def do_test(cfg: Config, speech_dir: str, checkpoint: str,
     rows, each row's ``n``, the failures, and per batch its shape, executed
     decode frames and the host-clock seconds of its decode and its vocode
     (each ends in a device sync)."""
+    refuse_descriptions(cfg, "test")
     dev = resolve_device(device)
     if dev.type == "cuda":
         use_f32_math()
@@ -85,25 +117,7 @@ def do_test(cfg: Config, speech_dir: str, checkpoint: str,
         texts = batch["text"]
         kept = [b for b, n in enumerate(ns) if 0 < n < max_len_override]
         bad = [b for b in range(len(ns)) if b not in kept]
-        if hifigan is None:
-            for b in kept:
-                # as JAX's ``test``: a row whose Griffin-Lim raises on
-                # degenerate input is a failure
-                try:
-                    wav = griffin_lim_vocode(out.mels_post[b, :ns[b]], sr).cpu().numpy()
-                except Exception as e:
-                    print(f"test: Griffin-Lim of row {i + b} raised {e!r}")
-                    bad.append(b)
-                    continue
-                write_wav(path.join(results_dir, f"{i + b}.wav"), wav[:ns[b] * 256], sr)
-        elif kept:
-            # the kept rows share one HiFi-GAN call; its errors (a kernel that
-            # fails to build or launch, a CUDA fault) raise
-            cuts = [ns[b] for b in kept]
-            wavs = cut_vocode(hifigan, out.mels_post, kept, cuts,
-                              vocode_bucket(hifigan, max(cuts))).cpu().numpy()
-            for b, wav in zip(kept, wavs):
-                write_wav(path.join(results_dir, f"{i + b}.wav"), wav[:ns[b] * 256], sr)
+        bad += write_rows(hifigan, out.mels_post, ns, kept, sr, results_dir, i)
         t2 = time.perf_counter()
         failures += [(i + b, texts[b]) for b in sorted(bad)]
         lengths += ns

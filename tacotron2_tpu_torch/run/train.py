@@ -1,11 +1,12 @@
 """``train``: the port's training driver.
 
 Counterpart of ``run/train.py::do_train`` of the JAX package for the
-vanilla configuration, its speaker tokens and controls, and the
-prosody-model configs: pipe-separated manifests (with ``force_speaker``
-their rows of that speaker only) -> datasets with the manifests'
-``speaker_id`` column and the config's ``extensions.controls.features``
-columns, and loaders (chars bucketed to 32, frames to 128) -> a new model
+vanilla configuration, its speaker tokens, controls and description
+embeddings, and the prosody-model configs: pipe-separated manifests (with
+``force_speaker`` their rows of that speaker only) -> datasets with the
+manifests' ``speaker_id`` column, the config's
+``extensions.controls.features`` columns and the description embeddings
+that ``select_descriptions`` picks, and loaders (chars bucketed to 32, frames to 128) -> a new model
 from ``--seed`` or the weights of ``--resume-ckpt`` -> Adam + MultiStepLR
 (milestones at the config's fractions of ``max_steps``), restored with the
 step on resume -> the loop, logging every ``LOG_EVERY`` steps with the
@@ -31,18 +32,18 @@ The prosody-model configs (``extensions.prosody_model.active``, JAX
 With ``TACOTRON2_TRACE_DIR`` set the loop runs under ``device_trace``
 (``utils/profiling.py``), as JAX's does.
 
-Not ported: description embeddings and GST (``train`` refuses their
-configs, ``check_trainable``), multi-device training and the device
-prefetcher.
+Not ported: GST (``train`` refuses its configs, ``check_trainable``),
+multi-device training and the device prefetcher.
 """
 
 from __future__ import annotations
 
+import csv
 import datetime
 import os
 import time
 from os import path
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -77,18 +78,47 @@ def _endless(loader) -> Iterator[Dict[str, np.ndarray]]:
 
 
 def check_trainable(cfg: Config, prosody_model_checkpoint: Optional[str] = None) -> None:
-    """Raise for a config the port cannot train: GST and description
-    embeddings need their auxiliary models (ROADMAP A6, A7); the prosody
-    model's style loss needs its predictor's checkpoint."""
+    """Raise for a config the port cannot train: GST needs its reference
+    encoder (``model_config_from``); the prosody model's style loss needs
+    its predictor's checkpoint."""
     ext = cfg.extensions
-    if ext.gst.active or cfg.model.description_embeddings:
-        raise NotImplementedError(
-            "the port trains the vanilla configuration, its speaker tokens and controls and "
-            "the prosody model's style loss; GST and description embeddings come after their "
-            "auxiliary models (ROADMAP A6, A7)")
+    model_config_from(cfg)
     if ext.prosody_model.active and prosody_model_checkpoint is None:
         raise ValueError("Prosody model extension is active, but no prosody model checkpoint "
                          "was given!")
+
+
+def _augmented_ids(speech_dir: str) -> set:
+    """The first column of ``<speech_dir>/augmented_ids.csv`` (no header)."""
+    with open(path.join(speech_dir, "augmented_ids.csv"), newline="") as f:
+        return {r[0] for r in csv.reader(f) if r}
+
+
+def select_descriptions(cfg: Config, train_rows: List[dict], val_rows: List[dict],
+                        speech_dir: str, finetune: bool) -> tuple:
+    """JAX :111-129 -> (train rows, their description paths, the val rows'
+    paths, augment). A finetuneable config's finetune keeps the train rows
+    whose ``id`` is in ``augmented_ids.csv`` and picks among their
+    augmentations; its pretraining reads blank embeddings (zeros); else the
+    manifests' ``description_embedding`` column (an empty field: zeros).
+    Paths are None without ``extensions.descriptions.bert_embeddings``."""
+    d = cfg.extensions.descriptions
+    augment = d.finetuneable and finetune
+    if augment:
+        ids = _augmented_ids(speech_dir)
+        train_rows = [r for r in train_rows if r["id"] in ids]
+    if not d.bert_embeddings:
+        return train_rows, None, None, augment
+
+    def column(rows):
+        if rows and "description_embedding" not in rows[0]:
+            raise ValueError("the manifest has no description_embedding column: make it with "
+                             "python -m tacotron2_tpu_torch embed_descriptions")
+        return [r["description_embedding"] or None for r in rows]
+
+    if not d.finetuneable or finetune:
+        return train_rows, column(train_rows), column(val_rows), augment
+    return train_rows, [None] * len(train_rows), [None] * len(val_rows), augment
 
 
 def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Optional[str] = None,
@@ -122,10 +152,13 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
         lr /= 10
         interval = 1.0
         batch_size *= 2
-    train_set = manifest_dataset(cfg, select_rows(cfg, read_manifest(cfg.dataset.train)),
-                                 speech_dir, cache_dir=cache_dir)
-    val_set = manifest_dataset(cfg, select_rows(cfg, read_manifest(cfg.dataset.val)),
-                               speech_dir, cache_dir=cache_dir)
+    val_rows = select_rows(cfg, read_manifest(cfg.dataset.val))
+    train_rows, desc_train, desc_val, augment = select_descriptions(
+        cfg, select_rows(cfg, read_manifest(cfg.dataset.train)), val_rows, speech_dir, finetune)
+    train_set = manifest_dataset(cfg, train_rows, speech_dir, cache_dir=cache_dir,
+                                 descriptions=desc_train, description_augment=augment, seed=seed)
+    val_set = manifest_dataset(cfg, val_rows, speech_dir, cache_dir=cache_dir,
+                               descriptions=desc_val)
     train_loader = TTSDataLoader(train_set, batch_size=batch_size, shuffle=True, drop_last=True,
                                  seed=seed, bucket_chars=32, bucket_frames=128)
     val_loader = TTSDataLoader(val_set, batch_size=VAL_BATCH, shuffle=False, drop_last=False,

@@ -9,6 +9,8 @@ under ``torch.no_grad``: the teacher-forced decode is kernel K3 alone ->
 ``mels_post[b, :mel_len]`` as ``results_dir/<basename>.npy``, the ``.wav``
 of the file name replaced (a ``.flac`` row keeps its name and gets ``.npy``
 added, as ``np.save`` does). These are the mels a HiFi-GAN is fine-tuned on.
+A description model is refused at start: JAX's export passes no description
+embeddings.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from tacotron2_tpu_torch.config import Config
 from tacotron2_tpu_torch.data.loader import TTSDataLoader
 from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest
 from tacotron2_tpu_torch.models.layers import resolve_device, use_f32_math
-from tacotron2_tpu_torch.run.say import _sync, load_tacotron
+from tacotron2_tpu_torch.run.say import _sync, load_tacotron, refuse_descriptions
 from tacotron2_tpu_torch.training.step import to_device
 
 
@@ -35,6 +37,7 @@ def do_train_mel_export(cfg: Config, speech_dir: str, checkpoint: str,
     """Export the mels; returns per split the files written and per batch
     its shape and the host-clock seconds of its forward (ending in the
     copy to the host)."""
+    refuse_descriptions(cfg, "train_mel_export")
     dev = resolve_device(device)
     if dev.type == "cuda":
         use_f32_math()

@@ -3,8 +3,8 @@
 Counterpart of ``tacotron2_tpu/training/step.py`` (``build_train_step``,
 ``make_eval_step``): teacher-forced forward, loss = BCE(gate) + MSE(mel) +
 MSE(mel_post), backward (the decode's through kernel K4), clip 1.0, Adam,
-MultiStepLR; a batch's ``speaker_id`` and ``controls`` go to the model,
-as in the JAX steps. The metrics keep the JAX names; ``grad_norm`` is the global
+MultiStepLR; a batch's ``speaker_id``, ``controls`` and
+``description_embeddings`` go to the model, as in the JAX steps. The metrics keep the JAX names; ``grad_norm`` is the global
 norm before clipping over every gradient, those of parameters the optimizer
 does not hold (finetuning's frozen ones) included. With ``style`` (the
 prosody-model configs' second phase, JAX ``build_train_step(prosody=...)``)
@@ -26,8 +26,8 @@ from tacotron2_tpu_torch.training.losses import prosody_style_loss, tacotron2_lo
 from tacotron2_tpu_torch.training.optimizer import apply_gradients
 
 BATCH_KEYS = ("chars_idx", "chars_len", "mel", "mel_len", "gate")
-# a multi-speaker and a controllable model's batches also carry these
-CONDITIONING_KEYS = ("speaker_id", "controls")
+# a multi-speaker, a controllable and a description model's batches also carry these
+CONDITIONING_KEYS = ("speaker_id", "controls", "description_embeddings")
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -44,7 +44,8 @@ def _forward_loss(model, batch, train: bool, generator, lstm_masks, style=None):
     out = model.forward_teacher(batch["chars_idx"], batch["chars_len"], batch["mel"],
                                 batch["mel_len"], train=train, generator=generator,
                                 lstm_masks=lstm_masks, speaker_id=batch.get("speaker_id"),
-                                controls=batch.get("controls"))
+                                controls=batch.get("controls"),
+                                description_embeddings=batch.get("description_embeddings"))
     loss, metrics = tacotron2_loss(out.mels, out.mels_post, out.gates, batch["mel"],
                                    batch["gate"])
     if style is not None:

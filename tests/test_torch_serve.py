@@ -455,9 +455,10 @@ def test_extension_entries_load_and_serve(files, extension, serve, tmp_path):
 
 @pytest.mark.parametrize("extension", ["gst", "descriptions"])
 def test_unported_extension_entries_are_refused(files, extension, tmp_path, monkeypatch):
-    """An entry whose config has GST or description embeddings (not
-    ported: their auxiliary models, ROADMAP A6, A7) stops the server at
-    start."""
+    """An entry whose config has GST (not ported: its reference encoder,
+    ROADMAP A6) or description embeddings (JAX's server passes no
+    description, so such an entry would fail every request) stops the
+    server at start, with a message that says which."""
     monkeypatch.chdir(tmp_path)
     config = copy.deepcopy(files)
     raw = json.loads(open(config["models"][0]["config"]).read())
@@ -468,5 +469,6 @@ def test_unported_extension_entries_are_refused(files, extension, tmp_path, monk
     cfg_path = tmp_path / f"{extension}.json"
     cfg_path.write_text(json.dumps(raw))
     config["models"][0]["config"] = str(cfg_path)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    match = "GST is not ported yet" if extension == "gst" else "passes no description"
+    with pytest.raises(NotImplementedError, match=match):
         srv.App(config, device="cpu")
