@@ -3498,10 +3498,11 @@ def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log
     desc = ({"description_embeddings": batch["description_embeddings"]}
             if "description_embeddings" in batch else {})
 
-    def encoder():
+    def encoder():  # a GST model's style of the batch's mel in train mode, as the step's
         with torch.enable_grad():
+            gst = model.gst_embedding(B, batch["mel"], True)
             enc, att_enc, _ = model._encode(batch["chars_idx"], batch["chars_len"], True, gen,
-                                            speaker_id=spk, **desc)
+                                            speaker_id=spk, **desc, gst_embedding=gst)
             (enc.sum() + att_enc.sum()).backward()
         return enc.detach(), att_enc.detach()
 
@@ -4292,7 +4293,7 @@ def serve_split(registry) -> dict:
 
     split = {}
     for idx in (0, 1):
-        cfg, model, hifigan, packed, _ = registry.load(idx)
+        cfg, model, hifigan, packed, *_ = registry.load(idx)
         prep = cfg.dataset.preprocessing
         dev = next(model.parameters()).device
         for B in (16, 64):
@@ -4338,7 +4339,7 @@ def serve_checks(registry, log: dict) -> dict:
 
     pcm = {}
     for idx, B in ((0, 16), (1, 16), (0, 64)):
-        cfg, model, hifigan, packed, _ = registry.load(idx)
+        cfg, model, hifigan, packed, *_ = registry.load(idx)
         prep = cfg.dataset.preprocessing
         dev = next(model.parameters()).device
         ci, cl = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch(
@@ -4642,7 +4643,7 @@ def eval_test(tag: str, cfg_file: Path, speech: Path, probe_ckpt: str, g_path: s
     want_k1 = {"prenet": steps, "lstm_cell": 2 * steps, "location_attention": steps,
                "heads": steps, "quantize_xh": 0, "lstm_cell_int8": 0}
     want_ctl = ({"lstm_cell": steps, "heads": steps, "quantize_xh": 0, "lstm_cell_int8": 0}
-                if tag else {k: 0 for k in ctl})
+                if cfg.controls_dim else {k: 0 for k in ctl})
     print(f"  test{tag} launches: K1 {k1} (of them reading the controls {ctl}), K2 {k2}, "
           f"bilstm_forward {enc}; {steps} decode steps, {len(calls)} vocodes")
     if k1 != want_k1 or ctl != want_ctl:
@@ -4682,7 +4683,7 @@ def eval_test(tag: str, cfg_file: Path, speech: Path, probe_ckpt: str, g_path: s
                               "failures": fails, "batches": batches, "k1": k1, "controls": ctl,
                               "k2": k2, "bilstm_forward": enc}
     out = {**k1, **k2, "bilstm_forward": enc}
-    if tag:
+    if cfg.controls_dim:
         out = {"lstm_cell[controls]": ctl["lstm_cell"], "heads[controls]": ctl["heads"], **out}
     return out
 
@@ -4739,7 +4740,8 @@ def eval_export(tag: str, cfg_file: Path, speech: Path, ckpt: str, root: Path, l
     if k34 != want or enc != {"bilstm_forward": len(batches), "bilstm_backward": 0}:
         raise SmokeFailure(f"train_mel_export{tag}: launches {k34}, encoder {enc}; want {want}, "
                            f"one bilstm_forward a batch ({len(batches)})")
-    if tag and ctl != want:
+    mode = "[controls]" if cfg.controls_dim else ""
+    if mode and ctl != want:
         raise SmokeFailure(f"train_mel_export{tag}: K3 launches of the controls mode {ctl}, "
                            f"want {want}")
     first = batches[0]
@@ -4782,7 +4784,6 @@ def eval_export(tag: str, cfg_file: Path, speech: Path, ckpt: str, root: Path, l
     T, B, L = din.shape[0], din.shape[1], enc_b.shape[1]
     mg_k, res_k = td.teacher_forward(*fwd_args)
     mg_p, res_p = td.teacher_forward_plain(*fwd_args)
-    mode = "[controls]" if tag else ""
     check(f"teacher_forward@export{tag},B{B},L{L},T{T}",
           [("mel_gate", mg_k, mg_p)]
           + [(f, getattr(res_k, f), getattr(res_p, f)) for f in td.Residuals._fields],
@@ -6087,7 +6088,8 @@ def kept_gate_bias(g0, margin: float = EVAL_GATE_MARGIN, long: int = 32) -> tupl
     return best[1], best[2]
 
 
-def correlation_part(ctl: dict, g_path: str, root: Path, log: dict, card: str) -> tuple:
+def correlation_part(ctl: dict, g_path: str, root: Path, log: dict, card: str,
+                     log_name: str = "test_correlation.log") -> tuple:
     """``test_correlation`` through the CLI on ``ctl``'s controllable
     checkpoint (4e's): a test manifest of TC_PER_SPEAKER rows of each of
     its four voices, max_len TC_MAX_LEN, the gate's row as trained or
@@ -6097,7 +6099,8 @@ def correlation_part(ctl: dict, g_path: str, root: Path, log: dict, card: str) -
     probes predict; K1 5 launches a step with the decoder cell and
     the heads reading the controls at each, K2 one vocode a batch with kept
     rows, one directory per override holding its kept rows' WAVs, and
-    ``correlations.csv`` by JAX's rules. -> (launches, the record)"""
+    ``correlations.csv`` by JAX's rules; its output to ``chiprun_out/<log_name>``.
+    -> (launches, the record)"""
     import contextlib
     import csv as csv_mod
 
@@ -6177,7 +6180,7 @@ def correlation_part(ctl: dict, g_path: str, root: Path, log: dict, card: str) -
     encoder_lstm.reset_launches()
     t0 = time.perf_counter()
     OUT_DIR.mkdir(exist_ok=True)
-    with open(OUT_DIR / "test_correlation.log", "w") as f, contextlib.redirect_stdout(f):
+    with open(OUT_DIR / log_name, "w") as f, contextlib.redirect_stdout(f):
         res = cli(["test_correlation", "--config", str(tc_cfg), "--speech-dir",
                    str(ctl["speech"]), "--checkpoint", ckpt, "--hifi-gan-checkpoint", g_path,
                    "--results-dir", str(root / "tc"), "--max-len-override", str(TC_MAX_LEN)])
@@ -6195,7 +6198,7 @@ def correlation_part(ctl: dict, g_path: str, root: Path, log: dict, card: str) -
                "heads": steps, "quantize_xh": 0, "lstm_cell_int8": 0}
     want_ctl = {"lstm_cell": steps, "heads": steps, "quantize_xh": 0, "lstm_cell_int8": 0}
     kept = sum(len(res["overrides"][o]["wavs"]) for o in overrides)
-    print(f"  test_correlation (its output in chiprun_out/test_correlation.log): "
+    print(f"  test_correlation (its output in chiprun_out/{log_name}): "
           f"{len(overrides)} overrides x {res['rows']} rows in {seconds:.1f} s "
           f"(decode {res['decode_s']:.1f} s, vocode {res['vocode_s']:.1f} s), {kept} WAVs kept; "
           f"K1 {k1} (reading the controls {ctl_l}), K2 {k2}, bilstm_forward {enc} on {card}")
@@ -6310,6 +6313,586 @@ def descriptions_mode() -> int:
         (OUT_DIR / "descriptions.json").write_text(json.dumps(log, indent=1, default=str))
         shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"launches": launches, "readings": readings}, default=str))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: Global Style Tokens (GST_BASE with extensions.gst)
+
+GST_BASE = "vanilla-lj-hifi-stop.json"  # 4 voices, 16-mixed, batch 64: D = 512 + 256 = 768
+GST_EXT = {"active": True, "token_embedding_size": 256}
+GST_TRAIN_STEPS = 3
+# attention mass on padded chars of a teacher-forced batch (alignment_metrics):
+# K3 masks them, so any mass there is a fault
+GST_PAD_MASS = 1e-6
+# the GST's style (one reference) on the card against the same weights on
+# the CPU, relative to its max: f32 sums in another order (cuDNN's convs,
+# cuBLAS); under bf16 a sum a last bit apart flips the next operand's
+# rounding (2^-8): tests/test_torch_gst.py bounds bf16 against JAX at 1.3e-2
+GST_TOL = {"32-true": 1e-4, "16-mixed": 2e-2}
+GST_SPEAKER = 2
+GST_SERVE_LSB = 0  # a served request batched against alone (serve_controls_phase's reading)
+GST_TEST_ROWS = 16  # test's rows of 4e's corpus
+GST_EXPORT_ROWS = (16, 8)  # train_mel_export's train and val rows
+
+
+def gst_raw(base: str = GST_BASE) -> dict:
+    """``base``'s config with ``extensions.gst`` active (no config in config/
+    has it)."""
+    raw = json.loads((ROOT / "config" / base).read_text())
+    raw.setdefault("extensions", {})["gst"] = dict(GST_EXT)
+    return raw
+
+
+def catch_first(module, name: str) -> tuple:
+    """Wrap ``module.name`` so that its first call's arguments are kept ->
+    (the dict that will hold them under "args", a call that restores it)."""
+    fn, held = getattr(module, name), {}
+
+    def wrapped(*a):
+        held.setdefault("args", a)
+        return fn(*a)
+
+    setattr(module, name, wrapped)
+    return held, lambda: setattr(module, name, fn)
+
+
+def gst_train_part(root: Path, ctl: dict, log: dict, card: str) -> tuple:
+    """``train`` of the GST config (GST_TRAIN_STEPS steps at its batch of 64)
+    on 4e's corpus (128 WAVs of voices 0-3; 4f's lj-hifi manifests hold 114
+    train rows, fewer than the finetune's 128), then ``train --finetune`` at
+    B=128, through the CLI. Holds: finite losses; K3 / K4 at launches per
+    step x T; ``bilstm_backward`` once a step and on its first inputs
+    against its plain version; the style tokens and every GST BatchNorm's
+    statistics moved from the seed's init; the teacher-forced alignments'
+    pad mass (``utils/diagnostics.py``) under GST_PAD_MASS; the finetune's
+    ``encoder.*`` / ``speaker_embedding.*`` bit for bit and every other
+    parameter moved (``finetune_run``), the GST's statistics too; K3 / K4 at
+    D = 768 against their plain versions at both batches. -> (launches,
+    readings, the record, the finetuned checkpoint, the train config)"""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.convert import load_tacotron2_checkpoint
+    from tacotron2_tpu_torch.data.loader import collate
+    from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest
+    from tacotron2_tpu_torch.models.layers import Policy
+    from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
+    from tacotron2_tpu_torch.ops import train_decode as td
+    from tacotron2_tpu_torch.run.say import load_tacotron, model_config_from
+    from tacotron2_tpu_torch.training.step import to_device
+    from tacotron2_tpu_torch.utils.diagnostics import alignment_metrics
+
+    raw = gst_raw()
+    B = raw["training"]["batch_size"]
+    root.mkdir(parents=True, exist_ok=True)
+    cfg_train = train_setup(root, raw, ctl["rows"], 32)
+    cfg = load_config(str(cfg_train))
+    held, restore = catch_first(el, "bilstm_backward")
+    try:
+        td.reset_launches()
+        el.reset_launches()
+        t0 = time.perf_counter()
+        run = cli(["train", "--config", str(cfg_train), "--speech-dir", str(ctl["speech"]),
+                   "--seed", str(SEED), "--results-dir", str(root / "train"), "--max-steps",
+                   str(GST_TRAIN_STEPS)])
+        train_s = time.perf_counter() - t0
+    finally:
+        restore()
+    k34, enc = dict(td.LAUNCHES), dict(el.LAUNCHES)
+    want, losses = _want_k34(run), [s["loss"] for s in run["steps"]]
+    print(f"  train: {len(run['steps'])} steps at B={run['steps'][0]['rows']}, losses "
+          f"{[round(x, 4) for x in losses]}, decode frames "
+          f"{[s['decode_frames'] for s in run['steps']]}, {train_s:.1f} s; K3/K4 {k34}, "
+          f"encoder {enc} on {card}")
+    if (k34 != want or enc["bilstm_backward"] != len(run["steps"])
+            or not all(math.isfinite(x) for x in losses) or len(losses) != GST_TRAIN_STEPS):
+        raise SmokeFailure(f"GST train: K3/K4 {k34} (want {want}), encoder {enc}, losses "
+                           f"{losses}")
+    a = held["args"]
+    check(f"bilstm_backward[gst@B{a[0].shape[1]},T{a[0].shape[2]}]",
+          [("dg", el.bilstm_backward(*a), el.bilstm_backward_plain(*a))], ENC_TOL, log,
+          "bilstm_backward", own=True)
+    del held, a
+
+    torch.manual_seed(SEED)  # do_train's init from --seed
+    init = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision)
+                     ).state_dict()
+    trained = load_tacotron2_checkpoint(run["checkpoint"])[0]
+    gst_keys = [k for k in trained if k.startswith("gst.")]
+    stats = [k for k in gst_keys if k.endswith(("running_mean", "running_var"))]
+    unmoved = [k for k in ["gst.stl.embed"] + stats if torch.equal(init[k], trained[k])]
+    print(f"  train: {len(gst_keys)} GST tensors; the style tokens moved by "
+          f"{float((trained['gst.stl.embed'] - init['gst.stl.embed']).abs().max()):.3e}, the "
+          f"{len(stats)} BatchNorm statistics by up to "
+          f"{max(float((trained[k] - init[k]).abs().max()) for k in stats):.3e}")
+    if unmoved or len(stats) != 12:
+        raise SmokeFailure(f"GST train: {unmoved} did not move ({len(stats)} statistics)")
+
+    dev = torch.device("cuda")
+    model = load_tacotron(cfg, run["checkpoint"], dev)
+    ds = manifest_dataset(cfg, read_manifest(cfg.dataset.train)[:B], str(ctl["speech"]),
+                          cache=False)
+    b = to_device(collate([ds[i] for i in range(B)], 32, 128), dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    with torch.no_grad():
+        out = model.forward_teacher(b["chars_idx"], b["chars_len"], b["mel"], b["mel_len"],
+                                    train=False, generator=gen, speaker_id=b["speaker_id"])
+    health = alignment_metrics(out.alignments.float().cpu().numpy(), b["chars_len"].cpu().numpy(),
+                               b["mel_len"].cpu().numpy())
+    print(f"  a teacher-forced batch of the trained GST model (B={B}, L="
+          f"{b['chars_idx'].shape[1]}, T={b['mel'].shape[1]}): {health} (pad mass under "
+          f"{GST_PAD_MASS:g} wanted)")
+    if not health["pad_mass"] < GST_PAD_MASS:
+        raise SmokeFailure(f"GST: attention mass {health['pad_mass']:.3e} on padded chars")
+    del model, out, b
+
+    readings: dict = {}
+    for name, r in train_split(str(cfg_train), run["checkpoint"], ctl["speech"], root, B, log,
+                               tag="[gst]", readings=True, split=False)["kernels"].items():
+        readings.setdefault(name, {})[f"B{B}"] = {**r, "card": card}
+    src = {"cfg": str(cfg_train), "ckpt": run["checkpoint"], "speech": ctl["speech"]}
+    t0 = time.perf_counter()
+    ft, k34f, encf = finetune_run("[gst]", src, root / "ft", ("encoder.", "speaker_embedding."),
+                                  False)
+    ft_s = time.perf_counter() - t0
+    tuned = load_tacotron2_checkpoint(ft["checkpoint"])[0]
+    still = [k for k in stats if torch.equal(trained[k], tuned[k])]
+    if still:
+        raise SmokeFailure(f"GST finetune: the BatchNorm statistics {still} did not move")
+    print(f"  finetune: the GST's {len(stats)} BatchNorm statistics moved too ({ft_s:.1f} s)")
+    for name, r in train_split(str(cfg_train), ft["checkpoint"], ctl["speech"], root, 2 * B,
+                               log, tag="[gst,finetune]", readings=True,
+                               split=False)["kernels"].items():
+        readings.setdefault(name, {})[f"B{2 * B}"] = {**r, "card": card}
+    ms = lambda r: float(np.median([1e3 * s["s"] for s in r["steps"][1:]]))
+    rec = {"train": {"steps": run["steps"], "ms_median": ms(run), "seconds": train_s,
+                     "launches": {**k34, **enc}, "alignment": health},
+           "finetune": {"steps": ft["steps"], "ms_median": ms(ft), "seconds": ft_s,
+                        "launches": {**k34f, **encf}}, "card": card}
+    print(f"  train {rec['train']['ms_median']:.1f} ms/step at B={B}, finetune "
+          f"{rec['finetune']['ms_median']:.1f} ms/step at B={2 * B} (host clock, medians of "
+          f"steps 2-) on {card}")
+    launches: dict = {}
+    for got in (k34, enc, k34f, encf):
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    return launches, readings, rec, ft["checkpoint"], cfg_train
+
+
+def gst_say_part(root: Path, g_path: str, log: dict, card: str) -> tuple:
+    """``say --speaker-id`` of random full-width GST weights (gate forced:
+    256 frames; the style's attention sharpened, W_query x 32, and its value
+    widened, W_value x 4, so that a reference reaches the audio), with and
+    without ``--gst-reference`` (a synthetic 22,050 Hz WAV), bf16 then int8,
+    the counters read around each: 5 / 7 launches a step and one vocode. The
+    encoder's forward on the say's own inputs against its plain version;
+    the style on the card against the same weights on the CPU (GST_TOL, f32
+    and bf16); the kernel decode against the plain one over 32 frames; a
+    reference's mels against the neutral ones; K1 and K5 at D = 768 against
+    their plain versions; the chunk's time a step beside the vanilla
+    D = 512's. -> (launches, readings, the record, the config, the
+    checkpoint)"""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.audio.io import read_wav, write_wav
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.convert import to_lightning
+    from tacotron2_tpu_torch.models.layers import F32
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
+    from tacotron2_tpu_torch.ops import mrf
+    from tacotron2_tpu_torch.run.say import gst_reference_mel, load_tacotron
+    from tacotron2_tpu_torch.text import CharEncoder, normalize_text
+
+    cfg_path = root / "gst.json"
+    cfg_path.write_text(json.dumps(gst_raw()))
+    cfg = load_config(str(cfg_path))
+    m = random_tacotron(cfg, 10.0)
+    with torch.no_grad():
+        m.gst.stl.attention.W_query.weight.mul_(32.0)
+        m.gst.stl.attention.W_value.weight.mul_(4.0)
+    ckpt = str(root / "gst-random.ckpt")
+    torch.save(to_lightning(m.state_dict()), ckpt)
+    del m
+    ref = str(root / "reference.wav")
+    write_wav(ref, _speechlike(22050, 190.0, 2.5, SEED), 22050)
+    text, out = TRAIN_TEXTS[2], str(root / "say.wav")
+    say = lambda quant, with_ref: cli(
+        ["say", "--config", str(cfg_path), "--checkpoint", ckpt, "--hifi-gan-checkpoint", g_path,
+         "--text", text, "--out", out, "--random-seed", str(SEED), "--max-len-override", "256",
+         "--speaker-id", str(GST_SPEAKER)] + (["--gst-reference", ref] if with_ref else [])
+        + (["--quantize-int8"] if quant else []))
+    say(False, True)  # warm-up
+    launches: dict = {}
+    runs, wavs = {}, {}
+    for quant in (False, True):
+        for with_ref in (False, True):
+            mode = ("int8" if quant else "bf16") + (", reference" if with_ref else ", neutral")
+            dl.reset_launches()
+            mrf.reset_launches()
+            el.reset_launches()
+            held, restore = catch_first(el, "bilstm_forward")
+            try:
+                res = say(quant, with_ref)
+            finally:
+                restore()
+            got = {**dl.LAUNCHES, **mrf.LAUNCHES, **el.LAUNCHES}
+            cell, other = (("lstm_cell_int8", "lstm_cell") if quant
+                           else ("lstm_cell", "lstm_cell_int8"))
+            want = {"prenet": 256, cell: 512, other: 0, "location_attention": 256, "heads": 256,
+                    "quantize_xh": 512 if quant else 0, "bilstm_forward": 1}
+            print(f"  say --speaker-id {GST_SPEAKER} ({mode}): {res['n_frames']} frames, "
+                  f"decode {res['decode_s'] * 1e3:.1f} ms, RTF {res['say_s'] / res['audio_s']:.4f}"
+                  f"; launches {got} on {card}")
+            if res["n_frames"] != 256 or {k: got[k] for k in want} != want or (
+                    res["gst_reference"] is None) == with_ref:
+                raise SmokeFailure(f"GST {mode} say: {res}, launches {got}, want {want}")
+            check_vocode_launches(got, 1, f"GST {mode} say")
+            wav, _ = read_wav(out)
+            if (len(wav) != res["cut"] * 256 or not np.isfinite(wav).all()
+                    or not np.abs(wav).max() > 0):
+                raise SmokeFailure(f"bad GST wav: {len(wav)} samples for cut {res['cut']}")
+            if not quant and with_ref:
+                a = held["args"]
+                check(f"bilstm_forward[gst say@B{a[0].shape[1]},T{a[0].shape[2]}]",
+                      list(zip(("hs", "cs", "act"), el.bilstm_forward(*a),
+                               el.bilstm_forward_plain(*a))), ENC_TOL, log, "bilstm_forward")
+            del held
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            wavs[mode] = wav
+            runs[mode] = {"run": res, "launches": got, "rtf": res["say_s"] / res["audio_s"],
+                          "decode_us_per_step": res["decode_s"] / res["n_frames"] * 1e6,
+                          "card": card}
+    apart = {q: float(np.abs(wavs[f"{q}, reference"] - wavs[f"{q}, neutral"]).max())
+             for q in ("bf16", "int8")}
+    print(f"  the reference's audio against the neutral one's (max abs): {apart}")
+    if not min(apart.values()) > 0:
+        raise SmokeFailure(f"--gst-reference did not reach the audio: {apart}")
+
+    dev = torch.device("cuda")
+    model, cpu = load_tacotron(cfg, ckpt, dev), load_tacotron(cfg, ckpt, torch.device("cpu"))
+    ref_mel = gst_reference_mel(cfg, ref)
+    style = {}
+    for policy, tol in GST_TOL.items():
+        pol = model.policy if policy == "16-mixed" else F32
+        for what, mel in (("reference", ref_mel), ("neutral", None)):
+            if mel is None:
+                card_s, cpu_s = model.gst.neutral(pol), cpu.gst.neutral(pol)
+            else:
+                card_s, cpu_s = model.gst(mel.to(dev), policy=pol), cpu.gst(mel, policy=pol)
+            e = float((card_s.cpu() - cpu_s).abs().max() / cpu_s.abs().max())
+            style[f"{what}, {policy}"] = {"rel_err": e, "tol": tol,
+                                          "max": float(cpu_s.abs().max())}
+            print(f"  the GST's {what} style under {policy}, card against CPU: rel {e:.3e} (tol "
+                  f"{tol:g}, max |style| {float(cpu_s.abs().max()):.4f})")
+            if not e <= tol:
+                raise SmokeFailure(f"the GST's {what} style under {policy}: card and CPU "
+                                   f"{e:.3e} apart (tol {tol:g})")
+    prep = cfg.dataset.preprocessing
+    ci, cl = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch(
+        [normalize_text(text, prep.allowed_chars, prep.end_token, False)])
+    ci, cl = torch.as_tensor(ci, device=dev), torch.as_tensor(cl, device=dev)
+    L = int(cl[0])
+    kw = dict(speaker_id=torch.tensor([GST_SPEAKER]), prenet_dropout=False)
+    fast = model.forward_infer_fast(ci, cl, 32, gst_reference_mel=ref_mel, **kw)
+    slow = model.forward_infer(ci, cl, 32, gst_reference_mel=ref_mel, **kw)
+    if fast.n_frames != slow.n_frames or not torch.equal(fast.lengths, slow.lengths):
+        raise SmokeFailure("GST kernel decode and plain decode disagree on frames")
+    check("decode_32_frames[gst]", [("mels_post", fast.mels_post, slow.mels_post),
+                                    ("gates", fast.gates, slow.gates),
+                                    ("alignments", fast.alignments, slow.alignments)],
+          DECODE_TOL, log)
+    neutral = model.forward_infer_fast(ci, cl, 32, **kw)
+    mel_apart = float((neutral.mels - fast.mels).abs().max())
+    style_apart = float((model.gst_embedding(1, ref_mel) - model.gst_embedding(1)).abs().max())
+    print(f"  the mels with the reference against the neutral style: {mel_apart:.3e} apart "
+          f"(more than {10 * K1_CHUNK_TOL:g} wanted; the styles {style_apart:.3e} apart)")
+    if not mel_apart > 10 * K1_CHUNK_TOL:
+        raise SmokeFailure(f"a GST reference moves the mels by {mel_apart:.3e} only")
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 31)
+    lengths = torch.tensor([L], dtype=torch.int32, device=dev)
+    padded = torch.tensor([L, L - PAD], dtype=torch.int32, device=dev)
+    pk, pk8 = model.make_packed_decoder(), model.make_packed_decoder(True)
+    D = model.cfg.encoded_full_dim
+    if D != cfg.model.encoded_dim + GST_EXT["token_embedding_size"]:
+        raise SmokeFailure(f"the GST config's memory is {D} wide")
+    chunk_check(f"decode_chunk[1]@D{D}", pk, model, lengths, 1, g, log)
+    chunk_check(f"decode_chunk[4]@D{D}", pk, model, lengths, 4, g, log, True)
+    chunk_check(f"decode_chunk[4,pad]@D{D}", pk, model, padded, 4, g, log)
+    chunk_check(f"decode_chunk[1,16 rows]@D{D}", pk, model,
+                torch.full((16,), 128, dtype=torch.int32, device=dev), 1, g, log)
+    k5_check(f"int8_step@D{D}", pk8, model, lengths, 1, g, log, True)
+    k5_check(f"int8_chunk[4]@D{D}", pk8, model, lengths, 4, g, log)
+    k5_check(f"int8_chunk[4,pad]@D{D}", pk8, model, padded, 4, g, log)
+
+    vanilla = random_tacotron(load_config(str(ROOT / "config" / "vanilla-ljspeech-stop.json")),
+                              10.0).to(dev)
+    readings: dict = {}
+    for name, mdl, p in (("lstm_cell", model, pk), ("lstm_cell_int8", model, pk8),
+                         ("lstm_cell", vanilla, vanilla.make_packed_decoder()),
+                         ("lstm_cell_int8", vanilla, vanilla.make_packed_decoder(True))):
+        enc, att_enc, s = chunk_inputs(mdl, lengths, g)
+        m1, m2 = dl.prenet_masks(64, 1, mdl.cfg.prenet_dim, mdl.cfg.dropout, g, dev)
+        b_ms, b_by = decode_step_bound(p, 1, L)
+        r = readings.setdefault(name, {})[f"D{enc.shape[2]}"] = {
+            "D": enc.shape[2], "L": L, "B": 1,
+            "chunk_us_per_step": time_ms(lambda: dl.decode_chunk(p, enc, att_enc, lengths, s, m1,
+                                                                 m2), 5, 1) / 64 * 1e3,
+            "plain_us_per_step": time_ms(lambda: dl.decode_chunk_plain(p, enc, att_enc, lengths, s,
+                                                                       m1, m2), 2, 1) / 64 * 1e3,
+            "bound_us_per_step": b_ms * 1e3, "bound_by": b_by, "card": card}
+        print(f"  decode chunk ({'int8' if p.quantized else 'bf16'}, D={r['D']}, L={L}, B=1) per "
+              f"step: {r['chunk_us_per_step']:.1f} us, plain {r['plain_us_per_step']:.1f} us, "
+              f"bound {r['bound_us_per_step']:.2f} us ({b_by}) on {card}")
+    del model, cpu, vanilla
+    torch.cuda.empty_cache()
+    return launches, readings, {"say": runs, "style": style, "reference_vs_neutral_mels":
+                                mel_apart, "reference_vs_neutral_style": style_apart,
+                                "reference_vs_neutral_audio": apart}, cfg_path, ckpt
+
+
+def gst_serve_part(root: Path, cfg_path: Path, ckpt: str, g_path: str, log: dict,
+                   card: str) -> dict:
+    """The warm server in this process with the GST entry (``multi_speaker``,
+    max_len 256, the default batching): a warm-up request, the counters set
+    to 0, a wave of 16 concurrent requests of voices 0-3, which must
+    coalesce, K1 5 launches a step of every decode launch; then each of the
+    16 alone, whose audio must equal the batched audio (GST_SERVE_LSB): a
+    row's style is the entry's neutral one, computed once at load.
+    -> {kernels-line row: launches}"""
+    import concurrent.futures
+    import os
+    import threading
+
+    import numpy as np
+
+    from tacotron2_tpu_torch.audio.io import read_wav
+    from tacotron2_tpu_torch.ops import decoder_loop
+    from tacotron2_tpu_torch.run import server as srv
+
+    sroot = root / "serve"
+    sroot.mkdir(parents=True, exist_ok=True)
+    config = {"models": [{"name": "gst", "config": str(cfg_path), "checkpoint": ckpt,
+                          "hifi_gan_checkpoint": g_path, "max_len": 256, "multi_speaker": True,
+                          "num_voices": 4}],
+              "batching": {"enabled": True, "window_ms": 8, "max_batch": 64, "depth": 2},
+              "warmup": False}
+    cwd = os.getcwd()
+    os.chdir(sroot)
+    started, holder = threading.Event(), {}
+    thread = threading.Thread(target=lambda: holder.setdefault("result", srv.do_server(
+        0, config, "warm", host="127.0.0.1",
+        on_start=lambda h: (holder.setdefault("httpd", h), started.set()))), daemon=True)
+    payloads = [{"text": TRAIN_TEXTS[i % len(TRAIN_TEXTS)], "model": 0, "seed": 400 + i,
+                 "voice": i % 4} for i in range(16)]
+    try:
+        thread.start()
+        while not started.wait(0.5):
+            if not thread.is_alive():
+                raise SmokeFailure("the GST server did not start")
+        port = holder["httpd"].server_address[1]
+        status, body, _ = _post(port, {"text": TEXT, "model": 0, "seed": 1, "voice": 1})
+        if status != 200:
+            raise SmokeFailure(f"warm-up request to the GST entry: {status} {body}")
+        decoder_loop.reset_launches()
+        barrier = threading.Barrier(16)
+
+        def one(p):
+            barrier.wait()
+            return _post(port, p)
+
+        calls0, rows0 = srv.BATCH_CALLS
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(16) as ex:
+            got = list(ex.map(one, payloads))
+        wall = time.perf_counter() - t0
+        calls, rows = srv.BATCH_CALLS[0] - calls0, srv.BATCH_CALLS[1] - rows0
+        k1 = dict(decoder_loop.LAUNCHES)
+        bad = [(s, b) for s, b, _ in got if s != 200]
+        lat = np.array([sec for _, _, sec in got])
+        wave = {"requests": 16, "decode_launches": calls, "rows_per_launch": rows / max(calls, 1),
+                "p50_s": float(np.percentile(lat, 50)), "p95_s": float(np.percentile(lat, 95)),
+                "wall_s": wall, "launches": k1, "card": card}
+        print(f"  wave of 16 to the GST entry: {wave}")
+        if bad or not rows / calls > 1:
+            raise SmokeFailure(f"the GST wave: {bad[:2]}, {rows} rows in {calls} launches")
+        want = {"prenet": 256 * calls, "lstm_cell": 512 * calls, "location_attention": 256 * calls,
+                "heads": 256 * calls, "quantize_xh": 0, "lstm_cell_int8": 0}
+        if k1 != want:
+            raise SmokeFailure(f"GST serve: K1 launches {k1}, want {want}")
+        invariance = []
+        for i, p in enumerate(payloads):
+            status, solo, _ = _post(port, p)
+            a = read_wav(str(sroot / got[i][1]["path"]))[0]
+            b = read_wav(str(sroot / solo["path"]))[0]
+            if status != 200 or len(a) != len(b):
+                raise SmokeFailure(f"GST request {i} alone: {status}, {len(b)} samples, batched "
+                                   f"{len(a)}")
+            invariance.append(float(np.abs(np.round(a * 32768) - np.round(b * 32768)).max()))
+        print(f"  GST, batched vs alone, PCM16 LSB of the 16 requests: {invariance}")
+        if max(invariance) > GST_SERVE_LSB:
+            raise SmokeFailure(f"a GST request's audio changed with its window: {invariance}")
+    finally:
+        if "httpd" in holder:
+            holder["httpd"].shutdown()
+        thread.join(60)
+        os.chdir(cwd)
+    log.setdefault("gst", {})["serve"] = {"wave": wave, "invariance_lsb": invariance}
+    return k1
+
+
+def gst_phase(ctl: dict, g_path: str, log: dict, card: str) -> tuple:
+    """Phase 4i on ``ctl`` (4e's corpus and run): K3 / K4's shared-memory
+    plan at D = 768 mirrored against the library's; ``gst_train_part``,
+    ``gst_say_part``, ``gst_serve_part``; then ``test`` and
+    ``train_mel_export`` of the GST config (``eval_test`` /
+    ``eval_export``, GST_TEST_ROWS / GST_EXPORT_ROWS rows of 4e's corpus) and
+    ``test_correlation`` of the controllable config with GST
+    (``correlation_part``) on the finetuned weights, the controls' columns
+    random, each step timed beside the card.
+    -> ({kernels-line row: launches}, {kernels-line row: readings at D = 768})"""
+    import torch
+
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.convert import load_tacotron2_checkpoint, to_lightning
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    t_phase = time.perf_counter()
+    root = WORK / "gst"
+    root.mkdir(parents=True, exist_ok=True)
+    launches: dict = {}
+    res = log.setdefault("gst", {})
+    res["card"] = card
+    steps = res["seconds_by_step"] = {}
+
+    def add(got: dict) -> None:
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def timed(name: str, t0: float) -> None:
+        steps[name] = time.perf_counter() - t0
+        print(f"  [4i] {name}: {steps[name]:.1f} s on {card}")
+
+    sms = td._sms("cuda")
+    for L, S in ((192, 1), (224, 2), (256, 2), (256, 1), (96, 8)):
+        lib = td.smem_bytes(L, S, 1024, 128, 768, 31)
+        mine = {"att_fwd_cluster": td.att_smem_bytes(False, L, S, 1024, 128, 768, 31),
+                "att_bwd_cluster": td.att_smem_bytes(True, L, S, 1024, 128, 768, 31)}
+        if any(lib[k] != v for k, v in mine.items()):
+            raise SmokeFailure(f"att_smem_bytes {mine} != the library's {lib} at L={L}, S={S}, "
+                               "D=768")
+    res["att_smem"] = {f"B{B},L{L}": {"S": td.attention_cluster(B, sms, L, 1024, 128, 768, 31),
+                                      "bwd_bytes": td.att_smem_bytes(
+                                          True, L, td.attention_cluster(B, sms, L, 1024, 128, 768,
+                                                                        31), 1024, 128, 768, 31)}
+                       for B, L in ((64, 256), (128, 192), (128, 256))}
+    print(f"  K3 / K4's attention shared memory at D = 768: the mirror equals the library's; "
+          f"{res['att_smem']}")
+    t0 = time.perf_counter()
+    got, readings, res["train"], ft_ckpt, cfg_train = gst_train_part(root / "train", ctl, log,
+                                                                     card)
+    add(got)
+    timed("train and finetune", t0)
+    t0 = time.perf_counter()
+    got, say_readings, res["say"], cfg_path, rand_ckpt = gst_say_part(root, g_path, log, card)
+    add(got)
+    readings.update(say_readings)
+    timed("say", t0)
+    t0 = time.perf_counter()
+    add(gst_serve_part(root, cfg_path, rand_ckpt, g_path, log, card))
+    timed("server", t0)
+
+    t0 = time.perf_counter()
+    head, rows = ctl["rows"][0], ctl["rows"][1:]
+    raw = gst_raw()
+    n_tr, n_val = GST_EXPORT_ROWS
+    for split, lines in (("test", rows[:GST_TEST_ROWS]), ("train", rows[:n_tr]),
+                         ("val", rows[n_tr:n_tr + n_val])):
+        (root / f"eval_{split}.csv").write_text("\n".join([head] + lines) + "\n")
+        raw["dataset"][split] = str(root / f"eval_{split}.csv")
+    eval_cfg = root / "eval.json"
+    eval_cfg.write_text(json.dumps(raw))
+    probe = str(root / "probe.ckpt")
+    torch.save(to_lightning(random_tacotron(load_config(str(eval_cfg)), 10.0).state_dict()), probe)
+    add(eval_test("[gst]", eval_cfg, ctl["speech"], probe, g_path, root / "test", log))
+    timed("test", t0)
+    t0 = time.perf_counter()
+    got, k3_export = eval_export("[gst]", eval_cfg, ctl["speech"], ft_ckpt, root / "export", log,
+                                 card)
+    add(got)
+    readings.setdefault("teacher_forward", {})["export"] = k3_export
+    timed("train_mel_export", t0)
+
+    t0 = time.perf_counter()
+    tc_raw = json.loads(Path(ctl["cfg"]).read_text())
+    tc_raw.setdefault("extensions", {})["gst"] = dict(GST_EXT)
+    tc_cfg = root / "gst_controls.json"
+    tc_cfg.write_text(json.dumps(tc_raw))
+    # the finetuned GST weights, the controls' columns (the last ones of the
+    # decoder cell's input and the mel head's) random: random weights' gates
+    # stop too few rows for the sweep's correlations
+    sd = random_tacotron(load_config(str(tc_cfg)), 10.0).state_dict()
+    for k, v in load_tacotron2_checkpoint(ft_ckpt)[0].items():
+        if sd[k].shape == v.shape:
+            sd[k] = v
+        else:  # (rows, cols) widened by the controls
+            sd[k] = torch.cat([v, sd[k][:, v.shape[1]:]], dim=1)
+    tc_ckpt = str(root / "gst_controls.ckpt")
+    torch.save(to_lightning(sd), tc_ckpt)
+    got, res["test_correlation"] = correlation_part(
+        {"rows": ctl["rows"], "cfg": str(tc_cfg), "ckpt": tc_ckpt, "speech": ctl["speech"]},
+        g_path, root / "correlation", log, card, "test_correlation_gst.log")
+    add(got)
+    timed("test_correlation", t0)
+    res["seconds"] = time.perf_counter() - t_phase
+    res["readings"] = readings
+    res["launches"] = launches
+    print(f"  phase 4i: {res['seconds']:.1f} s on {card}")
+    torch.cuda.empty_cache()
+    return launches, readings
+
+
+def gst_mode() -> int:
+    """``--gst``: the kernels' build and phase 4i alone, on a synthetic
+    corpus in 4e's shapes; details to ``chiprun_out/gst.json``."""
+    import torch
+
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build
+
+    card = card_line()
+    print(f"[4i] alone on {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    use_f32_math()
+    t0 = time.perf_counter()
+    build.build_all()
+    log: dict = {"card": card, "build_s": time.perf_counter() - t0}
+    launches, readings = {}, {}
+    try:
+        WORK.mkdir(parents=True, exist_ok=True)
+        ctl = _extras_source("train_controls", ROOT / "config" / CTL_CONFIG, CTL_TRAIN_WAVS, True)
+        launches, readings = gst_phase(ctl, write_hifigan(), log, card)
+        if log.get("deferred"):
+            raise SmokeFailure("; ".join(log["deferred"]))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    finally:
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "gst.json").write_text(json.dumps(log, indent=1, default=str))
+        shutil.rmtree(WORK, ignore_errors=True)
+    print(json.dumps({"launches": launches, "readings": readings}, default=str))
+    print(card)
     return 0
 
 
@@ -6537,6 +7120,8 @@ def main() -> int:
         return train_extras_mode()
     if "--descriptions" in sys.argv[1:]:
         return descriptions_mode()
+    if "--gst" in sys.argv[1:]:
+        return gst_mode()
     log: dict = {}
     t_start = time.perf_counter()
     try:
@@ -6677,6 +7262,12 @@ def main() -> int:
         desc_launches, desc_readings = descriptions_phase(ctl_run, g_path, log, card)
         for k, n in desc_launches.items():
             launches[k] = launches.get(k, 0) + n
+        print(f"[4i] Global Style Tokens ({GST_BASE} with extensions.gst, D = 768): train and "
+              "train --finetune, say --gst-reference (bf16 and int8), the server, test, "
+              "train_mel_export and test_correlation, through the CLI")
+        gst_launches, gst_readings = gst_phase(ctl_run, g_path, log, card)
+        for k, n in gst_launches.items():
+            launches[k] = launches.get(k, 0) + n
         for r in rows:
             if r["name"] == "teacher_forward":
                 r["export"] = k3_export
@@ -6684,6 +7275,8 @@ def main() -> int:
                 r["finetune"] = extra_readings[r["name"]]
             if r["name"] in desc_readings:
                 r["descriptions"] = desc_readings[r["name"]]
+            if r["name"] in gst_readings:
+                r["gst"] = gst_readings[r["name"]]
         if log.get("deferred"):
             raise SmokeFailure("; ".join(log["deferred"]))
 
@@ -6713,7 +7306,7 @@ def main() -> int:
         # the cells' and the attention's readings at other row counts ride along
         print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                        **{k: r[k] for k in ("rows", "export", "finetune",
-                                                            "descriptions") if k in r}}
+                                                            "descriptions", "gst") if k in r}}
                                       for r in rows]}))
         print(card)
     except SmokeFailure as e:

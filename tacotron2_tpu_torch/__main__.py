@@ -4,7 +4,8 @@
         --checkpoint X.ckpt [--hifi-gan-checkpoint DIR/g_xxx] \\
         --text "..." --out o.wav --random-seed 7 [--max-len-override N] \\
         [--quantize-int8] [--speaker-id N] [--controls a,b,c,d,e] \\
-        [--description "a calm voice" --bert-checkpoint BERT] [--device cpu]
+        [--description "a calm voice" --bert-checkpoint BERT] \\
+        [--gst-reference REF.wav] [--device cpu]
 
     python -m tacotron2_tpu_torch train --config C --speech-dir S --results-dir R \\
         [--resume-ckpt F] [--max-steps N] [--seed K] [--device cpu] \\
@@ -41,7 +42,9 @@ model its controls, one number per feature of the config's
 description, embedded by the local BERT of ``--bert-checkpoint`` (an
 HF-layout directory, or a state-dict file with ``vocab.txt`` beside it; the
 port never downloads), which ``embed_descriptions --bert`` takes too;
-checkpoints are the
+``--gst-reference`` a GST model (``extensions.gst.active``) the style of
+a reference WAV at the config's sample rate (without it, the neutral style
+of a zeros reference); checkpoints are the
 reference's Lightning ``.ckpt``
 (``train`` writes ``R/final.ckpt``, which ``say`` loads; ``train --finetune``
 ``R/finetuned.ckpt``; ``train_prosody`` ``R/prosody_final.ckpt``, which
@@ -89,6 +92,9 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--bert-checkpoint", default=None,
                    help="local BERT weights that embed --description: an HF-layout directory "
                         "or a state-dict file with vocab.txt beside it")
+    s.add_argument("--gst-reference", default=None,
+                   help="a reference WAV whose style a GST model takes (the neutral style "
+                        "without it)")
     s.add_argument("--device", default=None, help="cuda (default) or cpu")
 
     t = sub.add_parser("train", help="train a Tacotron 2 model")
@@ -259,7 +265,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                   device=args.device, quantize_int8=args.quantize_int8,
                   speaker_id=args.speaker_id, controls=args.controls,
                   export_mel=args.export_mel, description=args.description,
-                  bert_checkpoint=args.bert_checkpoint)
+                  bert_checkpoint=args.bert_checkpoint, gst_reference=args.gst_reference)
 
 
 if __name__ == "__main__":

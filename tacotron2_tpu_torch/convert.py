@@ -1,8 +1,9 @@
 """Weights in and out of the port.
 
 - ``from_jax_params`` / ``hifigan_from_jax_params`` /
-  ``prosody_from_jax_params``: the JAX package's parameter trees (numpy
-  arrays) -> the port's ``state_dict`` (the reference's names and torch
+  ``prosody_from_jax_params`` / ``gst_from_jax_params`` /
+  ``embedding_encoder_from_jax_params``: the JAX package's parameter trees
+  (numpy arrays) -> the port's ``state_dict`` (the reference's names and torch
   layouts). The tests use them to run both
   frameworks on the same weights.
 - ``load_tacotron2_checkpoint``: the reference's Lightning ``.ckpt``
@@ -64,6 +65,45 @@ def _lstm(sd, prefix, p, suffix=""):
     sd[f"{prefix}.bias_hh{suffix}"] = _t(p["b_hh"])
 
 
+def _conv2d(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))  # (KH, KW, I, O)
+    if "b" in p:
+        sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def gst_from_jax_params(params: dict, state: Optional[dict],
+                        prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``GST`` (params, state) -> the port's ``GST`` state_dict (keys
+    after ``prefix``), the reference's names: ``reference_encoder.convs.{i}``
+    / ``.bns.{i}`` / ``.gru`` (``_l0``) and ``stl.embed`` /
+    ``stl.attention.W_query`` / ``W_key`` / ``W_value``. Without ``state``
+    the BatchNorm statistics are left out (a gradient tree)."""
+    sd: Dict[str, torch.Tensor] = {}
+    ref = params["reference_encoder"]
+    for i, conv in enumerate(ref["convs"]):
+        _conv2d(sd, f"{prefix}reference_encoder.convs.{i}", conv)
+        _bn(sd, f"{prefix}reference_encoder.bns.{i}", ref["bns"][i],
+            state and state["reference_encoder"]["bns"][i])
+    _lstm(sd, f"{prefix}reference_encoder.gru", ref["gru"], "_l0")  # GRU: the same four fields
+    sd[f"{prefix}stl.embed"] = _t(params["stl"]["embed"])
+    for name in ("query", "key", "value"):
+        _linear(sd, f"{prefix}stl.attention.W_{name}", params["stl"]["attention"][f"w_{name}"])
+    return sd
+
+
+def embedding_encoder_from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``EmbeddingEncoder`` params -> the port's state_dict: each layer's
+    ``fwd`` / ``bwd`` GRU -> ``encoder``'s ``_l{n}`` / ``_l{n}_reverse``, the
+    attention's three bias-free linears."""
+    sd: Dict[str, torch.Tensor] = {}
+    for n, layer in enumerate(params["gru"]):
+        _lstm(sd, "encoder", layer["fwd"], f"_l{n}")
+        _lstm(sd, "encoder", layer["bwd"], f"_l{n}_reverse")
+    for name in ("history", "context", "v"):
+        _linear(sd, f"attention.{name}", params["attention"][name])
+    return sd
+
+
 def decoder_from_jax(dec: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
     """The JAX decoder subtree -> the port's ``Decoder`` state_dict (keys
     after ``prefix``). It also maps a gradient tree of the same structure."""
@@ -85,8 +125,8 @@ def from_jax_params(params: dict, state: Optional[dict]) -> Dict[str, torch.Tens
     configuration, its speaker embedding (``speaker_embedding.table``), its
     controls (the decoder LSTM's and the mel head's inputs widened by
     them, whose JAX layouts map as the vanilla ones do) and its description
-    linear (``description_linear`` -> ``description_embeddings_linear.0``).
-    With ``state`` None the BatchNorm running statistics are left out, so a
+    linear (``description_linear`` -> ``description_embeddings_linear.0``)
+    and its GST (``gst.``, ``gst_from_jax_params``). With ``state`` None the BatchNorm running statistics are left out, so a
     gradient tree of the params' structure maps too."""
     sd: Dict[str, torch.Tensor] = {}
     enc = params["encoder"]
@@ -104,6 +144,8 @@ def from_jax_params(params: dict, state: Optional[dict]) -> Dict[str, torch.Tens
         sd["speaker_embedding.weight"] = _t(params["speaker_embedding"]["table"])
     if "description_linear" in params:
         _linear(sd, "description_embeddings_linear.0", params["description_linear"])
+    if "gst" in params:
+        sd.update(gst_from_jax_params(params["gst"], state and state["gst"], "gst."))
     sd.update(decoder_from_jax(params["decoder"], "decoder."))
     post = params["postnet"]
     for i in range(len(post["convs"])):

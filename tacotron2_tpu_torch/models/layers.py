@@ -8,6 +8,10 @@ them under the reference's ``state_dict`` names. Activations are
 channels-last ``(B, T, C)`` as in the JAX package, so the tests compare like
 with like.
 
+Also the GST's pieces: ``conv2d`` (NCHW), ``batchnorm2d`` and
+``gru_sequence`` (JAX ``conv2d_apply``, ``batchnorm_apply`` over N, H and
+W, ``gru_sequence``).
+
 ``Policy`` carries the precision: under bf16 compute every matmul and conv
 operand is rounded to bf16 and the sum is taken in f32, the same class as the
 JAX package's bf16 policy (bf16 operands, f32 accumulation).
@@ -97,6 +101,15 @@ def conv1d(x, w, b=None, policy: Policy = F32, padding: str | int = "SAME",
     return y
 
 
+def conv2d(x, w, b=None, policy: Policy = F32, stride: int = 1, padding: int = 0):
+    """Conv2d over NCHW x; w is torch's (O, I, KH, KW). The f32 sums are
+    rounded to the compute type before the bias is added, as JAX's
+    ``conv2d_apply`` emits the policy's type and adds the bias in f32."""
+    y = policy.cast(F.conv2d(policy.cast(x), policy.cast(w), None, stride=stride,
+                             padding=padding))
+    return y if b is None else y + b[None, :, None, None]
+
+
 def conv_transpose1d(x, w, b, stride: int, padding: int, policy: Policy = F32):
     """ConvTranspose1d over channels-last x (B, T, C); w is torch's
     (I, O, W). out_len = (T-1)*stride - 2*padding + W."""
@@ -124,6 +137,19 @@ def batchnorm(x, bn: torch.nn.BatchNorm1d, train: bool):
     y = F.batch_norm(x.transpose(1, 2), bn.running_mean, bn.running_var, bn.weight, bn.bias,
                      training=True, momentum=0.1, eps=bn.eps)
     return y.transpose(1, 2)
+
+
+def batchnorm2d(x, bn: torch.nn.BatchNorm2d, train: bool):
+    """BatchNorm2d over the channels (axis 1) of NCHW x, under ``batchnorm``'s
+    rules: train mode normalizes with the biased variance over N, H and W
+    (padded frames included) and updates the running stats in place with
+    the unbiased one, momentum 0.1; eval mode reads the running stats."""
+    if train:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                            training=True, momentum=0.1, eps=bn.eps)
+    c = lambda v: v[None, :, None, None]
+    return ((x - c(bn.running_mean)) * torch.rsqrt(c(bn.running_var) + bn.eps) * c(bn.weight)
+            + c(bn.bias))
 
 
 def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
@@ -187,3 +213,42 @@ def bilstm(lstm: torch.nn.LSTM, xs, lengths, policy: Policy = F32):
     hs = BiLSTMRecurrence.apply(xp, w_hh, b_hh)  # (2, B, T, H)
     bwd = torch.gather(hs[1], 1, rev[..., None].expand_as(hs[1]))
     return torch.where(valid[..., None], torch.cat([hs[0], bwd], dim=-1), 0.0)
+
+
+def gru_sequence(gru: torch.nn.GRU, xs, lengths=None, reverse: bool = False,
+                 policy: Policy = F32, suffix: str = "_l0"):
+    """One direction of a GRU over (B, T, C) with packed-sequence semantics
+    (JAX ``gru_sequence``): the weights are ``gru``'s ``weight_ih{suffix}``
+    etc., gates r, z, n in torch's order, n = tanh(xn + r (h W_hn + b_hn)).
+    ``lengths`` None runs every step; else a row's state holds past its
+    length, its outputs there are zero and ``reverse`` runs each row's own
+    valid prefix backwards. Every product takes the policy's operands with
+    f32 sums; h stays f32. -> (outputs (B, T, H), the final hidden state
+    (B, H) at each row's true last step, zeros for a row of length 0)."""
+    w_ih, w_hh, b_ih, b_hh = (getattr(gru, f"{n}{suffix}")
+                              for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+    B, T, C = xs.shape
+    dev = xs.device
+    lens = (torch.full((B,), T, device=dev) if lengths is None
+            else torch.as_tensor(lengths).to(dev)).long()[:, None]
+    t = torch.arange(T, device=dev)[None, :]
+    valid = t < lens
+    xs = xs.float()
+    if reverse:
+        rev = torch.where(valid, lens - 1 - t, t)
+        xs = torch.gather(xs, 1, rev[..., None].expand(B, T, C))
+    xp = linear(xs, w_ih, b_ih, policy)
+    h = h_final = xs.new_zeros(B, w_hh.shape[1])
+    outs = []
+    for s in range(T):
+        xr, xz, xn = xp[:, s].chunk(3, dim=-1)
+        hr, hz, hn = linear(h, w_hh, b_hh, policy).chunk(3, dim=-1)
+        r, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+        h2 = (1.0 - z) * torch.tanh(xn + r * hn) + z * h
+        h_final = torch.where(lens == s + 1, h2, h_final)
+        h = torch.where(valid[:, s, None], h2, h)
+        outs.append(h)
+    hs = torch.stack(outs, dim=1)
+    if reverse:
+        hs = torch.gather(hs, 1, rev[..., None].expand_as(hs))
+    return torch.where(valid[..., None], hs, 0.0), h_final

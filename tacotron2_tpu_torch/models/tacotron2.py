@@ -1,11 +1,13 @@
 """Tacotron 2 top module and its free-running decodes.
 
 Counterpart of ``tacotron2_tpu/models/tacotron2.py`` for the vanilla
-configuration, its speaker tokens, controls and description embeddings (not
-GST): encoder -> speaker fusion tanh(encoded + speaker embedding) where the
-model has speaker tokens -> a description model's memory widened by
-tanh(Linear(description, 128)) broadcast over the chars (D =
-``encoded_full_dim``) -> attention-memory projection -> prenet with
+configuration, its speaker tokens, controls, description embeddings and
+Global Style Tokens: encoder -> speaker fusion tanh(encoded + speaker
+embedding) where the model has speaker tokens -> a description model's
+memory widened by tanh(Linear(description, 128)) broadcast over the chars
+-> a GST model's widened by its style embedding (``models/gst.py``)
+broadcast over the chars (D = ``encoded_full_dim``, in JAX's order) ->
+attention-memory projection -> prenet with
 AlwaysDropout (on at
 inference) -> free-running decode that stops once every row's gate logit is
 negative, the controls of a controllable model in its decoder LSTM's and
@@ -19,6 +21,12 @@ is the production decode: kernel K1 in 64-frame chunks
 or in its int8 mode kernel K5 for the LSTM cells (JAX
 ``forward_infer_fused(quantize=True)``), an approximate mode held to < 1%
 mean relative mel error and < 0.05 gate drift against ``forward_infer``.
+The GST's embedding comes from a reference mel: in ``forward_teacher``
+the batch's ground-truth mel (padded, no lengths; train mode updates the
+GST's BatchNorm statistics) unless ``gst_reference_mel`` is given; at
+inference ``gst_reference_mel``, or the neutral style of a zeros reference
+(``GST.neutral``, one row for the batch).
+
 ``forward_teacher`` is training's teacher-forced pass (JAX
 ``forward_teacher(dw_hoist=True)``), with every conditioning above too:
 the decode runs as ``TeacherDecode``, kernels K3 and K4
@@ -36,6 +44,7 @@ from torch import nn
 from tacotron2_tpu_torch.models import decoder as decoder_mod
 from tacotron2_tpu_torch.models import layers
 from tacotron2_tpu_torch.models.encoder import Encoder
+from tacotron2_tpu_torch.models.gst import GST
 from tacotron2_tpu_torch.models.layers import F32, Policy
 from tacotron2_tpu_torch.models.postnet import Postnet
 from tacotron2_tpu_torch.ops import decoder_loop, train_decode
@@ -62,12 +71,15 @@ class Tacotron2Config:
     controls_dim: int = 0
     description_embeddings: bool = False
     description_embeddings_dim: int = 0
+    gst: bool = False
+    gst_token_embedding_size: int = 256
 
     @property
     def encoded_full_dim(self) -> int:
         """The attention memory's width D: the encoder's, widened by 128 with
-        description embeddings."""
-        return self.encoded_dim + (DESCRIPTION_DIM if self.description_embeddings else 0)
+        description embeddings and by the style's width with GST."""
+        return (self.encoded_dim + (DESCRIPTION_DIM if self.description_embeddings else 0)
+                + (self.gst_token_embedding_size if self.gst else 0))
 
 
 class Tacotron2Output(NamedTuple):
@@ -98,6 +110,8 @@ class Tacotron2(nn.Module):
         if c.description_embeddings:  # the reference's name
             self.description_embeddings_linear = nn.Sequential(
                 nn.Linear(c.description_embeddings_dim, DESCRIPTION_DIM), nn.Tanh())
+        if c.gst:
+            self.gst = GST(c.num_mels, c.gst_token_embedding_size)
         self.att_encoder = nn.Linear(c.encoded_full_dim, c.att_dim, bias=False)
         self.decoder = decoder_mod.Decoder(
             c.num_mels, c.encoded_full_dim, c.prenet_dim, c.att_rnn_dim, c.att_dim,
@@ -107,16 +121,18 @@ class Tacotron2(nn.Module):
     # ------------------------------------------------------------------
     def _encode(self, chars_idx, chars_len, train: bool = False, generator=None,
                 rows: Optional[int] = None, speaker_id: Optional[torch.Tensor] = None,
-                description_embeddings: Optional[torch.Tensor] = None):
+                description_embeddings: Optional[torch.Tensor] = None,
+                gst_embedding: Optional[torch.Tensor] = None):
         """-> encoded (B, L, D), att_encoded (B, L, A), the padded chars'
         mask. ``rows``: run the encoder and its attention projection on
         this many rows (empty rows after the batch's, dropped after), so
         their products have one shape whatever B is. ``speaker_id`` (B,):
         a multi-speaker model's voices, fused as tanh(encoded + embedding);
         then ``description_embeddings`` (B, description_embeddings_dim): a
-        description model's tanh(Linear(.)) concatenated to every char
-        (JAX ``_encode``, in its order; a model without descriptions ignores
-        them, as JAX's does)."""
+        description model's tanh(Linear(.)) concatenated to every char;
+        then ``gst_embedding`` (B, S): a GST model's style, concatenated to
+        every char (JAX ``_encode``, in its order; a model without
+        descriptions or GST ignores them, as JAX's does)."""
         c = self.cfg
         if c.speaker_tokens and speaker_id is None:
             raise ValueError("speaker_id tensor required when speaker tokens are active!")
@@ -150,11 +166,40 @@ class Tacotron2(nn.Module):
             desc = torch.tanh(layers.linear(desc, lin.weight, lin.bias, self.policy))
             encoded = torch.cat([encoded, desc[:, None, :].expand(-1, encoded.shape[1], -1)
                                  .to(encoded.dtype)], dim=-1)
+        if c.gst:
+            if gst_embedding is None:
+                raise ValueError("style embedding required when GST is active!")
+            emb = torch.as_tensor(gst_embedding).to(ci.device, torch.float32)
+            if tuple(emb.shape) != (B, c.gst_token_embedding_size):
+                raise ValueError(f"want a GST embedding of shape ({B}, "
+                                 f"{c.gst_token_embedding_size}), got {tuple(emb.shape)}")
+            emb = torch.nn.functional.pad(emb, (0, 0, 0, ci.shape[0] - B))  # empty rows: 0
+            encoded = torch.cat([encoded, emb[:, None, :].expand(-1, encoded.shape[1], -1)],
+                                dim=-1)
         att_encoded = layers.linear(encoded, self.att_encoder.weight, None, self.policy)
         encoded, att_encoded = encoded[:B], att_encoded[:B]
         char_pos = torch.arange(chars_idx.shape[1], device=chars_idx.device)
         mask = char_pos[None, :] >= chars_len[:, None]
         return encoded, att_encoded, mask
+
+    def gst_embedding(self, B: int, reference_mel: Optional[torch.Tensor] = None,
+                      train: bool = False) -> Optional[torch.Tensor]:
+        """A GST model's style embedding (B, S), None for another model:
+        from ``reference_mel`` (B or 1 rows, (., T, M), no lengths; ``train``
+        updates the BatchNorm statistics), else the neutral style of a zeros
+        reference (JAX ``_infer_style``), computed on one row and broadcast,
+        so that a row's style does not depend on its batch."""
+        if not self.cfg.gst:
+            return None
+        if reference_mel is None:
+            emb = self.gst.neutral(self.policy)[:, 0]
+        else:
+            ref = torch.as_tensor(reference_mel).to(self.gst.stl.embed.device, torch.float32)
+            if ref.dim() != 3 or ref.shape[0] not in (1, B) or ref.shape[2] != self.cfg.num_mels:
+                raise ValueError(f"want a GST reference mel of shape ({B} or 1, T, "
+                                 f"{self.cfg.num_mels}), got {tuple(ref.shape)}")
+            emb = self.gst(ref, train=train, policy=self.policy)[:, 0]
+        return emb.expand(B, -1)
 
     def _check_controls(self, controls, B: int) -> None:
         """A controllable model takes controls (B, controls_dim); another
@@ -204,7 +249,8 @@ class Tacotron2(nn.Module):
                         lstm_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                         speaker_id: Optional[torch.Tensor] = None,
                         controls: Optional[torch.Tensor] = None,
-                        description_embeddings: Optional[torch.Tensor] = None
+                        description_embeddings: Optional[torch.Tensor] = None,
+                        gst_reference_mel: Optional[torch.Tensor] = None
                         ) -> Tacotron2Output:
         """Teacher-forced pass over the ground-truth mel (B, T, M): encode
         (with the speaker fusion of a multi-speaker model) -> prenet over the
@@ -217,7 +263,9 @@ class Tacotron2(nn.Module):
         (the tests inject JAX's). ``speaker_id`` (B,), ``controls`` (B,
         controls_dim) and ``description_embeddings`` (B,
         description_embeddings_dim): each row's voice, controls and
-        description (JAX ``forward_teacher``'s)."""
+        description (JAX ``forward_teacher``'s). A GST model's style comes
+        from ``gst_reference_mel`` or else from ``mel`` itself, padded as
+        the batch is, with the GST's BatchNorm in ``train``'s mode."""
         c = self.cfg
         if c.att_rnn_dim != c.rnn_hidden_dim:
             raise ValueError("the teacher-forced decode needs att_rnn_dim == rnn_hidden_dim")
@@ -226,9 +274,12 @@ class Tacotron2(nn.Module):
         self._check_controls(controls, B)
         if controls is not None:
             controls = controls.to(device=dev, dtype=torch.float32)
+        gst = self.gst_embedding(B, mel if gst_reference_mel is None else gst_reference_mel,
+                                 train)
         encoded, att_encoded, _ = self._encode(chars_idx, chars_len, train, generator,
                                                speaker_id=speaker_id,
-                                               description_embeddings=description_embeddings)
+                                               description_embeddings=description_embeddings,
+                                               gst_embedding=gst)
         decoder_in = self.teacher_decoder_in(mel, generator)
         if lstm_masks is None:
             if train:
@@ -252,22 +303,26 @@ class Tacotron2(nn.Module):
                       masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                       speaker_id: Optional[torch.Tensor] = None,
                       controls: Optional[torch.Tensor] = None,
-                      description_embeddings: Optional[torch.Tensor] = None) -> Tacotron2Output:
+                      description_embeddings: Optional[torch.Tensor] = None,
+                      gst_reference_mel: Optional[torch.Tensor] = None) -> Tacotron2Output:
         """Reference decode: one step at a time, stop after the step where
         every row's gate has fired. Masks are drawn in 64-frame chunks in
         the same order as ``forward_infer_fast``, so one generator state
         gives both the same audio. ``speaker_id`` (B,), ``controls`` (B,
         controls_dim) and ``description_embeddings`` (B, dim): a
         multi-speaker, a controllable and a description model's, each row
-        its own."""
+        its own; ``gst_reference_mel``: a GST model's reference (else the
+        neutral style, ``gst_embedding``)."""
         c = self.cfg
         B, L = chars_idx.shape
         dev = chars_idx.device
         self._check_controls(controls, B)
         if controls is not None:
             controls = controls.to(device=dev, dtype=torch.float32)
-        encoded, att_encoded, mask = self._encode(chars_idx, chars_len, speaker_id=speaker_id,
-                                                  description_embeddings=description_embeddings)
+        encoded, att_encoded, mask = self._encode(
+            chars_idx, chars_len, speaker_id=speaker_id,
+            description_embeddings=description_embeddings,
+            gst_embedding=self.gst_embedding(B, gst_reference_mel))
         state = decoder_mod.init_state(B, L, c.att_rnn_dim, c.encoded_full_dim,
                                        c.rnn_hidden_dim, dev)
         mels = torch.zeros(B, max_len, c.num_mels, device=dev)
@@ -311,7 +366,9 @@ class Tacotron2(nn.Module):
                            encode_rows: Optional[int] = None,
                            speaker_id: Optional[torch.Tensor] = None,
                            controls: Optional[torch.Tensor] = None,
-                           description_embeddings: Optional[torch.Tensor] = None
+                           description_embeddings: Optional[torch.Tensor] = None,
+                           gst_reference_mel: Optional[torch.Tensor] = None,
+                           gst_embedding: Optional[torch.Tensor] = None
                            ) -> Tacotron2Output:
         """Production decode through kernel K1 (``ops/decoder_loop.py``), or
         through K5 for an int8 pack: the kernels on the card, their plain
@@ -328,12 +385,20 @@ class Tacotron2(nn.Module):
         ``description_embeddings`` (B, dim): each row's voice, controls and
         description, for a multi-speaker, a controllable and a description
         model (the controls go through the controls rows of K1 or K5; a
-        description widens the memory the kernels read by 128 columns)."""
+        description widens the memory the kernels read by 128 columns).
+        A GST model's style widens it by S columns: ``gst_embedding`` (B, S)
+        where the caller holds it (the server's neutral style, computed at
+        load), else from ``gst_reference_mel`` or the neutral style
+        (``gst_embedding``)."""
         c = self.cfg
-        self._check_controls(controls, chars_idx.shape[0])
+        B = chars_idx.shape[0]
+        self._check_controls(controls, B)
+        if gst_embedding is None:
+            gst_embedding = self.gst_embedding(B, gst_reference_mel)
         encoded, att_encoded, _ = self._encode(chars_idx, chars_len, rows=encode_rows,
                                                speaker_id=speaker_id,
-                                               description_embeddings=description_embeddings)
+                                               description_embeddings=description_embeddings,
+                                               gst_embedding=gst_embedding)
         pk = packed if packed is not None else self.make_packed_decoder(quantize)
         mels, gates, aligns, lengths, n_frames = decoder_loop.decode(
             pk, encoded.to(pk.wq.dtype).contiguous(), att_encoded.contiguous(),

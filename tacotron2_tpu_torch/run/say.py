@@ -2,11 +2,13 @@
 
 Counterpart of ``run/say.py`` of the JAX package (and its helpers in
 ``run/common.py``) for the vanilla configuration, its speaker tokens,
-controls and description embeddings (``--speaker-id``, ``--controls``,
-``--description`` with ``--bert-checkpoint``; not GST): text frontend (no
-abbreviation expansion) -> encoder (fused with the speaker's embedding, the
-memory widened by the description's BERT pooler embedding, zeros without a
-description) -> free-running decode through kernel K1 (or,
+controls, description embeddings and Global Style Tokens (``--speaker-id``,
+``--controls``, ``--description`` with ``--bert-checkpoint``,
+``--gst-reference``): text frontend (no abbreviation expansion) -> encoder
+(fused with the speaker's embedding, the memory widened by the
+description's BERT pooler embedding, zeros without a description, then by
+a GST model's style: the reference WAV's log-mel through the GST, or the
+neutral style without one) -> free-running decode through kernel K1 (or,
 with ``--quantize-int8``, K5 for the int8 LSTM cells), the controls through
 their rows of the decoder cell and the heads, with early stop
 -> postnet -> cut at the first fired gate -> HiFi-GAN over a 128-frame
@@ -30,7 +32,8 @@ import numpy as np
 import torch
 
 from tacotron2_tpu_torch.audio.griffin_lim import mel_to_audio
-from tacotron2_tpu_torch.audio.io import write_wav
+from tacotron2_tpu_torch.audio.io import read_wav, write_wav
+from tacotron2_tpu_torch.audio.mel import TacotronMelSpectrogram
 from tacotron2_tpu_torch.config import Config
 from tacotron2_tpu_torch.convert import (load_hifigan_checkpoint, load_strict,
                                          load_tacotron2_checkpoint)
@@ -47,16 +50,9 @@ NO_BERT = ("--description needs --bert-checkpoint (a local BERT directory or sta
 
 
 def model_config_from(cfg: Config) -> Tacotron2Config:
-    """The model of a config: vanilla, with speaker tokens, controls and
-    description embeddings (JAX ``run/common.py::model_config_from``). GST
-    raises: its reference encoder is not ported yet (ROADMAP A6, then A7's
-    ``--gst-reference``)."""
+    """The model of a config: vanilla, with speaker tokens, controls,
+    description embeddings and GST (JAX ``run/common.py::model_config_from``)."""
     ext = cfg.extensions
-    if ext.gst.active:
-        raise NotImplementedError(
-            "GST is not ported yet: its reference encoder waits in ROADMAP A6 and "
-            "--gst-reference in A7; the port runs the vanilla configuration, speaker tokens, "
-            "controls and description embeddings")
     m = cfg.model
     return Tacotron2Config(
         num_chars=cfg.num_chars, encoded_dim=m.encoded_dim,
@@ -68,6 +64,7 @@ def model_config_from(cfg: Config) -> Tacotron2Config:
         controls=ext.controls.active, controls_dim=cfg.controls_dim,
         description_embeddings=m.description_embeddings,
         description_embeddings_dim=m.description_embeddings_dim,
+        gst=ext.gst.active, gst_token_embedding_size=ext.gst.token_embedding_size,
     )
 
 
@@ -101,6 +98,21 @@ def description_embedding(cfg: Config, description: Optional[str],
     t0 = time.perf_counter()
     emb = torch.as_tensor(embedder.embed([description]))
     return emb, time.perf_counter() - t0
+
+
+def gst_reference_mel(cfg: Config, gst_reference: str) -> torch.Tensor:
+    """``--gst-reference``'s WAV -> its log-mel (1, frames, M) by the
+    port's numpy frontend (JAX ``run/say.py``): the config must have GST and
+    the WAV its sample rate."""
+    if not cfg.extensions.gst.active:
+        raise ValueError("--gst-reference given, but extensions.gst is not active in this "
+                         "config.")
+    prep = cfg.dataset.preprocessing
+    wav, sr = read_wav(gst_reference)
+    if sr != prep.sample_rate:
+        raise ValueError(f"--gst-reference sample rate {sr} != configured {prep.sample_rate}")
+    mel = TacotronMelSpectrogram(n_mels=prep.num_mels, sample_rate=prep.sample_rate)(wav)
+    return torch.as_tensor(mel)[None]
 
 
 def conditioning(cfg: Config, speaker_id: Optional[int] = None,
@@ -202,7 +214,7 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
            device: Optional[str] = None, quantize_int8: bool = False,
            speaker_id: Optional[int] = None, controls: Optional[str] = None,
            export_mel: bool = False, description: Optional[str] = None,
-           bert_checkpoint: Optional[str] = None) -> dict:
+           bert_checkpoint: Optional[str] = None, gst_reference: Optional[str] = None) -> dict:
     """Synthesize ``text`` into ``output``; returns what ran and how long
     each phase took on the host clock (each phase ends in a device sync).
     ``quantize_int8``: decode with int8 LSTM weights (kernel K5), the JAX
@@ -214,8 +226,11 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
     ``description`` and ``bert_checkpoint``: a description model's style
     text and the local BERT that embeds it (``description_embedding``); a
     model without description embeddings ignores them, as JAX's ``say``
-    does."""
+    does. ``gst_reference``: a WAV whose style a GST model takes
+    (``gst_reference_mel``); without it, the neutral style."""
     cond = conditioning(cfg, speaker_id, controls)
+    if gst_reference is not None:
+        cond["gst_reference_mel"] = gst_reference_mel(cfg, gst_reference)
     with_desc = cfg.model.description_embeddings
     if with_desc and description is not None and bert_checkpoint is None:
         raise ValueError(NO_BERT)  # before anything loads
@@ -267,6 +282,7 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
         "speaker_id": speaker_id if "speaker_id" in cond else None,
         "controls": cond["controls"][0].tolist() if "controls" in cond else None,
         "description": description if with_desc else None, "bert_s": bert_s,
+        "gst_reference": gst_reference,
         "decode_s": t1 - t0, "vocode_s": t2 - t1, "say_s": t2 - t0,
         "audio_s": len(wav) / prep.sample_rate,
     }

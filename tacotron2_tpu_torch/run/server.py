@@ -1,9 +1,10 @@
 """Demo TTS web server of the port, on the standard library alone.
 
 Counterpart of the JAX package's ``run/server.py``, for the vanilla
-configuration and its speaker tokens and controls (``multi_speaker`` and
+configuration, its speaker tokens and controls (``multi_speaker`` and
 ``controllable`` entries; a request's ``voice`` and ``controls``, or the
-reference page's named sliders). Routes: ``GET /`` (the repo's ``web/index.html``),
+reference page's named sliders) and GST models, which serve the neutral
+style (a request carries no reference audio, as in JAX's server). Routes: ``GET /`` (the repo's ``web/index.html``),
 ``GET /config`` (the model registry), ``GET /stats``, ``POST /generate``
 (text -> WAV path, with the reference client's alias fields) and static
 ``/web_generated``. The server config is the JAX server's: ``models``
@@ -14,7 +15,9 @@ max_batch, depth) and ``warmup``.
 Two modes:
 
 - ``warm``: each model loads once, its decoder packed once (int8 when the
-  entry sets ``quantize_int8``). A ``MicroBatcher`` gathers the requests
+  entry sets ``quantize_int8``), a GST model's neutral style computed
+  once from one row (every row of a window takes it: a GRU over 1 and over
+  16 rows may sum in another order). A ``MicroBatcher`` gathers the requests
   for one model that arrive within ``window_ms`` (up to ``max_batch``)
   into one batched decode (kernels K1, or K5 for int8) and one batched
   HiFi-GAN call (K2), with up to ``depth`` windows in flight, each on its
@@ -31,9 +34,8 @@ Two modes:
 
 ``http.server.ThreadingHTTPServer`` answers each connection on a thread of
 its own; ``/generate`` blocks that thread on the request's future.
-Multi-device serving (``mesh``) and GST are not ported: a mesh, or an
-entry whose config has GST, raises at start. So does an entry of a
-description model: JAX's server passes no description embeddings (a
+Multi-device serving (``mesh``) is not ported: a mesh raises at start. So
+does an entry of a description model: JAX's server passes no description embeddings (a
 request carries no description), so such an entry fails every request
 there. A request is checked against its model
 (``validate_request``, the JAX ``_validate_request``): a 400 for controls
@@ -70,7 +72,7 @@ from tacotron2_tpu_torch.models.layers import resolve_device, use_f32_math
 from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
 from tacotron2_tpu_torch.ops.decoder_loop import PackedDecoder
 from tacotron2_tpu_torch.run.say import (MAX_LEN, cut_vocode, griffin_lim_vocode, load_hifigan,
-                                         load_tacotron, model_config_from, refuse_descriptions,
+                                         load_tacotron, refuse_descriptions,
                                          vocode_bucket, vocoder_policy)
 from tacotron2_tpu_torch.text.cleaners import normalize_text
 from tacotron2_tpu_torch.text.encoder import CharEncoder
@@ -97,6 +99,7 @@ class Bundle(NamedTuple):
     hifigan: Optional[HiFiGAN]
     packed: PackedDecoder
     entry: Dict[str, Any]
+    gst_embedding: Optional[torch.Tensor] = None  # a GST model's neutral style (1, S)
 
 
 def _pow2(n: int) -> int:
@@ -109,11 +112,9 @@ def _pow2(n: int) -> int:
 class ModelRegistry:
     def __init__(self, entries: List[Dict[str, Any]], device: Optional[str] = None):
         for e in entries:
-            try:  # GST (not ported) and description models (JAX's server passes no
-                # description) are refused at start
-                cfg = load_config(e["config"])
-                model_config_from(cfg)
-                refuse_descriptions(cfg, "the server")
+            try:  # description models (JAX's server passes no description) are
+                # refused at start
+                refuse_descriptions(load_config(e["config"]), "the server")
             except NotImplementedError as exc:
                 raise NotImplementedError(f"model {e.get('name')!r}: {exc}") from None
             except Exception:
@@ -134,8 +135,9 @@ class ModelRegistry:
         return sorted(self._loaded)
 
     def load(self, idx: int) -> Bundle:
-        """The model, its vocoder and its decoder packed once (int8 with
-        ``quantize_int8``), loaded at the first call and kept."""
+        """The model, its vocoder, its decoder packed once (int8 with
+        ``quantize_int8``) and a GST model's neutral style, loaded at the
+        first call and kept."""
         with self._lock:
             if idx in self._loaded:
                 return self._loaded[idx]
@@ -147,9 +149,11 @@ class ModelRegistry:
             if entry.get("hifi_gan_checkpoint"):
                 hifigan = load_hifigan(entry["hifi_gan_checkpoint"], vocoder_policy(dev), dev)
             packed = model.make_packed_decoder(bool(entry.get("quantize_int8")))
+            with torch.no_grad():
+                gst = model.gst_embedding(1)
             if dev.type == "cuda":  # the windows' streams read these weights
                 torch.cuda.synchronize(dev)
-            self._loaded[idx] = Bundle(cfg, model, hifigan, packed, entry)
+            self._loaded[idx] = Bundle(cfg, model, hifigan, packed, entry, gst)
             return self._loaded[idx]
 
 
@@ -209,8 +213,9 @@ def synthesize_batch(bundle: Bundle, reqs: List[Dict[str, Any]],
     vocoder go through ``cut_vocode`` in a power-of-two row bucket and a
     128-frame bucket past the receptive field, PCM16 on the device; the
     others through Griffin-Lim. Each row brings its own voice (0 where a
-    multi-speaker model's request names none) and controls."""
-    cfg, model, hifigan, packed, entry = bundle
+    multi-speaker model's request names none) and controls; a GST model's
+    rows the bundle's neutral style."""
+    cfg, model, hifigan, packed, entry, gst = bundle
     prep = cfg.dataset.preprocessing
     dev = next(model.parameters()).device
     with _BATCH_LOCK:
@@ -230,6 +235,8 @@ def synthesize_batch(bundle: Bundle, reqs: List[Dict[str, Any]],
     if cfg.controls_dim:
         cond["controls"] = torch.tensor([reqs[b]["controls"] for b in rows],
                                         dtype=torch.float32, device=dev)
+    if gst is not None:
+        cond["gst_embedding"] = gst.expand(len(rows), -1)
     out = model.forward_infer_fast(torch.as_tensor(chars, device=dev),
                                    torch.as_tensor(lens[rows], device=dev),
                                    int(entry.get("max_len", MAX_LEN)), packed=packed,

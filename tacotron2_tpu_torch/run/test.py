@@ -9,7 +9,8 @@ row count -> each row's frame count ``n``, the first frame whose gate logit
 is negative -> the rows with 0 < n < max_len vocoded together in one
 HiFi-GAN call (kernel K2), each cut at its ``n`` frames, and written as
 ``{row}.wav`` of n x 256 samples; without a HiFi-GAN checkpoint,
-Griffin-Lim a row. A description model is refused at start: JAX's ``test``
+Griffin-Lim a row. A GST model decodes with the neutral style, as JAX's
+``test`` passes no reference. A description model is refused at start: JAX's ``test``
 passes no description embeddings. A row whose gate fires at frame 0 or never, or whose
 Griffin-Lim raises, is a failure: ``failures.csv`` gets ``row|text``. An
 error of the HiFi-GAN call raises.

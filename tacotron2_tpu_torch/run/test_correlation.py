@@ -12,7 +12,8 @@ Counterpart of ``run/test_correlation.py`` of the JAX package:
 - for each override, a directory named ``str(override)``: the rows in
   batches of 8, unshuffled, chars bucketed to 32, every row's controls the
   override (the dataset's ``feature_override``) -> the free-running decode
-  (kernel K1, its controls rows) with the row's voice, one generator a
+  (kernel K1, its controls rows) with the row's voice (a GST model's
+  neutral style, as JAX's passes no reference), one generator a
   batch seeded by the running row count -> each row's ``n`` (the first
   frame whose gate is negative); a row with n == 0 or n >= max_len is
   skipped with JAX's warning; the others vocoded as the port's ``test``

@@ -1,8 +1,10 @@
 """``train``: the port's training driver.
 
 Counterpart of ``run/train.py::do_train`` of the JAX package for the
-vanilla configuration, its speaker tokens, controls and description
-embeddings, and the prosody-model configs: pipe-separated manifests (with
+vanilla configuration, its speaker tokens, controls, description
+embeddings and GST (the style of each batch's ground-truth mel, the GST's
+BatchNorm statistics updated by every train step), and the prosody-model
+configs: pipe-separated manifests (with
 ``force_speaker`` their rows of that speaker only) -> datasets with the
 manifests' ``speaker_id`` column, the config's
 ``extensions.controls.features`` columns and the description embeddings
@@ -22,7 +24,7 @@ Finetuning (``finetune``, JAX :136-143, :194-214, :395): the weights of
 ``max_steps += finetune_steps``, lr / 10, batch x 2, validation once an
 epoch; the encoder (the character embedding inside it) and the speaker
 embedding frozen (``FINETUNE_FROZEN``; their BatchNorm statistics still
-update, as JAX's model state does); ``finetuned.ckpt`` at the end.
+update, as JAX's model state does; a GST trains, as in JAX); ``finetuned.ckpt`` at the end.
 
 The prosody-model configs (``extensions.prosody_model.active``, JAX
 :234-251): the frozen predictor of ``prosody_model_checkpoint`` (a
@@ -32,8 +34,7 @@ The prosody-model configs (``extensions.prosody_model.active``, JAX
 With ``TACOTRON2_TRACE_DIR`` set the loop runs under ``device_trace``
 (``utils/profiling.py``), as JAX's does.
 
-Not ported: GST (``train`` refuses its configs, ``check_trainable``),
-multi-device training and the device prefetcher.
+Not ported: multi-device training and the device prefetcher.
 """
 
 from __future__ import annotations
@@ -78,12 +79,9 @@ def _endless(loader) -> Iterator[Dict[str, np.ndarray]]:
 
 
 def check_trainable(cfg: Config, prosody_model_checkpoint: Optional[str] = None) -> None:
-    """Raise for a config the port cannot train: GST needs its reference
-    encoder (``model_config_from``); the prosody model's style loss needs
-    its predictor's checkpoint."""
-    ext = cfg.extensions
-    model_config_from(cfg)
-    if ext.prosody_model.active and prosody_model_checkpoint is None:
+    """Raise for a config the port cannot train: the prosody model's style
+    loss needs its predictor's checkpoint."""
+    if cfg.extensions.prosody_model.active and prosody_model_checkpoint is None:
         raise ValueError("Prosody model extension is active, but no prosody model checkpoint "
                          "was given!")
 

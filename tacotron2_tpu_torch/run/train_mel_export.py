@@ -9,6 +9,8 @@ under ``torch.no_grad``: the teacher-forced decode is kernel K3 alone ->
 ``mels_post[b, :mel_len]`` as ``results_dir/<basename>.npy``, the ``.wav``
 of the file name replaced (a ``.flac`` row keeps its name and gets ``.npy``
 added, as ``np.save`` does). These are the mels a HiFi-GAN is fine-tuned on.
+A GST model's style is each batch's own teacher-forced one: the GST over
+the batch's ground-truth mel, BatchNorm on its running statistics.
 A description model is refused at start: JAX's export passes no description
 embeddings.
 """

@@ -37,12 +37,13 @@ speaker`` makes them, through ``convert.from_jax_params``.
 - ``model_config_from`` takes every model config in ``config/``, the
   description-embedding one too (since the port has BERT); ``train`` takes
   them too, the prosody-model ones only with a predictor's checkpoint (their
-  style loss); GST is still refused, by a message that names its ROADMAP
-  items; the teacher pass refuses missing or mis-shaped speaker ids and
+  style loss); a GST config too (its memory 256 columns wider, the neutral
+  style one row for every row); the teacher pass refuses missing or mis-shaped speaker ids and
   controls.
 """
 
 import copy
+import dataclasses
 import functools
 import json
 from pathlib import Path
@@ -513,15 +514,21 @@ def test_model_config_from_accepts(name):
                                         "description_embeddings_dim": 8}}),
 ])
 def test_gst_and_descriptions_are_refused(raw):
-    """GST is still refused (its reference encoder is ROADMAP A6, then A7's
-    --gst-reference); description embeddings are accepted since the port
-    has BERT (this test's name is kept from when both were refused)."""
+    """GST and description embeddings are both accepted now (the port has
+    the GST and BERT; this test's name is kept from when both were
+    refused): a GST model's memory is 256 columns wider and it decodes with
+    the neutral style, one row of it for every row of a batch."""
     cfg = config_from_dict(copy.deepcopy(raw))
     if cfg.extensions.gst.active:
-        for fn in (model_config_from, check_trainable):
-            with pytest.raises(NotImplementedError, match="GST is not ported yet") as e:
-                fn(cfg)
-            assert "A6, A7" not in str(e.value) and "A6" in str(e.value)
+        mc = model_config_from(cfg)
+        assert mc.gst and mc.gst_token_embedding_size == 256
+        assert mc.encoded_full_dim == mc.encoded_dim + 256
+        check_trainable(cfg)
+        model = Tacotron2(dataclasses.replace(mc, encoded_dim=16, prenet_dim=8, att_rnn_dim=16,
+                                              att_dim=8, rnn_hidden_dim=16, postnet_dim=8))
+        neutral = model.gst_embedding(3)
+        assert neutral.shape == (3, 256) and torch.equal(neutral[0], neutral[2])
+        assert torch.equal(neutral[:1], model.gst.neutral()[:, 0])
         return
     mc = model_config_from(cfg)
     assert mc.description_embeddings and mc.description_embeddings_dim == 8

@@ -23,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from tacotron2_tpu.convert import convert_hifigan_state_dict, convert_tacotron2_state_dict
+from tacotron2_tpu.convert import (convert_gst_state_dict, convert_hifigan_state_dict,
+                                   convert_tacotron2_state_dict)
 from tacotron2_tpu.models.hifigan import HiFiGAN as JaxHiFiGAN
 from tacotron2_tpu.models.hifigan import HiFiGANConfig as JaxHiFiGANConfig
 from tacotron2_tpu.models.tacotron2 import Tacotron2 as JaxTacotron2
@@ -73,7 +74,9 @@ def test_port_files_found():
     assert "tacotron2_tpu_torch/preprocessing/splits.py" in names
     for new in ("models/prosody.py", "run/train_prosody.py", "training/logging.py",
                 "training/checkpoint.py", "utils/profiling.py", "models/bert.py",
-                "text/wordpiece.py", "run/embed_descriptions.py", "run/test_correlation.py"):
+                "text/wordpiece.py", "run/embed_descriptions.py", "run/test_correlation.py",
+                "models/gst.py", "models/embedding_encoder.py", "utils/diagnostics.py",
+                "data/prosody_dataset.py", "utils/speaker_ids.py"):
         assert f"tacotron2_tpu_torch/{new}" in names
     for pkg in ("transformers", "tokenizers.models", "safetensors.torch"):
         assert _forbidden(pkg)
@@ -97,13 +100,22 @@ def _assert_trees_equal(a, b, where=""):
 
 
 def test_tacotron2_weight_round_trip():
-    params, state = JaxTacotron2(JaxConfig(**CFG)).init(jax.random.PRNGKey(3))
-    sd = from_jax_params(params, state)
-    model = Tacotron2(Tacotron2Config(**CFG))
-    model.load_state_dict(sd)  # strict: every name is the port's (and the reference's)
-    back_p, back_s = convert_tacotron2_state_dict(to_lightning(model.state_dict())["state_dict"])
-    _assert_trees_equal(jax.tree.map(np.asarray, params), back_p, "params")
-    _assert_trees_equal(jax.tree.map(np.asarray, state), back_s, "state")
+    """The vanilla model, then a GST one: the JAX package's converter reads
+    the Tacotron part back, its ``convert_gst_state_dict`` the ``gst.``
+    part (the GST's weights and BatchNorm statistics), bit for bit."""
+    for extra in ({}, {"gst": True, "gst_token_embedding_size": 32}):
+        params, state = JaxTacotron2(JaxConfig(**CFG, **extra)).init(jax.random.PRNGKey(3))
+        sd = from_jax_params(params, state)
+        model = Tacotron2(Tacotron2Config(**CFG, **extra))
+        model.load_state_dict(sd)  # strict: every name is the port's (and the reference's)
+        full = to_lightning(model.state_dict())["state_dict"]
+        back_p, back_s = convert_tacotron2_state_dict(full)
+        if extra:
+            gst = {k[len("tacotron2.gst."):]: v for k, v in full.items()
+                   if k.startswith("tacotron2.gst.")}
+            back_p["gst"], back_s["gst"] = convert_gst_state_dict(gst)
+        _assert_trees_equal(jax.tree.map(np.asarray, params), back_p, "params")
+        _assert_trees_equal(jax.tree.map(np.asarray, state), back_s, "state")
 
 
 @pytest.mark.parametrize("resblock", ["1", "2"])

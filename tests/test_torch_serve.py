@@ -16,8 +16,8 @@ at tiny sizes:
   one decode, 400s, a bad checkpoint failing only its requests, an int8
   entry packed once, Griffin-Lim for ``use_vocoder: false``, subprocess
   mode, and shutdown failing pending requests; a multi-speaker and a
-  controllable entry served, a GST and a description-embedding entry
-  refused at start.
+  controllable entry served, a GST entry served with the neutral style, a
+  description-embedding entry refused at start.
 """
 
 import concurrent.futures
@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from tacotron2_tpu.ops.decoder_loop_pallas import T_CHUNK, FusedDecodeLoop
+from tacotron2_tpu_torch.__main__ import main as port_cli
 from tacotron2_tpu_torch.audio.io import read_wav
 from tacotron2_tpu_torch.config import load_config
 from tacotron2_tpu_torch.convert import to_lightning
@@ -455,20 +456,44 @@ def test_extension_entries_load_and_serve(files, extension, serve, tmp_path):
 
 @pytest.mark.parametrize("extension", ["gst", "descriptions"])
 def test_unported_extension_entries_are_refused(files, extension, tmp_path, monkeypatch):
-    """An entry whose config has GST (not ported: its reference encoder,
-    ROADMAP A6) or description embeddings (JAX's server passes no
-    description, so such an entry would fail every request) stops the
-    server at start, with a message that says which."""
+    """An entry whose config has description embeddings (JAX's server passes
+    no description, so such an entry would fail every request) stops the
+    server at start, with a message that says why. A GST entry is accepted
+    now (the name is kept from when it was refused): it loads with its
+    neutral style, computed once, and a request's audio is the say's with
+    the neutral style."""
     monkeypatch.chdir(tmp_path)
     config = copy.deepcopy(files)
     raw = json.loads(open(config["models"][0]["config"]).read())
     if extension == "gst":
-        raw["extensions"] = {"gst": {"active": True}}
+        raw["extensions"] = {"gst": {"active": True, "token_embedding_size": 16}}
     else:
         raw["model"]["args"].update(description_embeddings=True, description_embeddings_dim=8)
     cfg_path = tmp_path / f"{extension}.json"
     cfg_path.write_text(json.dumps(raw))
     config["models"][0]["config"] = str(cfg_path)
-    match = "GST is not ported yet" if extension == "gst" else "passes no description"
-    with pytest.raises(NotImplementedError, match=match):
-        srv.App(config, device="cpu")
+    if extension != "gst":
+        with pytest.raises(NotImplementedError, match="passes no description"):
+            srv.App(config, device="cpu")
+        return
+    torch.manual_seed(0)
+    model = Tacotron2(model_config_from(load_config(str(cfg_path))))
+    with torch.no_grad():
+        model.decoder.gate.bias.fill_(3.0)
+    torch.save(to_lightning(model.state_dict()), tmp_path / "gst.ckpt")
+    config["models"][0].update(checkpoint=str(tmp_path / "gst.ckpt"), max_len=40)
+    app = srv.App(config, device="cpu")
+    try:
+        status, body = app.generate({"text": "a style", "seed": 5})
+        assert status == 200, body
+        bundle = app.registry.load(0)
+        assert torch.equal(bundle.gst_embedding, model.gst.neutral()[:, 0])
+    finally:
+        app.close(wait=True)
+    served = read_wav(str(tmp_path / body["path"]))[0]
+    say = port_cli(["say", "--config", str(cfg_path), "--checkpoint", str(tmp_path / "gst.ckpt"),
+                    "--text", "a style", "--out", str(tmp_path / "say.wav"), "--random-seed",
+                    "5", "--max-len-override", "40", "--device", "cpu",
+                    "--hifi-gan-checkpoint", config["models"][0]["hifi_gan_checkpoint"]])
+    alone = read_wav(say["output"])[0]
+    assert served.shape == alone.shape and np.abs(served - alone).max() <= 1 / 32768
