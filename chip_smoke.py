@@ -14,6 +14,8 @@
     python3 chip_smoke.py --eval    # the kernels' build and phase 4f alone
     python3 chip_smoke.py --train-extras  # the kernels' build and phase 4g alone
     python3 chip_smoke.py --descriptions  # the kernels' build and phase 4h alone
+    python3 chip_smoke.py --gst     # the kernels' build and phase 4i alone
+    python3 chip_smoke.py --dp      # the kernels' build and phase 4j alone
 
 Phases, each of which must pass:
 
@@ -191,6 +193,21 @@ Phases, each of which must pass:
    override, K1 5 launches a step
    reading the controls, K2 one vocode a batch, ``correlations.csv`` by
    JAX's rules;
+4i. Global Style Tokens (``gst_phase``);
+4j. data-parallel train (``dp_phase``): (a) ``DP_RANKS`` gloo ranks sharing
+   the card, each on its rows of the vanilla config's B=32 and the
+   controllable config's B=64, then one process at the full batch, each
+   step from rank 0's state before it, in a one-rank group and without a
+   group, held to ``DP_TOL`` (the gradients as one vector and each tensor's
+   gradient and update), the ranks' weights the same bits, each rank's K3 /
+   K4 launches ``2 + 3T`` / ``4 + 4T`` a step, and a planted defect (the
+   BatchNorm sums' gradients left local) read above ``DP_TOL``; (b)
+   ``train`` as one NCCL rank under torchrun's environment against no
+   process group; (c) the prefetcher's staged batches against
+   ``DirectStream``'s bit for bit, and ``train`` with it off (the default)
+   and on, the
+   same losses bit for bit, their step and batch-wait times; K3
+   / K4 at the ranks' 16 and 32 rows against their plain versions;
 5. print the kernels line and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero before the last line on any failure, when no CUDA device
@@ -6896,6 +6913,560 @@ def gst_mode() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 4j: data-parallel train (torch.distributed) and the device prefetcher
+
+DP_STEPS = 3  # train steps of each data-parallel comparison
+DP_RANKS = 2  # ranks sharing the one card in (a): no data-parallel throughput
+DP_RUN_STEPS = 4  # steps of the CLI runs of (b) and (c)
+# (a)'s limits, the train limits of section 2, not new ones: a rank's step
+# differs from one process's running the same code in a one-rank group in
+# the order of its sums only (the BatchNorm statistics, the gradients'
+# all-reduce, the dW GEMMs over half the rows), which flips bf16 roundings
+# downstream as K3 / K4's own sums do. Against one process without a group
+# the BatchNorm is cuDNN's. Both are held to every limit.
+BN_FED_BIAS = tuple(f"encoder.convolutions.{4 * i}.bias" for i in range(3))
+# The gradients are held as one vector, the relative L2 distance of every
+# gradient to the reference's, and tensor by tensor (below); each tensor's
+# worst element against its own max is reported beside the same reading
+# between the two one-process steps, not held:
+# a bf16 step's gradients sum bf16 operands behind train-mode BatchNorms
+# (the encoder's and the postnet's), and two one-process steps that differ
+# only in the BatchNorm's implementation read 1.3-1.6e-2 of a tensor's max
+# against each other outside the encoder's conv stack and up to 1.8e-1 in
+# it, where a conv's gradient cancels to a small part of its terms
+# (PERF.md, PR 16).
+# Each tensor is held too: its gradient's relative L2 distance
+# (``tensor_grads_l2``; a BatchNorm-fed bias against its conv weight's
+# gradient) to K4's gate-gradient limit, since a fresh model's first step
+# reads up to 1.45e-2 on 14 of 55 tensors between the two one-process steps
+# alone (PERF.md, PR 16); and the step's own update: the weights after it
+# against Adam applied anew to the state before it with the step's own
+# gradients, per tensor against that update's max (``adam``; two steps
+# from one state part by Adam's lr x sign of near-zero gradients, which
+# ``weights`` reads).
+DP_TOL = {"loss": K3_TOL_TRAIN["mel_gate"], "bn": K3_TOL_TRAIN["mel_gate"],
+          "grad_norm": GRAD_TOL, "grads": GRAD_TOL, "weights": GRAD_TOL,
+          "tensor_grads_l2": K4_TOL["dg1"], "adam": GRAD_TOL}
+# A defect planted in one vanilla step (``_plant_local_bn_grad``): the
+# BatchNorm statistics' sums all-reduced forward but their gradients left
+# local. The ranks' weights and statistics stay equal, so only DP_TOL's
+# readings can see it: they must.
+
+
+def dp_loader(run: dict, B: int):
+    """``train``'s seeded loader over ``run``'s manifest, as ``do_train``
+    builds it."""
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.data.loader import TTSDataLoader
+    from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest, select_rows
+
+    cfg = load_config(str(run["cfg"]))
+    ds = manifest_dataset(cfg, select_rows(cfg, read_manifest(cfg.dataset.train)),
+                          str(run["speech"]), cache_dir=str(run["root"] / "dp_cache"), seed=SEED)
+    return TTSDataLoader(ds, batch_size=B, shuffle=True, drop_last=True, seed=SEED,
+                         bucket_chars=32, bucket_frames=128)
+
+
+def dp_batches(run: dict, B: int, path: Path) -> None:
+    """The first ``DP_STEPS`` global batches of ``dp_loader``, saved to ``path``."""
+    import torch
+
+    loader = dp_loader(run, B)
+    out = []
+    while len(out) < DP_STEPS:
+        out += list(loader)
+    torch.save(out[:DP_STEPS], path)
+
+
+def dp_steps(rank: int, n: int, spec: dict, starts=None) -> dict:
+    """``spec["steps"]`` (``DP_STEPS``) train steps of a seeded model of
+    ``spec["cfg"]`` on the card, each on this rank's rows of the next batch
+    of ``spec["batches"]``
+    (all of them with ``n`` 1: one process, no group), the dropout
+    generator seeded alike; K3 / K4 and the encoder's launches counted from
+    0. ``starts[i]``, where given, is the state step i starts from (another
+    run's after step i - 1: weights, statistics, Adam's state, the
+    generator's), so each step is compared from one state. -> per step the
+    loss, ``grad_norm``, T, host ms and a digest of the weights and
+    statistics, with ``spec["keep"]`` also every gradient and that state
+    after the step (host copies)."""
+    import copy
+    import hashlib
+
+    import torch
+
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.models.layers import Policy, use_f32_math
+    from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
+    from tacotron2_tpu_torch.ops import train_decode as td
+    from tacotron2_tpu_torch.parallel import mesh
+    from tacotron2_tpu_torch.run.say import model_config_from
+    from tacotron2_tpu_torch.training import optimizer, step
+
+    use_f32_math()
+    dev = torch.device("cuda")
+    cfg = load_config(spec["cfg"])
+    torch.manual_seed(SEED)
+    model = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision)).to(dev)
+    dp = mesh.DataParallel(rank, n) if torch.distributed.is_initialized() else None
+    if dp is not None:
+        mesh.broadcast_state(model, dp)
+    opt, sched = optimizer.make_optimizer(model.parameters(), cfg.training.lr,
+                                          cfg.training.weight_decay)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    init = _host(model.state_dict()) if spec.get("keep") else None
+    td.reset_launches()
+    el.reset_launches()
+    out = []
+    batches = torch.load(spec["batches"], weights_only=False)[:spec.get("steps", DP_STEPS)]
+    with torch.enable_grad():
+        for i, b in enumerate(batches):
+            if starts and starts[i] is not None:
+                model.load_state_dict(starts[i]["model"])
+                # a copy: Adam keeps a loaded host tensor (its step count)
+                # and counts on in it
+                opt.load_state_dict(copy.deepcopy(starts[i]["opt"]))
+                gen.set_state(starts[i]["gen"])
+            rows = mesh.shard_rows(b, rank, n) if dp is not None else b
+            t0 = time.perf_counter()
+            m = step.train_step(model, opt, sched, step.to_device(rows, dev), gen, dp=dp)
+            torch.cuda.synchronize()
+            rec = {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]), "T": int(b["mel"].shape[1]),
+                   "rows": int(rows["mel"].shape[0])}
+            state = _host(model.state_dict())
+            rec["digest"] = hashlib.sha1(b"".join(
+                v.reshape(-1).view(torch.uint8).numpy().tobytes() for v in state.values())
+            ).hexdigest()
+            if spec.get("keep"):
+                rec["state"] = {"model": state, "gen": gen.get_state(),
+                                "opt": _host(opt.state_dict())}
+                rec["grads"] = {k: p.grad.detach().float().cpu()
+                                for k, p in model.named_parameters()}
+            out.append(rec)
+    return {"steps": out, "init": init, "launches": dict(td.LAUNCHES),
+            "ctl": dict(td.CONTROLS_LAUNCHES), "enc": dict(el.LAUNCHES)}
+
+
+def _host(x):
+    """A copy of a state tree with every tensor on the host."""
+    import copy
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().clone()
+    if isinstance(x, dict):
+        return {k: _host(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_host(v) for v in x)
+    return copy.deepcopy(x)
+
+
+def _dp_rank(rank: int, n: int, store: str, spec: dict, out: str) -> None:
+    """A spawned rank of (a): gloo over ``file://store``, ``dp_steps``,
+    its result saved to ``out``."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from tacotron2_tpu_torch.parallel import mesh
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))  # the ranks share the host
+
+    mesh.init_data_parallel("gloo", f"file://{store}", rank, n)
+    if spec.get("defect"):
+        _plant_local_bn_grad(mesh)
+    torch.backends.cudnn.deterministic = True  # a reading the next run repeats
+    res = dp_steps(rank, n, {**spec, "keep": rank == 0})
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    torch.save(res, out)
+
+
+def _plant_local_bn_grad(mesh) -> None:
+    """The planted defect of (a): ``mesh.mean_over_ranks`` (the global
+    BatchNorm's and the CCC loss's sums) all-reducing forward only."""
+    import torch
+
+    class ForwardOnlySum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            y = x.clone()
+            torch.distributed.all_reduce(y, group=group)
+            return y
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    mesh.mean_over_ranks = lambda x: ForwardOnlySum.apply(x, mesh.current().group) / \
+        mesh.current().n
+
+
+def _step_errors(a: dict, ref: dict, start: dict, replay: dict) -> dict:
+    """A step ``a`` against a reference's from the same state ``start`` (a
+    model state): the relative loss and ``grad_norm``, the worst gradient
+    (against its own max), weight and BatchNorm statistic (against max(1,
+    max |ref|)), each tensor's gradient's relative L2 distance (``DP_TOL``),
+    and ``a``'s weights against ``replay`` (Adam applied to ``start`` with
+    ``a``'s gradients), each worst with its tensor's name."""
+    w: dict = {"loss": abs(a["loss"] - ref["loss"]) / abs(ref["loss"]),
+               "grad_norm": abs(a["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+               "per_tensor": {}}
+
+    def worst(key, e, k):
+        if e > w.get(key, -1.0):
+            w[key], w[key + "_at"] = e, k
+
+    diff2 = norm2 = 0.0
+    for k, g in ref["grads"].items():
+        g = g.double()
+        d = a["grads"][k].double() - g
+        diff2, norm2 = diff2 + float((d * d).sum()), norm2 + float((g * g).sum())
+        # a conv bias that feeds a train-mode BatchNorm has a zero gradient in
+        # exact arithmetic (the BN removes it): each side's is rounding noise,
+        # read against its conv's weight gradient
+        own = ref["grads"][k[:-4] + "weight"].double() if k in BN_FED_BIAS else g
+        scale, l2 = float(own.abs().max()), float(own.norm())
+        worst("tensor_grads", float(d.abs().max()) / scale if scale > 0 else 0.0, k)
+        e = float(d.norm()) / l2 if l2 > 0 else float(d.norm())
+        worst("tensor_grads_l2", e, k)
+        upd = float((replay[k].double() - start[k].double()).abs().max())
+        u = float((a["state"]["model"][k].double() - replay[k].double()).abs().max())
+        worst("adam", u / upd if upd > 0 else u, k)
+        w["per_tensor"][k] = {"grad_l2": e, "adam": u / upd if upd > 0 else u}
+    w["grads"] = (diff2 / norm2) ** 0.5
+    for k, v in ref["state"]["model"].items():
+        if v.is_floating_point():
+            worst("bn" if "running" in k else "weights", err(a["state"]["model"][k], v)[1], k)
+    return w
+
+
+def _adam_replay(model, cfg, start: dict, opt_state, grads: dict) -> dict:
+    """Adam of ``train_step`` applied once to the model state ``start``
+    (``opt_state`` None: a fresh optimizer) with the (clipped) ``grads``,
+    on ``model``'s device: -> the parameters after it (host copies)."""
+    import copy
+
+    from tacotron2_tpu_torch.training import optimizer
+
+    model.load_state_dict(start)
+    opt, _ = optimizer.make_optimizer(model.parameters(), cfg.training.lr,
+                                      cfg.training.weight_decay)
+    if opt_state is not None:
+        opt.load_state_dict(copy.deepcopy(opt_state))  # as in dp_steps
+    for k, p in model.named_parameters():
+        p.grad = grads[k].to(p.device)
+    opt.step()
+    return {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+
+
+def _spawn_ranks(d: Path, spec: dict, prefix: str) -> list:
+    """``DP_RANKS`` spawned ``_dp_rank`` processes over ``spec`` in a
+    store of their own under ``d``: -> their results."""
+    import multiprocessing
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank, args=(r, DP_RANKS, str(d / f"{prefix}store"), spec,
+                                                str(d / f"{prefix}rank{r}.pt")))
+             for r in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise SmokeFailure(f"4j {prefix}: the ranks exited {[p.exitcode for p in procs]}")
+    return [torch.load(d / f"{prefix}rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+
+
+def dp_compare(run: dict, B: int, tag: str, log: dict, card: str) -> dict:
+    """(a) at batch ``B``: ``DP_RANKS`` spawned ranks of ``B / DP_RANKS``
+    rows, then one process at ``B`` on the same batches, each step from
+    rank 0's state before it, in a one-rank group (the same global-batch
+    code: only the sums' split differs) and without a group (cuDNN's
+    BatchNorm), each held to ``DP_TOL`` (each tensor's worst gradient
+    element reported: see there). The ranks' weights and statistics the same
+    bits; each rank's K3 / K4 launches ``2 + 3T`` / ``4 + 4T`` a step
+    (controls mode where the config has controls), one ``bilstm_backward``.
+    At the vanilla batch, one step of ranks with the planted defect
+    (``_plant_local_bn_grad``) must read above ``DP_TOL``."""
+    import torch
+
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.models.layers import Policy
+    from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+    from tacotron2_tpu_torch.ops import train_decode as td
+    from tacotron2_tpu_torch.parallel import mesh
+    from tacotron2_tpu_torch.run.say import model_config_from
+
+    d = run["root"] / f"dp_{tag}"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    spec = {"cfg": str(run["cfg"]), "batches": str(d / "batches.pt")}
+    dp_batches(run, B, d / "batches.pt")
+    ranks = _spawn_ranks(d, spec, "")
+    starts = [None] + [s["state"] for s in ranks[0]["steps"][:-1]]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as the ranks'
+    mesh.init_data_parallel("gloo", f"file://{d / 'store1'}", 0, 1)
+    try:
+        one_rank = dp_steps(0, 1, {**spec, "keep": True}, starts)
+    finally:
+        torch.distributed.destroy_process_group()
+    try:
+        plain = dp_steps(0, 1, {**spec, "keep": True}, starts)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    cfg = load_config(spec["cfg"])
+    model = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision)).cuda()
+
+    def errors(got, ref, i, start_opt):
+        start = starts[i]["model"] if i else ref["init"]
+        return _step_errors(got, ref["steps"][i], start,
+                            _adam_replay(model, cfg, start, start_opt, got["grads"]))
+
+    # "both_one_process": the two one-process steps against each other (no
+    # data parallel, only the BatchNorm's implementation differs): reported
+    refs = {"one_rank": [], "no_group": [], "both_one_process": []}
+    shown = (*DP_TOL, "tensor_grads")
+    for i, a in enumerate(ranks[0]["steps"]):
+        if any(r["steps"][i]["digest"] != a["digest"] for r in ranks[1:]):
+            raise SmokeFailure(f"4j {tag}: the ranks' weights differ after step {i + 1}")
+        for name, got, ref in (("one_rank", a, one_rank), ("no_group", a, plain),
+                               ("both_one_process", one_rank["steps"][i], plain)):
+            w = errors(got, ref, i, starts[i]["opt"] if i else None)
+            refs[name].append(w)
+            label = ("one process, one rank against no group" if name == "both_one_process"
+                     else f"against one process, {name.replace('_', ' ')}")
+            print(f"    step {i + 1} {label}: " + ", ".join(
+                f"{k} {w[k]:.2e}" + (f" ({w[k + '_at']})" if k + "_at" in w else "")
+                for k in shown))
+    worst = {name: {k: max(w[k] for w in ws) for k in shown} for name, ws in refs.items()}
+    bad = {f"{name} {k}": v for name, ws in worst.items() for k, v in ws.items()
+           if name != "both_one_process" and k in DP_TOL and not v <= DP_TOL[k]}
+    if tag == "vanilla":  # the planted defect, one step against one process
+        defect = _spawn_ranks(d, {**spec, "defect": True, "steps": 1}, "defect_")
+        w = errors(defect[0]["steps"][0], plain, 0, None)
+        seen = {k: w[k] for k in DP_TOL if not w[k] <= DP_TOL[k]}
+        log.setdefault("dp", {})["defect"] = {
+            "readings": w, "flagged": seen,
+            "ranks_equal": defect[0]["steps"][0]["digest"] == defect[1]["steps"][0]["digest"]}
+        print(f"    planted defect (the BatchNorm sums' gradients left local), step 1 against "
+              f"one process: " + ", ".join(
+                  f"{k} {w[k]:.2e}" + (f" ({w[k + '_at']})" if k + "_at" in w else "")
+                  for k in shown)
+              + f"; above DP_TOL: {sorted(seen)}; the ranks' weights equal "
+              f"{log['dp']['defect']['ranks_equal']}")
+        if not seen:
+            bad["planted defect passes"] = w["tensor_grads_l2"]
+    counted = "ctl" if "[controls]" in tag else "launches"
+    want = {"teacher_forward": sum(td.forward_launches(s["T"]) for s in plain["steps"]),
+            "teacher_backward": sum(td.backward_launches(s["T"]) for s in plain["steps"])}
+    for r, res in enumerate(ranks):
+        if res[counted] != want or res["enc"]["bilstm_backward"] != DP_STEPS \
+                or res["enc"]["bilstm_forward"] < DP_STEPS:
+            raise SmokeFailure(f"4j {tag}: rank {r} launched K3/K4 {res[counted]} (want {want}), "
+                               f"the encoder {res['enc']}")
+    rows = {s["rows"] for res in ranks for s in res["steps"]}
+    out = {"B": B, "ranks": DP_RANKS, "rows_per_rank": sorted(rows), "worst": worst,
+           "per_step": refs,
+           "tol": DP_TOL, "launches_per_rank": ranks[0][counted],
+           "losses": [s["loss"] for s in ranks[0]["steps"]],
+           "one_process_losses": [s["loss"] for s in plain["steps"]],
+           "rank_ms": [s["ms"] for s in ranks[0]["steps"]],
+           "one_process_ms": [s["ms"] for s in plain["steps"]], "card": card}
+    print(f"  {tag}: {DP_RANKS} ranks x {sorted(rows)} rows (gloo, one card) against one process "
+          f"at B={B}, worst over {DP_STEPS} steps: "
+          + "; ".join(f"{name.replace('_', ' ')}: " + ", ".join(
+              f"{k} {v:.2e} (tol {DP_TOL.get(k, 'reported')})" for k, v in ws.items())
+              for name, ws in worst.items())
+          + f"; each rank's K3/K4 launches {ranks[0][counted]}; the ranks' weights equal bit "
+          f"for bit; step ms on the host clock, 2 ranks sharing one card (not data-parallel "
+          f"throughput) {[round(x, 1) for x in out['rank_ms']]}, one process "
+          f"{[round(x, 1) for x in out['one_process_ms']]}, on {card}")
+    log.setdefault("dp", {})[tag] = out
+    if bad:  # the rest of the phase runs; the run fails at its end
+        log.setdefault("deferred", []).append(
+            f"4j {tag}: a data-parallel step differs from one process's: {bad}")
+    return out
+
+
+def dp_cli(run: dict, tag: str, env: dict) -> dict:
+    """``train`` through the CLI entry in this process for ``DP_RUN_STEPS``
+    steps on ``run``'s corpus with ``env`` set around it (torchrun's
+    variables, ``TACOTRON2_DEVICE_PREFETCH``)."""
+    import os
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return cli(["train", "--config", str(run["cfg"]), "--speech-dir", str(run["speech"]),
+                    "--results-dir", str(run["root"] / f"dp_{tag}"), "--seed", str(SEED),
+                    "--max-steps", str(DP_RUN_STEPS)])
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_phase(van: dict, ctl: dict, log: dict, card: str) -> tuple:
+    """Phase 4j. (a) ``dp_compare`` of the vanilla config at B=32 and the
+    controllable one at B=64; (b) ``train`` as one NCCL rank under
+    torchrun's environment against the same run without a process group;
+    (c) the batches the prefetcher stages (rank 1's rows of 2) against
+    ``DirectStream``'s, bit for bit, then ``train`` with
+    ``TACOTRON2_DEVICE_PREFETCH`` 0 and 1: the same losses bit for bit,
+    their step and batch-wait ms. Every run here takes cuDNN's
+    deterministic algorithms, so that two runs can be equal and (a)'s
+    readings repeat from run to run. K3 / K4 at
+    the ranks' shapes (16 and 32 rows) against their plain versions, timed.
+    -> (the launches of (b)'s run, which drives the main path: {kernels-line
+    row: launches}, K3 / K4's readings at the ranks' shapes)"""
+    import os
+    import socket
+
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.ops import encoder_lstm as el
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    print(f"  (a) {DP_RANKS} gloo ranks on the one card: each rank's rows through K3 / K4 and "
+          "the encoder's kernels; no number here is from two cards")
+    dp_compare(van, TRAIN_B, "vanilla", log, card)
+    dp_compare(ctl, CTL_TRAIN_B, "[controls]", log, card)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torchrun = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+                "MASTER_PORT": str(port), "TACOTRON2_DEVICE_PREFETCH": ""}
+    staged_equal = dp_staging(van)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        td.reset_launches()
+        el.reset_launches()
+        nccl = dp_cli(van, "nccl", torchrun)
+        launches = {**td.LAUNCHES, **el.LAUNCHES}
+        runs = {k: dp_cli(van, f"prefetch_{k}", {"TACOTRON2_DEVICE_PREFETCH": v})
+                for k, v in (("off", "0"), ("on", "1"))}
+    finally:
+        torch.backends.cudnn.deterministic = det
+    losses = {k: [s["loss"] for s in r["steps"]] for k, r in (("nccl", nccl), *runs.items())}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["nccl"], losses["off"]))
+    steady = {k: {"step_ms": float(np.median([s["s"] * 1e3 for s in r["steps"][1:]])),
+                  "wait_ms": float(np.median([s["wait_s"] * 1e3 for s in r["steps"][1:]])),
+                  "step_and_wait_mean_ms": float(np.mean([(s["s"] + s["wait_s"]) * 1e3
+                                                          for s in r["steps"][1:]])),
+                  "steps_ms": [s["s"] * 1e3 for s in r["steps"]],
+                  "waits_ms": [s["wait_s"] * 1e3 for s in r["steps"]],
+                  "prefetch": r["prefetch"]} for k, r in runs.items()}
+    res = {"nccl_ranks": nccl["ranks"], "nccl_vs_no_group_loss_rel": rel,
+           "nccl_bit_equal": losses["nccl"] == losses["off"], "losses": losses,
+           "staged_bit_equal": staged_equal, "prefetch": steady, "cores": os.cpu_count(),
+           "card": card}
+    log.setdefault("dp", {}).update(res)
+    print(f"  (b) train as one NCCL rank under torchrun's environment against no process group, "
+          f"{DP_RUN_STEPS} steps at B={TRAIN_B}: losses within {rel:.2e} relative (tol "
+          f"{DP_TOL['loss']:g}), bit-equal {res['nccl_bit_equal']}; launches {launches}")
+    print(f"  (c) staged batches bit-equal to DirectStream's {staged_equal}; "
+          f"TACOTRON2_DEVICE_PREFETCH=0 / 1: losses bit-equal "
+          f"{losses['on'] == losses['off']}; " + "; ".join(
+              f"{k}: steady step {v['step_ms']:.1f} ms, batch wait {v['wait_ms']:.2f} ms, step + "
+              f"wait {v['step_and_wait_mean_ms']:.1f} ms a step on average (steps "
+              f"{[round(x, 1) for x in v['steps_ms']]}, waits {[round(x, 2) for x in v['waits_ms']]})"
+              for k, v in steady.items()) + f", on a host of {os.cpu_count()} cores, {card}")
+    if nccl["ranks"] != 1 or not rel <= DP_TOL["loss"] or 0 in launches.values():
+        raise SmokeFailure(f"4j (b): {res}")
+    if not staged_equal or losses["on"] != losses["off"] \
+            or [r["prefetch"] for r in runs.values()] != [False, True]:
+        raise SmokeFailure(f"4j (c): the prefetched run differs: {res}")
+    readings = {}
+    for run, B, mode in ((van, TRAIN_B // DP_RANKS, ""),
+                         (ctl, CTL_TRAIN_B // DP_RANKS, "[controls]")):
+        kern = train_split(str(run["cfg"]), run["ckpt"], run["speech"], run["root"], B, log,
+                           mode, f"@dp{B}", readings=True, split=False)["kernels"]
+        readings.update({k: {f"B{B}": v} for k, v in kern.items()})
+    return launches, readings
+
+
+def dp_staging(run: dict, n: int = 4) -> bool:
+    """The first ``n`` batches of ``DevicePrefetcher`` and of ``DirectStream``
+    over ``dp_loader(run, TRAIN_B)``, rank 1's rows of 2 each, on the card:
+    -> whether they are equal bit for bit."""
+    import torch
+
+    from tacotron2_tpu_torch.parallel import mesh
+    from tacotron2_tpu_torch.parallel.prefetch import DevicePrefetcher, DirectStream
+
+    select = lambda b: mesh.shard_rows(b, 1, 2)
+    got = []
+    dev = torch.device("cuda")
+    for stream in (DevicePrefetcher(dp_loader(run, TRAIN_B), dev, 2, select),
+                   DirectStream(dp_loader(run, TRAIN_B), dev, select)):
+        batches = []
+        for device_batch, _ in stream:
+            batches.append({k: v.cpu() for k, v in device_batch.items()})
+            if len(batches) == n:
+                break
+        stream.close()
+        got.append(batches)
+    return all(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+               for a, b in zip(*got))
+
+
+def dp_mode() -> int:
+    """``--dp``: the kernels' build and phase 4j alone, on random full-width
+    checkpoints and 4b's and 4e's synthetic corpora; details to
+    ``chiprun_out/dp.json``."""
+    import torch
+
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build
+
+    card = card_line()
+    print(f"[4j] alone on {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    use_f32_math()
+    t0 = time.perf_counter()
+    build.build_all()
+    log: dict = {"card": card, "build_s": time.perf_counter() - t0}
+    readings = {}
+    try:
+        WORK.mkdir(parents=True, exist_ok=True)
+        van = _extras_source("train", ROOT / "config" / "vanilla-ljspeech-stop.json",
+                             TRAIN_WAVS, False)
+        ctl = _extras_source("train_controls", ROOT / "config" / CTL_CONFIG, CTL_TRAIN_WAVS, True)
+        _, readings = dp_phase(van, ctl, log, card)
+        if log.get("deferred"):
+            raise SmokeFailure("; ".join(log["deferred"]))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    finally:
+        log["seconds"] = time.perf_counter() - t0
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "dp.json").write_text(json.dumps(log, indent=1, default=str))
+        shutil.rmtree(WORK, ignore_errors=True)
+    print(json.dumps({"readings": readings}, default=str))
+    print(card)
+    return 0
+
+
 def arg_value(flag: str, default: str) -> str:
     argv = sys.argv[1:]
     return argv[argv.index(flag) + 1] if flag in argv else default
@@ -7122,6 +7693,8 @@ def main() -> int:
         return descriptions_mode()
     if "--gst" in sys.argv[1:]:
         return gst_mode()
+    if "--dp" in sys.argv[1:]:
+        return dp_mode()
     log: dict = {}
     t_start = time.perf_counter()
     try:
@@ -7268,6 +7841,12 @@ def main() -> int:
         gst_launches, gst_readings = gst_phase(ctl_run, g_path, log, card)
         for k, n in gst_launches.items():
             launches[k] = launches.get(k, 0) + n
+        print(f"[4j] data-parallel train ({DP_RANKS} gloo ranks sharing the card against one "
+              f"process at B={TRAIN_B} and, {CTL_CONFIG}, B={CTL_TRAIN_B}), train as one NCCL "
+              "rank under torchrun's environment, and the device prefetcher on and off")
+        dp_launches, dp_readings = dp_phase(van_run, ctl_run, log, card)
+        for k, n in dp_launches.items():
+            launches[k] = launches.get(k, 0) + n
         for r in rows:
             if r["name"] == "teacher_forward":
                 r["export"] = k3_export
@@ -7277,6 +7856,8 @@ def main() -> int:
                 r["descriptions"] = desc_readings[r["name"]]
             if r["name"] in gst_readings:
                 r["gst"] = gst_readings[r["name"]]
+            if r["name"] in dp_readings:
+                r["dp"] = dp_readings[r["name"]]
         if log.get("deferred"):
             raise SmokeFailure("; ".join(log["deferred"]))
 
@@ -7306,7 +7887,8 @@ def main() -> int:
         # the cells' and the attention's readings at other row counts ride along
         print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                        **{k: r[k] for k in ("rows", "export", "finetune",
-                                                            "descriptions", "gst") if k in r}}
+                                                            "descriptions", "gst", "dp")
+                                          if k in r}}
                                       for r in rows]}))
         print(card)
     except SmokeFailure as e:

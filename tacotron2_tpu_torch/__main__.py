@@ -10,6 +10,7 @@
     python -m tacotron2_tpu_torch train --config C --speech-dir S --results-dir R \\
         [--resume-ckpt F] [--max-steps N] [--seed K] [--device cpu] \\
         [--finetune --finetune-steps N] [--prosody-model-checkpoint P]
+    torchrun --nproc-per-node N -m tacotron2_tpu_torch train ...
 
     python -m tacotron2_tpu_torch train_prosody --config C --speech-dir S \\
         [--results-dir R] [--steps 10000] [--lr 1e-5] [--batch-size 32] [--device cpu]
@@ -32,6 +33,8 @@
     python -m tacotron2_tpu_torch preprocess --dataset ljspeech|hifi-tts --speech-dir S \\
         [--out-dir D] [--out-postfix P] [--n-jobs 8] [--trim] [--trim-top-db 60]
 
+    python -m tacotron2_tpu_torch convert ORBAX_DIR OUT.ckpt
+
 The options mirror the JAX package's ``main.py`` commands of the same names
 (``say --export-mel`` also saves the vocoded mel, (M, frames), as
 ``o.wav.npy`` for ``--out o.wav``; ``preprocess``'s manifests are split
@@ -53,7 +56,11 @@ upstream HiFi-GAN ``g_*`` file with its ``config.json`` (Griffin-Lim
 without one). ``server``'s config is the JAX server's (``models``,
 ``batching``, ``warmup``). All run on the card unless ``--device cpu`` is
 given; ``preprocess`` runs on the host alone and takes no config, and
-``embed_descriptions`` takes none either.
+``embed_descriptions`` takes none either. ``convert`` (the JAX ``convert``
+the other way round) writes a JAX Orbax checkpoint directory as the port's
+``.ckpt`` (a ``train`` one with its optimizer state and step, or a
+``train_prosody`` one); it needs ``tensorstore``, and wherever that is
+installed the commands above also take the directory itself.
 """
 
 from __future__ import annotations
@@ -197,6 +204,11 @@ def _parser() -> argparse.ArgumentParser:
     r.add_argument("--n-jobs", type=int, default=8, help="worker processes")
     r.add_argument("--trim", action="store_true", help="trim silence into a copy of the audio")
     r.add_argument("--trim-top-db", type=float, default=60.0)
+
+    o = sub.add_parser("convert", help="a JAX Orbax checkpoint directory -> the port's .ckpt")
+    o.add_argument("orbax_dir", help="a checkpoint directory of the JAX package's train or "
+                                     "train_prosody")
+    o.add_argument("out", help="the .ckpt file to write")
     return p
 
 
@@ -211,6 +223,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         postfix = args.out_postfix if args.out_postfix is not None else str(int(time.time()))
         return {"outputs": do_preprocess(args.speech_dir, args.out_dir, postfix, args.n_jobs,
                                          args.trim, args.trim_top_db)}
+    if args.command == "convert":
+        from tacotron2_tpu_torch.training import checkpoint as ckpt_lib
+
+        return ckpt_lib.convert_orbax(args.orbax_dir, args.out)
     if args.command == "embed_descriptions":
         from tacotron2_tpu_torch.run.embed_descriptions import do_embed_descriptions
 

@@ -7,7 +7,12 @@
   layouts). The tests use them to run both
   frameworks on the same weights.
 - ``load_tacotron2_checkpoint``: the reference's Lightning ``.ckpt``
-  (``state_dict`` keys prefixed ``tacotron2.``) or a raw state dict.
+  (``state_dict`` keys prefixed ``tacotron2.``), a raw state dict, or the
+  JAX package's Orbax directory (``lightning_from_orbax``: the weights of
+  ``model/`` through ``from_jax_params``, ``config.json`` as the
+  hyperparameters, and for a resume ``train/``'s Adam moments, step and
+  schedule through ``adam_from_jax_state``; read by ``training/orbax.py``,
+  which needs ``tensorstore``).
 - ``load_hifigan_checkpoint``: the upstream HiFi-GAN ``g_*`` file
   (``{"generator": state_dict}``) with its ``config.json`` beside it; weight
   norm (``weight_g``, ``weight_v``) is folded into plain weights at load.
@@ -200,13 +205,100 @@ def to_lightning(sd: Dict[str, torch.Tensor], hparams: dict | None = None) -> di
 
 
 def load_tacotron2_checkpoint(path: str) -> Tuple[Dict[str, Any], dict]:
-    """Lightning ``.ckpt`` (or raw state dict file) -> (state_dict, hparams)."""
+    """Lightning ``.ckpt`` (or raw state dict file), or a JAX Orbax
+    directory -> (state_dict, hparams)."""
+    if os.path.isdir(path):
+        ckpt = lightning_from_orbax(path, with_train=False)
+        return ({k[len(LIGHTNING_PREFIX):]: v for k, v in ckpt["state_dict"].items()},
+                ckpt["hyper_parameters"])
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
     if any(k.startswith(LIGHTNING_PREFIX) for k in sd):
         sd = {k[len(LIGHTNING_PREFIX):]: v for k, v in sd.items()
               if k.startswith(LIGHTNING_PREFIX)}
     return sd, dict(ckpt.get("hyper_parameters", {}))
+
+
+def _plain_chain(opt_state) -> bool:
+    """JAX's ``make_optimizer`` chain without a freeze mask: (clip, decay,
+    Adam {count, mu, nu}, the schedule {count}), the empty states None."""
+    return (isinstance(opt_state, list) and len(opt_state) == 4
+            and opt_state[0] is None and opt_state[1] is None
+            and isinstance(opt_state[2], dict) and set(opt_state[2]) == {"count", "mu", "nu"}
+            and isinstance(opt_state[3], dict) and set(opt_state[3]) == {"count"})
+
+
+def adam_from_jax_state(opt_state, model: torch.nn.Module, opt, sched) -> None:
+    """JAX's optimizer state (``training/orbax.py::load_train``) into the
+    port's ``make_optimizer`` pair over ``model.parameters()``, in place.
+    The moments stay on the host (``lightning_from_orbax`` builds the model
+    on the meta device; ``load_state_dict`` moves them to the parameters').
+    The Adam moments ``mu`` and ``nu`` go through ``from_jax_params`` as the
+    weights do (the layouts are transposes), so they map leaf for leaf by
+    parameter name; Adam's ``count`` becomes each parameter's ``step``, the
+    schedule's ``count`` MultiStepLR's ``last_epoch`` (and the lr it has
+    reached). Another structure (a finetune's ``multi_transform`` state) or
+    other leaves raise ValueError: the caller loads the weights alone."""
+    if not _plain_chain(opt_state):
+        raise ValueError("not the plain chain of make_optimizer (clip, decay, Adam, schedule)")
+    adam = opt_state[2]
+    mu, nu = from_jax_params(adam["mu"], None), from_jax_params(adam["nu"], None)
+    named = dict(model.named_parameters())
+    if set(mu) != set(named):
+        raise ValueError(f"Adam's leaves {sorted(set(mu) ^ set(named))} are not the model's")
+    for name, p in named.items():
+        if tuple(mu[name].shape) != tuple(p.shape):
+            raise ValueError(f"{name}: Adam's moments {tuple(mu[name].shape)} vs "
+                             f"{tuple(p.shape)}")
+        opt.state[p] = {"step": torch.tensor(float(adam["count"])), "exp_avg": mu[name],
+                        "exp_avg_sq": nu[name]}
+    count = int(opt_state[3]["count"])
+    passed = sum(n for m, n in sched.milestones.items() if m <= count)
+    for group, base in zip(opt.param_groups, sched.base_lrs):
+        group["lr"] = base * sched.gamma ** passed
+    sched.last_epoch, sched._step_count = count, count + 1
+    sched._last_lr = [g["lr"] for g in opt.param_groups]
+
+
+def lightning_from_orbax(ckpt_dir: str, with_train: bool = True) -> dict:
+    """A JAX ``train`` checkpoint directory -> the port's Lightning layout
+    (``training/checkpoint.py``): ``state_dict`` from ``model/``,
+    ``hyper_parameters`` from ``config.json`` (a JAX ``convert`` output's
+    ``{"hyper_parameters": ...}`` unwrapped), and with ``with_train`` and a
+    ``train/`` item ``global_step`` and, where ``train/`` holds the plain
+    chain's state, ``optimizer_states`` and ``lr_schedulers`` (the lr, the
+    weight decay and the milestones from the config, as ``train`` builds
+    them). Another optimizer state gets JAX's warning and is left out."""
+    from tacotron2_tpu_torch.config import config_from_dict
+    from tacotron2_tpu_torch.models.layers import Policy
+    from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+    from tacotron2_tpu_torch.run.say import model_config_from
+    from tacotron2_tpu_torch.training import orbax
+    from tacotron2_tpu_torch.training.optimizer import make_optimizer
+
+    params, state, hparams = orbax.load_model(ckpt_dir)
+    if set(hparams) == {"hyper_parameters"}:
+        hparams = hparams["hyper_parameters"]
+    ckpt = to_lightning(from_jax_params(params, state), hparams)
+    if not (with_train and orbax.has_train_state(ckpt_dir)):
+        return ckpt
+    opt_state, step = orbax.load_train(ckpt_dir)
+    ckpt["global_step"] = step
+    cfg = config_from_dict(hparams)
+    with torch.device("meta"):
+        model = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision))
+    milestones = [int(x * cfg.training.max_steps) for x in cfg.model.scheduler_milestones]
+    opt, sched = make_optimizer(model.parameters(), cfg.training.lr, cfg.training.weight_decay,
+                                milestones)
+    try:
+        adam_from_jax_state(opt_state, model, opt, sched)
+    except ValueError as e:
+        print(f"warning: optimizer state in {ckpt_dir} does not match the current optimizer; "
+              f"starting fresh ({e})")
+        return ckpt
+    ckpt["optimizer_states"] = [opt.state_dict()]
+    ckpt["lr_schedulers"] = [sched.state_dict()]
+    return ckpt
 
 
 def load_strict(module: torch.nn.Module, sd: Dict[str, Any]) -> None:

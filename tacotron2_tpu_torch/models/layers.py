@@ -8,6 +8,9 @@ them under the reference's ``state_dict`` names. Activations are
 channels-last ``(B, T, C)`` as in the JAX package, so the tests compare like
 with like.
 
+In a data-parallel step (``parallel/mesh.py``) the train-mode BatchNorms
+take the global batch's statistics and dropout the global batch's mask.
+
 Also the GST's pieces: ``conv2d`` (NCHW), ``batchnorm2d`` and
 ``gru_sequence`` (JAX ``conv2d_apply``, ``batchnorm_apply`` over N, H and
 W, ``gru_sequence``).
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from tacotron2_tpu_torch.ops.encoder_lstm import BiLSTMRecurrence
+from tacotron2_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +138,8 @@ def batchnorm(x, bn: torch.nn.BatchNorm1d, train: bool):
     0.1; padded steps count in the statistics, as in the reference."""
     if not train:
         return batchnorm_eval(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+    if mesh.current() is not None:  # the global batch's statistics
+        return mesh.batch_norm_train(x, bn, (0, 1), (1, 1, -1))
     y = F.batch_norm(x.transpose(1, 2), bn.running_mean, bn.running_var, bn.weight, bn.bias,
                      training=True, momentum=0.1, eps=bn.eps)
     return y.transpose(1, 2)
@@ -144,6 +150,8 @@ def batchnorm2d(x, bn: torch.nn.BatchNorm2d, train: bool):
     rules: train mode normalizes with the biased variance over N, H and W
     (padded frames included) and updates the running stats in place with
     the unbiased one, momentum 0.1; eval mode reads the running stats."""
+    if train and mesh.current() is not None:  # the global batch's statistics
+        return mesh.batch_norm_train(x, bn, (0, 2, 3), (1, -1, 1, 1))
     if train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                             training=True, momentum=0.1, eps=bn.eps)
@@ -154,12 +162,12 @@ def batchnorm2d(x, bn: torch.nn.BatchNorm2d, train: bool):
 
 def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
     """Inverted dropout (torch semantics: keep with 1 - rate, scale by
-    1 / (1 - rate)) with the bits from ``generator``."""
+    1 / (1 - rate)) with the bits from ``generator``; in a data-parallel
+    step the global batch's mask, cut to this rank's rows (axis 0)."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    return x * ((torch.rand(x.shape, generator=generator, device=x.device) < keep).to(x.dtype)
-                / keep)
+    return x * ((mesh.rand_rows(x.shape, generator, x.device) < keep).to(x.dtype) / keep)
 
 
 def lstm_cell(x, hc: Tuple[torch.Tensor, torch.Tensor], w_ih, w_hh, b_ih, b_hh,

@@ -48,6 +48,7 @@ from tacotron2_tpu_torch.models.gst import GST
 from tacotron2_tpu_torch.models.layers import F32, Policy
 from tacotron2_tpu_torch.models.postnet import Postnet
 from tacotron2_tpu_torch.ops import decoder_loop, train_decode
+from tacotron2_tpu_torch.parallel import mesh
 
 GATE_MASK_VALUE = -1000.0
 DESCRIPTION_DIM = 128  # the description's columns of the memory (JAX tacotron2.py:71-75)
@@ -260,7 +261,9 @@ class Tacotron2(nn.Module):
         by ``mel_len``. ``train``: BatchNorm on batch statistics, dropout in
         the encoder and postnet, LSTM dropout (keep 0.9). Dropout bits come
         from ``generator``; ``lstm_masks`` (T, B, H) x 2 replaces the LSTM's
-        (the tests inject JAX's). ``speaker_id`` (B,), ``controls`` (B,
+        (the tests inject JAX's; in a data-parallel step, ``parallel/mesh.py``,
+        the global batch's (T, n B, H), of which this rank takes its rows, as
+        it draws every mask). ``speaker_id`` (B,), ``controls`` (B,
         controls_dim) and ``description_embeddings`` (B,
         description_embeddings_dim): each row's voice, controls and
         description (JAX ``forward_teacher``'s). A GST model's style comes
@@ -281,12 +284,13 @@ class Tacotron2(nn.Module):
                                                description_embeddings=description_embeddings,
                                                gst_embedding=gst)
         decoder_in = self.teacher_decoder_in(mel, generator)
-        if lstm_masks is None:
-            if train:
-                lstm_masks = train_decode.lstm_masks(T, B, c.att_rnn_dim, generator, dev)
-            else:
-                ones = torch.ones(T, B, c.att_rnn_dim, device=dev)
-                lstm_masks = (ones, ones)
+        if lstm_masks is not None:  # a data-parallel step's are the global batch's
+            lstm_masks = tuple(mesh.local_rows(m, 1) for m in lstm_masks)
+        elif train:
+            lstm_masks = train_decode.lstm_masks(T, B, c.att_rnn_dim, generator, dev)
+        else:
+            ones = torch.ones(T, B, c.att_rnn_dim, device=dev)
+            lstm_masks = (ones, ones)
         mels, gates, aligns = train_decode.teacher_decode(
             self.decoder, decoder_in, encoded, att_encoded, chars_len,
             *lstm_masks, self.policy.compute_dtype, controls)

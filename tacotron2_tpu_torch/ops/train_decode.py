@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from tacotron2_tpu_torch.ops import build
+from tacotron2_tpu_torch.parallel import mesh
 from tacotron2_tpu_torch.ops.decoder_loop import (
     CONTROLS_ALIGN,
     MAX_CLUSTER,
@@ -248,9 +249,10 @@ def pad_controls(controls: Optional[torch.Tensor], C: int, like: torch.Tensor) -
 
 
 def lstm_masks(T: int, B: int, H: int, generator, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """LSTM dropout scale masks (T, B, H) x 2 (keep 0.9, 1/0.9)."""
-    m1 = (torch.rand(T, B, H, generator=generator, device=device) < KEEP).float() / KEEP
-    m2 = (torch.rand(T, B, H, generator=generator, device=device) < KEEP).float() / KEEP
+    """LSTM dropout scale masks (T, B, H) x 2 (keep 0.9, 1/0.9); in a
+    data-parallel step the global batch's, cut to this rank's B rows."""
+    m1 = (mesh.rand_rows((T, B, H), generator, device, 1) < KEEP).float() / KEEP
+    m2 = (mesh.rand_rows((T, B, H), generator, device, 1) < KEEP).float() / KEEP
     return m1, m2
 
 

@@ -34,7 +34,19 @@ The prosody-model configs (``extensions.prosody_model.active``, JAX
 With ``TACOTRON2_TRACE_DIR`` set the loop runs under ``device_trace``
 (``utils/profiling.py``), as JAX's does.
 
-Not ported: multi-device training and the device prefetcher.
+Data parallel (JAX :209-227, one sharded step on the global batch): under
+torchrun (``WORLD_SIZE`` in the environment; NCCL on the card, gloo on the
+CPU), or in a process group the caller initialized,
+every rank runs the same seeded loader over the global batch and trains on
+its rows (``parallel/mesh.py``: global BatchNorm statistics, CCC moments
+and dropout masks, gradients all-reduced), rank 0's weights broadcast at
+start; ranks beyond the degree that divides the batch leave. Only rank 0
+logs, validates (then its dropout generator's state and the early-stop
+decision go to every rank) and saves; the others wait. The finetune, the
+style-loss phase and GST run the same way. The batches reach the device
+through ``parallel/prefetch.py``'s ``DirectStream``, or its
+``DevicePrefetcher`` (a staging thread, a CUDA stream of its own) with
+``TACOTRON2_DEVICE_PREFETCH=1``, each rank staging its rows only.
 """
 
 from __future__ import annotations
@@ -44,16 +56,18 @@ import datetime
 import os
 import time
 from os import path
-from typing import Dict, Iterator, List, Optional
+from typing import List, Optional
 
-import numpy as np
 import torch
+import torch.distributed as dist
 
 from tacotron2_tpu_torch.config import Config
 from tacotron2_tpu_torch.data.loader import TTSDataLoader
 from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest, select_rows
 from tacotron2_tpu_torch.models.layers import Policy, resolve_device, use_f32_math
 from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+from tacotron2_tpu_torch.parallel import mesh
+from tacotron2_tpu_torch.parallel.prefetch import DevicePrefetcher, DirectStream, use_device_prefetch
 from tacotron2_tpu_torch.run.say import _sync, model_config_from
 from tacotron2_tpu_torch.training import checkpoint as ckpt_lib
 from tacotron2_tpu_torch.training.logging import TrainLogger
@@ -66,16 +80,6 @@ LOG_EVERY = 50
 SAVE_EVERY = 5000
 HISTOGRAM_EVERY = 1000
 FINETUNE_FROZEN = ("encoder.", "speaker_embedding.")
-
-
-def _endless(loader) -> Iterator[Dict[str, np.ndarray]]:
-    while True:
-        n = 0
-        for batch in loader:
-            n += 1
-            yield batch
-        if n == 0:
-            raise ValueError("the training manifest gives no full batch")
 
 
 def check_trainable(cfg: Config, prosody_model_checkpoint: Optional[str] = None) -> None:
@@ -125,11 +129,13 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
              finetune: bool = False, finetune_steps: Optional[int] = None,
              prosody_model_checkpoint: Optional[str] = None) -> dict:
     """Train; returns the final checkpoint's path, the step reached, a
-    record per train step (loss, ``style_loss`` in the style phase, rows,
-    decode frames T, real mel frames, host seconds of the step ending in a
-    device sync, host seconds waiting for the batch) and per validation
-    batch (T), and the host seconds of the loop's validations, histograms
-    and saves (``phases``)."""
+    record per train step (loss, ``style_loss`` in the style phase, the
+    global batch's rows, decode frames T and real mel frames, host seconds
+    of the step ending in a device sync, host seconds waiting for the
+    batch) and per validation batch (T), the host seconds of the loop's
+    validations, histograms and saves (``phases``), this process's rank
+    and the ranks' count (1 without a process group) and whether the
+    batches were prefetched."""
     check_trainable(cfg, prosody_model_checkpoint)
     if finetune and finetune_steps is None:
         raise ValueError("If finetuning, --finetune-steps is required!")
@@ -138,9 +144,25 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
     dev = resolve_device(device)
     if dev.type == "cuda":
         use_f32_math()
+    own_group = not dist.is_initialized() and "WORLD_SIZE" in os.environ
+    if own_group:  # torchrun's environment
+        _, _, local_rank = mesh.init_data_parallel("nccl" if dev.type == "cuda" else "gloo")
+        if dev.type == "cuda":
+            torch.cuda.set_device(local_rank % torch.cuda.device_count())
+    try:
+        return _train(cfg, raw_config, speech_dir, results_dir, resume_ckpt, seed,
+                      max_steps_override, dev, finetune, finetune_steps, prosody_model_checkpoint)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(cfg, raw_config, speech_dir, results_dir, resume_ckpt, seed, max_steps_override,
+           dev, finetune, finetune_steps, prosody_model_checkpoint) -> dict:
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     if results_dir is None:
         results_dir = f"results_{cfg.training.name} {datetime.datetime.now()}"
-    os.makedirs(results_dir, exist_ok=True)
     cache_dir = path.join(results_dir, "mel_cache")
     lr, batch_size = cfg.training.lr, cfg.training.batch_size
     max_steps = max_steps_override or cfg.training.max_steps
@@ -150,6 +172,14 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
         lr /= 10
         interval = 1.0
         batch_size *= 2
+    dp = mesh.make_data_parallel(batch_size) if dist.is_initialized() else None
+    if dist.is_initialized() and dp is None:
+        print(f"rank {dist.get_rank()}: no rows of a batch of {batch_size}; leaving")
+        return {"checkpoint": None, "step": 0, "steps": [], "rank": dist.get_rank(), "ranks": 0}
+    lead = dp is None or dp.lead
+    say = print if lead else (lambda *a, **k: None)
+    if lead:
+        os.makedirs(results_dir, exist_ok=True)
     val_rows = select_rows(cfg, read_manifest(cfg.dataset.val))
     train_rows, desc_train, desc_val, augment = select_descriptions(
         cfg, select_rows(cfg, read_manifest(cfg.dataset.train)), val_rows, speech_dir, finetune)
@@ -168,6 +198,8 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
     if resume_ckpt is not None:
         ckpt_lib.load_model_state(resume_ckpt, model)
     model.to(dev)
+    if dp is not None:  # every rank starts from rank 0's weights
+        mesh.broadcast_state(model, dp)
     opt, sched = make_optimizer(trainable(model, FINETUNE_FROZEN if finetune else ()), lr,
                                 cfg.training.weight_decay, milestones)
     # finetuning starts a fresh optimizer and schedule at step 0 (JAX's
@@ -179,10 +211,11 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
         style = (ckpt_lib.load_prosody_checkpoint(prosody_model_checkpoint).to(dev),
                  cfg.extensions.prosody_model.loss or "mse")
         style_after = int(max_steps * cfg.extensions.prosody_model.active_after)
-        print(f"prosody model: style loss activates at step {style_after}")
+        say(f"prosody model: style loss activates at step {style_after}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1 + step)  # dropout bits; a resumed run draws new ones
-    logger = TrainLogger(path.join(results_dir, "lightning_logs"), cfg.training.name)
+    logger = TrainLogger(path.join(results_dir, "lightning_logs"), cfg.training.name) if lead \
+        else None
 
     steps_per_epoch = max(1, len(train_loader))
     if interval is None:
@@ -195,6 +228,16 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
     timer = PhaseTimer()
 
     def run_validation(at: int) -> Optional[float]:
+        """Rank 0 validates; with data parallel its dropout generator's
+        state (which the validation advanced) and the loss then reach every
+        rank, so the ranks' generators stay the one-process one."""
+        val_loss = _validate(at) if lead else None
+        if dp is not None:
+            val_loss, state = mesh.broadcast_object((val_loss, gen.get_state()), dp)
+            gen.set_state(state)
+        return val_loss
+
+    def _validate(at: int) -> Optional[float]:
         losses, firsts, lens = [], None, None
         for batch in val_loader:
             metrics, f = eval_step(model, to_device(batch, dev), gen)
@@ -211,22 +254,30 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
                                  at)
         return mean
 
-    print(f"train: {len(train_set)} utts, {steps_per_epoch} steps/epoch, max_steps {max_steps}, "
-          f"batch {batch_size}, lr {lr}, start step {step}, {dev}"
-          + (f", finetuning with {FINETUNE_FROZEN} frozen" if finetune else ""))
+    prefetch = use_device_prefetch()
+    say(f"train: {len(train_set)} utts, {steps_per_epoch} steps/epoch, max_steps {max_steps}, "
+        f"batch {batch_size}, lr {lr}, start step {step}, {dev}"
+        + (f", {dp.n} data-parallel ranks of {batch_size // dp.n} rows" if dp else "")
+        + (", batches prefetched" if prefetch else "")
+        + (f", finetuning with {FINETUNE_FROZEN} frozen" if finetune else ""))
     t_log, frames_log = time.perf_counter(), 0
     stop_threshold = cfg.training.stopping_val_loss_threshold
     saver = ckpt_lib.AsyncSaver()
-    batches = _endless(train_loader)
-    with device_trace(os.environ.get("TACOTRON2_TRACE_DIR"), dev.type == "cuda"):
+    select = (lambda b: mesh.shard_rows(b, dp.rank, dp.n)) if dp is not None else (lambda b: b)
+    stream = (DevicePrefetcher(train_loader, dev, 2, select) if prefetch
+              else DirectStream(train_loader, dev, select))
+    batches = iter(stream)
+    with device_trace(os.environ.get("TACOTRON2_TRACE_DIR") if lead else None,
+                      dev.type == "cuda"):
         try:
             while step < max_steps:
                 t_wait = time.perf_counter()
-                batch = next(batches)
+                device_batch, batch = next(batches)
                 t0 = time.perf_counter()
                 metrics = train_step(
-                    model, opt, sched, to_device(batch, dev), gen,
-                    style=style if style_after is not None and step >= style_after else None)
+                    model, opt, sched, device_batch, gen,
+                    style=style if style_after is not None and step >= style_after else None,
+                    dp=dp)
                 _sync(dev)
                 frames = int(batch["mel_len"].sum())
                 step += 1
@@ -238,7 +289,7 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
                     rec["style_loss"] = float(metrics["style_loss"])
                 record["steps"].append(rec)
                 frames_log += frames
-                if step % LOG_EVERY == 0 or step == 1:
+                if lead and (step % LOG_EVERY == 0 or step == 1):
                     names = sorted(metrics)
                     vals = torch.stack([metrics[k].float() for k in names]).tolist()
                     m = {f"training_{k}": v for k, v in zip(names, vals)}
@@ -248,7 +299,7 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
                     logger.scalars(m, step)
                     print(f"step {step}: loss {m['training_loss']:.4f} "
                           f"({m['mel_frames_per_sec']:.0f} frames/s)")
-                if step % HISTOGRAM_EVERY == 0:
+                if lead and step % HISTOGRAM_EVERY == 0:
                     with timer.phase("histograms"):
                         logger.histograms(model.named_parameters(), step)
                 if step % val_every == 0:
@@ -256,20 +307,24 @@ def do_train(cfg: Config, raw_config: dict, speech_dir: str, results_dir: Option
                         val_loss = run_validation(step)
                     if (stop_threshold is not None and val_loss is not None
                             and val_loss <= stop_threshold):
-                        print(f"early stop: val_loss {val_loss:.4f} <= {stop_threshold}")
+                        say(f"early stop: val_loss {val_loss:.4f} <= {stop_threshold}")
                         break
-                if step % SAVE_EVERY == 0:
+                if lead and step % SAVE_EVERY == 0:
                     with timer.phase("save"):
                         saver.save(path.join(results_dir, "last.ckpt"), model, opt, sched, step,
                                    raw_config)
         finally:
             batches.close()
+            stream.close()
             saver.wait()
     run_validation(step)
-    out = ckpt_lib.save_checkpoint(
-        path.join(results_dir, "finetuned.ckpt" if finetune else "final.ckpt"), model, opt,
-        sched, step, raw_config)
-    logger.close()
-    print(f"saved {out}")
+    out = path.join(results_dir, "finetuned.ckpt" if finetune else "final.ckpt")
+    if lead:
+        ckpt_lib.save_checkpoint(out, model, opt, sched, step, raw_config)
+        logger.close()
+        print(f"saved {out}")
+    if dp is not None:  # the others wait for the file
+        dist.barrier(group=dp.group)
     record["phases"] = {k: {"s": timer.totals[k], "n": timer.counts[k]} for k in timer.totals}
-    return {"checkpoint": out, "step": step, **record}
+    return {"checkpoint": out, "step": step, "rank": dp.rank if dp else 0,
+            "ranks": dp.n if dp else 1, "prefetch": prefetch, **record}

@@ -1,8 +1,11 @@
 """Checkpoints in the reference's Lightning ``.ckpt`` layout.
 
-Counterpart of ``tacotron2_tpu/training/checkpoint.py`` (whose checkpoints
-are Orbax directories; the port neither reads nor writes those). One file
-holds what a Lightning trainer saves and resumes from:
+Counterpart of ``tacotron2_tpu/training/checkpoint.py``, whose checkpoints
+are Orbax directories: the port reads those too (``training/orbax.py``,
+where ``tensorstore`` is installed; ``convert.lightning_from_orbax`` maps
+them onto this layout, and ``python -m tacotron2_tpu_torch convert`` writes
+it) but writes only its own. One file holds what a Lightning trainer saves
+and resumes from:
 
 - ``state_dict``: the model's, keys prefixed ``tacotron2.`` (so the port's
   ``say`` and the JAX package's converter both load it);
@@ -27,7 +30,9 @@ from typing import Optional
 
 import torch
 
-from tacotron2_tpu_torch.convert import load_strict, load_tacotron2_checkpoint, to_lightning
+from tacotron2_tpu_torch.convert import (lightning_from_orbax, load_strict,
+                                         load_tacotron2_checkpoint, prosody_from_jax_params,
+                                         to_lightning)
 
 
 def _cpu(x):
@@ -143,8 +148,12 @@ def load_train_state(path: str, opt, sched) -> int:
     """Restore the optimizer and schedule in place; -> the saved step, or 0
     for a checkpoint without optimizer state (weights only). The schedule
     keeps the milestones it was built with (the JAX driver derives them from
-    the current config's ``max_steps`` too)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    the current config's ``max_steps`` too). An Orbax directory's optimizer
+    state goes through ``convert.lightning_from_orbax``: one that is not the
+    plain chain's gets JAX's warning, and the run goes on from step 0 with
+    the weights alone, as JAX's does."""
+    ckpt = (lightning_from_orbax(path) if os.path.isdir(path)
+            else torch.load(path, map_location="cpu", weights_only=False))
     if not ckpt.get("optimizer_states"):
         return 0
     opt.load_state_dict(ckpt["optimizer_states"][0])
@@ -166,15 +175,49 @@ def save_prosody_checkpoint(path: str, predictor: torch.nn.Module, hparams: dict
                                               "source_config": source_config}})
 
 
+def prosody_from_orbax(ckpt_dir: str) -> dict:
+    """JAX ``train_prosody``'s Orbax directory -> ``save_prosody_checkpoint``'s
+    layout: ``prosody_from_jax_params`` of ``model/``'s params, the
+    hyperparameters of its ``config.json``."""
+    from tacotron2_tpu_torch.training import orbax
+
+    params, _, saved = orbax.load_model(ckpt_dir)
+    return {"state_dict": prosody_from_jax_params(params),
+            "hyper_parameters": {"prosody_predictor": dict(saved["prosody_predictor"]),
+                                 "source_config": saved.get("source_config")}}
+
+
 def load_prosody_checkpoint(path: str):
     """-> a frozen ``ProsodyPredictor`` from ``save_prosody_checkpoint``'s
-    file (JAX ``run/common.py::load_prosody_checkpoint``): f32, no
-    parameter requiring a gradient."""
+    file or JAX ``train_prosody``'s Orbax directory (JAX
+    ``run/common.py::load_prosody_checkpoint``): f32, no parameter
+    requiring a gradient."""
     from tacotron2_tpu_torch.models.prosody import ProsodyPredictor
 
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    ckpt = (prosody_from_orbax(path) if os.path.isdir(path)
+            else torch.load(path, map_location="cpu", weights_only=False))
     h = dict(ckpt["hyper_parameters"]["prosody_predictor"])
     h.pop("features", None)
     predictor = ProsodyPredictor(**h)
     load_strict(predictor, ckpt["state_dict"])
     return predictor.requires_grad_(False)
+
+
+def convert_orbax(ckpt_dir: str, out: str) -> dict:
+    """``python -m tacotron2_tpu_torch convert``: a JAX ``train`` checkpoint
+    directory -> the port's Lightning ``.ckpt`` (model, optimizer state,
+    schedule, step), a ``train_prosody`` one -> ``save_prosody_checkpoint``'s
+    layout. -> what was written."""
+    from tacotron2_tpu_torch.training import orbax
+
+    if "prosody_predictor" in orbax.read_config(ckpt_dir):
+        _write(out, prosody_from_orbax(ckpt_dir))
+        kind = "prosody"
+        step = None
+    else:
+        ckpt = lightning_from_orbax(ckpt_dir)
+        _write(out, ckpt)
+        kind = "tacotron2" + ("" if ckpt.get("optimizer_states") else " (weights only)")
+        step = ckpt.get("global_step")
+    print(f"converted {ckpt_dir} -> {out} ({kind}{f', step {step}' if step is not None else ''})")
+    return {"out": out, "kind": kind, "step": step}

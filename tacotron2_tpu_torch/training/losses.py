@@ -15,6 +15,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from tacotron2_tpu_torch.parallel import mesh
+
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean of max(x, 0) - x y + log(1 + exp(-|x|))."""
@@ -39,7 +41,15 @@ def tacotron2_loss(mels, mels_post, gates, mel_target, gate_target
 def concordance_correlation_coefficient_loss(pred: torch.Tensor, target: torch.Tensor
                                              ) -> torch.Tensor:
     """1 - CCC over all elements, population moments (JAX
-    ``concordance_correlation_coefficient_loss``)."""
+    ``concordance_correlation_coefficient_loss``). In a data-parallel step
+    the moments are the global batch's, from all-reduced sums
+    (``mesh.mean_over_ranks``, differentiable), not a mean of the ranks' CCCs."""
+    if mesh.current() is not None:
+        pm, tm = mesh.mean_over_ranks(torch.stack([pred.mean(), target.mean()])).unbind()
+        dp, dt = pred - pm, target - tm
+        cov, pv, tv = mesh.mean_over_ranks(torch.stack(
+            [(dp * dt).mean(), (dp * dp).mean(), (dt * dt).mean()])).unbind()
+        return 1.0 - 2.0 * cov / (pv + tv + (pm - tm) ** 2 + 1e-12)
     pm, tm = pred.mean(), target.mean()
     cov = ((pred - pm) * (target - tm)).mean()
     ccc = 2.0 * cov / (pred.var(unbiased=False) + target.var(unbiased=False) + (pm - tm) ** 2

@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from tacotron2_tpu_torch.parallel import mesh
 from tacotron2_tpu_torch.training.losses import prosody_style_loss, tacotron2_loss
 from tacotron2_tpu_torch.training.optimizer import apply_gradients
 
@@ -30,14 +31,19 @@ BATCH_KEYS = ("chars_idx", "chars_len", "mel", "mel_len", "gate")
 CONDITIONING_KEYS = ("speaker_id", "controls", "description_embeddings")
 
 
+def stage_keys(batch: Dict[str, np.ndarray]) -> Tuple[str, ...]:
+    """The fields of a collated batch that a step reads: ``BATCH_KEYS`` and
+    those of ``CONDITIONING_KEYS`` that the batch has."""
+    return BATCH_KEYS + tuple(k for k in CONDITIONING_KEYS if k in batch)
+
+
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """The collated numpy batch's tensors on ``device``: ``BATCH_KEYS`` and
-    those of ``CONDITIONING_KEYS`` that the batch has. ``speaker_id`` stays
-    on the host: the model checks the ids' range there, without waiting for
-    the card, and moves them for the embedding's gather."""
-    keys = BATCH_KEYS + tuple(k for k in CONDITIONING_KEYS if k in batch)
+    """The collated numpy batch's tensors (``stage_keys``) on ``device``.
+    ``speaker_id`` stays on the host: the model checks the ids' range
+    there, without waiting for the card, and moves them for the
+    embedding's gather."""
     return {k: torch.as_tensor(batch[k]).to("cpu" if k == "speaker_id" else device,
-                                            non_blocking=True) for k in keys}
+                                            non_blocking=True) for k in stage_keys(batch)}
 
 
 def _forward_loss(model, batch, train: bool, generator, lstm_masks, style=None):
@@ -59,18 +65,26 @@ def _forward_loss(model, batch, train: bool, generator, lstm_masks, style=None):
 def train_step(model, opt, sched, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
                lstm_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-               style: Optional[Tuple[torch.nn.Module, str]] = None) -> Dict[str, torch.Tensor]:
+               style: Optional[Tuple[torch.nn.Module, str]] = None,
+               dp: Optional[mesh.DataParallel] = None) -> Dict[str, torch.Tensor]:
     """One optimizer step on ``batch``; -> metrics (device scalars). The
     gradients are cleared through the model, so a parameter the optimizer
     does not hold starts each step at none too. ``style``: (the frozen
-    prosody predictor, "mse" or "ccc")."""
+    prosody predictor, "mse" or "ccc"). ``dp``: ``batch`` is this rank's
+    rows of the global batch (``mesh.shard_rows``), ``lstm_masks`` if
+    given are at the global batch's shape, and the step is the global
+    batch's (``parallel/mesh.py``): the gradients and the metrics are
+    all-reduced before the clip, so every rank takes the same update."""
     model.zero_grad(set_to_none=True)
-    with torch.enable_grad():
+    with torch.enable_grad(), mesh.active(dp):
         loss, metrics, _ = _forward_loss(model, batch, True, generator, lstm_masks, style)
         loss.backward()
     metrics = {k: v.detach() for k, v in metrics.items()}
     held = {id(p) for group in opt.param_groups for p in group["params"]}
     params = list(model.parameters())
+    if dp is not None:
+        mesh.all_reduce_grads(params, dp)
+        metrics = mesh.all_reduce_metrics(metrics, dp)
     metrics["grad_norm"] = apply_gradients([p for p in params if id(p) in held], opt, sched,
                                            [p for p in params if id(p) not in held])
     return metrics
