@@ -16,6 +16,7 @@
     python3 chip_smoke.py --descriptions  # the kernels' build and phase 4h alone
     python3 chip_smoke.py --gst     # the kernels' build and phase 4i alone
     python3 chip_smoke.py --dp      # the kernels' build and phase 4j alone
+    python3 chip_smoke.py --mesh    # the kernels' build and phase 4k alone
 
 Phases, each of which must pass:
 
@@ -208,6 +209,18 @@ Phases, each of which must pass:
    and on, the
    same losses bit for bit, their step and batch-wait times; K3
    / K4 at the ranks' 16 and 32 rows against their plain versions;
+4k. the last modules (``mesh_phase``): (a) the warm server with ``mesh:
+   {"data": 2}`` on two shards of the one card (``MESH_SHARDS``) beside a
+   meshless one, a bf16 and an int8 wave of ``MESH_WAVE``, each shard's K1
+   / K5 and K2 launches (two cell launches a step, one vocode a decode),
+   every request against the meshless server's same request alone
+   (``MESH_LSB``), each window's ms, and the mesh without the explicit list
+   refused on one card; (b) tensor-parallel train, a ``TP_GRID`` grid of
+   gloo ranks sharing the card at 4b's B=32 (no K3 / K4: the decode
+   column-parallel on stock ops), each step against one process's K3 / K4
+   step from the same state (``DP_TOL`` in a one-rank group), the
+   replicated weights bit for bit in each model group; (c) the device mel
+   backend against the numpy one on a 10 s clip (``MEL_TOL``), timed;
 5. print the kernels line and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero before the last line on any failure, when no CUDA device
@@ -217,6 +230,7 @@ to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -229,9 +243,6 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 WORK = ROOT / "build" / "smoke"
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
-INT8_OPS = 1979e12  # dense int8 tensor-core peak
 TEXT = ("The quick brown fox jumps over the lazy dog, while the port speaks "
         "its first words on the card.")
 SEED = 7
@@ -255,12 +266,19 @@ PAD = 29  # chars of padding in the padded row of the B=2 attention check
 K3_TOL = {"mel_gate": 2e-3, "c_att": 2e-3, "c_rnn": 2e-3, "al": 2e-4, "cum": 5e-4,
           "xh1": 1e-2, "xh2": 1e-2}
 # K4's stacks and TeacherDecode's gradients against the plain versions on
-# the same residuals, relative to each tensor's own max: the bf16 dg and
-# head_h stacks to two ulps (2^-6), the f32 ones about 10x the error measured
-# (PERF.md); d_ctrl, the controls' cotangent summed over the steps (the
-# controls mode), reads <= 1.4e-4 at B=64 / 32 / 5 (PERF.md)
+# the same residuals (the backward's sums in f64, ``teacher_backward_ref``),
+# relative to each tensor's own max: the bf16 dg and head_h stacks to two
+# ulps (2^-6), the f32 ones about 10x the error measured (PERF.md); d_ctrl,
+# the controls' cotangent summed over the steps (the controls mode), reads
+# <= 1.4e-4 at B=64 / 32 / 5 (PERF.md). dq, the query's cotangent, is a sum
+# over the chars of the softmax's pull, whose terms cancel: at T=384 on
+# trained weights one-ulp flips of the bf16 operands, carried back over the
+# steps, move it by up to 5.9e-3 of its max in the kernel and 4.1e-3 in the
+# plain version's own f32 sums (``--k4-ref``, PERF.md), so its limit is
+# dxh1's; its first pulled steps read ~1e-4 in both, and the gradient made
+# from it (the query layer's weight) ~3e-4 of GRAD_TOL's 1e-2
 K4_TOL = {"dg1": 1.6e-2, "dg2": 1.6e-2, "head_h": 1.6e-2, "dxh1": 1e-2, "dctx": 2e-3,
-          "dq": 5e-3, "d_attenc": 5e-3, "d_wv": 5e-3, "d_wloc": 5e-3, "d_ctrl": 2e-3}
+          "dq": 1e-2, "d_attenc": 5e-3, "d_wv": 5e-3, "d_wloc": 5e-3, "d_ctrl": 2e-3}
 GRAD_TOL = 1e-2
 # K5, the int8 cell: integer sums are exact, so one step of the kernel equals
 # the plain version's up to the float epilogue and the sigmoid / tanh
@@ -410,9 +428,22 @@ def ptxas_kernels(text: str) -> dict:
     return out
 
 
-def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+def card_peak(kind: str) -> float:
+    """A peak of the H100 SXM's data sheet, from the port's FLOP model
+    (``tacotron2_tpu_torch/utils/flops.py``, the one place that holds
+    them): "bytes" (HBM bytes/s), "bf16" (dense FLOP/s) or "int8" (dense
+    OP/s)."""
+    from tacotron2_tpu_torch.utils import flops
+
+    return 1e12 * {"bytes": flops.H100_HBM_TBPS, "bf16": flops.H100_BF16_TFLOPS,
+                   "int8": flops.H100_INT8_TOPS}[kind]
+
+
+def bound_ms(nbytes: float, flops: float, peak: float = None) -> tuple:
+    """max(bytes / the HBM rate, ops / ``peak``, bf16's by default) in ms,
+    and which of the two bounds it."""
+    t_bytes = nbytes / card_peak("bytes") * 1e3
+    t_ops = flops / (card_peak("bf16") if peak is None else peak) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1046,7 +1077,7 @@ def cell_rows(model, log: dict, rows=K1_ROWS) -> dict:
             f32 = lambda *shape: torch.empty(*shape, device=dev)
             nb = sum(nbytes(*ka, f32(B, H), f32(B, H)) for ka, _, _ in cells)
             ops = 2 * B * (pk.w_att.numel() + pk.w_dec.numel())
-            b_ms, b_by = bound_ms(nb, ops, INT8_OPS if quant else BF16_FLOPS)
+            b_ms, b_by = bound_ms(nb, ops, card_peak("int8") if quant else card_peak("bf16"))
             res[f"B{B}"] = {"ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": b_ms,
                             "bound_by": b_by, "library_ms": library_ms,
                             "eager_ms": eager_ms(kern)}
@@ -1498,7 +1529,7 @@ def controls_cells(model, log: dict) -> dict:
                 check(f"quantize_xh[controls]@B{B}", [("q", qk.float(), qq.float()),
                                                       ("sx", sk, sq)], QUANT_TOL, log, name)
             b_ms, b_by = bound_ms(nbytes(pk.w_dec, pk.b_dec, *ins, f32(B, H), f32(B, H)),
-                                  2 * B * pk.w_dec.numel(), INT8_OPS if quant else BF16_FLOPS)
+                                  2 * B * pk.w_dec.numel(), card_peak("int8") if quant else card_peak("bf16"))
             out[name][f"B{B}"] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
                                   "bound_ms": b_ms, "bound_by": b_by,
                                   "library_ms": library_ms(lib, log, f"{name}@B{B}"),
@@ -2071,8 +2102,8 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
         for name, (nb, fl) in parts.items():
             t = tot[name]
             t["bound_ms"] += bound_ms(nb, fl)[0]
-            t["bytes_ms"] += nb / HBM_BYTES_PER_S * 1e3
-            t["ops_ms"] += fl / BF16_FLOPS * 1e3
+            t["bytes_ms"] += nb / card_peak("bytes") * 1e3
+            t["ops_ms"] += fl / card_peak("bf16") * 1e3
     torch.cuda.synchronize()
 
     big = rows_b > 1  # fewer repeats at the serve windows' sizes
@@ -2136,7 +2167,7 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
             w_shape = list(cwp.w.shape)
         reps = (2, 2) if big else (5, 4)
         ms = time_ms(kern, *reps)
-        traffic_ms = nb / HBM_BYTES_PER_S * 1e3
+        traffic_ms = nb / card_peak("bytes") * 1e3
         t.setdefault("per_call", []).append({"x": list(x.shape), "w": w_shape, "ms": ms,
                                              "traffic_ms": traffic_ms})
         t["ms"] += ms
@@ -2363,7 +2394,7 @@ def teacher_bounds(T: int, B: int, L: int, D: int, C: int, w, res, mel_gate) -> 
     pad_ops = 2 * B * pad * (H4 + N)  # one step's gate and heads products over the pad
     pad3 = bound_ms(pad * bf * (H4 + N) + xh2_pad, T * pad_ops)[0]
     pad4 = bound_ms(pad * bf * (H4 + N) + xh2_pad + B * pad * f32, 2 * T * pad_ops)[0]
-    stream = lstm_w / HBM_BYTES_PER_S * 1e3
+    stream = lstm_w / card_peak("bytes") * 1e3
     return {"teacher_forward": (*k3, T * stream, pad3),
             "teacher_backward": (*k4, 2 * T * stream, pad4)}
 
@@ -2378,6 +2409,39 @@ def without_pdl(fn):
         return fn()
     finally:
         td._PDL = True
+
+
+@contextlib.contextmanager
+def f64_sums():
+    """The plain versions' sums in f64 with their bf16 rounding points kept:
+    ``_acc``, the sum type of a bf16 weight, promotes to f64 inside."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    acc = dl._acc
+    dl._acc = td._acc = lambda t: t.to(torch.promote_types(t.dtype, torch.float64))
+    try:
+        yield
+    finally:
+        dl._acc = td._acc = acc
+
+
+def teacher_backward_ref(w, res, enc, att, lens, dm1, dm2, d_mg, d_al):
+    """``teacher_backward_plain`` on the same inputs under ``f64_sums``,
+    each output back in the kernel's type: the reference K4 is held
+    against, so that a reading is the kernel's own error and not that of
+    the plain version's f32 sums too (PERF.md)."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    up = lambda t: t.double() if t.dtype == torch.float32 else t
+    with f64_sums():
+        out = td.teacher_backward_plain(type(w)(*map(up, w)), type(res)(*map(up, res)), enc,
+                                        up(att), lens, up(dm1), up(dm2), up(d_mg), up(d_al))
+    return type(out)(*(t.float() if t.dtype == torch.float64 else t for t in out))
 
 
 def k34_check(tag: str, params, w, din, enc, att, lens, dm1, dm2, d_mg, d_al, log: dict,
@@ -2407,7 +2471,7 @@ def k34_check(tag: str, params, w, din, enc, att, lens, dm1, dm2, d_mg, d_al, lo
     names = ("decoder_in", "encoded", "att_encoded", "controls") + td.DECODER_PARAMS
     for res, on in ((res_p, ""), (res_k, "[on K3]")):
         bwd = (w, res, enc, att, lens, dm1, dm2, d_mg, d_al)
-        bk, bp = td.teacher_backward(*bwd), td.teacher_backward_plain(*bwd)
+        bk, bp = td.teacher_backward(*bwd), teacher_backward_ref(*bwd)
         # a model without controls has a zero-width d_ctrl and controls' gradient
         check(f"teacher_backward{tag}{on}", [(f, getattr(bk, f), getattr(bp, f))
                                              for f in td.BackwardOut._fields
@@ -2641,9 +2705,9 @@ def k34_controls_phase(vanilla, log: dict) -> list:
         bk_bad = td.teacher_backward(*bwd_args)
     finally:
         td._LIB = saved
-    bp = td.teacher_backward_plain(*bwd_args)
+    bp = teacher_backward_ref(*bwd_args)
     k4_defect = {f: err(getattr(bk_bad, f), getattr(bp, f), own=True)[1] / K4_TOL[f]
-                 for f in ("dg2", "dxh1", "d_ctrl")}
+                 for f in ("dg2", "dxh1", "dq", "d_ctrl")}
     log["k34_controls_defects"] = {"controls_left_out_of_K3": k3_defect,
                                    "K4_d_rnn_h_at_H_plus_D": k4_defect,
                                    "as": "reading / limit"}
@@ -3466,19 +3530,16 @@ def train_perf(first: dict, second: dict, card: str) -> dict:
             "card": card}
 
 
-def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log: dict,
-                mode: str = "", tag: str = "", readings: bool = False,
-                split: bool = True) -> dict:
-    """At the first batch's shapes, on the trained weights of ``ckpt``: K3
-    and K4 against their plain versions (K3_TOL_TRAIN; a controllable
-    model's with its batch's speakers and controls), their split by kernel,
-    and one train step split into its parts, each timed alone, eager,
-    ending in a sync (so the parts need not sum to the whole step). ``mode``
-    "[controls]" names the kernels line's rows; ``tag`` the log's keys.
-    With ``readings`` also K3's and K4's device ms (graph replay) beside
-    their plain versions' and their bounds; without ``split`` neither the
-    split by kernel nor the step's parts. A description model's batch reads
-    the manifest's ``description_embedding`` files. -> the parts (ms)."""
+def train_inputs(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int,
+                 seed: int = SEED) -> dict:
+    """K3's and K4's inputs at the first ``B`` rows of the manifest under
+    ``root``, on the weights of ``ckpt``, as a train step makes them: the
+    encoder in train mode (a GST model's style of the batch's mel, a
+    description model's embeddings from the manifest's files), the
+    prenet's and LSTMs' dropout and random cotangents from a generator
+    seeded with ``seed``. -> {model, opt, sched, batch, gen, params, w,
+    encoder (the encoder's forward and backward), fwd (K3's arguments but
+    the weights), d_mg, d_al}"""
     import torch
 
     from tacotron2_tpu_torch.config import load_config
@@ -3504,7 +3565,7 @@ def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log
                           **({"descriptions": descs} if descs else {}))
     batch = step.to_device(collate([ds[i] for i in range(B)], 32, 128), dev)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
+    gen.manual_seed(seed)
     B, T = batch["mel"].shape[:2]
     L = batch["chars_idx"].shape[1]
     H, C = model.cfg.att_rnn_dim, model.cfg.controls_dim
@@ -3532,8 +3593,40 @@ def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log
     d_mg = torch.randn(T, B, N, device=dev, generator=gen) * 1e-3
     d_al = torch.randn(T, B, L, device=dev, generator=gen) * 1e-3
 
+    return {"model": model, "opt": opt, "sched": sched, "batch": batch, "gen": gen,
+            "params": params, "w": w, "encoder": encoder,
+            "fwd": (din, enc_b, att_enc.contiguous(), lens, dm1, dm2), "ctl": ctl,
+            "d_mg": d_mg, "d_al": d_al}
+
+
+def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log: dict,
+                mode: str = "", tag: str = "", readings: bool = False,
+                split: bool = True) -> dict:
+    """At the first batch's shapes, on the trained weights of ``ckpt``: K3
+    and K4 against their plain versions (K3_TOL_TRAIN; a controllable
+    model's with its batch's speakers and controls), their split by kernel,
+    and one train step split into its parts, each timed alone, eager,
+    ending in a sync (so the parts need not sum to the whole step). ``mode``
+    "[controls]" names the kernels line's rows; ``tag`` the log's keys.
+    With ``readings`` also K3's and K4's device ms (graph replay) beside
+    their plain versions' and their bounds; without ``split`` neither the
+    split by kernel nor the step's parts. A description model's batch reads
+    the manifest's ``description_embedding`` files. -> the parts (ms)."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import train_decode as td
+    from tacotron2_tpu_torch.training import optimizer, step
+
+    x = train_inputs(cfg_train, ckpt, speech, root, B)
+    model, opt, sched, batch, gen = x["model"], x["opt"], x["sched"], x["batch"], x["gen"]
+    params, w, encoder, d_mg, d_al, ctl = (x[k] for k in ("params", "w", "encoder", "d_mg",
+                                                          "d_al", "ctl"))
+    din, enc_b, att, lens, dm1, dm2 = x["fwd"]
+    B, T = batch["mel"].shape[:2]
+    L, C = batch["chars_idx"].shape[1], model.cfg.controls_dim
+
     fwd_args, bwd_args, mg, res_k, _, _ = k34_check(
-        f"{mode}{tag}@B{B},T{T}", params, w, din, enc_b, att_enc.contiguous(), lens, dm1, dm2,
+        f"{mode}{tag}@B{B},T{T}", params, w, din, enc_b, att, lens, dm1, dm2,
         d_mg, d_al, log, K3_TOL_TRAIN, ctl, mode)
     out = td.teacher_backward(*bwd_args)
     kernels = {}
@@ -5778,7 +5871,7 @@ def decode_step_bound(pk, B: int, L: int) -> tuple:
                pk.w_out, pk.b_out, pk.s_att, pk.s_dec)
     mats = (pk.w_att, pk.w_dec, pk.wp1_t, pk.wp2_t, pk.wq, pk.w_out)
     flops = 2 * B * sum(m.numel() for m in mats) + B * (L * A * (4 * K + 4) + 2 * L * D + 4 * L)
-    return bound_ms(w + B * L * (2 * D + 4 * A), flops, INT8_OPS if pk.quantized else BF16_FLOPS)
+    return bound_ms(w + B * L * (2 * D + 4 * A), flops, card_peak("int8") if pk.quantized else card_peak("bf16"))
 
 
 def _embedding_files(speech: Path) -> dict:
@@ -6118,7 +6211,6 @@ def correlation_part(ctl: dict, g_path: str, root: Path, log: dict, card: str,
     rows, one directory per override holding its kept rows' WAVs, and
     ``correlations.csv`` by JAX's rules; its output to ``chiprun_out/<log_name>``.
     -> (launches, the record)"""
-    import contextlib
     import csv as csv_mod
 
     import numpy as np
@@ -7010,18 +7102,27 @@ def dp_steps(rank: int, n: int, spec: dict, starts=None) -> dict:
     cfg = load_config(spec["cfg"])
     torch.manual_seed(SEED)
     model = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision)).to(dev)
-    dp = mesh.DataParallel(rank, n) if torch.distributed.is_initialized() else None
-    if dp is not None:
-        mesh.broadcast_state(model, dp)
+    batches = torch.load(spec["batches"], weights_only=False)[:spec.get("steps", DP_STEPS)]
+    m_tp = spec.get("model_parallel", 1)
+    dp = None
+    if torch.distributed.is_initialized():
+        mesh.broadcast_state(model, mesh.DataParallel(rank, n))  # over every rank
+        dp = (mesh.make_data_parallel(int(batches[0]["mel"].shape[0]), m_tp) if m_tp > 1
+              else mesh.DataParallel(rank, n))
+    if m_tp > 1:  # tensor parallel: this rank's slices, and their Adam moments only
+        mesh.shard_parameters(model, dp)
+    split = getattr(model, "tp_split", {})
     opt, sched = optimizer.make_optimizer(model.parameters(), cfg.training.lr,
                                           cfg.training.weight_decay)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
-    init = _host(model.state_dict()) if spec.get("keep") else None
+    init = mesh.gather_state_dict(model, dp) if spec.get("keep") or split else None
+    init = _host(init) if spec.get("keep") else None  # a gather: every model rank calls it
     td.reset_launches()
     el.reset_launches()
     out = []
-    batches = torch.load(spec["batches"], weights_only=False)[:spec.get("steps", DP_STEPS)]
+    digest = lambda sd: hashlib.sha1(b"".join(
+        v.reshape(-1).view(torch.uint8).numpy().tobytes() for v in sd.values())).hexdigest()
     with torch.enable_grad():
         for i, b in enumerate(batches):
             if starts and starts[i] is not None:
@@ -7030,25 +7131,29 @@ def dp_steps(rank: int, n: int, spec: dict, starts=None) -> dict:
                 # and counts on in it
                 opt.load_state_dict(copy.deepcopy(starts[i]["opt"]))
                 gen.set_state(starts[i]["gen"])
-            rows = mesh.shard_rows(b, rank, n) if dp is not None else b
+            rows = mesh.shard_rows(b, dp.rank, dp.n) if dp is not None else b
             t0 = time.perf_counter()
             m = step.train_step(model, opt, sched, step.to_device(rows, dev), gen, dp=dp)
             torch.cuda.synchronize()
             rec = {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(m["loss"]),
                    "grad_norm": float(m["grad_norm"]), "T": int(b["mel"].shape[1]),
                    "rows": int(rows["mel"].shape[0])}
-            state = _host(model.state_dict())
-            rec["digest"] = hashlib.sha1(b"".join(
-                v.reshape(-1).view(torch.uint8).numpy().tobytes() for v in state.values())
-            ).hexdigest()
+            state = _host(mesh.gather_state_dict(model, dp))
+            rec["digest"] = digest(state)
+            if split:  # the replicated weights and statistics as this rank holds them
+                rec["replicated_digest"] = digest(_host({k: v for k, v in model.state_dict().items()
+                                                         if k not in split}))
+            if spec.get("keep") or split:  # a gather: every rank of a model group calls it
+                opt_sd = mesh.gather_optimizer_state(opt, model, dp)
+                grads = {k: mesh.gather_units(p.grad, split[k], dp.model) if k in split
+                         else p.grad for k, p in model.named_parameters()}
             if spec.get("keep"):
-                rec["state"] = {"model": state, "gen": gen.get_state(),
-                                "opt": _host(opt.state_dict())}
-                rec["grads"] = {k: p.grad.detach().float().cpu()
-                                for k, p in model.named_parameters()}
+                rec["state"] = {"model": state, "gen": gen.get_state(), "opt": _host(opt_sd)}
+                rec["grads"] = {k: g.detach().float().cpu() for k, g in grads.items()}
             out.append(rec)
     return {"steps": out, "init": init, "launches": dict(td.LAUNCHES),
-            "ctl": dict(td.CONTROLS_LAUNCHES), "enc": dict(el.LAUNCHES)}
+            "ctl": dict(td.CONTROLS_LAUNCHES), "enc": dict(el.LAUNCHES),
+            "place": None if dp is None else [dp.rank, dp.n, dp.model and dp.model.rank]}
 
 
 def _host(x):
@@ -7082,10 +7187,34 @@ def _dp_rank(rank: int, n: int, store: str, spec: dict, out: str) -> None:
     if spec.get("defect"):
         _plant_local_bn_grad(mesh)
     torch.backends.cudnn.deterministic = True  # a reading the next run repeats
+    timed = _time_tp_decode() if spec.get("model_parallel", 1) > 1 else None
     res = dp_steps(rank, n, {**spec, "keep": rank == 0})
+    if timed is not None:
+        res["tp_decode_ms"] = timed
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     torch.save(res, out)
+
+
+def _time_tp_decode() -> dict:
+    """Host ms of each call of the column-parallel decode's forward and
+    backward (``ops/train_scan.py``), each between two syncs of the card:
+    -> {"forward": [...], "backward": [...]}, filled as the steps run."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import train_scan
+
+    times: dict = {"forward": [], "backward": []}
+    for key, name in (("forward", "teacher_forward_tp"), ("backward", "teacher_backward_tp")):
+        def timed(*a, _fn=getattr(train_scan, name), _key=key, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = _fn(*a, **k)
+            torch.cuda.synchronize()
+            times[_key].append((time.perf_counter() - t0) * 1e3)
+            return res
+        setattr(train_scan, name, timed)
+    return times
 
 
 def _plant_local_bn_grad(mesh) -> None:
@@ -7166,17 +7295,17 @@ def _adam_replay(model, cfg, start: dict, opt_state, grads: dict) -> dict:
     return {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
 
 
-def _spawn_ranks(d: Path, spec: dict, prefix: str) -> list:
-    """``DP_RANKS`` spawned ``_dp_rank`` processes over ``spec`` in a
-    store of their own under ``d``: -> their results."""
+def _spawn_ranks(d: Path, spec: dict, prefix: str, n: int = DP_RANKS) -> list:
+    """``n`` spawned ``_dp_rank`` processes over ``spec`` in a store of
+    their own under ``d``: -> their results."""
     import multiprocessing
 
     import torch
 
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_dp_rank, args=(r, DP_RANKS, str(d / f"{prefix}store"), spec,
+    procs = [ctx.Process(target=_dp_rank, args=(r, n, str(d / f"{prefix}store"), spec,
                                                 str(d / f"{prefix}rank{r}.pt")))
-             for r in range(DP_RANKS)]
+             for r in range(n)]
     for p in procs:
         p.start()
     for p in procs:
@@ -7186,8 +7315,8 @@ def _spawn_ranks(d: Path, spec: dict, prefix: str) -> list:
             p.kill()
             p.join()
     if any(p.exitcode != 0 for p in procs):
-        raise SmokeFailure(f"4j {prefix}: the ranks exited {[p.exitcode for p in procs]}")
-    return [torch.load(d / f"{prefix}rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+        raise SmokeFailure(f"{d.name} {prefix}: the ranks exited {[p.exitcode for p in procs]}")
+    return [torch.load(d / f"{prefix}rank{r}.pt", weights_only=False) for r in range(n)]
 
 
 def dp_compare(run: dict, B: int, tag: str, log: dict, card: str) -> dict:
@@ -7467,6 +7596,473 @@ def dp_mode() -> int:
     return 0
 
 
+K4_REF_SEEDS = 12  # --k4-ref: seeds of the masks and cotangents a weight state and batch
+
+
+def k4_ref_mode() -> int:
+    """``--k4-ref``: the kernels' build, then 4b's ``train`` (6 steps,
+    resumed to 8) on 4b's synthetic corpus. On the weights at steps 6 and 8,
+    the first 16 and 32 rows, K4_REF_SEEDS seeds each, on the plain
+    forward's residuals and on K3's: K4 and the plain backward in f32 sums
+    each against ``teacher_backward_ref`` (the same in f64 sums), and K4
+    against the plain f32 one (the former reference): each output's largest
+    reading, how many of dq's exceed its former 5e-3 and its limit,
+    and dq over the first 16 steps pulled, before the flips carry back.
+    Fails if a K4 reading exceeds K4_TOL; details to
+    ``chiprun_out/k4_ref.json``."""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    card = card_line()
+    print(f"[k4-ref] on {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    use_f32_math()
+    build.build_all()
+    WORK.mkdir(parents=True, exist_ok=True)
+    root = WORK / "train"
+    speech = _synth_corpus(root, TRAIN_WAVS)
+    rows = ["text|wav"] + [f"{TRAIN_TEXTS[i % len(TRAIN_TEXTS)]}|s{i:03d}.wav"
+                           for i in range(TRAIN_WAVS)]
+    raw = json.loads((ROOT / "config" / "vanilla-ljspeech-stop.json").read_text())
+    cfg_train, first, second, *_ = train_run(root, raw, rows, 32, speech)
+    rel = lambda a, b: float((a.double() - b.double()).abs().max() / b.double().abs().max())
+    draws = []
+    try:
+        for step, ckpt in ((6, first["checkpoint"]), (8, second["checkpoint"])):
+            for B in (16, 32):
+                for seed in range(SEED, SEED + K4_REF_SEEDS):
+                    x = train_inputs(cfg_train, ckpt, speech, root, B, seed)
+                    fwd = (x["w"], *x["fwd"], None)
+                    res = {"plain": td.teacher_forward_plain(*fwd)[1],
+                           "K3": td.teacher_forward(*fwd)[1]}
+                    for on, r in res.items():
+                        args = (x["w"], r, *x["fwd"][1:], x["d_mg"], x["d_al"])
+                        k, p, ref = (td.teacher_backward(*args), td.teacher_backward_plain(*args),
+                                     teacher_backward_ref(*args))
+                        m = float(ref.dq.abs().max())
+                        head = lambda o: float((o.dq[-16:] - ref.dq[-16:]).abs().max()) / m
+                        draws.append({"step": step, "B": B, "seed": seed, "on": on,
+                                      "k_ref": {f: rel(getattr(k, f), getattr(ref, f))
+                                                for f in td.BackwardOut._fields
+                                                if getattr(ref, f).numel()},
+                                      "plain_ref": {f: rel(getattr(p, f), getattr(ref, f))
+                                                    for f in td.BackwardOut._fields
+                                                    if getattr(ref, f).numel()},
+                                      "k_plain_dq": rel(k.dq, p.dq),
+                                      "dq_first16": {"k_ref": head(k), "plain_ref": head(p)}})
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    fields = list(draws[0]["k_ref"])
+    worst = {f: {w: max(d[w][f] for d in draws) for w in ("k_ref", "plain_ref")}
+             for f in fields}
+    dq = {w: np.array([d[w]["dq"] for d in draws]) for w in ("k_ref", "plain_ref")}
+    dq["k_plain"] = np.array([d["k_plain_dq"] for d in draws])
+    summary = {"draws": len(draws), "worst": worst,
+               "dq": {w: {"median": float(np.median(v)), "p99": float(np.percentile(v, 99)),
+                          "max": float(v.max()), "above_5e-3": int((v > 5e-3).sum()),
+                          "above_limit": int((v > K4_TOL["dq"]).sum())} for w, v in dq.items()},
+               "dq_first16_max": {w: max(d["dq_first16"][w] for d in draws)
+                                  for w in ("k_ref", "plain_ref")},
+               "card": card}
+    for f in fields:
+        print(f"  {f:<9} K4 vs the f64-sum reference {worst[f]['k_ref']:.3e}, the plain f32 "
+              f"version vs it {worst[f]['plain_ref']:.3e} (limit {K4_TOL[f]:g})")
+    for w, v in summary["dq"].items():
+        print(f"  dq {w}: median {v['median']:.3e}, p99 {v['p99']:.3e}, max {v['max']:.3e}, "
+              f"above 5e-3 {v['above_5e-3']}, above {K4_TOL['dq']:g} {v['above_limit']} of "
+              f"{len(draws)}")
+    print(f"  dq over the first 16 steps pulled: {summary['dq_first16_max']}")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "k4_ref.json").write_text(json.dumps({"summary": summary, "draws": draws},
+                                                    indent=1))
+    print(json.dumps(summary))
+    print(card)
+    if any(worst[f]["k_ref"] > K4_TOL[f] for f in fields):
+        print(f"FAIL: a K4 reading above K4_TOL: {worst}", file=sys.stderr)
+        return 1
+    return 0
+
+
+MESH_SHARDS = ("cuda:0", "cuda:0")  # 4k (a): two shards on the one card (no two-card number)
+MESH_WAVE = 16  # 4k (a): concurrent requests a wave, one wave bf16 and one int8
+MESH_LSB = 0  # 4k (a): a sharded request against the meshless server's alone, PCM16 LSB
+TP_GRID = (2, 2)  # 4k (b): data x model gloo ranks sharing the one card
+TP_STEPS = 2
+# 4k (b)'s limits: DP_TOL, 4j's. A grid step is held against the
+# one-process K3 / K4 step in a one-rank group, whose train-mode BatchNorm
+# is the same two-pass global code as the grid's data group: the reading then
+# sees the column-parallel decode (stock ops against K3 / K4) and the split,
+# not cuDNN's BatchNorm against the two-pass sums, which alone reads up to
+# 1.45e-2 of a tensor's max between two one-process steps (4j, PERF.md). Against
+# the one-process step without a group the readings are reported.
+MEL_CLIP_S = 10.0  # 4k (c): the clip's seconds
+MEL_TOL = 5e-3  # 4k (c): log-mel, card against the numpy backend (tests/test_audio.py's)
+
+
+def mesh_serve_part(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> dict:
+    """4k (a): the warm server with ``mesh: {"data": 2}`` on ``MESH_SHARDS``
+    (a bf16 and an int8 entry of the random full-width checkpoint ``ckpt``,
+    gate forced positive, ``max_len`` 256, warm-up on each shard) beside a
+    meshless server of the same entries: one wave of ``MESH_WAVE``
+    concurrent requests to each entry, the launch counters set to 0 before
+    each wave and read after, attributed to the shards by the thread that
+    launched; each shard's K1 (K5) two cell launches a decode step and K2
+    one vocode a decode; every request's WAV against the meshless server's
+    same request alone (``MESH_LSB``); each window's host ms; then a ``{"data":
+    2}`` config without the explicit list, which must raise on a one-card
+    machine. -> the waves' launches."""
+    import concurrent.futures
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.audio.io import read_wav
+    from tacotron2_tpu_torch.ops import build, decoder_loop, encoder_lstm, mrf
+    from tacotron2_tpu_torch.run import server as srv
+
+    root = WORK / "mesh_serve"
+    root.mkdir(parents=True, exist_ok=True)
+    entry = {"config": cfg_path, "checkpoint": ckpt, "hifi_gan_checkpoint": g_path,
+             "max_len": 256, "multi_speaker": False, "controllable": False, "num_voices": 1}
+    models = [dict(entry, name="vanilla-bf16"), dict(entry, name="vanilla-int8",
+                                                     quantize_int8=True)]
+    batching = {"enabled": True, "window_ms": 8, "max_batch": 64, "depth": 2}
+    cwd = os.getcwd()
+    os.chdir(root)
+    servers = []
+    lock, tls = threading.Lock(), threading.local()
+    per_shard = [{} for _ in MESH_SHARDS]
+    windows = []
+    orig = (build.count, srv._shard_rows, srv.synthesize_batch)
+
+    def count(table, name, n=1):
+        orig[0](table, name, n)
+        s = getattr(tls, "shard", None)
+        if s is not None:
+            with lock:
+                per_shard[s][name] = per_shard[s].get(name, 0) + n
+
+    def shard_rows(shard, *a, **k):
+        tls.shard = index.get(id(shard))  # None: the meshless server's bundle
+        try:
+            return orig[1](shard, *a, **k)
+        finally:
+            tls.shard = None
+
+    def synthesize(bundle, reqs, *a, **k):
+        t0 = time.perf_counter()
+        out = orig[2](bundle, reqs, *a, **k)
+        if bundle.shards:
+            windows.append({"int8": bool(bundle.packed.quantized), "rows": len(reqs),
+                            "ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    try:
+        def start(config, shards=None):
+            httpd = srv.make_server(config, "warm", host="127.0.0.1", port=0,
+                                    shard_devices=shards)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            servers.append(httpd)
+            return httpd
+
+        mesh_h = start({"models": models, "batching": batching, "mesh": {"data": 2},
+                        "warmup": True}, list(MESH_SHARDS))
+        solo_h = start({"models": models, "batching": batching, "warmup": True})
+        reg = mesh_h.app.registry
+        index = {id(sh): i for m in (0, 1) for i, sh in enumerate(reg.load(m).shards)}
+        build.count, srv._shard_rows, srv.synthesize_batch = count, shard_rows, synthesize
+        port = mesh_h.server_address[1]
+        waves, launches, per = {}, {}, {}
+        for model, key in ((0, "bf16"), (1, "int8")):
+            payloads = [{"text": TRAIN_TEXTS[i % len(TRAIN_TEXTS)], "model": model,
+                         "seed": 300 + i} for i in range(MESH_WAVE)]
+            barrier = threading.Barrier(MESH_WAVE)
+
+            def one(p):
+                barrier.wait()
+                return _post(port, p)
+
+            decoder_loop.reset_launches()
+            mrf.reset_launches()
+            encoder_lstm.reset_launches()
+            for d in per_shard:
+                d.clear()
+            counts0 = [list(c) for c in reg.shard_counts]
+            calls0 = srv.BATCH_CALLS[0]
+            n_windows = len(windows)
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(MESH_WAVE) as ex:
+                replies = list(ex.map(one, payloads))
+            wall = time.perf_counter() - t0
+            n_calls = srv.BATCH_CALLS[0] - calls0
+            if any(st != 200 for st, _, _ in replies):
+                raise SmokeFailure(f"4k (a) {key} wave: {[(st, b) for st, b, _ in replies][:2]}")
+            wave_launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES,
+                             "bilstm_forward": encoder_lstm.LAUNCHES["bilstm_forward"]}
+            for k, v in wave_launches.items():
+                launches[k] = launches.get(k, 0) + v
+            counts = [[a - b for a, b in zip(c, c0)] for c, c0 in zip(reg.shard_counts, counts0)]
+            cell = "lstm_cell_int8" if model else "lstm_cell"
+            per[key] = [{"decodes": c[0], "rows": c[1], "steps": c[2], "launches": dict(l)}
+                        for c, l in zip(counts, per_shard)]
+            for s, x in enumerate(per[key]):
+                want = {cell: 2 * x["steps"], **({"quantize_xh": 2 * x["steps"]} if model else {})}
+                got = {k: x["launches"].get(k, 0) for k in want}
+                if got != want or x["decodes"] < 1:
+                    raise SmokeFailure(f"4k (a) {key}: shard {s} launched {got}, want {want} "
+                                       f"({x})")
+                check_vocode_launches({k: x["launches"].get(k, 0) for k in mrf.LAUNCHES},
+                                      x["decodes"], f"4k (a) {key} shard {s}")
+            if wave_launches[cell] != sum(2 * x["steps"] for x in per[key]):
+                raise SmokeFailure(f"4k (a) {key}: launches {wave_launches} outside the shards")
+            # each request against the meshless server's same request alone
+            lsb = []
+            for p, (_, body, _) in zip(payloads, replies):
+                st, solo, _ = _post(solo_h.server_address[1], p)
+                a = read_wav(str(root / body["path"]))[0]
+                b = read_wav(str(root / solo["path"]))[0]
+                if st != 200 or len(a) != len(b):
+                    raise SmokeFailure(f"4k (a) {key}: alone {st}, {len(b)} samples against "
+                                       f"{len(a)}")
+                lsb.append(float(np.abs(np.round(a * 32768) - np.round(b * 32768)).max()))
+            lat = np.array([sec for _, _, sec in replies])
+            waves[key] = {"requests": MESH_WAVE, "windows": n_calls,
+                          "window_ms": [w["ms"] for w in windows[n_windows:]],
+                          "window_rows": [w["rows"] for w in windows[n_windows:]],
+                          "wall_s": wall, "p50_s": float(np.percentile(lat, 50)),
+                          "max_lsb_against_alone": max(lsb), "per_shard": per[key]}
+            print(f"  {key} wave of {MESH_WAVE}: {waves[key]['windows']} window(s) of "
+                  f"{waves[key]['window_rows']} rows in "
+                  f"{[round(x, 1) for x in waves[key]['window_ms']]} ms (host clock, two shards "
+                  f"on one card); per shard "
+                  + "; ".join(f"{s}: {x['decodes']} decodes, {x['rows']} rows, {x['steps']} steps, "
+                              f"{cell} {x['launches'].get(cell, 0)}"
+                              + (f", quantize_xh {x['launches'].get('quantize_xh', 0)}"
+                                 if model else "")
+                              + f", K2 mrf_conv {x['launches'].get('mrf_conv', 0)} / mrf_pair "
+                              f"{x['launches'].get('mrf_pair', 0)}"
+                              for s, x in enumerate(per[key]))
+                  + f"; every request against the meshless server alone: max {max(lsb):g} PCM16 "
+                  f"LSB (limit {MESH_LSB}); on {card}")
+            if not max(lsb) <= MESH_LSB:
+                log.setdefault("deferred", []).append(
+                    f"4k (a) {key}: a sharded request differs from alone by {max(lsb)} LSB")
+        stats = mesh_h.app.stats()
+        if stats["mesh_devices"] != len(MESH_SHARDS):
+            raise SmokeFailure(f"4k (a): /stats reports mesh_devices {stats['mesh_devices']}")
+    finally:
+        build.count, srv._shard_rows, srv.synthesize_batch = orig
+        for h in servers:
+            h.shutdown()
+            h.app.close(wait=True)
+            h.server_close()
+        os.chdir(cwd)
+    have = torch.cuda.device_count()
+    try:
+        srv.App({"models": models, "mesh": {"data": 2}})
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    print(f"  a {{'data': 2}} config without the list on {have} card(s): "
+          f"{refusal or 'accepted'}")
+    if (have < 2) != (refusal is not None) or \
+            (refusal and f"server mesh wants data=2 devices, only {have} available" != refusal):
+        raise SmokeFailure(f"4k (a): the mesh without the list on {have} card(s): {refusal}")
+    log.setdefault("mesh", {})["serve"] = {"waves": waves, "stats": stats, "refusal": refusal,
+                                          "shards": list(MESH_SHARDS), "card": card}
+    return launches
+
+
+def tp_compare(run: dict, log: dict, card: str) -> dict:
+    """4k (b): ``TP_STEPS`` steps of ``run``'s config at B=``TRAIN_B`` on a
+    ``TP_GRID`` grid of spawned gloo ranks sharing the card (``dp_steps``
+    with ``model_parallel``: each rank its slices, the decode
+    column-parallel on stock ops, no K3 / K4), each step against one
+    process's K3 / K4 step from the grid's state before it (rank 0's,
+    gathered): in a one-rank group, held to ``DP_TOL``, and without a
+    group, reported. The replicated weights the same bits across each model
+    group, the gathered state across every rank; each rank's encoder kernels
+    once a step; the column-parallel decode's host ms a step."""
+    import torch
+
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.models.layers import Policy
+    from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+    from tacotron2_tpu_torch.parallel import mesh
+    from tacotron2_tpu_torch.run.say import model_config_from
+
+    d = run["root"] / "tp"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    dp_batches(run, TRAIN_B, d / "batches.pt")
+    spec = {"cfg": str(run["cfg"]), "batches": str(d / "batches.pt"), "steps": TP_STEPS}
+    n = TP_GRID[0] * TP_GRID[1]
+    ranks = _spawn_ranks(d, {**spec, "model_parallel": TP_GRID[1]}, "", n)
+    starts = [None] + [st["state"] for st in ranks[0]["steps"][:-1]]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as the ranks'
+    try:
+        mesh.init_data_parallel("gloo", f"file://{d / 'store1'}", 0, 1)
+        try:
+            one_rank = dp_steps(0, 1, {**spec, "keep": True}, starts)
+        finally:
+            torch.distributed.destroy_process_group()
+        plain = dp_steps(0, 1, {**spec, "keep": True}, starts)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    cfg = load_config(spec["cfg"])
+    model = Tacotron2(model_config_from(cfg), Policy.from_string(cfg.training.precision)).cuda()
+    shown = (*DP_TOL, "tensor_grads")
+    refs, bad = {"one_rank": [], "no_group": []}, {}
+    groups = [list(range(i * TP_GRID[1], (i + 1) * TP_GRID[1])) for i in range(TP_GRID[0])]
+    equal = []
+    for i, a in enumerate(ranks[0]["steps"]):
+        eq = {"replicated_in_model_groups": all(
+                  len({ranks[r]["steps"][i]["replicated_digest"] for r in g}) == 1 for g in groups),
+              "gathered_on_every_rank": len({r["steps"][i]["digest"] for r in ranks}) == 1}
+        equal.append(eq)
+        if not all(eq.values()):
+            raise SmokeFailure(f"4k (b) step {i + 1}: the ranks' weights part: {eq}")
+        start = starts[i]["model"] if i else ranks[0]["init"]
+        replay = _adam_replay(model, cfg, start, starts[i]["opt"] if i else None, a["grads"])
+        for name, ref in (("one_rank", one_rank), ("no_group", plain)):
+            w = _step_errors(a, ref["steps"][i], start, replay)
+            refs[name].append(w)
+            print(f"    step {i + 1} against one process's K3 / K4 step, "
+                  f"{name.replace('_', ' ')}: " + ", ".join(
+                      f"{k} {w[k]:.2e}" + (f" ({w[k + '_at']})" if k + "_at" in w else "")
+                      for k in shown))
+    worst = {name: {k: max(w[k] for w in ws) for k in shown} for name, ws in refs.items()}
+    bad = {f"one_rank {k}": v for k, v in worst["one_rank"].items()
+           if k in DP_TOL and not v <= DP_TOL[k]}
+    for r, res in enumerate(ranks):
+        if any(res["launches"].values()) or res["enc"]["bilstm_backward"] != TP_STEPS \
+                or res["enc"]["bilstm_forward"] < TP_STEPS:
+            raise SmokeFailure(f"4k (b): rank {r} launched K3/K4 {res['launches']} (want none), "
+                               f"the encoder {res['enc']}")
+    decode = ranks[0].get("tp_decode_ms", {})
+    out = {"grid": TP_GRID, "B": TRAIN_B, "rows_per_rank": ranks[0]["steps"][0]["rows"],
+           "places": [r["place"] for r in ranks], "worst": worst, "per_step": refs, "tol": DP_TOL,
+           "equal": equal, "losses": [st["loss"] for st in ranks[0]["steps"]],
+           "grad_norms": [st["grad_norm"] for st in ranks[0]["steps"]],
+           "one_process_losses": [st["loss"] for st in plain["steps"]],
+           "rank_ms": [[st["ms"] for st in r["steps"]] for r in ranks],
+           "one_process_ms": [st["ms"] for st in plain["steps"]],
+           "decode_forward_ms": decode.get("forward"), "decode_backward_ms": decode.get("backward"),
+           "one_process_launches": plain["launches"], "card": card}
+    print(f"  (b) a {TP_GRID[0]} x {TP_GRID[1]} grid (data x model) of gloo ranks, four ranks on "
+          f"one card, {out['rows_per_rank']} rows a rank of B={TRAIN_B}: losses "
+          f"{[round(x, 5) for x in out['losses']]} (one process "
+          f"{[round(x, 5) for x in out['one_process_losses']]}), grad_norm "
+          f"{[round(x, 4) for x in out['grad_norms']]}; worst over {TP_STEPS} steps: " + "; ".join(
+              f"{name.replace('_', ' ')}: " + ", ".join(
+                  f"{k} {v:.2e} (tol {DP_TOL.get(k, 'reported') if name == 'one_rank' else 'reported'})"
+                  for k, v in ws.items()) for name, ws in worst.items())
+          + f"; the replicated weights bit-equal in each model group {equal}; step ms on the "
+          f"host clock, four ranks on one card {[round(x, 1) for x in out['rank_ms'][0]]}, the "
+          f"column-parallel decode (stock ops, no kernel) forward "
+          f"{[round(x, 1) for x in decode.get('forward', [])]} / backward "
+          f"{[round(x, 1) for x in decode.get('backward', [])]} ms, one process's K3 / K4 step "
+          f"{[round(x, 1) for x in out['one_process_ms']]} ms; on {card}")
+    log.setdefault("mesh", {})["tp"] = out
+    if bad:
+        log.setdefault("deferred", []).append(
+            f"4k (b): a tensor-parallel step differs from one process's: {bad}")
+    return out
+
+
+def mel_device_part(log: dict, card: str) -> dict:
+    """4k (c): ``TacotronMelSpectrogram(backend="torch")`` on the card
+    against the numpy backend on a ``MEL_CLIP_S`` clip: the largest log-mel
+    difference (``MEL_TOL``), ms a clip, the first call and warm (host
+    clock, each ending in the copy to the host)."""
+    import numpy as np
+
+    from tacotron2_tpu_torch.audio.mel import TacotronMelSpectrogram
+
+    wav = _speechlike(22050, 140.0, MEL_CLIP_S, SEED)
+    mel = TacotronMelSpectrogram()
+    t0 = time.perf_counter()
+    got = mel(wav, backend="torch")
+    first = (time.perf_counter() - t0) * 1e3
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        mel(wav, backend="torch")
+        warm.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    ref = mel(wav)
+    host = (time.perf_counter() - t0) * 1e3
+    diff = float(np.abs(got - ref).max()) if got.shape == ref.shape else float("inf")
+    out = {"frames": int(ref.shape[0]), "max_abs_diff": diff, "first_ms": first,
+           "warm_ms": float(np.median(warm)), "numpy_ms": host, "card": card}
+    print(f"  (c) log-mel of a {MEL_CLIP_S:g} s clip ({out['frames']} frames): backend='torch' "
+          f"on the card against numpy, max |diff| {diff:.2e} (tol {MEL_TOL:g}); first call "
+          f"{first:.1f} ms, warm {out['warm_ms']:.2f} ms, numpy {host:.1f} ms (host clock) on "
+          f"{card}")
+    log.setdefault("mesh", {})["mel"] = out
+    if got.dtype != np.float32 or not np.isfinite(got).all() or not diff <= MEL_TOL:
+        raise SmokeFailure(f"4k (c): the device log-mel {got.shape} {got.dtype}: {out}")
+    return out
+
+
+def mesh_phase(cfg_path: str, ckpt: str, van: dict, g_path: str, log: dict, card: str) -> dict:
+    """Phase 4k: (a) ``mesh_serve_part`` of ``cfg_path`` / ``ckpt`` (gate
+    forced positive), (b) ``tp_compare`` on 4b's run ``van``, (c)
+    ``mel_device_part``. -> (a)'s launches (the main path's served shards)."""
+    print(f"  (a) the server's data mesh on {list(MESH_SHARDS)}: two shards on one card, no "
+          "number here is from two cards")
+    t0 = time.perf_counter()
+    launches = mesh_serve_part(cfg_path, ckpt, g_path, log, card)
+    log.setdefault("mesh", {})["serve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp_compare(van, log, card)
+    log["mesh"]["tp_s"] = time.perf_counter() - t0
+    mel_device_part(log, card)
+    return launches
+
+
+def mesh_mode() -> int:
+    """``--mesh``: the kernels' build and phase 4k alone, on 4b's config and
+    a synthetic corpus with random full-width weights; details to
+    ``OUT_DIR / "mesh.json"``."""
+    import torch
+
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build
+
+    card = card_line()
+    print(f"[4k] alone on {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    use_f32_math()
+    t0 = time.perf_counter()
+    build.build_all()
+    log: dict = {"card": card, "build_s": time.perf_counter() - t0}
+    try:
+        WORK.mkdir(parents=True, exist_ok=True)
+        van = _extras_source("train", ROOT / "config" / "vanilla-ljspeech-stop.json",
+                             TRAIN_WAVS, False)
+        launches = mesh_phase(str(van["cfg"]), van["ckpt"], van, write_hifigan(), log, card)
+        print(f"  4k launches: {launches}")
+        if log.get("deferred"):
+            raise SmokeFailure("; ".join(log["deferred"]))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    finally:
+        log["seconds"] = time.perf_counter() - t0
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "mesh.json").write_text(json.dumps(log, indent=1, default=str))
+        shutil.rmtree(WORK, ignore_errors=True)
+    print(f"  4k took {log['seconds']:.1f} s")
+    print(card)
+    return 0
+
+
 def arg_value(flag: str, default: str) -> str:
     argv = sys.argv[1:]
     return argv[argv.index(flag) + 1] if flag in argv else default
@@ -7693,8 +8289,12 @@ def main() -> int:
         return descriptions_mode()
     if "--gst" in sys.argv[1:]:
         return gst_mode()
+    if "--k4-ref" in sys.argv[1:]:
+        return k4_ref_mode()
     if "--dp" in sys.argv[1:]:
         return dp_mode()
+    if "--mesh" in sys.argv[1:]:
+        return mesh_mode()
     log: dict = {}
     t_start = time.perf_counter()
     try:
@@ -7846,6 +8446,12 @@ def main() -> int:
               "rank under torchrun's environment, and the device prefetcher on and off")
         dp_launches, dp_readings = dp_phase(van_run, ctl_run, log, card)
         for k, n in dp_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        print(f"[4k] the server's data mesh ({{'data': 2}} on {list(MESH_SHARDS)}: a bf16 and an "
+              f"int8 wave of {MESH_WAVE}), tensor-parallel train ({TP_GRID[0]} x {TP_GRID[1]} "
+              f"gloo ranks sharing the card against one process's K3 / K4 step at B={TRAIN_B}) "
+              "and the device mel backend")
+        for k, n in mesh_phase(cfg_path, ckpt, van_run, g_path, log, card).items():
             launches[k] = launches.get(k, 0) + n
         for r in rows:
             if r["name"] == "teacher_forward":

@@ -30,7 +30,8 @@ inference ``gst_reference_mel``, or the neutral style of a zeros reference
 ``forward_teacher`` is training's teacher-forced pass (JAX
 ``forward_teacher(dw_hoist=True)``), with every conditioning above too:
 the decode runs as ``TeacherDecode``, kernels K3 and K4
-(``ops/train_decode.py``).
+(``ops/train_decode.py``), or in a tensor-parallel step column-parallel on
+stock ops (``ops/train_scan.py``, JAX's XLA scan on a TP mesh).
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from tacotron2_tpu_torch.models.encoder import Encoder
 from tacotron2_tpu_torch.models.gst import GST
 from tacotron2_tpu_torch.models.layers import F32, Policy
 from tacotron2_tpu_torch.models.postnet import Postnet
-from tacotron2_tpu_torch.ops import decoder_loop, train_decode
+from tacotron2_tpu_torch.ops import decoder_loop, train_decode, train_scan
 from tacotron2_tpu_torch.parallel import mesh
 
 GATE_MASK_VALUE = -1000.0
@@ -291,7 +292,11 @@ class Tacotron2(nn.Module):
         else:
             ones = torch.ones(T, B, c.att_rnn_dim, device=dev)
             lstm_masks = (ones, ones)
-        mels, gates, aligns = train_decode.teacher_decode(
+        # a tensor-parallel step (a model group) decodes column-parallel on
+        # every device, as JAX's TP mesh takes its XLA scan; else K3 / K4
+        decode = (train_scan.teacher_decode if mesh.model_parallel() is not None
+                  else train_decode.teacher_decode)
+        mels, gates, aligns = decode(
             self.decoder, decoder_in, encoded, att_encoded, chars_len,
             *lstm_masks, self.policy.compute_dtype, controls)
         mels = mels.transpose(0, 1)

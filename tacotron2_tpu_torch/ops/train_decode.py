@@ -269,32 +269,61 @@ def teacher_forward_plain(w: TrainWeights, decoder_in, encoded, att_enc, lengths
     controls zero-padded to the weights' E (``pad_controls``; None where E =
     0). Written without in-place updates, so autograd can also
     differentiate it."""
+    mel_gate, res, _ = teacher_steps(w, decoder_in, encoded, att_enc, lengths, dm1, dm2, ctl)
+    return mel_gate, res
+
+
+def unit_columns(mp: Optional[mesh.ModelParallel], H: int) -> slice:
+    """The columns of (B, H) that model rank ``mp`` holds the units of; all
+    of them without a model group."""
+    if mp is None:
+        return slice(None)
+    h = H // mp.n
+    return slice(mp.rank * h, (mp.rank + 1) * h)
+
+
+def teacher_steps(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1, dm2, ctl=None,
+                  mp: Optional[mesh.ModelParallel] = None):
+    """``teacher_forward_plain``'s steps. With a model group ``mp``, ``w``'s
+    cells hold the rank's unit rows (``mesh.unit_slice``): each step computes
+    its units' gates, cell state and h (times its columns of the whole
+    masks), then all-gathers h for the attention, the next cell and the
+    heads, which every rank computes whole. -> (mel_gate, Residuals with
+    the rank's units of the cell states, the f32 att_h and rnn_h after
+    dropout of every step (T, B, H) x 2, None without ``mp``)."""
     T, B, _ = decoder_in.shape
     L, D = encoded.shape[1], encoded.shape[2]
     H, E = packed_dims(w, D)
     if ctl is None:
         ctl = pad_controls(None, E, decoder_in[0])
+    own = unit_columns(mp, H)
+    gather = (lambda x: x) if mp is None else (lambda x: mesh.gather_columns(x, mp))
     cd = w.w1.dtype
     z = lambda *s: decoder_in.new_zeros(*s)
+    h = w.w1.shape[0] // 4
     att_h, ctx, rnn_h = z(B, H), z(B, D), z(B, H)
-    c_att, c_rnn, al, cum = [z(B, H)], [z(B, H)], [z(B, L)], [z(B, L)]
-    xh1, xh2, mel_gate = [], [], []
+    c_att, c_rnn, al, cum = [z(B, h)], [z(B, h)], [z(B, L)], [z(B, L)]
+    xh1, xh2, mel_gate, att_hs, rnn_hs = [], [], [], [], []
     for t in range(T):
         xh1.append(torch.cat([decoder_in[t], ctx, att_h], dim=1).to(cd))
-        h, c = lstm_cell_plain(w.w1, w.b1, decoder_in[t], ctx, att_h, c_att[-1])
-        att_h = h * dm1[t]
+        hl, c = lstm_cell_plain(w.w1, w.b1, decoder_in[t], ctx, att_h, c_att[-1])
+        att_h = gather(hl * dm1[t, :, own])
         c_att.append(c)
         ctx, wt, cm = location_attention_plain(att_h, w.wq, w.w_loc, w.wv, att_enc, encoded,
                                                lengths, al[-1], cum[-1])
         al.append(wt)
         cum.append(cm)
         xh2.append(torch.cat([att_h, ctx, ctl, rnn_h], dim=1).to(cd))
-        h, c = lstm_cell_plain(w.w2, w.b2, att_h, ctx, rnn_h, c_rnn[-1], ctl)
-        rnn_h = h * dm2[t]
+        hl, c = lstm_cell_plain(w.w2, w.b2, att_h, ctx, rnn_h, c_rnn[-1], ctl)
+        rnn_h = gather(hl * dm2[t, :, own])
         c_rnn.append(c)
+        if mp is not None:
+            att_hs.append(att_h)
+            rnn_hs.append(rnn_h)
         mel_gate.append(heads_plain(w.w_out, w.b_out, rnn_h, ctx, ctl=ctl))
     st = torch.stack
-    return st(mel_gate), Residuals(st(xh1), st(xh2), st(c_att), st(c_rnn), st(al), st(cum))
+    hs = (st(att_hs), st(rnn_hs)) if mp is not None else None
+    return st(mel_gate), Residuals(st(xh1), st(xh2), st(c_att), st(c_rnn), st(al), st(cum)), hs
 
 
 def _gates(g: torch.Tensor):
@@ -315,6 +344,32 @@ def _lstm_pull(gates, c_prev, d_hd, mask, d_c):
     return dg, dc * f
 
 
+def attention_pull(w: TrainWeights, W, att_h, al, cum, dws, encoded, att_enc, pad, sums):
+    """One step's location attention recomputed from its query's att_h and
+    its window (al, cum), then pulled back from dws (B, L), the cotangent of
+    its weights. ``W`` is (wq, w_loc, wv) in the sum type, ``pad`` the
+    (B, L) mask of the padded chars; the step's d_attenc, d_wv and d_wloc are
+    added into ``sums``, those three accumulators. -> (dq (B, A), d_win (B,
+    2, L), the cotangent of the window)."""
+    wq, wl, wv = W
+    K = wl.shape[2]
+    q = _rnd(_rnd(att_h, w.wq) @ wq.t(), w.wq)
+    win = _rnd(torch.stack([al, cum], dim=1), w.w_loc)  # (B, 2, L)
+    loc = F.conv1d(win, wl, padding=K // 2).transpose(1, 2)  # (B, L, A)
+    th = torch.tanh(q[:, None, :] + loc + att_enc)
+    e = (_rnd(th, w.wv) @ wv).masked_fill(pad, float("-inf"))
+    wt = torch.softmax(e, dim=1)
+    d_attenc, d_wv, d_wloc = sums
+    de = wt * (dws - (dws * wt).sum(dim=1, keepdim=True))
+    d_wv += torch.einsum("bla,bl->ba", th, de)
+    de_pre = de[:, :, None] * wv * (1 - th * th)  # (B, L, A)
+    d_attenc += de_pre
+    patches = F.pad(win, (K // 2, K // 2)).unfold(2, K, 1)  # (B, 2, L, K)
+    d_wloc += torch.einsum("bclk,bla->back", patches, de_pre)
+    d_win = F.conv_transpose1d(de_pre.transpose(1, 2), wl, padding=K // 2)  # (B, 2, L)
+    return de_pre.sum(dim=1), d_win
+
+
 def teacher_backward_plain(w: TrainWeights, res: Residuals, encoded, att_enc, lengths, dm1, dm2,
                            d_mel_gate, d_align) -> BackwardOut:
     """The reverse pass (``train_scan._vjp_bwd``, pulled by hand as
@@ -323,7 +378,7 @@ def teacher_backward_plain(w: TrainWeights, res: Residuals, encoded, att_enc, le
     T, B, R1 = res.xh1.shape
     L, D = encoded.shape[1], encoded.shape[2]
     H, E = packed_dims(w, D)
-    P, K = R1 - D - H, w.w_loc.shape[2]
+    P = R1 - D - H
     cd = w.w1.dtype
     W1, W2, wq, wl, wv, wout = (_acc(t) for t in (w.w1, w.w2, w.wq, w.w_loc, w.wv, w.w_out))
     enc = _acc(encoded)
@@ -334,7 +389,7 @@ def teacher_backward_plain(w: TrainWeights, res: Residuals, encoded, att_enc, le
     dg1, dg2 = z(T, B, 4 * H).to(cd), z(T, B, 4 * H).to(cd)
     dxh1, dctx, dq = z(T + 1, B, R1), z(T, B, D), z(T, B, w.wq.shape[0])
     head_h = z(T, B, H).to(cd)
-    d_attenc, d_wv, d_wloc = z(*att_enc.shape), z(B, wq.shape[0]), z(B, *wl.shape)
+    sums = (z(*att_enc.shape), z(B, wq.shape[0]), z(B, *wl.shape))  # d_attenc, d_wv, d_wloc
     d_att_c, d_rnn_c, d_rnn_h, d_ctrl = z(B, H), z(B, H), z(B, H), z(B, E)
     d_w, d_cum = z(B, L), z(B, L)
     pad = torch.arange(L, device=enc.device)[None, :] >= lengths[:, None]
@@ -352,33 +407,20 @@ def teacher_backward_plain(w: TrainWeights, res: Residuals, encoded, att_enc, le
         d_rnn_h = dx2[:, H + D + E:]
         dc = dxh1[t + 1, :, P:P + D] + d_headin[:, H:H + D] + dx2[:, H:H + D]
         dctx[t] = dc
-        # attention recompute
+        # attention, recomputed from the gates' att_h
         g1 = _gates(G1[t])
         c1 = g1[1] * res.c_att[t] + g1[0] * g1[2]
         h = g1[3] * torch.tanh(c1) * dm1[t]
-        q = _rnd(_rnd(h, w.wq) @ wq.t(), w.wq)
-        win = _rnd(torch.stack([res.al[t], res.cum[t]], dim=1), w.w_loc)  # (B, 2, L)
-        loc = F.conv1d(win, wl, padding=K // 2).transpose(1, 2)  # (B, L, A)
-        th = torch.tanh(q[:, None, :] + loc + att_enc)
-        e = (_rnd(th, w.wv) @ wv).masked_fill(pad, float("-inf"))
-        wt = torch.softmax(e, dim=1)
-        # attention pull
         dws = d_w + d_align[t] + d_cum + torch.einsum("bd,bld->bl", _rnd(dc, encoded), enc)
-        de = wt * (dws - (dws * wt).sum(dim=1, keepdim=True))
-        d_wv += torch.einsum("bla,bl->ba", th, de)
-        de_pre = de[:, :, None] * wv * (1 - th * th)  # (B, L, A)
-        d_attenc += de_pre
-        dq[t] = de_pre.sum(dim=1)
-        patches = F.pad(win, (K // 2, K // 2)).unfold(2, K, 1)  # (B, 2, L, K)
-        d_wloc += torch.einsum("bclk,bla->back", patches, de_pre)
-        d_win = F.conv_transpose1d(de_pre.transpose(1, 2), wl, padding=K // 2)  # (B, 2, L)
+        dq[t], d_win = attention_pull(w, (wq, wl, wv), h, res.al[t], res.cum[t], dws, encoded,
+                                      att_enc, pad, sums)
         d_w, d_cum = d_win[:, 0], d_cum + d_win[:, 1]
         # attention LSTM
         d_hd = dxh1[t + 1, :, P + D:] + dx2[:, :H] + dq[t] @ wq
         dg, d_att_c = _lstm_pull(g1, res.c_att[t], d_hd, dm1[t], d_att_c)
         dg1[t] = dg.to(cd)
         dxh1[t] = _acc(dg1[t]) @ W1
-    return BackwardOut(dg1, dg2, dxh1, dctx, dq, head_h, d_attenc, d_wv, d_wloc, d_ctrl)
+    return BackwardOut(dg1, dg2, dxh1, dctx, dq, head_h, *sums, d_ctrl)
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,39 @@
-"""Data-parallel training over ``torch.distributed``.
+"""Data- and tensor-parallel training over ``torch.distributed``.
 
-Counterpart of ``tacotron2_tpu/parallel/mesh.py``'s data axis. JAX runs one
-SPMD step over a ("data", "model") mesh and XLA inserts the collectives;
-here every rank runs the same step on its rows of the global batch
-(``shard_rows``) and the collectives are explicit. The step keeps JAX's
-meaning, one step on the global batch:
+Counterpart of ``tacotron2_tpu/parallel/mesh.py``. JAX runs one SPMD step
+over a ("data", "model") mesh and XLA inserts the collectives; here every
+rank runs the same step on its rows of the global batch (``shard_rows``)
+and the collectives are explicit. The ranks form a grid of d data ranks by
+m model ranks, rank = i_d * m + i_m (JAX ``make_mesh``'s reshape to (n //
+m, m)): a data group holds the ranks of one i_m, a model group those of one
+i_d (``make_data_parallel``). The step keeps JAX's meaning, one step on the
+global batch:
 
 - the train-mode BatchNorm statistics are those of the global batch
-  (``batch_norm_train``: all-reduced sums in the forward pass, their
-  gradients all-reduced in the backward pass);
+  (``batch_norm_train``: all-reduced sums over the data group in the
+  forward pass, their gradients all-reduced in the backward pass);
 - the CCC style loss takes all-reduced moments (``mean_over_ranks``);
 - the dropout masks are drawn from one generator at the global shape on
-  every rank, each rank keeping its rows (``rand_rows``), so a step equals
-  the one-process step at the same seed up to the reduction order;
-- the gradients are summed over the ranks and divided by their count
+  every rank, each rank keeping its data rank's rows (``rand_rows``), so a
+  step equals the one-process step at the same seed up to the reduction
+  order, and the m ranks of a model group draw the same masks;
+- the gradients are summed over the data group and divided by its size
   (``all_reduce_grads``), as are the reported metrics.
+
+Tensor parallelism (m > 1) splits, as JAX's ``param_shardings``, every
+LSTM's and GRU's ``weight_ih`` / ``weight_hh`` and ``bias_ih`` / ``bias_hh``
+over the model group by its output rows where m divides them, and
+replicates the rest (``param_shardings``). The port splits by unit: rank r
+holds the i, f, g and o rows (r, z and n for a GRU) of its H / m units
+(``unit_slice``), so a step gathers h, not gate blocks; each rank keeps its
+slices and their Adam moments only (``shard_parameters``). The decoder's
+two cells run column-parallel step by step (``ops/train_scan.py``); every
+other split parameter is gathered whole before the forward pass and keeps
+its slice of the gradient (``gathered``); the clip takes the global norm
+(``training/optimizer.py``); ``gather_state_dict`` rebuilds the
+one-process state dict for a save. The collectives are ``all_reduce``
+alone (gloo has no ``reduce_scatter``, and its CUDA tensors take no
+``all_gather``): a gather is the sum of zero-padded slices.
 
 These take effect inside ``active(dp)`` only (``training/step.py``'s
 ``train_step`` enters it); without a ``DataParallel`` none of this code
@@ -36,14 +55,27 @@ import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
-class DataParallel:
-    """This process's place in the data-parallel group: rank ``rank`` of
-    ``n``, which holds rows ``[rank * B / n, (rank + 1) * B / n)`` of each
-    global batch of B rows; ``group`` None is the default group."""
+class ModelParallel:
+    """This process's place in its model group: rank ``rank`` of the ``n``
+    ranks that take the same rows and each hold the ``rank``-th n-th of
+    every split parameter's units; ``group`` the model group."""
 
     rank: int
     n: int
     group: Optional[object] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DataParallel:
+    """This process's place in the data-parallel group: rank ``rank`` of
+    ``n``, which holds rows ``[rank * B / n, (rank + 1) * B / n)`` of each
+    global batch of B rows; ``group`` None is the default group. ``model``:
+    its model group under tensor parallelism, None without."""
+
+    rank: int
+    n: int
+    group: Optional[object] = None
+    model: Optional[ModelParallel] = None
 
     @property
     def lead(self) -> bool:
@@ -56,6 +88,12 @@ _ACTIVE: Optional[DataParallel] = None
 def current() -> Optional[DataParallel]:
     """The ``DataParallel`` of the step being run, None outside one."""
     return _ACTIVE
+
+
+def model_parallel() -> Optional[ModelParallel]:
+    """The model group of the step being run, None outside one or with m = 1."""
+    mp = _ACTIVE.model if _ACTIVE is not None else None
+    return mp if mp is not None and mp.n > 1 else None
 
 
 @contextlib.contextmanager
@@ -89,31 +127,45 @@ def init_data_parallel(backend: str, init_method: Optional[str] = None,
     return rank, world_size, local_rank
 
 
-def data_parallel_degree(batch_size: int, world_size: int) -> int:
-    """The largest number of ranks, at most ``world_size``, that divides
-    the global batch (JAX ``make_mesh_for_batch``), with its warning when
+def data_parallel_degree(batch_size: int, world_size: int, model_parallel: int = 1) -> int:
+    """The data-parallel degree d of a grid of d x ``model_parallel`` ranks,
+    at most ``world_size`` of them, whose d divides the global batch (JAX
+    ``make_mesh_for_batch``'s ``shape["data"]``), with its warning when
     ranks are left idle."""
-    n = world_size
-    while n > 1 and batch_size % n != 0:
-        n -= 1
-    n = max(n, 1)
+    m = model_parallel
+    if not 1 <= m <= world_size:
+        raise ValueError(f"model_parallel={m} needs 1 to {world_size} ranks")
+    n = world_size // m * m
+    while n > m and batch_size % (n // m) != 0:
+        n -= m
+    n = max(n, m)
     if n < world_size:
         warnings.warn(
             f"batch_size={batch_size} is not divisible across {world_size} devices "
-            f"(model_parallel=1); using only {n} device(s) — {world_size - n} idle. "
+            f"(model_parallel={m}); using only {n} device(s) — {world_size - n} idle. "
             f"Pick a batch size divisible by the data-parallel degree.", stacklevel=2)
-    return n
+    return n // m
 
 
-def make_data_parallel(batch_size: int) -> Optional[DataParallel]:
-    """This rank's ``DataParallel`` over the initialized default group, the
-    degree from ``data_parallel_degree``. Every rank calls it (a subgroup
-    is made collectively); a rank beyond the degree gets None: it takes no
-    rows and leaves the training."""
+def make_data_parallel(batch_size: int, model_parallel: int = 1) -> Optional[DataParallel]:
+    """This rank's place in the grid of d x ``model_parallel`` ranks over the
+    initialized default group, d from ``data_parallel_degree``: rank i_d *
+    m + i_m is data rank i_d of the data group of i_m and model rank i_m of
+    the model group of i_d. Every rank calls it (groups are made
+    collectively); a rank beyond the grid gets None: it takes no rows and
+    leaves the training."""
     world, rank = dist.get_world_size(), dist.get_rank()
-    n = data_parallel_degree(batch_size, world)
-    group = None if n == world else dist.new_group(list(range(n)))
-    return DataParallel(rank, n, group) if rank < n else None
+    m = model_parallel
+    d = data_parallel_degree(batch_size, world, m)
+    if m == 1:
+        group = None if d == world else dist.new_group(list(range(d)))
+        return DataParallel(rank, d, group) if rank < d else None
+    data_groups = [dist.new_group([i * m + j for i in range(d)]) for j in range(m)]
+    model_groups = [dist.new_group([i * m + j for j in range(m)]) for i in range(d)]
+    if rank >= d * m:
+        return None
+    i_d, i_m = divmod(rank, m)
+    return DataParallel(i_d, d, data_groups[i_m], ModelParallel(i_m, m, model_groups[i_d]))
 
 
 def shard_rows(batch: Dict[str, object], rank: int, n: int) -> Dict[str, object]:
@@ -238,3 +290,175 @@ def broadcast_object(obj, dp: DataParallel):
     box = [obj]
     dist.broadcast_object_list(box, src=0, group=dp.group)
     return box[0]
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the model group
+# ---------------------------------------------------------------------------
+
+# the decoder's two cells, which run column-parallel (``ops/train_scan.py``)
+# on their slices instead of being gathered
+COLUMN_PARALLEL = ("decoder.att_rnn.", "decoder.lstm.")
+_SPLIT_NAMES = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
+
+
+def param_shardings(model: torch.nn.Module, model_parallel: int) -> Dict[str, Optional[int]]:
+    """Each parameter's split over a model group of ``model_parallel`` ranks
+    by JAX's rule (``_spec_for_param`` / ``param_shardings``): an LSTM's or
+    GRU's 2-D ``weight_ih*`` / ``weight_hh*`` and its ``bias_ih*`` /
+    ``bias_hh*`` split by their output rows where ``model_parallel``
+    divides them, all else replicated. -> name: the split parameter's gate
+    blocks G (4 for an LSTM, 3 for a GRU: its rows are G blocks of H units),
+    None where replicated. The port splits by unit, so a split needs H
+    divisible too."""
+    out: Dict[str, Optional[int]] = {}
+    for mod_name, mod in model.named_modules():
+        for leaf, p in mod.named_parameters(recurse=False):
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            gates = (4 if isinstance(mod, (torch.nn.LSTM, torch.nn.LSTMCell)) else
+                     3 if isinstance(mod, (torch.nn.GRU, torch.nn.GRUCell)) else None)
+            rnn = gates is not None and leaf.startswith(_SPLIT_NAMES) and \
+                (p.dim() == 2 or leaf.startswith(("bias_ih", "bias_hh")))
+            if not rnn or p.shape[0] % model_parallel:
+                out[name] = None
+                continue
+            if (p.shape[0] // gates) % model_parallel:
+                raise ValueError(f"{name}: {p.shape[0] // gates} units do not split over "
+                                 f"{model_parallel} ranks (the port splits by unit)")
+            out[name] = gates
+    return out
+
+
+def unit_slice(full: torch.Tensor, gates: int, rank: int, n: int) -> torch.Tensor:
+    """Rank ``rank``'s n-th of the units of (G H, ...) rows, gate block by
+    gate block: (G H / n, ...)."""
+    H = full.shape[0] // gates
+    h = H // n
+    return full.reshape((gates, H) + full.shape[1:])[:, rank * h:(rank + 1) * h] \
+        .reshape((gates * h,) + full.shape[1:])
+
+
+def model_sum_(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    """``x`` summed over the model group, in place; every rank gets the same bits."""
+    dist.all_reduce(x, group=mp.group)
+    return x
+
+
+def gather_units(part: torch.Tensor, gates: int, mp: ModelParallel) -> torch.Tensor:
+    """The whole (G H, ...) tensor from each model rank's ``unit_slice``
+    (the sum of the zero-padded slices)."""
+    h = part.shape[0] // gates
+    full = part.new_zeros((gates, h * mp.n) + part.shape[1:])
+    full[:, mp.rank * h:(mp.rank + 1) * h] = part.reshape((gates, h) + part.shape[1:])
+    return model_sum_(full, mp).reshape((gates * h * mp.n,) + part.shape[1:])
+
+
+def gather_columns(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    """(B, h) of this rank's units -> (B, m h) of every rank's, in unit order."""
+    h = x.shape[1]
+    full = x.new_zeros(x.shape[0], h * mp.n)
+    full[:, mp.rank * h:(mp.rank + 1) * h] = x
+    return model_sum_(full, mp)
+
+
+class _GatherUnits(torch.autograd.Function):
+    """``gather_units``, differentiable: every model rank computes the same
+    gradient of the whole tensor (the same rows, the same weights), and
+    keeps its slice of it."""
+
+    @staticmethod
+    def forward(ctx, part, gates, mp):
+        ctx.gates, ctx.mp = gates, mp
+        return gather_units(part, gates, mp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return unit_slice(g, ctx.gates, ctx.mp.rank, ctx.mp.n).contiguous(), None, None
+
+
+def shard_parameters(model: torch.nn.Module, dp: DataParallel) -> Dict[str, int]:
+    """Cut each parameter that ``param_shardings`` splits down to this model
+    rank's ``unit_slice``, in place; the names and gate blocks are kept on
+    the model (``model.tp_split``). Every rank starts from the same whole
+    weights; build the optimizer after, so that its moments are the
+    slices'. -> the split names and their gate blocks."""
+    mp = dp.model
+    split = {k: g for k, g in param_shardings(model, mp.n).items() if g}
+    for prefix in COLUMN_PARALLEL:
+        if not any(k.startswith(prefix) for k in split):
+            raise ValueError(f"the decoder's {prefix[:-1]} does not split over {mp.n} ranks")
+    for name, gates in split.items():
+        p = model.get_parameter(name)
+        p.data = unit_slice(p.data, gates, mp.rank, mp.n).contiguous()
+    model.tp_split = split
+    return split
+
+
+def split_ids(model: torch.nn.Module) -> frozenset:
+    """The ids of the parameters a model rank holds a slice of."""
+    return frozenset(id(model.get_parameter(k)) for k in getattr(model, "tp_split", {}))
+
+
+@contextlib.contextmanager
+def gathered(model: torch.nn.Module):
+    """Inside a tensor-parallel step, every split parameter but the decoder
+    cells' (``COLUMN_PARALLEL``) stands whole in its module, gathered over
+    the model group, its gradient landing on the slice; elsewhere nothing.
+    One collective a parameter and step: the encoder's recurrence (one
+    persistent kernel) needs its W_hh whole."""
+    mp = model_parallel()
+    split = getattr(model, "tp_split", None)
+    if mp is None or not split:
+        yield
+        return
+    swapped = []
+    try:
+        for name, gates in split.items():
+            if name.startswith(COLUMN_PARALLEL):
+                continue
+            mod_name, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(mod_name)
+            p = mod._parameters.pop(leaf)
+            swapped.append((mod, leaf, p))
+            setattr(mod, leaf, _GatherUnits.apply(p, gates, mp))  # RNNs re-read it by name
+        yield
+    finally:
+        for mod, leaf, p in reversed(swapped):
+            delattr(mod, leaf)
+            setattr(mod, leaf, p)
+
+
+def gather_state_dict(model: torch.nn.Module, dp: Optional[DataParallel]
+                      ) -> Dict[str, torch.Tensor]:
+    """The one-process ``state_dict`` of a tensor-parallel model (JAX's
+    ``device_get`` of a sharded tree): each split parameter gathered over
+    the model group (every model rank calls it); the model's own without
+    tensor parallelism."""
+    sd = model.state_dict()
+    mp = dp.model if dp is not None else None
+    if mp is None or mp.n == 1:
+        return sd
+    for name, gates in getattr(model, "tp_split", {}).items():
+        sd[name] = gather_units(sd[name], gates, mp)
+    return sd
+
+
+def gather_optimizer_state(opt: torch.optim.Optimizer, model: torch.nn.Module,
+                           dp: Optional[DataParallel]) -> dict:
+    """``opt.state_dict()`` with each split parameter's moments gathered
+    over the model group (every model rank calls it): the one-process
+    optimizer's layout, for a save or a one-process step from this state."""
+    sd = opt.state_dict()
+    mp = dp.model if dp is not None else None
+    split = getattr(model, "tp_split", {})
+    if mp is None or mp.n == 1 or not split:
+        return sd
+    names = {id(p): k for k, p in model.named_parameters()}
+    params = [p for group in opt.param_groups for p in group["params"]]
+    for i, p in enumerate(params):
+        gates = split.get(names.get(id(p)))
+        if gates and i in sd["state"]:
+            sd["state"][i] = {k: gather_units(v, gates, mp)
+                              if torch.is_tensor(v) and v.shape == p.shape and v.dim() else v
+                              for k, v in sd["state"][i].items()}
+    return sd

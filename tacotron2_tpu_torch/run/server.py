@@ -32,12 +32,30 @@ Two modes:
 - ``subprocess``: one ``python -m tacotron2_tpu_torch say`` per request, as
   the reference server shells out to its CLI.
 
+The data mesh (the server config's ``mesh: {"data": N}``, JAX's sharded
+decode): each model loads one replica per shard device (its model, packed
+decoder, vocoder and GST neutral style), and a window's rows, padded to a
+power of two and then to a multiple of N, split into N contiguous shards
+(``parallel/mesh.py::shard_rows``'s split). Each shard runs its rows'
+decode (K1, or K5 for an int8 entry) and vocode (K2) on its own device, on
+a thread and CUDA stream of its own; the cuts and the audio gather back in
+request order, and ``BATCH_CALLS`` counts the window once. Each shard
+encodes at the meshless server's ``encode_rows`` and cuts each row at its
+own first gate fire. So a row that never fires reads the same audio at any
+N; a row that fires can differ from its meshless window by the postnet's
+look-past (it reads up to 10 frames past the cut, and each shard decodes to
+its own horizon), as JAX's sharded server does (its test allows 1e-3).
+Shard i runs on ``cuda:i``; a mesh wider than the cards present raises, as
+JAX's does; ``device="cpu"`` puts every shard on the CPU. ``App``,
+``ModelRegistry`` and ``make_server`` also take an explicit list of shard
+devices (``shard_devices``): the tests' CPU shards, and two shards on one
+card (``["cuda:0", "cuda:0"]``), which is how one card shows the split.
+
 ``http.server.ThreadingHTTPServer`` answers each connection on a thread of
 its own; ``/generate`` blocks that thread on the request's future.
-Multi-device serving (``mesh``) is not ported: a mesh raises at start. So
-does an entry of a description model: JAX's server passes no description embeddings (a
-request carries no description), so such an entry fails every request
-there. A request is checked against its model
+An entry of a description model is refused at start: JAX's server passes no
+description embeddings (a request carries no description), so such an
+entry fails every request there. A request is checked against its model
 (``validate_request``, the JAX ``_validate_request``): a 400 for controls
 of another count, or for a model without controls, and for a voice out of
 range, or nonzero for a single-speaker model.
@@ -59,7 +77,7 @@ import uuid
 from http import HTTPStatus
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 from urllib.parse import unquote, urlparse
 
 import numpy as np
@@ -100,6 +118,9 @@ class Bundle(NamedTuple):
     packed: PackedDecoder
     entry: Dict[str, Any]
     gst_embedding: Optional[torch.Tensor] = None  # a GST model's neutral style (1, S)
+    # a data mesh's replicas, one per shard device (the first on this
+    # bundle's device); empty without a mesh
+    shards: Tuple["Bundle", ...] = ()
 
 
 def _pow2(n: int) -> int:
@@ -109,8 +130,34 @@ def _pow2(n: int) -> int:
     return b
 
 
+def mesh_devices(mesh: Optional[Dict[str, Any]], device: Optional[str] = None,
+                 shard_devices: Optional[Sequence[str]] = None) -> Optional[List[str]]:
+    """The shard devices of a server config's ``mesh`` (``{"data": N}``):
+    ``shard_devices`` where given (N of them); else for N > 1 ``cuda:0``
+    .. ``cuda:N-1``, or N times the CPU with ``device="cpu"``; None without
+    a mesh (N = 1). A mesh wider than the cards present raises, as JAX's
+    server does."""
+    n = int((mesh or {}).get("data", 1))
+    if shard_devices is not None:
+        devs = [str(d) for d in shard_devices]
+        if len(devs) != max(n, 1):
+            raise ValueError(f"server mesh wants data={n} devices, the list names {len(devs)}")
+        for d in devs:
+            resolve_device(d)
+        return devs
+    if n <= 1:
+        return None
+    if resolve_device(device).type == "cpu":
+        return ["cpu"] * n
+    have = torch.cuda.device_count()
+    if n > have:
+        raise ValueError(f"server mesh wants data={n} devices, only {have} available")
+    return [f"cuda:{i}" for i in range(n)]
+
+
 class ModelRegistry:
-    def __init__(self, entries: List[Dict[str, Any]], device: Optional[str] = None):
+    def __init__(self, entries: List[Dict[str, Any]], device: Optional[str] = None,
+                 shard_devices: Optional[Sequence[str]] = None):
         for e in entries:
             try:  # description models (JAX's server passes no description) are
                 # refused at start
@@ -121,8 +168,20 @@ class ModelRegistry:
                 pass  # a bad entry fails its own requests, at load
         self.entries = entries
         self.device = device
+        self.shard_devices = list(shard_devices) if shard_devices else None
+        # per shard: [decodes, rows, decode steps], what /stats shows of the mesh
+        self.shard_counts = [[0, 0, 0] for _ in self.shard_devices or ()]
+        self._pool = None
+        if self.shard_devices and len(self.shard_devices) > 1:
+            # room for a few windows in flight, each with a task per shard
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                4 * len(self.shard_devices), thread_name_prefix="shard")
         self._loaded: Dict[int, Bundle] = {}
         self._lock = threading.Lock()
+
+    def close(self, wait: bool = False) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=wait, cancel_futures=True)
 
     def describe(self) -> List[Dict[str, Any]]:
         return [{"name": e.get("name", f"model-{i}"),
@@ -137,13 +196,22 @@ class ModelRegistry:
     def load(self, idx: int) -> Bundle:
         """The model, its vocoder, its decoder packed once (int8 with
         ``quantize_int8``) and a GST model's neutral style, loaded at the
-        first call and kept."""
+        first call and kept; with a mesh, one replica of each per shard
+        device (``Bundle.shards``)."""
         with self._lock:
             if idx in self._loaded:
                 return self._loaded[idx]
             entry = self.entries[idx]
-            dev = resolve_device(self.device)
             cfg = load_config(entry["config"])
+            reps = [self._replica(cfg, entry, resolve_device(d))
+                    for d in self.shard_devices or [self.device]]
+            bundle = reps[0]._replace(shards=tuple(reps)) if len(reps) > 1 else reps[0]
+            self._loaded[idx] = bundle
+            return bundle
+
+    @staticmethod
+    def _replica(cfg: Config, entry: Dict[str, Any], dev: torch.device) -> Bundle:
+        with _on_device(dev):
             model = load_tacotron(cfg, entry["checkpoint"], dev)
             hifigan = None
             if entry.get("hifi_gan_checkpoint"):
@@ -153,8 +221,7 @@ class ModelRegistry:
                 gst = model.gst_embedding(1)
             if dev.type == "cuda":  # the windows' streams read these weights
                 torch.cuda.synchronize(dev)
-            self._loaded[idx] = Bundle(cfg, model, hifigan, packed, entry, gst)
-            return self._loaded[idx]
+        return Bundle(cfg, model, hifigan, packed, entry, gst)
 
 
 def validate_request(cfg: Config, req: Dict[str, Any]) -> None:
@@ -191,33 +258,44 @@ _TLS = threading.local()
 
 
 def _thread_stream(device: torch.device):
-    """A CUDA stream of this thread's own: two windows in flight run on two
-    threads, and their kernels must not interleave on one stream."""
+    """A CUDA stream of this thread's own on ``device``: two windows in
+    flight, or two shards of one, run on two threads, and their kernels
+    must not interleave on one stream."""
     if device.type != "cuda":
         return contextlib.nullcontext()
-    if getattr(_TLS, "stream", None) is None:
-        _TLS.stream = torch.cuda.Stream(device)
-    return torch.cuda.stream(_TLS.stream)
+    streams = getattr(_TLS, "streams", None)
+    if streams is None:
+        streams = _TLS.streams = {}
+    key = torch.cuda.current_device() if device.index is None else device.index
+    if key not in streams:
+        streams[key] = torch.cuda.Stream(device)
+    return torch.cuda.stream(streams[key])
+
+
+@contextlib.contextmanager
+def _on_device(device: torch.device):
+    """``device`` the current CUDA device and this thread's stream on it."""
+    if device.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device), _thread_stream(device):
+        yield
 
 
 def synthesize_batch(bundle: Bundle, reqs: List[Dict[str, Any]],
-                     encode_rows: Optional[int] = None) -> List[str]:
+                     encode_rows: Optional[int] = None,
+                     registry: Optional[ModelRegistry] = None) -> List[str]:
     """One window of validated requests -> their WAV paths, through one
-    batched decode and one batched HiFi-GAN call.
+    batched decode and one batched HiFi-GAN call per shard (one without a
+    mesh).
 
     Chars pad to a multiple of 128 and rows to a power of two (row 0
-    repeated, with a generator of its own seeded as row 0's); the encoder
-    runs ``encode_rows`` rows (``forward_infer_fast``). Each row is
-    cut at its first gate fire (a row's cut does not depend on longer rows
-    in the window; at one row it is ``say``'s n - 1), then the rows with a
-    vocoder go through ``cut_vocode`` in a power-of-two row bucket and a
-    128-frame bucket past the receptive field, PCM16 on the device; the
-    others through Griffin-Lim. Each row brings its own voice (0 where a
-    multi-speaker model's request names none) and controls; a GST model's
-    rows the bundle's neutral style."""
-    cfg, model, hifigan, packed, entry, gst = bundle
+    repeated, with a generator of its own seeded as row 0's), then with a
+    mesh of N shards to a multiple of N, split contiguously over the shards
+    (``_shard_rows``, each on a thread of ``registry``'s pool: a mesh
+    bundle needs its registry). The window counts once in ``BATCH_CALLS``."""
+    cfg = bundle.cfg
     prep = cfg.dataset.preprocessing
-    dev = next(model.parameters()).device
     with _BATCH_LOCK:
         BATCH_CALLS[0] += 1
         BATCH_CALLS[1] += len(reqs)
@@ -226,8 +304,60 @@ def synthesize_batch(bundle: Bundle, reqs: List[Dict[str, Any]],
         [normalize_text(r["text"], prep.allowed_chars, prep.end_token, False) for r in reqs])
     B, L = chars.shape
     Lb = max(CHAR_BUCKET, -(-L // CHAR_BUCKET) * CHAR_BUCKET)
-    rows = list(range(B)) + [0] * (_pow2(B) - B)
+    shards = bundle.shards or (bundle,)
+    n = len(shards)
+    Bb = _pow2(B)
+    if n > 1:  # every shard takes as many rows (JAX run/server.py:211-218)
+        Bb = -(-max(Bb, n) // n) * n
+    rows = list(range(B)) + [0] * (Bb - B)
     chars = np.pad(chars, ((0, 0), (0, Lb - L)))[rows]
+    lens = lens[rows]
+    per = Bb // n
+    parts = [slice(s * per, (s + 1) * per) for s in range(n)]
+    # a shard without a request (one past the window's rows) does not run
+    jobs = [(s, part) for s, part in enumerate(parts) if part.start < B]
+
+    def job(s: int, part: slice):
+        with _on_device(next(shards[s].model.parameters()).device):
+            return _shard_rows(shards[s], reqs, rows[part], min(part.stop, B) - part.start,
+                               chars[part], lens[part], encode_rows)
+
+    if n == 1:
+        results = [job(*jobs[0])]
+    else:  # each shard on a thread of the registry's pool
+        if registry is None:
+            raise ValueError("a mesh bundle's window runs on its registry's pool")
+        results = [f.result() for f in [registry._pool.submit(job, *j) for j in jobs]]
+    wavs: Dict[int, np.ndarray] = {}
+    for (s, part), (got, steps) in zip(jobs, results):
+        wavs.update(got)
+        if registry is not None and registry.shard_counts:
+            with _BATCH_LOCK:
+                c = registry.shard_counts[s]
+                c[0], c[1], c[2] = c[0] + 1, c[1] + part.stop - part.start, c[2] + steps
+    paths = []
+    for b, r in enumerate(reqs):
+        write_wav(r["out_path"], wavs[b], prep.sample_rate)
+        paths.append(r["out_path"])
+    return paths
+
+
+def _shard_rows(shard: Bundle, reqs: List[Dict[str, Any]], rows: List[int], real: int,
+                chars: np.ndarray, lens: np.ndarray, encode_rows: Optional[int]) -> tuple:
+    """One shard's rows (``rows``: request indices; the first ``real`` are
+    the window's, the rest padding) through its replica: the encoder at
+    ``encode_rows`` rows (``forward_infer_fast``), each row cut at its first
+    gate fire (a row's cut does not depend on longer rows in the window; at
+    one row it is ``say``'s n - 1), then the rows with a vocoder through
+    ``cut_vocode`` in a power-of-two row bucket and a 128-frame bucket past
+    the receptive field, PCM16 on the device; the others through
+    Griffin-Lim. Each row brings its own generator, seeded by its request
+    and made on the shard's device, its voice (0 where a multi-speaker
+    model's request names none) and controls; a GST model's rows the
+    replica's neutral style. -> ({request index: wav}, decode steps)."""
+    cfg, model, hifigan, packed, entry, gst = shard[:6]
+    prep = cfg.dataset.preprocessing
+    dev = next(model.parameters()).device
     gens = [torch.Generator(device=dev).manual_seed(int(reqs[b].get("seed") or 0)) for b in rows]
     cond = {}
     if cfg.extensions.speaker_tokens.active:
@@ -238,33 +368,31 @@ def synthesize_batch(bundle: Bundle, reqs: List[Dict[str, Any]],
     if gst is not None:
         cond["gst_embedding"] = gst.expand(len(rows), -1)
     out = model.forward_infer_fast(torch.as_tensor(chars, device=dev),
-                                   torch.as_tensor(lens[rows], device=dev),
+                                   torch.as_tensor(lens, device=dev),
                                    int(entry.get("max_len", MAX_LEN)), packed=packed,
                                    row_generators=gens, encode_rows=encode_rows, **cond)
     n = int(out.n_frames)
-    fired = out.gates[:B, :, 0] < 0.0
+    fired = out.gates[:real, :, 0] < 0.0
     first = torch.where(fired.any(dim=1), fired.int().argmax(dim=1),
-                        torch.full((B,), fired.shape[1], device=dev))
+                        torch.full((real,), fired.shape[1], device=dev))
     cuts = [max(min(int(f), n - 1), 1) for f in first.tolist()]
 
     wavs: Dict[int, np.ndarray] = {}
-    voc = [b for b, r in enumerate(reqs) if r.get("use_vocoder", True) and hifigan is not None]
+    voc = [i for i in range(real) if reqs[rows[i]].get("use_vocoder", True)
+           and hifigan is not None]
     if voc:
         pad = _pow2(len(voc)) - len(voc)
         pcm = cut_vocode(hifigan, out.mels_post, voc + [0] * pad,
-                         [cuts[b] for b in voc] + [0] * pad,
-                         vocode_bucket(hifigan, max(cuts[b] for b in voc))).cpu().numpy()
+                         [cuts[i] for i in voc] + [0] * pad,
+                         vocode_bucket(hifigan, max(cuts[i] for i in voc))).cpu().numpy()
         hop = hifigan.cfg.total_upsample
-        for i, b in enumerate(voc):
-            wavs[b] = pcm[i, :cuts[b] * hop]
-    paths = []
-    for b, r in enumerate(reqs):
-        wav = wavs.get(b)
-        if wav is None:
-            wav = griffin_lim_vocode(out.mels_post[b, :cuts[b]], prep.sample_rate).cpu().numpy()
-        write_wav(r["out_path"], wav, prep.sample_rate)
-        paths.append(r["out_path"])
-    return paths
+        for j, i in enumerate(voc):
+            wavs[rows[i]] = pcm[j, :cuts[i] * hop]
+    for i in range(real):
+        if rows[i] not in wavs:
+            wavs[rows[i]] = griffin_lim_vocode(out.mels_post[i, :cuts[i]],
+                                               prep.sample_rate).cpu().numpy()
+    return wavs, n
 
 
 def _settle(fut: concurrent.futures.Future, result=None, exc: Optional[BaseException] = None):
@@ -377,7 +505,8 @@ class MicroBatcher:
                     _settle(fut, exc=exc)
             if good:
                 with _thread_stream(next(bundle.model.parameters()).device):
-                    paths = synthesize_batch(bundle, [r for r, _ in good], self.encode_rows)
+                    paths = synthesize_batch(bundle, [r for r, _ in good], self.encode_rows,
+                                             self.registry)
                 for (_, fut), path in zip(good, paths):
                     _settle(fut, path)
         except Exception as exc:
@@ -388,34 +517,38 @@ class MicroBatcher:
 
 
 def warmup_models(registry: ModelRegistry, encode_rows: Optional[int] = None) -> None:
-    """Load every model and synthesize one short request before the first
-    real one (server config ``"warmup": true``), the encoder at the
-    windows' ``encode_rows``; voice 0 and neutral (zero) controls where the
-    model takes them."""
+    """Load every model and synthesize a short request on each of its
+    shards (one without a mesh) before the first real one (server config
+    ``"warmup": true``), the encoder at the windows' ``encode_rows``; voice
+    0 and neutral (zero) controls where the model takes them."""
     for idx in range(len(registry.entries)):
         bundle = registry.load(idx)
-        req = {"text": "warmup.", "seed": 0, "use_vocoder": True,
-               "out_path": os.path.join(GENERATED_DIR, f"warmup-{idx}.wav")}
-        if bundle.cfg.controls_dim:
-            req["controls"] = [0.0] * bundle.cfg.controls_dim
-        synthesize_batch(bundle, [req], encode_rows)
+        reqs = []
+        for s in range(max(len(bundle.shards), 1)):
+            req = {"text": "warmup.", "seed": 0, "use_vocoder": True,
+                   "out_path": os.path.join(GENERATED_DIR, f"warmup-{idx}-{s}.wav")}
+            if bundle.cfg.controls_dim:
+                req["controls"] = [0.0] * bundle.cfg.controls_dim
+            reqs.append(req)
+        synthesize_batch(bundle, reqs, encode_rows, registry)
 
 
 class App:
     """The routes' state and logic, apart from the HTTP plumbing."""
 
     def __init__(self, server_config: Dict[str, Any], mode: str = "warm",
-                 device: Optional[str] = None):
-        mesh = server_config.get("mesh") or {}
-        if int(mesh.get("data", 1)) > 1:
-            raise NotImplementedError("multi-device serving (mesh data > 1) is not ported")
+                 device: Optional[str] = None, shard_devices: Optional[Sequence[str]] = None):
+        """``shard_devices``: the data mesh's devices where the caller names
+        them (``mesh_devices``); a subprocess server runs no mesh."""
         if mode not in ("warm", "subprocess"):
             raise ValueError(f"unknown mode {mode!r}")
+        shards = mesh_devices(server_config.get("mesh"), device,
+                              shard_devices) if mode == "warm" else None
         os.makedirs(GENERATED_DIR, exist_ok=True)
         self.server_config = server_config
         self.mode = mode
         self.device = device
-        self.registry = ModelRegistry(server_config.get("models", []), device)
+        self.registry = ModelRegistry(server_config.get("models", []), device, shards)
         b = server_config.get("batching", {})
         self.batcher = MicroBatcher(self.registry, b.get("window_ms", 8.0),
                                     b.get("max_batch", 64), b.get("depth", 2)
@@ -429,6 +562,7 @@ class App:
     def close(self, wait: bool = False) -> None:
         if self.batcher is not None:
             self.batcher.close(wait)
+        self.registry.close(wait)
 
     def stats(self) -> Dict[str, Any]:
         calls, rows = BATCH_CALLS
@@ -441,7 +575,10 @@ class App:
                 "window_ms": b.window * 1000.0, "max_batch": b.max_batch, "depth": b.depth,
                 "decode_launches": calls, "decoded_rows": rows,
                 "rows_per_launch": round(rows / calls, 2) if calls else None},
-            "mesh_devices": 1,
+            "mesh_devices": len(self.registry.shard_devices or [None]),
+            "shards": [{"device": d, "decodes": c[0], "rows": c[1], "decode_steps": c[2]}
+                       for d, c in zip(self.registry.shard_devices or (),
+                                       self.registry.shard_counts)] or None,
             "mesh_configured": self.server_config.get("mesh") or None,
             "models_loaded": self.registry.loaded(),
         }
@@ -514,7 +651,7 @@ class App:
             bundle = self.registry.load(idx)
             validate_request(bundle.cfg, req)
             with _thread_stream(next(bundle.model.parameters()).device):
-                synthesize_batch(bundle, [req])
+                synthesize_batch(bundle, [req], registry=self.registry)
         return {"path": out_path, "filename": "/" + out_path}
 
     def _say_subprocess(self, entry: Dict[str, Any], req: Dict[str, Any],
@@ -608,11 +745,11 @@ class Server(ThreadingHTTPServer):
 
 def make_server(server_config: Dict[str, Any], mode: str = "warm",
                 device: Optional[str] = None, host: str = "0.0.0.0",
-                port: int = 8080) -> Server:
+                port: int = 8080, shard_devices: Optional[Sequence[str]] = None) -> Server:
     """The HTTP server with its ``App`` (``server.app``); port 0 picks a
     free one (``server.server_address[1]``). Close with ``app.close()``
     and ``server_close()``."""
-    app = App(server_config, mode, device)
+    app = App(server_config, mode, device, shard_devices)
     httpd = Server((host, port), Handler)
     httpd.app = app
     return httpd

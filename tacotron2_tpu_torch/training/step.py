@@ -74,9 +74,14 @@ def train_step(model, opt, sched, batch: Dict[str, torch.Tensor],
     rows of the global batch (``mesh.shard_rows``), ``lstm_masks`` if
     given are at the global batch's shape, and the step is the global
     batch's (``parallel/mesh.py``): the gradients and the metrics are
-    all-reduced before the clip, so every rank takes the same update."""
+    all-reduced over the data group before the clip, so every rank takes
+    the same update. Under tensor parallelism (``dp.model``, a model whose
+    split parameters ``mesh.shard_parameters`` cut to this rank's slices)
+    the split parameters other than the decoder cells' stand whole for the
+    pass (``mesh.gathered``), the decoder runs column-parallel
+    (``ops/train_scan.py``) and the clip takes the global norm."""
     model.zero_grad(set_to_none=True)
-    with torch.enable_grad(), mesh.active(dp):
+    with torch.enable_grad(), mesh.active(dp), mesh.gathered(model):
         loss, metrics, _ = _forward_loss(model, batch, True, generator, lstm_masks, style)
         loss.backward()
     metrics = {k: v.detach() for k, v in metrics.items()}
@@ -85,8 +90,10 @@ def train_step(model, opt, sched, batch: Dict[str, torch.Tensor],
     if dp is not None:
         mesh.all_reduce_grads(params, dp)
         metrics = mesh.all_reduce_metrics(metrics, dp)
-    metrics["grad_norm"] = apply_gradients([p for p in params if id(p) in held], opt, sched,
-                                           [p for p in params if id(p) not in held])
+    args = ([p for p in params if id(p) in held], opt, sched,
+            [p for p in params if id(p) not in held])
+    mp = dp.model if dp is not None and dp.model is not None and dp.model.n > 1 else None
+    metrics["grad_norm"] = apply_gradients(*args, mesh.split_ids(model), mp)
     return metrics
 
 

@@ -85,7 +85,7 @@ def _mismatches(defect=None, monkeypatch=None):
     opt, sched = optimizer.make_optimizer(optimizer.trainable(model, FINETUNE_FROZEN),
                                           LR / 10, WD)
     if defect == "clip_all":
-        def clip_all(params, opt, sched, frozen=()):
+        def clip_all(params, opt, sched, frozen=(), split=frozenset(), mp=None):
             norm = torch.nn.utils.clip_grad_norm_(list(params) + list(frozen), 1.0)
             opt.step()
             sched.step()

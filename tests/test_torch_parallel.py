@@ -136,39 +136,49 @@ def _shard_masks(rng, i, n=2):
 
 
 def test_two_ranks_match_jax_sharded_step(tmp_path):
-    """Two steps against ``make_sharded_train_step`` on ``make_mesh(2)``:
-    the losses and ``grad_norm`` within 1e-4 relative, every gradient
-    within 1e-4 of its tensor's max (those of ``NOISE_GRAD`` below 1e-6 on
-    both sides), every weight within 5e-5 (the biases of ``NOISE_GRAD``
-    within two steps of lr) and the BatchNorm statistics within 1e-5, the
-    encoder's running means within 0.2 lr: ``test_two_train_steps_match_jax``'s
-    tolerances. The weights whose Adam input is within 100 eps of zero are
-    held to two steps of lr, as ``NOISE_GRAD``'s (see below). The global
-    batch's BatchNorm statistics are JAX's."""
+    """Two steps against ``make_sharded_train_step`` on ``make_mesh(2)``
+    (``pallas_train=True``, interpret mode), within ``hold_to_jax_steps``'s
+    bounds. The global batch's BatchNorm statistics are JAX's."""
+    _, params, state = _jax_model()
+    sd = tmp_path / "state.pt"
+    torch.save(from_jax_params(params, state), sd)
+    batches = [_batch(0), _batch(1)]
+    rng = jax.random.PRNGKey(JAX_RNG)
+    got = worker.launch(2, "train_steps", {
+        "cfg": CFG, "policy": "32-true", "state": str(sd), "gen_seed": 0, "lr": LR,
+        "wd": 1e-6, "batches": batches,
+        "masks": [_shard_masks(rng, i) for i in range(2)]}, tmp_path / "ranks")[0]
+    hold_to_jax_steps(got, batches, make_mesh(n_devices=2), pallas_train=True)
+
+
+def hold_to_jax_steps(got, batches, mesh, pallas_train):
+    """A rank's steps ``got`` (``worker.train_steps``'s, from JAX's weights,
+    JAX's LSTM masks injected) against ``make_sharded_train_step`` on
+    ``mesh`` (``pallas_train`` as JAX's forward takes it): the losses and
+    ``grad_norm`` within 1e-4 relative, every gradient within 1e-4 of its
+    tensor's max (those of ``NOISE_GRAD`` below 1e-6 on both sides), every
+    weight within 5e-5 (the biases of ``NOISE_GRAD`` within two steps of lr)
+    and the BatchNorm statistics within 1e-5, the encoder's running means
+    within 0.2 lr: ``test_two_train_steps_match_jax``'s tolerances. The
+    weights whose Adam input is within 100 eps of zero are held to two
+    steps of lr, as ``NOISE_GRAD``'s (see below)."""
     jm, params, state = _jax_model()
-    mesh = make_mesh(n_devices=2)
     tx, _ = jax_optimizer(LR, 1e-6, scheduler_milestones=[])
     ts = TrainState.create(place_params(params, mesh), place_replicated(state, mesh), tx)
-    jstep = make_sharded_train_step(jm, tx, mesh, donate=False, pallas_train=True)
+    jstep = make_sharded_train_step(jm, tx, mesh, donate=False, pallas_train=pallas_train)
     rng = jax.random.PRNGKey(JAX_RNG)
 
     @jax.jit
     def jgrad(p, s, batch, key):
         def f(p):
             out, _ = jm.forward_teacher(p, s, *(batch[k] for k in INPUTS), rng=key, train=True,
-                                        dw_hoist=True, pallas_train=True, shard_mesh=mesh)
+                                        dw_hoist=True, pallas_train=pallas_train,
+                                        shard_mesh=mesh)
             return jax_loss(out.mels, out.mels_post, out.gates, batch["mel"], batch["gate"])[0]
         return jax.grad(f)(p)
 
-    sd = tmp_path / "state.pt"
-    torch.save(from_jax_params(params, state), sd)
-    batches = [_batch(0), _batch(1)]
     prev = from_jax_params(params, state)  # the weights each step starts from
     near = {}  # per weight, its elements whose Adam input came near zero
-    got = worker.launch(2, "train_steps", {
-        "cfg": CFG, "policy": "32-true", "state": str(sd), "gen_seed": 0, "lr": LR,
-        "wd": 1e-6, "batches": batches,
-        "masks": [_shard_masks(rng, i) for i in range(2)]}, tmp_path / "ranks")[0]
     for i, b in enumerate(batches):
         jb = shard_batch({k: jnp.asarray(v) for k, v in b.items()}, mesh)
         g_ref = from_jax_params(jax.tree.map(np.asarray, jgrad(

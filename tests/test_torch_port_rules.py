@@ -88,7 +88,8 @@ def test_port_files_found():
     assert not _forbidden("tacotron2_tpu_torch.preprocessing.splits")
     assert _forbidden("preprocessing.splits") and _forbidden("sklearn.model_selection")
     assert _forbidden("orbax.checkpoint") and not _forbidden("tensorstore")
-    for new in ("parallel/mesh.py", "parallel/prefetch.py", "training/orbax.py"):
+    for new in ("parallel/mesh.py", "parallel/prefetch.py", "training/orbax.py",
+                "ops/train_scan.py", "utils/flops.py", "audio/mel.py", "run/server.py"):
         assert f"tacotron2_tpu_torch/{new}" in names
 
 

@@ -400,12 +400,6 @@ def test_launch_counter_loses_no_counts():
     assert table["k"] == 16 * 2000 * 3
 
 
-def test_mesh_is_not_ported(tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        srv.App({"models": [], "mesh": {"data": 4}}, device="cpu")
-
-
 def _extension_entry(files, tmp_path, extension):
     """The tiny entry's config and weights with 3 speakers or 5 controls."""
     entry = copy.deepcopy(files["models"][0])

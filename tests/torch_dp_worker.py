@@ -68,32 +68,83 @@ def train_steps(rank: int, n: int, spec: dict) -> list:
     ``torch.manual_seed(0)``), each on this rank's rows, the dropout generator seeded
     ``spec["gen_seed"]``, the LSTM masks ``spec["masks"][i]`` (global) if
     given, the parameters under ``spec["frozen"]`` left out of the
-    optimizer. In one process without a group: the one-process steps. ->
-    per step the metrics, every gradient (after the clip) and the state
-    dict after the step."""
-    dp = _dp(rank, n)
+    optimizer. In one process without a group: the one-process steps. With
+    ``spec["model_parallel"]`` m > 1 the ranks form a grid of n / m data by
+    m model ranks (``mesh.make_data_parallel``), each holding its slices
+    (``mesh.shard_parameters``); ``spec["defect"]`` plants one ("local_clip":
+    the clip's norm over this rank's slices; "dxh": d(xh) left un-reduced
+    over the model group). -> per step the metrics, every gradient (after
+    the clip) and the state dict after the step, whole (gathered over the
+    model group), and under tensor parallelism ``local``: this rank's own
+    state dict."""
+    m = spec.get("model_parallel", 1)
+    if m > 1:
+        dp = mesh.make_data_parallel(int(spec["batches"][0]["mel"].shape[0]), m)
+        _plant(spec.get("defect"))
+    else:
+        dp = _dp(rank, n)
     torch.manual_seed(0)
     model = Tacotron2(Tacotron2Config(**spec["cfg"]), Policy.from_string(spec["policy"]))
     if spec.get("state"):
         model.load_state_dict(torch.load(spec["state"]))
     if dp is not None:
-        mesh.broadcast_state(model, dp)
+        mesh.broadcast_state(model, dp if m == 1 else mesh.DataParallel(rank, n))
+    if m > 1:
+        mesh.shard_parameters(model, dp)
     opt, sched = optimizer.make_optimizer(
         optimizer.trainable(model, spec.get("frozen", ())), spec["lr"], spec["wd"],
         spec.get("milestones", ()))
     gen = torch.Generator().manual_seed(spec["gen_seed"])
     out = []
     for i, batch in enumerate(spec["batches"]):
-        rows = mesh.shard_rows(batch, rank, n) if dp is not None else batch
+        rows = mesh.shard_rows(batch, dp.rank, dp.n) if dp is not None else batch
         masks = spec["masks"][i] if spec.get("masks") else None
-        masks = masks and tuple(torch.as_tensor(m) for m in masks)
-        m = step.train_step(model, opt, sched, step.to_device(rows, "cpu"), gen,
-                            lstm_masks=masks, dp=dp)
-        out.append({"metrics": {k: float(v) for k, v in m.items()},
-                    "grads": {k: p.grad.clone() for k, p in model.named_parameters()
-                              if p.grad is not None},
-                    "state": {k: v.clone() for k, v in model.state_dict().items()}})
+        masks = masks and tuple(torch.as_tensor(x) for x in masks)
+        metrics = step.train_step(model, opt, sched, step.to_device(rows, "cpu"), gen,
+                                  lstm_masks=masks, dp=dp)
+        split = getattr(model, "tp_split", {})
+        out.append({"metrics": {k: float(v) for k, v in metrics.items()},
+                    "grads": {k: (mesh.gather_units(p.grad, split[k], dp.model) if k in split
+                                  else p.grad.clone())
+                              for k, p in model.named_parameters() if p.grad is not None},
+                    "state": {k: v.clone() for k, v in mesh.gather_state_dict(model, dp).items()}})
+        if m > 1:
+            out[-1]["local"] = {k: v.clone() for k, v in model.state_dict().items()}
     return out
+
+
+def train_runs(rank: int, n: int, spec: dict) -> dict:
+    """``train_steps`` once per entry (name, defect or None, steps, spec
+    changes) of ``spec["runs"]`` in this rank, each with its defect planted
+    and then taken out. -> {name: its result}."""
+    out = {}
+    for name, defect, steps, changes in spec["runs"]:
+        run = {**spec, **changes, "defect": defect, "batches": spec["batches"][:steps]}
+        saved = (optimizer.global_norm, _train_scan().reduce_dxh)
+        try:
+            out[name] = train_steps(rank, n, run)
+        finally:
+            optimizer.global_norm, _train_scan().reduce_dxh = saved
+    return out
+
+
+def _train_scan():
+    from tacotron2_tpu_torch.ops import train_scan
+
+    return train_scan
+
+
+def _plant(defect) -> None:
+    """A defect of the tensor-parallel step, in this rank's modules."""
+    if defect == "local_clip":
+        def local_norm(grads, split, mp):
+            return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
+                                                         for g in grads]))
+        optimizer.global_norm = local_norm
+    elif defect == "dxh":
+        _train_scan().reduce_dxh = lambda x, mp: x
+    elif defect is not None:
+        raise ValueError(defect)
 
 
 def batchnorm(rank: int, n: int, spec: dict) -> dict:
