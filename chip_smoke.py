@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k2-ab   # only K2's design A/B (``k2_ab``), then exit
+    python3 chip_smoke.py --k2-f32  # the kernels' build, the plain f32 version and K2's
+                                    # f32 mode against f64 sums over K2F_DRAWS weight
+                                    # draws (``k2_f32_reference``, what K2F_TOL rests
+                                    # on), then phase 3f alone
     python3 chip_smoke.py --k1-rows [--root DIR] [--out NAME]  # K1/K5 at 1/16/64 rows
     python3 chip_smoke.py --k1-rows --enc-ab  # only the encoder: the forward's copies and
                                               # the backward against build/parent's (``enc_ab``)
@@ -56,6 +60,17 @@ Phases, each of which must pass:
    the last of an 80-row one (``cell_invariance``), and a
    64-frame chunk split by kernel at 16 and 64 rows, L=128, with the serve
    window's decode (``serve_rows_split``);
+3f. K2's f32 mode (``csrc/mrf_f32.cu``, the commands' vocoder: F32, as the
+   JAX package's ``load_hifigan``): ``k2_f32_phase`` on an F32 UNIVERSAL_V1
+   generator at 1, 16 and 64 rows of the say's 384-frame bucket: every f32
+   entry (``conv_pre``, both upsample kinds, ``mrf_conv``, ``mrf_pair``)
+   and each stage against its plain f32 version from the plain stage's
+   input (K2F_TOL of the output's max), each fused pair against its two
+   launches and rows 0, 1, 37, 63 of a 64-row vocode against each row
+   alone bit for bit (K2's outputs and ``HiFiGAN.apply``'s), the planted
+   defects (TF32- and bf16-rounded operands) at least K2F_DEFECT_MARGIN x
+   the limit, and every entry timed beside cuDNN's f32 convs and its bound
+   (three TF32 passes; the CUDA cores' FP32 rate beside it);
 3c. K1's and K5's controls mode on random full-width weights of
    ``config/controllable-lj-hifi-stop-speaker.json`` (``controls_phase``):
    1- and 4-step chunks at 1, 16 and 64 rows with distinct controls per row
@@ -93,10 +108,14 @@ Phases, each of which must pass:
 4. run ``say`` through the port's CLI entry on random full-width weights
    saved as a reference Lightning ``.ckpt`` and a UNIVERSAL_V1 ``g_*`` file:
    a forced 256-frame decode with the launch counters read around it (one
-   ``bilstm_forward`` launch; K2:
-   exactly 18 ``mrf_conv``, 27 ``mrf_pair``, 4 ``conv_transpose`` and 1
-   ``conv_pre`` launches a vocode, and the HiFi-GAN's weights packed
-   once), a
+   ``bilstm_forward`` launch; K2 in its f32 mode, the commands' vocoder:
+   exactly 18 ``mrf_conv_f32``, 27 ``mrf_pair_f32``, 4 ``conv_transpose_f32``
+   and 1 ``conv_pre_f32`` launches a vocode, none of the bf16 mode, and the
+   HiFi-GAN's weights packed once; every later path's vocodes are held to
+   the same f32 plan), the say's vocode against the plain f32 vocode
+   (VOCODE_F32_LSB), a bf16 generator's vocode of the same mel (K2's bf16
+   mode, its launches the kernels line's bf16 rows' count) reported in
+   PCM16 LSB against it, a
    forced early stop (1 frame), and the kernel decode against the plain
    decode over 32 frames; then ``say --quantize-int8`` the same way (K5's
    launches held to 2 x 256 of each of its two kernels), and the int8 decode
@@ -115,12 +134,15 @@ Phases, each of which must pass:
    requests per model, which must coalesce, with the launch
    counters held to two LSTM launches a frame per decode launch (and two
    ``quantize_xh`` in the int8 entry's); two
-   batched requests again alone (PCM16 difference); K2's launches 18, 27,
-   4 and 1 a window and no weight packing in the waves; one request through
-   Griffin-Lim; the kernels against their plain versions at the windows'
-   shapes (K1 at 16 and 64 rows and K5 at 16, L=128; K2 through the batched
-   vocode at 16 and 64 rows); then ``python -m tacotron2_tpu_torch server``
-   as a process of its own (/config, one /generate, exit 0 on SIGTERM);
+   batched requests again alone (PCM16 difference); K2's f32 launches 18,
+   27, 4 and 1 a window and no weight packing in the waves; one request
+   through Griffin-Lim; the kernels against their plain versions at the
+   windows' shapes (K1 at 16 and 64 rows and K5 at 16, L=128; K2 through
+   the batched vocode at 16 and 64 rows, ``serve_k2_check``: its f32 mode
+   on the served generator to K2F_TOL, its bf16 mode on a bf16 copy of it
+   to K2_TOL); then
+   ``python -m tacotron2_tpu_torch server`` as a process of its own
+   (/config, one /generate, exit 0 on SIGTERM);
 4d. the controllable, multi-speaker path: ``say --speaker-id 2 --controls
    ...`` (bf16 and ``--quantize-int8``) through the CLI entry on random
    full-width weights of the controllable config, 256 frames, the launch
@@ -296,6 +318,10 @@ INT8_DIVERGENCE = {"mels_post_mean_rel": 0.01, "gate_drift": 0.05}
 # a served request batched against alone, PCM16 LSB: reads 0 (the kernels'
 # rows are independent); one LSB allows a rounding of the f32 -> int16 cast
 SERVE_INVARIANCE_LSB = 1
+# the say's vocode through K2's f32 mode against the plain f32 vocode, PCM16
+# LSB: the two sum in other orders (~1e-6 of a stage's output), so a sample
+# near a rounding boundary of the int16 cast may land one LSB apart
+VOCODE_F32_LSB = 1
 # K3 at the main path's shapes (the train batch: B=32, L=128, T=384) on the
 # trained weights: its errors grow over the steps; 12-17x the errors
 # measured at T=384, the bf16 stacks to two ulps (PERF.md). There K4's f32
@@ -329,20 +355,23 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-def vocode_launches(h: dict) -> dict:
-    """K2's launches in one vocode of a HiFi-GAN of config ``h``: one
+def vocode_launches(h: dict, dtype=None) -> dict:
+    """K2's launches in one vocode of a HiFi-GAN of config ``h`` built under
+    a policy of ``dtype`` (f32 by default, the commands' vocoder policy; its
+    entries counted as ``<entry>_f32``, ``mrf.F32_LAUNCHES``): one
     ``conv_pre`` (stage 1's operand), one ``conv_transpose`` per stage,
     one ``mrf_pair`` per ResBlock1 pair that it takes (channels up to 128)
     and one ``mrf_conv`` per other conv (1, 4, 27 and 18 for UNIVERSAL_V1:
-    72 convs)."""
+    72 convs, in either mode)."""
     import torch
 
     from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
     from tacotron2_tpu_torch.models.layers import Policy
     from tacotron2_tpu_torch.ops import mrf
 
+    dtype = torch.float32 if dtype is None else dtype
     n = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0, "conv_pre": 1}
-    for rbs, _ in HiFiGAN(HiFiGANConfig.from_dict(h), Policy(torch.bfloat16)).kernel_weights():
+    for rbs, _ in HiFiGAN(HiFiGANConfig.from_dict(h), Policy(dtype)).kernel_weights():
         n["conv_transpose"] += 1
         for rb in rbs:
             for c1, c2 in rb:
@@ -350,14 +379,31 @@ def vocode_launches(h: dict) -> dict:
                     n["mrf_pair"] += 1
                 else:
                     n["mrf_conv"] += 1 if c2 is None else 2
-    return n
+    suffix = "_f32" if dtype == torch.float32 else ""
+    return {k + suffix: v for k, v in n.items()}
 
 
-def check_vocode_launches(launches: dict, vocodes: int, where: str) -> None:
-    want = {k: v * vocodes for k, v in vocode_launches(UNIVERSAL_V1).items()}
+def check_vocode_launches(launches: dict, vocodes: int, where: str, dtype=None) -> None:
+    """K2's launches in ``launches`` are ``vocodes`` vocodes of UNIVERSAL_V1
+    under ``dtype``'s policy (f32 by default), entry by entry, and the
+    other mode's entries, where counted, none."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import mrf
+
+    f32 = dtype is None or dtype == torch.float32
+    want = {k: v * vocodes for k, v in vocode_launches(UNIVERSAL_V1, dtype).items()}
+    want.update({k: 0 for k in (mrf.LAUNCHES if f32 else mrf.F32_LAUNCHES) if k in launches})
     if any(launches[k] != v for k, v in want.items()):
         raise SmokeFailure(f"{where}: K2 launched {[launches[k] for k in want]} times, "
                            f"want {want} ({vocodes} vocodes)")
+
+
+def k2_launch_keys() -> tuple:
+    """Every K2 counter, bf16 and f32 (``mrf.LAUNCHES``, ``mrf.F32_LAUNCHES``)."""
+    from tacotron2_tpu_torch.ops import mrf
+
+    return (*mrf.LAUNCHES, *mrf.F32_LAUNCHES)
 
 
 def card_line() -> str:
@@ -431,12 +477,13 @@ def ptxas_kernels(text: str) -> dict:
 def card_peak(kind: str) -> float:
     """A peak of the H100 SXM's data sheet, from the port's FLOP model
     (``tacotron2_tpu_torch/utils/flops.py``, the one place that holds
-    them): "bytes" (HBM bytes/s), "bf16" (dense FLOP/s) or "int8" (dense
-    OP/s)."""
+    them): "bytes" (HBM bytes/s), "bf16" / "tf32" (dense FLOP/s), "int8"
+    (dense OP/s) or "f32" (the CUDA cores' FLOP/s)."""
     from tacotron2_tpu_torch.utils import flops
 
     return 1e12 * {"bytes": flops.H100_HBM_TBPS, "bf16": flops.H100_BF16_TFLOPS,
-                   "int8": flops.H100_INT8_TOPS}[kind]
+                   "int8": flops.H100_INT8_TOPS, "tf32": flops.H100_TF32_TFLOPS,
+                   "f32": flops.H100_F32_TFLOPS}[kind]
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = None) -> tuple:
@@ -451,16 +498,16 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def time_ms(fn, reps: int = 20, inner: int = 10) -> float:
+def time_ms(fn, reps: int = 20, inner: int = 10, warm: int = 3) -> float:
     """Device time of one call of ``fn``: ``inner`` calls captured in one
     CUDA graph, replayed ``reps`` times between two CUDA events, so the
-    host's launch cost stays out of the number."""
+    host's launch cost stays out of the number; ``warm`` calls before."""
     import torch
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for _ in range(warm):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
@@ -479,11 +526,11 @@ def time_ms(fn, reps: int = 20, inner: int = 10) -> float:
     return start.elapsed_time(end) / (reps * inner)
 
 
-def eager_ms(fn, reps: int = 50) -> float:
+def eager_ms(fn, reps: int = 50, warm: int = 3) -> float:
     """Time of one eager call, launches from the host included."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1882,9 +1929,8 @@ def k1_rows_mode(out_name: str) -> int:
     from tacotron2_tpu_torch import ops
     from tacotron2_tpu_torch.config import load_config
     from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
-    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.models.layers import Policy, use_f32_math
     from tacotron2_tpu_torch.ops import build
-    from tacotron2_tpu_torch.run.say import vocoder_policy
     from tacotron2_tpu_torch.text import normalize_text
 
     use_f32_math()
@@ -1899,7 +1945,7 @@ def k1_rows_mode(out_name: str) -> int:
     model = random_tacotron(cfg, 10.0).cuda()
     torch.manual_seed(SEED + 1)
     hifigan = HiFiGAN(HiFiGANConfig.from_dict(UNIVERSAL_V1),
-                      vocoder_policy(torch.device("cuda"))).cuda().eval()
+                      Policy(torch.bfloat16)).cuda().eval()  # K2's bf16 mode
     Tb = -(-(255 + hifigan.mel_receptive_field()) // 128) * 128  # the say's bucket
     try:
         if "--enc-ab" in sys.argv[1:]:  # the encoder's recurrence alone
@@ -1931,11 +1977,15 @@ def k1_rows_mode(out_name: str) -> int:
 
 def stage_kernel(rbs) -> str:
     """The K2 kernel that runs a stage's resblocks: ``mrf_pair`` where it
-    takes the stage's ResBlock1 pairs, else ``mrf_conv``."""
+    takes the stage's ResBlock1 pairs, else ``mrf_conv``; ``_f32`` added for
+    f32 weights (K2's f32 mode)."""
+    import torch
+
     from tacotron2_tpu_torch.ops import mrf
 
     fused = any(mrf.pair_fusable(c1, c2) for rb in rbs for c1, c2 in rb)
-    return "mrf_pair" if fused else "mrf_conv"
+    sfx = "_f32" if rbs[0][0][0].w.dtype == torch.float32 else ""
+    return ("mrf_pair" if fused else "mrf_conv") + sfx
 
 
 def k2_phase(hifigan, log: dict, frames: int) -> None:
@@ -2020,7 +2070,8 @@ def k2_phase(hifigan, log: dict, frames: int) -> None:
         x = ref
 
 
-def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
+def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
+              plain_reps: tuple = (5, 4)) -> list:
     """Time every K2 call of one vocode of ``Tb`` frames at ``rows_b`` rows,
     summed per kernel: the kernel; the library convs (``F.conv1d`` /
     ``F.conv_transpose1d`` in f32 with TF32 off on the operands the kernel
@@ -2041,7 +2092,14 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
     The activations this one-launch-per-conv design writes and
     reads between launches (the bf16 operands, the f32 residual stream and
     stage mean) are the design's cost, reported beside the bound as
-    ``traffic_ms`` (those bytes over the HBM rate)."""
+    ``traffic_ms`` (those bytes over the HBM rate).
+
+    A generator built under F32 times K2's f32 mode (rows ``<entry>_f32``,
+    ``csrc/mrf_f32.cu``): f32 operands, no bf16 library call, and the bound's
+    operations taken as three TF32 passes (3 x flops at the dense TF32 peak,
+    the tensor cores' route to f32-exact products), with flops at the CUDA
+    cores' FP32 peak beside it (``cuda_core_ms``); ``plain_reps`` the plain
+    version's repeats. At 64 rows every timing takes one warm-up call."""
     import torch
     import torch.nn.functional as F
 
@@ -2070,14 +2128,98 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
     names = ("mrf_conv", "mrf_pair", "conv_transpose", "conv_pre")
     tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_bf16_ms": 0.0,
                "bound_ms": 0.0, "eager_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-               "traffic_ms": 0.0, "calls": 0} for n in names}
+               "traffic_ms": 0.0, "cuda_core_ms": 0.0, "calls": 0} for n in names}
     kw = hifigan.kernel_weights()
     cwp = hifigan.conv_pre_weights()
-    a_mel = mel.to(torch.bfloat16)
+    dt = hifigan.policy.compute_dtype
+    f32 = dt == torch.float32
+    es = torch.empty(0, dtype=dt).element_size()  # an operand's bytes
+    a_mel = mel.to(dt)
     calls.append(("conv_pre", a_mel))
     a = mrf.conv_pre(a_mel, cwp)
     K, Co, Ci = cwp.w.shape
     parts0 = {"conv_pre": (nbytes(a_mel, cwp.w, cwp.b, a), 2 * rows_b * Tb * Co * Ci * K)}
+
+    def time_calls():  # the calls made so far, then dropped (a stage's operands at a time)
+        torch.cuda.synchronize()
+        big = rows_b > 1  # fewer repeats at the serve windows' sizes
+        warm = 1 if rows_b >= 64 else 3  # and one warm-up call at 64 rows
+        bf = torch.bfloat16
+        for call in calls:
+            name, x = call[0], call[1]
+            t = tot[name]
+            if name in ("mrf_conv", "mrf_pair"):
+                _, a, cws, res, acc, s, want_y, want_act, acc_act = call
+                fn = mrf.mrf_conv if name == "mrf_conv" else mrf.mrf_pair
+                pfn = mrf.mrf_conv_plain if name == "mrf_conv" else mrf.mrf_pair_plain
+                kern = lambda: fn(a, *cws, res, acc, s, want_y, want_act, acc_act)
+                plain_fn = lambda: pfn(a, *cws, res, acc, s, want_y, want_act, acc_act)
+                # the library's inputs: the operand of each conv (for a pair, the
+                # plain first conv's output operand), channels first
+                ops_in = [a] if len(cws) == 1 else [a, mrf.mrf_conv_plain(a, cws[0], want_y=False,
+                                                                           want_act=True)[1]]
+                lib_args = []
+                for cw, op in zip(cws, ops_in):
+                    Kt = cw.w.shape[0]
+                    xt = op.transpose(1, 2).contiguous()
+                    wt = cw.w.permute(1, 2, 0).contiguous()
+                    lib_args.append((xt, wt, cw.b, cw.b.to(bf), cw.dilation * (Kt - 1) // 2,
+                                     cw.dilation))
+                lib32 = [(xt.float(), wt.float(), b, p, d) for xt, wt, b, _, p, d in lib_args]
+                lib = lambda: [F.conv1d(xt, wt, b, padding=p, dilation=d)
+                               for xt, wt, b, p, d in lib32]
+                lib_bf16 = lambda: [F.conv1d(xt, wt, b16, padding=p, dilation=d)
+                                    for xt, wt, _, b16, p, d in lib_args]
+                Co = cws[-1].w.shape[1]
+                n_out = a.shape[0] * a.shape[1] * Co
+                nb = (nbytes(a, *(cw.wt for cw in cws), *(cw.b for cw in cws), res, acc)
+                      + n_out * (4 * want_y + es * want_act + (s != 0.0) * (es if acc_act else 4)))
+                w_shape = list(cws[0].w.shape)
+            elif name == "conv_transpose":
+                _, x, uw, want_act = call  # x: the input operand
+                Kt, _, Co = uw.w.shape
+                kern = lambda: mrf.conv_transpose(x, uw, want_act)
+                plain_fn = lambda: mrf.conv_transpose_plain(x, uw, want_act)
+                xt = x.transpose(1, 2).contiguous()
+                xt32, wt = xt.float(), uw.w.permute(1, 2, 0).contiguous()
+                wt32 = wt.float()
+                lib = lambda: F.conv_transpose1d(xt32, wt32, uw.b, stride=uw.stride,
+                                                 padding=uw.padding)
+                b16 = uw.b.to(bf)
+                lib_bf16 = lambda: F.conv_transpose1d(xt, wt, b16, stride=uw.stride,
+                                                      padding=uw.padding)
+                Tout = x.shape[1] * uw.stride
+                nb = (nbytes(x, uw.folded.wt, uw.folded.b)
+                      + x.shape[0] * Tout * Co * (4 + es * want_act))
+                w_shape = list(uw.w.shape)
+            else:  # conv_pre, from the bf16 mel x
+                kern = lambda: mrf.conv_pre(x, cwp)
+                plain_fn = lambda: mrf.conv_pre_plain(x, cwp)
+                xt = x.transpose(1, 2).contiguous()
+                wt = cwp.w.permute(1, 2, 0).contiguous()
+                xt32, wt32, b16 = xt.float(), wt.float(), cwp.b.to(bf)
+                Kp = cwp.w.shape[0]
+                lib = lambda: F.conv1d(xt32, wt32, cwp.b, padding=Kp // 2)
+                lib_bf16 = lambda: F.conv1d(xt, wt, b16, padding=Kp // 2)
+                nb = nbytes(x, cwp.wt, cwp.b) + x.shape[0] * x.shape[1] * cwp.w.shape[1] * es
+                w_shape = list(cwp.w.shape)
+            reps = ((1, 2) if rows_b >= 64 else (2, 2)) if big else (5, 4)
+            ms = time_ms(kern, *reps, warm)
+            traffic_ms = nb / card_peak("bytes") * 1e3
+            t.setdefault("per_call", []).append({"x": list(x.shape), "w": w_shape, "ms": ms,
+                                                 "traffic_ms": traffic_ms})
+            t["ms"] += ms
+            if lib is not None:
+                t["library_ms"] += time_ms(lib, *reps, warm)
+                if not f32:
+                    t["library_bf16_ms"] += time_ms(lib_bf16, *reps, warm)
+            if plain:
+                t["plain_ms"] += time_ms(plain_fn, *plain_reps, warm)
+                t["eager_ms"] += eager_ms(kern, 2 if rows_b >= 64 else 5, warm)
+            t["traffic_ms"] += traffic_ms
+            t["calls"] += 1
+        calls.clear()
+
     for i, (rbs, ups) in enumerate(kw):
         ain = a
         first = len(calls)
@@ -2091,7 +2233,7 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
         nb_stage = nbytes(y, *(cw.w for cw in convs), *(cw.b for cw in convs))
         fl_by = {n: sum(2 * Bn * T * cw.w.numel() for c in calls[first:] if c[0] == n
                         for cw in c[2]) for n in ("mrf_conv", "mrf_pair")}
-        parts = {"conv_transpose": (nbytes(ain, ups.w, ups.b) + Bn * T * Co * 6,
+        parts = {"conv_transpose": (nbytes(ain, ups.w, ups.b) + Bn * T * Co * (4 + es),
                                     2 * Bn * T * Co * ain.shape[2]
                                     * (ups.w.shape[0] // ups.stride))}
         if i == 0:
@@ -2101,84 +2243,12 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
                 parts[n] = (nb_stage * fl / fl_stage, fl)
         for name, (nb, fl) in parts.items():
             t = tot[name]
-            t["bound_ms"] += bound_ms(nb, fl)[0]
+            ops, peak = (3 * fl, card_peak("tf32")) if f32 else (fl, card_peak("bf16"))
+            t["bound_ms"] += bound_ms(nb, ops, peak)[0]
             t["bytes_ms"] += nb / card_peak("bytes") * 1e3
-            t["ops_ms"] += fl / card_peak("bf16") * 1e3
-    torch.cuda.synchronize()
-
-    big = rows_b > 1  # fewer repeats at the serve windows' sizes
-    bf = torch.bfloat16
-    for call in calls:
-        name, x = call[0], call[1]
-        t = tot[name]
-        if name in ("mrf_conv", "mrf_pair"):
-            _, a, cws, res, acc, s, want_y, want_act, acc_act = call
-            fn = mrf.mrf_conv if name == "mrf_conv" else mrf.mrf_pair
-            pfn = mrf.mrf_conv_plain if name == "mrf_conv" else mrf.mrf_pair_plain
-            kern = lambda: fn(a, *cws, res, acc, s, want_y, want_act, acc_act)
-            plain_fn = lambda: pfn(a, *cws, res, acc, s, want_y, want_act, acc_act)
-            # the library's inputs: the operand of each conv (for a pair, the
-            # plain first conv's output operand), channels first
-            ops_in = [a] if len(cws) == 1 else [a, mrf.mrf_conv_plain(a, cws[0], want_y=False,
-                                                                       want_act=True)[1]]
-            lib_args = []
-            for cw, op in zip(cws, ops_in):
-                Kt = cw.w.shape[0]
-                xt = op.transpose(1, 2).contiguous()
-                wt = cw.w.permute(1, 2, 0).contiguous()
-                lib_args.append((xt, wt, cw.b, cw.b.to(bf), cw.dilation * (Kt - 1) // 2,
-                                 cw.dilation))
-            lib32 = [(xt.float(), wt.float(), b, p, d) for xt, wt, b, _, p, d in lib_args]
-            lib = lambda: [F.conv1d(xt, wt, b, padding=p, dilation=d) for xt, wt, b, p, d in lib32]
-            lib_bf16 = lambda: [F.conv1d(xt, wt, b16, padding=p, dilation=d)
-                                for xt, wt, _, b16, p, d in lib_args]
-            Co = cws[-1].w.shape[1]
-            n_out = a.shape[0] * a.shape[1] * Co
-            nb = (nbytes(a, *(cw.wt for cw in cws), *(cw.b for cw in cws), res, acc)
-                  + n_out * (4 * want_y + 2 * want_act + (s != 0.0) * (2 if acc_act else 4)))
-            w_shape = list(cws[0].w.shape)
-        elif name == "conv_transpose":
-            _, x, uw, want_act = call  # x: the input operand
-            Kt, _, Co = uw.w.shape
-            kern = lambda: mrf.conv_transpose(x, uw, want_act)
-            plain_fn = lambda: mrf.conv_transpose_plain(x, uw, want_act)
-            xt = x.transpose(1, 2).contiguous()
-            xt32, wt = xt.float(), uw.w.permute(1, 2, 0).contiguous()
-            wt32 = wt.float()
-            lib = lambda: F.conv_transpose1d(xt32, wt32, uw.b, stride=uw.stride,
-                                             padding=uw.padding)
-            b16 = uw.b.to(bf)
-            lib_bf16 = lambda: F.conv_transpose1d(xt, wt, b16, stride=uw.stride,
-                                                  padding=uw.padding)
-            Tout = x.shape[1] * uw.stride
-            nb = (nbytes(x, uw.folded.wt, uw.folded.b)
-                  + x.shape[0] * Tout * Co * (4 + 2 * want_act))
-            w_shape = list(uw.w.shape)
-        else:  # conv_pre, from the bf16 mel x
-            kern = lambda: mrf.conv_pre(x, cwp)
-            plain_fn = lambda: mrf.conv_pre_plain(x, cwp)
-            xt = x.transpose(1, 2).contiguous()
-            wt = cwp.w.permute(1, 2, 0).contiguous()
-            xt32, wt32, b16 = xt.float(), wt.float(), cwp.b.to(bf)
-            Kp = cwp.w.shape[0]
-            lib = lambda: F.conv1d(xt32, wt32, cwp.b, padding=Kp // 2)
-            lib_bf16 = lambda: F.conv1d(xt, wt, b16, padding=Kp // 2)
-            nb = nbytes(x, cwp.wt, cwp.b) + x.shape[0] * x.shape[1] * cwp.w.shape[1] * 2
-            w_shape = list(cwp.w.shape)
-        reps = (2, 2) if big else (5, 4)
-        ms = time_ms(kern, *reps)
-        traffic_ms = nb / card_peak("bytes") * 1e3
-        t.setdefault("per_call", []).append({"x": list(x.shape), "w": w_shape, "ms": ms,
-                                             "traffic_ms": traffic_ms})
-        t["ms"] += ms
-        if lib is not None:
-            t["library_ms"] += time_ms(lib, *reps)
-            t["library_bf16_ms"] += time_ms(lib_bf16, *reps)
-        if plain:
-            t["plain_ms"] += time_ms(plain_fn, 5, 4)
-            t["eager_ms"] += eager_ms(kern, 5)
-        t["traffic_ms"] += traffic_ms
-        t["calls"] += 1
+            t["ops_ms"] += ops / peak * 1e3
+            t["cuda_core_ms"] += fl / card_peak("f32") * 1e3
+        time_calls()
     rows = []
     # the wrappers replace the on-path stage kernels (u=8 :312, u=2 :378);
     # the MRF without its upsample (:285) runs on mrf_conv / mrf_pair alone
@@ -2192,17 +2262,22 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True) -> list:
         if not t["calls"]:
             continue
         lib_none = False
+        where = replaces.get(name, "tacotron2_tpu/ops/mrf_pallas.py:312,378 (also :285)")
         rows.append({
-            "name": name, "route": "cuda", "source": "tacotron2_tpu_torch/csrc/mrf.cu",
-            "replaces": replaces.get(name, "tacotron2_tpu/ops/mrf_pallas.py:312,378 (also :285)"),
+            "name": name + ("_f32" if f32 else ""), "route": "cuda",
+            "source": "tacotron2_tpu_torch/csrc/" + ("mrf_f32.cu" if f32 else "mrf.cu"),
+            "replaces": (where.replace("the bf16 policy", "F32") + "; bf16=False, _dt = "
+                         "jnp.float32 at mrf_pallas.py:463,540,636" if f32 else where),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
             "library_ms": None if lib_none else t["library_ms"],
-            "library_bf16_ms": None if lib_none else t["library_bf16_ms"],
+            "library_bf16_ms": None if lib_none or f32 else t["library_bf16_ms"],
             "library": None if lib_none else
                        "F.conv1d / F.conv_transpose1d (two for a fused pair): f32 (TF32 off) "
-                       "on the kernel's bf16 operands; library_bf16_ms the same in bf16, bf16 "
-                       "output",
+                       + ("on the kernel's f32 operands" if f32 else
+                          "on the kernel's bf16 operands; library_bf16_ms the same in bf16, "
+                          "bf16 output"),
+            **({"cuda_core_ms": t["cuda_core_ms"]} if f32 else {}),
             "eager_ms": t["eager_ms"], "traffic_ms": t["traffic_ms"],
             "per": f"one vocode of {Tb} frames at {rows_b} rows ({t['calls']} calls)",
             "per_call": t["per_call"],
@@ -2314,6 +2389,243 @@ def k2_ab(hifigan, Tb: int) -> dict:
               + " / ".join(f"{v:.3f}" for v in ms["fused"]) + " ms, as two launches "
               + " / ".join(f"{v:.3f}" for v in ms["unfused"]) + f" ms; equal bits: {same}")
     return result
+
+
+K2F_TOL = 1e-5  # K2's f32 mode against its plain f32 version, of the output's max (PERF.md)
+K2F_ROWS = (1, 16, 64)  # the say's one row and the serve windows' rows
+K2F_INVARIANCE_ROWS = (0, 1, 37, 63)  # rows of a 64-row vocode held against the rows alone
+K2F_DEFECT_MARGIN = 10.0  # a planted defect reads at least this many times K2F_TOL
+K2F_DRAWS = 3  # weight draws of the f64-sum measurement
+
+
+def tf32_round(t):
+    """``t`` rounded to TF32 (10 mantissa bits, to nearest even), kept f32:
+    what a single TF32 pass makes of an operand."""
+    import torch
+
+    i = t.contiguous().view(torch.int32)
+    return ((i + 0xFFF + ((i >> 13) & 1)) & -0x2000).view(torch.float32)
+
+
+def rounded_conv(cw, rnd):
+    """``cw`` with its weights rounded by ``rnd``, kept f32, re-tiled."""
+    from tacotron2_tpu_torch.ops import mrf
+
+    w = rnd(cw.w).contiguous()
+    return mrf.ConvWeights(w, cw.b, cw.dilation, mrf.tile_conv(w))
+
+
+def f64_stage(x, rbs, ups):
+    """``plain_stage`` with f64 operands, weights and sums: the reference
+    the f32 readings are measured against."""
+    import torch.nn.functional as F
+
+    def conv(z, cw, res=None):
+        K = cw.w.shape[0]
+        y = F.conv1d(F.leaky_relu(z, 0.1).transpose(1, 2), cw.w.double().permute(1, 2, 0),
+                     cw.b.double(), padding=cw.dilation * (K - 1) // 2,
+                     dilation=cw.dilation).transpose(1, 2)
+        return y if res is None else y + res
+
+    x = x.double()
+    if ups is not None:
+        x = F.conv_transpose1d(F.leaky_relu(x, 0.1).transpose(1, 2),
+                               ups.w.double().permute(1, 2, 0), ups.b.double(),
+                               stride=ups.stride, padding=ups.padding).transpose(1, 2)
+    acc = None
+    for rb in rbs:
+        z = x
+        for c1, c2 in rb:
+            z = conv(z, c1, z) if c2 is None else conv(conv(z, c1), c2, z)
+        acc = z / len(rbs) if acc is None else acc + z / len(rbs)
+    return acc
+
+
+def k2_f32_reference(Tb: int, log: dict) -> dict:
+    """The plain f32 version (cuDNN, TF32 off) and K2's f32 mode, each
+    against f64 sums (``f64_stage``, ``F.conv1d`` in f64), on K2F_DRAWS
+    UNIVERSAL_V1 weight draws at one row of ``Tb`` frames: ``conv_pre`` and
+    each stage from the plain f32 stage input, the error over the f64
+    output's max. The spread the plain version's own f32 sums leave is what
+    K2F_TOL must stand above."""
+    import torch
+    import torch.nn.functional as F
+
+    from tacotron2_tpu_torch.models import layers
+    from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
+    from tacotron2_tpu_torch.models.layers import F32
+    from tacotron2_tpu_torch.ops import mrf
+
+    rel = lambda got, ref: float((got.double() - ref).abs().max() / ref.abs().max())
+    out = []
+    for d in range(K2F_DRAWS):
+        torch.manual_seed(SEED + 60 + d)
+        h = HiFiGAN(HiFiGANConfig.from_dict(UNIVERSAL_V1), F32).cuda().eval()
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED + 70 + d)
+        mel = torch.randn(1, Tb, h.cfg.num_mels, device="cuda", generator=g)
+        cwp = h.conv_pre_weights()
+        ref = F.conv1d(mel.double().transpose(1, 2), h.conv_pre.weight.double(),
+                       h.conv_pre.bias.double(), padding=3).transpose(1, 2)
+        ref = F.leaky_relu(ref, 0.1)
+        draw = {"conv_pre": {"plain": rel(mrf.conv_pre_plain(mel, cwp), ref),
+                             "kernel": rel(mrf.conv_pre(mel, cwp), ref)}}
+        x = layers.conv1d(mel, h.conv_pre.weight, h.conv_pre.bias, F32, padding=3,
+                          round_out=True)
+        for i, (rbs, ups) in enumerate(h.kernel_weights()):
+            ref = f64_stage(x, rbs, ups)
+            p = mrf.plain_stage(x, rbs, ups)
+            draw[f"stage{i + 1}"] = {"plain": rel(p, ref), "kernel": rel(mrf.mrf_stage(x, rbs, ups),
+                                                                         ref)}
+            x = p
+            del ref
+        out.append(draw)
+        print(f"  f64-sum reference, draw {d}: " + "; ".join(
+            f"{k} plain {v['plain']:.2e} kernel {v['kernel']:.2e}" for k, v in draw.items()))
+        del h
+        torch.cuda.empty_cache()
+    worst = {w: max(v[w] for dr in out for v in dr.values()) for w in ("plain", "kernel")}
+    log["k2_f32_f64_reference"] = {"draws": out, "worst": worst, "Tb": Tb, "tol": K2F_TOL}
+    print(f"  f64-sum reference over {K2F_DRAWS} draws, worst of the output's max: plain "
+          f"{worst['plain']:.2e}, kernel {worst['kernel']:.2e} (K2F_TOL {K2F_TOL:g})")
+    return worst
+
+
+def k2_f32_phase(hifigan, Tb: int, log: dict) -> list:
+    """K2's f32 mode (``csrc/mrf_f32.cu``) on an F32 UNIVERSAL_V1 generator
+    at K2F_ROWS rows of ``Tb`` frames, each stage from the plain stage's
+    input: ``conv_pre`` from the mel, each upsample and its operand, each
+    stage's first ``mrf_conv_f32`` or fused ``mrf_pair_f32`` alone (without
+    the residual, so that the conv's own sum is held), and the whole stage,
+    against their plain f32 versions within K2F_TOL of the output's max.
+    Bitwise, failing the run: each fused pair against its two ``mrf_conv``
+    launches, and rows K2F_INVARIANCE_ROWS of a 64-row vocode on the served
+    route (``conv_pre``, each stage passing its mean's operand to the next)
+    and of ``HiFiGAN.apply`` against each row alone. Planted defects (the first conv or pair of each
+    stage with its operand and weights rounded to TF32, then to bf16) read at
+    least K2F_DEFECT_MARGIN x K2F_TOL. Then every entry timed at each row count
+    (``k2_timing``: kernel, plain version, cuDNN f32, bound). -> the
+    kernels-line rows, ``rows`` holding each row count's."""
+    import torch
+
+    from tacotron2_tpu_torch.models import layers
+    from tacotron2_tpu_torch.models.layers import F32
+    from tacotron2_tpu_torch.ops import mrf
+
+    if hifigan.policy.compute_dtype != torch.float32:
+        raise SmokeFailure("k2_f32_phase wants an F32 generator")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 50)
+    kw = hifigan.kernel_weights()
+    cwp = hifigan.conv_pre_weights()
+    tol = K2F_TOL
+    defects: dict = {}
+    for B in K2F_ROWS:
+        mel = torch.randn(B, Tb, hifigan.cfg.num_mels, device="cuda", generator=g)
+        check(f"conv_pre_f32@B{B}x{Tb}", [("a", mrf.conv_pre(mel, cwp),
+                                           mrf.conv_pre_plain(mel, cwp))],
+              tol, log, "conv_pre_f32", own=True)
+        x = layers.conv1d(mel, hifigan.conv_pre.weight, hifigan.conv_pre.bias, F32, padding=3,
+                          round_out=True)
+        for i, (rbs, ups) in enumerate(kw):
+            tag = f"[{i}]@B{B}x{Tb}"
+            x = x.contiguous()
+            a = mrf.operand(x, torch.float32)
+            xu, au = mrf.conv_transpose_plain(a, ups, want_act=True)
+            yk, ak = mrf.conv_transpose(a, ups, want_act=True)
+            check(f"conv_transpose_f32{tag}", [("out", yk, xu), ("act", ak, au)], tol, log,
+                  "conv_transpose_f32", own=True)
+            del yk, ak, a
+            name = stage_kernel(rbs)
+            pair = name == "mrf_pair_f32"
+            c1, c2 = rbs[0][0]
+            xu, au = xu.contiguous(), au.contiguous()
+            one = ((lambda f, a, c1, c2, r: f(a, c1, c2, res=r, want_act=True)) if pair else
+                   (lambda f, a, c1, c2, r: f(a, c1, want_act=True)))
+            kern = mrf.mrf_pair if pair else mrf.mrf_conv
+            # no residual: the conv's own sum is what a rounding defect moves
+            p_out = one(mrf.mrf_pair_plain if pair else mrf.mrf_conv_plain, au, c1, c2, None)
+            k_out = one(kern, au, c1, c2, None)
+            check(f"{name}{tag}", [("y", k_out[0], p_out[0]), ("act", k_out[1], p_out[1])],
+                  tol, log, name, own=True)
+            if B == 16:  # the planted defects, each stage's first conv or pair
+                for dname, rnd in (("tf32_operands", tf32_round),
+                                   ("bf16_operands", lambda t: t.to(torch.bfloat16).float())):
+                    d_out = one(kern, rnd(au), rounded_conv(c1, rnd),
+                                rounded_conv(c2, rnd) if pair else None, None)
+                    r = err(d_out[0], p_out[0], own=True)[1]
+                    defects.setdefault(dname, []).append({"call": f"{name}{tag}", "rel_err": r})
+                    del d_out
+            del k_out, p_out
+            if pair:
+                acc = torch.randn(xu.shape, device="cuda", generator=g)
+                fused = mrf.mrf_pair(au, c1, c2, xu, acc, 0.25, True, True)
+                _, at, _ = mrf.mrf_conv(au, c1, want_y=False, want_act=True)
+                unfused = mrf.mrf_conv(at, c2, xu, acc, 0.25, True, True)
+                if not all(torch.equal(f, u) for f, u in zip(fused, unfused)):
+                    raise SmokeFailure(f"{name}{tag}: the fused pair differs from its two "
+                                       "mrf_conv launches")
+                del acc, fused, at, unfused
+            del xu, au
+            ref = mrf.plain_stage(x, rbs, ups)
+            check(f"mrf_stage_f32{tag}", [("out", mrf.mrf_stage(x, rbs, ups), ref)], tol, log,
+                  name, own=True)
+            x = ref
+        del x, mel
+        torch.cuda.empty_cache()
+    for dname, rs in defects.items():
+        worst = min(r["rel_err"] for r in rs)
+        log.setdefault("k2_f32_defects", {})[dname] = {"readings": rs, "least": worst}
+        print(f"  K2 f32 planted defect {dname}: least reading {worst:.3e} "
+              f"({worst / tol:.0f}x K2F_TOL {tol:g})")
+        if not worst >= K2F_DEFECT_MARGIN * tol:
+            raise SmokeFailure(f"the planted defect {dname} reads {worst:.3e}, under "
+                               f"{K2F_DEFECT_MARGIN:g} x K2F_TOL")
+
+    def route(m):  # the served vocode's K2 route: every entry, each output kept
+        outs = [mrf.conv_pre(m, cwp)]
+        for i, (rbs, ups) in enumerate(kw):
+            outs.append(mrf.mrf_stage(None, rbs, ups, outs[-1], want_operand=i < len(kw) - 1))
+        return outs
+
+    n = max(K2F_INVARIANCE_ROWS) + 1
+    mel = torch.randn(n, Tb, hifigan.cfg.num_mels, device="cuda", generator=g)
+    batch = route(mel)
+    wav = hifigan.apply(mel)  # the whole vocode, conv_post and tanh included
+    for r in K2F_INVARIANCE_ROWS:
+        alone = route(mel[r:r + 1])
+        if not all(torch.equal(b[r:r + 1], o) for b, o in zip(batch, alone)):
+            raise SmokeFailure(f"K2 f32: row {r} of a {n}-row vocode differs from the row alone")
+        if not torch.equal(wav[r:r + 1], hifigan.apply(mel[r:r + 1])):
+            raise SmokeFailure(f"the F32 vocode (HiFiGAN.apply): row {r} of {n} differs from the "
+                               "row alone")
+    print(f"  K2 f32: rows {list(K2F_INVARIANCE_ROWS)} of a {n}-row vocode equal each row alone "
+          "bit for bit (K2's output and HiFiGAN.apply's); every fused pair equals its two "
+          "launches")
+    del batch, mel, wav
+    torch.cuda.empty_cache()
+
+    rows = {}
+    for B in K2F_ROWS:
+        big = B > 1
+        for r in k2_timing(hifigan, Tb, B, True,
+                           ((1, 2) if B >= 64 else (2, 2)) if big else (5, 4)):
+            row = rows.setdefault(r["name"], {**r, "rows": {}})
+            row["rows"][f"B{B}"] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "library_ms", "cuda_core_ms", "eager_ms",
+                                                      "traffic_ms", "per")}
+            print(f"  {r['name']} at {B} rows, Tb={Tb}: {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f}, cuDNN f32 {r['library_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}, 3 TF32 passes), FP32 cores "
+                  f"{r['cuda_core_ms']:.4f} ms")
+        torch.cuda.empty_cache()
+    out = []
+    for r in rows.values():  # the kernels line: the say's one row, the others in "rows"
+        r.update({k: r["rows"]["B1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms", "eager_ms", "traffic_ms", "per")})
+        out.append(r)
+    log["k2_f32"] = {r["name"]: r["rows"] for r in out}
+    return out
 
 
 def kernel_split(fn) -> dict:
@@ -3807,10 +4119,10 @@ def say_phase(cfg_path: str, log: dict, card: str):
     from tacotron2_tpu_torch.config import load_config
     from tacotron2_tpu_torch.convert import to_lightning
     from tacotron2_tpu_torch.models import hifigan as hifigan_mod
-    from tacotron2_tpu_torch.models.layers import F32
+    from tacotron2_tpu_torch.models.layers import Policy
     from tacotron2_tpu_torch.ops import decoder_loop, encoder_lstm, mrf
     from tacotron2_tpu_torch.run.say import (cut_vocode, load_hifigan, load_tacotron,
-                                             vocode_bucket, vocoder_policy)
+                                             vocode_bucket)
     from tacotron2_tpu_torch.text import CharEncoder, normalize_text
 
     cfg = load_config(cfg_path)
@@ -3836,7 +4148,7 @@ def say_phase(cfg_path: str, log: dict, card: str):
     encoder_lstm.reset_launches()
     packs0 = hifigan_mod.PACK_CALLS[0]
     res = say("run", 256, wav_path)
-    launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES,
+    launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES, **mrf.F32_LAUNCHES,
                 "bilstm_forward": encoder_lstm.LAUNCHES["bilstm_forward"]}
     packs = hifigan_mod.PACK_CALLS[0] - packs0
     print(f"  say 256: {res}")
@@ -3850,6 +4162,8 @@ def say_phase(cfg_path: str, log: dict, card: str):
     if res["n_frames"] != 256:
         raise SmokeFailure(f"forced full decode gave {res['n_frames']} frames, want 256")
     for k, n in launches.items():
+        if k in mrf.LAUNCHES:  # K2's bf16 mode: none on the say path (held above)
+            continue
         if (n == 0) != (k in K5_KERNELS):  # K5 is the int8 path's, below
             raise SmokeFailure(f"kernel {k} was launched {n} times on the say path")
     wav, sr = read_wav(wav_path)
@@ -3876,19 +4190,34 @@ def say_phase(cfg_path: str, log: dict, card: str):
                                ("gates", fast.gates, ref.gates),
                                ("alignments", fast.alignments, ref.alignments)], DECODE_TOL, log)
 
-    # the vocoder's policy: the say's bf16 vocode through K2 against the
-    # plain f32 vocode (the JAX say's precision) of the same 256-frame decode
+    # the say's vocode (f32, K2's f32 mode) against the plain f32 vocode of
+    # the same 256-frame decode (held to VOCODE_F32_LSB); then K2's bf16 mode
+    # (a generator built under a bf16 policy, as the TPU kernels' bf16=True)
+    # against it, reported, its launches counted as the bf16 mode's path
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     full = model.forward_infer_fast(ci, cl, 256, generator=gen)
     cut = max(int(full.n_frames) - 1, 1)
-    h_bf = load_hifigan(g_path, vocoder_policy(dev), dev)
-    h_32 = load_hifigan(g_path, F32, dev)
-    Tb = vocode_bucket(h_bf, cut)
+    h_32 = load_hifigan(g_path, dev)
+    if h_32.policy.compute_dtype != torch.float32:
+        raise SmokeFailure(f"load_hifigan gave {h_32.policy}, want F32 (JAX's load_hifigan)")
+    Tb = vocode_bucket(h_32, cut)
+    pcm_32 = cut_vocode(h_32, full.mels_post, [0], [cut], Tb)[0, :cut * 256].long()
+    pcm_plain = cut_vocode(h_32, full.mels_post, [0], [cut], Tb, plain=True)[0, :cut * 256].long()
+    lsb32 = (pcm_32 - pcm_plain).abs().float()
+    f32_vocode = {"max_lsb": float(lsb32.max()), "mean_lsb": float(lsb32.mean()),
+                  "samples": pcm_32.numel(), "tol_lsb": VOCODE_F32_LSB}
+    print(f"  the say's vocode (K2 f32) against the plain f32 vocode, PCM16 LSB: {f32_vocode}")
+    if pcm_32.numel() != cut * 256 or not f32_vocode["max_lsb"] <= VOCODE_F32_LSB:
+        raise SmokeFailure(f"the say's f32 vocode: {f32_vocode}")
+    h_bf = load_hifigan(g_path, dev, Policy(torch.bfloat16))
+    cut_vocode(h_bf, full.mels_post, [0], [cut], Tb)  # packs the bf16 copies
+    mrf.reset_launches()
     pcm_bf = cut_vocode(h_bf, full.mels_post, [0], [cut], Tb)[0, :cut * 256].long()
-    pcm_32 = cut_vocode(h_32, full.mels_post, [0], [cut], Tb, plain=True)[0, :cut * 256].long()
-    if pcm_bf.shape != pcm_32.shape or pcm_bf.numel() != cut * 256:
-        raise SmokeFailure(f"vocoder precision check: shapes {pcm_bf.shape}, {pcm_32.shape}")
+    bf16_launches = dict(mrf.LAUNCHES)
+    check_vocode_launches({**bf16_launches, **mrf.F32_LAUNCHES}, 1, "the bf16 generator's vocode",
+                          torch.bfloat16)
+    launches.update(bf16_launches)
     lsb = (pcm_bf - pcm_32).abs().float()
     vocoder_precision = {
         "max_lsb": float(lsb.max()), "mean_lsb": float(lsb.mean()),
@@ -3896,7 +4225,9 @@ def say_phase(cfg_path: str, log: dict, card: str):
         "f32_max_abs": float(pcm_32.abs().max()),
         "f32_rms": float(pcm_32.float().pow(2).mean().sqrt()), "samples": pcm_32.numel(),
     }
-    print(f"  vocoder bf16 (K2) vs f32 (plain), PCM16 LSB, random weights: {vocoder_precision}")
+    print(f"  vocoder bf16 (K2's bf16 mode, reported) vs f32 (K2's f32 mode), PCM16 LSB, random "
+          f"weights: {vocoder_precision}")
+    del h_bf
 
     # the parts of forward_infer_fast around the decode loop, eager; the
     # encoder also as it ran before the bf16 repair
@@ -3922,7 +4253,8 @@ def say_phase(cfg_path: str, log: dict, card: str):
     print(f"  decode {perf['decode_us_per_step']:.1f} us/step, vocoder "
           f"{perf['vocoder_us_per_frame']:.1f} us/frame, say {perf['say_s']:.3f} s for "
           f"{perf['audio_s']:.2f} s of audio (RTF {perf['rtf']:.4f}) on {card}")
-    log["say"] = {"run": res, "stop": stop, "perf": perf, "vocoder_precision": vocoder_precision}
+    log["say"] = {"run": res, "stop": stop, "perf": perf, "vocoder_precision": vocoder_precision,
+                  "f32_vocode_vs_plain": f32_vocode}
     return launches, g_path, ckpt["run"]
 
 
@@ -3950,7 +4282,7 @@ def say_int8_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) 
     decoder_loop.reset_launches()
     mrf.reset_launches()
     res = say()
-    launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES}
+    launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES, **mrf.F32_LAUNCHES}
     print(f"  say --quantize-int8 256: {res}")
     print(f"  launches in that run: {launches}")
     if res["n_frames"] != 256:
@@ -3960,7 +4292,7 @@ def say_int8_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) 
     if any(launches[k] != v for k, v in want.items()):
         raise SmokeFailure(f"int8 say: launches {[launches[k] for k in want]}, want {want}")
     for k, n in launches.items():
-        if n == 0 and k != "lstm_cell":
+        if n == 0 and k != "lstm_cell" and k not in mrf.LAUNCHES:
             raise SmokeFailure(f"kernel {k} was not launched on the int8 say path")
     wav, _ = read_wav(out)
     if len(wav) != res["cut"] * 256 or not np.isfinite(wav).all():
@@ -4110,14 +4442,16 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
             calls[model] = calls.get(model, 0) + waves[key]["decode_launches"]
             if key == "bf16_16":
                 payloads, replies = rest
-        launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES,
+        launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES, **mrf.F32_LAUNCHES,
                     "bilstm_forward": encoder_lstm.LAUNCHES["bilstm_forward"]}
         packs = hifigan_mod.PACK_CALLS[0] - packs0
         print(f"  launches in the waves: {launches}; HiFi-GAN weight packings: {packs}")
         want = {"lstm_cell": 2 * 256 * calls[0], "lstm_cell_int8": 2 * 256 * calls[1],
                 "quantize_xh": 2 * 256 * calls[1]}
-        if any(launches[k] != v for k, v in want.items()) or 0 in launches.values():
-            raise SmokeFailure(f"serve launches {launches}, want {want} and every kernel")
+        if any(launches[k] != v for k, v in want.items()) or any(
+                n == 0 for k, n in launches.items() if k not in mrf.LAUNCHES):
+            raise SmokeFailure(f"serve launches {launches}, want {want} and every kernel "
+                               "(K2 in its f32 mode)")
         check_vocode_launches(launches, sum(calls.values()), "serve waves")
         if packs != 0:
             raise SmokeFailure(f"the warm server packed the HiFi-GAN's weights {packs} times "
@@ -4203,7 +4537,7 @@ def say_controls_phase(g_path: str, log: dict, card: str) -> tuple:
         decoder_loop.reset_launches()
         mrf.reset_launches()
         res = say(quant)
-        launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES}
+        launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES, **mrf.F32_LAUNCHES}
         ctl = dict(decoder_loop.CONTROLS_LAUNCHES)
         print(f"  say --speaker-id {CTL_SPEAKER} --controls {CTL_VALUES}"
               f"{' --quantize-int8' if quant else ''}: {res}")
@@ -4426,28 +4760,64 @@ def serve_split(registry) -> dict:
     return split
 
 
+def serve_k2_check(hifigan, m, log: dict, tag: str) -> None:
+    """K2 on ``hifigan``'s route (``HiFiGAN.apply``) from the window's mel
+    ``m``, each call against its plain version on the same operand:
+    ``conv_pre``, every upsample and every whole stage, and each mean's
+    operand against ``operand`` of the f32 mean bit for bit. An F32
+    generator (the served vocoder) runs K2's f32 mode, held to K2F_TOL of
+    each output's max; a bf16 one K2's bf16 mode, to K2_TOL and
+    ``conv_pre_check``."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import mrf
+
+    kw = hifigan.kernel_weights()
+    dt = kw[0][1].w.dtype
+    f32 = dt == torch.float32
+    tol, own, sfx = (K2F_TOL, True, "_f32") if f32 else (K2_TOL, False, "")
+    if f32:
+        cwp = hifigan.conv_pre_weights()
+        a = mrf.conv_pre(m.detach().contiguous(), cwp)
+        check(f"conv_pre_f32@{tag}", [("a", a, mrf.conv_pre_plain(m.detach(), cwp))],
+              tol, log, "conv_pre_f32", own=True)
+    else:
+        a = conv_pre_check(hifigan, m.detach(), log, tag)
+    for i, (rbs, ups) in enumerate(kw):
+        at = f"[{i}]@{tag}"
+        check(f"conv_transpose{sfx}{at}", [("out", mrf.conv_transpose(a, ups)[0],
+                                            mrf.conv_transpose_plain(a, ups)[0])],
+              tol, log, "conv_transpose" + sfx, own)
+        got = mrf.mrf_stage(None, rbs, ups, a)
+        check(f"mrf_stage{sfx}{at}", [("out", got, mrf.side_output_stage(None, rbs, ups, a))],
+              tol, log, stage_kernel(rbs), own)
+        if i < len(kw) - 1:  # the next stage's input, as the served vocode passes it
+            a = mrf.mrf_stage(None, rbs, ups, a, want_operand=True)
+            if not torch.equal(a, mrf.operand(got, dt)):
+                raise SmokeFailure(f"mrf_stage{sfx}{at}: the mean's operand differs from the "
+                                   "operand of the f32 mean")
+        del got
+
+
 def serve_checks(registry, log: dict) -> dict:
     """The kernels at the windows' own shapes against their plain versions,
     on the served models' packs: a 4-step chunk (K1 for the bf16 entry at 16
     and 64 rows, K5 for the int8 entry at 16) over the waves' char lengths
     padded to the 128 bucket, so the kernels' later row groups are held too;
-    then K2 at 16 and 64 rows of a decode of the waves' texts, on the served
-    vocoder's route (``HiFiGAN.apply``: stage 1's operand by ``conv_pre``,
-    each later stage's from the mean's operand that the stage before
-    wrote): ``conv_pre`` (``conv_pre_check``), every stage and its upsample
-    against their plain versions on the same operand, and each mean's
-    operand against ``operand`` of the f32 mean bit for bit. -> the PCM16
-    difference of the batched ``cut_vocode`` from its plain reference route
-    (reported)."""
+    then K2 at 16 and 64 rows of a decode of the waves' texts
+    (``serve_k2_check``), on the served F32 vocoder (K2's f32 mode) and on a
+    bf16 generator of the same weights (K2's bf16 mode). -> the PCM16
+    difference of the served vocoder's batched ``cut_vocode`` from its plain
+    reference route (reported)."""
     import torch
 
-    from tacotron2_tpu_torch.models import layers
-    from tacotron2_tpu_torch.ops import mrf
+    from tacotron2_tpu_torch.models.hifigan import HiFiGAN
+    from tacotron2_tpu_torch.models.layers import Policy
     from tacotron2_tpu_torch.run import server as srv
     from tacotron2_tpu_torch.run.say import cut_vocode, vocode_bucket
     from tacotron2_tpu_torch.text import CharEncoder, normalize_text
 
-    pcm = {}
+    pcm, h_bf = {}, None
     for idx, B in ((0, 16), (1, 16), (0, 64)):
         cfg, model, hifigan, packed, *_ = registry.load(idx)
         prep = cfg.dataset.preprocessing
@@ -4474,23 +4844,11 @@ def serve_checks(registry, log: dict) -> dict:
         # cut_vocode's input: the rows cut at 255 frames in a bucket of Tb
         m = torch.nn.functional.pad(mels[:, :Tb], (0, 0, 0, max(0, Tb - mels.shape[1])))
         m = m * (torch.arange(Tb, device=dev) < 255)[None, :, None]
-        kw = hifigan.kernel_weights()
-        dt = kw[0][1].w.dtype
-        a = conv_pre_check(hifigan, m.detach(), log, f"B{B}x{Tb}")
-        for i, (rbs, ups) in enumerate(kw):
-            tag = f"[{i}]@B{B}x{Tb}"
-            check(f"conv_transpose{tag}", [("out", mrf.conv_transpose(a, ups)[0],
-                                            mrf.conv_transpose_plain(a, ups)[0])],
-                  K2_TOL, log, "conv_transpose")
-            got = mrf.mrf_stage(None, rbs, ups, a)
-            check(f"mrf_stage{tag}", [("out", got, mrf.side_output_stage(None, rbs, ups, a))],
-                  K2_TOL, log, stage_kernel(rbs))
-            if i < len(kw) - 1:  # the next stage's input, as the served vocode passes it
-                a = mrf.mrf_stage(None, rbs, ups, a, want_operand=True)
-                if not torch.equal(a, mrf.operand(got, dt)):
-                    raise SmokeFailure(f"mrf_stage{tag}: the mean's operand differs from the "
-                                       "operand of the f32 mean")
-            del got
+        if h_bf is None:  # K2's bf16 mode on the served generator's weights
+            h_bf = HiFiGAN(hifigan.cfg, Policy(torch.bfloat16)).to(dev).eval()
+            h_bf.load_state_dict(hifigan.state_dict())
+        for gen in (hifigan, h_bf):  # the served F32 vocoder, then K2's bf16 mode
+            serve_k2_check(gen, m, log, f"B{B}x{Tb}")
         del m
         lsb = (cut_vocode(hifigan, mels, rows, cuts, Tb).long()
                - cut_vocode(hifigan, mels, rows, cuts, Tb, plain=True).long()).abs().float()
@@ -4693,7 +5051,7 @@ def eval_test(tag: str, cfg_file: Path, speech: Path, probe_ckpt: str, g_path: s
     from tacotron2_tpu_torch.ops import decoder_loop, encoder_lstm, mrf
     from tacotron2_tpu_torch.run import test as rt
     from tacotron2_tpu_torch.run.say import (cut_vocode, load_hifigan, load_tacotron,
-                                             vocode_bucket, vocoder_policy)
+                                             vocode_bucket)
     from tacotron2_tpu_torch.training.step import to_device
 
     cfg = load_config(str(cfg_file))
@@ -4731,7 +5089,7 @@ def eval_test(tag: str, cfg_file: Path, speech: Path, probe_ckpt: str, g_path: s
     finally:
         rt.cut_vocode = vocode
     k1, ctl, k2 = dict(decoder_loop.LAUNCHES), dict(decoder_loop.CONTROLS_LAUNCHES), \
-        dict(mrf.LAUNCHES)
+        {**mrf.LAUNCHES, **mrf.F32_LAUNCHES}
     enc = encoder_lstm.LAUNCHES["bilstm_forward"]
     lengths, batches = res["lengths"], res["batches"]
     fails = [i for i, n in enumerate(lengths) if n in (0, EVAL_MAX_LEN)]
@@ -4764,7 +5122,7 @@ def eval_test(tag: str, cfg_file: Path, speech: Path, probe_ckpt: str, g_path: s
         raise SmokeFailure(f"test{tag}: {len(calls)} vocodes, {enc} bilstm_forward launches "
                            f"for {len(batches)} batches")
 
-    hifigan = load_hifigan(g_path, vocoder_policy(dev), dev)
+    hifigan = load_hifigan(g_path, dev)
     starts = np.cumsum([0] + [b["rows"] for b in batches])
     vocoded = [s for s, b in zip(starts, batches) if b["vocoded"]]
     for start, (mels, idx, cuts) in zip(vocoded, calls):
@@ -6091,7 +6449,7 @@ def desc_say_part(root: Path, bert_pt: str, g_path: str, log: dict, card: str) -
         dl.reset_launches()
         mrf.reset_launches()
         res = say(quant)
-        got = {**dl.LAUNCHES, **mrf.LAUNCHES}
+        got = {**dl.LAUNCHES, **mrf.LAUNCHES, **mrf.F32_LAUNCHES}
         cell, other = ("lstm_cell_int8", "lstm_cell") if quant else ("lstm_cell", "lstm_cell_int8")
         want = {"prenet": 256, cell: 512, other: 0, "location_attention": 256, "heads": 256,
                 "quantize_xh": 512 if quant else 0}
@@ -6294,7 +6652,8 @@ def correlation_part(ctl: dict, g_path: str, root: Path, log: dict, card: str,
                    str(ctl["speech"]), "--checkpoint", ckpt, "--hifi-gan-checkpoint", g_path,
                    "--results-dir", str(root / "tc"), "--max-len-override", str(TC_MAX_LEN)])
     seconds = time.perf_counter() - t0
-    k1, ctl_l, k2 = dict(dl.LAUNCHES), dict(dl.CONTROLS_LAUNCHES), dict(mrf.LAUNCHES)
+    k1, ctl_l, k2 = dict(dl.LAUNCHES), dict(dl.CONTROLS_LAUNCHES), \
+        {**mrf.LAUNCHES, **mrf.F32_LAUNCHES}
     enc = encoder_lstm.LAUNCHES["bilstm_forward"]
     got_n = np.array([res["overrides"][o]["lengths"] for o in overrides])
     if not np.array_equal(got_n, want):
@@ -6653,7 +7012,7 @@ def gst_say_part(root: Path, g_path: str, log: dict, card: str) -> tuple:
                 res = say(quant, with_ref)
             finally:
                 restore()
-            got = {**dl.LAUNCHES, **mrf.LAUNCHES, **el.LAUNCHES}
+            got = {**dl.LAUNCHES, **mrf.LAUNCHES, **mrf.F32_LAUNCHES, **el.LAUNCHES}
             cell, other = (("lstm_cell_int8", "lstm_cell") if quant
                            else ("lstm_cell", "lstm_cell_int8"))
             want = {"prenet": 256, cell: 512, other: 0, "location_attention": 256, "heads": 256,
@@ -7802,7 +8161,7 @@ def mesh_serve_part(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str)
             n_calls = srv.BATCH_CALLS[0] - calls0
             if any(st != 200 for st, _, _ in replies):
                 raise SmokeFailure(f"4k (a) {key} wave: {[(st, b) for st, b, _ in replies][:2]}")
-            wave_launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES,
+            wave_launches = {**decoder_loop.LAUNCHES, **mrf.LAUNCHES, **mrf.F32_LAUNCHES,
                              "bilstm_forward": encoder_lstm.LAUNCHES["bilstm_forward"]}
             for k, v in wave_launches.items():
                 launches[k] = launches.get(k, 0) + v
@@ -7816,7 +8175,7 @@ def mesh_serve_part(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str)
                 if got != want or x["decodes"] < 1:
                     raise SmokeFailure(f"4k (a) {key}: shard {s} launched {got}, want {want} "
                                        f"({x})")
-                check_vocode_launches({k: x["launches"].get(k, 0) for k in mrf.LAUNCHES},
+                check_vocode_launches({k: x["launches"].get(k, 0) for k in k2_launch_keys()},
                                       x["decodes"], f"4k (a) {key} shard {s}")
             if wave_launches[cell] != sum(2 * x["steps"] for x in per[key]):
                 raise SmokeFailure(f"4k (a) {key}: launches {wave_launches} outside the shards")
@@ -7844,8 +8203,8 @@ def mesh_serve_part(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str)
                               f"{cell} {x['launches'].get(cell, 0)}"
                               + (f", quantize_xh {x['launches'].get('quantize_xh', 0)}"
                                  if model else "")
-                              + f", K2 mrf_conv {x['launches'].get('mrf_conv', 0)} / mrf_pair "
-                              f"{x['launches'].get('mrf_pair', 0)}"
+                              + f", K2 mrf_conv_f32 {x['launches'].get('mrf_conv_f32', 0)} / "
+                              f"mrf_pair_f32 {x['launches'].get('mrf_pair_f32', 0)}"
                               for s, x in enumerate(per[key]))
                   + f"; every request against the meshless server alone: max {max(lsb):g} PCM16 "
                   f"LSB (limit {MESH_LSB}); on {card}")
@@ -8297,6 +8656,13 @@ def main() -> int:
         return mesh_mode()
     log: dict = {}
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(name: str) -> None:  # seconds since the last lap, into log["phase_s"]
+        now = time.perf_counter()
+        log.setdefault("phase_s", {})[name] = now - t_lap[0]
+        t_lap[0] = now
+
     try:
         card = card_line()
         print(f"[1] card: {card}")
@@ -8310,8 +8676,8 @@ def main() -> int:
 
         from tacotron2_tpu_torch.config import load_config
         from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
+        from tacotron2_tpu_torch.models.layers import F32, Policy
         from tacotron2_tpu_torch.ops import build
-        from tacotron2_tpu_torch.run.say import vocoder_policy
         from tacotron2_tpu_torch.text import normalize_text
 
         t0 = time.perf_counter()
@@ -8319,16 +8685,33 @@ def main() -> int:
         log["build_s"] = time.perf_counter() - t0
         log["ptxas"] = logs
         print(f"[2] built {list(logs)} in {log['build_s']:.1f} s")
+        lap("1-2 build")
         log["ptxas_kernels"] = {name: ptxas_kernels(text) for name, text in logs.items()}
         for name, kernels in log["ptxas_kernels"].items():
             for k, v in kernels.items():
                 print(f"    {name}: {k}: {v['registers']} registers, {v['smem']} bytes static "
                       f"smem, stack frame {v['stack']} bytes, spills {v['spill_stores']} / "
                       f"{v['spill_loads']} bytes")
+        if "--k2-f32" in sys.argv[1:]:
+            torch.manual_seed(SEED + 1)
+            h32 = HiFiGAN(HiFiGANConfig.from_dict(UNIVERSAL_V1), F32).cuda().eval()
+            Tb = -(-(255 + h32.mel_receptive_field()) // 128) * 128  # the say's bucket
+            print(f"[k2-f32] K2's f32 mode on {card}")
+            try:
+                k2_f32_reference(Tb, log)
+                rows = k2_f32_phase(h32, Tb, log)
+            finally:
+                OUT_DIR.mkdir(exist_ok=True)
+                (OUT_DIR / "k2_f32.json").write_text(json.dumps({"card": card, **log}, indent=1,
+                                                                default=str))
+            print(json.dumps({"kernels": [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                                                             "library_ms", "rows")}
+                                          for r in rows]}))
+            return 0
         if "--k2-ab" in sys.argv[1:]:
             torch.manual_seed(SEED + 1)
             hifigan = HiFiGAN(HiFiGANConfig.from_dict(UNIVERSAL_V1),
-                              vocoder_policy(torch.device("cuda"))).cuda().eval()
+                              Policy(torch.bfloat16)).cuda().eval()  # K2's bf16 mode
             Tb = -(-(255 + hifigan.mel_receptive_field()) // 128) * 128  # the say's bucket
             print(f"[k2-ab] K2's design A/B on {card}")
             OUT_DIR.mkdir(exist_ok=True)
@@ -8343,7 +8726,7 @@ def main() -> int:
         model = random_tacotron(cfg, 10.0).cuda()
         torch.manual_seed(SEED + 1)
         hifigan = HiFiGAN(HiFiGANConfig.from_dict(UNIVERSAL_V1),
-                          vocoder_policy(torch.device("cuda"))).cuda().eval()
+                          Policy(torch.bfloat16)).cuda().eval()  # K2's bf16 mode
         Tb = -(-(255 + hifigan.mel_receptive_field()) // 128) * 128  # the say's bucket
         print(f"[3] kernels against their plain versions (flagship dims, B=1, L={chars})")
         cells = cell_rows(model, log)
@@ -8353,8 +8736,10 @@ def main() -> int:
         print(f"[3c] K1's and K5's controls mode ({CTL_CONFIG}, full width) against their "
               "plain versions at 1, 16 and 64 rows")
         rows += controls_phase(model, chars, log)
+        lap("3 K1 K5 3c")
         print(f"[3] where a serve window's decode goes (16 and 64 rows, L={SERVE_L})")
         serve_rows_split(model, cfg, log)
+        lap("3 serve split")
         for frames in (64, Tb):  # 64 frames, then the say's own bucket
             k2_phase(hifigan, log, frames)
         rows += k2_timing(hifigan, Tb)
@@ -8381,47 +8766,64 @@ def main() -> int:
                   + ", ".join(f"{n} {v['ms']:.3f}" for n, v in r["per_kernel"].items())
                   + f"), bound {r['bound_ms']:.3f} ms, library f32 {r['library_ms']:.3f} ms, "
                   f"bf16 {r['library_bf16_ms']:.3f} ms on {card}")
+        lap("3 K2 bf16")
+        print(f"[3f] K2's f32 mode (csrc/mrf_f32.cu, the commands' vocoder): the kernel against "
+              f"its plain version at {list(K2F_ROWS)} rows, Tb={Tb}")
+        torch.manual_seed(SEED + 1)  # the bf16 generator's weights
+        h32 = HiFiGAN(HiFiGANConfig.from_dict(UNIVERSAL_V1), F32).cuda().eval()
+        rows += k2_f32_phase(h32, Tb, log)
+        del h32
+        torch.cuda.empty_cache()
+        lap("3f K2 f32")
         print(f"[3b] K3 and K4 against their plain versions (B={TRAIN_B}, L={TRAIN_L}, "
               f"T={TRAIN_T})")
         rows += k34_phase(model, log)
         print(f"[3d] K3 and K4 in the controls mode ({CTL_CONFIG}, full width) against their "
               "plain versions at B=64 / 32 / 5, the defects, and against the vanilla in turns")
         rows += k34_controls_phase(model, log)
+        lap("3b 3d K3 K4")
         rows += encoder_lstm_phase(model, cfg, log)
         print("[3e] deliberate defects of the heads and the encoder's forward and backward "
               "(source copies)")
         defect_phase(model, cfg, log)
         del model, hifigan
+        lap("3 encoder 3e")
 
         print("[4] say through the CLI entry (random full-width weights)")
         launches, g_path, ckpt = say_phase(cfg_path, log, card)
         k5_launches = say_int8_phase(cfg_path, ckpt, g_path, log, card)
+        lap("4 say")
         print("[4b] train through the CLI entry (vanilla full width, batch 32, 6 steps, "
               "resumed to 8)")
         train_launches, van_run = train_phase(cfg_path, g_path, log, card)
         for k, n in train_launches.items():
             launches[k] = launches.get(k, 0) + n
+        lap("4b train")
         print("[4c] the warm server in this process (a bf16 and an int8 entry), then as a "
               "process of its own")
         launches.update(k5_launches)
         for k, n in serve_phase(cfg_path, ckpt, g_path, log, card).items():
             launches[k] = launches.get(k, 0) + n
+        lap("4c serve")
         print(f"[4d] the controllable, multi-speaker path ({CTL_CONFIG}): say --speaker-id "
               "--controls (bf16 and int8), then the warm server with a bf16 and an int8 entry")
         ctl_ckpt, ctl_launches = say_controls_phase(g_path, log, card)
         for k, n in serve_controls_phase(ctl_ckpt, g_path, log, card).items():
             ctl_launches[k] += n
         launches.update(ctl_launches)
+        lap("4d controls")
         print(f"[4e] train the controllable, multi-speaker config ({CTL_CONFIG}) through the "
               f"CLI entry: batch {CTL_TRAIN_B}, 6 steps, resumed to 8, then its say")
         ctl_train_launches, ctl_run = train_controls_phase(g_path, log, card)
         launches.update(ctl_train_launches)
+        lap("4e train controls")
         print("[4f] from raw corpora to test-set audio through the CLI: preprocess (WAV and "
               "FLAC), the splits, test, train_mel_export and say --export-mel")
         eval_launches, k3_export, lj_hifi = eval_phase(
             cfg_path, str(ROOT / "config" / CTL_CONFIG), ckpt, ctl_ckpt, g_path, log, card)
         for k, n in eval_launches.items():
             launches[k] = launches.get(k, 0) + n
+        lap("4f eval")
         print(f"[4g] finetuning (vanilla B={2 * TRAIN_B} under the trace, controllable "
               f"B={2 * CTL_TRAIN_B}), the background save, TensorBoard, train_prosody and the "
               f"style-loss phase ({STYLE_CONFIG}) through the CLI")
@@ -8429,30 +8831,37 @@ def main() -> int:
                                                             log, card)
         for k, n in extra_launches.items():
             launches[k] = launches.get(k, 0) + n
+        lap("4g train extras")
         print(f"[4h] description-conditioned speech ({DESC_CONFIG}, D = 640): BERT and "
               "embed_descriptions, train and train --finetune, say --description "
               "--bert-checkpoint, then test_correlation of 4e's checkpoint, through the CLI")
         desc_launches, desc_readings = descriptions_phase(ctl_run, g_path, log, card)
         for k, n in desc_launches.items():
             launches[k] = launches.get(k, 0) + n
+        lap("4h descriptions")
         print(f"[4i] Global Style Tokens ({GST_BASE} with extensions.gst, D = 768): train and "
               "train --finetune, say --gst-reference (bf16 and int8), the server, test, "
               "train_mel_export and test_correlation, through the CLI")
         gst_launches, gst_readings = gst_phase(ctl_run, g_path, log, card)
         for k, n in gst_launches.items():
             launches[k] = launches.get(k, 0) + n
+        lap("4i gst")
         print(f"[4j] data-parallel train ({DP_RANKS} gloo ranks sharing the card against one "
               f"process at B={TRAIN_B} and, {CTL_CONFIG}, B={CTL_TRAIN_B}), train as one NCCL "
               "rank under torchrun's environment, and the device prefetcher on and off")
         dp_launches, dp_readings = dp_phase(van_run, ctl_run, log, card)
         for k, n in dp_launches.items():
             launches[k] = launches.get(k, 0) + n
+        lap("4j dp")
         print(f"[4k] the server's data mesh ({{'data': 2}} on {list(MESH_SHARDS)}: a bf16 and an "
               f"int8 wave of {MESH_WAVE}), tensor-parallel train ({TP_GRID[0]} x {TP_GRID[1]} "
               f"gloo ranks sharing the card against one process's K3 / K4 step at B={TRAIN_B}) "
               "and the device mel backend")
         for k, n in mesh_phase(cfg_path, ckpt, van_run, g_path, log, card).items():
             launches[k] = launches.get(k, 0) + n
+        lap("4k mesh")
+        print("    seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                  log["phase_s"].items()))
         for r in rows:
             if r["name"] == "teacher_forward":
                 r["export"] = k3_export

@@ -103,9 +103,10 @@ class HiFiGAN(nn.Module):
         return int(math.ceil(rf)) + 1
 
     def kernel_weights(self):
-        """Per stage: (resblock weights, upsample weights) in the kernels'
-        layouts (``mrf_conv``'s tiled copies included) and the policy's
-        compute type; ``conv_pre``'s (``conv_pre_weights``) in the same
+        """Per stage: (resblock weights, upsample weights) in the layouts of
+        the kernel of the policy's compute type (bf16: ``csrc/mrf.cu``; f32,
+        the default and the JAX package's: ``csrc/mrf_f32.cu``), tiled
+        copies included; ``conv_pre``'s (``conv_pre_weights``) in the same
         packing. Packed at the first call and kept: a model moved to
         another device or given new weights packs again."""
         if self._packed is None:
@@ -138,10 +139,11 @@ class HiFiGAN(nn.Module):
     def apply(self, mel: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """mel (B, T, num_mels) -> wav (B, T * total_upsample). ``conv_pre``
         and ``conv_post`` round their f32 sums to the compute type before the
-        bias, as JAX's ``conv1d_apply`` emits the policy's type. The kernels'
-        route: ``conv_pre`` (``mrf_conv``'s kernel) writes only stage 1's
-        upsample operand, and each MRF stage (``mrf_stage``) passes its
-        output to the next upsample as its bf16 operand alone; ``plain``: the
+        bias, as JAX's ``conv1d_apply`` emits the policy's type (the identity
+        under F32). The kernels' route, under either policy: ``conv_pre``
+        (``mrf_conv``'s kernel) writes only stage 1's upsample operand, and
+        each MRF stage (``mrf_stage``) passes its output to the next upsample
+        as its operand alone (bf16, or f32 under F32); ``plain``: the
         plain reference route instead, ``conv_pre`` in PyTorch and each stage
         computed from its f32 input by ``plain_stage`` (on any device)."""
         pol = self.policy

@@ -1,6 +1,6 @@
 """HiFi-GAN MRF stage: kernel K2 (a dilated-conv kernel, which also runs
-the upsample and the vocoder's ``conv_pre``, ``csrc/mrf.cu``) and its plain
-version.
+the upsample and the vocoder's ``conv_pre``: ``csrc/mrf.cu`` on bf16
+operands, ``csrc/mrf_f32.cu`` on f32 ones) and its plain version.
 
 Replaces the TPU kernels of ``tacotron2_tpu/ops/mrf_pallas.py``:
 ``_make_stage_kernel`` (the MRF alone, via ``_mrf_stage_call``),
@@ -16,18 +16,21 @@ What bounds it on this card. The function -- a whole stage, reading its
 input once and writing its output once -- is bound by operations: a
 UNIVERSAL_V1 vocode does 18 convs of 2*k*C*C flops per output sample in
 each of its four stages, about 0.6 GFLOP per mel frame (~0.6 us/frame at
-989 TFLOP/s bf16). This design runs one launch per conv, so every conv
-also reads and writes its activations in device memory: that traffic is
+989 TFLOP/s bf16; at f32 ~9 us/frame on the CUDA cores' 67 TFLOP/s, or
+~3.6 us/frame as a three-pass TF32 split at 495 TFLOP/s). This design runs
+one launch per conv, so every conv also reads and writes its activations
+in device memory: that traffic is
 the cost of the design, not part of the bound (``chip_smoke.py`` reports
 both). A stage-fused kernel that keeps the activations on chip is the
 redesign that removes it.
 
-The design. A conv's input reaches it only through its prologue
-``bf16(lrelu(x))``, so every producer writes that bf16 operand for the
-next conv (``act``) and f32 only where f32 is read: the residual stream
-``z`` (the residual add and the stage mean) and the stage mean itself. The
-intermediate of a ResBlock1 pair is written as its operand alone, and the
-last conv of a resblock writes only the stage mean. This is exact: the
+The design (bf16; the f32 mode below keeps its dataflow). A conv's input
+reaches it only through its prologue ``bf16(lrelu(x))``, so every producer
+writes that bf16 operand for the next conv (``act``) and f32 only where
+f32 is read: the residual stream ``z`` (the residual add and the stage
+mean) and the stage mean itself. The intermediate of a ResBlock1 pair is
+written as its operand alone, and the last conv of a resblock writes only
+the stage mean. This is exact: the
 operand is what the next conv's prologue would compute (``plain_stage``
 and ``side_output_stage`` agree bit for bit).
 
@@ -67,6 +70,16 @@ the vocoder writes and reads no f32 activation before stage 1. Its 80 mel
 channels are not a multiple of the staged slice: the last slice reaches
 past them, where the tensor map reads zeros and the tiled copy is zero.
 
+The f32 mode (``csrc/mrf_f32.cu``) is the TPU kernels' ``bf16=False``,
+the JAX package's vocoder precision (its HiFi-GAN's default policy is
+F32): the same entries on f32 operands and weights, f32 products and f32
+sums, an implicit GEMM on the CUDA cores (a block stages each 16-channel
+slice of the operand with its halo and that slice's weights of every tap,
+each thread sums an 8 x 8 tile with FFMA, each output's sum in one
+(slice, tap, channel) order). The weights' type picks the mode: an f32
+``ConvWeights`` carries the f32 kernel's tiled copy (``tile_conv``), and
+its launches count in ``F32_LAUNCHES`` as ``<entry>_f32``.
+
 Each wrapper runs its plain PyTorch version for CPU tensors only; a CUDA
 tensor launches the kernel or raises.
 """
@@ -84,11 +97,14 @@ from tacotron2_tpu_torch.ops import build
 
 LRELU_SLOPE = 0.1
 LAUNCHES = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0, "conv_pre": 0}
+# the f32 kernels' (``csrc/mrf_f32.cu``), beside the bf16 ones
+F32_LAUNCHES = {k + "_f32": 0 for k in LAUNCHES}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, F32_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 class ConvWeights(NamedTuple):
@@ -113,22 +129,31 @@ class UpsampleWeights(NamedTuple):
 ResBlockWeights = List[Tuple[ConvWeights, Optional[ConvWeights]]]
 
 
-def conv_tiles(Co: int, Ci: int) -> Tuple[int, int]:
-    """(NI, KC) of ``mrf_conv``'s weight copy: output channels per N tile
-    (128, 64 or 32; a block's wgmma takes the tile or, where the grid is
-    small, half of it) and input channels per staged slice (64 or 32; the
-    last slice reaches past Ci where KC does not divide it, the copy zero
-    there). The kernel takes Co a multiple of 32 and Ci a multiple of 8
-    (the operand's rows whole 16-byte pieces, as TMA reads them)."""
+F32_KC = 16  # input channels a staged slice of the f32 kernel (``kKC``)
+
+
+def conv_tiles(Co: int, Ci: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
+    """(NI, KC) of the weight copy of ``mrf_conv``'s kernel for weights of
+    ``dtype``: output channels per N tile (128, 64 or 32 by Co) and input
+    channels per staged slice (the last slice reaches past Ci where KC does
+    not divide it, the copy zero there). bf16: a block's wgmma takes the N
+    tile or, where the grid is small, half of it; slices of 64 or 32. f32:
+    a block takes the N tile; slices of ``F32_KC``. Both kernels take Co a
+    multiple of 32 and Ci a multiple of 8 (the bf16 operand's rows whole
+    16-byte pieces, as TMA reads them)."""
     if not conv_takes(Co, Ci):
         raise ValueError(f"mrf_conv takes Co a multiple of 32 and Ci a multiple of 8, got "
                          f"Co={Co}, Ci={Ci}")
-    return (128 if Co % 128 == 0 else 64 if Co % 64 == 0 else 32), (64 if Ci % 64 == 0 else 32)
+    NI = 128 if Co % 128 == 0 else 64 if Co % 64 == 0 else 32
+    if dtype == torch.float32:
+        return NI, F32_KC
+    return NI, (64 if Ci % 64 == 0 else 32)
 
 
 def conv_takes(Co: int, Ci: int) -> bool:
-    """Whether ``mrf_conv``'s kernel takes these channels: Co a multiple of
-    32, Ci of 8 (the rule in ``csrc/mrf.cu::conv_plan``)."""
+    """Whether ``mrf_conv``'s kernels take these channels: Co a multiple of
+    32, Ci of 8 (the rule in ``csrc/mrf.cu::conv_plan`` and
+    ``csrc/mrf_f32.cu::launch_mrf_f32``)."""
     return Co % 32 == 0 and Ci % 8 == 0 and Ci >= 8
 
 
@@ -137,37 +162,44 @@ def slices(Ci: int, KC: int) -> int:
     return -(-Ci // KC)
 
 
-def tile_offset(j, co, ci, K: int, Co: int, Ci: int):
-    """Element offset of w[j, co, ci] in ``tile_conv``'s copy, as the kernel
-    addresses it (ints, or integer tensors that broadcast): N tile co // NI,
-    slice ci // KC, tap j, then the tile (NI x KC) as 8-channel groups of
-    rows of 8, [KC / 8][NI][8] (the no-swizzle core-matrix layout of a
-    K-major wgmma operand)."""
-    NI, KC = conv_tiles(Co, Ci)
+def tile_offset(j, co, ci, K: int, Co: int, Ci: int, dtype: torch.dtype = torch.bfloat16):
+    """Element offset of w[j, co, ci] in ``tile_conv``'s copy of weights of
+    ``dtype``, as the kernel addresses it (ints, or integer tensors that
+    broadcast): N tile co // NI, slice ci // KC, tap j, then the tile (NI x
+    KC). bf16: as 8-channel groups of rows of 8, [KC / 8][NI][8] (the
+    no-swizzle core-matrix layout of a K-major wgmma operand). f32:
+    channel-major, [KC][NI] (a thread's 4 channels one 16-byte load)."""
+    NI, KC = conv_tiles(Co, Ci, dtype)
     tile = ((co // NI) * slices(Ci, KC) + ci // KC) * K + j
+    if dtype == torch.float32:
+        return tile * NI * KC + (ci % KC) * NI + co % NI
     return tile * NI * KC + ((ci % KC) // 8) * NI * 8 + (co % NI) * 8 + ci % 8
 
 
 def tile_conv(w: torch.Tensor) -> torch.Tensor:
-    """(K, Co, Ci) tap-major weights -> the kernel's tiled copy, shape
-    (Co / NI, ceil(Ci / KC), K, KC / 8, NI, 8) (``tile_offset``): one
-    contiguous NI x KC tile per (N tile, slice, tap), each one bulk copy;
-    zero past Ci in the last slice."""
+    """(K, Co, Ci) tap-major weights -> the tiled copy of the kernel of
+    their type (``tile_offset``): one contiguous NI x KC tile per (N tile,
+    slice, tap), zero past Ci in the last slice; shape (Co / NI, ceil(Ci /
+    KC), K, KC / 8, NI, 8) for bf16 (one bulk copy a tile) and (Co / NI,
+    ceil(Ci / KC), K, KC, NI) for f32 (a slice's taps one run)."""
     K, Co, Ci = w.shape
-    NI, KC = conv_tiles(Co, Ci)
+    NI, KC = conv_tiles(Co, Ci, w.dtype)
     ns = slices(Ci, KC)
     w = F.pad(w, (0, ns * KC - Ci))
+    if w.dtype == torch.float32:
+        return w.reshape(K, Co // NI, NI, ns, KC).permute(1, 3, 0, 4, 2).contiguous()
     t = w.reshape(K, Co // NI, NI, ns, KC // 8, 8)  # (j, nt, co, s, g, e)
     return t.permute(1, 3, 0, 4, 2, 5).contiguous()
 
 
 def read_tiled(wt: torch.Tensor, K: int, Co: int, Ci: int) -> torch.Tensor:
     """The (K, Co, Ci) weights back from a tiled copy, every element read at
-    its ``tile_offset`` (the plain reader of the kernel's layout)."""
+    its ``tile_offset`` for the copy's type (the plain reader of the
+    kernels' layouts)."""
     j = torch.arange(K)[:, None, None]
     co = torch.arange(Co)[None, :, None]
     ci = torch.arange(Ci)[None, None, :]
-    return wt.reshape(-1)[tile_offset(j, co, ci, K, Co, Ci)]
+    return wt.reshape(-1)[tile_offset(j, co, ci, K, Co, Ci, wt.dtype)]
 
 
 def pack_conv(conv, dtype: torch.dtype) -> ConvWeights:
@@ -304,15 +336,18 @@ def conv_pre_plain(a, cw: ConvWeights):
 # ---------------------------------------------------------------------------
 
 _LIB = None
+_LIB_F32 = None
 P = ctypes.c_void_p
 I = ctypes.c_int
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry points of a loaded build of ``csrc/mrf.cu``."""
-    lib.t2_mrf_conv.argtypes = [P] * 8 + [I] * 7 + [ctypes.c_float, P]
-    lib.t2_mrf_pair.argtypes = [P] * 10 + [I] * 6 + [ctypes.c_float, P]
-    for fn in (lib.t2_mrf_conv, lib.t2_mrf_pair):
+def bind(lib: ctypes.CDLL, suffix: str = "") -> ctypes.CDLL:
+    """Declare the C entry points of a loaded build of ``csrc/mrf.cu`` (or,
+    with ``suffix`` "_f32", of ``csrc/mrf_f32.cu``: the same interface)."""
+    conv, pair = getattr(lib, "t2_mrf_conv" + suffix), getattr(lib, "t2_mrf_pair" + suffix)
+    conv.argtypes = [P] * 8 + [I] * 7 + [ctypes.c_float, P]
+    pair.argtypes = [P] * 10 + [I] * 6 + [ctypes.c_float, P]
+    for fn in (conv, pair):
         fn.restype = I
     return lib
 
@@ -324,34 +359,51 @@ def _lib():
     return _LIB
 
 
+def _lib_f32():
+    global _LIB_F32
+    if _LIB_F32 is None:
+        _LIB_F32 = bind(build.load("mrf_f32"), "_f32")
+    return _LIB_F32
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
 def _require_conv(cw: ConvWeights, Ci: int, name: str):
+    """The weights' tiled copy in the layout of the kernel of their type
+    (bf16 or f32), and the f32 bias."""
     K, Co, _ = cw.w.shape
+    dt = cw.w.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: the kernels take bf16 or f32 weights, got {dt}")
     if cw.wt is None:
         raise ValueError(f"{name}: the weights have no tiled copy (pack_conv, tile_conv)")
-    NI, KC = conv_tiles(Co, Ci)
-    build.require(cw.wt, torch.bfloat16, (Co // NI, slices(Ci, KC), K, KC // 8, NI, 8),
-                  f"{name}.wt")
+    NI, KC = conv_tiles(Co, Ci, dt)
+    tile = (KC, NI) if dt == torch.float32 else (KC // 8, NI, 8)
+    build.require(cw.wt, dt, (Co // NI, slices(Ci, KC), K, *tile), f"{name}.wt")
     build.require(cw.b, torch.float32, (Co,), f"{name}.b")
 
 
 def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act=False,
                  round_sum=False):
     """``mrf_conv`` (c2 None; also ``conv_transpose``'s folded conv and
-    ``conv_pre``) or ``mrf_pair``: check, allocate, launch."""
+    ``conv_pre``) or ``mrf_pair``: check, allocate, launch; the weights'
+    type picks the kernel, bf16 (``csrc/mrf.cu``) or f32
+    (``csrc/mrf_f32.cu``, counted in ``F32_LAUNCHES``), and the operands'
+    type (``a``, ``act`` and an ``acc_act`` sum) is theirs."""
     B, T, Ci = a.shape
     K, Co, _ = c1.w.shape
-    bf = torch.bfloat16
-    build.require(a, bf, (B, T, Ci), "a")
+    dt = c1.w.dtype
+    build.require(a, dt, (B, T, Ci), "a")
     _require_conv(c1, Ci, name)
     if c2 is not None:
         if not pair_fusable(c1, c2):
             raise ValueError(f"mrf_pair takes a pair of (K, C, C) convs, C <= 128, the second "
                              f"of dilation 1: got {tuple(c1.w.shape)}, {tuple(c2.w.shape)}, "
                              f"dilation {c2.dilation}")
+        if c2.w.dtype != dt:
+            raise ValueError(f"mrf_pair: the convs' types differ, {dt} and {c2.w.dtype}")
         _require_conv(c2, Co, name)
     if res is not None:
         build.require(res, torch.float32, (B, T, Co), "res")
@@ -360,31 +412,37 @@ def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act
     if not (want_y or want_act or acc_scale != 0.0):
         raise ValueError(f"{name}: no output asked for")
     y = torch.empty(B, T, Co, device=a.device) if want_y else None
-    act = torch.empty(B, T, Co, device=a.device, dtype=bf) if want_act else None
-    acc_out = (torch.empty(B, T, Co, device=a.device, dtype=bf if acc_act else torch.float32)
+    act = torch.empty(B, T, Co, device=a.device, dtype=dt) if want_act else None
+    acc_out = (torch.empty(B, T, Co, device=a.device, dtype=dt if acc_act else torch.float32)
                if acc_scale != 0.0 else None)
     mode = 0 if acc_out is None else (1 if acc is None else 2) + (4 if acc_act else 0)
     mode += 8 if round_sum else 0
     ptr = lambda t: 0 if t is None else t.data_ptr()
     stream = _stream()
-    build.count(LAUNCHES, name)
-    if c2 is None:
-        err = _lib().t2_mrf_conv(a.data_ptr(), c1.wt.data_ptr(), c1.b.data_ptr(), ptr(res),
-                                 ptr(acc), ptr(acc_out), ptr(y), ptr(act), B, T, Ci, Co, K,
-                                 c1.dilation, mode, ctypes.c_float(acc_scale), stream)
+    if dt == torch.float32:
+        lib, counts, key = _lib_f32(), F32_LAUNCHES, name + "_f32"
+        conv, pair = lib.t2_mrf_conv_f32, lib.t2_mrf_pair_f32
     else:
-        err = _lib().t2_mrf_pair(a.data_ptr(), c1.wt.data_ptr(), c1.b.data_ptr(),
-                                 c2.wt.data_ptr(), c2.b.data_ptr(), ptr(res), ptr(acc),
-                                 ptr(acc_out), ptr(y), ptr(act), B, T, Ci, K, c1.dilation, mode,
-                                 ctypes.c_float(acc_scale), stream)
-    build.check(err, name)
+        lib, counts, key = _lib(), LAUNCHES, name
+        conv, pair = lib.t2_mrf_conv, lib.t2_mrf_pair
+    build.count(counts, key)
+    if c2 is None:
+        err = conv(a.data_ptr(), c1.wt.data_ptr(), c1.b.data_ptr(), ptr(res), ptr(acc),
+                   ptr(acc_out), ptr(y), ptr(act), B, T, Ci, Co, K, c1.dilation, mode,
+                   ctypes.c_float(acc_scale), stream)
+    else:
+        err = pair(a.data_ptr(), c1.wt.data_ptr(), c1.b.data_ptr(), c2.wt.data_ptr(),
+                   c2.b.data_ptr(), ptr(res), ptr(acc), ptr(acc_out), ptr(y), ptr(act), B, T,
+                   Ci, K, c1.dilation, mode, ctypes.c_float(acc_scale), stream)
+    build.check(err, key)
     return y, act, acc_out
 
 
 def mrf_conv(a, cw: ConvWeights, res=None, acc=None, acc_scale: float = 0.0,
              want_y: bool = True, want_act: bool = False, acc_act: bool = False):
-    """Dilated SAME conv of the bf16 operand ``a`` with the bias, residual,
-    next-operand and stage-mean epilogue; see ``mrf_conv_plain``."""
+    """Dilated SAME conv of the operand ``a`` (in the weights' type: bf16 or
+    f32) with the bias, residual, next-operand and stage-mean epilogue; see
+    ``mrf_conv_plain``."""
     if a.device.type == "cpu":
         return mrf_conv_plain(a, cw, res, acc, acc_scale, want_y, want_act, acc_act)
     return _launch_conv("mrf_conv", a, cw, None, res, acc, acc_scale, want_y, want_act,
@@ -401,7 +459,7 @@ def mrf_pair(a, c1: ConvWeights, c2: ConvWeights, res=None, acc=None, acc_scale:
 
 
 def conv_transpose(a, uw: UpsampleWeights, want_act: bool = False):
-    """ConvTranspose1d of the bf16 operand ``a`` (B, Tin, Ci) -> (y (B, u
+    """ConvTranspose1d of the operand ``a`` (B, Tin, Ci) -> (y (B, u
     Tin, Co) f32, operand(y) or None): one ``mrf_conv`` launch of the folded
     conv (``fold_upsample``), its outputs viewed as the transposed conv's;
     see ``conv_transpose_plain``."""
@@ -420,10 +478,10 @@ def conv_transpose(a, uw: UpsampleWeights, want_act: bool = False):
 
 
 def conv_pre(a, cw: ConvWeights):
-    """The vocoder's ``conv_pre`` from the bf16 mel ``a`` (B, T, num_mels):
-    one ``mrf_conv`` launch whose epilogue rounds the sum to bf16 before the
-    bias and writes only stage 1's upsample operand (B, T, Co) bf16; see
-    ``conv_pre_plain``."""
+    """The vocoder's ``conv_pre`` from the mel ``a`` (B, T, num_mels) in the
+    weights' type: one ``mrf_conv`` launch whose epilogue rounds the sum to
+    that type before the bias (the identity at f32) and writes only stage
+    1's upsample operand (B, T, Co) in it; see ``conv_pre_plain``."""
     if a.device.type == "cpu":
         return conv_pre_plain(a, cw)
     return _launch_conv("conv_pre", a, cw, None, None, None, 0.0, False, True,

@@ -18,8 +18,8 @@ HiFi-GAN checkpoint, Griffin-Lim on exp(mel).
 ``--random-seed`` seeds the torch.Generator that draws the prenet's
 AlwaysDropout masks, so one seed reproduces the audio on one device.
 
-The vocoder's precision follows the device, not the Tacotron config (see
-``vocoder_policy``).
+The vocoder runs at the JAX package's precision, f32, on every device and
+whatever the Tacotron config (see ``load_hifigan``).
 """
 
 from __future__ import annotations
@@ -153,14 +153,12 @@ def load_tacotron(cfg: Config, checkpoint: str, device) -> Tacotron2:
     return model.to(device).eval()
 
 
-def vocoder_policy(device: torch.device) -> Policy:
-    """bf16 operands with f32 sums on the card, K2's one mode; f32 on the
-    CPU, the JAX package's ``say`` precision. ``chip_smoke.py`` measures the
-    PCM16 difference of the two on the card."""
-    return Policy(torch.bfloat16) if device.type == "cuda" else F32
-
-
-def load_hifigan(checkpoint: str, policy: Policy, device) -> HiFiGAN:
+def load_hifigan(checkpoint: str, device, policy: Policy = F32) -> HiFiGAN:
+    """The ``g_*`` generator on ``device``, built under F32 as the JAX
+    package's ``load_hifigan`` builds every vocoder, whatever the Tacotron
+    config: on the card its MRF stages run K2's f32 mode
+    (``csrc/mrf_f32.cu``). ``Policy(torch.bfloat16)`` builds K2's bf16 mode
+    instead, as the TPU kernels' ``bf16=True``; no command asks for it."""
     h, sd = load_hifigan_checkpoint(checkpoint)
     model = HiFiGAN(HiFiGANConfig.from_dict(h), policy)
     load_strict(model, sd)
@@ -249,7 +247,7 @@ def do_say(cfg: Config, checkpoint: str, text: str, output: str,
     chars_idx, chars_len = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch([norm])
     model = load_tacotron(cfg, checkpoint, dev)
     hifigan = (None if hifi_gan_checkpoint is None
-               else load_hifigan(hifi_gan_checkpoint, vocoder_policy(dev), dev))
+               else load_hifigan(hifi_gan_checkpoint, dev))
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(random_seed))
 

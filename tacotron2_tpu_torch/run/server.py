@@ -91,7 +91,7 @@ from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
 from tacotron2_tpu_torch.ops.decoder_loop import PackedDecoder
 from tacotron2_tpu_torch.run.say import (MAX_LEN, cut_vocode, griffin_lim_vocode, load_hifigan,
                                          load_tacotron, refuse_descriptions,
-                                         vocode_bucket, vocoder_policy)
+                                         vocode_bucket)
 from tacotron2_tpu_torch.text.cleaners import normalize_text
 from tacotron2_tpu_torch.text.encoder import CharEncoder
 
@@ -215,7 +215,7 @@ class ModelRegistry:
             model = load_tacotron(cfg, entry["checkpoint"], dev)
             hifigan = None
             if entry.get("hifi_gan_checkpoint"):
-                hifigan = load_hifigan(entry["hifi_gan_checkpoint"], vocoder_policy(dev), dev)
+                hifigan = load_hifigan(entry["hifi_gan_checkpoint"], dev)
             packed = model.make_packed_decoder(bool(entry.get("quantize_int8")))
             with torch.no_grad():
                 gst = model.gst_embedding(1)

@@ -38,7 +38,7 @@ from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest, s
 from tacotron2_tpu_torch.models.layers import resolve_device, use_f32_math
 from tacotron2_tpu_torch.run.say import (MAX_LEN, _sync, cut_vocode, griffin_lim_vocode,
                                          load_hifigan, load_tacotron, refuse_descriptions,
-                                         vocode_bucket, vocoder_policy)
+                                         vocode_bucket)
 from tacotron2_tpu_torch.training.step import to_device
 
 
@@ -99,7 +99,7 @@ def do_test(cfg: Config, speech_dir: str, checkpoint: str,
                            bucket_chars=32)
     model = load_tacotron(cfg, checkpoint, dev)
     hifigan = (None if hifi_gan_checkpoint is None
-               else load_hifigan(hifi_gan_checkpoint, vocoder_policy(dev), dev))
+               else load_hifigan(hifi_gan_checkpoint, dev))
     sr = cfg.dataset.preprocessing.sample_rate
     os.makedirs(results_dir, exist_ok=True)
     failures, lengths, batches = [], [], []

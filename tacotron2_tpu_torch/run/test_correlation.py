@@ -46,7 +46,7 @@ from tacotron2_tpu_torch.data.loader import TTSDataLoader
 from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest, select_rows
 from tacotron2_tpu_torch.models.layers import resolve_device, use_f32_math
 from tacotron2_tpu_torch.run.say import (MAX_LEN, _sync, load_hifigan, load_tacotron,
-                                         refuse_descriptions, vocoder_policy)
+                                         refuse_descriptions)
 from tacotron2_tpu_torch.run.test import gate_to_lengths, write_rows
 from tacotron2_tpu_torch.training.step import to_device
 
@@ -105,7 +105,7 @@ def do_test_correlation(cfg: Config, speech_dir: str, checkpoint: str,
                        utterances_per_speaker)
     model = load_tacotron(cfg, checkpoint, dev)
     hifigan = (None if hifi_gan_checkpoint is None
-               else load_hifigan(hifi_gan_checkpoint, vocoder_policy(dev), dev))
+               else load_hifigan(hifi_gan_checkpoint, dev))
     sr = cfg.dataset.preprocessing.sample_rate
     os.makedirs(results_dir, exist_ok=True)
     record: dict = {"results_dir": results_dir, "rows": len(rows), "overrides": {},

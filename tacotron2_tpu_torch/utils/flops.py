@@ -13,8 +13,11 @@ cores' roofline).
   costing one forward again.
 
 The peaks are NVIDIA's data-sheet figures for the H100 SXM ("NVIDIA H100
-80GB HBM3"): dense bf16 989 TFLOP/s, dense int8 1,979 TOP/s, HBM3 3.35 TB/s.
-A card set below its 700 W limit runs below them.
+80GB HBM3"): dense bf16 989 TFLOP/s, dense int8 1,979 TOP/s, dense TF32
+494.7 TFLOP/s, FP32 on the CUDA cores 66.9 TFLOP/s, HBM3 3.35 TB/s. A card
+set below its 700 W limit runs below them. f32-exact products (K2's f32
+mode) take the CUDA cores' FP32 rate, or the TF32 rate for three passes of
+a split operand.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from __future__ import annotations
 DEVICE = "NVIDIA H100 80GB HBM3"
 H100_BF16_TFLOPS = 989.0  # dense bf16 tensor-core peak, data sheet
 H100_INT8_TOPS = 1979.0  # dense int8 tensor-core peak, data sheet
+H100_TF32_TFLOPS = 494.7  # dense TF32 tensor-core peak, data sheet
+H100_F32_TFLOPS = 66.9  # FP32 on the CUDA cores, data sheet
 H100_HBM_TBPS = 3.35  # HBM3 bandwidth, data sheet
 
 

@@ -7,7 +7,7 @@ resblock types, the whole generator and the receptive field.
 With f32 dots (``bf16=False``, the ``32-true`` policy) the tolerance is
 tests/test_mrf_pallas.py's: 1e-5 of the output's scale.
 
-Under bf16 (the card's vocoder policy, ``run/say.py::vocoder_policy``)
+Under bf16 (K2's bf16 mode, a generator built under ``Policy(torch.bfloat16)``)
 every conv takes bf16 operands with f32 sums on both sides, and the port
 sums in another order than XLA. A sum that lands near a bf16 rounding
 boundary then rounds the next conv's operand the other way, and ResBlock1's

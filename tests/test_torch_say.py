@@ -9,10 +9,12 @@ and the PCM16 samples within 2 LSB."""
 
 import json
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from run.common import load_hifigan as jax_load_hifigan
 from run.say import do_say as jax_do_say
 from tacotron2_tpu.config import load_config as jax_load_config
 from tacotron2_tpu_torch.__main__ import main as port_cli
@@ -20,8 +22,9 @@ from tacotron2_tpu_torch.audio.io import read_wav
 from tacotron2_tpu_torch.config import load_config
 from tacotron2_tpu_torch.convert import to_lightning
 from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
+from tacotron2_tpu_torch.models.layers import F32, Policy
 from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
-from tacotron2_tpu_torch.run.say import model_config_from, vocoder_policy
+from tacotron2_tpu_torch.run.say import load_hifigan, model_config_from
 
 torch.set_num_threads(1)
 
@@ -123,8 +126,20 @@ def test_say_modes_match_jax(tmp_path, vocoder, quantize):
         assert diff <= 1e-3 * np.abs(jax_wav).max()
 
 
-def test_vocoder_policy_follows_the_device():
-    """bf16 operands on the card (the kernel's one mode), f32 on the CPU
-    (the JAX say's), whatever the Tacotron config's precision."""
-    assert vocoder_policy(torch.device("cuda")).compute_dtype == torch.bfloat16
-    assert vocoder_policy(torch.device("cpu")).compute_dtype == torch.float32
+def test_vocoder_policy_follows_the_device(tmp_path):
+    """The commands' generator (``load_hifigan``, the one ``say``, the
+    server, ``test`` and ``test_correlation`` build) is F32, on the card (K2's
+    f32 mode) as on the CPU, the policy of the generator JAX's
+    ``run/common.py::load_hifigan`` builds from the same ``g_*`` file,
+    whatever the Tacotron config's precision; K2's bf16 mode is reached
+    only through an explicit bf16 policy."""
+    _, _, g_path = _files(tmp_path, 3.0)
+    jax_model, _ = jax_load_hifigan(g_path)
+    assert jax_model.policy.compute_dtype == jnp.float32
+    port = load_hifigan(g_path, torch.device("cpu"))
+    assert port.policy == F32 and port.policy.compute_dtype == torch.float32
+    assert next(port.parameters()).device.type == "cpu"
+    bf16 = load_hifigan(g_path, torch.device("cpu"), Policy(torch.bfloat16))
+    assert bf16.policy.compute_dtype == torch.bfloat16
+    assert all(torch.equal(a, b) for a, b in zip(port.state_dict().values(),
+                                                 bf16.state_dict().values()))
