@@ -15,6 +15,8 @@
                                     # (``cell_ab``)
     python3 chip_smoke.py --k34-ab  # the vanilla K3/K4 of build/parent and this tree in
                                     # turns, bit for bit, and the controls mode's times
+    python3 chip_smoke.py --k2-f32-ab  # K2's f32 mode of build/parent and this tree in
+                                       # turns at 1 / 16 / 64 rows, beside cuDNN f32
     python3 chip_smoke.py --eval    # the kernels' build and phase 4f alone
     python3 chip_smoke.py --train-extras  # the kernels' build and phase 4g alone
     python3 chip_smoke.py --descriptions  # the kernels' build and phase 4h alone
@@ -61,16 +63,19 @@ Phases, each of which must pass:
    64-frame chunk split by kernel at 16 and 64 rows, L=128, with the serve
    window's decode (``serve_rows_split``);
 3f. K2's f32 mode (``csrc/mrf_f32.cu``, the commands' vocoder: F32, as the
-   JAX package's ``load_hifigan``): ``k2_f32_phase`` on an F32 UNIVERSAL_V1
+   JAX package's ``load_hifigan``; a three-pass TF32 split on ``wgmma``):
+   ``k2_f32_phase`` on an F32 UNIVERSAL_V1
    generator at 1, 16 and 64 rows of the say's 384-frame bucket: every f32
    entry (``conv_pre``, both upsample kinds, ``mrf_conv``, ``mrf_pair``)
    and each stage against its plain f32 version from the plain stage's
    input (K2F_TOL of the output's max), each fused pair against its two
    launches and rows 0, 1, 37, 63 of a 64-row vocode against each row
    alone bit for bit (K2's outputs and ``HiFiGAN.apply``'s), the planted
-   defects (TF32- and bf16-rounded operands) at least K2F_DEFECT_MARGIN x
-   the limit, and every entry timed beside cuDNN's f32 convs and its bound
-   (three TF32 passes; the CUDA cores' FP32 rate beside it);
+   defects (TF32- and bf16-rounded operands; copies of the kernel with the
+   lo passes and with the a_lo pass left out, ``K2F_PASS_DEFECTS``) at
+   least K2F_DEFECT_MARGIN x the limit, and every entry timed beside
+   cuDNN's f32 convs and its bound (three TF32 passes; the CUDA cores' FP32
+   rate beside it);
 3c. K1's and K5's controls mode on random full-width weights of
    ``config/controllable-lj-hifi-stop-speaker.json`` (``controls_phase``):
    1- and 4-step chunks at 1, 16 and 64 rows with distinct controls per row
@@ -181,7 +186,7 @@ Phases, each of which must pass:
    the event file read back with its CRCs (the scalars, 4 images a
    validation, the histograms at their steps) and the trace naming every
    counted wrapper's kernels; K3 / K4 at that batch's shapes; the same
-   finetune untraced for 12 steps (the steps after a validation and after a
+   finetune untraced for 8 steps (the steps after a validation and after a
    background save against the steady ones); 4e's checkpoint finetuned at
    B=128 (the speaker embedding frozen too, every launch of the controls
    mode), K3 / K4 at its shapes, the encoder's recurrence at 128 rows
@@ -2396,6 +2401,35 @@ K2F_ROWS = (1, 16, 64)  # the say's one row and the serve windows' rows
 K2F_INVARIANCE_ROWS = (0, 1, 37, 63)  # rows of a 64-row vocode held against the rows alone
 K2F_DEFECT_MARGIN = 10.0  # a planted defect reads at least this many times K2F_TOL
 K2F_DRAWS = 3  # weight draws of the f64-sum measurement
+# the three-pass design's own planted defects: copies of csrc/mrf_f32.cu with
+# passes left out (kPasses: 1 a_lo w_hi, 2 a_hi w_lo, 4 a_hi w_hi), the lo
+# passes (one TF32 pass of the rna-rounded operands) and the a_lo pass alone
+K2F_PASS_DEFECTS = (("lo_passes", 4), ("a_lo_pass", 6))
+
+
+def k2f_pass_copies():
+    """Start nvcc of the K2F_PASS_DEFECTS copies of csrc/mrf_f32.cu (under
+    build/defects) -> a function that waits for them: {name: library}."""
+    return build_copies("mrf_f32", [(f"mrf_f32_{n}", [(r"constexpr int kPasses = 7;",
+                                                       f"constexpr int kPasses = {m};")])
+                                    for n, m in K2F_PASS_DEFECTS],
+                        ROOT / "build" / "defects", wait=False)
+
+
+@contextlib.contextmanager
+def f32_library(path):
+    """K2's f32 wrappers launch another build of csrc/mrf_f32.cu (a defect's
+    copy) inside the block."""
+    import ctypes
+
+    from tacotron2_tpu_torch.ops import mrf
+
+    saved = mrf._lib_f32()
+    mrf._LIB_F32 = mrf.bind(ctypes.CDLL(str(path)), "_f32")
+    try:
+        yield
+    finally:
+        mrf._LIB_F32 = saved
 
 
 def tf32_round(t):
@@ -2491,7 +2525,7 @@ def k2_f32_reference(Tb: int, log: dict) -> dict:
     return worst
 
 
-def k2_f32_phase(hifigan, Tb: int, log: dict) -> list:
+def k2_f32_phase(hifigan, Tb: int, log: dict, copies=None) -> list:
     """K2's f32 mode (``csrc/mrf_f32.cu``) on an F32 UNIVERSAL_V1 generator
     at K2F_ROWS rows of ``Tb`` frames, each stage from the plain stage's
     input: ``conv_pre`` from the mel, each upsample and its operand, each
@@ -2502,8 +2536,10 @@ def k2_f32_phase(hifigan, Tb: int, log: dict) -> list:
     launches, and rows K2F_INVARIANCE_ROWS of a 64-row vocode on the served
     route (``conv_pre``, each stage passing its mean's operand to the next)
     and of ``HiFiGAN.apply`` against each row alone. Planted defects (the first conv or pair of each
-    stage with its operand and weights rounded to TF32, then to bf16) read at
-    least K2F_DEFECT_MARGIN x K2F_TOL. Then every entry timed at each row count
+    stage with its operand and weights rounded to TF32, then to bf16, and
+    the same calls on copies of the kernel with passes left out,
+    K2F_PASS_DEFECTS) read at least K2F_DEFECT_MARGIN x K2F_TOL. Then every
+    entry timed at each row count
     (``k2_timing``: kernel, plain version, cuDNN f32, bound). -> the
     kernels-line rows, ``rows`` holding each row count's."""
     import torch
@@ -2520,6 +2556,7 @@ def k2_f32_phase(hifigan, Tb: int, log: dict) -> list:
     cwp = hifigan.conv_pre_weights()
     tol = K2F_TOL
     defects: dict = {}
+    copies = copies or k2f_pass_copies()  # the pass defects' builds, if not started before
     for B in K2F_ROWS:
         mel = torch.randn(B, Tb, hifigan.cfg.num_mels, device="cuda", generator=g)
         check(f"conv_pre_f32@B{B}x{Tb}", [("a", mrf.conv_pre(mel, cwp),
@@ -2553,6 +2590,14 @@ def k2_f32_phase(hifigan, Tb: int, log: dict) -> list:
                                    ("bf16_operands", lambda t: t.to(torch.bfloat16).float())):
                     d_out = one(kern, rnd(au), rounded_conv(c1, rnd),
                                 rounded_conv(c2, rnd) if pair else None, None)
+                    r = err(d_out[0], p_out[0], own=True)[1]
+                    defects.setdefault(dname, []).append({"call": f"{name}{tag}", "rel_err": r})
+                    del d_out
+                if callable(copies):
+                    copies = copies()
+                for dname, _ in K2F_PASS_DEFECTS:
+                    with f32_library(copies[f"mrf_f32_{dname}"]):
+                        d_out = one(kern, au, c1, c2, None)
                     r = err(d_out[0], p_out[0], own=True)[1]
                     defects.setdefault(dname, []).append({"call": f"{name}{tag}", "rel_err": r})
                     del d_out
@@ -3415,10 +3460,11 @@ ENC_AB = (
 )
 
 
-def build_copies(src_name: str, copies, out_dir: Path, csrc: Path = None) -> dict:
+def build_copies(src_name: str, copies, out_dir: Path, csrc: Path = None, wait: bool = True):
     """nvcc of each copy of ``csrc/<src_name>.cu`` (each a list of regex
     substitutions that must each match once; ``csrc``: another tree's
-    sources), all started together -> {name: library path}."""
+    sources), all started together -> {name: library path}; with ``wait``
+    False, a function that waits for them and returns that."""
     import re
 
     from tacotron2_tpu_torch.ops import build
@@ -3426,25 +3472,35 @@ def build_copies(src_name: str, copies, out_dir: Path, csrc: Path = None) -> dic
     csrc = csrc or Path(build.__file__).parents[1] / "csrc"
     src = (csrc / f"{src_name}.cu").read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, subs in copies:
+    texts = {}
+    for name, subs in copies:  # every copy's text before any nvcc starts
         text = src
         for pattern, repl in subs:
             text, n = re.subn(pattern, repl, text)
             if n != 1:
                 raise SmokeFailure(f"{src_name} copy {name}: {pattern!r} matches {n} times")
+        texts[name] = text
+    procs = {}
+    for name, text in texts.items():
         (out_dir / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
              str(out_dir / f"lib{name}.so"), str(out_dir / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode:
-            raise SmokeFailure(f"nvcc of the {src_name} copy {name} failed: {text[-2000:]}")
-        libs[name] = out_dir / f"lib{name}.so"
-    return libs
+
+    libs: dict = {}
+
+    def finish() -> dict:  # waits once; later calls return the same
+        for name, proc in procs.items():
+            if name in libs:
+                continue
+            text, _ = proc.communicate()
+            if proc.returncode:
+                raise SmokeFailure(f"nvcc of the {src_name} copy {name} failed: {text[-2000:]}")
+            libs[name] = out_dir / f"lib{name}.so"
+        return libs
+
+    return finish() if wait else finish
 
 
 def enc_ab(model, cfg, log: dict) -> dict:
@@ -3951,7 +4007,7 @@ def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log
             kernels[f"{name}{mode}"] = {
                 "B": B, "L": L, "T": T, "D": enc_b.shape[2],
                 "ms": time_ms(lambda: kern(*args), 3, 1),
-                "plain_ms": time_ms(lambda: plain(*args), 2, 1), "bound_ms": b_ms,
+                "plain_ms": time_ms(lambda: plain(*args), 2, 1, 1), "bound_ms": b_ms,
                 "bound_by": b_by, "weight_stream_ms": stream, "library_ms": None}
             r = kernels[f"{name}{mode}"]
             print(f"  {name}{mode} at B={B}, L={L}, T={T}, D={enc_b.shape[2]}: {r['ms']:.3f} ms, "
@@ -3974,20 +4030,20 @@ def train_split(cfg_train: str, ckpt: str, speech: Path, root: Path, B: int, log
     whole = lambda: step.train_step(model, opt, sched, batch, gen)
     whole()
     parts = {
-        "train_step": eager_ms(whole, 3),
-        "encoder_fwd_bwd": eager_ms(encoder, 3),
-        "k3_teacher_forward": eager_ms(lambda: td.teacher_forward(*fwd_args), 3),
-        "k4_teacher_backward": eager_ms(lambda: td.teacher_backward(*bwd_args), 3),
+        "train_step": eager_ms(whole, 3, 1),
+        "encoder_fwd_bwd": eager_ms(encoder, 3, 1),
+        "k3_teacher_forward": eager_ms(lambda: td.teacher_forward(*fwd_args), 3, 1),
+        "k4_teacher_backward": eager_ms(lambda: td.teacher_backward(*bwd_args), 3, 1),
         "dw_gemms_and_sums": eager_ms(
-            lambda: td.grads_from(params, w, bwd_args[1], enc_b, out, d_mg), 3),
-        "postnet_fwd_bwd": eager_ms(postnet, 3),
+            lambda: td.grads_from(params, w, bwd_args[1], enc_b, out, d_mg), 3, 1),
+        "postnet_fwd_bwd": eager_ms(postnet, 3, 1),
         "optimizer": eager_ms(lambda: optimizer.apply_gradients(list(model.parameters()), opt,
-                                                                sched), 3),
+                                                                sched), 3, 1),
     }
     parts["sum_of_parts"] = sum(v for k, v in parts.items() if k != "train_step")
     if not mode:
         with cudnn_bilstm():  # the encoder before the repair, apart from the sum
-            parts["encoder_fwd_bwd_cudnn_f32_bilstm"] = eager_ms(encoder, 3)
+            parts["encoder_fwd_bwd_cudnn_f32_bilstm"] = eager_ms(encoder, 3, 1)
     print(f"  split of one step{mode}{tag} (B={B}, L={L}, T={T}), eager ms: "
           + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
     return {"split_ms": parts, "split_shape": {"B": B, "L": L, "T": T}, "kernels": kernels}
@@ -5468,7 +5524,7 @@ FT_STEPS = 2  # --finetune-steps and --max-steps of the checked finetunes: 4 ste
 FT_SAVE_EVERY = 2  # the driver's SAVE_EVERY and HISTOGRAM_EVERY in the checked runs
 FT_HIST_EVERY = 2
 FT_TIMING_REPEAT = 4  # the timing run's manifest: 4b's rows 4 times, 4 steps an epoch
-FT_TIMING_MAX_STEPS = 10  # + FT_STEPS: 12 steps, validations after 4, 8 and 12
+FT_TIMING_MAX_STEPS = 6  # + FT_STEPS: 8 steps, validations after 4 and 8, a save after 6
 FT_TIMING_SAVE_EVERY = 6
 ENC128_ROWS = (0, 1, 37, 127)  # rows of the 128-row encoder launches held alone
 PROSODY_STEPS = 4
@@ -5736,7 +5792,7 @@ def enc_rows_alone(model, B: int, log: dict) -> dict:
         res = kern(*args)
         b_ms, b_by = bound_ms(nbytes(*args, *(res if isinstance(res, tuple) else (res,))), flops)
         out[name] = {"B": B, "T": T, "ms": time_ms(lambda: kern(*args), 3, 1),
-                     "plain_ms": time_ms(lambda: plain(*args), 2, 1), "bound_ms": b_ms,
+                     "plain_ms": time_ms(lambda: plain(*args), 2, 1, 1), "bound_ms": b_ms,
                      "bound_by": b_by,
                      "library_ms": (time_ms(lib, 3, 1) if name == "bilstm_forward"
                                     else eager_ms(lib, 5))}
@@ -5749,13 +5805,27 @@ def enc_rows_alone(model, B: int, log: dict) -> dict:
     return out
 
 
+def step_timer(res: dict, tag: str, card: str):
+    """-> lap(name): the seconds since the last lap (or this call) into
+    ``res["seconds_by_step"][name]``, printed: where a phase's time goes."""
+    steps = res.setdefault("seconds_by_step", {})
+    last = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        steps[name] = now - last[0]
+        last[0] = now
+        print(f"  [{tag}] {name}: {steps[name]:.1f} s on {card}")
+    return lap
+
+
 def train_extras_phase(van: dict, ctl: dict, lj_hifi: dict, g_path: str, log: dict,
                        card: str) -> tuple:
     """Phase 4g on the runs of 4b (``van``), 4e (``ctl``) and 4f's lj-hifi
     manifests (``lj_hifi``): the vanilla finetune under the trace with the
     driver's save and histogram intervals small (``finetune_run``, then
     ``last.ckpt`` against ``finetuned.ckpt``, the event file, the trace);
-    an untraced vanilla finetune of 12 steps for the step times after a
+    an untraced vanilla finetune of 8 steps for the step times after a
     validation and after a save; the controllable finetune at B=128 (K3 / K4
     and the encoder at its shapes); ``train_prosody``; the style-loss phase
     of ``STYLE_CONFIG`` and a ``say`` of its checkpoint. -> ({kernels-line
@@ -5783,6 +5853,7 @@ def train_extras_phase(van: dict, ctl: dict, lj_hifi: dict, g_path: str, log: di
     launches: dict = {}
     readings: dict = {}
     res: dict = {"card": card}
+    lap = step_timer(res, "4g", card)
 
     def add(got: dict, suffix: str = "") -> None:
         for k, n in got.items():
@@ -5840,11 +5911,13 @@ def train_extras_phase(van: dict, ctl: dict, lj_hifi: dict, g_path: str, log: di
           f"at each of {n_val} validations; {n_params} histograms at steps {want_hist}. Trace: "
           f"{len(kernel_names)} kernel events, every counted wrapper's kernels named, "
           f"bilstm_bwd_kernel {bwd_traced} times")
+    lap("traced finetune")
     B = ft["steps"][0]["rows"]
     readings.update(train_split(van["cfg"], ft["checkpoint"], van["speech"], van["root"], B,
                                 log, tag="[finetune]", readings=True)["kernels"])
+    lap("K3 / K4 at the finetune's shapes")
 
-    # the same finetune untraced, 12 steps of 4 an epoch: the step times;
+    # the same finetune untraced, 8 steps of 4 an epoch: the step times;
     # then with the mel cache on, so that from the second epoch on the
     # loader reads each mel back instead of computing it
     raw = json.loads(Path(van["cfg"]).read_text())
@@ -5868,6 +5941,7 @@ def train_extras_phase(van: dict, ctl: dict, lj_hifi: dict, g_path: str, log: di
     finally:
         rt.SAVE_EVERY = saved[0]
     (timed, sets), (cached, sets_cached) = runs[False], runs[True]
+    lap("timing finetunes")
     traced_ms = float(np.median([1e3 * s["s"] for s in ft["steps"][1:]]))
     res["finetune_timing"] = {"steps": timed["steps"], "phases": timed["phases"], "sets": sets,
                               "traced_ms_median": traced_ms, "cached_steps": cached["steps"],
@@ -5901,6 +5975,7 @@ def train_extras_phase(van: dict, ctl: dict, lj_hifi: dict, g_path: str, log: di
     print(f"  finetune [controls] B={B}: {res['finetune_controls']['ms_median']:.1f} "
           f"ms/step (median of steps 2-{len(ft_c['steps'])}, each after a validation), "
           f"{res['finetune_controls']['mel_frames_per_s']:.0f} mel frames/s on {card}")
+    lap("controllable finetune")
     readings.update(train_split(ctl["cfg"], ft_c["checkpoint"], ctl["speech"], ctl["root"], B,
                                 log, "[controls]", "[finetune]", True)["kernels"])
     cfg = load_config(ctl["cfg"])
@@ -5909,6 +5984,7 @@ def train_extras_phase(van: dict, ctl: dict, lj_hifi: dict, g_path: str, log: di
     readings.update({k: v for k, v in enc_rows_alone(model.cuda(), B, log).items()
                      if k.startswith("bilstm")})
     del model
+    lap("K3 / K4 and the encoder at the controllable finetune's shapes")
 
     # train_prosody on the lj-hifi manifests, its targets the controls' columns
     raw = json.loads(Path(lj_hifi["cfg"]).read_text())
@@ -5934,6 +6010,7 @@ def train_extras_phase(van: dict, ctl: dict, lj_hifi: dict, g_path: str, log: di
           f"{[round(s['loss'], 4) for s in pro['steps']]}, frames "
           f"{[s['frames'] for s in pro['steps']]}, {res['train_prosody']['ms_median']:.1f} "
           f"ms/step (median of steps 2-{PROSODY_STEPS}); CCC scalars in the event file on {card}")
+    lap("train_prosody")
 
     # the style-loss phase at full width
     raw = json.loads((ROOT / "config" / STYLE_CONFIG).read_text())
@@ -6737,14 +6814,19 @@ def descriptions_phase(ctl: dict, g_path: str, log: dict, card: str) -> tuple:
     print(f"  K3 / K4's attention shared memory: the mirror equals the library's; S at B=128: "
           f"L=192 -> {td.attention_cluster(128, td._sms('cuda'), 192, 1024, 128, 640, 31)}, "
           f"L=256 -> {td.attention_cluster(128, td._sms('cuda'), 256, 1024, 128, 640, 31)}")
+    lap = step_timer(res, "4h", card)
     bert_pt, _, speech, out_csv, res["bert"] = bert_part(root, log, card)
+    lap("BERT and embed_descriptions")
     got, readings, res["train"] = desc_train_part(root, speech, out_csv, log, card)
     add(got)
+    lap("train and finetune")
     got, say_readings, res["say"] = desc_say_part(root, bert_pt, g_path, log, card)
     add(got)
     readings.update(say_readings)
+    lap("say")
     got, res["test_correlation"] = correlation_part(ctl, g_path, root / "correlation", log, card)
     add(got)
+    lap("test_correlation")
     res["seconds"] = time.perf_counter() - t_phase
     res["readings"] = readings
     print(f"  phase 4h: {res['seconds']:.1f} s on {card}")
@@ -7367,9 +7449,9 @@ def gst_mode() -> int:
 # ---------------------------------------------------------------------------
 # phase 4j: data-parallel train (torch.distributed) and the device prefetcher
 
-DP_STEPS = 3  # train steps of each data-parallel comparison
+DP_STEPS = 2  # train steps of each data-parallel comparison
 DP_RANKS = 2  # ranks sharing the one card in (a): no data-parallel throughput
-DP_RUN_STEPS = 4  # steps of the CLI runs of (b) and (c)
+DP_RUN_STEPS = 3  # steps of the CLI runs of (b) and (c)
 # (a)'s limits, the train limits of section 2, not new ones: a rank's step
 # differs from one process's running the same code in a one-rank group in
 # the order of its sums only (the BatchNorm statistics, the gradients'
@@ -7532,7 +7614,9 @@ def _host(x):
 
 def _dp_rank(rank: int, n: int, store: str, spec: dict, out: str) -> None:
     """A spawned rank of (a): gloo over ``file://store``, ``dp_steps``,
-    its result saved to ``out``."""
+    its result saved to ``out``; with ``spec["defect_after"]`` then one step
+    from the seed's state with the planted defect, saved to ``out`` +
+    ".defect" (the same processes: no second spawn)."""
     import os
 
     import torch
@@ -7543,13 +7627,14 @@ def _dp_rank(rank: int, n: int, store: str, spec: dict, out: str) -> None:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))  # the ranks share the host
 
     mesh.init_data_parallel("gloo", f"file://{store}", rank, n)
-    if spec.get("defect"):
-        _plant_local_bn_grad(mesh)
     torch.backends.cudnn.deterministic = True  # a reading the next run repeats
     timed = _time_tp_decode() if spec.get("model_parallel", 1) > 1 else None
     res = dp_steps(rank, n, {**spec, "keep": rank == 0})
     if timed is not None:
         res["tp_decode_ms"] = timed
+    if spec.get("defect_after"):
+        _plant_local_bn_grad(mesh)
+        torch.save(dp_steps(rank, n, {**spec, "steps": 1, "keep": rank == 0}), out + ".defect")
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     torch.save(res, out)
@@ -7703,7 +7788,7 @@ def dp_compare(run: dict, B: int, tag: str, log: dict, card: str) -> dict:
     d.mkdir(parents=True)
     spec = {"cfg": str(run["cfg"]), "batches": str(d / "batches.pt")}
     dp_batches(run, B, d / "batches.pt")
-    ranks = _spawn_ranks(d, spec, "")
+    ranks = _spawn_ranks(d, {**spec, "defect_after": tag == "vanilla"}, "")
     starts = [None] + [s["state"] for s in ranks[0]["steps"][:-1]]
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True  # as the ranks'
@@ -7744,7 +7829,8 @@ def dp_compare(run: dict, B: int, tag: str, log: dict, card: str) -> dict:
     bad = {f"{name} {k}": v for name, ws in worst.items() for k, v in ws.items()
            if name != "both_one_process" and k in DP_TOL and not v <= DP_TOL[k]}
     if tag == "vanilla":  # the planted defect, one step against one process
-        defect = _spawn_ranks(d, {**spec, "defect": True, "steps": 1}, "defect_")
+        defect = [torch.load(d / f"rank{r}.pt.defect", weights_only=False)
+                  for r in range(DP_RANKS)]
         w = errors(defect[0]["steps"][0], plain, 0, None)
         seen = {k: w[k] for k in DP_TOL if not w[k] <= DP_TOL[k]}
         log.setdefault("dp", {})["defect"] = {
@@ -7836,8 +7922,11 @@ def dp_phase(van: dict, ctl: dict, log: dict, card: str) -> tuple:
 
     print(f"  (a) {DP_RANKS} gloo ranks on the one card: each rank's rows through K3 / K4 and "
           "the encoder's kernels; no number here is from two cards")
+    lap = step_timer(log.setdefault("dp", {}), "4j", card)
     dp_compare(van, TRAIN_B, "vanilla", log, card)
+    lap("(a) vanilla")
     dp_compare(ctl, CTL_TRAIN_B, "[controls]", log, card)
+    lap("(a) controls")
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -7851,8 +7940,10 @@ def dp_phase(van: dict, ctl: dict, log: dict, card: str) -> tuple:
         el.reset_launches()
         nccl = dp_cli(van, "nccl", torchrun)
         launches = {**td.LAUNCHES, **el.LAUNCHES}
+        lap("(b) staging, one NCCL rank")
         runs = {k: dp_cli(van, f"prefetch_{k}", {"TACOTRON2_DEVICE_PREFETCH": v})
                 for k, v in (("off", "0"), ("on", "1"))}
+        lap("(c) prefetch off and on")
     finally:
         torch.backends.cudnn.deterministic = det
     losses = {k: [s["loss"] for s in r["steps"]] for k, r in (("nccl", nccl), *runs.items())}
@@ -7890,6 +7981,7 @@ def dp_phase(van: dict, ctl: dict, log: dict, card: str) -> tuple:
         kern = train_split(str(run["cfg"]), run["ckpt"], run["speech"], run["root"], B, log,
                            mode, f"@dp{B}", readings=True, split=False)["kernels"]
         readings.update({k: {f"B{B}": v} for k, v in kern.items()})
+    lap("K3 / K4 at the ranks' shapes")
     return launches, readings
 
 
@@ -8620,6 +8712,82 @@ def k34_ab() -> int:
     return max(t["rc"] for t in turns)
 
 
+def k2_f32_rows_mode(out_name: str) -> int:
+    """``--k2-f32-rows``: build K2's f32 mode only, then on an F32
+    UNIVERSAL_V1 generator (seed SEED + 1, the smoke's) at K2F_ROWS rows of
+    the say's bucket: every entry's device time beside cuDNN's f32 convs and
+    the bound (``k2_timing`` without the plain version), the whole vocode's
+    eager time, and a digest of the vocode's K2 outputs. Results to
+    chiprun_out/<out_name>. Runs the package found first on sys.path (the
+    repo's, or a parent's with ``--root``)."""
+    import torch
+
+    from tacotron2_tpu_torch import ops
+    from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
+    from tacotron2_tpu_torch.models.layers import F32, use_f32_math
+    from tacotron2_tpu_torch.ops import build, mrf
+
+    use_f32_math()
+    t0 = time.perf_counter()
+    build.build_all(["mrf_f32"])
+    log: dict = {"card": card_line(), "package": str(Path(ops.__file__).parents[1]),
+                 "build_s": time.perf_counter() - t0, "rows": {}}
+    print(f"[k2-f32-rows] {log['package']} on {log['card']}")
+    torch.manual_seed(SEED + 1)
+    h32 = HiFiGAN(HiFiGANConfig.from_dict(UNIVERSAL_V1), F32).cuda().eval()
+    Tb = -(-(255 + h32.mel_receptive_field()) // 128) * 128  # the say's bucket
+    kw, cwp = h32.kernel_weights(), h32.conv_pre_weights()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 80)
+    for B in K2F_ROWS:
+        mel = torch.randn(B, Tb, h32.cfg.num_mels, device="cuda", generator=g)
+        outs = [mrf.conv_pre(mel, cwp)]
+        for i, (rbs, ups) in enumerate(kw):
+            outs.append(mrf.mrf_stage(None, rbs, ups, outs[-1], want_operand=i < len(kw) - 1))
+        entry = {"sha1": _sha1(outs),
+                 "vocode_eager_ms": eager_ms(lambda: h32.apply(mel), 2 if B >= 64 else 5, 1)}
+        del outs
+        for r in k2_timing(h32, Tb, B, False):
+            entry[r["name"]] = {k: r[k] for k in ("ms", "library_ms", "bound_ms", "cuda_core_ms")}
+        log["rows"][f"B{B}"] = entry
+        print(f"  B{B}: " + "; ".join(f"{k} {v['ms']:.4f} (cuDNN f32 {v['library_ms']:.4f})"
+                                      for k, v in entry.items() if isinstance(v, dict))
+              + f"; vocode eager {entry['vocode_eager_ms']:.3f} ms")
+        del mel
+        torch.cuda.empty_cache()
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / out_name).write_text(json.dumps(log, indent=1, default=str))
+    return 0
+
+
+def k2_f32_ab() -> int:
+    """``--k2-f32-ab``: the parent's K2 f32 mode against this tree's in
+    turns (``ab_turns`` of ``--k2-f32-rows``); the results go to
+    chiprun_out/k2_f32_ab.json. Fails unless each tree's vocode outputs
+    repeat their bits in both its turns (the two designs sum in other
+    orders, so whether the change's equal the parent's is reported)."""
+    turns = ab_turns("--k2-f32-rows", "k2_f32_rows")
+    if turns is None:
+        return 2
+    print("[k2-f32-ab] K2's f32 entries in turns, device ms (cuDNN f32):")
+    for t in turns:
+        for b, e in t.get("rows", {}).items():
+            print(f"  {t['turn']} {t['tag']:<6} rc {t['rc']} {b}: " + "; ".join(
+                f"{k} {v['ms']:.4f} ({v['library_ms']:.4f})" for k, v in e.items()
+                if isinstance(v, dict)) + f"; vocode eager {e['vocode_eager_ms']:.3f}")
+    shas = [{b: e["sha1"] for b, e in t.get("rows", {}).items()} for t in turns]
+    same = bool(shas[0]) and shas[0] == shas[3] and shas[1] == shas[2] and bool(shas[1])
+    print(f"  each tree's vocode outputs equal in both its turns, bit for bit: {same}; the "
+          f"change's equal the parent's: {shas[0] == shas[1]}")
+    (OUT_DIR / "k2_f32_ab.json").write_text(json.dumps(
+        {"turns": turns, "bits_equal_within_tree": same, "bits_equal_to_parent":
+         shas[0] == shas[1]}, indent=1))
+    if not same:
+        print("FAIL: a tree's K2 f32 outputs did not repeat their bits", file=sys.stderr)
+        return 1
+    return max(t["rc"] for t in turns)
+
+
 def main() -> int:
     pkg_root = Path(arg_value("--root", str(ROOT))).resolve()
     if not (pkg_root / "tacotron2_tpu_torch" / "csrc").is_dir():
@@ -8634,12 +8802,16 @@ def main() -> int:
         return k1_ab()
     if "--k34-ab" in sys.argv[1:]:
         return k34_ab()
+    if "--k2-f32-ab" in sys.argv[1:]:
+        return k2_f32_ab()
     sys.path.insert(0, str(pkg_root))
     torch.set_grad_enabled(False)
     if "--k1-rows" in sys.argv[1:]:
         return k1_rows_mode(arg_value("--out", "k1_rows.json"))
     if "--k34-rows" in sys.argv[1:]:
         return k34_rows_mode(arg_value("--out", "k34_rows.json"))
+    if "--k2-f32-rows" in sys.argv[1:]:
+        return k2_f32_rows_mode(arg_value("--out", "k2_f32_rows.json"))
     if "--eval" in sys.argv[1:]:
         return eval_mode()
     if "--train-extras" in sys.argv[1:]:
@@ -8657,6 +8829,7 @@ def main() -> int:
     log: dict = {}
     t_start = time.perf_counter()
     t_lap = [t_start]
+    pass_copies = None
 
     def lap(name: str) -> None:  # seconds since the last lap, into log["phase_s"]
         now = time.perf_counter()
@@ -8681,6 +8854,7 @@ def main() -> int:
         from tacotron2_tpu_torch.text import normalize_text
 
         t0 = time.perf_counter()
+        pass_copies = k2f_pass_copies()  # built beside the kernels, held in phase 3f
         logs = build.build_all()
         log["build_s"] = time.perf_counter() - t0
         log["ptxas"] = logs
@@ -8699,7 +8873,7 @@ def main() -> int:
             print(f"[k2-f32] K2's f32 mode on {card}")
             try:
                 k2_f32_reference(Tb, log)
-                rows = k2_f32_phase(h32, Tb, log)
+                rows = k2_f32_phase(h32, Tb, log, pass_copies)
             finally:
                 OUT_DIR.mkdir(exist_ok=True)
                 (OUT_DIR / "k2_f32.json").write_text(json.dumps({"card": card, **log}, indent=1,
@@ -8771,7 +8945,7 @@ def main() -> int:
               f"its plain version at {list(K2F_ROWS)} rows, Tb={Tb}")
         torch.manual_seed(SEED + 1)  # the bf16 generator's weights
         h32 = HiFiGAN(HiFiGANConfig.from_dict(UNIVERSAL_V1), F32).cuda().eval()
-        rows += k2_f32_phase(h32, Tb, log)
+        rows += k2_f32_phase(h32, Tb, log, pass_copies)
         del h32
         torch.cuda.empty_cache()
         lap("3f K2 f32")
@@ -8913,6 +9087,9 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+        if pass_copies is not None:  # no nvcc of a copy outlives the run
+            with contextlib.suppress(SmokeFailure):
+                pass_copies()
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

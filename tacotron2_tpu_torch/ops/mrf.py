@@ -73,12 +73,15 @@ past them, where the tensor map reads zeros and the tiled copy is zero.
 The f32 mode (``csrc/mrf_f32.cu``) is the TPU kernels' ``bf16=False``,
 the JAX package's vocoder precision (its HiFi-GAN's default policy is
 F32): the same entries on f32 operands and weights, f32 products and f32
-sums, an implicit GEMM on the CUDA cores (a block stages each 16-channel
-slice of the operand with its halo and that slice's weights of every tap,
-each thread sums an 8 x 8 tile with FFMA, each output's sum in one
-(slice, tap, channel) order). The weights' type picks the mode: an f32
-``ConvWeights`` carries the f32 kernel's tiled copy (``tile_conv``), and
-its launches count in ``F32_LAUNCHES`` as ``<entry>_f32``.
+sums, the same implicit GEMM on the tensor cores as a three-pass TF32
+split. Each f32 value x is split into ``hi = tf32_rna(x)`` and ``lo = x -
+hi`` (``tf32_split``: exact, hi + lo == x), and each product is ``a_hi
+w_hi + a_hi w_lo + a_lo w_hi`` in f32 sums (``wgmma`` m64nNk8 tf32; the
+``lo lo`` term, ~2^-22 of the product, is left out). The weights are split
+once at load: an f32 ``ConvWeights`` carries the hi and lo planes of each
+(N tile, 16-channel slice, tap) side by side (``tile_conv``); the kernel
+splits the operand in shared memory once per staged slice. Its launches
+count in ``F32_LAUNCHES`` as ``<entry>_f32``.
 
 Each wrapper runs its plain PyTorch version for CPU tensors only; a CUDA
 tensor launches the kernel or raises.
@@ -132,15 +135,25 @@ ResBlockWeights = List[Tuple[ConvWeights, Optional[ConvWeights]]]
 F32_KC = 16  # input channels a staged slice of the f32 kernel (``kKC``)
 
 
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``x`` -> (hi, lo): ``hi`` is x rounded to TF32 (10 mantissa bits,
+    to nearest, ties away from zero: ``cvt.rna.tf32.f32``), its low 13 bits
+    zero; ``lo = x - hi``, exact in f32, so hi + lo == x bit for bit. The
+    f32 kernel's three passes take ``a_hi w_hi + a_hi w_lo + a_lo w_hi``."""
+    i = x.contiguous().view(torch.int32)
+    hi = ((i + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x - hi
+
+
 def conv_tiles(Co: int, Ci: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
     """(NI, KC) of the weight copy of ``mrf_conv``'s kernel for weights of
     ``dtype``: output channels per N tile (128, 64 or 32 by Co) and input
     channels per staged slice (the last slice reaches past Ci where KC does
-    not divide it, the copy zero there). bf16: a block's wgmma takes the N
-    tile or, where the grid is small, half of it; slices of 64 or 32. f32:
-    a block takes the N tile; slices of ``F32_KC``. Both kernels take Co a
-    multiple of 32 and Ci a multiple of 8 (the bf16 operand's rows whole
-    16-byte pieces, as TMA reads them)."""
+    not divide it, the copy zero there). A block's wgmma takes the N tile
+    or, where the grid is small, a part of it; slices of 64 or 32 (bf16),
+    ``F32_KC`` (f32). Both kernels take Co a multiple of 32 and Ci a
+    multiple of 8 (the operand's rows whole 16-byte pieces, as TMA reads
+    them)."""
     if not conv_takes(Co, Ci):
         raise ValueError(f"mrf_conv takes Co a multiple of 32 and Ci a multiple of 8, got "
                          f"Co={Co}, Ci={Ci}")
@@ -153,7 +166,7 @@ def conv_tiles(Co: int, Ci: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[i
 def conv_takes(Co: int, Ci: int) -> bool:
     """Whether ``mrf_conv``'s kernels take these channels: Co a multiple of
     32, Ci of 8 (the rule in ``csrc/mrf.cu::conv_plan`` and
-    ``csrc/mrf_f32.cu::launch_mrf_f32``)."""
+    ``csrc/mrf_f32.cu::conv_plan``)."""
     return Co % 32 == 0 and Ci % 8 == 0 and Ci >= 8
 
 
@@ -162,44 +175,56 @@ def slices(Ci: int, KC: int) -> int:
     return -(-Ci // KC)
 
 
-def tile_offset(j, co, ci, K: int, Co: int, Ci: int, dtype: torch.dtype = torch.bfloat16):
+def tile_offset(j, co, ci, K: int, Co: int, Ci: int, dtype: torch.dtype = torch.bfloat16,
+                plane: int = 0):
     """Element offset of w[j, co, ci] in ``tile_conv``'s copy of weights of
     ``dtype``, as the kernel addresses it (ints, or integer tensors that
-    broadcast): N tile co // NI, slice ci // KC, tap j, then the tile (NI x
-    KC). bf16: as 8-channel groups of rows of 8, [KC / 8][NI][8] (the
-    no-swizzle core-matrix layout of a K-major wgmma operand). f32:
-    channel-major, [KC][NI] (a thread's 4 channels one 16-byte load)."""
+    broadcast): N tile co // NI, slice ci // KC, tap j, then the tile in the
+    no-swizzle core-matrix layout of a K-major wgmma operand, 16-byte
+    groups of input channels of rows of NI: bf16 [KC / 8][NI][8]; f32 the
+    ``plane`` (0 hi, 1 lo: ``tf32_split``) of two such tiles side by side,
+    [2][KC / 4][NI][4]."""
     NI, KC = conv_tiles(Co, Ci, dtype)
     tile = ((co // NI) * slices(Ci, KC) + ci // KC) * K + j
     if dtype == torch.float32:
-        return tile * NI * KC + (ci % KC) * NI + co % NI
+        return ((tile * 2 + plane) * NI * KC + ((ci % KC) // 4) * NI * 4 + (co % NI) * 4
+                + ci % 4)
     return tile * NI * KC + ((ci % KC) // 8) * NI * 8 + (co % NI) * 8 + ci % 8
 
 
 def tile_conv(w: torch.Tensor) -> torch.Tensor:
     """(K, Co, Ci) tap-major weights -> the tiled copy of the kernel of
-    their type (``tile_offset``): one contiguous NI x KC tile per (N tile,
-    slice, tap), zero past Ci in the last slice; shape (Co / NI, ceil(Ci /
-    KC), K, KC / 8, NI, 8) for bf16 (one bulk copy a tile) and (Co / NI,
-    ceil(Ci / KC), K, KC, NI) for f32 (a slice's taps one run)."""
+    their type (``tile_offset``): one contiguous tile per (N tile, slice,
+    tap), zero past Ci in the last slice; shape (Co / NI, ceil(Ci / KC), K,
+    KC / 8, NI, 8) for bf16 and, split once here into hi and lo planes,
+    (Co / NI, ceil(Ci / KC), K, 2, KC / 4, NI, 4) for f32. A ring stage's
+    consecutive taps are one run."""
     K, Co, Ci = w.shape
     NI, KC = conv_tiles(Co, Ci, w.dtype)
     ns = slices(Ci, KC)
     w = F.pad(w, (0, ns * KC - Ci))
     if w.dtype == torch.float32:
-        return w.reshape(K, Co // NI, NI, ns, KC).permute(1, 3, 0, 4, 2).contiguous()
+        t = torch.stack(tf32_split(w), 1)  # (j, plane, co, ci)
+        t = t.reshape(K, 2, Co // NI, NI, ns, KC // 4, 4)  # (j, p, nt, co, s, g, e)
+        return t.permute(2, 4, 0, 1, 5, 3, 6).contiguous()
     t = w.reshape(K, Co // NI, NI, ns, KC // 8, 8)  # (j, nt, co, s, g, e)
     return t.permute(1, 3, 0, 4, 2, 5).contiguous()
 
 
-def read_tiled(wt: torch.Tensor, K: int, Co: int, Ci: int) -> torch.Tensor:
+def read_tiled(wt: torch.Tensor, K: int, Co: int, Ci: int,
+               plane: Optional[int] = None) -> torch.Tensor:
     """The (K, Co, Ci) weights back from a tiled copy, every element read at
     its ``tile_offset`` for the copy's type (the plain reader of the
-    kernels' layouts)."""
+    kernels' layouts); an f32 copy's ``plane`` (0 hi, 1 lo), or by default
+    the sum of both, the weights themselves."""
     j = torch.arange(K)[:, None, None]
     co = torch.arange(Co)[None, :, None]
     ci = torch.arange(Ci)[None, None, :]
-    return wt.reshape(-1)[tile_offset(j, co, ci, K, Co, Ci, wt.dtype)]
+    flat = wt.reshape(-1)
+    if wt.dtype != torch.float32:
+        return flat[tile_offset(j, co, ci, K, Co, Ci, wt.dtype)]
+    at = lambda p: flat[tile_offset(j, co, ci, K, Co, Ci, wt.dtype, p)]
+    return at(0) + at(1) if plane is None else at(plane)
 
 
 def pack_conv(conv, dtype: torch.dtype) -> ConvWeights:
@@ -380,7 +405,7 @@ def _require_conv(cw: ConvWeights, Ci: int, name: str):
     if cw.wt is None:
         raise ValueError(f"{name}: the weights have no tiled copy (pack_conv, tile_conv)")
     NI, KC = conv_tiles(Co, Ci, dt)
-    tile = (KC, NI) if dt == torch.float32 else (KC // 8, NI, 8)
+    tile = (2, KC // 4, NI, 4) if dt == torch.float32 else (KC // 8, NI, 8)
     build.require(cw.wt, dt, (Co // NI, slices(Ci, KC), K, *tile), f"{name}.wt")
     build.require(cw.b, torch.float32, (Co,), f"{name}.b")
 

@@ -62,9 +62,10 @@ SHAPES = [(3, 32, 32), (7, 64, 64), (11, 128, 128), (3, 256, 256), (3, 128, 32),
 @pytest.mark.parametrize("K,Co,Ci", SHAPES)
 def test_f32_tiled_copy_reads_back(K, Co, Ci):
     """``pack_conv(..., float32)``'s copy has the f32 kernel's shape (Co /
-    NI, ceil(Ci / 16), K, 16, NI); every weight read at ``tile_offset`` is
-    the tap-major weight, exactly; past Ci it is zero; each (N tile,
-    slice) is one run of K x 16 x NI, the taps' tiles in order."""
+    NI, ceil(Ci / 16), K, 2, 4, NI, 4): the hi and lo planes of each tap's
+    tile; every weight read at ``tile_offset`` (both planes added) is the
+    tap-major weight, exactly; past Ci it is zero; each (N tile, slice) is
+    one run of K x 2 tiles of 16 x NI, the taps' tiles in order."""
     rng = np.random.default_rng(K * 1000 + Co + Ci)
     conv = torch.nn.Conv1d(Ci, Co, K, padding=K // 2)
     with torch.no_grad():
@@ -73,14 +74,18 @@ def test_f32_tiled_copy_reads_back(K, Co, Ci):
     NI, KC = mrf.conv_tiles(Co, Ci, torch.float32)
     ns = -(-Ci // KC)
     assert KC == mrf.F32_KC == 16 and NI == (128 if Co % 128 == 0 else 64 if Co % 64 == 0 else 32)
-    assert cw.wt.dtype == torch.float32 and cw.wt.shape == (Co // NI, ns, K, KC, NI)
+    assert cw.wt.dtype == torch.float32 and cw.wt.shape == (Co // NI, ns, K, 2, KC // 4, NI, 4)
     assert torch.equal(mrf.read_tiled(cw.wt, K, Co, Ci), cw.w)
     assert torch.equal(cw.w, conv.weight.detach().permute(2, 0, 1))
     if ns * KC > Ci:
-        assert not cw.wt[:, -1, :, Ci - (ns - 1) * KC:].any()
-    assert mrf.tile_offset(1, 0, 0, K, Co, Ci, torch.float32) == KC * NI
+        past = torch.arange(KC) >= Ci - (ns - 1) * KC  # the last slice's channels past Ci
+        last = cw.wt[:, -1].permute(0, 1, 2, 3, 5, 4).reshape(Co // NI, K, 2, KC, NI)
+        assert not last[:, :, :, past].any()
+    assert mrf.tile_offset(0, 0, 0, K, Co, Ci, torch.float32, plane=1) == KC * NI
+    assert mrf.tile_offset(1, 0, 0, K, Co, Ci, torch.float32) == 2 * KC * NI
+    assert mrf.tile_offset(0, 0, 4, K, Co, Ci, torch.float32) == 4 * NI
     if ns > 1:
-        assert mrf.tile_offset(0, 0, KC, K, Co, Ci, torch.float32) == K * KC * NI
+        assert mrf.tile_offset(0, 0, KC, K, Co, Ci, torch.float32) == 2 * K * KC * NI
 
 
 @pytest.mark.parametrize("k,u,Ci,Co", [(16, 8, 64, 32), (16, 8, 32, 16), (4, 2, 64, 32),
@@ -95,7 +100,8 @@ def test_f32_folded_upsample_copy_reads_back(k, u, Ci, Co):
     uw = mrf.make_upsample(w, b, u, (k - u) // 2)
     cw = uw.folded
     NI, KC = mrf.conv_tiles(u * Co, Ci, torch.float32)
-    assert cw.w.dtype == torch.float32 and cw.wt.shape == (u * Co // NI, -(-Ci // KC), 3, KC, NI)
+    assert cw.w.dtype == torch.float32 and cw.wt.shape == (u * Co // NI, -(-Ci // KC), 3, 2,
+                                                           KC // 4, NI, 4)
     assert torch.equal(mrf.read_tiled(cw.wt, 3, u * Co, Ci), cw.w)
 
 
