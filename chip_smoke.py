@@ -23,6 +23,7 @@
     python3 chip_smoke.py --gst     # the kernels' build and phase 4i alone
     python3 chip_smoke.py --dp      # the kernels' build and phase 4j alone
     python3 chip_smoke.py --mesh    # the kernels' build and phase 4k alone
+    python3 chip_smoke.py --v2v3    # the kernels' build and phase 4l alone
 
 Phases, each of which must pass:
 
@@ -248,6 +249,23 @@ Phases, each of which must pass:
    step from the same state (``DP_TOL`` in a one-rank group), the
    replicated weights bit for bit in each model group; (c) the device mel
    backend against the numpy one on a 10 s clip (``MEL_TOL``), timed;
+4l. HiFi-GAN V2 and V3 (``v2v3_phase``: jik876/hifi-gan's config_v2 and
+   config_v3 at their published widths, random weights as ``g_*`` files):
+   V2's stages 3 and 4 and its last upsample run the narrow kernel
+   (``csrc/mrf_narrow.cu``, C = 16 and 8), V3 ResBlock2 on the wide ones
+   (dilations to 12, the u = 4 fold). Every entry and stage against its
+   plain version at 1, 16 and 64 rows of the say's bucket, f32 within
+   K2F_TOL and bf16 within K2_TOL, fused pairs against their two launches;
+   the narrow kernel's planted defects (a copy of its source leaving each
+   channel's last tap out, TF32-rounded operands) at least
+   K2F_DEFECT_MARGIN x the limits; rows 0, 1, 37, 63 of a 64-row vocode
+   against the rows alone, bit for bit; ``say --hifi-gan-checkpoint`` with
+   each file through the CLI, K2 held to ``vocode_launches`` of its config
+   (f32, no bf16 entry), the WAV within VOCODE_F32_LSB of the plain f32
+   vocode of the exported mel, its RTF; the warm server with the V2
+   vocoder, a wave of 16 requests, each alone at 0 LSB; every entry timed
+   at 1, 16 and 64 rows beside cuDNN f32 and bf16 and the bound; the
+   kernels line gains the narrow rows and, on the wide rows, "v2" / "v3";
 5. print the kernels line and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero before the last line on any failure, when no CUDA device
@@ -354,6 +372,22 @@ UNIVERSAL_V1 = {
     "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]], "num_mels": 80,
     "sampling_rate": 22050, "hop_size": 256,
 }
+# the published generator configs of jik876/hifi-gan, config_v2.json and
+# config_v3.json (the HiFi-GAN paper's V2 and V3, 0.92 M and 1.46 M
+# parameters): V2 runs its stages 3 and 4 at 16 and 8 channels (the narrow
+# kernel), V3 ResBlock2 at 128, 64 and 32 with dilations up to 12
+HIFIGAN_V2 = {
+    "resblock": "1", "upsample_rates": [8, 8, 2, 2], "upsample_kernel_sizes": [16, 16, 4, 4],
+    "upsample_initial_channel": 128, "resblock_kernel_sizes": [3, 7, 11],
+    "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]], "num_mels": 80,
+    "sampling_rate": 22050, "hop_size": 256,
+}
+HIFIGAN_V3 = {
+    "resblock": "2", "upsample_rates": [8, 8, 4], "upsample_kernel_sizes": [16, 16, 8],
+    "upsample_initial_channel": 256, "resblock_kernel_sizes": [3, 5, 7],
+    "resblock_dilation_sizes": [[1, 2], [2, 6], [3, 12]], "num_mels": 80,
+    "sampling_rate": 22050, "hop_size": 256,
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -363,11 +397,14 @@ class SmokeFailure(RuntimeError):
 def vocode_launches(h: dict, dtype=None) -> dict:
     """K2's launches in one vocode of a HiFi-GAN of config ``h`` built under
     a policy of ``dtype`` (f32 by default, the commands' vocoder policy; its
-    entries counted as ``<entry>_f32``, ``mrf.F32_LAUNCHES``): one
-    ``conv_pre`` (stage 1's operand), one ``conv_transpose`` per stage,
-    one ``mrf_pair`` per ResBlock1 pair that it takes (channels up to 128)
-    and one ``mrf_conv`` per other conv (1, 4, 27 and 18 for UNIVERSAL_V1:
-    72 convs, in either mode)."""
+    entries counted as ``<entry>_f32``, ``mrf.F32_LAUNCHES``), every
+    counter of the mode (``mrf.launch_key``): one ``conv_pre`` (stage 1's
+    operand), one ``conv_transpose`` per stage, one ``mrf_pair`` per
+    ResBlock1 pair that it takes (channels one N tile) and one ``mrf_conv``
+    per other conv, each at 8 or 16 output channels the narrow kernel's
+    entry (``narrow_transpose``, ``narrow_pair``, ``narrow_conv``). 1, 4,
+    27 and 18 for UNIVERSAL_V1 (72 convs, in either mode); HIFIGAN_V2 1, 4,
+    9 + 9 and 18 + 18 narrow ones; HIFIGAN_V3 1, 3 and 18."""
     import torch
 
     from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
@@ -375,29 +412,34 @@ def vocode_launches(h: dict, dtype=None) -> dict:
     from tacotron2_tpu_torch.ops import mrf
 
     dtype = torch.float32 if dtype is None else dtype
-    n = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0, "conv_pre": 1}
-    for rbs, _ in HiFiGAN(HiFiGANConfig.from_dict(h), Policy(dtype)).kernel_weights():
-        n["conv_transpose"] += 1
+    gen = HiFiGAN(HiFiGANConfig.from_dict(h), Policy(dtype))
+    n = dict.fromkeys(mrf.F32_LAUNCHES if dtype == torch.float32 else mrf.LAUNCHES, 0)
+    n[mrf.launch_key("conv_pre", gen.conv_pre_weights())] += 1
+    for rbs, ups in gen.kernel_weights():
+        n[mrf.launch_key("conv_transpose", ups.folded)] += 1
         for rb in rbs:
             for c1, c2 in rb:
                 if mrf.pair_fusable(c1, c2):
-                    n["mrf_pair"] += 1
+                    n[mrf.launch_key("mrf_pair", c1)] += 1
                 else:
-                    n["mrf_conv"] += 1 if c2 is None else 2
-    suffix = "_f32" if dtype == torch.float32 else ""
-    return {k + suffix: v for k, v in n.items()}
+                    for cw in (c1, c2):
+                        if cw is not None:
+                            n[mrf.launch_key("mrf_conv", cw)] += 1
+    return n
 
 
-def check_vocode_launches(launches: dict, vocodes: int, where: str, dtype=None) -> None:
-    """K2's launches in ``launches`` are ``vocodes`` vocodes of UNIVERSAL_V1
-    under ``dtype``'s policy (f32 by default), entry by entry, and the
-    other mode's entries, where counted, none."""
+def check_vocode_launches(launches: dict, vocodes: int, where: str, dtype=None,
+                          h: dict = UNIVERSAL_V1) -> None:
+    """K2's launches in ``launches`` are ``vocodes`` vocodes of the HiFi-GAN
+    config ``h`` (UNIVERSAL_V1 by default) under ``dtype``'s policy (f32 by
+    default), entry by entry, and the other mode's entries, where counted,
+    none."""
     import torch
 
     from tacotron2_tpu_torch.ops import mrf
 
     f32 = dtype is None or dtype == torch.float32
-    want = {k: v * vocodes for k, v in vocode_launches(UNIVERSAL_V1, dtype).items()}
+    want = {k: v * vocodes for k, v in vocode_launches(h, dtype).items()}
     want.update({k: 0 for k in (mrf.LAUNCHES if f32 else mrf.F32_LAUNCHES) if k in launches})
     if any(launches[k] != v for k, v in want.items()):
         raise SmokeFailure(f"{where}: K2 launched {[launches[k] for k in want]} times, "
@@ -593,13 +635,13 @@ def bf16_ulp(v):
     return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-38))) - 7), 0.0)
 
 
-def conv_pre_check(hifigan, mel, log: dict, tag: str):
+def conv_pre_check(hifigan, mel, log: dict, tag: str, kernel: str = "conv_pre"):
     """``conv_pre`` (``mrf_conv``'s kernel at Ci = num_mels, the sum rounded
     to bf16 before the bias) from the bf16 mel against ``operand(conv1d(...,
     round_out=True))`` (cuDNN, f32 sums of the bf16 operands): fails unless
     every element is within one bf16 ulp of the rounded sum plus one of the
     output, and at most CONV_PRE_SHARE of them differ; the share goes to
-    the log. -> the kernel's operand"""
+    the log under ``kernel``. -> the kernel's operand"""
     import torch
 
     from tacotron2_tpu_torch.models import layers
@@ -616,7 +658,7 @@ def conv_pre_check(hifigan, mel, log: dict, tag: str):
     a = float(diff.max())
     print(f"  conv_pre@{tag:<14} max_abs_err {a:.3e}  {100 * share:.4f}% of the elements "
           f"differ, each within one bf16 ulp: {over <= 0}")
-    log.setdefault("checks", []).append({"kernel": "conv_pre", "check": f"conv_pre@{tag}",
+    log.setdefault("checks", []).append({"kernel": kernel, "check": f"conv_pre@{tag}",
                                          "output": "a", "max_abs_err": a, "rel_err": share,
                                          "tol": CONV_PRE_SHARE, "within_one_ulp": over <= 0})
     if not (over <= 0 and share <= CONV_PRE_SHARE):
@@ -642,15 +684,16 @@ def random_tacotron(cfg, gate_bias: float, seed: int = SEED):
     return m.eval()
 
 
-def random_hifigan_state():
-    """UNIVERSAL_V1 generator state with weight norm (g, v) on every conv,
-    as the upstream ``g_*`` files store it."""
+def random_hifigan_state(h: dict = UNIVERSAL_V1, seed: int = SEED + 1):
+    """The generator state of config ``h`` (UNIVERSAL_V1 by default), drawn
+    from ``seed``, with weight norm (g, v) on every conv, as the upstream
+    ``g_*`` files store it."""
     import torch
 
     from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
 
-    torch.manual_seed(SEED + 1)
-    sd = HiFiGAN(HiFiGANConfig.from_dict(UNIVERSAL_V1)).state_dict()
+    torch.manual_seed(seed)
+    sd = HiFiGAN(HiFiGANConfig.from_dict(h)).state_dict()
     out = {}
     for k, v in sd.items():
         if k.endswith(".weight"):
@@ -663,16 +706,16 @@ def random_hifigan_state():
     return out
 
 
-def write_hifigan() -> str:
-    """``random_hifigan_state`` as an upstream ``g_*`` file with its
-    ``config.json`` under WORK -> the file's path."""
+def write_hifigan(h: dict = UNIVERSAL_V1, name: str = "hifigan", seed: int = SEED + 1) -> str:
+    """``random_hifigan_state(h, seed)`` as an upstream ``g_*`` file with
+    its ``config.json`` in WORK / ``name`` -> the file's path."""
     import torch
 
-    hdir = WORK / "hifigan"
+    hdir = WORK / name
     hdir.mkdir(parents=True, exist_ok=True)
-    (hdir / "config.json").write_text(json.dumps(UNIVERSAL_V1))
+    (hdir / "config.json").write_text(json.dumps(h))
     g_path = str(hdir / "g_00000000")
-    torch.save({"generator": random_hifigan_state()}, g_path)
+    torch.save({"generator": random_hifigan_state(h, seed)}, g_path)
     return g_path
 
 
@@ -2076,7 +2119,7 @@ def k2_phase(hifigan, log: dict, frames: int) -> None:
 
 
 def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
-              plain_reps: tuple = (5, 4)) -> list:
+              plain_reps: tuple = (5, 4), fuse_pairs: bool = True) -> list:
     """Time every K2 call of one vocode of ``Tb`` frames at ``rows_b`` rows,
     summed per kernel: the kernel; the library convs (``F.conv1d`` /
     ``F.conv_transpose1d`` in f32 with TF32 off on the operands the kernel
@@ -2104,7 +2147,15 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
     operations taken as three TF32 passes (3 x flops at the dense TF32 peak,
     the tensor cores' route to f32-exact products), with flops at the CUDA
     cores' FP32 peak beside it (``cuda_core_ms``); ``plain_reps`` the plain
-    version's repeats. At 64 rows every timing takes one warm-up call."""
+    version's repeats. At 64 rows every timing takes one warm-up call.
+
+    Calls at 8 or 16 output channels are the narrow kernel's
+    (``csrc/mrf_narrow.cu``; rows ``narrow_conv``, ``narrow_pair``,
+    ``narrow_transpose``, ``mrf.launch_key``): its bound's operations are
+    the flops at the CUDA cores' FP32 peak in f32 mode (the kernel's FFMA),
+    at the bf16 peak in bf16 mode. ``fuse_pairs`` False: every ResBlock1
+    pair as two ``mrf_conv`` launches (``run_stage`` without its pair
+    call), as the narrow kernel's ``narrow_conv`` is timed."""
     import torch
     import torch.nn.functional as F
 
@@ -2112,6 +2163,9 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
     from tacotron2_tpu_torch.ops import mrf
 
     calls = []
+
+    def key(name, cw):  # the kernels-line row of a call (no _f32: added below)
+        return mrf.launch_key(name, cw).removesuffix("_f32")
 
     def conv_hook(a, cw, res=None, acc=None, acc_scale=0.0, want_y=True, want_act=False,
                   acc_act=False):
@@ -2130,7 +2184,7 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 3)
     mel = torch.randn(rows_b, Tb, hifigan.cfg.num_mels, device="cuda", generator=g)
-    names = ("mrf_conv", "mrf_pair", "conv_transpose", "conv_pre")
+    names = tuple(mrf.LAUNCHES)
     tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_bf16_ms": 0.0,
                "bound_ms": 0.0, "eager_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                "traffic_ms": 0.0, "cuda_core_ms": 0.0, "calls": 0} for n in names}
@@ -2143,7 +2197,8 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
     calls.append(("conv_pre", a_mel))
     a = mrf.conv_pre(a_mel, cwp)
     K, Co, Ci = cwp.w.shape
-    parts0 = {"conv_pre": (nbytes(a_mel, cwp.w, cwp.b, a), 2 * rows_b * Tb * Co * Ci * K)}
+    parts0 = {key("conv_pre", cwp): (nbytes(a_mel, cwp.w, cwp.b, a),
+                                     2 * rows_b * Tb * Co * Ci * K)}
 
     def time_calls():  # the calls made so far, then dropped (a stage's operands at a time)
         torch.cuda.synchronize()
@@ -2152,7 +2207,6 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
         bf = torch.bfloat16
         for call in calls:
             name, x = call[0], call[1]
-            t = tot[name]
             if name in ("mrf_conv", "mrf_pair"):
                 _, a, cws, res, acc, s, want_y, want_act, acc_act = call
                 fn = mrf.mrf_conv if name == "mrf_conv" else mrf.mrf_pair
@@ -2180,6 +2234,7 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
                 nb = (nbytes(a, *(cw.wt for cw in cws), *(cw.b for cw in cws), res, acc)
                       + n_out * (4 * want_y + es * want_act + (s != 0.0) * (es if acc_act else 4)))
                 w_shape = list(cws[0].w.shape)
+                t = tot[key(name, cws[0])]
             elif name == "conv_transpose":
                 _, x, uw, want_act = call  # x: the input operand
                 Kt, _, Co = uw.w.shape
@@ -2197,6 +2252,7 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
                 nb = (nbytes(x, uw.folded.wt, uw.folded.b)
                       + x.shape[0] * Tout * Co * (4 + es * want_act))
                 w_shape = list(uw.w.shape)
+                t = tot[key(name, uw.folded)]
             else:  # conv_pre, from the bf16 mel x
                 kern = lambda: mrf.conv_pre(x, cwp)
                 plain_fn = lambda: mrf.conv_pre_plain(x, cwp)
@@ -2208,6 +2264,7 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
                 lib_bf16 = lambda: F.conv1d(xt, wt, b16, padding=Kp // 2)
                 nb = nbytes(x, cwp.wt, cwp.b) + x.shape[0] * x.shape[1] * cwp.w.shape[1] * es
                 w_shape = list(cwp.w.shape)
+                t = tot[key(name, cwp)]
             reps = ((1, 2) if rows_b >= 64 else (2, 2)) if big else (5, 4)
             ms = time_ms(kern, *reps, warm)
             traffic_ms = nb / card_peak("bytes") * 1e3
@@ -2229,18 +2286,22 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
         ain = a
         first = len(calls)
         last = i == len(kw) - 1
-        out = mrf.run_stage(None, rbs, ups, conv_hook, convt_hook, pair_hook, a, not last)
+        out = mrf.run_stage(None, rbs, ups, conv_hook, convt_hook,
+                            pair_hook if fuse_pairs else None, a, not last)
         y = out
         a = None if last else out
         Bn, T, Co = y.shape
         convs = [cw for rb in rbs for pair in rb for cw in pair if cw is not None]
         fl_stage = sum(2 * Bn * T * cw.w.numel() for cw in convs)
         nb_stage = nbytes(y, *(cw.w for cw in convs), *(cw.b for cw in convs))
-        fl_by = {n: sum(2 * Bn * T * cw.w.numel() for c in calls[first:] if c[0] == n
-                        for cw in c[2]) for n in ("mrf_conv", "mrf_pair")}
-        parts = {"conv_transpose": (nbytes(ain, ups.w, ups.b) + Bn * T * Co * (4 + es),
-                                    2 * Bn * T * Co * ain.shape[2]
-                                    * (ups.w.shape[0] // ups.stride))}
+        fl_by = {}
+        for c in calls[first:]:
+            if c[0] in ("mrf_conv", "mrf_pair"):
+                k = key(c[0], c[2][0])
+                fl_by[k] = fl_by.get(k, 0) + sum(2 * Bn * T * cw.w.numel() for cw in c[2])
+        parts = {key("conv_transpose", ups.folded): (
+            nbytes(ain, ups.w, ups.b) + Bn * T * Co * (4 + es),
+            2 * Bn * T * Co * ain.shape[2] * (ups.w.shape[0] // ups.stride))}
         if i == 0:
             parts.update(parts0)
         for n, fl in fl_by.items():
@@ -2248,7 +2309,10 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
                 parts[n] = (nb_stage * fl / fl_stage, fl)
         for name, (nb, fl) in parts.items():
             t = tot[name]
-            ops, peak = (3 * fl, card_peak("tf32")) if f32 else (fl, card_peak("bf16"))
+            if name.startswith("narrow"):  # FFMA on the CUDA cores in f32 mode
+                ops, peak = fl, card_peak("f32" if f32 else "bf16")
+            else:
+                ops, peak = (3 * fl, card_peak("tf32")) if f32 else (fl, card_peak("bf16"))
             t["bound_ms"] += bound_ms(nb, ops, peak)[0]
             t["bytes_ms"] += nb / card_peak("bytes") * 1e3
             t["ops_ms"] += ops / peak * 1e3
@@ -2257,8 +2321,13 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
     rows = []
     # the wrappers replace the on-path stage kernels (u=8 :312, u=2 :378);
     # the MRF without its upsample (:285) runs on mrf_conv / mrf_pair alone
+    narrow_where = ("tacotron2_tpu/ops/mrf_pallas.py:285,378 (the stage kernels at C = 16 "
+                    "and 8: the phase fold s = 128 / C, :440 and :516-517)")
     replaces = {"conv_transpose": "tacotron2_tpu/ops/mrf_pallas.py:312,378 (the upsample of "
                                   "the u=8 and u=2 stage kernels)",
+                "narrow_conv": narrow_where, "narrow_pair": narrow_where,
+                "narrow_transpose": "tacotron2_tpu/ops/mrf_pallas.py:378 (the u=2 stage "
+                                    "kernel's upsample to C = 8: its aligned fold, :516-517)",
                 "conv_pre": "tacotron2_tpu/models/hifigan.py:366 (conv_pre, XLA's conv under "
                             "the bf16 policy) and tacotron2_tpu/ops/mrf_pallas.py:312 (the u=8 "
                             "stage kernel's lrelu of its input)"}
@@ -2270,7 +2339,9 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
         where = replaces.get(name, "tacotron2_tpu/ops/mrf_pallas.py:312,378 (also :285)")
         rows.append({
             "name": name + ("_f32" if f32 else ""), "route": "cuda",
-            "source": "tacotron2_tpu_torch/csrc/" + ("mrf_f32.cu" if f32 else "mrf.cu"),
+            "source": "tacotron2_tpu_torch/csrc/" + (
+                "mrf_narrow.cu" if name.startswith("narrow") else "mrf_f32.cu" if f32
+                else "mrf.cu"),
             "replaces": (where.replace("the bf16 policy", "F32") + "; bf16=False, _dt = "
                          "jnp.float32 at mrf_pallas.py:463,540,636" if f32 else where),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4218,7 +4289,7 @@ def say_phase(cfg_path: str, log: dict, card: str):
     if res["n_frames"] != 256:
         raise SmokeFailure(f"forced full decode gave {res['n_frames']} frames, want 256")
     for k, n in launches.items():
-        if k in mrf.LAUNCHES:  # K2's bf16 mode: none on the say path (held above)
+        if k in k2_launch_keys():  # K2: the f32 plan exactly, none of the bf16 mode (above)
             continue
         if (n == 0) != (k in K5_KERNELS):  # K5 is the int8 path's, below
             raise SmokeFailure(f"kernel {k} was launched {n} times on the say path")
@@ -4348,7 +4419,7 @@ def say_int8_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) 
     if any(launches[k] != v for k, v in want.items()):
         raise SmokeFailure(f"int8 say: launches {[launches[k] for k in want]}, want {want}")
     for k, n in launches.items():
-        if n == 0 and k != "lstm_cell" and k not in mrf.LAUNCHES:
+        if n == 0 and k != "lstm_cell" and k not in k2_launch_keys():
             raise SmokeFailure(f"kernel {k} was not launched on the int8 say path")
     wav, _ = read_wav(out)
     if len(wav) != res["cut"] * 256 or not np.isfinite(wav).all():
@@ -4505,7 +4576,7 @@ def serve_phase(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> 
         want = {"lstm_cell": 2 * 256 * calls[0], "lstm_cell_int8": 2 * 256 * calls[1],
                 "quantize_xh": 2 * 256 * calls[1]}
         if any(launches[k] != v for k, v in want.items()) or any(
-                n == 0 for k, n in launches.items() if k not in mrf.LAUNCHES):
+                n == 0 for k, n in launches.items() if k not in k2_launch_keys()):
             raise SmokeFailure(f"serve launches {launches}, want {want} and every kernel "
                                "(K2 in its f32 mode)")
         check_vocode_launches(launches, sum(calls.values()), "serve waves")
@@ -8514,6 +8585,499 @@ def mesh_mode() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 4l: HiFi-GAN V2 and V3 on the card (the narrow kernel, ResBlock2)
+
+V2V3 = {"v2": HIFIGAN_V2, "v3": HIFIGAN_V3}
+V2V3_SEED = {"v2": SEED + 91, "v3": SEED + 92}  # each generator's random weights
+V2V3_ROWS = (1, 16, 64)  # the say's one row and the serve windows' rows
+V2V3_INVARIANCE_ROWS = (0, 1, 37, 63)  # rows of a 64-row vocode held against the rows alone
+V2V3_WAVE = 16  # the V2 server's wave of concurrent requests
+V2V3_FRAMES = 256  # the forced decode of the say and the served requests
+V2V3_SERVE_LSB = 0  # a request of the wave against the same request alone, PCM16 LSB
+# a planted defect of the narrow kernel: a copy of csrc/mrf_narrow.cu whose
+# sums leave each (channel)'s last tap out, held at least K2F_DEFECT_MARGIN x
+# the limits (with the operands and weights rounded to TF32 in f32 mode)
+NARROW_DEFECTS = (("narrow_last_tap", [(r"for \(int j = 0; j < K; \+\+j\) \{",
+                                        "for (int j = 0; j < K - 1; ++j) {")]),)
+
+
+def narrow_copies():
+    """Start nvcc of the NARROW_DEFECTS copies of csrc/mrf_narrow.cu (under
+    build/defects) -> a function that waits for them: {name: library}."""
+    return build_copies("mrf_narrow", NARROW_DEFECTS, ROOT / "build" / "defects", wait=False)
+
+
+@contextlib.contextmanager
+def narrow_library(path):
+    """K2's narrow entries launch another build of csrc/mrf_narrow.cu (a
+    defect's copy) inside the block."""
+    import ctypes
+
+    from tacotron2_tpu_torch.ops import mrf
+
+    saved = mrf._lib_narrow()
+    lib = ctypes.CDLL(str(path))
+    mrf._LIB_NARROW = mrf.bind(mrf.bind(lib, "", "narrow"), "_f32", "narrow")
+    try:
+        yield
+    finally:
+        mrf._LIB_NARROW = saved
+
+
+def v2v3_stages(gen, tag: str, Tb: int, B: int, g, log: dict, copies=None) -> dict:
+    """One generator's K2 entries against their plain versions at ``B`` rows
+    of ``Tb`` frames, each stage from the plain stage's input (as 3f):
+    ``conv_pre``, each upsample and its operand, each stage's first conv or
+    fused pair alone on the upsample's operand (no residual: the conv's own
+    sum) and the whole stage (ResBlock2's single convs carrying the
+    residual). f32 within K2F_TOL of the output's max, bf16 within K2_TOL
+    (``conv_pre`` by ``conv_pre_check``). Bit for bit, failing the run: each
+    fused pair against its two launches, and at the narrow widths the
+    pair's first conv alone with the residual (``narrow_conv``). With
+    ``copies`` (the defects' builds), at the narrow entries: the planted defects' readings, each of
+    the output's own max -> {defect: [readings]}. A check's kernel is the entry's counter name,
+    ``[tag]`` added for the wide entries (their kernels-line rows are
+    UNIVERSAL_V1's)."""
+    import torch
+
+    from tacotron2_tpu_torch.models import layers
+    from tacotron2_tpu_torch.ops import mrf
+
+    dt = gen.policy.compute_dtype
+    f32 = dt == torch.float32
+    tol, own = (K2F_TOL, True) if f32 else (K2_TOL, False)
+    label = lambda key: key if key.startswith("narrow") else f"{key}[{tag}]"
+    kw, cwp = gen.kernel_weights(), gen.conv_pre_weights()
+    mel = torch.randn(B, Tb, gen.cfg.num_mels, device="cuda", generator=g)
+    at = f"[{tag}]@B{B}x{Tb}"
+    key = mrf.launch_key("conv_pre", cwp)
+    if f32:
+        check(f"{key}{at}", [("a", mrf.conv_pre(mel, cwp), mrf.conv_pre_plain(mel, cwp))], tol,
+              log, label(key), own)
+    else:
+        conv_pre_check(gen, mel, log, f"{tag} B{B}", label(key))
+    x = layers.conv1d(mel, gen.conv_pre.weight, gen.conv_pre.bias, gen.policy, padding=3,
+                      round_out=True)
+    defects: dict = {}
+    for i, (rbs, ups) in enumerate(kw):
+        x = x.contiguous()
+        a = mrf.operand(x, dt)
+        xu, au = mrf.conv_transpose_plain(a, ups, want_act=True)
+        key = mrf.launch_key("conv_transpose", ups.folded)
+        yk, ak = mrf.conv_transpose(a, ups, want_act=True)
+        check(f"{key}[{tag} {i}]@B{B}", [("out", yk, xu), ("act", ak, au)], tol, log,
+              label(key), own)
+        if copies is not None and key.startswith("narrow"):
+            with narrow_library(copies["narrow_last_tap"]):
+                d_out = mrf.conv_transpose(a, ups)[0]
+            defects.setdefault("narrow_last_tap", []).append(
+                {"call": f"{key}[{tag} {i}]@B{B}", "rel_err": err(d_out, xu, True)[1]})
+        del yk, ak, a
+        c1, c2 = rbs[0][0]
+        pair = mrf.pair_fusable(c1, c2)
+        key = mrf.launch_key("mrf_pair" if pair else "mrf_conv", c1)
+        xu, au = xu.contiguous(), au.contiguous()
+        kern, plain = (mrf.mrf_pair, mrf.mrf_pair_plain) if pair else (mrf.mrf_conv,
+                                                                        mrf.mrf_conv_plain)
+        one = ((lambda f, a, c1, c2: f(a, c1, c2, want_act=True)) if pair else
+               (lambda f, a, c1, c2: f(a, c1, want_act=True)))
+        p_out = one(plain, au, c1, c2)
+        k_out = one(kern, au, c1, c2)
+        check(f"{key}[{tag} {i}]@B{B}", [("y", k_out[0], p_out[0]), ("act", k_out[1], p_out[1])],
+              tol, log, label(key), own)
+        if pair and key.startswith("narrow"):  # the pair's first conv alone: narrow_conv
+            ck = mrf.launch_key("mrf_conv", c1)
+            check(f"{ck}[{tag} {i}]@B{B}", list(zip(
+                ("y", "act"), mrf.mrf_conv(au, c1, xu, want_act=True)[:2],
+                mrf.mrf_conv_plain(au, c1, xu, want_act=True)[:2])), tol, log, ck, own)
+        if copies is not None and key.startswith("narrow"):
+            with narrow_library(copies["narrow_last_tap"]):
+                d_out = one(kern, au, c1, c2)[0]
+            defects.setdefault("narrow_last_tap", []).append(
+                {"call": f"{key}[{tag} {i}]@B{B}", "rel_err": err(d_out, p_out[0], True)[1]})
+            if f32:
+                d_out = one(kern, tf32_round(au), rounded_conv(c1, tf32_round),
+                            rounded_conv(c2, tf32_round) if pair else None)[0]
+                defects.setdefault("tf32_operands", []).append(
+                    {"call": f"{key}[{tag} {i}]@B{B}", "rel_err": err(d_out, p_out[0], True)[1]})
+        del k_out, p_out
+        if pair:
+            acc = torch.randn(xu.shape, device="cuda", generator=g)
+            fused = mrf.mrf_pair(au, c1, c2, xu, acc, 0.25, True, True)
+            _, a1, _ = mrf.mrf_conv(au, c1, want_y=False, want_act=True)
+            unfused = mrf.mrf_conv(a1, c2, xu, acc, 0.25, True, True)
+            if not all(torch.equal(f, u) for f, u in zip(fused, unfused)):
+                raise SmokeFailure(f"{key}[{tag} {i}]@B{B}: the fused pair differs from its two "
+                                   "mrf_conv launches")
+            del acc, fused, a1, unfused
+        del xu, au
+        ref = mrf.plain_stage(x, rbs, ups)
+        check(f"mrf_stage{'_f32' if f32 else ''}[{tag} {i}]@B{B}",
+              [("out", mrf.mrf_stage(x, rbs, ups), ref)], tol, log, label(key), own)
+        x = ref
+    return defects
+
+
+def v2v3_invariance(gen, tag: str, Tb: int, g) -> None:
+    """Rows V2V3_INVARIANCE_ROWS of a 64-row vocode against each row alone,
+    bit for bit, failing the run: every K2 output of the served route
+    (``conv_pre``, each stage passing its mean's operand on) and, for an
+    F32 generator, ``HiFiGAN.apply``'s audio."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import mrf
+
+    kw, cwp = gen.kernel_weights(), gen.conv_pre_weights()
+    dt = gen.policy.compute_dtype
+
+    def route(m):
+        outs = [mrf.conv_pre(m.to(dt), cwp)]
+        for i, (rbs, ups) in enumerate(kw):
+            outs.append(mrf.mrf_stage(None, rbs, ups, outs[-1], want_operand=i < len(kw) - 1))
+        return outs
+
+    n = max(V2V3_INVARIANCE_ROWS) + 1
+    mel = torch.randn(n, Tb, gen.cfg.num_mels, device="cuda", generator=g)
+    batch = route(mel)
+    wav = gen.apply(mel) if dt == torch.float32 else None
+    for r in V2V3_INVARIANCE_ROWS:
+        if not all(torch.equal(b[r:r + 1], o) for b, o in zip(batch, route(mel[r:r + 1]))):
+            raise SmokeFailure(f"K2 {tag} {dt}: row {r} of a {n}-row vocode differs from the row "
+                               "alone")
+        if wav is not None and not torch.equal(wav[r:r + 1], gen.apply(mel[r:r + 1])):
+            raise SmokeFailure(f"the {tag} F32 vocode (HiFiGAN.apply): row {r} of {n} differs "
+                               "from the row alone")
+
+
+def v2v3_say(tag: str, h: dict, cfg_path: str, ckpt: str, g_path: str, log: dict,
+             card: str) -> dict:
+    """``say --hifi-gan-checkpoint`` of a V2 / V3 ``g_*`` file through the CLI
+    entry (the forced 256-frame decode of phase 4's checkpoint,
+    ``--export-mel``), with the launch counters set to 0 before it and read
+    after: K2's exactly ``vocode_launches(h)`` of the f32 mode, none of the
+    bf16 mode, one weight packing. The WAV against the plain f32 vocode of
+    the exported mel (VOCODE_F32_LSB); then a bf16 generator's vocode of the
+    same mel (K2's bf16 mode, its launches the bf16 rows' count) reported
+    against it. -> {"f32": launches, "bf16": launches, "perf": ...}"""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.audio.io import read_wav
+    from tacotron2_tpu_torch.models import hifigan as hifigan_mod
+    from tacotron2_tpu_torch.models.layers import Policy
+    from tacotron2_tpu_torch.ops import mrf
+    from tacotron2_tpu_torch.run.say import cut_vocode, load_hifigan, vocode_bucket
+
+    out = str(WORK / f"say_{tag}.wav")
+    say = lambda: cli(["say", "--config", cfg_path, "--checkpoint", ckpt, "--hifi-gan-checkpoint",
+                       g_path, "--text", TEXT, "--out", out, "--random-seed", str(SEED),
+                       "--max-len-override", str(V2V3_FRAMES), "--export-mel"])
+    say()  # warm-up
+    mrf.reset_launches()
+    packs0 = hifigan_mod.PACK_CALLS[0]
+    res = say()
+    got = {**mrf.LAUNCHES, **mrf.F32_LAUNCHES}
+    packs = hifigan_mod.PACK_CALLS[0] - packs0
+    print(f"  say {tag}: {res['n_frames']} frames, cut {res['cut']}; K2 launches "
+          f"{ {k: v for k, v in got.items() if v} }, weight packings {packs}")
+    check_vocode_launches(got, 1, f"say {tag}", h=h)
+    if packs != 1 or res["n_frames"] != V2V3_FRAMES:
+        raise SmokeFailure(f"say {tag}: {res}, {packs} weight packings (want {V2V3_FRAMES} "
+                           "frames, 1)")
+    wav, _ = read_wav(out)
+    mel = torch.as_tensor(np.load(out + ".npy").T[None].copy(), device="cuda")
+    dev = torch.device("cuda")
+    h32 = load_hifigan(g_path, dev)
+    cut = res["cut"]
+    Tb = vocode_bucket(h32, cut)
+    hop = h32.cfg.total_upsample
+    plain = cut_vocode(h32, mel, [0], [cut], Tb, plain=True)[0, :cut * hop].long().cpu()
+    pcm = torch.as_tensor(np.round(wav * 32768.0)).long()
+    if len(wav) != cut * hop or not np.isfinite(wav).all() or not np.abs(wav).max() > 0:
+        raise SmokeFailure(f"say {tag}: bad wav, {len(wav)} samples for cut {cut}")
+    lsb = (pcm - plain).abs().float()
+    vs_plain = {"max_lsb": float(lsb.max()), "mean_lsb": float(lsb.mean()),
+                "samples": len(wav), "peak_lsb": float(plain.abs().max()),
+                "tol_lsb": VOCODE_F32_LSB}
+    print(f"  say {tag}'s WAV against the plain f32 vocode of its mel, PCM16 LSB: {vs_plain}")
+    if not vs_plain["max_lsb"] <= VOCODE_F32_LSB:
+        raise SmokeFailure(f"say {tag}'s WAV against the plain f32 vocode: {vs_plain}")
+    hbf = load_hifigan(g_path, dev, Policy(torch.bfloat16))
+    cut_vocode(hbf, mel, [0], [cut], Tb)  # packs the bf16 copies
+    mrf.reset_launches()
+    pcm_bf = cut_vocode(hbf, mel, [0], [cut], Tb)[0, :cut * hop].long().cpu()
+    bf16 = dict(mrf.LAUNCHES)
+    check_vocode_launches({**bf16, **mrf.F32_LAUNCHES}, 1, f"the bf16 {tag} vocode",
+                          torch.bfloat16, h)
+    lsb_bf = (pcm_bf - pcm).abs().float()
+    perf = {"rtf": res["say_s"] / res["audio_s"],
+            "vocoder_us_per_frame": res["vocode_s"] / cut * 1e6,
+            "decode_us_per_step": res["decode_s"] / res["n_frames"] * 1e6,
+            "say_s": res["say_s"], "audio_s": res["audio_s"], "card": card}
+    print(f"  say {tag}: RTF {perf['rtf']:.4f}, vocoder {perf['vocoder_us_per_frame']:.1f} "
+          f"us/frame (host clock), decode {perf['decode_us_per_step']:.1f} us/step on {card}; "
+          f"bf16 vocode against the f32 WAV, max {float(lsb_bf.max()):.0f} / mean "
+          f"{float(lsb_bf.mean()):.2f} LSB (reported)")
+    log.setdefault("v2v3", {}).setdefault(tag, {})["say"] = {
+        "run": res, "launches": got, "vs_plain": vs_plain, "perf": perf,
+        "bf16_vs_f32": {"max_lsb": float(lsb_bf.max()), "mean_lsb": float(lsb_bf.mean())}}
+    del h32, hbf
+    return {"f32": {k: v for k, v in got.items() if k in mrf.F32_LAUNCHES}, "bf16": bf16,
+            "perf": perf}
+
+
+def v2_serve(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> dict:
+    """The warm server in this process (``do_server``) with one entry of
+    phase 4's checkpoint and the V2 ``g_*`` file: a warm-up request, then a
+    wave of V2V3_WAVE concurrent requests, which must coalesce, with K2's
+    launches held to ``vocode_launches(HIFIGAN_V2)`` a decode launch (f32,
+    no bf16 entry), then every request of the wave alone, each within
+    V2V3_SERVE_LSB of its batched audio. -> K2's f32 launches in the wave."""
+    import concurrent.futures
+    import os
+    import threading
+
+    import numpy as np
+
+    from tacotron2_tpu_torch.audio.io import read_wav
+    from tacotron2_tpu_torch.ops import mrf
+    from tacotron2_tpu_torch.run import server as srv
+
+    root = WORK / "serve_v2"
+    root.mkdir(parents=True, exist_ok=True)
+    config = {"models": [{"name": "vanilla-v2", "config": cfg_path, "checkpoint": ckpt,
+                          "hifi_gan_checkpoint": g_path, "max_len": V2V3_FRAMES,
+                          "multi_speaker": False,
+                          "controllable": False, "num_voices": 1}],
+              "batching": {"enabled": True, "window_ms": 8, "max_batch": 64, "depth": 2},
+              "warmup": False}
+    cwd = os.getcwd()
+    os.chdir(root)
+    started, holder = threading.Event(), {}
+    thread = threading.Thread(target=lambda: holder.setdefault("result", srv.do_server(
+        0, config, "warm", host="127.0.0.1",
+        on_start=lambda h: (holder.setdefault("httpd", h), started.set()))), daemon=True)
+    pcm = lambda body: np.round(read_wav(str(root / body["path"]))[0] * 32768.0)
+    try:
+        thread.start()
+        while not started.wait(0.5):
+            if not thread.is_alive():
+                raise SmokeFailure("the V2 server did not start")
+        port = holder["httpd"].server_address[1]
+        status, body, _ = _post(port, {"text": TEXT, "model": 0, "seed": 1})
+        if status != 200:
+            raise SmokeFailure(f"V2 server warm-up: {status} {body}")
+        payloads = [{"text": TRAIN_TEXTS[i % len(TRAIN_TEXTS)], "model": 0, "seed": 200 + i}
+                    for i in range(V2V3_WAVE)]
+        barrier = threading.Barrier(V2V3_WAVE)
+
+        def one(p):
+            barrier.wait()
+            return _post(port, p)
+
+        mrf.reset_launches()
+        calls0 = srv.BATCH_CALLS[0]
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(V2V3_WAVE) as ex:
+            replies = list(ex.map(one, payloads))
+        wall = time.perf_counter() - t0
+        calls = srv.BATCH_CALLS[0] - calls0
+        got = {**mrf.LAUNCHES, **mrf.F32_LAUNCHES}
+        if any(s != 200 for s, _, _ in replies) or not 1 <= calls < V2V3_WAVE:
+            raise SmokeFailure(f"V2 wave of {V2V3_WAVE}: {[(s, b) for s, b, _ in replies][:2]}, "
+                               f"{calls} decode launches")
+        check_vocode_launches(got, calls, "the V2 serve wave", h=HIFIGAN_V2)
+        lsb = []
+        for p, (_, body, _) in zip(payloads, replies):
+            st, solo, _ = _post(port, p)
+            a, b = pcm(body), pcm(solo)
+            if st != 200 or len(a) != len(b):
+                raise SmokeFailure(f"V2 request {p['seed']} alone: {st}, {len(b)} samples, "
+                                   f"batched {len(a)}")
+            lsb.append(float(np.abs(a - b).max()))
+    finally:
+        if "httpd" in holder:
+            holder["httpd"].shutdown()
+        thread.join(60)
+        os.chdir(cwd)
+    wave = {"requests": V2V3_WAVE, "decode_launches": calls, "wall_s": wall,
+            "max_lsb_alone": max(lsb), "lsb_alone": lsb, "card": card}
+    print(f"  V2 server: a wave of {V2V3_WAVE} in {calls} decode launches, {wall:.2f} s; each "
+          f"request alone, max {max(lsb):.0f} PCM16 LSB from its batched audio on {card}")
+    log.setdefault("v2v3", {}).setdefault("v2", {})["serve"] = wave
+    if not max(lsb) <= V2V3_SERVE_LSB:
+        raise SmokeFailure(f"V2 served requests differ from alone by {max(lsb)} LSB > "
+                           f"{V2V3_SERVE_LSB}")
+    return {k: v for k, v in got.items() if k in mrf.F32_LAUNCHES}
+
+
+def v2v3_phase(cfg_path: str, ckpt: str, log: dict, card: str, copies=None) -> tuple:
+    """Phase 4l: HiFi-GAN V2 and V3 (HIFIGAN_V2 / HIFIGAN_V3, random weights
+    from the seed at the published widths, weight norm as upstream stores
+    it, each a ``g_*`` file with its ``config.json``). For each: every K2
+    entry and stage against its plain version at V2V3_ROWS rows of the
+    say's bucket, f32 (the commands' vocoder) and bf16 (``v2v3_stages``),
+    the narrow kernel's planted defects at 16 rows at least
+    K2F_DEFECT_MARGIN x the limits, rows of a 64-row vocode bit for bit
+    against the rows alone (``v2v3_invariance``), ``say`` through the CLI
+    (``v2v3_say``), then for V2 the warm server's wave (``v2_serve``), and
+    every entry timed at V2V3_ROWS rows (``k2_timing``: kernel, cuDNN f32
+    and bf16, bound; the plain version at one row; ``narrow_conv`` with the
+    pairs unfused, into the log only: no published vocode launches it). -> (the kernels-line rows
+    of the narrow entries, {row name: {"v2" / "v3": readings}} for the wide
+    entries' rows, the narrow entries' launches on the path: the V2 say and
+    wave in f32, the V2 bf16 vocode in bf16)."""
+    import torch
+
+    from tacotron2_tpu_torch.models.layers import Policy
+    from tacotron2_tpu_torch.ops import mrf
+    from tacotron2_tpu_torch.run.say import load_hifigan, vocode_bucket
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 93)
+    narrow_rows, readings, launches = {}, {}, {}
+    defects: dict = {}
+    for tag, h in V2V3.items():
+        g_path = write_hifigan(h, f"hifigan_{tag}", V2V3_SEED[tag])
+        gens = {"f32": load_hifigan(g_path, dev), "bf16": load_hifigan(g_path, dev,
+                                                                        Policy(torch.bfloat16))}
+        Tb = vocode_bucket(gens["f32"], V2V3_FRAMES - 1)  # the say's bucket
+        n_params = sum(p.numel() for p in gens["f32"].parameters())
+        print(f"  {tag}: {n_params} parameters, Tb {Tb}; K2 a vocode, f32 "
+              f"{ {k: v for k, v in vocode_launches(h).items() if v} }")
+        t0 = time.perf_counter()
+        for B in V2V3_ROWS:
+            for mode, gen in gens.items():
+                libs = copies() if B == 16 and tag == "v2" else None
+                for k, v in v2v3_stages(gen, tag, Tb, B, g, log, libs).items():
+                    defects.setdefault(f"{k}[{mode}]", []).extend(v)
+            torch.cuda.empty_cache()
+        for gen in gens.values():
+            v2v3_invariance(gen, tag, Tb, g)
+        torch.cuda.empty_cache()
+        checks_s = time.perf_counter() - t0
+        print(f"  {tag}: every entry and stage against its plain version at {list(V2V3_ROWS)} "
+              f"rows (f32 and bf16), fused pairs against their two launches, rows "
+              f"{list(V2V3_INVARIANCE_ROWS)} of {max(V2V3_INVARIANCE_ROWS) + 1} alone bit for "
+              f"bit, in {checks_s:.1f} s")
+        said = v2v3_say(tag, h, cfg_path, ckpt, g_path, log, card)
+        path = {"f32": said["f32"], "bf16": said["bf16"]}
+        if tag == "v2":
+            for k, n in v2_serve(cfg_path, ckpt, g_path, log, card).items():
+                path["f32"][k] += n
+        t0 = time.perf_counter()
+        for mode, gen in gens.items():
+            for B in V2V3_ROWS:
+                big = B > 1
+                for r in k2_timing(gen, Tb, B, not big,
+                                   ((1, 2) if B >= 64 else (2, 2)) if big else (5, 4)):
+                    entry = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms", "library_bf16_ms", "eager_ms",
+                                               "traffic_ms", "per") if k in r}
+                    if r["name"].startswith("narrow"):
+                        row = narrow_rows.setdefault(r["name"], {**r, "rows": {}})
+                        row["rows"][f"B{B}"] = entry
+                    else:
+                        row = readings.setdefault(r["name"], {}).setdefault(
+                            tag, {"rows": {}, "launches_per_vocode": vocode_launches(
+                                h, gen.policy.compute_dtype)[r["name"]]})
+                        row["rows"][f"B{B}"] = entry
+                    print(f"  {tag} {r['name']} at {B} rows, Tb={Tb}: {r['ms']:.4f} ms, plain "
+                          f"{r['plain_ms']:.4f}, cuDNN f32 {r['library_ms']:.4f}"
+                          + (f", bf16 {r['library_bf16_ms']:.4f}" if r.get('library_bf16_ms')
+                             else "")
+                          + f", bound {r['bound_ms']:.4f} ({r['bound_by']}) on {card}")
+            torch.cuda.empty_cache()
+            if tag == "v2":  # narrow_conv: no published vocode launches it (its pairs fuse)
+                for B in V2V3_ROWS:
+                    for r in k2_timing(gen, Tb, B, B == 1, (5, 4) if B == 1 else (1, 2),
+                                       fuse_pairs=False):
+                        if r["name"].startswith("narrow_conv"):
+                            log.setdefault("narrow_conv", {}).setdefault(r["name"], {})[
+                                f"B{B}"] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                              "bound_by", "library_ms",
+                                                              "library_bf16_ms", "per")}
+                            print(f"  v2 {r['name']} (the pairs as two launches) at {B} rows: "
+                                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN f32 "
+                                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} on {card}")
+                torch.cuda.empty_cache()
+        log.setdefault("v2v3", {}).setdefault(tag, {}).update(
+            {"Tb": Tb, "params": n_params, "checks_s": checks_s,
+             "timing_s": time.perf_counter() - t0, "path_launches": path})
+        if tag == "v2":
+            for mode, counts in path.items():
+                launches.update({k: n for k, n in counts.items() if k.startswith("narrow")})
+        del gens
+        torch.cuda.empty_cache()
+    for dname, rs in defects.items():
+        lim = K2F_TOL if dname.endswith("[f32]") else K2_TOL
+        least = min(r["rel_err"] for r in rs)
+        log.setdefault("narrow_defects", {})[dname] = {"readings": rs, "least": least, "tol": lim}
+        print(f"  narrow kernel planted defect {dname}: least reading {least:.3e} "
+              f"({least / lim:.0f}x the limit {lim:g})")
+        if not least >= K2F_DEFECT_MARGIN * lim:
+            raise SmokeFailure(f"the planted defect {dname} reads {least:.3e}, under "
+                               f"{K2F_DEFECT_MARGIN:g} x {lim:g}")
+    if {"narrow_last_tap[f32]", "narrow_last_tap[bf16]", "tf32_operands[f32]"} - set(defects):
+        raise SmokeFailure(f"the narrow kernel's planted defects did not all run: {list(defects)}")
+    rows = []
+    for r in narrow_rows.values():  # the kernels line: the say's one row, the others in "rows"
+        r.update({k: r["rows"]["B1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms", "eager_ms", "traffic_ms", "per")})
+        if not launches.get(r["name"]):
+            raise SmokeFailure(f"{r['name']} was not launched on the V2 path: {launches}")
+        rows.append(r)
+    return rows, readings, launches
+
+
+def v2v3_mode() -> int:
+    """``--v2v3``: the kernels' build and phase 4l alone, on phase 4's
+    vanilla checkpoint (random full-width weights, gate bias 10); details to
+    ``chiprun_out/v2v3.json``."""
+    import torch
+
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.convert import to_lightning
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build
+
+    card = card_line()
+    print(f"[4l] alone on {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    use_f32_math()
+    t0 = time.perf_counter()
+    copies = narrow_copies()
+    logs = build.build_all()
+    log: dict = {"card": card, "build_s": time.perf_counter() - t0,
+                 "ptxas_kernels": {"mrf_narrow": ptxas_kernels(logs["mrf_narrow"])}}
+    print(f"  built in {log['build_s']:.1f} s; mrf_narrow: {log['ptxas_kernels']['mrf_narrow']}")
+    try:
+        WORK.mkdir(parents=True, exist_ok=True)
+        cfg_path = str(ROOT / "config" / "vanilla-ljspeech-stop.json")
+        ckpt = str(WORK / "tacotron2-run.ckpt")
+        torch.save(to_lightning(random_tacotron(load_config(cfg_path), 10.0).state_dict()), ckpt)
+        rows, readings, launches = v2v3_phase(cfg_path, ckpt, log, card, copies)
+        log.update({"rows": rows, "readings": readings, "launches": launches})
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    finally:
+        log["seconds"] = time.perf_counter() - t0
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "v2v3.json").write_text(json.dumps(log, indent=1, default=str))
+        shutil.rmtree(WORK, ignore_errors=True)
+        with contextlib.suppress(SmokeFailure):
+            copies()
+    print(f"  4l took {log['seconds']:.1f} s")
+    print(json.dumps({"kernels": [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                                                     "library_ms", "rows")} for r in rows],
+                      "launches": launches}))
+    print(card)
+    return 0
+
+
 def arg_value(flag: str, default: str) -> str:
     argv = sys.argv[1:]
     return argv[argv.index(flag) + 1] if flag in argv else default
@@ -8826,10 +9390,12 @@ def main() -> int:
         return dp_mode()
     if "--mesh" in sys.argv[1:]:
         return mesh_mode()
+    if "--v2v3" in sys.argv[1:]:
+        return v2v3_mode()
     log: dict = {}
     t_start = time.perf_counter()
     t_lap = [t_start]
-    pass_copies = None
+    pass_copies = defect_narrow = None
 
     def lap(name: str) -> None:  # seconds since the last lap, into log["phase_s"]
         now = time.perf_counter()
@@ -8855,6 +9421,7 @@ def main() -> int:
 
         t0 = time.perf_counter()
         pass_copies = k2f_pass_copies()  # built beside the kernels, held in phase 3f
+        defect_narrow = narrow_copies()  # and the narrow kernel's, held in phase 4l
         logs = build.build_all()
         log["build_s"] = time.perf_counter() - t0
         log["ptxas"] = logs
@@ -9034,6 +9601,14 @@ def main() -> int:
         for k, n in mesh_phase(cfg_path, ckpt, van_run, g_path, log, card).items():
             launches[k] = launches.get(k, 0) + n
         lap("4k mesh")
+        print("[4l] HiFi-GAN V2 and V3 (jik876/hifi-gan's config_v2 / config_v3, random weights "
+              "at the published widths): the narrow kernel and ResBlock2 against their plain "
+              f"versions at {list(V2V3_ROWS)} rows, say with each g_* file, the V2 server's wave")
+        narrow_rows, v2v3_readings, narrow_launches = v2v3_phase(cfg_path, ckpt, log, card,
+                                                                 defect_narrow)
+        launches.update(narrow_launches)
+        rows += narrow_rows
+        lap("4l v2v3")
         print("    seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                                   log["phase_s"].items()))
         for r in rows:
@@ -9047,6 +9622,7 @@ def main() -> int:
                 r["gst"] = gst_readings[r["name"]]
             if r["name"] in dp_readings:
                 r["dp"] = dp_readings[r["name"]]
+            r.update(v2v3_readings.get(r["name"], {}))  # "v2" / "v3": the wide entries
         if log.get("deferred"):
             raise SmokeFailure("; ".join(log["deferred"]))
 
@@ -9076,7 +9652,8 @@ def main() -> int:
         # the cells' and the attention's readings at other row counts ride along
         print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                        **{k: r[k] for k in ("rows", "export", "finetune",
-                                                            "descriptions", "gst", "dp")
+                                                            "descriptions", "gst", "dp", "v2",
+                                                            "v3")
                                           if k in r}}
                                       for r in rows]}))
         print(card)
@@ -9087,9 +9664,10 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-        if pass_copies is not None:  # no nvcc of a copy outlives the run
-            with contextlib.suppress(SmokeFailure):
-                pass_copies()
+        for copies in (pass_copies, defect_narrow):  # no nvcc of a copy outlives the run
+            if copies is not None:
+                with contextlib.suppress(SmokeFailure):
+                    copies()
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

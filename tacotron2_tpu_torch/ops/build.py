@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("decode_step", "mrf", "mrf_f32", "train_decode", "encoder_lstm")
+SOURCES = ("decode_step", "mrf", "mrf_f32", "mrf_narrow", "train_decode", "encoder_lstm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -1,6 +1,7 @@
 """HiFi-GAN MRF stage: kernel K2 (a dilated-conv kernel, which also runs
 the upsample and the vocoder's ``conv_pre``: ``csrc/mrf.cu`` on bf16
-operands, ``csrc/mrf_f32.cu`` on f32 ones) and its plain version.
+operands, ``csrc/mrf_f32.cu`` on f32 ones, and ``csrc/mrf_narrow.cu`` at 8
+or 16 output channels in either type) and its plain version.
 
 Replaces the TPU kernels of ``tacotron2_tpu/ops/mrf_pallas.py``:
 ``_make_stage_kernel`` (the MRF alone, via ``_mrf_stage_call``),
@@ -83,6 +84,17 @@ once at load: an f32 ``ConvWeights`` carries the hi and lo planes of each
 splits the operand in shared memory once per staged slice. Its launches
 count in ``F32_LAUNCHES`` as ``<entry>_f32``.
 
+The narrow channels (``csrc/mrf_narrow.cu``): the wide kernels take Co a
+multiple of 32 (their N tiles), and HiFi-GAN V2 runs its stages 3 and 4 at
+16 and 8 channels (the TPU kernel's phase fold s = 128 / C,
+``mrf_pallas.py:440``), its last upsample to 2 x 8. Every entry at Co in
+``NARROW_CO`` launches the narrow kernel instead, in the weights' type: a
+conv of a few channels is bound by its bytes, so it runs on the CUDA cores
+(FFMA, f32 sums in one fixed order per output) from a weight copy (Ci, K,
+Co) (``tile_conv``). Its launches count as ``narrow_conv``,
+``narrow_pair`` and ``narrow_transpose`` (``launch_key``; a ``conv_pre``
+at such a width as ``narrow_conv``), ``_f32`` in ``F32_LAUNCHES``.
+
 Each wrapper runs its plain PyTorch version for CPU tensors only; a CUDA
 tensor launches the kernel or raises.
 """
@@ -99,9 +111,15 @@ from tacotron2_tpu_torch.models import layers
 from tacotron2_tpu_torch.ops import build
 
 LRELU_SLOPE = 0.1
-LAUNCHES = {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0, "conv_pre": 0}
-# the f32 kernels' (``csrc/mrf_f32.cu``), beside the bf16 ones
+# the narrow kernel's counter of each wrapper (``csrc/mrf_narrow.cu``)
+NARROW_ENTRY = {"mrf_conv": "narrow_conv", "mrf_pair": "narrow_pair",
+                "conv_transpose": "narrow_transpose", "conv_pre": "narrow_conv"}
+LAUNCHES = {k: 0 for k in ("mrf_conv", "mrf_pair", "conv_transpose", "conv_pre",
+                           "narrow_conv", "narrow_pair", "narrow_transpose")}
+# the f32 kernels' (``csrc/mrf_f32.cu``, the narrow kernel's f32 entries),
+# beside the bf16 ones
 F32_LAUNCHES = {k + "_f32": 0 for k in LAUNCHES}
+NARROW_CO = (8, 16)  # the output channels the narrow kernel takes
 
 
 def reset_launches() -> None:
@@ -151,23 +169,42 @@ def conv_tiles(Co: int, Ci: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[i
     channels per staged slice (the last slice reaches past Ci where KC does
     not divide it, the copy zero there). A block's wgmma takes the N tile
     or, where the grid is small, a part of it; slices of 64 or 32 (bf16),
-    ``F32_KC`` (f32). Both kernels take Co a multiple of 32 and Ci a
+    ``F32_KC`` (f32). Both wide kernels take Co a multiple of 32 and Ci a
     multiple of 8 (the operand's rows whole 16-byte pieces, as TMA reads
-    them)."""
+    them). At Co in ``NARROW_CO`` (the narrow kernel, either type): every
+    channel a block (NI = Co), slices of 16 input channels where they divide
+    Ci, else 8 (``csrc/mrf_narrow.cu::narrow_plan``)."""
     if not conv_takes(Co, Ci):
-        raise ValueError(f"mrf_conv takes Co a multiple of 32 and Ci a multiple of 8, got "
-                         f"Co={Co}, Ci={Ci}")
+        raise ValueError(f"mrf_conv takes Co a multiple of 32 or one of {NARROW_CO} and Ci a "
+                         f"multiple of 8, got Co={Co}, Ci={Ci}")
+    if narrow(Co):
+        return Co, (16 if Ci % 16 == 0 else 8)
     NI = 128 if Co % 128 == 0 else 64 if Co % 64 == 0 else 32
     if dtype == torch.float32:
         return NI, F32_KC
     return NI, (64 if Ci % 64 == 0 else 32)
 
 
+def narrow(Co: int) -> bool:
+    """Whether convs to ``Co`` channels run on the narrow kernel."""
+    return Co in NARROW_CO
+
+
 def conv_takes(Co: int, Ci: int) -> bool:
-    """Whether ``mrf_conv``'s kernels take these channels: Co a multiple of
-    32, Ci of 8 (the rule in ``csrc/mrf.cu::conv_plan`` and
-    ``csrc/mrf_f32.cu::conv_plan``)."""
-    return Co % 32 == 0 and Ci % 8 == 0 and Ci >= 8
+    """Whether a K2 kernel takes these channels: Co a multiple of 32 (the
+    rule in ``csrc/mrf.cu::conv_plan`` and ``csrc/mrf_f32.cu::conv_plan``)
+    or in ``NARROW_CO`` (``csrc/mrf_narrow.cu::narrow_plan``), Ci a
+    multiple of 8."""
+    return (Co % 32 == 0 or narrow(Co)) and Ci % 8 == 0 and Ci >= 8
+
+
+def launch_key(name: str, cw: "ConvWeights") -> str:
+    """The counter that a launch of wrapper ``name`` (``mrf_conv``,
+    ``mrf_pair``, ``conv_transpose``, ``conv_pre``) on the (folded) weights
+    ``cw`` adds one to: the narrow kernel's entry at Co in ``NARROW_CO``,
+    ``_f32`` for f32 weights."""
+    key = NARROW_ENTRY[name] if narrow(cw.w.shape[1]) else name
+    return key + ("_f32" if cw.w.dtype == torch.float32 else "")
 
 
 def slices(Ci: int, KC: int) -> int:
@@ -183,7 +220,11 @@ def tile_offset(j, co, ci, K: int, Co: int, Ci: int, dtype: torch.dtype = torch.
     no-swizzle core-matrix layout of a K-major wgmma operand, 16-byte
     groups of input channels of rows of NI: bf16 [KC / 8][NI][8]; f32 the
     ``plane`` (0 hi, 1 lo: ``tf32_split``) of two such tiles side by side,
-    [2][KC / 4][NI][4]."""
+    [2][KC / 4][NI][4]. The narrow kernel's copy (Co in ``NARROW_CO``, either
+    type, no planes) is (Ci, K, Co): a slice's channels one run, each
+    (channel, tap) its Co weights side by side."""
+    if narrow(Co):
+        return (ci * K + j) * Co + co
     NI, KC = conv_tiles(Co, Ci, dtype)
     tile = ((co // NI) * slices(Ci, KC) + ci // KC) * K + j
     if dtype == torch.float32:
@@ -198,9 +239,12 @@ def tile_conv(w: torch.Tensor) -> torch.Tensor:
     tap), zero past Ci in the last slice; shape (Co / NI, ceil(Ci / KC), K,
     KC / 8, NI, 8) for bf16 and, split once here into hi and lo planes,
     (Co / NI, ceil(Ci / KC), K, 2, KC / 4, NI, 4) for f32. A ring stage's
-    consecutive taps are one run."""
+    consecutive taps are one run. At Co in ``NARROW_CO``: the narrow
+    kernel's (Ci, K, Co), in the weights' type."""
     K, Co, Ci = w.shape
     NI, KC = conv_tiles(Co, Ci, w.dtype)
+    if narrow(Co):
+        return w.permute(2, 0, 1).contiguous()
     ns = slices(Ci, KC)
     w = F.pad(w, (0, ns * KC - Ci))
     if w.dtype == torch.float32:
@@ -216,12 +260,13 @@ def read_tiled(wt: torch.Tensor, K: int, Co: int, Ci: int,
     """The (K, Co, Ci) weights back from a tiled copy, every element read at
     its ``tile_offset`` for the copy's type (the plain reader of the
     kernels' layouts); an f32 copy's ``plane`` (0 hi, 1 lo), or by default
-    the sum of both, the weights themselves."""
+    the sum of both, the weights themselves (the narrow kernel's copy has
+    no planes)."""
     j = torch.arange(K)[:, None, None]
     co = torch.arange(Co)[None, :, None]
     ci = torch.arange(Ci)[None, None, :]
     flat = wt.reshape(-1)
-    if wt.dtype != torch.float32:
+    if wt.dtype != torch.float32 or narrow(Co):
         return flat[tile_offset(j, co, ci, K, Co, Ci, wt.dtype)]
     at = lambda p: flat[tile_offset(j, co, ci, K, Co, Ci, wt.dtype, p)]
     return at(0) + at(1) if plane is None else at(plane)
@@ -333,11 +378,12 @@ def mrf_pair_plain(a, c1: ConvWeights, c2: ConvWeights, res=None, acc=None,
 
 def pair_fusable(c1: ConvWeights, c2: Optional[ConvWeights]) -> bool:
     """Whether ``mrf_pair`` takes the pair: a second conv of dilation 1 and
-    the first's shape, C = Ci = Co at most 128 (one N tile)."""
+    the first's shape, C = Ci = Co one N tile of its kernel (32 to 128 on
+    the wide kernels, 8 or 16 on the narrow one)."""
     if c2 is None or c2.dilation != 1 or c1.w.shape != c2.w.shape:
         return False
     K, Co, Ci = c1.w.shape
-    return Co == Ci and Co % 32 == 0 and conv_tiles(Co, Ci)[0] == Co
+    return Co == Ci and conv_takes(Co, Ci) and conv_tiles(Co, Ci)[0] == Co
 
 
 def conv_transpose_plain(a, uw: UpsampleWeights, want_act: bool = False):
@@ -362,14 +408,17 @@ def conv_pre_plain(a, cw: ConvWeights):
 
 _LIB = None
 _LIB_F32 = None
+_LIB_NARROW = None
 P = ctypes.c_void_p
 I = ctypes.c_int
 
 
-def bind(lib: ctypes.CDLL, suffix: str = "") -> ctypes.CDLL:
+def bind(lib: ctypes.CDLL, suffix: str = "", kind: str = "mrf") -> ctypes.CDLL:
     """Declare the C entry points of a loaded build of ``csrc/mrf.cu`` (or,
-    with ``suffix`` "_f32", of ``csrc/mrf_f32.cu``: the same interface)."""
-    conv, pair = getattr(lib, "t2_mrf_conv" + suffix), getattr(lib, "t2_mrf_pair" + suffix)
+    with ``suffix`` "_f32", of ``csrc/mrf_f32.cu``: the same interface;
+    ``kind`` "narrow": ``csrc/mrf_narrow.cu``'s, ``t2_narrow_*<suffix>``)."""
+    conv = getattr(lib, f"t2_{kind}_conv{suffix}")
+    pair = getattr(lib, f"t2_{kind}_pair{suffix}")
     conv.argtypes = [P] * 8 + [I] * 7 + [ctypes.c_float, P]
     pair.argtypes = [P] * 10 + [I] * 6 + [ctypes.c_float, P]
     for fn in (conv, pair):
@@ -391,13 +440,21 @@ def _lib_f32():
     return _LIB_F32
 
 
+def _lib_narrow():
+    global _LIB_NARROW
+    if _LIB_NARROW is None:
+        _LIB_NARROW = bind(bind(build.load("mrf_narrow"), "", "narrow"), "_f32", "narrow")
+    return _LIB_NARROW
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
 def _require_conv(cw: ConvWeights, Ci: int, name: str):
     """The weights' tiled copy in the layout of the kernel of their type
-    (bf16 or f32), and the f32 bias."""
+    (bf16 or f32) and width (the narrow kernel's at Co in ``NARROW_CO``),
+    and the f32 bias."""
     K, Co, _ = cw.w.shape
     dt = cw.w.dtype
     if dt not in (torch.bfloat16, torch.float32):
@@ -405,8 +462,11 @@ def _require_conv(cw: ConvWeights, Ci: int, name: str):
     if cw.wt is None:
         raise ValueError(f"{name}: the weights have no tiled copy (pack_conv, tile_conv)")
     NI, KC = conv_tiles(Co, Ci, dt)
-    tile = (2, KC // 4, NI, 4) if dt == torch.float32 else (KC // 8, NI, 8)
-    build.require(cw.wt, dt, (Co // NI, slices(Ci, KC), K, *tile), f"{name}.wt")
+    if narrow(Co):
+        build.require(cw.wt, dt, (Ci, K, Co), f"{name}.wt")
+    else:
+        tile = (2, KC // 4, NI, 4) if dt == torch.float32 else (KC // 8, NI, 8)
+        build.require(cw.wt, dt, (Co // NI, slices(Ci, KC), K, *tile), f"{name}.wt")
     build.require(cw.b, torch.float32, (Co,), f"{name}.b")
 
 
@@ -416,7 +476,9 @@ def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act
     ``conv_pre``) or ``mrf_pair``: check, allocate, launch; the weights'
     type picks the kernel, bf16 (``csrc/mrf.cu``) or f32
     (``csrc/mrf_f32.cu``, counted in ``F32_LAUNCHES``), and the operands'
-    type (``a``, ``act`` and an ``acc_act`` sum) is theirs."""
+    type (``a``, ``act`` and an ``acc_act`` sum) is theirs; at Co in
+    ``NARROW_CO`` the narrow kernel's entry of that type
+    (``csrc/mrf_narrow.cu``), counted as ``launch_key`` says."""
     B, T, Ci = a.shape
     K, Co, _ = c1.w.shape
     dt = c1.w.dtype
@@ -424,9 +486,9 @@ def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act
     _require_conv(c1, Ci, name)
     if c2 is not None:
         if not pair_fusable(c1, c2):
-            raise ValueError(f"mrf_pair takes a pair of (K, C, C) convs, C <= 128, the second "
-                             f"of dilation 1: got {tuple(c1.w.shape)}, {tuple(c2.w.shape)}, "
-                             f"dilation {c2.dilation}")
+            raise ValueError(f"mrf_pair takes a pair of (K, C, C) convs, C one N tile (8, 16, "
+                             f"32, 64 or 128), the second of dilation 1: got "
+                             f"{tuple(c1.w.shape)}, {tuple(c2.w.shape)}, dilation {c2.dilation}")
         if c2.w.dtype != dt:
             raise ValueError(f"mrf_pair: the convs' types differ, {dt} and {c2.w.dtype}")
         _require_conv(c2, Co, name)
@@ -444,13 +506,14 @@ def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act
     mode += 8 if round_sum else 0
     ptr = lambda t: 0 if t is None else t.data_ptr()
     stream = _stream()
-    if dt == torch.float32:
-        lib, counts, key = _lib_f32(), F32_LAUNCHES, name + "_f32"
-        conv, pair = lib.t2_mrf_conv_f32, lib.t2_mrf_pair_f32
+    sfx = "_f32" if dt == torch.float32 else ""
+    key = launch_key(name, c1)
+    if narrow(Co):
+        lib, kind = _lib_narrow(), "narrow"
     else:
-        lib, counts, key = _lib(), LAUNCHES, name
-        conv, pair = lib.t2_mrf_conv, lib.t2_mrf_pair
-    build.count(counts, key)
+        lib, kind = (_lib_f32() if sfx else _lib()), "mrf"
+    conv, pair = getattr(lib, f"t2_{kind}_conv{sfx}"), getattr(lib, f"t2_{kind}_pair{sfx}")
+    build.count(F32_LAUNCHES if sfx else LAUNCHES, key)
     if c2 is None:
         err = conv(a.data_ptr(), c1.wt.data_ptr(), c1.b.data_ptr(), ptr(res), ptr(acc),
                    ptr(acc_out), ptr(y), ptr(act), B, T, Ci, Co, K, c1.dilation, mode,

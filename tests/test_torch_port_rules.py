@@ -236,6 +236,16 @@ WRAPPER_CALLS = {
         _meta(1, 10, 80, dtype=torch.bfloat16),
         mrf.ConvWeights(_meta(7, 512, 80, dtype=torch.bfloat16), _meta(512), 1,
                         _meta(4, 3, 7, 4, 128, 8, dtype=torch.bfloat16))),
+    # the narrow kernel's entries (Co 8 or 16: csrc/mrf_narrow.cu), f32
+    "mrf_conv[narrow]": lambda: mrf.mrf_conv(
+        _meta(1, 10, 16), mrf.ConvWeights(_meta(3, 16, 16), _meta(16), 1, _meta(16, 3, 16)),
+        want_act=True),
+    "mrf_pair[narrow]": lambda: mrf.mrf_pair(
+        _meta(1, 10, 8), *[mrf.ConvWeights(_meta(11, 8, 8), _meta(8), d, _meta(8, 11, 8))
+                           for d in (5, 1)], want_act=True),
+    "conv_transpose[narrow]": lambda: mrf.conv_transpose(
+        _meta(1, 10, 16), mrf.UpsampleWeights(_meta(4, 16, 8), _meta(8), 2, 1, mrf.ConvWeights(
+            _meta(3, 16, 16), _meta(16), 1, _meta(16, 3, 16))), want_act=True),
 }
 # the teacher-forced decode at T=2, B=1, L=5, P=D=H=8, A=4, 81 outputs
 _TW = lambda: train_decode.TrainWeights(
@@ -272,7 +282,8 @@ def test_wrapper_never_falls_back_to_plain(name, monkeypatch):
     """A tensor that is not on the CPU goes to the kernel path, which
     refuses it (it is not a CUDA tensor); the plain version is not called
     and no launch is counted. A ``[controls]`` case is the wrapper's
-    controls mode."""
+    controls mode, a ``[narrow]`` case the MRF wrapper at 8 or 16 output
+    channels (the narrow kernel's entries)."""
     base = name.split("[")[0]
     module = next(m for m in (decoder_loop, mrf, train_decode) if base in m.LAUNCHES)
 
@@ -282,7 +293,9 @@ def test_wrapper_never_falls_back_to_plain(name, monkeypatch):
     monkeypatch.setattr(module, f"{base}_plain", plain_called)
     before = dict(module.LAUNCHES)
     before_ctl = dict(getattr(module, "CONTROLS_LAUNCHES", {}))
+    before_f32 = dict(getattr(module, "F32_LAUNCHES", {}))
     with pytest.raises(ValueError, match="CUDA"):
         WRAPPER_CALLS[name]()
     assert module.LAUNCHES == before
+    assert dict(getattr(module, "F32_LAUNCHES", {})) == before_f32
     assert dict(getattr(module, "CONTROLS_LAUNCHES", {})) == before_ctl

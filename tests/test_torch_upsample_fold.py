@@ -197,7 +197,8 @@ def test_vocode_launches_what_it_counts(monkeypatch):
     wav = h.apply(torch.empty(1, 16, 80, device="meta"))
     assert wav.shape == (1, 16 * 256)
     grown = {k: mrf.LAUNCHES[k] - before[k] for k in mrf.LAUNCHES}
-    assert grown == {"mrf_conv": 18, "mrf_pair": 27, "conv_transpose": 4, "conv_pre": 1}
+    assert grown == {**dict.fromkeys(mrf.LAUNCHES, 0), "mrf_conv": 18, "mrf_pair": 27,
+                     "conv_transpose": 4, "conv_pre": 1}  # no narrow entry at V1's widths
     assert len(fake.calls) == sum(grown.values()) and names[0] == "conv_pre"
     convs = fake.calls
     assert len(names) == len(convs) and convs[0][0] == "mrf_conv"

@@ -130,7 +130,7 @@ class _FakeLib:
         self.calls = []
 
     def __getattr__(self, name):
-        if not name.startswith("t2_mrf_"):
+        if not name.startswith(("t2_mrf_", "t2_narrow_")):
             raise AttributeError(name)
         return lambda *args: (self.calls.append((name, args)), 0)[1]
 
@@ -167,9 +167,9 @@ def test_f32_vocode_launches_the_f32_entries(monkeypatch):
     1-3 the mean's operand)."""
     monkeypatch.setattr(build, "require", lambda *a, **k: None)
     calls, names, grown, grown32 = _fake_launches(monkeypatch, F32)
-    assert grown == {"mrf_conv": 0, "mrf_pair": 0, "conv_transpose": 0, "conv_pre": 0}
-    assert grown32 == {"mrf_conv_f32": 18, "mrf_pair_f32": 27, "conv_transpose_f32": 4,
-                       "conv_pre_f32": 1}
+    assert grown == dict.fromkeys(mrf.LAUNCHES, 0)
+    assert grown32 == {**dict.fromkeys(mrf.F32_LAUNCHES, 0), "mrf_conv_f32": 18,
+                       "mrf_pair_f32": 27, "conv_transpose_f32": 4, "conv_pre_f32": 1}
     assert grown32 == _smoke().vocode_launches(_smoke().UNIVERSAL_V1, torch.float32)
     assert {c for c, _ in calls} == {"t2_mrf_conv_f32", "t2_mrf_pair_f32"}
     assert len(calls) == 50 and names[0] == "conv_pre"
@@ -200,19 +200,31 @@ def _conv(K, C, dtype, tiled=True, dil=1):
     return mrf.ConvWeights(w, torch.zeros(C), dil, mrf.tile_conv(w) if tiled else None)
 
 
+def _untiled(K, Co, Ci, dil=1):
+    """Weights of channels no K2 kernel takes: no tiled copy."""
+    assert not mrf.conv_takes(Co, Ci)
+    return mrf.ConvWeights(torch.zeros(K, Co, Ci), torch.zeros(Co), dil, None)
+
+
 @pytest.mark.parametrize("case", ["f32_weights_bf16_operand", "fp16_weights", "mixed_pair",
-                                  "bf16_copy_for_f32_weights"])
+                                  "bf16_copy_for_f32_weights", "co24", "ci4", "pair_co24",
+                                  "transpose_ci4", "wide_copy_for_narrow_weights"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(case, monkeypatch):
     """On a non-CPU tensor the wrappers launch the kernel of the weights'
     type or raise, counting nothing: an operand of another type, weights of
     a type no kernel takes, a pair of two types, a tiled copy in the other
-    kernel's layout."""
+    kernel's layout; channels no kernel takes (Co 24: neither a multiple of
+    32 nor 8 or 16, the narrow kernel's; Ci 4: not whole 8-channel pieces),
+    which have no tiled copy; a narrow conv given another layout's copy."""
     fake = _FakeLib()
     monkeypatch.setattr(mrf, "_lib", lambda: fake)
     monkeypatch.setattr(mrf, "_lib_f32", lambda: fake)
+    monkeypatch.setattr(mrf, "_lib_narrow", lambda: fake)
     monkeypatch.setattr(mrf, "_stream", lambda: 0)
     monkeypatch.setattr(mrf, "mrf_conv_plain", lambda *a, **k: pytest.fail("plain version"))
     monkeypatch.setattr(mrf, "mrf_pair_plain", lambda *a, **k: pytest.fail("plain version"))
+    monkeypatch.setattr(mrf, "conv_transpose_plain",
+                        lambda *a, **k: pytest.fail("plain version"))
 
     def require(t, dtype, shape, name):  # build.require without the device rule
         if t.dtype != dtype or tuple(t.shape) != tuple(shape):
@@ -228,6 +240,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case, monkeypatch):
         "mixed_pair": lambda: mrf.mrf_pair(a32, c32, c16),
         "bf16_copy_for_f32_weights": lambda: mrf.mrf_conv(
             a32, c32._replace(wt=mrf.tile_conv(c16.w).float())),
+        "co24": lambda: mrf.mrf_conv(_meta(1, 8, 24), _untiled(3, 24, 24)),
+        "ci4": lambda: mrf.mrf_conv(_meta(1, 8, 4), _untiled(3, 16, 4)),
+        "pair_co24": lambda: mrf.mrf_pair(_meta(1, 8, 24), _untiled(3, 24, 24, 3),
+                                          _untiled(3, 24, 24)),
+        "transpose_ci4": lambda: mrf.conv_transpose(
+            _meta(1, 8, 4), mrf.make_upsample(torch.zeros(4, 4, 8), torch.zeros(8), 2, 1)),
+        "wide_copy_for_narrow_weights": lambda: mrf.mrf_conv(  # the (Co / NI, ...) layout
+            _meta(1, 8, 32), mrf.ConvWeights(torch.zeros(3, 16, 32), torch.zeros(16), 1,
+                                             torch.zeros(1, 2, 3, 2, 4, 16, 4))),
     }
     before, before32 = dict(mrf.LAUNCHES), dict(mrf.F32_LAUNCHES)
     with pytest.raises(ValueError):
@@ -244,20 +265,22 @@ def test_f32_launch_plan_counts_run_stage(name):
     """``chip_smoke.vocode_launches`` of an F32 generator (one launch per
     entry, per fusable pair and per other conv) equals what its stages call
     through ``run_stage`` on the CPU, counted by hooks around the plain
-    versions, and those stages equal ``apply``'s."""
+    versions under the counter each call's launch would add to
+    (``mrf.launch_key``), and those stages equal ``apply``'s."""
     kw = GEN_CFGS[name]
     h = HiFiGAN(HiFiGANConfig(**kw), F32).eval()
-    counts = {"mrf_conv_f32": 0, "mrf_pair_f32": 0, "conv_transpose_f32": 0, "conv_pre_f32": 1}
+    counts = dict.fromkeys(mrf.F32_LAUNCHES, 0)
+    counts[mrf.launch_key("conv_pre", h.conv_pre_weights())] += 1
 
-    def hook(key, fn):
-        def call(*a, **k):
-            counts[key] += 1
-            return fn(*a, **k)
+    def hook(name, fn, weights=lambda w: w):
+        def call(a, w, *rest, **k):
+            counts[mrf.launch_key(name, weights(w))] += 1
+            return fn(a, w, *rest, **k)
         return call
 
-    conv = hook("mrf_conv_f32", mrf.mrf_conv_plain)
-    pair = hook("mrf_pair_f32", mrf.mrf_pair_plain)
-    conv_t = hook("conv_transpose_f32", mrf.conv_transpose_plain)
+    conv = hook("mrf_conv", mrf.mrf_conv_plain)
+    pair = hook("mrf_pair", mrf.mrf_pair_plain)
+    conv_t = hook("conv_transpose", mrf.conv_transpose_plain, lambda uw: uw.folded)
     mel = torch.randn(2, 9, kw["num_mels"], generator=torch.Generator().manual_seed(3))
     a = mrf.conv_pre(mel, h.conv_pre_weights())
     packed = h.kernel_weights()
