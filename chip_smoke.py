@@ -24,6 +24,11 @@
     python3 chip_smoke.py --dp      # the kernels' build and phase 4j alone
     python3 chip_smoke.py --mesh    # the kernels' build and phase 4k alone
     python3 chip_smoke.py --v2v3    # the kernels' build and phase 4l alone
+    python3 chip_smoke.py --f32-decode  # the kernels' build and phase 4m alone
+    python3 chip_smoke.py --f32-step    # 4m's train part alone, its step against the
+                                        # CPU's over K1F_STEP_DRAWS draws, with the packed
+                                        # encoder, with TF32 on, the CPU on its own ReLU
+                                        # branches and with one flipped (``f32_step_mode``)
 
 Phases, each of which must pass:
 
@@ -266,6 +271,29 @@ Phases, each of which must pass:
    vocoder, a wave of 16 requests, each alone at 0 LSB; every entry timed
    at 1, 16 and 64 rows beside cuDNN f32 and bf16 and the bound; the
    kernels line gains the narrow rows and, on the wide rows, "v2" / "v3";
+4m. K1's f32 mode and the F32 teacher-forced route (``f32_decode_phase``,
+   a ``"32-true"`` copy of the flagship config, random weights): every f32
+   entry (``lstm_cell_f32``, ``prenet_f32``, ``location_attention_f32``,
+   ``heads_f32``, the ``_act_bf16`` prenet and heads of the int8 mode of an
+   F32 model) against its plain f32 version at 1, 16 and 64 rows within
+   K1F_TOL of each output's max, the controllable config's decoder cell and
+   heads with controls; the planted defects (copies of
+   ``csrc/decode_step.cu``: bf16-rounded and TF32-rounded cell operands, a
+   location tap left out) at least K1F_DEFECT_MARGIN x the limit; the
+   int8 mode's prenet rows on a bf16 rounding boundary held to one of their
+   roundings, its weights rounded to bf16 (a defect) failing that; rows 0,
+   1, 37, 63 of 64 bit for bit alone; the 64-step f32 chunk (K1F_CHUNK_TOL)
+   and the 4-step int8 chunk of the F32 model (K5_CHUNK_TOL) at 5 / 7
+   launches a step; ``say`` and ``say --quantize-int8`` through the CLI (5 /
+   7 launches a frame, the WAV within VOCODE_F32_LSB of the plain vocode,
+   the f32 mels within K1F_CHUNK_TOL of the plain decode from the same
+   seed); rows of a window against alone, stage by stage, then a served
+   wave of 16, each request 0 LSB from alone; ``train`` 3 steps and ``train
+   --finetune`` with no K3 / K4 launch, one step's loss and gradients
+   against the CPU's, the CPU on the card's ReLU branches (K1F_STEP_TOL, a
+   bf16-operand defect above both limits; an element on another branch
+   within K1F_FLIP_REL of zero, bf16 prenet weights above it); each
+   entry timed beside its bound, plain version and library call;
 5. print the kernels line and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero before the last line on any failure, when no CUDA device
@@ -819,7 +847,9 @@ def k1_phase(model, cfg, L: int, log: dict, cells: dict) -> list:
     x_k = dl.prenet(s.mel, pk.wp1_t, pk.wp2_t, m1, m2, pk.wt_prenet)
     x_p = dl.prenet_plain(s.mel, pk.wp1_t, pk.wp2_t, m1, m2)
     check("prenet", [("out", x_k, x_p)], K1_TOL, log)
-    ah_k, ac_k = dl.lstm_cell(pk.w_att, pk.b_att, x_p, s.ctx, s.att_h, s.att_c, pk.wt_att)
+    bf = lambda t: t.to(torch.bfloat16)  # the bf16 cell's operands, as the chunk's producers
+    ah_k, ac_k = dl.lstm_cell(pk.w_att, pk.b_att, bf(x_p), bf(s.ctx), bf(s.att_h), s.att_c,
+                              pk.wt_att)
     ah_p, ac_p = dl.lstm_cell_plain(pk.w_att, pk.b_att, x_p, s.ctx, s.att_h, s.att_c)
     check("lstm_cell[att]", [("h", ah_k, ah_p), ("c", ac_k, ac_p)], K1_TOL, log, "lstm_cell")
     att_args = (ah_p, pk.wq, pk.w_loc, pk.wv, att_enc, encoded, lengths, s.att_w, s.att_cum)
@@ -827,7 +857,8 @@ def k1_phase(model, cfg, L: int, log: dict, cells: dict) -> list:
     ctx_p, w_p, cum_p = dl.location_attention_plain(*att_args)
     check("location_attention", [("context", ctx_k, ctx_p), ("weights", w_k, w_p),
                                  ("cum_weights", cum_k, cum_p)], K1_TOL, log)
-    rh_k, rc_k = dl.lstm_cell(pk.w_dec, pk.b_dec, ah_p, ctx_p, s.rnn_h, s.rnn_c, pk.wt_dec)
+    rh_k, rc_k = dl.lstm_cell(pk.w_dec, pk.b_dec, bf(ah_p), bf(ctx_p), bf(s.rnn_h), s.rnn_c,
+                              pk.wt_dec)
     rh_p, rc_p = dl.lstm_cell_plain(pk.w_dec, pk.b_dec, ah_p, ctx_p, s.rnn_h, s.rnn_c)
     check("lstm_cell[dec]", [("h", rh_k, rh_p), ("c", rc_k, rc_p)], K1_TOL, log, "lstm_cell")
     mg_k = dl.heads(pk.w_out, pk.b_out, rh_p, ctx_p, wt=pk.wt_out)
@@ -2767,17 +2798,31 @@ def kernel_split(fn) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def packed_bilstm(lstm, xs, lengths):
+    """The encoder's BiLSTM as torch's packed f32 LSTM (cuDNN on the card):
+    ``layers.bilstm_rows``' function, each step over the rows still
+    running. -> (B, T, 2H)"""
+    import torch
+
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        xs.float(), lengths.cpu(), batch_first=True, enforce_sorted=False)
+    out, _ = lstm(packed)
+    out, _ = torch.nn.utils.rnn.pad_packed_sequence(out, batch_first=True,
+                                                    total_length=xs.shape[1])
+    return out
+
+
 class cudnn_bilstm:
     """Within this context the encoder runs its BiLSTM as before the bf16
-    repair: torch's packed f32 LSTM (cuDNN) under every policy. Only for
-    timing the encoder before and after the repair."""
+    repair: torch's packed f32 LSTM (cuDNN, ``packed_bilstm``) under every
+    policy. For timing the encoder before and after the repair, and for the
+    F32 train step's reading with the packed encoder."""
 
     def __enter__(self):
         from tacotron2_tpu_torch.models import layers
 
         self.layers, self.saved = layers, layers.bilstm
-        layers.bilstm = lambda lstm, xs, lengths, policy=None: layers.bilstm_packed(lstm, xs,
-                                                                                  lengths)
+        layers.bilstm = lambda lstm, xs, lengths, policy=None: packed_bilstm(lstm, xs, lengths)
 
     def __exit__(self, *exc):
         self.layers.bilstm = self.saved
@@ -9078,6 +9123,1115 @@ def v2v3_mode() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 4m: K1's f32 mode and the F32 teacher-forced route ("32-true" models)
+# ---------------------------------------------------------------------------
+
+F32_CONFIG = "vanilla-ljspeech-stop.json"  # written again with "precision": "32-true"
+K1F_TOL = 1e-5  # an f32 entry against its plain f32 version, one step, of each output's max
+K1F_CHUNK_TOL = 1e-4  # the same over a 64-step f32 chunk
+K1F_ROWS = (1, 16, 64)  # the say's one row (L = 96) and the serve windows' rows (L = 128)
+K1F_INVARIANCE_ROWS = (0, 1, 37, 63)  # rows of a 64-row launch held against the rows alone
+K1F_TWO_PASSES = 80  # rows past one pass of 64 (the cell's and the heads' second tile)
+# prenet_f32_act_bf16 rounds its first layer's sums to bf16: where the
+# kernel's f32 sum and the plain version's (summed in another order) fall on
+# either side of a bf16 rounding boundary, that element differs by one bf16
+# ulp and moves its row's outputs (6.5e-4 of the max at 80 rows read on an
+# H100). A row past K1F_TOL is held to K1F_TOL of one of the outputs that
+# the roundings of its boundary elements allow (``prenet_act_bf16_rows``);
+# at most this many such elements a row
+K1F_BOUNDARY_MAX = 14
+K1F_DEFECT_MARGIN = 10.0  # a planted defect reads at least this many times its limit
+K1F_FRAMES = 256  # the forced decode of the say and the served requests
+K1F_WAVE = 16  # the served wave of concurrent requests
+K1F_SERVE_LSB = 0  # a request of the wave against the same request alone, PCM16 LSB
+K1F_TRAIN_STEPS = 3  # train steps of the 32-true config, then one --finetune step
+K1F_STEP_B = 8  # rows of the one-step comparison, card against the CPU
+K1F_STEP_DRAWS = 6  # draws of rows and masks that --f32-step compares
+# one F32 train step on the card against the same step on the CPU (same
+# state, batch and masks, dropout off): the loss relative, and every
+# gradient as one vector, its relative L2 distance (each tensor's worst
+# element against its own max is reported: a BatchNorm-fed bias's gradient
+# is zero but for its sums' rounding). The CPU's step takes the card's ReLU
+# branches (``relu_branches``): a pre-activation within rounding of zero
+# may take the other branch on the other side, and one such element of an
+# encoder conv moves the gradients by a whole term of a BatchNorm channel's
+# few (``--f32-step``'s probe on an H100: 8.2e-5 to 1.4e-4 an element; two
+# such elements, at 6.2e-8 of their max, read 1.5e-4 on the CPU's own
+# branches). Readings on an H100 over six draws on the card's branches
+# (PERF.md §6): loss <= 1.4e-7, gradients <= 7.0e-7; bf16 operands of the
+# cells and heads (the defect) loss >= 1.26e-5, gradients >= 9.6e-4.
+# Gradients: 10x the sound reading, rounded up; loss: 7x, as 10x would
+# leave the defect under 10x its limit
+K1F_STEP_TOL = {"loss": 1e-6, "grads": 1e-5}
+# an element whose branch the CPU takes from the card: its |pre-activation|
+# on the CPU over its call's max, at most (a sign within rounding of zero:
+# read <= 6.2e-8; the prenet's weights rounded to bf16, a defect, 8.1e-4
+# to 1.3e-3)
+K1F_FLIP_REL = 1e-5
+# planted defects of the f32 entries: copies of csrc/decode_step.cu (under
+# build/defects) with the f32 cell's operands rounded to bf16, to TF32 (one
+# TF32 pass), and with the location conv's last tap left out (a copy of
+# decode_common.cuh included instead); each read at 16 rows
+_CF_OP = r"__device__ __forceinline__ float cf_op\(float x\) \{ return x; \}"
+K1F_DEFECTS = (
+    ("k1f_bf16_operands", [(_CF_OP, "__device__ __forceinline__ float cf_op(float x) "
+                                    "{ return rnd_bf16(x); }")]),
+    ("k1f_tf32_pass", [(_CF_OP, "__device__ __forceinline__ float cf_op(float x) { return "
+                                "__uint_as_float((__float_as_uint(x) + 0xFFFu + "
+                                "((__float_as_uint(x) >> 13) & 1u)) & 0xFFFFE000u); }")]),
+    ("k1f_loc_tap", [(r'#include "decode_common\.cuh"', '#include "decode_common_tap.cuh"')]),
+)
+K1F_DEFECT_ENTRY = {"k1f_bf16_operands": "lstm_cell_f32", "k1f_tf32_pass": "lstm_cell_f32",
+                    "k1f_loc_tap": "location_attention_f32"}
+K1F_SOURCE = "tacotron2_tpu_torch/csrc/decode_step.cu"
+K1F_REPLACES = {
+    "lstm_cell_f32": "tacotron2_tpu/ops/decoder_loop_pallas.py:347 (f32 mode, dt :386; the "
+                     "gate products :469)",
+    "prenet_f32": "tacotron2_tpu/ops/decoder_loop_pallas.py:347 (f32 mode, the prenet :436-445)",
+    "prenet_f32_act_bf16": "tacotron2_tpu/ops/decoder_loop_pallas.py:347 (int8 mode of f32 "
+                           "weights, dt = bf16 :386, the prenet :441-444)",
+    "location_attention_f32": "tacotron2_tpu/ops/decoder_loop_pallas.py:196 "
+                              "(batched_location_attention, dt = f32)",
+    "heads_f32": "tacotron2_tpu/ops/decoder_loop_pallas.py:347 (f32 mode, the heads :565-572)",
+    "heads_f32_act_bf16": "tacotron2_tpu/ops/decoder_loop_pallas.py:347 (int8 mode of f32 "
+                          "weights, the heads :567-572)",
+}
+
+
+def k1f_copies():
+    """Start nvcc of the K1F_DEFECTS copies of csrc/decode_step.cu (under
+    build/defects; the location-tap copy includes a copy of
+    decode_common.cuh written beside it) -> a function that waits for them:
+    {name: library}."""
+    from tacotron2_tpu_torch.ops import build
+
+    out = ROOT / "build" / "defects"
+    out.mkdir(parents=True, exist_ok=True)
+    head = (Path(build.__file__).parents[1] / "csrc" / "decode_common.cuh").read_text()
+    tap = "for (int k = 0; k < K; ++k) {"
+    if head.count(tap) != 1:
+        raise SmokeFailure(f"decode_common.cuh: {tap!r} matches {head.count(tap)} times")
+    (out / "decode_common_tap.cuh").write_text(head.replace(tap,
+                                                            "for (int k = 0; k < K - 1; ++k) {"))
+    return build_copies("decode_step", K1F_DEFECTS, out, wait=False)
+
+
+@contextlib.contextmanager
+def decode_library(path):
+    """K1's wrappers launch another build of csrc/decode_step.cu (a defect's
+    copy) inside the block."""
+    import ctypes
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    saved = dl._lib()
+    dl._LIB = dl.bind(ctypes.CDLL(str(path)))
+    try:
+        yield
+    finally:
+        dl._LIB = saved
+
+
+@contextlib.contextmanager
+def plain_decode():
+    """The decode's chunks on ``decode_chunk_plain`` inside the block (the
+    plain f32 decode on the card, from the same seed)."""
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    saved = dl.decode_chunk
+    dl.decode_chunk = dl.decode_chunk_plain
+    try:
+        yield
+    finally:
+        dl.decode_chunk = saved
+
+
+def write_f32_config() -> str:
+    """config/F32_CONFIG with ``"precision": "32-true"`` under WORK -> its path."""
+    raw = json.loads((ROOT / "config" / F32_CONFIG).read_text())
+    raw["training"]["precision"] = "32-true"
+    WORK.mkdir(parents=True, exist_ok=True)
+    path = WORK / F32_CONFIG.replace(".json", "-32-true.json")
+    path.write_text(json.dumps(raw))
+    return str(path)
+
+
+def k1f_inputs(pk, B: int, L: int, g) -> dict:
+    """Random inputs of every f32 entry at B rows of L chars (rows shorter
+    than L from the second on): the state, an f32 memory and its
+    projection, the prenet's masks."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    dev = pk.wq.device
+    H, A = pk.wq.shape[1], pk.wq.shape[0]
+    Pd, M = pk.wp2_t.shape[0], pk.wp1_t.shape[0]
+    D = pk.w_att.shape[1] - Pd - H
+    rn = lambda *s, scale=0.5: torch.randn(*s, device=dev, generator=g) * scale
+    lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
+    lengths[1:] = torch.randint(L // 2, L + 1, (B - 1,), device=dev, generator=g).int()
+    pad = torch.arange(L, device=dev)[None, :] >= lengths[:, None]
+    soft = lambda: torch.softmax(rn(B, L, scale=3.0).masked_fill(pad, float("-inf")), dim=1)
+    w = soft()
+    m1, m2 = dl.prenet_masks(1, B, Pd, 0.5, g, dev)
+    return {"mel": rn(B, M, scale=1.0), "x": torch.relu(rn(B, Pd)) * 2, "ctx": rn(B, D),
+            "att_h": rn(B, H), "att_c": rn(B, H), "rnn_h": rn(B, H), "rnn_c": rn(B, H),
+            "enc": rn(B, L, D), "att_enc": rn(B, L, A), "lengths": lengths, "w": w,
+            "cum": w + soft(), "m1": m1[0], "m2": m2[0]}
+
+
+def k1f_calls(dl, pk, i: dict, ctl=None) -> dict:
+    """Each f32 entry's (kernel call, plain call, library call or None,
+    bytes, flops) on ``k1f_inputs``: both cells as one entry (the decoder
+    cell with the controls ``ctl`` (B, E) where given), the prenet and the
+    heads with and without bf16 activations, the attention."""
+    import torch
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    B = i["mel"].shape[0]
+    H = pk.wq.shape[1]
+    f32 = lambda *s: torch.empty(*s, device=pk.wq.device)
+    att = (i["x"], i["ctx"], i["att_h"], i["att_c"])
+    dec = (i["att_h"], i["ctx"], i["rnn_h"], i["rnn_c"])
+    cells = lambda fn, **kw: (*fn(pk.w_att, pk.b_att, *att, **kw.get("a", {})),
+                              *fn(pk.w_dec, pk.b_dec, *dec, ctl=ctl, **kw.get("d", {})))
+    pre = (i["mel"], pk.wp1_t, pk.wp2_t, i["m1"], i["m2"])
+    hd = (pk.w_out, pk.b_out, i["rnn_h"], i["ctx"])
+    ha = (i["att_h"], pk.wq, pk.w_loc, pk.wv, i["att_enc"], i["enc"], i["lengths"], i["w"],
+          i["cum"])
+    x_heads = torch.cat([i["rnn_h"], i["ctx"]] + ([] if ctl is None else [ctl]), 1)
+    out = {
+        "lstm_cell_f32": (
+            lambda: cells(dl.lstm_cell, a={"wt": pk.wt_att}, d={"wt": pk.wt_dec}),
+            lambda: cells(dl.lstm_cell_plain),
+            None,  # nn.LSTMCell x2, built by the caller
+            nbytes(pk.wt_att, pk.wt_dec, pk.b_att, pk.b_dec, *att, *dec, f32(4, B, H)),
+            2 * B * (pk.w_att.numel() + pk.w_dec.numel())),
+        "location_attention_f32": (
+            lambda: dl.location_attention(*ha), lambda: dl.location_attention_plain(*ha), None,
+            nbytes(*ha, f32(B, i["enc"].shape[2]), f32(2, *i["w"].shape)),
+            2 * B * (pk.wq.numel() + pk.w_loc.numel() * i["w"].shape[1]
+                     + i["enc"].shape[1] * (pk.wv.numel() + i["enc"].shape[2]))),
+    }
+    for act, sfx in ((None, ""), (bf, "_act_bf16")):
+        out["prenet_f32" + sfx] = (
+            lambda act=act: dl.prenet(*pre, wt=pk.wt_prenet, act=act),
+            lambda act=act: dl.prenet_plain(*pre, act),
+            lambda: F.linear(torch.relu(F.linear(i["mel"], pk.wp1_t.t())) * i["m1"],
+                             pk.wp2_t.t()),
+            nbytes(pk.wt_prenet, *pre[:1], *pre[3:], f32(B, pk.wp2_t.shape[0])),
+            2 * B * (pk.wp1_t.numel() + pk.wp2_t.numel()))
+        out["heads_f32" + sfx] = (
+            lambda act=act: dl.heads(*hd, ctl=ctl, wt=pk.wt_out, act=act),
+            lambda act=act: dl.heads_plain(*hd, act, ctl),
+            lambda: F.linear(x_heads, pk.w_out, pk.b_out),
+            nbytes(pk.wt_out, pk.b_out, x_heads, f32(B, pk.w_out.shape[0])),
+            2 * B * pk.w_out.numel())
+    return out
+
+
+def _outputs(x) -> list:
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
+def _labels(name: str, n: int) -> list:
+    return {"lstm_cell_f32": ["h_att", "c_att", "h_dec", "c_dec"],
+            "location_attention_f32": ["ctx", "weights", "cum"]}.get(name, ["out"][:n])
+
+
+def prenet_act_bf16_rows(pre, rows) -> dict:
+    """What ``prenet_f32_act_bf16`` may give at ``rows`` of its inputs
+    ``pre`` (mel, wp1_t, wp2_t, m1, m2): each first-layer output
+    relu(bf16(mel) . W1) * m1 rounds to bf16; where its f32 value may lie
+    on either side of a bf16 rounding boundary (the f32 sum's error bound
+    (M + 2) u sum |terms|, u = 2^-24, and the mask's product), either
+    neighbour is right. Each row: every choice over those elements, the
+    second layer in f64. -> {row: (choices, P) outputs}"""
+    import torch
+
+    mel, w1, w2, m1, m2 = pre
+    u = 2.0 ** -24
+    xb, w1, w2 = mel.to(torch.bfloat16).double(), w1.double(), w2.double()
+    s = xb @ w1
+    e = (xb.abs() @ w1.abs()) * (w1.shape[0] + 2) * u
+    bf = lambda v: v.to(torch.bfloat16).double()
+    lo = bf(torch.relu(s - e) * m1.double() * (1 - u))
+    hi = bf(torch.relu(s + e) * m1.double() * (1 + u))
+    out = {}
+    for r in rows:
+        J = torch.nonzero(lo[r] != hi[r]).flatten()
+        if len(J) > K1F_BOUNDARY_MAX:
+            raise SmokeFailure(f"prenet_f32_act_bf16 row {r}: {len(J)} sums on a bf16 rounding "
+                               f"boundary, more than {K1F_BOUNDARY_MAX}")
+        pick = (torch.arange(2 ** len(J), device=s.device)[:, None]
+                >> torch.arange(len(J), device=s.device)) & 1
+        h = lo[r].repeat(2 ** len(J), 1)
+        h[:, J] = torch.where(pick.bool(), hi[r, J], lo[r, J])
+        out[r] = torch.relu(h @ w2) * m2[r].double()
+    return out
+
+
+def k1f_check(tag: str, name: str, got: list, ref: list, log: dict, pre=None) -> None:
+    """``check`` of an f32 entry's outputs within K1F_TOL of each one's max.
+    ``prenet_f32_act_bf16`` (its inputs ``pre``): a row past K1F_TOL of the
+    plain version is held to K1F_TOL of one of the outputs that its
+    roundings on a bf16 boundary allow (``prenet_act_bf16_rows``), each
+    such row logged."""
+    import torch
+
+    if name != "prenet_f32_act_bf16":
+        check(tag, list(zip(_labels(name, len(got)), got, ref)), K1F_TOL, log, name, own=True)
+        return
+    (g,), (r,) = got, ref
+    scale = float(r.abs().max())
+    row_err = (g - r).abs().amax(dim=1) / scale
+    flipped = [int(b) for b in torch.nonzero(row_err > K1F_TOL).flatten()]
+    alts = prenet_act_bf16_rows(pre, flipped)
+    held = {b: float((g[b].double() - alts[b]).abs().amax(dim=1).min()) / scale
+            for b in flipped}
+    worst = float(row_err.max())
+    log.setdefault("checks", []).append({"kernel": name, "check": tag, "output": "out",
+                                         "max_abs_err": worst * scale, "rel_err": worst,
+                                         "tol": K1F_TOL, "boundary_rows": {
+                                             b: {"rel_err": float(row_err[b]),
+                                                 "choices": len(alts[b]), "held": held[b]}
+                                             for b in flipped}})
+    print(f"  {tag:<20} out            max_abs_err {worst * scale:.3e}  rel {worst:.3e}  (tol "
+          f"{K1F_TOL:g}; rows past it on a bf16 boundary, each against its nearest rounding: "
+          f"{ {b: f'{v:.1e}' for b, v in held.items()} })")
+    if not all(v <= K1F_TOL for v in held.values()):
+        raise SmokeFailure(f"{tag}: rows {flipped} differ by up to {worst:.3e} of the max, "
+                           f"{held} from their nearest bf16 rounding")
+
+
+def k1f_prenet_defect(dl, pre, log: dict) -> None:
+    """A planted defect of ``prenet_f32_act_bf16``'s check: the prenet with
+    its f32 weights rounded to bf16 (not only its activations) must fail
+    ``k1f_check`` at the rows of ``pre``."""
+    import torch
+
+    mel, w1, w2, m1, m2 = pre
+    bf = lambda w: w.to(torch.bfloat16).float()
+    bad = dl.prenet_plain(mel, bf(w1), bf(w2), m1, m2, torch.bfloat16)
+    ref = dl.prenet_plain(*pre, torch.bfloat16)
+    reading = err(bad, ref, True)[1]
+    try:
+        k1f_check(f"defect@B{mel.shape[0]}", "prenet_f32_act_bf16", [bad], [ref], {}, pre)
+    except SmokeFailure:
+        print(f"  planted defect prenet_bf16_weights (prenet_f32_act_bf16) reads {reading:.3e} "
+              f"({reading / K1F_TOL:.0f}x K1F_TOL) and fails the check")
+        log.setdefault("k1f_defects", {})["prenet_bf16_weights"] = {
+            "entry": "prenet_f32_act_bf16", "rel_err": reading, "tol": K1F_TOL,
+            "rows": mel.shape[0]}
+        return
+    raise SmokeFailure(f"prenet_f32_act_bf16's check passes its f32 weights rounded to bf16 "
+                       f"({reading:.3e} of the max)")
+
+
+def k1f_cells_library(model, pk, i: dict):
+    """``nn.LSTMCell`` x2 in f32 on the cells' inputs (TF32 off): the library
+    call of ``lstm_cell_f32``."""
+    import torch
+
+    dev = pk.wq.device
+    mods = (model.decoder.att_rnn, model.decoder.lstm)
+    ins = (torch.cat([i["x"], i["ctx"]], 1), (i["att_h"], i["att_c"]),
+           torch.cat([i["att_h"], i["ctx"]], 1), (i["rnn_h"], i["rnn_c"]))
+    cells = []
+    for mod in mods:
+        cell = torch.nn.LSTMCell(mod.input_size, mod.hidden_size, device=dev)
+        cell.load_state_dict(mod.state_dict())
+        cells.append(cell)
+    if ins[2].shape[1] != mods[1].input_size:  # a controllable model: no library call
+        return None
+    return lambda: (cells[0](ins[0], ins[1]), cells[1](ins[2], ins[3]))
+
+
+def k1f_entries(model, ctl_model, log: dict, copies=None) -> dict:
+    """Every f32 entry of the f32 pack against its plain f32 version at
+    K1F_ROWS rows (L = 96 at one row, 128 at the serve windows' rows), within
+    K1F_TOL of each output's max; the controllable model's decoder cell and
+    heads with distinct controls per row too; at 16 rows the planted
+    defects (``copies``) at least K1F_DEFECT_MARGIN x the limit; rows
+    K1F_INVARIANCE_ROWS of a 64-row launch of every entry bit for bit
+    against the rows alone, and at K1F_TWO_PASSES rows (a second tile)
+    every entry against its plain version and its last row alone; each entry timed (graph replay) beside its plain
+    version, its bound and its library call (``nn.LSTMCell`` x2 f32,
+    ``F.linear`` f32, TF32 off). -> {entry: {"B<rows>": timing}}"""
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 70)
+    pk, cpk = model.make_packed_decoder(), ctl_model.make_packed_decoder()
+    if pk.w_att.dtype != torch.float32 or pk.wt_att.dtype != torch.float32:
+        raise SmokeFailure(f"the 32-true model packed {pk.w_att.dtype} weights, want f32")
+    peak = {"lstm_cell_f32": card_peak("f32"), "location_attention_f32": card_peak("f32")}
+    out: dict = {}
+    for B in K1F_ROWS:
+        L = 96 if B == 1 else SERVE_L
+        i = k1f_inputs(pk, B, L, g)
+        pre = (i["mel"], pk.wp1_t, pk.wp2_t, i["m1"], i["m2"])
+        for name, (kern, plain, lib, nb, fl) in k1f_calls(dl, pk, i).items():
+            k1f_check(f"{name}@B{B}", name, _outputs(kern()), _outputs(plain()), log, pre)
+            if name == "lstm_cell_f32":
+                lib = k1f_cells_library(model, pk, i)
+            b_ms, b_by = bound_ms(nb, fl, peak.get(name, card_peak("f32")))
+            r = out.setdefault(name, {})[f"B{B}"] = {
+                "ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": time_ms(lib) if lib else None,
+                "eager_ms": eager_ms(kern)}
+            log.setdefault("k1f_timing", {}).setdefault(name, {})[f"B{B}"] = r
+            lib_us = "-" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f}"
+            print(f"  {name} at {B} rows: {r['ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} "
+                  f"us, library {lib_us} us, bound {b_ms * 1e3:.2f} us ({b_by})")
+        # the controls rows: the decoder cell and the heads of a controllable model
+        ci = k1f_inputs(cpk, B, L, g)
+        E = cpk.controls_cols
+        ctl = torch.nn.functional.pad(torch.randn(B, ctl_model.cfg.controls_dim, device="cuda",
+                                                  generator=g), (0, E - ctl_model.cfg.controls_dim))
+        calls = k1f_calls(dl, cpk, ci, ctl)
+        for name in ("lstm_cell_f32", "heads_f32", "heads_f32_act_bf16"):
+            kern, plain = calls[name][:2]
+            got, ref = _outputs(kern()), _outputs(plain())
+            check(f"{name}[controls]@B{B}", list(zip(_labels(name, len(got)), got, ref)),
+                  K1F_TOL, log, name, own=True)
+        if B == 1:
+            k1f_prenet_defect(dl, pre, log)
+        if B == 16 and copies is not None:
+            calls = k1f_calls(dl, pk, i)
+            for dname, path in copies().items():
+                entry = K1F_DEFECT_ENTRY[dname]
+                kern, plain = calls[entry][:2]
+                ref = _outputs(plain())
+                with decode_library(path):
+                    got = _outputs(kern())
+                reading = max(err(a, b, True)[1] for a, b in zip(got, ref))
+                log.setdefault("k1f_defects", {})[dname] = {"entry": entry, "rel_err": reading,
+                                                           "tol": K1F_TOL}
+                print(f"  planted defect {dname} ({entry}) reads {reading:.3e} "
+                      f"({reading / K1F_TOL:.0f}x K1F_TOL)")
+                if not reading >= K1F_DEFECT_MARGIN * K1F_TOL:
+                    raise SmokeFailure(f"the planted defect {dname} reads {reading:.3e}, under "
+                                       f"{K1F_DEFECT_MARGIN:g} x {K1F_TOL:g}")
+        torch.cuda.empty_cache()
+    if copies is not None and (set(log.get("k1f_defects", {}))
+                               != {d for d, _ in K1F_DEFECTS} | {"prenet_bf16_weights"}):
+        raise SmokeFailure(f"the f32 entries' planted defects did not all run: "
+                           f"{list(log.get('k1f_defects', {}))}")
+    # rows of a 64-row launch against the rows alone, bit for bit
+    B = max(K1F_INVARIANCE_ROWS) + 1
+    for tag, (p, m) in (("", (pk, model)), ("[controls]", (cpk, ctl_model))):
+        i = k1f_inputs(p, B, SERVE_L, g)
+        ctl = None
+        if tag:
+            E = p.controls_cols
+            ctl = torch.nn.functional.pad(torch.randn(B, m.cfg.controls_dim, device="cuda",
+                                                      generator=g), (0, E - m.cfg.controls_dim))
+        full = {k: _outputs(v[0]()) for k, v in k1f_calls(dl, p, i, ctl).items()}
+        for r in K1F_INVARIANCE_ROWS:
+            one = {k: (v[r:r + 1].contiguous() if torch.is_tensor(v) and v.dim() and v.shape[0] == B
+                       else v) for k, v in i.items()}
+            alone = k1f_calls(dl, p, one, None if ctl is None else ctl[r:r + 1].contiguous())
+            for name, (kern, *_) in alone.items():
+                if all(torch.equal(a[r:r + 1], b) for a, b in zip(full[name], _outputs(kern()))):
+                    continue
+                raise SmokeFailure(f"{name}{tag}: row {r} alone differs from the same row in a "
+                                   f"{B}-row launch")
+    # past 64 rows the cell and the heads run a second tile: every entry
+    # against its plain version, its last row against the same row alone
+    B, r = K1F_TWO_PASSES, K1F_TWO_PASSES - 1
+    i = k1f_inputs(pk, B, SERVE_L, g)
+    one = {k: (v[r:r + 1].contiguous() if torch.is_tensor(v) and v.dim() and v.shape[0] == B
+               else v) for k, v in i.items()}
+    alone = k1f_calls(dl, pk, one)
+    pre = (i["mel"], pk.wp1_t, pk.wp2_t, i["m1"], i["m2"])
+    for name, (kern, plain, *_) in k1f_calls(dl, pk, i).items():
+        got = _outputs(kern())
+        k1f_check(f"{name}@B{B}", name, got, _outputs(plain()), log, pre)
+        if not all(torch.equal(a[r:r + 1], b) for a, b in zip(got, _outputs(alone[name][0]()))):
+            raise SmokeFailure(f"{name}: row {r} alone differs from the same row in a {B}-row "
+                               "launch")
+    log["k1f_invariance"] = {"rows": list(K1F_INVARIANCE_ROWS), "of": 64, "entries": sorted(full),
+                             "two_passes": B}
+    print(f"  every f32 entry: rows {list(K1F_INVARIANCE_ROWS)} of a 64-row launch (and row {r} "
+          f"of a {B}-row one) equal the rows alone, bit for bit (vanilla and with controls)")
+    return out
+
+
+def k1f_chunks(model, log: dict) -> dict:
+    """64 decode steps through the chunk entry of the f32 pack against the
+    plain f32 chunk at K1F_ROWS rows (K1F_CHUNK_TOL of each output's max),
+    counting 5 launches a step of the f32 entries and none of the bf16
+    ones; the int8 pack of the F32 model (K5's cells, the bf16 attention,
+    the f32 prenet and heads with bf16 activations) over 4 steps within
+    K5_CHUNK_TOL (of max(1, max |ref|), as K5's chunks are held: a flipped
+    int8 quantum reads against the state's scale), 7 launches a step, and
+    over 64 steps reported; each chunk timed (graph replay) and its
+    launches per step held. -> the readings"""
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 71)
+    res: dict = {}
+    for quant in (False, True):
+        pk = model.make_packed_decoder(quantize=quant)
+        if dl.decode_mode(pk) != (3 if quant else 2):
+            raise SmokeFailure(f"the 32-true model's pack has mode {dl.decode_mode(pk)}")
+        for B in K1F_ROWS:
+            L = 96 if B == 1 else SERVE_L
+            i = k1f_inputs(pk, B, L, g)
+            enc = i["enc"].to(pk.wq.dtype).contiguous()
+            s = dl.StepState(i["mel"], i["att_h"], i["att_c"], i["ctx"], i["w"], i["cum"],
+                             i["rnn_h"], i["rnn_c"])
+            for n in ((4, 64) if quant else (64,)):
+                m1, m2 = dl.prenet_masks(n, B, pk.wp2_t.shape[0], 0.5, g, enc.device)
+                args = (pk, enc, i["att_enc"], i["lengths"], s, m1, m2)
+                dl.reset_launches()
+                mg, al, sk = dl.decode_chunk(*args)
+                counts = {k: v for k, v in {**dl.LAUNCHES, **dl.F32_LAUNCHES}.items() if v}
+                want = ({"prenet_f32_act_bf16": n, "quantize_xh": 2 * n, "lstm_cell_int8": 2 * n,
+                         "location_attention": n, "heads_f32_act_bf16": n} if quant else
+                        {"prenet_f32": n, "lstm_cell_f32": 2 * n, "location_attention_f32": n,
+                         "heads_f32": n})
+                if counts != want:
+                    raise SmokeFailure(f"{'int8 ' if quant else ''}f32 chunk of {n} steps at "
+                                       f"{B} rows launched {counts}, want {want}")
+                mgp, alp, sp = dl.decode_chunk_plain(*args)
+                pairs = [("mel_gate", mg, mgp), ("weights", al, alp)] + [
+                    (f, getattr(sk, f), getattr(sp, f)) for f in dl.StepState._fields[1:]]
+                tag = f"{'int8_' if quant else ''}f32_chunk{n}@B{B}"
+                kernel = "heads_f32_act_bf16" if quant else "lstm_cell_f32"
+                if quant and n > 4:  # a flipped int8 quantum over 64 steps: reported
+                    worst = max(err(a, b, True)[1] for _, a, b in pairs)
+                    log.setdefault("k1f_chunks", {})[tag] = {"rel_err": worst}
+                    print(f"  {tag:<24} rel {worst:.3e} (reported)")
+                    continue
+                worst = check(tag, pairs, K5_CHUNK_TOL if quant else K1F_CHUNK_TOL, log, kernel,
+                              own=not quant)
+                ms = time_ms(lambda: dl.decode_chunk(*args), 3, 1, 1)
+                res[tag] = {"rel_err": worst, "ms": ms, "us_per_step": ms / n * 1e3,
+                            "launches_per_step": sum(want.values()) / n}
+                log.setdefault("k1f_chunks", {})[tag] = res[tag]
+                print(f"  {tag:<24} {ms / n * 1e3:.1f} us a step on the card (graph replay)")
+            torch.cuda.empty_cache()
+    return res
+
+
+def _f32_say_model(cfg_path: str, ckpt: str, quant: bool, plain: bool):
+    """The say's forward_infer_fast of ``ckpt`` (the same seed, chars and
+    frames as ``say``) on the kernels or on the plain chunk -> its output."""
+    import torch
+
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.run.say import load_tacotron
+    from tacotron2_tpu_torch.text import CharEncoder, normalize_text
+
+    dev = torch.device("cuda")
+    cfg = load_config(cfg_path)
+    prep = cfg.dataset.preprocessing
+    model = load_tacotron(cfg, ckpt, dev)
+    ci, cl = CharEncoder(prep.allowed_chars, prep.end_token).encode_batch(
+        [normalize_text(TEXT, prep.allowed_chars, prep.end_token, False)])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    run = lambda: model.forward_infer_fast(torch.as_tensor(ci, device=dev),
+                                           torch.as_tensor(cl, device=dev), K1F_FRAMES,
+                                           generator=gen, quantize=quant)
+    if plain:
+        with plain_decode():
+            return run()
+    return run()
+
+
+def f32_say(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> dict:
+    """``say`` of the 32-true config through the CLI entry (96 chars, the
+    gate forced positive, K1F_FRAMES frames, ``--export-mel``), then with
+    ``--quantize-int8``, the launch counters set to 0 before each and read
+    after: exactly 5 f32 launches a frame (int8: 7, K5's cells), none of
+    K1's bf16 entries, the vocoder's f32 plan; the WAV within VOCODE_F32_LSB
+    of the plain f32 vocode of its exported mel; the mels of the same
+    decode on the plain chunk (from the same seed) within K1F_CHUNK_TOL of
+    their max (int8: reported), the same frames and lengths. -> {mode:
+    {launches, perf}}"""
+    import numpy as np
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.audio.io import read_wav
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+    from tacotron2_tpu_torch.ops import mrf
+    from tacotron2_tpu_torch.run.say import cut_vocode, load_hifigan, vocode_bucket
+
+    dev = torch.device("cuda")
+    h32 = load_hifigan(g_path, dev)
+    out: dict = {}
+    for quant in (False, True):
+        tag = "int8" if quant else "f32"
+        wav_path = str(WORK / f"say_32true_{tag}.wav")
+        say = lambda: cli(["say", "--config", cfg_path, "--checkpoint", ckpt,
+                           "--hifi-gan-checkpoint", g_path, "--text", TEXT, "--out", wav_path,
+                           "--random-seed", str(SEED), "--max-len-override", str(K1F_FRAMES),
+                           "--export-mel"] + (["--quantize-int8"] if quant else []))
+        say()  # warm-up
+        dl.reset_launches()
+        mrf.reset_launches()
+        res = say()
+        k1 = {k: v for k, v in {**dl.LAUNCHES, **dl.F32_LAUNCHES}.items() if v}
+        n = res["n_frames"]
+        want = ({"prenet_f32_act_bf16": n, "quantize_xh": 2 * n, "lstm_cell_int8": 2 * n,
+                 "location_attention": n, "heads_f32_act_bf16": n} if quant else
+                {"prenet_f32": n, "lstm_cell_f32": 2 * n, "location_attention_f32": n,
+                 "heads_f32": n})
+        print(f"  32-true say {tag}: {n} frames, cut {res['cut']}; K1 launches {k1}")
+        if n != K1F_FRAMES or k1 != want:
+            raise SmokeFailure(f"32-true say {tag}: {n} frames, launches {k1}, want "
+                               f"{K1F_FRAMES} frames, {want}")
+        check_vocode_launches({**mrf.LAUNCHES, **mrf.F32_LAUNCHES}, 1, f"32-true say {tag}")
+        wav, _ = read_wav(wav_path)
+        mel = torch.as_tensor(np.load(wav_path + ".npy").T[None].copy(), device=dev)
+        cut = res["cut"]
+        plain_pcm = cut_vocode(h32, mel, [0], [cut], vocode_bucket(h32, cut),
+                               plain=True)[0, :cut * 256].long().cpu()
+        pcm = torch.as_tensor(np.round(wav * 32768.0)).long()
+        if len(wav) != cut * 256 or not np.isfinite(wav).all() or not np.abs(wav).max() > 0:
+            raise SmokeFailure(f"32-true say {tag}: bad wav, {len(wav)} samples for cut {cut}")
+        lsb = float((pcm - plain_pcm).abs().max())
+        kern = _f32_say_model(cfg_path, ckpt, quant, False)
+        ref = _f32_say_model(cfg_path, ckpt, quant, True)
+        if kern.n_frames != ref.n_frames or not torch.equal(kern.lengths, ref.lengths):
+            raise SmokeFailure(f"32-true say {tag}: the kernels' decode stops at "
+                               f"{kern.n_frames} / {kern.lengths.tolist()}, the plain one at "
+                               f"{ref.n_frames} / {ref.lengths.tolist()}")
+        pairs = [("mels_post", kern.mels_post, ref.mels_post), ("gates", kern.gates, ref.gates)]
+        if quant:  # int8 quanta that flip over 256 frames: reported, as K5's 64-step chunks
+            mel_err = {k: err(a, b, True)[1] for k, a, b in pairs}
+            print(f"  32-true say int8: mels against the plain int8 decode {mel_err} (reported)")
+        else:
+            mel_err = {"worst": check("say_32true_f32_mels", pairs, K1F_CHUNK_TOL, log,
+                                      "heads_f32", own=True)}
+        # the whole plain path (plain decode, plain vocode) against the say's WAV: reported
+        full_plain = cut_vocode(h32, ref.mels_post, [0], [cut], vocode_bucket(h32, cut),
+                                plain=True)[0, :cut * 256].long().cpu()
+        lsb_path = float((pcm - full_plain).abs().max())
+        perf = {"rtf": res["say_s"] / res["audio_s"],
+                "decode_us_per_frame": res["decode_s"] / n * 1e6,
+                "vocoder_us_per_frame": res["vocode_s"] / cut * 1e6, "say_s": res["say_s"],
+                "audio_s": res["audio_s"], "card": card}
+        print(f"  32-true say {tag}: WAV against the plain f32 vocode of its mel max {lsb:.0f} "
+              f"LSB (limit {VOCODE_F32_LSB}); against the plain decode's plain vocode max "
+              f"{lsb_path:.0f} LSB (reported); RTF {perf['rtf']:.4f}, decode "
+              f"{perf['decode_us_per_frame']:.1f} us/frame (host clock) on {card}")
+        if not lsb <= VOCODE_F32_LSB:
+            raise SmokeFailure(f"32-true say {tag}: WAV {lsb} LSB from the plain vocode")
+        out[tag] = {"launches": k1, "perf": perf, "vs_plain_vocode_lsb": lsb,
+                    "vs_plain_path_lsb": lsb_path, "mels_vs_plain": mel_err, "run": res}
+    log.setdefault("f32_decode", {})["say"] = out
+    return out
+
+
+def f32_rows_alone(cfg_path: str, ckpt: str, log: dict) -> dict:
+    """Stage by stage, rows of a served window of K1F_WAVE rows against the
+    same rows alone, both at the server's ``encode_rows`` (64), the 32-true
+    model of ``ckpt`` in this process: the encoder's output, the decode's
+    mels and the postnet's, each bit for bit or its largest difference
+    (reported; ``f32_serve`` holds the WAVs). -> the readings"""
+    import torch
+
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.run.say import load_tacotron
+
+    dev = torch.device("cuda")
+    cfg = load_config(cfg_path)
+    model = load_tacotron(cfg, ckpt, dev)
+    ci, cl = serve_batch(cfg, K1F_WAVE, dev)
+    gens = lambda rows: [torch.Generator(device=dev).manual_seed(300 + r) for r in rows]
+    run = lambda rows: model.forward_infer_fast(ci[rows], cl[rows], K1F_FRAMES,
+                                                row_generators=gens(rows), encode_rows=64)
+    full = run(list(range(K1F_WAVE)))
+    enc_full = model._encode(ci, cl, rows=64)[0]
+    out: dict = {}
+    for r in (0, 5, K1F_WAVE - 1):
+        one = run([r])
+        enc_one = model._encode(ci[r:r + 1], cl[r:r + 1], rows=64)[0]
+        diff = lambda a, b: 0.0 if torch.equal(a, b) else float((a - b).abs().max())
+        out[f"row {r}"] = {"encoded": diff(enc_full[r:r + 1], enc_one),
+                           "mels": diff(full.mels[r:r + 1], one.mels),
+                           "mels_post": diff(full.mels_post[r:r + 1], one.mels_post)}
+    print(f"  32-true rows of a {K1F_WAVE}-row window against alone (0.0: bit for bit): {out}")
+    log.setdefault("f32_decode", {})["rows_alone"] = out
+    del model
+    return out
+
+
+def f32_serve(cfg_path: str, ckpt: str, g_path: str, log: dict, card: str) -> dict:
+    """The warm server in this process with one entry of the 32-true
+    checkpoint: a warm-up request, a wave of K1F_WAVE concurrent requests
+    (which must coalesce, on the f32 entries only), then each request alone,
+    within K1F_SERVE_LSB of its batched audio. -> K1's f32 launches in the
+    wave."""
+    import concurrent.futures
+    import os
+    import threading
+
+    import numpy as np
+
+    from tacotron2_tpu_torch.audio.io import read_wav
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+    from tacotron2_tpu_torch.run import server as srv
+
+    f32_rows_alone(cfg_path, ckpt, log)
+    root = WORK / "serve_32true"
+    root.mkdir(parents=True, exist_ok=True)
+    config = {"models": [{"name": "vanilla-32-true", "config": cfg_path, "checkpoint": ckpt,
+                          "hifi_gan_checkpoint": g_path, "max_len": K1F_FRAMES,
+                          "multi_speaker": False, "controllable": False, "num_voices": 1}],
+              "batching": {"enabled": True, "window_ms": 8, "max_batch": 64, "depth": 2},
+              "warmup": False}
+    cwd = os.getcwd()
+    os.chdir(root)
+    started, holder = threading.Event(), {}
+    thread = threading.Thread(target=lambda: holder.setdefault("result", srv.do_server(
+        0, config, "warm", host="127.0.0.1",
+        on_start=lambda h: (holder.setdefault("httpd", h), started.set()))), daemon=True)
+    pcm = lambda body: np.round(read_wav(str(root / body["path"]))[0] * 32768.0)
+    try:
+        thread.start()
+        while not started.wait(0.5):
+            if not thread.is_alive():
+                raise SmokeFailure("the 32-true server did not start")
+        port = holder["httpd"].server_address[1]
+        status, body, _ = _post(port, {"text": TEXT, "model": 0, "seed": 1})
+        if status != 200:
+            raise SmokeFailure(f"32-true server warm-up: {status} {body}")
+        payloads = [{"text": TRAIN_TEXTS[i % len(TRAIN_TEXTS)], "model": 0, "seed": 300 + i}
+                    for i in range(K1F_WAVE)]
+        barrier = threading.Barrier(K1F_WAVE)
+
+        def one(p):
+            barrier.wait()
+            return _post(port, p)
+
+        dl.reset_launches()
+        calls0 = srv.BATCH_CALLS[0]
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(K1F_WAVE) as ex:
+            replies = list(ex.map(one, payloads))
+        wall = time.perf_counter() - t0
+        calls = srv.BATCH_CALLS[0] - calls0
+        f32 = dict(dl.F32_LAUNCHES)
+        bf16 = {k: v for k, v in dl.LAUNCHES.items() if v}
+        if any(s != 200 for s, _, _ in replies) or not 1 <= calls < K1F_WAVE:
+            raise SmokeFailure(f"32-true wave of {K1F_WAVE}: "
+                               f"{[(s, b) for s, b, _ in replies][:2]}, {calls} decode launches")
+        if bf16 or not all(f32[k] for k in ("prenet_f32", "lstm_cell_f32",
+                                            "location_attention_f32", "heads_f32")):
+            raise SmokeFailure(f"the 32-true wave launched f32 {f32}, bf16 {bf16}")
+        lsb = []
+        for p, (_, body, _) in zip(payloads, replies):
+            st, solo, _ = _post(port, p)
+            a, b = pcm(body), pcm(solo)
+            if st != 200 or len(a) != len(b):
+                raise SmokeFailure(f"32-true request {p['seed']} alone: {st}, {len(b)} samples, "
+                                   f"batched {len(a)}")
+            lsb.append(float(np.abs(a - b).max()))
+    finally:
+        if "httpd" in holder:
+            holder["httpd"].shutdown()
+        thread.join(60)
+        os.chdir(cwd)
+    wave = {"requests": K1F_WAVE, "decode_launches": calls, "wall_s": wall,
+            "max_lsb_alone": max(lsb), "lsb_alone": lsb, "launches": f32, "card": card}
+    print(f"  32-true server: a wave of {K1F_WAVE} in {calls} decode launches, {wall:.2f} s; "
+          f"each request alone, max {max(lsb):.0f} PCM16 LSB from its batched audio on {card}")
+    log.setdefault("f32_decode", {})["serve"] = wave
+    if not max(lsb) <= K1F_SERVE_LSB:
+        raise SmokeFailure(f"32-true served requests differ from alone by {max(lsb)} LSB > "
+                           f"{K1F_SERVE_LSB}")
+    return f32
+
+
+@contextlib.contextmanager
+def relu_branches(follow=None):
+    """``torch.relu`` inside the block (the F32 train step's: the prenet's
+    two layers, the encoder's three convs) records each call's input,
+    detached, in the list it yields; with ``follow`` (one mask a call, as
+    ``[x > 0 for x in ...]`` of another run's list) it takes those branches,
+    ``torch.where(mask, x, 0)``, whose gradient is the mask, as relu's."""
+    import torch
+
+    saved, xs = torch.relu, []
+
+    def relu(x):
+        xs.append(x.detach().clone())
+        if follow is None:
+            return saved(x)
+        if len(xs) > len(follow) or follow[len(xs) - 1].shape != x.shape:
+            raise SmokeFailure(f"ReLU call {len(xs)} of {tuple(x.shape)} has no branches "
+                               f"to follow ({len(follow)} recorded)")
+        return torch.where(follow[len(xs) - 1].to(x.device), x, 0.0)
+
+    torch.relu = relu
+    try:
+        yield xs
+    finally:
+        torch.relu = saved
+
+
+def flip_reading(masks, xs) -> dict:
+    """The elements of each ReLU call whose branch in ``masks`` (another
+    run's x > 0) is not their own in ``xs``: their count, and their largest
+    |x| over the call's max |x| (0 where none flipped)."""
+    worst, n = 0.0, 0
+    if len(masks) != len(xs):
+        raise SmokeFailure(f"ReLU calls: {len(masks)} branches against {len(xs)} inputs")
+    for m, x in zip(masks, xs):
+        d = m.cpu() != (x > 0)
+        n += int(d.sum())
+        if d.any():
+            worst = max(worst, float(x[d].abs().max() / x.abs().max()))
+    return {"flips": n, "flip_rel": worst}
+
+
+def f32_step_compare(cfg_path: str, ckpt: str, speech: Path, root: Path, log: dict,
+                     draw: int = 0, variants=None, own_branches: bool = False,
+                     flip_probe: bool = False) -> dict:
+    """One F32 train step's loss and gradients on the card against the same
+    step on the CPU: the 32-true model of ``ckpt``, K1F_STEP_B rows of the
+    manifest under ``root`` (from row ``draw`` x K1F_STEP_B, masks from seed
+    SEED + 72 + ``draw``), dropout off, the same LSTM masks, BatchNorm in
+    train mode; within K1F_STEP_TOL. The CPU's step takes the card's ReLU
+    branches (``relu_branches``), and each element whose own sign differs
+    must lie within K1F_FLIP_REL of zero. Then the card's step with its
+    teacher decode's LSTM and heads operands rounded to bf16 (a planted
+    defect), whose reading on the loss and on the gradients must each be at
+    least K1F_DEFECT_MARGIN x its limit, and the card's step with its
+    prenet's weights rounded to bf16 (a defect before the ReLUs), whose
+    branches against the CPU's inputs must read at least K1F_DEFECT_MARGIN x
+    K1F_FLIP_REL. ``variants`` {name: (context, on the CPU too)}: the same
+    step, both sides or the card's, inside each context, its readings
+    reported. ``own_branches``: also the CPU's step on its own branches
+    against the card's, reported. ``flip_probe``: for each ReLU call, the
+    CPU's step on the card's branches but for the element nearest zero,
+    flipped, against the card's (what one element on the other branch
+    reads), reported. -> the readings"""
+    import dataclasses
+
+    import torch
+
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.data.loader import collate
+    from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest
+    from tacotron2_tpu_torch.models.layers import Policy
+    from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+    from tacotron2_tpu_torch.ops import train_decode as td
+    from tacotron2_tpu_torch.run.say import model_config_from
+    from tacotron2_tpu_torch.training import step
+    from tacotron2_tpu_torch.training.checkpoint import load_model_state
+
+    cfg = load_config(cfg_path)
+    rows = read_manifest(str(root / "train.csv"))
+    ds = manifest_dataset(cfg, rows, str(speech), cache_dir=str(root / "cache"))
+    first = draw * K1F_STEP_B
+    batch = collate([ds[i] for i in range(first, first + K1F_STEP_B)], 32, 128)
+    mcfg = dataclasses.replace(model_config_from(cfg), dropout=0.0)
+    gen = torch.Generator().manual_seed(SEED + 72 + draw)
+    B, T = batch["mel"].shape[:2]
+    masks = td.lstm_masks(T, B, mcfg.att_rnn_dim, gen, torch.device("cpu"))
+
+    def run(dev, follow=None, prenet_bf16=False):
+        model = Tacotron2(mcfg, Policy.from_string(cfg.training.precision))
+        load_model_state(ckpt, model)
+        model.to(dev).train()
+        if prenet_bf16:  # the planted defect before the ReLUs
+            with torch.no_grad():
+                for i in (0, 3):
+                    model.prenet[i].weight.copy_(model.prenet[i].weight.bfloat16().float())
+        b = step.to_device(batch, dev)
+        with torch.enable_grad(), relu_branches(follow) as xs:
+            loss, _, _ = step._forward_loss(model, b, True, None,
+                                            tuple(m.to(dev) for m in masks))
+            loss.backward()
+        return (float(loss.detach()), {k: p.grad.detach().cpu().double()
+                                       for k, p in model.named_parameters()
+                                       if p.grad is not None}, [x.cpu() for x in xs])
+
+    def readings(a, b):
+        (la, ga, _), (lb, gb, _) = a, b
+        ks = sorted(gb)
+        va, vb = (torch.cat([g[k].reshape(-1) for k in ks]) for g in (ga, gb))
+        worst = max((float((ga[k] - gb[k]).abs().max() / gb[k].abs().max().clamp_min(1e-30)), k)
+                    for k in ks)
+        return {"loss": abs(la - lb) / abs(lb),
+                "grads": float((va - vb).norm() / vb.norm()),
+                "worst_tensor": worst[0], "worst_grad": worst[1]}
+
+    branches = lambda res: [x > 0 for x in res[2]]
+
+    def against_cpu(card):  # the CPU's step on the card's branches -> (CPU, readings)
+        cpu = run(torch.device("cpu"), branches(card))
+        return cpu, {**readings(card, cpu), **flip_reading(branches(card), cpu[2])}
+
+    card = run(torch.device("cuda"))
+    cpu, r = against_cpu(card)
+    saved = td.lstm_cell_plain
+
+    def bf16_operands(w, b, x1, x2, x3, c, ctl=None):  # the planted defect: bf16 operands
+        bf = lambda t: None if t is None else t.to(torch.bfloat16).float()
+        return saved(bf(w), b, bf(x1), bf(x2), bf(x3), c, bf(ctl))
+
+    saved_heads = td.heads_plain
+
+    def bf16_heads(w, b, h, c, act=None, ctl=None):
+        return saved_heads(w, b, h, c, torch.bfloat16, ctl)
+
+    td.lstm_cell_plain, td.heads_plain = bf16_operands, bf16_heads
+    try:
+        d = readings(run(torch.device("cuda")), cpu)
+    finally:
+        td.lstm_cell_plain, td.heads_plain = saved, saved_heads
+    pre = run(torch.device("cuda"), prenet_bf16=True)
+    dp = {**readings(pre, cpu), **flip_reading(branches(pre), cpu[2])}
+    out = {"reading": r, "defect": d, "prenet_defect": dp, "draw": draw}
+    if own_branches:
+        out["own_branches"] = readings(card, run(torch.device("cpu")))
+    for i in range(len(card[2]) if flip_probe else 0):
+        follow = branches(card)
+        x = card[2][i].reshape(-1)
+        j = int(x.abs().argmin())
+        flat = follow[i].reshape(-1).clone()
+        flat[j] = ~flat[j]
+        follow[i] = flat.reshape(follow[i].shape)
+        out[f"flip_relu{i}"] = {**readings(card, run(torch.device("cpu"), follow)),
+                                "x_rel": float(x[j].abs() / x.abs().max())}
+    for name, (ctx, on_cpu) in (variants or {}).items():
+        with ctx():
+            v = run(torch.device("cuda"))
+            out[name] = against_cpu(v)[1] if on_cpu else readings(v, cpu)
+    extra = "".join(f"; {k}: loss {out[k]['loss']:.3e}, gradients {out[k]['grads']:.3e}"
+                    for k in [*(["own_branches"] if own_branches else []), *(variants or {}),
+                              *(k for k in out if k.startswith("flip_relu"))])
+    print(f"  one F32 train step, card against CPU (B={B}, T={T}, draw {draw}): loss rel "
+          f"{r['loss']:.3e}, gradients {r['grads']:.3e} (relative L2; worst tensor "
+          f"{r['worst_tensor']:.3e} of its max, {r['worst_grad']}), {r['flips']} ReLU "
+          f"elements on the card's branch at |x| <= {r['flip_rel']:.3e} of the max; limits "
+          f"{K1F_STEP_TOL}, {K1F_FLIP_REL}; bf16 operands (defect): loss {d['loss']:.3e}, "
+          f"gradients {d['grads']:.3e}; bf16 prenet weights (defect): {dp['flips']} flips at "
+          f"|x| <= {dp['flip_rel']:.3e}, gradients {dp['grads']:.3e}{extra}")
+    log.setdefault("f32_decode", {}).setdefault("step_vs_cpu", []).append(
+        {**out, "tol": K1F_STEP_TOL, "flip_tol": K1F_FLIP_REL, "B": B, "T": T})
+    for k, lim in K1F_STEP_TOL.items():
+        if not r[k] <= lim:
+            raise SmokeFailure(f"the F32 step on the card against the CPU: {k} {r[k]:.3e} > {lim}")
+    if not r["flip_rel"] <= K1F_FLIP_REL:
+        raise SmokeFailure(f"the F32 step: a ReLU element {r['flip_rel']:.3e} of its max from "
+                           f"zero takes another branch on the card than on the CPU")
+    if not min(d[k] / lim for k, lim in K1F_STEP_TOL.items()) >= K1F_DEFECT_MARGIN:
+        raise SmokeFailure(f"the F32 step's limits do not tell bf16 operands from f32 ones: {d}")
+    if not dp["flip_rel"] >= K1F_DEFECT_MARGIN * K1F_FLIP_REL:
+        raise SmokeFailure(f"the F32 step's branch check does not tell bf16 prenet weights: {dp}")
+    return out
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 on for matmuls and cuDNN inside the block (``use_f32_math``
+    undone)."""
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def f32_train(cfg_path: str, log: dict, card: str) -> dict:
+    """``train`` of the 32-true config through the CLI entry (batch 32, 64
+    synthetic WAVs, K1F_TRAIN_STEPS steps), then ``train --finetune
+    --finetune-steps 1 --max-steps 1`` of its checkpoint (two steps at twice
+    the batch): finite losses, no K3 / K4 launch (JAX's XLA
+    route, ``Tacotron2.teacher_route``), the step's ms on the host clock;
+    then ``f32_step_compare``. -> the readings"""
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.ops import train_decode as td
+
+    root = WORK / "train_32true"
+    speech = _synth_corpus(root, TRAIN_WAVS)
+    rows = ["text|wav"] + [f"{TRAIN_TEXTS[i % len(TRAIN_TEXTS)]}|s{i:03d}.wav"
+                           for i in range(TRAIN_WAVS)]
+    cfg_train = train_setup(root, json.loads(Path(cfg_path).read_text()), rows, 32)
+    base = ["train", "--config", str(cfg_train), "--speech-dir", str(speech), "--seed", str(SEED)]
+    td.reset_launches()
+    first = cli(base + ["--results-dir", str(root / "r1"), "--max-steps", str(K1F_TRAIN_STEPS)])
+    ft = cli(base + ["--results-dir", str(root / "ft"), "--resume-ckpt", first["checkpoint"],
+                     "--finetune", "--finetune-steps", "1", "--max-steps", "1"])
+    k34 = dict(td.LAUNCHES)
+    steps = first["steps"] + ft["steps"]
+    losses = [s["loss"] for s in steps]
+    if (any(k34.values()) or not all(math.isfinite(x) for x in losses)
+            or len(first["steps"]) != K1F_TRAIN_STEPS or not ft["steps"]):
+        raise SmokeFailure(f"32-true train: K3/K4 launches {k34}, losses {losses}")
+    step_ms = [s["s"] * 1e3 for s in first["steps"][1:]]
+    perf = {"ms_per_step": step_ms, "ms_per_step_median": sorted(step_ms)[len(step_ms) // 2],
+            "finetune_ms": ft["steps"][0]["s"] * 1e3, "rows": [s["rows"] for s in steps],
+            "decode_frames": [s["decode_frames"] for s in steps], "card": card}
+    print(f"  32-true train: losses {[round(x, 4) for x in losses]}, no K3/K4 launch; "
+          f"{perf['ms_per_step_median']:.1f} ms a step (host clock, B=32), finetune "
+          f"{perf['finetune_ms']:.1f} ms on {card}")
+    setup = (str(cfg_train), first["checkpoint"], speech, root)
+    cmp_ = f32_step_compare(*setup, log)
+    out = {"losses": losses, "k34_launches": k34, "perf": perf, "step_vs_cpu": cmp_}
+    log.setdefault("f32_decode", {})["train"] = out
+    return {**out, "setup": setup}
+
+
+def f32_decode_phase(log: dict, card: str, copies=None) -> tuple:
+    """Phase 4m: a 32-true copy of the flagship config (random weights, gate
+    bias 10, seed SEED) on the card: every f32 entry against its plain f32
+    version (``k1f_entries``), the f32 and int8 chunks (``k1f_chunks``), the
+    32-true say bf16 and int8 (``f32_say``), a served wave
+    (``f32_serve``), train and finetune (``f32_train``). -> (the kernels-line
+    rows of the f32 entries, their launches on the main path: the says'
+    and the wave's)"""
+    import torch
+
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.convert import to_lightning
+
+    t0 = time.perf_counter()
+    cfg_path = write_f32_config()
+    cfg = load_config(cfg_path)
+    model = random_tacotron(cfg, 10.0).cuda()
+    raw = json.loads((ROOT / "config" / CTL_CONFIG).read_text())
+    raw["training"]["precision"] = "32-true"
+    ctl_path = WORK / "controllable-32-true.json"
+    ctl_path.write_text(json.dumps(raw))
+    ctl_model = random_tacotron(load_config(str(ctl_path)), 10.0, SEED + 1).cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {F32_CONFIG} at 32-true: {n_params} parameters, policy "
+          f"{model.policy.compute_dtype}")
+    timing = k1f_entries(model, ctl_model, log, copies)
+    chunks = k1f_chunks(model, log)
+    del ctl_model
+    ckpt = str(WORK / "tacotron2-32true.ckpt")
+    torch.save(to_lightning(model.state_dict()), ckpt)
+    del model
+    torch.cuda.empty_cache()
+    g_path = write_hifigan()
+    said = f32_say(cfg_path, ckpt, g_path, log, card)
+    served = f32_serve(cfg_path, ckpt, g_path, log, card)
+    trained = f32_train(cfg_path, log, card)
+    launches = {k: said["f32"]["launches"].get(k, 0) + said["int8"]["launches"].get(k, 0)
+                + served.get(k, 0) for k in K1F_REPLACES}
+    rows = []
+    for name, per in timing.items():
+        one = per["B1"]
+        rows.append({"name": name, "route": "cuda", "source": K1F_SOURCE,
+                     "replaces": K1F_REPLACES[name],
+                     **{k: one[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms", "eager_ms")},
+                     "per": f"{name} at B=1, L=96 (f32 weights; library: "
+                            + ("nn.LSTMCell x2 f32" if name == "lstm_cell_f32" else
+                               "none" if name == "location_attention_f32" else "F.linear f32")
+                            + ", TF32 off)", "rows": per})
+        if not launches.get(name):
+            raise SmokeFailure(f"{name} was not launched on the 32-true path: {launches}")
+    log.setdefault("f32_decode", {}).update({"chunks": chunks, "launches": launches,
+                                             "seconds": time.perf_counter() - t0})
+    print(f"  4m took {time.perf_counter() - t0:.1f} s; f32 launches on the path {launches}")
+    return rows, launches, {"say": {k: v["perf"] for k, v in said.items()},
+                            "train": trained["perf"], "chunks": chunks}
+
+
+def f32_decode_mode() -> int:
+    """``--f32-decode``: the kernels' build and phase 4m alone; details to
+    ``chiprun_out/f32_decode.json``."""
+    import torch
+
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build
+
+    card = card_line()
+    print(f"[4m] alone on {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    use_f32_math()
+    t0 = time.perf_counter()
+    copies = k1f_copies()
+    logs = build.build_all()
+    log: dict = {"card": card, "build_s": time.perf_counter() - t0,
+                 "ptxas_kernels": {"decode_step": ptxas_kernels(logs["decode_step"])}}
+    print(f"  built in {log['build_s']:.1f} s")
+    for k, v in log["ptxas_kernels"]["decode_step"].items():
+        print(f"    decode_step: {k}: {v['registers']} registers, {v['smem']} bytes static smem, "
+              f"stack frame {v['stack']} bytes, spills {v['spill_stores']} / "
+              f"{v['spill_loads']} bytes")
+    rows = []
+    try:
+        rows, launches, readings = f32_decode_phase(log, card, copies)
+        log.update({"rows": rows, "launches": launches, "readings": readings})
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    finally:
+        log["seconds"] = time.perf_counter() - t0
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "f32_decode.json").write_text(json.dumps(log, indent=1, default=str))
+        shutil.rmtree(WORK, ignore_errors=True)
+        with contextlib.suppress(SmokeFailure):
+            copies()
+    print(f"  4m took {log['seconds']:.1f} s")
+    print(json.dumps({"kernels": [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                                                     "library_ms", "rows")} for r in rows],
+                      "launches": launches}))
+    print(card)
+    return 0
+
+
+def f32_step_mode() -> int:
+    """``--f32-step``: phase 4m's train part alone (``f32_train``: its
+    step against the CPU's at draw 0), the same comparison at draws 1 to
+    K1F_STEP_DRAWS - 1 (other rows and masks) with the CPU also on its own
+    ReLU branches, and at draw 0 with the encoder's BiLSTM as torch's packed
+    LSTM on both sides (``cudnn_bilstm``), with TF32 on on the card
+    (``tf32_on``), and with one element of each ReLU call on the other
+    branch (``flip_probe``): the readings that set K1F_STEP_TOL and
+    K1F_FLIP_REL, and what moves them. -> chiprun_out/f32_step.json"""
+    import torch
+
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+
+    card = card_line()
+    print(f"[4m train] alone on {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    use_f32_math()
+    t0 = time.perf_counter()
+    log: dict = {"card": card}
+    try:
+        setup = f32_train(write_f32_config(), log, card)["setup"]
+        for draw in range(1, K1F_STEP_DRAWS):
+            f32_step_compare(*setup, log, draw, own_branches=True)
+        f32_step_compare(*setup, log, 0, {"packed_encoder": (cudnn_bilstm, True),
+                                          "tf32_on": (tf32_on, False)}, own_branches=True,
+                         flip_probe=True)
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    finally:
+        log["seconds"] = time.perf_counter() - t0
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "f32_step.json").write_text(json.dumps(log, indent=1, default=str))
+        shutil.rmtree(WORK, ignore_errors=True)
+    print(f"  took {log['seconds']:.1f} s")
+    print(card)
+    return 0
+
+
 def arg_value(flag: str, default: str) -> str:
     argv = sys.argv[1:]
     return argv[argv.index(flag) + 1] if flag in argv else default
@@ -9392,10 +10546,14 @@ def main() -> int:
         return mesh_mode()
     if "--v2v3" in sys.argv[1:]:
         return v2v3_mode()
+    if "--f32-step" in sys.argv[1:]:
+        return f32_step_mode()
+    if "--f32-decode" in sys.argv[1:]:
+        return f32_decode_mode()
     log: dict = {}
     t_start = time.perf_counter()
     t_lap = [t_start]
-    pass_copies = defect_narrow = None
+    pass_copies = defect_narrow = defect_k1f = None
 
     def lap(name: str) -> None:  # seconds since the last lap, into log["phase_s"]
         now = time.perf_counter()
@@ -9422,6 +10580,7 @@ def main() -> int:
         t0 = time.perf_counter()
         pass_copies = k2f_pass_copies()  # built beside the kernels, held in phase 3f
         defect_narrow = narrow_copies()  # and the narrow kernel's, held in phase 4l
+        defect_k1f = k1f_copies()  # and K1's f32 entries', held in phase 4m
         logs = build.build_all()
         log["build_s"] = time.perf_counter() - t0
         log["ptxas"] = logs
@@ -9609,6 +10768,14 @@ def main() -> int:
         launches.update(narrow_launches)
         rows += narrow_rows
         lap("4l v2v3")
+        print(f"[4m] K1's f32 mode and the F32 teacher-forced route ({F32_CONFIG} at "
+              f"\"32-true\"): every f32 entry against its plain f32 version at {list(K1F_ROWS)} "
+              "rows, the f32 and int8 chunks, say (f32 and int8), a served wave, train and "
+              "train --finetune")
+        f32_rows, f32_launches, f32_readings = f32_decode_phase(log, card, defect_k1f)
+        launches.update(f32_launches)
+        rows += f32_rows
+        lap("4m f32 decode")
         print("    seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                                   log["phase_s"].items()))
         for r in rows:
@@ -9664,7 +10831,7 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-        for copies in (pass_copies, defect_narrow):  # no nvcc of a copy outlives the run
+        for copies in (pass_copies, defect_narrow, defect_k1f):  # no nvcc of a copy outlives
             if copies is not None:
                 with contextlib.suppress(SmokeFailure):
                     copies()

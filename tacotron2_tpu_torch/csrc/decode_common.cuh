@@ -6,7 +6,10 @@
 //                           query, folded location conv, tanh energies,
 //                           masked softmax, context, cumulative weights (K1's
 //                           step with f32 query input and context, K3's with
-//                           bf16 ones)
+//                           bf16 ones); over bf16 weights and memory (K1's
+//                           bf16 and int8 modes, K3), or f32 ones (K1's f32
+//                           mode: nothing rounded, as the JAX kernel with
+//                           dt = f32)
 //
 // plus the warp helpers, the cluster helpers that K4's
 // backward attention shares (slice_of, att_smem, cl_prologue, loc_conv, the
@@ -22,6 +25,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -269,25 +274,53 @@ __device__ __forceinline__ float as_bf16_operand(bf16 x) { return __bfloat162flo
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-template <typename HT>
+// The operand type WT of the attention's products (its weights' and the
+// memory's type): bf16 rounds every operand it stages (the JAX kernel's
+// astype(dt) with dt = bf16), f32 none (dt = f32).
+template <typename WT>
+__device__ __forceinline__ float op_round(float x) {
+  if constexpr (std::is_same<WT, float>::value) return x;
+  else return rnd_bf16(x);
+}
+template <typename WT, typename HT>
+__device__ __forceinline__ float as_operand(HT x) {
+  if constexpr (std::is_same<WT, float>::value) return (float)x;
+  else return as_bf16_operand(x);
+}
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// 8 consecutive weights from p (16-byte aligned): one 16-byte load of bf16,
+// two of f32
+__device__ __forceinline__ void load8(const bf16* p, float* f) {
+  unpack8(__ldg(reinterpret_cast<const uint4*>(p)), f);
+}
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+template <typename HT, typename WT = bf16>
 __device__ void cl_prologue(cg::cluster_group& cluster, const HT* __restrict__ h,
-                            const bf16* __restrict__ wq, const float* __restrict__ qrow,
-                            const bf16* __restrict__ wloc, const bf16* __restrict__ wv,
+                            const WT* __restrict__ wq, const float* __restrict__ qrow,
+                            const WT* __restrict__ wloc, const WT* __restrict__ wv,
                             const float* __restrict__ w_prev, const float* __restrict__ cum_prev,
                             int b, int L, int H, int A, int K, const Slice& sl, int ww, float* wlt,
                             float* hs, float* q, float* wvs, float* win) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
   const int S = (int)cluster.num_blocks(), r = (int)cluster.block_rank(), pad = K / 2;
   if (qrow) {
-    for (int a = tid; a < A; a += blockDim.x) q[a] = rnd_bf16(qrow[(size_t)b * A + a]);
+    for (int a = tid; a < A; a += blockDim.x) q[a] = op_round<WT>(qrow[(size_t)b * A + a]);
   } else {
-    for (int k = tid; k < H; k += blockDim.x) hs[k] = as_bf16_operand(h[k]);
+    for (int k = tid; k < H; k += blockDim.x) hs[k] = as_operand<WT>(h[k]);
   }
-  for (int a = tid; a < A; a += blockDim.x) wvs[a] = __bfloat162float(wv[a]);
-  // wloc (A, 2, K) read in 16-byte pieces (A 2K % 8 == 0), written transposed
+  for (int a = tid; a < A; a += blockDim.x) wvs[a] = to_f32(wv[a]);
+  // wloc (A, 2, K) read 8 weights a load (A 2K % 8 == 0), written transposed
   for (int i8 = tid; i8 < A * 2 * K / 8; i8 += blockDim.x) {
     float v[8];
-    unpack8(__ldg(reinterpret_cast<const uint4*>(wloc) + i8), v);
+    load8(wloc + (size_t)i8 * 8, v);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int i = i8 * 8 + j, a = i / (2 * K);
@@ -297,8 +330,8 @@ __device__ void cl_prologue(cg::cluster_group& cluster, const HT* __restrict__ h
   for (int i = tid; i < ww; i += blockDim.x) {
     const int l = sl.l0 - pad + i;
     const bool in = l >= 0 && l < L;
-    win[i] = in ? rnd_bf16(w_prev[(size_t)b * L + l]) : 0.0f;
-    win[ww + i] = in ? rnd_bf16(cum_prev[(size_t)b * L + l]) : 0.0f;
+    win[i] = in ? op_round<WT>(w_prev[(size_t)b * L + l]) : 0.0f;
+    win[ww + i] = in ? op_round<WT>(cum_prev[(size_t)b * L + l]) : 0.0f;
   }
   __syncthreads();
   if (qrow) return;
@@ -316,7 +349,7 @@ __device__ void cl_prologue(cg::cluster_group& cluster, const HT* __restrict__ h
       for (int i = 0; i < 2; ++i) {
         if (a0 + i < a_hi) {
           float w[8];
-          unpack8(__ldg(reinterpret_cast<const uint4*>(wq + (size_t)(a0 + i) * H) + k8), w);
+          load8(wq + (size_t)(a0 + i) * H + (size_t)k8 * 8, w);
 #pragma unroll
           for (int k = 0; k < 8; ++k) acc[i] = fmaf(w[k], hv[k], acc[i]);
         }
@@ -325,7 +358,7 @@ __device__ void cl_prologue(cg::cluster_group& cluster, const HT* __restrict__ h
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const float v = warp_sum(acc[i]);
-      if (lane == 0 && a0 + i < a_hi) q[a0 + i] = rnd_bf16(v);
+      if (lane == 0 && a0 + i < a_hi) q[a0 + i] = op_round<WT>(v);
     }
   }
   cluster.sync();
@@ -368,11 +401,13 @@ __device__ __forceinline__ void loc_conv(const float* win, int ww, const float* 
 // are all masked or that has none gives the partial (max -inf, sum 0), which
 // the combine skips. TRIGGER: pdl_trigger first; CB: the type of xb (K1's
 // instances: the context as f32 into xa and as its bf16 operand into xb).
-template <typename HT, typename CT, int THREADS, bool TRIGGER, typename CB>
+// WT: the type of wq, wloc, wv and enc and of the products' operands
+// (op_round): bf16, or K1's f32 mode's f32.
+template <typename HT, typename CT, int THREADS, bool TRIGGER, typename CB, typename WT = bf16>
 __global__ void __launch_bounds__(THREADS) att_fwd_cluster_kernel(
-    const HT* __restrict__ h, int ldh, const bf16* __restrict__ wq,
-    const bf16* __restrict__ wloc, const bf16* __restrict__ wv, const float* __restrict__ att_enc,
-    const bf16* __restrict__ enc, const int* __restrict__ lengths,
+    const HT* __restrict__ h, int ldh, const WT* __restrict__ wq,
+    const WT* __restrict__ wloc, const WT* __restrict__ wv, const float* __restrict__ att_enc,
+    const WT* __restrict__ enc, const int* __restrict__ lengths,
     const float* __restrict__ w_prev, const float* __restrict__ cum_prev, float* __restrict__ w_out,
     float* __restrict__ cum_out, CT* __restrict__ xa, int lda, CB* __restrict__ xb, int ldb,
     int L, int H, int A, int D, int K) {
@@ -390,8 +425,8 @@ __global__ void __launch_bounds__(THREADS) att_fwd_cluster_kernel(
   const int b = blockIdx.y, tid = threadIdx.x, len = lengths[b];
   const size_t bl = (size_t)b * L;
 
-  cl_prologue(cluster, h + (size_t)b * ldh, wq, nullptr, wloc, wv, w_prev, cum_prev, b, L, H, A,
-              K, sl, o.ww, wlt, hs, q, wvs, win);
+  cl_prologue<HT, WT>(cluster, h + (size_t)b * ldh, wq, nullptr, wloc, wv, w_prev, cum_prev, b, L,
+                      H, A, K, sl, o.ww, wlt, hs, q, wvs, win);
 
   // energies of the own chars: a thread owns 4 chars x 4 attention dims
   const int AG = A / 4, CH = sl.ch4;
@@ -407,7 +442,7 @@ __global__ void __launch_bounds__(THREADS) att_fwd_cluster_kernel(
         float es = 0.0f;
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          es = fmaf(rnd_bf16(tanhf(q[a0 + j] + loc[i][j] + ae[j])), wvs[a0 + j], es);
+          es = fmaf(op_round<WT>(tanhf(q[a0 + j] + loc[i][j] + ae[j])), wvs[a0 + j], es);
         part[ag * CH + li] = es;
       }
     }
@@ -441,7 +476,7 @@ __global__ void __launch_bounds__(THREADS) att_fwd_cluster_kernel(
     const float w = expf(e[li] - mx) / tot;
     w_out[l] = w;
     cum_out[l] = cum_prev[l] + w;
-    e[li] = rnd_bf16(w);
+    e[li] = op_round<WT>(w);
   }
   __syncthreads();
 
@@ -449,15 +484,15 @@ __global__ void __launch_bounds__(THREADS) att_fwd_cluster_kernel(
   // sums), then rank r sums dims [r D/S, ...) over the ranks in rank order
   for (int d = tid; d < D; d += blockDim.x) {
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const bf16* col = enc + (bl + sl.l0) * D + d;
+    const WT* col = enc + (bl + sl.l0) * D + d;
     int li = 0;
 #pragma unroll 2
     for (; li + 4 <= sl.n; li += 4) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        acc[i] = fmaf(e[li + i], __bfloat162float(col[(size_t)(li + i) * D]), acc[i]);
+        acc[i] = fmaf(e[li + i], to_f32(col[(size_t)(li + i) * D]), acc[i]);
     }
-    for (; li < sl.n; ++li) acc[0] = fmaf(e[li], __bfloat162float(col[(size_t)li * D]), acc[0]);
+    for (; li < sl.n; ++li) acc[0] = fmaf(e[li], to_f32(col[(size_t)li * D]), acc[0]);
     ctxp[d] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
   cluster.sync();
@@ -485,9 +520,9 @@ int att_cluster_check(bool bwd, int S, int L, int H, int A, int D, int K, size_t
 // THREADS a block (K3: kClThreads; K1 fewer, so that the serve windows'
 // clusters run in one wave); HT / CT the types of the query input and of
 // the context (see the kernel). THREADS is fixed per caller, never taken
-// from the batch; TRIGGER, CB: see the kernel.
+// from the batch; TRIGGER, CB, WT: see the kernel.
 template <typename HT, typename CT, int THREADS = kClThreads, bool TRIGGER = false,
-          typename CB = CT>
+          typename CB = CT, typename WT = bf16>
 int launch_att_fwd(const void* h, int ldh, const void* wq, const void* wloc, const void* wv,
                    const void* att_enc, const void* enc, const void* lengths, const void* w_prev,
                    const void* cum_prev, void* w_out, void* cum_out, void* xa, int lda, void* xb,
@@ -496,12 +531,12 @@ int launch_att_fwd(const void* h, int ldh, const void* wq, const void* wloc, con
   size_t smem = 0;
   static size_t allowed = 48 * 1024;
   int err = att_cluster_check(false, S, L, H, A, D, K, &smem);
-  if (!err) err = allow_smem(att_fwd_cluster_kernel<HT, CT, THREADS, TRIGGER, CB>, smem, &allowed);
+  auto kernel = att_fwd_cluster_kernel<HT, CT, THREADS, TRIGGER, CB, WT>;
+  if (!err) err = allow_smem(kernel, smem, &allowed);
   if (err) return err;
-  return launch_ex(att_fwd_cluster_kernel<HT, CT, THREADS, TRIGGER, CB>, dim3(S, B), dim3(S, 1, 1), THREADS,
-                   smem,
-                   pdl, stream, (const HT*)h, ldh, (const bf16*)wq, (const bf16*)wloc,
-                   (const bf16*)wv, (const float*)att_enc, (const bf16*)enc, (const int*)lengths,
+  return launch_ex(kernel, dim3(S, B), dim3(S, 1, 1), THREADS, smem, pdl, stream, (const HT*)h,
+                   ldh, (const WT*)wq, (const WT*)wloc, (const WT*)wv, (const float*)att_enc,
+                   (const WT*)enc, (const int*)lengths,
                    (const float*)w_prev, (const float*)cum_prev, (float*)w_out, (float*)cum_out,
                    (CT*)xa, lda, (CB*)xb, ldb, L, H, A, D, K);
 }

@@ -57,6 +57,24 @@
 // Bound: the int8 LSTM weight bytes, 17.8 MB at the flagship dims, over HBM
 // bandwidth: 5.3 us per step, half of K1's.
 //
+// K1's f32 mode, the same TPU kernel with f32 weights (dt = w_s.dtype = f32,
+// :386: the JAX package's default policy and every "32-true" model):
+//
+//   t2_lstm_cell_f32       the LSTM cell over an f32 copy of the weights, FFMA
+//                          on the CUDA cores with f32 sums (gate_cell_f32_kernel)
+//   t2_prenet_f32          the prenet over f32 weights; with act_bf16 its
+//                          activations rounded to bf16 (the int8 mode of an
+//                          F32 model, whose prenet and heads weights stay f32)
+//   t2_location_attention_f32  the attention over f32 weights and memory
+//   t2_heads_f32           the heads over f32 weights, FFMA; act_bf16 as the
+//                          prenet's
+//   t2_decode_chunk        mode 2: the n steps on these five launches a step;
+//                          mode 3 (int8 of an F32 model): K5's cells, the bf16
+//                          attention and the f32 prenet and heads, seven
+//
+// Bound: the f32 LSTM weights, 71.3 MB a step at the flagship dims, over HBM
+// bandwidth: 21.3 us at one row; the FFMA of 64 rows, 34 us.
+//
 // The controls mode of both (the controllable configs, _decode_chunk_kernel's
 // controls rows: xh[H + D : H + D + E] = controls :534, the heads' controls @
 // w_out[H + D:] :569): the decoder cell's input is [att_h | ctx | controls |
@@ -548,14 +566,20 @@ __global__ void __launch_bounds__(256) quantize_xh_kernel(const QuantInput in,
 // copy, into out_bf; without, the output alone (the one-kernel entry and
 // int8 mode). grid (PN_S, ceil(B / rows a group)), cluster (PN_S, 1, 1),
 // block PN_THREADS; mel rows are ldm floats apart.
+// K1's f32 mode (prenet_kernel<false, float, ...>): the same kernel over an
+// f32 copy of the weights (float4 loads, 43 KB a block at the flagship
+// dims), OPERAND false. RND: round the mel and h1 to bf16 before their
+// products, as the bf16 mode and the int8 mode of an F32 model do (the JAX
+// kernel's x.astype(dt) with dt = bf16 on f32 weights, :441-444: the
+// ACT_BF16 entry); without, nothing is rounded (dt = f32).
 constexpr int PN_S = 8;          // blocks per cluster: the units' split
 constexpr int PN_THREADS = 256;  // a block: (rows of the group) x U
 
-// shared memory of one block: its mbarrier, the weight slice, the group's
-// mel (f32 values of bf16) and h1 (the same)
-inline size_t prenet_smem(int M, int P) {
+// shared memory of one block: its mbarrier, the weight slice (esize bytes
+// a weight: 2 bf16, 4 f32), the group's mel and h1 (f32 values)
+inline size_t prenet_smem(int M, int P, int esize = 2) {
   const int U = P / PN_S, rows = PN_THREADS / U;
-  return 16 + (size_t)(M + P) * U * 2 + (size_t)rows * (M + P) * 4;
+  return 16 + (size_t)(M + P) * U * esize + (size_t)rows * (M + P) * 4;
 }
 
 // acc + x[4 i + j] w[4 i + j] over i < n4, j < 4, as one fmaf chain in that
@@ -570,11 +594,20 @@ __device__ __forceinline__ float fma4(float acc, const float4& x, const uint2& w
   return fmaf(x.w, __uint_as_float(w.y & 0xffff0000u), acc);
 }
 
+// the same over 4 f32 weights (the f32 prenet's float4 loads)
+__device__ __forceinline__ float fma4(float acc, const float4& x, const float4& w) {
+  acc = fmaf(x.x, w.x, acc);
+  acc = fmaf(x.y, w.y, acc);
+  acc = fmaf(x.z, w.z, acc);
+  return fmaf(x.w, w.w, acc);
+}
+
+template <typename W4>
 __device__ __forceinline__ float fmaf_chain(const float4* __restrict__ x,
-                                            const uint2* __restrict__ w, int ld, int n4) {
+                                            const W4* __restrict__ w, int ld, int n4) {
   float acc = 0.0f;
   float4 xa[PN_G];
-  uint2 wa[PN_G];
+  W4 wa[PN_G];
   const int nb = n4 - n4 % PN_G;
   if (nb > 0) {
 #pragma unroll
@@ -585,7 +618,7 @@ __device__ __forceinline__ float fmaf_chain(const float4* __restrict__ x,
 #pragma unroll 2
     for (int k = PN_G; k < nb; k += PN_G) {
       float4 xb[PN_G];
-      uint2 wb[PN_G];
+      W4 wb[PN_G];
 #pragma unroll
       for (int i = 0; i < PN_G; ++i) {
         xb[i] = x[k + i];
@@ -605,18 +638,19 @@ __device__ __forceinline__ float fmaf_chain(const float4* __restrict__ x,
   return acc;
 }
 
-template <bool OPERAND>
+template <bool OPERAND, typename W = bf16, bool RND = true>
 __global__ void __launch_bounds__(PN_THREADS) prenet_kernel(
-    const float* __restrict__ mel, const bf16* __restrict__ wt, const float* __restrict__ m1,
+    const float* __restrict__ mel, const W* __restrict__ wt, const float* __restrict__ m1,
     const float* __restrict__ m2, float* __restrict__ out, bf16* __restrict__ out_bf, int B, int M,
     int P, int ldm) {
+  typedef typename std::conditional<std::is_same<W, float>::value, float4, uint2>::type W4;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) uint8_t pn_raw[];
   const int U = P / PN_S, rows = PN_THREADS / U, rank = (int)cluster.block_rank();
-  const uint32_t w_bytes = (uint32_t)(M + P) * U * 2;
+  const uint32_t w_bytes = (uint32_t)(M + P) * U * sizeof(W);
   uint64_t* bar = reinterpret_cast<uint64_t*>(pn_raw);
   // [k / 4][u][4], k < M layer 1, then layer 2
-  const uint2* w4 = reinterpret_cast<const uint2*>(pn_raw + 16);
+  const W4* w4 = reinterpret_cast<const W4*>(pn_raw + 16);
   float* xs = reinterpret_cast<float*>(pn_raw + 16 + w_bytes);  // rows x M
   float* hs = xs + rows * M;                                     // rows x P
   const int tid = threadIdx.x, row = tid / U, u = tid - row * U;
@@ -635,14 +669,16 @@ __global__ void __launch_bounds__(PN_THREADS) prenet_kernel(
   const int live = min(rows, B - r0);  // the group's rows in [0, B)
   for (int i = tid; i < live * M; i += PN_THREADS) {
     const int rr = i / M;
-    xs[i] = rnd_bf16(mel[(size_t)(r0 + rr) * ldm + i - rr * M]);
+    const float v = mel[(size_t)(r0 + rr) * ldm + i - rr * M];
+    xs[i] = RND ? rnd_bf16(v) : v;
   }
   __syncthreads();
   mbar_wait(bar, 0);
   float h = 0.0f;
   if (b < B) {
     const float4* x = reinterpret_cast<const float4*>(xs + row * M);
-    h = rnd_bf16(fmaxf(fmaf_chain(x, w4 + u, U, M / 4), 0.0f) * k1);
+    const float v = fmaxf(fmaf_chain(x, w4 + u, U, M / 4), 0.0f) * k1;
+    h = RND ? rnd_bf16(v) : v;
   }
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   if (b < B)  // rows past B are neither computed nor read
@@ -826,6 +862,288 @@ heads_kernel(const uint8_t* __restrict__ wt, const float* __restrict__ bias,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1's f32 mode (the JAX kernel with f32 weights: dt = w_s.dtype = f32,
+// decoder_loop_pallas.py:386, the mode of every model whose precision is
+// "32-true" or "32"): every product takes f32 operands with f32 sums, on the
+// CUDA cores (FFMA), nothing rounded. A simple kernel that is right; its
+// bound at the flagship dims is the f32 LSTM weights, 71.3 MB a step: 21.3
+// us over HBM at one row, and 34 us of FFMA at 64 rows (66.9 TFLOP/s).
+//
+// The f32 LSTM cell (t2_lstm_cell_f32): block gi owns CF_U = 8 hidden units
+// x 4 gates (32 weight rows; grid H / 8 = 128 blocks at H = 1024, one wave)
+// and the whole contraction, so no cluster. Its weights come from a copy
+// tiled once per model (pack_decoder, tile_gates_f32: for block gi, chunk
+// c, column kk of the chunk, its 32 rows (row gate 8 + u is W's row gate H +
+// 8 gi + u) as 32 floats, chunks of CF_KC = 128 columns, 16 KB, laid end to
+// end, zero past R). A producer warp streams them with 1-D bulk copies into
+// a ring of CF_STAGES chunks under mbarriers, marked evict-first; 8 consumer
+// warps stage the pass's rows of the f32 input [x1 | x2 | xc | x3] chunk by
+// chunk (double-buffered, the next chunk's loads in flight while the
+// current one is multiplied). Warp s takes the columns [16 s, 16 s + 16) of
+// each chunk, lane (rg, bg) = (lane % 8, lane / 8) the rows 4 rg .. 4 rg + 3
+// and the batch rows bg + 4 j, j < 16: one fmaf chain per (row, batch row)
+// over the warp's columns in order, chunk after chunk. The 8 warps' partial
+// sums meet in shared memory and are added in warp order (p0 + p1) + ... +
+// p7, then the bias, then the LSTM update. A row's sums follow the dims
+// alone, never B (chip_smoke.py holds rows of a 64-row launch against the
+// rows alone, bit for bit); past 64 rows a second pass streams the weights
+// again. cf_op is where a copy of this source rounds the operands (the
+// smoke's planted defects); here it rounds nothing.
+constexpr int CF_U = 8;                           // hidden units per block
+constexpr int CF_ROWS = 4 * CF_U;                 // weight rows per block
+constexpr int CF_KS = 8;                          // consumer warps: the chunk's column slices
+constexpr int CF_KW = 16;                         // columns of a slice
+constexpr int CF_KC = CF_KS * CF_KW;              // columns of a chunk
+constexpr int CF_CHUNK = CF_KC * CF_ROWS * 4;     // a chunk's weight bytes
+constexpr int CF_STAGES = 6;                      // the weight ring's chunks (96 KB)
+constexpr int CF_THREADS = 32 * (CF_KS + 1);      // warp CF_KS streams the weights
+constexpr int CF_NTILE = 64;                      // batch rows per pass
+constexpr int CF_BJ = CF_NTILE / 4;               // batch rows a lane takes
+constexpr int CF_XS = CF_KC + 4;                  // floats of a staged input row
+constexpr int CF_XLD = CF_NTILE * CF_KC / 4 / (32 * CF_KS);  // float4s a consumer stages
+constexpr int CF_RING = 128;                      // byte offset of the ring
+constexpr int CF_SMEM = CF_RING + CF_STAGES * CF_CHUNK + 2 * CF_NTILE * CF_XS * 4;
+static_assert(CF_KS * CF_ROWS * CF_NTILE <= 2 * CF_NTILE * CF_XS,
+              "the partial sums fit where the input was staged");
+
+__device__ __forceinline__ float cf_op(float x) { return x; }
+__device__ __forceinline__ float4 cf_op4(float4 v) {
+  return make_float4(cf_op(v.x), cf_op(v.y), cf_op(v.z), cf_op(v.w));
+}
+
+// grid H / CF_U, CF_THREADS threads, CF_SMEM bytes. wt: the tiled copy (see
+// above); x: the f32 input's four segments (n_i % 4 == 0, each (B, n_i));
+// bias (4H,); c_in, h_out, c_out (B, H) f32.
+__global__ void __launch_bounds__(CF_THREADS, 1)
+gate_cell_f32_kernel(const float* __restrict__ wt, const QuantInput xin,
+                     const float* __restrict__ bias, const float* __restrict__ c_in,
+                     float* __restrict__ h_out, float* __restrict__ c_out, int B, int H) {
+  extern __shared__ __align__(128) uint8_t cf_raw[];
+  const float* const x[kSeg] = {xin.x[0], xin.x[1], xin.x[2], xin.x[3]};
+  const int n[kSeg] = {xin.n[0], xin.n[1], xin.n[2], xin.n[3]};
+  const int R = n[0] + n[1] + n[2] + n[3], nk = (R + CF_KC - 1) / CF_KC, gi = blockIdx.x;
+  uint64_t* full = reinterpret_cast<uint64_t*>(cf_raw);
+  uint64_t* empty = full + CF_STAGES;
+  uint8_t* ring = cf_raw + CF_RING;
+  float* xs = reinterpret_cast<float*>(ring + CF_STAGES * CF_CHUNK);  // [2][CF_NTILE][CF_XS]
+  float* part = xs;  // after a pass's product: [warp][row][batch row]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ntiles = (B + CF_NTILE - 1) / CF_NTILE, total = ntiles * nk;
+  if (tid == 0) {
+    for (int s = 0; s < CF_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CF_KS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CF_KS) {
+    // producer: chunk it (chunk it % nk of pass it / nk) into stage it %
+    // CF_STAGES once its last use is done; the first stages before the
+    // wait for the previous kernel (the weights depend on nothing it writes)
+    if (lane == 0) {
+      const uint8_t* wb = reinterpret_cast<const uint8_t*>(wt) + (size_t)gi * nk * CF_CHUNK;
+      const uint64_t policy = evict_first_policy();
+      for (int it = 0; it < total; ++it) {
+        const int s = it % CF_STAGES;
+        if (it == CF_STAGES) pdl_wait();
+        if (it >= CF_STAGES) mbar_wait(empty + s, ((it / CF_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, CF_CHUNK);
+        bulk_load(ring + s * CF_CHUNK, wb + (size_t)(it % nk) * CF_CHUNK, CF_CHUNK, full + s,
+                  policy);
+      }
+      if (total <= CF_STAGES) pdl_wait();
+    }
+    return;
+  }
+
+  // consumers
+  pdl_wait();
+  const int rg = lane & 7, bg = lane >> 3;
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int b0 = tile * CF_NTILE, bt = min(CF_NTILE, B - b0);
+    const int nj = bt > bg ? (bt - bg + 3) / 4 : 0;  // this lane's batch rows bg + 4 j
+    float4 xr[CF_XLD];
+    // the pass's rows of chunk c of the input into registers: item i of
+    // tid + 256 i, row i / 32, float4 i % 32 of the chunk; 0 past R
+    auto load_x = [&](int c) {
+#pragma unroll
+      for (int i = 0; i < CF_XLD; ++i) {
+        const int item = tid + i * 32 * CF_KS, b = item / (CF_KC / 4);
+        const int col = c * CF_KC + (item % (CF_KC / 4)) * 4;
+        xr[i] = b < bt && col < R ? cf_op4(input4(x, n, b0 + b, col))
+                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    };
+    float acc[4][CF_BJ];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < CF_BJ; ++j) acc[r][j] = 0.0f;
+    load_x(0);
+    for (int c = 0; c < nk; ++c) {
+      float* xb = xs + (c & 1) * CF_NTILE * CF_XS;
+#pragma unroll
+      for (int i = 0; i < CF_XLD; ++i) {
+        const int item = tid + i * 32 * CF_KS, b = item / (CF_KC / 4);
+        *reinterpret_cast<float4*>(xb + b * CF_XS + (item % (CF_KC / 4)) * 4) = xr[i];
+      }
+      bar_consumers();
+      if (c + 1 < nk) load_x(c + 1);
+      const int it = tile * nk + c, s = it % CF_STAGES;
+      mbar_wait(full + s, (it / CF_STAGES) & 1);
+      const float* wc = reinterpret_cast<const float*>(ring + s * CF_CHUNK);  // [k][row]
+#pragma unroll
+      for (int k4 = 0; k4 < CF_KW; k4 += 4) {
+        const int k = warp * CF_KW + k4;
+        float4 w[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          w[t] = cf_op4(*reinterpret_cast<const float4*>(wc + (k + t) * CF_ROWS + rg * 4));
+#pragma unroll
+        for (int j = 0; j < CF_BJ; ++j) {
+          if (j < nj) {
+            const float4 xv = *reinterpret_cast<const float4*>(xb + (bg + 4 * j) * CF_XS + k);
+            const float xk[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              acc[0][j] = fmaf(w[t].x, xk[t], acc[0][j]);
+              acc[1][j] = fmaf(w[t].y, xk[t], acc[1][j]);
+              acc[2][j] = fmaf(w[t].z, xk[t], acc[2][j]);
+              acc[3][j] = fmaf(w[t].w, xk[t], acc[3][j]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);  // the stage is read: free it
+    }
+    bar_consumers();  // every warp has read the staged input: part may take its place
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < CF_BJ; ++j)
+        if (j < nj) part[(warp * CF_ROWS + rg * 4 + r) * CF_NTILE + bg + 4 * j] = acc[r][j];
+    bar_consumers();
+    // the LSTM update of the block's units: the warps' partial sums in warp
+    // order, then the bias
+    for (int i = tid; i < CF_U * bt; i += 32 * CF_KS) {
+      const int b = i / CF_U, u = i - b * CF_U, j = gi * CF_U + u;
+      float gv[4];
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate) {
+        float v = part[(gate * CF_U + u) * CF_NTILE + b];
+#pragma unroll
+        for (int p = 1; p < CF_KS; ++p) v += part[((p * CF_ROWS) + gate * CF_U + u) * CF_NTILE + b];
+        gv[gate] = v + bias[gate * H + j];
+      }
+      const size_t oo = (size_t)(b0 + b) * H + j;
+      const float cc = sigmoid_f(gv[1]) * c_in[oo] + sigmoid_f(gv[0]) * tanhf(gv[2]);
+      c_out[oo] = cc;
+      h_out[oo] = sigmoid_f(gv[3]) * tanhf(cc);
+    }
+    bar_consumers();  // part is read before the next pass stages its input there
+  }
+}
+
+// The f32 heads (t2_heads_f32): heads_kernel's split of the contraction
+// over a cluster of HD_S blocks (rank r the 16-column pieces [r nk / HD_S,
+// (r + 1) nk / HD_S)), each rank bulk-copying its slice of an f32 copy
+// tiled once per model (pack_decoder, tile_heads_f32: [piece][column of the
+// piece][row of NP], zero past N and K), as FFMA on the CUDA cores: thread
+// (row m, group bg) takes the batch rows bg + 4 j, one fmaf chain each over
+// the rank's columns in order; the owner of an output adds the ranks'
+// partial sums in rank order, then the bias: ((p_0 + p_1) + ... + p_7) + b,
+// whatever B. RND (the int8 mode of an F32 model, the ACT_BF16 entry: the
+// JAX kernel's h_new.astype(bf16) @ w_out on f32 weights, :567-572): the
+// inputs rounded to bf16 as they are staged; without, nothing is rounded.
+struct HeadsF32Smem {
+  int ws, xs, xs_stride, part, total;
+};
+
+__host__ __device__ inline HeadsF32Smem heads_f32_smem(int NP, int npmax) {
+  HeadsF32Smem o;
+  o.ws = 16;
+  o.xs = o.ws + npmax * 16 * NP * 4;
+  o.xs_stride = npmax * 16;
+  o.part = o.xs + HD_NTILE * o.xs_stride * 4;
+  o.total = o.part + HD_NTILE * NP * 4;
+  return o;
+}
+
+// grid (HD_S, ceil(B / HD_NTILE)), cluster (HD_S, 1, 1), HD_THREADS threads,
+// heads_f32_smem(NP, ceil(nk / HD_S)).total bytes; the operands as
+// heads_kernel's
+template <bool RND>
+__global__ void __launch_bounds__(HD_THREADS)
+heads_f32_kernel(const float* __restrict__ wt, const float* __restrict__ bias,
+                 const float* __restrict__ x1, int n1, const float* __restrict__ x2, int n2,
+                 const float* __restrict__ x3, int n3, float* __restrict__ out, int B, int N) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(128) uint8_t hf_raw[];
+  const int nk = (n1 + n2 + n3) / 16, NP = (N + 15) & ~15;
+  const int rank = (int)cluster.block_rank();
+  const int p0 = rank * nk / HD_S, np = (rank + 1) * nk / HD_S - p0;
+  const HeadsF32Smem o = heads_f32_smem(NP, (nk + HD_S - 1) / HD_S);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(hf_raw);
+  const float* ws = reinterpret_cast<const float*>(hf_raw + o.ws);  // [column][row]
+  float* xs = reinterpret_cast<float*>(hf_raw + o.xs);               // [batch row][column]
+  float* part = reinterpret_cast<float*>(hf_raw + o.part);           // [batch row][m]
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.y * HD_NTILE, bt = min(HD_NTILE, B - b0);
+  if (tid == 0) {
+    const uint32_t bytes = (uint32_t)np * 16 * NP * 4;
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar, bytes);  // a rank with no piece (nk < HD_S) adds zeros
+    if (bytes) bulk_load(hf_raw + o.ws, wt + (size_t)p0 * 16 * NP, bytes, bar);
+  }
+  pdl_wait();  // with HD_PDL: the inputs are the launch before's outputs
+  const int q4 = np * 4, c0 = p0 * 16, kn = np * 16;
+  for (int i = tid; i < bt * q4; i += HD_THREADS) {
+    const int b = i / q4, q = i - b * q4, col = c0 + 4 * q, row = b0 + b;
+    const float* src = col < n1        ? x1 + (size_t)row * n1 + col
+                       : col < n1 + n2 ? x2 + (size_t)row * n2 + (col - n1)
+                                       : x3 + (size_t)row * n3 + (col - n1 - n2);
+    float4 v = *reinterpret_cast<const float4*>(src);
+    if (RND) v = make_float4(rnd_bf16(v.x), rnd_bf16(v.y), rnd_bf16(v.z), rnd_bf16(v.w));
+    *reinterpret_cast<float4*>(xs + (size_t)b * o.xs_stride + 4 * q) = v;
+  }
+  __syncthreads();
+  mbar_wait(bar, 0);
+  // thread (m, bg): batch rows bg + 4 j, four at a time (a pass over the
+  // columns each), so that one row costs one pass, not 16 predicated ones
+  for (int task = tid; task < NP * 4; task += HD_THREADS) {
+    const int m = task % NP, bg = task / NP;
+    if (m >= N) continue;
+    for (int j0 = 0; bg + 4 * j0 < bt; j0 += 4) {
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const float* xr = xs + (size_t)(bg + 4 * j0) * o.xs_stride;
+#pragma unroll 4
+      for (int k = 0; k < kn; ++k) {
+        const float w = ws[k * NP + m];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (bg + 4 * (j0 + j) < bt) acc[j] = fmaf(w, xr[(size_t)4 * j * o.xs_stride + k], acc[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (bg + 4 * (j0 + j) < bt) part[(bg + 4 * (j0 + j)) * NP + m] = acc[j];
+    }
+  }
+  cluster.sync();  // every rank's partial sums are whole
+  for (int i = rank * HD_THREADS + tid; i < bt * N; i += HD_S * HD_THREADS) {
+    const int b = i / N, m = i - b * N;
+    float v = 0.0f;
+#pragma unroll
+    for (int p = 0; p < HD_S; ++p) v += *cluster.map_shared_rank(part + b * NP + m, p);
+    out[(size_t)(b0 + b) * N + m] = v + bias[m];
+  }
+  cluster.sync();  // no rank leaves while another still reads its partial sums
+}
+
 // ---- launchers (shared by the one-kernel entry points and the chunk) ----
 
 // K1's attention: blocks of 256 threads, or of 128 where the clusters are
@@ -833,11 +1151,13 @@ heads_kernel(const uint8_t* __restrict__ wt, const float* __restrict__ bias,
 // The sums' order does not follow: while a rank has at most 128 chars, a
 // thread holds at most one char in the softmax's sums and the other sums
 // run per output, whatever the block size. ctx_bf, where given, gets the
-// context's bf16 operand (both LSTM cells' input).
+// context's bf16 operand (both LSTM cells' input). f32: K1's f32 mode, f32
+// weights and memory (the attention's WT = float instance), no ctx_bf.
 int launch_k1_att(const void* h, const void* wq, const void* wloc, const void* wv,
                   const void* att_enc, const void* enc, const void* lengths, const void* w_prev,
                   const void* cum_prev, void* ctx_out, void* ctx_bf, void* w_out, void* cum_out,
-                  int B, int L, int H, int A, int D, int K, int S, cudaStream_t stream) {
+                  int B, int L, int H, int A, int D, int K, int S, cudaStream_t stream,
+                  bool f32 = false) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -845,8 +1165,16 @@ int launch_k1_att(const void* h, const void* wq, const void* wloc, const void* w
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
       sms = 132;
   }
-  if (S < 1) return (int)cudaErrorInvalidValue;
-  if ((long long)B * S > sms && (L + S - 1) / S <= 128)
+  if (S < 1 || (f32 && ctx_bf)) return (int)cudaErrorInvalidValue;
+  const bool narrow = (long long)B * S > sms && (L + S - 1) / S <= 128;
+  if (f32)
+    return narrow ? launch_att_fwd<float, float, 128, true, float, float>(
+                        h, H, wq, wloc, wv, att_enc, enc, lengths, w_prev, cum_prev, w_out,
+                        cum_out, ctx_out, D, nullptr, D, B, S, L, H, A, D, K, false, stream)
+                  : launch_att_fwd<float, float, 256, true, float, float>(
+                        h, H, wq, wloc, wv, att_enc, enc, lengths, w_prev, cum_prev, w_out,
+                        cum_out, ctx_out, D, nullptr, D, B, S, L, H, A, D, K, false, stream);
+  if (narrow)
     return launch_att_fwd<float, float, 128, true, bf16>(
         h, H, wq, wloc, wv, att_enc, enc, lengths, w_prev, cum_prev, w_out, cum_out, ctx_out, D,
         ctx_bf, D, B, S, L, H, A, D, K, false, stream);
@@ -910,6 +1238,24 @@ int launch_quantize_xh(const void* x1, int n1, const void* x2, int n2, const voi
 // the prenet over the tiled copy wt of its weights (pack_decoder); out_bf,
 // where given, gets its output's bf16 operand (the chunk's launch in bf16
 // mode: prenet_kernel<true>)
+// the prenet over the f32 copy (K1's f32 mode), its activations rounded to
+// bf16 where act_bf16 (the int8 mode of an F32 model)
+int launch_prenet_f32(const void* mel, int ldm, const void* wt, const void* m1, const void* m2,
+                      void* out, int B, int M, int P, bool act_bf16, cudaStream_t stream) {
+  const int U = P / PN_S;
+  if (B < 1 || M < 1 || M % 4 || P % PN_S || U % 8 || PN_THREADS % U || ((uintptr_t)wt & 15))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = prenet_smem(M, P, 4);
+  static size_t allowed[2] = {48 * 1024, 48 * 1024};
+  auto kernel = act_bf16 ? prenet_kernel<false, float, true> : prenet_kernel<false, float, false>;
+  const int err = allow_smem(kernel, smem, &allowed[act_bf16 ? 1 : 0]);
+  if (err) return err;
+  const int rows = PN_THREADS / U;
+  return launch_ex(kernel, dim3(PN_S, (B + rows - 1) / rows), dim3(PN_S, 1, 1), PN_THREADS, smem,
+                   false, stream, (const float*)mel, (const float*)wt, (const float*)m1,
+                   (const float*)m2, (float*)out, (bf16*)nullptr, B, M, P, ldm);
+}
+
 int launch_prenet(const void* mel, int ldm, const void* wt, const void* m1, const void* m2,
                   void* out, void* out_bf, int B, int M, int P, cudaStream_t stream) {
   const int U = P / PN_S;
@@ -953,6 +1299,50 @@ int launch_heads(const void* wt, const void* b, const void* x1, int n1, const vo
                    HD_THREADS, (size_t)o.total, HD_PDL, stream, (const uint8_t*)wt,
                    (const float*)b, (const float*)x1, n1, (const float*)x2, n2, (const float*)x3,
                    n3, (float*)out, B, N);
+}
+
+// the f32 heads over the f32 tiled copy wt of W_out (tile_heads_f32); the
+// inputs rounded to bf16 as they are staged where act_bf16
+int launch_heads_f32(const void* wt, const void* b, const void* x1, int n1, const void* x2, int n2,
+                     const void* x3, int n3, void* out, int B, int N, bool act_bf16,
+                     cudaStream_t stream) {
+  const int nk = (n1 + n2 + n3) / 16, NP = (N + 15) & ~15;
+  const bool aligned = ((uintptr_t)wt & 15) == 0 && ((uintptr_t)x1 & 15) == 0 &&
+                       ((uintptr_t)x2 & 15) == 0 && (n3 == 0 || ((uintptr_t)x3 & 15) == 0);
+  if (B < 1 || N < 1 || n1 % 16 || n2 % 16 || n3 % 16 || nk < 1 || !aligned)
+    return (int)cudaErrorInvalidValue;
+  const HeadsF32Smem o = heads_f32_smem(NP, (nk + HD_S - 1) / HD_S);
+  static size_t allowed[2] = {48 * 1024, 48 * 1024};
+  auto kernel = act_bf16 ? heads_f32_kernel<true> : heads_f32_kernel<false>;
+  const int err = allow_smem(kernel, (size_t)o.total, &allowed[act_bf16 ? 1 : 0]);
+  if (err) return err;
+  return launch_ex(kernel, dim3(HD_S, (B + HD_NTILE - 1) / HD_NTILE), dim3(HD_S, 1, 1),
+                   HD_THREADS, (size_t)o.total, HD_PDL, stream, (const float*)wt, (const float*)b,
+                   (const float*)x1, n1, (const float*)x2, n2, (const float*)x3, n3, (float*)out,
+                   B, N);
+}
+
+// the f32 cell: grid H / CF_U, with programmatic dependent launch (its
+// first CF_STAGES weight chunks stream while the previous kernel ends); the
+// input [x1 | x2 | xc | x3] (B, n_i) f32 each, n_i % 4 == 0, 16-byte aligned
+int launch_gate_cell_f32(const void* wt, const QuantInput& xin, const void* b, const void* c_in,
+                         void* h_out, void* c_out, int B, int H, cudaStream_t stream) {
+  bool aligned = ((uintptr_t)wt & 15) == 0;
+  for (int i = 0; i < kSeg; ++i)
+    aligned = aligned && ((uintptr_t)xin.x[i] & 15) == 0 && xin.n[i] % 4 == 0;
+  if (B < 1 || H < CF_U || H % CF_U || !aligned) return (int)cudaErrorInvalidValue;
+  static size_t allowed = 48 * 1024;
+  const int err = allow_smem(gate_cell_f32_kernel, (size_t)CF_SMEM, &allowed);
+  if (err) return err;
+  return launch_ex(gate_cell_f32_kernel, dim3(H / CF_U), kNoCluster, CF_THREADS, (size_t)CF_SMEM,
+                   true, stream, (const float*)wt, xin, (const float*)b, (const float*)c_in,
+                   (float*)h_out, (float*)c_out, B, H);
+}
+
+QuantInput f32_input(const void* x1, int n1, const void* x2, int n2, const void* xc, int nc,
+                     const void* x3, int n3) {
+  return QuantInput{{(const float*)x1, (const float*)x2, (const float*)xc, (const float*)x3},
+                    {n1, n2, nc, n3}};
 }
 
 }  // namespace
@@ -1011,6 +1401,36 @@ int t2_location_attention(const void* h, const void* wq, const void* wloc, const
                        w_out, cum_out, B, L, H, A, D, K, S, (cudaStream_t)stream);
 }
 
+// K1's f32 mode, one kernel each (the same arguments as the bf16 entries;
+// act_bf16: the int8 mode's rounding of an F32 model's activations)
+int t2_lstm_cell_f32(const void* wt, const void* b, const void* x1, int n1, const void* x2,
+                     int n2, const void* xc, int nc, const void* x3, int n3, const void* c_in,
+                     void* h_out, void* c_out, int B, int H, void* stream) {
+  return launch_gate_cell_f32(wt, f32_input(x1, n1, x2, n2, xc, nc, x3, n3), b, c_in, h_out,
+                              c_out, B, H, (cudaStream_t)stream);
+}
+
+int t2_prenet_f32(const void* mel, const void* wt, const void* m1, const void* m2, void* out,
+                  int B, int M, int P, int act_bf16, void* stream) {
+  return launch_prenet_f32(mel, M, wt, m1, m2, out, B, M, P, act_bf16 != 0,
+                           (cudaStream_t)stream);
+}
+
+int t2_location_attention_f32(const void* h, const void* wq, const void* wloc, const void* wv,
+                              const void* att_enc, const void* enc, const void* lengths,
+                              const void* w_prev, const void* cum_prev, void* ctx_out,
+                              void* w_out, void* cum_out, int B, int L, int H, int A, int D,
+                              int K, int S, void* stream) {
+  return launch_k1_att(h, wq, wloc, wv, att_enc, enc, lengths, w_prev, cum_prev, ctx_out, nullptr,
+                       w_out, cum_out, B, L, H, A, D, K, S, (cudaStream_t)stream, true);
+}
+
+int t2_heads_f32(const void* wt, const void* b, const void* x1, int n1, const void* x2, int n2,
+                 const void* xc, int nc, void* out, int B, int N, int act_bf16, void* stream) {
+  return launch_heads_f32(wt, b, x1, n1, x2, n2, xc, nc, out, B, N, act_bf16 != 0,
+                          (cudaStream_t)stream);
+}
+
 // n decode steps, five launches each, from one host call. Pointer slots:
 //   p[0..10]  w_att b_att w_dec b_dec wp1_t wp2_t wq w_loc wv wt_out b_out
 //             (wt_out: the heads' tiled copy of w_out, pack_decoder's)
@@ -1035,9 +1455,17 @@ int t2_location_attention(const void* h, const void* wq, const void* wloc, const
 //             E = 0
 // Step t writes slot t % 2 and reads slot (t - 1) % 2 (the state in at t = 0);
 // the previous attention weights and mel are the aligns and mel_gate rows of
-// step t - 1. d = {n, B, M, P, H, D, L, A, K, int8, S, E}: with int8 != 0,
+// step t - 1. d = {n, B, M, P, H, D, L, A, K, mode, S, E}: mode bit 0 (int8),
 // w_att and w_dec are int8 and both LSTM cells run on K5 (a quantize_xh
-// launch before each); S blocks per batch row in the attention's cluster;
+// launch before each); mode bit 1 (f32), the prenet's and the heads' weights
+// (p[43], p[9]) are f32 copies (tile_prenet, tile_heads_f32), run by the f32
+// entries: with bit 0 too (mode 3, the int8 mode of an F32 model) their
+// activations rounded to bf16, the attention bf16; alone (mode 2, K1's f32
+// mode) the cells on the f32 cell over f32 copies (p[35..36],
+// tile_gates_f32), reading the f32 state and prenet output, the controls at
+// p[44], and the attention over f32 weights and memory, nothing rounded; the
+// bf16 operands p[37..40] and p[45] are not read (null). Five launches a
+// step in mode 2, seven in mode 3. S blocks per batch row in the attention's cluster;
 // E the controls' columns (a multiple of 16, or 0), with which the decoder
 // cell reads [att_h | ctx | controls | rnn_h] (w_dec (4H, 2H + D + E)) and
 // the heads [rnn_h | ctx | controls] (w_out (M + 1, H + D + E)), as
@@ -1046,7 +1474,7 @@ int t2_location_attention(const void* h, const void* wq, const void* wloc, const
 int t2_decode_chunk(void** p, const int* d, void* stream_) {
   const int n = d[0], B = d[1], M = d[2], P = d[3], H = d[4], D = d[5], L = d[6], A = d[7],
             K = d[8], N = M + 1;
-  const bool int8 = d[9] != 0;
+  const bool int8 = (d[9] & 1) != 0, f32w = (d[9] & 2) != 0, f32 = f32w && !int8;
   const int S = d[10], E = d[11];
   cudaStream_t stream = (cudaStream_t)stream_;
   auto bslot = [&](int i, int t) -> bf16* { return (bf16*)p[i] + (size_t)(t & 1) * B * H; };
@@ -1054,15 +1482,17 @@ int t2_decode_chunk(void** p, const int* d, void* stream_) {
   // reads, (t - 1) % 2, and the decoder cell's for the slot pair it reads;
   // int8, the two layouts of the quantised operand
   CellOperand att_x[2], dec_x[2];
-  for (int par = 0; par < 2; ++par) {
+  for (int par = 0; par < 2 && !f32; ++par) {
     att_x[par] = int8 ? int8_operand(p[41], P, D, 0, H)
                       : bf16_operand(p[37], P, p[38], D, nullptr, 0, bslot(39, par), H);
     dec_x[par] = int8 ? int8_operand(p[41], H, D, E, H)
                       : bf16_operand(bslot(39, par), H, p[38], D, p[45], E, bslot(40, par + 1), H);
   }
   int err = 0;
-  auto cell = [&](const CellOperand& xo, int wt, int b, int scale, const void* c_in, void* h_out,
-                  void* c_out, void* h_bf) {
+  // xf: the f32 cell's input (f32 mode)
+  auto cell = [&](const CellOperand& xo, const QuantInput& xf, int wt, int b, int scale,
+                  const void* c_in, void* h_out, void* c_out, void* h_bf) {
+    if (f32) return launch_gate_cell_f32(p[wt], xf, p[b], c_in, h_out, c_out, B, H, stream);
     return int8 ? launch_gate_cell<true>(p[wt], xo, p[scale], p[42], p[b], c_in, h_out, c_out,
                                          nullptr, B, H, stream)
                 : launch_gate_cell<false>(p[wt], xo, nullptr, nullptr, p[b], c_in, h_out, c_out,
@@ -1084,25 +1514,31 @@ int t2_decode_chunk(void** p, const int* d, void* stream_) {
     const void* rnn_h = first ? p[22] : slot(31, t - 1, H);
     const void* rnn_c = first ? p[23] : slot(32, t - 1, H);
     const size_t mo = (size_t)t * B * P;
-    err = launch_prenet(mel, first ? M : N, p[43], (const float*)p[14] + mo,
-                        (const float*)p[15] + mo, p[26], int8 ? nullptr : p[37], B, M, P, stream);
+    err = f32w ? launch_prenet_f32(mel, first ? M : N, p[43], (const float*)p[14] + mo,
+                                   (const float*)p[15] + mo, p[26], B, M, P, int8, stream)
+               : launch_prenet(mel, first ? M : N, p[43], (const float*)p[14] + mo,
+                               (const float*)p[15] + mo, p[26], int8 ? nullptr : p[37], B, M, P,
+                               stream);
     if (!err && int8)
       err = launch_quantize_xh(p[26], P, ctx, D, nullptr, 0, att_h, H, p[41], p[42], B, stream);
     if (!err)
-      err = cell(att_x[(t - 1) & 1], 35, 1, 33, att_c, slot(27, t, H), slot(28, t, H),
-                 bslot(39, t));
+      err = cell(att_x[(t - 1) & 1], f32_input(p[26], P, ctx, D, nullptr, 0, att_h, H), 35, 1, 33,
+                 att_c, slot(27, t, H), slot(28, t, H), bslot(39, t));
     if (!err)
       err = launch_k1_att(slot(27, t, H), p[6], p[7], p[8], p[11], p[12], p[13], att_w, cum,
-                          slot(29, t, D), int8 ? nullptr : p[38], al + (size_t)t * B * L,
-                          slot(30, t, L), B, L, H, A, D, K, S, stream);
+                          slot(29, t, D), int8 || f32 ? nullptr : p[38], al + (size_t)t * B * L,
+                          slot(30, t, L), B, L, H, A, D, K, S, stream, f32);
     if (!err && int8)
       err = launch_quantize_xh(slot(27, t, H), H, slot(29, t, D), D, p[44], E, rnn_h, H, p[41],
                                p[42], B, stream);
     if (!err)
-      err = cell(dec_x[t & 1], 36, 3, 34, rnn_c, slot(31, t, H), slot(32, t, H), bslot(40, t));
+      err = cell(dec_x[t & 1], f32_input(slot(27, t, H), H, slot(29, t, D), D, p[44], E, rnn_h, H),
+                 36, 3, 34, rnn_c, slot(31, t, H), slot(32, t, H), bslot(40, t));
     if (!err)
-      err = launch_heads(p[9], p[10], slot(31, t, H), H, slot(29, t, D), D, p[44], E,
-                         mg + (size_t)t * B * N, B, N, stream);
+      err = f32w ? launch_heads_f32(p[9], p[10], slot(31, t, H), H, slot(29, t, D), D, p[44], E,
+                                    mg + (size_t)t * B * N, B, N, int8, stream)
+                 : launch_heads(p[9], p[10], slot(31, t, H), H, slot(29, t, D), D, p[44], E,
+                                mg + (size_t)t * B * N, B, N, stream);
     if (err) return err;
   }
   return (int)cudaGetLastError();

@@ -733,8 +733,8 @@ __global__ void __launch_bounds__(kClThreads) att_bwd_cluster_kernel(
   const size_t bl = (size_t)b * L;
   const int AS = A / S, DS = D / S, HS = H / S;
 
-  cl_prologue<bf16>(cluster, nullptr, nullptr, qall, wloc, wv, w_prev, cum_prev, b, L, H, A, K, sl, ww,
-              wlt, hs, q, wvs, win);
+  cl_prologue<bf16, bf16>(cluster, nullptr, nullptr, qall, wloc, wv, w_prev, cum_prev, b, L, H, A,
+                          K, sl, ww, wlt, hs, q, wvs, win);
 
   // the context's cotangent, three sources; this rank writes its D/S
   for (int d = tid; d < D; d += blockDim.x) {

@@ -23,6 +23,7 @@ JAX package's bf16 policy (bf16 operands, f32 accumulation).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -181,36 +182,59 @@ def lstm_cell(x, hc: Tuple[torch.Tensor, torch.Tensor], w_ih, w_hh, b_ih, b_hh,
     return h_new, c_new
 
 
-def bilstm_packed(lstm: torch.nn.LSTM, xs, lengths):
+def _valid_reversed(xs, lengths):
+    """(the valid mask (B, T), each row's valid prefix reversed as gather
+    indices (B, T): position t < length reads length - 1 - t, the rest t)."""
+    t = torch.arange(xs.shape[1], device=xs.device)[None, :]
+    lens = lengths.to(xs.device)[:, None]
+    valid = t < lens
+    return valid, torch.where(valid, lens - 1 - t, t)
+
+
+def bilstm_rows(lstm: torch.nn.LSTM, xs, lengths):
     """Bidirectional one-layer ``nn.LSTM`` over (B, T, C) with packed-sequence
-    semantics, as the reference encoder runs it: the reverse direction
-    starts at each row's own last valid step, and outputs past a row's
-    length are zero. Returns (B, T, 2H), forward then reverse features.
-    It runs in f32 (cuDNN on the card)."""
-    packed = torch.nn.utils.rnn.pack_padded_sequence(
-        xs.float(), lengths.cpu(), batch_first=True, enforce_sorted=False)
-    out, _ = lstm(packed)
-    out, _ = torch.nn.utils.rnn.pad_packed_sequence(out, batch_first=True,
-                                                    total_length=xs.shape[1])
-    return out
+    semantics, as the reference encoder runs it, in f32 on every row at
+    every step: each direction one unidirectional f32 LSTM (cuDNN on the
+    card) over the padded batch, the reverse one over each row's valid
+    prefix reversed (a per-row gather), so it starts at the row's own last
+    valid step; outputs past a row's length are zero. A packed LSTM's steps
+    take only the rows still running, so a row's products there take the
+    shape the batch's lengths give; here they take (B, ...) whatever the
+    lengths, so a row of a batch of fixed rows (the server's
+    ``encode_rows``) equals the row alone in such a batch, bit for bit.
+    Returns (B, T, 2H), forward then reverse features."""
+    B, T, C = xs.shape
+    valid, rev = _valid_reversed(xs, lengths)
+    xs = xs.float()
+    h0 = xs.new_zeros(1, B, lstm.hidden_size)
+
+    def run(x, sfx):
+        params = [getattr(lstm, f"{n}_l0{sfx}") for n in ("weight_ih", "weight_hh", "bias_ih",
+                                                          "bias_hh")]
+        with warnings.catch_warnings():  # one direction's weights: not the module's flat copy
+            warnings.filterwarnings("ignore", "RNN module weights are not part of single")
+            return torch.lstm(x, (h0, h0), params, True, 1, 0.0, lstm.training, False, True)[0]
+
+    fwd = run(xs, "")
+    bwd = run(torch.gather(xs, 1, rev[..., None].expand(B, T, C)), "_reverse")
+    bwd = torch.gather(bwd, 1, rev[..., None].expand_as(bwd))
+    return torch.where(valid[..., None], torch.cat([fwd, bwd], dim=-1), 0.0)
 
 
 def bilstm(lstm: torch.nn.LSTM, xs, lengths, policy: Policy = F32):
-    """``bilstm_packed``'s function with the policy's operand rounding, as
-    the JAX encoder's two ``lstm_sequence`` calls compute it. Under f32 it
-    is ``bilstm_packed``. Under bf16 the input projection of every step is
+    """``bilstm_rows``'s function with the policy's operand rounding, as
+    the JAX encoder's two ``lstm_sequence`` calls compute it (each of them
+    runs every row every step, masked). Under f32 it is ``bilstm_rows``,
+    f32 throughout. Under bf16 the input projection of every step is
     one product with bf16 operands and f32 sums (+ b_ih); the recurrence
     (``ops/encoder_lstm.py``) then adds ``bf16(h) . W_hh^T + b_hh`` each
     step while h and c stay f32. The reverse direction runs over each row's
     own reversed valid prefix (a per-row gather), both directions in one
     recurrence. Outputs past a row's length are zero."""
     if policy.compute_dtype == torch.float32:
-        return bilstm_packed(lstm, xs, lengths)
+        return bilstm_rows(lstm, xs, lengths)
     B, T, C = xs.shape
-    t = torch.arange(T, device=xs.device)[None, :]
-    lens = lengths.to(xs.device)[:, None]
-    valid = t < lens
-    rev = torch.where(valid, lens - 1 - t, t)  # each row's valid prefix reversed
+    valid, rev = _valid_reversed(xs, lengths)  # each row's valid prefix reversed
     xs = xs.float()
     x2 = torch.stack([xs, torch.gather(xs, 1, rev[..., None].expand(B, T, C))])
     stack = lambda name: torch.stack([getattr(lstm, f"{name}_l0"),

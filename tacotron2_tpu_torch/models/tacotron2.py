@@ -30,8 +30,9 @@ inference ``gst_reference_mel``, or the neutral style of a zeros reference
 ``forward_teacher`` is training's teacher-forced pass (JAX
 ``forward_teacher(dw_hoist=True)``), with every conditioning above too:
 the decode runs as ``TeacherDecode``, kernels K3 and K4
-(``ops/train_decode.py``), or in a tensor-parallel step column-parallel on
-stock ops (``ops/train_scan.py``, JAX's XLA scan on a TP mesh).
+(``ops/train_decode.py``), under the bf16 policy; under F32, and in a
+tensor-parallel step column-parallel, on stock ops (``ops/train_scan.py``,
+JAX's XLA scan, which JAX runs there too: ``teacher_route``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from tacotron2_tpu_torch.ops import decoder_loop, train_decode, train_scan
 from tacotron2_tpu_torch.parallel import mesh
 
 GATE_MASK_VALUE = -1000.0
+POSTNET_ROWS = 16  # the row tile of a server's F32 postnet (``_postnet_rows``)
 DESCRIPTION_DIM = 128  # the description's columns of the memory (JAX tacotron2.py:71-75)
 
 
@@ -257,8 +259,10 @@ class Tacotron2(nn.Module):
         """Teacher-forced pass over the ground-truth mel (B, T, M): encode
         (with the speaker fusion of a multi-speaker model) -> prenet over the
         mel shifted by one frame (AlwaysDropout, on in train and eval as in
-        the reference) -> ``TeacherDecode`` (a controllable model's controls
-        through the controls rows of K3 and K4) -> postnet -> length masking
+        the reference) -> the teacher-forced decode (``teacher_route``:
+        ``TeacherDecode`` under bf16, a controllable model's controls through
+        the controls rows of K3 and K4; the stock-op scan under F32) ->
+        postnet -> length masking
         by ``mel_len``. ``train``: BatchNorm on batch statistics, dropout in
         the encoder and postnet, LSTM dropout (keep 0.9). Dropout bits come
         from ``generator``; ``lstm_masks`` (T, B, H) x 2 replaces the LSTM's
@@ -292,17 +296,26 @@ class Tacotron2(nn.Module):
         else:
             ones = torch.ones(T, B, c.att_rnn_dim, device=dev)
             lstm_masks = (ones, ones)
-        # a tensor-parallel step (a model group) decodes column-parallel on
-        # every device, as JAX's TP mesh takes its XLA scan; else K3 / K4
-        decode = (train_scan.teacher_decode if mesh.model_parallel() is not None
-                  else train_decode.teacher_decode)
-        mels, gates, aligns = decode(
+        mels, gates, aligns = self.teacher_route()(
             self.decoder, decoder_in, encoded, att_encoded, chars_len,
             *lstm_masks, self.policy.compute_dtype, controls)
         mels = mels.transpose(0, 1)
         post = self.postnet(mels, self.policy, train, c.dropout, generator)
         return self._mask_outputs(mels, mels + post, gates.transpose(0, 1)[..., None],
                                   aligns.transpose(0, 1), mel_len, T)
+
+    def teacher_route(self):
+        """The teacher-forced decode of a train step, chosen as JAX's
+        ``forward_teacher`` chooses it (``pallas_train_supported``): kernels
+        K3 / K4 (``train_decode.teacher_decode``) under the bf16 policy
+        without a model group; else the stock-op scan
+        (``train_scan.teacher_decode``, JAX's ``run_decode_scan``): under F32
+        (``"32-true"`` / ``"32"``), whose f32 products the kernels do not
+        take, and in a tensor-parallel step, column-parallel over the model
+        group."""
+        if self.policy.compute_dtype == torch.bfloat16 and mesh.model_parallel() is None:
+            return train_decode.teacher_decode
+        return train_scan.teacher_decode
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -389,8 +402,9 @@ class Tacotron2(nn.Module):
         ``row_rngs``); it takes the place of ``generator``. ``encode_rows``:
         the rows the encoder runs (``_encode``'s ``rows``): a server that
         passes its largest window makes a row's encoding the same in every
-        window (bf16 products of another shape may sum in another order).
-        ``speaker_id`` (B,), ``controls`` (B, controls_dim) and
+        window (bf16 products of another shape may sum in another order);
+        under F32 it also puts the postnet on fixed row tiles
+        (``_postnet_rows``). ``speaker_id`` (B,), ``controls`` (B, controls_dim) and
         ``description_embeddings`` (B, dim): each row's voice, controls and
         description, for a multi-speaker, a controllable and a description
         model (the controls go through the controls rows of K1 or K5; a
@@ -414,9 +428,23 @@ class Tacotron2(nn.Module):
             chars_len.to(torch.int32).contiguous(), max_len, dropout=c.dropout,
             generator=generator if row_generators is None else list(row_generators),
             prenet_dropout=prenet_dropout, masks=masks, controls=controls)
-        post = self.postnet(mels, self.policy)
+        post = self._postnet_rows(mels, encode_rows is not None)
         return self._mask_outputs(mels, mels + post, gates[..., None], aligns, lengths,
                                   n_frames)
+
+    def _postnet_rows(self, mels, fixed_rows: bool):
+        """The inference postnet over mels (B, T, M). With ``fixed_rows``
+        under F32 (a server's windows, ``encode_rows``) it runs in tiles of
+        POSTNET_ROWS rows, the last one padded: its f32 convs then take one
+        shape, and so one order of sums, whatever B, and a row's audio
+        equals the row alone. Else at B rows (the served rows of the bf16
+        policy read equal to alone at B rows)."""
+        if not fixed_rows or self.policy.compute_dtype != torch.float32:
+            return self.postnet(mels, self.policy)
+        B = mels.shape[0]
+        pad = torch.nn.functional.pad(mels, (0, 0, 0, 0, 0, -B % POSTNET_ROWS))
+        return torch.cat([self.postnet(t, self.policy)
+                          for t in pad.split(POSTNET_ROWS)])[:B]
 
     def make_packed_decoder(self, quantize: bool = False) -> decoder_loop.PackedDecoder:
         """The decoder in the kernels' layout, int8 with ``quantize``, with

@@ -68,6 +68,21 @@ its f32 input quantised per batch row by a ``quantize_xh`` launch, with
 sums in int32. Every other product takes bf16 activations whatever the
 policy, as in the JAX kernel. Its bound at batch 1 is the int8 weights,
 17.8 MB over the HBM rate: 5.3 us a step.
+
+The f32 mode (``pack_decoder(..., torch.float32)``: the JAX package's
+default policy and every ``"32-true"`` / ``"32"`` model, whose decode the
+same TPU kernel runs with f32 weights, ``dt = w_s.dtype``, :386) runs every
+product on f32 operands with f32 sums, nothing rounded: ``lstm_cell`` on
+``t2_lstm_cell_f32`` (FFMA on the CUDA cores over an f32 copy tiled once per
+model, ``tile_gates_f32``), ``prenet``, ``location_attention`` and ``heads``
+on their f32 entries (the heads over ``tile_heads_f32``'s copy), five
+launches a step, each counted in ``F32_LAUNCHES``. An int8 pack of an F32
+model keeps the prenet's and heads' weights f32, as the JAX pack does: its
+chunk runs them on the f32 entries with the activations rounded to bf16
+(``prenet_f32_act_bf16``, ``heads_f32_act_bf16``: the JAX kernel's
+``x.astype(bf16)`` on f32 weights), K5's cells and the bf16 attention, seven
+launches a step. The f32 weights bound a step at 71.3 MB over the HBM rate,
+21.3 us at one row; a 64-row step's FFMA, 34 us at the FP32 peak.
 """
 
 from __future__ import annotations
@@ -89,10 +104,18 @@ LAUNCHES = {"prenet": 0, "lstm_cell": 0, "quantize_xh": 0, "lstm_cell_int8": 0,
 # decoder cell, its quantize_xh and the heads): a run shows by them that its
 # controls went through the kernels' controls rows
 CONTROLS_LAUNCHES = {"lstm_cell": 0, "quantize_xh": 0, "lstm_cell_int8": 0, "heads": 0}
+# the f32 entries' launches (K1's f32 mode, and the prenet's and heads' in
+# the int8 mode of an F32 model, ``_act_bf16``), beside the bf16 ones, and
+# of them those that read a request's controls
+F32_LAUNCHES = {k: 0 for k in ("prenet_f32", "prenet_f32_act_bf16", "lstm_cell_f32",
+                               "location_attention_f32", "heads_f32", "heads_f32_act_bf16")}
+F32_CONTROLS_LAUNCHES = {k: 0 for k in ("lstm_cell_f32", "heads_f32", "heads_f32_act_bf16")}
 PACK_CALLS = [0]  # pack_decoder calls: a warm server packs each model once
 ACT_INT8 = torch.bfloat16  # operand type of the products other than the int8 cells
 GATE_UNITS = 16  # hidden units per cluster of the cell kernel (csrc/decode_step.cu GC_U)
 GATE_CHUNK = 128  # bytes of each weight row per streamed chunk
+F32_GATE_UNITS = 8  # hidden units per block of the f32 cell (csrc CF_U)
+F32_GATE_CHUNK = 128  # columns of each weight row per streamed chunk of the f32 cell (CF_KC)
 PRENET_CLUSTER = 8  # blocks of the prenet's cluster (csrc/decode_step.cu PN_S)
 PRENET_THREADS = 256  # threads of a prenet block: rows of its group x units (PN_THREADS)
 PRENET_SMEM = 227 * 1024  # shared memory a block may use
@@ -101,21 +124,23 @@ HEADS_PIECE = 16  # columns of a piece: one k-step of the heads' mma
 
 
 def reset_launches() -> None:
-    for table in (LAUNCHES, CONTROLS_LAUNCHES):
+    for table in (LAUNCHES, CONTROLS_LAUNCHES, F32_LAUNCHES, F32_CONTROLS_LAUNCHES):
         for k in table:
             table[k] = 0
 
 
 def _count(name: str, n: int = 1, controls: bool = False) -> None:
-    build.count(LAUNCHES, name, n)
+    f32 = name in F32_LAUNCHES
+    build.count(F32_LAUNCHES if f32 else LAUNCHES, name, n)
     if controls:
-        build.count(CONTROLS_LAUNCHES, name, n)
+        build.count(F32_CONTROLS_LAUNCHES if f32 else CONTROLS_LAUNCHES, name, n)
 
 
 class PackedDecoder(NamedTuple):
     """Decoder weights in the kernels' layouts (torch row-major)."""
 
     w_att: torch.Tensor  # (4H, P + D + H) rows = gates; cols [prenet | ctx | att_h]
+    # (bf16, int8 or f32: the pack's mode, ``decode_mode``)
     b_att: torch.Tensor  # (4H,) f32, b_ih + b_hh
     w_dec: torch.Tensor  # (4H, H + D + E + H) cols [att_h | ctx | controls | rnn_h]
     b_dec: torch.Tensor  # (4H,) f32
@@ -128,10 +153,12 @@ class PackedDecoder(NamedTuple):
     b_out: torch.Tensor  # (M + 1,) f32
     s_att: Optional[torch.Tensor] = None  # int8 mode: (4H,) f32 scale of each w_att row
     s_dec: Optional[torch.Tensor] = None  # int8 mode: (4H,) f32 scale of each w_dec row
-    wt_att: Optional[torch.Tensor] = None  # w_att tiled for the cell kernel (tile_gates)
+    wt_att: Optional[torch.Tensor] = None  # w_att tiled for the cell kernel (tile_gates;
+    # f32: tile_gates_f32)
     wt_dec: Optional[torch.Tensor] = None  # w_dec tiled for the cell kernel
     wt_prenet: Optional[torch.Tensor] = None  # the prenet's weights tiled (tile_prenet)
-    wt_out: Optional[torch.Tensor] = None  # w_out tiled for the heads kernel (tile_heads)
+    wt_out: Optional[torch.Tensor] = None  # w_out tiled for the heads kernel (tile_heads;
+    # f32: tile_heads_f32)
 
     @property
     def quantized(self) -> bool:
@@ -208,19 +235,55 @@ def tile_gates(w: torch.Tensor, units: int = GATE_UNITS) -> Optional[torch.Tenso
     return t[:, :, rr, piece].reshape(-1).contiguous()
 
 
-def prenet_units(M: int, P: int) -> int:
+def gate_f32_offset(row, col, H: int, R: int):
+    """Element offset in ``tile_gates_f32``' copy of weight row ``row`` (gate
+    = row // H, unit j = row % H), column ``col`` of an f32 LSTM block (4H, R):
+    the f32 cell kernel's addressing. Block gi = j // F32_GATE_UNITS reads
+    chunks c = col // 128 of its 32 rows (row gate 8 + u for unit 8 gi + u),
+    each chunk column-major ([column of the chunk][row]), chunks of a block end
+    to end. Works on ints and on integer tensors."""
+    nk = -(-R // F32_GATE_CHUNK)
+    gate, j = row // H, row % H
+    gi, u = j // F32_GATE_UNITS, j % F32_GATE_UNITS
+    rr = gate * F32_GATE_UNITS + u
+    c, kk = col // F32_GATE_CHUNK, col % F32_GATE_CHUNK
+    return ((gi * nk + c) * F32_GATE_CHUNK + kk) * 4 * F32_GATE_UNITS + rr
+
+
+def tiled_f32_len(H: int, R: int) -> int:
+    """Elements of ``tile_gates_f32``' copy of 4H rows of R columns."""
+    return 4 * H * -(-R // F32_GATE_CHUNK) * F32_GATE_CHUNK
+
+
+def tile_gates_f32(w: torch.Tensor) -> Optional[torch.Tensor]:
+    """An f32 LSTM block's weights (4H, R) as the f32 cell kernel streams
+    them: a flat f32 copy laid out by ``gate_f32_offset``, rows zero-padded
+    to whole 128-column chunks. None where H is not a multiple of
+    F32_GATE_UNITS (no kernel takes those dims)."""
+    rows, R = w.shape
+    H = rows // 4
+    if H % F32_GATE_UNITS or rows != 4 * H:
+        return None
+    nk = -(-R // F32_GATE_CHUNK)
+    padded = F.pad(w.detach().float(), (0, nk * F32_GATE_CHUNK - R))
+    t = padded.view(4, H // F32_GATE_UNITS, F32_GATE_UNITS, nk, F32_GATE_CHUNK)
+    return t.permute(1, 3, 4, 0, 2).reshape(-1).contiguous()  # [gi][c][kk][gate][u]
+
+
+def prenet_units(M: int, P: int, esize: int = 2) -> int:
     """Units of both layers a block of the prenet's cluster owns, U = P /
     PRENET_CLUSTER; its group is PRENET_THREADS / U rows. Raises ValueError
     for dims the split does not take: U a multiple of 8 (whole 16-byte
     rows of its weight slice) that divides PRENET_THREADS, M a multiple of
     4 (the kernel reads 4 inputs a load), and a block's shared memory (its
-    slice, the group's mel and first-layer outputs) within PRENET_SMEM."""
+    slice of ``esize``-byte weights, 2 bf16 or 4 f32, the group's mel and
+    first-layer outputs) within PRENET_SMEM."""
     U = P // PRENET_CLUSTER
     if M < 1 or M % 4 or P % PRENET_CLUSTER or U % 8 or PRENET_THREADS % U:
         raise ValueError(f"the prenet's cluster of {PRENET_CLUSTER} blocks takes P = 8 U with U "
                          f"a multiple of 8 dividing {PRENET_THREADS} and M a multiple of 4, got "
                          f"P={P}, M={M}")
-    smem = 16 + (M + P) * U * 2 + (PRENET_THREADS // U) * (M + P) * 4
+    smem = 16 + (M + P) * U * esize + (PRENET_THREADS // U) * (M + P) * 4
     if smem > PRENET_SMEM:
         raise ValueError(f"the prenet's block would need {smem} bytes of shared memory at "
                          f"M={M}, P={P}; at most {PRENET_SMEM}")
@@ -251,7 +314,7 @@ def tile_prenet(wp1_t: torch.Tensor, wp2_t: torch.Tensor) -> Optional[torch.Tens
     the dims (``prenet_units``; the plain version needs no copy)."""
     M, P = wp1_t.shape
     try:
-        U = prenet_units(M, P)
+        U = prenet_units(M, P, wp1_t.element_size())
     except ValueError:
         return None
     w = torch.cat([wp1_t, wp2_t], dim=0).detach()  # (M + P, P)
@@ -310,6 +373,31 @@ def tile_heads(w_out: torch.Tensor) -> torch.Tensor:
         nk, NP, HEADS_PIECE).contiguous()
 
 
+def heads_f32_offset(row, col, N: int):
+    """Element offset in ``tile_heads_f32``' copy of an f32 w_out[row, col]:
+    piece p = col // 16 of every padded row, column-major ([p][column of the
+    piece][row]), so that a rank's pieces are one contiguous run and a warp's
+    32 rows one column's 32 consecutive floats (the f32 heads kernel's
+    addressing). Works on ints and on integer tensors."""
+    NP = heads_rows(N)
+    return ((col // HEADS_PIECE) * HEADS_PIECE + col % HEADS_PIECE) * NP + row
+
+
+def heads_f32_tiled_shape(N: int, K: int) -> Tuple[int, int, int]:
+    """Shape of ``tile_heads_f32``' copy: (pieces, 16, padded rows)."""
+    return -(-K // HEADS_PIECE), HEADS_PIECE, heads_rows(N)
+
+
+def tile_heads_f32(w_out: torch.Tensor) -> torch.Tensor:
+    """The heads' f32 weights (N, K) as the f32 heads kernel's ranks copy
+    them (``heads_f32_offset``): zero past N rows and K columns."""
+    N, K = w_out.shape
+    nk, _, NP = heads_f32_tiled_shape(N, K)
+    w = w_out.detach().float().new_zeros(NP, nk * HEADS_PIECE)
+    w[:N, :K] = w_out.detach()
+    return w.view(NP, nk, HEADS_PIECE).permute(1, 2, 0).contiguous()
+
+
 CONTROLS_ALIGN = 16  # the controls' columns are padded to a multiple of this
 
 
@@ -324,7 +412,8 @@ def stage_controls(pk: PackedDecoder, controls: Optional[torch.Tensor], B: int, 
     """A decode's controls (B, E0) as the kernels read them, once per decode:
     f32 (B, E) zero-padded to the pack's ``controls_cols`` (the heads', and
     K5's quantize_xh's) and its bf16 operand (K1's decoder cell; None for an
-    int8 pack). (None, None) for a pack without controls."""
+    int8 pack; an f32 pack's chunk does not read it). (None, None) for a
+    pack without controls."""
     E = pk.controls_cols
     if E == 0:
         if controls is not None:
@@ -340,18 +429,27 @@ def stage_controls(pk: PackedDecoder, controls: Optional[torch.Tensor], B: int, 
     return c32, None if pk.quantized else c32.to(torch.bfloat16)
 
 
+def decode_mode(pk: PackedDecoder) -> int:
+    """The chunk's mode of a pack (``t2_decode_chunk``'s d[9]): bit 0 the
+    cells int8 (K5), bit 1 the prenet's and heads' weights f32 (alone: K1's
+    f32 mode, every weight f32; with bit 0: the int8 pack of an F32 model)."""
+    return int(pk.quantized) | (2 if pk.wp1_t.dtype == torch.float32 else 0)
+
+
 def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) -> PackedDecoder:
     """Repack the prenet and decoder modules for the kernels; weights in
     ``dtype`` (bf16 on the card), biases in f32. ``quantize``: the two LSTM
     blocks int8 with a scale per gate row, quantised from the f32 weights;
     the attention's weights bf16 whatever ``dtype``, and the prenet's and
     heads' in ``dtype`` with their activations rounded to bf16
-    (``ACT_INT8``), as the JAX kernel's int8 mode takes those products.
+    (``ACT_INT8``), as the JAX kernel's int8 mode takes those products
+    (f32 weights of an F32 model run on the f32 entries with that rounding).
     A decoder with controls gets their columns in w_dec and w_out, padded
     to ``controls_cols`` with zeros (the gate's row zero over all of them).
     The two LSTM blocks also get the cell kernel's tiled copies
-    (``tile_gates``), the prenet its kernel's (``tile_prenet``) and the
-    heads theirs (``tile_heads``), made here once per pack."""
+    (``tile_gates``; f32 blocks ``tile_gates_f32``), the prenet its
+    kernel's (``tile_prenet``) and the heads theirs (``tile_heads``; f32
+    ``tile_heads_f32``), made here once per pack."""
     PACK_CALLS[0] += 1
     a, d, att = decoder.att_rnn, decoder.lstm, decoder.attention
     with torch.no_grad():
@@ -376,6 +474,7 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) ->
             w_att, w_dec = cast(w_att), cast(w_dec)
         wp1_t, wp2_t = cast(prenet[0].weight.t()), cast(prenet[3].weight.t())
         w_out = cast(torch.cat([mel_w, gate_w], dim=0))
+        f32_cells, f32_heads = w_att.dtype == torch.float32, w_out.dtype == torch.float32
         return PackedDecoder(
             w_att=w_att,
             b_att=f32(a.bias_ih + a.bias_hh),
@@ -388,10 +487,10 @@ def pack_decoder(prenet, decoder, dtype: torch.dtype, quantize: bool = False) ->
             wv=att_cast(att.v.weight[0]),
             w_out=w_out,
             b_out=f32(torch.cat([decoder.mel_out.bias, decoder.gate.bias], dim=0)),
-            wt_att=tile_gates(w_att),
-            wt_dec=tile_gates(w_dec),
+            wt_att=tile_gates_f32(w_att) if f32_cells else tile_gates(w_att),
+            wt_dec=tile_gates_f32(w_dec) if f32_cells else tile_gates(w_dec),
             wt_prenet=tile_prenet(wp1_t, wp2_t),
-            wt_out=tile_heads(w_out),
+            wt_out=tile_heads_f32(w_out) if f32_heads else tile_heads(w_out),
             **scales,
         )
 
@@ -520,8 +619,16 @@ def bind(lib):
     lib.t2_location_attention.argtypes = [P] * 12 + [I] * 7 + [P]
     lib.t2_heads.argtypes = [P, P, P, I, P, I, P, I, P, I, I, P]
     lib.t2_decode_chunk.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I), P]
+    # K1's f32 mode: the bf16 entries' arguments; the prenet and heads one more
+    # int, act_bf16
+    lib.t2_lstm_cell_f32.argtypes = lib.t2_lstm_cell.argtypes
+    lib.t2_prenet_f32.argtypes = [P] * 5 + [I] * 4 + [P]
+    lib.t2_location_attention_f32.argtypes = lib.t2_location_attention.argtypes
+    lib.t2_heads_f32.argtypes = [P, P, P, I, P, I, P, I, P, I, I, I, P]
     for fn in (lib.t2_prenet, lib.t2_lstm_cell, lib.t2_quantize_xh, lib.t2_lstm_cell_int8,
-               lib.t2_location_attention, lib.t2_heads, lib.t2_decode_chunk):
+               lib.t2_location_attention, lib.t2_heads, lib.t2_decode_chunk,
+               lib.t2_lstm_cell_f32, lib.t2_prenet_f32, lib.t2_location_attention_f32,
+               lib.t2_heads_f32):
         fn.restype = I
     return lib
 
@@ -537,24 +644,43 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def prenet(mel, wp1_t, wp2_t, m1, m2, wt=None):
+def _act_bf16(act: Optional[torch.dtype]) -> bool:
+    """An f32 entry's rounding of its activations: None (K1's f32 mode) or
+    bf16 (``ACT_INT8``: the int8 mode of an F32 model)."""
+    if act not in (None, torch.bfloat16):
+        raise ValueError(f"act: want None or torch.bfloat16, got {act}")
+    return act is not None
+
+
+def prenet(mel, wp1_t, wp2_t, m1, m2, wt=None, act: Optional[torch.dtype] = None):
     """(B, M) previous mel -> (B, P) prenet output with dropout masks. On
     the card the kernel reads ``wt``, the tiled copy of both weights
-    (``tile_prenet``, the pack's ``wt_prenet``)."""
+    (``tile_prenet``, the pack's ``wt_prenet``), bf16 or f32 as the weights
+    are: f32 weights run the f32 entry, its activations rounded to ``act``
+    (None, or bf16 for the int8 mode of an F32 model; bf16 weights round
+    them to bf16 in any case)."""
     if mel.device.type == "cpu":
-        return prenet_plain(mel, wp1_t, wp2_t, m1, m2)
+        return prenet_plain(mel, wp1_t, wp2_t, m1, m2, act)
     B, M = mel.shape
     Pd = wp2_t.shape[0]
-    prenet_units(M, Pd)  # raises for dims the cluster split does not take
+    f32 = wp1_t.dtype == torch.float32
+    prenet_units(M, Pd, 4 if f32 else 2)  # raises for dims the cluster split does not take
     if wt is None:
         raise ValueError("prenet: the kernel reads the tiled copy of its weights (tile_prenet, "
                          "the pack's wt_prenet); none was given")
-    bf = torch.bfloat16
+    rnd = _act_bf16(act) if f32 else None
     build.require(mel, torch.float32, (B, M), "mel")
-    build.require(wt, bf, prenet_tiled_shape(M, Pd), "wt")
+    build.require(wt, torch.float32 if f32 else torch.bfloat16, prenet_tiled_shape(M, Pd), "wt")
     build.require(m1, torch.float32, (B, Pd), "m1")
     build.require(m2, torch.float32, (B, Pd), "m2")
     out = torch.empty(B, Pd, device=mel.device)
+    if f32:
+        name = "prenet_f32_act_bf16" if rnd else "prenet_f32"
+        _count(name)
+        build.check(_lib().t2_prenet_f32(mel.data_ptr(), wt.data_ptr(), m1.data_ptr(),
+                                         m2.data_ptr(), out.data_ptr(), B, M, Pd, int(rnd),
+                                         _stream()), name)
+        return out
     build.count(LAUNCHES, "prenet")
     build.check(_lib().t2_prenet(mel.data_ptr(), wt.data_ptr(), m1.data_ptr(), m2.data_ptr(),
                                  out.data_ptr(), B, M, Pd, _stream()), "prenet")
@@ -568,7 +694,8 @@ def tiled_bytes(H: int, row_bytes: int) -> int:
 
 def _cell_operands(w, dt, b, x1, x2, x3, c, wt, ctl=None) -> Tuple[int, int, int, int, int]:
     """Check a cell's operands (the inputs x_i and the controls ``ctl`` in
-    the kernel's type) -> (B, H, n1, n2, nc, n3)."""
+    the kernel's type: bf16 for bf16 weights, f32 for int8 and f32 ones)
+    -> (B, H, n1, n2, nc, n3)."""
     B, H = c.shape
     xs = (("x1", x1), ("x2", x2), ("x3", x3)) + ((("ctl", ctl),) if ctl is not None else ())
     n1, n2, n3 = x1.shape[1], x2.shape[1], x3.shape[1]
@@ -578,10 +705,16 @@ def _cell_operands(w, dt, b, x1, x2, x3, c, wt, ctl=None) -> Tuple[int, int, int
     if wt is None:
         raise ValueError("wt: the cell kernel streams the tiled copy of w (pack_decoder's "
                          "wt_att / wt_dec, tile_gates); none was given")
-    build.require(wt, torch.uint8, (tiled_bytes(H, R * w.element_size()),), "wt")
+    if dt == torch.float32:
+        if H % F32_GATE_UNITS:
+            raise ValueError(f"the f32 cell kernel takes H a multiple of {F32_GATE_UNITS}; "
+                             f"got H={H}")
+        build.require(wt, torch.float32, (tiled_f32_len(H, R),), "wt")
+    else:
+        build.require(wt, torch.uint8, (tiled_bytes(H, R * w.element_size()),), "wt")
     build.require(b, torch.float32, (4 * H,), "b")
     for name, x in xs:
-        build.require(x, torch.float32 if dt == torch.int8 else torch.bfloat16,
+        build.require(x, torch.bfloat16 if dt == torch.bfloat16 else torch.float32,
                       (B, x.shape[1]), name)
     build.require(c, torch.float32, (B, H), "c")
     if any(t.data_ptr() % 16 for _, t in xs):
@@ -598,21 +731,25 @@ def lstm_cell(w, b, x1, x2, x3, c, wt=None, ctl=None):
     """LSTM cell over the input [x1 | x2 | ctl | x3] with weight rows =
     gates (4H, R) and summed bias (4H,) -> (h, c); ``ctl`` the controls
     (the decoder cell of a controllable model), else [x1 | x2 | x3]. On the
-    card the kernel streams ``wt``, the tiled copy of ``w``
-    (``tile_gates``), and reads the inputs' bf16 operands: they may be given
-    in bf16 (in the chunk their producers write them) or f32 (cast here)."""
+    card the kernel streams ``wt``, the tiled copy of ``w`` (bf16 weights:
+    ``tile_gates``, the inputs their bf16 operands, which in the chunk their
+    producers write; f32 weights: ``tile_gates_f32``, the inputs f32, K1's
+    f32 mode). Inputs of another type than the weights' kernel reads are
+    refused, not cast."""
     if x1.device.type == "cpu":
         return lstm_cell_plain(w, b, x1, x2, x3, c, ctl)
-    x1, x2, x3 = (x.to(torch.bfloat16) for x in (x1, x2, x3))
-    ctl = None if ctl is None else ctl.to(torch.bfloat16)
-    B, H, n1, n2, nc, n3 = _cell_operands(w, torch.bfloat16, b, x1, x2, x3, c, wt, ctl)
+    f32 = w.dtype == torch.float32
+    B, H, n1, n2, nc, n3 = _cell_operands(w, torch.float32 if f32 else torch.bfloat16, b, x1,
+                                          x2, x3, c, wt, ctl)
     h_out = torch.empty(B, H, device=c.device)
     c_out = torch.empty(B, H, device=c.device)
-    _count("lstm_cell", controls=nc > 0)
-    build.check(_lib().t2_lstm_cell(
+    name = "lstm_cell_f32" if f32 else "lstm_cell"
+    _count(name, controls=nc > 0)
+    entry = _lib().t2_lstm_cell_f32 if f32 else _lib().t2_lstm_cell
+    build.check(entry(
         wt.data_ptr(), b.data_ptr(), x1.data_ptr(), n1, x2.data_ptr(), n2, _ptr(ctl), nc,
         x3.data_ptr(), n3, c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), B, H, _stream()),
-        "lstm_cell")
+        name)
     return h_out, c_out
 
 
@@ -667,14 +804,17 @@ def lstm_cell_int8(w, ws, b, x1, x2, x3, c, wt=None, ctl=None):
 
 
 def location_attention(h, wq, w_loc, wv, att_enc, encoded, lengths, w_prev, cum_prev):
-    """-> (context (B, D), weights (B, L), cumulative weights (B, L))."""
+    """-> (context (B, D), weights (B, L), cumulative weights (B, L)). On
+    the card the weights and the memory are bf16 (operands rounded to bf16)
+    or, K1's f32 mode, all f32 (nothing rounded)."""
     if h.device.type == "cpu":
         return location_attention_plain(h, wq, w_loc, wv, att_enc, encoded,
                                         lengths, w_prev, cum_prev)
     B, H = h.shape
     A, _, K = w_loc.shape
     L, D = encoded.shape[1], encoded.shape[2]
-    bf = torch.bfloat16
+    f32 = wq.dtype == torch.float32
+    bf = torch.float32 if f32 else torch.bfloat16  # the weights' and the memory's type
     build.require(h, torch.float32, (B, H), "h")
     build.require(wq, bf, (A, H), "wq")
     build.require(w_loc, bf, (A, 2, K), "w_loc")
@@ -688,27 +828,32 @@ def location_attention(h, wq, w_loc, wv, att_enc, encoded, lengths, w_prev, cum_
     ctx = torch.empty(B, D, device=h.device)
     w = torch.empty(B, L, device=h.device)
     cum = torch.empty(B, L, device=h.device)
-    build.count(LAUNCHES, "location_attention")
-    build.check(_lib().t2_location_attention(
+    name = "location_attention_f32" if f32 else "location_attention"
+    _count(name)
+    entry = _lib().t2_location_attention_f32 if f32 else _lib().t2_location_attention
+    build.check(entry(
         h.data_ptr(), wq.data_ptr(), w_loc.data_ptr(), wv.data_ptr(),
         att_enc.data_ptr(), encoded.data_ptr(), lengths.data_ptr(),
         w_prev.data_ptr(), cum_prev.data_ptr(), ctx.data_ptr(), w.data_ptr(),
-        cum.data_ptr(), B, L, H, A, D, K, S, _stream()), "location_attention")
+        cum.data_ptr(), B, L, H, A, D, K, S, _stream()), name)
     return ctx, w, cum
 
 
-def heads(w_out, b_out, rnn_h, ctx, ctl=None, wt=None):
+def heads(w_out, b_out, rnn_h, ctx, ctl=None, wt=None, act: Optional[torch.dtype] = None):
     """-> (B, M + 1): mel frame and gate logit over [rnn_h | ctx], or
     [rnn_h | ctx | ctl] with the controls ``ctl`` (f32). On the card the
     kernel reads ``wt``, the tiled copy of ``w_out`` (``tile_heads``, the
-    pack's ``wt_out``)."""
+    pack's ``wt_out``; f32 weights: ``tile_heads_f32`` and the f32 entry,
+    its inputs rounded to ``act``, None or bf16, as ``prenet``)."""
     if rnn_h.device.type == "cpu":
-        return heads_plain(w_out, b_out, rnn_h, ctx, ctl=ctl)
+        return heads_plain(w_out, b_out, rnn_h, ctx, act, ctl)
     B = rnn_h.shape[0]
     N = w_out.shape[0]
     n1, n2 = rnn_h.shape[1], ctx.shape[1]
     nc = 0 if ctl is None else ctl.shape[1]
-    build.require(w_out, torch.bfloat16, (N, n1 + n2 + nc), "w_out")
+    f32 = w_out.dtype == torch.float32
+    rnd = _act_bf16(act) if f32 else None
+    build.require(w_out, torch.float32 if f32 else torch.bfloat16, (N, n1 + n2 + nc), "w_out")
     build.require(b_out, torch.float32, (N,), "b_out")
     build.require(rnn_h, torch.float32, (B, n1), "rnn_h")
     build.require(ctx, torch.float32, (B, n2), "ctx")
@@ -718,8 +863,16 @@ def heads(w_out, b_out, rnn_h, ctx, ctl=None, wt=None):
     if wt is None:
         raise ValueError("heads: the kernel reads the tiled copy of w_out (tile_heads, the "
                          "pack's wt_out); none was given")
-    build.require(wt, torch.bfloat16, heads_tiled_shape(N, n1 + n2 + nc), "wt")
     out = torch.empty(B, N, device=rnn_h.device)
+    if f32:
+        build.require(wt, torch.float32, heads_f32_tiled_shape(N, n1 + n2 + nc), "wt")
+        name = "heads_f32_act_bf16" if rnd else "heads_f32"
+        _count(name, controls=nc > 0)
+        build.check(_lib().t2_heads_f32(wt.data_ptr(), b_out.data_ptr(), rnn_h.data_ptr(), n1,
+                                        ctx.data_ptr(), n2, _ptr(ctl), nc, out.data_ptr(), B, N,
+                                        int(rnd), _stream()), name)
+        return out
+    build.require(wt, torch.bfloat16, heads_tiled_shape(N, n1 + n2 + nc), "wt")
     _count("heads", controls=nc > 0)
     build.check(_lib().t2_heads(wt.data_ptr(), b_out.data_ptr(), rnn_h.data_ptr(), n1,
                                 ctx.data_ptr(), n2, _ptr(ctl), nc, out.data_ptr(), B, N,
@@ -791,7 +944,11 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     the four kernels five times per step, the two LSTM cells on K5 (each
     after a ``quantize_xh`` launch: seven a step) when the pack is int8,
     over the pack's tiled weight copies (the cells' and the prenet's);
-    each launch is counted."""
+    each launch is counted. The pack's mode (``decode_mode``) picks the
+    entries: an f32 pack runs the f32 ones (five a step, ``F32_LAUNCHES``,
+    the memory f32), an int8 pack of an F32 model K5's cells, the bf16
+    attention and the f32 prenet and heads with bf16 activations; a pack
+    whose weights mix the types otherwise is refused."""
     if encoded.device.type == "cpu":
         return decode_chunk_plain(pk, encoded, att_enc, lengths, s, m1, m2, controls)
     n, B, Pd = m1.shape
@@ -799,7 +956,11 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     M, H, A = pk.wp1_t.shape[0], pk.wq.shape[1], pk.wq.shape[0]
     K = pk.w_loc.shape[2]
     bf, f32 = torch.bfloat16, torch.float32
-    lstm_dt = torch.int8 if pk.quantized else bf
+    mode = decode_mode(pk)
+    f32_mode = mode == 2  # every weight f32; 3: int8 cells, f32 prenet and heads
+    lstm_dt = torch.int8 if pk.quantized else f32 if f32_mode else bf
+    pre_dt = f32 if mode & 2 else bf  # the prenet's and the heads' weights
+    att_dt = f32 if f32_mode else bf  # the attention's weights and the memory
     scales = (("s_att", pk.s_att, f32, (4 * H,)), ("s_dec", pk.s_dec, f32, (4 * H,))
               ) if pk.quantized else ()
     if pk.wt_att is None or pk.wt_dec is None:
@@ -813,30 +974,47 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
     check_heads_dims(H, D, E)
     if E:
         ctl = (("controls", controls, f32, (B, E)),) + (
-            () if pk.quantized else (("controls_bf", controls_bf, bf, (B, E)),))
+            () if pk.quantized or f32_mode else (("controls_bf", controls_bf, bf, (B, E)),))
     elif controls is not None or controls_bf is not None:
         raise ValueError("the pack has no controls columns, but controls were passed")
     else:
         ctl = ()
-    esize = 1 if pk.quantized else 2
-    for name, t, dt, shape in (
-        ("w_att", pk.w_att, lstm_dt, (4 * H, Pd + D + H)), ("b_att", pk.b_att, f32, (4 * H,)),
-        ("w_dec", pk.w_dec, lstm_dt, (4 * H, 2 * H + D + E)), ("b_dec", pk.b_dec, f32, (4 * H,)),
-        ("wp1_t", pk.wp1_t, bf, (M, Pd)), ("wp2_t", pk.wp2_t, bf, (Pd, Pd)),
-        ("wq", pk.wq, bf, (A, H)), ("w_loc", pk.w_loc, bf, (A, 2, K)), ("wv", pk.wv, bf, (A,)),
-        ("w_out", pk.w_out, bf, (M + 1, H + D + E)), ("b_out", pk.b_out, f32, (M + 1,)),
-        ("att_enc", att_enc, f32, (B, L, A)), ("encoded", encoded, bf, (B, L, D)),
+    R1, R2 = Pd + D + H, 2 * H + D + E
+    if f32_mode:
+        if H % F32_GATE_UNITS:
+            raise ValueError(f"the f32 cell kernel takes H a multiple of {F32_GATE_UNITS}; "
+                             f"got H={H}")
+        cell_copies = (("wt_att", pk.wt_att, f32, (tiled_f32_len(H, R1),)),
+                       ("wt_dec", pk.wt_dec, f32, (tiled_f32_len(H, R2),)))
+    else:
+        esize = 1 if pk.quantized else 2
+        cell_copies = (("wt_att", pk.wt_att, torch.uint8, (tiled_bytes(H, R1 * esize),)),
+                       ("wt_dec", pk.wt_dec, torch.uint8, (tiled_bytes(H, R2 * esize),)))
+    heads_shape = (heads_f32_tiled_shape if mode & 2 else heads_tiled_shape)(M + 1, H + D + E)
+    operands_in = (
+        ("w_att", pk.w_att, lstm_dt, (4 * H, R1)), ("b_att", pk.b_att, f32, (4 * H,)),
+        ("w_dec", pk.w_dec, lstm_dt, (4 * H, R2)), ("b_dec", pk.b_dec, f32, (4 * H,)),
+        ("wp1_t", pk.wp1_t, pre_dt, (M, Pd)), ("wp2_t", pk.wp2_t, pre_dt, (Pd, Pd)),
+        ("wq", pk.wq, att_dt, (A, H)), ("w_loc", pk.w_loc, att_dt, (A, 2, K)),
+        ("wv", pk.wv, att_dt, (A,)),
+        ("w_out", pk.w_out, pre_dt, (M + 1, H + D + E)), ("b_out", pk.b_out, f32, (M + 1,)),
+        ("att_enc", att_enc, f32, (B, L, A)), ("encoded", encoded, att_dt, (B, L, D)),
         ("lengths", lengths, torch.int32, (B,)),
         ("m1", m1, f32, (n, B, Pd)), ("m2", m2, f32, (n, B, Pd)),
         ("mel", s.mel, f32, (B, M)), ("att_h", s.att_h, f32, (B, H)),
         ("att_c", s.att_c, f32, (B, H)), ("ctx", s.ctx, f32, (B, D)),
         ("att_w", s.att_w, f32, (B, L)), ("att_cum", s.att_cum, f32, (B, L)),
         ("rnn_h", s.rnn_h, f32, (B, H)), ("rnn_c", s.rnn_c, f32, (B, H)),
-        ("wt_att", pk.wt_att, torch.uint8, (tiled_bytes(H, (Pd + D + H) * esize),)),
-        ("wt_dec", pk.wt_dec, torch.uint8, (tiled_bytes(H, (2 * H + D + E) * esize),)),
-        ("wt_prenet", pk.wt_prenet, bf, prenet_tiled_shape(M, Pd)),
-        ("wt_out", pk.wt_out, bf, heads_tiled_shape(M + 1, H + D + E)),
-    ) + scales + ctl:
+        *cell_copies,
+        ("wt_prenet", pk.wt_prenet, pre_dt, prenet_tiled_shape(M, Pd)),
+        ("wt_out", pk.wt_out, pre_dt, heads_shape),
+    ) + scales + ctl
+    mixed = [f"{name} {t.dtype}" for name, t, dt, _ in operands_in
+             if t is not None and t.dtype != dt]
+    if mixed:
+        raise ValueError(f"a pack of mode {mode} ({lstm_dt} cells, {pre_dt} prenet and heads, "
+                         f"{att_dt} attention and memory) got {', '.join(mixed)}")
+    for name, t, dt, shape in operands_in:
         if t is None:
             raise ValueError(f"{name}: the pack takes it, none was given")
         build.require(t, dt, shape, name)
@@ -855,7 +1033,7 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
         quantized = (torch.empty(B, max(Pd + D + H, 2 * H + D + E), device=dev,
                                  dtype=torch.int8),
                      torch.empty(B, device=dev))
-    else:
+    elif not f32_mode:
         x_bf = torch.empty(B, Pd, device=dev, dtype=bf)
         atth_bf = torch.empty(2, B, H, device=dev, dtype=bf)
         rnnh_bf = torch.empty(2, B, H, device=dev, dtype=bf)
@@ -870,18 +1048,19 @@ def decode_chunk(pk: PackedDecoder, encoded, att_enc, lengths, s: StepState, m1,
                                   _ptr(pk.s_dec), pk.wt_att.data_ptr(), pk.wt_dec.data_ptr(),
                                   *(_ptr(t) for t in operands), *(_ptr(t) for t in quantized),
                                   pk.wt_prenet.data_ptr(), _ptr(controls if E else None),
-                                  _ptr(controls_bf if E and not pk.quantized else None))
-    dims = (ctypes.c_int * 12)(n, B, M, Pd, H, D, L, A, K, int(pk.quantized),
+                                  _ptr(controls_bf if E and mode == 0 else None))
+    dims = (ctypes.c_int * 12)(n, B, M, Pd, H, D, L, A, K, mode,
                                location_cluster_size(L, H, A, D, K), E)
-    cell = "lstm_cell_int8" if pk.quantized else "lstm_cell"
-    _count("prenet", n)
+    cell = "lstm_cell_int8" if pk.quantized else "lstm_cell_f32" if f32_mode else "lstm_cell"
+    act = "_act_bf16" if mode == 3 else ""  # the int8 mode's f32 entries round to bf16
+    _count("prenet" + ("_f32" + act if mode & 2 else ""), n)
     _count(cell, n)  # the attention cell's
     _count(cell, n, controls=E > 0)  # the decoder cell's, with the controls
     if pk.quantized:
         _count("quantize_xh", n)
         _count("quantize_xh", n, controls=E > 0)
-    _count("location_attention", n)
-    _count("heads", n, controls=E > 0)
+    _count("location_attention_f32" if f32_mode else "location_attention", n)
+    _count("heads" + ("_f32" + act if mode & 2 else ""), n, controls=E > 0)
     build.check(_lib().t2_decode_chunk(ptrs, dims, _stream()), "decode_chunk")
     last = (n - 1) % 2
     new = StepState(mel_gate[n - 1, :, :M].contiguous(), pp["att_h"][last], pp["att_c"][last],

@@ -290,7 +290,7 @@ def teacher_steps(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1, d
     masks), then all-gathers h for the attention, the next cell and the
     heads, which every rank computes whole. -> (mel_gate, Residuals with
     the rank's units of the cell states, the f32 att_h and rnn_h after
-    dropout of every step (T, B, H) x 2, None without ``mp``)."""
+    dropout of every step (T, B, H) x 2)."""
     T, B, _ = decoder_in.shape
     L, D = encoded.shape[1], encoded.shape[2]
     H, E = packed_dims(w, D)
@@ -317,13 +317,12 @@ def teacher_steps(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1, d
         hl, c = lstm_cell_plain(w.w2, w.b2, att_h, ctx, rnn_h, c_rnn[-1], ctl)
         rnn_h = gather(hl * dm2[t, :, own])
         c_rnn.append(c)
-        if mp is not None:
-            att_hs.append(att_h)
-            rnn_hs.append(rnn_h)
+        att_hs.append(att_h)
+        rnn_hs.append(rnn_h)
         mel_gate.append(heads_plain(w.w_out, w.b_out, rnn_h, ctx, ctl=ctl))
     st = torch.stack
-    hs = (st(att_hs), st(rnn_hs)) if mp is not None else None
-    return st(mel_gate), Residuals(st(xh1), st(xh2), st(c_att), st(c_rnn), st(al), st(cum)), hs
+    return (st(mel_gate), Residuals(st(xh1), st(xh2), st(c_att), st(c_rnn), st(al), st(cum)),
+            (st(att_hs), st(rnn_hs)))
 
 
 def _gates(g: torch.Tensor):

@@ -1,14 +1,19 @@
-"""Teacher-forced decode of a tensor-parallel train step: the decoder's two
-LSTM cells column-parallel over the model group, step by step.
+"""Teacher-forced decode on stock ops, step by step: the route of an F32
+model's train step, and of a tensor-parallel one, whose decoder's two LSTM
+cells are column-parallel over the model group.
 
 Counterpart of ``tacotron2_tpu/ops/train_scan.py``, the XLA scan with
-hoisted weight gradients that the JAX package runs on a mesh with a "model"
-axis (``Tacotron2.forward_teacher``: the Pallas kernels need whole weights,
-so a TP mesh never runs them). Here too kernels K3 / K4 do not run: stock
-PyTorch ops carry the decode: the forward is ``ops/train_decode.py``'s
-``teacher_steps`` with a model group, the backward shares its
-``attention_pull`` and ``_lstm_pull``, and the weight gradients are its
-``grads_from``, on its residual contract.
+hoisted weight gradients (``run_decode_scan``) that the JAX package runs
+wherever its Pallas training kernels do not (``Tacotron2.forward_teacher``):
+under any policy but bf16 (``pallas_train_supported`` is false there: the
+kernels pin DEFAULT precision, the XLA scan keeps f32 products) and on a mesh
+with a "model" axis (the kernels need whole weights). Here too kernels K3 /
+K4 do not run there: stock PyTorch ops carry the decode, f32 products with
+TF32 off on the card (``layers.use_f32_math``): the forward is
+``ops/train_decode.py``'s ``teacher_steps`` (with a model group, or none),
+the backward shares its ``attention_pull`` and ``_lstm_pull``, and the
+weight gradients are its ``grads_from``, on its residual contract. Without a
+model group a rank holds every unit and nothing is gathered or reduced.
 
 A model rank holds the i, f, g and o rows of its H / m units of each cell
 (``parallel/mesh.py::unit_slice``: W1 and W2 as (4H / m, R) slices):
@@ -48,24 +53,26 @@ class Hidden(NamedTuple):
     rnn_h: torch.Tensor  # (T, B, H) f32: the decoder LSTM's, the heads' input
 
 
-def reduce_dxh(x: torch.Tensor, mp: mesh.ModelParallel) -> torch.Tensor:
-    """A step's d(xh) = dg . W of this rank's units, summed over the model group."""
-    return mesh.model_sum_(x, mp)
+def reduce_dxh(x: torch.Tensor, mp: Optional[mesh.ModelParallel]) -> torch.Tensor:
+    """A step's d(xh) = dg . W of this rank's units, summed over the model
+    group (without one, every unit's: ``x`` itself)."""
+    return x if mp is None else mesh.model_sum_(x, mp)
 
 
 def teacher_forward_tp(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1, dm2, ctl,
-                       mp: mesh.ModelParallel):
+                       mp: Optional[mesh.ModelParallel]):
     """``train_decode.teacher_steps`` on a model rank: ``w``'s cells the
-    rank's unit rows, dm1 / dm2 (T, B, H) the whole masks. -> (mel_gate
-    (T, B, M + 1), Residuals with this rank's units of the cell states,
-    Hidden)."""
+    rank's unit rows (every row without a model group), dm1 / dm2 (T, B, H)
+    the whole masks. -> (mel_gate (T, B, M + 1), Residuals with this rank's
+    units of the cell states, Hidden)."""
     mel_gate, res, hs = teacher_steps(w, decoder_in, encoded, att_enc, lengths, dm1, dm2, ctl,
                                       mp)
     return mel_gate, res, Hidden(*hs)
 
 
 def teacher_backward_tp(w: TrainWeights, res: Residuals, hid: Hidden, encoded, att_enc, lengths,
-                        dm1, dm2, d_mel_gate, d_align, mp: mesh.ModelParallel) -> BackwardOut:
+                        dm1, dm2, d_mel_gate, d_align,
+                        mp: Optional[mesh.ModelParallel]) -> BackwardOut:
     """``teacher_backward_plain`` with this rank's units of the cells: its
     dg1 / dg2 stacks are (T, B, 4H / m), every other field whole and the
     same on every model rank (d(xh) summed over the group each step). The
@@ -149,12 +156,11 @@ class TeacherDecodeTP(torch.autograd.Function):
 
 def teacher_decode(decoder, decoder_in, encoded, att_encoded, lengths, dm1, dm2,
                    compute_dtype: torch.dtype, controls: Optional[torch.Tensor] = None):
-    """``TeacherDecodeTP`` over a ``models.decoder.Decoder`` module whose
-    cells hold this model rank's slices, in a step with a model group
-    (``mesh.model_parallel``)."""
+    """``TeacherDecodeTP`` over a ``models.decoder.Decoder`` module: in a
+    step with a model group (``mesh.model_parallel``) its cells hold this
+    model rank's slices; without one (an F32 model's step, JAX's
+    ``run_decode_scan``) they are whole."""
     mp = mesh.model_parallel()
-    if mp is None:
-        raise RuntimeError("the column-parallel decode runs inside a tensor-parallel step")
     named = dict(decoder.named_parameters())
     return TeacherDecodeTP.apply(compute_dtype, mp, decoder_in, encoded, att_encoded, lengths,
                                  dm1, dm2, controls, *(named[k] for k in DECODER_PARAMS))

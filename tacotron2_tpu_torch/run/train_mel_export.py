@@ -5,7 +5,8 @@ package: per split (train, then val), the manifest's rows in batches of 64,
 unshuffled, chars bucketed to 32 and frames to 128 -> ``forward_teacher``
 in eval mode (BatchNorm on running statistics, no LSTM dropout, the prenet's
 AlwaysDropout from a generator seeded by the split's running row count)
-under ``torch.no_grad``: the teacher-forced decode is kernel K3 alone ->
+under ``torch.no_grad``: the teacher-forced decode is kernel K3 alone (an
+F32 model's the stock-op scan's forward, ``Tacotron2.teacher_route``) ->
 ``mels_post[b, :mel_len]`` as ``results_dir/<basename>.npy``, the ``.wav``
 of the file name replaced (a ``.flac`` row keeps its name and gets ``.npy``
 added, as ``np.save`` does). These are the mels a HiFi-GAN is fine-tuned on.

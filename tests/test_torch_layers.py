@@ -128,8 +128,9 @@ def test_bilstm_packed(lengths, policy):
     """Packed semantics with padded rows against the JAX package's
     lstm_sequence run forward and reverse under the same policy: each row's
     reverse direction starts at its own last valid char; outputs past a
-    row's end are 0. Under 32-true ``bilstm`` is torch's packed LSTM
-    (``bilstm_packed``); under bf16 its loop rounds h and the operands as
+    row's end are 0. Under 32-true ``bilstm`` is ``bilstm_rows`` (two
+    unidirectional f32 LSTMs over every row, the reverse one over each
+    row's reversed valid prefix); under bf16 its loop rounds h and the operands as
     JAX does, and the products of bf16 operands are exact in f32, so only
     the sum order differs: held to the same 1e-5 (readings <= 6e-8)."""
     r = _rng(8)

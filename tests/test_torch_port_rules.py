@@ -216,6 +216,36 @@ WRAPPER_CALLS = {
         _meta(1, 16), _meta(8, 16), _meta(8, 2, 31), _meta(8), _meta(1, 5, 8),
         _meta(1, 5, 16), _meta(1, dtype=torch.int32), _meta(1, 5), _meta(1, 5)),
     "heads": lambda: decoder_loop.heads(_meta(17, 32), _meta(17), _meta(1, 16), _meta(1, 16)),
+    # each K1 wrapper picks its entry by the weights' type: the bf16 ones, and
+    # K1's f32 mode (f32 weights, their f32 copies; the prenet's and heads'
+    # activations rounded to bf16 for the int8 mode of an F32 model)
+    "prenet[bf16]": lambda: decoder_loop.prenet(
+        _meta(1, 16), _meta(16, 64, dtype=torch.bfloat16), _meta(64, 64, dtype=torch.bfloat16),
+        _meta(1, 64), _meta(1, 64), _meta(8, 20, 8, 4, dtype=torch.bfloat16)),
+    "prenet[f32]": lambda: decoder_loop.prenet(_meta(1, 16), _meta(16, 64), _meta(64, 64),
+                                               _meta(1, 64), _meta(1, 64), _meta(8, 20, 8, 4)),
+    "prenet[f32_act_bf16]": lambda: decoder_loop.prenet(
+        _meta(1, 16), _meta(16, 64), _meta(64, 64), _meta(1, 64), _meta(1, 64),
+        _meta(8, 20, 8, 4), act=torch.bfloat16),
+    "lstm_cell[bf16]": lambda: decoder_loop.lstm_cell(
+        _meta(64, 32, dtype=torch.bfloat16), _meta(64), _meta(1, 8, dtype=torch.bfloat16),
+        _meta(1, 8, dtype=torch.bfloat16), _meta(1, 16, dtype=torch.bfloat16), _meta(1, 16),
+        _meta(decoder_loop.tiled_bytes(16, 64), dtype=torch.uint8)),
+    "lstm_cell[f32]": lambda: decoder_loop.lstm_cell(
+        _meta(64, 32), _meta(64), _meta(1, 8), _meta(1, 8), _meta(1, 16), _meta(1, 16),
+        _meta(decoder_loop.tiled_f32_len(16, 32))),
+    "location_attention[bf16]": lambda: decoder_loop.location_attention(
+        _meta(1, 16), _meta(8, 16, dtype=torch.bfloat16), _meta(8, 2, 31, dtype=torch.bfloat16),
+        _meta(8, dtype=torch.bfloat16), _meta(1, 5, 8), _meta(1, 5, 16, dtype=torch.bfloat16),
+        _meta(1, dtype=torch.int32), _meta(1, 5), _meta(1, 5)),
+    "heads[bf16]": lambda: decoder_loop.heads(
+        _meta(17, 32, dtype=torch.bfloat16), _meta(17), _meta(1, 16), _meta(1, 16),
+        wt=_meta(2, 32, 16, dtype=torch.bfloat16)),
+    "heads[f32]": lambda: decoder_loop.heads(_meta(17, 32), _meta(17), _meta(1, 16),
+                                             _meta(1, 16), wt=_meta(2, 16, 32)),
+    "heads[f32_act_bf16]": lambda: decoder_loop.heads(
+        _meta(17, 32), _meta(17), _meta(1, 16), _meta(1, 16), wt=_meta(2, 16, 32),
+        act=torch.bfloat16),
     "mrf_conv": lambda: mrf.mrf_conv(
         _meta(1, 10, 32, dtype=torch.bfloat16),
         mrf.ConvWeights(_meta(3, 32, 32, dtype=torch.bfloat16), _meta(32), 1,
@@ -283,7 +313,9 @@ def test_wrapper_never_falls_back_to_plain(name, monkeypatch):
     refuses it (it is not a CUDA tensor); the plain version is not called
     and no launch is counted. A ``[controls]`` case is the wrapper's
     controls mode, a ``[narrow]`` case the MRF wrapper at 8 or 16 output
-    channels (the narrow kernel's entries)."""
+    channels (the narrow kernel's entries), a ``[bf16]`` / ``[f32]`` /
+    ``[f32_act_bf16]`` case K1's wrapper on weights of that type (its bf16
+    entry, its f32 entry, the f32 entry with bf16 activations)."""
     base = name.split("[")[0]
     module = next(m for m in (decoder_loop, mrf, train_decode) if base in m.LAUNCHES)
 
