@@ -25,6 +25,9 @@
     python3 chip_smoke.py --mesh    # the kernels' build and phase 4k alone
     python3 chip_smoke.py --v2v3    # the kernels' build and phase 4l alone
     python3 chip_smoke.py --f32-decode  # the kernels' build and phase 4m alone
+    python3 chip_smoke.py --vocoder-shapes  # the kernels' build and phase 4n alone
+    python3 chip_smoke.py --k2-shapes-ab  # K2's wide kernels and V2's narrow instances of
+                                          # build/parent and this tree in turns, bit for bit
     python3 chip_smoke.py --f32-step    # 4m's train part alone, its step against the
                                         # CPU's over K1F_STEP_DRAWS draws, with the packed
                                         # encoder, with TF32 on, the CPU on its own ReLU
@@ -294,6 +297,21 @@ Phases, each of which must pass:
    bf16-operand defect above both limits; an element on another branch
    within K1F_FLIP_REL of zero, bf16 prenet weights above it); each
    entry timed beside its bound, plain version and library call;
+4n. K2 at every shape JAX's stage kernel takes (``vocoder_shapes_phase``,
+   the C2 generators at random weights: ``c2_wide`` (widths 200 to 25,
+   conv_pre from 100 mels), ``c2_deep`` (C = 4, 2, 1), ``c2_u5`` (an
+   upsample that does not fold) and ``c2_even`` (even resblock kernels), in
+   f32 and bf16): every entry and stage against its plain version at 1 and
+   16 rows of a 128-frame bucket, rows 0, 1, 15 of a 16-row vocode bit for
+   bit alone, the even-k generator's stock route against the CPU, the
+   narrow kernel's planted defects (a partial group's last channel left
+   out, a partial slice read past Ci) at least K2F_DEFECT_MARGIN x the
+   limits, each generator's vocode through ``cut_vocode`` with exact launch
+   counts per route (``vocode_launches``, ``vocode_routes``); the C3 model
+   (the flagship's widths with rnn_hidden_dim 768): ``say`` with no K1
+   launch, a ``train_mel_export`` batch against the CPU's, ``train`` and
+   ``--quantize-int8`` refused; the narrow entries timed beside cuDNN and the
+   bound; rows ``narrow_*[c2_wide]`` / ``narrow_*[c2_deep]``;
 5. print the kernels line and, last, the ``{"ok": true, ...}`` line.
 
 It exits non-zero before the last line on any failure, when no CUDA device
@@ -416,6 +434,27 @@ HIFIGAN_V3 = {
     "resblock_dilation_sizes": [[1, 2], [2, 6], [3, 12]], "num_mels": 80,
     "sampling_rate": 22050, "hop_size": 256,
 }
+# generators at the shapes JAX's stage kernel takes and the port's wide
+# kernels do not (phase 4n; no published config, V1's rates and ResBlock1
+# unless stated). c2_wide: stage widths 200 / 100 / 50 / 25 (Co off 32, Ci
+# off 8, an odd C) on the narrow kernel, conv_pre from 100 mels (BigVGAN's
+# 100-band input) to 400, the folded upsamples of stages 1-2 (to 8 x 200 and
+# 8 x 100) on the wide kernels and of stages 3-4 (from 100 and 50) on the
+# narrow one
+C2_WIDE = {**UNIVERSAL_V1, "upsample_initial_channel": 400, "num_mels": 100}
+# c2_deep: seven stages, 64 / 32 (wide pairs) to 16 / 8 (the narrow pairs)
+# to C = 4, 2 and 1 (JAX folds those at s = 32 to 128), the u = 4 upsample in
+# front (JAX: XLA's transposed conv) and the u = 2 folds to 2 x 2 and 2 x 1
+C2_DEEP = {**UNIVERSAL_V1, "upsample_initial_channel": 128,
+           "upsample_rates": [4, 2, 2, 2, 2, 2, 2], "upsample_kernel_sizes": [8, 4, 4, 4, 4, 4, 4]}
+# c2_routes: JAX's XLA routes. c2_u5: a u = 5, k = 11 upsample that does
+# not fold (stage 2, 256 -> 128: stock ops, then the wide kernels); c2_even:
+# ResBlock2 with even kernels (4, 6) and even dilations, the whole
+# generator on stock ops with get_padding's symmetric padding
+C2_U5 = {**UNIVERSAL_V1, "upsample_rates": [8, 5, 2, 2], "upsample_kernel_sizes": [16, 11, 4, 4]}
+C2_EVEN = {**UNIVERSAL_V1, "resblock": "2", "upsample_initial_channel": 256,
+           "resblock_kernel_sizes": [4, 6], "resblock_dilation_sizes": [[2, 4], [2, 4]]}
+C2_GENERATORS = {"c2_wide": C2_WIDE, "c2_deep": C2_DEEP, "c2_u5": C2_U5, "c2_even": C2_EVEN}
 
 
 class SmokeFailure(RuntimeError):
@@ -430,9 +469,11 @@ def vocode_launches(h: dict, dtype=None) -> dict:
     operand), one ``conv_transpose`` per stage, one ``mrf_pair`` per
     ResBlock1 pair that it takes (channels one N tile) and one ``mrf_conv``
     per other conv, each at 8 or 16 output channels the narrow kernel's
-    entry (``narrow_transpose``, ``narrow_pair``, ``narrow_conv``). 1, 4,
-    27 and 18 for UNIVERSAL_V1 (72 convs, in either mode); HIFIGAN_V2 1, 4,
-    9 + 9 and 18 + 18 narrow ones; HIFIGAN_V3 1, 3 and 18."""
+    entry (``narrow_transpose``, ``narrow_pair``, ``narrow_conv``) where
+    the wide kernels do not take the shape; none for an upsample or a
+    generator on JAX's XLA route (``vocode_routes``). 1, 4, 27 and 18 for
+    UNIVERSAL_V1 (72 convs, in either mode); HIFIGAN_V2 1, 4, 9 + 9 and 18 +
+    18 narrow ones; HIFIGAN_V3 1, 3 and 18."""
     import torch
 
     from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
@@ -442,9 +483,12 @@ def vocode_launches(h: dict, dtype=None) -> dict:
     dtype = torch.float32 if dtype is None else dtype
     gen = HiFiGAN(HiFiGANConfig.from_dict(h), Policy(dtype))
     n = dict.fromkeys(mrf.F32_LAUNCHES if dtype == torch.float32 else mrf.LAUNCHES, 0)
+    if not gen.odd:
+        return n
     n[mrf.launch_key("conv_pre", gen.conv_pre_weights())] += 1
     for rbs, ups in gen.kernel_weights():
-        n[mrf.launch_key("conv_transpose", ups.folded)] += 1
+        if ups.folded is not None:
+            n[mrf.launch_key("conv_transpose", ups.folded)] += 1
         for rb in rbs:
             for c1, c2 in rb:
                 if mrf.pair_fusable(c1, c2):
@@ -453,6 +497,22 @@ def vocode_launches(h: dict, dtype=None) -> dict:
                     for cw in (c1, c2):
                         if cw is not None:
                             n[mrf.launch_key("mrf_conv", cw)] += 1
+    return n
+
+
+def vocode_routes(h: dict) -> dict:
+    """JAX's XLA routes that one vocode of config ``h`` takes on stock ops
+    (``mrf.STOCK_ROUTES``): each upsample that does not fold, or the whole
+    generator where a resblock kernel size is even."""
+    from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
+    from tacotron2_tpu_torch.ops import mrf
+
+    gen = HiFiGAN(HiFiGANConfig.from_dict(h))
+    n = dict.fromkeys(mrf.STOCK_ROUTES, 0)
+    if not gen.odd:
+        n["generator_stock"] = 1
+    else:
+        n["conv_transpose_stock"] = sum(ups.folded is None for _, ups in gen.kernel_weights())
     return n
 
 
@@ -615,6 +675,11 @@ def eager_ms(fn, reps: int = 50, warm: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ms_text(ms) -> str:
+    """A time for a log line; None is a time this run did not measure."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def err(got, ref, own: bool = False) -> tuple:
@@ -2156,7 +2221,8 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
     ``F.conv_transpose1d`` in f32 with TF32 off on the operands the kernel
     reads, the same function without the epilogue, two of them for a fused
     pair, and in bf16, whose output is bf16); and with ``plain`` the plain
-    version.
+    version and the eager call (without it, ``plain_ms`` and ``eager_ms`` are
+    None: not measured).
 
     The bound is that of the function the TPU kernels compute, one whole
     stage: its input read once, its weights, its output written once, and
@@ -2209,7 +2275,8 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
         return mrf.mrf_pair(a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act)
 
     def convt_hook(a, uw, want_act=False):
-        calls.append(("conv_transpose", a, uw, want_act))
+        if uw.folded is not None:  # else JAX's XLA route on stock ops: no kernel
+            calls.append(("conv_transpose", a, uw, want_act))
         return mrf.conv_transpose(a, uw, want_act)
 
     g = torch.Generator(device="cuda")
@@ -2330,7 +2397,7 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
             if c[0] in ("mrf_conv", "mrf_pair"):
                 k = key(c[0], c[2][0])
                 fl_by[k] = fl_by.get(k, 0) + sum(2 * Bn * T * cw.w.numel() for cw in c[2])
-        parts = {key("conv_transpose", ups.folded): (
+        parts = {} if ups.folded is None else {key("conv_transpose", ups.folded): (
             nbytes(ain, ups.w, ups.b) + Bn * T * Co * (4 + es),
             2 * Bn * T * Co * ain.shape[2] * (ups.w.shape[0] // ups.stride))}
         if i == 0:
@@ -2375,7 +2442,8 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
                 else "mrf.cu"),
             "replaces": (where.replace("the bf16 policy", "F32") + "; bf16=False, _dt = "
                          "jnp.float32 at mrf_pallas.py:463,540,636" if f32 else where),
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"] if plain else None,
+            "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
             "library_ms": None if lib_none else t["library_ms"],
             "library_bf16_ms": None if lib_none or f32 else t["library_bf16_ms"],
@@ -2385,7 +2453,7 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
                           "on the kernel's bf16 operands; library_bf16_ms the same in bf16, "
                           "bf16 output"),
             **({"cuda_core_ms": t["cuda_core_ms"]} if f32 else {}),
-            "eager_ms": t["eager_ms"], "traffic_ms": t["traffic_ms"],
+            "eager_ms": t["eager_ms"] if plain else None, "traffic_ms": t["traffic_ms"],
             "per": f"one vocode of {Tb} frames at {rows_b} rows ({t['calls']} calls)",
             "per_call": t["per_call"],
         })
@@ -2839,7 +2907,7 @@ def teacher_bounds(T: int, B: int, L: int, D: int, C: int, w, res, mel_gate) -> 
     entry alone."""
     from tacotron2_tpu_torch.ops import train_decode as td
 
-    H, E = td.packed_dims(w, D)
+    H, _, E = td.packed_dims(w, D)
     H4, R1 = w.w1.shape
     A, K, N = w.wq.shape[0], w.w_loc.shape[2], w.w_out.shape[0]
     P = R1 - D - H
@@ -8670,7 +8738,7 @@ def narrow_library(path):
         mrf._LIB_NARROW = saved
 
 
-def v2v3_stages(gen, tag: str, Tb: int, B: int, g, log: dict, copies=None) -> dict:
+def v2v3_stages(gen, tag: str, Tb: int, B: int, g, log: dict, copies=None, label=None) -> dict:
     """One generator's K2 entries against their plain versions at ``B`` rows
     of ``Tb`` frames, each stage from the plain stage's input (as 3f):
     ``conv_pre``, each upsample and its operand, each stage's first conv or
@@ -8683,7 +8751,8 @@ def v2v3_stages(gen, tag: str, Tb: int, B: int, g, log: dict, copies=None) -> di
     ``copies`` (the defects' builds), at the narrow entries: the planted defects' readings, each of
     the output's own max -> {defect: [readings]}. A check's kernel is the entry's counter name,
     ``[tag]`` added for the wide entries (their kernels-line rows are
-    UNIVERSAL_V1's)."""
+    UNIVERSAL_V1's), or ``label(counter)``. An upsample on JAX's XLA route
+    (no fold: stock ops, the plain version's own function) is not checked."""
     import torch
 
     from tacotron2_tpu_torch.models import layers
@@ -8692,7 +8761,7 @@ def v2v3_stages(gen, tag: str, Tb: int, B: int, g, log: dict, copies=None) -> di
     dt = gen.policy.compute_dtype
     f32 = dt == torch.float32
     tol, own = (K2F_TOL, True) if f32 else (K2_TOL, False)
-    label = lambda key: key if key.startswith("narrow") else f"{key}[{tag}]"
+    label = label or (lambda key: key if key.startswith("narrow") else f"{key}[{tag}]")
     kw, cwp = gen.kernel_weights(), gen.conv_pre_weights()
     mel = torch.randn(B, Tb, gen.cfg.num_mels, device="cuda", generator=g)
     at = f"[{tag}]@B{B}x{Tb}"
@@ -8709,16 +8778,18 @@ def v2v3_stages(gen, tag: str, Tb: int, B: int, g, log: dict, copies=None) -> di
         x = x.contiguous()
         a = mrf.operand(x, dt)
         xu, au = mrf.conv_transpose_plain(a, ups, want_act=True)
-        key = mrf.launch_key("conv_transpose", ups.folded)
-        yk, ak = mrf.conv_transpose(a, ups, want_act=True)
-        check(f"{key}[{tag} {i}]@B{B}", [("out", yk, xu), ("act", ak, au)], tol, log,
-              label(key), own)
-        if copies is not None and key.startswith("narrow"):
-            with narrow_library(copies["narrow_last_tap"]):
-                d_out = mrf.conv_transpose(a, ups)[0]
-            defects.setdefault("narrow_last_tap", []).append(
-                {"call": f"{key}[{tag} {i}]@B{B}", "rel_err": err(d_out, xu, True)[1]})
-        del yk, ak, a
+        if ups.folded is not None:
+            key = mrf.launch_key("conv_transpose", ups.folded)
+            yk, ak = mrf.conv_transpose(a, ups, want_act=True)
+            check(f"{key}[{tag} {i}]@B{B}", [("out", yk, xu), ("act", ak, au)], tol, log,
+                  label(key), own)
+            del yk, ak
+            if copies is not None and key.startswith("narrow"):
+                with narrow_library(copies["narrow_last_tap"]):
+                    d_out = mrf.conv_transpose(a, ups)[0]
+                defects.setdefault("narrow_last_tap", []).append(
+                    {"call": f"{key}[{tag} {i}]@B{B}", "rel_err": err(d_out, xu, True)[1]})
+        del a
         c1, c2 = rbs[0][0]
         pair = mrf.pair_fusable(c1, c2)
         key = mrf.launch_key("mrf_pair" if pair else "mrf_conv", c1)
@@ -8764,8 +8835,9 @@ def v2v3_stages(gen, tag: str, Tb: int, B: int, g, log: dict, copies=None) -> di
     return defects
 
 
-def v2v3_invariance(gen, tag: str, Tb: int, g) -> None:
-    """Rows V2V3_INVARIANCE_ROWS of a 64-row vocode against each row alone,
+def v2v3_invariance(gen, tag: str, Tb: int, g, rows=None) -> None:
+    """Rows V2V3_INVARIANCE_ROWS (or ``rows``) of a 64-row (max(rows) + 1
+    rows) vocode against each row alone,
     bit for bit, failing the run: every K2 output of the served route
     (``conv_pre``, each stage passing its mean's operand on) and, for an
     F32 generator, ``HiFiGAN.apply``'s audio."""
@@ -8782,11 +8854,12 @@ def v2v3_invariance(gen, tag: str, Tb: int, g) -> None:
             outs.append(mrf.mrf_stage(None, rbs, ups, outs[-1], want_operand=i < len(kw) - 1))
         return outs
 
-    n = max(V2V3_INVARIANCE_ROWS) + 1
+    rows = rows or V2V3_INVARIANCE_ROWS
+    n = max(rows) + 1
     mel = torch.randn(n, Tb, gen.cfg.num_mels, device="cuda", generator=g)
     batch = route(mel)
     wav = gen.apply(mel) if dt == torch.float32 else None
-    for r in V2V3_INVARIANCE_ROWS:
+    for r in rows:
         if not all(torch.equal(b[r:r + 1], o) for b, o in zip(batch, route(mel[r:r + 1]))):
             raise SmokeFailure(f"K2 {tag} {dt}: row {r} of a {n}-row vocode differs from the row "
                                "alone")
@@ -9031,7 +9104,7 @@ def v2v3_phase(cfg_path: str, ckpt: str, log: dict, card: str, copies=None) -> t
                                 h, gen.policy.compute_dtype)[r["name"]]})
                         row["rows"][f"B{B}"] = entry
                     print(f"  {tag} {r['name']} at {B} rows, Tb={Tb}: {r['ms']:.4f} ms, plain "
-                          f"{r['plain_ms']:.4f}, cuDNN f32 {r['library_ms']:.4f}"
+                          f"{ms_text(r['plain_ms'])}, cuDNN f32 {r['library_ms']:.4f}"
                           + (f", bf16 {r['library_bf16_ms']:.4f}" if r.get('library_bf16_ms')
                              else "")
                           + f", bound {r['bound_ms']:.4f} ({r['bound_by']}) on {card}")
@@ -9046,7 +9119,7 @@ def v2v3_phase(cfg_path: str, ckpt: str, log: dict, card: str, copies=None) -> t
                                                               "bound_by", "library_ms",
                                                               "library_bf16_ms", "per")}
                             print(f"  v2 {r['name']} (the pairs as two launches) at {B} rows: "
-                                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN f32 "
+                                  f"{r['ms']:.4f} ms, plain {ms_text(r['plain_ms'])}, cuDNN f32 "
                                   f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} on {card}")
                 torch.cuda.empty_cache()
         log.setdefault("v2v3", {}).setdefault(tag, {}).update(
@@ -10232,6 +10305,410 @@ def f32_step_mode() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 4n: K2 at every shape JAX's stage kernel takes, JAX's XLA routes
+# around it, and a model whose two decoder LSTMs differ in width
+# ---------------------------------------------------------------------------
+
+C2_ROWS = (1, 16)  # the say's one row and a serve window's rows
+C2_FRAMES = 128  # the vocode bucket of the checks and the timings
+C2_INVARIANCE_ROWS = (0, 1, 15)  # rows of a 16-row vocode held bit for bit against alone
+C2_SEED = {name: SEED + 101 + i for i, name in enumerate(C2_GENERATORS)}
+C2_KERNEL_GENS = ("c2_wide", "c2_deep")  # the generators whose narrow entries get rows
+# planted defects of the narrow kernel at the new shapes: a copy of
+# csrc/mrf_narrow.cu whose epilogue leaves a partial group's last channel
+# out, and one that stages and sums a partial slice's input channels past Ci
+NARROW_SHAPE_DEFECTS = (
+    ("narrow_partial_group", [(r"const int ng = Co - g0 < G \? Co - g0 : G;",
+                               "const int ng = Co - g0 < G ? Co - g0 - 1 : G;")]),
+    ("narrow_past_ci", [(r"const int nci = Ci - c0 < kc \? Ci - c0 : kc;",
+                         "const int nci = kc;")]),
+)
+C2_DEFECT_SHAPE = (7, 25, 25, 16, 512)  # K, Co, Ci, rows, frames: a group of 9, a slice of 9
+C3_RNN = 768  # rnn_hidden_dim of the C3 model (att_rnn_dim stays 1024)
+C3_FRAMES = 256  # its say's forced decode
+C3_EXPORT = (8, 96, 128)  # rows, chars, frames of its train_mel_export batch
+# the batch on the card against the CPU's, of mels_post's max: device drift
+# only (both run the same stock-op scan; tests/test_torch_lstm_widths.py holds
+# that scan against the JAX package's forward_teacher)
+C3_EXPORT_TOL = 5e-3
+C2_REPLACES = ("tacotron2_tpu/ops/mrf_pallas.py:285,378 (the stage kernels at any C: the phase "
+               "fold s = 128 / C where 128 % C == 0, else unfolded, :440; the aligned "
+               "upsample's fold :516-517)")
+
+
+def shape_copies():
+    """Start nvcc of the NARROW_SHAPE_DEFECTS copies of csrc/mrf_narrow.cu
+    (under build/shape_defects) -> a function that waits: {name: library}."""
+    return build_copies("mrf_narrow", NARROW_SHAPE_DEFECTS, ROOT / "build" / "shape_defects",
+                        wait=False)
+
+
+@contextlib.contextmanager
+def nan_outputs():
+    """Every float tensor ``torch.empty`` makes inside the block starts as
+    NaN, so an output a kernel leaves unwritten reads as NaN, not as stale
+    memory that may hold the right values."""
+    import torch
+
+    empty = torch.empty
+
+    def poisoned(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    torch.empty = poisoned
+    try:
+        yield
+    finally:
+        torch.empty = empty
+
+
+def defect_reading(got, ref) -> float:
+    """max |got - ref| over max |ref|, a non-finite element reading inf."""
+    import torch
+
+    d = (got.float() - ref.float()).abs()
+    d = torch.where(d.isfinite(), d, torch.full_like(d, float("inf")))
+    return float(d.max()) / max(float(ref.float().abs().max()), 1e-30)
+
+
+def shape_defects(copies, log: dict) -> None:
+    """The planted defects on one conv of C2_DEFECT_SHAPE (Co = 25: a last
+    group of 9 channels; Ci = 25: a last slice of 9), in f32 and bf16, each
+    at least K2F_DEFECT_MARGIN x the limit (K2F_TOL / K2_TOL): the
+    operand and the weight copy are views into buffers with random data past
+    their ends, so a read past Ci stays in bounds and reads other numbers."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import mrf
+
+    K, Co, Ci, B, T = C2_DEFECT_SHAPE
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 110)
+    libs = copies()
+    for dt, lim in ((torch.float32, K2F_TOL), (torch.bfloat16, K2_TOL)):
+        slack = lambda n: torch.randn(n + 4096, device="cuda", generator=g).to(dt)
+        a = slack(B * T * Ci)[:B * T * Ci].view(B, T, Ci)
+        w = (torch.randn(K, Co, Ci, device="cuda", generator=g) * 0.2).to(dt)
+        wt = slack(Ci * K * Co)
+        wt[:Ci * K * Co] = mrf.tile_conv(w).reshape(-1)
+        cw = mrf.ConvWeights(w, torch.randn(Co, device="cuda", generator=g) * 0.1, 1,
+                             wt[:Ci * K * Co].view(Ci, K, Co))
+        res = torch.randn(B, T, Co, device="cuda", generator=g)
+        ref = mrf.mrf_conv_plain(a, cw, res, want_act=True)
+        got = mrf.mrf_conv(a, cw, res, want_act=True)
+        tag = "f32" if dt == torch.float32 else "bf16"
+        check(f"narrow_conv[defect shape {tag}]@B{B}", [("y", got[0], ref[0])], lim, log,
+              f"narrow_conv{'_f32' if tag == 'f32' else ''}[c2_wide]", dt == torch.float32)
+        for name, path in libs.items():
+            with narrow_library(path), nan_outputs():
+                d = mrf.mrf_conv(a, cw, res, want_act=True)
+            r = min(defect_reading(d[0], ref[0]), defect_reading(d[1], ref[1]))
+            log.setdefault("c2_defects", {})[f"{name}[{tag}]"] = {"rel_err": r, "tol": lim}
+            print(f"  planted defect {name} [{tag}] at K={K}, Co={Co}, Ci={Ci}: {r:.3e} "
+                  f"({r / lim:.3g}x the limit {lim:g})")
+            if not r >= K2F_DEFECT_MARGIN * lim:
+                raise SmokeFailure(f"the planted defect {name} [{tag}] reads {r:.3e}, under "
+                                   f"{K2F_DEFECT_MARGIN:g} x {lim:g}")
+
+
+def c2_path(tag: str, h: dict, gens: dict, log: dict) -> dict:
+    """The main path of a C2 generator: one vocode of a 255-frame cut
+    through ``cut_vocode`` (the say's and the server's vocode) in each mode,
+    every counter set to 0 just before and read just after: K2 held to
+    ``vocode_launches(h)`` of the mode (none of the other) and the stock
+    routes to ``vocode_routes(h)``; the PCM finite and not silent. ->
+    {mode: the launches}."""
+    import torch
+
+    from tacotron2_tpu_torch.ops import mrf
+    from tacotron2_tpu_torch.run.say import cut_vocode, vocode_bucket
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(C2_SEED[tag] + 50)
+    mel = torch.randn(1, 256, h["num_mels"], device="cuda", generator=g)
+    out = {}
+    for mode, gen in gens.items():
+        Tb = vocode_bucket(gen, 255)
+        mrf.reset_launches()
+        pcm = cut_vocode(gen, mel, [0], [255], Tb)
+        got = {**mrf.LAUNCHES, **mrf.F32_LAUNCHES}
+        routes = dict(mrf.STOCK_ROUTES)
+        check_vocode_launches(got, 1, f"the {tag} {mode} vocode", gen.policy.compute_dtype, h)
+        if routes != vocode_routes(h):
+            raise SmokeFailure(f"the {tag} {mode} vocode took the stock routes {routes}, want "
+                               f"{vocode_routes(h)}")
+        peak = int(pcm.abs().max())
+        if not 0 < peak < 32767:
+            raise SmokeFailure(f"the {tag} {mode} vocode: PCM peak {peak}")
+        out[mode] = {k: v for k, v in got.items() if v}
+        log.setdefault("c2", {}).setdefault(tag, {})[f"path_{mode}"] = {
+            "launches": out[mode], "routes": routes, "Tb": Tb, "pcm_peak": peak}
+    print(f"  {tag}: a vocode through cut_vocode, K2 f32 {out['f32']}, bf16 {out['bf16']}, "
+          f"stock routes {vocode_routes(h)}")
+    return out
+
+
+def c2_even_check(tag: str, gens: dict, g, log: dict) -> None:
+    """The even-k generator, JAX's XLA generator on stock ops: its card run
+    (cuDNN, TF32 off) against the same function on the CPU, one row, f32
+    within K2F_TOL of the output's max, bf16 within K2_TOL."""
+    import copy
+
+    import torch
+
+    mel = torch.randn(1, C2_FRAMES, gens["f32"].cfg.num_mels, device="cuda", generator=g)
+    for mode, gen in gens.items():
+        cpu = copy.deepcopy(gen).cpu()
+        tol = K2F_TOL if mode == "f32" else K2_TOL
+        ref = cpu.apply(mel.cpu()).to(mel.device)
+        check(f"generator_stock[{tag} {mode}]@B1", [("wav", gen.apply(mel), ref)], tol, log,
+              f"generator_stock[{tag}]", mode == "f32")
+
+
+def c3_part(g_deep: str, log: dict, card: str) -> dict:
+    """A model whose two decoder LSTMs differ in width: the flagship config
+    with rnn_hidden_dim C3_RNN, random weights, gate bias 10. ``say`` with
+    the c2_deep vocoder through the CLI (the forced C3_FRAMES decode, a
+    warm-up then counted): no K1 launch, one ``decode_stock``, K2 held to
+    ``vocode_launches(C2_DEEP)``; ``say --quantize-int8`` refused; one
+    ``train_mel_export`` batch (``forward_teacher(train=False)``, C3_EXPORT)
+    on the card against the CPU's, the prenet's AlwaysDropout bits drawn on
+    the CPU for both (C3_EXPORT_TOL of mels_post's max), on the stock-op
+    scan with no K3 launch; ``train`` refused at start. -> the vocoder's
+    launches in the say."""
+    import copy
+
+    import torch
+
+    from tacotron2_tpu_torch.__main__ import main as cli
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.convert import to_lightning
+    from tacotron2_tpu_torch.models import tacotron2 as t2
+    from tacotron2_tpu_torch.ops import decoder_loop, mrf, train_decode, train_scan
+    from tacotron2_tpu_torch.parallel import mesh
+    from tacotron2_tpu_torch.run.train import do_train
+
+    raw = json.loads((ROOT / "config" / "vanilla-ljspeech-stop.json").read_text())
+    raw["model"]["args"]["rnn_hidden_dim"] = C3_RNN
+    cfg_path = WORK / "c3.json"
+    cfg_path.write_text(json.dumps(raw))
+    cfg = load_config(str(cfg_path))
+    model = random_tacotron(cfg, 10.0)
+    ckpt = str(WORK / "c3.ckpt")
+    torch.save(to_lightning(model.state_dict()), ckpt)
+    out = str(WORK / "say_c3.wav")
+    args = ["say", "--config", str(cfg_path), "--checkpoint", ckpt, "--hifi-gan-checkpoint", g_deep,
+            "--text", TEXT, "--out", out, "--random-seed", str(SEED), "--max-len-override",
+            str(C3_FRAMES)]
+    cli(args)  # warm-up
+    mrf.reset_launches()
+    decoder_loop.reset_launches()
+    stock0 = t2.STOCK_ROUTES["decode_stock"]
+    res = cli(args)
+    k1 = {**decoder_loop.LAUNCHES, **decoder_loop.F32_LAUNCHES}
+    k2 = {**mrf.LAUNCHES, **mrf.F32_LAUNCHES}
+    stock = t2.STOCK_ROUTES["decode_stock"] - stock0
+    print(f"  say of the C3 model (att_rnn_dim 1024, rnn_hidden_dim {C3_RNN}) with c2_deep: "
+          f"{res['n_frames']} frames, RTF {res['say_s'] / res['audio_s']:.4f} on {card}; K1 "
+          f"launches {sum(k1.values())}, stock decodes {stock}, K2 "
+          f"{ {k: v for k, v in k2.items() if v} }")
+    if any(k1.values()) or stock != 1 or res["n_frames"] != C3_FRAMES:
+        raise SmokeFailure(f"say of the C3 model: K1 {k1}, {stock} stock decodes, "
+                           f"{res['n_frames']} frames")
+    check_vocode_launches(k2, 1, "say of the C3 model", h=C2_DEEP)
+    try:
+        cli(args + ["--quantize-int8"])
+        raise SmokeFailure("say --quantize-int8 of the C3 model did not raise")
+    except ValueError as e:
+        refused_int8 = str(e)
+    # one train_mel_export batch, card against CPU, the dropout bits from the CPU
+    B, L, T = C3_EXPORT
+    cg = torch.Generator().manual_seed(SEED + 120)
+    chars = torch.randint(1, cfg.num_chars, (B, L), generator=cg)
+    lens = torch.randint(L // 2, L + 1, (B,), generator=cg)
+    lens[0] = L
+    mel = torch.randn(B, T, 80, generator=cg) * 0.5
+    mel_len = torch.randint(T // 2, T + 1, (B,), generator=cg)
+    mel_len[0] = T
+    rand_rows = mesh.rand_rows
+
+    def run(m, dev):
+        bits = torch.Generator().manual_seed(SEED + 121)
+        mesh.rand_rows = lambda shape, generator, device, axis=0: torch.rand(
+            tuple(shape), generator=bits).to(device)
+        try:
+            with torch.no_grad():
+                o = m.forward_teacher(chars.to(dev), lens.to(dev), mel.to(dev), mel_len.to(dev),
+                                      train=False)
+        finally:
+            mesh.rand_rows = rand_rows
+        return o.mels_post.cpu()
+
+    k3 = dict(train_decode.LAUNCHES)
+    scan0 = train_scan.STOCK_ROUTES["teacher_scan"]
+    gpu_model = copy.deepcopy(model).to("cuda")
+    t0 = time.perf_counter()
+    got = run(gpu_model, torch.device("cuda"))
+    card_s = time.perf_counter() - t0
+    k3_after = {k: train_decode.LAUNCHES[k] - k3[k] for k in k3}
+    scans = train_scan.STOCK_ROUTES["teacher_scan"] - scan0
+    ref = run(model, torch.device("cpu"))
+    a = float((got - ref).abs().max())
+    rel = a / float(ref.abs().max())
+    print(f"  the C3 model's train_mel_export batch (B={B}, L={L}, T={T}, forward_teacher("
+          f"train=False)) on the card against the CPU: mels_post {rel:.3e} of its max (tol "
+          f"{C3_EXPORT_TOL:g}), {scans} stock-op scans, K3 {k3_after}, {card_s:.2f} s on {card}")
+    log.setdefault("checks", []).append({"kernel": "teacher_scan[c3]", "check": "c3 export",
+                                         "output": "mels_post", "max_abs_err": a, "rel_err": rel,
+                                         "tol": C3_EXPORT_TOL})
+    if not (rel <= C3_EXPORT_TOL and scans == 1 and not any(k3_after.values())):
+        raise SmokeFailure(f"the C3 export batch: {rel:.3e} > {C3_EXPORT_TOL:g}, or {scans} "
+                           f"scans and K3 {k3_after}")
+    try:
+        do_train(cfg, raw, str(WORK), results_dir=str(WORK / "c3_train"), device="cuda")
+        raise SmokeFailure("train of the C3 model did not raise")
+    except ValueError as e:
+        refused_train = str(e)
+    if "train step" not in refused_train or "differ" not in refused_int8:
+        raise SmokeFailure(f"the C3 refusals: {refused_train!r}, {refused_int8!r}")
+    log["c3"] = {"say": res, "k1": k1, "k2": k2, "export_rel": rel, "export_card_s": card_s,
+                 "refused_int8": refused_int8, "refused_train": refused_train}
+    del gpu_model
+    return {k: v for k, v in k2.items() if v}
+
+
+def vocoder_shapes_phase(log: dict, card: str, copies) -> tuple:
+    """Phase 4n: the C2 generators (C2_GENERATORS, random weights from the
+    seed as ``g_*`` files, each in f32 and bf16): every K2 entry and stage
+    against its plain version at C2_ROWS rows of a C2_FRAMES bucket (f32
+    within K2F_TOL, bf16 within K2_TOL; ``v2v3_stages``), rows
+    C2_INVARIANCE_ROWS of a 16-row vocode bit for bit alone (the kernel
+    generators), the even-k generator's stock route on the card against the
+    CPU, the planted defects (``shape_defects``), each generator's vocode
+    with exact launch counts per route (``c2_path``), the C3 model
+    (``c3_part``), and the narrow entries of C2_KERNEL_GENS timed at C2_ROWS
+    rows beside cuDNN f32 and bf16 and the bound (``k2_timing``). -> (the
+    kernels-line rows ``narrow_*[tag]``, their launches on the path)."""
+    import torch
+
+    from tacotron2_tpu_torch.models.layers import Policy
+    from tacotron2_tpu_torch.run.say import load_hifigan
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 100)
+    WORK.mkdir(parents=True, exist_ok=True)
+    rows, launches, paths = [], {}, {}
+    t0 = time.perf_counter()
+    shape_defects(copies, log)
+    for tag, h in C2_GENERATORS.items():
+        t_gen = time.perf_counter()
+        g_path = write_hifigan(h, f"hifigan_{tag}", C2_SEED[tag])
+        gens = {"f32": load_hifigan(g_path, dev), "bf16": load_hifigan(g_path, dev,
+                                                                        Policy(torch.bfloat16))}
+        if tag == "c2_deep":
+            log.setdefault("c2", {})["g_deep"] = g_path
+        if not gens["f32"].odd:
+            c2_even_check(tag, gens, g, log)
+        else:
+            label = lambda key, tag=tag: f"{key}[{tag}]"
+            for B in C2_ROWS:
+                for mode, gen in gens.items():
+                    v2v3_stages(gen, tag, C2_FRAMES, B, g, log, label=label)
+            if tag in C2_KERNEL_GENS:
+                for gen in gens.values():
+                    v2v3_invariance(gen, tag, C2_FRAMES, g, C2_INVARIANCE_ROWS)
+        paths[tag] = c2_path(tag, h, gens, log)
+        torch.cuda.empty_cache()
+        if tag in C2_KERNEL_GENS:
+            for mode, gen in gens.items():
+                named = {}
+                for B in C2_ROWS:
+                    for r in k2_timing(gen, C2_FRAMES, B, B == 1, (2, 2), True):
+                        if not r["name"].startswith("narrow"):
+                            continue
+                        name = f"{r['name']}[{tag}]"
+                        entry = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "library_bf16_ms", "eager_ms",
+                                                   "traffic_ms", "per") if k in r}
+                        row = named.setdefault(name, {**r, "name": name, "rows": {},
+                                                      "replaces": C2_REPLACES})
+                        row["rows"][f"B{B}"] = entry
+                        print(f"  {name} at {B} rows, Tb={C2_FRAMES}: {r['ms']:.4f} ms, plain "
+                              f"{ms_text(r['plain_ms'])}, cuDNN f32 {r['library_ms']:.4f}"
+                              + (f", bf16 {r['library_bf16_ms']:.4f}"
+                                 if r.get("library_bf16_ms") else "")
+                              + f", bound {r['bound_ms']:.4f} ({r['bound_by']}) on {card}")
+                for row in named.values():  # the kernels line: one row, the rest in "rows"
+                    row.update({k: row["rows"]["B1"][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",
+                        "traffic_ms", "per")})
+                    rows.append(row)
+            torch.cuda.empty_cache()
+        del gens
+        log.setdefault("c2", {}).setdefault(tag, {})["seconds"] = time.perf_counter() - t_gen
+        print(f"  {tag}: {log['c2'][tag]['seconds']:.1f} s")
+    print(f"[4n] the C3 model (rnn_hidden_dim {C3_RNN}): say, a train_mel_export batch, train")
+    t_c3 = time.perf_counter()
+    say_k2 = c3_part(log["c2"]["g_deep"], log, card)
+    log["c3"]["seconds"] = time.perf_counter() - t_c3
+    for k, n in say_k2.items():
+        paths["c2_deep"]["f32"][k] = paths["c2_deep"]["f32"].get(k, 0) + n
+    for tag in C2_KERNEL_GENS:
+        for mode, counts in paths[tag].items():
+            launches.update({f"{k}[{tag}]": n for k, n in counts.items() if k.startswith("narrow")})
+    for r in rows:
+        if not launches.get(r["name"]):
+            raise SmokeFailure(f"{r['name']} was not launched on the C2 path: {launches}")
+    log["c2_seconds"] = time.perf_counter() - t0
+    print(f"  4n took {log['c2_seconds']:.1f} s")
+    return rows, launches
+
+
+def vocoder_shapes_mode() -> int:
+    """``--vocoder-shapes``: the kernels' build and phase 4n alone; details
+    to ``chiprun_out/vocoder_shapes.json``."""
+    import torch
+
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build
+
+    card = card_line()
+    print(f"[4n] alone on {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    use_f32_math()
+    t0 = time.perf_counter()
+    copies = shape_copies()
+    logs = build.build_all()
+    log: dict = {"card": card, "build_s": time.perf_counter() - t0,
+                 "ptxas_kernels": {"mrf_narrow": ptxas_kernels(logs["mrf_narrow"])}}
+    print(f"  built in {log['build_s']:.1f} s; mrf_narrow: {log['ptxas_kernels']['mrf_narrow']}")
+    try:
+        WORK.mkdir(parents=True, exist_ok=True)
+        rows, launches = vocoder_shapes_phase(log, card, copies)
+        for r in rows:
+            r["launches"] = launches[r["name"]]
+            r["max_abs_err"] = max(c["max_abs_err"] for c in log["checks"]
+                                   if c["kernel"] == r["name"])
+        log.update({"rows": rows, "launches": launches})
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    finally:
+        log["seconds"] = time.perf_counter() - t0
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "vocoder_shapes.json").write_text(json.dumps(log, indent=1, default=str))
+        shutil.rmtree(WORK, ignore_errors=True)
+        with contextlib.suppress(SmokeFailure):
+            copies()
+    print(json.dumps({"kernels": [{k: r[k] for k in ("name", "launches", "max_abs_err", "ms",
+                                                     "plain_ms", "bound_ms", "library_ms",
+                                                     "rows")} for r in rows]}))
+    print(card)
+    return 0
+
+
 def arg_value(flag: str, default: str) -> str:
     argv = sys.argv[1:]
     return argv[argv.index(flag) + 1] if flag in argv else default
@@ -10506,6 +10983,111 @@ def k2_f32_ab() -> int:
     return max(t["rc"] for t in turns)
 
 
+def k2_shapes_rows_mode(out_name: str) -> int:
+    """``--k2-shapes-rows``: build K2's three libraries, then on
+    UNIVERSAL_V1, HIFIGAN_V2 and HIFIGAN_V3 generators (seed SEED + 130) in
+    f32 and bf16 at 1 and 16 rows of 64 frames, every K2 call on inputs from
+    the seed: ``conv_pre``, each folded upsample as one ``mrf_conv`` call
+    (mode 0, the upsamples JAX fuses), each resblock conv alone with the
+    residual and stage-mean epilogue, each fusable pair; the whole vocode's
+    K2 outputs where no upsample rounds its sum (V1 in both modes, V2 and V3
+    in f32). A digest of each generator's outputs, and the narrow entries'
+    device times at 16 rows, to chiprun_out/<out_name>. Runs the package
+    found first on sys.path (the repo's, or a parent's with ``--root``)."""
+    import torch
+
+    from tacotron2_tpu_torch import ops
+    from tacotron2_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
+    from tacotron2_tpu_torch.models.layers import Policy, use_f32_math
+    from tacotron2_tpu_torch.ops import build, mrf
+
+    use_f32_math()
+    t0 = time.perf_counter()
+    build.build_all(["mrf", "mrf_f32", "mrf_narrow"])
+    log: dict = {"card": card_line(), "package": str(Path(ops.__file__).parents[1]),
+                 "build_s": time.perf_counter() - t0, "sha1": {}, "narrow_ms": {}}
+    print(f"[k2-shapes-rows] {log['package']} on {log['card']}")
+    for name, h in (("v1", UNIVERSAL_V1), ("v2", HIFIGAN_V2), ("v3", HIFIGAN_V3)):
+        for dt in (torch.float32, torch.bfloat16):
+            torch.manual_seed(SEED + 130)
+            gen = HiFiGAN(HiFiGANConfig.from_dict(h), Policy(dt)).cuda().eval()
+            kw, cwp = gen.kernel_weights(), gen.conv_pre_weights()
+            g = torch.Generator(device="cuda")
+            g.manual_seed(SEED + 131)
+            mode = "f32" if dt == torch.float32 else "bf16"
+            for B in (1, 16):
+                rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+                T = 64
+                mel = rnd(B, T, h["num_mels"])
+                calls = [lambda: [mrf.conv_pre(mel.to(dt), cwp)]]
+                keys = [mrf.launch_key("conv_pre", cwp)]
+                for rbs, ups in kw:
+                    a = mrf.operand(rnd(B, T, ups.w.shape[1]), dt)
+                    calls.append(lambda a=a, f=ups.folded: mrf.mrf_conv(a, f, want_act=True)[:2])
+                    keys.append(mrf.launch_key("conv_transpose", ups.folded))
+                    T *= ups.stride
+                    C = ups.w.shape[2]
+                    x, acc = rnd(B, T, C), rnd(B, T, C)
+                    a = mrf.operand(x, dt)
+                    for rb in rbs:
+                        for c1, c2 in rb:
+                            for cw in (c1, c2):
+                                if cw is not None:
+                                    calls.append(lambda a=a, cw=cw, x=x, acc=acc: mrf.mrf_conv(
+                                        a, cw, x, acc, 0.5, True, True))
+                                    keys.append(mrf.launch_key("mrf_conv", cw))
+                            if mrf.pair_fusable(c1, c2):
+                                calls.append(lambda a=a, c1=c1, c2=c2, x=x, acc=acc: mrf.mrf_pair(
+                                    a, c1, c2, x, acc, 0.5, True, True))
+                                keys.append(mrf.launch_key("mrf_pair", c1))
+                outs = [t for c in calls for t in c()]
+                if name == "v1" or dt == torch.float32:
+                    a = mrf.conv_pre(mel.to(dt), cwp)
+                    for i, (rbs, ups) in enumerate(kw):
+                        a = mrf.mrf_stage(None, rbs, ups, a, want_operand=i < len(kw) - 1)
+                        outs.append(a)
+                log["sha1"][f"{name} {mode} B{B}"] = _sha1(outs)
+                del outs
+                if name == "v2" and B == 16:
+                    for k, c in zip(keys, calls):
+                        if k.startswith("narrow"):
+                            log["narrow_ms"][k] = log["narrow_ms"].get(k, 0.0) + time_ms(c, 5, 4)
+                torch.cuda.empty_cache()
+            del gen
+    print("  " + "; ".join(f"{k} {v[:10]}" for k, v in log["sha1"].items()))
+    print("  V2's narrow entries at 16 rows, device ms summed over a vocode's calls: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in log["narrow_ms"].items()))
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / out_name).write_text(json.dumps(log, indent=1, default=str))
+    return 0
+
+
+def k2_shapes_ab() -> int:
+    """``--k2-shapes-ab``: the parent's K2 against this tree's in turns
+    (``ab_turns`` of ``--k2-shapes-rows``); the results go to
+    chiprun_out/k2_shapes_ab.json. Fails unless every digest (the wide
+    kernels' and V2's narrow instances' outputs) is the same in all four
+    turns: the widened narrow kernel keeps the parent's bits at the shapes
+    the parent took."""
+    turns = ab_turns("--k2-shapes-rows", "k2_shapes_rows")
+    if turns is None:
+        return 2
+    print("[k2-shapes-ab] K2's digests and V2's narrow entries' device ms in turns:")
+    for t in turns:
+        print(f"  {t['turn']} {t['tag']:<6} rc {t['rc']}: " + "; ".join(
+            f"{k} {v:.4f}" for k, v in t.get("narrow_ms", {}).items()))
+    shas = [t.get("sha1", {}) for t in turns]
+    same = bool(shas[0]) and all(s == shas[0] for s in shas[1:])
+    print(f"  every digest equal in all four turns, parent and change: {same}")
+    (OUT_DIR / "k2_shapes_ab.json").write_text(json.dumps({"turns": turns, "bits_equal": same},
+                                                          indent=1))
+    if not same:
+        print("FAIL: the change's K2 outputs differ from the parent's at the parent's shapes",
+              file=sys.stderr)
+        return 1
+    return max(t["rc"] for t in turns)
+
+
 def main() -> int:
     pkg_root = Path(arg_value("--root", str(ROOT))).resolve()
     if not (pkg_root / "tacotron2_tpu_torch" / "csrc").is_dir():
@@ -10522,6 +11104,8 @@ def main() -> int:
         return k34_ab()
     if "--k2-f32-ab" in sys.argv[1:]:
         return k2_f32_ab()
+    if "--k2-shapes-ab" in sys.argv[1:]:
+        return k2_shapes_ab()
     sys.path.insert(0, str(pkg_root))
     torch.set_grad_enabled(False)
     if "--k1-rows" in sys.argv[1:]:
@@ -10530,6 +11114,8 @@ def main() -> int:
         return k34_rows_mode(arg_value("--out", "k34_rows.json"))
     if "--k2-f32-rows" in sys.argv[1:]:
         return k2_f32_rows_mode(arg_value("--out", "k2_f32_rows.json"))
+    if "--k2-shapes-rows" in sys.argv[1:]:
+        return k2_shapes_rows_mode(arg_value("--out", "k2_shapes_rows.json"))
     if "--eval" in sys.argv[1:]:
         return eval_mode()
     if "--train-extras" in sys.argv[1:]:
@@ -10550,10 +11136,12 @@ def main() -> int:
         return f32_step_mode()
     if "--f32-decode" in sys.argv[1:]:
         return f32_decode_mode()
+    if "--vocoder-shapes" in sys.argv[1:]:
+        return vocoder_shapes_mode()
     log: dict = {}
     t_start = time.perf_counter()
     t_lap = [t_start]
-    pass_copies = defect_narrow = defect_k1f = None
+    pass_copies = defect_narrow = defect_k1f = defect_shapes = None
 
     def lap(name: str) -> None:  # seconds since the last lap, into log["phase_s"]
         now = time.perf_counter()
@@ -10581,6 +11169,7 @@ def main() -> int:
         pass_copies = k2f_pass_copies()  # built beside the kernels, held in phase 3f
         defect_narrow = narrow_copies()  # and the narrow kernel's, held in phase 4l
         defect_k1f = k1f_copies()  # and K1's f32 entries', held in phase 4m
+        defect_shapes = shape_copies()  # and the narrow kernel's at the new shapes, in 4n
         logs = build.build_all()
         log["build_s"] = time.perf_counter() - t0
         log["ptxas"] = logs
@@ -10776,6 +11365,14 @@ def main() -> int:
         launches.update(f32_launches)
         rows += f32_rows
         lap("4m f32 decode")
+        print(f"[4n] K2 at every shape JAX's stage kernel takes ({list(C2_GENERATORS)}: the "
+              f"narrow kernel at any Co and Ci, JAX's XLA routes on stock ops) against the plain "
+              f"versions at {list(C2_ROWS)} rows, and a model whose two LSTM widths differ "
+              f"(rnn_hidden_dim {C3_RNN})")
+        c2_rows, c2_launches = vocoder_shapes_phase(log, card, defect_shapes)
+        launches.update(c2_launches)
+        rows += c2_rows
+        lap("4n vocoder shapes")
         print("    seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                                   log["phase_s"].items()))
         for r in rows:
@@ -10831,7 +11428,7 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-        for copies in (pass_copies, defect_narrow, defect_k1f):  # no nvcc of a copy outlives
+        for copies in (pass_copies, defect_narrow, defect_k1f, defect_shapes):  # no nvcc outlives
             if copies is not None:
                 with contextlib.suppress(SmokeFailure):
                     copies()

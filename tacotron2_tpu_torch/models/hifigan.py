@@ -6,6 +6,16 @@ initial channels, k=7) -> per stage the MRF stage of ``ops/mrf.py``
 resblocks) -> leaky ReLU with torch's default slope 0.01 -> conv_post
 (ch -> 1, k=7) -> tanh. Channels-last: mel (B, T, M) -> wav (B, T * prod(u)).
 Weight norm is folded at load (``convert.load_hifigan_checkpoint``).
+
+Routes, as the JAX package's ``HiFiGAN.apply`` takes them: with every
+resblock kernel size odd, each stage on K2 (``ops/mrf.py``: the wide or the
+narrow kernel by its shape; an upsample that does not fold on stock ops,
+JAX's XLA transposed conv); with any even one, JAX runs its whole generator
+on XLA with ``get_padding``'s symmetric padding, and so does the port, on
+stock ops (``apply_stock``, counted in ``mrf.STOCK_ROUTES``). A conv whose
+symmetric padding changes its length (d (k - 1) odd: any ResBlock1 of an
+even k, an odd dilation of an even k) cannot add its residual, in JAX's
+generator too: such a config raises ValueError here, at construction.
 """
 
 from __future__ import annotations
@@ -21,8 +31,9 @@ from torch import nn
 from tacotron2_tpu_torch.models import layers
 from tacotron2_tpu_torch.models.layers import F32, Policy
 from tacotron2_tpu_torch.models.resblock import ResBlock1, ResBlock2
-from tacotron2_tpu_torch.ops.mrf import (conv_pre, mrf_stage, pack_conv, pack_upsample,
-                                         plain_stage)
+from tacotron2_tpu_torch.ops import build
+from tacotron2_tpu_torch.ops.mrf import (LRELU_SLOPE, STOCK_ROUTES, conv_pre, mrf_stage,
+                                         pack_conv, pack_upsample, plain_stage)
 
 PACK_CALLS = [0]  # packings of a generator's weights for the kernels: once per model
 
@@ -56,6 +67,20 @@ class HiFiGANConfig:
         return math.prod(self.upsample_rates)
 
 
+def check_lengths(c: HiFiGANConfig) -> None:
+    """Raise ValueError where a resblock conv's symmetric padding
+    (``get_padding``) changes its length, d (k - 1) odd: its residual add
+    does not fit, as it does not in JAX's ``_resblock`` either."""
+    for kr, dil in zip(c.resblock_kernel_sizes, c.resblock_dilation_sizes):
+        for d in (*dil, *((1,) if c.resblock == "1" else ())):
+            if d * (kr - 1) % 2:
+                raise ValueError(
+                    f"HiFi-GAN resblock {c.resblock}: a conv of kernel {kr} and dilation {d} "
+                    f"takes symmetric padding {(kr * d - d) // 2} and returns one sample fewer "
+                    "than its input, so its residual add does not fit (the JAX package's "
+                    "generator fails there too)")
+
+
 def stage_reach(resblock: str, kernels, dilations) -> int:
     """Largest one-sided reach, in samples, of any resblock chain of a
     stage (the JAX package's ``ops/mrf_pallas.py::stage_reach``)."""
@@ -74,8 +99,11 @@ class HiFiGAN(nn.Module):
     def __init__(self, config: HiFiGANConfig, policy: Policy = F32):
         super().__init__()
         c = config
+        check_lengths(c)
         self.cfg = c
         self.policy = policy
+        # JAX's ``odd``: the stages on the kernels; else the whole generator on stock ops
+        self.odd = all(k % 2 == 1 for k in c.resblock_kernel_sizes)
         self.conv_pre = nn.Conv1d(c.num_mels, c.upsample_initial_channel, 7, padding=3)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
@@ -145,7 +173,11 @@ class HiFiGAN(nn.Module):
         each MRF stage (``mrf_stage``) passes its output to the next upsample
         as its operand alone (bf16, or f32 under F32); ``plain``: the
         plain reference route instead, ``conv_pre`` in PyTorch and each stage
-        computed from its f32 input by ``plain_stage`` (on any device)."""
+        computed from its f32 input by ``plain_stage`` (on any device). A
+        generator with an even resblock kernel size takes ``apply_stock``
+        on either."""
+        if not self.odd:
+            return self.apply_stock(mel)
         pol = self.policy
         packed = self.kernel_weights()
         if plain:
@@ -160,7 +192,32 @@ class HiFiGAN(nn.Module):
                     a = mrf_stage(None, rbs, ups, a, want_operand=True)
                 else:
                     x = mrf_stage(None, rbs, ups, a)
+        return self._post(x)
+
+    def _post(self, x):
         x = F.leaky_relu(x, 0.01)
-        x = layers.conv1d(x, self.conv_post.weight, self.conv_post.bias, pol, padding=3,
+        x = layers.conv1d(x, self.conv_post.weight, self.conv_post.bias, self.policy, padding=3,
                           round_out=True)
         return torch.tanh(x)[..., 0]
+
+    @torch.no_grad()
+    def apply_stock(self, mel: torch.Tensor) -> torch.Tensor:
+        """JAX's XLA generator (its ``apply`` where a resblock kernel size is
+        even) on stock ops, counted as ``generator_stock``: every conv and
+        transposed conv with its sum rounded to the compute type before the
+        bias, resblocks by ``ResBlock*.stock``, each stage the sum of its
+        resblocks over their number."""
+        build.count(STOCK_ROUTES, "generator_stock")
+        c, pol = self.cfg, self.policy
+        n = len(c.resblock_kernel_sizes)
+        x = layers.conv1d(mel, self.conv_pre.weight, self.conv_pre.bias, pol, padding=3,
+                          round_out=True)
+        for i, (up, u, k) in enumerate(zip(self.ups, c.upsample_rates, c.upsample_kernel_sizes)):
+            x = layers.conv_transpose1d(F.leaky_relu(x, LRELU_SLOPE), up.weight, up.bias, u,
+                                        (k - u) // 2, pol, round_out=True)
+            acc = None
+            for rb in self.resblocks[i * n:(i + 1) * n]:
+                y = rb.stock(x, pol)
+                acc = y if acc is None else acc + y
+            x = acc / n
+        return self._post(x)

@@ -115,12 +115,20 @@ def conv2d(x, w, b=None, policy: Policy = F32, stride: int = 1, padding: int = 0
     return y if b is None else y + b[None, :, None, None]
 
 
-def conv_transpose1d(x, w, b, stride: int, padding: int, policy: Policy = F32):
+def conv_transpose1d(x, w, b, stride: int, padding: int, policy: Policy = F32,
+                     round_out: bool = False):
     """ConvTranspose1d over channels-last x (B, T, C); w is torch's
-    (I, O, W). out_len = (T-1)*stride - 2*padding + W."""
-    y = F.conv_transpose1d(policy.cast(x).transpose(1, 2), policy.cast(w), b,
-                           stride=stride, padding=padding)
-    return y.transpose(1, 2)
+    (I, O, W). out_len = (T-1)*stride - 2*padding + W. ``round_out``: the
+    f32 sums rounded to the compute type before the bias, as JAX's
+    ``conv_transpose1d_apply`` emits the policy's type."""
+    y = F.conv_transpose1d(policy.cast(x).transpose(1, 2), policy.cast(w),
+                           None if round_out else b, stride=stride,
+                           padding=padding).transpose(1, 2)
+    if round_out:
+        y = policy.cast(y)
+        if b is not None:
+            y = y + b
+    return y
 
 
 def embedding(idx, table):

@@ -33,6 +33,13 @@ the decode runs as ``TeacherDecode``, kernels K3 and K4
 (``ops/train_decode.py``), under the bf16 policy; under F32, and in a
 tensor-parallel step column-parallel, on stock ops (``ops/train_scan.py``,
 JAX's XLA scan, which JAX runs there too: ``teacher_route``).
+
+A model whose two decoder LSTMs differ in width (``att_rnn_dim !=
+rnn_hidden_dim``) takes JAX's XLA routes, as JAX's ``fused_ok`` sends it
+there: its decodes run ``forward_infer`` on stock ops (counted in
+``STOCK_ROUTES``), its teacher-forced eval (``train=False``) the stock-op
+scan. No train step and no int8 decode exist for it, in the JAX package
+either: both raise ValueError (``UNEQUAL_TRAIN``, ``UNEQUAL_INT8``).
 """
 
 from __future__ import annotations
@@ -49,10 +56,19 @@ from tacotron2_tpu_torch.models.encoder import Encoder
 from tacotron2_tpu_torch.models.gst import GST
 from tacotron2_tpu_torch.models.layers import F32, Policy
 from tacotron2_tpu_torch.models.postnet import Postnet
-from tacotron2_tpu_torch.ops import decoder_loop, train_decode, train_scan
+from tacotron2_tpu_torch.ops import build, decoder_loop, train_decode, train_scan
 from tacotron2_tpu_torch.parallel import mesh
 
 GATE_MASK_VALUE = -1000.0
+# decodes of a model whose two LSTM widths differ, on stock ops (no K1 launch)
+STOCK_ROUTES = {"decode_stock": 0}
+UNEQUAL_TRAIN = ("a train step of a model whose att_rnn_dim ({}) and rnn_hidden_dim ({}) differ: "
+                 "the JAX package's step (forward_teacher(dw_hoist=True)) draws both LSTM "
+                 "dropout masks at att_h's shape and fails (ops/train_scan.py:156); its "
+                 "teacher-forced eval (train=False) and its decodes run such a model")
+UNEQUAL_INT8 = ("the int8 decode packs both LSTM cells for one width, and att_rnn_dim ({}) and "
+                "rnn_hidden_dim ({}) differ (the JAX package asserts att_rnn_dim == "
+                "rnn_hidden_dim in pack_decoder_params)")
 POSTNET_ROWS = 16  # the row tile of a server's F32 postnet (``_postnet_rows``)
 DESCRIPTION_DIM = 128  # the description's columns of the memory (JAX tacotron2.py:71-75)
 
@@ -264,7 +280,8 @@ class Tacotron2(nn.Module):
         the controls rows of K3 and K4; the stock-op scan under F32) ->
         postnet -> length masking
         by ``mel_len``. ``train``: BatchNorm on batch statistics, dropout in
-        the encoder and postnet, LSTM dropout (keep 0.9). Dropout bits come
+        the encoder and postnet, LSTM dropout (keep 0.9); it raises for a
+        model whose two LSTM widths differ (``UNEQUAL_TRAIN``). Dropout bits come
         from ``generator``; ``lstm_masks`` (T, B, H) x 2 replaces the LSTM's
         (the tests inject JAX's; in a data-parallel step, ``parallel/mesh.py``,
         the global batch's (T, n B, H), of which this rank takes its rows, as
@@ -275,8 +292,8 @@ class Tacotron2(nn.Module):
         from ``gst_reference_mel`` or else from ``mel`` itself, padded as
         the batch is, with the GST's BatchNorm in ``train``'s mode."""
         c = self.cfg
-        if c.att_rnn_dim != c.rnn_hidden_dim:
-            raise ValueError("the teacher-forced decode needs att_rnn_dim == rnn_hidden_dim")
+        if train and not self.equal_widths:
+            raise ValueError(UNEQUAL_TRAIN.format(c.att_rnn_dim, c.rnn_hidden_dim))
         B, T, _ = mel.shape
         dev = mel.device
         self._check_controls(controls, B)
@@ -293,9 +310,9 @@ class Tacotron2(nn.Module):
             lstm_masks = tuple(mesh.local_rows(m, 1) for m in lstm_masks)
         elif train:
             lstm_masks = train_decode.lstm_masks(T, B, c.att_rnn_dim, generator, dev)
-        else:
-            ones = torch.ones(T, B, c.att_rnn_dim, device=dev)
-            lstm_masks = (ones, ones)
+        else:  # ones at each cell's width
+            lstm_masks = (torch.ones(T, B, c.att_rnn_dim, device=dev),
+                          torch.ones(T, B, c.rnn_hidden_dim, device=dev))
         mels, gates, aligns = self.teacher_route()(
             self.decoder, decoder_in, encoded, att_encoded, chars_len,
             *lstm_masks, self.policy.compute_dtype, controls)
@@ -311,11 +328,19 @@ class Tacotron2(nn.Module):
         without a model group; else the stock-op scan
         (``train_scan.teacher_decode``, JAX's ``run_decode_scan``): under F32
         (``"32-true"`` / ``"32"``), whose f32 products the kernels do not
-        take, and in a tensor-parallel step, column-parallel over the model
-        group."""
-        if self.policy.compute_dtype == torch.bfloat16 and mesh.model_parallel() is None:
+        take, in a tensor-parallel step, column-parallel over the model
+        group, and for a model whose two LSTM widths differ (JAX's eval runs
+        its XLA scan there; the kernels take one width)."""
+        if (self.policy.compute_dtype == torch.bfloat16 and mesh.model_parallel() is None
+                and self.equal_widths):
             return train_decode.teacher_decode
         return train_scan.teacher_decode
+
+    @property
+    def equal_widths(self) -> bool:
+        """Whether the two decoder LSTMs have one width, which kernels K1,
+        K3 and K4 take (JAX's ``fused_ok`` and ``pack_decoder_params``)."""
+        return self.cfg.att_rnn_dim == self.cfg.rnn_hidden_dim
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -326,7 +351,10 @@ class Tacotron2(nn.Module):
                       speaker_id: Optional[torch.Tensor] = None,
                       controls: Optional[torch.Tensor] = None,
                       description_embeddings: Optional[torch.Tensor] = None,
-                      gst_reference_mel: Optional[torch.Tensor] = None) -> Tacotron2Output:
+                      gst_reference_mel: Optional[torch.Tensor] = None,
+                      row_generators: Optional[Sequence[torch.Generator]] = None,
+                      encode_rows: Optional[int] = None,
+                      gst_embedding: Optional[torch.Tensor] = None) -> Tacotron2Output:
         """Reference decode: one step at a time, stop after the step where
         every row's gate has fired. Masks are drawn in 64-frame chunks in
         the same order as ``forward_infer_fast``, so one generator state
@@ -334,17 +362,23 @@ class Tacotron2(nn.Module):
         controls_dim) and ``description_embeddings`` (B, dim): a
         multi-speaker, a controllable and a description model's, each row
         its own; ``gst_reference_mel``: a GST model's reference (else the
-        neutral style, ``gst_embedding``)."""
+        neutral style, ``gst_embedding``). ``row_generators``,
+        ``encode_rows`` and ``gst_embedding`` as ``forward_infer_fast``'s
+        (JAX ``forward_infer``'s ``row_rngs``): the route of its decodes of a
+        model whose two LSTM widths differ."""
         c = self.cfg
         B, L = chars_idx.shape
         dev = chars_idx.device
         self._check_controls(controls, B)
         if controls is not None:
             controls = controls.to(device=dev, dtype=torch.float32)
+        if gst_embedding is None:
+            gst_embedding = self.gst_embedding(B, gst_reference_mel)
+        if row_generators is not None:
+            generator = list(row_generators)
         encoded, att_encoded, mask = self._encode(
-            chars_idx, chars_len, speaker_id=speaker_id,
-            description_embeddings=description_embeddings,
-            gst_embedding=self.gst_embedding(B, gst_reference_mel))
+            chars_idx, chars_len, rows=encode_rows, speaker_id=speaker_id,
+            description_embeddings=description_embeddings, gst_embedding=gst_embedding)
         state = decoder_mod.init_state(B, L, c.att_rnn_dim, c.encoded_full_dim,
                                        c.rnn_hidden_dim, dev)
         mels = torch.zeros(B, max_len, c.num_mels, device=dev)
@@ -373,7 +407,7 @@ class Tacotron2(nn.Module):
             t += 1
             if bool(done.all()):
                 break
-        post = self.postnet(mels, self.policy)
+        post = self._postnet_rows(mels, encode_rows is not None)
         return self._mask_outputs(mels, mels + post, gates[..., None], aligns, lengths, t)
 
     # ------------------------------------------------------------------
@@ -412,9 +446,21 @@ class Tacotron2(nn.Module):
         A GST model's style widens it by S columns: ``gst_embedding`` (B, S)
         where the caller holds it (the server's neutral style, computed at
         load), else from ``gst_reference_mel`` or the neutral style
-        (``gst_embedding``)."""
+        (``gst_embedding``). A model whose two LSTM widths differ runs
+        ``forward_infer`` on stock ops instead (JAX's ``fused_ok`` false),
+        counted as ``decode_stock``; ``quantize`` or a pack raise for it."""
         c = self.cfg
         B = chars_idx.shape[0]
+        if not self.equal_widths:
+            if quantize or packed is not None:
+                raise ValueError(UNEQUAL_INT8.format(c.att_rnn_dim, c.rnn_hidden_dim))
+            build.count(STOCK_ROUTES, "decode_stock")
+            return self.forward_infer(
+                chars_idx, chars_len, max_len, generator=generator, prenet_dropout=prenet_dropout,
+                masks=masks, speaker_id=speaker_id, controls=controls,
+                description_embeddings=description_embeddings,
+                gst_reference_mel=gst_reference_mel, row_generators=row_generators,
+                encode_rows=encode_rows, gst_embedding=gst_embedding)
         self._check_controls(controls, B)
         if gst_embedding is None:
             gst_embedding = self.gst_embedding(B, gst_reference_mel)
@@ -446,10 +492,17 @@ class Tacotron2(nn.Module):
         return torch.cat([self.postnet(t, self.policy)
                           for t in pad.split(POSTNET_ROWS)])[:B]
 
-    def make_packed_decoder(self, quantize: bool = False) -> decoder_loop.PackedDecoder:
+    def make_packed_decoder(self, quantize: bool = False
+                            ) -> Optional[decoder_loop.PackedDecoder]:
         """The decoder in the kernels' layout, int8 with ``quantize``, with
         the controls' columns of a controllable model: a warm server packs
         once at load and passes it to every decode (each decode brings its
-        rows' controls)."""
+        rows' controls). None for a model whose two LSTM widths differ (its
+        decodes take no pack), which raises with ``quantize``."""
+        if not self.equal_widths:
+            if quantize:
+                raise ValueError(UNEQUAL_INT8.format(self.cfg.att_rnn_dim,
+                                                     self.cfg.rnn_hidden_dim))
+            return None
         return decoder_loop.pack_decoder(self.prenet, self.decoder, self.policy.compute_dtype,
                                          quantize)

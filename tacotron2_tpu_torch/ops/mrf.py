@@ -1,7 +1,7 @@
 """HiFi-GAN MRF stage: kernel K2 (a dilated-conv kernel, which also runs
 the upsample and the vocoder's ``conv_pre``: ``csrc/mrf.cu`` on bf16
-operands, ``csrc/mrf_f32.cu`` on f32 ones, and ``csrc/mrf_narrow.cu`` at 8
-or 16 output channels in either type) and its plain version.
+operands, ``csrc/mrf_f32.cu`` on f32 ones, and ``csrc/mrf_narrow.cu`` at
+every other shape in either type) and its plain version.
 
 Replaces the TPU kernels of ``tacotron2_tpu/ops/mrf_pallas.py``:
 ``_make_stage_kernel`` (the MRF alone, via ``_mrf_stage_call``),
@@ -84,19 +84,36 @@ once at load: an f32 ``ConvWeights`` carries the hi and lo planes of each
 splits the operand in shared memory once per staged slice. Its launches
 count in ``F32_LAUNCHES`` as ``<entry>_f32``.
 
-The narrow channels (``csrc/mrf_narrow.cu``): the wide kernels take Co a
-multiple of 32 (their N tiles), and HiFi-GAN V2 runs its stages 3 and 4 at
-16 and 8 channels (the TPU kernel's phase fold s = 128 / C,
-``mrf_pallas.py:440``), its last upsample to 2 x 8. Every entry at Co in
-``NARROW_CO`` launches the narrow kernel instead, in the weights' type: a
-conv of a few channels is bound by its bytes, so it runs on the CUDA cores
-(FFMA, f32 sums in one fixed order per output) from a weight copy (Ci, K,
-Co) (``tile_conv``). Its launches count as ``narrow_conv``,
-``narrow_pair`` and ``narrow_transpose`` (``launch_key``; a ``conv_pre``
-at such a width as ``narrow_conv``), ``_f32`` in ``F32_LAUNCHES``.
+The other shapes (``csrc/mrf_narrow.cu``): the wide kernels take Co a
+multiple of 32 (their N tiles) and Ci a multiple of 8 (``wide``); the TPU
+stage kernel takes any C (its phase fold s = 128 / C where 128 % C == 0,
+else none, ``mrf_pallas.py:440``). Every conv of another shape -- HiFi-GAN
+V2's stages 3 and 4 at 16 and 8 channels and its last upsample to 2 x 8,
+stages at 4, 2 or 1 channels, widths off 32 (200, 100, 50, 25), a
+``conv_pre`` from a num_mels off 8 -- launches the narrow kernel instead, in
+the weights' type: a conv of a few channels is bound by its bytes, so it
+runs on the CUDA cores (FFMA, f32 sums in one fixed order per output) from a
+weight copy (Ci, K, Co) (``tile_conv``): V2's shapes (Co 8 or 16, Ci a
+multiple of 8, and the fused pair) on the kernel that first ran them, every
+other shape on one that takes groups of up to 16 output channels a block
+(``csrc/mrf_narrow.cu::narrow_plan``). Its launches count as
+``narrow_conv``, ``narrow_pair`` (C in ``PAIR_C`` only) and
+``narrow_transpose`` (``launch_key``; a
+``conv_pre`` of such a shape as ``narrow_conv``), ``_f32`` in
+``F32_LAUNCHES``.
+
+JAX's XLA routes. Where the JAX package runs XLA instead of a Pallas
+kernel, the port runs stock PyTorch ops, counted in ``STOCK_ROUTES``: an
+upsample that does not fold into a SAME conv (``fold_reach`` None: JAX's
+``conv_transpose1d_apply`` before its stage kernel) as
+``conv_transpose_stock``; a generator with an even resblock kernel size
+(``models/hifigan.py``) as ``generator_stock``. Where JAX runs the
+upsample on XLA although the port folds it (``jax_fuses_upsample`` false),
+JAX's bf16 conv emits bf16 before the bias, and so does the port's folded
+conv (``UpsampleWeights.round_sum``).
 
 Each wrapper runs its plain PyTorch version for CPU tensors only; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel of its shape's route or raises.
 """
 
 from __future__ import annotations
@@ -119,11 +136,14 @@ LAUNCHES = {k: 0 for k in ("mrf_conv", "mrf_pair", "conv_transpose", "conv_pre",
 # the f32 kernels' (``csrc/mrf_f32.cu``, the narrow kernel's f32 entries),
 # beside the bf16 ones
 F32_LAUNCHES = {k + "_f32": 0 for k in LAUNCHES}
-NARROW_CO = (8, 16)  # the output channels the narrow kernel takes
+# JAX's XLA routes, run on stock ops (no kernel): an upsample that does not
+# fold, and a whole generator with an even resblock kernel size
+STOCK_ROUTES = {"conv_transpose_stock": 0, "generator_stock": 0}
+PAIR_C = (8, 16)  # the channels (C = Ci = Co) the narrow kernel's fused pair takes
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, F32_LAUNCHES):
+    for counts in (LAUNCHES, F32_LAUNCHES, STOCK_ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -141,8 +161,11 @@ class UpsampleWeights(NamedTuple):
     stride: int
     padding: int
     # the same map as a SAME conv to stride * Co channels, the kernel's
-    # (fold_upsample); None where the shape does not fold
+    # (fold_upsample); None where the shape does not fold (JAX's XLA route)
     folded: Optional[ConvWeights] = None
+    # the sum rounded to the weights' type before the bias: a bf16 upsample
+    # that the JAX package runs on XLA (``jax_fuses_upsample`` false)
+    round_sum: bool = False
 
 
 # one resblock = a list of (conv, second conv or None) per dilation:
@@ -170,40 +193,33 @@ def conv_tiles(Co: int, Ci: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[i
     not divide it, the copy zero there). A block's wgmma takes the N tile
     or, where the grid is small, a part of it; slices of 64 or 32 (bf16),
     ``F32_KC`` (f32). Both wide kernels take Co a multiple of 32 and Ci a
-    multiple of 8 (the operand's rows whole 16-byte pieces, as TMA reads
-    them). At Co in ``NARROW_CO`` (the narrow kernel, either type): every
-    channel a block (NI = Co), slices of 16 input channels where they divide
-    Ci, else 8 (``csrc/mrf_narrow.cu::narrow_plan``)."""
-    if not conv_takes(Co, Ci):
-        raise ValueError(f"mrf_conv takes Co a multiple of 32 or one of {NARROW_CO} and Ci a "
-                         f"multiple of 8, got Co={Co}, Ci={Ci}")
-    if narrow(Co):
-        return Co, (16 if Ci % 16 == 0 else 8)
+    multiple of 8 (``wide``: the operand's rows whole 16-byte pieces, as TMA
+    reads them); any other shape runs on the narrow kernel, whose copy has
+    no tiles (``tile_conv``; its group and slices are
+    ``csrc/mrf_narrow.cu::narrow_plan``'s), and raises here."""
+    if not wide(Co, Ci):
+        raise ValueError(f"the wide kernels take Co a multiple of 32 and Ci of 8, got Co={Co}, "
+                         f"Ci={Ci} (the narrow kernel's copy has no tiles)")
     NI = 128 if Co % 128 == 0 else 64 if Co % 64 == 0 else 32
     if dtype == torch.float32:
         return NI, F32_KC
     return NI, (64 if Ci % 64 == 0 else 32)
 
 
-def narrow(Co: int) -> bool:
-    """Whether convs to ``Co`` channels run on the narrow kernel."""
-    return Co in NARROW_CO
-
-
-def conv_takes(Co: int, Ci: int) -> bool:
-    """Whether a K2 kernel takes these channels: Co a multiple of 32 (the
-    rule in ``csrc/mrf.cu::conv_plan`` and ``csrc/mrf_f32.cu::conv_plan``)
-    or in ``NARROW_CO`` (``csrc/mrf_narrow.cu::narrow_plan``), Ci a
-    multiple of 8."""
-    return (Co % 32 == 0 or narrow(Co)) and Ci % 8 == 0 and Ci >= 8
+def wide(Co: int, Ci: int) -> bool:
+    """Whether convs from ``Ci`` to ``Co`` channels run on the wide kernels
+    (``csrc/mrf.cu``, ``csrc/mrf_f32.cu``): Co a multiple of 32 (the rule in
+    their ``conv_plan``), Ci a multiple of 8."""
+    return Co % 32 == 0 and Ci % 8 == 0 and Ci >= 8
 
 
 def launch_key(name: str, cw: "ConvWeights") -> str:
     """The counter that a launch of wrapper ``name`` (``mrf_conv``,
     ``mrf_pair``, ``conv_transpose``, ``conv_pre``) on the (folded) weights
-    ``cw`` adds one to: the narrow kernel's entry at Co in ``NARROW_CO``,
-    ``_f32`` for f32 weights."""
-    key = NARROW_ENTRY[name] if narrow(cw.w.shape[1]) else name
+    ``cw`` adds one to: the narrow kernel's entry at a shape the wide
+    kernels do not take, ``_f32`` for f32 weights."""
+    _, Co, Ci = cw.w.shape
+    key = name if wide(Co, Ci) else NARROW_ENTRY[name]
     return key + ("_f32" if cw.w.dtype == torch.float32 else "")
 
 
@@ -220,10 +236,10 @@ def tile_offset(j, co, ci, K: int, Co: int, Ci: int, dtype: torch.dtype = torch.
     no-swizzle core-matrix layout of a K-major wgmma operand, 16-byte
     groups of input channels of rows of NI: bf16 [KC / 8][NI][8]; f32 the
     ``plane`` (0 hi, 1 lo: ``tf32_split``) of two such tiles side by side,
-    [2][KC / 4][NI][4]. The narrow kernel's copy (Co in ``NARROW_CO``, either
-    type, no planes) is (Ci, K, Co): a slice's channels one run, each
-    (channel, tap) its Co weights side by side."""
-    if narrow(Co):
+    [2][KC / 4][NI][4]. The narrow kernel's copy (not ``wide``, either type,
+    no planes) is (Ci, K, Co): a slice's channels one run, each (channel,
+    tap) its Co weights side by side (a block reads its group's)."""
+    if not wide(Co, Ci):
         return (ci * K + j) * Co + co
     NI, KC = conv_tiles(Co, Ci, dtype)
     tile = ((co // NI) * slices(Ci, KC) + ci // KC) * K + j
@@ -239,12 +255,12 @@ def tile_conv(w: torch.Tensor) -> torch.Tensor:
     tap), zero past Ci in the last slice; shape (Co / NI, ceil(Ci / KC), K,
     KC / 8, NI, 8) for bf16 and, split once here into hi and lo planes,
     (Co / NI, ceil(Ci / KC), K, 2, KC / 4, NI, 4) for f32. A ring stage's
-    consecutive taps are one run. At Co in ``NARROW_CO``: the narrow
+    consecutive taps are one run. At a shape not ``wide``: the narrow
     kernel's (Ci, K, Co), in the weights' type."""
     K, Co, Ci = w.shape
-    NI, KC = conv_tiles(Co, Ci, w.dtype)
-    if narrow(Co):
+    if not wide(Co, Ci):
         return w.permute(2, 0, 1).contiguous()
+    NI, KC = conv_tiles(Co, Ci, w.dtype)
     ns = slices(Ci, KC)
     w = F.pad(w, (0, ns * KC - Ci))
     if w.dtype == torch.float32:
@@ -266,7 +282,7 @@ def read_tiled(wt: torch.Tensor, K: int, Co: int, Ci: int,
     co = torch.arange(Co)[None, :, None]
     ci = torch.arange(Ci)[None, None, :]
     flat = wt.reshape(-1)
-    if wt.dtype != torch.float32 or narrow(Co):
+    if wt.dtype != torch.float32 or not wide(Co, Ci):
         return flat[tile_offset(j, co, ci, K, Co, Ci, wt.dtype)]
     at = lambda p: flat[tile_offset(j, co, ci, K, Co, Ci, wt.dtype, p)]
     return at(0) + at(1) if plane is None else at(plane)
@@ -274,11 +290,10 @@ def read_tiled(wt: torch.Tensor, K: int, Co: int, Ci: int,
 
 def pack_conv(conv, dtype: torch.dtype) -> ConvWeights:
     """nn.Conv1d (torch (Co, Ci, K)) -> the kernels' layouts: tap-major, and
-    the tiled copy where the channels take it (``conv_takes``)."""
+    the tiled copy of the kernel its channels run on."""
     w = conv.weight.detach().permute(2, 0, 1).to(dtype).contiguous()
-    K, Co, Ci = w.shape
-    wt = tile_conv(w) if conv_takes(Co, Ci) else None
-    return ConvWeights(w, conv.bias.detach().float().contiguous(), int(conv.dilation[0]), wt)
+    return ConvWeights(w, conv.bias.detach().float().contiguous(), int(conv.dilation[0]),
+                       tile_conv(w))
 
 
 def fold_reach(K: int, stride: int, padding: int) -> Optional[int]:
@@ -301,8 +316,8 @@ def fold_upsample(w: torch.Tensor, b: torch.Tensor, stride: int, padding: int) -
     channels whose (B, Tin, u Co) output is the transposed conv's (B, u
     Tin, Co) output in memory: tap R + alpha - j of output channel r Co +
     co is w[j u + beta, :, co] (phase r, as ``fold_reach``), every other tap
-    zero; the bias tiled u times; the kernel's tiled copy where the
-    channels take it. Raises ValueError where the shape does not fold."""
+    zero; the bias tiled u times; the tiled copy of the kernel its channels
+    run on. Raises ValueError where the shape does not fold."""
     K, Ci, Co = w.shape
     reach = fold_reach(K, stride, padding)
     if reach is None:
@@ -315,17 +330,44 @@ def fold_upsample(w: torch.Tensor, b: torch.Tensor, stride: int, padding: int) -
         for j in range(K // stride):
             wf[reach + alpha - j, r] = w[j * stride + beta].t()
     wf = wf.reshape(2 * reach + 1, stride * Co, Ci).contiguous()
-    wt = tile_conv(wf) if conv_takes(stride * Co, Ci) else None
-    return ConvWeights(wf, b.float().repeat(stride).contiguous(), 1, wt)
+    return ConvWeights(wf, b.float().repeat(stride).contiguous(), 1, tile_conv(wf))
+
+
+def _fold(C: int) -> int:
+    """The TPU stage kernel's phase fold of C channels (``mrf_pallas.py:440``)."""
+    return 128 // C if C < 128 and 128 % C == 0 else 1
+
+
+def _taps_fit_halo(ku: int, u: int, s: int, s_in: int) -> bool:
+    """The JAX fused upsample's row shifts (``mrf_pallas.py::upsample_taps``)
+    within its 8-row input halo (``_taps_fit_halo``)."""
+    pad = (ku - u) // 2
+    return max(abs(((j + pad - m) // u) // s_in) for j in range(s) for m in range(ku)
+               if (j + pad - m) % u == 0) <= 8
+
+
+def jax_fuses_upsample(u: int, Cin: int, C: int, ku: int) -> bool:
+    """Whether the JAX package fuses this upsample into its Pallas stage
+    kernel (``mrf_pallas.py::upsample_fusable`` or
+    ``upsample_fusable_expand``), rather than running XLA's transposed conv
+    in front of it (``models/hifigan.py:391-395``)."""
+    aligned = (C < 128 and 128 % C == 0 and 128 % Cin == 0 and u * (128 // Cin) == 128 // C
+               and _taps_fit_halo(ku, u, 128 // C, 128 // Cin))
+    expand = _fold(C) == 1 and u in (2, 4, 8) and _taps_fit_halo(ku, u, u, 1)
+    return aligned or expand
 
 
 def make_upsample(w: torch.Tensor, b: torch.Tensor, stride: int,
                   padding: int) -> UpsampleWeights:
     """Transposed-conv weights from the tap-major (K, Ci, Co) layout, with
-    the folded conv where the shape folds."""
+    the folded conv where the shape folds; a bf16 upsample that the JAX
+    package runs on XLA rounds its sum before the bias."""
+    K, Ci, Co = w.shape
     folded = (fold_upsample(w, b, stride, padding)
-              if fold_reach(w.shape[0], stride, padding) is not None else None)
-    return UpsampleWeights(w.contiguous(), b.float().contiguous(), stride, padding, folded)
+              if fold_reach(K, stride, padding) is not None else None)
+    round_sum = w.dtype != torch.float32 and not jax_fuses_upsample(stride, Ci, Co, K)
+    return UpsampleWeights(w.contiguous(), b.float().contiguous(), stride, padding, folded,
+                           round_sum)
 
 
 def pack_upsample(convt, dtype: torch.dtype) -> UpsampleWeights:
@@ -379,18 +421,23 @@ def mrf_pair_plain(a, c1: ConvWeights, c2: ConvWeights, res=None, acc=None,
 def pair_fusable(c1: ConvWeights, c2: Optional[ConvWeights]) -> bool:
     """Whether ``mrf_pair`` takes the pair: a second conv of dilation 1 and
     the first's shape, C = Ci = Co one N tile of its kernel (32 to 128 on
-    the wide kernels, 8 or 16 on the narrow one)."""
+    the wide kernels, ``PAIR_C`` on the narrow one)."""
     if c2 is None or c2.dilation != 1 or c1.w.shape != c2.w.shape:
         return False
     K, Co, Ci = c1.w.shape
-    return Co == Ci and conv_takes(Co, Ci) and conv_tiles(Co, Ci)[0] == Co
+    if Co != Ci:
+        return False
+    return conv_tiles(Co, Ci)[0] == Co if wide(Co, Ci) else Co in PAIR_C
 
 
 def conv_transpose_plain(a, uw: UpsampleWeights, want_act: bool = False):
     """From the operand ``a = operand(x, w.dtype)``, channels-last:
-    y = ConvTranspose1d(a) + b -> (y, operand(y) or None)."""
+    y = ConvTranspose1d(a) + b -> (y, operand(y) or None); with
+    ``uw.round_sum`` the sum rounded to the weights' type before the bias
+    (JAX's ``conv_transpose1d_apply`` under a bf16 policy)."""
+    pol = layers.Policy(uw.w.dtype) if uw.round_sum else layers.F32
     y = layers.conv_transpose1d(a.float(), uw.w.float().permute(1, 2, 0), uw.b, uw.stride,
-                                uw.padding)
+                                uw.padding, pol, round_out=uw.round_sum)
     return y, (operand(y, uw.w.dtype) if want_act else None)
 
 
@@ -453,18 +500,18 @@ def _stream() -> int:
 
 def _require_conv(cw: ConvWeights, Ci: int, name: str):
     """The weights' tiled copy in the layout of the kernel of their type
-    (bf16 or f32) and width (the narrow kernel's at Co in ``NARROW_CO``),
-    and the f32 bias."""
+    (bf16 or f32) and shape (the narrow kernel's where not ``wide``), and the
+    f32 bias."""
     K, Co, _ = cw.w.shape
     dt = cw.w.dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: the kernels take bf16 or f32 weights, got {dt}")
     if cw.wt is None:
         raise ValueError(f"{name}: the weights have no tiled copy (pack_conv, tile_conv)")
-    NI, KC = conv_tiles(Co, Ci, dt)
-    if narrow(Co):
+    if not wide(Co, Ci):
         build.require(cw.wt, dt, (Ci, K, Co), f"{name}.wt")
     else:
+        NI, KC = conv_tiles(Co, Ci, dt)
         tile = (2, KC // 4, NI, 4) if dt == torch.float32 else (KC // 8, NI, 8)
         build.require(cw.wt, dt, (Co // NI, slices(Ci, KC), K, *tile), f"{name}.wt")
     build.require(cw.b, torch.float32, (Co,), f"{name}.b")
@@ -476,9 +523,9 @@ def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act
     ``conv_pre``) or ``mrf_pair``: check, allocate, launch; the weights'
     type picks the kernel, bf16 (``csrc/mrf.cu``) or f32
     (``csrc/mrf_f32.cu``, counted in ``F32_LAUNCHES``), and the operands'
-    type (``a``, ``act`` and an ``acc_act`` sum) is theirs; at Co in
-    ``NARROW_CO`` the narrow kernel's entry of that type
-    (``csrc/mrf_narrow.cu``), counted as ``launch_key`` says."""
+    type (``a``, ``act`` and an ``acc_act`` sum) is theirs; at a shape not
+    ``wide`` the narrow kernel's entry of that type (``csrc/mrf_narrow.cu``),
+    counted as ``launch_key`` says."""
     B, T, Ci = a.shape
     K, Co, _ = c1.w.shape
     dt = c1.w.dtype
@@ -508,7 +555,7 @@ def _launch_conv(name, a, c1, c2, res, acc, acc_scale, want_y, want_act, acc_act
     stream = _stream()
     sfx = "_f32" if dt == torch.float32 else ""
     key = launch_key(name, c1)
-    if narrow(Co):
+    if not wide(Co, Ci):
         lib, kind = _lib_narrow(), "narrow"
     else:
         lib, kind = (_lib_f32() if sfx else _lib()), "mrf"
@@ -549,18 +596,21 @@ def mrf_pair(a, c1: ConvWeights, c2: ConvWeights, res=None, acc=None, acc_scale:
 def conv_transpose(a, uw: UpsampleWeights, want_act: bool = False):
     """ConvTranspose1d of the operand ``a`` (B, Tin, Ci) -> (y (B, u
     Tin, Co) f32, operand(y) or None): one ``mrf_conv`` launch of the folded
-    conv (``fold_upsample``), its outputs viewed as the transposed conv's;
-    see ``conv_transpose_plain``."""
+    conv (``fold_upsample``; ``uw.round_sum`` its epilogue's mode 8), its
+    outputs viewed as the transposed conv's; see ``conv_transpose_plain``.
+    A shape that does not fold takes JAX's XLA route on any device:
+    ``conv_transpose_plain`` on stock ops (cuDNN on the card, TF32 off as
+    ``layers.use_f32_math`` sets it), counted as ``conv_transpose_stock``."""
+    if uw.folded is None:  # contiguous, as the stage's kernels read them
+        build.count(STOCK_ROUTES, "conv_transpose_stock")
+        y, act = conv_transpose_plain(a, uw, want_act)
+        return y.contiguous(), (None if act is None else act.contiguous())
     if a.device.type == "cpu":
         return conv_transpose_plain(a, uw, want_act)
     K, Ci, Co = uw.w.shape
-    if uw.folded is None or uw.folded.wt is None:
-        raise ValueError(f"conv_transpose runs the folded conv: kernel {K}, stride {uw.stride}, "
-                         f"padding {uw.padding}, {Ci} -> {Co} channels has none (fold_upsample, "
-                         "tile_conv)")
     B, Tin, _ = a.shape
     y, act, _ = _launch_conv("conv_transpose", a, uw.folded, None, None, None, 0.0, True,
-                             want_act)
+                             want_act, round_sum=uw.round_sum)
     Tout = Tin * uw.stride
     return y.view(B, Tout, Co), (None if act is None else act.view(B, Tout, Co))
 

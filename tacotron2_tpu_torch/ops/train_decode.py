@@ -227,11 +227,16 @@ def _controls_dim(params: Sequence[torch.Tensor]) -> int:
     return named["mel_out.weight"].shape[1] - named["gate.weight"].shape[1]
 
 
-def packed_dims(w: TrainWeights, D: int) -> Tuple[int, int]:
-    """(H, E) of packed weights, with D the encoder's width: E is what W2's
-    columns hold beyond [att_h | ctx | rnn_h]."""
-    H = w.wq.shape[1]
-    return H, w.w2.shape[1] - 2 * H - D
+def packed_dims(w: TrainWeights, D: int, mp: Optional[mesh.ModelParallel] = None
+                ) -> Tuple[int, int, int]:
+    """(H1, H2, E) of packed weights, with D the encoder's width: the
+    attention LSTM's width H1 (``att_rnn_dim``), the decoder LSTM's H2
+    (``rnn_hidden_dim``; ``w.w2``'s rows are this model rank's 4 H2 / m
+    with a model group ``mp``), and E, what W2's columns hold beyond [att_h
+    | ctx | rnn_h]. The kernels take H1 == H2."""
+    H1 = w.wq.shape[1]
+    H2 = w.w2.shape[0] // 4 * (1 if mp is None else mp.n)
+    return H1, H2, w.w2.shape[1] - H1 - H2 - D
 
 
 def pad_controls(controls: Optional[torch.Tensor], C: int, like: torch.Tensor) -> torch.Tensor:
@@ -293,21 +298,21 @@ def teacher_steps(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1, d
     dropout of every step (T, B, H) x 2)."""
     T, B, _ = decoder_in.shape
     L, D = encoded.shape[1], encoded.shape[2]
-    H, E = packed_dims(w, D)
+    H1, H2, E = packed_dims(w, D, mp)
     if ctl is None:
         ctl = pad_controls(None, E, decoder_in[0])
-    own = unit_columns(mp, H)
+    own1, own2 = unit_columns(mp, H1), unit_columns(mp, H2)
     gather = (lambda x: x) if mp is None else (lambda x: mesh.gather_columns(x, mp))
     cd = w.w1.dtype
     z = lambda *s: decoder_in.new_zeros(*s)
-    h = w.w1.shape[0] // 4
-    att_h, ctx, rnn_h = z(B, H), z(B, D), z(B, H)
-    c_att, c_rnn, al, cum = [z(B, h)], [z(B, h)], [z(B, L)], [z(B, L)]
+    att_h, ctx, rnn_h = z(B, H1), z(B, D), z(B, H2)
+    c_att, c_rnn = [z(B, w.w1.shape[0] // 4)], [z(B, w.w2.shape[0] // 4)]
+    al, cum = [z(B, L)], [z(B, L)]
     xh1, xh2, mel_gate, att_hs, rnn_hs = [], [], [], [], []
     for t in range(T):
         xh1.append(torch.cat([decoder_in[t], ctx, att_h], dim=1).to(cd))
         hl, c = lstm_cell_plain(w.w1, w.b1, decoder_in[t], ctx, att_h, c_att[-1])
-        att_h = gather(hl * dm1[t, :, own])
+        att_h = gather(hl * dm1[t, :, own1])
         c_att.append(c)
         ctx, wt, cm = location_attention_plain(att_h, w.wq, w.w_loc, w.wv, att_enc, encoded,
                                                lengths, al[-1], cum[-1])
@@ -315,7 +320,7 @@ def teacher_steps(w: TrainWeights, decoder_in, encoded, att_enc, lengths, dm1, d
         cum.append(cm)
         xh2.append(torch.cat([att_h, ctx, ctl, rnn_h], dim=1).to(cd))
         hl, c = lstm_cell_plain(w.w2, w.b2, att_h, ctx, rnn_h, c_rnn[-1], ctl)
-        rnn_h = gather(hl * dm2[t, :, own])
+        rnn_h = gather(hl * dm2[t, :, own2])
         c_rnn.append(c)
         att_hs.append(att_h)
         rnn_hs.append(rnn_h)
@@ -376,7 +381,7 @@ def teacher_backward_plain(w: TrainWeights, res: Residuals, encoded, att_enc, le
     (T, B, L)."""
     T, B, R1 = res.xh1.shape
     L, D = encoded.shape[1], encoded.shape[2]
-    H, E = packed_dims(w, D)
+    H, _, E = packed_dims(w, D)
     P = R1 - D - H
     cd = w.w1.dtype
     W1, W2, wq, wl, wv, wout = (_acc(t) for t in (w.w1, w.w2, w.wq, w.w_loc, w.wv, w.w_out))
@@ -458,7 +463,7 @@ def _ptrs(tensors):
 
 
 def _require_weights(w: TrainWeights, P: int, D: int) -> Tuple[int, int, int, int, int]:
-    H, E = packed_dims(w, D)
+    H, _, E = packed_dims(w, D)
     A, K, N = w.wq.shape[0], w.w_loc.shape[2], w.w_out.shape[0]
     if E < 0 or E % CONTROLS_ALIGN:
         raise ValueError(f"w2 has {w.w2.shape[1]} columns: want 2H + D + E, E a multiple of "
@@ -603,7 +608,8 @@ def _gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _acc(a2).t() @ _acc(b2)
 
 
-def grads_from(params, w: TrainWeights, res: Residuals, encoded, out: BackwardOut, d_mel_gate):
+def grads_from(params, w: TrainWeights, res: Residuals, encoded, out: BackwardOut, d_mel_gate,
+               mp: Optional[mesh.ModelParallel] = None):
     """``TeacherDecode``'s gradients from the reverse pass's stacks: those
     of decoder_in, encoded, att_encoded and the controls (B, C), then of
     ``DECODER_PARAMS``: dW1 = dg1^T xh1 and dW2 = dg2^T xh2 over all T * B
@@ -611,11 +617,12 @@ def grads_from(params, w: TrainWeights, res: Residuals, encoded, out: BackwardOu
     d_wout = bf16(dmg)^T [head_h | ctx | controls] (the mel rows over all of
     it, the gate row over [head_h | ctx]), and the folded location window's
     gradient unfolded into the conv and the dense. These products sit
-    outside the kernels, as in the JAX package."""
+    outside the kernels, as in the JAX package. ``mp``: the model group
+    whose rank's unit rows ``w``'s cells hold (``train_scan``)."""
     (a_ih, _, _, _, d_ih, _, _, _, _, _, conv, dense, *_) = params
     T, B, _ = res.xh1.shape
     D = encoded.shape[2]
-    H, E = packed_dims(w, D)
+    H, _, E = packed_dims(w, D, mp)
     M = w.w_out.shape[0] - 1
     C = _controls_dim(params)
     acc = torch.promote_types(w.w1.dtype, torch.float32)

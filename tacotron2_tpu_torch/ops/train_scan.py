@@ -10,7 +10,9 @@ kernels pin DEFAULT precision, the XLA scan keeps f32 products) and on a mesh
 with a "model" axis (the kernels need whole weights). Here too kernels K3 /
 K4 do not run there: stock PyTorch ops carry the decode, f32 products with
 TF32 off on the card (``layers.use_f32_math``): the forward is
-``ops/train_decode.py``'s ``teacher_steps`` (with a model group, or none),
+``ops/train_decode.py``'s ``teacher_steps`` (with a model group, or none;
+the two cells' widths H1 and H2 apart, as a model whose two LSTM widths
+differ takes this route in its teacher-forced eval),
 the backward shares its ``attention_pull`` and ``_lstm_pull``, and the
 weight gradients are its ``grads_from``, on its residual contract. Without a
 model group a rank holds every unit and nothing is gathered or reduced.
@@ -45,7 +47,12 @@ from tacotron2_tpu_torch.ops.train_decode import (DECODER_PARAMS, BackwardOut, R
                                                   _lstm_pull, attention_pull, grads_from,
                                                   pack_weights, packed_dims, pad_controls,
                                                   teacher_steps, unit_columns)
+from tacotron2_tpu_torch.ops import build
 from tacotron2_tpu_torch.parallel import mesh
+
+# teacher-forced decodes on this route (no K3 / K4 launch): F32 models, a
+# tensor-parallel step, a model whose two LSTM widths differ
+STOCK_ROUTES = {"teacher_scan": 0}
 
 
 class Hidden(NamedTuple):
@@ -79,7 +86,7 @@ def teacher_backward_tp(w: TrainWeights, res: Residuals, hid: Hidden, encoded, a
     attention and the heads read the forward's gathered h (``hid``)."""
     T, B, R1 = res.xh1.shape
     L, D = encoded.shape[1], encoded.shape[2]
-    H, E = packed_dims(w, D)
+    H, _, E = packed_dims(w, D, mp)
     own = unit_columns(mp, H)
     P = R1 - D - H
     cd = w.w1.dtype
@@ -149,7 +156,8 @@ class TeacherDecodeTP(torch.autograd.Function):
         out = teacher_backward_tp(ctx.w, ctx.res, ctx.hid, ctx.enc, att, ctx.lens, dm1, dm2,
                                   d_mel_gate, d_aligns.to(acc), ctx.mp)
         d_prenet, d_enc, d_attenc, d_ctrl, *d_params = grads_from(params, ctx.w, ctx.res,
-                                                                  ctx.enc, out, d_mel_gate)
+                                                                  ctx.enc, out, d_mel_gate,
+                                                                  ctx.mp)
         d_ctrl = d_ctrl if ctx.needs_input_grad[8] else None
         return (None, None, d_prenet, d_enc, d_attenc, None, None, None, d_ctrl, *d_params)
 
@@ -161,6 +169,7 @@ def teacher_decode(decoder, decoder_in, encoded, att_encoded, lengths, dm1, dm2,
     model rank's slices; without one (an F32 model's step, JAX's
     ``run_decode_scan``) they are whole."""
     mp = mesh.model_parallel()
+    build.count(STOCK_ROUTES, "teacher_scan")
     named = dict(decoder.named_parameters())
     return TeacherDecodeTP.apply(compute_dtype, mp, decoder_in, encoded, att_encoded, lengths,
                                  dm1, dm2, controls, *(named[k] for k in DECODER_PARAMS))

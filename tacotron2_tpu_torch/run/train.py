@@ -65,7 +65,7 @@ from tacotron2_tpu_torch.config import Config
 from tacotron2_tpu_torch.data.loader import TTSDataLoader
 from tacotron2_tpu_torch.data.manifest import manifest_dataset, read_manifest, select_rows
 from tacotron2_tpu_torch.models.layers import Policy, resolve_device, use_f32_math
-from tacotron2_tpu_torch.models.tacotron2 import Tacotron2
+from tacotron2_tpu_torch.models.tacotron2 import UNEQUAL_TRAIN, Tacotron2
 from tacotron2_tpu_torch.parallel import mesh
 from tacotron2_tpu_torch.parallel.prefetch import DevicePrefetcher, DirectStream, use_device_prefetch
 from tacotron2_tpu_torch.run.say import _sync, model_config_from
@@ -84,10 +84,14 @@ FINETUNE_FROZEN = ("encoder.", "speaker_embedding.")
 
 def check_trainable(cfg: Config, prosody_model_checkpoint: Optional[str] = None) -> None:
     """Raise for a config the port cannot train: the prosody model's style
-    loss needs its predictor's checkpoint."""
+    loss needs its predictor's checkpoint; a model whose two decoder LSTMs
+    differ in width has no train step, in the JAX package either
+    (``Tacotron2.forward_teacher``)."""
     if cfg.extensions.prosody_model.active and prosody_model_checkpoint is None:
         raise ValueError("Prosody model extension is active, but no prosody model checkpoint "
                          "was given!")
+    if cfg.model.att_rnn_dim != cfg.model.rnn_hidden_dim:
+        raise ValueError(UNEQUAL_TRAIN.format(cfg.model.att_rnn_dim, cfg.model.rnn_hidden_dim))
 
 
 def _augmented_ids(speech_dir: str) -> set:

@@ -51,7 +51,9 @@ def test_conv_tiles(Co, Ci, NI, KC):
 @pytest.mark.parametrize("Co,Ci", [(48, 64), (512, 20)])
 def test_conv_tiles_refuse_other_channels(Co, Ci):
     """Co must be a multiple of 32 (an N tile), Ci of 8 (the operand's rows
-    whole 16-byte pieces, as TMA reads them)."""
+    whole 16-byte pieces, as TMA reads them); other channels run on the
+    narrow kernel, whose copy has no tiles."""
+    assert not mrf.wide(Co, Ci)
     with pytest.raises(ValueError):
         mrf.conv_tiles(Co, Ci)
 

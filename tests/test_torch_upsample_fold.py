@@ -40,13 +40,16 @@ def test_fold_equals_conv_transpose(k, u, Ci, Co, dtype):
     """``mrf_conv_plain`` on the folded weights, its (B, Tin, u Co) output
     viewed as (B, u Tin, Co), equals ``conv_transpose_plain`` on the same
     operand within FOLD_TOL (readings: 1.6e-7 to 2.2e-7 in f32, 1.1e-7 to
-    1.5e-7 with bf16 operands and weights): only the sums' order differs."""
+    1.5e-7 with bf16 operands and weights): only the sums' order differs.
+    A bf16 upsample that JAX runs on XLA rounds its sum before the bias in
+    both (``round_sum``, the kernel's mode 8, as ``conv_transpose`` passes
+    it)."""
     uw = _upsample(k, u, Ci, Co, dtype, k * 100 + u)
     assert uw.folded is not None and uw.folded.w.shape == (3, u * Co, Ci)
     x = torch.randn(2, 13, Ci, generator=torch.Generator().manual_seed(k + u))
     a = mrf.operand(x, dtype)
     ref, ref_act = mrf.conv_transpose_plain(a, uw, want_act=True)
-    y, act, _ = mrf.mrf_conv_plain(a, uw.folded, want_act=True)
+    y, act, _ = mrf.mrf_conv_plain(a, uw.folded, want_act=True, round_sum=uw.round_sum)
     got = y.reshape(2, 13 * u, Co)
     assert got.shape == ref.shape
     rel = float((got - ref).abs().max() / ref.abs().max())
@@ -92,16 +95,20 @@ def test_folded_copy_reads_back(k, u, Ci, Co):
 def test_shapes_that_do_not_fold(k, u, pad):
     """No fold where k % u != 0 or Tout != u Tin: ``fold_upsample`` raises
     ValueError, ``make_upsample`` keeps no folded copy (the plain version
-    still runs), and the wrapper refuses such weights on the kernel's
-    path."""
+    still runs), and off the CPU the wrapper takes no kernel's path but
+    JAX's XLA route on stock ops, counted as ``conv_transpose_stock``."""
     assert mrf.fold_reach(k, u, pad) is None
     w = torch.zeros(k, 64, 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="fold"):
         mrf.fold_upsample(w, torch.zeros(32), u, pad)
     uw = mrf.make_upsample(w, torch.zeros(32), u, pad)
     assert uw.folded is None
-    with pytest.raises(ValueError, match="folded"):
-        mrf.conv_transpose(torch.empty(1, 8, 64, device="meta", dtype=torch.bfloat16), uw)
+    before, stock = dict(mrf.LAUNCHES), mrf.STOCK_ROUTES["conv_transpose_stock"]
+    uw = mrf.make_upsample(w.to("meta"), torch.zeros(32, device="meta"), u, pad)
+    y, act = mrf.conv_transpose(torch.empty(1, 8, 64, device="meta", dtype=torch.bfloat16), uw,
+                                want_act=True)
+    assert y.shape == act.shape == (1, 7 * u - 2 * pad + k, 32) and act.dtype == torch.bfloat16
+    assert mrf.LAUNCHES == before and mrf.STOCK_ROUTES["conv_transpose_stock"] == stock + 1
 
 
 @pytest.mark.parametrize("k,u,reach", [(16, 8, 1), (4, 2, 1), (8, 4, 1), (6, 2, 1), (12, 4, 1),

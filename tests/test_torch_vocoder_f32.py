@@ -200,22 +200,20 @@ def _conv(K, C, dtype, tiled=True, dil=1):
     return mrf.ConvWeights(w, torch.zeros(C), dil, mrf.tile_conv(w) if tiled else None)
 
 
-def _untiled(K, Co, Ci, dil=1):
-    """Weights of channels no K2 kernel takes: no tiled copy."""
-    assert not mrf.conv_takes(Co, Ci)
-    return mrf.ConvWeights(torch.zeros(K, Co, Ci), torch.zeros(Co), dil, None)
-
 
 @pytest.mark.parametrize("case", ["f32_weights_bf16_operand", "fp16_weights", "mixed_pair",
-                                  "bf16_copy_for_f32_weights", "co24", "ci4", "pair_co24",
-                                  "transpose_ci4", "wide_copy_for_narrow_weights"])
+                                  "bf16_copy_for_f32_weights", "pair_co24",
+                                  "wide_copy_for_narrow_weights"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(case, monkeypatch):
     """On a non-CPU tensor the wrappers launch the kernel of the weights'
     type or raise, counting nothing: an operand of another type, weights of
     a type no kernel takes, a pair of two types, a tiled copy in the other
-    kernel's layout; channels no kernel takes (Co 24: neither a multiple of
-    32 nor 8 or 16, the narrow kernel's; Ci 4: not whole 8-channel pieces),
-    which have no tiled copy; a narrow conv given another layout's copy."""
+    kernel's layout; a pair that no fused pair takes (C 24: the wide
+    kernels' pairs take one N tile, the narrow kernel's C in ``PAIR_C``); a
+    narrow conv given another layout's copy. Every channel count has a
+    kernel (the narrow one where the wide ones do not take it): Co 24, Ci 4
+    and a fold from 4 channels are held against JAX in
+    tests/test_torch_vocoder_shapes.py."""
     fake = _FakeLib()
     monkeypatch.setattr(mrf, "_lib", lambda: fake)
     monkeypatch.setattr(mrf, "_lib_f32", lambda: fake)
@@ -240,12 +238,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case, monkeypatch):
         "mixed_pair": lambda: mrf.mrf_pair(a32, c32, c16),
         "bf16_copy_for_f32_weights": lambda: mrf.mrf_conv(
             a32, c32._replace(wt=mrf.tile_conv(c16.w).float())),
-        "co24": lambda: mrf.mrf_conv(_meta(1, 8, 24), _untiled(3, 24, 24)),
-        "ci4": lambda: mrf.mrf_conv(_meta(1, 8, 4), _untiled(3, 16, 4)),
-        "pair_co24": lambda: mrf.mrf_pair(_meta(1, 8, 24), _untiled(3, 24, 24, 3),
-                                          _untiled(3, 24, 24)),
-        "transpose_ci4": lambda: mrf.conv_transpose(
-            _meta(1, 8, 4), mrf.make_upsample(torch.zeros(4, 4, 8), torch.zeros(8), 2, 1)),
+        "pair_co24": lambda: mrf.mrf_pair(_meta(1, 8, 24), _conv(3, 24, torch.float32, dil=3),
+                                          _conv(3, 24, torch.float32)),
         "wide_copy_for_narrow_weights": lambda: mrf.mrf_conv(  # the (Co / NI, ...) layout
             _meta(1, 8, 32), mrf.ConvWeights(torch.zeros(3, 16, 32), torch.zeros(16), 1,
                                              torch.zeros(1, 2, 3, 2, 4, 16, 4))),
