@@ -17,6 +17,14 @@
                                     # turns, bit for bit, and the controls mode's times
     python3 chip_smoke.py --k2-f32-ab  # K2's f32 mode of build/parent and this tree in
                                        # turns at 1 / 16 / 64 rows, beside cuDNN f32
+    python3 chip_smoke.py --k1-f32-rows [--cell-ab] [--root DIR] [--out NAME]  # K1's f32
+                                       # cells, heads and chunk at 1/16/64 rows (and the
+                                       # design copies of ``k1f_cell_ab``)
+    python3 chip_smoke.py --k1-f32-ab  # K1's f32 cells and heads and the 64-step f32
+                                       # chunk of build/parent and this tree in turns at
+                                       # 1 / 16 / 64 rows, beside nn.LSTMCell x2 and
+                                       # F.linear in f32 (``k1_f32_ab``), and the f32
+                                       # cell's design copies (``k1f_cell_ab``)
     python3 chip_smoke.py --eval    # the kernels' build and phase 4f alone
     python3 chip_smoke.py --train-extras  # the kernels' build and phase 4g alone
     python3 chip_smoke.py --descriptions  # the kernels' build and phase 4h alone
@@ -281,8 +289,9 @@ Phases, each of which must pass:
    F32 model) against its plain f32 version at 1, 16 and 64 rows within
    K1F_TOL of each output's max, the controllable config's decoder cell and
    heads with controls; the planted defects (copies of
-   ``csrc/decode_step.cu``: bf16-rounded and TF32-rounded cell operands, a
-   location tap left out) at least K1F_DEFECT_MARGIN x the limit; the
+   ``csrc/decode_step.cu``: bf16-rounded cell operands, the cell's and the
+   heads' products as one TF32 pass, a location tap left out) at least
+   K1F_DEFECT_MARGIN x the limit; the
    int8 mode's prenet rows on a bf16 rounding boundary held to one of their
    roundings, its weights rounded to bf16 (a defect) failing that; rows 0,
    1, 37, 63 of 64 bit for bit alone; the 64-step f32 chunk (K1F_CHUNK_TOL)
@@ -9243,20 +9252,21 @@ K1F_STEP_TOL = {"loss": 1e-6, "grads": 1e-5}
 # to 1.3e-3)
 K1F_FLIP_REL = 1e-5
 # planted defects of the f32 entries: copies of csrc/decode_step.cu (under
-# build/defects) with the f32 cell's operands rounded to bf16, to TF32 (one
-# TF32 pass), and with the location conv's last tap left out (a copy of
-# decode_common.cuh included instead); each read at 16 rows
+# build/defects) with the f32 cell's operands rounded to bf16 where it takes
+# them (cf_op), the cell's and the heads' products as one TF32 pass (w_hi
+# a_hi: the two lo passes left out), and with the location conv's last tap
+# left out (a copy of decode_common.cuh included instead); each read at 16
+# rows
 _CF_OP = r"__device__ __forceinline__ float cf_op\(float x\) \{ return x; \}"
 K1F_DEFECTS = (
     ("k1f_bf16_operands", [(_CF_OP, "__device__ __forceinline__ float cf_op(float x) "
                                     "{ return rnd_bf16(x); }")]),
-    ("k1f_tf32_pass", [(_CF_OP, "__device__ __forceinline__ float cf_op(float x) { return "
-                                "__uint_as_float((__float_as_uint(x) + 0xFFFu + "
-                                "((__float_as_uint(x) >> 13) & 1u)) & 0xFFFFE000u); }")]),
+    ("k1f_tf32_pass", [(r"constexpr int CF_PASSES = 7;", "constexpr int CF_PASSES = 4;")]),
+    ("k1f_heads_tf32_pass", [(r"constexpr int HF_PASSES = 7;", "constexpr int HF_PASSES = 4;")]),
     ("k1f_loc_tap", [(r'#include "decode_common\.cuh"', '#include "decode_common_tap.cuh"')]),
 )
 K1F_DEFECT_ENTRY = {"k1f_bf16_operands": "lstm_cell_f32", "k1f_tf32_pass": "lstm_cell_f32",
-                    "k1f_loc_tap": "location_attention_f32"}
+                    "k1f_heads_tf32_pass": "heads_f32", "k1f_loc_tap": "location_attention_f32"}
 K1F_SOURCE = "tacotron2_tpu_torch/csrc/decode_step.cu"
 K1F_REPLACES = {
     "lstm_cell_f32": "tacotron2_tpu/ops/decoder_loop_pallas.py:347 (f32 mode, dt :386; the "
@@ -9398,12 +9408,19 @@ def k1f_calls(dl, pk, i: dict, ctl=None) -> dict:
             nbytes(pk.wt_prenet, *pre[:1], *pre[3:], f32(B, pk.wp2_t.shape[0])),
             2 * B * (pk.wp1_t.numel() + pk.wp2_t.numel()))
         out["heads_f32" + sfx] = (
-            lambda act=act: dl.heads(*hd, ctl=ctl, wt=pk.wt_out, act=act),
-            lambda act=act: dl.heads_plain(*hd, act, ctl),
+            lambda act=act: mel_gate(dl.heads(*hd, ctl=ctl, wt=pk.wt_out, act=act)),
+            lambda act=act: mel_gate(dl.heads_plain(*hd, act, ctl)),
             lambda: F.linear(x_heads, pk.w_out, pk.b_out),
             nbytes(pk.wt_out, pk.b_out, x_heads, f32(B, pk.w_out.shape[0])),
             2 * B * pk.w_out.numel())
     return out
+
+
+def mel_gate(out):
+    """The heads' two outputs, the mel frame and the gate logit, held apart
+    (each against its own max: the smoke's gate bias of 10 would otherwise
+    set the scale of the mel's errors too)."""
+    return out[:, :-1], out[:, -1:]
 
 
 def _outputs(x) -> list:
@@ -9412,7 +9429,9 @@ def _outputs(x) -> list:
 
 def _labels(name: str, n: int) -> list:
     return {"lstm_cell_f32": ["h_att", "c_att", "h_dec", "c_dec"],
-            "location_attention_f32": ["ctx", "weights", "cum"]}.get(name, ["out"][:n])
+            "location_attention_f32": ["ctx", "weights", "cum"],
+            "heads_f32": ["mel", "gate"],
+            "heads_f32_act_bf16": ["mel", "gate"]}.get(name, ["out"][:n])
 
 
 def prenet_act_bf16_rows(pre, rows) -> dict:
@@ -9504,6 +9523,19 @@ def k1f_prenet_defect(dl, pre, log: dict) -> None:
                        f"({reading:.3e} of the max)")
 
 
+# the f32 entries whose products run as three TF32 passes on the tensor
+# cores: their bound counts 3 x the flops at the TF32 peak (K2's f32 mode's
+# rule), the CUDA cores' FP32 time beside it (``cuda_core_ms``)
+K1F_TF32 = ("lstm_cell_f32", "heads_f32", "heads_f32_act_bf16")
+
+
+def k1f_bound(name: str, nb: float, fl: float) -> tuple:
+    """``bound_ms`` of an f32 entry's bytes and flops on its route."""
+    if name in K1F_TF32:
+        return bound_ms(nb, 3 * fl, card_peak("tf32"))
+    return bound_ms(nb, fl, card_peak("f32"))
+
+
 def k1f_cells_library(model, pk, i: dict):
     """``nn.LSTMCell`` x2 in f32 on the cells' inputs (TF32 off): the library
     call of ``lstm_cell_f32``."""
@@ -9543,7 +9575,7 @@ def k1f_entries(model, ctl_model, log: dict, copies=None) -> dict:
     pk, cpk = model.make_packed_decoder(), ctl_model.make_packed_decoder()
     if pk.w_att.dtype != torch.float32 or pk.wt_att.dtype != torch.float32:
         raise SmokeFailure(f"the 32-true model packed {pk.w_att.dtype} weights, want f32")
-    peak = {"lstm_cell_f32": card_peak("f32"), "location_attention_f32": card_peak("f32")}
+    peak = {"location_attention_f32": card_peak("f32")}
     out: dict = {}
     for B in K1F_ROWS:
         L = 96 if B == 1 else SERVE_L
@@ -9553,11 +9585,13 @@ def k1f_entries(model, ctl_model, log: dict, copies=None) -> dict:
             k1f_check(f"{name}@B{B}", name, _outputs(kern()), _outputs(plain()), log, pre)
             if name == "lstm_cell_f32":
                 lib = k1f_cells_library(model, pk, i)
-            b_ms, b_by = bound_ms(nb, fl, peak.get(name, card_peak("f32")))
+            b_ms, b_by = k1f_bound(name, nb, fl)
             r = out.setdefault(name, {})[f"B{B}"] = {
                 "ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": time_ms(lib) if lib else None,
                 "eager_ms": eager_ms(kern)}
+            if name in K1F_TF32:
+                r["cuda_core_ms"] = fl / card_peak("f32") * 1e3
             log.setdefault("k1f_timing", {}).setdefault(name, {})[f"B{B}"] = r
             lib_us = "-" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f}"
             print(f"  {name} at {B} rows: {r['ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} "
@@ -10983,6 +11017,181 @@ def k2_f32_ab() -> int:
     return max(t["rc"] for t in turns)
 
 
+# design A/B of the f32 cell and heads: copies of csrc/decode_step.cu (each a
+# list of regex substitutions), timed in turns by ``k1f_cell_ab``; those in
+# K1F_CELL_AB_OTHER change results (timing probes), the rest must keep the
+# source's bits
+K1F_CELL_AB = (
+    ("source", []),
+    # mma.sync at every row count (the same bits as wgmma's above 16 rows), or
+    # wgmma's instance at every row count
+    ("mma_only", [(r"if constexpr \(NT == CF_NT\) \{", "if constexpr (false) {")]),
+    ("wgmma_only", [(r"inline int cf_nt\(int nrows\) \{ return nrows <= 8 \? 1 : "
+                     r"nrows <= 16 \? 2 : CF_NT; \}",
+                     "inline int cf_nt(int nrows) { return CF_NT; }")]),
+    # the input by TMA boxes at every row count, or by row copies at every one
+    ("input_boxes", [(r"constexpr int CF_ROW_COPIES = 16;", "constexpr int CF_ROW_COPIES = 0;")]),
+    ("input_rows", [(r"constexpr int CF_ROW_COPIES = 16;", "constexpr int CF_ROW_COPIES = 64;")]),
+    # the split by the cvt.rna.tf32.f32 instruction (the same bits)
+    ("split_cvt", [(r"return \(__float_as_uint\(x\) \+ 0x1000u\) & 0xFFFFE000u;",
+                    r'uint32_t r; asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x)); '
+                    r"return r;")]),
+    ("one_pass", [(r"constexpr int CF_PASSES = 7;", "constexpr int CF_PASSES = 4;")]),
+    ("no_product", [(r"constexpr int CF_PASSES = 7;", "constexpr int CF_PASSES = 0;")]),
+    ("heads_ntile_16", [(r"constexpr int HF_NTILE = 8;", "constexpr int HF_NTILE = 16;")]),
+    ("heads_one_pass", [(r"constexpr int HF_PASSES = 7;", "constexpr int HF_PASSES = 4;")]),
+)
+K1F_CELL_AB_OTHER = {"one_pass", "no_product", "heads_one_pass"}
+
+
+def k1f_cell_ab(model, pk, log: dict) -> dict:
+    """The f32 cell's design A/B (``--k1-f32-rows --cell-ab``): the
+    K1F_CELL_AB copies of csrc/decode_step.cu built under build/k1f_ab/, each
+    bound in turn as ``decoder_loop._LIB``, both cells (``k1f_calls``) and
+    the heads timed by graph replay at K1F_ROWS rows, in turns, two rounds,
+    the second in reverse order; the copies outside K1F_CELL_AB_OTHER must
+    give the source's bits. -> {copy_rows: times}"""
+    import ctypes
+
+    import torch
+
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    libs = {k: dl.bind(ctypes.CDLL(str(v))) for k, v in build_copies(
+        "decode_step", K1F_CELL_AB, ROOT / "build" / "k1f_ab").items()}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 73)
+    cases = []
+    for B in K1F_ROWS:
+        calls = k1f_calls(dl, pk, k1f_inputs(pk, B, 96 if B == 1 else SERVE_L, g))
+        cases.append((B, calls["lstm_cell_f32"][0], calls["heads_f32"][0]))
+    saved, out, first = dl._LIB, {}, {}
+    names = [n for n, _ in K1F_CELL_AB]
+    try:
+        for order in (names, names[::-1]):
+            for name in order:
+                dl._LIB = libs[name]
+                for B, cells, heads in cases:
+                    got = _outputs(cells()) + _outputs(heads())
+                    if name not in K1F_CELL_AB_OTHER:
+                        ref = first.setdefault(B, got)
+                        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                            raise SmokeFailure(f"k1f_cell_ab: the {name} copy changes the bits "
+                                               f"at {B} rows")
+                    r = out.setdefault(f"{name}_B{B}", {"cells_us": [], "heads_us": []})
+                    r["cells_us"].append(time_ms(cells) * 1e3)
+                    r["heads_us"].append(time_ms(heads) * 1e3)
+    finally:
+        dl._LIB = saved
+    print("  f32 cell A/B (us, two rounds):")
+    for k, v in out.items():
+        print(f"    {k:<28} cells {' / '.join(f'{x:.1f}' for x in v['cells_us'])}  heads "
+              f"{' / '.join(f'{x:.2f}' for x in v['heads_us'])}")
+    log["k1f_cell_ab"] = out
+    return out
+
+
+def k1_f32_rows_mode(out_name: str) -> int:
+    """``--k1-f32-rows``: build K1 only, then on a 32-true copy of F32_CONFIG
+    (random weights, gate bias 10, seed SEED, as phase 4m) at K1F_ROWS rows
+    (L = 96 at one row, SERVE_L at more): the device times (graph replay) of
+    the K1F_TF32 entries on ``k1f_inputs`` (``lstm_cell_f32`` both cells) and
+    of the 64-step f32 chunk a step, beside their library calls
+    (``nn.LSTMCell`` x2, ``F.linear``, f32, TF32 off) and bounds, and a
+    digest of each one's outputs. Results to chiprun_out/<out_name>. Runs the
+    package found first on sys.path (the repo's, or a parent's with
+    ``--root``)."""
+    import torch
+
+    from tacotron2_tpu_torch import ops
+    from tacotron2_tpu_torch.config import load_config
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build
+    from tacotron2_tpu_torch.ops import decoder_loop as dl
+
+    use_f32_math()
+    t0 = time.perf_counter()
+    build.build_all(["decode_step"])
+    log: dict = {"card": card_line(), "package": str(Path(ops.__file__).parents[1]),
+                 "build_s": time.perf_counter() - t0, "rows": {}}
+    print(f"[k1-f32-rows] {log['package']} on {log['card']}")
+    model = random_tacotron(load_config(write_f32_config()), 10.0).cuda()
+    pk = model.make_packed_decoder()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 72)
+    try:
+        for B in K1F_ROWS:
+            i = k1f_inputs(pk, B, 96 if B == 1 else SERVE_L, g)
+            calls = k1f_calls(dl, pk, i)
+            entry = {}
+            for name in K1F_TF32:
+                kern, _, lib, nb, fl = calls[name]
+                if name == "lstm_cell_f32":
+                    lib = k1f_cells_library(model, pk, i)
+                b_ms, b_by = k1f_bound(name, nb, fl)
+                entry[name] = {"ms": time_ms(kern), "library_ms": time_ms(lib), "bound_ms": b_ms,
+                               "bound_by": b_by, "sha1": _sha1(_outputs(kern()))}
+            s = dl.StepState(i["mel"], i["att_h"], i["att_c"], i["ctx"], i["w"], i["cum"],
+                             i["rnn_h"], i["rnn_c"])
+            m1, m2 = dl.prenet_masks(dl.T_CHUNK, B, pk.wp2_t.shape[0], 0.5, g, pk.wq.device)
+            args = (pk, i["enc"], i["att_enc"], i["lengths"], s, m1, m2)
+            mg, al, sk = dl.decode_chunk(*args)
+            ms = time_ms(lambda: dl.decode_chunk(*args), 3, 1, 1)
+            entry["chunk_f32"] = {"ms": ms / dl.T_CHUNK, "sha1": _sha1([mg, al, *sk])}
+            log["rows"][f"B{B}"] = entry
+            print(f"  B{B}: " + "; ".join(
+                f"{k} {v['ms'] * 1e3:.2f} us" + (f" (library {v['library_ms'] * 1e3:.2f})"
+                                                 if "library_ms" in v else " a step")
+                for k, v in entry.items()))
+            torch.cuda.empty_cache()
+        if "--cell-ab" in sys.argv[1:]:
+            k1f_cell_ab(model, pk, log)
+    except SmokeFailure as e:
+        log["failure"] = str(e)
+        print(f"FAIL: {e}", file=sys.stderr)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / out_name).write_text(json.dumps(log, indent=1, default=str))
+    return 1 if "failure" in log else 0
+
+
+def k1_f32_ab() -> int:
+    """``--k1-f32-ab``: the parent's K1 f32 entries against this tree's in
+    turns (``ab_turns`` of ``--k1-f32-rows``, each tree bound through its
+    own ``decoder_loop.bind``; the second change turn adds ``k1f_cell_ab``);
+    the results go to chiprun_out/k1_f32_ab.json.
+    Fails unless each tree's outputs repeat their bits in both its turns
+    (the two designs sum in other orders, so whether the change's equal the
+    parent's is reported)."""
+    turns = ab_turns("--k1-f32-rows", "k1_f32_rows", lambda i: ["--cell-ab"] if i == 2 else [])
+    if turns is None:
+        return 2
+    print("[k1-f32-ab] K1's f32 entries in turns (parent, change, change, parent), device us "
+          "(library; bound):")
+    first = next((t for t in turns if t.get("rows")), {"rows": {}})
+    for b, e in first["rows"].items():
+        for name, v in e.items():
+            got = [t.get("rows", {}).get(b, {}).get(name, {}).get("ms") for t in turns]
+            print(f"  {name} {b}: " + " / ".join("-" if x is None else f"{x * 1e3:.2f}"
+                                                 for x in got)
+                  + (f" ({v['library_ms'] * 1e3:.2f}; {v['bound_ms'] * 1e3:.2f})"
+                     if "library_ms" in v else " a step"))
+    shas = [{f"{b}:{k}": v["sha1"] for b, e in t.get("rows", {}).items() for k, v in e.items()}
+            for t in turns]
+    same = bool(shas[0]) and shas[0] == shas[3] and shas[1] == shas[2] and bool(shas[1])
+    print(f"  each tree's outputs equal in both its turns, bit for bit: {same}; the change's "
+          f"equal the parent's: {shas[0] == shas[1]}")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "k1_f32_ab.json").write_text(json.dumps(
+        {"turns": turns, "bits_equal_within_tree": same, "bits_equal_to_parent":
+         shas[0] == shas[1]}, indent=1))
+    if not same:
+        print("FAIL: a tree's K1 f32 outputs did not repeat their bits", file=sys.stderr)
+        return 1
+    return max(t["rc"] for t in turns)
+
+
 def k2_shapes_rows_mode(out_name: str) -> int:
     """``--k2-shapes-rows``: build K2's three libraries, then on
     UNIVERSAL_V1, HIFIGAN_V2 and HIFIGAN_V3 generators (seed SEED + 130) in
@@ -11104,6 +11313,8 @@ def main() -> int:
         return k34_ab()
     if "--k2-f32-ab" in sys.argv[1:]:
         return k2_f32_ab()
+    if "--k1-f32-ab" in sys.argv[1:]:
+        return k1_f32_ab()
     if "--k2-shapes-ab" in sys.argv[1:]:
         return k2_shapes_ab()
     sys.path.insert(0, str(pkg_root))
@@ -11114,6 +11325,8 @@ def main() -> int:
         return k34_rows_mode(arg_value("--out", "k34_rows.json"))
     if "--k2-f32-rows" in sys.argv[1:]:
         return k2_f32_rows_mode(arg_value("--out", "k2_f32_rows.json"))
+    if "--k1-f32-rows" in sys.argv[1:]:
+        return k1_f32_rows_mode(arg_value("--out", "k1_f32_rows.json"))
     if "--k2-shapes-rows" in sys.argv[1:]:
         return k2_shapes_rows_mode(arg_value("--out", "k2_shapes_rows.json"))
     if "--eval" in sys.argv[1:]:

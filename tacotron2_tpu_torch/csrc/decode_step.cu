@@ -60,20 +60,24 @@
 // K1's f32 mode, the same TPU kernel with f32 weights (dt = w_s.dtype = f32,
 // :386: the JAX package's default policy and every "32-true" model):
 //
-//   t2_lstm_cell_f32       the LSTM cell over an f32 copy of the weights, FFMA
-//                          on the CUDA cores with f32 sums (gate_cell_f32_kernel)
+//   t2_lstm_cell_f32       the LSTM cell over an f32 copy of the weights: the
+//                          gate GEMM as a three-pass TF32 split on the tensor
+//                          cores with f32 sums over a thread-block cluster
+//                          (gate_cell_f32_kernel)
 //   t2_prenet_f32          the prenet over f32 weights; with act_bf16 its
 //                          activations rounded to bf16 (the int8 mode of an
 //                          F32 model, whose prenet and heads weights stay f32)
 //   t2_location_attention_f32  the attention over f32 weights and memory
-//   t2_heads_f32           the heads over f32 weights, FFMA; act_bf16 as the
-//                          prenet's
+//   t2_heads_f32           the heads over f32 weights, the same three-pass
+//                          split over the heads' split-K cluster; act_bf16 as
+//                          the prenet's
 //   t2_decode_chunk        mode 2: the n steps on these five launches a step;
 //                          mode 3 (int8 of an F32 model): K5's cells, the bf16
 //                          attention and the f32 prenet and heads, seven
 //
 // Bound: the f32 LSTM weights, 71.3 MB a step at the flagship dims, over HBM
-// bandwidth: 21.3 us at one row; the FFMA of 64 rows, 34 us.
+// bandwidth: 21.3 us at one row; at 64 rows the three passes' 6.8 G tensor
+// operations take 14 us at the TF32 peak, under the bytes.
 //
 // The controls mode of both (the controllable configs, _decode_chunk_kernel's
 // controls rows: xh[H + D : H + D + E] = controls :534, the heads' controls @
@@ -865,217 +869,655 @@ heads_kernel(const uint8_t* __restrict__ wt, const float* __restrict__ bias,
 // ---------------------------------------------------------------------------
 // K1's f32 mode (the JAX kernel with f32 weights: dt = w_s.dtype = f32,
 // decoder_loop_pallas.py:386, the mode of every model whose precision is
-// "32-true" or "32"): every product takes f32 operands with f32 sums, on the
-// CUDA cores (FFMA), nothing rounded. A simple kernel that is right; its
-// bound at the flagship dims is the f32 LSTM weights, 71.3 MB a step: 21.3
-// us over HBM at one row, and 34 us of FFMA at 64 rows (66.9 TFLOP/s).
+// "32-true" or "32"): every product takes f32 operands with f32 sums.
 //
-// The f32 LSTM cell (t2_lstm_cell_f32): block gi owns CF_U = 8 hidden units
-// x 4 gates (32 weight rows; grid H / 8 = 128 blocks at H = 1024, one wave)
-// and the whole contraction, so no cluster. Its weights come from a copy
-// tiled once per model (pack_decoder, tile_gates_f32: for block gi, chunk
-// c, column kk of the chunk, its 32 rows (row gate 8 + u is W's row gate H +
-// 8 gi + u) as 32 floats, chunks of CF_KC = 128 columns, 16 KB, laid end to
-// end, zero past R). A producer warp streams them with 1-D bulk copies into
-// a ring of CF_STAGES chunks under mbarriers, marked evict-first; 8 consumer
-// warps stage the pass's rows of the f32 input [x1 | x2 | xc | x3] chunk by
-// chunk (double-buffered, the next chunk's loads in flight while the
-// current one is multiplied). Warp s takes the columns [16 s, 16 s + 16) of
-// each chunk, lane (rg, bg) = (lane % 8, lane / 8) the rows 4 rg .. 4 rg + 3
-// and the batch rows bg + 4 j, j < 16: one fmaf chain per (row, batch row)
-// over the warp's columns in order, chunk after chunk. The 8 warps' partial
-// sums meet in shared memory and are added in warp order (p0 + p1) + ... +
-// p7, then the bias, then the LSTM update. A row's sums follow the dims
-// alone, never B (chip_smoke.py holds rows of a 64-row launch against the
-// rows alone, bit for bit); past 64 rows a second pass streams the weights
-// again. cf_op is where a copy of this source rounds the operands (the
-// smoke's planted defects); here it rounds nothing.
-constexpr int CF_U = 8;                           // hidden units per block
-constexpr int CF_ROWS = 4 * CF_U;                 // weight rows per block
-constexpr int CF_KS = 8;                          // consumer warps: the chunk's column slices
-constexpr int CF_KW = 16;                         // columns of a slice
-constexpr int CF_KC = CF_KS * CF_KW;              // columns of a chunk
-constexpr int CF_CHUNK = CF_KC * CF_ROWS * 4;     // a chunk's weight bytes
-constexpr int CF_STAGES = 6;                      // the weight ring's chunks (96 KB)
-constexpr int CF_THREADS = 32 * (CF_KS + 1);      // warp CF_KS streams the weights
-constexpr int CF_NTILE = 64;                      // batch rows per pass
-constexpr int CF_BJ = CF_NTILE / 4;               // batch rows a lane takes
-constexpr int CF_XS = CF_KC + 4;                  // floats of a staged input row
-constexpr int CF_XLD = CF_NTILE * CF_KC / 4 / (32 * CF_KS);  // float4s a consumer stages
-constexpr int CF_RING = 128;                      // byte offset of the ring
-constexpr int CF_SMEM = CF_RING + CF_STAGES * CF_CHUNK + 2 * CF_NTILE * CF_XS * 4;
-static_assert(CF_KS * CF_ROWS * CF_NTILE <= 2 * CF_NTILE * CF_XS,
-              "the partial sums fit where the input was staged");
+// The products f32 keeps run on the tensor cores as a three-pass TF32 split
+// (the route of csrc/mrf_f32.cu): each f32 value x is split into hi =
+// cvt.rna.tf32.f32(x) and lo = the same of x - hi (tf32_split), and each
+// product is w_hi a_lo + w_lo a_hi + w_hi a_hi, issued in that order (the
+// small terms first), with f32 sums; the lo lo term (~2^-22 of the product)
+// is left out. The tensor cores' f32 accumulation truncates and its bias
+// grows with the number of accumulations, so each 64-column group's products
+// go into their own accumulators and are added, rounded to nearest, into the
+// running sums. CF_PASSES / HF_PASSES name the passes (1 w_hi a_lo, 2 w_lo
+// a_hi, 4 w_hi a_hi), and cf_op is where the cell takes its operands: the
+// smoke's planted defects are copies of this source with passes left out or
+// the operands rounded there.
+//
+// The f32 LSTM cell (t2_lstm_cell_f32). Bound: its weights, 71.3 MB a step
+// at the flagship dims (twice the bf16 cell's), 21.3 us over HBM for any B
+// up to 64; the three passes of 64 rows are 6.8 G tensor operations, 14 us
+// at wgmma's TF32 peak. The design is the bf16 cell's (gate_cell_kernel
+// above), in f32:
+// - a cluster of CF_S = 2 blocks owns CF_U = 16 hidden units x 4 gates (64
+//   weight rows, one m16 tile a gate; grid (2, H / 16), 128 blocks at H =
+//   1024) and splits the contraction in 64-column chunks (rank r the chunks
+//   [r nk / 2, (r + 1) nk / 2), nk = ceil(R / 64): 14 / 20 each of R1 =
+//   1792 and R2 = 2560), so each weight byte is read once per step for up to
+//   64 rows (past 64 a block streams its weights again per 64-row pass);
+// - weight rows on M, the batch on N; two consumer warpgroups, warpgroup kh
+//   the half kh of each chunk's k8 steps over every n8 tile of the pass (the
+//   halves' sums added, half 0 + half 1, once a pass), warp w of it the m16
+//   tile w % 4 (gate w % 4) as the product's A registers, so that all eight
+//   warps work at one row. An instance of the kernel a row count (NT = 1, 2
+//   or 8 n8 tiles): at 1 to 16 rows mma.sync m16n8k8 tf32, one n8 tile a row
+//   group, the input's fragments split in registers as they load; past 16
+//   rows wgmma m64n64k8 tf32 a pass and step, each warpgroup splitting its
+//   half of the chunk's input into hi and lo planes in shared memory (wgmma
+//   takes B only from there; a 16-byte store a core matrix's row), one
+//   barrier of its 128 threads, then the wgmma. The two give the same sums,
+//   bit for bit (the tensor cores' k8 step is the same), so a row's output
+//   does not follow the instance. mma.sync at every row count read the
+//   cells at 30.5 / 47.5 / 107.4 us at 1 / 16 / 64 rows, wgmma at every row
+//   count 49.2 / 54.8 / 80.3 (chip_smoke.py's K1F_CELL_AB, mma_only and
+//   wgmma_only, NVIDIA H100 80GB HBM3, 700.00 W): the planes' split and
+//   barriers cost more than wgmma saves at a few rows;
+// - the weights come from a copy tiled once per model (pack_decoder,
+//   tile_gates_f32) in the fragments' order: for cluster gi, chunk c, m16
+//   tile mt, k8 step s, lane l, its four A registers side by side (one
+//   16-byte load a lane a step, conflict-free; wgmma's A registers take
+//   mma.sync's m16n8k8 layout per warp); within a k16 pair of steps lane (g,
+//   t) takes columns 4t .. 4t + 3, step 2q + h the columns 16q + 4t + 2h (k =
+//   t) and 16q + 4t + 2h + 1 (k = t + 4), so that the input's fragment of a
+//   pair is one 16-byte load too (the k order inside a step is the
+//   hardware's; it follows the dims alone);
+// - a producer warp streams the weights with 1-D bulk copies (16 KB a
+//   chunk, evict-first) into a ring under mbarriers, its first CF_PREFETCH
+//   chunks before griddepcontrol.wait (the weights depend on nothing the
+//   step computes); and the input, beside each weight chunk in its ring
+//   stage: the pass's rows of [x1 | x2 | xc | x3] over the chunk's 64
+//   columns. A stage's mbarrier counts two arrivals, the weights' and the
+//   input's, so nothing but its phase separates the consumers from the
+//   producer: no consumer staging of the input from device memory. The copy
+//   holds f32 values, not hi / lo planes: both planes would double the 71.3
+//   MB that bound a step at one row;
+// - the 64-row input: the f32 input is 10 KB a row for the decoder cell; a
+//   rank's half of its columns is 327 KB at 64 rows, past a block's 227 KB,
+//   so it cannot stay resident as the bf16 cell's operand does. Taken: the
+//   input streamed in the ring beside each weight chunk (its L2 reads at 64
+//   rows, 71 MB a step over the two cells, as many bytes as the weights),
+//   by a bulk copy a row and segment up to CF_ROW_COPIES = 16 rows and above
+//   by TMA boxes of 16 columns x the pass's rows, a map a segment made on the
+//   host at each launch (cell_boxes). Both cells at 1 / 16 / 64 rows
+//   (K1F_CELL_AB's input_rows and input_boxes, the same card): row copies
+//   30.6 / 46.6 / 109.5 us, boxes 66.5 / 68.5 / 79.9 (a box's cost hardly
+//   follows its rows). Not built: passes of 32 rows with the
+//   input resident (the weights read twice at 64 rows, +21 us of HBM), and
+//   an input chunk multicast over a cluster of ranks that share its columns
+//   (clusters of 4 run 30 at once, a second wave; see the bf16 cell's notes);
+// - each rank pushes its partial gate sums to the rank that owns the unit
+//   (distributed shared memory), one cluster barrier, and the owner adds
+//   them in rank order (p0 + p1) + bias and applies the LSTM update of its 8
+//   units; gates never reach device memory. A row's sums follow the dims
+//   alone, never B: the chunk split, the k order and halves, the passes, the
+//   per-chunk accumulators (k8 steps of even and odd h apart, then (even +
+//   odd) into the running sums) and the rank order follow (H, R), and a
+//   product's output element depends only on its own row and column
+//   (chip_smoke.py holds rows of a 64-row launch and the last of an 80-row
+//   one against the rows alone, bit for bit).
+// Readings (both cells, in turns against the FFMA design it replaced, NVIDIA
+// H100 80GB HBM3, 700.00 W, chip_smoke.py --k1-f32-ab): 30.8 / 48.0 / 80.2
+// us at 1 / 16 / 64 rows (was 78.0 / 94.1 / 155.9; nn.LSTMCell x2 f32 41.7 /
+// 83.6 / 99.0). At one row the ring's bytes bound it (no product: 27.2, the
+// bytes 21.3); at 16 rows the input's row copies and the product (no product
+// 36.1, one pass 45.8); at 64 rows the split into planes and the input's
+// boxes (no product 71.0, one pass 76.1).
+constexpr int CF_U = 16;                            // hidden units per cluster
+constexpr int CF_ROWS = 4 * CF_U;                   // weight rows per block: an m16 tile a gate
+constexpr int CF_S = 2;                             // blocks per cluster: the contraction split
+constexpr int CF_KC = 64;                           // columns of a chunk: 8 k8 steps
+constexpr int CF_CHUNK = CF_ROWS * CF_KC * 4;       // a chunk's weight bytes
+constexpr int CF_CONSUMERS = 8;                     // warps 0..7 multiply; warp 8 streams
+constexpr int CF_THREADS = 32 * (CF_CONSUMERS + 1);
+constexpr int CF_NTILE = 64;                        // batch rows per pass
+constexpr int CF_NT = CF_NTILE / 8;                 // its n8 tiles
+constexpr int CF_MT = CF_ROWS / 16;                 // m16 tiles of a block's rows
+constexpr int CF_XS = CF_KC + 16;                   // floats of an input row copied by rows
+constexpr int CF_ROW_COPIES = 16;                   // most rows whose input is copied by rows
+constexpr int CF_UPR = CF_U / CF_S;                 // units whose LSTM update a rank applies
+constexpr int CF_PREFETCH = 4;                      // weight chunks streamed before the wait
+constexpr int CF_MAX_STAGES = 12;                   // the ring's most stages
+constexpr int CF_PASSES = 7;                        // 1 w_hi a_lo, 2 w_lo a_hi, 4 w_hi a_hi
+static_assert(CF_U == 16 && CF_S == 2 && CF_UPR == 8,
+              "an m16 tile's rows g and g + 8 are units g and g + 8: ranks 0 and 1");
+static_assert(CF_CONSUMERS == 2 * CF_MT && CF_KC % 32 == 0 && CF_XS % 32 == 16,
+              "the f32 cell's tiling: two k halves an m16 tile");
 
 __device__ __forceinline__ float cf_op(float x) { return x; }
-__device__ __forceinline__ float4 cf_op4(float4 v) {
-  return make_float4(cf_op(v.x), cf_op(v.y), cf_op(v.z), cf_op(v.w));
+
+// x rounded to TF32, to nearest, ties away from zero, the low 13 bits zero:
+// cvt.rna.tf32.f32 of a finite x as one add and a mask, the same bits (the
+// instruction itself read the cells 1.08x slower at one row and 1.02x at 16,
+// 0.96x at 64: K1F_CELL_AB's split_cvt)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
-// grid H / CF_U, CF_THREADS threads, CF_SMEM bytes. wt: the tiled copy (see
-// above); x: the f32 input's four segments (n_i % 4 == 0, each (B, n_i));
-// bias (4H,); c_in, h_out, c_out (B, H) f32.
+// x -> hi = tf32_rna(x) and lo = tf32_rna(x - hi), as mma operands
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the passes of one k8 step into c: A the weights' fragment (4 f32 values),
+// B the input's (2), each split as it is taken; PASSES picks them
+template <int PASSES>
+__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t wh[4], const uint32_t wl[4],
+                                           float b0, float b1) {
+  uint32_t bh[2], bl[2];
+  tf32_split(b0, bh[0], bl[0]);
+  tf32_split(b1, bh[1], bl[1]);
+  if constexpr ((PASSES & 1) != 0) mma_tf32(c, wh, bl);
+  if constexpr ((PASSES & 2) != 0) mma_tf32(c, wl, bh);
+  if constexpr ((PASSES & 4) != 0) mma_tf32(c, wh, bh);
+}
+
+// A shared-memory matrix descriptor without swizzle, K-major: 8-row x
+// 16-byte core matrices, lbo bytes apart along K, sbo bytes apart along N
+// (csrc/mrf_f32.cu's smem_desc)
+__device__ __forceinline__ uint64_t cf_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// d (64 x N f32, N / 2 a thread, the mma.sync m16n8 layout per warp and n8
+// tile) += A (64 x 8 tf32 in registers, the mma.sync m16n8k8 A layout per
+// warp) . B (8 x N, descriptor db)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t a[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<8>(float* d, const uint32_t a[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t a[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t a[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void cf_wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cf_wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cf_wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// byte offsets of the f32 cell's shared arrays: the ring's barriers; the
+// partial sums pushed to this rank by every rank ([rank][gate][unit of this
+// rank][row], pld floats a unit); the k halves' exchange (CF_MT m16 tiles x
+// the pass's n8 tiles x 32 lanes x 4 floats); the update's operands (c_in
+// [row][unit], bias [gate][unit]); then the ring: a stage is a weight chunk
+// and the pass's rows of the input over its columns, as many stages as fit,
+// up to CF_MAX_STAGES (the depth follows the rows and changes no sum). The
+// input's layout follows its copies (cell_boxes): rows of CF_XS floats, a
+// row's 64 columns and a pad (conflict-free fragment loads), or four TMA
+// boxes of nrows x 16 floats ([16-column group][row][16]: 64-byte rows,
+// conflict-free too)
+struct CellF32Smem {
+  int stage, pld, part, xchg, planes, epi, ring, stages, total;
+};
+
+// the n8 tiles of the kernel's instance for a pass of nrows rows: its
+// wgmma's N / 8
+__host__ __device__ inline int cf_nt(int nrows) { return nrows <= 8 ? 1 : nrows <= 16 ? 2 : CF_NT; }
+
+// bytes of a consumer warpgroup's split input in the wgmma instance (NT =
+// CF_NT; none in the others): its four k8 steps of a chunk, hi and lo planes,
+// as wgmma's B (K-major core matrices of 8 rows x 4 columns: [plane][step][k4
+// group][row / 8][row % 8][4]) over the instance's 8 NT rows
+__host__ __device__ inline int cf_plane_bytes(int nt) {
+  return nt == CF_NT ? 2 * 4 * 8 * nt * 8 * 4 : 0;
+}
+
+// the input by TMA boxes of 16 columns (a pass of more than CF_ROW_COPIES
+// rows), else by a bulk copy a row and segment
+__host__ __device__ inline bool cell_boxes(int nrows) { return nrows > CF_ROW_COPIES; }
+
+__host__ __device__ inline CellF32Smem cell_f32_smem(int nrows) {
+  CellF32Smem o;
+  o.stage = CF_CHUNK + nrows * (cell_boxes(nrows) ? CF_KC : CF_XS) * 4;
+  o.pld = nrows + 4;
+  o.part = 2 * CF_MAX_STAGES * 8;
+  o.xchg = o.part + CF_S * 4 * CF_UPR * o.pld * 4;
+  o.planes = (o.xchg + CF_MT * (nrows / 8) * 32 * 16 + 127) & ~127;
+  o.epi = o.planes + 2 * cf_plane_bytes(cf_nt(nrows));
+  o.ring = (o.epi + (nrows + 4) * CF_UPR * 4 + 127) & ~127;
+  o.stages = (GC_SMEM_MAX - o.ring) / o.stage;
+  if (o.stages > CF_MAX_STAGES) o.stages = CF_MAX_STAGES;
+  o.total = o.ring + o.stages * o.stage;
+  return o;
+}
+
+// the f32 cell's input [x1 | x2 | xc | x3]: segment i, n[i] columns (a
+// multiple of 16; 0 for no controls) of the (B, n[i]) f32 array x[i] and, for
+// TMA boxes (cell_boxes), its 2-D tensor map, boxes of 16 columns x the
+// pass's rows padded to 8 (zero past B)
+struct CellMaps {
+  CUtensorMap m[kSeg];
+  const float* x[kSeg];
+  int n[kSeg];
+};
+
+// grid (CF_S, H / CF_U), cluster (CF_S, 1, 1), CF_THREADS threads,
+// cell_f32_smem(rows of a pass padded to 8).total bytes; NT: the pass's n8
+// tiles at most (1, 2 or CF_NT, cf_nt: an instance a row count, so that a few
+// rows hold no registers for eight tiles; the sums do not depend on it). wt:
+// the tiled copy (see above); xm: the input; bias (4H,); c_in, h_out, c_out
+// (B, H) f32.
+template <int NT>
 __global__ void __launch_bounds__(CF_THREADS, 1)
-gate_cell_f32_kernel(const float* __restrict__ wt, const QuantInput xin,
+gate_cell_f32_kernel(const float* __restrict__ wt, const __grid_constant__ CellMaps xm,
                      const float* __restrict__ bias, const float* __restrict__ c_in,
                      float* __restrict__ h_out, float* __restrict__ c_out, int B, int H) {
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(128) uint8_t cf_raw[];
-  const float* const x[kSeg] = {xin.x[0], xin.x[1], xin.x[2], xin.x[3]};
-  const int n[kSeg] = {xin.n[0], xin.n[1], xin.n[2], xin.n[3]};
-  const int R = n[0] + n[1] + n[2] + n[3], nk = (R + CF_KC - 1) / CF_KC, gi = blockIdx.x;
+  const int R = xm.n[0] + xm.n[1] + xm.n[2] + xm.n[3], nk = (R + CF_KC - 1) / CF_KC;
+  const int rank = (int)cluster.block_rank(), gi = blockIdx.y;
+  const int c0 = rank * nk / CF_S, nc = (rank + 1) * nk / CF_S - c0;
+  const int nrows = (min(B, CF_NTILE) + 7) & ~7;
+  const bool boxes = cell_boxes(nrows);
+  const CellF32Smem o = cell_f32_smem(nrows);
+  const int NS = o.stages;
   uint64_t* full = reinterpret_cast<uint64_t*>(cf_raw);
-  uint64_t* empty = full + CF_STAGES;
-  uint8_t* ring = cf_raw + CF_RING;
-  float* xs = reinterpret_cast<float*>(ring + CF_STAGES * CF_CHUNK);  // [2][CF_NTILE][CF_XS]
-  float* part = xs;  // after a pass's product: [warp][row][batch row]
+  uint64_t* empty = full + CF_MAX_STAGES;
+  float* part = reinterpret_cast<float*>(cf_raw + o.part);
+  float4* xchg = reinterpret_cast<float4*>(cf_raw + o.xchg);  // [m tile][n8 tile][lane]
+  float* cpre = reinterpret_cast<float*>(cf_raw + o.epi);     // [row][unit]
+  float* bpre = cpre + nrows * CF_UPR;                        // [gate][unit]
+  uint8_t* ring = cf_raw + o.ring;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ntiles = (B + CF_NTILE - 1) / CF_NTILE, total = ntiles * nk;
+  const int ntiles = (B + CF_NTILE - 1) / CF_NTILE;
   if (tid == 0) {
-    for (int s = 0; s < CF_STAGES; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, CF_KS);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 2);  // the weight chunk's arrival and the input's
+      mbar_init(empty + s, CF_CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  // this block has started: the ranks may push into its partial sums once
+  // all have
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  if (warp == CF_KS) {
-    // producer: chunk it (chunk it % nk of pass it / nk) into stage it %
-    // CF_STAGES once its last use is done; the first stages before the
-    // wait for the previous kernel (the weights depend on nothing it writes)
-    if (lane == 0) {
-      const uint8_t* wb = reinterpret_cast<const uint8_t*>(wt) + (size_t)gi * nk * CF_CHUNK;
-      const uint64_t policy = evict_first_policy();
-      for (int it = 0; it < total; ++it) {
-        const int s = it % CF_STAGES;
-        if (it == CF_STAGES) pdl_wait();
-        if (it >= CF_STAGES) mbar_wait(empty + s, ((it / CF_STAGES) & 1) ^ 1);
-        mbar_expect_tx(full + s, CF_CHUNK);
-        bulk_load(ring + s * CF_CHUNK, wb + (size_t)(it % nk) * CF_CHUNK, CF_CHUNK, full + s,
-                  policy);
-      }
-      if (total <= CF_STAGES) pdl_wait();
-    }
-    return;
-  }
-
-  // consumers
-  pdl_wait();
-  const int rg = lane & 7, bg = lane >> 3;
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int b0 = tile * CF_NTILE, bt = min(CF_NTILE, B - b0);
-    const int nj = bt > bg ? (bt - bg + 3) / 4 : 0;  // this lane's batch rows bg + 4 j
-    float4 xr[CF_XLD];
-    // the pass's rows of chunk c of the input into registers: item i of
-    // tid + 256 i, row i / 32, float4 i % 32 of the chunk; 0 past R
-    auto load_x = [&](int c) {
-#pragma unroll
-      for (int i = 0; i < CF_XLD; ++i) {
-        const int item = tid + i * 32 * CF_KS, b = item / (CF_KC / 4);
-        const int col = c * CF_KC + (item % (CF_KC / 4)) * 4;
-        xr[i] = b < bt && col < R ? cf_op4(input4(x, n, b0 + b, col))
-                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      }
+  if (warp == CF_CONSUMERS) {
+    // producer: chunk it of the run (chunk it % nc of pass it / nc) into
+    // stage it % NS once its last use is done, the weights by lane 0 (the
+    // first `early` before the wait for the previous kernel), then the
+    // pass's rows of the input over the chunk's columns [k0, k1): a TMA box
+    // of each 16-column group (lane 0), or a bulk copy of each row's piece
+    // of each segment (all lanes). The warp joins the passes' cluster syncs,
+    // so it issues a pass's copies only within that pass.
+    const uint8_t* wb = reinterpret_cast<const uint8_t*>(wt) + ((size_t)gi * nk + c0) * CF_CHUNK;
+    const uint64_t policy = evict_first_policy();
+    auto issue = [&](int it) {
+      const int s = it % NS;
+      mbar_expect_tx(full + s, CF_CHUNK);
+      bulk_load(ring + s * o.stage, wb + (size_t)(it % nc) * CF_CHUNK, CF_CHUNK, full + s, policy);
     };
-    float acc[4][CF_BJ];
+    const int early = min(min(CF_PREFETCH, NS), nc);
+    if (lane == 0)
+      for (int it = 0; it < early; ++it) issue(it);
+    pdl_wait();
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int b0 = tile * CF_NTILE, bt = min(CF_NTILE, B - b0);
+      for (int kc = 0; kc < nc; ++kc) {
+        const int it = tile * nc + kc, s = it % NS;
+        const int k0 = (c0 + kc) * CF_KC, k1 = min(R, k0 + CF_KC);
+        uint8_t* xs = ring + s * o.stage + CF_CHUNK;
+        if (lane == 0) {
+          if (it >= early) {
+            if (it >= NS) mbar_wait(empty + s, ((it / NS) & 1) ^ 1);
+            issue(it);
+          }
+          mbar_expect_tx(full + s, (uint32_t)((boxes ? nrows : bt) * (k1 - k0) * 4));
+          int seg = 0;
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < CF_BJ; ++j) acc[r][j] = 0.0f;
-    load_x(0);
-    for (int c = 0; c < nk; ++c) {
-      float* xb = xs + (c & 1) * CF_NTILE * CF_XS;
-#pragma unroll
-      for (int i = 0; i < CF_XLD; ++i) {
-        const int item = tid + i * 32 * CF_KS, b = item / (CF_KC / 4);
-        *reinterpret_cast<float4*>(xb + b * CF_XS + (item % (CF_KC / 4)) * 4) = xr[i];
-      }
-      bar_consumers();
-      if (c + 1 < nk) load_x(c + 1);
-      const int it = tile * nk + c, s = it % CF_STAGES;
-      mbar_wait(full + s, (it / CF_STAGES) & 1);
-      const float* wc = reinterpret_cast<const float*>(ring + s * CF_CHUNK);  // [k][row]
-#pragma unroll
-      for (int k4 = 0; k4 < CF_KW; k4 += 4) {
-        const int k = warp * CF_KW + k4;
-        float4 w[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-          w[t] = cf_op4(*reinterpret_cast<const float4*>(wc + (k + t) * CF_ROWS + rg * 4));
-#pragma unroll
-        for (int j = 0; j < CF_BJ; ++j) {
-          if (j < nj) {
-            const float4 xv = *reinterpret_cast<const float4*>(xb + (bg + 4 * j) * CF_XS + k);
-            const float xk[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-            for (int t = 0; t < 4; ++t) {
-              acc[0][j] = fmaf(w[t].x, xk[t], acc[0][j]);
-              acc[1][j] = fmaf(w[t].y, xk[t], acc[1][j]);
-              acc[2][j] = fmaf(w[t].z, xk[t], acc[2][j]);
-              acc[3][j] = fmaf(w[t].w, xk[t], acc[3][j]);
+          for (int i = 0; i < kSeg; ++i) {
+            for (int q = 0; boxes && q < (k1 - k0) / 16; ++q) {
+              const int col = k0 + 16 * q;
+              if (col >= seg && col < seg + xm.n[i])
+                tma_load_2d(xs + q * nrows * 64, &xm.m[i], col - seg, b0, full + s);
             }
+            seg += xm.n[i];
+          }
+        }
+        __syncwarp();
+        for (int b = lane; !boxes && b < bt; b += 32) {
+          int seg = 0;
+#pragma unroll
+          for (int i = 0; i < kSeg; ++i) {
+            const int a = max(k0, seg), e = min(k1, seg + xm.n[i]);
+            if (a < e)
+              bulk_load(xs + (size_t)b * CF_XS * 4 + (a - k0) * 4,
+                        xm.x[i] + (size_t)(b0 + b) * xm.n[i] + (a - seg),
+                        (uint32_t)((e - a) * 4), full + s);
+            seg += xm.n[i];
           }
         }
       }
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty + s);  // the stage is read: free it
+      cluster.sync();  // the pass's partial sums are pushed
+      if (tile + 1 < ntiles) cluster.sync();  // and summed
     }
-    bar_consumers();  // every warp has read the staged input: part may take its place
+    return;
+  }
+
+  // consumers: warpgroup kh (warps 4 kh .. 4 kh + 3) the half kh of each
+  // chunk's k8 steps (4 kh .. 4 kh + 3) over the block's 64 rows and every
+  // n8 tile of the pass; warp w the rows of m16 tile mt = w % 4 (gate mt), as
+  // the A registers of mma.sync m16n8k8 (NT < CF_NT) or of one wgmma
+  // m64nNk8 a pass and step (NT = CF_NT, N = 64)
+  pdl_wait();
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp % CF_MT, kh = warp / CF_MT, ntp = nrows / 8, wg_tid = tid & 127;
+  constexpr int NR = 8 * NT;  // the rows of wgmma's B
+  float* planes = reinterpret_cast<float*>(cf_raw + o.planes) + kh * cf_plane_bytes(NT) / 4;
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int b0 = tile * CF_NTILE, bt = min(CF_NTILE, B - b0), ntl = (bt + 7) >> 3;
+    // the update's operands, in flight while the product runs
+    for (int i = tid; i < bt * CF_UPR; i += CF_CONSUMERS * 32) {
+      const int b = i / CF_UPR, ul = i - b * CF_UPR;
+      cpre[i] = c_in[(size_t)(b0 + b) * H + gi * CF_U + rank * CF_UPR + ul];
+    }
+    for (int i = tid; i < 4 * CF_UPR; i += CF_CONSUMERS * 32)
+      bpre[i] = bias[(i / CF_UPR) * H + gi * CF_U + rank * CF_UPR + i % CF_UPR];
+
+    // the product over this rank's chunks, k in chunk order; each chunk's
+    // sums of this warpgroup's steps in two accumulators (steps 4 kh + 2 q'
+    // + h, h = 0, 1), then (even + odd) into the running sums
+    float acc[NT][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < CF_BJ; ++j)
-        if (j < nj) part[(warp * CF_ROWS + rg * 4 + r) * CF_NTILE + bg + 4 * j] = acc[r][j];
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    if constexpr (NT == CF_NT) {  // a pass of more than 16 rows: wgmma
+      for (int kc = 0; kc < nc; ++kc) {
+        const int it = tile * nc + kc, s = it % NS;
+        // the chunk's columns below R (a multiple of 16: past them nothing
+        // was copied, and the weights are zero)
+        const int valid = min(CF_KC, R - (c0 + kc) * CF_KC);
+        mbar_wait(full + s, (it / NS) & 1);
+        const uint8_t* wc = ring + s * o.stage;
+        const float* xc = reinterpret_cast<const float*>(wc + CF_CHUNK);
+        // the warpgroup's wgmma of the chunk before are done with the planes
+        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + kh) : "memory");
+        // the input's columns of this half, split into the hi and lo planes:
+        // thread (row, k16 group q) takes columns 16 q .. 16 q + 15 of a row;
+        // column 4 t + c goes to step 2 q' + c / 2 (the weight copy's k order:
+        // 4 t + 2 h at k = t, 4 t + 2 h + 1 at k = t + 4), k4 group c % 2,
+        // element t: four columns of a core matrix's row, one 16-byte store
+        for (int i = wg_tid; i < 2 * NR; i += 128) {
+          const int row = i % NR, qq = i / NR, q = 2 * kh + qq;
+          float4 v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            v[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (row < ntl * 8 && 16 * q < valid)
+              v[j] = *reinterpret_cast<const float4*>(
+                  xc + (boxes ? (q * nrows + row) * 16 : row * CF_XS + 16 * q) + 4 * j);
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            uint32_t hi[4], lo[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float x = c == 0 ? v[j].x : c == 1 ? v[j].y : c == 2 ? v[j].z : v[j].w;
+              tf32_split(cf_op(x), hi[j], lo[j]);
+            }
+            float* dst = planes + ((2 * qq + c / 2) * 2 + c % 2) * NR * 4 + row * 4;
+            *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+            *reinterpret_cast<uint4*>(dst + 4 * NR * 8) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+          }
+        }
+        // this warp's A fragments of the half's four steps, split
+        uint32_t wh[4][4], wl[4][4];
+#pragma unroll
+        for (int sl = 0; sl < 4; ++sl) {
+          const float4 w = *reinterpret_cast<const float4*>(
+              wc + ((mt * 8 + 4 * kh + sl) * 32 + lane) * 16);
+          tf32_split(cf_op(w.x), wh[sl][0], wl[sl][0]);
+          tf32_split(cf_op(w.y), wh[sl][1], wl[sl][1]);
+          tf32_split(cf_op(w.z), wh[sl][2], wl[sl][2]);
+          tf32_split(cf_op(w.w), wh[sl][3], wl[sl][3]);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + kh) : "memory");  // the planes are whole
+        if (lane == 0) mbar_arrive(empty + s);  // the stage is read: free it
+        float pc[2][NT * 4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < NT * 4; ++e) pc[h][e] = 0.0f;
+        cf_wgmma_fence();
+#pragma unroll
+        for (int sl = 0; sl < 4; ++sl) {
+          const float* hp = planes + sl * NR * 8;
+          const uint64_t dh = cf_desc(hp, NR * 16, 128);
+          const uint64_t dl = cf_desc(hp + 4 * NR * 8, NR * 16, 128);
+          if constexpr ((CF_PASSES & 1) != 0) wgmma_rs<NR>(pc[sl & 1], wh[sl], dl);
+          if constexpr ((CF_PASSES & 2) != 0) wgmma_rs<NR>(pc[sl & 1], wl[sl], dh);
+          if constexpr ((CF_PASSES & 4) != 0) wgmma_rs<NR>(pc[sl & 1], wh[sl], dh);
+        }
+        cf_wgmma_commit();
+        cf_wgmma_wait_all();
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += pc[0][4 * n + e] + pc[1][4 * n + e];
+      }
+    } else {  // mma.sync m16n8k8: the same sums, bit for bit
+      for (int kc = 0; kc < nc; ++kc) {
+        const int it = tile * nc + kc, s = it % NS;
+        // the chunk's columns below R (a multiple of 16: past them nothing
+        // was copied, and the weights are zero)
+        const int valid = min(CF_KC, R - (c0 + kc) * CF_KC);
+        mbar_wait(full + s, (it / NS) & 1);
+        const uint8_t* wc = ring + s * o.stage;
+        const float* xc = reinterpret_cast<const float*>(wc + CF_CHUNK);
+        float pc[2][NT][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pc[h][n][e] = 0.0f;
+#pragma unroll
+        for (int qq = 0; qq < CF_KC / 32; ++qq) {
+          const int q = kh * (CF_KC / 32) + qq;  // the k16 group: steps 2q, 2q + 1
+          float4 xv[NT];
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            xv[n] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (n < ntl && 16 * q < valid)
+              xv[n] = *reinterpret_cast<const float4*>(
+                  xc + (boxes ? (q * nrows + n * 8 + g) * 16 : (n * 8 + g) * CF_XS + 16 * q) +
+                  4 * t);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4 w =
+                *reinterpret_cast<const float4*>(wc + ((mt * 8 + 2 * q + h) * 32 + lane) * 16);
+            uint32_t wh[4], wl[4];
+            tf32_split(cf_op(w.x), wh[0], wl[0]);
+            tf32_split(cf_op(w.y), wh[1], wl[1]);
+            tf32_split(cf_op(w.z), wh[2], wl[2]);
+            tf32_split(cf_op(w.w), wh[3], wl[3]);
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+              if (n < ntl)
+                mma_3xtf32<CF_PASSES>(pc[h][n], wh, wl, cf_op(h ? xv[n].z : xv[n].x),
+                                      cf_op(h ? xv[n].w : xv[n].y));
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);  // the stage is read: free it
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += pc[0][n][e] + pc[1][n][e];
+      }
+    }
+    pdl_trigger();  // the weights are read: the next launch may start streaming
+    // the k halves: half 1's sums to half 0, which adds them (half 0 + half 1)
+    if (kh == 1)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        if (n < ntl)
+          xchg[(mt * ntp + n) * 32 + lane] = make_float4(acc[n][0], acc[n][1], acc[n][2],
+                                                         acc[n][3]);
     bar_consumers();
-    // the LSTM update of the block's units: the warps' partial sums in warp
-    // order, then the bias
-    for (int i = tid; i < CF_U * bt; i += 32 * CF_KS) {
-      const int b = i / CF_U, u = i - b * CF_U, j = gi * CF_U + u;
+    if (tile == 0) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    // push each sum to the rank that applies its unit's update: rows g and
+    // g + 8 of m tile mt are units g and g + 8 of gate mt, ranks 0 and 1,
+    // slot [this rank][gate][g]
+    if (kh == 0) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (n < ntl) {
+          const float4 v = xchg[(mt * ntp + n) * 32 + lane];
+          acc[n][0] += v.x;
+          acc[n][1] += v.y;
+          acc[n][2] += v.z;
+          acc[n][3] += v.w;
+        }
+      }
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8) {
+        float* dst = cluster.map_shared_rank(part, h8) + ((rank * 4 + mt) * CF_UPR + g) * o.pld;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          if (n < ntl) {
+            dst[n * 8 + 2 * t] = acc[n][2 * h8];
+            dst[n * 8 + 2 * t + 1] = acc[n][2 * h8 + 1];
+          }
+        }
+      }
+    }
+    cluster.sync();
+
+    // the LSTM update of this rank's CF_UPR units: the ranks' partial sums
+    // in rank order, + bias
+    for (int i = tid; i < CF_UPR * bt; i += CF_CONSUMERS * 32) {
+      const int b = i / CF_UPR, ul = i - b * CF_UPR, j = gi * CF_U + rank * CF_UPR + ul;
       float gv[4];
 #pragma unroll
       for (int gate = 0; gate < 4; ++gate) {
-        float v = part[(gate * CF_U + u) * CF_NTILE + b];
+        float v = part[(gate * CF_UPR + ul) * o.pld + b];
 #pragma unroll
-        for (int p = 1; p < CF_KS; ++p) v += part[((p * CF_ROWS) + gate * CF_U + u) * CF_NTILE + b];
-        gv[gate] = v + bias[gate * H + j];
+        for (int p = 1; p < CF_S; ++p) v += part[((p * 4 + gate) * CF_UPR + ul) * o.pld + b];
+        gv[gate] = v + bpre[gate * CF_UPR + ul];
       }
       const size_t oo = (size_t)(b0 + b) * H + j;
-      const float cc = sigmoid_f(gv[1]) * c_in[oo] + sigmoid_f(gv[0]) * tanhf(gv[2]);
+      const float cc = sigmoid_f(gv[1]) * cpre[i] + sigmoid_f(gv[0]) * tanhf(gv[2]);
       c_out[oo] = cc;
       h_out[oo] = sigmoid_f(gv[3]) * tanhf(cc);
     }
-    bar_consumers();  // part is read before the next pass stages its input there
+    if (tile + 1 < ntiles) cluster.sync();  // no rank pushes the next pass's sums early
   }
 }
 
-// The f32 heads (t2_heads_f32): heads_kernel's split of the contraction
-// over a cluster of HD_S blocks (rank r the 16-column pieces [r nk / HD_S,
-// (r + 1) nk / HD_S)), each rank bulk-copying its slice of an f32 copy
-// tiled once per model (pack_decoder, tile_heads_f32: [piece][column of the
-// piece][row of NP], zero past N and K), as FFMA on the CUDA cores: thread
-// (row m, group bg) takes the batch rows bg + 4 j, one fmaf chain each over
-// the rank's columns in order; the owner of an output adds the ranks'
-// partial sums in rank order, then the bias: ((p_0 + p_1) + ... + p_7) + b,
-// whatever B. RND (the int8 mode of an F32 model, the ACT_BF16 entry: the
-// JAX kernel's h_new.astype(bf16) @ w_out on f32 weights, :567-572): the
-// inputs rounded to bf16 as they are staged; without, nothing is rounded.
+// The f32 heads (t2_heads_f32, heads_f32_kernel). Bound: their bytes, 0.5 MB
+// of f32 weights, 0.18 us at one row; what they cost is latency, on every
+// step's critical path. The design is the bf16 heads' (heads_kernel above)
+// on the three-pass TF32 split: a cluster of HD_S blocks splits the
+// contraction in 16-column pieces (rank r the pieces [r nk / HD_S, (r + 1) nk
+// / HD_S)); each rank bulk-copies its slice of an f32 copy tiled once per
+// model (pack_decoder, tile_heads_f32: for piece p, m16 tile mt, k8 step h,
+// lane l, its four A registers side by side, the cell's k order within a
+// piece; zero past N and K) before griddepcontrol.wait, and its columns of
+// the tile's input rows by bulk copies after it (the consumers stage
+// nothing). Weight rows on M (N padded to NP = 96: six m16 tiles), the batch
+// on N: a cluster takes HF_NTILE = 8 rows (one n8 tile; grid.y = ceil(B /
+// 8), so 64 rows run on 64 SMs, not 8). Warp w takes m16 tile w % MT over
+// the part kq = w / MT of the rank's pieces (KQ = HD_WARPS / MT parts: two
+// at NP = 96), each four pieces' products in their own accumulators (k8
+// steps of even and odd h apart). Each (n8 tile, m16 tile) has an owner,
+// rank (n MT + mt) % HD_S, to which every rank pushes its parts' sums over
+// distributed shared memory; after one cluster barrier the owner adds them,
+// ((p0 + p1) + ... + p7) + b with p_r = (part 0 + part 1 + ...) of rank r:
+// the pieces, the parts, their order and the rank order follow the dims,
+// never B. RND (the int8 mode of an F32 model, the ACT_BF16 entry: the JAX
+// kernel's h_new.astype(bf16) @ w_out on f32 weights, :567-572): each input
+// rounded to bf16 as its fragment loads, before the split (its lo is then
+// zero); without, nothing is rounded. Readings (in turns against the FFMA
+// design it replaced, NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py
+// --k1-f32-ab): 6.2 / 6.4 / 6.4 us at 1 / 16 / 64 rows (was 7.0 / 10.8 /
+// 31.5; F.linear f32 4.1 / 9.1 / 19.5); 16 rows a cluster read 6.1 / 7.7 /
+// 7.8, one pass 5.4 / 5.6 / 5.6 (K1F_CELL_AB): at one row the launch, the
+// copies and the cluster barriers bound it, not the product.
+constexpr int HF_NTILE = 8;                  // batch rows a cluster: one n8 tile
+constexpr int HF_NT = HF_NTILE / 8;
+constexpr int HF_GROUP = 4;                  // pieces summed in their own accumulators
+constexpr int HF_PASSES = 7;                 // as CF_PASSES
+
+// byte offsets of an f32 heads block's shared arrays: two mbarriers (the
+// weights', the input's); the weight slice (npmax pieces x NP rows x 64
+// bytes); the tile's input rows over the rank's columns (xs_stride floats a
+// row, = 16 mod 32: conflict-free fragment loads); the partial sums pushed
+// to this rank, [slot][rank][part][column][row], rows pld apart; kq the
+// parts of a rank's pieces, slots the (n8, m16) tiles a rank owns at most
 struct HeadsF32Smem {
-  int ws, xs, xs_stride, part, total;
+  int ws, xs, xs_stride, part, pld, kq, slots, total;
 };
 
 __host__ __device__ inline HeadsF32Smem heads_f32_smem(int NP, int npmax) {
   HeadsF32Smem o;
+  const int MT = NP / 16, width = npmax * 16;
+  o.kq = HD_WARPS / MT > 1 ? HD_WARPS / MT : 1;
+  o.slots = (HF_NT * MT + HD_S - 1) / HD_S;
   o.ws = 16;
-  o.xs = o.ws + npmax * 16 * NP * 4;
-  o.xs_stride = npmax * 16;
-  o.part = o.xs + HD_NTILE * o.xs_stride * 4;
-  o.total = o.part + HD_NTILE * NP * 4;
+  o.xs = o.ws + npmax * NP * 64;
+  o.xs_stride = width + (48 - width % 32) % 32;
+  o.part = o.xs + HF_NTILE * o.xs_stride * 4;
+  o.pld = 16 + 4;
+  o.total = o.part + o.slots * HD_S * o.kq * 8 * o.pld * 4;
   return o;
 }
 
-// grid (HD_S, ceil(B / HD_NTILE)), cluster (HD_S, 1, 1), HD_THREADS threads,
-// heads_f32_smem(NP, ceil(nk / HD_S)).total bytes; the operands as
-// heads_kernel's
+// grid (HD_S, ceil(B / HF_NTILE)), cluster (HD_S, 1, 1), HD_THREADS threads,
+// heads_f32_smem(NP, ceil(nk / HD_S)).total bytes; wt the f32 tiled copy,
+// the other operands as heads_kernel's
 template <bool RND>
 __global__ void __launch_bounds__(HD_THREADS)
 heads_f32_kernel(const float* __restrict__ wt, const float* __restrict__ bias,
@@ -1083,65 +1525,132 @@ heads_f32_kernel(const float* __restrict__ wt, const float* __restrict__ bias,
                  const float* __restrict__ x3, int n3, float* __restrict__ out, int B, int N) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(128) uint8_t hf_raw[];
-  const int nk = (n1 + n2 + n3) / 16, NP = (N + 15) & ~15;
+  const int nk = (n1 + n2 + n3) / 16, NP = (N + 15) & ~15, MT = NP / 16;
   const int rank = (int)cluster.block_rank();
   const int p0 = rank * nk / HD_S, np = (rank + 1) * nk / HD_S - p0;
   const HeadsF32Smem o = heads_f32_smem(NP, (nk + HD_S - 1) / HD_S);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(hf_raw);
-  const float* ws = reinterpret_cast<const float*>(hf_raw + o.ws);  // [column][row]
-  float* xs = reinterpret_cast<float*>(hf_raw + o.xs);               // [batch row][column]
-  float* part = reinterpret_cast<float*>(hf_raw + o.part);           // [batch row][m]
-  const int tid = threadIdx.x;
-  const int b0 = blockIdx.y * HD_NTILE, bt = min(HD_NTILE, B - b0);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(hf_raw);  // [0] the weights, [1] the input
+  const uint8_t* ws = hf_raw + o.ws;
+  float* xs = reinterpret_cast<float*>(hf_raw + o.xs);
+  float* part = reinterpret_cast<float*>(hf_raw + o.part);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b0 = blockIdx.y * HF_NTILE, bt = min(HF_NTILE, B - b0), ntl = (bt + 7) >> 3;
   if (tid == 0) {
-    const uint32_t bytes = (uint32_t)np * 16 * NP * 4;
+    const uint32_t bytes = (uint32_t)np * NP * 64;
     mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(bar, bytes);  // a rank with no piece (nk < HD_S) adds zeros
-    if (bytes) bulk_load(hf_raw + o.ws, wt + (size_t)p0 * 16 * NP, bytes, bar);
-  }
-  pdl_wait();  // with HD_PDL: the inputs are the launch before's outputs
-  const int q4 = np * 4, c0 = p0 * 16, kn = np * 16;
-  for (int i = tid; i < bt * q4; i += HD_THREADS) {
-    const int b = i / q4, q = i - b * q4, col = c0 + 4 * q, row = b0 + b;
-    const float* src = col < n1        ? x1 + (size_t)row * n1 + col
-                       : col < n1 + n2 ? x2 + (size_t)row * n2 + (col - n1)
-                                       : x3 + (size_t)row * n3 + (col - n1 - n2);
-    float4 v = *reinterpret_cast<const float4*>(src);
-    if (RND) v = make_float4(rnd_bf16(v.x), rnd_bf16(v.y), rnd_bf16(v.z), rnd_bf16(v.w));
-    *reinterpret_cast<float4*>(xs + (size_t)b * o.xs_stride + 4 * q) = v;
+    if (bytes) bulk_load(hf_raw + o.ws, wt + (size_t)p0 * NP * 16, bytes, bar);
   }
   __syncthreads();
-  mbar_wait(bar, 0);
-  // thread (m, bg): batch rows bg + 4 j, four at a time (a pass over the
-  // columns each), so that one row costs one pass, not 16 predicated ones
-  for (int task = tid; task < NP * 4; task += HD_THREADS) {
-    const int m = task % NP, bg = task / NP;
-    if (m >= N) continue;
-    for (int j0 = 0; bg + 4 * j0 < bt; j0 += 4) {
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      const float* xr = xs + (size_t)(bg + 4 * j0) * o.xs_stride;
-#pragma unroll 4
-      for (int k = 0; k < kn; ++k) {
-        const float w = ws[k * NP + m];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (bg + 4 * (j0 + j) < bt) acc[j] = fmaf(w, xr[(size_t)4 * j * o.xs_stride + k], acc[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (bg + 4 * (j0 + j) < bt) part[(bg + 4 * (j0 + j)) * NP + m] = acc[j];
+  // this block has started: the ranks may push into its partial sums once
+  // all have
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  pdl_wait();  // with HD_PDL: the inputs are the launch before's outputs
+  if (warp == 0) {
+    // the tile's rows of [x1 | x2 | x3] over this rank's columns [k0, k1)
+    const int k0 = p0 * 16, k1 = (p0 + np) * 16;
+    if (lane == 0) mbar_expect_tx(bar + 1, (uint32_t)(bt * (k1 - k0) * 4));
+    __syncwarp();
+    for (int b = lane; b < bt; b += 32) {
+      const size_t row = (size_t)(b0 + b);
+      float* dst = xs + (size_t)b * o.xs_stride;
+      int a = max(k0, 0), e = min(k1, n1);
+      if (a < e) bulk_load(dst + (a - k0), x1 + row * n1 + a, (uint32_t)((e - a) * 4), bar + 1);
+      a = max(k0, n1), e = min(k1, n1 + n2);
+      if (a < e)
+        bulk_load(dst + (a - k0), x2 + row * n2 + (a - n1), (uint32_t)((e - a) * 4), bar + 1);
+      a = max(k0, n1 + n2), e = min(k1, n1 + n2 + n3);
+      if (a < e)
+        bulk_load(dst + (a - k0), x3 + row * n3 + (a - n1 - n2), (uint32_t)((e - a) * 4),
+                  bar + 1);
     }
   }
-  cluster.sync();  // every rank's partial sums are whole
-  for (int i = rank * HD_THREADS + tid; i < bt * N; i += HD_S * HD_THREADS) {
-    const int b = i / N, m = i - b * N;
-    float v = 0.0f;
+  mbar_wait(bar, 0);
+  mbar_wait(bar + 1, 0);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+
+  // warp task (m16 tile mt, part kq): the rank's pieces [j0, j1), the tile's
+  // n8 tiles; then each (n8, m16) tile's sums to its owner, slot [this
+  // rank][kq][column][row]
+  const int g = lane >> 2, t = lane & 3, KQ = o.kq;
+  for (int task = warp; task < MT * KQ; task += HD_WARPS) {
+    const int mt = task % MT, kq = task / MT;
+    const int j0 = kq * np / KQ, j1 = (kq + 1) * np / KQ;
+    float acc[HF_NT][4], pc[2][HF_NT][4];
 #pragma unroll
-    for (int p = 0; p < HD_S; ++p) v += *cluster.map_shared_rank(part + b * NP + m, p);
+    for (int n = 0; n < HF_NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = pc[0][n][e] = pc[1][n][e] = 0.0f;
+    for (int j = j0; j < j1; ++j) {
+      float4 xv[HF_NT];
+#pragma unroll
+      for (int n = 0; n < HF_NT; ++n) {
+        xv[n] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (n < ntl) {
+          xv[n] = *reinterpret_cast<const float4*>(xs + (size_t)(n * 8 + g) * o.xs_stride +
+                                                   16 * j + 4 * t);
+          if (RND)
+            xv[n] = make_float4(rnd_bf16(xv[n].x), rnd_bf16(xv[n].y), rnd_bf16(xv[n].z),
+                                rnd_bf16(xv[n].w));
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 w =
+            *reinterpret_cast<const float4*>(ws + (((j * MT + mt) * 2 + h) * 32 + lane) * 16);
+        uint32_t wh[4], wl[4];
+        tf32_split(w.x, wh[0], wl[0]);
+        tf32_split(w.y, wh[1], wl[1]);
+        tf32_split(w.z, wh[2], wl[2]);
+        tf32_split(w.w, wh[3], wl[3]);
+#pragma unroll
+        for (int n = 0; n < HF_NT; ++n)
+          if (n < ntl)
+            mma_3xtf32<HF_PASSES>(pc[h][n], wh, wl, h ? xv[n].z : xv[n].x,
+                                  h ? xv[n].w : xv[n].y);
+      }
+      if ((j - j0) % HF_GROUP == HF_GROUP - 1 || j + 1 == j1) {
+#pragma unroll
+        for (int n = 0; n < HF_NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[n][e] += pc[0][n][e] + pc[1][n][e];
+            pc[0][n][e] = pc[1][n][e] = 0.0f;
+          }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < HF_NT; ++n) {
+      if (n < ntl) {
+        const int unit = n * MT + mt;
+        float* dst = cluster.map_shared_rank(part, unit % HD_S) +
+                     (((unit / HD_S) * HD_S + rank) * KQ + kq) * 8 * o.pld;
+        dst[(2 * t) * o.pld + g] = acc[n][0];
+        dst[(2 * t + 1) * o.pld + g] = acc[n][1];
+        dst[(2 * t) * o.pld + g + 8] = acc[n][2];
+        dst[(2 * t + 1) * o.pld + g + 8] = acc[n][3];
+      }
+    }
+  }
+  cluster.sync();  // every partial sum is pushed
+
+  // the owner: each rank's parts in order, the ranks' sums in rank order,
+  // then the bias
+  for (int i = tid; i < o.slots * 8 * 16; i += HD_THREADS) {
+    const int slot = i / 128, c = (i / 16) % 8, r = i % 16, unit = slot * HD_S + rank;
+    const int n = unit / MT, m = (unit % MT) * 16 + r, b = n * 8 + c;
+    if (n >= ntl || b >= bt || m >= N) continue;
+    const float* s = part + (size_t)slot * HD_S * KQ * 8 * o.pld + c * o.pld + r;
+    float v = 0.0f;
+    for (int p = 0; p < HD_S; ++p) {
+      float vp = s[(size_t)p * KQ * 8 * o.pld];
+      for (int q = 1; q < KQ; ++q) vp += s[(size_t)(p * KQ + q) * 8 * o.pld];
+      v = p ? v + vp : vp;
+    }
     out[(size_t)(b0 + b) * N + m] = v + bias[m];
   }
-  cluster.sync();  // no rank leaves while another still reads its partial sums
 }
 
 // ---- launchers (shared by the one-kernel entry points and the chunk) ----
@@ -1301,8 +1810,9 @@ int launch_heads(const void* wt, const void* b, const void* x1, int n1, const vo
                    n3, (float*)out, B, N);
 }
 
-// the f32 heads over the f32 tiled copy wt of W_out (tile_heads_f32); the
-// inputs rounded to bf16 as they are staged where act_bf16
+// the f32 heads over the f32 tiled copy wt of W_out (tile_heads_f32): a
+// cluster of HD_S blocks per HF_NTILE rows; the inputs rounded to bf16 as
+// their fragments load where act_bf16
 int launch_heads_f32(const void* wt, const void* b, const void* x1, int n1, const void* x2, int n2,
                      const void* x3, int n3, void* out, int B, int N, bool act_bf16,
                      cudaStream_t stream) {
@@ -1316,26 +1826,64 @@ int launch_heads_f32(const void* wt, const void* b, const void* x1, int n1, cons
   auto kernel = act_bf16 ? heads_f32_kernel<true> : heads_f32_kernel<false>;
   const int err = allow_smem(kernel, (size_t)o.total, &allowed[act_bf16 ? 1 : 0]);
   if (err) return err;
-  return launch_ex(kernel, dim3(HD_S, (B + HD_NTILE - 1) / HD_NTILE), dim3(HD_S, 1, 1),
+  return launch_ex(kernel, dim3(HD_S, (B + HF_NTILE - 1) / HF_NTILE), dim3(HD_S, 1, 1),
                    HD_THREADS, (size_t)o.total, HD_PDL, stream, (const float*)wt, (const float*)b,
                    (const float*)x1, n1, (const float*)x2, n2, (const float*)x3, n3, (float*)out,
                    B, N);
 }
 
-// the f32 cell: grid H / CF_U, with programmatic dependent launch (its
-// first CF_STAGES weight chunks stream while the previous kernel ends); the
-// input [x1 | x2 | xc | x3] (B, n_i) f32 each, n_i % 4 == 0, 16-byte aligned
+// the f32 cell: grid (CF_S, H / CF_U), a cluster of CF_S blocks, with
+// programmatic dependent launch (its first CF_PREFETCH weight chunks stream
+// while the previous kernel ends); the input [x1 | x2 | xc | x3] (B, n_i)
+// f32 each, n_i % 4 == 0, 16-byte aligned
+// segment i of the f32 cell's input, (B, n) f32 at x, as CellMaps' map:
+// boxes of 16 columns x rows
+int make_cell_map(CUtensorMap* map, const void* x, int n, int B, int rows) {
+  EncodeTiled encode = nullptr;
+  const int found = encode_tiled(&encode);
+  if (found) return found;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)B};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * sizeof(float)};
+  const cuuint32_t box[2] = {16, (cuuint32_t)rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(x), dims,
+                              strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// the f32 cell: grid (CF_S, H / CF_U), a cluster of CF_S blocks, with
+// programmatic dependent launch (its first CF_PREFETCH weight chunks stream
+// while the previous kernel ends); the input [x1 | x2 | xc | x3] (B, n_i)
+// f32 each, n_i % 16 == 0, 16-byte aligned (past CF_ROW_COPIES rows a tensor
+// map of each segment is made here)
 int launch_gate_cell_f32(const void* wt, const QuantInput& xin, const void* b, const void* c_in,
                          void* h_out, void* c_out, int B, int H, cudaStream_t stream) {
+  const int R = xin.n[0] + xin.n[1] + xin.n[2] + xin.n[3], nk = (R + CF_KC - 1) / CF_KC;
   bool aligned = ((uintptr_t)wt & 15) == 0;
   for (int i = 0; i < kSeg; ++i)
-    aligned = aligned && ((uintptr_t)xin.x[i] & 15) == 0 && xin.n[i] % 4 == 0;
-  if (B < 1 || H < CF_U || H % CF_U || !aligned) return (int)cudaErrorInvalidValue;
-  static size_t allowed = 48 * 1024;
-  const int err = allow_smem(gate_cell_f32_kernel, (size_t)CF_SMEM, &allowed);
+    aligned = aligned && ((uintptr_t)xin.x[i] & 15) == 0 && xin.n[i] % 16 == 0;
+  if (B < 1 || H < CF_U || H % CF_U || nk < CF_S || !aligned) return (int)cudaErrorInvalidValue;
+  const int rows = (std::min(B, CF_NTILE) + 7) & ~7;
+  const CellF32Smem o = cell_f32_smem(rows);
+  if (o.stages < 2) return (int)cudaErrorInvalidValue;
+  CellMaps xm = {};
+  for (int i = 0; i < kSeg; ++i) {
+    xm.x[i] = xin.x[i];
+    xm.n[i] = xin.n[i];
+    if (xin.n[i] == 0 || !cell_boxes(rows)) continue;
+    const int err = make_cell_map(&xm.m[i], xin.x[i], xin.n[i], B, rows);
+    if (err) return err;
+  }
+  const int inst = cf_nt(rows) == 1 ? 0 : cf_nt(rows) == 2 ? 1 : 2;
+  auto kernel = inst == 0 ? gate_cell_f32_kernel<1>
+                : inst == 1 ? gate_cell_f32_kernel<2> : gate_cell_f32_kernel<CF_NT>;
+  static size_t allowed[3] = {48 * 1024, 48 * 1024, 48 * 1024};
+  const int err = allow_smem(kernel, (size_t)o.total, &allowed[inst]);
   if (err) return err;
-  return launch_ex(gate_cell_f32_kernel, dim3(H / CF_U), kNoCluster, CF_THREADS, (size_t)CF_SMEM,
-                   true, stream, (const float*)wt, xin, (const float*)b, (const float*)c_in,
+  return launch_ex(kernel, dim3(CF_S, H / CF_U), dim3(CF_S, 1, 1), CF_THREADS, (size_t)o.total,
+                   true, stream, (const float*)wt, xm, (const float*)b, (const float*)c_in,
                    (float*)h_out, (float*)c_out, B, H);
 }
 

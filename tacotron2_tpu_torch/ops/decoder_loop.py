@@ -73,16 +73,19 @@ The f32 mode (``pack_decoder(..., torch.float32)``: the JAX package's
 default policy and every ``"32-true"`` / ``"32"`` model, whose decode the
 same TPU kernel runs with f32 weights, ``dt = w_s.dtype``, :386) runs every
 product on f32 operands with f32 sums, nothing rounded: ``lstm_cell`` on
-``t2_lstm_cell_f32`` (FFMA on the CUDA cores over an f32 copy tiled once per
-model, ``tile_gates_f32``), ``prenet``, ``location_attention`` and ``heads``
-on their f32 entries (the heads over ``tile_heads_f32``'s copy), five
-launches a step, each counted in ``F32_LAUNCHES``. An int8 pack of an F32
+``t2_lstm_cell_f32`` (the bf16 cell's cluster design with the gate GEMM on
+the tensor cores as a three-pass TF32 split, ``tf32_split``: w_hi a_lo +
+w_lo a_hi + w_hi a_hi in f32 sums, over an f32 copy tiled once per model in
+the mma fragments' order, ``tile_gates_f32``), ``prenet``,
+``location_attention`` and ``heads`` on their f32 entries (the heads the
+same split over ``tile_heads_f32``'s copy), five launches a step, each
+counted in ``F32_LAUNCHES``. An int8 pack of an F32
 model keeps the prenet's and heads' weights f32, as the JAX pack does: its
 chunk runs them on the f32 entries with the activations rounded to bf16
 (``prenet_f32_act_bf16``, ``heads_f32_act_bf16``: the JAX kernel's
 ``x.astype(bf16)`` on f32 weights), K5's cells and the bf16 attention, seven
 launches a step. The f32 weights bound a step at 71.3 MB over the HBM rate,
-21.3 us at one row; a 64-row step's FFMA, 34 us at the FP32 peak.
+21.3 us at one row; a 64-row step's three passes, 14 us at the TF32 peak.
 """
 
 from __future__ import annotations
@@ -114,8 +117,8 @@ PACK_CALLS = [0]  # pack_decoder calls: a warm server packs each model once
 ACT_INT8 = torch.bfloat16  # operand type of the products other than the int8 cells
 GATE_UNITS = 16  # hidden units per cluster of the cell kernel (csrc/decode_step.cu GC_U)
 GATE_CHUNK = 128  # bytes of each weight row per streamed chunk
-F32_GATE_UNITS = 8  # hidden units per block of the f32 cell (csrc CF_U)
-F32_GATE_CHUNK = 128  # columns of each weight row per streamed chunk of the f32 cell (CF_KC)
+F32_GATE_UNITS = 16  # hidden units per cluster of the f32 cell (csrc/decode_step.cu CF_U)
+F32_GATE_CHUNK = 64  # columns of each weight row per streamed chunk of the f32 cell (CF_KC)
 PRENET_CLUSTER = 8  # blocks of the prenet's cluster (csrc/decode_step.cu PN_S)
 PRENET_THREADS = 256  # threads of a prenet block: rows of its group x units (PN_THREADS)
 PRENET_SMEM = 227 * 1024  # shared memory a block may use
@@ -238,16 +241,23 @@ def tile_gates(w: torch.Tensor, units: int = GATE_UNITS) -> Optional[torch.Tenso
 def gate_f32_offset(row, col, H: int, R: int):
     """Element offset in ``tile_gates_f32``' copy of weight row ``row`` (gate
     = row // H, unit j = row % H), column ``col`` of an f32 LSTM block (4H, R):
-    the f32 cell kernel's addressing. Block gi = j // F32_GATE_UNITS reads
-    chunks c = col // 128 of its 32 rows (row gate 8 + u for unit 8 gi + u),
-    each chunk column-major ([column of the chunk][row]), chunks of a block end
-    to end. Works on ints and on integer tensors."""
+    the f32 cell kernel's addressing. Cluster gi = j // F32_GATE_UNITS reads
+    chunks c = col // 64 of its 64 rows, m16 tile mt = gate (units 16 gi ..
+    16 gi + 15), in the order of the tf32 mma's A fragments: [chunk][m tile]
+    [k8 step s][lane][register e], lane = 4 g + t and e = e_lo + 2 e_hi for
+    row 16 mt + g + 8 e_lo and column 16 (s // 2) + 4 t + 2 (s % 2) + e_hi of
+    the chunk (so that a lane's input columns of a k16 pair of steps are 4
+    consecutive floats); a cluster's chunks end to end. Works on ints and on
+    integer tensors."""
     nk = -(-R // F32_GATE_CHUNK)
     gate, j = row // H, row % H
     gi, u = j // F32_GATE_UNITS, j % F32_GATE_UNITS
-    rr = gate * F32_GATE_UNITS + u
+    g, e_lo = u % 8, u // 8
     c, kk = col // F32_GATE_CHUNK, col % F32_GATE_CHUNK
-    return ((gi * nk + c) * F32_GATE_CHUNK + kk) * 4 * F32_GATE_UNITS + rr
+    q, t, h, e_hi = kk // 16, (kk % 16) // 4, (kk % 4) // 2, kk % 2
+    s = 2 * q + h
+    return (((((gi * nk + c) * 4 + gate) * (F32_GATE_CHUNK // 8) + s) * 32 + 4 * g + t) * 4
+            + e_lo + 2 * e_hi)
 
 
 def tiled_f32_len(H: int, R: int) -> int:
@@ -258,7 +268,7 @@ def tiled_f32_len(H: int, R: int) -> int:
 def tile_gates_f32(w: torch.Tensor) -> Optional[torch.Tensor]:
     """An f32 LSTM block's weights (4H, R) as the f32 cell kernel streams
     them: a flat f32 copy laid out by ``gate_f32_offset``, rows zero-padded
-    to whole 128-column chunks. None where H is not a multiple of
+    to whole 64-column chunks. None where H is not a multiple of
     F32_GATE_UNITS (no kernel takes those dims)."""
     rows, R = w.shape
     H = rows // 4
@@ -266,8 +276,9 @@ def tile_gates_f32(w: torch.Tensor) -> Optional[torch.Tensor]:
         return None
     nk = -(-R // F32_GATE_CHUNK)
     padded = F.pad(w.detach().float(), (0, nk * F32_GATE_CHUNK - R))
-    t = padded.view(4, H // F32_GATE_UNITS, F32_GATE_UNITS, nk, F32_GATE_CHUNK)
-    return t.permute(1, 3, 4, 0, 2).reshape(-1).contiguous()  # [gi][c][kk][gate][u]
+    # (gate, gi, e_lo, g, c, q, t, h, e_hi) -> [gi][c][gate][q][h][g][t][e_hi][e_lo]
+    t = padded.view(4, H // F32_GATE_UNITS, 2, 8, nk, F32_GATE_CHUNK // 16, 4, 2, 2)
+    return t.permute(1, 4, 0, 5, 7, 3, 6, 8, 2).reshape(-1).contiguous()
 
 
 def prenet_units(M: int, P: int, esize: int = 2) -> int:
@@ -375,27 +386,33 @@ def tile_heads(w_out: torch.Tensor) -> torch.Tensor:
 
 def heads_f32_offset(row, col, N: int):
     """Element offset in ``tile_heads_f32``' copy of an f32 w_out[row, col]:
-    piece p = col // 16 of every padded row, column-major ([p][column of the
-    piece][row]), so that a rank's pieces are one contiguous run and a warp's
-    32 rows one column's 32 consecutive floats (the f32 heads kernel's
-    addressing). Works on ints and on integer tensors."""
-    NP = heads_rows(N)
-    return ((col // HEADS_PIECE) * HEADS_PIECE + col % HEADS_PIECE) * NP + row
+    piece p = col // 16, then the f32 heads kernel's tf32 A fragments, the
+    f32 cell's order (``gate_f32_offset``) within a piece: [p][m16 tile]
+    [k8 step h][lane][register], so that a rank's pieces are one contiguous
+    run. Works on ints and on integer tensors."""
+    MT = heads_rows(N) // 16
+    p, c = col // HEADS_PIECE, col % HEADS_PIECE
+    t, h, e_hi = c // 4, (c % 4) // 2, c % 2
+    mt, g, e_lo = row // 16, row % 8, (row % 16) // 8
+    return ((((p * MT + mt) * 2 + h) * 32 + 4 * g + t) * 4) + e_lo + 2 * e_hi
 
 
-def heads_f32_tiled_shape(N: int, K: int) -> Tuple[int, int, int]:
-    """Shape of ``tile_heads_f32``' copy: (pieces, 16, padded rows)."""
-    return -(-K // HEADS_PIECE), HEADS_PIECE, heads_rows(N)
+def heads_f32_tiled_shape(N: int, K: int) -> Tuple[int, int, int, int, int]:
+    """Shape of ``tile_heads_f32``' copy: (pieces, m16 tiles, k8 steps of a
+    piece, lanes, registers)."""
+    return -(-K // HEADS_PIECE), heads_rows(N) // 16, 2, 32, 4
 
 
 def tile_heads_f32(w_out: torch.Tensor) -> torch.Tensor:
     """The heads' f32 weights (N, K) as the f32 heads kernel's ranks copy
     them (``heads_f32_offset``): zero past N rows and K columns."""
     N, K = w_out.shape
-    nk, _, NP = heads_f32_tiled_shape(N, K)
-    w = w_out.detach().float().new_zeros(NP, nk * HEADS_PIECE)
+    nk, MT = heads_f32_tiled_shape(N, K)[:2]
+    w = w_out.detach().float().new_zeros(MT * 16, nk * HEADS_PIECE)
     w[:N, :K] = w_out.detach()
-    return w.view(NP, nk, HEADS_PIECE).permute(1, 2, 0).contiguous()
+    # (mt, e_lo, g, p, t, h, e_hi) -> [p][mt][h][g][t][e_hi][e_lo]
+    t = w.view(MT, 2, 8, nk, 4, 2, 2).permute(3, 0, 5, 2, 4, 6, 1)
+    return t.reshape(heads_f32_tiled_shape(N, K)).contiguous()
 
 
 CONTROLS_ALIGN = 16  # the controls' columns are padded to a multiple of this
@@ -600,6 +617,20 @@ def heads_plain(w_out, b_out, rnn_h, ctx, act: Optional[torch.dtype] = None, ctl
     return _rnd(x, w_out, act) @ _acc(w_out).t() + b_out
 
 
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``x`` -> (hi, lo), the f32 cell's and heads' operand split
+    (``tf32_split`` in csrc/decode_step.cu): hi is x rounded to TF32 (10
+    mantissa bits, to nearest, ties away from zero: ``cvt.rna.tf32.f32``, the
+    low 13 bits zero), lo the same of x - hi. Their three passes take w_hi
+    a_lo + w_lo a_hi + w_hi a_hi (the lo lo term left out). For the tests."""
+    def rna(t: torch.Tensor) -> torch.Tensor:
+        return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -709,6 +740,9 @@ def _cell_operands(w, dt, b, x1, x2, x3, c, wt, ctl=None) -> Tuple[int, int, int
         if H % F32_GATE_UNITS:
             raise ValueError(f"the f32 cell kernel takes H a multiple of {F32_GATE_UNITS}; "
                              f"got H={H}")
+        if any(n % 16 for n in (n1, n2, nc, n3)):
+            raise ValueError(f"the f32 cell kernel takes input segments of whole 16-column "
+                             f"groups; got widths {n1, n2, nc, n3}")
         build.require(wt, torch.float32, (tiled_f32_len(H, R),), "wt")
     else:
         build.require(wt, torch.uint8, (tiled_bytes(H, R * w.element_size()),), "wt")

@@ -27,11 +27,13 @@ port's counterparts:
 
 import functools
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from tacotron2_tpu.models import decoder as jax_decoder
 from tacotron2_tpu.models.layers import Policy as JaxPolicy
@@ -72,11 +74,11 @@ def _model(precision="32-true", controls_dim=0):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("H,R", [(16, 200), (32, 128), (8, 40), (1024, 1792)])
+@pytest.mark.parametrize("H,R", [(16, 200), (32, 128), (48, 40), (1024, 1792)])
 def test_tile_gates_f32_reads_back(H, R):
     """Every weight of ``tile_gates_f32``' copy at the offset the f32 cell
     kernel reads (``gate_f32_offset``), every other element zero (the rows'
-    pad to whole 128-column chunks)."""
+    pad to whole 64-column chunks)."""
     g = torch.Generator().manual_seed(H + R)
     w = torch.randn(4 * H, R, generator=g)
     wt = dl.tile_gates_f32(w)
@@ -87,12 +89,15 @@ def test_tile_gates_f32_reads_back(H, R):
     covered = torch.zeros_like(wt, dtype=torch.bool)
     covered[off.reshape(-1)] = True
     assert int(covered.sum()) == w.numel() and not wt[~covered].any()
-    # a block's chunk is one contiguous run: block gi, chunk c starts at (gi nk + c) 4096
+    # a cluster's chunk is one contiguous run of 64 rows x 64 columns: cluster
+    # gi, chunk c starts at (gi nk + c) 4096; unit u's column 0 is register
+    # u // 8 of lane 4 (u % 8) of its gate's m16 tile, k8 step 0
     nk = -(-R // dl.F32_GATE_CHUNK)
     j = torch.arange(H)
-    assert torch.equal(dl.gate_f32_offset(j, torch.zeros_like(j), H, R) % 32, j % 8)
-    if H > 8 and nk > 1:
-        assert int(dl.gate_f32_offset(8, 128, H, R)) == (nk + 1) * 128 * 32
+    assert torch.equal(dl.gate_f32_offset(j, torch.zeros_like(j), H, R),
+                       (j // 16) * nk * 4096 + (j % 8) * 16 + (j % 16) // 8)
+    if H > 16 and nk > 1:
+        assert int(dl.gate_f32_offset(16, 64, H, R)) == (nk + 1) * 64 * 64
 
 
 def test_tile_gates_f32_takes_whole_blocks():
@@ -103,7 +108,8 @@ def test_tile_gates_f32_takes_whole_blocks():
 @pytest.mark.parametrize("N,K", [(81, 1536), (81, 1552), (17, 48), (9, 32)])
 def test_tile_heads_f32_reads_back(N, K):
     """Every weight of ``tile_heads_f32``' copy at ``heads_f32_offset``,
-    zero past N rows and K columns; a rank's pieces one contiguous run."""
+    zero past N rows and K columns; a rank's pieces one contiguous run, a
+    piece the A fragments of its m16 tiles and two k8 steps."""
     g = torch.Generator().manual_seed(N + K)
     w = torch.randn(N, K, generator=g)
     wt = dl.tile_heads_f32(w)
@@ -114,6 +120,7 @@ def test_tile_heads_f32_reads_back(N, K):
     assert float(flat.abs().sum()) == pytest.approx(float(w.abs().sum()), rel=1e-6)
     NP = dl.heads_rows(N)
     assert int(dl.heads_f32_offset(0, 16, N)) == 16 * NP  # piece 1 after piece 0's 16 NP
+    assert int(dl.heads_f32_offset(8, 1, N)) == 1 + 2  # row 8, column 1: lane 0, register 3
 
 
 def test_pack_makes_the_f32_copies_once():
@@ -409,17 +416,205 @@ def test_wrappers_refuse_mixed_inputs(fake):
     assert [k for k, _ in fake.calls] == ["lstm_cell"]
 
 
+def test_f32_cell_refuses_partial_column_groups(fake):
+    """The f32 cell copies its input by 16-column groups: a segment of
+    another width is refused before any launch."""
+    B = 2
+    f32p = _meta_pack(2)
+    x = (_meta(B, P - 4), _meta(B, D + 4), _meta(B, H))
+    with pytest.raises(ValueError, match="16-column"):
+        dl.lstm_cell(f32p.w_att, f32p.b_att, *x, _meta(B, H), f32p.wt_att)
+    assert fake.calls == []
+
+
 def test_f32_cell_constants_mirror_the_kernel():
-    """The host's f32 cell tiling (units a block, columns a chunk) equals
-    the source's."""
+    """The host's f32 cell tiling (units a cluster, columns a chunk) equals
+    the source's, and so do the heads' pieces (``tile_heads_f32``: two k8
+    steps of the tf32 mma a piece)."""
     import re
     from pathlib import Path
 
     src = (Path(dl.__file__).parents[1] / "csrc" / "decode_step.cu").read_text()
-    assert int(re.search(r"constexpr int CF_U = (\d+);", src).group(1)) == dl.F32_GATE_UNITS
-    kw = int(re.search(r"constexpr int CF_KW = (\d+);", src).group(1))
-    ks = int(re.search(r"constexpr int CF_KS = (\d+);", src).group(1))
-    assert kw * ks == dl.F32_GATE_CHUNK
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert const("CF_U") == dl.F32_GATE_UNITS
+    assert const("CF_KC") == dl.F32_GATE_CHUNK
+    assert dl.heads_f32_tiled_shape(81, 1536)[2:] == (dl.HEADS_PIECE // 8, 32, 4)
+
+
+# ---------------------------------------------------------------------------
+# the f32 cell's and heads' three-pass TF32 products
+# ---------------------------------------------------------------------------
+
+K1F_TOL = chip_smoke.K1F_TOL  # the card's limit of an f32 entry against its plain version
+
+
+def _fragments(a: torch.Tensor) -> torch.Tensor:
+    """The A fragments of an m16n8k8 tf32 mma, (..., 32 lanes, 4 registers)
+    -> the (..., 16, 8) tile they hold: lane 4 g + t holds rows g, g + 8 of
+    columns t (registers 0, 1) and t + 4 (registers 2, 3)."""
+    g, t = torch.arange(32) // 4, torch.arange(32) % 4
+    out = a.new_zeros(*a.shape[:-2], 16, 8)
+    for e, (dr, dk) in enumerate(((0, 0), (8, 0), (0, 4), (8, 4))):
+        out[..., g + dr, t + dk] = a[..., e]
+    return out
+
+
+def _step_columns(s: int) -> torch.Tensor:
+    """The columns (within a 16-column pair of k8 steps) that k = 0..7 of k8
+    step s take: lane t's four consecutive columns 4 t .. 4 t + 3, step 2 q +
+    h the columns 4 t + 2 h (k = t) and 4 t + 2 h + 1 (k = t + 4), as the
+    kernels load the input's fragment of a pair as one float4."""
+    t, h = torch.arange(4), s % 2
+    return torch.cat([4 * t + 2 * h, 4 * t + 2 * h + 1]) + 16 * (s // 2)
+
+
+def _cell_kernel_gates(wt, x, H: int, R: int) -> torch.Tensor:
+    """The f32 cell kernel's products as its lanes index them, in f64: each
+    cluster's chunks, each m16 tile (a gate) and k8 step, A from the tiled
+    copy's fragments and B the input's columns that the step takes (zero
+    past R) -> the gate sums (B, 4H) without the bias."""
+    nk = -(-R // dl.F32_GATE_CHUNK)
+    steps = dl.F32_GATE_CHUNK // 8
+    A = _fragments(wt.double().reshape(H // 16, nk, 4, steps, 32, 4))  # gi c mt s 16 8
+    xp = F.pad(x.double(), (0, nk * dl.F32_GATE_CHUNK - R)).view(x.shape[0], nk, -1)
+    gates = x.new_zeros(x.shape[0], 4, H // 16, 16, dtype=torch.float64)  # b gate gi unit
+    for s in range(steps):
+        xb = xp[:, :, _step_columns(s)]  # (B, c, 8)
+        gates += torch.einsum("icmrk,bck->bmir", A[:, :, :, s], xb)
+    return gates.reshape(x.shape[0], 4 * H)
+
+
+@pytest.mark.parametrize("H,R,B", [(16, 200, 3), (32, 80, 9), (48, 40, 1)])
+def test_f32_cell_fragments_compute_the_product(H, R, B):
+    """The f32 cell's indexing end to end: the tiled copy's A fragments
+    against the input's columns that each lane loads (``_step_columns``),
+    summed over every cluster's chunks, equal the gate GEMM x . W^T (f64)."""
+    g = torch.Generator().manual_seed(H * R + B)
+    w = torch.randn(4 * H, R, generator=g)
+    x = torch.randn(B, R, generator=g)
+    got = _cell_kernel_gates(dl.tile_gates_f32(w), x, H, R)
+    torch.testing.assert_close(got, x.double() @ w.double().t(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("N,K,B", [(81, 1552, 5), (17, 48, 2), (9, 32, 16)])
+def test_f32_heads_fragments_compute_the_product(N, K, B):
+    """The f32 heads' indexing end to end: ``tile_heads_f32``'s A fragments
+    of each piece, m16 tile and k8 step against the input's columns of the
+    step equal x . W_out^T (f64) over the padded rows."""
+    g = torch.Generator().manual_seed(N + K + B)
+    w = torch.randn(N, K, generator=g)
+    x = torch.randn(B, K, generator=g)
+    nk, MT = dl.heads_f32_tiled_shape(N, K)[:2]
+    A = _fragments(dl.tile_heads_f32(w).double())  # (piece, mt, step, 16, 8)
+    xp = x.double().view(B, nk, dl.HEADS_PIECE)
+    out = sum(torch.einsum("pmrk,bpk->bmr", A[:, :, s], xp[:, :, _step_columns(s)])
+              for s in range(2)).reshape(B, MT * 16)
+    torch.testing.assert_close(out[:, :N], x.double() @ w.double().t(), rtol=1e-12, atol=1e-12)
+    assert not out[:, N:].any()
+
+
+@pytest.mark.parametrize("kh", [0, 1])
+@pytest.mark.parametrize("NR", [8, 64])
+def test_f32_cell_wgmma_planes_hold_the_steps(kh, NR):
+    """The f32 cell's wgmma instance: warpgroup kh's split pass (thread (row,
+    k16 group) storing four columns of a core matrix's row) writes hi / lo
+    planes that wgmma, through its descriptor (K-major core matrices, lbo =
+    NR x 16 bytes along K, sbo = 128 along N), reads as B[k][n] = the step's
+    column for k of input row n: the columns the weight copy's A fragments
+    take (``_step_columns``)."""
+    g = torch.Generator().manual_seed(NR + kh)
+    x = torch.randn(NR, dl.F32_GATE_CHUNK, generator=g)
+    hi_x, lo_x = dl.tf32_split(x)
+    planes = torch.full((2 * 4 * NR * 8,), float("nan"))
+    for i in range(2 * NR):  # the kernel's split pass
+        row, qq = i % NR, i // NR
+        q = 2 * kh + qq
+        for c in range(4):
+            off = ((2 * qq + c // 2) * 2 + c % 2) * NR * 4 + row * 4
+            cols = 16 * q + 4 * torch.arange(4) + c
+            planes[off:off + 4] = hi_x[row, cols]
+            planes[4 * NR * 8 + off:4 * NR * 8 + off + 4] = lo_x[row, cols]
+    k, n = torch.meshgrid(torch.arange(8), torch.arange(NR), indexing="ij")
+    for sl in range(4):  # wgmma's B of step 4 kh + sl, hi and lo planes
+        addr = sl * NR * 8 + (k // 4) * (NR * 16 // 4) + (n // 8) * (128 // 4) + (n % 8) * 4 + k % 4
+        cols = _step_columns(4 * kh + sl)[k]
+        assert torch.equal(planes[addr], hi_x[n, cols])
+        assert torch.equal(planes[4 * NR * 8 + addr], lo_x[n, cols])
+
+
+def test_tf32_split_emulates_cvt_rna():
+    """``tf32_split``: hi has its low 13 bits zero and is the nearest TF32
+    value, ties away from zero; lo the same of x - hi; hi + lo within 2^-22
+    of x relative."""
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, -(1.0 + 2 ** -11), 1.0 + 2 ** -11 - 2 ** -23,
+                      3.0e-3, -7.25e5])
+    hi, lo = dl.tf32_split(x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any() and not (lo.view(torch.int32) & 0x1FFF).any()
+    assert hi[1] == 1.0 + 2 ** -10 and hi[2] == -(1.0 + 2 ** -10)  # ties away from zero
+    assert hi[3] == 1.0
+    assert torch.all((hi.double() + lo.double() - x.double()).abs() <= 2 ** -22 * x.abs().double())
+
+
+def _passes(w, x, passes: int = 7) -> torch.Tensor:
+    """x . W^T as the kernels' passes take it (1 w_hi a_lo, 2 w_lo a_hi, 4
+    w_hi a_hi), each product of two TF32 values exact in f64, f64 sums."""
+    (wh, wl), (xh, xl) = (tuple(t.double() for t in dl.tf32_split(v)) for v in (w, x))
+    terms = ((1, xl, wh), (2, xh, wl), (4, xh, wh))
+    return sum(a @ b.t() for bit, a, b in terms if passes & bit).float()
+
+
+def _lstm_update(gates, c):
+    i, f, gg, o = gates.chunk(4, dim=1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+def _rel(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("B", [1, 16])
+def test_three_tf32_passes_hold_k1f_tol_at_the_flagship_widths(B):
+    """The f32 cells (H = 1024, R = 1,792 and 2,560) and heads (N = 81, K =
+    1,536) at the flagship widths, weights and inputs from a numpy seed: the
+    three-pass product within K1F_TOL of ``lstm_cell_plain`` / ``heads_plain``
+    in f32 (each output against its max, as the card's check); one TF32 pass
+    (w_hi a_hi, the planted defect) beyond 10x K1F_TOL."""
+    rng = np.random.default_rng(23 + B)
+    Hf, Pf, Df, N = 1024, 256, 512, 81
+    t = lambda *s, scale=1.0: torch.as_tensor(rng.standard_normal(s).astype(np.float32) * scale)
+    for R in (Pf + Df + Hf, 2 * Hf + Df):
+        w = t(4 * Hf, R, scale=Hf ** -0.5)
+        b = t(4 * Hf, scale=0.1)
+        x1, x2, x3 = t(B, R - Hf, scale=0.5), t(B, Hf // 2, scale=0.5), t(B, Hf // 2)
+        x = torch.cat([x1, x2, x3], 1)
+        c = t(B, Hf)
+        ref = dl.lstm_cell_plain(w, b, x1, x2, x3, c)
+        for passes, lo, hi in ((7, 0.0, K1F_TOL), (4, 10 * K1F_TOL, 1.0)):
+            got = _lstm_update(_passes(w, x, passes) + b, c)
+            for gv, rv in zip(got, ref):
+                assert lo < _rel(gv, rv) <= hi, (R, passes)
+    w_out, b_out = t(N, Hf + Df, scale=(Hf + Df) ** -0.5), t(N, scale=0.1)
+    rnn_h, ctx = t(B, Hf, scale=0.5), t(B, Df)
+    ref = dl.heads_plain(w_out, b_out, rnn_h, ctx)
+    x = torch.cat([rnn_h, ctx], 1)
+    assert _rel(_passes(w_out, x) + b_out, ref) <= K1F_TOL
+    assert _rel(_passes(w_out, x, 4) + b_out, ref) > 10 * K1F_TOL
+
+
+@pytest.mark.parametrize("name,subs", chip_smoke.K1F_DEFECTS,
+                         ids=[d for d, _ in chip_smoke.K1F_DEFECTS])
+def test_k1f_defects_match_the_source_once(name, subs):
+    """Each planted defect of the f32 entries (``chip_smoke.K1F_DEFECTS``, a
+    copy of csrc/decode_step.cu built on the card) finds what it replaces
+    exactly once, as ``build_copies`` requires, and names its entry."""
+    import re
+    from pathlib import Path
+
+    src = (Path(dl.__file__).parents[1] / "csrc" / "decode_step.cu").read_text()
+    for pattern, _ in subs:
+        assert len(re.findall(pattern, src)) == 1, pattern
+    assert chip_smoke.K1F_DEFECT_ENTRY[name] in dl.F32_LAUNCHES
 
 
 # ---------------------------------------------------------------------------
