@@ -34,8 +34,13 @@
     python3 chip_smoke.py --v2v3    # the kernels' build and phase 4l alone
     python3 chip_smoke.py --f32-decode  # the kernels' build and phase 4m alone
     python3 chip_smoke.py --vocoder-shapes  # the kernels' build and phase 4n alone
-    python3 chip_smoke.py --k2-shapes-ab  # K2's wide kernels and V2's narrow instances of
-                                          # build/parent and this tree in turns, bit for bit
+    python3 chip_smoke.py --k2-shapes-ab  # K2's wide kernels, V2's narrow instances and
+                                          # c2_deep's convs below 8 channels of build/parent
+                                          # and this tree in turns, bit for bit, and the C2
+                                          # generators' narrow rows timed in those turns
+    python3 chip_smoke.py --narrow-design  # the narrow kernel's tensor-core route against
+                                           # copies with a part taken out or a constant
+                                           # changed (NARROW_DESIGN), in turns
     python3 chip_smoke.py --f32-step    # 4m's train part alone, its step against the
                                         # CPU's over K1F_STEP_DRAWS draws, with the packed
                                         # encoder, with TF32 on, the CPU on its own ReLU
@@ -313,9 +318,10 @@ Phases, each of which must pass:
    f32 and bf16): every entry and stage against its plain version at 1 and
    16 rows of a 128-frame bucket, rows 0, 1, 15 of a 16-row vocode bit for
    bit alone, the even-k generator's stock route against the CPU, the
-   narrow kernel's planted defects (a partial group's last channel left
-   out, a partial slice read past Ci) at least K2F_DEFECT_MARGIN x the
-   limits, each generator's vocode through ``cut_vocode`` with exact launch
+   narrow kernel's planted defects (a partial last n8 tile's last channel
+   left out, the k tile's pad channels staged from past Ci, f32's products
+   as one TF32 pass) at least K2F_DEFECT_MARGIN x the limits, each
+   generator's vocode through ``cut_vocode`` with exact launch
    counts per route (``vocode_launches``, ``vocode_routes``); the C3 model
    (the flagship's widths with rnn_hidden_dim 768): ``say`` with no K1
    launch, a ``train_mel_export`` batch against the CPU's, ``train`` and
@@ -2223,6 +2229,21 @@ def k2_phase(hifigan, log: dict, frames: int) -> None:
         x = ref
 
 
+def narrow_ops(co_ci: tuple, flops: float, f32: bool) -> tuple:
+    """(operations, peak) of a narrow-kernel launch from Ci to Co channels
+    (``co_ci`` = (Co, Ci)): on the tensor-core route (``mrf.narrow_mma``;
+    a package without it, a parent's, runs every narrow shape on the CUDA
+    cores) three TF32 passes at the TF32 peak in f32 mode, the flops at the
+    bf16 peak in bf16 mode; on the CUDA cores (FFMA) the flops at the FP32
+    peak in f32 mode, at the bf16 peak in bf16 mode (the function's type)."""
+    from tacotron2_tpu_torch.ops import mrf
+
+    tc = getattr(mrf, "narrow_mma", lambda Co, Ci: False)(*co_ci)
+    if not f32:
+        return flops, card_peak("bf16")
+    return (3 * flops, card_peak("tf32")) if tc else (flops, card_peak("f32"))
+
+
 def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
               plain_reps: tuple = (5, 4), fuse_pairs: bool = True) -> list:
     """Time every K2 call of one vocode of ``Tb`` frames at ``rows_b`` rows,
@@ -2255,11 +2276,14 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
     cores' FP32 peak beside it (``cuda_core_ms``); ``plain_reps`` the plain
     version's repeats. At 64 rows every timing takes one warm-up call.
 
-    Calls at 8 or 16 output channels are the narrow kernel's
-    (``csrc/mrf_narrow.cu``; rows ``narrow_conv``, ``narrow_pair``,
-    ``narrow_transpose``, ``mrf.launch_key``): its bound's operations are
-    the flops at the CUDA cores' FP32 peak in f32 mode (the kernel's FFMA),
-    at the bf16 peak in bf16 mode. ``fuse_pairs`` False: every ResBlock1
+    Calls at the shapes the wide kernels do not take are the narrow
+    kernel's (``csrc/mrf_narrow.cu``; rows ``narrow_conv``, ``narrow_pair``,
+    ``narrow_transpose``, ``mrf.launch_key``): each launch's bound is its
+    own, max(every byte it must read and write -- operand, weight copy,
+    bias, ``res``, ``acc_in``, ``y``, ``act``, ``acc_out``, each once --
+    over the HBM rate, its flops (a transposed conv's, not the fold's zero
+    taps) over its route's peak, ``narrow_ops``), summed over the launches.
+    ``fuse_pairs`` False: every ResBlock1
     pair as two ``mrf_conv`` launches (``run_stage`` without its pair
     call), as the narrow kernel's ``narrow_conv`` is timed."""
     import torch
@@ -2341,6 +2365,8 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
                 nb = (nbytes(a, *(cw.wt for cw in cws), *(cw.b for cw in cws), res, acc)
                       + n_out * (4 * want_y + es * want_act + (s != 0.0) * (es if acc_act else 4)))
                 w_shape = list(cws[0].w.shape)
+                fl_call = 2 * a.shape[0] * a.shape[1] * sum(cw.w.numel() for cw in cws)
+                co_ci = tuple(w_shape[1:])
                 t = tot[key(name, cws[0])]
             elif name == "conv_transpose":
                 _, x, uw, want_act = call  # x: the input operand
@@ -2359,6 +2385,8 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
                 nb = (nbytes(x, uw.folded.wt, uw.folded.b)
                       + x.shape[0] * Tout * Co * (4 + es * want_act))
                 w_shape = list(uw.w.shape)
+                fl_call = 2 * x.shape[0] * Tout * Co * x.shape[2] * (Kt // uw.stride)
+                co_ci = tuple(uw.folded.w.shape[1:])
                 t = tot[key(name, uw.folded)]
             else:  # conv_pre, from the bf16 mel x
                 kern = lambda: mrf.conv_pre(x, cwp)
@@ -2371,6 +2399,8 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
                 lib_bf16 = lambda: F.conv1d(xt, wt, b16, padding=Kp // 2)
                 nb = nbytes(x, cwp.wt, cwp.b) + x.shape[0] * x.shape[1] * cwp.w.shape[1] * es
                 w_shape = list(cwp.w.shape)
+                fl_call = 2 * x.shape[0] * x.shape[1] * cwp.w.numel()
+                co_ci = tuple(w_shape[1:])
                 t = tot[key(name, cwp)]
             reps = ((1, 2) if rows_b >= 64 else (2, 2)) if big else (5, 4)
             ms = time_ms(kern, *reps, warm)
@@ -2386,6 +2416,12 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
                 t["plain_ms"] += time_ms(plain_fn, *plain_reps, warm)
                 t["eager_ms"] += eager_ms(kern, 2 if rows_b >= 64 else 5, warm)
             t["traffic_ms"] += traffic_ms
+            if not mrf.wide(*co_ci):  # the narrow kernel: this launch's own bound
+                ops, peak = narrow_ops(co_ci, fl_call, f32)
+                t["bound_ms"] += bound_ms(nb, ops, peak)[0]
+                t["bytes_ms"] += traffic_ms
+                t["ops_ms"] += ops / peak * 1e3
+                t["cuda_core_ms"] += fl_call / card_peak("f32") * 1e3
             t["calls"] += 1
         calls.clear()
 
@@ -2416,10 +2452,9 @@ def k2_timing(hifigan, Tb: int, rows_b: int = 1, plain: bool = True,
                 parts[n] = (nb_stage * fl / fl_stage, fl)
         for name, (nb, fl) in parts.items():
             t = tot[name]
-            if name.startswith("narrow"):  # FFMA on the CUDA cores in f32 mode
-                ops, peak = fl, card_peak("f32" if f32 else "bf16")
-            else:
-                ops, peak = (3 * fl, card_peak("tf32")) if f32 else (fl, card_peak("bf16"))
+            if name.startswith("narrow"):  # bound per launch in time_calls
+                continue
+            ops, peak = (3 * fl, card_peak("tf32")) if f32 else (fl, card_peak("bf16"))
             t["bound_ms"] += bound_ms(nb, ops, peak)[0]
             t["bytes_ms"] += nb / card_peak("bytes") * 1e3
             t["ops_ms"] += ops / peak * 1e3
@@ -10349,16 +10384,22 @@ C2_FRAMES = 128  # the vocode bucket of the checks and the timings
 C2_INVARIANCE_ROWS = (0, 1, 15)  # rows of a 16-row vocode held bit for bit against alone
 C2_SEED = {name: SEED + 101 + i for i, name in enumerate(C2_GENERATORS)}
 C2_KERNEL_GENS = ("c2_wide", "c2_deep")  # the generators whose narrow entries get rows
-# planted defects of the narrow kernel at the new shapes: a copy of
-# csrc/mrf_narrow.cu whose epilogue leaves a partial group's last channel
-# out, and one that stages and sums a partial slice's input channels past Ci
+# planted defects of the narrow kernel's tensor-core route: copies of
+# csrc/mrf_narrow.cu whose epilogue leaves the last channel of a partial last
+# n8 tile out, whose operand staging fills the k tile's pad channels with the
+# channels past Ci (the next row's) instead of zeros, and (f32 only) whose
+# products take one TF32 pass (a_hi w_hi) of the three; each with the
+# dtypes it is held in
 NARROW_SHAPE_DEFECTS = (
-    ("narrow_partial_group", [(r"const int ng = Co - g0 < G \? Co - g0 : G;",
-                               "const int ng = Co - g0 < G ? Co - g0 - 1 : G;")]),
-    ("narrow_past_ci", [(r"const int nci = Ci - c0 < kc \? Ci - c0 : kc;",
-                         "const int nci = kc;")]),
+    ("narrow_partial_group", [(r"const int ncols = Co - n0 < p\.ct \* 8 \? Co - n0 : p\.ct \* 8;",
+                               "const int ncols = Co - n0 < p.ct * 8 ? Co - n0 - 1 : p.ct * 8;")]),
+    ("narrow_past_ci", [(r"slab\[r \* pe \+ ch\] = op_zero<Op>\(\);",
+                         "slab[r * pe + ch] = a[((size_t)b * T + x0 + r) * Ci + c0 + ch];")]),
+    ("narrow_one_pass", [(r"constexpr int kTf32Passes = 7;", "constexpr int kTf32Passes = 4;")]),
 )
-C2_DEFECT_SHAPE = (7, 25, 25, 16, 512)  # K, Co, Ci, rows, frames: a group of 9, a slice of 9
+SHAPE_DEFECT_MODES = {"narrow_partial_group": ("f32", "bf16"), "narrow_past_ci": ("f32", "bf16"),
+                      "narrow_one_pass": ("f32",)}
+C2_DEFECT_SHAPE = (7, 25, 25, 16, 512)  # K, Co, Ci, rows, frames: a last n8 tile of 1, Ci_pad 32
 C3_RNN = 768  # rnn_hidden_dim of the C3 model (att_rnn_dim stays 1024)
 C3_FRAMES = 256  # its say's forced decode
 C3_EXPORT = (8, 96, 128)  # rows, chars, frames of its train_mel_export batch
@@ -10409,10 +10450,13 @@ def defect_reading(got, ref) -> float:
 
 def shape_defects(copies, log: dict) -> None:
     """The planted defects on one conv of C2_DEFECT_SHAPE (Co = 25: a last
-    group of 9 channels; Ci = 25: a last slice of 9), in f32 and bf16, each
-    at least K2F_DEFECT_MARGIN x the limit (K2F_TOL / K2_TOL): the
-    operand and the weight copy are views into buffers with random data past
-    their ends, so a read past Ci stays in bounds and reads other numbers."""
+    n8 tile of one channel; Ci = 25: 7 pad channels in the k tile), in the
+    modes SHAPE_DEFECT_MODES names, each at least K2F_DEFECT_MARGIN x the
+    limit (K2F_TOL / K2_TOL). The weight copy's pads (past Co and Ci) hold
+    random numbers, not zeros: the right kernel's operand is zero in the pad
+    channels, so they add nothing, and a kernel that stages other numbers
+    there reads them. The operand is a view into a buffer with random data
+    past its end, so a read past Ci stays in bounds and reads other numbers."""
     import torch
 
     from tacotron2_tpu_torch.ops import mrf
@@ -10422,20 +10466,23 @@ def shape_defects(copies, log: dict) -> None:
     g.manual_seed(SEED + 110)
     libs = copies()
     for dt, lim in ((torch.float32, K2F_TOL), (torch.bfloat16, K2_TOL)):
+        tag = "f32" if dt == torch.float32 else "bf16"
         slack = lambda n: torch.randn(n + 4096, device="cuda", generator=g).to(dt)
         a = slack(B * T * Ci)[:B * T * Ci].view(B, T, Ci)
         w = (torch.randn(K, Co, Ci, device="cuda", generator=g) * 0.2).to(dt)
-        wt = slack(Ci * K * Co)
-        wt[:Ci * K * Co] = mrf.tile_conv(w).reshape(-1)
-        cw = mrf.ConvWeights(w, torch.randn(Co, device="cuda", generator=g) * 0.1, 1,
-                             wt[:Ci * K * Co].view(Ci, K, Co))
+        wt = mrf.tile_conv(w)
+        pads = torch.ones(wt.shape, dtype=torch.bool, device="cuda")
+        pads[:, :, :Co, :Ci] = False
+        wt = torch.where(pads, torch.randn(wt.shape, device="cuda", generator=g).to(dt), wt)
+        cw = mrf.ConvWeights(w, torch.randn(Co, device="cuda", generator=g) * 0.1, 1, wt)
         res = torch.randn(B, T, Co, device="cuda", generator=g)
         ref = mrf.mrf_conv_plain(a, cw, res, want_act=True)
         got = mrf.mrf_conv(a, cw, res, want_act=True)
-        tag = "f32" if dt == torch.float32 else "bf16"
         check(f"narrow_conv[defect shape {tag}]@B{B}", [("y", got[0], ref[0])], lim, log,
               f"narrow_conv{'_f32' if tag == 'f32' else ''}[c2_wide]", dt == torch.float32)
         for name, path in libs.items():
+            if tag not in SHAPE_DEFECT_MODES[name]:
+                continue
             with narrow_library(path), nan_outputs():
                 d = mrf.mrf_conv(a, cw, res, want_act=True)
             r = min(defect_reading(d[0], ref[0]), defect_reading(d[1], ref[1]))
@@ -11200,9 +11247,12 @@ def k2_shapes_rows_mode(out_name: str) -> int:
     (mode 0, the upsamples JAX fuses), each resblock conv alone with the
     residual and stage-mean epilogue, each fusable pair; the whole vocode's
     K2 outputs where no upsample rounds its sum (V1 in both modes, V2 and V3
-    in f32). A digest of each generator's outputs, and the narrow entries'
-    device times at 16 rows, to chiprun_out/<out_name>. Runs the package
-    found first on sys.path (the repo's, or a parent's with ``--root``)."""
+    in f32); ``c2_deep``'s convs below 8 output channels (the CUDA cores'
+    route) alike. A digest of each generator's outputs, V2's narrow entries'
+    device times at 16 rows, and the narrow rows of C2_KERNEL_GENS
+    (``k2_timing`` at C2_ROWS rows of C2_FRAMES frames, beside cuDNN and the
+    bound) to chiprun_out/<out_name>. Runs the package found first on
+    sys.path (the repo's, or a parent's with ``--root``)."""
     import torch
 
     from tacotron2_tpu_torch import ops
@@ -11263,9 +11313,48 @@ def k2_shapes_rows_mode(out_name: str) -> int:
                             log["narrow_ms"][k] = log["narrow_ms"].get(k, 0.0) + time_ms(c, 5, 4)
                 torch.cuda.empty_cache()
             del gen
+    log["narrow_rows"] = {}
+    for tag in C2_KERNEL_GENS:  # the C2 generators' narrow entries
+        h = C2_GENERATORS[tag]
+        for dt in (torch.float32, torch.bfloat16):
+            torch.manual_seed(C2_SEED[tag])
+            gen = HiFiGAN(HiFiGANConfig.from_dict(h), Policy(dt)).cuda().eval()
+            mode = "f32" if dt == torch.float32 else "bf16"
+            if tag == "c2_deep":  # its convs below 8 channels keep the parent's FFMA order
+                g = torch.Generator(device="cuda")
+                g.manual_seed(SEED + 132)
+                for B in C2_ROWS:
+                    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+                    T, outs = 64, []
+                    for rbs, ups in gen.kernel_weights():
+                        if ups.folded is not None and ups.folded.w.shape[1] < 8:
+                            a = mrf.operand(rnd(B, T, ups.w.shape[1]), dt)
+                            outs += mrf.mrf_conv(a, ups.folded, want_act=True)[:2]
+                        T *= ups.stride
+                        C = ups.w.shape[2]
+                        if C >= 8:
+                            continue
+                        x, acc = rnd(B, T, C), rnd(B, T, C)
+                        a = mrf.operand(x, dt)
+                        convs = [cw for rb in rbs for pair in rb for cw in pair if cw is not None]
+                        for cw in convs:
+                            outs += mrf.mrf_conv(a, cw, x, acc, 0.5, True, True)
+                    log["sha1"][f"c2_deep_co_under_8 {mode} B{B}"] = _sha1(outs)
+            for B in C2_ROWS:
+                for r in k2_timing(gen, C2_FRAMES, B, False, (2, 2), True):
+                    if r["name"].startswith("narrow"):
+                        log["narrow_rows"][f"{r['name']}[{tag}] B{B}"] = {
+                            k: r.get(k) for k in ("ms", "library_ms", "library_bf16_ms",
+                                                  "bound_ms", "bound_by", "traffic_ms", "per")}
+                torch.cuda.empty_cache()
+            del gen
     print("  " + "; ".join(f"{k} {v[:10]}" for k, v in log["sha1"].items()))
     print("  V2's narrow entries at 16 rows, device ms summed over a vocode's calls: "
           + "; ".join(f"{k} {v:.4f}" for k, v in log["narrow_ms"].items()))
+    print(f"  the C2 generators' narrow rows ({C2_FRAMES} frames), device ms (cuDNN f32 / bf16; "
+          "bound): " + "; ".join(
+              f"{k} {v['ms']:.4f} ({v['library_ms']:.4f} / {ms_text(v['library_bf16_ms'])}; "
+              f"{v['bound_ms']:.4f})" for k, v in log["narrow_rows"].items()))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / out_name).write_text(json.dumps(log, indent=1, default=str))
     return 0
@@ -11275,9 +11364,10 @@ def k2_shapes_ab() -> int:
     """``--k2-shapes-ab``: the parent's K2 against this tree's in turns
     (``ab_turns`` of ``--k2-shapes-rows``); the results go to
     chiprun_out/k2_shapes_ab.json. Fails unless every digest (the wide
-    kernels' and V2's narrow instances' outputs) is the same in all four
-    turns: the widened narrow kernel keeps the parent's bits at the shapes
-    the parent took."""
+    kernels', V2's narrow instances' and c2_deep's convs below 8 channels'
+    outputs) is the same in all four turns: the redesigned narrow kernel
+    keeps the parent's bits on the routes it did not redesign. Prints the
+    C2 generators' narrow rows in turns beside cuDNN and the bound."""
     turns = ab_turns("--k2-shapes-rows", "k2_shapes_rows")
     if turns is None:
         return 2
@@ -11285,6 +11375,15 @@ def k2_shapes_ab() -> int:
     for t in turns:
         print(f"  {t['turn']} {t['tag']:<6} rc {t['rc']}: " + "; ".join(
             f"{k} {v:.4f}" for k, v in t.get("narrow_ms", {}).items()))
+    print("  the C2 generators' narrow rows in turns (parent / change / change / parent), device "
+          "ms; this tree's cuDNN f32 / bf16 and bound:")
+    change = next((t for t in turns if t["tag"] == "change" and t.get("narrow_rows")), None)
+    for k in (change or {}).get("narrow_rows", {}):
+        got = [t.get("narrow_rows", {}).get(k, {}).get("ms") for t in turns]
+        v = change["narrow_rows"][k]
+        print(f"    {k}: " + " / ".join(ms_text(x) for x in got)
+              + f" ({v['library_ms']:.4f} / {ms_text(v['library_bf16_ms'])}; "
+                f"{v['bound_ms']:.4f} {v['bound_by']})")
     shas = [t.get("sha1", {}) for t in turns]
     same = bool(shas[0]) and all(s == shas[0] for s in shas[1:])
     print(f"  every digest equal in all four turns, parent and change: {same}")
@@ -11295,6 +11394,85 @@ def k2_shapes_ab() -> int:
               file=sys.stderr)
         return 1
     return max(t["rc"] for t in turns)
+
+
+# design copies of csrc/mrf_narrow.cu for ``--narrow-design``: parts of the
+# tensor-core route taken out (their outputs are wrong; only their times are
+# read), to see where a launch's time goes
+NARROW_DESIGN = (
+    ("no_mma", [(r"wgmma_rs<N, false>\(acc, ah\[k\], bh\);", "(void)0;"),
+                *[(r"if constexpr \(\(kTf32Passes & %d\) != 0\) wgmma_rs<N, true>\(part, "
+                   r"%s\[k\], %s\);" % pas, "") for pas in ((1, "al", "bh"), (2, "ah", "bl"),
+                                                              (4, "ah", "bh"))]]),
+    ("no_stage", [(r"  mma_stage<Op>\(slab, a, b, T, Ci, x0, rows, ra, rb, 0, "
+                   r"min\(ck, ci_pad\), pe\);", "")]),
+    ("no_epilogue", [(r"const int nout = nrows \* ncols;", "const int nout = 0 * ncols;")]),
+    ("no_weights", [(r"if \(s \+ kRing - 1 < steps\) load_next\(\(s \+ kRing - 1\) % kRing\);", ""),
+                    (r"if \(s < steps\) load_next\(s\);", "")]),
+    ("no_prefetch", [(r"m\.pre_off = p->smem \+ pre <= kSoftSmem \? \(int\)p->smem : 0;",
+                      "m.pre_off = 0;")]),
+    ("steps4", [(r"constexpr int kStepTiles = 8;", "constexpr int kStepTiles = 4;")]),
+    ("fill_f32", [(r"const int fill = es == 4 \? kFillBlocks / 2 : kFillBlocks;",
+                   "const int fill = kFillBlocks;"),
+                  (r"while \(es == 4 \? m\.ct < ct0 : 2 \* m\.ct <= ct0\)",
+                   "while (2 * m.ct <= ct0)")]),
+)
+
+
+# (rows, T, Co, Ci, K, dilation) of c2_wide's convs at one and 16 rows of
+# 128 frames
+NARROW_DESIGN_CONVS = ((1, 1024, 200, 200, 11, 1), (1, 1024, 200, 200, 3, 1),
+                       (1, 8192, 100, 100, 11, 1), (1, 16384, 50, 50, 11, 5),
+                       (1, 32768, 25, 25, 3, 1), (1, 32768, 25, 25, 11, 5),
+                       (16, 1024, 200, 200, 11, 1), (16, 8192, 100, 100, 7, 3),
+                       (16, 16384, 50, 50, 7, 3), (16, 32768, 25, 25, 7, 3))
+
+
+def narrow_design() -> int:
+    """``--narrow-design``: the tensor-core route of csrc/mrf_narrow.cu and
+    its NARROW_DESIGN copies (built under build/narrow_design) timed in
+    turns on NARROW_DESIGN_CONVS (the residual, act and stage-mean epilogue,
+    as a resblock's conv), f32 and bf16, device us a launch;
+    chiprun_out/narrow_design.json."""
+    import ctypes
+
+    import torch
+
+    from tacotron2_tpu_torch.models.layers import use_f32_math
+    from tacotron2_tpu_torch.ops import build, mrf
+
+    use_f32_math()
+    card = card_line()
+    t0 = time.perf_counter()
+    wait = build_copies("mrf_narrow", NARROW_DESIGN, ROOT / "build" / "narrow_design", wait=False)
+    build.build_all(["mrf_narrow"])
+    libs = {"source": None, **wait()}
+    log: dict = {"card": card, "build_s": time.perf_counter() - t0, "us": {}}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 140)
+    saved = mrf._lib_narrow()
+    for dt in (torch.float32, torch.bfloat16):
+        for B, T, Co, Ci, K, d in NARROW_DESIGN_CONVS:
+            w = (torch.randn(K, Co, Ci, device="cuda", generator=g) * 0.1).to(dt)
+            cw = mrf.ConvWeights(w, torch.zeros(Co, device="cuda"), d, mrf.tile_conv(w))
+            a = torch.randn(B, T, Ci, device="cuda", generator=g).to(dt)
+            x, acc = (torch.randn(B, T, Co, device="cuda", generator=g) for _ in range(2))
+            row = {}
+            for rnd in range(2):
+                for name in (list(libs) if rnd == 0 else list(libs)[::-1]):
+                    mrf._LIB_NARROW = saved if libs[name] is None else mrf.bind(
+                        mrf.bind(ctypes.CDLL(str(libs[name])), "", "narrow"), "_f32", "narrow")
+                    us = time_ms(lambda: mrf.mrf_conv(a, cw, x, acc, 0.5, True, True),
+                                 5 if B == 1 else 2, 10 if B == 1 else 3) * 1e3
+                    row.setdefault(name, []).append(us)
+            mrf._LIB_NARROW = saved
+            key = f"{'f32' if dt == torch.float32 else 'bf16'} B{B} T{T} {Co}<-{Ci} k{K} d{d}"
+            log["us"][key] = row
+            print(f"  {key}: " + "; ".join(f"{n} {min(v):.1f}" for n, v in row.items()))
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "narrow_design.json").write_text(json.dumps(log, indent=1))
+    print(card)
+    return 0
 
 
 def main() -> int:
@@ -11317,6 +11495,8 @@ def main() -> int:
         return k1_f32_ab()
     if "--k2-shapes-ab" in sys.argv[1:]:
         return k2_shapes_ab()
+    if "--narrow-design" in sys.argv[1:]:
+        return narrow_design()
     sys.path.insert(0, str(pkg_root))
     torch.set_grad_enabled(False)
     if "--k1-rows" in sys.argv[1:]:

@@ -91,16 +91,17 @@ else none, ``mrf_pallas.py:440``). Every conv of another shape -- HiFi-GAN
 V2's stages 3 and 4 at 16 and 8 channels and its last upsample to 2 x 8,
 stages at 4, 2 or 1 channels, widths off 32 (200, 100, 50, 25), a
 ``conv_pre`` from a num_mels off 8 -- launches the narrow kernel instead, in
-the weights' type: a conv of a few channels is bound by its bytes, so it
-runs on the CUDA cores (FFMA, f32 sums in one fixed order per output) from a
-weight copy (Ci, K, Co) (``tile_conv``): V2's shapes (Co 8 or 16, Ci a
-multiple of 8, and the fused pair) on the kernel that first ran them, every
-other shape on one that takes groups of up to 16 output channels a block
-(``csrc/mrf_narrow.cu::narrow_plan``). Its launches count as
-``narrow_conv``, ``narrow_pair`` (C in ``PAIR_C`` only) and
-``narrow_transpose`` (``launch_key``; a
-``conv_pre`` of such a shape as ``narrow_conv``), ``_f32`` in
-``F32_LAUNCHES``.
+the weights' type, on one of three routes (``narrow_plan``): at Co >= 8 an
+implicit GEMM on the tensor cores (``narrow_mma``: ``wgmma`` with the
+operand's fragments in registers, bf16, or f32 as the three-pass TF32 split,
+from a copy (K, planes, Co8, Ci_pad) padded with zeros to n8 tiles and the k
+tile, ``mma_pads``); V2's shapes (Co 8 or
+16 with Ci a multiple of 8, and the fused pair) on the kernel that first
+ran them, and Co < 8 on the CUDA cores (FFMA, f32 sums in one fixed order
+per output), both from a weight copy (Ci, K, Co) (``tile_conv``). Its
+launches count as ``narrow_conv``, ``narrow_pair`` (C in ``PAIR_C`` only)
+and ``narrow_transpose`` (``launch_key``; a ``conv_pre`` of such a shape as
+``narrow_conv``), ``_f32`` in ``F32_LAUNCHES``.
 
 JAX's XLA routes. Where the JAX package runs XLA instead of a Pallas
 kernel, the port runs stock PyTorch ops, counted in ``STOCK_ROUTES``: an
@@ -194,12 +195,12 @@ def conv_tiles(Co: int, Ci: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[i
     or, where the grid is small, a part of it; slices of 64 or 32 (bf16),
     ``F32_KC`` (f32). Both wide kernels take Co a multiple of 32 and Ci a
     multiple of 8 (``wide``: the operand's rows whole 16-byte pieces, as TMA
-    reads them); any other shape runs on the narrow kernel, whose copy has
-    no tiles (``tile_conv``; its group and slices are
+    reads them); any other shape runs on the narrow kernel, whose copies
+    have no such tiles (``tile_conv``; its blocks and steps are
     ``csrc/mrf_narrow.cu::narrow_plan``'s), and raises here."""
     if not wide(Co, Ci):
         raise ValueError(f"the wide kernels take Co a multiple of 32 and Ci of 8, got Co={Co}, "
-                         f"Ci={Ci} (the narrow kernel's copy has no tiles)")
+                         f"Ci={Ci} (the narrow kernel's copies have no such tiles)")
     NI = 128 if Co % 128 == 0 else 64 if Co % 64 == 0 else 32
     if dtype == torch.float32:
         return NI, F32_KC
@@ -211,6 +212,23 @@ def wide(Co: int, Ci: int) -> bool:
     (``csrc/mrf.cu``, ``csrc/mrf_f32.cu``): Co a multiple of 32 (the rule in
     their ``conv_plan``), Ci a multiple of 8."""
     return Co % 32 == 0 and Ci % 8 == 0 and Ci >= 8
+
+
+def narrow_mma(Co: int, Ci: int) -> bool:
+    """Whether convs from ``Ci`` to ``Co`` channels run on the narrow
+    kernel's tensor-core route (``csrc/mrf_narrow.cu::narrow_mma_kernel``):
+    not ``wide``, Co >= 8, and not one of V2's shapes (Co in ``PAIR_C`` with
+    Ci a multiple of 8: ``narrow_conv_kernel``). Below 8 output channels
+    the narrow kernel runs on the CUDA cores."""
+    return not wide(Co, Ci) and Co >= 8 and not (Co in PAIR_C and Ci % 8 == 0)
+
+
+def mma_pads(Co: int, Ci: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
+    """(Co8, Ci_pad) of the tensor-core route's copy: Co padded to n8
+    tiles, Ci to the k tile of ``dtype``'s product (16 for bf16's m16n8k16,
+    8 for TF32's m16n8k8)."""
+    kt = 8 if dtype == torch.float32 else 16
+    return -(-Co // 8) * 8, -(-Ci // kt) * kt
 
 
 def launch_key(name: str, cw: "ConvWeights") -> str:
@@ -232,13 +250,20 @@ def tile_offset(j, co, ci, K: int, Co: int, Ci: int, dtype: torch.dtype = torch.
                 plane: int = 0):
     """Element offset of w[j, co, ci] in ``tile_conv``'s copy of weights of
     ``dtype``, as the kernel addresses it (ints, or integer tensors that
-    broadcast): N tile co // NI, slice ci // KC, tap j, then the tile in the
-    no-swizzle core-matrix layout of a K-major wgmma operand, 16-byte
-    groups of input channels of rows of NI: bf16 [KC / 8][NI][8]; f32 the
-    ``plane`` (0 hi, 1 lo: ``tf32_split``) of two such tiles side by side,
-    [2][KC / 4][NI][4]. The narrow kernel's copy (not ``wide``, either type,
-    no planes) is (Ci, K, Co): a slice's channels one run, each (channel,
-    tap) its Co weights side by side (a block reads its group's)."""
+    broadcast). The wide kernels': N tile co // NI, slice ci // KC, tap j,
+    then the tile in the no-swizzle core-matrix layout of a K-major wgmma
+    operand, 16-byte groups of input channels of rows of NI: bf16 [KC /
+    8][NI][8]; f32 the ``plane`` (0 hi, 1 lo: ``tf32_split``) of two such
+    tiles side by side, [2][KC / 4][NI][4]. The narrow kernel's tensor-core
+    route (``narrow_mma``): (K, planes, Co8, Ci_pad), a tap's plane one
+    [output channel][input channel] matrix whose rows a weight step copies
+    16 bytes at a time (planes 2 in f32, hi and lo, else 1; ``mma_pads``).
+    Its other routes (no planes): (Ci, K, Co), a slice's channels one run,
+    each (channel, tap) its Co weights side by side."""
+    if narrow_mma(Co, Ci):
+        co8, cp = mma_pads(Co, Ci, dtype)
+        planes = 2 if dtype == torch.float32 else 1
+        return ((j * planes + plane) * co8 + co) * cp + ci
     if not wide(Co, Ci):
         return (ci * K + j) * Co + co
     NI, KC = conv_tiles(Co, Ci, dtype)
@@ -251,13 +276,21 @@ def tile_offset(j, co, ci, K: int, Co: int, Ci: int, dtype: torch.dtype = torch.
 
 def tile_conv(w: torch.Tensor) -> torch.Tensor:
     """(K, Co, Ci) tap-major weights -> the tiled copy of the kernel of
-    their type (``tile_offset``): one contiguous tile per (N tile, slice,
-    tap), zero past Ci in the last slice; shape (Co / NI, ceil(Ci / KC), K,
-    KC / 8, NI, 8) for bf16 and, split once here into hi and lo planes,
-    (Co / NI, ceil(Ci / KC), K, 2, KC / 4, NI, 4) for f32. A ring stage's
-    consecutive taps are one run. At a shape not ``wide``: the narrow
-    kernel's (Ci, K, Co), in the weights' type."""
+    their type and shape (``tile_offset``). The wide kernels': one
+    contiguous tile per (N tile, slice, tap), zero past Ci in the last
+    slice; shape (Co / NI, ceil(Ci / KC), K, KC / 8, NI, 8) for bf16 and,
+    split once here into hi and lo planes, (Co / NI, ceil(Ci / KC), K, 2,
+    KC / 4, NI, 4) for f32. A ring stage's consecutive taps are one run. The
+    narrow kernel's tensor-core route: (K, 1, Co8, Ci_pad) for bf16, (K, 2,
+    Co8, Ci_pad) for f32 (hi, lo), zero past Co and Ci. Its other routes:
+    (Ci, K, Co), in the weights' type."""
     K, Co, Ci = w.shape
+    if narrow_mma(Co, Ci):
+        co8, cp = mma_pads(Co, Ci, w.dtype)
+        w = F.pad(w, (0, cp - Ci, 0, co8 - Co))
+        if w.dtype == torch.float32:
+            return torch.stack(tf32_split(w), 1).contiguous()
+        return w.unsqueeze(1).contiguous()
     if not wide(Co, Ci):
         return w.permute(2, 0, 1).contiguous()
     NI, KC = conv_tiles(Co, Ci, w.dtype)
@@ -276,13 +309,13 @@ def read_tiled(wt: torch.Tensor, K: int, Co: int, Ci: int,
     """The (K, Co, Ci) weights back from a tiled copy, every element read at
     its ``tile_offset`` for the copy's type (the plain reader of the
     kernels' layouts); an f32 copy's ``plane`` (0 hi, 1 lo), or by default
-    the sum of both, the weights themselves (the narrow kernel's copy has
-    no planes)."""
+    the sum of both, the weights themselves (the narrow kernel's FFMA
+    copies have no planes)."""
     j = torch.arange(K)[:, None, None]
     co = torch.arange(Co)[None, :, None]
     ci = torch.arange(Ci)[None, None, :]
     flat = wt.reshape(-1)
-    if wt.dtype != torch.float32 or not wide(Co, Ci):
+    if wt.dtype != torch.float32 or not (wide(Co, Ci) or narrow_mma(Co, Ci)):
         return flat[tile_offset(j, co, ci, K, Co, Ci, wt.dtype)]
     at = lambda p: flat[tile_offset(j, co, ci, K, Co, Ci, wt.dtype, p)]
     return at(0) + at(1) if plane is None else at(plane)
@@ -500,15 +533,18 @@ def _stream() -> int:
 
 def _require_conv(cw: ConvWeights, Ci: int, name: str):
     """The weights' tiled copy in the layout of the kernel of their type
-    (bf16 or f32) and shape (the narrow kernel's where not ``wide``), and the
-    f32 bias."""
+    (bf16 or f32) and shape (the narrow kernel's route's where not
+    ``wide``), and the f32 bias."""
     K, Co, _ = cw.w.shape
     dt = cw.w.dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: the kernels take bf16 or f32 weights, got {dt}")
     if cw.wt is None:
         raise ValueError(f"{name}: the weights have no tiled copy (pack_conv, tile_conv)")
-    if not wide(Co, Ci):
+    if narrow_mma(Co, Ci):
+        build.require(cw.wt, dt, (K, 2 if dt == torch.float32 else 1, *mma_pads(Co, Ci, dt)),
+                      f"{name}.wt")
+    elif not wide(Co, Ci):
         build.require(cw.wt, dt, (Ci, K, Co), f"{name}.wt")
     else:
         NI, KC = conv_tiles(Co, Ci, dt)

@@ -227,19 +227,21 @@ NARROW_SHAPES = [(3, 16, 16), (7, 16, 16), (11, 16, 16), (11, 8, 8), (3, 16, 16)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("K,Co,Ci", NARROW_SHAPES)
 def test_narrow_copy_reads_back(K, Co, Ci, dtype):
-    """At 8 or 16 output channels ``pack_conv`` makes the narrow kernel's copy
-    (Ci, K, Co) in the weights' type (no hi / lo planes in f32: the kernel
-    runs FFMA): every weight read at ``tile_offset`` is the tap-major weight,
-    exactly, each staged slice of kc channels (16 where they divide Ci,
-    else 8: ``narrow_plan``) one run of kc K Co weights in the order
-    ``narrow_conv_kernel`` reads them, (channel, tap, Co)."""
+    """At 8 or 16 output channels and Ci a multiple of 8 (V2's shapes,
+    ``narrow_conv_kernel``, not the tensor-core route) ``pack_conv`` makes
+    the narrow kernel's copy (Ci, K, Co) in the weights' type (no hi / lo
+    planes in f32: the kernel runs FFMA): every weight read at
+    ``tile_offset`` is the tap-major weight, exactly, each staged slice of
+    kc channels (16 where they divide Ci, else 8: ``narrow_plan``) one run
+    of kc K Co weights in the order ``narrow_conv_kernel`` reads them,
+    (channel, tap, Co)."""
     rng = np.random.default_rng(K * 100 + Co + Ci)
     conv = torch.nn.Conv1d(Ci, Co, K, padding=K // 2)
     with torch.no_grad():
         conv.weight.copy_(torch.as_tensor(rng.standard_normal((Co, Ci, K)).astype(np.float32)))
     cw = mrf.pack_conv(conv, dtype)
     kc = 16 if Ci % 16 == 0 else 8
-    assert not mrf.wide(Co, Ci)
+    assert not mrf.wide(Co, Ci) and not mrf.narrow_mma(Co, Ci)
     with pytest.raises(ValueError):  # no tiles: the narrow kernel's copy is one run
         mrf.conv_tiles(Co, Ci, dtype)
     assert cw.wt.dtype == dtype and cw.wt.shape == (Ci, K, Co)
@@ -255,16 +257,19 @@ def test_narrow_copy_reads_back(K, Co, Ci, dtype):
 @pytest.mark.parametrize("k,u,Ci,Co", [(4, 2, 16, 8), (4, 2, 8, 4)])
 def test_narrow_upsample_fold(k, u, Ci, Co):
     """V2's last upsample (16 -> 2 x 8) folds into a conv to 16 channels,
-    which the narrow kernel takes (its copy made by ``fold_upsample``); a
-    fold to 8 channels (8 -> 2 x 4) is taken too, and so is one to 2 x 4 from
-    4 input channels (Ci off 8: the wide kernels do not take it)."""
+    which the narrow kernel takes (its copy (Ci, K, Co) made by
+    ``fold_upsample`` for V2's instances); a fold to 8 channels (8 -> 2 x
+    4) is taken too, and so is one to 2 x 4 or 2 x 8 from 4 input channels
+    (Ci off 8: the wide kernels and V2's instances do not take it; the
+    tensor-core route's copy (K, planes, Co8, Ci_pad))."""
     rng = np.random.default_rng(k + Ci)
     w = torch.as_tensor(rng.standard_normal((k, Ci, Co)).astype(np.float32))
     uw = mrf.make_upsample(w, torch.zeros(Co), u, (k - u) // 2)
-    assert uw.folded.wt.shape == (Ci, 3, u * Co)
+    assert not mrf.narrow_mma(u * Co, Ci) and uw.folded.wt.shape == (Ci, 3, u * Co)
     assert torch.equal(mrf.read_tiled(uw.folded.wt, 3, u * Co, Ci), uw.folded.w)
     uw4 = mrf.make_upsample(w[:, :4], torch.zeros(Co), u, 1)
-    assert not mrf.wide(u * Co, 4) and uw4.folded.wt.shape == (4, 3, u * Co)
+    assert not mrf.wide(u * Co, 4) and mrf.narrow_mma(u * Co, 4)
+    assert uw4.folded.wt.shape == (3, 2, u * Co, 8)  # f32: hi and lo, Ci to the k tile 8
     assert torch.equal(mrf.read_tiled(uw4.folded.wt, 3, u * Co, 4), uw4.folded.w)
 
 

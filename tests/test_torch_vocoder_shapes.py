@@ -3,8 +3,8 @@
 JAX's stage kernel (``tacotron2_tpu/ops/mrf_pallas.py``) takes any channel
 count; the port's wide kernels take Co a multiple of 32 and Ci a multiple
 of 8, and every other shape runs on the narrow kernel
-(``csrc/mrf_narrow.cu``: groups of up to 16 output channels a block, a
-partial last group, a partial last slice of input channels). Where JAX runs
+(``csrc/mrf_narrow.cu``: at Co >= 8 an implicit GEMM on the tensor cores,
+below 8 channels FFMA on the CUDA cores). Where JAX runs
 XLA the port runs stock ops: an upsample that does not fold (u = 5, k = 11)
 before the stage kernels, and a whole generator with an even resblock
 kernel size (``get_padding``'s symmetric padding). Where that padding
@@ -18,8 +18,9 @@ had no kernel before (Co 24, Ci 4, a fold from 4 channels, C = 2 and 1, an
 odd C); the narrow copy read back at the new shapes; the launches and
 stock routes of the smoke's C2 generators through the wrappers on meta
 tensors with a stand-in library against ``chip_smoke.vocode_launches`` /
-``vocode_routes``; the narrow plan against the source; the upsamples JAX
-runs on XLA.
+``vocode_routes``; the narrow plan against the source (its routes, shared
+memory, grid, and that only grid y follows the batch); the tensor-core
+route emulated step by step; the upsamples JAX runs on XLA.
 """
 
 import importlib.util
@@ -264,25 +265,51 @@ NEW_SHAPES = [(3, 24, 24), (11, 25, 25), (7, 200, 200), (11, 4, 4), (3, 2, 2), (
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("K,Co,Ci", NEW_SHAPES)
 def test_narrow_copy_reads_back(K, Co, Ci, dtype):
-    """At a shape the wide kernels do not take, ``pack_conv`` makes the
-    narrow kernel's copy (Ci, K, Co) in the weights' type: every weight read
-    at ``tile_offset`` is the tap-major weight, exactly; a block's group of
-    output channels (``_plan``) reads its columns of each (channel, tap)
-    run, the last group's past Co not in the copy (the kernel stages zeros
-    there)."""
+    """At a shape the wide kernels do not take, ``pack_conv`` makes the copy
+    of the narrow kernel's route in the weights' type: at Co >= 8 the
+    tensor-core route's (K, planes, Co8, Ci_pad) (``mma_pads``: n8 tiles, the
+    k tile 16 / 8; f32 its hi and lo planes, hi + lo the weights), zero past
+    Co and Ci; below 8 channels the CUDA cores' (Ci, K, Co). Every weight
+    read at ``tile_offset`` is the tap-major weight, exactly, and
+    ``_require_conv`` takes the copy and refuses the other route's."""
     rng = np.random.default_rng(K * 1000 + Co + Ci)
     conv = torch.nn.Conv1d(Ci, Co, K, padding=K // 2)
     with torch.no_grad():
         conv.weight.copy_(torch.as_tensor(rng.standard_normal((Co, Ci, K)).astype(np.float32)))
     cw = mrf.pack_conv(conv, dtype)
-    assert not mrf.wide(Co, Ci)
-    G = _plan(Co, Ci, K, 1)["group"]
-    assert G == min(16, 1 << (Co - 1).bit_length())
-    assert cw.wt.dtype == dtype and cw.wt.shape == (Ci, K, Co)
-    assert torch.equal(mrf.read_tiled(cw.wt, K, Co, Ci), cw.w)
-    last = (-(-Co // G) - 1) * G  # the last group's first channel
-    assert torch.equal(cw.wt[Ci - 1, K - 1, last:], cw.w[K - 1, last:, Ci - 1])
-    assert mrf.tile_offset(K - 1, Co - 1, Ci - 1, K, Co, Ci, dtype) == Ci * K * Co - 1
+    assert not mrf.wide(Co, Ci) and mrf.narrow_mma(Co, Ci) == (Co >= 8)
+    assert _plan(Co, Ci, K, 1, es=cw.w.element_size())["route"] == ("mma" if Co >= 8 else "ffma")
+    assert cw.wt.dtype == dtype and torch.equal(mrf.read_tiled(cw.wt, K, Co, Ci), cw.w)
+    ffma = (Ci, K, Co)
+    if Co >= 8:
+        co8, cp = mrf.mma_pads(Co, Ci, dtype)
+        assert (co8, cp) == (-(-Co // 8) * 8, -(-Ci // (8 if dtype == torch.float32 else 16))
+                             * (8 if dtype == torch.float32 else 16))
+        planes = 2 if dtype == torch.float32 else 1
+        assert cw.wt.shape == (K, planes, co8, cp)
+        assert not cw.wt[:, :, Co:].any() and not cw.wt[:, :, :, Ci:].any()  # the pads
+        if planes == 2:
+            hi, lo = mrf.tf32_split(cw.w)
+            assert torch.equal(mrf.read_tiled(cw.wt, K, Co, Ci, 0), hi)
+            assert torch.equal(mrf.read_tiled(cw.wt, K, Co, Ci, 1), lo)
+            assert torch.equal(hi + lo, cw.w)
+        assert mrf.tile_offset(K - 1, Co - 1, Ci - 1, K, Co, Ci, dtype, planes - 1) == (
+            ((K - 1) * planes + planes - 1) * co8 + Co - 1) * cp + Ci - 1
+        other = cw._replace(wt=torch.zeros(ffma, dtype=dtype))
+    else:
+        assert cw.wt.shape == ffma
+        assert mrf.tile_offset(K - 1, Co - 1, Ci - 1, K, Co, Ci, dtype) == Ci * K * Co - 1
+        other = cw._replace(wt=torch.zeros(K, 1, 8, -(-Ci // 8) * 8, dtype=dtype))
+    require = build.require
+    try:  # the device rule aside: the copy's shape and type
+        build.require = lambda t, dt, shape, name: (
+            None if t.dtype == dt and tuple(t.shape) == tuple(shape) else
+            (_ for _ in ()).throw(ValueError(f"{name}: {tuple(t.shape)}, want {tuple(shape)}")))
+        mrf._require_conv(cw, Ci, "conv")
+        with pytest.raises(ValueError):
+            mrf._require_conv(other, Ci, "conv")
+    finally:
+        build.require = require
 
 
 @pytest.mark.parametrize("u,Cin,C,k", [(8, 512, 256, 16), (8, 256, 128, 16), (2, 128, 64, 4),
@@ -387,61 +414,391 @@ def _const(name: str) -> int:
 
 
 THREADS, ACCUM, MAX_SMEM = _const("kThreads"), _const("kAccum"), _const("kMaxSmem")
+FFMA_ROWS, MMA_ROWS, MMA_TILES = _const("kFfmaRows"), _const("kMmaRows"), _const("kMmaTiles")
+MMA_THREADS = _const("kMmaThreads")
+RING, FILL_BLOCKS = _const("kRing"), _const("kFillBlocks")
+SOFT_SMEM, STEP_TILES = _const("kSoftSmem"), _const("kStepTiles")
 
 
-def _plan(Co: int, Ci: int, K: int, dilation: int, pair: bool = False) -> dict:
-    """``csrc/mrf_narrow.cu::narrow_plan`` in Python: ``general``
-    (``narrow_group_kernel``: every shape but Co in ``PAIR_C`` with Ci a
-    multiple of 8, ``narrow_conv_kernel``'s), the group (Co there, else
-    ``kGroup`` or the least power of two >= Co below it), the staged slice
-    (16 input channels where they divide Ci, else 8 where they do, else
-    min(16, Ci), halved rounding up while a general kernel's does not fit),
-    the operand's rows a slice (odd), the shared memory in bytes;
-    ValueError where the kernel refuses the shape."""
-    general = not (Co in mrf.PAIR_C and Ci % 8 == 0)
-    group = Co if not general else min(_const("kGroup"), 1 << (Co - 1).bit_length())
-    bt = THREADS * (ACCUM // group)
-    if pair and (Ci != Co or general) or K % 2 == 0 or (pair and bt - (K - 1) < 1):
+def _plan(Co: int, Ci: int, K: int, dilation: int, pair: bool = False, B: int = 1,
+          T: int = 1024, es: int = 4, max_smem: int = MAX_SMEM) -> dict:
+    """``csrc/mrf_narrow.cu::narrow_plan`` in Python, from the source's
+    constants, for operands of ``es`` bytes: the route ("instance": PR
+    20's ``narrow_conv_kernel`` at Co in ``PAIR_C`` with Ci a multiple of
+    8, the pair's only one; "ffma": ``narrow_group_kernel`` below 8 output
+    channels; "mma": ``narrow_mma_kernel``), the CUDA cores' group, slice
+    and rows, or the tensor-core route's pads, chunks, steps, pitches and
+    ring; the shared memory in bytes and the grid; ValueError where the
+    kernel refuses the shape. ``max_smem`` stands in for the card's 227 KB
+    (a smaller one forces the operand into chunks)."""
+    instance = Co in mrf.PAIR_C and Ci % 8 == 0
+    route = "instance" if instance else "ffma" if Co < 8 else "mma"
+    if pair and (Ci != Co or not instance) or K % 2 == 0:
         raise ValueError(f"the narrow kernel does not take K={K}, Ci={Ci}, Co={Co}, pair={pair}")
-    rows_p = (bt + dilation * (K - 1)) | 1
-    kc = 16 if Ci % 16 == 0 else 8 if Ci % 8 == 0 else min(16, Ci)
-    smem = lambda kc: 4 * (kc * K * group + kc * rows_p)
-    while general and kc > 1 and smem(kc) > MAX_SMEM:
-        kc = (kc + 1) // 2
-    if smem(kc) > MAX_SMEM:
-        raise ValueError(f"the narrow kernel's rows do not fit: K={K}, dilation={dilation}")
-    return {"general": general, "group": group, "kc": kc, "rows_p": rows_p, "smem": smem(kc)}
+    halo = dilation * (K - 1)
+    if route != "mma":
+        group = Co if instance else 1 << (Co - 1).bit_length()
+        bt = THREADS * (ACCUM // group if instance else FFMA_ROWS)
+        bmo = bt - (K - 1) if pair else bt
+        if bmo < 1:
+            raise ValueError("the pair's halo fills the block")
+        rows_p = (bt + halo) | 1
+        kc = 16 if Ci % 16 == 0 else 8 if Ci % 8 == 0 else min(16, Ci)
+        smem = lambda kc: 4 * (kc * K * group + kc * rows_p)
+        while not instance and kc > 1 and smem(kc) > max_smem:
+            kc = (kc + 1) // 2
+        if smem(kc) > max_smem:
+            raise ValueError(f"the narrow kernel's rows do not fit: K={K}, dilation={dilation}")
+        return {"route": route, "group": group, "kc": kc, "rows_p": rows_p, "smem": smem(kc),
+                "grid": (-(-T // bmo), B, 1)}
+    kt, epu, planes = (8, 4, 2) if es == 4 else (16, 8, 1)
+    max_tiles = MMA_TILES
+    ci_pad, co_pad = -(-Ci // kt) * kt, -(-Co // 8) * 8
+    tiles, mblocks = co_pad // 8, -(-T // MMA_ROWS)
+    fill = FILL_BLOCKS // 2 if es == 4 else FILL_BLOCKS
+    nch0 = max(-(-tiles // max_tiles), min(tiles, -(-fill // mblocks)))
+    ct0, ct = -(-tiles // nch0), 1
+    while (ct < ct0) if es == 4 else (2 * ct <= ct0):
+        ct *= 2
+    rows = MMA_ROWS + halo
+    slab = lambda ck: rows * ((ck // epu) | 1) * 16
+    ring = lambda nrows, ckw: RING * planes * (ckw // epu) * nrows * 16
+    halve = lambda ch: (ch // 2 + kt - 1) // kt * kt
+    ck = ci_pad
+    while ck > kt and slab(ck) + ring(max_tiles * 8, kt) > min(SOFT_SMEM, max_smem):
+        ck = halve(ck)
+    while ck > kt and slab(ck) + ring(max_tiles * 8, kt) > max_smem:
+        ck = halve(ck)
+    if slab(ck) + ring(max_tiles * 8, kt) > max_smem:
+        raise ValueError(f"the narrow kernel's slab does not fit: K={K}, dilation={dilation}")
+    ckw = min(ck, (STEP_TILES // 2 if es == 4 else STEP_TILES) * kt)
+    while ckw > (32 if es == 4 else 64) and slab(ck) + ring(ct * 8, ckw) > min(SOFT_SMEM,
+                                                                                  max_smem):
+        ckw = halve(ckw)
+    while ckw > kt and slab(ck) + ring(ct * 8, ckw) > max_smem:
+        ckw = halve(ckw)
+    pitch_o = -(-ct * 8 // 32) * 32 + 8
+    plane = (ckw // epu) * ct * 8 * 16
+    smem = max(slab(ck) + RING * planes * plane, MMA_ROWS * pitch_o * 4)
+    pre = 2 * MMA_ROWS * ct * 8 * 4  # the prefetched res and acc_in tiles
+    pre_off = smem if smem + pre <= SOFT_SMEM else 0
+    return {"route": route, "ci_pad": ci_pad, "co_pad": co_pad, "ck": ck, "ckw": ckw,
+            "ct": ct, "pitch_a": (ck // epu) | 1, "pitch_o": pitch_o, "ring_off": slab(ck),
+            "plane_bytes": plane, "pre_off": pre_off, "smem": smem + (pre if pre_off else 0),
+            "grid": (mblocks, B, -(-tiles // ct))}
 
 
-def test_narrow_plan_mirrors_the_source():
-    """``narrow_plan`` of the source in Python (``_plan``, from its
-    constants): Co 8 and 16 at Ci a
-    multiple of 8 keep PR 20's ``narrow_conv_kernel`` instances (and the
-    pair, only at ``PAIR_C``), every other shape a ``narrow_group_kernel`` of
-    each group width, and every narrow conv of the smoke's C2 generators
-    fits the shared memory: C = 1's blocks of 8,192 rows stage 1-channel
-    slices; a conv of many input channels at G = 1 halves its slice until
-    it fits."""
-    assert (THREADS, ACCUM, MAX_SMEM, _const("kGroup")) == (128, 64, 227 * 1024, 16)
-    v2 = set(re.findall(r"T2_NARROW\((\d+), (true|false)\)", SRC))
-    assert v2 == {("16", "false"), ("8", "false"), ("16", "true"), ("8", "true")}
-    assert set(re.findall(r"T2_GROUP\((\d+)\)", SRC)) == {"16", "8", "4", "2", "1"}
+def _c2_convs():
+    """Every conv of the smoke's C2 generators that the narrow kernel runs,
+    with the frames of its stage at C2_FRAMES mel frames: [(cw, pair, T)]."""
+    out = []
     for name, h in SMOKE.C2_GENERATORS.items():
         gen = HiFiGAN(HiFiGANConfig.from_dict(h), F32)
         if not gen.odd:
             continue
-        convs = [(gen.conv_pre_weights(), False)]
+        T = SMOKE.C2_FRAMES
+        convs = [(gen.conv_pre_weights(), False, T)]
         for rbs, ups in gen.kernel_weights():
-            convs += [(ups.folded, False)] if ups.folded is not None else []
-            convs += [(c, mrf.pair_fusable(c1, c2) and c is c1) for rb in rbs for c1, c2 in rb
-                      for c in (c1, c2) if c is not None]
-        for cw, pair in convs:
-            K, Co, Ci = cw.w.shape
-            if not mrf.wide(Co, Ci):
-                plan = _plan(Co, Ci, K, cw.dilation, pair)
-                assert plan["smem"] <= MAX_SMEM and plan["group"] <= 16
+            convs += [(ups.folded, False, T)] if ups.folded is not None else []
+            T *= ups.stride
+            convs += [(c, mrf.pair_fusable(c1, c2) and c is c1, T) for rb in rbs
+                      for c1, c2 in rb for c in (c1, c2) if c is not None]
+        out += [(cw, pair, T) for cw, pair, T in convs if not mrf.wide(*cw.w.shape[1:])]
+    return out
+
+
+def test_narrow_plan_mirrors_the_source():
+    """``narrow_plan`` of the source in Python (``_plan``, from its
+    constants): Co 8 and 16 at Ci a multiple of 8 keep V2's
+    ``narrow_conv_kernel`` instances (and the pair, only at ``PAIR_C``),
+    Co < 8 a ``narrow_group_kernel`` of each group width on the CUDA cores,
+    every other shape a ``narrow_mma_kernel`` of a wgmma N of 8 to 64
+    (``mrf.narrow_mma``), and every narrow conv of the smoke's C2
+    generators fits the shared memory in both types at 1 and 16 rows."""
+    assert (THREADS, ACCUM, MAX_SMEM, FFMA_ROWS) == (128, 64, 227 * 1024, 1)
+    assert (MMA_ROWS, MMA_TILES, RING, FILL_BLOCKS) == (128, 8, 3, 132)
+    assert (SOFT_SMEM, STEP_TILES, MMA_THREADS) == (113 * 1024, 8, 256)
+    v2 = set(re.findall(r"T2_NARROW\((\d+), (true|false)\)", SRC))
+    assert v2 == {("16", "false"), ("8", "false"), ("16", "true"), ("8", "true")}
+    assert set(re.findall(r"T2_GROUP\((\d+)\)", SRC)) == {"8", "4", "2", "1"}
+    assert set(re.findall(r"T2_MMA\((\d+)\)", SRC)) == {"8", "4", "2", "1"}
+    routes = set()
+    for cw, pair, T in _c2_convs():
+        K, Co, Ci = cw.w.shape
+        for es in (4, 2):
+            for B in SMOKE.C2_ROWS:
+                plan = _plan(Co, Ci, K, cw.dilation, pair, B, T, es)
+                assert plan["smem"] <= MAX_SMEM
+                assert (plan["route"] == "mma") == mrf.narrow_mma(Co, Ci)
+                assert (plan["route"] == "ffma") == (Co < 8)
+                routes.add(plan["route"])
+                if plan["route"] == "mma":  # the prefetch only where two blocks an SM fit
+                    assert not plan["pre_off"] or plan["smem"] <= SOFT_SMEM
+                    assert plan["ct"] in (1, 2, 4, 8)
+    assert routes == {"instance", "ffma", "mma"}
     big = _plan(1, 64, 11, 5)
-    assert big["group"] == 1 and big["kc"] < 16 and big["smem"] <= MAX_SMEM and big["general"]
-    assert not _plan(16, 80, 7, 1)["general"] and _plan(16, 100, 7, 1)["general"]
+    assert big["group"] == 1 and big["route"] == "ffma" and big["smem"] <= MAX_SMEM
+    assert _plan(16, 80, 7, 1)["route"] == "instance" and _plan(16, 100, 7, 1)["route"] == "mma"
+    assert _plan(8, 4, 3, 1)["route"] == "mma" and _plan(7, 64, 3, 1)["group"] == 8
     with pytest.raises(ValueError):
         _plan(24, 24, 3, 1, pair=True)
+    with pytest.raises(ValueError):
+        _plan(16, 4, 3, 1, pair=True)
+
+
+def test_narrow_plan_fills_the_card_at_one_row():
+    """At one row of a 128-frame bucket: ``c2_wide``'s stages 2-4 (T =
+    8,192 to 32,768) launch at least ``kFillBlocks`` blocks on the tensor
+    cores in bf16, half that in f32 (whose restaged operand and narrow
+    wgmmas cost more at 16 rows); stage 1 (T = 1,024, 8 blocks of 128
+    samples) splits N, into 13 chunks of 2 n8 tiles in bf16 (104 blocks) and
+    7 of 4 in f32 (56); ``c2_deep``'s convs below 8 channels (C = 4, 2, 1
+    and the folds to 4 and 2) at least 32 blocks of 128 samples on the CUDA
+    cores (the parent's 4)."""
+    seen = set()
+    for cw, pair, T in _c2_convs():
+        K, Co, Ci = cw.w.shape
+        for es in (4, 2):
+            plan = _plan(Co, Ci, K, cw.dilation, pair, 1, T, es)
+            blocks = math.prod(plan["grid"])
+            if plan["route"] == "mma" and T >= 8192:
+                assert blocks >= FILL_BLOCKS // (2 if es == 4 else 1), (Co, Ci, T, plan["grid"])
+                seen.add(Co)
+            if plan["route"] == "mma" and T == 1024:
+                assert plan["grid"] == ((8, 1, 7) if es == 4 else (8, 1, 13)), plan
+                seen.add(Co)
+            if plan["route"] == "ffma":
+                assert blocks >= 32, (Co, Ci, T, plan["grid"])
+                seen.add(Co)
+    assert {200, 100, 50, 25, 4, 2, 1} <= seen
+
+
+def test_narrow_plan_does_not_follow_the_batch():
+    """Nothing in the plan but grid y (the batch rows) depends on B: each
+    output's sum runs over the same (chunk, tap, k tile) or (channel, tap)
+    order at every batch, so rows of a batch equal the rows alone."""
+    for cw, pair, T in _c2_convs():
+        K, Co, Ci = cw.w.shape
+        for es in (4, 2):
+            one = _plan(Co, Ci, K, cw.dilation, pair, 1, T, es)
+            for B in (2, 16, 64):
+                many = _plan(Co, Ci, K, cw.dilation, pair, B, T, es)
+                assert many["grid"][1] == B
+                assert {k: v for k, v in many.items() if k != "grid"} == {
+                    k: v for k, v in one.items() if k != "grid"}
+                assert many["grid"][::2] == one["grid"][::2]
+
+
+# ---------------------------------------------------------------------------
+# narrow_mma_kernel emulated on the CPU: its staging, cp.async ring,
+# ldmatrix lane addresses, wgmma's register fragments and descriptors, and
+# the epilogue, step by step as csrc/mrf_narrow.cu runs them, on shared
+# memory that starts as NaN
+# ---------------------------------------------------------------------------
+
+LANE = np.arange(32)
+
+
+def _ldsm(smem32, addrs, n):
+    """ldmatrix .x``n`` (b16): matrix i's row r from lane 8 i + r's address;
+    lane l receives 32-bit word l % 4 of row l // 4 of each -> (32, n)."""
+    assert not (addrs % 16).any()
+    return np.stack([smem32[addrs[8 * i + LANE // 4] // 4 + LANE % 4] for i in range(n)], 1)
+
+
+def _bf16_pair(words):
+    """The two bf16 halves of 32-bit registers (low half first), as f64."""
+    lo = (words & 0xFFFF).astype(np.uint32) << 16
+    hi = words & 0xFFFF0000
+    return lo.view(np.float32).astype(np.float64), hi.view(np.float32).astype(np.float64)
+
+
+def _tf32(words):
+    """tf32 registers as the tensor core reads them: the low 13 bits dropped."""
+    return (words & np.uint32(0xFFFFE000)).view(np.float32).astype(np.float64)
+
+
+def _wgmma(d, a, smem, start, N, f32):
+    """wgmma m64nNk8 tf32 / m64nNk16 bf16 with A from registers, one warp's
+    16 rows: d (32, N / 2) += A B, A from the warp's registers (32, 4) in the
+    mma.sync A layout, B (k x N) read through a K-major no-swizzle
+    descriptor at ``start`` (core matrices of 8 rows x 16 bytes, N 16 bytes
+    apart along K, 128 along N); d per n8 tile the m16n8 layout."""
+    g, t = LANE // 4, LANE % 4
+    es, kt = (4, 8) if f32 else (2, 16)
+    k, n = np.meshgrid(np.arange(kt), np.arange(N), indexing="ij")
+    off = start + ((k // (16 // es)) * N + n) * 16 + (k % (16 // es)) * es
+    raw = smem[off[..., None] + np.arange(es)].copy().view(np.uint32 if f32 else np.uint16)[..., 0]
+    if f32:
+        A, B = np.zeros((16, 8)), _tf32(raw)
+        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = _tf32(a).T
+    else:
+        A = np.zeros((16, 16))
+        for r, (dr, dc) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+            A[g + dr, 2 * t + dc], A[g + dr, 2 * t + dc + 1] = _bf16_pair(a[:, r])
+        B = (raw.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+    D = A @ B
+    for i in range(N // 8):
+        d[:, 4 * i:4 * i + 4] += np.stack([D[g, 8 * i + 2 * t], D[g, 8 * i + 2 * t + 1],
+                                           D[g + 8, 8 * i + 2 * t], D[g + 8, 8 * i + 2 * t + 1]], 1)
+
+
+def _rna(x32):
+    """cvt.rna.tf32.f32 of f32 values -> (the rounded f32, its bits)."""
+    bits = (x32.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return bits.view(np.float32), bits
+
+
+def _emulate_mma(a, wt, Co, K, dil, plan, offset=0):
+    """narrow_mma_kernel's sums (before the bias) of the operand ``a`` (B, T,
+    Ci) and the copy ``wt``, block by block as the source runs them, ``a``
+    placed ``offset`` elements past a 16-byte boundary -> (B, T, Co) f64 and
+    how often each output was written."""
+    B, T, Ci = a.shape
+    f32 = a.dtype == torch.float32
+    es, epu, kt, planes = (4, 4, 8, 2) if f32 else (2, 8, 16, 1)
+    raw = (a if f32 else a.view(torch.int16)).contiguous().numpy().view(np.uint8).reshape(-1)
+    gmem = np.zeros(64 + raw.size + 64, np.uint8)
+    base = 64 + offset * es
+    gmem[base:base + raw.size] = raw
+    el_type = np.uint32 if f32 else np.uint16
+    a_el = raw.view(el_type)
+    w_el = (wt if f32 else wt.view(torch.int16)).contiguous().numpy().reshape(-1).view(
+        np.uint32 if f32 else np.uint16)
+    ci_pad, co_pad, ck, ckw, ct = (plan[k] for k in ("ci_pad", "co_pad", "ck", "ckw", "ct"))
+    pitch_a, pitch_o, plane_bytes = plan["pitch_a"], plan["pitch_o"], plan["plane_bytes"]
+    pe, N, rows = pitch_a * epu, ct * 8, MMA_ROWS + dil * (K - 1)
+    nck = -(-ci_pad // ck)
+    last_len = ci_pad - (nck - 1) * ck
+    q_full, q_last = -(-ck // ckw), -(-last_len // ckw)
+    steps = K * ((nck - 1) * q_full + q_last)
+    out, written = np.zeros((B, T, Co)), np.zeros((B, T, Co), int)
+    for bx, b, bz in np.ndindex(*plan["grid"]):
+        smem = np.full(plan["smem"], 0xFF, np.uint8)  # NaN: a stale read shows
+        slab = smem[:plan["ring_off"]].view(el_type)
+        t0, tile0 = bx * MMA_ROWS, bz * ct
+        ntl = min(ct, co_pad // 8 - tile0)
+        x0 = t0 - dil * (K - 1) // 2
+        ra, rb = max(0, -x0), min(rows, T - x0)
+
+        def stage(c0, cl):  # mma_stage
+            units, real = cl // epu, min(cl, Ci - c0)
+            for r in list(range(ra)) + list(range(rb, rows)):
+                slab[r * pe:r * pe + units * epu] = 0
+            for r in range(ra, rb):
+                slab[r * pe + real:r * pe + cl] = 0
+            lo, n = (b * T + x0 + ra) * Ci, (rb - ra) * Ci
+            first = base + lo * es
+            p0, off0 = first & ~15, (first - (first & ~15)) // es
+            for i in range(-(-(off0 + n) // epu)):
+                e0 = i * epu - off0
+                if e0 >= 0 and e0 + epu <= n:  # a whole 16-byte piece of the run
+                    v = gmem[p0 + 16 * i:p0 + 16 * i + 16].view(el_type)
+                else:
+                    v = np.array([a_el[lo + e0 + q] if 0 <= e0 + q < n else 0
+                                  for q in range(epu)], el_type)
+                for q in range(epu):
+                    e = e0 + q
+                    if 0 <= e < n and c0 <= e % Ci < c0 + real:
+                        slab[(ra + e // Ci) * pe + e % Ci - c0] = v[q]
+
+        def load(step, slot):  # mma_load_w: cp.async of 16-byte units, [unit][N rows][16 B]
+            c, j, q = step
+            length = last_len if c == nck - 1 else ck
+            k0, kl = c * ck + q * ckw, min(ckw, length - q * ckw)
+            dst = plan["ring_off"] + slot * planes * plane_bytes
+            for pl in range(planes):
+                for r in range(ntl * 8):
+                    src = ((j * planes + pl) * co_pad + tile0 * 8 + r) * ci_pad + k0
+                    for u in range(kl // epu):
+                        d = dst + pl * plane_bytes + (u * N + r) * 16
+                        smem[d:d + 16] = w_el[src + u * epu:src + (u + 1) * epu].view(np.uint8)
+
+        order = [(c, j, q) for c in range(nck) for j in range(K)
+                 for q in range(q_last if c == nck - 1 else q_full)]
+        assert len(order) == steps
+        for s in range(min(steps, RING - 1)):
+            load(order[s], s)
+        stage(0, min(ck, ci_pad))
+        staged = 0
+        warps = MMA_THREADS // 32
+        acc = np.zeros((warps, 32, N // 2))  # warp, lane, register
+        smem32 = smem.view(np.uint32)
+        for s, (c, j, q) in enumerate(order):
+            if c != staged:
+                stage(c * ck, min(ck, ci_pad - c * ck))
+                staged = c
+            if s + RING - 1 < steps:
+                load(order[s + RING - 1], (s + RING - 1) % RING)
+            length = last_len if c == nck - 1 else ck
+            cs, nk = q * ckw, min(ckw, length - q * ckw) // kt
+            w_s = plan["ring_off"] + (s % RING) * planes * plane_bytes
+            for warp in range(warps):
+                part = np.zeros((32, N // 2))
+                for k in range(nk):
+                    a_reg = _ldsm(smem32, ((warp * 16 + j * dil + (LANE & 15)) * pitch_a
+                                           + cs // epu + 2 * k + (LANE >> 4)) * 16, 4)
+                    bh = w_s + 2 * k * N * 16
+                    if f32:
+                        h32, hb = _rna(a_reg.view(np.float32))
+                        lb = _rna((a_reg.view(np.float32) - h32).astype(np.float32))[1]
+                        for x, start in ((lb, bh), (hb, bh + plane_bytes), (hb, bh)):
+                            _wgmma(part, x, smem, start, N, True)
+                    else:
+                        _wgmma(acc[warp], a_reg, smem, bh, N, False)
+                acc[warp] += part
+        # the epilogue: through shared memory
+        so = smem.view(np.float32)
+        g, tq = LANE // 4, LANE % 4
+        for warp in range(warps):
+            for i in range(ntl):
+                r, col = warp * 16 + g, 8 * i + 2 * tq
+                for e, (dr, dc) in enumerate(((0, 0), (0, 1), (8, 0), (8, 1))):
+                    so[(r + dr) * pitch_o + col + dc] = acc[warp, :, 4 * i + e]
+        n0 = tile0 * 8
+        ncols = min(Co - n0, ct * 8)
+        for r in range(min(MMA_ROWS, T - t0)):
+            out[b, t0 + r, n0:n0 + ncols] = so[r * pitch_o:r * pitch_o + ncols]
+            written[b, t0 + r, n0:n0 + ncols] += 1
+    return out, written
+
+
+# (K, Co, Ci, dilation, B, T, offset, chunked): odd Co and Ci (pads in n8 and
+# the k tile), two N chunks and a partial one, pieces of a chunk (Ci 100 in
+# bf16: 64 + 48; Ci 50 in f32: 32 + 24), a halo past T, an operand off 16
+# bytes, an operand staged in chunks (a small shared memory; and Ci 200 in
+# f32, whose whole slab would leave one block an SM)
+MMA_CASES = [(3, 25, 25, 2, 2, 70, 0, False), (7, 100, 100, 1, 1, 133, 1, False),
+             (5, 50, 50, 3, 2, 40, 3, False), (11, 12, 9, 5, 2, 30, 1, False),
+             (3, 24, 40, 1, 1, 50, 0, True), (3, 200, 200, 1, 1, 64, 0, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MMA_CASES, ids=lambda c: f"k{c[0]}co{c[1]}ci{c[2]}")
+def test_mma_route_emulation(case, dtype):
+    """The tensor-core route's index work, emulated step by step on the CPU
+    from shared memory that starts as NaN: every output written exactly
+    once, none stale, the sums those of the SAME conv in f64 (bf16: the
+    products summed in f64 and rounded to f32, 1e-7 of the max; f32: the
+    three TF32 passes, 1e-5, K2F_TOL), with random values in the copy's pads (the
+    operand's pad channels are zero, so the kernel does not rest on them)."""
+    K, Co, Ci, dil, B, T, offset, chunked = case
+    rng = np.random.default_rng(Co * 31 + Ci)
+    a = torch.as_tensor(rng.standard_normal((B, T, Ci)).astype(np.float32)).to(dtype)
+    w = torch.as_tensor(rng.standard_normal((K, Co, Ci)).astype(np.float32)).to(dtype)
+    wt = mrf.tile_conv(w)
+    co8, cp = mrf.mma_pads(Co, Ci, dtype)
+    noise = torch.as_tensor(rng.standard_normal(wt.shape).astype(np.float32)).to(dtype)
+    pad = torch.ones(wt.shape, dtype=torch.bool)
+    pad[:, :, :Co, :Ci] = False
+    wt = torch.where(pad, noise, wt)
+    es = a.element_size()
+    small = {4: 30 * 1024, 2: 18 * 1024}[es]  # the least ring fits, the whole slab beside it not
+    plan = _plan(Co, Ci, K, dil, False, B, T, es, max_smem=small if chunked else MAX_SMEM)
+    assert plan["route"] == "mma" and (plan["ck"] < plan["ci_pad"] or not chunked)
+    got, written = _emulate_mma(a, wt, Co, K, dil, plan, offset)
+    assert (written == 1).all() and np.isfinite(got).all()
+    ref = torch.nn.functional.conv1d(a.double().transpose(1, 2), w.double().permute(1, 2, 0),
+                                     padding=dil * (K - 1) // 2, dilation=dil).transpose(1, 2)
+    tol = 1e-5 if dtype == torch.float32 else 1e-7  # bf16: the sums rounded to f32
+    assert float(np.abs(got - ref.numpy()).max()) <= tol * float(ref.abs().max())
