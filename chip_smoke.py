@@ -34,13 +34,15 @@
     python3 chip_smoke.py --v2v3    # the kernels' build and phase 4l alone
     python3 chip_smoke.py --f32-decode  # the kernels' build and phase 4m alone
     python3 chip_smoke.py --vocoder-shapes  # the kernels' build and phase 4n alone
-    python3 chip_smoke.py --k2-shapes-ab  # K2's wide kernels, V2's narrow instances and
-                                          # c2_deep's convs below 8 channels of build/parent
-                                          # and this tree in turns, bit for bit, and the C2
-                                          # generators' narrow rows timed in those turns
-    python3 chip_smoke.py --narrow-design  # the narrow kernel's tensor-core route against
+    python3 chip_smoke.py --k2-shapes-ab  # K2's wide kernels (V2's wide entries too),
+                                          # c2_wide's tensor-core convs and c2_deep's convs
+                                          # below 8 channels of build/parent and this tree
+                                          # in turns, bit for bit, and the C2 generators'
+                                          # and V2's narrow rows timed in those turns
+    python3 chip_smoke.py --narrow-design  # the narrow kernel's small route against
                                            # copies with a part taken out or a constant
-                                           # changed (NARROW_DESIGN), in turns
+                                           # changed, and against narrow_mma_kernel
+                                           # (SMALL_DESIGN), in turns
     python3 chip_smoke.py --f32-step    # 4m's train part alone, its step against the
                                         # CPU's over K1F_STEP_DRAWS draws, with the packed
                                         # encoder, with TF32 on, the CPU on its own ReLU
@@ -8752,17 +8754,61 @@ V2V3_INVARIANCE_ROWS = (0, 1, 37, 63)  # rows of a 64-row vocode held against th
 V2V3_WAVE = 16  # the V2 server's wave of concurrent requests
 V2V3_FRAMES = 256  # the forced decode of the say and the served requests
 V2V3_SERVE_LSB = 0  # a request of the wave against the same request alone, PCM16 LSB
-# a planted defect of the narrow kernel: a copy of csrc/mrf_narrow.cu whose
-# sums leave each (channel)'s last tap out, held at least K2F_DEFECT_MARGIN x
-# the limits (with the operands and weights rounded to TF32 in f32 mode)
-NARROW_DEFECTS = (("narrow_last_tap", [(r"for \(int j = 0; j < K; \+\+j\) \{",
-                                        "for (int j = 0; j < K - 1; ++j) {")]),)
+# planted defects of the narrow kernel's small route (Ci and Co in PAIR_C:
+# V2's and c2_deep's convs, the fused pair): copies of csrc/mrf_narrow.cu
+# whose sums leave the last tap out, whose pair keeps its intermediate's rows
+# outside [0, T) (the first conv's values, not the second conv's zero
+# padding), and (f32 only) whose products take one TF32 pass (a_hi w_hi) of
+# the three, on both tensor-core routes; each held at least
+# K2F_DEFECT_MARGIN x the limits at every small-route call it reaches (with
+# the operands and weights rounded to TF32 in f32 mode, no copy)
+NARROW_DEFECTS = (
+    ("narrow_last_tap", [(r"for \(int tap = 0; tap < K; \+\+tap\) \{",
+                          "for (int tap = 0; tap < K - 1; ++tap) {")]),
+    ("narrow_pair_halo", [(r"const bool kept = tr >= 0 && tr < T;", "const bool kept = true;")]),
+    ("narrow_one_pass", [(r"constexpr int kTf32Passes = 7;", "constexpr int kTf32Passes = 4;")]),
+)
+# the defects a run of V2 (4l) or c2_deep (4n) must read, each with its modes
+NARROW_DEFECTS_HELD = ("narrow_last_tap[f32]", "narrow_last_tap[bf16]", "narrow_pair_halo[f32]",
+                       "narrow_pair_halo[bf16]", "narrow_one_pass[f32]")
 
 
 def narrow_copies():
     """Start nvcc of the NARROW_DEFECTS copies of csrc/mrf_narrow.cu (under
     build/defects) -> a function that waits for them: {name: library}."""
     return build_copies("mrf_narrow", NARROW_DEFECTS, ROOT / "build" / "defects", wait=False)
+
+
+def narrow_defects(copies, call: str, run, ref, pair: bool, f32: bool, defects: dict) -> None:
+    """The NARROW_DEFECTS copies (``copies``: {name: library}) at one call of
+    the small route: ``run()`` launched on each copy that reaches it (the
+    pair's halo only on a pair, one TF32 pass only in f32), its output's
+    error against ``ref`` of ``ref``'s own max into ``defects[name]``."""
+    for name, _ in NARROW_DEFECTS:
+        if (name == "narrow_pair_halo" and not pair) or (name == "narrow_one_pass" and not f32):
+            continue
+        with narrow_library(copies[name]):
+            got = run()
+        defects.setdefault(name, []).append({"call": call, "rel_err": err(got, ref, True)[1]})
+
+
+def hold_narrow_defects(defects: dict, log: dict, where: str) -> None:
+    """Each defect's least reading (``defects``: {"<name>[<mode>]":
+    readings}) at least K2F_DEFECT_MARGIN x its limit, and every one of
+    NARROW_DEFECTS_HELD read (and tf32_operands[f32]), else SmokeFailure."""
+    for dname, rs in defects.items():
+        lim = K2F_TOL if dname.endswith("[f32]") else K2_TOL
+        least = min(r["rel_err"] for r in rs)
+        log.setdefault("narrow_defects", {})[f"{dname} {where}"] = {
+            "readings": rs, "least": least, "tol": lim}
+        print(f"  narrow kernel planted defect {dname} ({where}): least reading {least:.3e} "
+              f"({least / lim:.0f}x the limit {lim:g}, {len(rs)} calls)")
+        if not least >= K2F_DEFECT_MARGIN * lim:
+            raise SmokeFailure(f"the planted defect {dname} ({where}) reads {least:.3e}, under "
+                               f"{K2F_DEFECT_MARGIN:g} x {lim:g}")
+    if {*NARROW_DEFECTS_HELD, "tf32_operands[f32]"} - set(defects):
+        raise SmokeFailure(f"the narrow kernel's planted defects did not all run ({where}): "
+                           f"{list(defects)}")
 
 
 @contextlib.contextmanager
@@ -8792,8 +8838,11 @@ def v2v3_stages(gen, tag: str, Tb: int, B: int, g, log: dict, copies=None, label
     (``conv_pre`` by ``conv_pre_check``). Bit for bit, failing the run: each
     fused pair against its two launches, and at the narrow widths the
     pair's first conv alone with the residual (``narrow_conv``). With
-    ``copies`` (the defects' builds), at the narrow entries: the planted defects' readings, each of
-    the output's own max -> {defect: [readings]}. A check's kernel is the entry's counter name,
+    ``copies`` (the defects' builds), at the small route's calls
+    (``mrf.narrow_small``): the planted defects' readings, each of the
+    output's own max (``narrow_defects``; with the operands and weights
+    rounded to TF32 in f32 mode, ``tf32_operands``) -> {defect: [readings]}.
+    A check's kernel is the entry's counter name,
     ``[tag]`` added for the wide entries (their kernels-line rows are
     UNIVERSAL_V1's), or ``label(counter)``. An upsample on JAX's XLA route
     (no fold: stock ops, the plain version's own function) is not checked."""
@@ -8828,11 +8877,10 @@ def v2v3_stages(gen, tag: str, Tb: int, B: int, g, log: dict, copies=None, label
             check(f"{key}[{tag} {i}]@B{B}", [("out", yk, xu), ("act", ak, au)], tol, log,
                   label(key), own)
             del yk, ak
-            if copies is not None and key.startswith("narrow"):
-                with narrow_library(copies["narrow_last_tap"]):
-                    d_out = mrf.conv_transpose(a, ups)[0]
-                defects.setdefault("narrow_last_tap", []).append(
-                    {"call": f"{key}[{tag} {i}]@B{B}", "rel_err": err(d_out, xu, True)[1]})
+            if copies is not None and mrf.narrow_small(*ups.folded.w.shape[1:]):
+                narrow_defects(copies, f"{key}[{tag} {i}]@B{B}",
+                               lambda a=a, ups=ups: mrf.conv_transpose(a, ups)[0], xu, False,
+                               f32, defects)
         del a
         c1, c2 = rbs[0][0]
         pair = mrf.pair_fusable(c1, c2)
@@ -8851,11 +8899,9 @@ def v2v3_stages(gen, tag: str, Tb: int, B: int, g, log: dict, copies=None, label
             check(f"{ck}[{tag} {i}]@B{B}", list(zip(
                 ("y", "act"), mrf.mrf_conv(au, c1, xu, want_act=True)[:2],
                 mrf.mrf_conv_plain(au, c1, xu, want_act=True)[:2])), tol, log, ck, own)
-        if copies is not None and key.startswith("narrow"):
-            with narrow_library(copies["narrow_last_tap"]):
-                d_out = one(kern, au, c1, c2)[0]
-            defects.setdefault("narrow_last_tap", []).append(
-                {"call": f"{key}[{tag} {i}]@B{B}", "rel_err": err(d_out, p_out[0], True)[1]})
+        if copies is not None and mrf.narrow_small(*c1.w.shape[1:]):
+            narrow_defects(copies, f"{key}[{tag} {i}]@B{B}", lambda: one(kern, au, c1, c2)[0],
+                           p_out[0], pair, f32, defects)
             if f32:
                 d_out = one(kern, tf32_round(au), rounded_conv(c1, tf32_round),
                             rounded_conv(c2, tf32_round) if pair else None)[0]
@@ -9174,17 +9220,7 @@ def v2v3_phase(cfg_path: str, ckpt: str, log: dict, card: str, copies=None) -> t
                 launches.update({k: n for k, n in counts.items() if k.startswith("narrow")})
         del gens
         torch.cuda.empty_cache()
-    for dname, rs in defects.items():
-        lim = K2F_TOL if dname.endswith("[f32]") else K2_TOL
-        least = min(r["rel_err"] for r in rs)
-        log.setdefault("narrow_defects", {})[dname] = {"readings": rs, "least": least, "tol": lim}
-        print(f"  narrow kernel planted defect {dname}: least reading {least:.3e} "
-              f"({least / lim:.0f}x the limit {lim:g})")
-        if not least >= K2F_DEFECT_MARGIN * lim:
-            raise SmokeFailure(f"the planted defect {dname} reads {least:.3e}, under "
-                               f"{K2F_DEFECT_MARGIN:g} x {lim:g}")
-    if {"narrow_last_tap[f32]", "narrow_last_tap[bf16]", "tf32_operands[f32]"} - set(defects):
-        raise SmokeFailure(f"the narrow kernel's planted defects did not all run: {list(defects)}")
+    hold_narrow_defects(defects, log, "4l v2")
     rows = []
     for r in narrow_rows.values():  # the kernels line: the say's one row, the others in "rows"
         r.update({k: r["rows"]["B1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -10384,18 +10420,17 @@ C2_FRAMES = 128  # the vocode bucket of the checks and the timings
 C2_INVARIANCE_ROWS = (0, 1, 15)  # rows of a 16-row vocode held bit for bit against alone
 C2_SEED = {name: SEED + 101 + i for i, name in enumerate(C2_GENERATORS)}
 C2_KERNEL_GENS = ("c2_wide", "c2_deep")  # the generators whose narrow entries get rows
-# planted defects of the narrow kernel's tensor-core route: copies of
+# planted defects of the narrow kernel's narrow_mma_kernel route: copies of
 # csrc/mrf_narrow.cu whose epilogue leaves the last channel of a partial last
-# n8 tile out, whose operand staging fills the k tile's pad channels with the
-# channels past Ci (the next row's) instead of zeros, and (f32 only) whose
-# products take one TF32 pass (a_hi w_hi) of the three; each with the
-# dtypes it is held in
+# n8 tile out, and whose operand staging fills the k tile's pad channels with
+# the channels past Ci (the next row's) instead of zeros; with NARROW_DEFECTS'
+# narrow_one_pass (f32 only: one TF32 pass, a_hi w_hi, of the three), each
+# with the dtypes it is held in
 NARROW_SHAPE_DEFECTS = (
     ("narrow_partial_group", [(r"const int ncols = Co - n0 < p\.ct \* 8 \? Co - n0 : p\.ct \* 8;",
                                "const int ncols = Co - n0 < p.ct * 8 ? Co - n0 - 1 : p.ct * 8;")]),
     ("narrow_past_ci", [(r"slab\[r \* pe \+ ch\] = op_zero<Op>\(\);",
                          "slab[r * pe + ch] = a[((size_t)b * T + x0 + r) * Ci + c0 + ch];")]),
-    ("narrow_one_pass", [(r"constexpr int kTf32Passes = 7;", "constexpr int kTf32Passes = 4;")]),
 )
 SHAPE_DEFECT_MODES = {"narrow_partial_group": ("f32", "bf16"), "narrow_past_ci": ("f32", "bf16"),
                       "narrow_one_pass": ("f32",)}
@@ -10448,10 +10483,12 @@ def defect_reading(got, ref) -> float:
     return float(d.max()) / max(float(ref.float().abs().max()), 1e-30)
 
 
-def shape_defects(copies, log: dict) -> None:
-    """The planted defects on one conv of C2_DEFECT_SHAPE (Co = 25: a last
-    n8 tile of one channel; Ci = 25: 7 pad channels in the k tile), in the
-    modes SHAPE_DEFECT_MODES names, each at least K2F_DEFECT_MARGIN x the
+def shape_defects(copies, narrow, log: dict) -> None:
+    """The planted defects (``copies``: NARROW_SHAPE_DEFECTS', ``narrow``:
+    NARROW_DEFECTS' narrow_one_pass) on one conv of C2_DEFECT_SHAPE (Co =
+    25: a last n8 tile of one channel; Ci = 25: 7 pad channels in the k
+    tile), in the modes SHAPE_DEFECT_MODES names, each at least
+    K2F_DEFECT_MARGIN x the
     limit (K2F_TOL / K2_TOL). The weight copy's pads (past Co and Ci) hold
     random numbers, not zeros: the right kernel's operand is zero in the pad
     channels, so they add nothing, and a kernel that stages other numbers
@@ -10464,7 +10501,7 @@ def shape_defects(copies, log: dict) -> None:
     K, Co, Ci, B, T = C2_DEFECT_SHAPE
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 110)
-    libs = copies()
+    libs = {**copies(), "narrow_one_pass": narrow()["narrow_one_pass"]}
     for dt, lim in ((torch.float32, K2F_TOL), (torch.bfloat16, K2_TOL)):
         tag = "f32" if dt == torch.float32 else "bf16"
         slack = lambda n: torch.randn(n + 4096, device="cuda", generator=g).to(dt)
@@ -10660,14 +10697,15 @@ def c3_part(g_deep: str, log: dict, card: str) -> dict:
     return {k: v for k, v in k2.items() if v}
 
 
-def vocoder_shapes_phase(log: dict, card: str, copies) -> tuple:
+def vocoder_shapes_phase(log: dict, card: str, copies, narrow) -> tuple:
     """Phase 4n: the C2 generators (C2_GENERATORS, random weights from the
     seed as ``g_*`` files, each in f32 and bf16): every K2 entry and stage
     against its plain version at C2_ROWS rows of a C2_FRAMES bucket (f32
     within K2F_TOL, bf16 within K2_TOL; ``v2v3_stages``), rows
     C2_INVARIANCE_ROWS of a 16-row vocode bit for bit alone (the kernel
     generators), the even-k generator's stock route on the card against the
-    CPU, the planted defects (``shape_defects``), each generator's vocode
+    CPU, the planted defects (``shape_defects``; NARROW_DEFECTS at
+    ``c2_deep``'s small-route calls at one row, ``narrow``), each generator's vocode
     with exact launch counts per route (``c2_path``), the C3 model
     (``c3_part``), and the narrow entries of C2_KERNEL_GENS timed at C2_ROWS
     rows beside cuDNN f32 and bf16 and the bound (``k2_timing``). -> (the
@@ -10683,7 +10721,8 @@ def vocoder_shapes_phase(log: dict, card: str, copies) -> tuple:
     WORK.mkdir(parents=True, exist_ok=True)
     rows, launches, paths = [], {}, {}
     t0 = time.perf_counter()
-    shape_defects(copies, log)
+    shape_defects(copies, narrow, log)
+    defects: dict = {}
     for tag, h in C2_GENERATORS.items():
         t_gen = time.perf_counter()
         g_path = write_hifigan(h, f"hifigan_{tag}", C2_SEED[tag])
@@ -10697,7 +10736,12 @@ def vocoder_shapes_phase(log: dict, card: str, copies) -> tuple:
             label = lambda key, tag=tag: f"{key}[{tag}]"
             for B in C2_ROWS:
                 for mode, gen in gens.items():
-                    v2v3_stages(gen, tag, C2_FRAMES, B, g, log, label=label)
+                    libs = narrow() if tag == "c2_deep" and B == 1 else None
+                    for k, v in v2v3_stages(gen, tag, C2_FRAMES, B, g, log, libs,
+                                            label).items():
+                        defects.setdefault(f"{k}[{mode}]", []).extend(v)
+            if tag == "c2_deep":
+                hold_narrow_defects(defects, log, "4n c2_deep")
             if tag in C2_KERNEL_GENS:
                 for gen in gens.values():
                     v2v3_invariance(gen, tag, C2_FRAMES, g, C2_INVARIANCE_ROWS)
@@ -10760,14 +10804,14 @@ def vocoder_shapes_mode() -> int:
     print(f"[4n] alone on {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     use_f32_math()
     t0 = time.perf_counter()
-    copies = shape_copies()
+    copies, narrow = shape_copies(), narrow_copies()
     logs = build.build_all()
     log: dict = {"card": card, "build_s": time.perf_counter() - t0,
                  "ptxas_kernels": {"mrf_narrow": ptxas_kernels(logs["mrf_narrow"])}}
     print(f"  built in {log['build_s']:.1f} s; mrf_narrow: {log['ptxas_kernels']['mrf_narrow']}")
     try:
         WORK.mkdir(parents=True, exist_ok=True)
-        rows, launches = vocoder_shapes_phase(log, card, copies)
+        rows, launches = vocoder_shapes_phase(log, card, copies, narrow)
         for r in rows:
             r["launches"] = launches[r["name"]]
             r["max_abs_err"] = max(c["max_abs_err"] for c in log["checks"]
@@ -10782,7 +10826,7 @@ def vocoder_shapes_mode() -> int:
         (OUT_DIR / "vocoder_shapes.json").write_text(json.dumps(log, indent=1, default=str))
         shutil.rmtree(WORK, ignore_errors=True)
         with contextlib.suppress(SmokeFailure):
-            copies()
+            copies(), narrow()
     print(json.dumps({"kernels": [{k: r[k] for k in ("name", "launches", "max_abs_err", "ms",
                                                      "plain_ms", "bound_ms", "library_ms",
                                                      "rows")} for r in rows]}))
@@ -11246,13 +11290,17 @@ def k2_shapes_rows_mode(out_name: str) -> int:
     the seed: ``conv_pre``, each folded upsample as one ``mrf_conv`` call
     (mode 0, the upsamples JAX fuses), each resblock conv alone with the
     residual and stage-mean epilogue, each fusable pair; the whole vocode's
-    K2 outputs where no upsample rounds its sum (V1 in both modes, V2 and V3
-    in f32); ``c2_deep``'s convs below 8 output channels (the CUDA cores'
-    route) alike. A digest of each generator's outputs, V2's narrow entries'
-    device times at 16 rows, and the narrow rows of C2_KERNEL_GENS
-    (``k2_timing`` at C2_ROWS rows of C2_FRAMES frames, beside cuDNN and the
-    bound) to chiprun_out/<out_name>. Runs the package found first on
-    sys.path (the repo's, or a parent's with ``--root``)."""
+    K2 outputs (each stage's) where no upsample rounds its sum (V1 in both
+    modes, V2 and V3 in f32); ``c2_deep``'s convs below 8 output channels
+    (the CUDA cores' route) and ``c2_wide``'s narrow convs (every one on
+    ``narrow_mma_kernel``) alike. A digest of each generator's outputs on
+    the wide kernels, one of V2's narrow outputs apart (``<name> narrow``:
+    reported, not held to the parent's bits; so are V2's stages 3-4), V2's
+    narrow entries' device times at 16 rows, the narrow rows of
+    C2_KERNEL_GENS (``k2_timing`` at C2_ROWS rows of C2_FRAMES frames, beside
+    cuDNN and the bound) and of V2 at V2V3_ROWS rows of the say's bucket to
+    chiprun_out/<out_name>. Runs the package found first on sys.path (the
+    repo's, or a parent's with ``--root``)."""
     import torch
 
     from tacotron2_tpu_torch import ops
@@ -11264,7 +11312,8 @@ def k2_shapes_rows_mode(out_name: str) -> int:
     t0 = time.perf_counter()
     build.build_all(["mrf", "mrf_f32", "mrf_narrow"])
     log: dict = {"card": card_line(), "package": str(Path(ops.__file__).parents[1]),
-                 "build_s": time.perf_counter() - t0, "sha1": {}, "narrow_ms": {}}
+                 "build_s": time.perf_counter() - t0, "sha1": {}, "sha1_narrow": {},
+                 "narrow_ms": {}}
     print(f"[k2-shapes-rows] {log['package']} on {log['card']}")
     for name, h in (("v1", UNIVERSAL_V1), ("v2", HIFIGAN_V2), ("v3", HIFIGAN_V3)):
         for dt in (torch.float32, torch.bfloat16):
@@ -11299,14 +11348,20 @@ def k2_shapes_rows_mode(out_name: str) -> int:
                                 calls.append(lambda a=a, c1=c1, c2=c2, x=x, acc=acc: mrf.mrf_pair(
                                     a, c1, c2, x, acc, 0.5, True, True))
                                 keys.append(mrf.launch_key("mrf_pair", c1))
-                outs = [t for c in calls for t in c()]
+                outs, narrow = [], []  # the wide kernels' outputs; V2's narrow ones
+                for k, c in zip(keys, calls):
+                    (narrow if k.startswith("narrow") else outs).extend(c())
                 if name == "v1" or dt == torch.float32:
                     a = mrf.conv_pre(mel.to(dt), cwp)
                     for i, (rbs, ups) in enumerate(kw):
                         a = mrf.mrf_stage(None, rbs, ups, a, want_operand=i < len(kw) - 1)
-                        outs.append(a)
+                        wide = all(mrf.wide(*c.w.shape[1:]) for rb in rbs for pair in rb
+                                   for c in (*pair, ups.folded) if c is not None)
+                        (outs if wide else narrow).append(a)
                 log["sha1"][f"{name} {mode} B{B}"] = _sha1(outs)
-                del outs
+                if narrow:
+                    log["sha1_narrow"][f"{name} {mode} B{B} narrow"] = _sha1(narrow)
+                del outs, narrow
                 if name == "v2" and B == 16:
                     for k, c in zip(keys, calls):
                         if k.startswith("narrow"):
@@ -11320,26 +11375,34 @@ def k2_shapes_rows_mode(out_name: str) -> int:
             torch.manual_seed(C2_SEED[tag])
             gen = HiFiGAN(HiFiGANConfig.from_dict(h), Policy(dt)).cuda().eval()
             mode = "f32" if dt == torch.float32 else "bf16"
-            if tag == "c2_deep":  # its convs below 8 channels keep the parent's FFMA order
-                g = torch.Generator(device="cuda")
-                g.manual_seed(SEED + 132)
-                for B in C2_ROWS:
-                    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
-                    T, outs = 64, []
-                    for rbs, ups in gen.kernel_weights():
-                        if ups.folded is not None and ups.folded.w.shape[1] < 8:
-                            a = mrf.operand(rnd(B, T, ups.w.shape[1]), dt)
-                            outs += mrf.mrf_conv(a, ups.folded, want_act=True)[:2]
-                        T *= ups.stride
-                        C = ups.w.shape[2]
-                        if C >= 8:
-                            continue
-                        x, acc = rnd(B, T, C), rnd(B, T, C)
-                        a = mrf.operand(x, dt)
-                        convs = [cw for rb in rbs for pair in rb for cw in pair if cw is not None]
-                        for cw in convs:
-                            outs += mrf.mrf_conv(a, cw, x, acc, 0.5, True, True)
-                    log["sha1"][f"c2_deep_co_under_8 {mode} B{B}"] = _sha1(outs)
+            # c2_deep's convs below 8 channels keep the parent's FFMA order,
+            # c2_wide's narrow convs the parent's narrow_mma_kernel bits
+            held = {"c2_deep": ("c2_deep_co_under_8", lambda Co, Ci: Co < 8),
+                    "c2_wide": ("c2_wide_tensor_cores", lambda Co, Ci: not mrf.wide(Co, Ci))}
+            digest, keep = held[tag]
+            g = torch.Generator(device="cuda")
+            g.manual_seed(SEED + 132)
+            for B in C2_ROWS:
+                rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+                T, outs = 64, []
+                cwp = gen.conv_pre_weights()
+                if keep(*cwp.w.shape[1:]):
+                    outs.append(mrf.conv_pre(rnd(B, T, h["num_mels"]).to(dt), cwp))
+                for rbs, ups in gen.kernel_weights():
+                    if ups.folded is not None and keep(*ups.folded.w.shape[1:]):
+                        a = mrf.operand(rnd(B, T, ups.w.shape[1]), dt)
+                        outs += mrf.mrf_conv(a, ups.folded, want_act=True)[:2]
+                    T *= ups.stride
+                    C = ups.w.shape[2]
+                    if not keep(C, C):
+                        continue
+                    x, acc = rnd(B, T, C), rnd(B, T, C)
+                    a = mrf.operand(x, dt)
+                    convs = [cw for rb in rbs for pair in rb for cw in pair if cw is not None]
+                    for cw in convs:
+                        outs += mrf.mrf_conv(a, cw, x, acc, 0.5, True, True)
+                log["sha1"][f"{digest} {mode} B{B}"] = _sha1(outs)
+                del outs
             for B in C2_ROWS:
                 for r in k2_timing(gen, C2_FRAMES, B, False, (2, 2), True):
                     if r["name"].startswith("narrow"):
@@ -11348,7 +11411,22 @@ def k2_shapes_rows_mode(out_name: str) -> int:
                                                   "bound_ms", "bound_by", "traffic_ms", "per")}
                 torch.cuda.empty_cache()
             del gen
+    from tacotron2_tpu_torch.run.say import vocode_bucket
+
+    for dt in (torch.float32, torch.bfloat16):  # V2's narrow rows at the say's bucket
+        torch.manual_seed(V2V3_SEED["v2"])
+        gen = HiFiGAN(HiFiGANConfig.from_dict(HIFIGAN_V2), Policy(dt)).cuda().eval()
+        Tb = vocode_bucket(gen, V2V3_FRAMES - 1)
+        for B in V2V3_ROWS:
+            for r in k2_timing(gen, Tb, B, False, (1, 2) if B >= 64 else (2, 2), True):
+                if r["name"].startswith("narrow"):
+                    log["narrow_rows"][f"{r['name']}[v2] B{B}"] = {
+                        k: r.get(k) for k in ("ms", "library_ms", "library_bf16_ms", "bound_ms",
+                                              "bound_by", "traffic_ms", "per")}
+            torch.cuda.empty_cache()
+        del gen
     print("  " + "; ".join(f"{k} {v[:10]}" for k, v in log["sha1"].items()))
+    print("  not held: " + "; ".join(f"{k} {v[:10]}" for k, v in log["sha1_narrow"].items()))
     print("  V2's narrow entries at 16 rows, device ms summed over a vocode's calls: "
           + "; ".join(f"{k} {v:.4f}" for k, v in log["narrow_ms"].items()))
     print(f"  the C2 generators' narrow rows ({C2_FRAMES} frames), device ms (cuDNN f32 / bf16; "
@@ -11363,11 +11441,14 @@ def k2_shapes_rows_mode(out_name: str) -> int:
 def k2_shapes_ab() -> int:
     """``--k2-shapes-ab``: the parent's K2 against this tree's in turns
     (``ab_turns`` of ``--k2-shapes-rows``); the results go to
-    chiprun_out/k2_shapes_ab.json. Fails unless every digest (the wide
-    kernels', V2's narrow instances' and c2_deep's convs below 8 channels'
-    outputs) is the same in all four turns: the redesigned narrow kernel
-    keeps the parent's bits on the routes it did not redesign. Prints the
-    C2 generators' narrow rows in turns beside cuDNN and the bound."""
+    chiprun_out/k2_shapes_ab.json. Fails unless every held digest (the wide
+    kernels' outputs, V2's among them, c2_deep's convs below 8 channels' and
+    c2_wide's tensor-core convs') is the same in all four turns: the
+    redesigned narrow kernel keeps the parent's bits on the routes it did
+    not redesign. V2's narrow outputs (the small route, which a parent
+    without it computes in another order) are reported, each tree's
+    against itself. Prints the C2 generators' and
+    V2's narrow rows in turns beside cuDNN and the bound."""
     turns = ab_turns("--k2-shapes-rows", "k2_shapes_rows")
     if turns is None:
         return 2
@@ -11386,7 +11467,11 @@ def k2_shapes_ab() -> int:
                 f"{v['bound_ms']:.4f} {v['bound_by']})")
     shas = [t.get("sha1", {}) for t in turns]
     same = bool(shas[0]) and all(s == shas[0] for s in shas[1:])
-    print(f"  every digest equal in all four turns, parent and change: {same}")
+    print(f"  every held digest equal in all four turns, parent and change: {same}")
+    narrow = [t.get("sha1_narrow", {}) for t in turns]
+    print("  V2's narrow outputs, each tree's turns equal: parent "
+          f"{narrow[0] == narrow[3]}, change {narrow[1] == narrow[2]}; parent and change equal: "
+          f"{narrow[0] == narrow[1]}")
     (OUT_DIR / "k2_shapes_ab.json").write_text(json.dumps({"turns": turns, "bits_equal": same},
                                                           indent=1))
     if not same:
@@ -11396,43 +11481,48 @@ def k2_shapes_ab() -> int:
     return max(t["rc"] for t in turns)
 
 
-# design copies of csrc/mrf_narrow.cu for ``--narrow-design``: parts of the
-# tensor-core route taken out (their outputs are wrong; only their times are
-# read), to see where a launch's time goes
-NARROW_DESIGN = (
-    ("no_mma", [(r"wgmma_rs<N, false>\(acc, ah\[k\], bh\);", "(void)0;"),
-                *[(r"if constexpr \(\(kTf32Passes & %d\) != 0\) wgmma_rs<N, true>\(part, "
-                   r"%s\[k\], %s\);" % pas, "") for pas in ((1, "al", "bh"), (2, "ah", "bl"),
-                                                              (4, "ah", "bh"))]]),
-    ("no_stage", [(r"  mma_stage<Op>\(slab, a, b, T, Ci, x0, rows, ra, rb, 0, "
-                   r"min\(ck, ci_pad\), pe\);", "")]),
-    ("no_epilogue", [(r"const int nout = nrows \* ncols;", "const int nout = 0 * ncols;")]),
-    ("no_weights", [(r"if \(s \+ kRing - 1 < steps\) load_next\(\(s \+ kRing - 1\) % kRing\);", ""),
-                    (r"if \(s < steps\) load_next\(s\);", "")]),
-    ("no_prefetch", [(r"m\.pre_off = p->smem \+ pre <= kSoftSmem \? \(int\)p->smem : 0;",
-                      "m.pre_off = 0;")]),
-    ("steps4", [(r"constexpr int kStepTiles = 8;", "constexpr int kStepTiles = 4;")]),
-    ("fill_f32", [(r"const int fill = es == 4 \? kFillBlocks / 2 : kFillBlocks;",
-                   "const int fill = kFillBlocks;"),
-                  (r"while \(es == 4 \? m\.ct < ct0 : 2 \* m\.ct <= ct0\)",
-                   "while (2 * m.ct <= ct0)")]),
+# the small route's (narrow_small_kernel) design copies: its products (and
+# the weight fragments' reads), its epilogue's stores, the weights' copy and
+# the epilogue tiles' prefetch taken out, f32's three TF32 passes cut to one
+# (a_hi w_hi), registers for three blocks an SM, and ``on_mma``: the same
+# shapes on narrow_mma_kernel (a pair as its two launches, the intermediate
+# through global memory), what a pair mode of that kernel could at best save
+SMALL_DESIGN = (
+    ("on_mma", [(r"const bool small = \(Co == 8 \|\| Co == 16\) && \(Ci == 8 \|\| Ci == 16\);",
+                 "const bool small = false;")]),
+    ("no_mma", [(r"if constexpr \(\(kTf32Passes & %d\) != 0\) mma_tf32\(part\[n\], %s, "
+                 r"bw\[n\]\[s\]\[%d\], bw\[n\]\[s\]\[%d\]\);" % pas, "")
+                for pas in ((1, "al", 0, 1), (2, "ah", 2, 3), (4, "ah", 0, 1))]
+     + [(r"mma_k8\(acc\[m\]\[n\], a2, bw\[n\]\[0\]\[0\]\);", "(void)0;"),
+        (r"mma_k16\(acc\[m\]\[n\], a4, bw\[n\]\[0\]\[0\], bw\[n\]\[0\]\[1\]\);",
+         "(void)0;")]),
+    ("no_epilogue", [(r"for \(int i = tid; i < nrows \* NT; i \+= kSmallThreads\)",
+                      "for (int i = tid; i < 0 * NT; i += kSmallThreads)")]),
+    ("no_weights", [(r"for \(int i = tid; i < p\.w_units; i \+= kSmallThreads\)",
+                     "for (int i = tid; i < 0; i += kSmallThreads)")]),
+    ("no_prefetch", [(r"for \(int i = tid; i < nrows \* CO / 4; i \+= kSmallThreads\)",
+                      "for (int i = tid; i < 0; i += kSmallThreads)")]),
+    ("one_pass", [(r"constexpr int kTf32Passes = 7;", "constexpr int kTf32Passes = 4;")]),
+    ("blocks3", [(r"__launch_bounds__\(kSmallThreads, 2\)",
+                  "__launch_bounds__(kSmallThreads, 3)")]),
 )
-
-
-# (rows, T, Co, Ci, K, dilation) of c2_wide's convs at one and 16 rows of
-# 128 frames
-NARROW_DESIGN_CONVS = ((1, 1024, 200, 200, 11, 1), (1, 1024, 200, 200, 3, 1),
-                       (1, 8192, 100, 100, 11, 1), (1, 16384, 50, 50, 11, 5),
-                       (1, 32768, 25, 25, 3, 1), (1, 32768, 25, 25, 11, 5),
-                       (16, 1024, 200, 200, 11, 1), (16, 8192, 100, 100, 7, 3),
-                       (16, 16384, 50, 50, 7, 3), (16, 32768, 25, 25, 7, 3))
+# (rows, T, C, K, dilation, pair): V2's small-route calls at 1 / 16 / 64 rows
+# of the say's 384-frame bucket (stage 3 at T = 49,152, stage 4 at 98,304;
+# the last upsample's fold 16 -> 2 x 8 a single 3-tap conv at 49,152), and
+# c2_deep's at 1 / 16 rows of 128 frames (T = 2,048 at 16, 4,096 at 8)
+SMALL_DESIGN_CALLS = ((1, 49152, 16, 11, 5, True), (1, 49152, 16, 3, 1, True),
+                      (1, 98304, 8, 11, 5, True), (1, 49152, 16, 3, 1, False),
+                      (16, 49152, 16, 11, 5, True), (16, 98304, 8, 7, 3, True),
+                      (64, 49152, 16, 7, 3, True), (64, 98304, 8, 11, 5, True),
+                      (1, 2048, 16, 11, 5, True), (1, 4096, 8, 11, 5, True),
+                      (16, 2048, 16, 7, 3, True), (16, 4096, 8, 3, 1, True))
 
 
 def narrow_design() -> int:
-    """``--narrow-design``: the tensor-core route of csrc/mrf_narrow.cu and
-    its NARROW_DESIGN copies (built under build/narrow_design) timed in
-    turns on NARROW_DESIGN_CONVS (the residual, act and stage-mean epilogue,
-    as a resblock's conv), f32 and bf16, device us a launch;
+    """``--narrow-design``: the narrow kernel's small route and its
+    SMALL_DESIGN copies (built under build/narrow_design) timed in turns on
+    SMALL_DESIGN_CALLS, f32 and bf16, device us a launch (``on_mma``: a
+    pair's two), the residual, act and stage-mean epilogue as a resblock's;
     chiprun_out/narrow_design.json."""
     import ctypes
 
@@ -11444,29 +11534,53 @@ def narrow_design() -> int:
     use_f32_math()
     card = card_line()
     t0 = time.perf_counter()
-    wait = build_copies("mrf_narrow", NARROW_DESIGN, ROOT / "build" / "narrow_design", wait=False)
+    wait = build_copies("mrf_narrow", SMALL_DESIGN, ROOT / "build" / "narrow_design", wait=False)
     build.build_all(["mrf_narrow"])
     libs = {"source": None, **wait()}
     log: dict = {"card": card, "build_s": time.perf_counter() - t0, "us": {}}
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 140)
-    saved = mrf._lib_narrow()
+    saved, small = mrf._lib_narrow(), mrf.narrow_small
     for dt in (torch.float32, torch.bfloat16):
-        for B, T, Co, Ci, K, d in NARROW_DESIGN_CONVS:
-            w = (torch.randn(K, Co, Ci, device="cuda", generator=g) * 0.1).to(dt)
-            cw = mrf.ConvWeights(w, torch.zeros(Co, device="cuda"), d, mrf.tile_conv(w))
-            a = torch.randn(B, T, Ci, device="cuda", generator=g).to(dt)
-            x, acc = (torch.randn(B, T, Co, device="cuda", generator=g) for _ in range(2))
+        for B, T, C, K, d, pair in SMALL_DESIGN_CALLS:
+            w = [(torch.randn(K, C, C, device="cuda", generator=g) * 0.1).to(dt)
+                 for _ in range(2 if pair else 1)]
+            z = torch.zeros(C, device="cuda")
+            a = torch.randn(B, T, C, device="cuda", generator=g).to(dt)
+            x, acc = (torch.randn(B, T, C, device="cuda", generator=g) for _ in range(2))
+            # the weight copies of both layouts: the small route's, and
+            # narrow_mma_kernel's (what tile_conv makes where narrow_small is false)
+            cws = {}
+            for mma in (False, True):
+                mrf.narrow_small = (lambda Co, Ci: False) if mma else small
+                cws[mma] = [mrf.ConvWeights(wi, z, dil, mrf.tile_conv(wi))
+                            for wi, dil in zip(w, (d, 1))]
+            mrf.narrow_small = small
+
+            def run(mma):
+                cw = cws[mma]
+                if not pair:
+                    return mrf.mrf_conv(a, cw[0], x, acc, 0.5, True, True)
+                if not mma:
+                    return mrf.mrf_pair(a, cw[0], cw[1], x, acc, 0.5, True, True)
+                _, at, _ = mrf.mrf_conv(a, cw[0], want_y=False, want_act=True)
+                return mrf.mrf_conv(at, cw[1], x, acc, 0.5, True, True)
+
             row = {}
             for rnd in range(2):
                 for name in (list(libs) if rnd == 0 else list(libs)[::-1]):
                     mrf._LIB_NARROW = saved if libs[name] is None else mrf.bind(
                         mrf.bind(ctypes.CDLL(str(libs[name])), "", "narrow"), "_f32", "narrow")
-                    us = time_ms(lambda: mrf.mrf_conv(a, cw, x, acc, 0.5, True, True),
-                                 5 if B == 1 else 2, 10 if B == 1 else 3) * 1e3
-                    row.setdefault(name, []).append(us)
+                    mma = name == "on_mma"
+                    mrf.narrow_small = (lambda Co, Ci: False) if mma else small
+                    try:
+                        us = time_ms(lambda: run(mma), 5 if B == 1 else 2, 10 if B == 1 else 3)
+                    finally:
+                        mrf.narrow_small = small
+                    row.setdefault(name, []).append(us * 1e3)
             mrf._LIB_NARROW = saved
-            key = f"{'f32' if dt == torch.float32 else 'bf16'} B{B} T{T} {Co}<-{Ci} k{K} d{d}"
+            key = (f"{'f32' if dt == torch.float32 else 'bf16'} B{B} T{T} C{C} k{K} d{d}"
+                   + (" pair" if pair else ""))
             log["us"][key] = row
             print(f"  {key}: " + "; ".join(f"{n} {min(v):.1f}" for n, v in row.items()))
     OUT_DIR.mkdir(exist_ok=True)
@@ -11560,7 +11674,7 @@ def main() -> int:
 
         t0 = time.perf_counter()
         pass_copies = k2f_pass_copies()  # built beside the kernels, held in phase 3f
-        defect_narrow = narrow_copies()  # and the narrow kernel's, held in phase 4l
+        defect_narrow = narrow_copies()  # and the narrow kernel's, held in phases 4l and 4n
         defect_k1f = k1f_copies()  # and K1's f32 entries', held in phase 4m
         defect_shapes = shape_copies()  # and the narrow kernel's at the new shapes, in 4n
         logs = build.build_all()
@@ -11762,7 +11876,7 @@ def main() -> int:
               f"narrow kernel at any Co and Ci, JAX's XLA routes on stock ops) against the plain "
               f"versions at {list(C2_ROWS)} rows, and a model whose two LSTM widths differ "
               f"(rnn_hidden_dim {C3_RNN})")
-        c2_rows, c2_launches = vocoder_shapes_phase(log, card, defect_shapes)
+        c2_rows, c2_launches = vocoder_shapes_phase(log, card, defect_shapes, defect_narrow)
         launches.update(c2_launches)
         rows += c2_rows
         lap("4n vocoder shapes")

@@ -35,7 +35,37 @@
 //
 // Three routes, by shape (narrow_plan):
 //
-// - Co >= 8 (but V2's shapes below): narrow_mma_kernel, an implicit GEMM
+// - Ci and Co 8 or 16 (HiFi-GAN V2's stages 3-4, its last upsample's fold
+//   16 -> 2 x 8, c2_deep's C = 16 / 8 pairs and folds), and the fused pair:
+//   narrow_small_kernel<Op, CI, CO, PAIR>, an implicit GEMM on mma.sync
+//   (bf16 m16n8k16 at 16 input channels, m16n8k8 at 8; f32 m16n8k8 TF32 as
+//   the three-pass split below). Bound, per launch, by bytes: a pair moves
+//   ~18 bytes a sample and channel in f32 (operand, res, y, act, the stage
+//   mean) against its 2 k C flops, and at one row by its round trips. So a
+//   block takes 128 outputs of one row (8 warps, an m16 tile each: V2's
+//   stages 3-4 at one row of the 384-frame bucket 384 / 768 blocks,
+//   c2_deep's 16 / 32) and makes one round trip: the whole weight copy of
+//   both convs (made once at load in the B fragments' order,
+//   ops/mrf.py::tile_conv: 5.6 KB a conv at C = 16, K = 11 in bf16, 22.5 KB
+//   in f32 with its hi / lo planes), the operand's rows with their dilated
+//   halo (SAME padding, zero outside [0, T)) and the epilogue's res / acc_in
+//   tiles come by cp.async at its start, one wait, then every tap's products
+//   without a barrier: A by ldmatrix of the staged rows at the tap's shift
+//   (rows padded to an odd number of 16-byte units, so the eight row
+//   addresses fall on distinct banks), B a lane's fragment in one load. The
+//   pair's first conv runs over its 128 outputs and kSmallLead rows on each
+//   side (9 m16 tiles), writes its operand op(lrelu(v + bias1)) over the
+//   slab, 0 outside [0, T) (the second conv's SAME padding), and the second
+//   conv (dilation 1) reads it there: one launch, no intermediate in device
+//   memory. The epilogue goes through shared memory, a thread 8 channels of
+//   a row (16-byte accesses). What holds it back on the card (NVIDIA H100
+//   80GB HBM3, 700.00 W; chip_smoke.py --narrow-design, parts taken out in
+//   turns): at one row a launch's round trip, 4-27 us; at 16 and 64 rows in
+//   f32 the three TF32 passes (without the products a V2 pair at 64 rows
+//   takes 443-456 us against 772-856), in bf16 the epilogue's stores. The
+//   same convs on narrow_mma_kernel (a pair as its two launches) take 2-7x
+//   as long.
+// - Co >= 8 at every other shape: narrow_mma_kernel, an implicit GEMM
 //   on the tensor cores. Bound, per launch: bytes in bf16 (c2_wide's convs
 //   move 10-20 bytes a sample and channel through the residual, stage-mean
 //   and operand epilogue, against 2 k Ci flops at 989 TFLOP/s), operations
@@ -44,16 +74,14 @@
 //   up to 8 a block, K the taps x Ci padded to the k tile (16 bf16, 8 tf32).
 //   wgmma m64nNk16 bf16 / m64nNk8 tf32 with A from registers: a warp's A
 //   fragment is ldmatrix of its 16 samples of the staged operand at the
-//   tap's shift (the rows padded to an odd number of 16-byte units, so the
-//   eight row addresses fall on distinct banks; tap j reads the same rows
-//   shifted by j dil: no copy a tap), B the weights in shared memory in the
+//   tap's shift (as above), B the weights in shared memory in the
 //   K-major no-swizzle core-matrix layout. f32: the three-pass TF32 split of
 //   csrc/mrf_f32.cu, a_lo w_hi + a_hi w_lo + a_hi w_hi (a split in
 //   registers: hi = tf32_rna(a), lo = tf32_rna(a - hi); the weights' hi and
 //   lo planes from the copy), each step's products in their own registers
-//   added rounded to nearest into the running sums (the tensor cores'
-//   accumulation truncates; kTf32Passes names the passes for the planted
-//   defects). A block stages its operand once for its output channels: rows
+//   added rounded to nearest (the tensor cores' accumulation truncates;
+//   kTf32Passes names the passes for the planted defects, on both tensor-core
+//   routes). A block stages its operand once for its output channels: rows
 //   x0 .. x0 + rows - 1 of one batch row over all Ci are one contiguous run
 //   of a (B, T, Ci), read as 16-byte pieces and laid out [row][channel] in
 //   shared memory, the channels padded with zeros to the k tile (odd Ci: 50
@@ -85,23 +113,15 @@
 //   read) and the slice's weights [channel][tap][G] (the copy (Ci, K, Co)).
 //   Blocks of 128 samples fill the card at one row (c2_deep's C = 4, 2, 1:
 //   64 to 256 blocks).
-// - Co 8 or 16 with Ci a multiple of 8, and the fused pair:
-//   narrow_conv_kernel<Op, CO, PAIR> (HiFi-GAN V2's convs), the FFMA design
-//   above at its compile-time shape: BT = 128 R samples (R = 64 / CO a
-//   thread, rows tid + 128 r), 16 or 8 channels a slice.
 //
-// Sums: each output's sum runs in one order whatever B: over (input-channel
-// chunk, tap, k tile) on the tensor cores (f32: in sets of a weight step,
-// whose size follows T and Co, never B), over (input channel, tap) on the
-// CUDA cores whatever the tile. So a served request's audio does
-// not depend on its window, and the fused pair gives the bits of its two
-// launches (chip_smoke.py holds both).
-//
-// PAIR (Ci = Co = CO = kc, 8 or 16): the block computes the first conv over
-// its BT rows starting (K - 1) / 2 before its outputs, writes the operand of
-// its output (0 outside [0, T): the second conv's padding) into shared
-// memory over the staged operand, loads the second conv's weights over the
-// first's and runs the second conv on it: BT - (K - 1) outputs a block.
+// Sums: each output's sum runs in one order per (shape, mode) whatever B
+// and T: over (tap, k step, pass) on the small route (f32: a tap's passes in
+// their own registers), over (input-channel chunk, tap, k tile) on
+// narrow_mma_kernel (f32: in sets of a weight step, whose size follows T and
+// Co, never B), over (input channel, tap) on the CUDA cores. So a served
+// request's audio does not depend on its window, and the fused pair gives
+// the bits of its two launches: a single conv and the pair's second conv run
+// the same code (small_conv; chip_smoke.py holds both).
 //
 // Every entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError() (cudaErrorInvalidValue for dimensions it does
@@ -121,7 +141,6 @@ typedef __nv_bfloat16 bf16;
 
 constexpr float kSlope = 0.1f;
 constexpr int kThreads = 128;     // a block's threads, every route
-constexpr int kAccum = 64;        // f32 sums a thread of narrow_conv_kernel: R samples x CO
 constexpr int kFfmaRows = 1;      // samples a thread of narrow_group_kernel
 constexpr int kMmaThreads = 256;  // a block of narrow_mma_kernel: two warpgroups
 constexpr int kMmaRows = 128;     // its samples: 64 a warpgroup, 16 a warp
@@ -133,6 +152,10 @@ constexpr int kFillBlocks = 132;  // the card's SMs: N splits until a launch has
 constexpr int kTf32Passes = 7;    // 1 a_lo w_hi, 2 a_hi w_lo, 4 a_hi w_hi
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr size_t kSoftSmem = 113 * 1024;  // two blocks an SM
+constexpr int kSmallThreads = 256;  // a block of narrow_small_kernel: 8 warps, an m16 tile each
+constexpr int kSmallRows = 128;     // its outputs
+constexpr int kSmallLead = 8;       // rows the pair's first conv starts before them (K <= 17)
+constexpr int kSmallPitchO = 24;    // its epilogue tile's row pitch, floats
 
 __device__ __forceinline__ float lrelu(float x) { return x > 0.0f ? x : kSlope * x; }
 
@@ -197,35 +220,35 @@ __device__ __forceinline__ void accumulate(float (&acc)[R][G], const float* sa, 
 
 // Stage one slice: the operand's channels c0 .. c0 + nci - 1 of rows x0 ..
 // x0 + rows - 1 of batch row b into sa as [channel][row] (rows_p apart, 0
-// outside [0, T)), and the weights of those channels for output channels g0
-// .. g0 + ng - 1 into sw as [channel][tap][G] (0 past ng). a (B, T, Ci) and
-// wt (Ci, K, Co) in the operand type. Where the group is all of Co (every
-// narrow_conv_kernel launch) the slice's weights are one run, copied as is.
+// outside [0, T)), and the weights of those channels into sw as
+// [channel][tap][G] (0 past Co). a (B, T, Ci) and wt (Ci, K, Co) in the
+// operand type. Where Co is G (a power of two) the slice's weights are one
+// run, copied as is.
 template <int G, typename Op>
 __device__ __forceinline__ void stage_slice(float* __restrict__ sa, float* __restrict__ sw,
                                             const Op* __restrict__ a, const Op* __restrict__ wt,
                                             int b, int T, int Ci, int Co, int K, int c0, int nci,
-                                            int g0, int ng, int x0, int rows, int rows_p) {
+                                            int x0, int rows, int rows_p) {
   const int tid = threadIdx.x;
   for (int i = tid; i < rows * nci; i += kThreads) {
     const int row = i / nci, cc = i - row * nci, t = x0 + row;
     sa[cc * rows_p + row] =
         (t >= 0 && t < T) ? to_f32(a[((size_t)b * T + t) * Ci + c0 + cc]) : 0.0f;
   }
-  if (Co == G && ng == G) {
+  if (Co == G) {
     const Op* ws = wt + (size_t)c0 * K * G;
     for (int i = tid; i < nci * K * G; i += kThreads) sw[i] = to_f32(ws[i]);
     return;
   }
   for (int i = tid; i < nci * K * G; i += kThreads) {
     const int cj = i / G, q = i - cj * G;  // cj = channel * K + tap
-    sw[i] = q < ng ? to_f32(wt[((size_t)c0 * K + cj) * Co + g0 + q]) : 0.0f;
+    sw[i] = q < Co ? to_f32(wt[((size_t)c0 * K + cj) * Co + q]) : 0.0f;
   }
 }
 
 // The stores of one output value v (the sum, rounded with mode & 8, plus
 // the bias and the residual) at o: y, act and acc_out (mode as
-// narrow_conv_kernel's; a = acc_in[o] where mode & 3 is 2)
+// narrow_group_kernel's; a = acc_in[o] where mode & 3 is 2)
 template <typename Op>
 __device__ __forceinline__ void epilogue_store(float v, float a, size_t o,
                                                void* __restrict__ acc_out, float* __restrict__ y,
@@ -253,7 +276,7 @@ __device__ __forceinline__ void epilogue_out(float v, size_t o, const float* __r
 
 // The epilogue of one output row: v = the sums acc (rounded to the operand
 // type with mode & 8) + bias bo, + res, then y, act and acc_out (mode as
-// narrow_conv_kernel's) for the row's ng channels from o on; vec: float4 /
+// narrow_group_kernel's) for the row's ng channels from o on; vec: float4 /
 // bf16-pair accesses (ng % 4 == 0 and o 16-byte aligned), else one channel
 // at a time.
 template <typename Op, int G>
@@ -316,87 +339,16 @@ __device__ __forceinline__ void epilogue_row(const float (&acc)[G], const float*
   }
 }
 
-// grid (ceil(T / BMo), B), block kThreads, dynamic shared memory (kc K CO +
-// kc rows_p) floats: the weights of a slice first (16-byte aligned for the
-// float4 reads), then the operand's slice, rows_p >= BT + dil (K - 1), odd.
-// a (B, T, Ci) and the weight copy wt (Ci, K, CO) in the operand type Op;
-// bias (CO) f32; res, acc_in, y (B, T, CO) f32 and act (B, T, CO) Op where
-// given; acc_out (B, T, CO) f32, or Op with mode & 4 (mode & 3 = 0: no
-// acc_out; 1: acc_out = scale v; 2: acc_out = acc_in + scale v; mode & 4:
-// acc_out gets op(lrelu(that sum)); mode & 8: the sum rounded to Op before
-// the bias). PAIR: wt2 (CO, K, CO) and bias2, the second conv (dilation 1).
-template <typename Op, int CO, bool PAIR>
-__global__ void __launch_bounds__(kThreads)
-narrow_conv_kernel(const Op* __restrict__ a, const Op* __restrict__ wt,
-                   const float* __restrict__ bias, const Op* __restrict__ wt2,
-                   const float* __restrict__ bias2, const float* __restrict__ res,
-                   const float* __restrict__ acc_in, void* __restrict__ acc_out,
-                   float* __restrict__ y, Op* __restrict__ act, int T, int Ci, int K, int dil,
-                   int kc, int rows_p, int mode, float scale) {
-  constexpr int R = kAccum / CO;     // samples a thread
-  constexpr int BT = kThreads * R;   // the first conv's rows a block
-  extern __shared__ float4 narrow_raw[];
-  float* sw = reinterpret_cast<float*>(narrow_raw);
-  float* sa = sw + kc * K * CO;
-  const int tid = threadIdx.x;
-  const int bmo = PAIR ? BT - (K - 1) : BT;
-  const int t0 = blockIdx.x * bmo, b = blockIdx.y;
-  const int r0 = PAIR ? t0 - (K - 1) / 2 : t0;  // the first row of the first conv's tile
-  const int x0 = r0 - dil * (K - 1) / 2;       // the first operand row it reads
-  const int rows = BT + dil * (K - 1);
-  float acc[R][CO];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int co = 0; co < CO; ++co) acc[r][co] = 0.0f;
-
-  for (int c0 = 0; c0 < Ci; c0 += kc) {
-    __syncthreads();  // every thread is done with the previous slice
-    stage_slice<CO>(sa, sw, a, wt, b, T, Ci, CO, K, c0, kc, 0, CO, x0, rows, rows_p);
-    __syncthreads();
-    accumulate<R, CO>(acc, sa, rows_p, sw, kc, K, dil);
-  }
-
-  if constexpr (PAIR) {
-    // the first conv's operand, rows r0 .. r0 + BT - 1, as [CO][rows_p] over
-    // the staged operand (kc == CO), rows BT .. BT + K - 2 zero (read only
-    // for outputs past BMo); the second conv's weights over the first's
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int lr = tid + kThreads * r, t = r0 + lr;
-      const bool in = t >= 0 && t < T;
-#pragma unroll
-      for (int co = 0; co < CO; ++co) {
-        sa[co * rows_p + lr] = in ? round_op<Op>(lrelu(acc[r][co] + bias[co])) : 0.0f;
-        acc[r][co] = 0.0f;
-      }
-    }
-    for (int i = tid; i < CO * (K - 1); i += kThreads)
-      sa[(i / (K - 1)) * rows_p + BT + i % (K - 1)] = 0.0f;
-    for (int i = tid; i < CO * K * CO; i += kThreads) sw[i] = to_f32(wt2[i]);
-    __syncthreads();
-    accumulate<R, CO>(acc, sa, rows_p, sw, CO, K, 1);
-  }
-
-  // epilogue (of the second conv where PAIR)
-  const float* bo = PAIR ? bias2 : bias;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int lr = tid + kThreads * r, t = t0 + lr;
-    if (lr >= bmo || t >= T) continue;
-    epilogue_row<Op, CO>(acc[r], bo, CO, true, ((size_t)b * T + t) * CO, res, acc_in, acc_out,
-                         y, act, mode, scale);
-  }
-}
-
 // narrow_group_kernel: Co < 8 (G = the least power of two >= Co), any Ci.
 // grid (ceil(T / BT), B), block kThreads, dynamic shared memory (kc K G +
 // kc rows_p) floats: the weights of a slice first (16-byte aligned for the
 // float4 reads), then the operand's slice, rows_p >= BT + dil (K - 1), odd.
 // a (B, T, Ci) and the weight copy wt (Ci, K, Co) in the operand type Op;
 // bias (Co) f32; res, acc_in, y (B, T, Co) f32 and act (B, T, Co) Op where
-// given; acc_out as narrow_conv_kernel's (mode as there).
+// given; acc_out (B, T, Co) f32, or Op with mode & 4 (mode & 3 = 0: no
+// acc_out; 1: acc_out = scale v; 2: acc_out = acc_in + scale v; mode & 4:
+// acc_out gets op(lrelu(that sum)); mode & 8: the sum rounded to Op before
+// the bias). Every route takes the same outputs and modes.
 template <typename Op, int G>
 __global__ void __launch_bounds__(kThreads)
 narrow_group_kernel(const Op* __restrict__ a, const Op* __restrict__ wt,
@@ -422,7 +374,7 @@ narrow_group_kernel(const Op* __restrict__ a, const Op* __restrict__ wt,
   for (int c0 = 0; c0 < Ci; c0 += kc) {
     const int nci = Ci - c0 < kc ? Ci - c0 : kc;  // the slice's channels (the last may be partial)
     __syncthreads();  // every thread is done with the previous slice
-    stage_slice<G>(sa, sw, a, wt, b, T, Ci, Co, K, c0, nci, 0, Co, x0, rows, rows_p);
+    stage_slice<G>(sa, sw, a, wt, b, T, Ci, Co, K, c0, nci, x0, rows, rows_p);
     __syncthreads();
     accumulate<R, G>(acc, sa, rows_p, sw, nci, K, dil);
   }
@@ -719,7 +671,7 @@ __device__ __forceinline__ void mma_load_w(uint32_t dst, const Op* __restrict__ 
 // loop the epilogue's tile (128 rows x pitch_o floats) over both; the
 // prefetched res and acc_in tiles past them (pre_off). a (B, T, Ci) and
 // the weight copy wt (K, planes, co_pad, ci_pad) in the operand type Op;
-// bias (Co) f32; res, acc_in, y, act and acc_out as narrow_conv_kernel's
+// bias (Co) f32; res, acc_in, y, act and acc_out as narrow_group_kernel's
 // (mode as there). NW: n8 tiles of the wgmma (N = 8 NW = 8 ct; past the
 // chunk's tiles the ring holds stale rows, whose columns are not written).
 // Each step loads its k tiles' A fragments (warp w: samples 16 w .. 16 w +
@@ -913,6 +865,309 @@ narrow_mma_kernel(const Op* __restrict__ a, const Op* __restrict__ wt,
 }
 
 // ---------------------------------------------------------------------------
+// the small route: narrow_small_kernel (Ci and Co 8 or 16, and the pair)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// d += a b: mma.sync m16n8k16 bf16 (a 4 registers, b 2), m16n8k8 bf16 (a 2,
+// b 1) and m16n8k8 tf32 (a 4, b 2), f32 sums
+__device__ __forceinline__ void mma_k16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_k8(float (&d)[4], const uint32_t (&a)[2], uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The copy of one conv of the small route (ops/mrf.py::tile_conv), in the
+// B fragments' order: (K, CO / 8 n8 tiles, k steps, 32 lanes, kSmallE
+// elements), a lane's elements one 4-, 8- or 16-byte load. bf16: one k step
+// of CI (m16n8k16 at 16, m16n8k8 at 8), lane 4 g + t holding w[n = g][k =
+// 2t, 2t + 1 (, 2t + 8, 2t + 9)]; f32: CI / 8 steps of m16n8k8, w[g][t],
+// w[g][t + 4] of the hi plane, then of the lo plane.
+template <typename Op, int CI>
+constexpr int kSmallSteps = sizeof(Op) == 4 ? CI / 8 : 1;
+template <typename Op, int CI>
+constexpr int kSmallE = sizeof(Op) == 4 ? 4 : CI / 4;
+
+// acc[m][n] (the warp's m16 tile warp + 8 m, n8 tile n) += the conv's sums
+// over (tap, k step, pass) in that order: A the slab's rows row0 + 16 (warp
+// + 8 m) + tap dil .. + 15 (pitch 16-byte units a row; ldmatrix of the
+// rows at the tap's shift, no copy a tap), B the tap's fragments of the
+// copy sw. f32: the three-pass TF32 split a_lo w_hi + a_hi w_lo + a_hi w_hi
+// (a split in registers: hi = tf32_rna(a), lo = tf32_rna(a - hi)), a tap's
+// products in their own registers added rounded to nearest (the tensor
+// cores' accumulation truncates). Tiles at or past ntiles are left out. A
+// single conv and the pair's second conv run this same code, so the pair
+// gives the bits of its two launches.
+template <typename Op, int CI, int CO, int MT>
+__device__ __forceinline__ void small_conv(float (&acc)[MT][CO / 8][4], uint32_t slab_s, int pitch,
+                                           int row0, int ntiles, const Op* __restrict__ sw, int K,
+                                           int dil) {
+  constexpr bool kF32 = sizeof(Op) == 4;
+  constexpr int NT = CO / 8, KS = kSmallSteps<Op, CI>, E = kSmallE<Op, CI>;
+  constexpr int W = E * (int)sizeof(Op) / 4;  // 32-bit words a lane's fragment
+  constexpr bool kX2 = !kF32 && CI == 8;      // m16n8k8 bf16: rows of one 16-byte unit
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t a_lane =
+      slab_s + ((row0 + warp * 16 + (lane & 15)) * pitch + (kX2 ? 0 : lane >> 4)) * 16;
+#pragma unroll 1
+  for (int tap = 0; tap < K; ++tap) {
+    uint32_t bw[NT][KS][W];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        const Op* q = sw + ((size_t)((tap * NT + n) * KS + s) * 32 + lane) * E;
+        if constexpr (W == 4) {
+          const uint4 v = *reinterpret_cast<const uint4*>(q);
+          bw[n][s][0] = v.x, bw[n][s][1] = v.y, bw[n][s][2] = v.z, bw[n][s][3] = v.w;
+        } else if constexpr (W == 2) {
+          const uint2 v = *reinterpret_cast<const uint2*>(q);
+          bw[n][s][0] = v.x, bw[n][s][1] = v.y;
+        } else {
+          bw[n][s][0] = *reinterpret_cast<const uint32_t*>(q);
+        }
+      }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (warp + 8 * m >= ntiles) break;
+      const uint32_t am = a_lane + (128 * m + tap * dil) * pitch * 16;
+      if constexpr (kF32) {
+        float part[NT][4] = {};
+#pragma unroll
+        for (int s = 0; s < KS; ++s) {
+          uint32_t ah[4], al[4];
+          ldsm_x4(ah, am + 2 * s * 16);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = __uint_as_float(ah[e]);
+            ah[e] = tf32_rna(x);
+            al[e] = tf32_rna(x - __uint_as_float(ah[e]));
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            if constexpr ((kTf32Passes & 1) != 0) mma_tf32(part[n], al, bw[n][s][0], bw[n][s][1]);
+            if constexpr ((kTf32Passes & 2) != 0) mma_tf32(part[n], ah, bw[n][s][2], bw[n][s][3]);
+            if constexpr ((kTf32Passes & 4) != 0) mma_tf32(part[n], ah, bw[n][s][0], bw[n][s][1]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][n][e] = __fadd_rn(acc[m][n][e], part[n][e]);
+      } else if constexpr (kX2) {
+        uint32_t a2[2];
+        ldsm_x2(a2, am);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_k8(acc[m][n], a2, bw[n][0][0]);
+      } else {
+        uint32_t a4[4];
+        ldsm_x4(a4, am);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_k16(acc[m][n], a4, bw[n][0][0], bw[n][0][1]);
+      }
+    }
+  }
+}
+
+// 8 values of v to p in the operand type, as 16-byte stores
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &h, 4);
+  return u;
+}
+__device__ __forceinline__ void store8(bf16* p, const float* v) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]),
+                                            bf16x2_bits(v[4], v[5]), bf16x2_bits(v[6], v[7]));
+}
+
+__device__ __forceinline__ void load8(float* v, const float* p) {
+  const float4 x = reinterpret_cast<const float4*>(p)[0], z = reinterpret_cast<const float4*>(p)[1];
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w, v[4] = z.x, v[5] = z.y, v[6] = z.z, v[7] = z.w;
+}
+
+// The plan of a narrow_small_kernel launch (narrow_plan)
+struct SmallPlan {
+  int rows;      // slab rows: the first conv's m16 tiles x 16 + dil (K - 1)
+  int pitch;     // the slab's row pitch, 16-byte units (odd)
+  int w_units;   // 16-byte units of one conv's copy
+  int slab_off;  // bytes to the slab (past the weights: both convs' for the pair)
+  int pre_off;   // bytes to the res and acc_in tiles (kSmallRows x CO floats each)
+};
+
+// narrow_small_kernel: Ci = CI and Co = CO, each 8 or 16; PAIR: the fused
+// ResBlock1 pair (CI = CO). grid (ceil(T / kSmallRows), B), kSmallThreads
+// threads (warp w the outputs' m16 tile w), dynamic shared memory p's: the
+// weights (both convs' with PAIR), the slab (operand rows x0 .. x0 + rows -
+// 1 of batch row b, [row][channel], 0 outside [0, T): SAME padding, never the
+// neighbouring batch row), then the res and acc_in tiles where given, all
+// copied by cp.async at the block's start: one wait, then the products, no
+// barrier between taps. PAIR: the first conv runs over the rows t0 -
+// kSmallLead .. t0 + kSmallRows + kSmallLead - 1 (9 m16 tiles, warp 0 two),
+// its operand op(lrelu(v + bias1)) (0 outside [0, T): the second conv's
+// SAME padding) written over the slab, and the second conv (dilation 1)
+// reads it from row kSmallLead - (K - 1) / 2. The epilogue goes through
+// shared memory (a tile over the slab), a thread 8 channels of a row (16-byte
+// accesses; the block's outputs one contiguous run). a (B, T, CI) and the
+// copies wt, wt2 (kSmallE) in the operand type Op; bias, bias2 (CO) f32;
+// res, acc_in, y, act and acc_out as narrow_group_kernel's (mode as there).
+template <typename Op, int CI, int CO, bool PAIR>
+__global__ void __launch_bounds__(kSmallThreads, 2)
+narrow_small_kernel(const Op* __restrict__ a, const Op* __restrict__ wt,
+                    const float* __restrict__ bias, const Op* __restrict__ wt2,
+                    const float* __restrict__ bias2, const float* __restrict__ res,
+                    const float* __restrict__ acc_in, void* __restrict__ acc_out,
+                    float* __restrict__ y, Op* __restrict__ act, int T, int K, int dil, int mode,
+                    float scale, const SmallPlan p) {
+  constexpr int NT = CO / 8;
+  constexpr int EPU = 16 / (int)sizeof(Op);
+  constexpr int UNITS = CI / EPU;  // 16-byte units of an operand row
+  extern __shared__ float4 small_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(small_raw);
+  const uint32_t smem_s = smem_addr(small_raw), slab_s = smem_s + p.slab_off;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t0 = blockIdx.x * kSmallRows, b = blockIdx.y;
+  const int r0 = PAIR ? t0 - kSmallLead : t0;  // the first conv's first row
+  const int x0 = r0 - dil * (K - 1) / 2;       // the slab's first operand row
+  const int nrows = min(kSmallRows, T - t0);
+  const Op* w1 = reinterpret_cast<const Op*>(smem);
+  const Op* w2 = w1 + (size_t)p.w_units * EPU;
+  float* pre_res = reinterpret_cast<float*>(smem + p.pre_off);
+  float* pre_acc = pre_res + (res != nullptr ? kSmallRows * CO : 0);
+
+  // one round trip: the weights, the slab and the epilogue's inputs
+  for (int i = tid; i < p.w_units; i += kSmallThreads) {
+    cp_async16(smem_s + i * 16, reinterpret_cast<const uint4*>(wt) + i);
+    if (PAIR) cp_async16(smem_s + (p.w_units + i) * 16, reinterpret_cast<const uint4*>(wt2) + i);
+  }
+  for (int i = tid; i < p.rows * UNITS; i += kSmallThreads) {
+    const int r = i / UNITS, u = i - r * UNITS, t = x0 + r;
+    const bool in = t >= 0 && t < T;
+    cp_async16_zfill(slab_s + (r * p.pitch + u) * 16,
+                     a + ((size_t)b * T + (in ? t : 0)) * CI + u * EPU, in ? 16 : 0);
+  }
+  const size_t o0 = ((size_t)b * T + t0) * CO;  // the block's outputs: one run
+  for (int i = tid; i < nrows * CO / 4; i += kSmallThreads) {
+    if (res != nullptr) cp_async16(smem_addr(pre_res + 4 * i), res + o0 + 4 * i);
+    if ((mode & 3) == 2) cp_async16(smem_addr(pre_acc + 4 * i), acc_in + o0 + 4 * i);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float acc[1][NT][4] = {};
+  if constexpr (PAIR) {
+    constexpr int kTiles = kSmallRows / 16 + 1;  // the first conv's m16 tiles
+    float acc1[2][NT][4] = {};
+    small_conv<Op, CI, CO, 2>(acc1, slab_s, p.pitch, 0, kTiles, w1, K, dil);
+    __syncthreads();  // every warp is done with the slab
+    const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      if (warp + 8 * m >= kTiles) break;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows g and g + 8 of the tile
+          const int row = 16 * (warp + 8 * m) + g + 8 * h, col = 8 * n + 2 * tq;
+          const int tr = r0 + row;
+          const bool kept = tr >= 0 && tr < T;  // outside [0, T): the second conv's padding
+          const float v0 = kept ? round_op<Op>(lrelu(acc1[m][n][2 * h] + bias[col])) : 0.0f;
+          const float v1 = kept ? round_op<Op>(lrelu(acc1[m][n][2 * h + 1] + bias[col + 1])) : 0.0f;
+          Op* q = reinterpret_cast<Op*>(smem + p.slab_off + row * p.pitch * 16) + col;
+          if constexpr (sizeof(Op) == 4) {
+            *reinterpret_cast<float2*>(q) = make_float2(v0, v1);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(q) = __floats2bfloat162_rn(v0, v1);
+          }
+        }
+    }
+    __syncthreads();
+    small_conv<Op, CO, CO, 1>(acc, slab_s, p.pitch, kSmallLead - (K - 1) / 2, kSmallRows / 16, w2,
+                              K, 1);
+  } else {
+    small_conv<Op, CI, CO, 1>(acc, slab_s, p.pitch, 0, kSmallRows / 16, w1, K, dil);
+  }
+  __syncthreads();  // the weights and the slab are free: the epilogue's tile over them
+
+  float* so = reinterpret_cast<float*>(smem);
+  {
+    const int g = lane >> 2, tq = lane & 3, row = 16 * warp + g;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = 8 * n + 2 * tq;
+      *reinterpret_cast<float2*>(so + row * kSmallPitchO + col) =
+          make_float2(acc[0][n][0], acc[0][n][1]);
+      *reinterpret_cast<float2*>(so + (row + 8) * kSmallPitchO + col) =
+          make_float2(acc[0][n][2], acc[0][n][3]);
+    }
+  }
+  __syncthreads();
+  const float* bo = PAIR ? bias2 : bias;
+  for (int i = tid; i < nrows * NT; i += kSmallThreads) {  // 8 channels of a row
+    const int r = i / NT, c = 8 * (i - r * NT);
+    float v[8], s[8], x[8];
+    load8(x, so + r * kSmallPitchO + c);
+    load8(s, bo + c);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = ((mode & 8) ? round_op<Op>(x[q]) : x[q]) + s[q];
+    if (res != nullptr) {
+      load8(x, pre_res + 8 * i);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] += x[q];
+    }
+    const size_t o = o0 + 8 * (size_t)i;
+    if (y != nullptr) store8(y + o, v);
+    if (act != nullptr) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) s[q] = lrelu(v[q]);
+      store8(act + o, s);
+    }
+    if (mode & 3) {
+      if ((mode & 3) == 2) load8(x, pre_acc + 8 * i);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) s[q] = (mode & 3) == 2 ? x[q] + scale * v[q] : scale * v[q];
+      if (mode & 4) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) s[q] = lrelu(s[q]);
+        store8(reinterpret_cast<Op*>(acc_out) + o, s);
+      } else {
+        store8(reinterpret_cast<float*>(acc_out) + o, s);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the plan and the launches
 // ---------------------------------------------------------------------------
 
@@ -924,47 +1179,61 @@ int narrow_group(int Co) {
   return g;
 }
 
-enum Route { kInstance, kFfma, kMma };
+enum Route { kSmall, kFfma, kMma };
 
-// The plan of one launch. kInstance, narrow_conv_kernel (Co 8 or 16, Ci a
-// multiple of 8; a pair): kc 16 where it divides Ci, else 8. kFfma,
-// narrow_group_kernel (Co < 8): G = narrow_group(Co), kc 16 where it
-// divides Ci, else 8 where it does, else min(16, Ci), halved rounding up
-// while the slice does not fit the shared memory; rows_p: the operand's
-// rows a slice, odd (the staging's column writes then fall on distinct
-// banks). kMma, narrow_mma_kernel (every other shape): the MmaPlan (its
-// ct the kernel's instance, the wgmma's n8 tiles). Nothing but grid y
-// depends on B.
+// The plan of one launch. kSmall, narrow_small_kernel (Ci and Co 8 or 16;
+// the pair, its K at most 2 kSmallLead + 1): the slab's rows and pitch, the
+// copy's size, the shared memory's offsets (smem: both epilogue tiles; a
+// launch takes those it reads). kFfma, narrow_group_kernel (Co < 8): G =
+// narrow_group(Co), kc 16 where it divides Ci, else 8 where it does, else
+// min(16, Ci), halved rounding up while the slice does not fit the shared
+// memory; rows_p: the operand's rows a slice, odd (the staging's column
+// writes then fall on distinct banks). kMma, narrow_mma_kernel (every other
+// shape): the MmaPlan (its ct the kernel's instance, the wgmma's n8 tiles).
+// Nothing but grid y depends on B.
 struct NarrowPlan {
   Route route;
   int group, kc, rows_p;
+  SmallPlan small;
   MmaPlan mma;
   size_t smem;
   dim3 grid;
 };
 
 int narrow_plan(int B, int T, int Ci, int Co, int K, int dil, bool pair, int es, NarrowPlan* p) {
-  const bool instance = (Co == 8 || Co == 16) && Ci % 8 == 0;
-  p->route = instance ? kInstance : Co < 8 ? kFfma : kMma;
+  const bool small = (Co == 8 || Co == 16) && (Ci == 8 || Ci == 16);
+  p->route = small ? kSmall : Co < 8 ? kFfma : kMma;
   if (B < 1 || B > 65535 || T < 1 || Ci < 1 || Co < 1 || K < 1 || K % 2 == 0 || dil < 1 ||
-      (pair && (Ci != Co || !instance)))
+      (pair && (Ci != Co || !small || K > 2 * kSmallLead + 1)))
     return (int)cudaErrorInvalidValue;
   const long long halo = (long long)dil * (K - 1);
   if (halo >= (1 << 29)) return (int)cudaErrorInvalidValue;
-  if (p->route != kMma) {
-    p->group = instance ? Co : narrow_group(Co);
-    const int bt = kThreads * (instance ? kAccum / p->group : kFfmaRows);
-    const int bmo = pair ? bt - (K - 1) : bt;
-    if (bmo < 1) return (int)cudaErrorInvalidValue;
+  if (p->route == kSmall) {
+    SmallPlan& s = p->small;
+    s.rows = (pair ? kSmallRows + 2 * kSmallLead : kSmallRows) + (int)halo;
+    s.pitch = (Ci * es / 16) | 1;
+    s.w_units = K * (Co / 8) * (es == 4 ? Ci / 8 : 1) * 32 * (es == 4 ? 4 : Ci / 4) * es / 16;
+    s.slab_off = (pair ? 2 : 1) * s.w_units * 16;
+    const size_t body = (size_t)s.slab_off + (size_t)s.rows * s.pitch * 16;
+    s.pre_off = (int)std::min(std::max(body, (size_t)kSmallRows * kSmallPitchO * sizeof(float)),
+                              kMaxSmem + 1);
+    p->smem = s.pre_off + 2 * (size_t)kSmallRows * Co * sizeof(float);
+    if (p->smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    p->grid = dim3((T + kSmallRows - 1) / kSmallRows, B, 1);
+    return 0;
+  }
+  if (p->route == kFfma) {
+    p->group = narrow_group(Co);
+    const int bt = kThreads * kFfmaRows;
     p->rows_p = (int)((bt + halo) | 1);
     p->kc = Ci % 16 == 0 ? 16 : Ci % 8 == 0 ? 8 : (Ci < 16 ? Ci : 16);
     auto smem = [&](int kc) {
       return ((size_t)kc * K * p->group + (size_t)kc * p->rows_p) * sizeof(float);
     };
-    while (!instance && p->kc > 1 && smem(p->kc) > kMaxSmem) p->kc = (p->kc + 1) / 2;
+    while (p->kc > 1 && smem(p->kc) > kMaxSmem) p->kc = (p->kc + 1) / 2;
     p->smem = smem(p->kc);
     if (p->smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-    p->grid = dim3((T + bmo - 1) / bmo, B, 1);
+    p->grid = dim3((T + bt - 1) / bt, B, 1);
     return 0;
   }
   const int kt = es == 4 ? 8 : 16, epu = 16 / es, planes = es == 4 ? 2 : 1;
@@ -1035,17 +1304,19 @@ int allow_smem(Kernel kernel, size_t smem, size_t& allowed) {
   return 0;
 }
 
-template <typename Op, int CO, bool PAIR>
-int launch_narrow(const NarrowPlan& p, const void* a, const void* wt, const void* bias,
-                  const void* wt2, const void* bias2, const void* res, const void* acc_in,
-                  void* acc_out, void* y, void* act, int T, int Ci, int K, int dil, int mode,
-                  float scale, cudaStream_t stream) {
+template <typename Op, int CI, int CO, bool PAIR>
+int launch_small(const NarrowPlan& p, const void* a, const void* wt, const void* bias,
+                 const void* wt2, const void* bias2, const void* res, const void* acc_in,
+                 void* acc_out, void* y, void* act, int T, int K, int dil, int mode, float scale,
+                 cudaStream_t stream) {
   static size_t allowed = 48 * 1024;
-  if (const int err = allow_smem(narrow_conv_kernel<Op, CO, PAIR>, p.smem, allowed)) return err;
-  narrow_conv_kernel<Op, CO, PAIR><<<p.grid, kThreads, p.smem, stream>>>(
+  const int tiles = (res != nullptr) + ((mode & 3) == 2);  // the epilogue tiles it reads
+  const size_t smem = p.small.pre_off + (size_t)tiles * kSmallRows * CO * sizeof(float);
+  if (const int err = allow_smem(narrow_small_kernel<Op, CI, CO, PAIR>, smem, allowed)) return err;
+  narrow_small_kernel<Op, CI, CO, PAIR><<<p.grid, kSmallThreads, smem, stream>>>(
       (const Op*)a, (const Op*)wt, (const float*)bias, (const Op*)wt2, (const float*)bias2,
-      (const float*)res, (const float*)acc_in, acc_out, (float*)y, (Op*)act, T, Ci, K, dil, p.kc,
-      p.rows_p, mode, scale);
+      (const float*)res, (const float*)acc_in, acc_out, (float*)y, (Op*)act, T, K, dil, mode, scale,
+      p.small);
   return (int)cudaGetLastError();
 }
 
@@ -1073,7 +1344,7 @@ int launch_mma(const NarrowPlan& p, const void* a, const void* wt, const void* b
   return (int)cudaGetLastError();
 }
 
-// one conv, or with wt2 a fused ResBlock1 pair (see narrow_conv_kernel)
+// one conv, or with wt2 a fused ResBlock1 pair (see narrow_small_kernel)
 template <typename Op>
 int launch_narrow_mrf(const void* a, const void* wt, const void* bias, const void* wt2,
                       const void* bias2, const void* res, const void* acc_in, void* acc_out,
@@ -1090,15 +1361,20 @@ int launch_narrow_mrf(const void* a, const void* wt, const void* bias, const voi
   NarrowPlan p;
   const int err = narrow_plan(B, T, Ci, Co, K, dil, pair, (int)sizeof(Op), &p);
   if (err) return err;
-#define T2_NARROW(CO_, PAIR_)                                                                   \
-  if (p.route == kInstance && Co == CO_ && pair == PAIR_)                                       \
-    return launch_narrow<Op, CO_, PAIR_>(p, a, wt, bias, wt2, bias2, res, acc_in, acc_out, y, act, \
-                                         T, Ci, K, dil, mode, scale, stream);
-  T2_NARROW(16, false)
-  T2_NARROW(8, false)
-  T2_NARROW(16, true)
-  T2_NARROW(8, true)
-#undef T2_NARROW
+  if (p.route == kSmall)  // its copies and operand come by 16-byte cp.async, its biases by float4
+    for (const void* q : {a, wt, wt2, bias, bias2})
+      if ((uintptr_t)q & 15) return (int)cudaErrorInvalidValue;
+#define T2_SMALL(CI_, CO_, PAIR_)                                                               \
+  if (p.route == kSmall && Ci == CI_ && Co == CO_ && pair == PAIR_)                             \
+    return launch_small<Op, CI_, CO_, PAIR_>(p, a, wt, bias, wt2, bias2, res, acc_in, acc_out, y, \
+                                             act, T, K, dil, mode, scale, stream);
+  T2_SMALL(16, 16, false)
+  T2_SMALL(8, 8, false)
+  T2_SMALL(8, 16, false)
+  T2_SMALL(16, 8, false)
+  T2_SMALL(16, 16, true)
+  T2_SMALL(8, 8, true)
+#undef T2_SMALL
 #define T2_GROUP(G_)                                                                            \
   if (p.route == kFfma && p.group == G_)                                                        \
     return launch_group<Op, G_>(p, a, wt, bias, res, acc_in, acc_out, y, act, T, Ci, Co, K, dil, \
@@ -1125,10 +1401,11 @@ int launch_narrow_mrf(const void* a, const void* wt, const void* bias, const voi
 extern "C" {
 
 // a (B, T, Ci) bf16 = bf16(lrelu(x)), wt the copy of a (K, Co, Ci) conv of
-// dilation dil that ops/mrf.py::tile_conv makes for its route (the
-// tensor-core route's (K, 1, Co8, Ci_pad), else (Ci, K, Co)): v =
-// conv_dil(a) + bias (+ res), SAME; y, act and acc_out where given (mode as
-// narrow_conv_kernel); any Co and Ci >= 1
+// dilation dil that ops/mrf.py::tile_conv makes for its route (the small
+// route's fragments (K, Co / 8, 1, 32, Ci / 4), narrow_mma_kernel's (K, 1,
+// Co8, Ci_pad), else (Ci, K, Co)): v = conv_dil(a) + bias (+ res), SAME; y,
+// act and acc_out where given (mode as narrow_group_kernel); any Co and Ci
+// >= 1
 int t2_narrow_conv(const void* a, const void* wt, const void* bias, const void* res,
                    const void* acc_in, void* acc_out, void* y, void* act, int B, int T, int Ci,
                    int Co, int K, int dil, int mode, float scale, void* stream) {
@@ -1148,8 +1425,9 @@ int t2_narrow_pair(const void* a, const void* wt1, const void* bias1, const void
                                  C, K, dil, mode, scale, (cudaStream_t)stream);
 }
 
-// t2_narrow_conv on f32 operands and weights (the tensor-core route's copy
-// (K, 2, Co8, Ci_pad): hi and lo planes), act and an acc_out operand f32
+// t2_narrow_conv on f32 operands and weights (the tensor-core routes'
+// copies with hi and lo planes: (K, Co / 8, Ci / 8, 32, 4), (K, 2, Co8,
+// Ci_pad)), act and an acc_out operand f32
 int t2_narrow_conv_f32(const void* a, const void* wt, const void* bias, const void* res,
                        const void* acc_in, void* acc_out, void* y, void* act, int B, int T,
                        int Ci, int Co, int K, int dil, int mode, float scale, void* stream) {

@@ -91,17 +91,19 @@ else none, ``mrf_pallas.py:440``). Every conv of another shape -- HiFi-GAN
 V2's stages 3 and 4 at 16 and 8 channels and its last upsample to 2 x 8,
 stages at 4, 2 or 1 channels, widths off 32 (200, 100, 50, 25), a
 ``conv_pre`` from a num_mels off 8 -- launches the narrow kernel instead, in
-the weights' type, on one of three routes (``narrow_plan``): at Co >= 8 an
-implicit GEMM on the tensor cores (``narrow_mma``: ``wgmma`` with the
-operand's fragments in registers, bf16, or f32 as the three-pass TF32 split,
-from a copy (K, planes, Co8, Ci_pad) padded with zeros to n8 tiles and the k
-tile, ``mma_pads``); V2's shapes (Co 8 or
-16 with Ci a multiple of 8, and the fused pair) on the kernel that first
-ran them, and Co < 8 on the CUDA cores (FFMA, f32 sums in one fixed order
-per output), both from a weight copy (Ci, K, Co) (``tile_conv``). Its
-launches count as ``narrow_conv``, ``narrow_pair`` (C in ``PAIR_C`` only)
-and ``narrow_transpose`` (``launch_key``; a ``conv_pre`` of such a shape as
-``narrow_conv``), ``_f32`` in ``F32_LAUNCHES``.
+the weights' type, on one of three routes (``narrow_plan``), the first two on
+the tensor cores (``narrow_mma``), bf16 or f32 as the three-pass TF32 split:
+at Ci and Co in ``PAIR_C`` (V2's shapes, and the fused pair) the small route
+(``narrow_small``: ``mma.sync`` in blocks of 128 outputs, the whole weight
+copy resident, from a copy in the B fragments' order, ``small_layout``); at
+every other shape of Co >= 8 ``wgmma`` with the operand's fragments in
+registers, from a copy (K, planes, Co8, Ci_pad) padded with zeros to n8
+tiles and the k tile (``mma_pads``); below 8 output channels the CUDA cores
+(FFMA, f32 sums in one fixed order per output) from a copy (Ci, K, Co)
+(``tile_conv``). Its launches count as ``narrow_conv``, ``narrow_pair`` (C
+in ``PAIR_C`` only) and ``narrow_transpose`` (``launch_key``; a
+``conv_pre`` of such a shape as ``narrow_conv``), ``_f32`` in
+``F32_LAUNCHES``.
 
 JAX's XLA routes. Where the JAX package runs XLA instead of a Pallas
 kernel, the port runs stock PyTorch ops, counted in ``STOCK_ROUTES``: an
@@ -120,6 +122,7 @@ tensor launches the kernel of its shape's route or raises.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -216,11 +219,28 @@ def wide(Co: int, Ci: int) -> bool:
 
 def narrow_mma(Co: int, Ci: int) -> bool:
     """Whether convs from ``Ci`` to ``Co`` channels run on the narrow
-    kernel's tensor-core route (``csrc/mrf_narrow.cu::narrow_mma_kernel``):
-    not ``wide``, Co >= 8, and not one of V2's shapes (Co in ``PAIR_C`` with
-    Ci a multiple of 8: ``narrow_conv_kernel``). Below 8 output channels
-    the narrow kernel runs on the CUDA cores."""
-    return not wide(Co, Ci) and Co >= 8 and not (Co in PAIR_C and Ci % 8 == 0)
+    kernel's tensor cores: not ``wide`` and Co >= 8 (``narrow_small``'s
+    route, else ``csrc/mrf_narrow.cu::narrow_mma_kernel``). Below 8 output
+    channels the narrow kernel runs on the CUDA cores."""
+    return not wide(Co, Ci) and Co >= 8
+
+
+def narrow_small(Co: int, Ci: int) -> bool:
+    """Whether convs from ``Ci`` to ``Co`` channels run on the narrow
+    kernel's small route (``csrc/mrf_narrow.cu::narrow_small_kernel``, the
+    fused pair's): Ci and Co both in ``PAIR_C``."""
+    return Co in PAIR_C and Ci in PAIR_C
+
+
+def small_layout(Co: int, Ci: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, ...]:
+    """The small route's copy's shape past its taps: (n8 tiles, k steps, 32
+    lanes, elements a lane), a (tap, n8 tile, k step)'s B fragments of
+    ``mma.sync`` side by side. bf16: one k step of Ci (m16n8k16 at 16,
+    m16n8k8 at 8), Ci / 4 elements a lane; f32: Ci / 8 steps of m16n8k8
+    TF32, a lane's two hi and two lo elements."""
+    if dtype == torch.float32:
+        return Co // 8, Ci // 8, 32, 4
+    return Co // 8, 1, 32, Ci // 4
 
 
 def mma_pads(Co: int, Ci: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
@@ -255,11 +275,23 @@ def tile_offset(j, co, ci, K: int, Co: int, Ci: int, dtype: torch.dtype = torch.
     operand, 16-byte groups of input channels of rows of NI: bf16 [KC /
     8][NI][8]; f32 the ``plane`` (0 hi, 1 lo: ``tf32_split``) of two such
     tiles side by side, [2][KC / 4][NI][4]. The narrow kernel's tensor-core
-    route (``narrow_mma``): (K, planes, Co8, Ci_pad), a tap's plane one
-    [output channel][input channel] matrix whose rows a weight step copies
-    16 bytes at a time (planes 2 in f32, hi and lo, else 1; ``mma_pads``).
-    Its other routes (no planes): (Ci, K, Co), a slice's channels one run,
-    each (channel, tap) its Co weights side by side."""
+    routes: the small route's (``narrow_small``) in the B fragments' order of
+    ``mma.sync``, (K, n8 tiles, k steps, 32 lanes, elements) (``small_layout``):
+    w[j, co, ci] is element e of lane 4 (co % 8) + t of (j, co // 8, k step),
+    bf16 t = (ci % 8) // 2, e = 2 (ci // 8) + ci % 2; f32 (k steps of 8) t =
+    ci % 4, e = 2 plane + (ci % 8) // 4; ``narrow_mma_kernel``'s (K,
+    planes, Co8, Ci_pad), a tap's plane one [output channel][input channel]
+    matrix whose rows a weight step copies 16 bytes at a time (planes 2 in
+    f32, hi and lo, else 1; ``mma_pads``). Its CUDA cores' route (no planes):
+    (Ci, K, Co), a slice's channels one run, each (channel, tap) its Co
+    weights side by side."""
+    if narrow_small(Co, Ci):
+        nt, ks, _, E = small_layout(Co, Ci, dtype)
+        if dtype == torch.float32:
+            s, t, e = ci // 8, ci % 4, 2 * plane + (ci % 8) // 4
+        else:
+            s, t, e = 0, (ci % 8) // 2, 2 * (ci // 8) + ci % 2
+        return (((j * nt + co // 8) * ks + s) * 32 + 4 * (co % 8) + t) * E + e
     if narrow_mma(Co, Ci):
         co8, cp = mma_pads(Co, Ci, dtype)
         planes = 2 if dtype == torch.float32 else 1
@@ -281,10 +313,20 @@ def tile_conv(w: torch.Tensor) -> torch.Tensor:
     slice; shape (Co / NI, ceil(Ci / KC), K, KC / 8, NI, 8) for bf16 and,
     split once here into hi and lo planes, (Co / NI, ceil(Ci / KC), K, 2,
     KC / 4, NI, 4) for f32. A ring stage's consecutive taps are one run. The
-    narrow kernel's tensor-core route: (K, 1, Co8, Ci_pad) for bf16, (K, 2,
-    Co8, Ci_pad) for f32 (hi, lo), zero past Co and Ci. Its other routes:
-    (Ci, K, Co), in the weights' type."""
+    narrow kernel's small route: its B fragments, (K, Co / 8, k steps, 32,
+    elements), every element a weight (f32 its hi and lo), no pad; its
+    ``narrow_mma_kernel``: (K, 1, Co8, Ci_pad) for bf16, (K, 2, Co8,
+    Ci_pad) for f32 (hi, lo), zero past Co and Ci. Its CUDA cores': (Ci, K,
+    Co), in the weights' type."""
     K, Co, Ci = w.shape
+    if narrow_small(Co, Ci):
+        shape = (K, *small_layout(Co, Ci, w.dtype))
+        j, co, ci = (torch.arange(n, device=w.device).view(v) for n, v in (
+            (K, (K, 1, 1)), (Co, (1, Co, 1)), (Ci, (1, 1, Ci))))
+        out = w.new_zeros(math.prod(shape))
+        for plane, x in enumerate(tf32_split(w) if w.dtype == torch.float32 else (w,)):
+            out[tile_offset(j, co, ci, K, Co, Ci, w.dtype, plane).reshape(-1)] = x.reshape(-1)
+        return out.view(shape)
     if narrow_mma(Co, Ci):
         co8, cp = mma_pads(Co, Ci, w.dtype)
         w = F.pad(w, (0, cp - Ci, 0, co8 - Co))
@@ -541,7 +583,9 @@ def _require_conv(cw: ConvWeights, Ci: int, name: str):
         raise ValueError(f"{name}: the kernels take bf16 or f32 weights, got {dt}")
     if cw.wt is None:
         raise ValueError(f"{name}: the weights have no tiled copy (pack_conv, tile_conv)")
-    if narrow_mma(Co, Ci):
+    if narrow_small(Co, Ci):
+        build.require(cw.wt, dt, (K, *small_layout(Co, Ci, dt)), f"{name}.wt")
+    elif narrow_mma(Co, Ci):
         build.require(cw.wt, dt, (K, 2 if dt == torch.float32 else 1, *mma_pads(Co, Ci, dt)),
                       f"{name}.wt")
     elif not wide(Co, Ci):

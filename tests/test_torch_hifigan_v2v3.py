@@ -227,48 +227,76 @@ NARROW_SHAPES = [(3, 16, 16), (7, 16, 16), (11, 16, 16), (11, 8, 8), (3, 16, 16)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("K,Co,Ci", NARROW_SHAPES)
 def test_narrow_copy_reads_back(K, Co, Ci, dtype):
-    """At 8 or 16 output channels and Ci a multiple of 8 (V2's shapes,
-    ``narrow_conv_kernel``, not the tensor-core route) ``pack_conv`` makes
-    the narrow kernel's copy (Ci, K, Co) in the weights' type (no hi / lo
-    planes in f32: the kernel runs FFMA): every weight read at
-    ``tile_offset`` is the tap-major weight, exactly, each staged slice of
-    kc channels (16 where they divide Ci, else 8: ``narrow_plan``) one run
-    of kc K Co weights in the order ``narrow_conv_kernel`` reads them,
-    (channel, tap, Co)."""
+    """At 8 or 16 output channels and Ci a multiple of 8 the narrow kernel
+    runs on the tensor cores (``narrow_mma``): at Ci 8 or 16 (V2's shapes)
+    the small route, whose copy ``pack_conv`` makes in the B fragments'
+    order, (K, Co / 8, k steps, 32 lanes, elements) (``small_layout``),
+    every element a weight (no pad; f32 its hi and lo planes, adding to the
+    weights bit for bit); at another Ci (80, 24) ``narrow_mma_kernel``'s
+    (K, planes, Co8, Ci_pad). Every weight read at ``tile_offset`` is the
+    tap-major weight, exactly; a tap's fragments are one run, a lane's
+    elements side by side; ``_require_conv`` refuses the CUDA cores' (Ci,
+    K, Co) copy."""
     rng = np.random.default_rng(K * 100 + Co + Ci)
     conv = torch.nn.Conv1d(Ci, Co, K, padding=K // 2)
     with torch.no_grad():
         conv.weight.copy_(torch.as_tensor(rng.standard_normal((Co, Ci, K)).astype(np.float32)))
     cw = mrf.pack_conv(conv, dtype)
-    kc = 16 if Ci % 16 == 0 else 8
-    assert not mrf.wide(Co, Ci) and not mrf.narrow_mma(Co, Ci)
-    with pytest.raises(ValueError):  # no tiles: the narrow kernel's copy is one run
+    f32 = dtype == torch.float32
+    assert not mrf.wide(Co, Ci) and mrf.narrow_mma(Co, Ci)
+    assert mrf.narrow_small(Co, Ci) == (Ci in (8, 16))
+    with pytest.raises(ValueError):  # no tiles of the wide kernels
         mrf.conv_tiles(Co, Ci, dtype)
-    assert cw.wt.dtype == dtype and cw.wt.shape == (Ci, K, Co)
-    assert torch.equal(mrf.read_tiled(cw.wt, K, Co, Ci), cw.w)
-    flat = cw.wt.reshape(-1)
-    for c0 in range(0, Ci, kc):  # a slice: kc K Co consecutive weights
-        run = flat[c0 * K * Co:(c0 + kc) * K * Co].reshape(kc, K, Co)
-        assert torch.equal(run, cw.w[:, :, c0:c0 + kc].permute(2, 0, 1))
-    assert mrf.tile_offset(1, 0, 0, K, Co, Ci, dtype) == Co
-    assert mrf.tile_offset(0, 3, 1, K, Co, Ci, dtype) == K * Co + 3
+    assert cw.wt.dtype == dtype and torch.equal(mrf.read_tiled(cw.wt, K, Co, Ci), cw.w)
+    if f32:
+        hi, lo = mrf.tf32_split(cw.w)
+        assert torch.equal(mrf.read_tiled(cw.wt, K, Co, Ci, 0), hi)
+        assert torch.equal(mrf.read_tiled(cw.wt, K, Co, Ci, 1), lo) and torch.equal(hi + lo, cw.w)
+    if mrf.narrow_small(Co, Ci):
+        shape = (K, Co // 8, Ci // 8 if f32 else 1, 32, 4 if f32 else Ci // 4)
+        assert mrf.small_layout(Co, Ci, dtype) == shape[1:] and cw.wt.shape == shape
+        j, co, ci = (torch.arange(n).view(*[-1 if i == d else 1 for i in range(3)])
+                     for d, n in enumerate((K, Co, Ci)))
+        offs = torch.cat([mrf.tile_offset(j, co, ci, K, Co, Ci, dtype, p).reshape(-1)
+                          for p in range(2 if f32 else 1)])
+        assert torch.equal(offs.sort().values, torch.arange(cw.wt.numel()))  # no pad
+        # lane 4 g + t of (tap, n tile, k step): w[g][2t, 2t + 1 (, 2t + 8, 2t + 9)] in bf16,
+        # w[g][t], w[g][t + 4] of the hi plane then the lo plane in f32
+        lane = cw.wt[1, 0, 0, 4 * 3 + 2]
+        want = ([hi[1, 3, 2], hi[1, 3, 6], lo[1, 3, 2], lo[1, 3, 6]] if f32 else
+                [cw.w[1, 3, c] for c in ((4, 5, 12, 13) if Ci == 16 else (4, 5))])
+        assert torch.equal(lane, torch.stack(want))
+    else:
+        assert cw.wt.shape == (K, 2 if f32 else 1, *mrf.mma_pads(Co, Ci, dtype))
+    require = build.require
+    try:  # the device rule aside: the copy's shape and type
+        build.require = lambda t, dt, shape, name: (
+            None if t.dtype == dt and tuple(t.shape) == tuple(shape) else
+            (_ for _ in ()).throw(ValueError(f"{name}: {tuple(t.shape)}, want {tuple(shape)}")))
+        mrf._require_conv(cw, Ci, "conv")
+        with pytest.raises(ValueError):
+            mrf._require_conv(cw._replace(wt=torch.zeros(Ci, K, Co, dtype=dtype)), Ci, "conv")
+    finally:
+        build.require = require
 
 
 @pytest.mark.parametrize("k,u,Ci,Co", [(4, 2, 16, 8), (4, 2, 8, 4)])
 def test_narrow_upsample_fold(k, u, Ci, Co):
     """V2's last upsample (16 -> 2 x 8) folds into a conv to 16 channels,
-    which the narrow kernel takes (its copy (Ci, K, Co) made by
-    ``fold_upsample`` for V2's instances); a fold to 8 channels (8 -> 2 x
-    4) is taken too, and so is one to 2 x 4 or 2 x 8 from 4 input channels
-    (Ci off 8: the wide kernels and V2's instances do not take it; the
-    tensor-core route's copy (K, planes, Co8, Ci_pad))."""
+    which the narrow kernel's small route takes (its copy in the B
+    fragments' order, ``small_layout``, made by ``fold_upsample``); a fold
+    to 8 channels (8 -> 2 x 4) is taken too, and so is one to 2 x 4 or 2 x
+    8 from 4 input channels (Ci off 8: ``narrow_mma_kernel``'s copy (K,
+    planes, Co8, Ci_pad))."""
     rng = np.random.default_rng(k + Ci)
     w = torch.as_tensor(rng.standard_normal((k, Ci, Co)).astype(np.float32))
     uw = mrf.make_upsample(w, torch.zeros(Co), u, (k - u) // 2)
-    assert not mrf.narrow_mma(u * Co, Ci) and uw.folded.wt.shape == (Ci, 3, u * Co)
+    assert mrf.narrow_small(u * Co, Ci) and uw.folded.wt.shape == (3, *mrf.small_layout(
+        u * Co, Ci, torch.float32))
     assert torch.equal(mrf.read_tiled(uw.folded.wt, 3, u * Co, Ci), uw.folded.w)
     uw4 = mrf.make_upsample(w[:, :4], torch.zeros(Co), u, 1)
     assert not mrf.wide(u * Co, 4) and mrf.narrow_mma(u * Co, 4)
+    assert not mrf.narrow_small(u * Co, 4)
     assert uw4.folded.wt.shape == (3, 2, u * Co, 8)  # f32: hi and lo, Ci to the k tile 8
     assert torch.equal(mrf.read_tiled(uw4.folded.wt, 3, u * Co, 4), uw4.folded.w)
 
@@ -409,11 +437,13 @@ def _const(name: str) -> int:
 def test_narrow_plan_fits_every_v2_conv():
     """``narrow_plan`` of csrc/mrf_narrow.cu in Python, from the source's
     constants: every narrow conv of a V2 vocode (and a ResBlock2 conv of
-    V3's reach, k = 7, d = 12, at the narrow widths) fits the shared memory
-    with the kernel's tile, and a fused pair's intermediate (BT + K - 1
-    rows of Co channels) fits in the staged operand it replaces (kc = Co)."""
-    threads, accum, max_smem = _const("kThreads"), _const("kAccum"), _const("kMaxSmem")
-    assert (threads, accum, max_smem) == (128, 64, 227 * 1024)
+    V3's reach, k = 7, d = 12, at the narrow widths) runs on the small
+    route and fits the shared memory in both types with its whole weight
+    copy (both convs' for a pair), its slab and both epilogue tiles, two
+    blocks an SM; a fused pair's intermediate (its first conv's 9 m16 tiles,
+    128 + 2 kSmallLead rows) fits in the slab it replaces."""
+    rows, lead, max_smem = _const("kSmallRows"), _const("kSmallLead"), _const("kMaxSmem")
+    assert (rows, lead, max_smem) == (128, 8, 227 * 1024)
     gen = HiFiGAN(HiFiGANConfig.from_dict(CONFIGS["v2"]), F32)
     convs = [(c1, mrf.pair_fusable(c1, c2)) for rbs, _ in gen.kernel_weights() for rb in rbs
              for c1, c2 in rb]
@@ -423,10 +453,13 @@ def test_narrow_plan_fits_every_v2_conv():
     assert len(narrow) == 18 + 1 + 2
     for cw, pair in narrow:
         K, Co, Ci = cw.w.shape
-        bt = threads * (accum // Co)
-        kc = 16 if Ci % 16 == 0 else 8  # narrow_plan's slice at Co 8 or 16, Ci off 16 or 8
-        rows_p = (bt + cw.dilation * (K - 1)) | 1
-        smem = 4 * (kc * K * Co + kc * rows_p)
-        assert smem <= max_smem and bt - (K - 1) >= 1
+        assert mrf.narrow_small(Co, Ci)
+        for dt in (torch.float32, torch.bfloat16):
+            es = 4 if dt == torch.float32 else 2
+            copy = K * math.prod(mrf.small_layout(Co, Ci, dt)) * es * (2 if pair else 1)
+            slab = (rows + (2 * lead if pair else 0) + cw.dilation * (K - 1)) * (
+                (Ci * es // 16) | 1) * 16
+            smem = max(copy + slab, rows * _const("kSmallPitchO") * 4) + 2 * rows * Co * 4
+            assert smem <= _const("kSoftSmem") <= max_smem, (K, Co, Ci, cw.dilation, dt)
         if pair:
-            assert kc == Co == Ci and bt + K - 1 <= rows_p
+            assert Co == Ci and (K - 1) // 2 <= lead

@@ -413,44 +413,56 @@ def _const(name: str) -> int:
     return math.prod(int(x) for x in expr.split("*"))
 
 
-THREADS, ACCUM, MAX_SMEM = _const("kThreads"), _const("kAccum"), _const("kMaxSmem")
+THREADS, MAX_SMEM = _const("kThreads"), _const("kMaxSmem")
 FFMA_ROWS, MMA_ROWS, MMA_TILES = _const("kFfmaRows"), _const("kMmaRows"), _const("kMmaTiles")
 MMA_THREADS = _const("kMmaThreads")
 RING, FILL_BLOCKS = _const("kRing"), _const("kFillBlocks")
 SOFT_SMEM, STEP_TILES = _const("kSoftSmem"), _const("kStepTiles")
+SMALL_THREADS, SMALL_ROWS = _const("kSmallThreads"), _const("kSmallRows")
+SMALL_LEAD, SMALL_PITCH_O = _const("kSmallLead"), _const("kSmallPitchO")
 
 
 def _plan(Co: int, Ci: int, K: int, dilation: int, pair: bool = False, B: int = 1,
           T: int = 1024, es: int = 4, max_smem: int = MAX_SMEM) -> dict:
     """``csrc/mrf_narrow.cu::narrow_plan`` in Python, from the source's
-    constants, for operands of ``es`` bytes: the route ("instance": PR
-    20's ``narrow_conv_kernel`` at Co in ``PAIR_C`` with Ci a multiple of
-    8, the pair's only one; "ffma": ``narrow_group_kernel`` below 8 output
-    channels; "mma": ``narrow_mma_kernel``), the CUDA cores' group, slice
-    and rows, or the tensor-core route's pads, chunks, steps, pitches and
-    ring; the shared memory in bytes and the grid; ValueError where the
-    kernel refuses the shape. ``max_smem`` stands in for the card's 227 KB
-    (a smaller one forces the operand into chunks)."""
-    instance = Co in mrf.PAIR_C and Ci % 8 == 0
-    route = "instance" if instance else "ffma" if Co < 8 else "mma"
-    if pair and (Ci != Co or not instance) or K % 2 == 0:
+    constants, for operands of ``es`` bytes: the route ("small":
+    ``narrow_small_kernel`` at Ci and Co in ``PAIR_C``, the pair's only one;
+    "ffma": ``narrow_group_kernel`` below 8 output channels; "mma":
+    ``narrow_mma_kernel``), the small route's slab rows, pitch, copy size and
+    offsets, the CUDA cores' group, slice and rows, or the tensor-core
+    route's pads, chunks, steps, pitches and ring; the shared memory in
+    bytes (the small route's with both epilogue tiles) and the grid;
+    ValueError where the kernel refuses the shape. ``max_smem`` stands in
+    for the card's 227 KB (a smaller one forces the operand into chunks)."""
+    small = mrf.narrow_small(Co, Ci)
+    route = "small" if small else "ffma" if Co < 8 else "mma"
+    if pair and (Ci != Co or not small or K > 2 * SMALL_LEAD + 1) or K % 2 == 0:
         raise ValueError(f"the narrow kernel does not take K={K}, Ci={Ci}, Co={Co}, pair={pair}")
     halo = dilation * (K - 1)
-    if route != "mma":
-        group = Co if instance else 1 << (Co - 1).bit_length()
-        bt = THREADS * (ACCUM // group if instance else FFMA_ROWS)
-        bmo = bt - (K - 1) if pair else bt
-        if bmo < 1:
-            raise ValueError("the pair's halo fills the block")
+    if route == "small":
+        rows = (SMALL_ROWS + 2 * SMALL_LEAD if pair else SMALL_ROWS) + halo
+        pitch = (Ci * es // 16) | 1
+        w_units = K * math.prod(mrf.small_layout(Co, Ci, torch.float32 if es == 4 else
+                                                 torch.bfloat16)) * es // 16
+        slab_off = (2 if pair else 1) * w_units * 16
+        pre_off = max(slab_off + rows * pitch * 16, SMALL_ROWS * SMALL_PITCH_O * 4)
+        smem = pre_off + 2 * SMALL_ROWS * Co * 4
+        if smem > max_smem:
+            raise ValueError(f"the small route's slab does not fit: K={K}, dilation={dilation}")
+        return {"route": route, "rows": rows, "pitch": pitch, "w_units": w_units,
+                "slab_off": slab_off, "pre_off": pre_off, "smem": smem,
+                "grid": (-(-T // SMALL_ROWS), B, 1)}
+    if route == "ffma":
+        group, bt = 1 << (Co - 1).bit_length(), THREADS * FFMA_ROWS
         rows_p = (bt + halo) | 1
         kc = 16 if Ci % 16 == 0 else 8 if Ci % 8 == 0 else min(16, Ci)
         smem = lambda kc: 4 * (kc * K * group + kc * rows_p)
-        while not instance and kc > 1 and smem(kc) > max_smem:
+        while kc > 1 and smem(kc) > max_smem:
             kc = (kc + 1) // 2
         if smem(kc) > max_smem:
             raise ValueError(f"the narrow kernel's rows do not fit: K={K}, dilation={dilation}")
         return {"route": route, "group": group, "kc": kc, "rows_p": rows_p, "smem": smem(kc),
-                "grid": (-(-T // bmo), B, 1)}
+                "grid": (-(-T // bt), B, 1)}
     kt, epu, planes = (8, 4, 2) if es == 4 else (16, 8, 1)
     max_tiles = MMA_TILES
     ci_pad, co_pad = -(-Ci // kt) * kt, -(-Co // 8) * 8
@@ -509,17 +521,20 @@ def _c2_convs():
 
 def test_narrow_plan_mirrors_the_source():
     """``narrow_plan`` of the source in Python (``_plan``, from its
-    constants): Co 8 and 16 at Ci a multiple of 8 keep V2's
-    ``narrow_conv_kernel`` instances (and the pair, only at ``PAIR_C``),
-    Co < 8 a ``narrow_group_kernel`` of each group width on the CUDA cores,
-    every other shape a ``narrow_mma_kernel`` of a wgmma N of 8 to 64
-    (``mrf.narrow_mma``), and every narrow conv of the smoke's C2
-    generators fits the shared memory in both types at 1 and 16 rows."""
-    assert (THREADS, ACCUM, MAX_SMEM, FFMA_ROWS) == (128, 64, 227 * 1024, 1)
+    constants): Ci and Co in ``PAIR_C`` a ``narrow_small_kernel`` instance
+    of each (Ci, Co) (and the pair, only at Ci = Co), Co < 8 a
+    ``narrow_group_kernel`` of each group width on the CUDA cores, every
+    other shape (Co 8 or 16 from other Ci too) a ``narrow_mma_kernel`` of a
+    wgmma N of 8 to 64 (``mrf.narrow_mma``: both tensor-core routes), and
+    every narrow conv of the smoke's C2 generators fits the shared memory in
+    both types at 1 and 16 rows."""
+    assert (THREADS, MAX_SMEM, FFMA_ROWS) == (128, 227 * 1024, 1)
     assert (MMA_ROWS, MMA_TILES, RING, FILL_BLOCKS) == (128, 8, 3, 132)
     assert (SOFT_SMEM, STEP_TILES, MMA_THREADS) == (113 * 1024, 8, 256)
-    v2 = set(re.findall(r"T2_NARROW\((\d+), (true|false)\)", SRC))
-    assert v2 == {("16", "false"), ("8", "false"), ("16", "true"), ("8", "true")}
+    assert (SMALL_THREADS, SMALL_ROWS, SMALL_LEAD, SMALL_PITCH_O) == (256, 128, 8, 24)
+    small = set(re.findall(r"T2_SMALL\((\d+), (\d+), (true|false)\)", SRC))
+    assert small == {("16", "16", "false"), ("8", "8", "false"), ("8", "16", "false"),
+                     ("16", "8", "false"), ("16", "16", "true"), ("8", "8", "true")}
     assert set(re.findall(r"T2_GROUP\((\d+)\)", SRC)) == {"8", "4", "2", "1"}
     assert set(re.findall(r"T2_MMA\((\d+)\)", SRC)) == {"8", "4", "2", "1"}
     routes = set()
@@ -529,21 +544,22 @@ def test_narrow_plan_mirrors_the_source():
             for B in SMOKE.C2_ROWS:
                 plan = _plan(Co, Ci, K, cw.dilation, pair, B, T, es)
                 assert plan["smem"] <= MAX_SMEM
-                assert (plan["route"] == "mma") == mrf.narrow_mma(Co, Ci)
-                assert (plan["route"] == "ffma") == (Co < 8)
+                assert (plan["route"] != "ffma") == mrf.narrow_mma(Co, Ci) == (Co >= 8)
+                assert (plan["route"] == "small") == mrf.narrow_small(Co, Ci)
                 routes.add(plan["route"])
                 if plan["route"] == "mma":  # the prefetch only where two blocks an SM fit
                     assert not plan["pre_off"] or plan["smem"] <= SOFT_SMEM
                     assert plan["ct"] in (1, 2, 4, 8)
-    assert routes == {"instance", "ffma", "mma"}
+    assert routes == {"small", "ffma", "mma"}
     big = _plan(1, 64, 11, 5)
     assert big["group"] == 1 and big["route"] == "ffma" and big["smem"] <= MAX_SMEM
-    assert _plan(16, 80, 7, 1)["route"] == "instance" and _plan(16, 100, 7, 1)["route"] == "mma"
+    assert _plan(16, 16, 7, 1)["route"] == "small" and _plan(8, 16, 3, 1)["route"] == "small"
+    assert _plan(16, 80, 7, 1)["route"] == "mma" and _plan(16, 100, 7, 1)["route"] == "mma"
     assert _plan(8, 4, 3, 1)["route"] == "mma" and _plan(7, 64, 3, 1)["group"] == 8
-    with pytest.raises(ValueError):
-        _plan(24, 24, 3, 1, pair=True)
-    with pytest.raises(ValueError):
-        _plan(16, 4, 3, 1, pair=True)
+    assert _plan(16, 16, 17, 1, pair=True)["route"] == "small"
+    for shape in ((24, 24, 3), (16, 4, 3), (16, 8, 3), (16, 80, 3), (16, 16, 19)):
+        with pytest.raises(ValueError):  # no pair off PAIR_C, past K = 2 kSmallLead + 1
+            _plan(*shape, 1, pair=True)
 
 
 def test_narrow_plan_fills_the_card_at_one_row():
@@ -577,16 +593,75 @@ def test_narrow_plan_does_not_follow_the_batch():
     """Nothing in the plan but grid y (the batch rows) depends on B: each
     output's sum runs over the same (chunk, tap, k tile) or (channel, tap)
     order at every batch, so rows of a batch equal the rows alone."""
-    for cw, pair, T in _c2_convs():
+    routes = set()
+    for cw, pair, T in _c2_convs() + _v2_convs():
         K, Co, Ci = cw.w.shape
         for es in (4, 2):
             one = _plan(Co, Ci, K, cw.dilation, pair, 1, T, es)
+            routes.add((one["route"], pair))
             for B in (2, 16, 64):
                 many = _plan(Co, Ci, K, cw.dilation, pair, B, T, es)
                 assert many["grid"][1] == B
                 assert {k: v for k, v in many.items() if k != "grid"} == {
                     k: v for k, v in one.items() if k != "grid"}
                 assert many["grid"][::2] == one["grid"][::2]
+    assert routes == {("small", True), ("small", False), ("mma", False), ("ffma", False)}
+
+
+V2_FRAMES = 384  # the say's vocode bucket of V2 (phase 4l)
+
+
+def _v2_convs():
+    """Every conv of HiFi-GAN V2 that the narrow kernel runs, with the frames
+    of its stage at V2_FRAMES mel frames: [(cw, pair, T)] (each pair once,
+    as its first conv)."""
+    gen = HiFiGAN(HiFiGANConfig.from_dict(SMOKE.HIFIGAN_V2), F32)
+    out, T = [], V2_FRAMES
+    for rbs, ups in gen.kernel_weights():
+        out.append((ups.folded, False, T))
+        T *= ups.stride
+        out += [(c1, mrf.pair_fusable(c1, c2), T) for rb in rbs for c1, c2 in rb]
+    return [(cw, pair, T) for cw, pair, T in out if not mrf.wide(*cw.w.shape[1:])]
+
+
+def test_small_plan_fills_the_card_at_one_row():
+    """At one row the small route's blocks of 128 outputs fill the card:
+    V2's stages 3-4 at the say's 384-frame bucket (T = 49,152 and 98,304;
+    its 18 pairs and its last upsample's fold 16 -> 2 x 8) launch at least
+    ``kFillBlocks`` blocks, ``c2_deep``'s C = 16 / 8 pairs and folds at a
+    128-frame bucket at least 16."""
+    v2 = _v2_convs()
+    assert len(v2) == 19 and sum(pair for _, pair, _ in v2) == 18
+    for cw, pair, T in v2:
+        K, Co, Ci = cw.w.shape
+        for es in (4, 2):
+            plan = _plan(Co, Ci, K, cw.dilation, pair, 1, T, es)
+            assert plan["route"] == "small" and math.prod(plan["grid"]) >= FILL_BLOCKS, plan
+    deep = [(cw, pair, T) for cw, pair, T in _c2_convs() if mrf.narrow_small(*cw.w.shape[1:])]
+    assert {cw.w.shape[1] for cw, _, _ in deep} == {16, 8} and any(p for _, p, _ in deep)
+    for cw, pair, T in deep:
+        K, Co, Ci = cw.w.shape
+        for es in (4, 2):
+            assert math.prod(_plan(Co, Ci, K, cw.dilation, pair, 1, T, es)["grid"]) >= 16
+
+
+def test_small_plan_fits_every_v2_and_c2_shape():
+    """The small route's shared memory (both epilogue tiles) is at most 227
+    KB at every V2 and C2 shape it takes, in both types, and two blocks fit
+    an SM (113 KB); the pair's slab holds the first conv's 9 m16 tiles and
+    the dilated halo, and its second conv reads only rows it wrote."""
+    for cw, pair, T in _c2_convs() + _v2_convs():
+        K, Co, Ci = cw.w.shape
+        if not mrf.narrow_small(Co, Ci):
+            continue
+        for es in (4, 2):
+            plan = _plan(Co, Ci, K, cw.dilation, pair, 1, T, es)
+            assert plan["smem"] <= SOFT_SMEM <= MAX_SMEM, plan
+            tiles = SMALL_ROWS // 16 + (1 if pair else 0)
+            assert plan["rows"] == 16 * tiles + cw.dilation * (K - 1)
+            if pair:  # the second conv reads rows lead - (K - 1) / 2 .. lead + 127 + (K - 1) / 2
+                assert 0 <= SMALL_LEAD - (K - 1) // 2
+                assert SMALL_LEAD + SMALL_ROWS - 1 + (K - 1) // 2 < 16 * tiles
 
 
 # ---------------------------------------------------------------------------
@@ -802,3 +877,227 @@ def test_mma_route_emulation(case, dtype):
                                      padding=dil * (K - 1) // 2, dilation=dil).transpose(1, 2)
     tol = 1e-5 if dtype == torch.float32 else 1e-7  # bf16: the sums rounded to f32
     assert float(np.abs(got - ref.numpy()).max()) <= tol * float(ref.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# narrow_small_kernel emulated on the CPU: its cp.async staging, ldmatrix
+# lane addresses, mma.sync register fragments (A from the slab, B from the
+# copy), the three TF32 passes, the pair's intermediate over the slab and
+# the epilogue through shared memory, warp by warp as csrc/mrf_narrow.cu
+# runs them, on shared memory that starts as NaN
+# ---------------------------------------------------------------------------
+
+
+def _mma_sync(d, a, b, kind):
+    """mma.sync of one warp, d (32, 4) f32 += A B: ``kind`` "k16" (m16n8k16
+    bf16: a 4 registers, b 2), "k8" (m16n8k8 bf16: a 2, b 1) or "tf32"
+    (m16n8k8: a 4, b 2), the PTX fragment layouts (lane 4 g + t)."""
+    g, t = LANE // 4, LANE % 4
+    if kind == "tf32":
+        A, B = np.zeros((16, 8)), np.zeros((8, 8))
+        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = _tf32(a).T
+        B[t, g], B[t + 4, g] = _tf32(b).T
+    else:
+        kt = 16 if kind == "k16" else 8
+        A, B = np.zeros((16, kt)), np.zeros((kt, 8))
+        for r in range(a.shape[1]):  # a0: rows g, a1: g + 8, a2 / a3: the same at k + 8
+            dr, dc = 8 * (r % 2), 8 * (r // 2)
+            A[g + dr, 2 * t + dc], A[g + dr, 2 * t + dc + 1] = _bf16_pair(a[:, r])
+        for r in range(b.shape[1]):
+            B[2 * t + 8 * r, g], B[2 * t + 8 * r + 1, g] = _bf16_pair(b[:, r])
+    D = A @ B
+    return (d + np.stack([D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t], D[g + 8, 2 * t + 1]],
+                         1)).astype(np.float32)
+
+
+def _small_conv(smem, acc, slab_off, pitch, row0, ntiles, w_off, K, dil, CI, CO, f32):
+    """small_conv: acc (warps, MT, n8 tiles, 32, 4) f32 += the conv's sums,
+    over (tap, k step, pass), A by ldmatrix at the tap's shift, B the
+    lane's fragment of the copy at ``w_off``."""
+    nt, ks, _, E = mrf.small_layout(CO, CI, torch.float32 if f32 else torch.bfloat16)
+    es, x2 = (4, False) if f32 else (2, CI == 8)
+    words = E * es // 4
+    smem32 = smem.view(np.uint32)
+    for warp in range(acc.shape[0]):
+        a_lane = slab_off + ((row0 + warp * 16 + (LANE & 15)) * pitch
+                             + (0 if x2 else LANE >> 4)) * 16
+        for tap in range(K):
+            bw = {(n, s): np.stack([smem32[(w_off + (((tap * nt + n) * ks + s) * 32 + LANE)
+                                             * E * es) // 4 + q] for q in range(words)], 1)
+                  for n in range(nt) for s in range(ks)}
+            for m in range(acc.shape[1]):
+                if warp + 8 * m >= ntiles:
+                    break
+                am = a_lane + (128 * m + tap * dil) * pitch * 16
+                if f32:
+                    part = np.zeros((nt, 32, 4), np.float32)
+                    for s in range(ks):
+                        ah = _ldsm(smem32, am + 2 * s * 16, 4)
+                        h32, hb = _rna(ah.view(np.float32))
+                        lb = _rna((ah.view(np.float32) - h32).astype(np.float32))[1]
+                        for n in range(nt):
+                            w = bw[n, s]
+                            for x, b in ((lb, w[:, 0:2]), (hb, w[:, 2:4]), (hb, w[:, 0:2])):
+                                part[n] = _mma_sync(part[n], x, b, "tf32")
+                    acc[warp, m] = acc[warp, m] + part  # rounded to nearest
+                else:
+                    a_reg = _ldsm(smem32, am, 2 if x2 else 4)
+                    for n in range(nt):
+                        acc[warp, m, n] = _mma_sync(acc[warp, m, n], a_reg, bw[n, 0],
+                                                    "k8" if x2 else "k16")
+
+
+def _to_op(v, f32):
+    """f32 values as the operand type, back in f32."""
+    return v if f32 else torch.from_numpy(v).bfloat16().float().numpy()
+
+
+def _lrelu(v):
+    return np.where(v > 0, v, np.float32(0.1) * v).astype(np.float32)
+
+
+def _emulate_small(a, c1, c2=None, res=None, acc_in=None, scale=0.0, acc_act=False,
+                   round_sum=False, zero_halo=True):
+    """narrow_small_kernel's outputs (y, act, acc_out: (B, T, Co) f32, NaN
+    where not written) and how often each was written, block by block as
+    the source runs them; ``zero_halo`` False leaves the pair's intermediate
+    outside [0, T) as the first conv's values (the planted defect)."""
+    B, T, Ci = a.shape
+    K, Co, _ = c1.w.shape
+    f32, pair = a.dtype == torch.float32, c2 is not None
+    es, dil = (4 if f32 else 2), c1.dilation
+    mode = (0 if acc_in is None and scale == 0.0 else 1 if acc_in is None else 2) + (
+        4 if acc_act else 0) + (8 if round_sum else 0)
+    plan = _plan(Co, Ci, K, dil, pair, B, T, es)
+    tiles = (res is not None) + ((mode & 3) == 2)
+    raw = lambda x: (x if x.dtype == torch.float32 else x.view(torch.int16)).contiguous().numpy(
+    ).view(np.uint8).reshape(-1)
+    a_rows, w1 = raw(a).reshape(B, T, Ci * es), raw(c1.wt)
+    w2 = raw(c2.wt) if pair else None
+    units, pitch, rows = Ci * es // 16, plan["pitch"], plan["rows"]
+    out = {k: np.full((B, T, Co), np.nan, np.float32) for k in ("y", "act", "acc")}
+    written = np.zeros((B, T, Co), int)
+    for bx, b, _ in np.ndindex(*plan["grid"]):
+        smem = np.full(plan["pre_off"] + tiles * SMALL_ROWS * Co * 4, 0xFF, np.uint8)
+        t0 = bx * SMALL_ROWS
+        r0 = t0 - SMALL_LEAD if pair else t0
+        x0, nrows = r0 - dil * (K - 1) // 2, min(SMALL_ROWS, T - t0)
+        smem[:w1.size] = w1
+        if pair:
+            smem[w1.size:2 * w1.size] = w2
+        slab = smem[plan["slab_off"]:plan["slab_off"] + rows * pitch * 16].reshape(rows, -1)
+        for r in range(rows):  # cp.async, zero-filled outside [0, T)
+            t = x0 + r
+            slab[r, :units * 16] = a_rows[b, t] if 0 <= t < T else 0
+        pre = plan["pre_off"]
+        for x in (res, acc_in if (mode & 3) == 2 else None):
+            if x is not None:
+                smem[pre:pre + nrows * Co * 4] = raw(x[b, t0:t0 + nrows])
+                pre += SMALL_ROWS * Co * 4
+        warps = SMALL_THREADS // 32
+        acc = np.zeros((warps, 1, Co // 8, 32, 4), np.float32)
+        if pair:
+            acc1 = np.zeros((warps, 2, Co // 8, 32, 4), np.float32)
+            _small_conv(smem, acc1, plan["slab_off"], pitch, 0, SMALL_ROWS // 16 + 1, 0, K, dil,
+                        Ci, Co, f32)
+            bias = c1.b.numpy()
+            g, tq = LANE // 4, LANE % 4
+            for warp, m, n, h in np.ndindex(warps, 2, Co // 8, 2):
+                if warp + 8 * m >= SMALL_ROWS // 16 + 1:
+                    continue
+                row, col = 16 * (warp + 8 * m) + g + 8 * h, 8 * n + 2 * tq
+                kept = ((r0 + row >= 0) & (r0 + row < T)) | (not zero_halo)
+                for q in range(2):
+                    v = _to_op(_lrelu(acc1[warp, m, n, :, 2 * h + q] + bias[col + q]), f32)
+                    v = np.where(kept, v, np.float32(0))
+                    at = plan["slab_off"] + row * pitch * 16 + (col + q) * es
+                    for lane in range(32):
+                        cell = smem[at[lane]:at[lane] + es]
+                        cell[:] = (v[lane:lane + 1] if f32 else
+                                   torch.from_numpy(v[lane:lane + 1]).bfloat16().view(
+                                       torch.int16).numpy()).view(np.uint8)
+            _small_conv(smem, acc, plan["slab_off"], pitch, SMALL_LEAD - (K - 1) // 2,
+                        SMALL_ROWS // 16, w1.size, K, 1, Co, Co, f32)
+        else:
+            _small_conv(smem, acc, plan["slab_off"], pitch, 0, SMALL_ROWS // 16, 0, K, dil, Ci,
+                        Co, f32)
+        so = smem[:SMALL_ROWS * SMALL_PITCH_O * 4].view(np.float32)
+        g, tq = LANE // 4, LANE % 4
+        for warp, n in np.ndindex(warps, Co // 8):
+            row, col = 16 * warp + g, 8 * n + 2 * tq
+            for e, (dr, dc) in enumerate(((0, 0), (0, 1), (8, 0), (8, 1))):
+                so[(row + dr) * SMALL_PITCH_O + col + dc] = acc[warp, 0, n, :, e]
+        pres = smem[plan["pre_off"]:].view(np.float32)
+        bo = (c2 if pair else c1).b.numpy()
+        for r in range(nrows):
+            x = so[r * SMALL_PITCH_O:r * SMALL_PITCH_O + Co]
+            v = (_to_op(x, f32) if round_sum else x) + bo
+            if res is not None:
+                v = v + pres[r * Co:(r + 1) * Co]
+            t = t0 + r
+            out["y"][b, t], out["act"][b, t] = v, _to_op(_lrelu(v), f32)
+            if mode & 3:
+                s = np.float32(scale) * v
+                if (mode & 3) == 2:
+                    s = pres[tiles // 2 * SMALL_ROWS * Co + r * Co:][:Co] + s
+                out["acc"][b, t] = _to_op(_lrelu(s), f32) if acc_act else s
+            written[b, t] += 1
+    return out, written
+
+
+# (pair, K, Co, Ci, dilation, B, T, res, acc mode): the pairs at 16 and 8
+# (K = 11 at dilation 5: the widest halo) with the residual and both stage
+# means, single convs at every (Ci, Co) of the route (a fold's 3 taps, the
+# sum rounded before the bias), ragged T (a partial last block; the first
+# block reads the SAME padding), one block of T < 128
+SMALL_CASES = [(True, 11, 16, 16, 5, 2, 300, True, 2), (True, 7, 8, 8, 3, 1, 200, True, 5),
+               (True, 3, 16, 16, 1, 1, 100, False, 1), (False, 3, 16, 8, 1, 2, 130, False, 0),
+               (False, 5, 8, 16, 2, 1, 64, True, 8), (False, 11, 16, 16, 1, 1, 257, True, 2),
+               (False, 3, 8, 8, 1, 1, 150, False, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SMALL_CASES, ids=lambda c: f"{'pair' if c[0] else 'conv'}"
+                         f"k{c[1]}co{c[2]}ci{c[3]}d{c[4]}t{c[6]}m{c[8]}")
+def test_small_route_emulation(case, dtype):
+    """The small route's index work, emulated warp by warp on the CPU from
+    shared memory that starts as NaN: every output written exactly once,
+    y, act and the stage mean (or its operand) those of ``mrf_pair_plain`` /
+    ``mrf_conv_plain`` (f32 within K2F_TOL = 1e-5 of each output's max, the
+    three TF32 passes; bf16 within K2_TOL = 5e-3, the intermediate rounded to
+    bf16 from other f32 sums), at both edges of a ragged T; the pair's
+    intermediate left unzeroed outside [0, T) reads at least 10x the
+    limit."""
+    pair, K, Co, Ci, dil, B, T, with_res, mode = case
+    rng = np.random.default_rng(K * 100 + Co * 10 + Ci + T)
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+
+    def conv(d):
+        w = (f(K, Co if d else Co, Ci if d else Co) * 0.3).to(dtype)
+        return mrf.ConvWeights(w, f(Co) * 0.1, d, mrf.tile_conv(w))
+
+    c1 = conv(dil)
+    c2 = conv(1) if pair else None
+    a = mrf.operand(f(B, T, Ci), dtype)
+    res = f(B, T, Co) if with_res else None
+    acc = f(B, T, Co) if mode & 3 == 2 else None
+    scale = 0.25 if mode & 3 else 0.0
+    kw = dict(res=res, acc=acc, acc_scale=scale, want_y=True, want_act=True,
+              acc_act=bool(mode & 4))
+    if pair:
+        ref = mrf.mrf_pair_plain(a, c1, c2, **kw)
+    else:
+        ref = mrf.mrf_conv_plain(a, c1, **kw, round_sum=bool(mode & 8))
+    got, written = _emulate_small(a, c1, c2, res, acc, scale, bool(mode & 4), bool(mode & 8))
+    assert (written == 1).all()
+    tol = 1e-5 if dtype == torch.float32 else 5e-3
+    for name, r in zip(("y", "act", "acc"), ref):
+        if r is None:
+            continue
+        r = r.float().numpy()
+        assert np.isfinite(got[name]).all(), name
+        assert np.abs(got[name] - r).max() <= tol * np.abs(r).max(), name
+    if pair:  # the planted defect: the intermediate's rows outside [0, T) kept
+        bad, _ = _emulate_small(a, c1, c2, res, acc, scale, bool(mode & 4), zero_halo=False)
+        y = ref[0].numpy()
+        assert np.abs(bad["y"] - y).max() >= 10 * tol * np.abs(y).max()
